@@ -1,0 +1,547 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (``nomad_tpu_torch``) on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+Phases, each printed as one JSON line:
+
+1. device   -- the card's name, count and power limit;
+2. build    -- compile every ``nomad_tpu_torch/csrc/*.cu`` with nvcc
+               (ptxas report included);
+3. parity   -- each kernel against its plain PyTorch version on the card,
+               at the main path's shapes and on edge rows;
+4. config_b -- the main path at BASELINE.json config (b) width: 10,000
+               nodes, 100 jobs x 1000 asks, then two follow-up batches
+               against the live placements, through ``schedule_batch``;
+5. cpu_vs_card -- a 2,048-node problem on the card and on the CPU: the
+               placements must be identical;
+6. times    -- each kernel's device time (profiler trace; CUDA events
+               where the trace has none), its plain version's and the
+               bound for the same work on this card; then config (b)'s
+               first batch again, warm: untraced, and under a device-only
+               trace for the device busy time and idle share.
+
+Then the kernel table, the card's name and power limit, and the last
+line ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no
+result, if CUDA is absent, the package is missing or any phase fails.
+Imports nothing of JAX.
+"""
+from __future__ import annotations
+
+import json
+import os
+import random
+import statistics
+import subprocess
+import sys
+import time
+import traceback
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+SEED = 20260
+
+# Kernel-vs-plain tolerance: 2 ulp of float32 at 18, the top of ScoreFit.
+ATOL = 4e-6
+
+# H100 SXM published peaks (NVIDIA data sheet), at a 700 W limit.
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOPS = 67e12
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def smi_name_power() -> str:
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=30)
+        return out.stdout.strip().splitlines()[0] if out.stdout.strip() \
+            else f"nvidia-smi: {out.stderr.strip()}"
+    except (OSError, subprocess.TimeoutExpired) as exc:
+        return f"nvidia-smi unavailable: {exc}"
+
+
+def time_ms(fn, n: int = 100, warmup: int = 10) -> float:
+    """Median of ``n`` single launches, each between two CUDA events."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(n):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+# -- phase 3: kernel parity --------------------------------------------------
+
+def score_inputs(u: int, n: int, seed: int, dev):
+    """Inputs of the score kernel at the main path's layout, with edge
+    rows: padding columns (zero capacity, infeasible), full nodes,
+    denom == 0, and nonzero collisions."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    n_real = n - 112 if n > 256 else n
+    cap = np.zeros((n, 4), np.int32)
+    cap[:n_real] = (4000, 8192, 102400, 150)
+    used = np.zeros((n, 4), np.int32)
+    used[:n_real, 0] = 100 + 500 * rng.integers(0, 8, n_real)
+    used[:n_real, 1] = 256 + 256 * rng.integers(0, 8, n_real)
+    used[:n_real, 2] = 4096
+    full = rng.random(n_real) < 0.05
+    used[:n_real][full] = cap[:n_real][full]
+    denom = np.ones((n, 2), np.float32)
+    denom[:n_real] = (cap[:n_real, :2] - (100, 256)).astype(np.float32)
+    zero = rng.random(n_real) < 0.02
+    denom[:n_real][zero, 0] = 0.0
+    feas = rng.random((u, n)) < 0.9
+    feas[:, n_real:] = False
+    ask = np.tile(np.array([500, 256, 150, 0], np.int32), (u, 1))
+    ask[:, 0] = rng.choice([100, 250, 500], u)
+    penalty = rng.choice([10.0, 20.0], u).astype(np.float32)
+    penalty[::3] = rng.uniform(0.0, 25.0, len(penalty[::3]))
+    coll = (rng.random((u, n)) < 0.1).astype(np.int32) * rng.integers(
+        1, 4, (u, n)).astype(np.int32)
+    t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    return (t(feas), t(used), t(cap), t(denom), t(ask), t(penalty), t(coll))
+
+
+def bit_diff(a, b) -> int:
+    import torch
+
+    return int((a.contiguous().view(torch.int32)
+                != b.contiguous().view(torch.int32)).sum())
+
+
+def phase_parity(dev):
+    import torch
+
+    from nomad_tpu_torch.ops import fused_score, kernels
+
+    seed = kernels.jitter_seed(SEED)
+    cases = [(1, 10112, 0), (1, 10112, 37), (1, 10112, 127), (128, 10112, 0),
+             (3, 700, 5)]
+    rows = []
+    worst = 0.0
+    for u, n, u_off in cases:
+        args = score_inputs(u, n, SEED + u + u_off, dev)
+        got, got_base = fused_score.scored_rows(*args, seed, u_offset=u_off)
+        want, want_base = fused_score.scored_rows_reference(
+            *args, seed, u_offset=u_off)
+        cpu_args = [a.cpu() for a in args]
+        cpu, cpu_base = fused_score.scored_rows_reference(
+            *cpu_args, seed, u_offset=u_off)
+        torch.cuda.synchronize()
+        mask_same = bool(torch.equal(got == -1e30, want == -1e30))
+        live = want != -1e30
+        d = float((got - want)[live].abs().max()) if live.any() else 0.0
+        db = float((got_base - want_base).abs().max())
+        d_cpu = float((got.cpu() - cpu)[live.cpu()].abs().max())
+        row = {"u": u, "n": n, "u_offset": u_off, "mask_identical": mask_same,
+               "max_abs_err": d, "base_max_abs_err": db,
+               "score_bits_differ": bit_diff(got, want),
+               "base_bits_differ": bit_diff(got_base, want_base),
+               "vs_cpu_plain_max_abs_err": d_cpu,
+               "vs_cpu_plain_score_bits_differ": bit_diff(got.cpu(), cpu),
+               "vs_cpu_plain_base_bits_differ": bit_diff(got_base.cpu(),
+                                                         cpu_base),
+               "cells": u * n}
+        rows.append(row)
+        worst = max(worst, d, db)
+        if not mask_same or d > ATOL or db > ATOL:
+            raise AssertionError(f"scored_rows disagrees with its plain "
+                                 f"version: {row}")
+    return {"scored_rows": rows}, worst
+
+
+# -- phase 4: config (b) -----------------------------------------------------
+
+def strip_node(n):
+    n.resources.networks = []
+    if n.reserved is not None:
+        n.reserved.networks = []
+    return n
+
+
+def strip_job(j, count, cpu=None, mem=None):
+    j.task_groups[0].count = count
+    for t in j.task_groups[0].tasks:
+        t.resources.networks = []
+        if cpu is not None:
+            t.resources.cpu = cpu
+        if mem is not None:
+            t.resources.memory_mb = mem
+    return j
+
+
+def capacity_check(nodes, allocs) -> int:
+    """Nodes over capacity on any dimension, recomputed from the
+    placements (reserved + every live alloc)."""
+    use = {n.id: list((n.reserved.as_tuple() if n.reserved else (0,) * 4))
+           for n in nodes}
+    for a in allocs:
+        u = use[a.node_id]
+        for d, v in enumerate(a.resources.as_tuple()):
+            u[d] += v
+    return sum(1 for n in nodes
+               if any(x > c for x, c in zip(use[n.id],
+                                            n.resources.as_tuple())))
+
+
+def binpack_aggregate(nodes, allocs):
+    """bench.py's order-free bin-pack metric: ScoreFit of every node that
+    carries an alloc, from its final alloc usage; (sum, nodes used)."""
+    from nomad_tpu_torch.structs.funcs import score_fit
+    from nomad_tpu_torch.structs.structs import Resources
+
+    by_id = {n.id: n for n in nodes}
+    used = {}
+    for a in allocs:
+        cpu, mem = used.get(a.node_id, (0, 0))
+        used[a.node_id] = (cpu + a.resources.cpu, mem + a.resources.memory_mb)
+    total = sum(score_fit(by_id[nid], Resources(cpu=cpu, memory_mb=mem))
+                for nid, (cpu, mem) in used.items())
+    return total, len(used)
+
+
+def committing_steps_bounds(res):
+    """Bounds on the committing spec steps of a batch, read from its
+    result alone.  A spec commits at most once per round and places at
+    most one alloc per node per round, so a spec that placed anything
+    committed in at least max(per-node allocs) rounds and at most in
+    ``rounds``.  With one round the two bounds meet."""
+    from collections import Counter
+
+    lo = hi = 0
+    for sp in res.placements.values():
+        if sp.node_ids:
+            lo += max(Counter(sp.node_ids).values())
+            hi += res.rounds
+    return lo, hi
+
+
+def phase_config_b(dev):
+    from nomad_tpu_torch import mock
+    from nomad_tpu_torch.ops import batch_sched, fused_score
+
+    nodes = [strip_node(mock.node()) for _ in range(10_000)]
+    batches = [[strip_job(mock.job(), 1000) for _ in range(100)]]
+    for _ in range(2):
+        batches.append([strip_job(mock.job(), 200, cpu=100, mem=128)
+                        for _ in range(10)])
+    live = []
+    out = []
+    fused_score.LAUNCHES = 0
+    for b, jobs in enumerate(batches):
+        before = fused_score.LAUNCHES
+        res = batch_sched.schedule_batch(nodes, jobs, live_allocs=live,
+                                         rng_seed=SEED + b, device=dev)
+        launches = fused_score.LAUNCHES - before
+        steps_lo, steps_hi = committing_steps_bounds(res)
+        live = live + batch_sched.placed_allocs(res, jobs)
+        placed = sum(len(sp.node_ids) for sp in res.placements.values())
+        unplaced = sum(sp.unplaced for sp in res.placements.values())
+        over = capacity_check(nodes, live)
+        agg, used_nodes = binpack_aggregate(nodes, live)
+        row = {"batch": b, "jobs": len(jobs),
+               "asks": sum(j.task_groups[0].count for j in jobs),
+               "placed": placed, "unplaced": unplaced, "rounds": res.rounds,
+               "kernel_launches": launches,
+               "committing_spec_steps_from_result": [steps_lo, steps_hi],
+               "validate_device_outputs": "ok", "nodes_over_capacity": over,
+               "binpack_sum": agg, "nodes_used": used_nodes,
+               "encode_s": res.timings["encode"],
+               "device_s_cuda_events": res.timings["device"],
+               "decode_s": res.timings["decode"]}
+        out.append(row)
+        emit({"phase": "config_b", **row})
+        if launches <= 0 or not steps_lo <= launches <= steps_hi:
+            raise AssertionError(f"kernel launches {launches} outside the "
+                                 f"committing spec steps [{steps_lo}, "
+                                 f"{steps_hi}] read from the result")
+        if over:
+            raise AssertionError(f"{over} nodes over capacity")
+        if placed + unplaced != row["asks"]:
+            raise AssertionError("placed + unplaced != asks")
+    return out, fused_score.LAUNCHES
+
+
+# -- phase 5: card vs CPU ----------------------------------------------------
+
+def phase_cpu_vs_card(dev):
+    import numpy as np
+
+    from nomad_tpu_torch import mock
+    from nomad_tpu_torch.ops import batch_sched
+
+    rng = random.Random(SEED)
+    nodes = []
+    for _ in range(2048):
+        n = strip_node(mock.node())
+        n.resources.cpu = rng.choice([2000, 4000, 8000])
+        n.resources.memory_mb = rng.choice([4096, 8192, 16384])
+        n.compute_class()
+        nodes.append(n)
+    jobs = [strip_job(mock.job(), 200, cpu=rng.choice([100, 250, 500]),
+                      mem=rng.choice([64, 256, 512])) for _ in range(16)]
+    results = {}
+    for d in (dev, "cpu"):
+        results[d] = batch_sched.schedule_batch(nodes, jobs, rng_seed=SEED,
+                                                device=d)
+    card, cpu = results[dev], results["cpu"]
+    same = (card.rounds == cpu.rounds and card.placements.keys()
+            == cpu.placements.keys()
+            and all(card.placements[k].node_ids == cpu.placements[k].node_ids
+                    and card.placements[k].unplaced
+                    == cpu.placements[k].unplaced
+                    for k in cpu.placements))
+    diffs = [float(np.abs(card.placements[k].scores
+                          - cpu.placements[k].scores).max())
+             for k in cpu.placements if len(cpu.placements[k].scores)
+             and same]
+    d = max(diffs, default=0.0)
+    row = {"nodes": len(nodes), "jobs": len(jobs),
+           "placed": sum(len(p.node_ids) for p in cpu.placements.values()),
+           "rounds": cpu.rounds, "placements_identical": same,
+           "score_max_abs_err": d}
+    if not same or d > ATOL:
+        raise AssertionError(f"card and CPU disagree: {row}")
+    return row
+
+
+# -- phase 6: times ----------------------------------------------------------
+
+def score_bytes(u: int, n: int) -> int:
+    """Bytes the function must move: feas (1) + collisions (4) in and
+    scored + base (8) out per cell; used, cap (16 each) and denom (8) per
+    node; ask (16) and penalty (4) per row."""
+    return u * n * 13 + n * 40 + u * 20
+
+
+def score_ops(u: int, n: int) -> int:
+    """Operations per cell: the 4-dim fit test (8), ScoreFit with two
+    divides and two powers (~30), penalty, jitter hash and select (~20)."""
+    return u * n * 58
+
+
+def cuda_kernel_events(prof):
+    """The profiler's device-side kernel events (empty if the profiler
+    recorded no device activity on this machine)."""
+    from torch.autograd import DeviceType
+
+    return [e for e in prof.events()
+            if getattr(e, "device_type", None) == DeviceType.CUDA]
+
+
+def profiled(fn, n: int = 1):
+    """Trace ``n`` calls of ``fn`` with device activity only: no host
+    operator records, so the host-bound loop is not slowed by them."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    return prof
+
+
+def kernel_device_ms(fn, name: str, n: int = 100):
+    """Mean device time of the kernels whose name contains ``name``, by
+    the profiler's CUPTI trace; None when the trace has none."""
+    fn()
+    evs = [e for e in cuda_kernel_events(profiled(fn, n)) if name in e.name]
+    if not evs:
+        return None
+    return sum(e.time_range.elapsed_us() for e in evs) / len(evs) / 1e3
+
+
+def back_to_back_ms(fn, n: int = 200) -> float:
+    """Events around ``n`` calls in a row, divided by ``n``: the rate the
+    card sustains, host overhead included where the host is slower."""
+    import torch
+
+    for _ in range(10):
+        fn()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    a.record()
+    for _ in range(n):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / n
+
+
+def phase_times(dev, launches, max_err):
+    import torch
+
+    from nomad_tpu_torch.ops import fused_score, kernels
+
+    seed = kernels.jitter_seed(SEED)
+    out = {}
+    for u, n in ((1, 10112), (128, 10112)):
+        args = score_inputs(u, n, SEED, dev)
+        call = lambda: fused_score.scored_rows(*args, seed)  # noqa: E731
+        plain = lambda: fused_score.scored_rows_reference(  # noqa: E731
+            *args, seed)
+        dev_ms = kernel_device_ms(call, "scored_rows_kernel")
+        b_bytes = score_bytes(u, n) / HBM_BYTES_PER_S * 1e3
+        b_ops = score_ops(u, n) / FP32_FLOPS * 1e3
+        out[u] = {"u": u, "n": n,
+                  "ms": dev_ms if dev_ms is not None else back_to_back_ms(
+                      call),
+                  "ms_source": ("profiler device time" if dev_ms is not None
+                                else "CUDA events, back-to-back launches"),
+                  "call_ms_median": time_ms(call),
+                  "back_to_back_ms": back_to_back_ms(call),
+                  "plain_ms": time_ms(plain),
+                  "bound_ms": max(b_bytes, b_ops),
+                  "bound_by": "bytes" if b_bytes >= b_ops else "operations",
+                  "bytes": score_bytes(u, n)}
+        emit({"phase": "times", "kernel": "scored_rows", **out[u]})
+    torch.cuda.synchronize()
+    main = out[1]    # the placement loop calls the kernel at U = 1
+    return [{"name": "scored_rows", "route": "cuda",
+             "source": "nomad_tpu_torch/csrc/scored_rows.cu",
+             "replaces": "nomad_tpu/ops/pallas_score.py:166",
+             "launches": launches, "max_abs_err": max_err,
+             "ms": main["ms"], "plain_ms": main["plain_ms"],
+             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+             "library_ms": None}]
+
+
+def phase_profile(dev):
+    """Where the time of the main batch goes: config (b) batch 0 again,
+    warm.  First three runs without the profiler (CUDA events), then one
+    under a device-only trace.  Device busy = the sum of kernel and copy
+    times on the card; idle share = 1 - busy / a batch's device time,
+    against the traced run's and against the untraced median.  The trace
+    also counts the score kernel's executions on the card, held against
+    the wrapper's launch count for the same run."""
+    from nomad_tpu_torch import mock
+    from nomad_tpu_torch.ops import batch_sched, fused_score
+
+    nodes = [strip_node(mock.node()) for _ in range(10_000)]
+    jobs = [strip_job(mock.job(), 1000) for _ in range(100)]
+    res = {}
+
+    def run():
+        res["r"] = batch_sched.schedule_batch(nodes, jobs, rng_seed=SEED,
+                                              device=dev)
+
+    plain = []
+    for _ in range(3):
+        run()
+        plain.append(res["r"].timings)
+    warm_device_s = statistics.median(t["device"] for t in plain)
+    before = fused_score.LAUNCHES
+    prof = profiled(run)
+    launches = fused_score.LAUNCHES - before
+    evs = cuda_kernel_events(prof)
+    r = res["r"]
+    row = {"batch": "config_b_0",
+           "untraced_device_s_cuda_events": [t["device"] for t in plain],
+           "untraced_encode_s": [t["encode"] for t in plain],
+           "untraced_decode_s": [t["decode"] for t in plain],
+           "traced_device_s_cuda_events": r.timings["device"],
+           "kernel_launches": launches}
+    if not evs:
+        row["device_busy_s"] = "not measured (no device events in trace)"
+        return row
+    by_name = {}
+    for e in evs:
+        t, c = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (t + e.time_range.elapsed_us(), c + 1)
+    busy = sum(t for t, _ in by_name.values()) / 1e6
+    traced = sum(c for k, (_, c) in by_name.items()
+                 if "scored_rows_kernel" in k)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    row.update({
+        "device_ops": len(evs), "device_busy_s": busy,
+        "device_idle_share_traced": 1.0 - busy / r.timings["device"],
+        "device_idle_share_untraced": 1.0 - busy / warm_device_s,
+        "device_ops_per_spec_step": len(evs) / max(1, launches),
+        "score_kernel_in_trace": traced,
+        "top_device_ops": [{"name": k[:80], "us": t, "count": c}
+                           for k, (t, c) in top]})
+    if traced != launches:
+        raise AssertionError(f"the trace shows {traced} score kernel runs, "
+                             f"the wrapper counted {launches}")
+    return row
+
+
+def run_phase(name, fn, *args):
+    t0 = time.perf_counter()
+    try:
+        result = fn(*args)
+    except Exception as exc:  # noqa: BLE001 — report the phase and stop
+        emit({"phase": name, "ok": False, "error": repr(exc),
+              "traceback": traceback.format_exc()[-4000:]})
+        sys.exit(1)
+    emit({"phase": name, "ok": True, "seconds": time.perf_counter() - t0})
+    return result
+
+
+def main() -> int:
+    try:
+        import torch
+    except ImportError:
+        print("chip_smoke: torch is not installed", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 2
+    if not os.path.isdir(os.path.join(REPO, "nomad_tpu_torch")):
+        print("chip_smoke: the nomad_tpu_torch package is not beside this "
+              "script", file=sys.stderr)
+        return 2
+    sys.path.insert(0, REPO)
+    t_start = time.perf_counter()
+    dev = "cuda"
+    smi = smi_name_power()
+    emit({"phase": "device", "name": torch.cuda.get_device_name(0),
+          "count": torch.cuda.device_count(), "nvidia_smi": smi,
+          "torch": torch.__version__, "cuda": torch.version.cuda})
+
+    from nomad_tpu_torch import device as devmod
+
+    def build():
+        paths = devmod.build_kernels()
+        for name, log in devmod.BUILD_LOGS.items():
+            emit({"phase": "build", "kernel": name, "nvcc": log[-3000:]})
+        return {k: str(v) for k, v in paths.items()}
+
+    run_phase("build", build)
+    parity, max_err = run_phase("parity", phase_parity, dev)
+    emit({"phase": "parity", **parity})
+    _, launches = run_phase("config_b", phase_config_b, dev)
+    emit({"phase": "cpu_vs_card",
+          **run_phase("cpu_vs_card", phase_cpu_vs_card, dev)})
+    table = run_phase("times", phase_times, dev, launches, max_err)
+    emit({"phase": "profile", **run_phase("profile", phase_profile, dev)})
+    emit({"phase": "total", "seconds": time.perf_counter() - t_start})
+    emit({"kernels": table})
+    print(smi, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,169 @@
+"""The per-commit score of the placement loop: the hand-written CUDA
+kernel ``csrc/scored_rows.cu``, its plain PyTorch version, and the
+wrapper that picks between them by where the tensors lie.
+
+Replaces the Pallas TPU kernel ``nomad_tpu/ops/pallas_score.py``
+(``_scored_row_kernel``, entry ``scored_rows``).  The function is the
+commit-time expression of ``nomad_tpu/ops/kernels.py:463-506``::
+
+    ok     = feas & all(ask <= cap - used)
+    base   = ScoreFit(used, ask, denom)
+    scored = where(ok, base - penalty * coll + tie_jitter, NEG_INF)
+
+The wrapper returns ``(scored, base)``.  For CPU tensors it computes the
+plain version; for CUDA tensors it launches the kernel or raises.  There
+is no fallback from one to the other.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+NEG_INF = -1e30
+_U32 = 0xFFFFFFFF
+# float32(1e-3 / 2^24): the jitter's scale, rounded once from the double.
+_JITTER_SCALE = np.float32(1e-3 / (1 << 24))
+
+# Kernel launches made by scored_rows (the plain version counts nothing).
+LAUNCHES = 0
+
+
+def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """``(x * c) mod 2^32`` for int64 ``x`` in [0, 2^32): torch's uint32
+    support is partial, so the product is split at 16 bits to stay inside
+    int64 without overflow."""
+    lo = x * (c & 0xFFFF)
+    hi = ((x * (c >> 16)) & 0xFFFF) << 16
+    return (lo + hi) & _U32
+
+
+def tie_jitter(seed: int, u, node_idx: torch.Tensor) -> torch.Tensor:
+    """Per-(spec, node) tie-break jitter in [0, 1e-3): the fmix32 hash
+    of (seed, u, node index), computed in int64 with ``& 0xFFFFFFFF``
+    after every multiply and add (kernels.py:98-121).  ``u`` is an int
+    or an int tensor broadcastable against ``node_idx``."""
+    n = node_idx.to(torch.int64) & _U32
+    u = torch.as_tensor(u, dtype=torch.int64, device=n.device) & _U32
+    x = (_mul32(n, 0x9E3779B9) + _mul32(u, 0x85EBCA6B) + (seed & _U32)) & _U32
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x85EBCA6B)
+    x = x ^ (x >> 13)
+    x = _mul32(x, 0xC2B2AE35)
+    x = x ^ (x >> 16)
+    scale = torch.tensor(_JITTER_SCALE, device=n.device)
+    return (x >> 8).to(torch.float32) * scale
+
+
+def score_fit(used: torch.Tensor, ask: torch.Tensor,
+              denom: torch.Tensor) -> torch.Tensor:
+    """Google best-fit-v3 (funcs.go:123 ScoreFit) for every node:
+    ``clip(20 - 10^freeCpuFrac - 10^freeMemFrac, 0, 18)`` with the
+    denom == 0 and NaN/inf rules of kernels.py:278-292.  ``used`` [N, 4],
+    ``ask`` [..., 4] → [..., N]."""
+    after = (used[:, :2].to(torch.float32)
+             + ask[..., None, :2].to(torch.float32))
+    zero = denom == 0.0
+    safe = torch.where(zero, torch.ones_like(denom), denom)
+    frac = 1.0 - after / safe
+    frac = torch.where(zero, torch.full_like(frac, -float("inf")), frac)
+    total = torch.pow(10.0, frac[..., 0]) + torch.pow(10.0, frac[..., 1])
+    score = torch.nan_to_num(20.0 - total, nan=0.0, posinf=18.0,
+                             neginf=0.0)
+    return torch.clamp(score, 0.0, 18.0)
+
+
+def scored_rows_reference(feas, used, capacity, denom, ask, penalty,
+                          collisions, seed: int, u_offset: int = 0,
+                          n_offset: int = 0):
+    """Plain PyTorch version of the kernel: ``(scored [U, N], base
+    [U, N])``, term for term with the jnp composition."""
+    u, n = feas.shape
+    fits = (ask[:, None, :] <= (capacity - used)[None, :, :]).all(dim=2)
+    ok = (feas != 0) & fits
+    base = score_fit(used, ask, denom)
+    score = base - penalty.to(torch.float32)[:, None] * collisions.to(
+        torch.float32)
+    dev = feas.device
+    u_idx = torch.arange(u, dtype=torch.int64, device=dev)[:, None] + u_offset
+    n_idx = torch.arange(n, dtype=torch.int64, device=dev)[None, :] + n_offset
+    score = score + tie_jitter(seed, u_idx, n_idx)
+    return torch.where(ok, score, NEG_INF), base
+
+
+_LIB = None
+
+
+def _lib():
+    global _LIB
+    if _LIB is None:
+        from .. import device
+
+        lib = device.load_library("scored_rows")
+        p = ctypes.c_void_p
+        lib.nomad_scored_rows.argtypes = [
+            p, p, p, p, p, p, p, ctypes.c_uint32, ctypes.c_uint32,
+            ctypes.c_uint32, ctypes.c_int, ctypes.c_int, p, p, p]
+        lib.nomad_scored_rows.restype = ctypes.c_int
+        _LIB = lib
+    return _LIB
+
+
+def _check(name, t, dtype, shape, device, align=1):
+    if t.device != device:
+        raise ValueError(f"scored_rows: {name} on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"scored_rows: {name} is {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != shape:
+        raise ValueError(f"scored_rows: {name} has shape {tuple(t.shape)}, "
+                         f"expected {shape}")
+    if not t.is_contiguous():
+        raise ValueError(f"scored_rows: {name} must be contiguous")
+    if t.data_ptr() % align:
+        raise ValueError(f"scored_rows: {name} must be {align}-byte aligned")
+
+
+def scored_rows(feas, used, capacity, denom, ask, penalty, collisions,
+                seed: int, u_offset: int = 0, n_offset: int = 0):
+    """The complete per-commit scoring pass: ``(scored [U, N] f32, base
+    [U, N] f32)``.
+
+    feas [U, N] bool/uint8 (static feasibility, already ANDed with the
+    distinct_hosts mask), used/capacity [N, 4] int32, denom [N, 2] f32,
+    ask [U, 4] int32, penalty [U] f32, collisions [U, N] int32, seed a
+    uint32 (``kernels.jitter_seed``).  ``u_offset``/``n_offset`` are the
+    global indices of row 0 and column 0 the jitter is keyed on."""
+    global LAUNCHES
+    dev = feas.device
+    if dev.type == "cpu":
+        return scored_rows_reference(
+            feas, used, capacity, denom, ask, penalty, collisions, seed,
+            u_offset, n_offset)
+    if dev.type != "cuda":
+        raise ValueError(f"scored_rows: unsupported device {dev}")
+    u, n = feas.shape
+    if u > 65535:
+        raise ValueError(f"scored_rows: {u} rows exceed the grid's 65535")
+    if feas.dtype == torch.bool:
+        feas = feas.view(torch.uint8)
+    _check("feas", feas, torch.uint8, (u, n), dev)
+    _check("used", used, torch.int32, (n, 4), dev, 16)
+    _check("capacity", capacity, torch.int32, (n, 4), dev, 16)
+    _check("denom", denom, torch.float32, (n, 2), dev, 8)
+    _check("ask", ask, torch.int32, (u, 4), dev, 16)
+    _check("penalty", penalty, torch.float32, (u,), dev)
+    _check("collisions", collisions, torch.int32, (u, n), dev)
+    lib = _lib()
+    out = torch.empty((u, n), dtype=torch.float32, device=dev)
+    base = torch.empty((u, n), dtype=torch.float32, device=dev)
+    rc = lib.nomad_scored_rows(
+        feas.data_ptr(), used.data_ptr(), capacity.data_ptr(),
+        denom.data_ptr(), ask.data_ptr(), penalty.data_ptr(),
+        collisions.data_ptr(), seed & 0xFFFFFFFF, u_offset & 0xFFFFFFFF,
+        n_offset & 0xFFFFFFFF, u, n, out.data_ptr(), base.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"scored_rows kernel launch failed: cudaError {rc}")
+    LAUNCHES += 1
+    return out, base
