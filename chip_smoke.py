@@ -6,20 +6,40 @@
 Phases, each printed as one JSON line:
 
 1. device   -- the card's name, count and power limit;
-2. build    -- compile every ``nomad_tpu_torch/csrc/*.cu`` with nvcc
-               (ptxas report included);
-3. parity   -- each kernel against its plain PyTorch version on the card,
-               at the main path's shapes and on edge rows;
-4. config_b -- the main path at BASELINE.json config (b) width: 10,000
-               nodes, 100 jobs x 1000 asks, then two follow-up batches
-               against the live placements, through ``schedule_batch``;
-5. cpu_vs_card -- a 2,048-node problem on the card and on the CPU: the
+2. build    -- compile every ``nomad_tpu_torch/csrc/*.cu`` with nvcc, one
+               process per source, all started together (ptxas report
+               included);
+3. parity   -- the scored_rows kernel against its plain PyTorch version
+               on the card, at the main paths' shapes (the mesh's with
+               shard node offsets) and on edge rows (0 differing bits);
+4. masked_parity -- the masked_score_matrix kernel against its plain
+               version, and against scored_rows' base where the spec
+               fits (one shared ScoreFit: 0 differing bits);
+5. config_b -- the single-card path at BASELINE.json config (b) width:
+               10,000 nodes, 100 jobs x 1000 asks, then two follow-up
+               batches against the live placements, through
+               ``schedule_batch``;
+6. cpu_vs_card -- a 2,048-node problem on the card and on the CPU: the
                placements must be identical;
-6. times    -- each kernel's device time (profiler trace; CUDA events
-               where the trace has none), its plain version's and the
-               bound for the same work on this card; then config (b)'s
-               first batch again, warm: untraced, and under a device-only
+7. mesh_scores -- config (b) through a 4-shard and a 3-shard node mesh
+               on the card and through the single-card path: identical
+               placements, unplaced counts and AllocMetric scores;
+8. candidates -- the mesh's candidate scoring at config_mesh width
+               (1,000,000 nodes, U = 128, k = 64, 4 shards on the card);
+9. mesh     -- config_mesh (bench.py:79-89): 1,000,000 nodes, 100 jobs x
+               100,000 asks, through ``schedule_batch`` on a 4-shard mesh
+               and on the single-card path: identical placements;
+10. times   -- each kernel's device time (profiler trace; CUDA events
+               where the trace has none) over copies of its inputs that
+               overflow the L2, its plain version's and the bound for the
+               same work on this card;
+11. profile -- config (b)'s first batch again, warm, on the single card
+               and on a 4-shard mesh: untraced, and under a device-only
                trace for the device busy time and idle share.
+
+Each path is driven with the kernels' launch counts set to 0 just before
+it and read just after; a path that should launch a kernel and did not
+fails.
 
 Then the kernel table, the card's name and power limit, and the last
 line ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no
@@ -28,7 +48,9 @@ Imports nothing of JAX.
 """
 from __future__ import annotations
 
+import itertools
 import json
+import math
 import os
 import random
 import statistics
@@ -39,6 +61,11 @@ import traceback
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 SEED = 20260
+MESH_SEED = 20260804           # config_mesh's pinned seed (bench.py:88)
+MESH_NODES = 1_000_000
+MESH_JOBS = 100
+MESH_COUNT = 100_000
+MESH_SHARDS = 4
 
 # Kernel-vs-plain tolerance: 2 ulp of float32 at 18, the top of ScoreFit.
 ATOL = 4e-6
@@ -46,6 +73,7 @@ ATOL = 4e-6
 # H100 SXM published peaks (NVIDIA data sheet), at a 700 W limit.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
+L2_BYTES = 50 * 2**20
 
 
 def emit(obj) -> None:
@@ -131,25 +159,31 @@ def phase_parity(dev):
     from nomad_tpu_torch.ops import fused_score, kernels
 
     seed = kernels.jitter_seed(SEED)
-    cases = [(1, 10112, 0), (1, 10112, 37), (1, 10112, 127), (128, 10112, 0),
-             (3, 700, 5)]
+    # (u, n, u_offset, n_offset).  The last two are the mesh's per-shard
+    # calls on config_mesh: one spec row over one 250,016-node shard,
+    # keyed on the global node index of shards 1 and 3.
+    cases = [(1, 10112, 0, 0), (1, 10112, 37, 0), (1, 10112, 127, 0),
+             (128, 10112, 0, 0), (3, 700, 5, 0),
+             (1, 250_016, 41, 250_016), (1, 250_016, 99, 750_048)]
     rows = []
     worst = 0.0
-    for u, n, u_off in cases:
-        args = score_inputs(u, n, SEED + u + u_off, dev)
-        got, got_base = fused_score.scored_rows(*args, seed, u_offset=u_off)
+    for u, n, u_off, n_off in cases:
+        args = score_inputs(u, n, SEED + u + u_off + n_off, dev)
+        got, got_base = fused_score.scored_rows(*args, seed, u_offset=u_off,
+                                                n_offset=n_off)
         want, want_base = fused_score.scored_rows_reference(
-            *args, seed, u_offset=u_off)
+            *args, seed, u_offset=u_off, n_offset=n_off)
         cpu_args = [a.cpu() for a in args]
         cpu, cpu_base = fused_score.scored_rows_reference(
-            *cpu_args, seed, u_offset=u_off)
+            *cpu_args, seed, u_offset=u_off, n_offset=n_off)
         torch.cuda.synchronize()
         mask_same = bool(torch.equal(got == -1e30, want == -1e30))
         live = want != -1e30
         d = float((got - want)[live].abs().max()) if live.any() else 0.0
         db = float((got_base - want_base).abs().max())
         d_cpu = float((got.cpu() - cpu)[live.cpu()].abs().max())
-        row = {"u": u, "n": n, "u_offset": u_off, "mask_identical": mask_same,
+        row = {"u": u, "n": n, "u_offset": u_off, "n_offset": n_off,
+               "mask_identical": mask_same,
                "max_abs_err": d, "base_max_abs_err": db,
                "score_bits_differ": bit_diff(got, want),
                "base_bits_differ": bit_diff(got_base, want_base),
@@ -160,10 +194,49 @@ def phase_parity(dev):
                "cells": u * n}
         rows.append(row)
         worst = max(worst, d, db)
-        if not mask_same or d > ATOL or db > ATOL:
+        # The shared header must not change a bit of the kernel's
+        # results: it agreed bit for bit with its plain version before.
+        if (not mask_same or d > ATOL or db > ATOL
+                or row["score_bits_differ"] or row["base_bits_differ"]):
             raise AssertionError(f"scored_rows disagrees with its plain "
                                  f"version: {row}")
     return {"scored_rows": rows}, worst
+
+
+def phase_masked_parity(dev):
+    """masked_score_matrix against its plain version on the card, at the
+    candidate path's shard shape, at U = 1 and on a padded edge case; and
+    against scored_rows' ``base`` masked by ``ok`` on the same inputs."""
+    import torch
+
+    from nomad_tpu_torch.ops import fused_score
+
+    rows = []
+    worst = 0.0
+    for u, n in ((128, 250_016), (1, 10112), (3, 700)):
+        feas, used, cap, denom, ask, penalty, coll = score_inputs(
+            u, n, SEED + 7 * u, dev)
+        got = fused_score.masked_score_matrix(feas, used, cap, denom, ask)
+        want = fused_score.masked_score_matrix_reference(feas, used, cap,
+                                                         denom, ask)
+        scored, base = fused_score.scored_rows(feas, used, cap, denom, ask,
+                                               penalty, coll, 1)
+        via_base = torch.where(scored != -1e30, base, -1e30)
+        torch.cuda.synchronize()
+        mask_same = bool(torch.equal(got == -1e30, want == -1e30))
+        live = want != -1e30
+        d = float((got - want)[live].abs().max()) if live.any() else 0.0
+        row = {"u": u, "n": n, "mask_identical": mask_same,
+               "max_abs_err": d, "score_bits_differ": bit_diff(got, want),
+               "vs_scored_rows_base_bits_differ": bit_diff(got, via_base),
+               "cells": u * n, "live_cells": int(live.sum()),
+               "padding_columns": int((~feas.any(0)).sum())}
+        rows.append(row)
+        worst = max(worst, d)
+        if (not mask_same or d > ATOL
+                or row["vs_scored_rows_base_bits_differ"]):
+            raise AssertionError(f"masked_score_matrix disagrees: {row}")
+    return {"masked_score_matrix": rows}, worst
 
 
 # -- phase 4: config (b) -----------------------------------------------------
@@ -230,6 +303,19 @@ def committing_steps_bounds(res):
             lo += max(Counter(sp.node_ids).values())
             hi += res.rounds
     return lo, hi
+
+
+def check_mesh_launches(res, launches, what):
+    """A committing spec step launches ``scored_rows`` once per shard
+    (once on the single card): hold the count to D times the bounds of
+    :func:`committing_steps_bounds`."""
+    d = max(1, res.mesh_shards)
+    lo, hi = committing_steps_bounds(res)
+    if launches <= 0 or not d * lo <= launches <= d * hi:
+        raise AssertionError(f"{what}: scored_rows launched {launches} "
+                             f"times, outside {d} x the committing spec "
+                             f"steps [{lo}, {hi}] read from the result")
+    return [d * lo, d * hi]
 
 
 def phase_config_b(dev):
@@ -321,7 +407,243 @@ def phase_cpu_vs_card(dev):
     return row
 
 
-# -- phase 6: times ----------------------------------------------------------
+# -- phase 7: the mesh at config (b) width, scores included -------------------
+
+def same_batches(a, b, exact_order=True):
+    """Placements, unplaced counts and AllocMetric scores of two batch
+    results; False on the first difference."""
+    import numpy as np
+
+    if a.placements.keys() != b.placements.keys():
+        return False
+    for k, sp in b.placements.items():
+        g = a.placements[k]
+        ids_same = (g.node_ids == sp.node_ids if exact_order
+                    else sorted(g.node_ids) == sorted(sp.node_ids))
+        if not ids_same or g.unplaced != sp.unplaced:
+            return False
+        if exact_order and not (
+                np.array_equal(g.scores.view(np.int32),
+                               sp.scores.view(np.int32))
+                and g.metric_scores == sp.metric_scores):
+            return False
+    return True
+
+
+def phase_mesh_scores(dev):
+    from nomad_tpu_torch import mock
+    from nomad_tpu_torch.ops import batch_sched, fused_score
+    from nomad_tpu_torch.parallel import make_node_mesh
+
+    nodes = [strip_node(mock.node()) for _ in range(10_000)]
+    jobs = [strip_job(mock.job(), 1000) for _ in range(100)]
+    single = batch_sched.schedule_batch(nodes, jobs, rng_seed=SEED,
+                                        device=dev)
+    out = {"single_rounds": single.rounds,
+           "placed": sum(len(sp.node_ids)
+                         for sp in single.placements.values()),
+           "scored_entries": sum(len(sp.metric_scores)
+                                 for sp in single.placements.values())}
+    for d in (4, 3):
+        fused_score.LAUNCHES = 0
+        res = batch_sched.schedule_batch(
+            nodes, jobs, rng_seed=SEED,
+            mesh=make_node_mesh([dev] * d))
+        launches = fused_score.LAUNCHES
+        same = same_batches(res, single)
+        out[f"mesh{d}"] = {"mesh_shards": res.mesh_shards,
+                           "rounds": res.rounds,
+                           "identical_to_single": same,
+                           "scored_rows_launches": launches,
+                           "device_s_cuda_events": res.timings["device"]}
+        if not same or res.mesh_shards != d:
+            raise AssertionError(f"{d}-shard mesh disagrees: {out}")
+        out[f"mesh{d}"]["launch_bounds"] = check_mesh_launches(
+            res, launches, f"{d}-shard mesh")
+    if not out["scored_entries"]:
+        raise AssertionError("no AllocMetric scores to compare")
+    return out
+
+
+# -- phases 8 and 9: config_mesh width ----------------------------------------
+
+_MESH_FLEET = {}
+
+
+def mesh_fleet():
+    """config_mesh's 1,000,000 mock.node() nodes (networks stripped) and
+    its 100 jobs x 100,000 asks, built once for both phases."""
+    from nomad_tpu_torch import mock
+
+    if not _MESH_FLEET:
+        t0 = time.perf_counter()
+        _MESH_FLEET["nodes"] = [strip_node(mock.node())
+                                for _ in range(MESH_NODES)]
+        _MESH_FLEET["jobs"] = [strip_job(mock.job(), MESH_COUNT)
+                               for _ in range(MESH_JOBS)]
+        _MESH_FLEET["build_s"] = time.perf_counter() - t0
+    return _MESH_FLEET
+
+
+def phase_candidates(dev):
+    """``sharded_candidate_scores`` on 4 shards of the card at config_mesh
+    width, held against the plain score at each candidate's node, the
+    best feasible node of each spec and the 1-shard top 64."""
+    import numpy as np
+    import torch
+
+    from nomad_tpu_torch.ops import batch_sched, encode, fused_score, kernels
+    from nomad_tpu_torch.parallel import (make_node_mesh,
+                                          sharded_candidate_scores)
+
+    fleet = mesh_fleet()
+    nodes, jobs = fleet["nodes"], fleet["jobs"]
+    t0 = time.perf_counter()
+    specs = batch_sched._prepare_specs(jobs, {})
+    targets, literals = encode.collect_attr_targets(specs)
+    ct = encode.encode_cluster_static(nodes, targets)
+    encode.finalize_codebooks(ct, literals)
+    st = encode.encode_specs(specs, ct, nodes)
+    encode_s = time.perf_counter() - t0
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa
+    feas = kernels.feasibility_matrix(
+        t(ct.attr_values), t(ct.eligible), t(ct.dc_code),
+        t(st.constraint_attr), t(st.constraint_op), t(st.constraint_rhs),
+        t(st.dc_mask), t(st.precomp))
+    used, cap = t(ct.used.astype(np.int32)), t(ct.capacity.astype(np.int32))
+    denom, ask = t(ct.score_denom), t(st.ask.astype(np.int32))
+    k = 64
+
+    fused_score.LAUNCHES = fused_score.MASKED_LAUNCHES = 0
+    mesh = make_node_mesh([dev] * MESH_SHARDS)
+    scores, idx = sharded_candidate_scores(mesh, feas, used, cap, denom, ask,
+                                           k=k)
+    torch.cuda.synchronize()
+    launches = fused_score.MASKED_LAUNCHES
+    if launches != MESH_SHARDS:
+        raise AssertionError(f"masked_score_matrix launched {launches} "
+                             f"times, expected {MESH_SHARDS}")
+
+    plain = fused_score.masked_score_matrix_reference(feas, used, cap, denom,
+                                                      ask)
+    at_idx = torch.gather(plain, 1, idx.to(torch.int64))
+    mask_same = bool(torch.equal(scores == -1e30, at_idx == -1e30))
+    live = at_idx != -1e30
+    d = float((scores - at_idx)[live].abs().max()) if live.any() else 0.0
+    best = kernels.stable_top_k(plain, 1)[1]          # lowest index on ties
+    has_best = bool((idx.to(torch.int64) == best).any(1).all())
+    one_s, one_i = sharded_candidate_scores(make_node_mesh([dev]),
+                                            feas, used, cap, denom, ask, k=k)
+    top_s, pos = kernels.stable_top_k(scores, k)
+    same_top = bool(torch.equal(torch.gather(idx, 1, pos), one_i)
+                    and torch.equal(top_s, one_s))
+    row = {"nodes": ct.n_real, "n_pad": ct.n_pad, "u_pad": st.u_pad,
+           "shards": MESH_SHARDS, "k": k, "candidates": list(idx.shape),
+           "masked_launches": launches, "mask_identical": mask_same,
+           "max_abs_err": d, "score_bits_differ": bit_diff(scores, at_idx),
+           "best_feasible_in_candidates": has_best,
+           "global_top_k_equals_one_shard": same_top,
+           "live_candidates": int(live.sum()),
+           "fleet_build_s": fleet["build_s"], "encode_s": encode_s}
+    if not (mask_same and d <= ATOL and has_best and same_top):
+        raise AssertionError(f"mesh candidates disagree: {row}")
+    return row, launches, d
+
+
+def fleet_check(nodes, jobs, res):
+    """(nodes over capacity, binpack sum, nodes used) of one batch on an
+    empty fleet: reserved plus every placed alloc's ask per node; the
+    binpack sum is bench.py's ScoreFit of every node that carries an
+    alloc, from its alloc usage.  In numpy, unlike capacity_check and
+    binpack_aggregate: config_mesh places 7,000,000 allocs, too many to
+    build as Allocation objects."""
+    import numpy as np
+
+    from nomad_tpu_torch.scheduler.util import task_group_constraints
+
+    index = {n.id: i for i, n in enumerate(nodes)}
+    cap = np.array([n.resources.as_tuple() for n in nodes], np.int64)
+    resv = np.array([n.reserved.as_tuple() if n.reserved else (0,) * 4
+                     for n in nodes], np.int64)
+    alloc = np.zeros_like(cap)
+    for job in jobs:
+        for tg in job.task_groups:
+            sp = res.placements.get((job.id, tg.name))
+            if sp is None or not sp.node_ids:
+                continue
+            at = np.fromiter((index[nid] for nid in sp.node_ids), np.int64,
+                             len(sp.node_ids))
+            np.add.at(alloc, at,
+                      np.array(task_group_constraints(tg).size.as_tuple()))
+    over = int(((resv + alloc) > cap).any(1).sum())
+    carry = alloc.any(1)
+    node_res = (cap - resv)[carry, :2].astype(np.float64)
+    free = 1.0 - alloc[carry, :2] / node_res
+    score = np.clip(20.0 - (10.0 ** free[:, 0] + 10.0 ** free[:, 1]),
+                    0.0, 18.0)
+    return over, float(score.sum()), int(carry.sum())
+
+
+def phase_mesh(dev):
+    """config_mesh through ``schedule_batch(mesh=...)`` on 4 shards of the
+    card, then through the single-card path: identical placements and
+    unplaced counts, no node over capacity, equal binpack aggregates."""
+    import torch
+
+    from nomad_tpu_torch.ops import batch_sched, fused_score
+    from nomad_tpu_torch.parallel import make_node_mesh
+
+    fleet = mesh_fleet()
+    nodes, jobs = fleet["nodes"], fleet["jobs"]
+    out = {}
+    results = {}
+    for name in ("mesh", "single"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        fused_score.LAUNCHES = fused_score.MASKED_LAUNCHES = 0
+        kw = ({"mesh": make_node_mesh([dev] * MESH_SHARDS)}
+              if name == "mesh" else {"device": dev})
+        t0 = time.perf_counter()
+        res = batch_sched.schedule_batch(nodes, jobs, rng_seed=MESH_SEED,
+                                         **kw)
+        wall = time.perf_counter() - t0
+        launches = fused_score.LAUNCHES
+        over, agg, used_nodes = fleet_check(nodes, jobs, res)
+        row = {"mesh_shards": res.mesh_shards, "rounds": res.rounds,
+               "placed": sum(len(sp.node_ids)
+                             for sp in res.placements.values()),
+               "unplaced": sum(sp.unplaced for sp in res.placements.values()),
+               "scored_rows_launches": launches,
+               "masked_launches": fused_score.MASKED_LAUNCHES,
+               "nodes_over_capacity": over, "binpack_sum": agg,
+               "nodes_used": used_nodes, "encode_s": res.timings["encode"],
+               "device_s_cuda_events": res.timings["device"],
+               "decode_s": res.timings["decode"], "wall_s": wall,
+               "peak_device_bytes": torch.cuda.max_memory_allocated()}
+        if name == "mesh":
+            row["scored_rows_launches_per_shard"] = launches / MESH_SHARDS
+        emit({"phase": "mesh", "path": name, **row})
+        out[name] = row
+        results[name] = res
+        row["launch_bounds"] = check_mesh_launches(res, launches, name)
+        if over:
+            raise AssertionError(f"{name}: {over} nodes over capacity")
+    same = same_batches(results["mesh"], results["single"],
+                        exact_order=False)
+    out.update({"nodes": MESH_NODES, "jobs": MESH_JOBS,
+                "count_per_job": MESH_COUNT,
+                "fleet_build_s": fleet["build_s"],
+                "placements_identical": same})
+    if (not same or out["mesh"]["mesh_shards"] != MESH_SHARDS
+            or out["single"]["mesh_shards"] != 0
+            or out["mesh"]["binpack_sum"] != out["single"]["binpack_sum"]
+            or out["mesh"]["placed"] + out["mesh"]["unplaced"]
+            != MESH_JOBS * MESH_COUNT):
+        raise AssertionError(f"mesh and single card disagree: {out}")
+    return out
+
+
+# -- phase 10: times ---------------------------------------------------------
 
 def score_bytes(u: int, n: int) -> int:
     """Bytes the function must move: feas (1) + collisions (4) in and
@@ -360,13 +682,14 @@ def profiled(fn, n: int = 1):
 
 
 def kernel_device_ms(fn, name: str, n: int = 100):
-    """Mean device time of the kernels whose name contains ``name``, by
-    the profiler's CUPTI trace; None when the trace has none."""
+    """Median device time of ``n`` runs of the kernel whose name contains
+    ``name``, by the profiler's CUPTI trace; None when the trace has
+    none."""
     fn()
     evs = [e for e in cuda_kernel_events(profiled(fn, n)) if name in e.name]
     if not evs:
         return None
-    return sum(e.time_range.elapsed_us() for e in evs) / len(evs) / 1e3
+    return statistics.median(e.time_range.elapsed_us() for e in evs) / 1e3
 
 
 def back_to_back_ms(fn, n: int = 200) -> float:
@@ -387,74 +710,126 @@ def back_to_back_ms(fn, n: int = 200) -> float:
     return a.elapsed_time(b) / n
 
 
-def phase_times(dev, launches, max_err):
+def masked_bytes(u: int, n: int) -> int:
+    """Bytes the masked score must move: feas (1) in and the score (4) out
+    per cell; used, cap (16 each) and denom (8) per node; ask (16) per
+    row."""
+    return u * n * 5 + n * 40 + u * 16
+
+
+def masked_ops(u: int, n: int) -> int:
+    """Operations per cell: the 4-dim fit test (8) and ScoreFit with two
+    divides and two powers (~30)."""
+    return u * n * 38
+
+
+def rotating(args, n_bytes):
+    """A function giving the next of enough copies of ``args`` that a
+    pass over them moves at least twice the L2: each timed launch then
+    reads its inputs from HBM, not from the L2 the launch before filled."""
+    reps = max(1, min(1024, math.ceil(2 * L2_BYTES / n_bytes)))
+    sets = [args] + [[a.clone() for a in args] for _ in range(reps - 1)]
+    it = itertools.cycle(sets)
+    return lambda: next(it)
+
+
+def timed_row(call, plain, kernel_name, n_bytes, n_ops, n=100):
+    """One kernel's times at one shape: its median device time over ``n``
+    launches, one call's median through the wrapper, back-to-back calls,
+    its plain version's median, and the bound for the same work."""
+    dev_ms = kernel_device_ms(call, kernel_name, n)
+    b_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    b_ops = n_ops / FP32_FLOPS * 1e3
+    return {"ms": dev_ms if dev_ms is not None else back_to_back_ms(call),
+            "ms_source": ("profiler device time, median" if dev_ms is not None
+                          else "CUDA events, back-to-back launches"),
+            "call_ms_median": time_ms(call),
+            "back_to_back_ms": back_to_back_ms(call),
+            "plain_ms": time_ms(plain, n=20),
+            "bound_ms": max(b_bytes, b_ops),
+            "bound_by": "bytes" if b_bytes >= b_ops else "operations",
+            "bytes": n_bytes}
+
+
+def phase_times(dev, launches, max_err, masked_launches, masked_err):
     import torch
 
     from nomad_tpu_torch.ops import fused_score, kernels
 
     seed = kernels.jitter_seed(SEED)
+    masked = {}
+    for u, n in ((128, 250_016), (1, 10112)):
+        nbytes = masked_bytes(u, n)
+        nxt = rotating(score_inputs(u, n, SEED, dev)[:5], nbytes)
+        masked[u] = {"u": u, "n": n, **timed_row(
+            lambda: fused_score.masked_score_matrix(*nxt()),
+            lambda: fused_score.masked_score_matrix_reference(*nxt()),
+            "masked_score_kernel", nbytes, masked_ops(u, n), n=60)}
+        emit({"phase": "times", "kernel": "masked_score_matrix",
+              **masked[u]})
     out = {}
-    for u, n in ((1, 10112), (128, 10112)):
-        args = score_inputs(u, n, SEED, dev)
-        call = lambda: fused_score.scored_rows(*args, seed)  # noqa: E731
-        plain = lambda: fused_score.scored_rows_reference(  # noqa: E731
-            *args, seed)
-        dev_ms = kernel_device_ms(call, "scored_rows_kernel")
-        b_bytes = score_bytes(u, n) / HBM_BYTES_PER_S * 1e3
-        b_ops = score_ops(u, n) / FP32_FLOPS * 1e3
-        out[u] = {"u": u, "n": n,
-                  "ms": dev_ms if dev_ms is not None else back_to_back_ms(
-                      call),
-                  "ms_source": ("profiler device time" if dev_ms is not None
-                                else "CUDA events, back-to-back launches"),
-                  "call_ms_median": time_ms(call),
-                  "back_to_back_ms": back_to_back_ms(call),
-                  "plain_ms": time_ms(plain),
-                  "bound_ms": max(b_bytes, b_ops),
-                  "bound_by": "bytes" if b_bytes >= b_ops else "operations",
-                  "bytes": score_bytes(u, n)}
-        emit({"phase": "times", "kernel": "scored_rows", **out[u]})
+    # (1, 250_016) is the mesh's per-shard commit score: U = 1 over one
+    # config_mesh shard, at shard 1's node offset.
+    for u, n, n_off in ((1, 250_016, 250_016), (1, 10112, 0),
+                        (128, 10112, 0)):
+        nbytes = score_bytes(u, n)
+        nxt = rotating(score_inputs(u, n, SEED, dev), nbytes)
+        row = {"u": u, "n": n, "n_offset": n_off, **timed_row(
+            lambda: fused_score.scored_rows(*nxt(), seed, n_offset=n_off),
+            lambda: fused_score.scored_rows_reference(*nxt(), seed,
+                                                      n_offset=n_off),
+            "scored_rows_kernel", nbytes, score_ops(u, n))}
+        emit({"phase": "times", "kernel": "scored_rows", **row})
+        if not n_off:
+            out[u] = row
     torch.cuda.synchronize()
     main = out[1]    # the placement loop calls the kernel at U = 1
+    cand = masked[128]   # the candidate path's call: U = 128 per shard
     return [{"name": "scored_rows", "route": "cuda",
              "source": "nomad_tpu_torch/csrc/scored_rows.cu",
              "replaces": "nomad_tpu/ops/pallas_score.py:166",
              "launches": launches, "max_abs_err": max_err,
              "ms": main["ms"], "plain_ms": main["plain_ms"],
              "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+             "library_ms": None},
+            {"name": "masked_score_matrix", "route": "cuda",
+             "source": "nomad_tpu_torch/csrc/masked_score.cu",
+             "replaces": "nomad_tpu/ops/pallas_score.py:102",
+             "launches": masked_launches, "max_abs_err": masked_err,
+             "ms": cand["ms"], "plain_ms": cand["plain_ms"],
+             "bound_ms": cand["bound_ms"], "bound_by": cand["bound_by"],
              "library_ms": None}]
 
 
-def phase_profile(dev):
-    """Where the time of the main batch goes: config (b) batch 0 again,
-    warm.  First three runs without the profiler (CUDA events), then one
-    under a device-only trace.  Device busy = the sum of kernel and copy
-    times on the card; idle share = 1 - busy / a batch's device time,
-    against the traced run's and against the untraced median.  The trace
-    also counts the score kernel's executions on the card, held against
-    the wrapper's launch count for the same run."""
-    from nomad_tpu_torch import mock
+def profile_batch(dev, nodes, jobs, mesh=None):
+    """Config (b) batch 0 again, warm, on the single card or on ``mesh``.
+    First three runs without the profiler (CUDA events), then one under a
+    device-only trace.  Device busy = the sum of kernel and copy times on
+    the card; idle share = 1 - busy / a batch's device time, against the
+    traced run's and against the untraced median.  The trace also counts
+    the score kernel's executions on the card, held against the
+    wrapper's launch count for the same run."""
     from nomad_tpu_torch.ops import batch_sched, fused_score
 
-    nodes = [strip_node(mock.node()) for _ in range(10_000)]
-    jobs = [strip_job(mock.job(), 1000) for _ in range(100)]
     res = {}
+    where = {"mesh": mesh} if mesh is not None else {"device": dev}
 
     def run():
         res["r"] = batch_sched.schedule_batch(nodes, jobs, rng_seed=SEED,
-                                              device=dev)
+                                              **where)
 
     plain = []
     for _ in range(3):
         run()
         plain.append(res["r"].timings)
     warm_device_s = statistics.median(t["device"] for t in plain)
-    before = fused_score.LAUNCHES
+    fused_score.LAUNCHES = 0
     prof = profiled(run)
-    launches = fused_score.LAUNCHES - before
+    launches = fused_score.LAUNCHES
     evs = cuda_kernel_events(prof)
     r = res["r"]
-    row = {"batch": "config_b_0",
+    row = {"batch": "config_b_0", "mesh_shards": r.mesh_shards,
+           "rounds": r.rounds,
            "untraced_device_s_cuda_events": [t["device"] for t in plain],
            "untraced_encode_s": [t["encode"] for t in plain],
            "untraced_decode_s": [t["decode"] for t in plain],
@@ -475,7 +850,9 @@ def phase_profile(dev):
         "device_ops": len(evs), "device_busy_s": busy,
         "device_idle_share_traced": 1.0 - busy / r.timings["device"],
         "device_idle_share_untraced": 1.0 - busy / warm_device_s,
-        "device_ops_per_spec_step": len(evs) / max(1, launches),
+        # A committing spec step launches the score kernel once per shard.
+        "device_ops_per_spec_step": len(evs) * max(1, r.mesh_shards)
+        / max(1, launches),
         "score_kernel_in_trace": traced,
         "top_device_ops": [{"name": k[:80], "us": t, "count": c}
                            for k, (t, c) in top]})
@@ -483,6 +860,19 @@ def phase_profile(dev):
         raise AssertionError(f"the trace shows {traced} score kernel runs, "
                              f"the wrapper counted {launches}")
     return row
+
+
+def phase_profile(dev):
+    """Where the time of config (b)'s first batch goes, on the single card
+    and on a 4-shard mesh of the card."""
+    from nomad_tpu_torch import mock
+    from nomad_tpu_torch.parallel import make_node_mesh
+
+    nodes = [strip_node(mock.node()) for _ in range(10_000)]
+    jobs = [strip_job(mock.job(), 1000) for _ in range(100)]
+    return {"single": profile_batch(dev, nodes, jobs),
+            "mesh4": profile_batch(dev, nodes, jobs,
+                                   make_node_mesh([dev] * MESH_SHARDS))}
 
 
 def run_phase(name, fn, *args):
@@ -529,10 +919,20 @@ def main() -> int:
     run_phase("build", build)
     parity, max_err = run_phase("parity", phase_parity, dev)
     emit({"phase": "parity", **parity})
+    masked, masked_err = run_phase("masked_parity", phase_masked_parity, dev)
+    emit({"phase": "masked_parity", **masked})
     _, launches = run_phase("config_b", phase_config_b, dev)
     emit({"phase": "cpu_vs_card",
           **run_phase("cpu_vs_card", phase_cpu_vs_card, dev)})
-    table = run_phase("times", phase_times, dev, launches, max_err)
+    emit({"phase": "mesh_scores",
+          **run_phase("mesh_scores", phase_mesh_scores, dev)})
+    cand, masked_launches, cand_err = run_phase("candidates",
+                                                phase_candidates, dev)
+    emit({"phase": "candidates", **cand})
+    emit({"phase": "mesh", **run_phase("mesh", phase_mesh, dev)})
+    _MESH_FLEET.clear()
+    table = run_phase("times", phase_times, dev, launches, max_err,
+                      masked_launches, max(masked_err, cand_err))
     emit({"phase": "profile", **run_phase("profile", phase_profile, dev)})
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     emit({"kernels": table})

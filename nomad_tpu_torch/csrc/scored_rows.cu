@@ -31,40 +31,23 @@
 // Numerics, held against the plain PyTorch version (ops/fused_score.py):
 // - The `ok` mask: the loop's ok also has distinct_hosts
 //   (kernels.py:467); the caller ANDs that into `feas`, and the fit test
-//   here repeats kernels.py:463-466 exactly.
+//   (score_common.cuh) repeats kernels.py:463-466 exactly.
+// - ScoreFit comes from score_common.cuh, shared with masked_score.cu.
 // - FMA: `base - penalty*coll` and `+ jitter` use __fmul_rn/__fsub_rn/
 //   __fadd_rn, which are never contracted into an FMA, so each product is
 //   rounded on its own as in the plain version and the jnp composition.
-// - 10^x is powf(10.f, x).  It need not round like the CPU's pow; the
-//   number of differing score bits is measured on the card by
-//   chip_smoke.py.
 // - The jitter hash (fmix32) is native uint32 arithmetic here.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "score_common.cuh"
+
 namespace {
 
-constexpr float kNegInf = -1e30f;
+using nomad::kNegInf;
 // float32(1e-3 / 2^24), rounded once from the double as the reference does.
 constexpr float kJitterScale = (float)(1e-3 / 16777216.0);
 constexpr int kBlock = 256;
-
-__device__ __forceinline__ float score_fit(int4 used, int4 ask, float2 denom) {
-  const float after_cpu = __fadd_rn((float)used.x, (float)ask.x);
-  const float after_mem = __fadd_rn((float)used.y, (float)ask.y);
-  const float safe_cpu = denom.x == 0.f ? 1.f : denom.x;
-  const float safe_mem = denom.y == 0.f ? 1.f : denom.y;
-  float frac_cpu = __fsub_rn(1.f, __fdiv_rn(after_cpu, safe_cpu));
-  float frac_mem = __fsub_rn(1.f, __fdiv_rn(after_mem, safe_mem));
-  if (denom.x == 0.f) frac_cpu = -INFINITY;
-  if (denom.y == 0.f) frac_mem = -INFINITY;
-  const float total = __fadd_rn(powf(10.f, frac_cpu), powf(10.f, frac_mem));
-  float score = __fsub_rn(20.f, total);
-  // nan_to_num(nan=0, posinf=18, neginf=0), then clip to [0, 18].
-  if (isnan(score)) score = 0.f;
-  else if (isinf(score)) score = score > 0.f ? 18.f : 0.f;
-  return fminf(fmaxf(score, 0.f), 18.f);
-}
 
 __device__ __forceinline__ float tie_jitter(uint32_t seed, uint32_t u,
                                             uint32_t n) {
@@ -91,10 +74,8 @@ __global__ void __launch_bounds__(kBlock) scored_rows_kernel(
   const int4 us = used[col];
   const int4 cp = cap[col];
   const int4 a = ask[u];
-  const bool fits = a.x <= cp.x - us.x && a.y <= cp.y - us.y &&
-                    a.z <= cp.z - us.z && a.w <= cp.w - us.w;
-  const bool ok = feas[idx] != 0 && fits;
-  const float base = score_fit(us, a, denom[col]);
+  const bool ok = feas[idx] != 0 && nomad::fits(us, cp, a);
+  const float base = nomad::score_fit(us, a, denom[col]);
   float score = __fsub_rn(base, __fmul_rn(penalty[u], (float)coll[idx]));
   score = __fadd_rn(score, tie_jitter(seed, u_offset + (uint32_t)u,
                                       n_offset + (uint32_t)col));

@@ -7,7 +7,8 @@ back to the CPU quietly.
 Kernels live in ``csrc/*.cu`` with a plain C interface (no PyTorch
 headers), are compiled by ``nvcc`` for ``sm_90a`` at first use into
 ``build/kernels/`` at the repository root (git-ignored), keyed by a hash
-of the source and the flags, and loaded with ``ctypes``.
+of the source, every shared header ``csrc/*.cuh`` and the flags, and
+loaded with ``ctypes``.
 """
 from __future__ import annotations
 
@@ -63,14 +64,21 @@ def find_nvcc() -> Optional[str]:
 
 
 def _lib_path(src: Path) -> Path:
-    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    """The library's path, keyed on everything its build reads: the
+    source, every shared header (any ``.cu`` may include any of them)
+    and the flags -- so editing a header rebuilds every kernel."""
+    h = hashlib.sha256(src.read_bytes())
+    for hdr in sorted(CSRC.glob("*.cuh")):
+        h.update(hdr.name.encode() + b"\0" + hdr.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{src.stem}-{h.hexdigest()[:16]}.so"
 
 
 def build_kernels() -> Dict[str, Path]:
-    """Compile every ``csrc/*.cu`` not yet built; returns name → library
-    path.  Raises :class:`KernelUnavailable` when there is no ``nvcc`` or
-    a compile fails."""
+    """Compile every ``csrc/*.cu`` not yet built, one ``nvcc`` per source,
+    all started together; returns name → library path.  Raises
+    :class:`KernelUnavailable` when there is no ``nvcc`` or a compile
+    fails (after every started compile has ended)."""
     sources = sorted(CSRC.glob("*.cu"))
     paths = {src.stem: _lib_path(src) for src in sources}
     todo = [src for src in sources if not paths[src.stem].exists()]
@@ -81,16 +89,22 @@ def build_kernels() -> Dict[str, Path]:
         raise KernelUnavailable("nvcc not found: the CUDA kernels cannot "
                                 "be built on this machine")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = []
     for src in todo:
         tmp = paths[src.stem].with_suffix(f".{os.getpid()}.tmp")
-        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)],
-                              stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, text=True)
-        BUILD_LOGS[src.stem] = proc.stdout
+        procs.append((src, tmp, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    failed = []
+    for src, tmp, proc in procs:
+        BUILD_LOGS[src.stem] = proc.communicate()[0]
         if proc.returncode != 0:
-            raise KernelUnavailable(f"nvcc failed on {src.name}:\n"
-                                    f"{proc.stdout}")
-        os.replace(tmp, paths[src.stem])   # atomic: concurrent builds agree
+            failed.append(f"nvcc failed on {src.name}:\n"
+                          f"{BUILD_LOGS[src.stem]}")
+        else:
+            os.replace(tmp, paths[src.stem])   # atomic: concurrent builds agree
+    if failed:
+        raise KernelUnavailable("\n".join(failed))
     return paths
 
 

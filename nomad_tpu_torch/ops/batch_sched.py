@@ -13,6 +13,7 @@ never placed by another path.
 """
 from __future__ import annotations
 
+import math
 import os
 import time
 from dataclasses import dataclass, field
@@ -24,6 +25,11 @@ import torch
 from ..device import resolve_device
 from ..structs import structs as s
 from . import decode, encode, kernels, xfer
+
+# Budget of the mesh's commit-ordered slot record ([U, M] int32, plus the
+# score rows when carried).  A batch whose record would exceed it takes
+# the single-chip path, as the reference does (batch_sched.py:63).
+MESH_SLOT_BUDGET_BYTES = 512 << 20
 
 
 class KernelIntegrityError(RuntimeError):
@@ -51,6 +57,10 @@ class BatchResult:
     rounds: int
     device: str
     timings: Dict[str, float] = field(default_factory=dict)  # seconds
+    # Shards of the node mesh that placed the batch; 0 for the
+    # single-chip path (also when a mesh batch's slot record exceeded
+    # MESH_SLOT_BUDGET_BYTES).
+    mesh_shards: int = 0
 
 
 def placed_allocs(result: BatchResult,
@@ -146,7 +156,7 @@ def _prepare_specs(jobs: Sequence[s.Job],
 def schedule_batch(nodes: Sequence[s.Node], jobs: Sequence[s.Job],
                    live_allocs: Iterable[s.Allocation] = (),
                    rng_seed: Optional[int] = None,
-                   device=None) -> BatchResult:
+                   device=None, mesh=None) -> BatchResult:
     """Place every task group of ``jobs`` on ``nodes`` in one device pass.
 
     ``nodes`` is the cluster in the order the node index follows (the
@@ -155,8 +165,16 @@ def schedule_batch(nodes: Sequence[s.Node], jobs: Sequence[s.Job],
     layered onto the nodes and they count as same-job collisions.
     ``rng_seed`` pins the tie-break seed (the reference's
     ``NOMAD_TPU_RNG_SEED``); None draws one.  ``device`` defaults to
-    ``cuda`` and raises without it."""
-    dev = resolve_device(device)
+    ``cuda`` and raises without it.
+
+    ``mesh`` (a :class:`nomad_tpu_torch.parallel.NodeMesh`, instead of
+    ``device``) places the batch node-sharded over the mesh's devices,
+    the counterpart of ``TPUBatchScheduler(mesh=...)``
+    (batch_sched.py:1464-1580): same placements and scores as the
+    single-chip path, and ``mesh_shards`` in the result."""
+    if mesh is not None and device is not None:
+        raise ValueError("pass a device or a mesh, not both")
+    dev = mesh.root if mesh is not None else resolve_device(device)
     t0 = time.perf_counter()
     live = [a for a in live_allocs if not a.terminal_status()]
     live_by_spec: Dict[Tuple[str, str], int] = {}
@@ -170,7 +188,12 @@ def schedule_batch(nodes: Sequence[s.Node], jobs: Sequence[s.Job],
         return BatchResult({}, 0, str(dev))
 
     attr_targets, literals = encode.collect_attr_targets(spec_list)
-    base = encode.encode_cluster_static(nodes, attr_targets)
+    # The node axis pads to lcm(128, D), so the shards divide it evenly;
+    # padding rows are ineligible (batch_sched.py:1451-1462).
+    d = mesh.size if mesh is not None else 0
+    base = encode.encode_cluster_static(
+        nodes, attr_targets,
+        node_pad_multiple=128 * d // math.gcd(128, d) if d else 128)
     encode.finalize_codebooks(base, literals)
     ct = (encode.apply_alloc_usage(base, allocs_by_node)
           if allocs_by_node else base)
@@ -221,17 +244,49 @@ def schedule_batch(nodes: Sequence[s.Node], jobs: Sequence[s.Job],
     }
     total_asks = int(sum(sp.count for sp in spec_list))
     max_count = max(sp.count for sp in spec_list)
-    with_scores, slot_m, max_nnz = encode.shape_plan(
-        st.u_pad, ct.n_pad, ct.n_real, max_count, total_asks)
-    sbuf, meta_s = xfer.pack_host(static)
+    plan = None
+    if d:
+        plan = encode.shape_plan(
+            st.u_pad, ct.n_pad, ct.n_real, max_count, total_asks, mesh=True,
+            slot_budget_bytes=MESH_SLOT_BUDGET_BYTES)
+        if not plan[1]:
+            # The slot record exceeds its budget: the single-chip path
+            # (batch_sched.py:1512-1518), on the mesh's first device.
+            plan, d = None, 0
+    if plan is None:
+        plan = encode.shape_plan(st.u_pad, ct.n_pad, ct.n_real, max_count,
+                                 total_asks)
+    with_scores, slot_m, max_nnz = plan
+    if d:
+        # Per-shard static packs: node rows cut to their owning shard.
+        sbuf, meta_s = xfer.pack_host_sharded(static, d)
+    else:
+        sbuf, meta_s = xfer.pack_host(static)
     dbuf, meta_d = xfer.pack_host(dyn)
     t1 = time.perf_counter()
 
     timer = _DeviceTimer(dev)
-    out = kernels.fused_pass(
-        torch.from_numpy(sbuf).to(dev), torch.from_numpy(dbuf).to(dev),
-        meta_s=meta_s, meta_d=meta_d, u_pad=st.u_pad, n_pad=ct.n_pad,
-        with_scores=with_scores, max_nnz=max_nnz, slot_m=slot_m)
+    dyn_dev = torch.from_numpy(dbuf).to(dev)
+    if d:
+        from ..parallel import sharded
+
+        # One upload per shard; the replicated dyn buffer goes to the
+        # other devices inside the pass.  k_cand >= the largest count (or
+        # the whole shard) keeps each round's global top-k inside the
+        # gathered candidates, so the mesh commits exactly what the
+        # single-chip loop commits (sharded.py:411-418).
+        out = sharded.sharded_fused_pass(
+            mesh, [torch.from_numpy(sbuf[i]).to(dv)
+                   for i, dv in enumerate(mesh.devices)], dyn_dev,
+            meta_s=meta_s, meta_d=meta_d, u_pad=st.u_pad, n_pad=ct.n_pad,
+            with_scores=with_scores, max_nnz=max_nnz, slot_m=slot_m,
+            k_cand=min(ct.n_pad // d,
+                       encode.pow2_bucket(max(64, max_count))))
+    else:
+        out = kernels.fused_pass(
+            torch.from_numpy(sbuf).to(dev), dyn_dev, meta_s=meta_s,
+            meta_d=meta_d, u_pad=st.u_pad, n_pad=ct.n_pad,
+            with_scores=with_scores, max_nnz=max_nnz, slot_m=slot_m)
     raw = out.buf.cpu().numpy()          # the one result fetch
     summary = xfer.unpack_host(raw, out.meta)
     nnz = int(summary["scalars"][0])
@@ -250,7 +305,7 @@ def schedule_batch(nodes: Sequence[s.Node], jobs: Sequence[s.Job],
         placements=placements, rounds=int(summary["scalars"][1]),
         device=str(dev),
         timings={"encode": t1 - t0, "device": device_s,
-                 "decode": t3 - t2})
+                 "decode": t3 - t2}, mesh_shards=d)
 
 
 class _DeviceTimer:

@@ -61,23 +61,29 @@ def pow2_bucket(x: int, minimum: int = 8) -> int:
 
 
 def shape_plan(u_pad: int, n_pad: int, n_real: int, max_count: int,
-               total_asks: int, *, slot_budget_bytes: int = 64 << 20
+               total_asks: int, *, mesh: bool = False,
+               slot_budget_bytes: int = 64 << 20
                ) -> Tuple[bool, int, int]:
-    """The shape-class plan of a placement dispatch: ``(with_scores,
-    slot_m, max_nnz)``.
+    """The shape-class plan of a placement dispatch, shared by the
+    single-chip and mesh paths: ``(with_scores, slot_m, max_nnz)``.
 
     - ``with_scores``: commit-score side outputs while U x N stays under
-      ~16M cells (N taken at the 128-multiple of ``n_real``).
+      ~16M cells (N taken at the single-chip 128-multiple of ``n_real``,
+      so a mesh's lcm(128, D) pad never drops scores the single-chip
+      path carries).
     - ``slot_m``: minor axis of the commit-ordered slot record (pow2 of
-      the largest count), or 0 for matrix mode when the record would
-      exceed ``slot_budget_bytes`` or the node axis exceeds 65536.
+      the largest count), or 0 when the record would exceed
+      ``slot_budget_bytes`` -- the single-chip path then uses matrix
+      mode, the mesh the single-chip path.  The single-chip path also
+      uses matrix mode past 65536 node rows; the mesh always needs
+      slots.
     - ``max_nnz``: COO capacity (per-alloc entries in slot mode,
       per-(spec, node) aggregates in matrix mode).
     """
     n_pad_ref = max(128, round_up(n_real, 128))
     with_scores = u_pad * n_pad_ref <= 16_000_000
     slot_m = 0
-    if n_pad <= 65536:
+    if mesh or n_pad <= 65536:
         m_b = pow2_bucket(max(8, max_count), minimum=8)
         slot_bytes = 4 + (8 if with_scores else 0)
         if u_pad * m_b * slot_bytes <= slot_budget_bytes:

@@ -1,5 +1,6 @@
-"""The per-commit score of the placement loop: the hand-written CUDA
-kernel ``csrc/scored_rows.cu``, its plain PyTorch version, and the
+"""The score kernels: the per-commit score of the placement loop
+(``csrc/scored_rows.cu``) and the mesh's shard-local candidate score
+(``csrc/masked_score.cu``), each with its plain PyTorch version and the
 wrapper that picks between them by where the tensors lie.
 
 Replaces the Pallas TPU kernel ``nomad_tpu/ops/pallas_score.py``
@@ -10,9 +11,18 @@ commit-time expression of ``nomad_tpu/ops/kernels.py:463-506``::
     base   = ScoreFit(used, ask, denom)
     scored = where(ok, base - penalty * coll + tie_jitter, NEG_INF)
 
-The wrapper returns ``(scored, base)``.  For CPU tensors it computes the
-plain version; for CUDA tensors it launches the kernel or raises.  There
-is no fallback from one to the other.
+The wrapper returns ``(scored, base)``.
+
+:func:`masked_score_matrix` replaces the Pallas kernel ``_score_kernel``
+(entry ``masked_score_matrix``, same file), the mask and score of
+``nomad_tpu/parallel/sharded.py:_local_topk_scores``::
+
+    masked = where(feas & all(ask <= cap - used), ScoreFit, NEG_INF)
+
+with no penalty and no jitter.  Both kernels share their fit test and
+ScoreFit (``csrc/score_common.cuh``).  For CPU tensors each wrapper
+computes its plain version; for CUDA tensors it launches its kernel or
+raises.  There is no fallback from one to the other.
 """
 from __future__ import annotations
 
@@ -26,8 +36,10 @@ _U32 = 0xFFFFFFFF
 # float32(1e-3 / 2^24): the jitter's scale, rounded once from the double.
 _JITTER_SCALE = np.float32(1e-3 / (1 << 24))
 
-# Kernel launches made by scored_rows (the plain version counts nothing).
+# Kernel launches made by scored_rows and by masked_score_matrix (the
+# plain versions count nothing).
 LAUNCHES = 0
+MASKED_LAUNCHES = 0
 
 
 def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
@@ -92,36 +104,69 @@ def scored_rows_reference(feas, used, capacity, denom, ask, penalty,
     return torch.where(ok, score, NEG_INF), base
 
 
-_LIB = None
+def masked_score_matrix_reference(feas, used, capacity, denom, ask):
+    """Plain PyTorch version of the masked score kernel: ``[U, N]`` f32,
+    the ScoreFit of every (spec, node) pair that fits, NEG_INF elsewhere
+    (pallas_score.py:44-76, term for term with ``_masked_fit_score``)."""
+    fits = (ask[:, None, :] <= (capacity - used)[None, :, :]).all(dim=2)
+    ok = (feas != 0) & fits
+    return torch.where(ok, score_fit(used, ask, denom), NEG_INF)
 
 
-def _lib():
-    global _LIB
-    if _LIB is None:
+# (C symbol, argument types after the pointers) of each kernel library.
+_C_API = {
+    "scored_rows": ("nomad_scored_rows", [ctypes.c_void_p] * 7 + [
+        ctypes.c_uint32, ctypes.c_uint32, ctypes.c_uint32, ctypes.c_int,
+        ctypes.c_int] + [ctypes.c_void_p] * 3),
+    "masked_score": ("nomad_masked_score", [ctypes.c_void_p] * 5 + [
+        ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 2),
+}
+_FNS = {}
+
+
+def _fn(name: str):
+    """The C entry point of ``csrc/<name>.cu``, built and typed at first
+    use."""
+    fn = _FNS.get(name)
+    if fn is None:
         from .. import device
 
-        lib = device.load_library("scored_rows")
-        p = ctypes.c_void_p
-        lib.nomad_scored_rows.argtypes = [
-            p, p, p, p, p, p, p, ctypes.c_uint32, ctypes.c_uint32,
-            ctypes.c_uint32, ctypes.c_int, ctypes.c_int, p, p, p]
-        lib.nomad_scored_rows.restype = ctypes.c_int
-        _LIB = lib
-    return _LIB
+        symbol, argtypes = _C_API[name]
+        fn = getattr(device.load_library(name), symbol)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _FNS[name] = fn
+    return fn
 
 
-def _check(name, t, dtype, shape, device, align=1):
+def _check(kernel, name, t, dtype, shape, device, align=1):
     if t.device != device:
-        raise ValueError(f"scored_rows: {name} on {t.device}, expected {device}")
+        raise ValueError(f"{kernel}: {name} on {t.device}, expected {device}")
     if t.dtype != dtype:
-        raise TypeError(f"scored_rows: {name} is {t.dtype}, expected {dtype}")
+        raise TypeError(f"{kernel}: {name} is {t.dtype}, expected {dtype}")
     if tuple(t.shape) != shape:
-        raise ValueError(f"scored_rows: {name} has shape {tuple(t.shape)}, "
+        raise ValueError(f"{kernel}: {name} has shape {tuple(t.shape)}, "
                          f"expected {shape}")
     if not t.is_contiguous():
-        raise ValueError(f"scored_rows: {name} must be contiguous")
+        raise ValueError(f"{kernel}: {name} must be contiguous")
     if t.data_ptr() % align:
-        raise ValueError(f"scored_rows: {name} must be {align}-byte aligned")
+        raise ValueError(f"{kernel}: {name} must be {align}-byte aligned")
+
+
+def _check_node_inputs(kernel, feas, used, capacity, denom, ask):
+    """The checks both kernels share; returns ``feas`` as uint8."""
+    dev = feas.device
+    u, n = feas.shape
+    if u > 65535:
+        raise ValueError(f"{kernel}: {u} rows exceed the grid's 65535")
+    if feas.dtype == torch.bool:
+        feas = feas.view(torch.uint8)
+    _check(kernel, "feas", feas, torch.uint8, (u, n), dev)
+    _check(kernel, "used", used, torch.int32, (n, 4), dev, 16)
+    _check(kernel, "capacity", capacity, torch.int32, (n, 4), dev, 16)
+    _check(kernel, "denom", denom, torch.float32, (n, 2), dev, 8)
+    _check(kernel, "ask", ask, torch.int32, (u, 4), dev, 16)
+    return feas
 
 
 def scored_rows(feas, used, capacity, denom, ask, penalty, collisions,
@@ -143,27 +188,50 @@ def scored_rows(feas, used, capacity, denom, ask, penalty, collisions,
     if dev.type != "cuda":
         raise ValueError(f"scored_rows: unsupported device {dev}")
     u, n = feas.shape
-    if u > 65535:
-        raise ValueError(f"scored_rows: {u} rows exceed the grid's 65535")
-    if feas.dtype == torch.bool:
-        feas = feas.view(torch.uint8)
-    _check("feas", feas, torch.uint8, (u, n), dev)
-    _check("used", used, torch.int32, (n, 4), dev, 16)
-    _check("capacity", capacity, torch.int32, (n, 4), dev, 16)
-    _check("denom", denom, torch.float32, (n, 2), dev, 8)
-    _check("ask", ask, torch.int32, (u, 4), dev, 16)
-    _check("penalty", penalty, torch.float32, (u,), dev)
-    _check("collisions", collisions, torch.int32, (u, n), dev)
-    lib = _lib()
+    feas = _check_node_inputs("scored_rows", feas, used, capacity, denom,
+                              ask)
+    _check("scored_rows", "penalty", penalty, torch.float32, (u,), dev)
+    _check("scored_rows", "collisions", collisions, torch.int32, (u, n), dev)
+    fn = _fn("scored_rows")
     out = torch.empty((u, n), dtype=torch.float32, device=dev)
     base = torch.empty((u, n), dtype=torch.float32, device=dev)
-    rc = lib.nomad_scored_rows(
-        feas.data_ptr(), used.data_ptr(), capacity.data_ptr(),
-        denom.data_ptr(), ask.data_ptr(), penalty.data_ptr(),
-        collisions.data_ptr(), seed & 0xFFFFFFFF, u_offset & 0xFFFFFFFF,
-        n_offset & 0xFFFFFFFF, u, n, out.data_ptr(), base.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(dev):    # the launch goes to the tensors' card
+        rc = fn(
+            feas.data_ptr(), used.data_ptr(), capacity.data_ptr(),
+            denom.data_ptr(), ask.data_ptr(), penalty.data_ptr(),
+            collisions.data_ptr(), seed & 0xFFFFFFFF, u_offset & 0xFFFFFFFF,
+            n_offset & 0xFFFFFFFF, u, n, out.data_ptr(), base.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"scored_rows kernel launch failed: cudaError {rc}")
     LAUNCHES += 1
     return out, base
+
+
+def masked_score_matrix(feas, used, capacity, denom, ask) -> torch.Tensor:
+    """All-pairs masked ScoreFit of one node shard: ``[U, N]`` f32, NEG_INF
+    where the spec does not fit or is statically infeasible.
+
+    feas [U, N] bool/uint8 (padding columns False, so they come back
+    NEG_INF), used/capacity [N, 4] int32, denom [N, 2] f32, ask [U, 4]
+    int32, all on one device."""
+    global MASKED_LAUNCHES
+    dev = feas.device
+    if dev.type == "cpu":
+        return masked_score_matrix_reference(feas, used, capacity, denom, ask)
+    if dev.type != "cuda":
+        raise ValueError(f"masked_score_matrix: unsupported device {dev}")
+    u, n = feas.shape
+    feas = _check_node_inputs("masked_score_matrix", feas, used, capacity,
+                              denom, ask)
+    fn = _fn("masked_score")
+    out = torch.empty((u, n), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):    # the launch goes to the tensors' card
+        rc = fn(feas.data_ptr(), used.data_ptr(), capacity.data_ptr(),
+                denom.data_ptr(), ask.data_ptr(), u, n, out.data_ptr(),
+                torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(
+            f"masked_score_matrix kernel launch failed: cudaError {rc}")
+    MASKED_LAUNCHES += 1
+    return out

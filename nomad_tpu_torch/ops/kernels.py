@@ -101,6 +101,19 @@ def _select_top_k(scored: torch.Tensor, ok: torch.Tensor,
     return sel_gt | (band & (csum <= need))
 
 
+def stable_top_k(scored: torch.Tensor, k: int):
+    """``lax.top_k`` along the last axis, with its order: descending,
+    ties by the lower index first, in float32's total order (-0.0 below
+    +0.0, NaN above +inf).  ``torch.topk`` does not keep that tie order,
+    and a score row without jitter is mostly ties, so this is a stable
+    descending sort of the order-preserving int32 image, cut to ``k``.
+    Returns ``(values, indices int64)``."""
+    bits = scored.contiguous().view(torch.int32)
+    key = torch.where(bits >= 0, bits, bits ^ 0x7FFFFFFF)
+    idx = torch.sort(key, dim=-1, descending=True, stable=True)[1][..., :k]
+    return torch.gather(scored, -1, idx), idx
+
+
 def feasibility_matrix(attr_values, eligible, dc_code, c_attr, c_op, c_rhs,
                        dc_mask, precomp) -> torch.Tensor:
     """F[U, N]: static feasibility of spec u on node n (kernels.py:216):

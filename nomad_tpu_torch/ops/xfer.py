@@ -94,6 +94,37 @@ def pack_host(arrays: Dict[str, np.ndarray]) -> Tuple[np.ndarray, Meta]:
     return buf, meta
 
 
+def pack_host_sharded(arrays: Dict[str, np.ndarray], shards: int,
+                      replicate: Tuple[str, ...] = ()
+                      ) -> Tuple[np.ndarray, Meta]:
+    """Per-shard packing for the node mesh (reference ``xfer.py:94``):
+    every array is cut into ``shards`` equal slices along its leading
+    axis -- except the ``replicate`` names, copied whole into every
+    shard -- and each slice set packs into one uint8 row of the returned
+    ``[shards, B]`` buffer.  All rows share one layout, so the one meta
+    describes every shard.  Raises ``ValueError`` when a sliced array's
+    leading axis does not divide into ``shards`` (it would be cut into
+    wrong slices)."""
+    for name, arr in arrays.items():
+        if name not in replicate and arr.shape[0] % shards:
+            raise ValueError(
+                f"pack_host_sharded: array {name!r} leading axis "
+                f"{arr.shape[0]} not divisible by {shards} shards")
+    rows: List[np.ndarray] = []
+    meta: Meta = ()
+    for s_i in range(shards):
+        sl: Dict[str, np.ndarray] = {}
+        for name, arr in arrays.items():
+            if name in replicate:
+                sl[name] = arr
+            else:
+                n_l = arr.shape[0] // shards
+                sl[name] = arr[s_i * n_l:(s_i + 1) * n_l]
+        buf, meta = pack_host(sl)
+        rows.append(buf)
+    return np.stack(rows), meta
+
+
 def unpack_host(buf: np.ndarray, meta: Meta) -> Dict[str, np.ndarray]:
     """numpy-view unpack of a fetched :func:`pack_device` buffer."""
     out: Dict[str, np.ndarray] = {}

@@ -34,21 +34,52 @@ def inputs(u, n, seed, dev):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("u,n,u_off", [(1, 10112, 0), (1, 10112, 37),
-                                       (128, 10112, 0), (3, 700, 5)])
-def test_scored_rows_kernel_matches_plain(u, n, u_off):
+@pytest.mark.parametrize("u,n,u_off,n_off", [
+    (1, 10112, 0, 0), (1, 10112, 37, 0), (128, 10112, 0, 0), (3, 700, 5, 0),
+    # The mesh's per-shard call: one spec row over a 250,016-node shard,
+    # jitter keyed on the global node index of the last of four shards.
+    (1, 250_016, 77, 750_048)])
+def test_scored_rows_kernel_matches_plain(u, n, u_off, n_off):
     need_card()
     args = inputs(u, n, u + n + u_off, "cuda")
     before = fused_score.LAUNCHES
-    got, got_base = fused_score.scored_rows(*args, 12345, u_offset=u_off)
-    want, want_base = fused_score.scored_rows_reference(*args, 12345,
-                                                        u_offset=u_off)
+    got, got_base = fused_score.scored_rows(*args, 12345, u_offset=u_off,
+                                            n_offset=n_off)
+    want, want_base = fused_score.scored_rows_reference(
+        *args, 12345, u_offset=u_off, n_offset=n_off)
     torch.cuda.synchronize()
     assert fused_score.LAUNCHES == before + 1
     assert torch.equal(got == -1e30, want == -1e30)
     live = want != -1e30
     assert float((got - want)[live].abs().max()) <= ATOL
     assert float((got_base - want_base).abs().max()) <= ATOL
+    # The kernel and its plain version agree bit for bit.
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert torch.equal(got_base.view(torch.int32),
+                       want_base.view(torch.int32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("u,n", [(1, 10112), (128, 10112), (3, 700)])
+def test_masked_score_kernel_matches_plain(u, n):
+    need_card()
+    feas, used, cap, denom, ask, penalty, coll = inputs(u, n, u + n, "cuda")
+    feas[:, n - 50:] = False                  # padding columns
+    before = fused_score.MASKED_LAUNCHES
+    got = fused_score.masked_score_matrix(feas, used, cap, denom, ask)
+    want = fused_score.masked_score_matrix_reference(feas, used, cap, denom,
+                                                     ask)
+    _, base = fused_score.scored_rows(feas, used, cap, denom, ask, penalty,
+                                      coll, 99)
+    torch.cuda.synchronize()
+    assert fused_score.MASKED_LAUNCHES == before + 1
+    assert torch.equal(got == -1e30, want == -1e30)
+    live = want != -1e30
+    assert float((got - want)[live].abs().max()) <= ATOL
+    # One shared ScoreFit: the masked score is scored_rows' base, bit for
+    # bit, wherever the spec fits.
+    assert torch.equal(got[live].view(torch.int32),
+                       base[live].view(torch.int32))
 
 
 @pytest.mark.gpu
