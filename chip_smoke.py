@@ -2,6 +2,7 @@
 """Drive the PyTorch/CUDA port (``nomad_tpu_torch``) on one NVIDIA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --against TREE   # time against another checkout
 
 Phases, each printed as one JSON line:
 
@@ -11,10 +12,13 @@ Phases, each printed as one JSON line:
                included);
 3. parity   -- the scored_rows kernel against its plain PyTorch version
                on the card, at the main paths' shapes (the mesh's with
-               shard node offsets) and on edge rows (0 differing bits);
+               shard node offsets), on edge rows and at the score tile's
+               edges (N % 4 != 0, U no multiple of a row tile, misaligned
+               row views, with_base=False against True): 0 differing bits;
 4. masked_parity -- the masked_score_matrix kernel against its plain
-               version, and against scored_rows' base where the spec
-               fits (one shared ScoreFit: 0 differing bits);
+               version (0 differing bits), at the same edges, and against
+               scored_rows' base where the spec fits (one shared ScoreFit:
+               0 differing bits);
 5. config_b -- the single-card path at BASELINE.json config (b) width:
                10,000 nodes, 100 jobs x 1000 asks, then two follow-up
                batches against the live placements, through
@@ -32,7 +36,10 @@ Phases, each printed as one JSON line:
 10. times   -- each kernel's device time (profiler trace; CUDA events
                where the trace has none) over copies of its inputs that
                overflow the L2, its plain version's and the bound for the
-               same work on this card;
+               same work on this card; scored_rows also without base (the
+               mesh's call at config_mesh); the launch floor (a one-element
+               fill); the kernels' SASS instruction counts and the
+               issue-rate time they give;
 11. profile -- config (b)'s first batch again, warm, on the single card
                and on a 4-shard mesh: untraced, and under a device-only
                trace for the device busy time and idle share.
@@ -45,6 +52,13 @@ Then the kernel table, the card's name and power limit, and the last
 line ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no
 result, if CUDA is absent, the package is missing or any phase fails.
 Imports nothing of JAX.
+
+``--against TREE`` runs only the device and build phases and then
+``against``: every timed row of ``times`` with the kernels of the
+checkout at TREE (built with this tree's flags; their C interface must be
+this tree's) and with this tree's, on the same inputs, in turns (that
+tree, this, this, that, twice).  It prints the rows and the card's name
+and power limit, not the result line.
 """
 from __future__ import annotations
 
@@ -113,10 +127,11 @@ def time_ms(fn, n: int = 100, warmup: int = 10) -> float:
 
 # -- phase 3: kernel parity --------------------------------------------------
 
-def score_inputs(u: int, n: int, seed: int, dev):
+def score_inputs(u: int, n: int, seed: int, dev, distinct_asks=False):
     """Inputs of the score kernel at the main path's layout, with edge
     rows: padding columns (zero capacity, infeasible), full nodes,
-    denom == 0, and nonzero collisions."""
+    denom == 0, and nonzero collisions.  ``distinct_asks``: no two rows
+    ask for the same CPU or memory."""
     import numpy as np
     import torch
 
@@ -138,6 +153,9 @@ def score_inputs(u: int, n: int, seed: int, dev):
     feas[:, n_real:] = False
     ask = np.tile(np.array([500, 256, 150, 0], np.int32), (u, 1))
     ask[:, 0] = rng.choice([100, 250, 500], u)
+    if distinct_asks:
+        ask[:, 0] = 100 + 7 * np.arange(u)
+        ask[:, 1] = 64 + 3 * np.arange(u)
     penalty = rng.choice([10.0, 20.0], u).astype(np.float32)
     penalty[::3] = rng.uniform(0.0, 25.0, len(penalty[::3]))
     coll = (rng.random((u, n)) < 0.1).astype(np.int32) * rng.integers(
@@ -153,18 +171,50 @@ def bit_diff(a, b) -> int:
                 != b.contiguous().view(torch.int32)).sum())
 
 
+def scored_row(got, got_base, want, want_base, cpu, cpu_base, **shape):
+    """One scored_rows check: identical mask and 0 differing bits against
+    the plain version on the card (``cpu`` None: no CPU comparison)."""
+    import torch
+
+    mask_same = bool(torch.equal(got == -1e30, want == -1e30))
+    live = want != -1e30
+    d = float((got - want)[live].abs().max()) if live.any() else 0.0
+    row = {**shape, "mask_identical": mask_same, "max_abs_err": d,
+           "score_bits_differ": bit_diff(got, want), "cells": got.numel()}
+    if got_base is not None:
+        row.update(base_max_abs_err=float((got_base - want_base).abs().max()),
+                   base_bits_differ=bit_diff(got_base, want_base))
+    if cpu is not None:
+        row.update(
+            vs_cpu_plain_max_abs_err=float(
+                (got.cpu() - cpu)[live.cpu()].abs().max()),
+            vs_cpu_plain_score_bits_differ=bit_diff(got.cpu(), cpu),
+            vs_cpu_plain_base_bits_differ=bit_diff(got_base.cpu(), cpu_base))
+    if (not mask_same or d > ATOL or row["score_bits_differ"]
+            or row.get("base_bits_differ")):
+        raise AssertionError(f"scored_rows disagrees with its plain "
+                             f"version: {row}")
+    return row
+
+
 def phase_parity(dev):
     import torch
 
     from nomad_tpu_torch.ops import fused_score, kernels
 
     seed = kernels.jitter_seed(SEED)
-    # (u, n, u_offset, n_offset).  The last two are the mesh's per-shard
-    # calls on config_mesh: one spec row over one 250,016-node shard,
-    # keyed on the global node index of shards 1 and 3.
+    # (u, n, u_offset, n_offset).  (1, 250_016, ...) are the mesh's
+    # per-shard calls on config_mesh: one spec row over one 250,016-node
+    # shard, keyed on the global node index of shards 1 and 3.  From
+    # (1, 701, ...) on, the score tile's edges: N % 4 != 0 (the scalar
+    # path), U = 1, 7, 9, 129 (no multiple of a row tile), config (b)'s
+    # 4-shard offsets and U = 9 over a config_mesh shard.
     cases = [(1, 10112, 0, 0), (1, 10112, 37, 0), (1, 10112, 127, 0),
              (128, 10112, 0, 0), (3, 700, 5, 0),
-             (1, 250_016, 41, 250_016), (1, 250_016, 99, 750_048)]
+             (1, 250_016, 41, 250_016), (1, 250_016, 99, 750_048),
+             (1, 701, 0, 0), (9, 701, 3, 0), (7, 10112, 0, 0),
+             (9, 10112, 5, 0), (129, 10112, 0, 0), (9, 2528, 11, 7584),
+             (9, 250_016, 2, 500_032)]
     rows = []
     worst = 0.0
     for u, n, u_off, n_off in cases:
@@ -173,33 +223,43 @@ def phase_parity(dev):
                                                 n_offset=n_off)
         want, want_base = fused_score.scored_rows_reference(
             *args, seed, u_offset=u_off, n_offset=n_off)
-        cpu_args = [a.cpu() for a in args]
         cpu, cpu_base = fused_score.scored_rows_reference(
-            *cpu_args, seed, u_offset=u_off, n_offset=n_off)
+            *[a.cpu() for a in args], seed, u_offset=u_off, n_offset=n_off)
+        no_base, none = fused_score.scored_rows(
+            *args, seed, u_offset=u_off, n_offset=n_off, with_base=False)
         torch.cuda.synchronize()
-        mask_same = bool(torch.equal(got == -1e30, want == -1e30))
-        live = want != -1e30
-        d = float((got - want)[live].abs().max()) if live.any() else 0.0
-        db = float((got_base - want_base).abs().max())
-        d_cpu = float((got.cpu() - cpu)[live.cpu()].abs().max())
-        row = {"u": u, "n": n, "u_offset": u_off, "n_offset": n_off,
-               "mask_identical": mask_same,
-               "max_abs_err": d, "base_max_abs_err": db,
-               "score_bits_differ": bit_diff(got, want),
-               "base_bits_differ": bit_diff(got_base, want_base),
-               "vs_cpu_plain_max_abs_err": d_cpu,
-               "vs_cpu_plain_score_bits_differ": bit_diff(got.cpu(), cpu),
-               "vs_cpu_plain_base_bits_differ": bit_diff(got_base.cpu(),
-                                                         cpu_base),
-               "cells": u * n}
+        row = scored_row(got, got_base, want, want_base, cpu, cpu_base, u=u,
+                         n=n, u_offset=u_off, n_offset=n_off)
+        row["without_base_bits_differ"] = bit_diff(no_base, got)
         rows.append(row)
-        worst = max(worst, d, db)
-        # The shared header must not change a bit of the kernel's
-        # results: it agreed bit for bit with its plain version before.
-        if (not mask_same or d > ATOL or db > ATOL
-                or row["score_bits_differ"] or row["base_bits_differ"]):
-            raise AssertionError(f"scored_rows disagrees with its plain "
-                                 f"version: {row}")
+        worst = max(worst, row["max_abs_err"], row["base_max_abs_err"])
+        if none is not None or row["without_base_bits_differ"]:
+            raise AssertionError(f"scored_rows with_base=False differs: "
+                                 f"{row}")
+    # The loop's call: one row of a [U, N] tensor, u·N bytes into feas.
+    # N = 10,113 misaligns the rows; a storage offset of 1 misaligns every
+    # row of a 70,000-node tensor that would otherwise take the vector
+    # path.
+    for u, n, shift in ((9, 10113, 0), (3, 70_000, 1)):
+        args = score_inputs(u, n, SEED + n, dev)
+        feas = args[0].view(torch.uint8)
+        if shift:
+            buf = torch.zeros(u * n + shift, dtype=torch.uint8, device=dev)
+            buf[shift:] = feas.reshape(-1)
+            feas = buf[shift:].view(u, n)
+        for r in range(u):
+            view = [feas[r:r + 1], *args[1:4], args[4][r:r + 1],
+                    args[5][r:r + 1], args[6][r:r + 1]]
+            got, got_base = fused_score.scored_rows(*view, seed, u_offset=r)
+            want, want_base = fused_score.scored_rows_reference(
+                *view, seed, u_offset=r)
+            torch.cuda.synchronize()
+            row = scored_row(got, got_base, want, want_base, None, None,
+                             u=1, n=n, u_offset=r, n_offset=0,
+                             row_view_of=[u, n], storage_shift=shift,
+                             feas_byte_offset=feas[r:r + 1].data_ptr() % 16)
+            rows.append(row)
+            worst = max(worst, row["max_abs_err"], row["base_max_abs_err"])
     return {"scored_rows": rows}, worst
 
 
@@ -213,7 +273,9 @@ def phase_masked_parity(dev):
 
     rows = []
     worst = 0.0
-    for u, n in ((128, 250_016), (1, 10112), (3, 700)):
+    # After (3, 700): the score tile's edges, as in phase_parity.
+    for u, n in ((128, 250_016), (1, 10112), (3, 700), (1, 701), (9, 701),
+                 (7, 10112), (129, 10112), (9, 10113), (129, 250_016)):
         feas, used, cap, denom, ask, penalty, coll = score_inputs(
             u, n, SEED + 7 * u, dev)
         got = fused_score.masked_score_matrix(feas, used, cap, denom, ask)
@@ -233,7 +295,7 @@ def phase_masked_parity(dev):
                "padding_columns": int((~feas.any(0)).sum())}
         rows.append(row)
         worst = max(worst, d)
-        if (not mask_same or d > ATOL
+        if (not mask_same or d > ATOL or row["score_bits_differ"]
                 or row["vs_scored_rows_base_bits_differ"]):
             raise AssertionError(f"masked_score_matrix disagrees: {row}")
     return {"masked_score_matrix": rows}, worst
@@ -645,11 +707,11 @@ def phase_mesh(dev):
 
 # -- phase 10: times ---------------------------------------------------------
 
-def score_bytes(u: int, n: int) -> int:
+def score_bytes(u: int, n: int, with_base: bool = True) -> int:
     """Bytes the function must move: feas (1) + collisions (4) in and
-    scored + base (8) out per cell; used, cap (16 each) and denom (8) per
-    node; ask (16) and penalty (4) per row."""
-    return u * n * 13 + n * 40 + u * 20
+    scored (4) + base (4, when asked for) out per cell; used, cap (16
+    each) and denom (8) per node; ask (16) and penalty (4) per row."""
+    return u * n * (13 if with_base else 9) + n * 40 + u * 20
 
 
 def score_ops(u: int, n: int) -> int:
@@ -751,37 +813,157 @@ def timed_row(call, plain, kernel_name, n_bytes, n_ops, n=100):
             "bytes": n_bytes}
 
 
+# The timed rows: ("masked", u, n, distinct_asks) of masked_score_matrix;
+# ("scored", u, n, n_offset, with_base) of scored_rows.  (1, 250_016,
+# 250_016, ...) is the mesh's per-shard commit score (U = 1 over one
+# config_mesh shard, at shard 1's node offset): with base as config (b)
+# on a mesh calls it, without as config_mesh, which keeps no scores, does.
+# The distinct-ask row gives every spec row its own CPU and memory ask.
+MASKED_TIMES = (("masked", 128, 250_016, False), ("masked", 1, 10112, False),
+                ("masked", 128, 250_016, True))
+SCORED_TIMES = (("scored", 1, 250_016, 250_016, True),
+                ("scored", 1, 250_016, 250_016, False),
+                ("scored", 1, 10112, 0, True),
+                ("scored", 128, 10112, 0, True))
+
+
+def timed_case(dev, shape):
+    """(kernel call, plain call, kernel name, bytes, operations) of one
+    timed row, each call on the next of the rotating copies of
+    ``score_inputs`` -- the same inputs every tree is timed on."""
+    from nomad_tpu_torch.ops import fused_score, kernels
+
+    if shape[0] == "masked":
+        _, u, n, distinct = shape
+        nbytes = masked_bytes(u, n)
+        nxt = rotating(score_inputs(u, n, SEED, dev, distinct)[:5], nbytes)
+        return (lambda: fused_score.masked_score_matrix(*nxt()),
+                lambda: fused_score.masked_score_matrix_reference(*nxt()),
+                "masked_score_kernel", nbytes, masked_ops(u, n))
+    _, u, n, n_off, with_base = shape
+    seed = kernels.jitter_seed(SEED)
+    nbytes = score_bytes(u, n, with_base)
+    nxt = rotating(score_inputs(u, n, SEED, dev), nbytes)
+    return (lambda: fused_score.scored_rows(*nxt(), seed, n_offset=n_off,
+                                            with_base=with_base),
+            lambda: fused_score.scored_rows_reference(*nxt(), seed,
+                                                      n_offset=n_off),
+            "scored_rows_kernel", nbytes, score_ops(u, n))
+
+
+def launch_floor(dev):
+    """Device time of a one-element ``torch.zeros`` fill: what the card
+    takes for a launch that does nothing, the floor under the U = 1 x
+    10,112 rows."""
+    import torch
+
+    def call():
+        return torch.zeros(1, device=dev)
+
+    ms = kernel_device_ms(call, "", 100)
+    return {"what": "torch.zeros(1) fill kernel",
+            "ms": ms if ms is not None else "not measured (no device events)",
+            "back_to_back_ms": back_to_back_ms(call)}
+
+
+def sass_report(paths, issue_cells):
+    """Static SASS of every kernel instantiation (``cuobjdump -sass`` of
+    the built libraries): instructions and MUFU (special function unit)
+    instructions.  One cell's instructions are estimated as (V=4 count -
+    V=1 count) / 3 -- the vector kernel repeats the cell body four times
+    over the same row and block code -- an estimate of the static body,
+    slow paths included.  ``issue_cells`` maps a kernel name to the cells
+    of a timed row; for each, the issue-rate time: one warp instruction
+    per scheduler per clock, 4 schedulers per SM, at the card's maximum SM
+    clock."""
+    import re
+
+    import torch
+
+    from nomad_tpu_torch import device as devmod
+
+    tool = os.path.join(os.path.dirname(devmod.find_nvcc()), "cuobjdump")
+    funcs = {}
+    for so in paths.values():
+        try:
+            text = subprocess.run([tool, "-sass", str(so)],
+                                  capture_output=True, text=True, timeout=120,
+                                  check=True).stdout
+        except (OSError, subprocess.SubprocessError) as exc:
+            return {"not measured": f"cuobjdump: {exc!r}"}
+        cur = None
+        for line in text.splitlines():
+            m = re.match(r"\s*Function : (\S+)", line)
+            if m:
+                cur = funcs.setdefault(m.group(1),
+                                       {"instructions": 0, "mufu": 0})
+                continue
+            m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?"
+                         r"([A-Z][A-Z0-9_.]*)", line)
+            if cur is not None and m and not m.group(1).startswith("NOP"):
+                cur["instructions"] += 1
+                cur["mufu"] += m.group(1).startswith("MUFU")
+    per_cell = {}
+    for name, c in funcs.items():
+        if "ILi4E" not in name:
+            continue
+        one = funcs.get(name.replace("ILi4E", "ILi1E"))
+        if one is not None:
+            per_cell[name] = {
+                "instructions": (c["instructions"] - one["instructions"]) / 3,
+                "mufu": (c["mufu"] - one["mufu"]) / 3}
+    clock = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=30).stdout.split()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    issue = {}
+    if clock:
+        rate = sms * 4 * float(clock[0]) * 1e6     # warp instructions / s
+        for kernel, (cells, variant) in issue_cells.items():
+            body = next((v for k, v in per_cell.items()
+                         if kernel in k and variant in k), None)
+            if body is not None:
+                issue[kernel] = {
+                    "cells": cells, "instructions_per_cell":
+                    body["instructions"], "max_sm_clock_mhz": float(clock[0]),
+                    "issue_ms": cells / 32 * body["instructions"] / rate
+                    * 1e3}
+    return {"functions": funcs, "per_cell_estimate": per_cell,
+            "issue_rate": issue}
+
+
 def phase_times(dev, launches, max_err, masked_launches, masked_err):
     import torch
 
-    from nomad_tpu_torch.ops import fused_score, kernels
+    from nomad_tpu_torch import device as devmod
 
-    seed = kernels.jitter_seed(SEED)
     masked = {}
-    for u, n in ((128, 250_016), (1, 10112)):
-        nbytes = masked_bytes(u, n)
-        nxt = rotating(score_inputs(u, n, SEED, dev)[:5], nbytes)
-        masked[u] = {"u": u, "n": n, **timed_row(
-            lambda: fused_score.masked_score_matrix(*nxt()),
-            lambda: fused_score.masked_score_matrix_reference(*nxt()),
-            "masked_score_kernel", nbytes, masked_ops(u, n), n=60)}
-        emit({"phase": "times", "kernel": "masked_score_matrix",
-              **masked[u]})
+    for shape in MASKED_TIMES:
+        _, u, n, distinct = shape
+        call, plain, name, nbytes, nops = timed_case(dev, shape)
+        row = {"u": u, "n": n, "distinct_asks": distinct,
+               **timed_row(call, plain, name, nbytes, nops, n=60)}
+        emit({"phase": "times", "kernel": "masked_score_matrix", **row})
+        if not distinct:
+            masked[u] = row
     out = {}
-    # (1, 250_016) is the mesh's per-shard commit score: U = 1 over one
-    # config_mesh shard, at shard 1's node offset.
-    for u, n, n_off in ((1, 250_016, 250_016), (1, 10112, 0),
-                        (128, 10112, 0)):
-        nbytes = score_bytes(u, n)
-        nxt = rotating(score_inputs(u, n, SEED, dev), nbytes)
-        row = {"u": u, "n": n, "n_offset": n_off, **timed_row(
-            lambda: fused_score.scored_rows(*nxt(), seed, n_offset=n_off),
-            lambda: fused_score.scored_rows_reference(*nxt(), seed,
-                                                      n_offset=n_off),
-            "scored_rows_kernel", nbytes, score_ops(u, n))}
+    for shape in SCORED_TIMES:
+        _, u, n, n_off, with_base = shape
+        call, plain, name, nbytes, nops = timed_case(dev, shape)
+        row = {"u": u, "n": n, "n_offset": n_off, "with_base": with_base,
+               **timed_row(call, plain, name, nbytes, nops)}
         emit({"phase": "times", "kernel": "scored_rows", **row})
         if not n_off:
             out[u] = row
+    emit({"phase": "times", "launch_floor": launch_floor(dev)})
+    # Masked U=128 x 250,016 runs masked_score_kernel<4>; scored U=128 x
+    # 10,112 with base runs scored_rows_kernel<4, Out::kScoredBase> (its
+    # mangled template argument ...E2E).
+    emit({"phase": "times", "sass": sass_report(
+        devmod.build_kernels(),
+        {"masked_score_kernel": (128 * 250_016, "ILi4E"),
+         "scored_rows_kernel": (128 * 10112, "E2E")})})
     torch.cuda.synchronize()
     main = out[1]    # the placement loop calls the kernel at U = 1
     cand = masked[128]   # the candidate path's call: U = 128 per shard
@@ -799,6 +981,73 @@ def phase_times(dev, launches, max_err, masked_launches, masked_err):
              "ms": cand["ms"], "plain_ms": cand["plain_ms"],
              "bound_ms": cand["bound_ms"], "bound_by": cand["bound_by"],
              "library_ms": None}]
+
+
+# -- --against: two trees' kernels on the same inputs --------------------------
+
+def build_against(root):
+    """Build the kernels of the tree at ``root`` with this tree's flags
+    into ``build/against/`` (one nvcc per source, all started together);
+    name -> its C entry point, which has this tree's C interface."""
+    import ctypes
+
+    from nomad_tpu_torch import device as devmod
+    from nomad_tpu_torch.ops import fused_score
+
+    out_dir = os.path.join(REPO, "build", "against")
+    os.makedirs(out_dir, exist_ok=True)
+    procs = {}
+    for name in fused_score._C_API:
+        so = os.path.join(out_dir, f"lib{name}.so")
+        src = os.path.join(root, "nomad_tpu_torch", "csrc", f"{name}.cu")
+        procs[name] = (so, subprocess.Popen(
+            [devmod.find_nvcc(), *devmod.NVCC_FLAGS, "-o", so, src],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    fns = {}
+    for name, (so, proc) in procs.items():
+        log = proc.communicate()[0]
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed on {root}'s {name}.cu:\n{log}")
+        symbol, argtypes = fused_score._C_API[name]
+        fn = getattr(ctypes.CDLL(so), symbol)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        fns[name] = fn
+    return fns
+
+
+def phase_against(dev, root):
+    """Every timed row of ``times`` with the kernels of the tree at
+    ``root`` and with this tree's, through this tree's wrappers on the
+    same rotating inputs, in turns: that tree, this, this, that, twice.
+    Each entry is the profiler's median over 100 launches."""
+    from nomad_tpu_torch.ops import fused_score
+
+    mine = {name: fused_score._fn(name) for name in fused_score._C_API}
+    theirs = build_against(root)
+    rows = []
+    try:
+        for shape in MASKED_TIMES + SCORED_TIMES:
+            call, _, name, nbytes, _ = timed_case(dev, shape)
+            times = {"against": [], "this": []}
+            for who in ("against", "this", "this", "against") * 2:
+                fused_score._FNS.update(theirs if who == "against" else mine)
+                ms = kernel_device_ms(call, name, 100)
+                times[who].append(ms if ms is not None
+                                  else back_to_back_ms(call))
+            a, t = times["against"], times["this"]
+            spread = max(max(a) - min(a), max(t) - min(t))
+            row = {"kernel": name, "shape": list(shape), "bytes": nbytes,
+                   "against_ms": a, "this_ms": t,
+                   "speedup_of_medians": statistics.median(a)
+                   / statistics.median(t),
+                   "largest_repeat_spread_ms": spread,
+                   "slower_beyond_spread": min(t) - max(a) > spread}
+            emit({"phase": "against", **row})
+            rows.append(row)
+    finally:
+        fused_score._FNS.update(mine)
+    return rows
 
 
 def profile_batch(dev, nodes, jobs, mesh=None):
@@ -888,6 +1137,14 @@ def run_phase(name, fn, *args):
 
 
 def main() -> int:
+    import argparse
+
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument(
+        "--against", metavar="TREE",
+        help="only time this tree's kernels against those of the checkout "
+             "at TREE (same C interface), on the same inputs, and exit")
+    opts = parser.parse_args()
     try:
         import torch
     except ImportError:
@@ -917,6 +1174,11 @@ def main() -> int:
         return {k: str(v) for k, v in paths.items()}
 
     run_phase("build", build)
+    if opts.against:
+        rows = run_phase("against", phase_against, dev, opts.against)
+        emit({"against": opts.against, "rows": rows})
+        print(smi, flush=True)
+        return 0
     parity, max_err = run_phase("parity", phase_parity, dev)
     emit({"phase": "parity", **parity})
     masked, masked_err = run_phase("masked_parity", phase_masked_parity, dev)

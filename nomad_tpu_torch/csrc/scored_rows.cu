@@ -10,33 +10,36 @@
 //   scored = ok ? base - penalty[u]*coll[u,n] + jitter(seed, u0+u, n0+n)
 //               : -1e30
 //
-// Also writes `base` through an optional second pointer: the placement
-// loop records it as the commit's AllocMetric binpack score, so it is not
-// computed twice.
+// Also writes `base` through an optional second pointer (null: not
+// written): the placement loop records it as the commit's AllocMetric
+// binpack score when it keeps scores, so it is not computed twice.
 //
-// What bounds it on an H100: bytes.  Per (u, n) cell it reads feas (1 B)
-// and coll (4 B) and writes scored and base (8 B); per node it reads
-// used, cap (16 B each) and denom (8 B) once.  About 20 flops and two
-// powf per cell against ~13-53 bytes is far below the card's ~20 flop/B
-// ridge, and at U = 1 (the loop's call, N ~ 10^4) the whole call moves
-// ~0.5 MB: under 1 us at 3.35 TB/s, so the launch sets the pace.
+// What bounds it on an H100.  Bytes at the loop's call: per (u, n) cell
+// feas (1 B) and coll (4 B) in, scored (4 B) and base (4 B, when asked)
+// out; per node used, cap (16 B each) and denom (8 B).  At U = 1 over one
+// config_mesh shard (250,016 nodes) that is 13.3 MB with base and 12.3 MB
+// without: 4.0 and 3.7 us at 3.35 TB/s.  At U = 1 x 10,112 (config (b))
+// the call moves half a megabyte, so the launch and one DRAM round trip
+// set the pace; at U = 128 the two powf and two divides of every cell
+// (the issue rate) do.
 //
-// Design: one thread per (u, n), grid = (node blocks, spec rows), nothing
-// carried between blocks.  used/cap stay in the port's [N, 4] int32 row
-// layout and are read as one 16-byte int4 per node -- neighbouring
-// threads read neighbouring 16-byte rows, fully coalesced.  The TPU
-// kernel's SoA transpose ([4, N]) existed for the TPU's lane layout and
-// is not carried over.
+// Design (score_common.cuh): the shared score tile.  A fixed grid of
+// 256-thread blocks would give U = 1 x 10,112 40 blocks, so 40 of the 132
+// SMs would hold all the work, and one thread per (u, n) re-reads node
+// data for every row at U = 128.  The grid is instead planned from N, U
+// and the SM count: 64-thread blocks of one node per thread at small N
+// (158 blocks on 10,112 nodes), 128-thread blocks of one node per thread
+// at U = 1 and large N (the mesh's shard call), and at U > 1 four nodes
+// per thread with 16-byte feas/coll/scored/base accesses, node data in
+// registers across a tile of up to 8 spec rows and the next row's inputs
+// loaded while this row is computed.
 //
-// Numerics, held against the plain PyTorch version (ops/fused_score.py):
-// - The `ok` mask: the loop's ok also has distinct_hosts
-//   (kernels.py:467); the caller ANDs that into `feas`, and the fit test
-//   (score_common.cuh) repeats kernels.py:463-466 exactly.
-// - ScoreFit comes from score_common.cuh, shared with masked_score.cu.
-// - FMA: `base - penalty*coll` and `+ jitter` use __fmul_rn/__fsub_rn/
-//   __fadd_rn, which are never contracted into an FMA, so each product is
-//   rounded on its own as in the plain version and the jnp composition.
-// - The jitter hash (fmix32) is native uint32 arithmetic here.
+// Numerics (score_common.cuh): `base - penalty*coll` and `+ jitter` use
+// __fmul_rn/__fsub_rn/__fadd_rn, never contracted into an FMA, so each
+// product is rounded on its own as in the plain version and the jnp
+// composition; the jitter hash (fmix32) is native uint32 arithmetic on
+// the global (u_offset + u, n_offset + n); the loop's ok also has
+// distinct_hosts (kernels.py:467), which the caller ANDs into `feas`.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -44,50 +47,19 @@
 
 namespace {
 
-using nomad::kNegInf;
-// float32(1e-3 / 2^24), rounded once from the double as the reference does.
-constexpr float kJitterScale = (float)(1e-3 / 16777216.0);
-constexpr int kBlock = 256;
-
-__device__ __forceinline__ float tie_jitter(uint32_t seed, uint32_t u,
-                                            uint32_t n) {
-  uint32_t x = n * 0x9E3779B9u + u * 0x85EBCA6Bu + seed;
-  x ^= x >> 16;
-  x *= 0x85EBCA6Bu;
-  x ^= x >> 13;
-  x *= 0xC2B2AE35u;
-  x ^= x >> 16;
-  return __fmul_rn((float)(x >> 8), kJitterScale);
-}
-
-__global__ void __launch_bounds__(kBlock) scored_rows_kernel(
-    const uint8_t* __restrict__ feas, const int4* __restrict__ used,
-    const int4* __restrict__ cap, const float2* __restrict__ denom,
-    const int4* __restrict__ ask, const float* __restrict__ penalty,
-    const int32_t* __restrict__ coll, uint32_t seed, uint32_t u_offset,
-    uint32_t n_offset, int n, float* __restrict__ out,
-    float* __restrict__ base_out) {
-  const int col = blockIdx.x * kBlock + threadIdx.x;
-  if (col >= n) return;
-  const int u = blockIdx.y;
-  const size_t idx = (size_t)u * n + col;
-  const int4 us = used[col];
-  const int4 cp = cap[col];
-  const int4 a = ask[u];
-  const bool ok = feas[idx] != 0 && nomad::fits(us, cp, a);
-  const float base = nomad::score_fit(us, a, denom[col]);
-  float score = __fsub_rn(base, __fmul_rn(penalty[u], (float)coll[idx]));
-  score = __fadd_rn(score, tie_jitter(seed, u_offset + (uint32_t)u,
-                                      n_offset + (uint32_t)col));
-  out[idx] = ok ? score : kNegInf;
-  if (base_out != nullptr) base_out[idx] = base;
+template <int V, nomad::Out kOut>
+__global__ void __launch_bounds__(nomad::kWide)
+    scored_rows_kernel(nomad::TileArgs a) {
+  nomad::score_tile<V, kOut>(a);
 }
 
 }  // namespace
 
-// Launches on `stream` and returns cudaGetLastError() (0 on success).
-// Pointers are device pointers; used/cap/ask must be 16-byte aligned and
-// denom 8-byte aligned (the wrapper checks).  u <= 65535.
+// Launches on `stream` and returns the launch's cudaError_t (0 on
+// success).  Pointers are device pointers; used/cap/ask must be 16-byte
+// aligned and denom 8-byte aligned (the wrapper checks); feas, coll, out
+// and base_out need only their element's alignment (the vector path is
+// taken where they allow it).  base_out may be null.  u <= 65535.
 extern "C" int nomad_scored_rows(const uint8_t* feas, const int32_t* used,
                                  const int32_t* cap, const float* denom,
                                  const int32_t* ask, const float* penalty,
@@ -96,11 +68,29 @@ extern "C" int nomad_scored_rows(const uint8_t* feas, const int32_t* used,
                                  int n, float* out, float* base_out,
                                  void* stream) {
   if (u <= 0 || n <= 0) return 0;
-  const dim3 grid((n + kBlock - 1) / kBlock, u);
-  scored_rows_kernel<<<grid, kBlock, 0, (cudaStream_t)stream>>>(
-      feas, reinterpret_cast<const int4*>(used),
-      reinterpret_cast<const int4*>(cap), reinterpret_cast<const float2*>(denom),
-      reinterpret_cast<const int4*>(ask), penalty, coll, seed, u_offset,
-      n_offset, n, out, base_out);
-  return (int)cudaGetLastError();
+  using nomad::Out;
+  nomad::TileArgs a = {};
+  a.feas = feas;
+  a.used = reinterpret_cast<const int4*>(used);
+  a.cap = reinterpret_cast<const int4*>(cap);
+  a.denom = reinterpret_cast<const float2*>(denom);
+  a.ask = reinterpret_cast<const int4*>(ask);
+  a.penalty = penalty;
+  a.coll = coll;
+  a.seed = seed;
+  a.u_offset = u_offset;
+  a.n_offset = n_offset;
+  a.u = u;
+  a.n = n;
+  a.out = out;
+  a.base = base_out;
+  const cudaError_t err =
+      base_out != nullptr
+          ? nomad::launch(a, scored_rows_kernel<1, Out::kScoredBase>,
+                          scored_rows_kernel<4, Out::kScoredBase>,
+                          (cudaStream_t)stream)
+          : nomad::launch(a, scored_rows_kernel<1, Out::kScored>,
+                          scored_rows_kernel<4, Out::kScored>,
+                          (cudaStream_t)stream);
+  return (int)err;
 }

@@ -11,7 +11,9 @@ commit-time expression of ``nomad_tpu/ops/kernels.py:463-506``::
     base   = ScoreFit(used, ask, denom)
     scored = where(ok, base - penalty * coll + tie_jitter, NEG_INF)
 
-The wrapper returns ``(scored, base)``.
+The wrapper returns ``(scored, base)``, or ``(scored, None)`` when the
+caller does not read ``base`` (``with_base=False``: the kernel then
+writes 4 bytes a cell less).
 
 :func:`masked_score_matrix` replaces the Pallas kernel ``_score_kernel``
 (entry ``masked_score_matrix``, same file), the mask and score of
@@ -170,21 +172,25 @@ def _check_node_inputs(kernel, feas, used, capacity, denom, ask):
 
 
 def scored_rows(feas, used, capacity, denom, ask, penalty, collisions,
-                seed: int, u_offset: int = 0, n_offset: int = 0):
+                seed: int, u_offset: int = 0, n_offset: int = 0,
+                with_base: bool = True):
     """The complete per-commit scoring pass: ``(scored [U, N] f32, base
-    [U, N] f32)``.
+    [U, N] f32)``, or ``(scored, None)`` with ``with_base=False``.
 
     feas [U, N] bool/uint8 (static feasibility, already ANDed with the
     distinct_hosts mask), used/capacity [N, 4] int32, denom [N, 2] f32,
     ask [U, 4] int32, penalty [U] f32, collisions [U, N] int32, seed a
     uint32 (``kernels.jitter_seed``).  ``u_offset``/``n_offset`` are the
-    global indices of row 0 and column 0 the jitter is keyed on."""
+    global indices of row 0 and column 0 the jitter is keyed on.  The
+    kernel takes its 16-byte vector path where N % 4 == 0 and the per-cell
+    tensors allow it, its scalar path otherwise; both launch here."""
     global LAUNCHES
     dev = feas.device
     if dev.type == "cpu":
-        return scored_rows_reference(
+        scored, base = scored_rows_reference(
             feas, used, capacity, denom, ask, penalty, collisions, seed,
             u_offset, n_offset)
+        return scored, (base if with_base else None)
     if dev.type != "cuda":
         raise ValueError(f"scored_rows: unsupported device {dev}")
     u, n = feas.shape
@@ -194,13 +200,15 @@ def scored_rows(feas, used, capacity, denom, ask, penalty, collisions,
     _check("scored_rows", "collisions", collisions, torch.int32, (u, n), dev)
     fn = _fn("scored_rows")
     out = torch.empty((u, n), dtype=torch.float32, device=dev)
-    base = torch.empty((u, n), dtype=torch.float32, device=dev)
+    base = (torch.empty((u, n), dtype=torch.float32, device=dev)
+            if with_base else None)
     with torch.cuda.device(dev):    # the launch goes to the tensors' card
         rc = fn(
             feas.data_ptr(), used.data_ptr(), capacity.data_ptr(),
             denom.data_ptr(), ask.data_ptr(), penalty.data_ptr(),
             collisions.data_ptr(), seed & 0xFFFFFFFF, u_offset & 0xFFFFFFFF,
-            n_offset & 0xFFFFFFFF, u, n, out.data_ptr(), base.data_ptr(),
+            n_offset & 0xFFFFFFFF, u, n, out.data_ptr(),
+            base.data_ptr() if with_base else None,
             torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"scored_rows kernel launch failed: cudaError {rc}")

@@ -231,9 +231,9 @@ def placement_rounds(feas, used0, capacity, denom, ask, count, penalty,
                 continue
             scored, base = fused_score.scored_rows(
                 feas_u[None, :], used, capacity, denom, ask[u:u + 1],
-                penalty[u:u + 1], collisions[None, :], seed, u_offset=u)
+                penalty[u:u + 1], collisions[None, :], seed, u_offset=u,
+                with_base=with_scores)
             sel = _select_top_k(scored[0], ok, k)
-            base = base[0]
 
             sel_i = sel.to(torch.int32)
             used += sel_i[:, None] * ask[u][None, :]
@@ -245,12 +245,13 @@ def placement_rounds(feas, used0, capacity, denom, ask, count, penalty,
                 dest = torch.where(dest < slot_m, dest, slot_m)
                 slots[u].scatter_(0, dest, node_idx)
                 if with_scores:
-                    slot_scores[u].scatter_(0, dest, base)
+                    slot_scores[u].scatter_(0, dest, base[0])
                     slot_coll[u].scatter_(0, dest, collisions)
             else:
                 placements[u] += sel_i
                 if with_scores:
-                    commit_scores[u] = torch.where(sel, base, commit_scores[u])
+                    commit_scores[u] = torch.where(sel, base[0],
+                                                   commit_scores[u])
                     commit_coll[u] = torch.where(sel, collisions,
                                                  commit_coll[u])
             remaining[u] -= k

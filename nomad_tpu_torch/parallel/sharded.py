@@ -244,9 +244,10 @@ def _mesh_rounds(mesh: NodeMesh, shards: List[_Shard], ask, count, penalty,
                 scored, base = fused_score.scored_rows(
                     feas_u[None, :], sh.used, sh.cap, sh.denom,
                     ask_r[sh.device][u:u + 1], pen_r[sh.device][u:u + 1],
-                    coll[None, :], seed, u_offset=u, n_offset=sh.offset)
+                    coll[None, :], seed, u_offset=u, n_offset=sh.offset,
+                    with_base=with_scores)
                 loc.append(kernels.stable_top_k(scored[0], k_cand)
-                           + (base[0],))
+                           + (base,))
             # The global selection on the gathered candidates.  Their
             # order is (shard, local rank), so the stable argsort breaks
             # score ties by global node index, like jnp.argsort
@@ -285,7 +286,7 @@ def _mesh_rounds(mesh: NodeMesh, shards: List[_Shard], ask, count, penalty,
                                        slot_m).to(torch.int64)
                     slots[u].scatter_(0, dest, gidx[i] + 1)
                     if with_scores:
-                        sscores[u].scatter_(0, dest, base)
+                        sscores[u].scatter_(0, dest, base[0])
                         scoll[u].scatter_(0, dest, coll)
                 else:
                     sh.out[0][u] += sel_i

@@ -33,15 +33,14 @@ def inputs(u, n, seed, dev):
     return [x.to(dev) for x in (feas, used, cap, denom, ask, penalty, coll)]
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("u,n,u_off,n_off", [
-    (1, 10112, 0, 0), (1, 10112, 37, 0), (128, 10112, 0, 0), (3, 700, 5, 0),
-    # The mesh's per-shard call: one spec row over a 250,016-node shard,
-    # jitter keyed on the global node index of the last of four shards.
-    (1, 250_016, 77, 750_048)])
-def test_scored_rows_kernel_matches_plain(u, n, u_off, n_off):
-    need_card()
-    args = inputs(u, n, u + n + u_off, "cuda")
+def same_bits(a, b):
+    return torch.equal(a.contiguous().view(torch.int32),
+                       b.contiguous().view(torch.int32))
+
+
+def check_scored(args, u_off, n_off):
+    """One launch of scored_rows against its plain version on the same
+    inputs: identical mask, 0 differing bits in scored and base."""
     before = fused_score.LAUNCHES
     got, got_base = fused_score.scored_rows(*args, 12345, u_offset=u_off,
                                             n_offset=n_off)
@@ -54,13 +53,66 @@ def test_scored_rows_kernel_matches_plain(u, n, u_off, n_off):
     assert float((got - want)[live].abs().max()) <= ATOL
     assert float((got_base - want_base).abs().max()) <= ATOL
     # The kernel and its plain version agree bit for bit.
-    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
-    assert torch.equal(got_base.view(torch.int32),
-                       want_base.view(torch.int32))
+    assert same_bits(got, want)
+    assert same_bits(got_base, want_base)
+
+
+# The score tile's edges: N % 4 != 0 takes the scalar path (701); U = 1,
+# 7, 9 and 129 are no multiple of a row tile; the mesh's shard offsets.
+EDGE_SHAPES = [(1, 701, 0, 0), (9, 701, 3, 0), (7, 10112, 0, 0),
+               (9, 10112, 5, 0), (129, 10112, 0, 0),
+               (9, 2528, 11, 7584), (9, 250_016, 2, 250_016)]
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("u,n", [(1, 10112), (128, 10112), (3, 700)])
+@pytest.mark.parametrize("u,n,u_off,n_off", [
+    (1, 10112, 0, 0), (1, 10112, 37, 0), (128, 10112, 0, 0), (3, 700, 5, 0),
+    # The mesh's per-shard call: one spec row over a 250,016-node shard,
+    # jitter keyed on the global node index of the last of four shards.
+    (1, 250_016, 77, 750_048)] + EDGE_SHAPES)
+def test_scored_rows_kernel_matches_plain(u, n, u_off, n_off):
+    need_card()
+    check_scored(inputs(u, n, u + n + u_off, "cuda"), u_off, n_off)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("u,n", [(9, 10113), (3, 70_000)])
+def test_scored_rows_kernel_on_row_views(u, n):
+    """The loop passes one row of a [U, N] tensor: its start lies u·N
+    bytes into feas.  With N % 4 != 0 the rows are misaligned; with an
+    odd storage offset so is every row, where an aligned row of 70,000
+    nodes would take the vector path.  The kernel takes its scalar path
+    there and still agrees bit for bit."""
+    need_card()
+    feas, used, cap, denom, ask, penalty, coll = inputs(u, n, u * n, "cuda")
+    shifted = torch.zeros(u * n + 1, dtype=torch.uint8, device="cuda")
+    shifted[1:] = feas.view(torch.uint8).reshape(-1)
+    for rows in (feas, shifted[1:].view(u, n)):
+        for r in range(u):
+            check_scored([rows[r:r + 1], used, cap, denom, ask[r:r + 1],
+                          penalty[r:r + 1], coll[r:r + 1]], r, 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("u,n,n_off", [(1, 10112, 0), (1, 250_016, 250_016),
+                                       (9, 701, 0), (129, 10112, 0)])
+def test_scored_rows_kernel_without_base(u, n, n_off):
+    """``with_base=False`` (the loops' call when they keep no scores)
+    writes the same scores, bit for bit, and no base."""
+    need_card()
+    args = inputs(u, n, 3 * u + n, "cuda")
+    got, none = fused_score.scored_rows(*args, 777, u_offset=2,
+                                        n_offset=n_off, with_base=False)
+    want, _ = fused_score.scored_rows(*args, 777, u_offset=2, n_offset=n_off)
+    torch.cuda.synchronize()
+    assert none is None
+    assert same_bits(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("u,n", [(1, 10112), (128, 10112), (3, 700),
+                                 (1, 701), (9, 701), (7, 10112), (129, 10112),
+                                 (9, 10113)])
 def test_masked_score_kernel_matches_plain(u, n):
     need_card()
     feas, used, cap, denom, ask, penalty, coll = inputs(u, n, u + n, "cuda")
@@ -76,10 +128,33 @@ def test_masked_score_kernel_matches_plain(u, n):
     assert torch.equal(got == -1e30, want == -1e30)
     live = want != -1e30
     assert float((got - want)[live].abs().max()) <= ATOL
+    assert same_bits(got, want)
     # One shared ScoreFit: the masked score is scored_rows' base, bit for
     # bit, wherever the spec fits.
-    assert torch.equal(got[live].view(torch.int32),
-                       base[live].view(torch.int32))
+    assert same_bits(got[live], base[live])
+
+
+@pytest.mark.gpu
+def test_kernels_on_degenerate_denominators():
+    """NaN, ±inf, negative, ±0 and tiny denominators and asks that
+    overflow the fit: ScoreFit's NaN/inf rules, held bit for bit against
+    the plain versions by both kernels."""
+    need_card()
+    u, n = 5, 4096
+    args = inputs(u, n, 5, "cuda")
+    odd = torch.tensor([float("nan"), float("inf"), float("-inf"), -5.0,
+                        0.0, -0.0, 1e-30, 1e30], device="cuda")
+    args[3] = odd[torch.randint(0, 8, (n, 2), device="cuda")]
+    args[4] = torch.tensor([[500, 256, 0, 0], [0, 0, 0, 0],
+                            [-100000, 5, 0, 0], [2**30, 2**30, 0, 0],
+                            [7, -3, 0, 0]], dtype=torch.int32, device="cuda")
+    check_scored(args, 0, 0)
+    feas, used, cap, denom, ask = args[:5]
+    got = fused_score.masked_score_matrix(feas, used, cap, denom, ask)
+    want = fused_score.masked_score_matrix_reference(feas, used, cap, denom,
+                                                     ask)
+    torch.cuda.synchronize()
+    assert same_bits(got, want)
 
 
 @pytest.mark.gpu

@@ -71,6 +71,10 @@ def commit_composition(feas, used, capacity, denom, ask, penalty, coll,
     (512, 3, 7, 0, 0),
     (700, 2, 13, 0, 0),
     (512, 2, 17, 32, 2048),
+    # The CUDA tile's edges: N % 4 != 0 (its scalar path) and a row count
+    # that is no multiple of a row tile.
+    (701, 9, 19, 0, 0),
+    (701, 9, 23, 41, 250_016),
 ])
 def test_scored_rows_plain_matches_pallas_and_composition(n, u, seed, u_off,
                                                           n_off):
@@ -91,6 +95,41 @@ def test_scored_rows_plain_matches_pallas_and_composition(n, u, seed, u_off,
         jnp.asarray(used), jnp.asarray(ask[i]), jnp.asarray(denom)))
         for i in range(u)])
     np.testing.assert_array_equal(base, want_base)
+
+
+@pytest.mark.parametrize("n,u,n_off", [(512, 3, 0), (701, 9, 250_016)])
+def test_scored_rows_without_base(n, u, n_off):
+    """``with_base=False`` returns ``(scored, None)``, ``scored`` equal to
+    the ``with_base=True`` call's."""
+    args = [torch.from_numpy(a) for a in score_inputs(n, u, n + u)]
+    scored, base = fused_score.scored_rows(*args, 4242, u_offset=3,
+                                           n_offset=n_off, with_base=False)
+    want, want_base = fused_score.scored_rows(*args, 4242, u_offset=3,
+                                              n_offset=n_off)
+    assert base is None and want_base.shape == (u, n)
+    assert torch.equal(scored.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("with_scores", [True, False])
+def test_placement_rounds_asks_for_base_only_with_scores(with_scores,
+                                                         monkeypatch):
+    """The loop asks the score kernel for ``base`` only when it keeps
+    scores, and places the same either way."""
+    asked = []
+    wrapped = fused_score.scored_rows
+
+    def recording(*args, **kw):
+        asked.append(kw["with_base"])
+        return wrapped(*args, **kw)
+
+    problem = [torch.from_numpy(a) for a in random_problem(6)]
+    want = tk.placement_rounds(*problem, tk.jitter_seed(6), slot_m=64)
+    monkeypatch.setattr(fused_score, "scored_rows", recording)
+    got = tk.placement_rounds(*problem, tk.jitter_seed(6), slot_m=64,
+                              with_scores=with_scores)
+    assert asked and set(asked) == {with_scores}
+    assert torch.equal(got.slots, want.slots)
+    assert torch.equal(got.unplaced, want.unplaced)
 
 
 def test_scored_rows_penalty_product_exact_for_integer_penalties():

@@ -90,6 +90,7 @@ def torch_args(*arrays):
     (700, 700, 3, 1),        # N not a multiple of the TPU's 512 block
     (250, 384, 5, 2),        # padding columns
     (1000, 1024, 2, 3),
+    (701, 701, 9, 4),        # the CUDA tile's scalar path, 9 rows
 ])
 def test_masked_score_plain_matches_pallas_and_composition(n, n_pad, u, seed):
     feas, used, capacity, denom, ask = node_inputs(n, u, seed, n_pad)
