@@ -25,22 +25,42 @@ Phases, each printed as one JSON line:
                ``schedule_batch``;
 6. cpu_vs_card -- a 2,048-node problem on the card and on the CPU: the
                placements must be identical;
-7. mesh_scores -- config (b) through a 4-shard and a 3-shard node mesh
+7. networks -- config (b) with the networks of ``mock.node()`` and
+               ``mock.job()`` kept (eth0 at 1000 Mbit/s, port 22
+               reserved; 50 Mbit/s and two dynamic ports an ask), then
+               two follow-up batches against the live placements and
+               their offers: no node over capacity or bandwidth, no port
+               used twice on a node, every dynamic port in [20000,
+               60000), one ``scored_rows`` launch per committing step;
+               the warm device pass and device ops per committing step
+               beside the same batch with networks stripped;
+8. distinct_property -- config (c) width: 5,000 nodes with ``meta.rack``
+               (500 values), 50 ``mock.job()`` x 1000 with networks, ten
+               with a group-level distinct_property on the rack, all with
+               a version and a regexp constraint (host-evaluated rows);
+               the extra host reads of the distinct_property steps;
+9. net_dp_vs_cpu_mesh -- a 2,048-node problem with network asks (one
+               with a reserved port) and distinct_property on the card
+               and on the CPU, then phase 7's batch 0 and phase 8's batch
+               on a 4-shard mesh of the card against the single card:
+               identical placements, unplaced counts, AllocMetric scores
+               and offers;
+10. mesh_scores -- config (b) through a 4-shard and a 3-shard node mesh
                on the card and through the single-card path: identical
                placements, unplaced counts and AllocMetric scores;
-8. candidates -- the mesh's candidate scoring at config_mesh width
+11. candidates -- the mesh's candidate scoring at config_mesh width
                (1,000,000 nodes, U = 128, k = 64, 4 shards on the card);
-9. mesh     -- config_mesh (bench.py:79-89): 1,000,000 nodes, 100 jobs x
+12. mesh    -- config_mesh (bench.py:79-89): 1,000,000 nodes, 100 jobs x
                100,000 asks, through ``schedule_batch`` on a 4-shard mesh
                and on the single-card path: identical placements;
-10. times   -- each kernel's device time (profiler trace; CUDA events
+13. times   -- each kernel's device time (profiler trace; CUDA events
                where the trace has none) over copies of its inputs that
                overflow the L2, its plain version's and the bound for the
                same work on this card; scored_rows also without base (the
                mesh's call at config_mesh); the launch floor (a one-element
                fill); the kernels' SASS instruction counts and the
                issue-rate time they give;
-11. profile -- config (b)'s first batch again, warm, on the single card
+14. profile -- config (b)'s first batch again, warm, on the single card
                and on a 4-shard mesh: untraced, and under a device-only
                trace for the device busy time and idle share.
 
@@ -469,7 +489,266 @@ def phase_cpu_vs_card(dev):
     return row
 
 
-# -- phase 7: the mesh at config (b) width, scores included -------------------
+# -- phases 7 to 9: networks, distinct_property, card vs CPU and mesh --------
+
+_NET = {}      # the batches of phases 7 and 8 and their single-card results
+
+
+def net_job(count, cpu=None, mem=None):
+    """A ``mock.job()`` with its network asks kept (50 Mbit/s, dynamic
+    ports http and admin)."""
+    from nomad_tpu_torch import mock
+
+    j = mock.job()
+    j.task_groups[0].count = count
+    for t in j.task_groups[0].tasks:
+        if cpu is not None:
+            t.resources.cpu = cpu
+        if mem is not None:
+            t.resources.memory_mb = mem
+    return j
+
+
+def network_check(nodes, allocs):
+    """(nodes over bandwidth, nodes with a port used twice, dynamic ports
+    outside [20000, 60000)): each node's NetworkIndex rebuilt from the
+    node and every live alloc on it."""
+    from nomad_tpu_torch.structs.network import (MAX_DYNAMIC_PORT,
+                                                 MIN_DYNAMIC_PORT,
+                                                 NetworkIndex)
+
+    by_node = {}
+    bad_dyn = 0
+    for a in allocs:
+        by_node.setdefault(a.node_id, []).append(a)
+        for tr in a.task_resources.values():
+            for net in tr.networks[:1]:
+                bad_dyn += sum(not MIN_DYNAMIC_PORT <= p.value
+                               < MAX_DYNAMIC_PORT for p in net.dynamic_ports)
+    by_id = {n.id: n for n in nodes}
+    over = collide = 0
+    for nid, lst in by_node.items():
+        idx = NetworkIndex()
+        idx.set_node(by_id[nid])
+        collide += bool(idx.add_allocs(lst))
+        over += idx.overcommitted()
+    return over, collide, bad_dyn
+
+
+def run_counted(fn):
+    """``fn()`` with the launch, committing-step and distinct_property
+    read counts set to 0 just before and read just after."""
+    from nomad_tpu_torch.ops import fused_score, kernels
+
+    fused_score.LAUNCHES = kernels.COMMIT_STEPS = kernels.DP_HOST_READS = 0
+    res = fn()
+    return res, {"scored_rows_launches": fused_score.LAUNCHES,
+                 "committing_spec_steps": kernels.COMMIT_STEPS,
+                 "dp_host_reads": kernels.DP_HOST_READS}
+
+
+def check_steps(res, counts, what):
+    """One ``scored_rows`` launch per committing spec step on the card
+    (one per shard on a mesh), and the step count inside the bounds read
+    from the result."""
+    d = max(1, res.mesh_shards)
+    steps = counts["committing_spec_steps"]
+    lo, hi = committing_steps_bounds(res)
+    if (steps <= 0 or counts["scored_rows_launches"] != d * steps
+            or not lo <= steps <= hi):
+        raise AssertionError(f"{what}: {counts}, {d} shards, committing "
+                             f"steps from the result [{lo}, {hi}]")
+
+
+def phase_networks(dev):
+    from nomad_tpu_torch import mock
+    from nomad_tpu_torch.ops import batch_sched
+
+    nodes = [mock.node() for _ in range(10_000)]
+    batches = [[net_job(1000) for _ in range(100)]]
+    for _ in range(2):
+        batches.append([net_job(200, cpu=100, mem=128) for _ in range(10)])
+    live = []
+    out = []
+    for b, jobs in enumerate(batches):
+        ids = [f"net-{b}-{i}" for i in range(len(jobs))]
+        res, counts = run_counted(lambda: batch_sched.schedule_batch(
+            nodes, jobs, live_allocs=live, rng_seed=SEED + b, device=dev,
+            eval_ids=ids))
+        check_steps(res, counts, f"networks batch {b}")
+        if b == 0:
+            _NET["net"] = (nodes, jobs, ids, res)
+        live = live + batch_sched.placed_allocs(res, jobs)
+        placed = sum(len(sp.node_ids) for sp in res.placements.values())
+        unplaced = sum(sp.unplaced for sp in res.placements.values())
+        offers = sum(len(sp.networks) for sp in res.placements.values())
+        over = capacity_check(nodes, live)
+        bw_over, collide, bad_dyn = network_check(nodes, live)
+        row = {"batch": b, "jobs": len(jobs),
+               "asks": sum(j.task_groups[0].count for j in jobs),
+               "placed": placed, "unplaced": unplaced, "offers": offers,
+               "rounds": res.rounds, **counts,
+               "nodes_over_capacity": over, "nodes_over_bandwidth": bw_over,
+               "nodes_with_port_collisions": collide,
+               "dynamic_ports_out_of_range": bad_dyn,
+               "encode_s": res.timings["encode"],
+               "device_s_cuda_events": res.timings["device"],
+               "decode_and_offers_s": res.timings["decode"]}
+        out.append(row)
+        emit({"phase": "networks", **row})
+        if over or bw_over or collide or bad_dyn:
+            raise AssertionError(f"networks batch {b}: {row}")
+        if placed + unplaced != row["asks"] or offers != placed:
+            raise AssertionError(f"networks batch {b}: counts {row}")
+        if b == 0 and placed != 70_000:
+            raise AssertionError(f"networks batch 0 placed {placed}, "
+                                 "CPU binds at 7 allocs a node: 70,000")
+    stripped_nodes = [strip_node(mock.node()) for _ in range(10_000)]
+    stripped_jobs = [strip_job(mock.job(), 1000) for _ in range(100)]
+    prof = {"networks": profile_batch(dev, nodes, batches[0]),
+            "stripped": profile_batch(dev, stripped_nodes, stripped_jobs)}
+    return {"batches": out, "profile_batch0": prof}
+
+
+def phase_distinct_property(dev):
+    from nomad_tpu_torch import mock
+    from nomad_tpu_torch.ops import batch_sched
+    from nomad_tpu_torch.structs import structs as s
+
+    nodes = []
+    for i in range(5_000):
+        n = mock.node()
+        n.meta["rack"] = f"rack-{i % 500}"
+        n.compute_class()
+        nodes.append(n)
+    jobs = []
+    for i in range(50):
+        j = net_job(1000)
+        j.constraints += [
+            s.Constraint("${attr.nomad.version}", ">= 0.5.0, < 0.7",
+                         s.CONSTRAINT_VERSION),
+            s.Constraint("${attr.kernel.name}", "^linux$",
+                         s.CONSTRAINT_REGEX)]
+        if i % 5 == 0:
+            j.task_groups[0].constraints = [s.Constraint(
+                "${meta.rack}", "", s.CONSTRAINT_DISTINCT_PROPERTY)]
+        jobs.append(j)
+    ids = [f"dp-{i}" for i in range(len(jobs))]
+    res, counts = run_counted(lambda: batch_sched.schedule_batch(
+        nodes, jobs, rng_seed=SEED, device=dev, eval_ids=ids))
+    check_steps(res, counts, "distinct_property")
+    _NET["dp"] = (nodes, jobs, ids, res)
+    live = batch_sched.placed_allocs(res, jobs)
+    by_id = {n.id: n for n in nodes}
+    dp_placed, dp_reuse = [], 0
+    for i, j in enumerate(jobs):
+        if i % 5 == 0:
+            racks = [by_id[nid].meta["rack"]
+                     for nid in res.placements[(j.id, "web")].node_ids]
+            dp_placed.append(len(racks))
+            dp_reuse += len(racks) - len(set(racks))
+    placed = sum(len(sp.node_ids) for sp in res.placements.values())
+    unplaced = sum(sp.unplaced for sp in res.placements.values())
+    over = capacity_check(nodes, live)
+    bw_over, collide, bad_dyn = network_check(nodes, live)
+    row = {"nodes": len(nodes), "jobs": len(jobs), "asks": 50_000,
+           "placed": placed, "unplaced": unplaced, "rounds": res.rounds,
+           **counts, "dp_jobs_placed": dp_placed,
+           "dp_values_reused": dp_reuse, "nodes_over_capacity": over,
+           "nodes_over_bandwidth": bw_over,
+           "nodes_with_port_collisions": collide,
+           "dynamic_ports_out_of_range": bad_dyn,
+           "encode_s": res.timings["encode"],
+           "device_s_cuda_events": res.timings["device"],
+           "decode_and_offers_s": res.timings["decode"]}
+    if (dp_reuse or max(dp_placed) > 500 or over or bw_over or collide
+            or bad_dyn or placed + unplaced != 50_000
+            or counts["dp_host_reads"] <= 0):
+        raise AssertionError(f"distinct_property: {row}")
+    return row
+
+
+def same_offers(a, b) -> bool:
+    """Equal offers (device, IP, Mbit/s, every port) alloc by alloc."""
+    def key(res):
+        return {k: [{t: (o.device, o.ip, o.mbits,
+                         [(p.label, p.value) for p in o.reserved_ports],
+                         [(p.label, p.value) for p in o.dynamic_ports])
+                     for t, o in nets.items()} for nets in sp.networks]
+                for k, sp in res.placements.items()}
+    return key(a) == key(b)
+
+
+def phase_net_dp_vs_cpu_mesh(dev):
+    import numpy as np
+
+    from nomad_tpu_torch import mock
+    from nomad_tpu_torch.ops import batch_sched
+    from nomad_tpu_torch.parallel import make_node_mesh
+    from nomad_tpu_torch.structs import structs as s
+
+    rng = random.Random(SEED)
+    nodes = []
+    for i in range(2048):
+        n = mock.node()
+        n.resources.cpu = rng.choice([2000, 4000, 8000])
+        n.resources.memory_mb = rng.choice([4096, 8192, 16384])
+        n.meta["rack"] = f"r{i % 64}"
+        n.compute_class()
+        nodes.append(n)
+    jobs = [net_job(200, cpu=rng.choice([100, 250, 500]),
+                    mem=rng.choice([64, 256, 512])) for _ in range(16)]
+    for j in jobs[:3]:
+        j.task_groups[0].constraints = [s.Constraint(
+            "${meta.rack}", "", s.CONSTRAINT_DISTINCT_PROPERTY)]
+    jobs[5].task_groups[0].tasks[0].resources.networks[0].reserved_ports = [
+        s.Port("metrics", 9100)]
+    ids = [f"cmp-{i}" for i in range(len(jobs))]
+    results = {}
+    for d in (dev, "cpu"):
+        results[d] = batch_sched.schedule_batch(
+            nodes, jobs, rng_seed=SEED, device=d, eval_ids=ids)
+    card, cpu = results[dev], results["cpu"]
+    same = (card.placements.keys() == cpu.placements.keys()
+            and all(card.placements[k].node_ids == cpu.placements[k].node_ids
+                    and card.placements[k].unplaced
+                    == cpu.placements[k].unplaced for k in cpu.placements))
+    diffs = [float(np.abs(card.placements[k].scores
+                          - cpu.placements[k].scores).max())
+             for k in cpu.placements if len(cpu.placements[k].scores)
+             and same]
+    row = {"cpu_vs_card": {
+        "nodes": len(nodes), "jobs": len(jobs),
+        "placed": sum(len(p.node_ids) for p in cpu.placements.values()),
+        "rounds": [card.rounds, cpu.rounds], "placements_identical": same,
+        "offers_identical": same_offers(card, cpu),
+        "score_max_abs_err": max(diffs, default=0.0)}}
+    if (not same or not row["cpu_vs_card"]["offers_identical"]
+            or card.rounds != cpu.rounds
+            or row["cpu_vs_card"]["score_max_abs_err"] > ATOL):
+        raise AssertionError(f"card and CPU disagree: {row}")
+    mesh = make_node_mesh([dev] * MESH_SHARDS)
+    for name in ("net", "dp"):
+        # Phase 7's batch 0 and phase 8's batch ran with rng_seed SEED.
+        nodes, jobs, ids, single = _NET[name]
+        res, counts = run_counted(lambda: batch_sched.schedule_batch(
+            nodes, jobs, rng_seed=SEED, mesh=mesh, eval_ids=ids))
+        check_steps(res, counts, f"{name} on the mesh")
+        row[f"mesh4_{name}"] = {
+            "mesh_shards": res.mesh_shards, "rounds": res.rounds, **counts,
+            "identical_to_single": same_batches(res, single),
+            "offers_identical": same_offers(res, single),
+            "device_s_cuda_events": res.timings["device"]}
+        if (res.mesh_shards != MESH_SHARDS
+                or not row[f"mesh4_{name}"]["identical_to_single"]
+                or not row[f"mesh4_{name}"]["offers_identical"]):
+            raise AssertionError(f"{name}: mesh and single card disagree: "
+                                 f"{row}")
+    _NET.clear()
+    return row
+
+
+# -- phase 10: the mesh at config (b) width, scores included ------------------
 
 def same_batches(a, b, exact_order=True):
     """Placements, unplaced counts and AllocMetric scores of two batch
@@ -527,7 +806,7 @@ def phase_mesh_scores(dev):
     return out
 
 
-# -- phases 8 and 9: config_mesh width ----------------------------------------
+# -- phases 11 and 12: config_mesh width --------------------------------------
 
 _MESH_FLEET = {}
 
@@ -705,7 +984,7 @@ def phase_mesh(dev):
     return out
 
 
-# -- phase 10: times ---------------------------------------------------------
+# -- phase 13: times ---------------------------------------------------------
 
 def score_bytes(u: int, n: int, with_base: bool = True) -> int:
     """Bytes the function must move: feas (1) + collisions (4) in and
@@ -1186,6 +1465,11 @@ def main() -> int:
     _, launches = run_phase("config_b", phase_config_b, dev)
     emit({"phase": "cpu_vs_card",
           **run_phase("cpu_vs_card", phase_cpu_vs_card, dev)})
+    emit({"phase": "networks", **run_phase("networks", phase_networks, dev)})
+    emit({"phase": "distinct_property",
+          **run_phase("distinct_property", phase_distinct_property, dev)})
+    emit({"phase": "net_dp_vs_cpu_mesh",
+          **run_phase("net_dp_vs_cpu_mesh", phase_net_dp_vs_cpu_mesh, dev)})
     emit({"phase": "mesh_scores",
           **run_phase("mesh_scores", phase_mesh_scores, dev)})
     cand, masked_launches, cand_err = run_phase("candidates",

@@ -2,7 +2,9 @@
 
 ``node_from_dict``/``job_from_dict``/``alloc_from_dict`` take the plain
 dicts that ``dataclasses.asdict`` makes of ``nomad_tpu``'s structs (keys
-this port does not model are ignored).  ``device_inputs_from_buffers``
+this port does not model are ignored); networks, with their reserved and
+dynamic ports, are kept -- an alloc's ``task_resources`` carry the
+offers its ports came from.  ``device_inputs_from_buffers``
 takes the reference path's static and dynamic upload dicts, as numpy
 arrays under their key names, and returns the port's packed device
 buffers, so that both fused passes compute on identical inputs.
@@ -83,24 +85,24 @@ def alloc_from_dict(d: dict) -> s.Allocation:
 
 
 def device_inputs_from_buffers(static: Dict[str, np.ndarray],
-                               dyn: Dict[str, np.ndarray],
-                               device=None):
+                               dyn: Dict[str, np.ndarray], device=None):
     """The reference path's upload dicts → ``(static_buf, dyn_buf,
     meta_s, meta_d)`` for :func:`ops.kernels.fused_pass`.
 
-    Quantized resource rows (``cap_q``/``used_base_q`` plus the [2, 4]
-    ``res_scale`` codebook) are dequantized here with the same exact
-    integer multiply the reference does on device; the port ships
-    int32 rows.  ``device`` defaults to ``cuda`` (see
+    Every key of the reference's single-chip upload is taken: the
+    network keys (``bw_cap``, ``*_base``, ``net_*``, ``dyn_need``,
+    ``resv_words``, ``u_bw``/``u_dyn``/``u_ports``), the
+    distinct_property keys (``dp_*``), a precomputed ``precomp`` row and
+    the quantized resource rows (``cap_q``/``used_base_q`` and the
+    ``res_scale`` codebook, which the port's fused pass dequantizes as
+    the reference's does).  The reference's uint32 port words become
+    their int32 bit images, the form the port ships.  ``device``
+    defaults to ``cuda`` (see
     :func:`nomad_tpu_torch.device.resolve_device`)."""
     dev = resolve_device(device)
-    static = dict(static)
-    if "res_scale" in static:
-        scale = np.asarray(static.pop("res_scale"), dtype=np.int32)
-        static["cap"] = (static.pop("cap_q").astype(np.int32)
-                         * scale[0][None, :])
-        static["used_base"] = (static.pop("used_base_q").astype(np.int32)
-                               * scale[1][None, :])
+    static, dyn = ({name: arr.view(np.int32) if arr.dtype == np.uint32
+                    else arr for name, arr in arrays.items()}
+                   for arrays in (static, dyn))
     sbuf, meta_s = xfer.pack_host(static)
     dbuf, meta_d = xfer.pack_host(dyn)
     return (torch.from_numpy(sbuf).to(dev),

@@ -6,15 +6,21 @@ placements).
 The cluster snapshot comes in as plain lists -- the state store, worker
 and plan applier are later slices.  ``jobs`` are evaluated as
 registrations: each task group asks for ``count`` allocations minus the
-live allocations the job already has in that group.  A spec that needs
-what this slice lacks (network asks, distinct_property, constraints the
-reference precomputes on the host) raises ``NotImplementedError``; it is
-never placed by another path.
+live allocations the job already has in that group.  Network asks get
+concrete offers (IP, bandwidth, port numbers) at finalize, as the
+reference's ``_finalize`` makes them.  A spec the reference sends to its
+CPU oracle (``needs_oracle``, or network asks on a cluster whose
+networks are not the simple shape) raises ``NotImplementedError`` with
+the reference's reason: the port has no oracle, and such a spec is never
+placed another way.
 """
 from __future__ import annotations
 
+import ipaddress
+import logging
 import math
 import os
+import random
 import time
 from dataclasses import dataclass, field
 from typing import Dict, Iterable, List, Optional, Sequence, Tuple
@@ -23,8 +29,12 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..scheduler.propertyset import dp_used_values
 from ..structs import structs as s
+from ..structs.network import NetworkIndex
 from . import decode, encode, kernels, xfer
+
+logger = logging.getLogger("nomad_tpu_torch.ops.batch_sched")
 
 # Budget of the mesh's commit-ordered slot record ([U, M] int32, plus the
 # score rows when carried).  A batch whose record would exceed it takes
@@ -49,6 +59,10 @@ class SpecPlacement:
     # distinct node (last commit wins) and "<node>.job-anti-affinity"
     # where the commit had collisions.
     metric_scores: Dict[str, float] = field(default_factory=dict)
+    # With network asks: per placed alloc (aligned with node_ids), task
+    # name -> its network offer.  Empty for a spec without network asks.
+    networks: List[Dict[str, s.NetworkResource]] = field(
+        default_factory=list)
 
 
 @dataclass
@@ -67,7 +81,9 @@ def placed_allocs(result: BatchResult,
                   jobs: Sequence[s.Job]) -> List[s.Allocation]:
     """The placements of ``result`` as running allocations, to pass as
     ``live_allocs`` to a later batch.  Each carries its task group's
-    combined resources (the ephemeral disk plus every task's ask)."""
+    combined resources (the ephemeral disk plus every task's ask) and,
+    where the group asks for networks, its tasks' offers, so the next
+    encode counts their ports and bandwidth."""
     from ..scheduler.util import task_group_constraints
 
     out: List[s.Allocation] = []
@@ -77,12 +93,20 @@ def placed_allocs(result: BatchResult,
             if sp is None:
                 continue
             size = task_group_constraints(tg).size
-            for nid in sp.node_ids:
+            for i, nid in enumerate(sp.node_ids):
+                task_resources = {}
+                if sp.networks:
+                    for t in tg.tasks:
+                        res = t.resources.copy()
+                        offer = sp.networks[i].get(t.name)
+                        res.networks = [offer] if offer is not None else []
+                        task_resources[t.name] = res
                 out.append(s.Allocation(
                     id=s.generate_uuid(), node_id=nid, job_id=job.id,
                     task_group=tg.name,
                     resources=s.Resources(size.cpu, size.memory_mb,
-                                          size.disk_mb, size.iops)))
+                                          size.disk_mb, size.iops),
+                    task_resources=task_resources))
     return out
 
 
@@ -128,10 +152,15 @@ def validate_device_outputs(spec_list, ct, unplaced_arr, coo_rows,
 
 
 def _prepare_specs(jobs: Sequence[s.Job],
-                   live: Dict[Tuple[str, str], int]
+                   live: Dict[Tuple[str, str], int],
+                   live_allocs: Sequence[s.Allocation] = (),
+                   nodes_by_id: Optional[Dict[str, s.Node]] = None
                    ) -> List[encode.PlacementSpec]:
     """Dedup placement asks into specs and sort them by priority, stable
-    (batch_sched.py:587-618)."""
+    (batch_sched.py:587-618).  A distinct_property spec gets the values
+    its job's live allocs already use (module ``scheduler.propertyset``).
+    A spec the reference would route to its oracle raises
+    ``NotImplementedError`` with the reference's reason."""
     specs: Dict[Tuple[str, str], encode.PlacementSpec] = {}
     for job in jobs:
         for tg in job.task_groups:
@@ -143,29 +172,61 @@ def _prepare_specs(jobs: Sequence[s.Job],
             if spec is None:
                 spec = encode.build_spec(job, tg,
                                          job.type == s.JOB_TYPE_BATCH)
-                if spec.unsupported:
+                if spec.needs_oracle:
                     raise NotImplementedError(
-                        f"job {job.id} group {tg.name} needs "
-                        f"{spec.unsupported}, which this port has not "
-                        "reached yet")
+                        f"job {job.id} group {tg.name}: "
+                        f"{spec.needs_oracle}; the reference places this "
+                        "with its CPU oracle, which the port does not have")
+                if spec.dp_target is not None:
+                    con = next(c for c in spec.constraints if c.operand
+                               == s.CONSTRAINT_DISTINCT_PROPERTY)
+                    spec.dp_used_values = dp_used_values(
+                        job, tg, con, live_allocs, nodes_by_id or {})
                 specs[key] = spec
             spec.count += want
     return sorted(specs.values(), key=lambda sp: -sp.priority)
 
 
+def cluster_networks_simple(nodes: Iterable[s.Node]) -> bool:
+    """The device's port accounting assumes at most one network device a
+    node with a single-IP CIDR, the common fingerprinted shape; anything
+    richer needs the oracle's per-IP iteration (network.go:245,
+    ``_cluster_networks_simple``, batch_sched.py:822)."""
+    for node in nodes:
+        nets = [nr for nr in (node.resources.networks or []) if nr.device]
+        if len(nets) > 1:
+            return False
+        if nets and nets[0].cidr:
+            try:
+                if ipaddress.ip_network(
+                        nets[0].cidr, strict=False).num_addresses > 1:
+                    return False
+            except ValueError:
+                return False
+    return True
+
+
 def schedule_batch(nodes: Sequence[s.Node], jobs: Sequence[s.Job],
                    live_allocs: Iterable[s.Allocation] = (),
                    rng_seed: Optional[int] = None,
-                   device=None, mesh=None) -> BatchResult:
+                   device=None, mesh=None,
+                   eval_ids: Optional[Sequence[str]] = None) -> BatchResult:
     """Place every task group of ``jobs`` on ``nodes`` in one device pass.
 
     ``nodes`` is the cluster in the order the node index follows (the
     index enters the tie-break jitter and the tie order).
-    ``live_allocs`` are the allocations already running: their usage is
-    layered onto the nodes and they count as same-job collisions.
+    ``live_allocs`` are the allocations already running: their usage,
+    ports and bandwidth are layered onto the nodes, they count as
+    same-job collisions, and they hold their distinct_property values.
     ``rng_seed`` pins the tie-break seed (the reference's
     ``NOMAD_TPU_RNG_SEED``); None draws one.  ``device`` defaults to
     ``cuda`` and raises without it.
+
+    ``eval_ids`` gives each job its evaluation id, in the order of
+    ``jobs``: the port numbers of a task group's offers come from
+    ``random.Random(<its evaluation id>)``, as in the reference's
+    finalize (batch_sched.py:2236), so the same ids give the same offers
+    from run to run.  None draws a fresh id per job.
 
     ``mesh`` (a :class:`nomad_tpu_torch.parallel.NodeMesh`, instead of
     ``device``) places the batch node-sharded over the mesh's devices,
@@ -183,9 +244,21 @@ def schedule_batch(nodes: Sequence[s.Node], jobs: Sequence[s.Job],
         key = (a.job_id, a.task_group)
         live_by_spec[key] = live_by_spec.get(key, 0) + 1
         allocs_by_node.setdefault(a.node_id, []).append(a)
-    spec_list = _prepare_specs(jobs, live_by_spec)
+    if eval_ids is None:
+        eval_ids = [s.generate_uuid() for _ in jobs]
+    if len(eval_ids) != len(jobs):
+        raise ValueError(f"{len(eval_ids)} evaluation ids for "
+                         f"{len(jobs)} jobs")
+    nodes_by_id = {n.id: n for n in nodes}
+    spec_list = _prepare_specs(jobs, live_by_spec, live, nodes_by_id)
     if not spec_list:
         return BatchResult({}, 0, str(dev))
+    with_networks = any(sp.net_active for sp in spec_list)
+    if with_networks and not cluster_networks_simple(nodes):
+        raise NotImplementedError(
+            "multi-device/multi-IP node networks; the reference places "
+            "network asks on such a cluster with its CPU oracle, which the "
+            "port does not have")
 
     attr_targets, literals = encode.collect_attr_targets(spec_list)
     # The node axis pads to lcm(128, D), so the shards divide it evenly;
@@ -193,7 +266,8 @@ def schedule_batch(nodes: Sequence[s.Node], jobs: Sequence[s.Job],
     d = mesh.size if mesh is not None else 0
     base = encode.encode_cluster_static(
         nodes, attr_targets,
-        node_pad_multiple=128 * d // math.gcd(128, d) if d else 128)
+        node_pad_multiple=128 * d // math.gcd(128, d) if d else 128,
+        with_networks=with_networks)
     encode.finalize_codebooks(base, literals)
     ct = (encode.apply_alloc_usage(base, allocs_by_node)
           if allocs_by_node else base)
@@ -230,9 +304,28 @@ def schedule_batch(nodes: Sequence[s.Node], jobs: Sequence[s.Job],
         rng_seed = int.from_bytes(os.urandom(4), "big")
     static = {
         "attr": ct.attr_values, "elig": ct.eligible, "dc": ct.dc_code,
-        "denom": ct.score_denom, "cap": ct.capacity.astype(np.int32),
-        "used_base": base.used.astype(np.int32),
+        "denom": ct.score_denom,
     }
+    # Capacity and the reserved-only baseline ship quantized when that is
+    # exact (checked by the host inverse), as int32 otherwise.
+    quant = encode.quantize_resource_rows(ct.capacity, base.used)
+    if quant is not None and (
+            np.array_equal(encode.dequantize_rows(quant.cap_q,
+                                                  quant.scale[0]),
+                           ct.capacity)
+            and np.array_equal(encode.dequantize_rows(quant.used_q,
+                                                      quant.scale[1]),
+                               base.used)):
+        static.update(cap_q=quant.cap_q, used_base_q=quant.used_q,
+                      res_scale=quant.scale)
+    else:
+        static.update(cap=ct.capacity.astype(np.int32),
+                      used_base=base.used.astype(np.int32))
+    if with_networks:
+        # Port words travel as the int32 bit images of their uint32 words.
+        static.update(bw_cap=ct.bw_cap, bw_used_base=base.bw_used,
+                      dyn_free_base=base.dyn_free,
+                      port_words_base=base.port_words.view(np.int32))
     dyn = {
         "c_attr": st.constraint_attr, "c_op": st.constraint_op,
         "c_rhs": st.constraint_rhs, "dc_mask": st.dc_mask,
@@ -242,6 +335,24 @@ def schedule_batch(nodes: Sequence[s.Node], jobs: Sequence[s.Job],
         "jc_vals": jc_vals, "u_rows": u_rows, "u_vals": u_vals,
         "rng_seed": np.array([int(rng_seed) & 0x7FFFFFFF], dtype=np.int32),
     }
+    if with_networks:
+        # Touched nodes: bandwidth and free dynamic ports as deltas over
+        # the reserved-only baseline, port words whole (batch_sched.py:
+        # 1119-1134).
+        u_bw = np.zeros(k_u, dtype=np.int32)
+        u_dyn = np.zeros(k_u, dtype=np.int32)
+        u_ports = np.zeros((k_u, ct.port_words.shape[1]), dtype=np.uint32)
+        if touched:
+            u_bw[:len(touched)] = ct.bw_used[tr] - base.bw_used[tr]
+            u_dyn[:len(touched)] = ct.dyn_free[tr] - base.dyn_free[tr]
+            u_ports[:len(touched)] = ct.port_words[tr]
+        dyn.update(net_active=st.net_active, net_mbits=st.net_mbits,
+                   dyn_need=st.dyn_need,
+                   resv_words=st.resv_words.view(np.int32), u_bw=u_bw,
+                   u_dyn=u_dyn, u_ports=u_ports.view(np.int32))
+    if any(sp.dp_target is not None for sp in spec_list):
+        dyn.update(dp_col=st.dp_col, dp_active=st.dp_active,
+                   dp_used=st.dp_used)
     total_asks = int(sum(sp.count for sp in spec_list))
     max_count = max(sp.count for sp in spec_list)
     plan = None
@@ -259,7 +370,8 @@ def schedule_batch(nodes: Sequence[s.Node], jobs: Sequence[s.Job],
     with_scores, slot_m, max_nnz = plan
     if d:
         # Per-shard static packs: node rows cut to their owning shard.
-        sbuf, meta_s = xfer.pack_host_sharded(static, d)
+        sbuf, meta_s = xfer.pack_host_sharded(static, d,
+                                              replicate=("res_scale",))
     else:
         sbuf, meta_s = xfer.pack_host(static)
     dbuf, meta_d = xfer.pack_host(dyn)
@@ -300,12 +412,69 @@ def schedule_batch(nodes: Sequence[s.Node], jobs: Sequence[s.Job],
 
     placements = _finalize(spec_list, ct, summary["unplaced"], coo,
                            with_scores)
+    if with_networks:
+        _offer_networks(jobs, eval_ids, spec_list, placements, nodes_by_id,
+                        allocs_by_node)
     t3 = time.perf_counter()
     return BatchResult(
         placements=placements, rounds=int(summary["scalars"][1]),
         device=str(dev),
         timings={"encode": t1 - t0, "device": device_s,
                  "decode": t3 - t2}, mesh_shards=d)
+
+
+def _offer_networks(jobs, eval_ids, spec_list, placements, nodes_by_id,
+                    allocs_by_node) -> None:
+    """Concrete network offers for every placed alloc of a spec with
+    network asks (``_finalize``, batch_sched.py:2226-2270): the device
+    counted ports and bandwidth; here each task gets its IP and port
+    numbers.  One ``NetworkIndex`` per node serves the whole batch,
+    seeded from the node and its live allocs, and takes each offer as it
+    is made.  The jobs go in their given order, their groups in job
+    order, each group's allocs in placement order, and a group's port
+    picks draw from ``random.Random(<the job's evaluation id>)``, made
+    anew for each group -- the reference's order, so its offers repeat
+    bit for bit.  An alloc whose offer fails stays unplaced, with a
+    warning, as there."""
+    specs = {(sp.job.id, sp.tg.name): sp for sp in spec_list}
+    cache: Dict[str, NetworkIndex] = {}
+    for job, ev_id in zip(jobs, eval_ids):
+        for tg in job.task_groups:
+            key = (job.id, tg.name)
+            spec, res = specs.get(key), placements.get(key)
+            if spec is None or res is None or not spec.net_asks:
+                continue
+            rng = random.Random(ev_id)
+            keep, offers = [], []
+            for i, nid in enumerate(res.node_ids):
+                idx = cache.get(nid)
+                if idx is None:
+                    idx = cache[nid] = NetworkIndex()
+                    idx.set_node(nodes_by_id[nid])
+                    idx.add_allocs(allocs_by_node.get(nid, []))
+                nets: Dict[str, s.NetworkResource] = {}
+                for t in tg.tasks:
+                    ask_net = spec.net_asks.get(t.name)
+                    if ask_net is None:
+                        continue
+                    offer, err = idx.assign_network(ask_net, rng)
+                    if offer is None:
+                        logger.warning("batch: network offer failed on "
+                                       "%s: %s", nid, err)
+                        nets = None
+                        break
+                    idx.add_reserved(offer)
+                    nets[t.name] = offer
+                if nets is not None:
+                    keep.append(i)
+                    offers.append(nets)
+            lost = len(res.node_ids) - len(keep)
+            if lost:
+                res.node_ids = [res.node_ids[i] for i in keep]
+                res.scores = res.scores[keep]
+                res.collisions = res.collisions[keep]
+                res.unplaced += lost
+            res.networks = offers
 
 
 class _DeviceTimer:

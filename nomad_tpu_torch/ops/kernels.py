@@ -7,7 +7,9 @@ hand-written kernel behind :func:`ops.fused_score.scored_rows`; the rest
 is plain tensor code.  The placement loop is a Python loop over rounds
 and specs: the reference's ``lax.cond`` skips and ``while_loop`` exit
 become host decisions, at one host read per committing spec step (the
-feasible count ``k``) and one per round (the early-exit test).
+feasible count ``k``) and one per round (the early-exit test).  A step
+whose spec carries an active distinct_property constraint makes one more
+read, of the count its value dedup kept (:data:`DP_HOST_READS`).
 """
 from __future__ import annotations
 
@@ -23,6 +25,14 @@ from .fused_score import score_fit as _score_fit  # noqa: F401 (kernels.py name)
 from .fused_score import tie_jitter  # noqa: F401 (kernels.py name)
 
 _U32 = 0xFFFFFFFF
+NEG_INF = fused_score.NEG_INF
+
+# Host-side counts of the placement loops (single card and mesh), read by
+# chip_smoke.py: committing spec steps (a spec step with k > 0, which
+# launches the score kernel once on one card and once per shard on the
+# mesh), and the extra host reads of the distinct_property steps.
+COMMIT_STEPS = 0
+DP_HOST_READS = 0
 
 
 def _rotl32(x: int, r: int) -> int:
@@ -158,12 +168,111 @@ class PlacementResult(NamedTuple):
     slot_coll: torch.Tensor         # [U, M] int32
 
 
+class NetTensors(NamedTuple):
+    """Per-spec network asks and per-node port and bandwidth state
+    (kernels.py:321).  The port words are the int32 bit images of the
+    reference's uint32 words (bit 31 is the sign bit)."""
+
+    active: torch.Tensor      # [U] bool
+    mbits: torch.Tensor       # [U] int32
+    dyn_need: torch.Tensor    # [U] int32 — dynamic + reserved-in-dyn-range
+    resv_words: torch.Tensor  # [U, W] int32 — reserved-port bitmask
+    bw_cap: torch.Tensor      # [N] int32, -1 = no network device
+    bw_used: torch.Tensor     # [N] int32
+    dyn_free: torch.Tensor    # [N] int32
+    port_words: torch.Tensor  # [N, W] int32 — used-port bitmaps
+
+
+class DPTensors(NamedTuple):
+    """distinct_property state (kernels.py:335, propertyset.go:11)."""
+
+    col: torch.Tensor         # [U] int32 — attr column, -1 = none
+    active: torch.Tensor      # [U] bool
+    used0: torch.Tensor       # [U, V] bool — value codes in use
+    attr_values: torch.Tensor  # [N, K] int32 — node attribute codes
+
+
+def net_mask(net: NetTensors, u: int, reserved: bool) -> torch.Tensor:
+    """[N] bool: bandwidth fits, free dynamic ports suffice and no
+    reserved port of spec ``u`` is taken (kernels.py:472-478).  With
+    ``reserved`` False -- the spec reserves no port, so the test is false
+    on every node -- the [N, W] pass over the bitmaps is skipped."""
+    ok = ((net.bw_used + net.mbits[u] <= net.bw_cap)
+          & (net.dyn_free >= net.dyn_need[u]))
+    if reserved:
+        ok = ok & ~((net.port_words & net.resv_words[u][None, :]) != 0).any(1)
+    return ok
+
+
+def net_commit(net: NetTensors, u: int, sel_i, reserved: bool) -> None:
+    """Spec ``u``'s network commit on the selected nodes, in place
+    (kernels.py:554-562)."""
+    net.bw_used.add_(sel_i * net.mbits[u])
+    net.dyn_free.sub_(sel_i * net.dyn_need[u])
+    if reserved:
+        net.port_words.bitwise_or_(sel_i[:, None] * net.resv_words[u][None, :])
+
+
+def net_state(net: NetTensors) -> NetTensors:
+    """``net`` with its per-node state copied, for the loop to update in
+    place."""
+    return net._replace(**{f: getattr(net, f).clone()
+                           for f in ("bw_used", "dyn_free", "port_words")})
+
+
+def dp_mask(attr_values, col: int, used_row, v_pad: int):
+    """The distinct_property mask of one spec (kernels.py:483-487): the
+    node has the property and its value is unused.  Returns ``(mask,
+    code_c)``, ``code_c`` the codes clamped into the value axis (int64)."""
+    codes = attr_values[:, col]
+    code_c = codes.clamp(0, v_pad - 1).to(torch.int64)
+    return (codes != int(MISSING)) & ~used_row[code_c], code_c
+
+
+def dp_best(sel, scored, code_c, v_pad: int):
+    """The best selected score per property value, by a scatter-max into a
+    NEG_INF-filled buffer (kernels.py:514-516): ``(sel_score, best)``."""
+    sel_score = torch.where(sel, scored, NEG_INF)
+    best = torch.full((v_pad,), NEG_INF, dtype=torch.float32,
+                      device=sel.device).scatter_reduce_(
+        0, code_c, sel_score, "amax", include_self=True)
+    return sel_score, best
+
+
+def dp_first(cand, node_idx, code_c, v_pad: int, big: int):
+    """Per value, the lowest node index among the candidates, by a
+    scatter-min into a buffer filled with ``big`` (kernels.py:518-520)."""
+    return torch.full((v_pad,), big, dtype=torch.int32,
+                      device=cand.device).scatter_reduce_(
+        0, code_c, torch.where(cand, node_idx, big), "amin",
+        include_self=True)
+
+
+def dp_dedup(sel, scored, code_c, node_idx, v_pad: int,
+             big: int) -> torch.Tensor:
+    """The within-round value dedup of one card (kernels.py:512-525):
+    among the selected nodes that share a property value, the
+    best-scored one, then the lowest node index."""
+    sel_score, best = dp_best(sel, scored, code_c, v_pad)
+    cand = sel & (sel_score >= best[code_c])
+    first = dp_first(cand, node_idx, code_c, v_pad, big)
+    return cand & (node_idx == first[code_c])
+
+
+def dp_used_update(sel, code_c, v_pad: int) -> torch.Tensor:
+    """[V] bool: the values the selection took (kernels.py:564)."""
+    return torch.zeros(v_pad, dtype=torch.int32,
+                       device=sel.device).scatter_reduce_(
+        0, code_c, sel.to(torch.int32), "amax", include_self=True) > 0
+
+
 def placement_rounds(feas, used0, capacity, denom, ask, count, penalty,
                      distinct_hosts, job_index, job_counts0, seed: int,
                      max_rounds: int = 256, with_scores: bool = True,
-                     slot_m: int = 0) -> PlacementResult:
+                     slot_m: int = 0, net: NetTensors = None,
+                     dp: DPTensors = None) -> PlacementResult:
     """The rank-and-commit loop of ``_placement_rounds_impl``
-    (kernels.py:412) without networks or distinct_property.
+    (kernels.py:412).
 
     Each round walks the specs in order; a spec with work left commits
     its ``k = min(remaining, |ok|)`` best-scored ok nodes, one alloc per
@@ -174,7 +283,14 @@ def placement_rounds(feas, used0, capacity, denom, ask, count, penalty,
     loop stops on no progress, all placed, ``max_rounds``, or when no
     node fits even the smallest remaining ask (``round_cond``,
     kernels.py:615-634) -- ``rounds`` counts the rounds run.  ``seed``
-    is the uint32 from :func:`jitter_seed`."""
+    is the uint32 from :func:`jitter_seed`.
+
+    ``net`` adds the network fit and commit (bandwidth, reserved ports,
+    free dynamic ports) for the specs it marks active; ``dp`` adds the
+    distinct_property mask and, among the selected nodes that share a
+    value, keeps the best-scored one (lowest node index on ties).  Both
+    masks are ANDed into the feasibility row the score kernel gets."""
+    global COMMIT_STEPS, DP_HOST_READS
     dev = feas.device
     u_pad, n_pad = feas.shape
     ask_h = ask.cpu().numpy().astype(np.int64)
@@ -202,6 +318,20 @@ def placement_rounds(feas, used0, capacity, denom, ask, count, penalty,
     slot_scores = torch.zeros(sshape, dtype=torch.float32, device=dev)
     slot_coll = torch.zeros(sshape, dtype=torch.int32, device=dev)
 
+    # Which specs take the network and distinct_property branches is
+    # decided on the host, as the reference decides it at trace time.
+    net_h = resv_h = dp_h = np.zeros(u_pad, dtype=bool)
+    if net is not None:
+        net_h = net.active.cpu().numpy()
+        resv_h = (net.resv_words != 0).any(1).cpu().numpy()
+        net = net_state(net)
+    if dp is not None:
+        dp_h = dp.active.cpu().numpy()
+        dp_col_h = np.clip(dp.col.cpu().numpy(), 0,
+                           dp.attr_values.shape[1] - 1)
+        dp_used = dp.used0.clone()
+        v_pad = dp_used.shape[1]
+
     rounds = 0
     progress = 1
     while progress > 0 and remaining.sum() > 0 and rounds < max_rounds:
@@ -219,21 +349,37 @@ def placement_rounds(feas, used0, capacity, denom, ask, count, penalty,
             # A copy: the commit below updates job_counts in place, and
             # the slot record keeps the pre-commit count.
             collisions = job_counts[int(ji_h[u])].clone()
-            # The loop's ok also has distinct_hosts (kernels.py:467): it
-            # is ANDed into the feasibility row the score kernel gets,
-            # whose own fit test repeats kernels.py:463-466.
+            # The loop's ok also has distinct_hosts, the network fit and
+            # the distinct_property mask (kernels.py:467-487): they are
+            # ANDed into the feasibility row the score kernel gets, whose
+            # own fit test repeats kernels.py:463-466.
             feas_u = feas[u]
             if dh_h[u]:
                 feas_u = feas_u & (collisions == 0)
+            if net_h[u]:
+                feas_u = feas_u & net_mask(net, u, bool(resv_h[u]))
+            if dp_h[u]:
+                mask, code_c = dp_mask(dp.attr_values, int(dp_col_h[u]),
+                                       dp_used[u], v_pad)
+                feas_u = feas_u & mask
             ok = feas_u & fits
             k = min(int(remaining[u]), int(ok.sum()))
             if k <= 0:
                 continue
+            COMMIT_STEPS += 1
             scored, base = fused_score.scored_rows(
                 feas_u[None, :], used, capacity, denom, ask[u:u + 1],
                 penalty[u:u + 1], collisions[None, :], seed, u_offset=u,
                 with_base=with_scores)
             sel = _select_top_k(scored[0], ok, k)
+            placed = k
+            if dp_h[u]:
+                # The value dedup can keep fewer than k, so the step
+                # reads its count back.
+                sel = dp_dedup(sel, scored[0], code_c, node_idx, v_pad,
+                               n_pad + 1)
+                placed = int(sel.sum())
+                DP_HOST_READS += 1
 
             sel_i = sel.to(torch.int32)
             used += sel_i[:, None] * ask[u][None, :]
@@ -254,8 +400,12 @@ def placement_rounds(feas, used0, capacity, denom, ask, count, penalty,
                                                    commit_scores[u])
                     commit_coll[u] = torch.where(sel, collisions,
                                                  commit_coll[u])
-            remaining[u] -= k
-            progress += k
+            if net_h[u]:
+                net_commit(net, u, sel_i, bool(resv_h[u]))
+            if dp_h[u]:
+                dp_used[u] |= dp_used_update(sel, code_c, v_pad)
+            remaining[u] -= placed
+            progress += placed
         rounds += 1
 
     if slot_m:
@@ -373,6 +523,67 @@ def fused_layout(u_pad: int, *, window_nnz: int, with_scores: bool,
     })
 
 
+def dequantize(d: dict) -> None:
+    """Quantized resource rows in an unpacked static buffer
+    (``cap_q``/``used_base_q`` and the [2, 4] ``res_scale`` codebook,
+    ``encode.quantize_resource_rows``) become the int32 ``cap`` and
+    ``used_base``, by the exact integer multiply of kernels.py:740-744."""
+    if "res_scale" in d:
+        scale = d.pop("res_scale").to(torch.int32)
+        d["cap"] = d.pop("cap_q").to(torch.int32) * scale[0][None, :]
+        d["used_base"] = (d.pop("used_base_q").to(torch.int32)
+                          * scale[1][None, :])
+
+
+def delta_rows(rows, lo: int, n: int) -> torch.Tensor:
+    """Global delta rows -> local rows of the node range [lo, lo + n),
+    int64.  Padding rows (-1) and rows outside the range go to the spare
+    row ``n``, which :func:`apply_deltas` cuts off: the reference's
+    mode="drop" scatters (kernels.py:752-761).  A padding row is never
+    clamped onto a real one -- duplicate indices would let its write race
+    a real row's in the port-word replace below."""
+    local = rows.to(torch.int64) - lo
+    return torch.where((rows >= 0) & (local >= 0) & (local < n), local, n)
+
+
+def apply_deltas(base, rows, vals, replace: bool = False) -> torch.Tensor:
+    """``base`` with ``vals`` added (or, ``replace``, written) at ``rows``
+    of :func:`delta_rows`; a fresh tensor."""
+    out = torch.cat([base, base.new_zeros((1,) + tuple(base.shape[1:]))])
+    if replace:
+        out.index_copy_(0, rows, vals)
+    else:
+        out.index_add_(0, rows, vals)
+    return out[:base.shape[0]]
+
+
+def net_tensors(ds: dict, dd: dict, rows) -> NetTensors:
+    """The network state of an unpacked static/dynamic buffer pair, None
+    when the batch asks for no network.  Bandwidth and free dynamic
+    ports take the touched nodes' deltas *added*; their port words are
+    *replaced*, since the host derives each touched node's whole port set
+    again (kernels.py:757-772).  Port words ship as int32 bit images."""
+    if "net_active" not in dd:
+        return None
+    return NetTensors(
+        active=dd["net_active"], mbits=dd["net_mbits"],
+        dyn_need=dd["dyn_need"], resv_words=dd["resv_words"],
+        bw_cap=ds["bw_cap"],
+        bw_used=apply_deltas(ds["bw_used_base"], rows, dd["u_bw"]),
+        dyn_free=apply_deltas(ds["dyn_free_base"], rows, dd["u_dyn"]),
+        port_words=apply_deltas(ds["port_words_base"], rows, dd["u_ports"],
+                                replace=True))
+
+
+def dp_tensors(d: dict) -> DPTensors:
+    """The distinct_property state of the unpacked buffers, None when no
+    spec carries one."""
+    if "dp_col" not in d:
+        return None
+    return DPTensors(col=d["dp_col"], active=d["dp_active"],
+                     used0=d["dp_used"], attr_values=d["attr"])
+
+
 class FusedOutput(NamedTuple):
     buf: torch.Tensor            # packed uint8 result buffer
     meta: tuple                  # its layout (fused_layout)
@@ -392,28 +603,22 @@ def fused_pass(static_buf: torch.Tensor, dyn_buf: torch.Tensor, *, meta_s,
     result buffer (:func:`fused_layout`)."""
     d = xfer.unpack_device(static_buf, meta_s)
     d.update(xfer.unpack_device(dyn_buf, meta_d))
-    for key in ("net_active", "dp_col", "cap_q"):
-        if key in d:
-            raise NotImplementedError(
-                f"fused_pass: '{key}' inputs belong to a later slice")
+    dequantize(d)
     job_counts = scatter_job_counts(d["jc_rows"], d["jc_cols"], d["jc_vals"],
                                     u_pad=u_pad, n_pad=n_pad)
     feas = feasibility_matrix(d["attr"], d["elig"], d["dc"], d["c_attr"],
                               d["c_op"], d["c_rhs"], d["dc_mask"],
                               d["precomp"])
-    # Sparse usage deltas over the reserved-only baseline; -1 rows are
-    # padding and go to a spare row that is cut off (the reference's
-    # mode="drop" scatter, kernels.py:759-761).
-    uvalid = d["u_rows"] >= 0
-    uidx = torch.where(uvalid, d["u_rows"], n_pad).to(torch.int64)
-    used0 = torch.cat([d["used_base"], d["used_base"].new_zeros((1, 4))])
-    used0.index_add_(0, uidx, d["u_vals"])
-    used0 = used0[:n_pad]
+    # Sparse usage deltas over the reserved-only baseline, at the rows
+    # the deltas own.
+    rows = delta_rows(d["u_rows"], 0, n_pad)
+    used0 = apply_deltas(d["used_base"], rows, d["u_vals"])
     seed = jitter_seed(int(d["rng_seed"][0]))
     result = placement_rounds(
         feas, used0, d["cap"], d["denom"], d["ask"], d["count"],
         d["penalty"], d["dh"], d["ji"], job_counts, seed,
-        max_rounds=max_rounds, with_scores=with_scores, slot_m=slot_m)
+        max_rounds=max_rounds, with_scores=with_scores, slot_m=slot_m,
+        net=net_tensors(d, d, rows), dp=dp_tensors(d))
 
     compact_u16 = (not with_scores and u_pad <= 65536 and n_pad <= 65536
                    and max_rounds < 65536)

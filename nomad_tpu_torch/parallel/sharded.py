@@ -17,8 +17,12 @@ there, and a shard reads a result back with ``.to(device)``.  One device
 may appear several times: ``["cuda:0"] * 4`` is four shards on one card,
 as the reference's tests run eight shards on virtual CPU devices.
 
-Not in this slice: network asks, distinct_property and the donated
-usage mirror; a mesh over several cards (peer copies) is unverified.
+Network asks shard their per-node state (bandwidth, free dynamic ports,
+port bitmaps) with the nodes; distinct_property's per-spec used values
+are replicated, and its within-round value dedup reduces across shards
+(best score per value, then the lowest global node index).  Not ported:
+the donated usage mirror; a mesh over several cards (peer copies) is
+unverified.
 """
 from __future__ import annotations
 
@@ -162,19 +166,24 @@ class _Shard:
     denom: torch.Tensor          # [n_l, 2] f32
     jc: torch.Tensor             # [J, n_l] int32, updated in place
     out: Tuple[torch.Tensor, ...] = ()   # placements, or the slot record
+    # The shard's part of the network state (per-spec asks replicated,
+    # bw_used/dyn_free/port_words updated in place) and its rows of the
+    # attribute codes distinct_property reads; None when unused.
+    net: Optional[kernels.NetTensors] = None
+    attr: Optional[torch.Tensor] = None  # [n_l, K] int32
 
 
 def _mesh_rounds(mesh: NodeMesh, shards: List[_Shard], ask, count, penalty,
                  distinct_hosts, job_index, seed: int, *, k_cand: int,
-                 slot_m: int = 0,
-                 with_scores: bool = False):
+                 slot_m: int = 0, with_scores: bool = False,
+                 dp_spec: Optional[Tuple[torch.Tensor, ...]] = None):
     """The rank-and-commit loop of the reference's mesh
-    (``sharded.py:264-389`` and ``:618-743``) without networks or
-    distinct_property.  Per spec step every shard scores its nodes with
-    the ``scored_rows`` kernel (jitter keyed on the GLOBAL node index:
-    ``n_offset`` = the shard's first node) and keeps its top ``k_cand``;
-    the gathered candidates are ranked by a stable argsort and the best
-    ``k = min(remaining, |ok|)`` commit on their shards.
+    (``sharded.py:264-389`` and ``:618-743``).  Per spec step every shard
+    scores its nodes with the ``scored_rows`` kernel (jitter keyed on the
+    GLOBAL node index: ``n_offset`` = the shard's first node) and keeps
+    its top ``k_cand``; the gathered candidates are ranked by a stable
+    argsort and the best ``k = min(remaining, |ok|)`` commit on their
+    shards.
 
     Each shard's ``out`` is set to ``(placements [U, n_l],)`` in matrix
     mode, or to its part of the slot record ``(slots, scores, coll)``
@@ -182,12 +191,20 @@ def _mesh_rounds(mesh: NodeMesh, shards: List[_Shard], ask, count, penalty,
     the extra column takes the dropped writes).  Returns ``(remaining
     [U] int64 numpy, rounds)``.
 
+    Shards carrying ``net`` add the network fit and commit of the active
+    specs; ``dp_spec`` = ``(col, active, used0)`` adds distinct_property
+    (per-spec state replicated on the root).  Its dedup keeps, per
+    value, the best selected score over all shards, then the lowest
+    global node index, as the single card's scatter-max and scatter-min
+    do (``sharded.py:319-332``); the used values are ORed across shards.
+
     As in the reference there is no capacity early exit: the loop stops
     on no progress, all placed or :data:`MAX_ROUNDS`, so it ends with one
     round that places nothing (the single-chip loop's early exit,
     kernels.py:622-634, is not repeated here).  A spec with nothing left,
     or with k == 0, commits nothing in the reference; here it launches
-    nothing either.  One host read per step brings the shards' ``|ok|``."""
+    nothing either.  One host read per step brings the shards' ``|ok|``;
+    a distinct_property step reads its deduped count as well."""
     d = mesh.size
     root = mesh.root
     u_pad = count.shape[0]
@@ -200,6 +217,19 @@ def _mesh_rounds(mesh: NodeMesh, shards: List[_Shard], ask, count, penalty,
     pen_r = _per_device(mesh, penalty.to(torch.float32))
     arange_c = torch.arange(k_cand * d, device=root)
     placed_dev = torch.zeros((), dtype=torch.int64, device=root)
+    big = d * n_l + 1          # the reference's n_pad + 1
+    net_h = resv_h = dp_h = np.zeros(u_pad, dtype=bool)
+    if shards[0].net is not None:
+        net0 = shards[0].net
+        net_h = net0.active.cpu().numpy()
+        resv_h = (net0.resv_words != 0).any(1).cpu().numpy()
+    if dp_spec is not None:
+        dp_col, dp_active, dp_used = dp_spec
+        dp_h = dp_active.cpu().numpy()
+        dp_col_h = np.clip(dp_col.cpu().numpy(), 0,
+                           shards[0].attr.shape[1] - 1)
+        dp_used = dp_used.to(root).clone()
+        v_pad = dp_used.shape[1]
     for sh in shards:
         if slot_m:
             sshape = (u_pad, slot_m + 1) if with_scores else (1, 1)
@@ -223,6 +253,8 @@ def _mesh_rounds(mesh: NodeMesh, shards: List[_Shard], ask, count, penalty,
             if remaining[u] <= 0:
                 continue
             j = int(ji_h[u])
+            if dp_h[u]:
+                used_row = _per_device(mesh, dp_used[u])
             steps = []
             for sh in shards:
                 a = ask_r[sh.device][u]
@@ -233,42 +265,60 @@ def _mesh_rounds(mesh: NodeMesh, shards: List[_Shard], ask, count, penalty,
                 feas_u = sh.feas[u]
                 if dh_h[u]:
                     feas_u = feas_u & (coll == 0)
-                steps.append((feas_u, coll, feas_u & fits))
+                if net_h[u]:
+                    feas_u = feas_u & kernels.net_mask(sh.net, u,
+                                                       bool(resv_h[u]))
+                code_c = None
+                if dp_h[u]:
+                    mask, code_c = kernels.dp_mask(
+                        sh.attr, int(dp_col_h[u]), used_row[sh.device],
+                        v_pad)
+                    feas_u = feas_u & mask
+                steps.append((feas_u, coll, feas_u & fits, code_c))
             n_ok = torch.stack([ok.sum().to(root)
-                                for _, _, ok in steps]).cpu().numpy()
+                                for _, _, ok, _ in steps]).cpu().numpy()
             k = min(int(remaining[u]), int(n_ok.sum()))
             if k <= 0:
                 continue
+            kernels.COMMIT_STEPS += 1
             loc = []
-            for sh, (feas_u, coll, _) in zip(shards, steps):
+            for sh, (feas_u, coll, _, _) in zip(shards, steps):
                 scored, base = fused_score.scored_rows(
                     feas_u[None, :], sh.used, sh.cap, sh.denom,
                     ask_r[sh.device][u:u + 1], pen_r[sh.device][u:u + 1],
                     coll[None, :], seed, u_offset=u, n_offset=sh.offset,
                     with_base=with_scores)
-                loc.append(kernels.stable_top_k(scored[0], k_cand)
-                           + (base,))
+                loc.append((scored[0],) + kernels.stable_top_k(
+                    scored[0], k_cand) + (base,))
             # The global selection on the gathered candidates.  Their
             # order is (shard, local rank), so the stable argsort breaks
             # score ties by global node index, like jnp.argsort
             # (sharded.py:312) and the single-chip select.  Candidates at
             # NEG_INF are cut by the > NEG_INF / 2 test.
-            all_scores = all_gather([s for s, _, _ in loc], mesh)
+            all_scores = all_gather([s for _, s, _, _ in loc], mesh)
             order = torch.argsort(-all_scores, stable=True)
             ranks = torch.empty_like(order).scatter_(0, order, arange_c)
             sel_cand = (all_scores > NEG_INF / 2) & (ranks < k)
-            # Slot positions: allocs placed so far + lower-shard prefix +
-            # within-shard ascending-node rank (sharded.py:683-688).
-            counts = sel_cand.view(d, k_cand).sum(1)
-            prefix = torch.cumsum(counts, 0) - counts
-            offset = int(count_h[u] - remaining[u])
-            for i, (sh, (_, coll, ok), (_, loc_idx, base)) in enumerate(
+            sels = []
+            for i, (sh, (_, _, ok, _), (_, _, loc_idx, _)) in enumerate(
                     zip(shards, steps, loc)):
                 my_sel = sel_cand[i * k_cand:(i + 1) * k_cand].to(sh.device)
                 # The reference's zeros(n_l).at[loc_idx].set(my_sel) & ok.
-                sel = torch.zeros(n_l, dtype=torch.bool,
-                                  device=sh.device).scatter_(
-                    0, loc_idx, my_sel) & ok
+                sels.append(torch.zeros(n_l, dtype=torch.bool,
+                                        device=sh.device).scatter_(
+                    0, loc_idx, my_sel) & ok)
+            if dp_h[u]:
+                sels = _dp_dedup(mesh, shards, sels, loc, steps, gidx, v_pad,
+                                 big)
+                counts = torch.stack([sel.sum().to(root) for sel in sels])
+            else:
+                counts = sel_cand.view(d, k_cand).sum(1)
+            # Slot positions: allocs placed so far + lower-shard prefix +
+            # within-shard ascending-node rank (sharded.py:683-688).
+            prefix = torch.cumsum(counts, 0) - counts
+            offset = int(count_h[u] - remaining[u])
+            for i, (sh, sel, (_, coll, _, code_c), (_, _, _, base)) in (
+                    enumerate(zip(shards, sels, steps, loc))):
                 sel_i = sel.to(torch.int32)
                 sh.used += sel_i[:, None] * ask_r[sh.device][u][None, :]
                 sh.jc[j] += sel_i
@@ -290,11 +340,21 @@ def _mesh_rounds(mesh: NodeMesh, shards: List[_Shard], ask, count, penalty,
                         scoll[u].scatter_(0, dest, coll)
                 else:
                     sh.out[0][u] += sel_i
-            # Every selected candidate is ok, so each shard commits
-            # min(k_cand, its |ok|) candidates at most, and the step
-            # min(k, their sum).  The device's own count is held against
-            # this sum after the loop.
-            placed = min(k, int(np.minimum(n_ok, k_cand).sum()))
+                if net_h[u]:
+                    kernels.net_commit(sh.net, u, sel_i, bool(resv_h[u]))
+                if dp_h[u]:
+                    dp_used[u] |= kernels.dp_used_update(
+                        sel, code_c, v_pad).to(root)
+            if dp_h[u]:
+                # The dedup can keep fewer than k: read the count.
+                placed = int(counts.sum())
+                kernels.DP_HOST_READS += 1
+            else:
+                # Every selected candidate is ok, so each shard commits
+                # min(k_cand, its |ok|) candidates at most, and the step
+                # min(k, their sum).  The device's own count is held
+                # against this sum after the loop.
+                placed = min(k, int(np.minimum(n_ok, k_cand).sum()))
             remaining[u] -= placed
             progress += placed
         rounds += 1
@@ -305,6 +365,30 @@ def _mesh_rounds(mesh: NodeMesh, shards: List[_Shard], ask, count, penalty,
     return remaining, rounds
 
 
+def _dp_dedup(mesh: NodeMesh, shards, sels, loc, steps, gidx, v_pad: int,
+              big: int):
+    """The within-round distinct_property dedup across shards
+    (``sharded.py:319-332``): per value the best selected score over all
+    shards (a max of the shards' scatter-max), then among the nodes that
+    reach it the lowest GLOBAL node index (a min of the shards'
+    scatter-min).  Bit for bit the single card's choice."""
+    parts = [kernels.dp_best(sel, scored, code_c, v_pad)
+             for sel, (scored, _, _, _), (_, _, _, code_c)
+             in zip(sels, loc, steps)]
+    best_g = _per_device(mesh, torch.stack(
+        [b.to(mesh.root) for _, b in parts]).amax(0))
+    cands = [sel & (sel_score >= best_g[sh.device][code_c])
+             for sh, sel, (sel_score, _), (_, _, _, code_c)
+             in zip(shards, sels, parts, steps)]
+    first_g = _per_device(mesh, torch.stack(
+        [kernels.dp_first(cand, gi, code_c, v_pad, big).to(mesh.root)
+         for cand, gi, (_, _, _, code_c) in zip(cands, gidx, steps)]
+    ).amin(0))
+    return [cand & (gi == first_g[sh.device][code_c])
+            for sh, cand, gi, (_, _, _, code_c)
+            in zip(shards, cands, gidx, steps)]
+
+
 class MeshPlacementResult(NamedTuple):
     placements: torch.Tensor     # [U, N] int32 allocs of spec u on node n
     unplaced: torch.Tensor       # [U] int32
@@ -312,40 +396,57 @@ class MeshPlacementResult(NamedTuple):
     rounds: int
 
 
+def _shard_net(mesh: NodeMesh, net: kernels.NetTensors):
+    """One NetTensors per shard: the per-node state cut with the nodes
+    (and copied: the loop updates it), the per-spec asks replicated."""
+    spec = {f: _per_device(mesh, getattr(net, f))
+            for f in ("active", "mbits", "dyn_need", "resv_words")}
+    node = {f: shard_nodes(mesh, getattr(net, f))
+            for f in ("bw_cap", "bw_used", "dyn_free", "port_words")}
+    return [kernels.net_state(kernels.NetTensors(
+        **{f: v[dev] for f, v in spec.items()},
+        **{f: v[i] for f, v in node.items()}))
+        for i, dev in enumerate(mesh.devices)]
+
+
 def sharded_placement_rounds(mesh: NodeMesh, feas, used0, capacity, denom,
                              ask, count, penalty, distinct_hosts, job_index,
                              job_counts0, seed: int, k_cand: int = 64,
-                             net=None,
-                             dp=None) -> MeshPlacementResult:
+                             net: Optional[kernels.NetTensors] = None,
+                             dp: Optional[kernels.DPTensors] = None
+                             ) -> MeshPlacementResult:
     """The single-chip placement semantics, node-sharded over the mesh
     (reference ``sharded.py:173``): anti-affinity collisions,
-    distinct_hosts, per-(job, node) counts and the multi-round
-    capacity-feedback loop.  Node tensors ([U, N] ``feas``, [N, 4]
-    ``used0``/``capacity``, [N, 2] ``denom``, [J, N] ``job_counts0``) are
-    cut along N; the per-spec ones are replicated.  ``seed`` is the
-    uint32 of :func:`ops.kernels.jitter_seed`.
+    distinct_hosts, per-(job, node) counts, network accounting,
+    distinct_property and the multi-round capacity-feedback loop.  Node
+    tensors ([U, N] ``feas``, [N, 4] ``used0``/``capacity``, [N, 2]
+    ``denom``, [J, N] ``job_counts0``, and the per-node parts of ``net``
+    and ``dp``) are cut along N; the per-spec ones are replicated.
+    ``seed`` is the uint32 of :func:`ops.kernels.jitter_seed`.
 
     While a spec commits at most ``k_cand`` allocs a round, the selection
     equals the single-chip loop's; a spec that needs more under-commits
     and finishes in later rounds.  Results are on the root device."""
-    if net is not None or dp is not None:
-        raise NotImplementedError(
-            "network asks and distinct_property on the mesh belong to a "
-            "later slice")
     n_pad = feas.shape[1]
     n_l = n_pad // mesh.size
+    nets = (_shard_net(mesh, net) if net is not None
+            else [None] * mesh.size)
+    attrs = (shard_nodes(mesh, dp.attr_values.to(torch.int32))
+             if dp is not None else [None] * mesh.size)
     shards = [
         _Shard(device=dev, offset=i * n_l, feas=f, used=us.clone(), cap=c,
-               denom=dn, jc=jc.clone())
-        for i, (dev, f, us, c, dn, jc) in enumerate(zip(
+               denom=dn, jc=jc.clone(), net=nt, attr=at)
+        for i, (dev, f, us, c, dn, jc, nt, at) in enumerate(zip(
             mesh.devices, shard_nodes(mesh, feas, 1),
             shard_nodes(mesh, used0.to(torch.int32)),
             shard_nodes(mesh, capacity.to(torch.int32)),
             shard_nodes(mesh, denom.to(torch.float32)),
-            shard_nodes(mesh, job_counts0.to(torch.int32), 1)))]
+            shard_nodes(mesh, job_counts0.to(torch.int32), 1), nets,
+            attrs))]
     remaining, rounds = _mesh_rounds(
         mesh, shards, ask, count, penalty, distinct_hosts, job_index, seed,
-        k_cand=min(k_cand, n_l))
+        k_cand=min(k_cand, n_l),
+        dp_spec=None if dp is None else (dp.col, dp.active, dp.used0))
     return MeshPlacementResult(
         placements=all_gather([sh.out[0] for sh in shards], mesh, dim=1),
         unplaced=torch.as_tensor(remaining.astype(np.int32),
@@ -378,14 +479,15 @@ def sharded_fused_pass(mesh: NodeMesh, static_shards: Sequence[torch.Tensor],
                        n_pad: int, with_scores: bool, max_nnz: int,
                        slot_m: int, k_cand: int) -> kernels.FusedOutput:
     """The whole batch over the mesh (reference ``sharded_fused_pass`` and
-    ``_build_fused_mesh_fn``, ``sharded.py:443-766``), without networks,
-    distinct_property and the donated usage mirror.
+    ``_build_fused_mesh_fn``, ``sharded.py:443-766``), without the
+    donated usage mirror.
 
     ``static_shards`` holds one packed static buffer per shard (the rows
     :func:`ops.xfer.pack_host_sharded` cut, laid out by ``meta_s``), each
     on its shard's device; ``dyn_buf`` is the replicated dynamic buffer.
-    Each shard unpacks its part, applies the usage deltas and job counts
-    of the nodes it owns and checks feasibility; the placement rounds run
+    Each shard unpacks (and dequantizes) its part, applies the usage,
+    bandwidth, dynamic-port and port-word deltas and the job counts of
+    the nodes it owns and checks feasibility; the placement rounds run
     over the mesh; the shards' disjoint slot records merge by one
     :func:`psum`; then the slot→COO gather and the packed result buffer
     of :func:`ops.kernels.fused_pass`, on the root device.  ``feas`` of
@@ -405,22 +507,15 @@ def sharded_fused_pass(mesh: NodeMesh, static_shards: Sequence[torch.Tensor],
     shards = []
     for i, dev in enumerate(mesh.devices):
         ds = xfer.unpack_device(static_shards[i].to(dev), meta_s)
+        kernels.dequantize(ds)
         dd = dyn[dev]
-        for key in ("net_active", "dp_col", "cap_q"):
-            if key in ds or key in dd:
-                raise NotImplementedError(
-                    f"sharded_fused_pass: '{key}' inputs belong to a later "
-                    "slice")
         lo = i * n_l
         # Usage deltas and job counts carry GLOBAL node indices; each
         # shard applies the ones it owns.  The others go to a spare row
-        # (usage) or are zeroed (counts): the reference's mode="drop"
+        # (deltas) or are zeroed (counts): the reference's mode="drop"
         # scatters (sharded.py:570-582), made explicit.
-        lrow = dd["u_rows"] - lo
-        uvalid = (dd["u_rows"] >= 0) & (lrow >= 0) & (lrow < n_l)
-        used0 = torch.cat([ds["used_base"], ds["used_base"].new_zeros((1, 4))])
-        used0.index_add_(0, torch.where(uvalid, lrow, n_l).to(torch.int64),
-                         dd["u_vals"])
+        rows = kernels.delta_rows(dd["u_rows"], lo, n_l)
+        used0 = kernels.apply_deltas(ds["used_base"], rows, dd["u_vals"])
         jcol = dd["jc_cols"] - lo
         jvalid = (dd["jc_rows"] >= 0) & (jcol >= 0) & (jcol < n_l)
         jc = kernels.scatter_job_counts(
@@ -433,14 +528,17 @@ def sharded_fused_pass(mesh: NodeMesh, static_shards: Sequence[torch.Tensor],
             ds["attr"], ds["elig"], ds["dc"], dd["c_attr"], dd["c_op"],
             dd["c_rhs"], dd["dc_mask"], precomp)
         shards.append(_Shard(device=dev, offset=lo, feas=feas,
-                             used=used0[:n_l], cap=ds["cap"],
-                             denom=ds["denom"], jc=jc))
+                             used=used0, cap=ds["cap"], denom=ds["denom"],
+                             jc=jc, net=kernels.net_tensors(ds, dd, rows),
+                             attr=ds["attr"]))
     dd = dyn[mesh.root]
     seed = kernels.jitter_seed(int(dd["rng_seed"][0]))
     remaining, rounds = _mesh_rounds(
         mesh, shards, dd["ask"], dd["count"], dd["penalty"], dd["dh"],
         dd["ji"], seed, k_cand=k_cand, slot_m=slot_m,
-        with_scores=with_scores)
+        with_scores=with_scores,
+        dp_spec=((dd["dp_col"], dd["dp_active"], dd["dp_used"])
+                 if "dp_col" in dd else None))
 
     # Disjoint per-shard parts: one psum gives the commit-ordered record
     # (sharded.py:747-749); the +1 encoding leaves empty slots at -1.  The

@@ -1,9 +1,14 @@
-"""Constraint-target resolution (``nomad_tpu/scheduler/feasible.py:157``)."""
+"""Constraint-target resolution and the host constraint checks
+(``nomad_tpu/scheduler/feasible.py:157-265``)."""
 from __future__ import annotations
 
+import re
 from typing import Optional
 
+from ..structs import structs as s
 from ..structs.structs import Node
+from ..utils import version as goversion
+from .context import EvalContext
 
 
 def resolve_constraint_target(target: str, node: Node):
@@ -40,3 +45,84 @@ def parse_bool(value: str) -> Optional[bool]:
     if value in ("0", "f", "F", "false", "FALSE", "False"):
         return False
     return None
+
+
+def check_constraint(ctx: EvalContext, operand: str, lval, rval) -> bool:
+    """Dispatch one constraint operand (feasible.go:433-458)."""
+    if operand in (s.CONSTRAINT_DISTINCT_HOSTS, s.CONSTRAINT_DISTINCT_PROPERTY):
+        # Handled by their own iterators; they pass here.
+        return True
+    if operand in ("=", "==", "is"):
+        return lval == rval
+    if operand in ("!=", "not"):
+        return lval != rval
+    if operand in ("<", "<=", ">", ">="):
+        return _check_lexical_order(operand, lval, rval)
+    if operand == s.CONSTRAINT_VERSION:
+        return _check_version_constraint(ctx, lval, rval)
+    if operand == s.CONSTRAINT_REGEX:
+        return _check_regexp_constraint(ctx, lval, rval)
+    if operand == s.CONSTRAINT_SET_CONTAINS:
+        return _check_set_contains(lval, rval)
+    return False
+
+
+def _check_lexical_order(op: str, lval, rval) -> bool:
+    if not isinstance(lval, str) or not isinstance(rval, str):
+        return False
+    if op == "<":
+        return lval < rval
+    if op == "<=":
+        return lval <= rval
+    if op == ">":
+        return lval > rval
+    if op == ">=":
+        return lval >= rval
+    return False
+
+
+def _check_version_constraint(ctx: EvalContext, lval, rval) -> bool:
+    """(feasible.go:487) with the per-evaluation constraint cache."""
+    if isinstance(lval, int):
+        lval = str(lval)
+    if not isinstance(lval, str) or not isinstance(rval, str):
+        return False
+    vers = goversion.parse_version(lval)
+    if vers is None:
+        return False
+    cache = ctx.cache.constraint_cache
+    if rval in cache:
+        constraints = cache[rval]
+    else:
+        constraints = goversion.parse_constraints(rval)
+        cache[rval] = constraints
+    if constraints is None:
+        return False
+    return constraints.check(vers)
+
+
+def _check_regexp_constraint(ctx: EvalContext, lval, rval) -> bool:
+    """(feasible.go:530) with the per-evaluation regex cache."""
+    if not isinstance(lval, str) or not isinstance(rval, str):
+        return False
+    cache = ctx.cache.re_cache
+    if rval in cache:
+        pattern = cache[rval]
+    else:
+        try:
+            pattern = re.compile(rval)
+        except re.error:
+            pattern = None
+        cache[rval] = pattern
+    if pattern is None:
+        return False
+    return pattern.search(lval) is not None
+
+
+def _check_set_contains(lval, rval) -> bool:
+    """The left comma-set must hold every right comma-element
+    (feasible.go:563)."""
+    if not isinstance(lval, str) or not isinstance(rval, str):
+        return False
+    have = {part.strip() for part in lval.split(",")}
+    return all(part.strip() in have for part in rval.split(","))

@@ -42,6 +42,15 @@ CONSTRAINT_SET_CONTAINS = "set_contains"
 NODE_UNIQUE_NAMESPACE = "unique."
 
 
+def target_escapes(target: str) -> bool:
+    """A constraint target that reads a unique attribute escapes the
+    computed class: nodes of one class may differ there
+    (``nomad_tpu/structs/node_class.py:59``)."""
+    return (target.startswith("${node.unique.")
+            or target.startswith("${attr.unique.")
+            or target.startswith("${meta.unique."))
+
+
 def generate_uuid() -> str:
     h = os.urandom(16).hex()
     return f"{h[:8]}-{h[8:12]}-{h[12:16]}-{h[16:20]}-{h[20:]}"
@@ -55,12 +64,28 @@ class Port:
 
 @dataclass
 class NetworkResource:
+    """A network interface, or a bandwidth and port ask
+    (structs.go:1071-1158)."""
+
     device: str = ""
     cidr: str = ""
     ip: str = ""
     mbits: int = 0
     reserved_ports: List[Port] = field(default_factory=list)
     dynamic_ports: List[Port] = field(default_factory=list)
+
+    def copy(self) -> "NetworkResource":
+        return NetworkResource(
+            device=self.device, cidr=self.cidr, ip=self.ip, mbits=self.mbits,
+            reserved_ports=[Port(p.label, p.value)
+                            for p in self.reserved_ports],
+            dynamic_ports=[Port(p.label, p.value)
+                           for p in self.dynamic_ports])
+
+    def add(self, delta: "NetworkResource") -> None:
+        self.reserved_ports.extend(Port(p.label, p.value)
+                                   for p in delta.reserved_ports)
+        self.mbits += delta.mbits
 
 
 @dataclass
@@ -76,16 +101,34 @@ class Resources:
 
     TENSOR_DIMS = ("cpu", "memory_mb", "disk_mb", "iops")
 
+    def copy(self) -> "Resources":
+        return Resources(cpu=self.cpu, memory_mb=self.memory_mb,
+                         disk_mb=self.disk_mb, iops=self.iops,
+                         networks=[n.copy() for n in self.networks])
+
+    def net_index(self, n: NetworkResource) -> int:
+        """Index of the first network with the same device, the empty
+        device included (structs.go:1012)."""
+        for idx, existing in enumerate(self.networks):
+            if existing.device == n.device:
+                return idx
+        return -1
+
     def add(self, delta: Optional["Resources"]) -> None:
-        """Accumulate the scalar dims of ``delta`` (networks are not
-        accumulated: a spec with network asks is rejected before
-        encoding)."""
+        """Accumulate ``delta``, merging networks by device
+        (structs.go:1042)."""
         if delta is None:
             return
         self.cpu += delta.cpu
         self.memory_mb += delta.memory_mb
         self.disk_mb += delta.disk_mb
         self.iops += delta.iops
+        for n in delta.networks:
+            idx = self.net_index(n)
+            if idx == -1:
+                self.networks.append(n.copy())
+            else:
+                self.networks[idx].add(n)
 
     def as_tuple(self):
         return (self.cpu, self.memory_mb, self.disk_mb, self.iops)
@@ -187,8 +230,9 @@ class Job:
 
 @dataclass
 class Allocation:
-    """A placed task group on a node; only what usage accounting and the
-    per-(job, node) collision counts read."""
+    """A placed task group on a node; only what usage accounting, the
+    per-(job, node) collision counts and the port accounting read (the
+    first network of each ``task_resources`` entry holds its ports)."""
 
     id: str = ""
     node_id: str = ""

@@ -175,7 +175,10 @@ def test_re_evaluation_counts_existing_allocs(monkeypatch):
 def test_fused_buffer_matches_reference(monkeypatch):
     """The port's fused_pass on the reference's own upload buffers
     returns the same result buffer: unplaced, feas_count, scalars and
-    the COO rows, cols and counts exactly; score bits within 1e-5."""
+    the COO rows, cols and counts exactly; score bits within 1e-5.  With
+    the reference's default NOMAD_TPU_QUANT the resource rows ship
+    quantized, and the port's fused pass dequantizes them; with it off
+    they ship as int32."""
     monkeypatch.setenv("NOMAD_TPU_RESIDENT", "0")   # sparse-delta uploads
     captured = {}
     orig = jkernels.fused_pass
@@ -188,34 +191,38 @@ def test_fused_buffer_matches_reference(monkeypatch):
         return out
 
     monkeypatch.setattr(jbatch.kernels, "fused_pass", spy)
-    h, rng, jobs = build(31, n_nodes=30, n_jobs=4, max_count=30)
-    run_reference(h, jobs, 31, monkeypatch)
-    more = [make_job(rng.randint(5, 25), rng) for _ in range(3)]
-    run_reference(h, more, 32, monkeypatch)   # with live usage and jc rows
+    for quant in ("1", "0"):
+        monkeypatch.setenv("NOMAD_TPU_QUANT", quant)
+        h, rng, jobs = build(31, n_nodes=30, n_jobs=4, max_count=30)
+        run_reference(h, jobs, 31, monkeypatch)
+        more = [make_job(rng.randint(5, 25), rng) for _ in range(3)]
+        run_reference(h, more, 32, monkeypatch)   # live usage and jc rows
 
-    kw = captured["kw"]
-    static = jxfer.unpack_host(captured["static"], kw["meta_s"])
-    dyn = jxfer.unpack_host(captured["dyn"], kw["meta_d"])
-    sbuf, dbuf, meta_s, meta_d = convert.device_inputs_from_buffers(
-        static, dyn, device="cpu")
-    out = kernels.fused_pass(
-        sbuf, dbuf, meta_s=meta_s, meta_d=meta_d, u_pad=kw["u_pad"],
-        n_pad=kw["n_pad"], with_scores=kw["with_scores"],
-        max_nnz=kw["max_nnz"], max_rounds=kw.get("max_rounds", 256),
-        slot_m=kw["slot_m"])
-    assert out.meta == captured["meta"]
-    got = xfer.unpack_host(out.buf.numpy(), out.meta)
-    want = jxfer.unpack_host(captured["buf"], captured["meta"])
-    for name in ("unplaced", "feas_count", "scalars"):
-        np.testing.assert_array_equal(got[name], want[name])
-    nnz = int(want["scalars"][0])
-    assert nnz > 0
-    np.testing.assert_array_equal(got["coo"][:nnz, :3], want["coo"][:nnz, :3])
-    np.testing.assert_array_equal(got["coo"][:nnz, 4], want["coo"][:nnz, 4])
-    gs = got["coo"][:nnz, 3].view(np.float32)
-    ws = want["coo"][:nnz, 3].view(np.float32)
-    assert np.abs(gs - ws).max() <= SCORE_ATOL
-
+        kw = captured["kw"]
+        static = jxfer.unpack_host(captured["static"], kw["meta_s"])
+        dyn = jxfer.unpack_host(captured["dyn"], kw["meta_d"])
+        assert ("res_scale" in static) == (quant == "1")
+        sbuf, dbuf, meta_s, meta_d = convert.device_inputs_from_buffers(
+            static, dyn, device="cpu")
+        out = kernels.fused_pass(
+            sbuf, dbuf, meta_s=meta_s, meta_d=meta_d, u_pad=kw["u_pad"],
+            n_pad=kw["n_pad"], with_scores=kw["with_scores"],
+            max_nnz=kw["max_nnz"], max_rounds=kw.get("max_rounds", 256),
+            slot_m=kw["slot_m"])
+        assert out.meta == captured["meta"]
+        got = xfer.unpack_host(out.buf.numpy(), out.meta)
+        want = jxfer.unpack_host(captured["buf"], captured["meta"])
+        for name in ("unplaced", "feas_count", "scalars"):
+            np.testing.assert_array_equal(got[name], want[name])
+        nnz = int(want["scalars"][0])
+        assert nnz > 0
+        np.testing.assert_array_equal(got["coo"][:nnz, :3],
+                                      want["coo"][:nnz, :3])
+        np.testing.assert_array_equal(got["coo"][:nnz, 4],
+                                      want["coo"][:nnz, 4])
+        gs = got["coo"][:nnz, 3].view(np.float32)
+        ws = want["coo"][:nnz, 3].view(np.float32)
+        assert np.abs(gs - ws).max() <= SCORE_ATOL
 
 
 def test_payload_window_overflow_takes_the_extra_fetch(monkeypatch):

@@ -188,20 +188,28 @@ def test_shape_plan_matches():
 
 
 def test_unsupported_specs_are_named():
+    """What the port cannot place is what the reference sends to its
+    oracle: the spec names the reference's reason.  Network asks,
+    distinct_property and host-evaluated constraints are placed."""
     j = jmock.job()          # network asks
     pj = convert.job_from_dict(dataclasses.asdict(j))
-    assert "network" in encode.build_spec(pj, pj.task_groups[0],
-                                          False).unsupported
-    for t in pj.task_groups[0].tasks:
-        t.resources.networks = []
+    sp = encode.build_spec(pj, pj.task_groups[0], False)
+    assert sp.net_active and not sp.needs_oracle
+    net = pj.task_groups[0].tasks[0].resources.networks[0]
+    net.reserved_ports = [js.Port("a", 80), js.Port("b", 80)]
+    assert "reserved ports" in encode.build_spec(pj, pj.task_groups[0],
+                                                 False).needs_oracle
+    net.reserved_ports = []
     pj.task_groups[0].constraints = [js.Constraint(
         "${attr.kernel.version}", ">= 4.0", js.CONSTRAINT_VERSION)]
-    assert "precompute" in encode.build_spec(pj, pj.task_groups[0],
-                                             False).unsupported
+    assert not encode.build_spec(pj, pj.task_groups[0], False).needs_oracle
     pj.task_groups[0].constraints = [js.Constraint(
         "${meta.rack}", "", js.CONSTRAINT_DISTINCT_PROPERTY)]
+    sp = encode.build_spec(pj, pj.task_groups[0], False)
+    assert sp.dp_target == "${meta.rack}" and not sp.needs_oracle
+    pj.task_groups[0].constraints *= 2
     assert "distinct_property" in encode.build_spec(
-        pj, pj.task_groups[0], False).unsupported
+        pj, pj.task_groups[0], False).needs_oracle
 
 
 def coo_fixture(seed):

@@ -183,3 +183,51 @@ def test_placement_rounds_on_card_matches_cpu():
     assert torch.equal(card.unplaced.cpu(), cpu.unplaced)
     assert float((card.slot_scores.cpu() - cpu.slot_scores).abs().max()) \
         <= ATOL
+
+
+@pytest.mark.gpu
+def test_batch_with_networks_and_distinct_property_card_matches_cpu():
+    """mock.job()s with their network asks, one of them with a
+    distinct_property constraint and a version constraint, on mock.node()s
+    with racks: the card's placements and offers are the CPU's, on one
+    card and on a 4-shard mesh of it."""
+    need_card()
+    from nomad_tpu_torch import mock
+    from nomad_tpu_torch.ops import batch_sched
+    from nomad_tpu_torch.parallel import make_node_mesh
+    from nomad_tpu_torch.structs import structs as s
+
+    nodes = []
+    for i in range(300):
+        node = mock.node()
+        node.meta["rack"] = f"r{i % 40}"
+        node.compute_class()
+        nodes.append(node)
+    jobs = [mock.job() for _ in range(6)]
+    for j in jobs:
+        j.task_groups[0].count = 150
+    jobs[0].task_groups[0].constraints = [
+        s.Constraint("${meta.rack}", "", s.CONSTRAINT_DISTINCT_PROPERTY)]
+    jobs[1].constraints.append(s.Constraint(
+        "${attr.nomad.version}", ">= 0.5.0", s.CONSTRAINT_VERSION))
+    ids = [f"eval-{i}" for i in range(len(jobs))]
+
+    def run(**where):
+        return batch_sched.schedule_batch(nodes, jobs, rng_seed=17,
+                                          eval_ids=ids, **where)
+
+    def offers(res):
+        return {k: (sp.node_ids, sp.unplaced,
+                    [{t: (o.ip, o.mbits,
+                          [p.value for p in o.dynamic_ports])
+                      for t, o in nets.items()} for nets in sp.networks])
+                for k, sp in res.placements.items()}
+
+    cpu = run(device="cpu")
+    assert len(cpu.placements[(jobs[0].id, "web")].node_ids) == 40
+    for res in (run(device="cuda"),
+                run(mesh=make_node_mesh(["cuda:0"] * 4))):
+        assert offers(res) == offers(cpu)
+        for k, sp in cpu.placements.items():
+            assert float(abs(res.placements[k].scores - sp.scores).max()) \
+                <= ATOL

@@ -145,8 +145,9 @@ def test_fused_mesh_pass_matches_reference_fused_buffer(d, monkeypatch):
     dyn = jxfer.unpack_host(captured["dyn"], kw["meta_d"])
     sbuf, _, meta_s, _ = convert.device_inputs_from_buffers(static, dyn,
                                                             device="cpu")
-    static = xfer.unpack_host(sbuf.numpy(), meta_s)       # dequantized
-    shards, meta_s = xfer.pack_host_sharded(static, d)
+    static = xfer.unpack_host(sbuf.numpy(), meta_s)
+    shards, meta_s = xfer.pack_host_sharded(static, d,
+                                            replicate=("res_scale",))
     dbuf, meta_d = xfer.pack_host(dyn)
     mesh = sharded.make_node_mesh(["cpu"] * d)
     assert kw["slot_m"] > 0

@@ -188,8 +188,42 @@ def test_schedule_step_matches_reference():
 
 
 def test_networks_and_distinct_property_are_a_later_slice():
-    problem = [torch.from_numpy(np.ascontiguousarray(a))
-               for a in full_problem()]
-    with pytest.raises(NotImplementedError, match="later slice"):
-        sharded.sharded_placement_rounds(
-            sharded.make_node_mesh(["cpu"] * 2), *problem, 1, net=object())
+    """Network asks and distinct_property together on a 2-shard mesh: the
+    reference mesh's placements, unplaced counts and usage."""
+    problem = full_problem(seed=31)
+    u, n = problem[0].shape
+    rng = np.random.default_rng(31)
+    active = rng.random(u) < 0.7
+    resv = np.zeros((u, 2), np.uint32)
+    resv[::3, 1] = np.uint32(1 << 31)
+    ports = np.zeros((n, 2), np.uint32)
+    ports[::5, 1] = np.uint32(1 << 31)
+    bw_cap = rng.integers(100, 600, n).astype(np.int32)
+    bw_cap[::11] = -1
+    net = (active, np.where(active, 40, 0).astype(np.int32),
+           np.ones(u, np.int32), resv, bw_cap, np.zeros(n, np.int32),
+           rng.integers(0, 6, n).astype(np.int32), ports)
+    attr = rng.integers(0, 9, (n, 1)).astype(np.int32)
+    attr[::13] = -1
+    dp = (np.zeros(u, np.int32), rng.random(u) < 0.5,
+          np.zeros((u, 16), bool), attr)
+    want = jax_rounds(
+        jax_mesh(jax.devices()[:2]), *[jnp.asarray(a) for a in problem],
+        jax.random.PRNGKey(31), k_cand=16,
+        net=jk.NetTensors(*[jnp.asarray(a) for a in net]),
+        dp=jk.DPTensors(*[jnp.asarray(a) for a in dp]))
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(  # noqa: E731
+        a.view(np.int32) if a.dtype == np.uint32 else a))
+    got = sharded.sharded_placement_rounds(
+        sharded.make_node_mesh(["cpu"] * 2), *[t(a) for a in problem],
+        kernels.jitter_seed(31), k_cand=16,
+        net=kernels.NetTensors(*[t(a) for a in net]),
+        dp=kernels.DPTensors(*[t(a) for a in dp]))
+    np.testing.assert_array_equal(got.placements.numpy(),
+                                  np.asarray(want.placements))
+    np.testing.assert_array_equal(got.unplaced.numpy(),
+                                  np.asarray(want.unplaced))
+    np.testing.assert_array_equal(got.used_after.numpy(),
+                                  np.asarray(want.used_after))
+    assert got.rounds == int(want.rounds)
+    assert np.asarray(want.placements).sum() > 0
