@@ -53,14 +53,25 @@ Phases, each printed as one JSON line:
 12. mesh    -- config_mesh (bench.py:79-89): 1,000,000 nodes, 100 jobs x
                100,000 asks, through ``schedule_batch`` on a 4-shard mesh
                and on the single-card path: identical placements;
-13. times   -- each kernel's device time (profiler trace; CUDA events
+13. evals   -- the eval-driven entry: ``TorchBatchScheduler`` over the
+               port's state store and ``Harness``, at config (b) width:
+               100 register evals (batch 0), the two follow-ups, and a
+               reconciler batch (10 jobs scaled down to half, 10 changed
+               destructively), on the card and again on the CPU: every
+               plan and eval update identical, batch 0 identical to the
+               list entry's placements, no node over capacity, no static
+               bytes uploaded by a follow-up, one ``scored_rows`` launch
+               per committing step; then the kernel breaker drill (a
+               corrupted result rejected, the oracle carrying, a clean
+               probe closing it);
+14. times   -- each kernel's device time (profiler trace; CUDA events
                where the trace has none) over copies of its inputs that
                overflow the L2, its plain version's and the bound for the
                same work on this card; scored_rows also without base (the
                mesh's call at config_mesh); the launch floor (a one-element
                fill); the kernels' SASS instruction counts and the
                issue-rate time they give;
-14. profile -- config (b)'s first batch again, warm, on the single card
+15. profile -- config (b)'s first batch again, warm, on the single card
                and on a 4-shard mesh: untraced, and under a device-only
                trace for the device busy time and idle share.
 
@@ -984,7 +995,292 @@ def phase_mesh(dev):
     return out
 
 
-# -- phase 13: times ---------------------------------------------------------
+# -- phase 13: evaluations through the state store ----------------------------
+
+EVAL_SEED = 20261017
+
+
+class seeded_ids:
+    """While active, the port's id generators draw from
+    ``random.Random(seed)``: two runs of the same sequence of batches make
+    the same alloc and eval ids, so their plans compare whole."""
+
+    def __init__(self, seed):
+        self.rng = random.Random(seed)
+
+    def one(self):
+        h = f"{self.rng.getrandbits(128):032x}"
+        return f"{h[:8]}-{h[8:12]}-{h[12:16]}-{h[16:20]}-{h[20:]}"
+
+    def __enter__(self):
+        from nomad_tpu_torch.structs import structs
+
+        self.saved = structs.generate_uuid, structs.generate_uuids
+        structs.generate_uuid = self.one
+        structs.generate_uuids = lambda n: [self.one() for _ in range(n)]
+        return self
+
+    def __exit__(self, *exc):
+        from nomad_tpu_torch.structs import structs
+
+        structs.generate_uuid, structs.generate_uuids = self.saved
+
+
+def reg_evals(jobs, ids, trigger="job-register"):
+    from nomad_tpu_torch.structs import structs as ps
+
+    return [ps.Evaluation(id=ids.one(), priority=j.priority, type=j.type,
+                          triggered_by=trigger, job_id=j.id,
+                          status=ps.EVAL_STATUS_PENDING) for j in jobs]
+
+
+def store_over_capacity(h) -> int:
+    """Nodes over capacity on any dimension, from the state store's live
+    allocs (reserved + each alloc's usage, combined or per task)."""
+    import numpy as np
+
+    from nomad_tpu_torch.ops.encode import alloc_usage
+
+    over = 0
+    for node in h.state.nodes(None):
+        use = np.array(node.reserved.as_tuple() if node.reserved
+                       else (0,) * 4, dtype=np.int64)
+        for a in h.state.allocs_by_node_terminal(None, node.id, False):
+            use = use + alloc_usage(a)
+        over += bool((use > np.array(node.resources.as_tuple())).any())
+    return over
+
+
+def plan_rows(p):
+    return (
+        p.eval_id,
+        {n: [(a.id, a.name, a.desired_status, a.desired_description,
+              a.client_status) for a in v] for n, v in p.node_update.items()},
+        {n: [(a.id, a.name, a.previous_allocation) for a in v]
+         for n, v in p.node_allocation.items()},
+        [(sl.proto.task_group, list(sl.ids), list(sl.names),
+          list(sl.node_ids), list(sl.prev_ids)) for sl in p.alloc_slabs])
+
+
+def metric_row(m):
+    return (m.nodes_evaluated, m.nodes_filtered, m.nodes_available,
+            m.class_filtered, m.constraint_filtered, m.nodes_exhausted,
+            m.class_exhausted, m.dimension_exhausted, m.coalesced_failures)
+
+
+def eval_rows(h):
+    return [(e.id, e.status, e.next_eval, e.blocked_eval,
+             e.queued_allocations,
+             {k: metric_row(m) for k, m in e.failed_tg_allocs.items()})
+            for e in h.evals]
+
+
+def eval_world(dev, nodes, batches, smi, counted):
+    """Batch 0, the two follow-ups and the reconciler batch through a
+    fresh Harness and ``TorchBatchScheduler`` on ``dev``; ids seeded."""
+    from nomad_tpu_torch.ops.batch_sched import TorchBatchScheduler
+    from nomad_tpu_torch.ops.breaker import KernelCircuitBreaker
+    from nomad_tpu_torch.scheduler.testing import Harness
+
+    out = {"stats": [], "plans": []}
+    with seeded_ids(EVAL_SEED) as ids:
+        h = Harness()
+        for n in nodes:
+            h.state.upsert_node(h.next_index(), n)
+        brk = KernelCircuitBreaker()
+        for b, (name, jobs, make) in enumerate(batches):
+            for j in jobs:
+                h.state.upsert_job(h.next_index(), j)
+            evals = make(h, ids)
+            n_plans = len(h.plans)
+
+            def run():
+                return TorchBatchScheduler(
+                    h.logger, h.snapshot(), h, device=dev,
+                    rng_seed=SEED + b, breaker=brk).schedule_batch(evals)
+
+            if counted:
+                st, counts = run_counted(run)
+            else:
+                st, counts = run(), {}
+            row = {"batch": name, "device": str(dev), "evals": len(evals),
+                   "asks": st.num_asks, "rounds": st.rounds,
+                   "oracle_routed": st.oracle_routed,
+                   "h2d_bytes": st.h2d_bytes,
+                   "static_h2d_bytes": st.static_h2d_bytes,
+                   "fetch_bytes": st.fetch_bytes,
+                   **{k: getattr(st, k) for k in (
+                       "phase1_seconds", "phase2_seconds", "encode_seconds",
+                       "device_seconds", "metrics_seconds",
+                       "finalize_seconds", "total_seconds")},
+                   **counts, "card": smi}
+            out["stats"].append((st, row))
+            out["plans"].append([plan_rows(p) for p in h.plans[n_plans:]])
+            out.setdefault("evals", []).append(evals)
+        out["harness"] = h
+    return out
+
+
+def phase_evals(dev, n_nodes=10_000, n_jobs=100, count=1000):
+    """The eval-driven entry at config (b) width, on the card and on the
+    CPU, with a list-entry and a breaker check."""
+    from nomad_tpu_torch import fault, mock
+    from nomad_tpu_torch.ops import batch_sched, fused_score
+    from nomad_tpu_torch.ops.batch_sched import TorchBatchScheduler
+    from nomad_tpu_torch.ops.breaker import KernelCircuitBreaker
+    from nomad_tpu_torch.scheduler.testing import Harness
+    from nomad_tpu_torch.structs import structs as ps
+
+    smi = smi_name_power()
+    nodes = [strip_node(mock.node()) for _ in range(n_nodes)]
+    jobs0 = [strip_job(mock.job(), count) for _ in range(n_jobs)]
+    follow = [[strip_job(mock.job(), count // 5, cpu=100, mem=128)
+               for _ in range(10)] for _ in range(2)]
+    # The reconciler batch: jobs 0-9 (placed whole in batch 0: specs go in
+    # priority order, all 50, stable) scale down to 500, jobs 10-19 change
+    # their CPU ask 500 -> 400 (destructive).  New versions made here,
+    # once, for both runs.
+    scaled = [j.copy() for j in jobs0[:10]]
+    for j in scaled:
+        j.task_groups[0].count = count // 2
+    changed = [j.copy() for j in jobs0[10:20]]
+    for j in changed:
+        j.task_groups[0].tasks[0].resources.cpu = 400
+    batches = [("batch0", jobs0, lambda h, ids: reg_evals(jobs0, ids))]
+    for i, jobs in enumerate(follow):
+        batches.append((f"follow_up{i + 1}", jobs,
+                        lambda h, ids, jobs=jobs: reg_evals(jobs, ids)))
+    batches.append(("reconcile", scaled + changed,
+                    lambda h, ids: reg_evals(scaled + changed, ids)))
+
+    card = eval_world(dev, nodes, batches, smi, counted=True)
+    cpu = eval_world("cpu", nodes, batches, smi, counted=False)
+    rows = []
+    for (st, row), (cst, crow) in zip(card["stats"], cpu["stats"]):
+        emit({"phase": "evals", **row})
+        emit({"phase": "evals", **crow})
+        rows.append(row)
+    h = card["harness"]
+
+    # Batch 0 against the list entry on the same nodes, jobs, seed and
+    # eval ids.
+    ev0 = card["evals"][0]
+    res = batch_sched.schedule_batch(nodes, jobs0, rng_seed=SEED,
+                                     device=dev,
+                                     eval_ids=[e.id for e in ev0])
+    st0 = card["stats"][0][0]
+    job_of = {e.id: e.job_id for e in ev0}
+    b0 = {(job_of[p[0]], sl[0]): sorted(sl[3])
+          for p in card["plans"][0] for sl in p[3]}
+    want = {k: sorted(v.node_ids) for k, v in res.placements.items()
+            if v.node_ids}
+    if b0 != want or st0.rounds != res.rounds:
+        raise AssertionError("batch 0 through the state store differs from "
+                             "the list entry's placements")
+    updates0 = [e for e in h.evals if e.id in {x.id for x in ev0}]
+    complete = sum(e.status == ps.EVAL_STATUS_COMPLETE for e in updates0)
+    blocked = sum(bool(e.blocked_eval) for e in updates0)
+    placed0 = sum(len(v) for v in b0.values())
+    failed0 = [m for e in updates0 for m in e.failed_tg_allocs.values()]
+    # Card and CPU: every plan, every eval update, the failed groups'
+    # AllocMetrics included, identical batch by batch.
+    for b in range(len(batches)):
+        if card["plans"][b] != cpu["plans"][b]:
+            raise AssertionError(f"{batches[b][0]}: the card's plans differ "
+                                 "from the CPU run's")
+    if eval_rows(h) != eval_rows(cpu["harness"]):
+        raise AssertionError("eval updates differ between card and CPU")
+    over = store_over_capacity(h)
+    if over:
+        raise AssertionError(f"{over} nodes over capacity")
+    follow_static = [card["stats"][b][0].static_h2d_bytes for b in (1, 2)]
+    follow_dyn_only = all(
+        card["stats"][b][0].h2d_bytes > 0 and s_b == 0
+        for b, s_b in zip((1, 2), follow_static))
+    if not follow_dyn_only:
+        raise AssertionError(f"follow-ups uploaded static bytes: "
+                             f"{follow_static}")
+    for st, row in card["stats"]:
+        if st.oracle_routed or not st.device_ran:
+            raise AssertionError(f"{row['batch']}: oracle_routed "
+                                 f"{st.oracle_routed}, device_ran "
+                                 f"{st.device_ran}")
+        if (row["scored_rows_launches"] <= 0 or row["scored_rows_launches"]
+                != row["committing_spec_steps"]):
+            raise AssertionError(f"{row['batch']}: {row}")
+    rec = card["plans"][3]
+    stops = sum(len(v) for p in rec for v in p[1].values())
+    rec_placed = sum(len(sl[1]) for p in rec for sl in p[3])
+    with_prev = sum(1 for p in rec for sl in p[3] for x in sl[4] if x)
+    inplace = sum(len(v) for p in rec for v in p[2].values())
+
+    # The breaker drill (tests/test_fused.py:396) on the card: 8 nodes,
+    # 2 jobs x 2.
+    clock = [0.0]
+    brk = KernelCircuitBreaker(threshold=0.9, window=8, min_checks=1,
+                               cooldown=5.0, clock=lambda: clock[0])
+    hb = Harness()
+    for _ in range(8):
+        hb.state.upsert_node(hb.next_index(), strip_node(mock.node()))
+    ids = seeded_ids(EVAL_SEED + 1)
+
+    def drill():
+        jobs = [strip_job(mock.job(), 2) for _ in range(2)]
+        for j in jobs:
+            hb.state.upsert_job(hb.next_index(), j)
+        st = TorchBatchScheduler(hb.logger, hb.snapshot(), hb, device=dev,
+                                 breaker=brk).schedule_batch(
+            reg_evals(jobs, ids))
+        placed = all(len([a for a in hb.state.allocs_by_job(None, j.id, True)
+                          if not a.terminal_status()]) == 2 for j in jobs)
+        return st, placed
+
+    with fault.scenario({"seed": 5, "faults": [
+            {"point": "ops.kernel_result", "action": "corrupt",
+             "times": 1}]}):
+        d1, p1 = drill()
+        fired = fault.trace()
+    state1 = brk.state
+    d2, p2 = drill()
+    clock[0] += 6.0
+    d3, p3 = drill()
+    drill_row = {"fired": fired, "reject": [d1.kernel_rejects,
+                                            d1.oracle_routed, p1, state1],
+                 "open": [d2.oracle_routed, d2.device_ran, p2],
+                 "probe": [d3.oracle_routed, d3.device_ran, p3, brk.state]}
+    if not (fired == [("ops.kernel_result", 0, "corrupt")]
+            and d1.kernel_rejects == 1 and p1 and state1 == "open"
+            and d2.oracle_routed == 2 and not d2.device_ran and p2
+            and d3.oracle_routed == 0 and d3.device_ran and p3
+            and brk.state == "closed"):
+        raise AssertionError(f"breaker drill: {drill_row}")
+    batch_sched._CLUSTER_CACHE.clear()
+    batch_sched._DEVICE_STATIC_CACHE.clear()
+    return {"batch0": {"placed": placed0, "evals_complete": complete,
+                       "evals_with_blocked_eval": blocked,
+                       "failed_groups": len(failed0),
+                       "failed_metric_first": {
+                           k: getattr(failed0[0], k) for k in (
+                               "nodes_evaluated", "nodes_filtered",
+                               "nodes_exhausted", "dimension_exhausted",
+                               "class_exhausted", "coalesced_failures")}
+                       if failed0 else None,
+                       "same_as_list_entry": True,
+                       "list_entry_rounds": res.rounds},
+            "card_equals_cpu": True, "nodes_over_capacity": over,
+            "follow_up_static_h2d_bytes": follow_static,
+            "follow_up_h2d_bytes": [card["stats"][b][0].h2d_bytes
+                                    for b in (1, 2)],
+            "reconcile": {"stops": stops, "placed": rec_placed,
+                          "placed_with_previous_allocation": with_prev,
+                          "in_place_updates": inplace},
+            "breaker_drill": drill_row,
+            "eval_path_launches": sum(r["scored_rows_launches"]
+                                      for r in rows),
+            "card": smi}
+
+
+# -- phase 14: times ---------------------------------------------------------
 
 def score_bytes(u: int, n: int, with_base: bool = True) -> int:
     """Bytes the function must move: feas (1) + collisions (4) in and
@@ -1477,8 +1773,13 @@ def main() -> int:
     emit({"phase": "candidates", **cand})
     emit({"phase": "mesh", **run_phase("mesh", phase_mesh, dev)})
     _MESH_FLEET.clear()
+    evals = run_phase("evals", phase_evals, dev)
+    emit({"phase": "evals", **evals})
     table = run_phase("times", phase_times, dev, launches, max_err,
                       masked_launches, max(masked_err, cand_err))
+    # scored_rows' launches on the eval-driven path (phase evals, each
+    # batch driven with the counts set to 0 just before it).
+    table[0]["eval_path_launches"] = evals["eval_path_launches"]
     emit({"phase": "profile", **run_phase("profile", phase_profile, dev)})
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     emit({"kernels": table})

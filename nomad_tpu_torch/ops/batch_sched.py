@@ -1,21 +1,35 @@
-"""The port's batch scheduler: one device pass places every task group of
-a batch of jobs (``TPUBatchScheduler.schedule_batch``,
-``nomad_tpu/ops/batch_sched.py:356``, from spec dedup to finalized
-placements).
+"""The port's batch scheduler: evaluations in, plans out
+(``TPUBatchScheduler``, ``nomad_tpu/ops/batch_sched.py:304``).
 
-The cluster snapshot comes in as plain lists -- the state store, worker
-and plan applier are later slices.  ``jobs`` are evaluated as
-registrations: each task group asks for ``count`` allocations minus the
-live allocations the job already has in that group.  Network asks get
-concrete offers (IP, bandwidth, port numbers) at finalize, as the
-reference's ``_finalize`` makes them.  A spec the reference sends to its
-CPU oracle (``needs_oracle``, or network asks on a cluster whose
-networks are not the simple shape) raises ``NotImplementedError`` with
-the reference's reason: the port has no oracle, and such a spec is never
-placed another way.
+Two entries share one device half (encode, upload, ``kernels.fused_pass``
+or the mesh's ``sharded_fused_pass``, the one result fetch):
+
+- :class:`TorchBatchScheduler` (registered as ``torch-batch``) takes
+  evaluations.  It reads the cluster from a state store snapshot,
+  reconciles each eval against its job's allocations through the CPU
+  oracle's own code (:class:`_CollectingScheduler` over
+  ``scheduler.generic.GenericScheduler``: stops, destructive and in-place
+  updates, lost allocations, rolling limits), places every ask of the
+  batch in one device pass, and submits one plan per eval to its planner
+  (alloc slabs, AllocMetric failure forensics, blocked and rolling
+  follow-up evals, queued counts).  Evals whose specs the device pass
+  cannot express, every eval while the kernel breaker is open, the evals
+  of a batch whose device result was rejected, and a plan that conflicted
+  go through the CPU oracle instead, as in the reference; each such route
+  is counted in ``BatchStats.oracle_routed`` and logged with its reason.
+  A raw device error (a failed build, launch or fetch) is no such route:
+  it propagates and is not recorded by the breaker.  Not ported
+  yet, and refused with ``NotImplementedError``: device preemption
+  (``preemption_enabled=True``) and ``annotate_plan`` evals (the
+  ``job plan`` dry run).
+- :func:`schedule_batch` takes plain lists of nodes and jobs and treats
+  every job as a registration.  It has no state store and no planner, so
+  a spec the reference sends to its oracle raises ``NotImplementedError``
+  there.
 """
 from __future__ import annotations
 
+import hashlib
 import ipaddress
 import logging
 import math
@@ -23,16 +37,26 @@ import os
 import random
 import time
 from dataclasses import dataclass, field
-from typing import Dict, Iterable, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from .. import fault
 from ..device import resolve_device
-from ..scheduler.propertyset import dp_used_values
+from ..scheduler.context import EvalContext
+from ..scheduler.generic import GenericScheduler
+from ..scheduler.propertyset import PropertySet, dp_used_values
+from ..scheduler.scheduler import register_scheduler
+from ..scheduler.stack import GenericStack
+from ..scheduler.util import (AllocTuple, adjust_queued_allocations,
+                              ready_nodes_in_dcs, set_status)
 from ..structs import structs as s
 from ..structs.network import NetworkIndex
+from ..utils.lru import LRU
+from . import breaker as breaker_mod
 from . import decode, encode, kernels, xfer
+from .breaker import HALF_OPEN, KernelIntegrityError  # noqa: F401
 
 logger = logging.getLogger("nomad_tpu_torch.ops.batch_sched")
 
@@ -41,10 +65,15 @@ logger = logging.getLogger("nomad_tpu_torch.ops.batch_sched")
 # the single-chip path, as the reference does (batch_sched.py:63).
 MESH_SLOT_BUDGET_BYTES = 512 << 20
 
+# Finalized static cluster tensors, keyed by (store lineage, nodes table
+# index, constraint vocabulary, networks, pad): a fleet that did not
+# change is not encoded again (batch_sched.py:73, :950-970).
+_CLUSTER_CACHE = LRU(4)
 
-class KernelIntegrityError(RuntimeError):
-    """The device result broke a structural invariant; nothing of it was
-    used."""
+# Device copies of the packed static buffer, keyed by its content digest:
+# an unchanged cluster is not uploaded again (batch_sched.py:80,
+# :1187-1195).
+_DEVICE_STATIC_CACHE = LRU(4)
 
 
 @dataclass
@@ -151,15 +180,35 @@ def validate_device_outputs(spec_list, ct, unplaced_arr, coo_rows,
     return None
 
 
+def _corrupt_outputs(rng, spec_list, unplaced_arr, coo_counts):
+    """The ``ops.kernel_result`` corrupt action (batch_sched.py:170):
+    seeded damage to the device outputs that validation must catch.
+    Returns writable, corrupted copies."""
+    unplaced_arr = np.array(unplaced_arr)
+    coo_counts = np.array(coo_counts)
+    u = rng.randrange(len(spec_list))
+    mode = rng.randrange(3)
+    if mode == 0:
+        unplaced_arr[u] = -3
+    elif mode == 1:
+        unplaced_arr[u] = spec_list[u].count + 5
+    elif len(coo_counts):
+        i = rng.randrange(len(coo_counts))
+        coo_counts[i] = coo_counts[i] + spec_list[u].count + 1
+    else:
+        unplaced_arr[u] = -1
+    return unplaced_arr, coo_counts
+
+
 def _prepare_specs(jobs: Sequence[s.Job],
                    live: Dict[Tuple[str, str], int],
                    live_allocs: Sequence[s.Allocation] = (),
                    nodes_by_id: Optional[Dict[str, s.Node]] = None
                    ) -> List[encode.PlacementSpec]:
-    """Dedup placement asks into specs and sort them by priority, stable
+    """The list entry's spec dedup, sorted by priority, stable
     (batch_sched.py:587-618).  A distinct_property spec gets the values
-    its job's live allocs already use (module ``scheduler.propertyset``).
-    A spec the reference would route to its oracle raises
+    its job's live allocs already use (``scheduler.propertyset``).  A
+    spec the reference would route to its oracle raises
     ``NotImplementedError`` with the reference's reason."""
     specs: Dict[Tuple[str, str], encode.PlacementSpec] = {}
     for job in jobs:
@@ -176,7 +225,8 @@ def _prepare_specs(jobs: Sequence[s.Job],
                     raise NotImplementedError(
                         f"job {job.id} group {tg.name}: "
                         f"{spec.needs_oracle}; the reference places this "
-                        "with its CPU oracle, which the port does not have")
+                        "with its CPU oracle, which needs a state store: "
+                        "schedule it through TorchBatchScheduler")
                 if spec.dp_target is not None:
                     con = next(c for c in spec.constraints if c.operand
                                == s.CONSTRAINT_DISTINCT_PROPERTY)
@@ -206,69 +256,104 @@ def cluster_networks_simple(nodes: Iterable[s.Node]) -> bool:
     return True
 
 
-def schedule_batch(nodes: Sequence[s.Node], jobs: Sequence[s.Job],
-                   live_allocs: Iterable[s.Allocation] = (),
-                   rng_seed: Optional[int] = None,
-                   device=None, mesh=None,
-                   eval_ids: Optional[Sequence[str]] = None) -> BatchResult:
-    """Place every task group of ``jobs`` on ``nodes`` in one device pass.
+# -- the device half, shared by both entries ----------------------------------
 
-    ``nodes`` is the cluster in the order the node index follows (the
-    index enters the tie-break jitter and the tie order).
-    ``live_allocs`` are the allocations already running: their usage,
-    ports and bandwidth are layered onto the nodes, they count as
-    same-job collisions, and they hold their distinct_property values.
-    ``rng_seed`` pins the tie-break seed (the reference's
-    ``NOMAD_TPU_RNG_SEED``); None draws one.  ``device`` defaults to
-    ``cuda`` and raises without it.
+class _DeviceTimer:
+    """Device time from upload to fetched result: CUDA events on a card,
+    the host clock on the CPU."""
 
-    ``eval_ids`` gives each job its evaluation id, in the order of
-    ``jobs``: the port numbers of a task group's offers come from
-    ``random.Random(<its evaluation id>)``, as in the reference's
-    finalize (batch_sched.py:2236), so the same ids give the same offers
-    from run to run.  None draws a fresh id per job.
+    def __init__(self, dev: torch.device):
+        self.cuda = dev.type == "cuda"
+        if self.cuda:
+            self.start = torch.cuda.Event(enable_timing=True)
+            self.start.record()
+        else:
+            self.t0 = time.perf_counter()
 
-    ``mesh`` (a :class:`nomad_tpu_torch.parallel.NodeMesh`, instead of
-    ``device``) places the batch node-sharded over the mesh's devices,
-    the counterpart of ``TPUBatchScheduler(mesh=...)``
-    (batch_sched.py:1464-1580): same placements and scores as the
-    single-chip path, and ``mesh_shards`` in the result."""
-    if mesh is not None and device is not None:
-        raise ValueError("pass a device or a mesh, not both")
-    dev = mesh.root if mesh is not None else resolve_device(device)
-    t0 = time.perf_counter()
-    live = [a for a in live_allocs if not a.terminal_status()]
-    live_by_spec: Dict[Tuple[str, str], int] = {}
-    allocs_by_node: Dict[str, List[s.Allocation]] = {}
-    for a in live:
-        key = (a.job_id, a.task_group)
-        live_by_spec[key] = live_by_spec.get(key, 0) + 1
-        allocs_by_node.setdefault(a.node_id, []).append(a)
-    if eval_ids is None:
-        eval_ids = [s.generate_uuid() for _ in jobs]
-    if len(eval_ids) != len(jobs):
-        raise ValueError(f"{len(eval_ids)} evaluation ids for "
-                         f"{len(jobs)} jobs")
-    nodes_by_id = {n.id: n for n in nodes}
-    spec_list = _prepare_specs(jobs, live_by_spec, live, nodes_by_id)
-    if not spec_list:
-        return BatchResult({}, 0, str(dev))
-    with_networks = any(sp.net_active for sp in spec_list)
-    if with_networks and not cluster_networks_simple(nodes):
-        raise NotImplementedError(
-            "multi-device/multi-IP node networks; the reference places "
-            "network asks on such a cluster with its CPU oracle, which the "
-            "port does not have")
+    def seconds(self) -> float:
+        if not self.cuda:
+            return time.perf_counter() - self.t0
+        end = torch.cuda.Event(enable_timing=True)
+        end.record()
+        end.synchronize()
+        return self.start.elapsed_time(end) / 1000.0
 
-    attr_targets, literals = encode.collect_attr_targets(spec_list)
-    # The node axis pads to lcm(128, D), so the shards divide it evenly;
-    # padding rows are ineligible (batch_sched.py:1451-1462).
-    d = mesh.size if mesh is not None else 0
+
+@dataclass
+class _DeviceBatch:
+    """One batch's device inputs and, once dispatched, its pass."""
+
+    spec_list: List[encode.PlacementSpec]
+    nodes: List[s.Node]
+    base: encode.ClusterTensors       # static tensors (reserved-only usage)
+    ct: encode.ClusterTensors         # base with the live usage layered on
+    st: encode.SpecTensors
+    static: Dict[str, np.ndarray]
+    dyn: Dict[str, np.ndarray]
+    with_networks: bool
+    with_scores: bool
+    slot_m: int
+    max_nnz: int
+    shards: int                       # mesh shards placing it; 0: one device
+    k_cand: int = 0
+    # Set by _dispatch:
+    out: Optional[kernels.FusedOutput] = None
+    timer: Optional[_DeviceTimer] = None
+    t_dispatch: float = 0.0           # host clock when packing ended
+    device_seconds: float = 0.0       # upload to fetched result (_fetch)
+    encode_seconds: float = 0.0
+    h2d_bytes: int = 0
+    static_h2d_bytes: int = 0
+
+
+def _node_pad_multiple(mesh) -> int:
+    """128, raised to lcm(128, D) on a mesh so the shards divide the node
+    axis evenly; padding rows are ineligible (batch_sched.py:1451)."""
+    if mesh is None:
+        return 128
+    d = mesh.size
+    return 128 * d // math.gcd(128, d)
+
+
+def _cluster_static(nodes: Sequence[s.Node], attr_targets, literals,
+                    with_networks: bool, pad_m: int) -> encode.ClusterTensors:
     base = encode.encode_cluster_static(
-        nodes, attr_targets,
-        node_pad_multiple=128 * d // math.gcd(128, d) if d else 128,
+        nodes, attr_targets, node_pad_multiple=pad_m,
         with_networks=with_networks)
     encode.finalize_codebooks(base, literals)
+    return base
+
+
+def _quantized_rows(base: encode.ClusterTensors):
+    """Capacity and the reserved-only baseline quantized when that is
+    exact (checked by the host inverse), else None; memoized on the
+    static tensors."""
+    quant = getattr(base, "_quant_rows", False)
+    if quant is False:
+        quant = encode.quantize_resource_rows(base.capacity, base.used)
+        if quant is not None and not (
+                np.array_equal(encode.dequantize_rows(quant.cap_q,
+                                                      quant.scale[0]),
+                               base.capacity)
+                and np.array_equal(encode.dequantize_rows(quant.used_q,
+                                                          quant.scale[1]),
+                                   base.used)):
+            quant = None
+        base._quant_rows = quant
+    return quant
+
+
+def _encode_batch(spec_list: List[encode.PlacementSpec],
+                  nodes: List[s.Node], base: encode.ClusterTensors,
+                  allocs_by_node: Dict[str, List[s.Allocation]],
+                  job_nodes: Callable[[str], Iterable[str]], rng_seed: int,
+                  mesh=None) -> _DeviceBatch:
+    """The static and dynamic upload dicts of a batch
+    (batch_sched.py:1015-1134): the live usage of ``allocs_by_node``
+    layered on ``base`` and shipped as sparse deltas over its
+    reserved-only baseline, the specs, the per-(job, node) alloc counts of
+    the jobs' live allocs (``job_nodes(job_id)`` yields their node ids),
+    and the tie-break seed."""
     ct = (encode.apply_alloc_usage(base, allocs_by_node)
           if allocs_by_node else base)
     touched = sorted(i for i in (base.node_index.get(nid)
@@ -277,12 +362,11 @@ def schedule_batch(nodes: Sequence[s.Node], jobs: Sequence[s.Job],
 
     # Existing per-(job, node) alloc counts, uploaded sparse.
     jc_entries: Dict[Tuple[int, int], int] = {}
-    job_row = {jid: j for j, jid in enumerate(st.job_ids)}
-    for a in live:
-        j = job_row.get(a.job_id)
-        idx = base.node_index.get(a.node_id)
-        if j is not None and idx is not None:
-            jc_entries[(j, idx)] = jc_entries.get((j, idx), 0) + 1
+    for j, job_id in enumerate(st.job_ids):
+        for nid in job_nodes(job_id):
+            idx = base.node_index.get(nid)
+            if idx is not None:
+                jc_entries[(j, idx)] = jc_entries.get((j, idx), 0) + 1
     k_jc = encode.pow2_bucket(max(1, len(jc_entries)), minimum=8)
     jc_rows = np.full(k_jc, -1, dtype=np.int32)
     jc_cols = np.zeros(k_jc, dtype=np.int32)
@@ -300,22 +384,15 @@ def schedule_batch(nodes: Sequence[s.Node], jobs: Sequence[s.Job],
         u_rows[:len(touched)] = tr
         u_vals[:len(touched)] = ct.used[tr] - base.used[tr]
 
-    if rng_seed is None:
-        rng_seed = int.from_bytes(os.urandom(4), "big")
+    with_networks = any(sp.net_active for sp in spec_list)
     static = {
         "attr": ct.attr_values, "elig": ct.eligible, "dc": ct.dc_code,
         "denom": ct.score_denom,
     }
     # Capacity and the reserved-only baseline ship quantized when that is
-    # exact (checked by the host inverse), as int32 otherwise.
-    quant = encode.quantize_resource_rows(ct.capacity, base.used)
-    if quant is not None and (
-            np.array_equal(encode.dequantize_rows(quant.cap_q,
-                                                  quant.scale[0]),
-                           ct.capacity)
-            and np.array_equal(encode.dequantize_rows(quant.used_q,
-                                                      quant.scale[1]),
-                               base.used)):
+    # exact, as int32 otherwise.
+    quant = _quantized_rows(base)
+    if quant is not None:
         static.update(cap_q=quant.cap_q, used_base_q=quant.used_q,
                       res_scale=quant.scale)
     else:
@@ -355,6 +432,7 @@ def schedule_batch(nodes: Sequence[s.Node], jobs: Sequence[s.Job],
                    dp_used=st.dp_used)
     total_asks = int(sum(sp.count for sp in spec_list))
     max_count = max(sp.count for sp in spec_list)
+    d = mesh.size if mesh is not None else 0
     plan = None
     if d:
         plan = encode.shape_plan(
@@ -363,139 +441,99 @@ def schedule_batch(nodes: Sequence[s.Node], jobs: Sequence[s.Job],
         if not plan[1]:
             # The slot record exceeds its budget: the single-chip path
             # (batch_sched.py:1512-1518), on the mesh's first device.
+            logger.warning("mesh slot record for %d specs x %d max count "
+                           "exceeds its budget; the batch takes the "
+                           "single-chip path", st.u_pad, max_count)
             plan, d = None, 0
     if plan is None:
         plan = encode.shape_plan(st.u_pad, ct.n_pad, ct.n_real, max_count,
                                  total_asks)
     with_scores, slot_m, max_nnz = plan
+    # k_cand >= the largest count (or the whole shard) keeps each round's
+    # global top-k inside the gathered candidates, so the mesh commits
+    # exactly what the single-chip loop commits (sharded.py:411-418).
+    k_cand = (min(ct.n_pad // d, encode.pow2_bucket(max(64, max_count)))
+              if d else 0)
+    return _DeviceBatch(
+        spec_list=spec_list, nodes=nodes, base=base, ct=ct, st=st,
+        static=static, dyn=dyn, with_networks=with_networks,
+        with_scores=with_scores, slot_m=slot_m, max_nnz=max_nnz, shards=d,
+        k_cand=k_cand)
+
+
+def _upload_static(sbuf: np.ndarray, meta_s, devices: Sequence,
+                   sharded: bool, cache: Optional[LRU]):
+    """The packed static buffer on its device(s) -- one row per shard when
+    ``sharded`` -- and the bytes uploaded.  With ``cache``, a buffer
+    whose content and layout were uploaded before to the same devices is
+    reused and nothing is uploaded."""
+    key = None
+    if cache is not None:
+        key = (hashlib.blake2b(sbuf, digest_size=16).hexdigest(), meta_s,
+               tuple(str(dv) for dv in devices))
+        hit = cache.get(key)
+        if hit is not None:
+            return hit, 0
+    if sharded:
+        dev_buf = [torch.from_numpy(sbuf[i]).to(dv)
+                   for i, dv in enumerate(devices)]
+    else:
+        dev_buf = torch.from_numpy(sbuf).to(devices[0])
+    if cache is not None:
+        cache.put(key, dev_buf)
+    return dev_buf, sbuf.nbytes
+
+
+def _dispatch(b: _DeviceBatch, dev: torch.device, mesh=None,
+              static_cache: Optional[LRU] = None) -> None:
+    """Pack, upload and run the device pass of ``b`` (its result stays on
+    the device until :func:`_fetch`)."""
+    d = b.shards
     if d:
         # Per-shard static packs: node rows cut to their owning shard.
-        sbuf, meta_s = xfer.pack_host_sharded(static, d,
+        sbuf, meta_s = xfer.pack_host_sharded(b.static, d,
                                               replicate=("res_scale",))
     else:
-        sbuf, meta_s = xfer.pack_host(static)
-    dbuf, meta_d = xfer.pack_host(dyn)
-    t1 = time.perf_counter()
-
-    timer = _DeviceTimer(dev)
+        sbuf, meta_s = xfer.pack_host(b.static)
+    dbuf, meta_d = xfer.pack_host(b.dyn)
+    b.t_dispatch = time.perf_counter()
+    b.timer = _DeviceTimer(dev)
     dyn_dev = torch.from_numpy(dbuf).to(dev)
+    static_dev, b.static_h2d_bytes = _upload_static(
+        sbuf, meta_s, mesh.devices if d else [dev], bool(d), static_cache)
+    b.h2d_bytes = dbuf.nbytes + b.static_h2d_bytes
+    st, ct = b.st, b.ct
     if d:
         from ..parallel import sharded
 
-        # One upload per shard; the replicated dyn buffer goes to the
-        # other devices inside the pass.  k_cand >= the largest count (or
-        # the whole shard) keeps each round's global top-k inside the
-        # gathered candidates, so the mesh commits exactly what the
-        # single-chip loop commits (sharded.py:411-418).
-        out = sharded.sharded_fused_pass(
-            mesh, [torch.from_numpy(sbuf[i]).to(dv)
-                   for i, dv in enumerate(mesh.devices)], dyn_dev,
-            meta_s=meta_s, meta_d=meta_d, u_pad=st.u_pad, n_pad=ct.n_pad,
-            with_scores=with_scores, max_nnz=max_nnz, slot_m=slot_m,
-            k_cand=min(ct.n_pad // d,
-                       encode.pow2_bucket(max(64, max_count))))
+        # The replicated dyn buffer goes to the other devices inside the
+        # pass.
+        b.out = sharded.sharded_fused_pass(
+            mesh, static_dev, dyn_dev, meta_s=meta_s, meta_d=meta_d,
+            u_pad=st.u_pad, n_pad=ct.n_pad, with_scores=b.with_scores,
+            max_nnz=b.max_nnz, slot_m=b.slot_m, k_cand=b.k_cand)
     else:
-        out = kernels.fused_pass(
-            torch.from_numpy(sbuf).to(dev), dyn_dev, meta_s=meta_s,
-            meta_d=meta_d, u_pad=st.u_pad, n_pad=ct.n_pad,
-            with_scores=with_scores, max_nnz=max_nnz, slot_m=slot_m)
-    raw = out.buf.cpu().numpy()          # the one result fetch
-    summary = xfer.unpack_host(raw, out.meta)
+        b.out = kernels.fused_pass(
+            static_dev, dyn_dev, meta_s=meta_s, meta_d=meta_d,
+            u_pad=st.u_pad, n_pad=ct.n_pad, with_scores=b.with_scores,
+            max_nnz=b.max_nnz, slot_m=b.slot_m)
+
+
+def _fetch(b: _DeviceBatch):
+    """The one result fetch (and, past the payload window, one prefix
+    fetch of the overflow source): ``(summary, coo int64 [nnz, C],
+    fetched bytes)``.  Sets ``b.device_seconds``."""
+    raw = b.out.buf.cpu().numpy()
+    fetch_bytes = raw.nbytes
+    summary = xfer.unpack_host(raw, b.out.meta)
     nnz = int(summary["scalars"][0])
     coo = summary["coo"]
     if nnz > coo.shape[0]:
-        coo = _overflow_coo(out, nnz, max_nnz, with_scores,
+        coo = _overflow_coo(b.out, nnz, b.max_nnz, b.with_scores,
                             coo.dtype == np.uint16)
-    coo = np.asarray(coo[:nnz], dtype=np.int64)
-    device_s = timer.seconds()
-    t2 = time.perf_counter()
-
-    placements = _finalize(spec_list, ct, summary["unplaced"], coo,
-                           with_scores)
-    if with_networks:
-        _offer_networks(jobs, eval_ids, spec_list, placements, nodes_by_id,
-                        allocs_by_node)
-    t3 = time.perf_counter()
-    return BatchResult(
-        placements=placements, rounds=int(summary["scalars"][1]),
-        device=str(dev),
-        timings={"encode": t1 - t0, "device": device_s,
-                 "decode": t3 - t2}, mesh_shards=d)
-
-
-def _offer_networks(jobs, eval_ids, spec_list, placements, nodes_by_id,
-                    allocs_by_node) -> None:
-    """Concrete network offers for every placed alloc of a spec with
-    network asks (``_finalize``, batch_sched.py:2226-2270): the device
-    counted ports and bandwidth; here each task gets its IP and port
-    numbers.  One ``NetworkIndex`` per node serves the whole batch,
-    seeded from the node and its live allocs, and takes each offer as it
-    is made.  The jobs go in their given order, their groups in job
-    order, each group's allocs in placement order, and a group's port
-    picks draw from ``random.Random(<the job's evaluation id>)``, made
-    anew for each group -- the reference's order, so its offers repeat
-    bit for bit.  An alloc whose offer fails stays unplaced, with a
-    warning, as there."""
-    specs = {(sp.job.id, sp.tg.name): sp for sp in spec_list}
-    cache: Dict[str, NetworkIndex] = {}
-    for job, ev_id in zip(jobs, eval_ids):
-        for tg in job.task_groups:
-            key = (job.id, tg.name)
-            spec, res = specs.get(key), placements.get(key)
-            if spec is None or res is None or not spec.net_asks:
-                continue
-            rng = random.Random(ev_id)
-            keep, offers = [], []
-            for i, nid in enumerate(res.node_ids):
-                idx = cache.get(nid)
-                if idx is None:
-                    idx = cache[nid] = NetworkIndex()
-                    idx.set_node(nodes_by_id[nid])
-                    idx.add_allocs(allocs_by_node.get(nid, []))
-                nets: Dict[str, s.NetworkResource] = {}
-                for t in tg.tasks:
-                    ask_net = spec.net_asks.get(t.name)
-                    if ask_net is None:
-                        continue
-                    offer, err = idx.assign_network(ask_net, rng)
-                    if offer is None:
-                        logger.warning("batch: network offer failed on "
-                                       "%s: %s", nid, err)
-                        nets = None
-                        break
-                    idx.add_reserved(offer)
-                    nets[t.name] = offer
-                if nets is not None:
-                    keep.append(i)
-                    offers.append(nets)
-            lost = len(res.node_ids) - len(keep)
-            if lost:
-                res.node_ids = [res.node_ids[i] for i in keep]
-                res.scores = res.scores[keep]
-                res.collisions = res.collisions[keep]
-                res.unplaced += lost
-            res.networks = offers
-
-
-class _DeviceTimer:
-    """Device time from upload to fetched result: CUDA events on a card,
-    the host clock on the CPU."""
-
-    def __init__(self, dev: torch.device):
-        self.cuda = dev.type == "cuda"
-        if self.cuda:
-            self.start = torch.cuda.Event(enable_timing=True)
-            self.start.record()
-        else:
-            self.t0 = time.perf_counter()
-
-    def seconds(self) -> float:
-        if not self.cuda:
-            return time.perf_counter() - self.t0
-        end = torch.cuda.Event(enable_timing=True)
-        end.record()
-        end.synchronize()
-        return self.start.elapsed_time(end) / 1000.0
+        fetch_bytes += coo.nbytes
+    b.device_seconds = b.timer.seconds()
+    return summary, np.asarray(coo[:nnz], dtype=np.int64), fetch_bytes
 
 
 def _overflow_coo(out, nnz, max_nnz, with_scores, compact_u16):
@@ -513,19 +551,35 @@ def _overflow_coo(out, nnz, max_nnz, with_scores, compact_u16):
     return (coo & 0xFFFF) if compact_u16 else coo
 
 
-def _finalize(spec_list, ct, unplaced_arr, coo, with_scores):
+def _coo_scores(coo: np.ndarray, with_scores: bool):
+    """The commit scores and collision counts of the COO entries."""
+    if with_scores:
+        return (coo[:, 3].astype(np.int32).view(np.float32),
+                coo[:, 4].astype(np.int32))
+    return (np.zeros(len(coo), dtype=np.float32),
+            np.zeros(len(coo), dtype=np.int32))
+
+
+def _decode(spec_list, ct, unplaced_arr, coo, with_scores
+            ) -> Dict[Tuple[str, str], SpecPlacement]:
+    """The fetched device result as one :class:`SpecPlacement` per spec
+    (``_finalize``, batch_sched.py:1583-1716): the ``ops.kernel_result``
+    fault point, validation (a violation raises
+    :class:`KernelIntegrityError` and nothing is used), the per-alloc
+    node ids in commit order, and the AllocMetric scores."""
     rows, cols, counts = coo[:, 0], coo[:, 1], coo[:, 2]
+    # Chaos hook: corrupt the fetched outputs (the damage a flaky card
+    # would do), then validate.
+    act = fault.faultpoint("ops.kernel_result")
+    if act is not None and act.kind == "corrupt":
+        unplaced_arr, counts = _corrupt_outputs(act.rng, spec_list,
+                                                unplaced_arr, counts)
     problem = validate_device_outputs(spec_list, ct, unplaced_arr, rows,
                                       cols, counts)
     if problem is not None:
         raise KernelIntegrityError(problem)
     n_specs = len(spec_list)
-    if with_scores:
-        scores = coo[:, 3].astype(np.int32).view(np.float32)
-        coll = coo[:, 4].astype(np.int32)
-    else:
-        scores = np.zeros(len(coo), dtype=np.float32)
-        coll = np.zeros(len(coo), dtype=np.int32)
+    scores, coll = _coo_scores(coo, with_scores)
     exp_off, exp_idx = decode.expand_coo(rows, cols, counts, n_specs,
                                          ct.n_real)
     valid = (rows >= 0) & (cols < ct.n_real)
@@ -537,6 +591,9 @@ def _finalize(spec_list, ct, unplaced_arr, coo, with_scores):
     out: Dict[Tuple[str, str], SpecPlacement] = {}
     for u, sp in enumerate(spec_list):
         lo, hi = int(exp_off[u]), int(exp_off[u + 1])
+        # "<node>.binpack" per distinct placed node (rank.go:139) and
+        # "<node>.job-anti-affinity" where the commit had same-job
+        # collisions (rank.go:167); last commit wins.
         metric: Dict[str, float] = {}
         if with_scores:
             a, b = int(s_off[u]), int(s_off[u + 1])
@@ -551,3 +608,984 @@ def _finalize(spec_list, ct, unplaced_arr, coo, with_scores):
             scores=per_alloc_sc[lo:hi], collisions=per_alloc_co[lo:hi],
             unplaced=int(unplaced_arr[u]), metric_scores=metric)
     return out
+
+
+class _NetIndexes(dict):
+    """Node id -> the batch's ``NetworkIndex`` of that node, made on first
+    use from ``node_of(id)`` and ``live_allocs_of(id)``.  Each index takes
+    every offer as it is made, so the port numbers picked for one batch
+    never collide."""
+
+    def __init__(self, node_of, live_allocs_of):
+        super().__init__()
+        self.node_of = node_of
+        self.live_allocs_of = live_allocs_of
+
+    def __missing__(self, node_id: str) -> NetworkIndex:
+        idx = self[node_id] = NetworkIndex()
+        node = self.node_of(node_id)
+        if node is not None:
+            idx.set_node(node)
+            idx.add_allocs(self.live_allocs_of(node_id))
+        return idx
+
+
+def _offer_group(tg: s.TaskGroup, net_asks, node_ids: Sequence[str],
+                 rng: random.Random, indexes: _NetIndexes
+                 ) -> List[Optional[Dict[str, s.NetworkResource]]]:
+    """Concrete network offers for one task group's placed allocs
+    (batch_sched.py:2226-2270, rank.go:199, network.go:245): the device
+    counted ports and bandwidth; here each task gets its IP and port
+    numbers, drawn from ``rng`` in placement order.  Per alloc, task name
+    -> its offer, or None where an offer failed (logged; the caller
+    leaves that alloc unplaced, as the reference does)."""
+    out: List[Optional[Dict[str, s.NetworkResource]]] = []
+    for nid in node_ids:
+        idx = indexes[nid]
+        nets: Optional[Dict[str, s.NetworkResource]] = {}
+        for t in tg.tasks:
+            ask_net = net_asks.get(t.name)
+            if ask_net is None:
+                continue
+            offer, err = idx.assign_network(ask_net, rng)
+            if offer is None:
+                logger.warning("batch: network offer failed on %s: %s",
+                               nid, err)
+                nets = None
+                break
+            idx.add_reserved(offer)
+            nets[t.name] = offer
+        out.append(nets)
+    return out
+
+
+# -- the list entry -------------------------------------------------------------
+
+def schedule_batch(nodes: Sequence[s.Node], jobs: Sequence[s.Job],
+                   live_allocs: Iterable[s.Allocation] = (),
+                   rng_seed: Optional[int] = None,
+                   device=None, mesh=None,
+                   eval_ids: Optional[Sequence[str]] = None) -> BatchResult:
+    """Place every task group of ``jobs`` on ``nodes`` in one device pass.
+
+    ``nodes`` is the cluster in the order the node index follows (the
+    index enters the tie-break jitter and the tie order).
+    ``live_allocs`` are the allocations already running: their usage,
+    ports and bandwidth are layered onto the nodes, they count as
+    same-job collisions, and they hold their distinct_property values.
+    ``rng_seed`` pins the tie-break seed (the reference's
+    ``NOMAD_TPU_RNG_SEED``); None draws one.  ``device`` defaults to
+    ``cuda`` and raises without it.
+
+    ``eval_ids`` gives each job its evaluation id, in the order of
+    ``jobs``: the port numbers of a task group's offers come from
+    ``random.Random(<its evaluation id>)``, as in the reference's
+    finalize (batch_sched.py:2236), so the same ids give the same offers
+    from run to run.  None draws a fresh id per job.
+
+    ``mesh`` (a :class:`nomad_tpu_torch.parallel.NodeMesh`, instead of
+    ``device``) places the batch node-sharded over the mesh's devices,
+    the counterpart of ``TPUBatchScheduler(mesh=...)``
+    (batch_sched.py:1464-1580): same placements and scores as the
+    single-chip path, and ``mesh_shards`` in the result."""
+    if mesh is not None and device is not None:
+        raise ValueError("pass a device or a mesh, not both")
+    dev = mesh.root if mesh is not None else resolve_device(device)
+    t0 = time.perf_counter()
+    live = [a for a in live_allocs if not a.terminal_status()]
+    live_by_spec: Dict[Tuple[str, str], int] = {}
+    allocs_by_node: Dict[str, List[s.Allocation]] = {}
+    nodes_by_job: Dict[str, List[str]] = {}
+    for a in live:
+        key = (a.job_id, a.task_group)
+        live_by_spec[key] = live_by_spec.get(key, 0) + 1
+        allocs_by_node.setdefault(a.node_id, []).append(a)
+        nodes_by_job.setdefault(a.job_id, []).append(a.node_id)
+    if eval_ids is None:
+        eval_ids = [s.generate_uuid() for _ in jobs]
+    if len(eval_ids) != len(jobs):
+        raise ValueError(f"{len(eval_ids)} evaluation ids for "
+                         f"{len(jobs)} jobs")
+    nodes_by_id = {n.id: n for n in nodes}
+    spec_list = _prepare_specs(jobs, live_by_spec, live, nodes_by_id)
+    if not spec_list:
+        return BatchResult({}, 0, str(dev))
+    with_networks = any(sp.net_active for sp in spec_list)
+    if with_networks and not cluster_networks_simple(nodes):
+        raise NotImplementedError(
+            "multi-device/multi-IP node networks; the reference places "
+            "network asks on such a cluster with its CPU oracle, which "
+            "needs a state store: schedule it through TorchBatchScheduler")
+
+    attr_targets, literals = encode.collect_attr_targets(spec_list)
+    base = _cluster_static(nodes, attr_targets, literals, with_networks,
+                           _node_pad_multiple(mesh))
+    if rng_seed is None:
+        rng_seed = int.from_bytes(os.urandom(4), "big")
+    b = _encode_batch(spec_list, list(nodes), base, allocs_by_node,
+                      lambda job_id: nodes_by_job.get(job_id, ()), rng_seed,
+                      mesh)
+    _dispatch(b, dev, mesh)
+    summary, coo, _ = _fetch(b)
+    t2 = time.perf_counter()
+
+    placements = _decode(spec_list, b.ct, summary["unplaced"], coo,
+                         b.with_scores)
+    if with_networks:
+        _offer_networks(jobs, eval_ids, spec_list, placements, nodes_by_id,
+                        allocs_by_node)
+    t3 = time.perf_counter()
+    return BatchResult(
+        placements=placements, rounds=int(summary["scalars"][1]),
+        device=str(dev),
+        timings={"encode": b.t_dispatch - t0, "device": b.device_seconds,
+                 "decode": t3 - t2}, mesh_shards=b.shards)
+
+
+def _offer_networks(jobs, eval_ids, spec_list, placements, nodes_by_id,
+                    allocs_by_node) -> None:
+    """The offers of every placed alloc of a spec with network asks
+    (:func:`_offer_group`), seeded from ``nodes_by_id`` and the live
+    ``allocs_by_node``.  The jobs go in their given order, their groups
+    in job order, and a group's port picks draw from
+    ``random.Random(<the job's evaluation id>)``, made anew for each
+    group -- the reference's order, so its offers repeat bit for bit."""
+    specs = {(sp.job.id, sp.tg.name): sp for sp in spec_list}
+    indexes = _NetIndexes(nodes_by_id.get,
+                          lambda nid: allocs_by_node.get(nid, []))
+    for job, ev_id in zip(jobs, eval_ids):
+        for tg in job.task_groups:
+            key = (job.id, tg.name)
+            spec, res = specs.get(key), placements.get(key)
+            if spec is None or res is None or not spec.net_asks:
+                continue
+            offers = _offer_group(tg, spec.net_asks, res.node_ids,
+                                  random.Random(ev_id), indexes)
+            keep = [i for i, nets in enumerate(offers) if nets is not None]
+            lost = len(res.node_ids) - len(keep)
+            if lost:
+                res.node_ids = [res.node_ids[i] for i in keep]
+                res.scores = res.scores[keep]
+                res.collisions = res.collisions[keep]
+                res.unplaced += lost
+            res.networks = [offers[i] for i in keep]
+
+
+# -- the eval-driven entry ------------------------------------------------------
+
+class _CollectingScheduler(GenericScheduler):
+    """A GenericScheduler whose placement loop *collects* asks instead of
+    selecting nodes (batch_sched.py:214); everything else (diff, stops,
+    in-place updates, rolling limits, blocked evals) is the oracle's."""
+
+    def __init__(self, logger_, state, planner, batch: bool):
+        super().__init__(logger_, state, planner, batch,
+                         preemption_enabled=False)
+        # Placement asks in bulk: per task group, (tg, names-or-count,
+        # prev-ids-or-None).  The register fast path stores the count
+        # only: names are formulaic '<job>.<tg>[i]' (util.go:22) and made
+        # at finalize for the placements that happen.
+        self.pending_bulk: List[Tuple] = []
+        self.nodes_by_dc: Dict[str, int] = {}
+        # The batch's shared cache of dc-tuple -> nodes-by-dc counts.
+        self.dc_cache: Optional[Dict[Tuple[str, ...], Dict[str, int]]] = None
+
+    def _set_nodes_by_dc(self) -> None:
+        dcs = tuple(self.job.datacenters)
+        if self.dc_cache is not None and dcs in self.dc_cache:
+            self.nodes_by_dc = self.dc_cache[dcs]
+        else:
+            _, by_dc = ready_nodes_in_dcs(self.state, self.job.datacenters)
+            self.nodes_by_dc = by_dc
+            if self.dc_cache is not None:
+                self.dc_cache[dcs] = by_dc
+
+    def _compute_job_allocs(self) -> None:
+        """Register fast path (batch_sched.py:244): a job with no existing
+        allocations places every instance (the diff is the identity,
+        util.go:70), so the name dict, the tuples, the taint scan and the
+        in-place machinery are skipped.  Anything with history takes the
+        oracle's path."""
+        job = self.job
+        if (job is None or job.stopped()
+                or self.state.allocs_by_job(None, self.eval.job_id, True)):
+            super()._compute_job_allocs()
+            return
+        bulk = []
+        for tg in job.task_groups:
+            if tg.count <= 0:
+                continue
+            self.queued_allocs[tg.name] = tg.count
+            bulk.append((tg, tg.count, None))
+        self.pending_bulk = bulk
+        if bulk:
+            self._set_nodes_by_dc()
+
+    def _compute_placements(self, place: List[AllocTuple]) -> None:
+        self._set_nodes_by_dc()
+        by_tg: Dict[str, Tuple[s.TaskGroup, List[str],
+                               List[Optional[str]]]] = {}
+        order: List[Tuple[s.TaskGroup, List[str], List[Optional[str]]]] = []
+        for tup in place:
+            ent = by_tg.get(tup.task_group.name)
+            if ent is None:
+                ent = (tup.task_group, [], [])
+                by_tg[tup.task_group.name] = ent
+                order.append(ent)
+            ent[1].append(tup.name)
+            ent[2].append(tup.alloc.id if tup.alloc is not None else None)
+        self.pending_bulk = [
+            (tg, names,
+             prevs if any(p is not None for p in prevs) else None)
+            for tg, names, prevs in order]
+
+
+class _PreparedBatch:
+    """One batch between prepare and complete."""
+
+    __slots__ = ("evals", "scheds", "specs", "spec_list", "stats", "t0",
+                 "handle", "probe", "routed")
+
+    def __init__(self, evals):
+        self.evals = evals
+        self.scheds = []
+        self.specs = {}
+        self.spec_list = []
+        self.stats = BatchStats()
+        self.t0 = time.perf_counter()
+        self.handle: Optional[_DeviceBatch] = None
+        self.probe = False      # this batch is the breaker's half-open probe
+        self.routed = False     # breaker open: already oracle-processed
+
+
+class TorchBatchScheduler:
+    """The ``torch-batch`` scheduler: ``process(ev)`` handles one eval,
+    ``schedule_batch(evals)`` a batch (batch_sched.py:304).
+
+    ``state`` is a state store snapshot and ``planner`` takes the plans
+    (``scheduler.testing.Harness``, or a server's plan queue).  The
+    device pass runs on ``device`` (default ``cuda``; raises without a
+    card) or node-sharded over ``mesh``.  ``rng_seed`` pins the
+    tie-break seed (the reference's ``NOMAD_TPU_RNG_SEED``); None draws
+    one per batch.  ``breaker`` defaults to the process-wide
+    ``ops.breaker.BREAKER``."""
+
+    def __init__(self, logger_: logging.Logger, state, planner, mesh=None,
+                 device=None, preemption_enabled: bool = False,
+                 breaker=None, rng_seed: Optional[int] = None):
+        if mesh is not None and device is not None:
+            raise ValueError("pass a device or a mesh, not both")
+        self.logger = logger_
+        self.state = state
+        self.planner = planner
+        self.mesh = mesh
+        self.device = mesh.root if mesh is not None else resolve_device(
+            device)
+        if preemption_enabled:
+            raise NotImplementedError(
+                "device preemption (the eviction-set pass of "
+                "nomad_tpu/ops/preempt.py and its commit) is not ported; "
+                "run with preemption_enabled=False")
+        self.preemption_enabled = False
+        self.breaker = (breaker if breaker is not None
+                        else breaker_mod.BREAKER)
+        self.rng_seed = rng_seed
+
+    def process(self, ev: s.Evaluation) -> None:
+        self.schedule_batch([ev])
+
+    def schedule_batch(self, evals: List[s.Evaluation]) -> "BatchStats":
+        """Reconcile every eval on the host, place all their asks in one
+        device pass, then finalize and submit one plan per eval."""
+        prep = self._prepare_batch(evals)
+        self._dispatch_prepared(prep)
+        return self._complete_prepared(prep)
+
+    # -- phase 1 and 2: reconcile, dedup, gate ------------------------------
+
+    def _prepare_batch(self, evals: List[s.Evaluation]) -> _PreparedBatch:
+        for ev in evals:
+            if ev.annotate_plan:
+                raise NotImplementedError(
+                    f"eval {ev.id}: annotate_plan (the job plan dry run) "
+                    "needs structs/diff.py and scheduler/annotate.py, "
+                    "which are not ported")
+        prep = _PreparedBatch(evals)
+        stats = prep.stats
+
+        # Phase 1: host reconciliation per eval (the oracle's code).
+        t_phase1 = time.perf_counter()
+        dc_cache: Dict[Tuple[str, ...], Dict[str, int]] = {}
+        scheds: List[Tuple[s.Evaluation, _CollectingScheduler]] = []
+        for ev in evals:
+            sched = _CollectingScheduler(
+                self.logger, self.state, self.planner,
+                batch=(ev.type == s.JOB_TYPE_BATCH))
+            sched.dc_cache = dc_cache
+            sched.eval = ev
+            sched.job = self.state.job_by_id(None, ev.job_id)
+            sched.plan = ev.make_plan(sched.job)
+            sched.ctx = EvalContext(self.state, sched.plan, self.logger)
+            sched.stack = GenericStack(sched.batch, sched.ctx)
+            if sched.job is not None and not sched.job.stopped():
+                sched.stack.set_job(sched.job)
+            sched._compute_job_allocs()
+            scheds.append((ev, sched))
+        stats.phase1_seconds = time.perf_counter() - t_phase1
+        t_phase2 = time.perf_counter()
+
+        # Phase 2: dedup placement asks into specs.
+        specs: Dict[Tuple[str, str], encode.PlacementSpec] = {}
+        spec_evs: Dict[Tuple[str, str], s.Evaluation] = {}
+        for ev, sched in scheds:
+            for tg, names_or_count, prevs in sched.pending_bulk:
+                key = (sched.job.id, tg.name)
+                spec = specs.get(key)
+                if spec is None:
+                    spec = encode.build_spec(sched.job, tg, sched.batch)
+                    if spec.dp_target is not None:
+                        spec.dp_used_values = self._dp_used_values(sched,
+                                                                   spec)
+                    specs[key] = spec
+                    spec_evs[key] = ev
+                spec.count += (names_or_count
+                               if isinstance(names_or_count, int)
+                               else len(names_or_count))
+
+        # Gate: the evals of specs the device pass cannot express go
+        # through the oracle whole, never mis-placed.
+        gated = self._gate_oracle_evals(specs, spec_evs)
+        if gated:
+            for key in [k for k, ev in spec_evs.items() if ev.id in gated]:
+                del specs[key]
+            kept = []
+            for ev, sched in scheds:
+                if ev.id in gated:
+                    self.logger.info("batch: eval %s routed through the "
+                                     "CPU oracle: %s", ev.id, gated[ev.id])
+                    stats.oracle_routed += 1
+                    self._route_through_oracle([(ev, sched)])
+                else:
+                    kept.append((ev, sched))
+            scheds = kept
+            evals = [ev for ev, _ in scheds]
+
+        spec_list = sorted(specs.values(), key=lambda sp: -sp.priority)
+        stats.num_specs = len(spec_list)
+        stats.num_asks = sum(sp.count for sp in spec_list)
+        stats.phase2_seconds = time.perf_counter() - t_phase2
+        prep.evals = evals
+        prep.scheds = scheds
+        prep.specs = specs
+        prep.spec_list = spec_list
+        return prep
+
+    def _gate_oracle_evals(self, specs, spec_evs) -> Dict[str, str]:
+        """Eval id -> the reason its spec cannot take the device pass."""
+        out: Dict[str, str] = {}
+        simple_networks: Optional[bool] = None
+        for key, sp in specs.items():
+            reason = sp.needs_oracle
+            if not reason and sp.net_active:
+                if simple_networks is None:
+                    simple_networks = cluster_networks_simple(
+                        self.state.nodes(None))
+                if not simple_networks:
+                    reason = "multi-device/multi-IP node networks"
+            if reason:
+                out.setdefault(spec_evs[key].id, reason)
+        return out
+
+    def _dp_used_values(self, sched, spec) -> set:
+        """Existing + proposed - cleared values of the spec's
+        distinct_property (propertyset.go:57), from state and this eval's
+        plan after reconciliation (batch_sched.py:840)."""
+        con = next(c for c in spec.constraints
+                   if c.operand == s.CONSTRAINT_DISTINCT_PROPERTY)
+        ps = PropertySet(sched.ctx, spec.job)
+        if con in spec.job.constraints:
+            ps.set_job_constraint(con)
+        else:
+            ps.set_tg_constraint(con, spec.tg.name)
+        ps.populate_proposed()
+        return ((ps.existing_values | ps.proposed_values)
+                - ps.cleared_values)
+
+    # -- dispatch --------------------------------------------------------------
+
+    def _dispatch_prepared(self, prep: _PreparedBatch) -> None:
+        """The breaker gate, then encode and the device dispatch."""
+        stats = prep.stats
+        if not prep.spec_list:
+            return
+        # While OPEN every eval takes the CPU oracle; HALF-OPEN lets this
+        # one batch probe the device path.
+        if not self.breaker.allow_kernel():
+            stats.breaker_state = self.breaker.state
+            stats.oracle_routed += len(prep.scheds)
+            self.logger.info(
+                "batch: kernel breaker %s; routing %d evals through the "
+                "CPU oracle", stats.breaker_state, len(prep.scheds))
+            self._route_through_oracle(prep.scheds)
+            prep.routed = True
+            return
+        prep.probe = self.breaker.state == HALF_OPEN
+        # An encode, build, launch or upload error propagates and feeds
+        # no breaker: only a validation verdict may route evals to the
+        # oracle.  A probe that dies so stays unresolved until it expires.
+        prep.handle = self._dispatch_device(prep.spec_list)
+
+    def _live_allocs_by_node(self) -> Dict[str, List[s.Allocation]]:
+        """Every live alloc row grouped by node: the usage basis."""
+        allocs_by_node: Dict[str, List[s.Allocation]] = {}
+        for node_id, row in self.state.alloc_rows(None):
+            if not row.terminal_status():
+                allocs_by_node.setdefault(node_id, []).append(row)
+        return allocs_by_node
+
+    def _job_nodes(self, job_id: str) -> List[str]:
+        return [nid for nid, row in self.state.alloc_rows_by_job(None,
+                                                                 job_id)
+                if not row.terminal_status()]
+
+    def _dispatch_device(self, spec_list) -> _DeviceBatch:
+        t0 = time.perf_counter()
+        all_nodes = self.state.nodes(None)
+        attr_targets, literals = encode.collect_attr_targets(spec_list)
+        with_networks = any(sp.net_active for sp in spec_list)
+        pad_m = _node_pad_multiple(self.mesh)
+        lit_key = tuple(sorted(
+            (t, tuple(sorted(vs))) for t, vs in literals.items()))
+        cache_key = (self.state.store_uid, self.state.table_index("nodes"),
+                     tuple(attr_targets), lit_key, with_networks, pad_m)
+        base = _CLUSTER_CACHE.get(cache_key)
+        if base is None:
+            base = _cluster_static(all_nodes, attr_targets, literals,
+                                   with_networks, pad_m)
+            _CLUSTER_CACHE.put(cache_key, base)
+        rng_seed = (self.rng_seed if self.rng_seed is not None
+                    else int.from_bytes(os.urandom(4), "big"))
+        b = _encode_batch(spec_list, all_nodes, base,
+                          self._live_allocs_by_node(), self._job_nodes,
+                          rng_seed, self.mesh)
+        _dispatch(b, self.device, self.mesh, _DEVICE_STATIC_CACHE)
+        b.encode_seconds = b.t_dispatch - t0
+        return b
+
+    # -- complete --------------------------------------------------------------
+
+    def _complete_prepared(self, prep: _PreparedBatch) -> "BatchStats":
+        """The blocking fetch, the breaker's bookkeeping, and each eval's
+        plan finalize and submit."""
+        stats = prep.stats
+        evals, scheds = prep.evals, prep.scheds
+        if prep.routed:
+            stats.total_seconds = time.perf_counter() - prep.t0
+            stats.num_evals = len(evals)
+            return stats
+
+        expanded: Dict[Tuple[str, str], List[str]] = {}
+        unplaced: Dict[Tuple[str, str], int] = {}
+        per_spec_metrics: Dict[Tuple[str, str], s.AllocMetric] = {}
+        b = prep.handle
+        if b is not None:
+            try:
+                expanded, unplaced, per_spec_metrics = \
+                    self._fetch_device(b, stats)
+            except KernelIntegrityError as e:
+                # Corrupt device output: reject the whole result, feed
+                # the breaker, and degrade this batch to the oracle.
+                self.breaker.record(False)
+                if prep.probe:
+                    self.breaker.on_probe(False)
+                self.logger.error(
+                    "batch: kernel output rejected (%s); routing %d evals "
+                    "through the CPU oracle", e, len(scheds))
+                stats.kernel_rejects = 1
+                stats.oracle_routed += len(scheds)
+                stats.breaker_state = self.breaker.state
+                self._route_through_oracle(scheds)
+                stats.total_seconds = time.perf_counter() - prep.t0
+                stats.num_evals = len(evals)
+                return stats
+            # Any other error (a failed launch or fetch) propagates
+            # without feeding the breaker.
+            self.breaker.record(True)
+            if prep.probe:
+                self.breaker.on_probe(True)
+            stats.breaker_state = self.breaker.state
+            stats.device_ran = True
+
+        # Phase 3: materialize allocs into each eval's plan and submit.
+        t_final = time.perf_counter()
+        net_indexes = _NetIndexes(
+            lambda nid: self.state.node_by_id(None, nid),
+            lambda nid: [a for a in self.state.allocs_by_node(None, nid)
+                         if not a.terminal_status()])
+        for ev, sched in scheds:
+            self._finalize(ev, sched, prep.specs, expanded, unplaced,
+                           per_spec_metrics, net_indexes, stats)
+        stats.finalize_seconds = time.perf_counter() - t_final
+        stats.total_seconds = time.perf_counter() - prep.t0
+        stats.num_evals = len(evals)
+        return stats
+
+    def _route_through_oracle(self, scheds) -> None:
+        """Process each eval with the CPU GenericScheduler against live
+        state (batch_sched.py:788)."""
+        for ev, _sched in scheds:
+            GenericScheduler(
+                self.logger, self.state, self.planner,
+                batch=(ev.type == s.JOB_TYPE_BATCH),
+                preemption_enabled=False).process(ev)
+
+    def _fetch_device(self, b: _DeviceBatch, stats: "BatchStats"):
+        summary, coo, fetch_bytes = _fetch(b)
+        stats.rounds = int(summary["scalars"][1])
+        stats.encode_seconds = b.encode_seconds
+        stats.h2d_bytes = b.h2d_bytes
+        stats.static_h2d_bytes = b.static_h2d_bytes
+        stats.mesh_shards = b.shards
+        stats.fetch_bytes = fetch_bytes
+        stats.device_seconds = b.device_seconds
+        return self._finalize_device_outputs(b, summary, coo, stats)
+
+    def _finalize_device_outputs(self, b: _DeviceBatch, summary, coo,
+                                 stats: "BatchStats"):
+        """Device result -> per-spec slots and AllocMetrics
+        (batch_sched.py:1583): :func:`_decode` (the fault point and
+        validation), the lazy forensics fetch, then the metrics."""
+        t_host = time.perf_counter()
+        spec_list, ct, st, all_nodes = b.spec_list, b.ct, b.st, b.nodes
+        placements = _decode(spec_list, ct, summary["unplaced"], coo,
+                             b.with_scores)
+        unplaced_arr = summary["unplaced"]
+        feas_count = summary["feas_count"]
+        coo_rows, coo_cols, coo_counts = coo[:, 0], coo[:, 1], coo[:, 2]
+        valid = (coo_rows >= 0) & (coo_cols < ct.n_real)
+        vr, vc = coo_rows[valid], coo_cols[valid]
+        vcnt = coo_counts[valid]
+        u_lo = np.searchsorted(vr, np.arange(len(spec_list)), side="left")
+        u_hi = np.searchsorted(vr, np.arange(len(spec_list)), side="right")
+
+        # The usage after the commits, reconstructed on the host (exact
+        # integer adds); only failure forensics needs it.
+        failed_u = np.nonzero(unplaced_arr[:st.u_real] > 0)[0]
+        used_after = None
+        if len(failed_u):
+            used_after = np.asarray(ct.used, dtype=np.int64).copy()
+            if len(vr):
+                np.add.at(used_after, vc.astype(np.int64),
+                          vcnt.astype(np.int64)[:, None]
+                          * np.asarray(st.ask)[vr.astype(np.int64)])
+
+        # Feasibility rows are fetched lazily, only for failed specs whose
+        # feasible count is below their evaluated count (ready nodes in
+        # their DCs), i.e. a constraint filtered a node: at most one extra
+        # transfer a batch.  Capacity exhaustion needs no row.
+        feas_rows: Dict[int, np.ndarray] = {}
+        rows_seconds = 0.0
+        node_facts = None
+        need_rows: List[int] = []
+        if len(failed_u):
+            node_facts = {
+                "ready": np.array([n.ready() for n in all_nodes],
+                                  dtype=bool),
+                "dc": np.array([n.datacenter for n in all_nodes],
+                               dtype=object),
+                "class_codes": None,
+                "class_names": None,
+                # dcs tuple -> evaluated mask, once per DC set a batch.
+                "evaluated": {},
+            }
+            need_rows = [int(u) for u in failed_u
+                         if feas_count[u] < int(self._evaluated_mask(
+                             node_facts, spec_list[u]).sum())]
+        if need_rows:
+            timer = _DeviceTimer(self.device)
+            idx = torch.as_tensor(need_rows, dtype=torch.long)
+            feas = b.out.feas
+            if isinstance(feas, list):     # the mesh's shard parts
+                rows = torch.cat([f[idx.to(f.device)].to(self.device)
+                                  for f in feas], dim=1)
+            else:
+                rows = feas[idx.to(feas.device)]
+            rows_np = rows.cpu().numpy()
+            stats.fetch_bytes += rows_np.nbytes
+            feas_rows = {u: rows_np[i] for i, u in enumerate(need_rows)}
+            rows_seconds = timer.seconds()
+            stats.device_seconds += rows_seconds
+
+        expanded: Dict[Tuple[str, str], List[str]] = {}
+        unplaced: Dict[Tuple[str, str], int] = {}
+        metrics: Dict[Tuple[str, str], s.AllocMetric] = {}
+        # Specs that placed nothing and had no row fetched fail with a
+        # metric fixed by their shape: computed once per shape.
+        fail_cache: Dict[Tuple, s.AllocMetric] = {}
+        for u, sp in enumerate(spec_list):
+            key = (sp.job.id, sp.tg.name)
+            lo, hi = int(u_lo[u]), int(u_hi[u])
+            pl = placements[key]
+            expanded[key] = pl.node_ids
+            unplaced[key] = pl.unplaced
+
+            n_unplaced = unplaced[key]
+            sig = None
+            if n_unplaced > 0 and lo == hi and feas_rows.get(u) is None:
+                sig = (sp.ask.tobytes(), tuple(sp.datacenters),
+                       tuple((c.ltarget, c.operand, c.rtarget)
+                             for c in sp.constraints),
+                       tuple(sorted(sp.drivers)), bool(sp.distinct_hosts),
+                       sp.dp_target, int(feas_count[u]), n_unplaced,
+                       bool(sp.net_active), int(sp.net_mbits),
+                       int(sp.dyn_count), int(sp.resv_in_dyn),
+                       tuple(sp.resv_ports))
+                cached = fail_cache.get(sig)
+                if cached is not None:
+                    metrics[key] = cached.copy()
+                    continue
+
+            # AllocMetric from the device side outputs
+            # (structs.go:4074-4172).
+            m = s.AllocMetric()
+            m.nodes_evaluated = ct.n_real
+            m.nodes_filtered = ct.n_real - int(feas_count[u])
+            if pl.metric_scores:
+                m.scores = pl.metric_scores
+            if n_unplaced > 0:
+                placed_row = np.zeros(ct.n_real, dtype=np.int32)
+                placed_row[vc[lo:hi]] = vcnt[lo:hi]
+                self._fill_failure_metrics(
+                    m, sp, all_nodes, ct, feas_rows.get(u), placed_row,
+                    used_after, node_facts)
+                m.coalesced_failures = n_unplaced - 1
+                if sig is not None:
+                    fail_cache[sig] = m
+            metrics[key] = m
+        stats.metrics_seconds = (time.perf_counter() - t_host
+                                 - rows_seconds)
+        return expanded, unplaced, metrics
+
+    @staticmethod
+    def _evaluated_mask(node_facts, sp) -> np.ndarray:
+        dcs = tuple(sp.datacenters)
+        ent = node_facts["evaluated"].get(dcs)
+        if ent is None:
+            ent = node_facts["ready"] & np.isin(node_facts["dc"], list(dcs))
+            node_facts["evaluated"][dcs] = ent
+        return ent
+
+    def _fill_failure_metrics(self, m, sp, nodes, ct, feas_row, placed_row,
+                              used_after, node_facts) -> None:
+        """Forensics of a failed placement, matching the oracle's
+        filter_node/exhausted_node accounting (batch_sched.py:1985): chain
+        order job constraints -> drivers -> group and task constraints
+        (feasible.go), the class cache ("computed class ineligible" after
+        the first failure of a class, feasible.go:597), distinct checks
+        before capacity (stack order), and Resources.superset's dimension
+        names (rank.go).  Capacity exhaustion is vectorized; the Python
+        checkers run over the filtered nodes only.  ``feas_row`` is None
+        when every evaluated node was feasible."""
+        n_real = ct.n_real
+        feas_r = (feas_row[:n_real].astype(bool) if feas_row is not None
+                  else np.ones(n_real, dtype=bool))
+        placed_r = placed_row[:n_real]
+        evaluated = self._evaluated_mask(node_facts, sp)
+        m.nodes_evaluated = int(evaluated.sum())
+        m.nodes_filtered = 0
+
+        # -- exhausted (feasible, evaluated, uncommitted): vectorized ----
+        exh_mask = evaluated & feas_r & (placed_r == 0)
+        if exh_mask.any():
+            # One [n, 4] compare per distinct ask a batch.
+            ask_cache = node_facts.setdefault("ask_over", {})
+            ask_key = sp.ask.tobytes()
+            ent = ask_cache.get(ask_key)
+            if ent is None:
+                cap_left = node_facts.get("cap_left")
+                if cap_left is None:
+                    cap_left = ct.capacity[:n_real] - used_after[:n_real]
+                    node_facts["cap_left"] = cap_left
+                over = sp.ask[None, :] > cap_left      # [n, 4]
+                ent = (over.any(axis=1), np.argmax(over, axis=1))
+                ask_cache[ask_key] = ent
+            any_over, first_dim = ent
+            dim_names = ("cpu exhausted", "memory exhausted",
+                         "disk exhausted", "iops exhausted")
+            capacity_exh = exh_mask & any_over
+            n_cap_exh = int(capacity_exh.sum())
+            if n_cap_exh:
+                m.nodes_exhausted += n_cap_exh
+                dims = np.bincount(first_dim[capacity_exh], minlength=4)
+                for di, cnt in enumerate(dims):
+                    if cnt:
+                        m.dimension_exhausted[dim_names[di]] = (
+                            m.dimension_exhausted.get(dim_names[di], 0)
+                            + int(cnt))
+                if node_facts.get("class_codes") is None:
+                    names: List[str] = []
+                    index: Dict[str, int] = {}
+                    codes = np.empty(len(nodes), dtype=np.int32)
+                    for i2, n2 in enumerate(nodes):
+                        cls = n2.node_class or ""
+                        code = index.get(cls)
+                        if code is None:
+                            code = index[cls] = len(names)
+                            names.append(cls)
+                        codes[i2] = code
+                    node_facts["class_codes"] = codes
+                    node_facts["class_names"] = names
+                codes = node_facts["class_codes"][:n_real]
+                names = node_facts["class_names"]
+                if len(names) > 1 or names[0]:
+                    counts = np.bincount(codes[capacity_exh],
+                                         minlength=len(names))
+                    for code, cnt in enumerate(counts):
+                        if cnt and names[code]:
+                            m.class_exhausted[names[code]] = (
+                                m.class_exhausted.get(names[code], 0)
+                                + int(cnt))
+            # The rarer non-capacity blocks keep per-node attribution.
+            for i in np.nonzero(exh_mask & ~any_over)[0]:
+                node = nodes[i]
+                if sp.distinct_hosts or sp.dp_target is not None:
+                    # Distinct checks precede BinPack in the oracle chain:
+                    # blocked nodes are filtered, not exhausted
+                    # (feasible.go:272).
+                    m.filter_node(
+                        node,
+                        s.CONSTRAINT_DISTINCT_HOSTS if sp.distinct_hosts
+                        else s.CONSTRAINT_DISTINCT_PROPERTY)
+                elif sp.net_active:
+                    m.exhausted_node(node, self._net_exhaust_dim(sp, ct, i))
+                else:
+                    m.exhausted_node(node, "resources exhausted")
+
+        # -- filtered (evaluated, infeasible): the oracle's checkers ------
+        filt_idx = np.nonzero(evaluated & ~feas_r)[0]
+        if len(filt_idx) == 0:
+            return
+        from ..scheduler.feasible import ConstraintChecker, DriverChecker
+
+        eval_ctx = EvalContext(state=None, plan=s.Plan())
+        eval_ctx.metrics = m
+        strip = (s.CONSTRAINT_DISTINCT_HOSTS, s.CONSTRAINT_DISTINCT_PROPERTY)
+        job_cons = [c for c in sp.job.constraints if c.operand not in strip]
+        tg_cons = [c for c in sp.constraints
+                   if c not in sp.job.constraints and c.operand not in strip]
+        job_checker = ConstraintChecker(eval_ctx, job_cons)
+        tg_checker = ConstraintChecker(eval_ctx, tg_cons)
+        driver_checker = DriverChecker(eval_ctx, sp.drivers)
+        # The class cache: once a computed class is ineligible for a
+        # reason that does not escape it, later nodes of the class are
+        # "computed class ineligible" (feasible.go:627).
+        cacheable = all(not encode._escapes_class(c)
+                        for c in job_cons + tg_cons)
+        ineligible_classes: set = set()
+        for i in filt_idx:
+            node = nodes[i]
+            if cacheable and node.computed_class in ineligible_classes:
+                m.filter_node(node, "computed class ineligible")
+                continue
+            ok = (job_checker.feasible(node)
+                  and driver_checker.feasible(node)
+                  and tg_checker.feasible(node))
+            if ok:
+                # Disagreement with the device row can only come from the
+                # encode: attribute generically.
+                m.filter_node(node, "constraint")
+            elif cacheable and node.computed_class:
+                ineligible_classes.add(node.computed_class)
+
+    @staticmethod
+    def _net_exhaust_dim(sp, ct, i) -> str:
+        """The oracle's network error strings (network.go:245) from the
+        encoded state."""
+        if ct.bw_cap is not None and ct.bw_cap[i] < 0:
+            return "network: no networks available"
+        if ct.bw_cap is not None and sp.net_mbits > 0 and (
+                ct.bw_used[i] + sp.net_mbits > ct.bw_cap[i]):
+            return "network: bandwidth exceeded"
+        if sp.resv_ports:
+            return "network: reserved port collision"
+        return "network: dynamic port selection failed"
+
+    # -- finalize ----------------------------------------------------------------
+
+    def _finalize(self, ev, sched, specs, expanded, unplaced,
+                  per_spec_metrics, net_indexes, stats) -> None:
+        """This eval's slots into its plan, then submit and set its status
+        (batch_sched.py:2159, generic_sched.go:104)."""
+        # One prototype alloc per spec; its metric and resources objects
+        # are shared by every alloc of the spec (stored objects are
+        # immutable by convention).
+        for tg, names_or_count, prevs in sched.pending_bulk:
+            key = (sched.job.id, tg.name)
+            slots = expanded.get(key, [])
+            if isinstance(names_or_count, int):
+                n_asks = names_or_count
+                names = None   # formulaic; made below only as needed
+            else:
+                names = names_or_count
+                n_asks = len(names)
+            metric = per_spec_metrics.get(key, s.AllocMetric())
+            metric.nodes_available = sched.nodes_by_dc
+            combined = s.Resources(disk_mb=tg.ephemeral_disk.size_mb)
+            for t in tg.tasks:
+                combined.add(t.resources)
+            proto = s.Allocation(
+                eval_id=ev.id, job_id=sched.job.id, task_group=tg.name,
+                metrics=metric, resources=combined,
+                task_resources={t.name: t.resources.copy()
+                                for t in tg.tasks},
+                desired_status=s.ALLOC_DESIRED_STATUS_RUN,
+                client_status=s.ALLOC_CLIENT_STATUS_PENDING,
+                shared_resources=s.Resources(
+                    disk_mb=tg.ephemeral_disk.size_mb))
+            spec = specs.get(key)
+            net_asks = spec.net_asks if spec is not None else {}
+            k = min(len(slots), n_asks)
+            appended = 0
+            if not net_asks:
+                # One AllocSlab per (job, group): the prototype once, the
+                # per-alloc columns beside it; ids and formulaic names are
+                # lazy columns.
+                if k:
+                    sched.plan.append_slab(s.AllocSlab(
+                        proto=proto, ids=s.LazyUuids(k),
+                        names=(s.LazyNames(k, f"{sched.job.name}.{tg.name}")
+                               if names is None
+                               else (names[:k] if k < len(names)
+                                     else names)),
+                        node_ids=slots[:k] if k < len(slots) else slots,
+                        prev_ids=([p or "" for p in prevs[:k]]
+                                  if prevs is not None else [])))
+                    appended = k
+            else:
+                if names is None and k:
+                    names = [f"{sched.job.name}.{tg.name}[{i}]"
+                             for i in range(k)]
+                ids = s.generate_uuids(k) if k else []
+                offers = _offer_group(tg, net_asks, slots[:k],
+                                      random.Random(ev.id), net_indexes)
+                for i, nets in enumerate(offers):
+                    if nets is None:
+                        continue
+                    alloc = s._fast_copy(proto)
+                    alloc.id = ids[i]
+                    alloc.name = names[i]
+                    alloc.node_id = slots[i]
+                    task_resources = {}
+                    total = s.Resources(disk_mb=tg.ephemeral_disk.size_mb)
+                    for t in tg.tasks:
+                        res = t.resources.copy()
+                        if t.name in nets:
+                            res.networks = [nets[t.name]]
+                        task_resources[t.name] = res
+                        total.add(res)
+                    alloc.task_resources = task_resources
+                    alloc.resources = total
+                    if prevs is not None and prevs[i]:
+                        alloc.previous_allocation = prevs[i]
+                    sched.plan.append_alloc(alloc)
+                    appended += 1
+            # A slot that yielded no alloc, a failed offer included, is a
+            # placement failure: a blocked eval, not a silent
+            # under-placement (generic_sched.go:218).
+            if appended < n_asks:
+                if sched.failed_tg_allocs is None:
+                    sched.failed_tg_allocs = {}
+                sched.failed_tg_allocs[tg.name] = metric
+
+        # Blocked eval for failures (generic_sched.go:218-227).
+        if (ev.status != s.EVAL_STATUS_BLOCKED and sched.failed_tg_allocs
+                and sched.blocked is None):
+            sched._create_blocked_eval(plan_failure=False)
+
+        # Rolling-update limit reached: the follow-up eval
+        # (generic_sched.go:232-240).
+        if sched.limit_reached and sched.next_eval is None:
+            sched.next_eval = ev.next_rolling_eval(sched.job.update.stagger)
+            self.planner.create_eval(sched.next_eval)
+
+        if sched.plan.is_no_op():
+            set_status(self.logger, self.planner, ev, sched.next_eval,
+                       sched.blocked, sched.failed_tg_allocs,
+                       s.EVAL_STATUS_COMPLETE, "", sched.queued_allocs)
+            return
+
+        result, new_state = self.planner.submit_plan(sched.plan)
+        adjust_queued_allocations(self.logger, result, sched.queued_allocs)
+
+        if new_state is not None or (
+                result is not None and not result.full_commit(sched.plan)[0]):
+            # Conflict: the oracle retries this eval on refreshed state,
+            # as Nomad reconciles optimistic concurrency
+            # (plan_apply.go:27-41).
+            self.logger.info("batch: plan conflict for eval %s; routing it "
+                             "through the CPU oracle", ev.id)
+            stats.oracle_routed += 1
+            retry_state = new_state if new_state is not None else self.state
+            GenericScheduler(self.logger, retry_state, self.planner,
+                             batch=(ev.type == s.JOB_TYPE_BATCH),
+                             preemption_enabled=False).process(ev)
+            return
+
+        if ev.status == s.EVAL_STATUS_BLOCKED and sched.failed_tg_allocs:
+            e = sched.ctx.eligibility()
+            new_eval = ev.copy()
+            new_eval.escaped_computed_class = e.has_escaped()
+            new_eval.class_eligibility = e.get_classes()
+            self.planner.reblock_eval(new_eval)
+            return
+
+        set_status(self.logger, self.planner, ev, sched.next_eval,
+                   sched.blocked, sched.failed_tg_allocs,
+                   s.EVAL_STATUS_COMPLETE, "", sched.queued_allocs)
+
+
+class BatchStats:
+    """What one batch did and where its time went (batch_sched.py:2349).
+    Seconds on the host clock, but ``device_seconds``: from the upload to
+    the fetched result, plus the forensics rows' fetch (CUDA events on a
+    card); the host's decode of the result is in ``metrics_seconds``."""
+
+    def __init__(self) -> None:
+        self.num_evals = 0
+        self.num_specs = 0
+        self.num_asks = 0
+        self.phase1_seconds = 0.0       # reconcile (the oracle's diff)
+        self.phase2_seconds = 0.0       # spec dedup and the oracle gate
+        self.encode_seconds = 0.0
+        self.device_seconds = 0.0
+        self.metrics_seconds = 0.0      # decode, AllocMetrics, forensics
+        self.finalize_seconds = 0.0     # plans, submit, eval statuses
+        self.total_seconds = 0.0
+        self.rounds = 0
+        # Bytes up (the dynamic buffer plus, when not cached on the
+        # device, the static one) and down (the result buffer and the
+        # forensics rows).
+        self.h2d_bytes = 0
+        self.static_h2d_bytes = 0
+        self.fetch_bytes = 0
+        self.mesh_shards = 0
+        # Degradation: evals routed through the CPU oracle (the gate, an
+        # open breaker, a rejected result, a plan conflict), device
+        # results rejected, and the breaker's state after the batch.
+        self.oracle_routed = 0
+        self.kernel_rejects = 0
+        self.breaker_state = "closed"
+        self.device_ran = False
+
+    def __repr__(self) -> str:
+        return "BatchStats(" + " ".join(
+            f"{k}={v:.4f}" if isinstance(v, float) else f"{k}={v}"
+            for k, v in self.__dict__.items()) + ")"
+
+
+def new_torch_batch_scheduler(logger_, state, planner,
+                              **kwargs) -> TorchBatchScheduler:
+    return TorchBatchScheduler(logger_, state, planner, **kwargs)
+
+
+register_scheduler("torch-batch", new_torch_batch_scheduler)

@@ -1,0 +1,684 @@
+"""The in-memory state store the batch scheduler reads (a subset of
+``nomad_tpu/state/state_store.py``; reference
+nomad/state/state_store.go:55-1880).
+
+Plain dict tables plus explicit secondary indexes; every table tracks the
+index of its last write, and ``snapshot()`` gives the scheduler an
+isolated view (objects are immutable once inserted: every write path
+inserts fresh copies).  The tables are nodes, jobs (with their alloc
+summaries, which decide which incarnation's allocs ``allocs_by_job``
+returns), evals and allocs.  Bulk placements are stored as the batch
+scheduler makes them: one ``AllocSlab`` is the table value of each of its
+alloc ids, indexed on first read and materialized into an
+``Allocation`` when read by id.
+
+Left out of the copy: the columnar node mirror, the usage delta log
+(``allocs_since``), deployments, namespaces, vault accessors, periodic
+launches, job version history, watch sets, the event stream and
+persistence.  The ``ws`` argument of the readers is kept for the
+interface and ignored.
+"""
+from __future__ import annotations
+
+import threading
+from collections import defaultdict
+from typing import Dict, List, Optional, Set, Tuple
+
+from ..structs import structs as s
+
+# Shared immutable empty result for index misses (never mutated).
+_EMPTY_SET: Set[str] = set()
+
+
+class StateStore:
+    """The authoritative in-memory database of cluster state."""
+
+    def __init__(self) -> None:
+        self._lock = threading.RLock()
+        # Store-lineage id: snapshots inherit it, distinct stores differ;
+        # table indexes are only comparable within one lineage (the batch
+        # scheduler's cluster cache keys on both).
+        self.store_uid: str = s.generate_uuid()
+        self.nodes_table: Dict[str, s.Node] = {}
+        self.jobs_table: Dict[str, s.Job] = {}
+        self.job_summary_table: Dict[str, s.JobSummary] = {}
+        self.evals_table: Dict[str, s.Evaluation] = {}
+        self.allocs_table: Dict[str, s.Allocation] = {}
+        self._indexes: Dict[str, int] = {}
+        # Secondary indexes (schema.go secondary memdb indexes).
+        self._allocs_by_node: Dict[str, object] = defaultdict(set)
+        self._allocs_by_job: Dict[str, object] = defaultdict(set)
+        self._allocs_by_eval: Dict[str, object] = defaultdict(set)
+        self._evals_by_job: Dict[str, object] = defaultdict(set)
+        # Slabs whose by-id rows and per-node index cells are not built
+        # yet: a bulk commit never reads them back in the same batch, so
+        # the per-alloc indexing lands on the first reader that needs it.
+        self._pending_slabs: List[s.AllocSlab] = []
+        self._pending_by_job: Dict[str, List[s.AllocSlab]] = {}
+
+    # -- snapshot ----------------------------------------------------------
+
+    def snapshot(self) -> "StateSnapshot":
+        """A point-in-time view (state_store.go:55)."""
+        with self._lock:
+            snap = StateSnapshot.__new__(StateSnapshot)
+            snap._lock = threading.RLock()
+            snap.store_uid = self.store_uid
+            snap.nodes_table = dict(self.nodes_table)
+            snap.jobs_table = dict(self.jobs_table)
+            snap.job_summary_table = dict(self.job_summary_table)
+            snap.evals_table = dict(self.evals_table)
+            snap.allocs_table = dict(self.allocs_table)
+            snap._indexes = dict(self._indexes)
+            # Index values are immutable by contract (the mutators
+            # replace them), so a shallow dict copy is a full fork.
+            snap._allocs_by_node = defaultdict(set, self._allocs_by_node)
+            snap._allocs_by_job = defaultdict(set, self._allocs_by_job)
+            snap._allocs_by_eval = defaultdict(set, self._allocs_by_eval)
+            snap._evals_by_job = defaultdict(set, self._evals_by_job)
+            snap._pending_slabs = list(self._pending_slabs)
+            snap._pending_by_job = {k: list(v)
+                                    for k, v in self._pending_by_job.items()}
+            # The ready-node memo (scheduler/util.ready_nodes_in_dcs) is
+            # shared by every snapshot cut from the same node table; a
+            # node write drops only the writer's reference (_bump).
+            snap._ready_nodes_cache = self.__dict__.setdefault(
+                "_ready_nodes_cache", {})
+            return snap
+
+    # -- secondary index values ---------------------------------------------
+    #
+    # A value is either a set or a cons cell ``(parent, item_or_items)``
+    # appended in O(1) by a bulk commit; readers flatten it once through
+    # _idx_get and write the set back.
+
+    @staticmethod
+    def _idx_get(idx: Dict[str, object], key: str) -> Set[str]:
+        cur = idx.get(key)
+        if cur is None:
+            return _EMPTY_SET
+        if type(cur) is set:
+            return cur
+        out: Set[str] = set()
+        stack = [cur]
+        while stack:
+            v = stack.pop()
+            if v is None:
+                continue
+            if type(v) is set:
+                out |= v
+            else:  # cons cell (parent, item_or_items)
+                stack.append(v[0])
+                items = v[1]
+                if type(items) is str:
+                    out.add(items)
+                else:
+                    out.update(items)
+        idx[key] = out
+        return out
+
+    @classmethod
+    def _idx_add(cls, idx: Dict[str, object], key: str, item: str) -> None:
+        cur = cls._idx_get(idx, key)
+        idx[key] = {item} if not cur else cur | {item}
+
+    @staticmethod
+    def _idx_append(idx: Dict[str, object], key: str, items) -> None:
+        """O(1) bulk append of ids that are all new (an id or a sequence,
+        possibly a lazy column that must not materialize here)."""
+        cur = idx.get(key)
+        if cur is None and type(items) is str:
+            idx[key] = {items}
+        else:
+            idx[key] = (cur, items)
+
+    # -- index bookkeeping -------------------------------------------------
+
+    def _bump(self, table: str, index: int) -> None:
+        self._indexes[table] = index
+        if table == "nodes":
+            # Node writes are the only thing that changes the ready-node
+            # memo.
+            self.__dict__.pop("_ready_nodes_cache", None)
+
+    def table_index(self, table: str) -> int:
+        with self._lock:
+            return self._indexes.get(table, 0)
+
+    def latest_index(self) -> int:
+        with self._lock:
+            return max(self._indexes.values(), default=0)
+
+    # -- lazy slab resolution ---------------------------------------------
+
+    def _materialize_pending(self) -> None:
+        """Build the by-id rows and per-node index cells of every pending
+        slab."""
+        pending = self._pending_slabs
+        if not pending:
+            return
+        self._pending_slabs = []
+        self._pending_by_job = {}
+        self._drain_slabs(pending)
+
+    def _drain_slabs(self, slabs) -> None:
+        table = self.allocs_table
+        by_node = self._allocs_by_node
+        get = by_node.get
+        for slab in slabs:
+            ids = slab.ids
+            if type(ids) is not list:
+                ids = list(ids)
+                slab.ids = ids
+            for nid, aid in zip(slab.node_ids, ids):
+                cur = get(nid)
+                by_node[nid] = {aid} if cur is None else (cur, aid)
+            for aid in ids:
+                table[aid] = slab
+
+    def _materialize_job_pending(self, job_id: str) -> None:
+        """Drain ``job_id``'s pending slabs only, leaving the others
+        deferred."""
+        slabs = self._pending_by_job.pop(job_id, None)
+        if not slabs:
+            return
+        gone = {id(sl) for sl in slabs}
+        self._pending_slabs = [sl for sl in self._pending_slabs
+                               if id(sl) not in gone]
+        self._drain_slabs(slabs)
+
+    def _get_alloc(self, alloc_id: str) -> Optional[s.Allocation]:
+        """allocs_table read with slab materialization and cache-back.
+        The caller holds the lock."""
+        v = self.allocs_table.get(alloc_id)
+        if v is None and self._pending_slabs:
+            self._materialize_pending()
+            v = self.allocs_table.get(alloc_id)
+        if type(v) is s.AllocSlab:
+            v = v.materialize(v.id_index(alloc_id))
+            self.allocs_table[alloc_id] = v
+        return v
+
+    # -- nodes -------------------------------------------------------------
+
+    def upsert_node(self, index: int, node: s.Node) -> None:
+        """(state_store.go:413); keeps create_index on update."""
+        with self._lock:
+            existing = self.nodes_table.get(node.id)
+            node = node.copy()
+            node.create_index = (existing.create_index
+                                 if existing is not None else index)
+            node.modify_index = index
+            self.nodes_table[node.id] = node
+            self._bump("nodes", index)
+
+    def update_node_status(self, index: int, node_id: str,
+                           status: str) -> None:
+        """(state_store.go:473)."""
+        with self._lock:
+            existing = self.nodes_table.get(node_id)
+            if existing is None:
+                raise KeyError(f"node not found: {node_id}")
+            node = existing.copy()
+            node.status = status
+            node.modify_index = index
+            self.nodes_table[node_id] = node
+            self._bump("nodes", index)
+
+    def update_node_drain(self, index: int, node_id: str,
+                          drain: bool) -> None:
+        """(state_store.go:508)."""
+        with self._lock:
+            existing = self.nodes_table.get(node_id)
+            if existing is None:
+                raise KeyError(f"node not found: {node_id}")
+            node = existing.copy()
+            node.drain = drain
+            node.modify_index = index
+            self.nodes_table[node_id] = node
+            self._bump("nodes", index)
+
+    def node_by_id(self, ws, node_id: str) -> Optional[s.Node]:
+        with self._lock:
+            return self.nodes_table.get(node_id)
+
+    def nodes(self, ws=None) -> List[s.Node]:
+        with self._lock:
+            return list(self.nodes_table.values())
+
+    # -- jobs --------------------------------------------------------------
+
+    def upsert_job(self, index: int, job: s.Job) -> None:
+        """(state_store.go:585): bumps the version on change and keeps the
+        job summary."""
+        with self._lock:
+            job = job.copy()
+            existing = self.jobs_table.get(job.id)
+            if existing is not None:
+                job.create_index = existing.create_index
+                job.version = existing.version + 1
+            else:
+                job.create_index = index
+                job.version = 0
+            job.modify_index = index
+            job.job_modify_index = index
+            job.status = self._get_job_status(job, eval_delete=False)
+            self._update_summary_with_job(index, job)
+            self.jobs_table[job.id] = job
+            self._bump("jobs", index)
+
+    def delete_job(self, index: int, job_id: str) -> None:
+        """(state_store.go:653): removes the job and its summary."""
+        with self._lock:
+            if job_id not in self.jobs_table:
+                raise KeyError(f"job not found: {job_id}")
+            del self.jobs_table[job_id]
+            self.job_summary_table.pop(job_id, None)
+            self._bump("jobs", index)
+            self._bump("job_summary", index)
+
+    def job_by_id(self, ws, job_id: str) -> Optional[s.Job]:
+        with self._lock:
+            return self.jobs_table.get(job_id)
+
+    def _update_summary_with_job(self, index: int, job: s.Job) -> None:
+        """Create or extend the summary when a job is upserted
+        (state_store.go:2159)."""
+        summary = self.job_summary_table.get(job.id)
+        if summary is None:
+            summary = s.JobSummary(job_id=job.id, create_index=index)
+        else:
+            summary = summary.copy()
+        changed = False
+        for tg in job.task_groups:
+            if tg.name not in summary.summary:
+                summary.summary[tg.name] = s.TaskGroupSummary()
+                changed = True
+        if changed or summary.modify_index == 0:
+            summary.modify_index = index
+            self.job_summary_table[job.id] = summary
+            self._bump("job_summary", index)
+
+    # -- evals -------------------------------------------------------------
+
+    def upsert_evals(self, index: int, evals: List[s.Evaluation]) -> None:
+        """(state_store.go:1123): also syncs queued counts into the
+        summaries and cancels blocked evals a successful one obsoletes."""
+        with self._lock:
+            jobs: Dict[str, str] = {}
+            for ev in evals:
+                self._nested_upsert_eval(index, ev)
+                jobs.setdefault(ev.job_id, "")
+            self._set_job_statuses(index, jobs, eval_delete=False)
+            self._bump("evals", index)
+
+    def _nested_upsert_eval(self, index: int, ev: s.Evaluation) -> None:
+        ev = ev.copy()
+        existing = self.evals_table.get(ev.id)
+        ev.create_index = (existing.create_index if existing is not None
+                           else index)
+        ev.modify_index = index
+
+        summary = self.job_summary_table.get(ev.job_id)
+        if summary is not None and ev.queued_allocations:
+            summary = summary.copy()
+            changed = False
+            for tg, num in ev.queued_allocations.items():
+                tgs = summary.summary.get(tg)
+                if tgs is not None and tgs.queued != num:
+                    tgs.queued = num
+                    changed = True
+            if changed:
+                summary.modify_index = index
+                self.job_summary_table[ev.job_id] = summary
+                self._bump("job_summary", index)
+
+        # A successful eval cancels the job's blocked evals.
+        if ev.status == s.EVAL_STATUS_COMPLETE and not ev.failed_tg_allocs:
+            for eid in list(self._idx_get(self._evals_by_job, ev.job_id)):
+                blocked = self.evals_table.get(eid)
+                if (blocked is not None
+                        and blocked.status == s.EVAL_STATUS_BLOCKED):
+                    cancelled = blocked.copy()
+                    cancelled.status = s.EVAL_STATUS_CANCELLED
+                    cancelled.status_description = (
+                        f"evaluation {ev.id!r} successful")
+                    cancelled.modify_index = index
+                    self.evals_table[eid] = cancelled
+
+        self.evals_table[ev.id] = ev
+        self._idx_add(self._evals_by_job, ev.job_id, ev.id)
+
+    def eval_by_id(self, ws, eval_id: str) -> Optional[s.Evaluation]:
+        with self._lock:
+            return self.evals_table.get(eval_id)
+
+    # -- allocs ------------------------------------------------------------
+
+    def upsert_allocs(self, index: int, allocs: List[s.Allocation],
+                      owned: bool = False) -> None:
+        """(state_store.go:1435).  ``owned=True``: the caller hands the
+        objects over (a plan commit makes fresh allocs) and the store
+        inserts them as they are."""
+        with self._lock:
+            self._upsert_allocs_impl(index, allocs, owned)
+
+    def _upsert_allocs_impl(self, index: int, allocs: List[s.Allocation],
+                            owned: bool = False) -> None:
+        jobs: Dict[str, str] = {}
+        summary_cache: Dict[str, s.JobSummary] = {}
+        # Index additions of fresh allocs are batched per key: one O(1)
+        # cons per touched key instead of a set union per alloc.
+        new_by_node: Dict[str, List[str]] = {}
+        new_by_job: Dict[str, List[str]] = {}
+        new_by_eval: Dict[str, List[str]] = {}
+        for alloc in allocs:
+            if not owned:
+                alloc = s._fast_copy(alloc)
+            existing = self._get_alloc(alloc.id)
+            alloc.modify_index = index
+            alloc.alloc_modify_index = index
+            if existing is None:
+                alloc.create_index = index
+            else:
+                alloc.create_index = existing.create_index
+                # The client is the authority on these fields, except when
+                # the scheduler marks the alloc lost
+                # (state_store.go:1480-1489).
+                alloc.task_states = existing.task_states
+                if alloc.client_status != s.ALLOC_CLIENT_STATUS_LOST:
+                    alloc.client_status = existing.client_status
+                    alloc.client_description = existing.client_description
+            self._update_summary_with_alloc(index, alloc, existing,
+                                            summary_cache)
+            if alloc.job is None and existing is not None:
+                alloc.job = existing.job
+            self.allocs_table[alloc.id] = alloc
+            if existing is None:
+                new_by_node.setdefault(alloc.node_id, []).append(alloc.id)
+                new_by_job.setdefault(alloc.job_id, []).append(alloc.id)
+                new_by_eval.setdefault(alloc.eval_id, []).append(alloc.id)
+            else:
+                if alloc.node_id != existing.node_id:
+                    self._idx_add(self._allocs_by_node, alloc.node_id,
+                                  alloc.id)
+                if alloc.job_id != existing.job_id:
+                    self._idx_add(self._allocs_by_job, alloc.job_id,
+                                  alloc.id)
+                if alloc.eval_id != existing.eval_id:
+                    self._idx_add(self._allocs_by_eval, alloc.eval_id,
+                                  alloc.id)
+            if alloc.job is not None:
+                forced = ("" if alloc.terminal_status()
+                          else s.JOB_STATUS_RUNNING)
+                jobs[alloc.job_id] = jobs.get(alloc.job_id) or forced
+        for idx_dict, new_ids in ((self._allocs_by_node, new_by_node),
+                                  (self._allocs_by_job, new_by_job),
+                                  (self._allocs_by_eval, new_by_eval)):
+            for key, ids in new_ids.items():
+                self._idx_append(idx_dict, key,
+                                 ids[0] if len(ids) == 1 else ids)
+        self._set_job_statuses(index, jobs, eval_delete=False)
+        self._bump("allocs", index)
+
+    def allocs_by_node(self, ws, node_id: str) -> List[s.Allocation]:
+        with self._lock:
+            if self._pending_slabs:
+                self._materialize_pending()
+            return [self._get_alloc(aid)
+                    for aid in self._idx_get(self._allocs_by_node, node_id)
+                    if aid in self.allocs_table]
+
+    def allocs_by_node_terminal(self, ws, node_id: str,
+                                terminal: bool) -> List[s.Allocation]:
+        """(state_store.go:1592): the scheduler's proposed-allocs source."""
+        return [a for a in self.allocs_by_node(ws, node_id)
+                if a.terminal_status() == terminal]
+
+    def allocs_by_job(self, ws, job_id: str,
+                      all_allocs: bool = False) -> List[s.Allocation]:
+        """(state_store.go:1615).  Without ``all_allocs``, allocs of an
+        earlier incarnation of a re-registered job are filtered out by
+        the summary's create_index."""
+        with self._lock:
+            if self._pending_slabs:
+                self._materialize_job_pending(job_id)
+            out = [self._get_alloc(aid)
+                   for aid in self._idx_get(self._allocs_by_job, job_id)
+                   if aid in self.allocs_table]
+            if all_allocs:
+                return out
+            summary = self.job_summary_table.get(job_id)
+            if summary is None:
+                return out
+            return [a for a in out if a.job is None
+                    or a.job.create_index == summary.create_index]
+
+    def allocs_by_eval(self, ws, eval_id: str) -> List[s.Allocation]:
+        with self._lock:
+            if self._pending_slabs:
+                self._materialize_pending()
+            return [self._get_alloc(aid)
+                    for aid in self._idx_get(self._allocs_by_eval, eval_id)
+                    if aid in self.allocs_table]
+
+    def allocs(self, ws=None) -> List[s.Allocation]:
+        with self._lock:
+            if self._pending_slabs:
+                self._materialize_pending()
+            return [self._get_alloc(aid) for aid in list(self.allocs_table)]
+
+    # -- rows without materialization (batch encode) -----------------------
+    #
+    # The batch scheduler needs only (node id, resources, status) of each
+    # alloc to encode usage; a slab's allocs are read as (node id, the
+    # slab's shared prototype).  Rows are read-only.
+
+    def alloc_rows(self, ws=None) -> List[Tuple[str, s.Allocation]]:
+        """(node_id, row) for every alloc."""
+        with self._lock:
+            out = []
+            for slab in self._pending_slabs:
+                proto = slab.proto
+                for nid in slab.node_ids:
+                    out.append((nid, proto))
+            seen_slabs = set()
+            table = self.allocs_table
+            for v in table.values():
+                if type(v) is s.AllocSlab:
+                    if id(v) in seen_slabs:
+                        continue
+                    seen_slabs.add(id(v))
+                    # Ids whose table entry was replaced (an update) are
+                    # read through their own entry.
+                    proto = v.proto
+                    for i, aid in enumerate(v.ids):
+                        if table.get(aid) is v:
+                            out.append((v.node_ids[i], proto))
+                else:
+                    out.append((v.node_id, v))
+            return out
+
+    def alloc_rows_by_job(self, ws, job_id: str
+                          ) -> List[Tuple[str, s.Allocation]]:
+        """(node_id, row) for one job's allocs."""
+        with self._lock:
+            out = []
+            for slab in self._pending_by_job.get(job_id, ()):
+                proto = slab.proto
+                for nid in slab.node_ids:
+                    out.append((nid, proto))
+            for aid in self._idx_get(self._allocs_by_job, job_id):
+                v = self.allocs_table.get(aid)
+                if v is None:
+                    continue
+                if type(v) is s.AllocSlab:
+                    out.append((v.node_ids[v.id_index(aid)], v.proto))
+                else:
+                    out.append((v.node_id, v))
+            return out
+
+    # -- bulk placements ---------------------------------------------------
+
+    def upsert_slabs(self, index: int, slabs: List[s.AllocSlab]) -> None:
+        """Bulk columnar insert of fresh placements (the batch scheduler's
+        plans)."""
+        with self._lock:
+            self._upsert_slabs_impl(index, slabs)
+
+    def _upsert_slabs_impl(self, index: int,
+                           slabs: List[s.AllocSlab]) -> None:
+        """The table value of each alloc id is the slab itself; the
+        per-alloc work is deferred to the first reader, the summary and
+        job status are updated once per slab."""
+        jobs: Dict[str, str] = {}
+        for slab in slabs:
+            ids = slab.ids
+            if not ids:
+                continue
+            slab.create_index = index
+            slab.modify_index = index
+            proto = slab.proto
+            self._idx_append(self._allocs_by_job, proto.job_id, ids)
+            self._idx_append(self._allocs_by_eval, proto.eval_id, ids)
+            self._pending_slabs.append(slab)
+            self._pending_by_job.setdefault(proto.job_id, []).append(slab)
+            self._update_summary_bulk(index, proto, len(ids))
+            if proto.job is not None:
+                forced = ("" if proto.terminal_status()
+                          else s.JOB_STATUS_RUNNING)
+                jobs[proto.job_id] = jobs.get(proto.job_id) or forced
+        self._set_job_statuses(index, jobs, eval_delete=False)
+        self._bump("allocs", index)
+
+    def _update_summary_bulk(self, index: int, proto: s.Allocation,
+                             n: int) -> None:
+        """``n`` fresh pending allocs of one (job, task group)."""
+        job = proto.job
+        if job is None:
+            return
+        summary = self.job_summary_table.get(proto.job_id)
+        if summary is None or summary.create_index != job.create_index:
+            return
+        if (proto.task_group not in summary.summary
+                or proto.client_status != s.ALLOC_CLIENT_STATUS_PENDING):
+            return
+        summary = summary.copy()
+        tgs = summary.summary[proto.task_group]
+        tgs.starting += n
+        tgs.queued = max(0, tgs.queued - n)
+        summary.modify_index = index
+        self.job_summary_table[proto.job_id] = summary
+        self._bump("job_summary", index)
+
+    # -- job status --------------------------------------------------------
+
+    def _set_job_statuses(self, index: int, jobs: Dict[str, str],
+                          eval_delete: bool) -> None:
+        """(state_store.go:1968)."""
+        for job_id, forced in jobs.items():
+            job = self.jobs_table.get(job_id)
+            if job is None:
+                continue
+            old_status = job.status if index != job.create_index else ""
+            new_status = forced or self._get_job_status(job, eval_delete)
+            if old_status == new_status:
+                continue
+            updated = job.copy()
+            updated.status = new_status
+            updated.modify_index = index
+            self.jobs_table[job.id] = updated
+            self._bump("jobs", index)
+
+    def _get_job_status(self, job: s.Job, eval_delete: bool) -> str:
+        """(state_store.go:2092)."""
+        has_alloc = False
+        for slab in self._pending_by_job.get(job.id, ()):
+            has_alloc = True
+            if not slab.proto.terminal_status():
+                return s.JOB_STATUS_RUNNING
+        for aid in self._idx_get(self._allocs_by_job, job.id):
+            alloc = self.allocs_table.get(aid)
+            if alloc is None:
+                continue
+            if type(alloc) is s.AllocSlab:
+                alloc = alloc.proto
+            has_alloc = True
+            if not alloc.terminal_status():
+                return s.JOB_STATUS_RUNNING
+
+        has_eval = False
+        for eid in self._idx_get(self._evals_by_job, job.id):
+            ev = self.evals_table.get(eid)
+            if ev is None:
+                continue
+            has_eval = True
+            if not ev.terminal_status():
+                return s.JOB_STATUS_PENDING
+
+        if job.type == s.JOB_TYPE_SYSTEM:
+            return s.JOB_STATUS_DEAD if job.stop else s.JOB_STATUS_RUNNING
+        if eval_delete or has_eval or has_alloc:
+            return s.JOB_STATUS_DEAD
+        return s.JOB_STATUS_PENDING
+
+    def _update_summary_with_alloc(
+        self, index: int, alloc: s.Allocation,
+        existing: Optional[s.Allocation],
+        cache: Optional[Dict[str, s.JobSummary]] = None,
+    ) -> None:
+        """(state_store.go:2296).  ``cache`` copies each job's summary
+        once per bulk upsert."""
+        if alloc.job is None:
+            return
+        summary = cache.get(alloc.job_id) if cache is not None else None
+        if summary is None:
+            summary = self.job_summary_table.get(alloc.job_id)
+            if summary is None:
+                return
+            if summary.create_index != alloc.job.create_index:
+                return
+            summary = summary.copy()
+            if cache is not None:
+                cache[alloc.job_id] = summary
+        tgs = summary.summary.get(alloc.task_group)
+        if tgs is None:
+            return
+
+        changed = False
+        if existing is None:
+            if alloc.client_status == s.ALLOC_CLIENT_STATUS_PENDING:
+                tgs.starting += 1
+                if tgs.queued > 0:
+                    tgs.queued -= 1
+                changed = True
+        elif existing.client_status != alloc.client_status:
+            inc = {
+                s.ALLOC_CLIENT_STATUS_RUNNING: "running",
+                s.ALLOC_CLIENT_STATUS_FAILED: "failed",
+                s.ALLOC_CLIENT_STATUS_PENDING: "starting",
+                s.ALLOC_CLIENT_STATUS_COMPLETE: "complete",
+                s.ALLOC_CLIENT_STATUS_LOST: "lost",
+            }
+            dec = {
+                s.ALLOC_CLIENT_STATUS_RUNNING: "running",
+                s.ALLOC_CLIENT_STATUS_PENDING: "starting",
+                s.ALLOC_CLIENT_STATUS_LOST: "lost",
+            }
+            if alloc.client_status in inc:
+                f = inc[alloc.client_status]
+                setattr(tgs, f, getattr(tgs, f) + 1)
+            if existing.client_status in dec:
+                f = dec[existing.client_status]
+                setattr(tgs, f, getattr(tgs, f) - 1)
+            changed = True
+
+        if changed:
+            summary.modify_index = index
+            self.job_summary_table[alloc.job_id] = summary
+            self._bump("job_summary", index)
+
+
+class StateSnapshot(StateStore):
+    """A point-in-time view; writes to a snapshot do not reach the parent
+    store."""

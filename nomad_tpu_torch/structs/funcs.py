@@ -1,9 +1,77 @@
-"""Scalar scoring helper (``nomad_tpu/structs/funcs.py:82``)."""
+"""Fit and scoring functions (a copy of ``nomad_tpu/structs/funcs.py``;
+reference nomad/structs/funcs.go): ``allocs_fit`` (:60) and ``score_fit``
+(:123, Google best-fit-v3), the CPU oracle's scalar versions of what the
+device pass computes over the whole [U, N] matrix."""
 from __future__ import annotations
 
 import math
+from typing import Dict, List, Optional, Tuple
 
-from .structs import Node, Resources
+from .network import NetworkIndex
+from .structs import Allocation, Node, Resources
+
+
+def remove_allocs(allocs: List[Allocation],
+                  remove: List[Allocation]) -> List[Allocation]:
+    """Drop the allocs whose ids appear in ``remove`` (funcs.go:11)."""
+    remove_ids = {a.id for a in remove}
+    return [a for a in allocs if a.id not in remove_ids]
+
+
+def filter_terminal_allocs(
+    allocs: List[Allocation],
+) -> Tuple[List[Allocation], Dict[str, Allocation]]:
+    """Split out terminal allocs, keeping the latest terminal alloc per
+    name (funcs.go:33)."""
+    terminal: Dict[str, Allocation] = {}
+    live: List[Allocation] = []
+    for alloc in allocs:
+        if alloc.terminal_status():
+            prev = terminal.get(alloc.name)
+            if prev is None or prev.create_index < alloc.create_index:
+                terminal[alloc.name] = alloc
+        else:
+            live.append(alloc)
+    return live, terminal
+
+
+def allocs_fit(
+    node: Node,
+    allocs: List[Allocation],
+    net_idx: Optional[NetworkIndex] = None,
+) -> Tuple[bool, str, Resources]:
+    """Whether the allocs all fit on the node: ``(fit, exhausted
+    dimension, used resources)`` (funcs.go:60).  With ``net_idx`` the
+    caller has already checked the ports; otherwise one is built here."""
+    used = Resources()
+    if node.reserved is not None:
+        used.add(node.reserved)
+
+    for alloc in allocs:
+        if alloc.resources is not None:
+            used.add(alloc.resources)
+        elif alloc.task_resources:
+            # Plan-internal allocs carry per-task resources with the
+            # combined ask stripped: shared + per-task.
+            used.add(alloc.shared_resources)
+            for task_res in alloc.task_resources.values():
+                used.add(task_res)
+        else:
+            raise ValueError(f"allocation {alloc.id!r} has no resources set")
+
+    ok, dimension = node.resources.superset(used)
+    if not ok:
+        return False, dimension, used
+
+    if net_idx is None:
+        net_idx = NetworkIndex()
+        if net_idx.set_node(node) or net_idx.add_allocs(allocs):
+            return False, "reserved port collision", used
+
+    if net_idx.overcommitted():
+        return False, "bandwidth exceeded", used
+
+    return True, "", used
 
 
 def score_fit(node: Node, util: Resources) -> float:

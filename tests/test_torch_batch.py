@@ -20,6 +20,7 @@ from nomad_tpu.ops import batch_sched as jbatch
 from nomad_tpu.ops import kernels as jkernels
 from nomad_tpu.ops import xfer as jxfer
 from nomad_tpu.ops.batch_sched import TPUBatchScheduler
+from nomad_tpu.ops.breaker import KernelCircuitBreaker
 from nomad_tpu.scheduler import Harness
 from nomad_tpu.structs import structs as js
 from nomad_tpu_torch import convert
@@ -64,8 +65,13 @@ def run_reference(h, jobs, seed, monkeypatch):
     for j in jobs:
         if h.state.job_by_id(None, j.id) is None:
             h.state.upsert_job(h.next_index(), j)
-    sched = TPUBatchScheduler(h.logger, h.snapshot(), h)
-    sched.schedule_batch([reg_eval(j) for j in jobs])
+    # Its own breaker: the process-wide one may have been tripped by
+    # another test in this process, which would route the reference
+    # through its CPU oracle.
+    sched = TPUBatchScheduler(h.logger, h.snapshot(), h,
+                              breaker=KernelCircuitBreaker())
+    stats = sched.schedule_batch([reg_eval(j) for j in jobs])
+    assert stats.oracle_routed == 0
 
 
 def reference_outcome(h, jobs, before=()):

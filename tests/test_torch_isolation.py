@@ -50,6 +50,20 @@ for t in job.task_groups[0].tasks:
 res = schedule_batch(nodes, [job], rng_seed=3, device="cpu")
 sp = res.placements[(job.id, "web")]
 assert len(sp.node_ids) == 10 and sp.unplaced == 0, sp
+from nomad_tpu_torch.scheduler.scheduler import new_scheduler
+from nomad_tpu_torch.scheduler.testing import Harness
+from nomad_tpu_torch.structs import structs as s
+h = Harness()
+for n in nodes:
+    h.state.upsert_node(h.next_index(), n)
+h.state.upsert_job(h.next_index(), job)
+ev = s.Evaluation(id=s.generate_uuid(), type=job.type, job_id=job.id,
+                  triggered_by=s.EVAL_TRIGGER_JOB_REGISTER)
+stats = new_scheduler("torch-batch", h.logger, h.snapshot(), h,
+                      device="cpu", rng_seed=3).schedule_batch([ev])
+assert stats.device_ran and stats.oracle_routed == 0, stats
+assert len(h.state.allocs_by_job(None, job.id, True)) == 10
+assert [e.status for e in h.evals] == [s.EVAL_STATUS_COMPLETE], h.evals
 print("ok")
 """
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -71,6 +85,12 @@ def test_default_device_raises_without_cuda():
 
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         schedule_batch([mock.node()], [mock.job()], rng_seed=1)
+    from nomad_tpu_torch.ops.batch_sched import TorchBatchScheduler
+    from nomad_tpu_torch.scheduler.testing import Harness
+
+    h = Harness()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        TorchBatchScheduler(h.logger, h.snapshot(), h)
 
 
 def test_kernel_wrapper_never_computes_plain_off_the_cpu():

@@ -30,6 +30,7 @@ from nomad_tpu.ops import batch_sched as jbatch
 from nomad_tpu.ops import kernels as jk
 from nomad_tpu.ops import xfer as jxfer
 from nomad_tpu.ops.batch_sched import TPUBatchScheduler
+from nomad_tpu.ops.breaker import KernelCircuitBreaker
 from nomad_tpu.parallel import make_node_mesh as jax_mesh
 from nomad_tpu.parallel import sharded_placement_rounds as jax_rounds
 from nomad_tpu.scheduler import Harness
@@ -232,7 +233,12 @@ def run_both(h, jobs, seed, monkeypatch, mesh=None):
                                      rng_seed=seed,
                                      eval_ids=[e.id for e in evals], **kw)
     monkeypatch.setenv("NOMAD_TPU_RNG_SEED", str(seed))
-    TPUBatchScheduler(h.logger, h.snapshot(), h).schedule_batch(evals)
+    # Its own breaker: a tripped process-wide one would route the
+    # reference through its CPU oracle.
+    stats = TPUBatchScheduler(h.logger, h.snapshot(), h,
+                              breaker=KernelCircuitBreaker()
+                              ).schedule_batch(evals)
+    assert stats.oracle_routed == 0
     return res, {a.id for a in before}
 
 
@@ -466,8 +472,10 @@ def capture_reference_fused(monkeypatch, build):
     for j in jobs:
         h.state.upsert_job(h.next_index(), j)
     monkeypatch.setenv("NOMAD_TPU_RNG_SEED", "61")
-    TPUBatchScheduler(h.logger, h.snapshot(), h).schedule_batch(
-        [reg_eval(j) for j in jobs])
+    stats = TPUBatchScheduler(h.logger, h.snapshot(), h,
+                              breaker=KernelCircuitBreaker()
+                              ).schedule_batch([reg_eval(j) for j in jobs])
+    assert stats.oracle_routed == 0
     kw = captured["kw"]
     return (jxfer.unpack_host(captured["static"], kw["meta_s"]),
             jxfer.unpack_host(captured["dyn"], kw["meta_d"]), kw,
