@@ -64,14 +64,35 @@ Phases, each printed as one JSON line:
                per committing step; then the kernel breaker drill (a
                corrupted result rejected, the oracle carrying, a clean
                probe closing it);
-14. times   -- each kernel's device time (profiler trace; CUDA events
+14. applied -- plans applied and fed back at config (b) width: the
+               port's ``PlanApplier`` as the ``Harness`` planner and the
+               resident usage mirror (``ops/resident.py``); batch 0, two
+               follow-ups and six more through ``schedule_stream``, on
+               the card with the mirror (``guard_every=1``), the card
+               without it and the CPU with it: every plan, eval update
+               and failure AllocMetric identical; batch 0 committed whole
+               by the vectorized re-check on the card; no mismatch of the
+               mirror's guards, one install, the card twin equal to the
+               host mirror and to a full walk; an over-commit drill (a
+               node filled between a batch's snapshot and its submit: a
+               partial commit, the retry places the rest) and a
+               corruption drill (``ops.resident_state``: the guard trips,
+               the breaker hears it, the plans are the clean worlds');
+               then the card with the default guard cadence (follow-up
+               encode and ``h2d_bytes`` against the card without the
+               mirror; the stream against the same batches one by one),
+               batch 0 and two follow-ups on a 4-shard mesh of the card
+               (its sharded twin; plans equal the single card's) and a
+               batch with network asks through the applier's scalar
+               check on the card and the CPU (plans and offers equal);
+15. times   -- each kernel's device time (profiler trace; CUDA events
                where the trace has none) over copies of its inputs that
                overflow the L2, its plain version's and the bound for the
                same work on this card; scored_rows also without base (the
                mesh's call at config_mesh); the launch floor (a one-element
                fill); the kernels' SASS instruction counts and the
                issue-rate time they give;
-15. profile -- config (b)'s first batch again, warm, on the single card
+16. profile -- config (b)'s first batch again, warm, on the single card
                and on a 4-shard mesh: untraced, and under a device-only
                trace for the device busy time and idle share.
 
@@ -1081,10 +1102,14 @@ def eval_world(dev, nodes, batches, smi, counted):
     from nomad_tpu_torch.ops.batch_sched import TorchBatchScheduler
     from nomad_tpu_torch.ops.breaker import KernelCircuitBreaker
     from nomad_tpu_torch.scheduler.testing import Harness
+    from nomad_tpu_torch.state import StateStore
 
-    out = {"stats": [], "plans": []}
+    # A store of its own lineage (made before the ids are seeded), so the
+    # resident usage mirror of the card's world never keys as the CPU's.
+    store = StateStore()
+    out = {"stats": [], "plans": [], "store_uid": store.store_uid}
     with seeded_ids(EVAL_SEED) as ids:
-        h = Harness()
+        h = Harness(store)
         for n in nodes:
             h.state.upsert_node(h.next_index(), n)
         brk = KernelCircuitBreaker()
@@ -1155,6 +1180,9 @@ def phase_evals(dev, n_nodes=10_000, n_jobs=100, count=1000):
 
     card = eval_world(dev, nodes, batches, smi, counted=True)
     cpu = eval_world("cpu", nodes, batches, smi, counted=False)
+    if card["store_uid"] == cpu["store_uid"]:
+        raise AssertionError("the card's and the CPU's stores share a "
+                             "lineage")
     rows = []
     for (st, row), (cst, crow) in zip(card["stats"], cpu["stats"]):
         emit({"phase": "evals", **row})
@@ -1280,7 +1308,499 @@ def phase_evals(dev, n_nodes=10_000, n_jobs=100, count=1000):
             "card": smi}
 
 
-# -- phase 14: times ---------------------------------------------------------
+# -- phase 14: applied -------------------------------------------------------
+
+APPLIED_SEED = 20261018
+
+
+class OverCommit:
+    """A planner in front of another: before the first plan it forwards,
+    it fills the first node that plan places on to its CPU capacity
+    (outside the scheduler, between the batch's snapshot and its
+    submit)."""
+
+    def __init__(self, h, inner):
+        self.h, self.inner = h, inner
+        self.node_id = None
+
+    def submit_plan(self, plan):
+        from nomad_tpu_torch.structs import structs as ps
+
+        if self.node_id is None and plan.alloc_slabs:
+            state = self.h.state
+            self.node_id = plan.alloc_slabs[0].node_ids[0]
+            node = state.node_by_id(None, self.node_id)
+            left = node.resources.cpu - node.reserved.cpu - sum(
+                a.resources.cpu for a in state.allocs_by_node_terminal(
+                    None, self.node_id, False))
+            state.upsert_allocs(self.h.next_index(), [ps.Allocation(
+                id="over-commit-drill", job_id="over-commit-drill",
+                node_id=self.node_id, task_group="web",
+                resources=ps.Resources(cpu=left, memory_mb=16))])
+        return self.inner.submit_plan(plan)
+
+    def update_eval(self, ev):
+        self.inner.update_eval(ev)
+
+    def create_eval(self, ev):
+        self.inner.create_eval(ev)
+
+    def reblock_eval(self, ev):
+        self.inner.reblock_eval(ev)
+
+
+def mirror_check(h, pad_m=128) -> dict:
+    """Catch the resident mirror up to the store (as the next batch
+    would, without the guard), then hold its device twin against the
+    host mirror and the host mirror against a full walk."""
+    import numpy as np
+
+    from nomad_tpu_torch.ops import batch_sched, resident
+    from nomad_tpu_torch.ops.batch_sched import TorchBatchScheduler
+
+    st = resident._STATE
+    if st is None:
+        raise AssertionError("no resident mirror")
+    snap = h.snapshot()
+    base = batch_sched._cluster_static(snap.nodes(None), [], {}, False,
+                                       pad_m)
+    rows_fn = TorchBatchScheduler(h.logger, snap, h,
+                                  device="cpu")._live_allocs_by_node
+    resident.acquire(snap, st.key, base, rows_fn, guard_every=0)
+    st = resident._STATE
+    walk, _ = resident._full_usage(base, rows_fn)
+    dev = (resident.device_used_host(st.used_dev)
+           if st.used_dev is not None else None)
+    out = {"device_twin": None if st.used_dev is None else (
+               [str(p.device) for p in st.used_dev]
+               if isinstance(st.used_dev, list) else str(st.used_dev.device)),
+           "device_eq_host": dev is not None
+           and bool(np.array_equal(dev, st.used)),
+           "host_eq_walk": bool(np.array_equal(st.used, walk)),
+           "alloc_index": st.alloc_index}
+    if not (out["device_eq_host"] and out["host_eq_walk"]):
+        raise AssertionError(f"mirror check: {out}")
+    return out
+
+
+def applied_world(dev, nodes, batches, smi, label, *, resident=True,
+                  guard_every=1, mesh=None, stream=(), drills=(),
+                  serial_tail=(), counted=False, check_mirror=False):
+    """Batches through a fresh Harness whose planner is the port's
+    ``PlanApplier`` on ``dev``: ``batches`` one by one, then ``stream``
+    through ``schedule_stream``, then the ``drills`` (``overcommit``,
+    ``corrupt``) and ``serial_tail`` one by one.  With
+    ``check_mirror``, the mirror's counters and :func:`mirror_check`
+    after the stream and again after the drills.  Ids and seeds as in
+    every other world, so plans compare whole."""
+    from nomad_tpu_torch import fault
+    from nomad_tpu_torch.ops import resident as resmod
+    from nomad_tpu_torch.ops.batch_sched import TorchBatchScheduler
+    from nomad_tpu_torch.ops.breaker import KernelCircuitBreaker
+    from nomad_tpu_torch.scheduler import context as pcontext
+    from nomad_tpu_torch.scheduler.testing import Harness
+    from nomad_tpu_torch.server import PlanApplier
+    from nomad_tpu_torch.state import StateStore
+
+    resmod.reset_counters()
+    # A store of its own lineage (made before the ids are seeded): the
+    # resident mirror of one world never keys as another's.
+    store = StateStore()
+    out = {"label": label, "rows": [], "plans": [], "checkpoint": None,
+           "store_uid": store.store_uid}
+    kw = {"mesh": mesh} if mesh is not None else {"device": dev}
+    with seeded_ids(APPLIED_SEED) as ids:
+        h = Harness(store)
+        for n in nodes:
+            h.state.upsert_node(h.next_index(), n)
+        app = PlanApplier(h.state, device=dev, next_index=h.next_index)
+        h.planner = app
+        brk = KernelCircuitBreaker()
+        out["harness"], out["breaker"] = h, brk
+
+        def sched(seed):
+            return TorchBatchScheduler(
+                h.logger, h.snapshot(), h, rng_seed=seed, breaker=brk,
+                resident=resident, guard_every=guard_every, **kw)
+
+        def record(name, st, app_stats, counts, plans, wall=None):
+            row = {"phase": "applied", "world": label, "batch": name,
+                   "evals": st.num_evals, "asks": st.num_asks,
+                   "rounds": st.rounds, "oracle_routed": st.oracle_routed,
+                   "h2d_bytes": st.h2d_bytes,
+                   "static_h2d_bytes": st.static_h2d_bytes,
+                   "delta_rows": st.delta_rows,
+                   "resident_hits": st.resident_hits,
+                   "full_reencodes": st.full_reencodes,
+                   "delta_apply_seconds": st.delta_apply_seconds,
+                   "pipeline_overlap_s": st.pipeline_overlap_s,
+                   **{k: getattr(st, k) for k in (
+                       "phase1_seconds", "encode_seconds", "device_seconds",
+                       "metrics_seconds", "finalize_seconds",
+                       "total_seconds")},
+                   "applier": {k: (sorted(v) if isinstance(v, set) else v)
+                               for k, v in app_stats.items()},
+                   **counts, "card": smi}
+            if wall is not None:
+                row["wall_seconds"] = wall
+            out["rows"].append((st, row))
+            out["plans"].append([plan_rows(p) for p in plans])
+            emit(row)
+            return row
+
+        def one(name, jobs, seed, planner=None):
+            for j in jobs:
+                h.state.upsert_job(h.next_index(), j)
+            evals = reg_evals(jobs, ids)
+            n_plans = len(h.plans)
+            app.reset_stats()
+            if planner is not None:
+                h.planner = planner
+            try:
+                if counted:
+                    st, counts = run_counted(
+                        lambda: sched(seed).schedule_batch(evals))
+                else:
+                    st, counts = sched(seed).schedule_batch(evals), {}
+            finally:
+                h.planner = app
+            return record(name, st, dict(app.stats), counts,
+                          h.plans[n_plans:])
+
+        for b, (name, jobs) in enumerate(batches):
+            one(name, jobs, SEED + b)
+
+        if stream:
+            for _, jobs in stream:
+                for j in jobs:
+                    h.state.upsert_job(h.next_index(), j)
+            ev_lists = [reg_evals(jobs, ids) for _, jobs in stream]
+            s = sched(SEED + 50)
+            per_batch = []
+            real_complete = s._complete_prepared
+
+            def complete(prep):
+                app.reset_stats()
+                n0 = len(h.plans)
+                st_b = real_complete(prep)
+                per_batch.append((dict(app.stats), n0))
+                return st_b
+
+            # Each batch's plans are submitted as it completes.
+            s._complete_prepared = complete
+            t0 = time.perf_counter()
+            if counted:
+                sts, counts = run_counted(
+                    lambda: s.schedule_stream(ev_lists,
+                                              state_source=h.snapshot))
+            else:
+                sts, counts = s.schedule_stream(
+                    ev_lists, state_source=h.snapshot), {}
+            wall = time.perf_counter() - t0
+            ends = [n0 for _, n0 in per_batch[1:]] + [len(h.plans)]
+            for (name, _), st_b, (a_st, n0), end in zip(stream, sts,
+                                                         per_batch, ends):
+                record(name, st_b, a_st, {}, h.plans[n0:end])
+            out["stream"] = {"batches": len(sts), "wall_seconds": wall,
+                             "sum_total_seconds": sum(x.total_seconds
+                                                      for x in sts),
+                             "overlap_seconds": [x.pipeline_overlap_s
+                                                 for x in sts],
+                             **counts}
+            emit({"phase": "applied", "world": label, "stream":
+                  out["stream"], "card": smi})
+
+        if check_mirror:
+            out["checkpoint"] = {
+                "counters": {c: getattr(resmod, c) for c in (
+                    "HITS", "GUARD_RUNS", "GUARD_MISMATCHES",
+                    "DEV_GUARD_MISMATCHES", "DEV_INSTALLS", "DEV_APPLIES",
+                    "FULL_REENCODES", "STALENESS_FALLBACKS")},
+                "mirror": mirror_check(h)}
+
+        for k, (name, jobs) in enumerate(drills):
+            # The oracle's conflict retry draws its node order from here.
+            pcontext._SEED_SOURCE = random.Random(APPLIED_SEED + k)
+            if name == "overcommit":
+                oc = OverCommit(h, app)
+                row = one(name, jobs, SEED + 60 + k, planner=oc)
+                row["overcommit_node"] = oc.node_id
+                out["overcommit"] = row
+            elif name == "corrupt":
+                mm0 = resmod.GUARD_MISMATCHES
+                with fault.scenario({"seed": 3, "faults": [
+                        {"point": "ops.resident_state", "action": "corrupt",
+                         "times": 1}]}):
+                    row = one(name, jobs, SEED + 60 + k)
+                    fired = fault.trace()
+                out["corrupt"] = {"row": row, "fired": fired,
+                                  "guard_mismatches": resmod.GUARD_MISMATCHES
+                                  - mm0,
+                                  "breaker_agreement": brk.agreement()}
+        if drills and check_mirror:
+            out["final_mirror"] = mirror_check(h)
+
+        if serial_tail:
+            t0 = time.perf_counter()
+            for k, (name, jobs) in enumerate(serial_tail):
+                one(name, jobs, SEED + 50)
+            out["serial_tail_wall_seconds"] = time.perf_counter() - t0
+        out["over_capacity"] = store_over_capacity(h)
+        out["eval_rows"] = eval_rows(h)
+    return out
+
+
+def net_plan_rows(p):
+    """A plan's rows with every placed alloc's offers."""
+    return (plan_rows(p), {n: [(a.id, sorted(
+        (t, nr.device, nr.ip, nr.mbits,
+         tuple((x.label, x.value) for x in nr.reserved_ports),
+         tuple((x.label, x.value) for x in nr.dynamic_ports))
+        for t, r in a.task_resources.items() for nr in r.networks))
+        for a in v] for n, v in p.node_allocation.items()})
+
+
+def network_world(dev, nodes, jobs, smi):
+    """One batch with network asks through the applier: the resident
+    mirror is bypassed and every node takes the scalar fit check."""
+    from nomad_tpu_torch.ops import resident as resmod
+    from nomad_tpu_torch.ops.batch_sched import TorchBatchScheduler
+    from nomad_tpu_torch.ops.breaker import KernelCircuitBreaker
+    from nomad_tpu_torch.scheduler.testing import Harness
+    from nomad_tpu_torch.server import PlanApplier
+    from nomad_tpu_torch.state import StateStore
+
+    resmod.reset_counters()
+    store = StateStore()
+    with seeded_ids(APPLIED_SEED + 1) as ids:
+        h = Harness(store)
+        for n in nodes:
+            h.state.upsert_node(h.next_index(), n)
+        app = PlanApplier(h.state, device=dev, next_index=h.next_index)
+        h.planner = app
+        for j in jobs:
+            h.state.upsert_job(h.next_index(), j)
+        st = TorchBatchScheduler(
+            h.logger, h.snapshot(), h, device=dev, rng_seed=SEED,
+            breaker=KernelCircuitBreaker(), guard_every=1).schedule_batch(
+            reg_evals(jobs, ids))
+        row = {"phase": "applied", "world": f"network {dev}",
+               "batch": "network", "asks": st.num_asks,
+               "oracle_routed": st.oracle_routed,
+               "resident_hits": st.resident_hits,
+               "full_reencodes": st.full_reencodes,
+               "mirror_installs": resmod.DEV_INSTALLS,
+               "h2d_bytes": st.h2d_bytes,
+               **{k: getattr(st, k) for k in (
+                   "encode_seconds", "device_seconds", "total_seconds")},
+               "applier": {k: (sorted(v) if isinstance(v, set) else v)
+                           for k, v in app.stats.items()},
+               "placed": sum(len(v) for p in h.plans
+                             for v in p.node_allocation.values()),
+               "nodes_over_capacity": store_over_capacity(h), "card": smi}
+        emit(row)
+        return row, [net_plan_rows(p) for p in h.plans], eval_rows(h), \
+            network_check(nodes, [a for a in h.state.allocs(None)
+                                  if not a.terminal_status()])
+
+
+def phase_applied(dev, n_nodes=10_000, n_jobs=100, count=1000,
+                  n_stream=6):
+    """Plans applied and fed back at config (b) width: the port's
+    ``PlanApplier`` as the Harness planner, the resident usage mirror on
+    (card, ``guard_every=1``), off (card) and on (CPU); batch 0, two
+    follow-ups, ``n_stream`` more through ``schedule_stream``, an
+    over-commit drill and a corruption drill.  Then the card with the
+    default guard cadence (for the encode times, and the stream against
+    the same follow-ups one by one), batch 0 and two follow-ups on a
+    4-shard mesh of the card, and a batch with network asks on the card
+    and the CPU."""
+    from nomad_tpu_torch import mock
+    from nomad_tpu_torch.ops import batch_sched, resident
+    from nomad_tpu_torch.parallel import make_node_mesh
+
+    smi = smi_name_power()
+    nodes = [strip_node(mock.node()) for _ in range(n_nodes)]
+    jobs0 = [strip_job(mock.job(), count) for _ in range(n_jobs)]
+
+    def follow(n):
+        return [strip_job(mock.job(), count // 5, cpu=100, mem=128)
+                for _ in range(10)] if n else []
+
+    head = [("batch0", jobs0), ("follow_up1", follow(1)),
+            ("follow_up2", follow(1))]
+    stream = [(f"stream{k + 1}", follow(1)) for k in range(n_stream)]
+    # The corruption drill first: the mirror it drops is rebuilt by the
+    # over-commit drill's batch, and checked again after it.
+    drills = [("corrupt", follow(1)), ("overcommit", follow(1))]
+    tail = [(f"serial{k + 1}", follow(1)) for k in range(n_stream)]
+
+    w1 = applied_world(dev, nodes, head, smi, "card mirror guard_every=1",
+                       stream=stream, drills=drills, counted=True,
+                       check_mirror=True)
+    w2 = applied_world(dev, nodes, head, smi, "card no mirror",
+                       resident=False, stream=stream, drills=drills)
+    w3 = applied_world("cpu", nodes, head, smi, "cpu mirror guard_every=1",
+                       stream=stream, drills=drills, check_mirror=True)
+    w4 = applied_world(dev, nodes, head, smi, "card mirror guard_every=64",
+                       guard_every=64, stream=stream, serial_tail=tail)
+    # The card's and the CPU's stores are of different lineages, so their
+    # mirrors key apart (their placements differ besides).
+    if len({w["store_uid"] for w in (w1, w2, w3, w4)}) != 4:
+        raise AssertionError("two worlds share a store lineage")
+    mesh = make_node_mesh([dev] * MESH_SHARDS)
+    w5 = applied_world(dev, nodes, head, smi, "card mesh4 mirror",
+                       mesh=mesh)
+    mesh_twin = type(resident._STATE.used_dev).__name__
+    mesh_mirror = mirror_check(w5["harness"], pad_m=batch_sched.
+                               _node_pad_multiple(mesh))
+
+    # Plans, eval statuses and failure AllocMetrics: every world equal.
+    names = [n for n, _ in head + stream + drills]
+    for w in (w2, w3):
+        for b, name in enumerate(names):
+            if w["plans"][b] != w1["plans"][b]:
+                raise AssertionError(f"{name}: {w['label']} plans differ "
+                                     f"from {w1['label']}")
+        if w["eval_rows"] != w1["eval_rows"]:
+            raise AssertionError(f"{w['label']}: eval updates differ")
+    n_head_stream = len(head) + len(stream)
+    if w4["plans"][:n_head_stream] != w1["plans"][:n_head_stream]:
+        raise AssertionError("guard_every=64 plans differ")
+    if w5["plans"] != w1["plans"][:len(head)]:
+        raise AssertionError("the mesh's plans differ from the single "
+                             "card's")
+    for w in (w1, w2, w3, w4, w5):
+        if w["over_capacity"]:
+            raise AssertionError(f"{w['label']}: {w['over_capacity']} nodes "
+                                 "over capacity")
+        for st, row in w["rows"]:
+            if not st.device_ran or (st.oracle_routed
+                                     and row["batch"] != "overcommit"):
+                raise AssertionError(f"{w['label']}: {row}")
+    for st, row in w5["rows"]:
+        if st.mesh_shards != MESH_SHARDS:
+            raise AssertionError(f"mesh batch on {st.mesh_shards} shards")
+
+    # The applier: batch 0 whole through the vectorized route on the card.
+    b0 = w1["rows"][0][1]["applier"]
+    if (b0["partial"] or b0["vectorized"] != b0["plans"]
+            or b0["fit_devices"] != [str(torch_device(dev))]):
+        raise AssertionError(f"batch 0's applier: {b0}")
+
+    # The mirror: clean, one install, a guard run at every hit.
+    c = w1["checkpoint"]["counters"]
+    if (c["GUARD_MISMATCHES"] or c["DEV_GUARD_MISMATCHES"]
+            or c["DEV_INSTALLS"] != 1 or c["GUARD_RUNS"] != c["HITS"]
+            or c["HITS"] != len(head) + len(stream) - 1):
+        raise AssertionError(f"mirror counters: {c}")
+    if w1["checkpoint"]["mirror"]["device_twin"] != str(torch_device(dev)):
+        raise AssertionError(f"mirror twin: {w1['checkpoint']['mirror']}")
+    # One scored_rows launch per committing spec step (on the card; the
+    # CPU computes the plain version).
+    on_card = torch_device(dev).type == "cuda"
+    for counts in [r for _, r in w1["rows"] if "scored_rows_launches" in r
+                   ] + [w1["stream"]]:
+        if on_card and (counts["scored_rows_launches"] <= 0
+                        or counts["scored_rows_launches"]
+                        != counts["committing_spec_steps"]):
+            raise AssertionError(f"launches: {counts}")
+
+    # Over-commit drill: a partial commit, the retry placed the rest.
+    oc = w1["overcommit"]
+    if not (oc["applier"]["partial"] >= 1 and oc["oracle_routed"] >= 1):
+        raise AssertionError(f"over-commit drill: {oc}")
+    oc_jobs = drills[0][1]
+    placed_oc = sum(len([a for a in w1["harness"].state.allocs_by_job(
+        None, j.id, True) if not a.terminal_status()]) for j in oc_jobs)
+    if placed_oc != sum(j.task_groups[0].count for j in oc_jobs):
+        raise AssertionError(f"over-commit drill placed {placed_oc}")
+
+    # Corruption drill: the guard tripped, the breaker heard it, the batch
+    # ran on the walk (its plans equal the clean worlds', checked above).
+    cd = w1["corrupt"]
+    if not (cd["fired"] == [("ops.resident_state", 0, "corrupt")]
+            and cd["guard_mismatches"] == 1
+            and cd["breaker_agreement"] < 1.0
+            and cd["row"]["full_reencodes"] == 1
+            and cd["row"]["resident_hits"] == 0):
+        raise AssertionError(f"corruption drill: {cd}")
+    if w2["corrupt"]["fired"]:
+        raise AssertionError("the corruption fired without a mirror")
+
+    # The network batch (mirror bypassed, scalar fit checks): card = CPU.
+    net_nodes = [mock.node() for _ in range(2_000)]
+    net_jobs = [net_job(200) for _ in range(10)]
+    n_card, p_card, e_card, chk_card = network_world(dev, net_nodes,
+                                                     net_jobs, smi)
+    n_cpu, p_cpu, e_cpu, chk_cpu = network_world("cpu", net_nodes,
+                                                 net_jobs, smi)
+    if chk_card != (0, 0, 0) or chk_cpu != (0, 0, 0):
+        raise AssertionError(f"network batch (over bandwidth, ports used "
+                             f"twice, dynamic ports out of range): "
+                             f"{chk_card}, {chk_cpu}")
+    if p_card != p_cpu or e_card != e_cpu:
+        raise AssertionError("network batch: card plans or offers differ "
+                             "from the CPU's")
+    if (n_card["resident_hits"] or n_card["full_reencodes"]
+            or n_card["mirror_installs"] or n_card["oracle_routed"]
+            or n_card["applier"]["scalar_fallback"]
+            != n_card["applier"]["touched_nodes"]
+            or n_card["nodes_over_capacity"] or not n_card["placed"]):
+        raise AssertionError(f"network batch: {n_card}")
+
+    def seconds(w, key, names_):
+        return [r[key] for _, r in w["rows"] if r["batch"] in names_]
+
+    follow_names = [n for n, _ in head[1:] + stream]
+    batch_sched._CLUSTER_CACHE.clear()
+    batch_sched._DEVICE_STATIC_CACHE.clear()
+    resident.reset_counters()
+    return {
+        "card_equals_card_without_mirror_equals_cpu": True,
+        "mesh_equals_single_card": True, "mesh_twin": mesh_twin,
+        "mesh_mirror": mesh_mirror,
+        "network_card_equals_cpu": True, "network_check": chk_card,
+        "mirror_counters": c, "mirror": w1["checkpoint"]["mirror"],
+        "final_mirror": w1["final_mirror"],
+        "batch0_applier": b0,
+        "overcommit": {"node": oc["overcommit_node"],
+                       "partial_commits": oc["applier"]["partial"],
+                       "oracle_routed": oc["oracle_routed"],
+                       "placed": placed_oc},
+        "corrupt": {"guard_mismatches": cd["guard_mismatches"],
+                    "breaker_agreement": cd["breaker_agreement"]},
+        "follow_up_encode_seconds": {
+            "mirror_guard64": seconds(w4, "encode_seconds", follow_names),
+            "mirror_guard1": seconds(w1, "encode_seconds", follow_names),
+            "no_mirror": seconds(w2, "encode_seconds", follow_names)},
+        "follow_up_h2d_bytes": {
+            "mirror": seconds(w4, "h2d_bytes", follow_names),
+            "no_mirror": seconds(w2, "h2d_bytes", follow_names)},
+        "applier_seconds": {
+            w["label"]: [(r["batch"], r["applier"]["evaluate_seconds"],
+                          r["applier"]["apply_seconds"])
+                         for _, r in w["rows"]] for w in (w1, w2, w4)},
+        "stream": {"guard64": w4["stream"],
+                   "serial_tail_wall_seconds":
+                       w4["serial_tail_wall_seconds"],
+                   "guard1": w1["stream"]},
+        "applied_path_launches": sum(
+            r.get("scored_rows_launches", 0) for _, r in w1["rows"])
+        + w1["stream"]["scored_rows_launches"],
+        "card": smi}
+
+
+def torch_device(dev):
+    import torch
+
+    d = torch.device(dev)
+    if d.type == "cuda" and d.index is None:
+        d = torch.device("cuda", torch.cuda.current_device())
+    return d
+
+
+# -- phase 15: times ---------------------------------------------------------
 
 def score_bytes(u: int, n: int, with_base: bool = True) -> int:
     """Bytes the function must move: feas (1) + collisions (4) in and
@@ -1775,11 +2295,16 @@ def main() -> int:
     _MESH_FLEET.clear()
     evals = run_phase("evals", phase_evals, dev)
     emit({"phase": "evals", **evals})
+    applied = run_phase("applied", phase_applied, dev)
+    emit({"phase": "applied", **applied})
     table = run_phase("times", phase_times, dev, launches, max_err,
                       masked_launches, max(masked_err, cand_err))
     # scored_rows' launches on the eval-driven path (phase evals, each
     # batch driven with the counts set to 0 just before it).
     table[0]["eval_path_launches"] = evals["eval_path_launches"]
+    # ... and on the applied path (phase applied, the card with the mirror
+    # and guard_every=1: batch 0, the follow-ups and the stream).
+    table[0]["applied_path_launches"] = applied["applied_path_launches"]
     emit({"phase": "profile", **run_phase("profile", phase_profile, dev)})
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     emit({"kernels": table})

@@ -1,9 +1,12 @@
 """Deterministic, seeded fault injection (a minimal copy of
 ``nomad_tpu/fault.py``).
 
-The port has one fault point, ``ops.kernel_result`` (the device→host
-placement outputs, ops/batch_sched.py), and one action, ``corrupt``,
-which hands the site a seeded RNG to damage the result with::
+The port has three fault points: ``ops.kernel_result`` (the device→host
+placement outputs, ops/batch_sched.py) and ``ops.resident_state`` (one
+row of the resident usage mirror, ops/resident.py), both with the action
+``corrupt``, which hands the site a seeded RNG to do its damage with; and
+``plan.apply`` (server/plan_apply.py, before the commit), with ``error``
+(raise :class:`InjectedFault`)::
 
     with fault.scenario({"seed": 5, "faults": [
             {"point": "ops.kernel_result", "action": "corrupt",
@@ -19,13 +22,25 @@ import random
 from types import SimpleNamespace
 from typing import List, Optional, Tuple
 
+ACTIONS = ("corrupt", "error")
+
 # The armed scenario's rules and fire trace; None: disarmed.
 _PLANE: Optional[SimpleNamespace] = None
 
 
+class InjectedFault(Exception):
+    """An error raised on purpose by a fault point (action ``error``)."""
+
+
+def _raise_injected(message: str):
+    def raise_injected() -> None:
+        raise InjectedFault(message)
+    return raise_injected
+
+
 def faultpoint(name: str) -> Optional[SimpleNamespace]:
     """None when disarmed or when no rule fires; else the action
-    (``kind``, and the rule's private ``rng``)."""
+    (``kind``, the rule's private ``rng`` and ``raise_injected()``)."""
     plane = _PLANE
     if plane is None:
         return None
@@ -34,7 +49,10 @@ def faultpoint(name: str) -> Optional[SimpleNamespace]:
                                    or rule.fired < rule.times):
             rule.fired += 1
             plane.trace.append((name, i, rule.action))
-            return SimpleNamespace(kind=rule.action, rng=rule.rng)
+            return SimpleNamespace(
+                kind=rule.action, rng=rule.rng,
+                raise_injected=_raise_injected(
+                    f"injected {rule.action} at {name}"))
     return None
 
 
@@ -45,14 +63,13 @@ def trace() -> List[Tuple[str, int, str]]:
 
 class scenario:
     """``with fault.scenario({"seed": s, "faults": [rules]}): ...``; each
-    rule is ``{"point", "action": "corrupt", "times"}``; always disarms
-    on exit."""
+    rule is ``{"point", "action", "times"}``; always disarms on exit."""
 
     def __init__(self, cfg):
         seed = int(cfg.get("seed", 0))
         rules = []
         for i, spec in enumerate(cfg.get("faults") or []):
-            if spec["action"] != "corrupt":
+            if spec["action"] not in ACTIONS:
                 raise ValueError(f"unknown fault action {spec['action']!r}")
             rules.append(SimpleNamespace(
                 point=spec["point"], action=spec["action"],

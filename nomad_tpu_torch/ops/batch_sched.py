@@ -12,7 +12,10 @@ or the mesh's ``sharded_fused_pass``, the one result fetch):
   updates, lost allocations, rolling limits), places every ask of the
   batch in one device pass, and submits one plan per eval to its planner
   (alloc slabs, AllocMetric failure forensics, blocked and rolling
-  follow-up evals, queued counts).  Evals whose specs the device pass
+  follow-up evals, queued counts).  The live usage comes from the
+  resident mirror of ``ops/resident.py``, caught up from the store's
+  delta feed, in batches without network asks; ``schedule_stream`` runs
+  batches in the reference's pipelined order.  Evals whose specs the device pass
   cannot express, every eval while the kernel breaker is open, the evals
   of a batch whose device result was rejected, and a plan that conflicted
   go through the CPU oracle instead, as in the reference; each such route
@@ -55,7 +58,7 @@ from ..structs import structs as s
 from ..structs.network import NetworkIndex
 from ..utils.lru import LRU
 from . import breaker as breaker_mod
-from . import decode, encode, kernels, xfer
+from . import decode, encode, kernels, resident, xfer
 from .breaker import HALF_OPEN, KernelIntegrityError  # noqa: F401
 
 logger = logging.getLogger("nomad_tpu_torch.ops.batch_sched")
@@ -304,6 +307,7 @@ class _DeviceBatch:
     encode_seconds: float = 0.0
     h2d_bytes: int = 0
     static_h2d_bytes: int = 0
+    resident: Dict = field(default_factory=dict)   # resident.acquire info
 
 
 def _node_pad_multiple(mesh) -> int:
@@ -324,40 +328,65 @@ def _cluster_static(nodes: Sequence[s.Node], attr_targets, literals,
     return base
 
 
-def _quantized_rows(base: encode.ClusterTensors):
+def _quantized_rows(base: encode.ClusterTensors, shards: int = 0,
+                    breaker=None):
     """Capacity and the reserved-only baseline quantized when that is
-    exact (checked by the host inverse), else None; memoized on the
-    static tensors."""
+    exact, else None; memoized on the static tensors.  The quantized rows
+    go through ``resident.check_quant_roundtrip`` once per static encode
+    (per shard slice with ``shards``, the rows each shard will
+    dequantize), as the reference's ``_quant_roundtrip_ok`` does
+    (batch_sched.py:1278-1303): a mismatch is counted, feeds ``breaker``
+    and ships int32 rows."""
     quant = getattr(base, "_quant_rows", False)
     if quant is False:
         quant = encode.quantize_resource_rows(base.capacity, base.used)
-        if quant is not None and not (
-                np.array_equal(encode.dequantize_rows(quant.cap_q,
-                                                      quant.scale[0]),
-                               base.capacity)
-                and np.array_equal(encode.dequantize_rows(quant.used_q,
-                                                          quant.scale[1]),
-                                   base.used)):
+        if quant is not None and not _quant_roundtrip_ok(base, quant,
+                                                         shards, breaker):
             quant = None
         base._quant_rows = quant
     return quant
 
 
-def _encode_batch(spec_list: List[encode.PlacementSpec],
-                  nodes: List[s.Node], base: encode.ClusterTensors,
-                  allocs_by_node: Dict[str, List[s.Allocation]],
-                  job_nodes: Callable[[str], Iterable[str]], rng_seed: int,
-                  mesh=None) -> _DeviceBatch:
-    """The static and dynamic upload dicts of a batch
-    (batch_sched.py:1015-1134): the live usage of ``allocs_by_node``
-    layered on ``base`` and shipped as sparse deltas over its
-    reserved-only baseline, the specs, the per-(job, node) alloc counts of
-    the jobs' live allocs (``job_nodes(job_id)`` yields their node ids),
-    and the tie-break seed."""
+def _quant_roundtrip_ok(base, quant, shards: int, breaker) -> bool:
+    parts = [(slice(None), "")]
+    if shards:
+        n_l = base.n_pad // shards
+        parts = [(slice(i * n_l, (i + 1) * n_l), f" shard {i}")
+                 for i in range(shards)]
+    for sl, where in parts:
+        if not (resident.check_quant_roundtrip(
+                    base.capacity[sl], quant.cap_q[sl], quant.scale[0],
+                    breaker=breaker, what="capacity" + where)
+                and resident.check_quant_roundtrip(
+                    base.used[sl], quant.used_q[sl], quant.scale[1],
+                    breaker=breaker, what="used baseline" + where)):
+            return False
+    return True
+
+
+def _layer_usage(base: encode.ClusterTensors,
+                 allocs_by_node: Dict[str, List[s.Allocation]]):
+    """The walk's usage: ``base`` with the live usage of
+    ``allocs_by_node`` layered on, and the rows it touched."""
     ct = (encode.apply_alloc_usage(base, allocs_by_node)
           if allocs_by_node else base)
     touched = sorted(i for i in (base.node_index.get(nid)
                                  for nid in allocs_by_node) if i is not None)
+    return ct, touched
+
+
+def _encode_batch(spec_list: List[encode.PlacementSpec],
+                  nodes: List[s.Node], base: encode.ClusterTensors,
+                  ct: encode.ClusterTensors, touched: List[int],
+                  job_nodes: Callable[[str], Iterable[str]], rng_seed: int,
+                  mesh=None, breaker=None) -> _DeviceBatch:
+    """The static and dynamic upload dicts of a batch
+    (batch_sched.py:1015-1134): ``ct``, the static ``base`` with the live
+    usage on it, shipped as sparse deltas over the reserved-only baseline
+    at the ``touched`` rows, the specs, the per-(job, node) alloc counts
+    of the jobs' live allocs (``job_nodes(job_id)`` yields their node
+    ids), and the tie-break seed.  ``breaker`` takes the verdict of the
+    quantized rows' round-trip check."""
     st = encode.encode_specs(spec_list, ct, nodes)
 
     # Existing per-(job, node) alloc counts, uploaded sparse.
@@ -389,9 +418,10 @@ def _encode_batch(spec_list: List[encode.PlacementSpec],
         "attr": ct.attr_values, "elig": ct.eligible, "dc": ct.dc_code,
         "denom": ct.score_denom,
     }
+    d = mesh.size if mesh is not None else 0
     # Capacity and the reserved-only baseline ship quantized when that is
     # exact, as int32 otherwise.
-    quant = _quantized_rows(base)
+    quant = _quantized_rows(base, d, breaker)
     if quant is not None:
         static.update(cap_q=quant.cap_q, used_base_q=quant.used_q,
                       res_scale=quant.scale)
@@ -432,7 +462,6 @@ def _encode_batch(spec_list: List[encode.PlacementSpec],
                    dp_used=st.dp_used)
     total_asks = int(sum(sp.count for sp in spec_list))
     max_count = max(sp.count for sp in spec_list)
-    d = mesh.size if mesh is not None else 0
     plan = None
     if d:
         plan = encode.shape_plan(
@@ -485,10 +514,14 @@ def _upload_static(sbuf: np.ndarray, meta_s, devices: Sequence,
 
 
 def _dispatch(b: _DeviceBatch, dev: torch.device, mesh=None,
-              static_cache: Optional[LRU] = None) -> None:
+              static_cache: Optional[LRU] = None, used_dev=None) -> None:
     """Pack, upload and run the device pass of ``b`` (its result stays on
-    the device until :func:`_fetch`)."""
+    the device until :func:`_fetch`).  ``used_dev`` is the lent resident
+    usage mirror (a tensor, or the mesh's shard parts): the usage comes
+    from it and the sparse usage rows stay home."""
     d = b.shards
+    if used_dev is not None:
+        del b.dyn["u_rows"], b.dyn["u_vals"]
     if d:
         # Per-shard static packs: node rows cut to their owning shard.
         sbuf, meta_s = xfer.pack_host_sharded(b.static, d,
@@ -511,12 +544,13 @@ def _dispatch(b: _DeviceBatch, dev: torch.device, mesh=None,
         b.out = sharded.sharded_fused_pass(
             mesh, static_dev, dyn_dev, meta_s=meta_s, meta_d=meta_d,
             u_pad=st.u_pad, n_pad=ct.n_pad, with_scores=b.with_scores,
-            max_nnz=b.max_nnz, slot_m=b.slot_m, k_cand=b.k_cand)
+            max_nnz=b.max_nnz, slot_m=b.slot_m, k_cand=b.k_cand,
+            used_dev=used_dev)
     else:
         b.out = kernels.fused_pass(
             static_dev, dyn_dev, meta_s=meta_s, meta_d=meta_d,
             u_pad=st.u_pad, n_pad=ct.n_pad, with_scores=b.with_scores,
-            max_nnz=b.max_nnz, slot_m=b.slot_m)
+            max_nnz=b.max_nnz, slot_m=b.slot_m, used_dev=used_dev)
 
 
 def _fetch(b: _DeviceBatch):
@@ -722,7 +756,8 @@ def schedule_batch(nodes: Sequence[s.Node], jobs: Sequence[s.Job],
                            _node_pad_multiple(mesh))
     if rng_seed is None:
         rng_seed = int.from_bytes(os.urandom(4), "big")
-    b = _encode_batch(spec_list, list(nodes), base, allocs_by_node,
+    ct, touched = _layer_usage(base, allocs_by_node)
+    b = _encode_batch(spec_list, list(nodes), base, ct, touched,
                       lambda job_id: nodes_by_job.get(job_id, ()), rng_seed,
                       mesh)
     _dispatch(b, dev, mesh)
@@ -868,11 +903,22 @@ class TorchBatchScheduler:
     card) or node-sharded over ``mesh``.  ``rng_seed`` pins the
     tie-break seed (the reference's ``NOMAD_TPU_RNG_SEED``); None draws
     one per batch.  ``breaker`` defaults to the process-wide
-    ``ops.breaker.BREAKER``."""
+    ``ops.breaker.BREAKER``.
+
+    The resident usage mirror (``ops/resident.py``) takes the place of
+    the usage walk in batches without network asks, over a snapshot with
+    a delta feed: ``resident`` turns it on (the reference's
+    ``NOMAD_TPU_RESIDENT``), ``resident_device`` lends its device twin to
+    the pass instead of shipping sparse usage rows
+    (``NOMAD_TPU_RESIDENT_DEVICE``), and ``guard_every`` is the
+    differential guard's cadence in delta hits, 0 for never
+    (``NOMAD_TPU_RESIDENT_GUARD_EVERY``)."""
 
     def __init__(self, logger_: logging.Logger, state, planner, mesh=None,
                  device=None, preemption_enabled: bool = False,
-                 breaker=None, rng_seed: Optional[int] = None):
+                 breaker=None, rng_seed: Optional[int] = None,
+                 resident: bool = True, resident_device: bool = True,
+                 guard_every: int = 64):
         if mesh is not None and device is not None:
             raise ValueError("pass a device or a mesh, not both")
         self.logger = logger_
@@ -890,6 +936,9 @@ class TorchBatchScheduler:
         self.breaker = (breaker if breaker is not None
                         else breaker_mod.BREAKER)
         self.rng_seed = rng_seed
+        self.resident = resident
+        self.resident_device = resident_device
+        self.guard_every = guard_every
 
     def process(self, ev: s.Evaluation) -> None:
         self.schedule_batch([ev])
@@ -900,6 +949,56 @@ class TorchBatchScheduler:
         prep = self._prepare_batch(evals)
         self._dispatch_prepared(prep)
         return self._complete_prepared(prep)
+
+    def schedule_stream(self, batches, state_source=None
+                        ) -> List["BatchStats"]:
+        """A stream of eval batches, in the reference's pipelined order
+        (batch_sched.py:482-553): prepare(k+1), then complete(k), then
+        dispatch(k+1), so batch k+1's usage is read after batch k's
+        plans were applied.  ``state_source`` (a callable giving a fresh
+        snapshot) is called before each prepare and again before each
+        dispatch.
+
+        The port's device pass runs to its end inside the dispatch (the
+        placement loop reads a count back each committing step), so
+        prepare(k+1) does not overlap batch k's pass here: the order and
+        its results are the reference's, the overlap is not.  A batch's
+        ``pipeline_overlap_s`` is the time of its prepare while a
+        dispatched batch was pending.  An error completes the batch in
+        flight, then propagates.  (The reference's ``_finish_stream``
+        adds its tracing and telemetry to the completion; the port has
+        neither, so it completes with ``_complete_prepared``.)"""
+        out: List[BatchStats] = []
+        pending = None
+        try:
+            for evals in batches:
+                if state_source is not None:
+                    self.state = state_source()
+                t_prep = time.perf_counter()
+                prep = self._prepare_batch(evals)
+                overlap = (time.perf_counter() - t_prep
+                           if pending is not None else 0.0)
+                if pending is not None:
+                    out.append(self._complete_prepared(pending))
+                    pending = None
+                if state_source is not None:
+                    self.state = state_source()
+                prep.stats.pipeline_overlap_s = overlap
+                self._dispatch_prepared(prep)
+                pending = prep
+        except BaseException:
+            # The batch in flight is completed before the error goes on:
+            # its plans are submitted and a probe it carries resolves.
+            if pending is not None:
+                try:
+                    out.append(self._complete_prepared(pending))
+                except Exception:
+                    self.logger.exception(
+                        "in-flight batch failed during stream unwind")
+            raise
+        if pending is not None:
+            out.append(self._complete_prepared(pending))
+        return out
 
     # -- phase 1 and 2: reconcile, dedup, gate ------------------------------
 
@@ -1050,6 +1149,9 @@ class TorchBatchScheduler:
 
     def _dispatch_device(self, spec_list) -> _DeviceBatch:
         t0 = time.perf_counter()
+        # The mirror's own uploads (install, delta rows) land in the
+        # batch's h2d_bytes.
+        h2d0 = resident.DEV_H2D_BYTES
         all_nodes = self.state.nodes(None)
         attr_targets, literals = encode.collect_attr_targets(spec_list)
         with_networks = any(sp.net_active for sp in spec_list)
@@ -1065,10 +1167,43 @@ class TorchBatchScheduler:
             _CLUSTER_CACHE.put(cache_key, base)
         rng_seed = (self.rng_seed if self.rng_seed is not None
                     else int.from_bytes(os.urandom(4), "big"))
-        b = _encode_batch(spec_list, all_nodes, base,
-                          self._live_allocs_by_node(), self._job_nodes,
-                          rng_seed, self.mesh)
-        _dispatch(b, self.device, self.mesh, _DEVICE_STATIC_CACHE)
+        # The usage: the resident mirror, caught up from the delta feed,
+        # where the batch has no network asks and the snapshot has a
+        # feed (batch_sched.py:973-1000); the full walk otherwise.
+        res_info: Dict = {}
+        res_key = None
+        if (self.resident and not with_networks
+                and getattr(self.state, "allocs_since", None) is not None):
+            # The mirror depends on the node set and the pad only, not on
+            # the batch's constraint vocabulary.
+            res_key = cache_key[:2] + (base.n_pad,)
+            used, touched, res_info = resident.acquire(
+                self.state, res_key, base, self._live_allocs_by_node,
+                breaker=self.breaker,
+                shards=self.mesh.size if self.mesh is not None else 0,
+                guard_every=self.guard_every)
+            ct = encode.with_usage(base, used)
+        else:
+            ct, touched = _layer_usage(base, self._live_allocs_by_node())
+        b = _encode_batch(spec_list, all_nodes, base, ct, touched,
+                          self._job_nodes, rng_seed, self.mesh,
+                          breaker=self.breaker)
+        b.resident = res_info
+        # Lend the device twin to the pass (batch_sched.py:1161-1180,
+        # :1526-1567).  It is handed back only after the pass returns: an
+        # error in between leaves the slot empty, and the next take
+        # installs it again from the host mirror.
+        used_dev = None
+        if res_key is not None and self.resident_device:
+            snap_index = self.state.table_index("allocs")
+            used_dev = resident.take_device_used(
+                res_key, snap_index, used, device=self.device,
+                mesh=self.mesh if b.shards else None)
+        _dispatch(b, self.device, self.mesh, _DEVICE_STATIC_CACHE,
+                  used_dev=used_dev)
+        if used_dev is not None:
+            resident.give_device_used(res_key, snap_index, used_dev)
+        b.h2d_bytes += resident.DEV_H2D_BYTES - h2d0
         b.encode_seconds = b.t_dispatch - t0
         return b
 
@@ -1148,7 +1283,16 @@ class TorchBatchScheduler:
         stats.mesh_shards = b.shards
         stats.fetch_bytes = fetch_bytes
         stats.device_seconds = b.device_seconds
+        self._apply_resident_stats(stats, b.resident)
         return self._finalize_device_outputs(b, summary, coo, stats)
+
+    @staticmethod
+    def _apply_resident_stats(stats: "BatchStats", info: Dict) -> None:
+        stats.resident_hits = 1 if info.get("resident_hit") else 0
+        stats.delta_rows = info.get("delta_rows", 0)
+        stats.full_reencodes = 1 if info.get("full_reencode") else 0
+        stats.staleness_fences = 1 if info.get("fence") else 0
+        stats.delta_apply_seconds = info.get("delta_apply_s", 0.0)
 
     def _finalize_device_outputs(self, b: _DeviceBatch, summary, coo,
                                  stats: "BatchStats"):
@@ -1562,9 +1706,9 @@ class BatchStats:
         self.finalize_seconds = 0.0     # plans, submit, eval statuses
         self.total_seconds = 0.0
         self.rounds = 0
-        # Bytes up (the dynamic buffer plus, when not cached on the
-        # device, the static one) and down (the result buffer and the
-        # forensics rows).
+        # Bytes up (the dynamic buffer, the static one when not cached on
+        # the device, and the resident mirror's install and delta rows)
+        # and down (the result buffer and the forensics rows).
         self.h2d_bytes = 0
         self.static_h2d_bytes = 0
         self.fetch_bytes = 0
@@ -1576,6 +1720,18 @@ class BatchStats:
         self.kernel_rejects = 0
         self.breaker_state = "closed"
         self.device_ran = False
+        # The resident usage mirror (ops/resident.py): whether the usage
+        # came from the delta feed, the feed entries applied, full walks
+        # (cold, key change, feed gap, guard mismatch), staleness fences,
+        # and the seconds of the device twin's in-place delta apply.
+        self.resident_hits = 0
+        self.delta_rows = 0
+        self.full_reencodes = 0
+        self.staleness_fences = 0
+        self.delta_apply_seconds = 0.0
+        # schedule_stream: this batch's prepare time while the previous
+        # batch was dispatched and not yet completed (0 when serial).
+        self.pipeline_overlap_s = 0.0
 
     def __repr__(self) -> str:
         return "BatchStats(" + " ".join(

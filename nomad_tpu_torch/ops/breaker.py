@@ -15,10 +15,11 @@ scheduler made for one batch; tests pass their own instance.  Each
 transition is logged (the reference's blackbox, tracing and event-stream
 hooks come with the server wiring).
 
-Only the structural-validation verdict is recorded.  A raw device error
-(a build, launch or CUDA fault) propagates to the caller and is never
-recorded, so a kernel that cannot run never leaves evals on the CPU
-oracle.
+Verdicts recorded: the structural validation of each device result, the
+resident usage mirror's differential guard and the quantized rows'
+round-trip check (``ops/resident.py``).  A raw device error (a build,
+launch or CUDA fault) propagates to the caller and is never recorded, so
+a kernel that cannot run never leaves evals on the CPU oracle.
 """
 from __future__ import annotations
 
@@ -125,6 +126,12 @@ class KernelCircuitBreaker:
                                "disagreed; staying on the CPU oracle")
 
     # -- introspection -----------------------------------------------------
+
+    def agreement(self) -> float:
+        """The share of good checks in the window (1.0 when empty)."""
+        with self._l:
+            return (sum(self._checks) / len(self._checks)
+                    if self._checks else 1.0)
 
     @property
     def state(self) -> str:

@@ -144,6 +144,32 @@ def pow2_bucket(x: int, minimum: int = 8) -> int:
     return v
 
 
+def route_shard_deltas(dev_rows, shards: int, n_local: int,
+                       dims: int = RES_DIMS):
+    """A run of global ``(row, vals)`` usage deltas split per shard of a
+    node mesh (encode.py:192), in one pass over the changed rows:
+    ``rows [D, k_b] int32`` of shard-local rows (-1 padding) and
+    ``vals [D, k_b, dims] int32``, ``k_b`` the pow2 bucket of the
+    longest shard run.  ``ops/resident.py`` applies each shard's valid
+    rows to that shard's part of the mirror."""
+    per_rows = [[] for _ in range(shards)]
+    per_vals = [[] for _ in range(shards)]
+    for i, vec in dev_rows:
+        s_i = i // n_local
+        if 0 <= s_i < shards:
+            per_rows[s_i].append(i - s_i * n_local)
+            per_vals[s_i].append(vec)
+    k_b = pow2_bucket(max(1, max(len(r) for r in per_rows)))
+    rows = np.full((shards, k_b), -1, dtype=np.int32)
+    vals = np.zeros((shards, k_b, dims), dtype=np.int32)
+    for s_i in range(shards):
+        k = len(per_rows[s_i])
+        if k:
+            rows[s_i, :k] = per_rows[s_i]
+            vals[s_i, :k] = per_vals[s_i]
+    return rows, vals
+
+
 def shape_plan(u_pad: int, n_pad: int, n_real: int, max_count: int,
                total_asks: int, *, mesh: bool = False,
                slot_budget_bytes: int = 64 << 20

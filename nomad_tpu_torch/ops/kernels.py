@@ -13,7 +13,7 @@ read, of the count its value dedup kept (:data:`DP_HOST_READS`).
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -594,13 +594,22 @@ class FusedOutput(NamedTuple):
 
 def fused_pass(static_buf: torch.Tensor, dyn_buf: torch.Tensor, *, meta_s,
                meta_d, u_pad: int, n_pad: int, with_scores: bool,
-               max_nnz: int, max_rounds: int = 256,
-               slot_m: int = 0) -> FusedOutput:
+               max_nnz: int, max_rounds: int = 256, slot_m: int = 0,
+               used_dev: Optional[torch.Tensor] = None) -> FusedOutput:
     """The whole batch on the device (``_fused_score_commit``,
     kernels.py:1017): unpack the static and dynamic buffers, build the
     job counts and the usage matrix from their sparse rows, check
     feasibility, run the placement rounds and compact into ONE packed
-    result buffer (:func:`fused_layout`)."""
+    result buffer (:func:`fused_layout`).
+
+    ``used_dev`` is the resident usage mirror (``ops/resident.py``), an
+    int32 [n_pad, 4] tensor on the pass's device: it is the usage the
+    rounds start from, and the dynamic buffer then carries no
+    ``u_rows``/``u_vals`` (kernels.py:750-752).  The rounds work on a
+    copy, so the mirror comes back unchanged (kernels.py:796): the
+    applied plan's deltas reach it through the store's feed, and an
+    in-place commit here would count every placement twice.  Resident
+    batches carry no network asks."""
     d = xfer.unpack_device(static_buf, meta_s)
     d.update(xfer.unpack_device(dyn_buf, meta_d))
     dequantize(d)
@@ -609,16 +618,24 @@ def fused_pass(static_buf: torch.Tensor, dyn_buf: torch.Tensor, *, meta_s,
     feas = feasibility_matrix(d["attr"], d["elig"], d["dc"], d["c_attr"],
                               d["c_op"], d["c_rhs"], d["dc_mask"],
                               d["precomp"])
-    # Sparse usage deltas over the reserved-only baseline, at the rows
-    # the deltas own.
-    rows = delta_rows(d["u_rows"], 0, n_pad)
-    used0 = apply_deltas(d["used_base"], rows, d["u_vals"])
+    if used_dev is not None:
+        if "net_active" in d:
+            raise ValueError("the resident usage mirror is for batches "
+                             "without network asks")
+        used0, net = used_dev, None
+    else:
+        # Sparse usage deltas over the reserved-only baseline, at the
+        # rows the deltas own.
+        rows = delta_rows(d["u_rows"], 0, n_pad)
+        used0 = apply_deltas(d["used_base"], rows, d["u_vals"])
+        net = net_tensors(d, d, rows)
     seed = jitter_seed(int(d["rng_seed"][0]))
+    # placement_rounds commits into its own clone of used0.
     result = placement_rounds(
         feas, used0, d["cap"], d["denom"], d["ask"], d["count"],
         d["penalty"], d["dh"], d["ji"], job_counts, seed,
         max_rounds=max_rounds, with_scores=with_scores, slot_m=slot_m,
-        net=net_tensors(d, d, rows), dp=dp_tensors(d))
+        net=net, dp=dp_tensors(d))
 
     compact_u16 = (not with_scores and u_pad <= 65536 and n_pad <= 65536
                    and max_rounds < 65536)
@@ -650,3 +667,40 @@ def fused_pass(static_buf: torch.Tensor, dyn_buf: torch.Tensor, *, meta_s,
                                 with_scores=with_scores,
                                 compact_u16=compact_u16)
     return FusedOutput(buf=buf, meta=meta, aux=aux, feas=feas)
+
+
+# -- plan verification (the plan applier's re-check) --------------------------
+
+def batch_allocs_fit(capacity: torch.Tensor, used: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plan applier's vectorized fit re-check (kernels.py:1174;
+    plan_apply.go:327 evaluateNodePlan, funcs.go:60 AllocsFit): for
+    [n, 4] int32 ``capacity`` and proposed ``used`` (reserved included),
+    ``(fit [n] bool, first exhausted dimension [n] int32, -1 where it
+    fits)``, on the tensors' device.  Eager, so it takes any n: the
+    reference's pow2 padding of the node axis (plan_apply.py:602-612)
+    only bounds XLA's per-shape compiles and is not kept here; a zero pad
+    row fits, so the reference's sliced result is the same (held by
+    ``tests/test_torch_plan_apply.py``)."""
+    over = used > capacity
+    fit = ~over.any(dim=1)
+    first_dim = torch.argmax(over.to(torch.int32), dim=1).to(torch.int32)
+    return fit, torch.where(fit, torch.full_like(first_dim, -1), first_dim)
+
+
+def aggregate_binpack_score(placements: torch.Tensor, used0: torch.Tensor,
+                            denom: torch.Tensor,
+                            ask: torch.Tensor) -> torch.Tensor:
+    """The summed ScoreFit of the nodes ``placements`` [U, N] uses, taken
+    at their final usage (kernels.py:1187): a scalar for differential
+    score checks against the oracle."""
+    total_ask = (placements.to(torch.int64)[:, :, None]
+                 * ask.to(torch.int64)[:, None, :]).sum(dim=0)
+    final_used = used0.to(torch.int64) + total_ask
+    after = final_used[:, :2].to(torch.float32)
+    safe_denom = torch.where(denom == 0.0, torch.ones_like(denom), denom)
+    frac = 1.0 - after / safe_denom
+    total = torch.pow(10.0, frac[:, 0]) + torch.pow(10.0, frac[:, 1])
+    score = torch.clamp(20.0 - total, 0.0, 18.0)
+    n_placed = placements.sum(dim=0)
+    return torch.sum(score * (n_placed > 0))

@@ -20,8 +20,10 @@ as the reference's tests run eight shards on virtual CPU devices.
 Network asks shard their per-node state (bandwidth, free dynamic ports,
 port bitmaps) with the nodes; distinct_property's per-spec used values
 are replicated, and its within-round value dedup reduces across shards
-(best score per value, then the lowest global node index).  Not ported:
-the donated usage mirror; a mesh over several cards (peer copies) is
+(best score per value, then the lowest global node index).  The resident
+usage mirror (``ops/resident.py``) is sharded the same way: one int32
+[n_l, 4] part per shard, on the shard's device, lent to
+:func:`sharded_fused_pass`.  A mesh over several cards (peer copies) is
 unverified.
 """
 from __future__ import annotations
@@ -477,10 +479,11 @@ def sharded_schedule_step(mesh: NodeMesh, feas, used, capacity, denom, ask,
 def sharded_fused_pass(mesh: NodeMesh, static_shards: Sequence[torch.Tensor],
                        dyn_buf: torch.Tensor, *, meta_s, meta_d, u_pad: int,
                        n_pad: int, with_scores: bool, max_nnz: int,
-                       slot_m: int, k_cand: int) -> kernels.FusedOutput:
+                       slot_m: int, k_cand: int,
+                       used_dev: Optional[Sequence[torch.Tensor]] = None
+                       ) -> kernels.FusedOutput:
     """The whole batch over the mesh (reference ``sharded_fused_pass`` and
-    ``_build_fused_mesh_fn``, ``sharded.py:443-766``), without the
-    donated usage mirror.
+    ``_build_fused_mesh_fn``, ``sharded.py:443-766``).
 
     ``static_shards`` holds one packed static buffer per shard (the rows
     :func:`ops.xfer.pack_host_sharded` cut, laid out by ``meta_s``), each
@@ -491,7 +494,12 @@ def sharded_fused_pass(mesh: NodeMesh, static_shards: Sequence[torch.Tensor],
     over the mesh; the shards' disjoint slot records merge by one
     :func:`psum`; then the slot→COO gather and the packed result buffer
     of :func:`ops.kernels.fused_pass`, on the root device.  ``feas`` of
-    the result is the list of the shards' [U, n_l] parts."""
+    the result is the list of the shards' [U, n_l] parts.
+
+    ``used_dev``, the resident mirror's shard parts, is each shard's
+    starting usage in place of the ``u_rows``/``u_vals`` deltas, which
+    the dynamic buffer then does not carry.  The rounds commit into
+    clones, so the parts come back unchanged, as on one card."""
     d = mesh.size
     if n_pad % d:
         raise ValueError(f"mesh size {d} must divide the node pad {n_pad}")
@@ -514,8 +522,15 @@ def sharded_fused_pass(mesh: NodeMesh, static_shards: Sequence[torch.Tensor],
         # shard applies the ones it owns.  The others go to a spare row
         # (deltas) or are zeroed (counts): the reference's mode="drop"
         # scatters (sharded.py:570-582), made explicit.
-        rows = kernels.delta_rows(dd["u_rows"], lo, n_l)
-        used0 = kernels.apply_deltas(ds["used_base"], rows, dd["u_vals"])
+        if used_dev is not None:
+            if "net_active" in dd:
+                raise ValueError("the resident usage mirror is for "
+                                 "batches without network asks")
+            rows, used0 = None, used_dev[i].clone()
+        else:
+            rows = kernels.delta_rows(dd["u_rows"], lo, n_l)
+            used0 = kernels.apply_deltas(ds["used_base"], rows,
+                                         dd["u_vals"])
         jcol = dd["jc_cols"] - lo
         jvalid = (dd["jc_rows"] >= 0) & (jcol >= 0) & (jcol < n_l)
         jc = kernels.scatter_job_counts(

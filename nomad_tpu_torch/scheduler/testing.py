@@ -2,7 +2,10 @@
 plans and evals and commits each plan at the next synthetic index (a copy
 of ``nomad_tpu/scheduler/testing.py``; reference
 scheduler/testing.go:41-218).  The tests and ``chip_smoke.py`` drive the
-batch scheduler through it."""
+batch scheduler through it.  With ``planner`` set, plans go to it
+instead: ``h.planner = server.PlanApplier(h.state,
+next_index=h.next_index)`` re-checks and commits them as the server
+would."""
 from __future__ import annotations
 
 import logging

@@ -12,14 +12,22 @@ scheduler makes them: one ``AllocSlab`` is the table value of each of its
 alloc ids, indexed on first read and materialized into an
 ``Allocation`` when read by id.
 
-Left out of the copy: the columnar node mirror, the usage delta log
-(``allocs_since``), deployments, namespaces, vault accessors, periodic
-launches, job version history, watch sets, the event stream and
+Every alloc write also logs the per-node usage delta it caused (the
+usage-delta feed, :meth:`StateStore.allocs_since`, state_store.py:
+1315-1420), which the batch scheduler's resident usage mirror
+(``ops/resident.py``) catches up from; a slab is logged once, when it is
+upserted.  :meth:`StateStore.upsert_plan_results` is the commit of the
+plan applier (``server/plan_apply.py``).
+
+Left out of the copy: the columnar node mirror, deployments, namespaces
+(and the per-namespace usage fold of the delta log), vault accessors,
+periodic launches, job version history, watch sets, the event stream and
 persistence.  The ``ws`` argument of the readers is kept for the
 interface and ignored.
 """
 from __future__ import annotations
 
+import bisect
 import threading
 from collections import defaultdict
 from typing import Dict, List, Optional, Set, Tuple
@@ -29,11 +37,16 @@ from ..structs import structs as s
 # Shared immutable empty result for index misses (never mutated).
 _EMPTY_SET: Set[str] = set()
 
+# The reference's default bound of the usage-delta log
+# (NOMAD_TPU_ALLOC_LOG_CAP), in alloc rows: a slab entry weighs its
+# length.
+ALLOC_LOG_CAP = 262_144
+
 
 class StateStore:
     """The authoritative in-memory database of cluster state."""
 
-    def __init__(self) -> None:
+    def __init__(self, alloc_log_cap: int = ALLOC_LOG_CAP) -> None:
         self._lock = threading.RLock()
         # Store-lineage id: snapshots inherit it, distinct stores differ;
         # table indexes are only comparable within one lineage (the batch
@@ -55,6 +68,20 @@ class StateStore:
         # the per-alloc indexing lands on the first reader that needs it.
         self._pending_slabs: List[s.AllocSlab] = []
         self._pending_by_job: Dict[str, List[s.AllocSlab]] = {}
+        # The usage-delta log: entries (index, node_id, (cpu, mem, disk,
+        # iops)) for single rows and (index, slab) for slab inserts
+        # (expanded at read), appended in index order.  allocs_since(i)
+        # answers None for i < the floor, the highest index whose deltas
+        # are no longer all present.  Snapshots share the list behind a
+        # length cursor: the parent's appends land past it, a write by a
+        # snapshot copies its prefix first, and a trim replaces the list
+        # object, so no snapshot ever sees another world's deltas.
+        self.alloc_log_cap = alloc_log_cap
+        self._alloc_log: List[tuple] = []
+        self._alloc_log_len = 0
+        self._alloc_log_owned = True
+        self._alloc_log_floor = 0
+        self._alloc_log_weight = 0
 
     # -- snapshot ----------------------------------------------------------
 
@@ -79,6 +106,14 @@ class StateStore:
             snap._pending_slabs = list(self._pending_slabs)
             snap._pending_by_job = {k: list(v)
                                     for k, v in self._pending_by_job.items()}
+            # The delta log: shared behind this store's length cursor
+            # (state_store.py:260-268).
+            snap.alloc_log_cap = self.alloc_log_cap
+            snap._alloc_log = self._alloc_log
+            snap._alloc_log_len = self._alloc_log_len
+            snap._alloc_log_owned = False
+            snap._alloc_log_floor = self._alloc_log_floor
+            snap._alloc_log_weight = self._alloc_log_weight
             # The ready-node memo (scheduler/util.ready_nodes_in_dcs) is
             # shared by every snapshot cut from the same node table; a
             # node write drops only the writer's reference (_bump).
@@ -393,6 +428,7 @@ class StateStore:
                                             summary_cache)
             if alloc.job is None and existing is not None:
                 alloc.job = existing.job
+            self._log_transition(index, existing, alloc)
             self.allocs_table[alloc.id] = alloc
             if existing is None:
                 new_by_node.setdefault(alloc.node_id, []).append(alloc.id)
@@ -420,6 +456,34 @@ class StateStore:
                                  ids[0] if len(ids) == 1 else ids)
         self._set_job_statuses(index, jobs, eval_delete=False)
         self._bump("allocs", index)
+
+    def update_allocs_from_client(self, index: int,
+                                  allocs: List[s.Allocation]) -> None:
+        """Merge the client-authoritative fields (status, description,
+        task states) into the stored allocs (state_store.go:1367)."""
+        with self._lock:
+            for client_alloc in allocs:
+                existing = self._get_alloc(client_alloc.id)
+                if existing is None:
+                    continue
+                updated = s._fast_copy(existing)
+                updated.client_status = client_alloc.client_status
+                updated.client_description = client_alloc.client_description
+                updated.task_states = {
+                    k: v.copy() for k, v in client_alloc.task_states.items()}
+                updated.modify_index = index
+                self._update_summary_with_alloc(index, updated, existing)
+                self._log_transition(index, existing, updated)
+                self.allocs_table[client_alloc.id] = updated
+                forced = ("" if updated.terminal_status()
+                          else s.JOB_STATUS_RUNNING)
+                self._set_job_statuses(index, {existing.job_id: forced},
+                                       eval_delete=False)
+            self._bump("allocs", index)
+
+    def alloc_by_id(self, ws, alloc_id: str) -> Optional[s.Allocation]:
+        with self._lock:
+            return self._get_alloc(alloc_id)
 
     def allocs_by_node(self, ws, node_id: str) -> List[s.Allocation]:
         with self._lock:
@@ -518,6 +582,131 @@ class StateStore:
                     out.append((v.node_id, v))
             return out
 
+    # -- the usage-delta feed ----------------------------------------------
+    #
+    # The caller of every _log_* helper holds the lock.  The vectors are
+    # on the structs.alloc_usage_vec basis, so a consumer replaying the
+    # feed lands on the rows a full walk gives.
+
+    def _log_ensure_owned(self) -> None:
+        """A snapshot's first write takes a private copy of its log
+        prefix, so the parent's feed never sees a dry run's deltas."""
+        if not self._alloc_log_owned:
+            self._alloc_log = self._alloc_log[:self._alloc_log_len]
+            self._alloc_log_owned = True
+
+    def _log_trim(self) -> None:
+        """Past the cap, drop the oldest entries down to half of it and
+        raise the floor to the last dropped index; the survivors are a
+        new list, so cursors into the old one stay valid."""
+        if self._alloc_log_weight <= self.alloc_log_cap:
+            return
+        target = self.alloc_log_cap // 2
+        log = self._alloc_log
+        drop = 0
+        while drop < len(log) and self._alloc_log_weight > target:
+            entry = log[drop]
+            self._alloc_log_weight -= (len(entry[1].ids)
+                                       if len(entry) == 2 else 1)
+            self._alloc_log_floor = max(self._alloc_log_floor, entry[0])
+            drop += 1
+        self._alloc_log = log[drop:]
+        self._alloc_log_len = len(self._alloc_log)
+
+    def _log_usage(self, index: int, node_id: str,
+                   delta: Tuple[int, int, int, int]) -> None:
+        if delta == (0, 0, 0, 0) or not node_id:
+            return
+        self._log_ensure_owned()
+        self._alloc_log.append((index, node_id, delta))
+        self._alloc_log_len += 1
+        self._alloc_log_weight += 1
+        self._log_trim()
+
+    def _log_slab(self, index: int, slab: s.AllocSlab) -> None:
+        if not slab.ids:
+            return
+        self._log_ensure_owned()
+        self._alloc_log.append((index, slab))
+        self._alloc_log_len += 1
+        self._alloc_log_weight += len(slab.ids)
+        self._log_trim()
+
+    def _log_transition(self, index: int, existing: Optional[s.Allocation],
+                        updated: s.Allocation) -> None:
+        """The usage delta of one alloc write (old row -> new row), node
+        moves included."""
+        old_live = existing is not None and not existing.terminal_status()
+        new_live = not updated.terminal_status()
+        vec = s.alloc_usage_vec
+        if old_live and new_live and existing.node_id == updated.node_id:
+            ov, nv = vec(existing), vec(updated)
+            self._log_usage(index, updated.node_id,
+                            (nv[0] - ov[0], nv[1] - ov[1],
+                             nv[2] - ov[2], nv[3] - ov[3]))
+            return
+        if old_live:
+            c, m, d, i = vec(existing)
+            self._log_usage(index, existing.node_id, (-c, -m, -d, -i))
+        if new_live:
+            self._log_usage(index, updated.node_id, vec(updated))
+
+    def allocs_since(self, index: int
+                     ) -> Optional[List[Tuple[str, Tuple[int, int, int,
+                                                         int]]]]:
+        """``(node_id, usage delta)`` of every alloc write with an index
+        above ``index``, in write order; None when the log can no longer
+        answer (``index`` fell below the trim floor).  A slab expands to
+        one entry per node it places on."""
+        with self._lock:
+            if index < self._alloc_log_floor:
+                return None
+            # The log's indexes never decrease: bisect to the first entry
+            # past ``index``, and read no further than this store's
+            # cursor (a shared list may have grown past it).
+            log, n = self._alloc_log, self._alloc_log_len
+            start = bisect.bisect_right(log, index, 0, n,
+                                        key=lambda e: e[0])
+            out: List[Tuple[str, Tuple[int, int, int, int]]] = []
+            for entry in log[start:n]:
+                if len(entry) == 2:
+                    slab = entry[1]
+                    c, m, d, i = s.alloc_usage_vec(slab.proto)
+                    for nid, cnt in slab.node_counts().items():
+                        out.append((nid, (c * cnt, m * cnt, d * cnt,
+                                          i * cnt)))
+                else:
+                    out.append((entry[1], entry[2]))
+            return out
+
+    # -- plan application ----------------------------------------------------
+
+    def upsert_plan_results(self, index: int, job: Optional[s.Job],
+                            allocs: List[s.Allocation],
+                            slabs: Optional[List[s.AllocSlab]] = None
+                            ) -> None:
+        """Commit a plan's result (state_store.go:89): the plan's job
+        onto its live allocs and slab prototypes that carry none, the
+        combined resources of an alloc that has only per-task ones, then
+        the upsert (the store owns the allocs from here on)."""
+        with self._lock:
+            for alloc in allocs:
+                if alloc.job is None and not alloc.terminal_status():
+                    alloc.job = job
+                if alloc.resources is None:
+                    total = s.Resources()
+                    for task_res in alloc.task_resources.values():
+                        total.add(task_res)
+                    total.add(alloc.shared_resources)
+                    alloc.resources = total
+            self._upsert_allocs_impl(index, allocs, owned=True)
+            if slabs:
+                for slab in slabs:
+                    p = slab.proto
+                    if p.job is None and not p.terminal_status():
+                        p.job = job
+                self._upsert_slabs_impl(index, slabs)
+
     # -- bulk placements ---------------------------------------------------
 
     def upsert_slabs(self, index: int, slabs: List[s.AllocSlab]) -> None:
@@ -541,6 +730,9 @@ class StateStore:
             proto = slab.proto
             self._idx_append(self._allocs_by_job, proto.job_id, ids)
             self._idx_append(self._allocs_by_eval, proto.eval_id, ids)
+            # One log entry a slab, now: indexing the slab later
+            # (_materialize_pending) logs nothing.
+            self._log_slab(index, slab)
             self._pending_slabs.append(slab)
             self._pending_by_job.setdefault(proto.job_id, []).append(slab)
             self._update_summary_bulk(index, proto, len(ids))

@@ -108,6 +108,28 @@ def _fast_copy(obj):
     return new
 
 
+def alloc_usage_vec(alloc) -> Tuple[int, int, int, int]:
+    """The one per-alloc usage basis, (cpu, memory_mb, disk_mb, iops)
+    (structs.py:190): combined ``resources`` when present,
+    ``shared_resources`` plus the per-task resources otherwise.  The
+    state store's usage-delta feed and the resident mirror's guard walk
+    (``ops/resident.py``) both use it; ``ops/encode.alloc_usage`` is its
+    numpy twin."""
+    r = alloc.resources
+    if r is not None:
+        return (r.cpu, r.memory_mb, r.disk_mb, r.iops)
+    cpu = mem = disk = iops = 0
+    sr = alloc.shared_resources
+    if sr is not None:
+        cpu, mem, disk, iops = sr.cpu, sr.memory_mb, sr.disk_mb, sr.iops
+    for tr in alloc.task_resources.values():
+        cpu += tr.cpu
+        mem += tr.memory_mb
+        disk += tr.disk_mb
+        iops += tr.iops
+    return (cpu, mem, disk, iops)
+
+
 @dataclass
 class Port:
     label: str = ""
@@ -729,6 +751,26 @@ class AllocSlab:
             self._id_idx = idx
         return idx[alloc_id]
 
+    def node_counts(self) -> Dict[str, int]:
+        """Placements per node."""
+        counts: Dict[str, int] = {}
+        for nid in self.node_ids:
+            counts[nid] = counts.get(nid, 0) + 1
+        return counts
+
+    def filter_nodes(self, keep: set) -> "AllocSlab":
+        """The slab restricted to its placements on ``keep`` nodes (a
+        partial plan commit, plan_apply.go:242)."""
+        idx = [i for i, nid in enumerate(self.node_ids) if nid in keep]
+        return AllocSlab(
+            proto=self.proto,
+            ids=[self.ids[i] for i in idx],
+            names=[self.names[i] for i in idx],
+            node_ids=[self.node_ids[i] for i in idx],
+            prev_ids=[self.prev_ids[i] for i in idx] if self.prev_ids else [],
+            create_index=self.create_index,
+            modify_index=self.modify_index,
+        )
 
 
 @dataclass

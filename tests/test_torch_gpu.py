@@ -4,6 +4,7 @@ They need an NVIDIA card with nvcc and skip elsewhere; run them on the
 card with ``python -m pytest tests/test_torch_gpu.py -m gpu -q``.  This
 file imports no jax: the card's machine has none.
 """
+import numpy as np
 import pytest
 import torch
 
@@ -231,3 +232,175 @@ def test_batch_with_networks_and_distinct_property_card_matches_cpu():
         for k, sp in cpu.placements.items():
             assert float(abs(res.placements[k].scores - sp.scores).max()) \
                 <= ATOL
+
+
+# -- plans applied and fed back: the resident mirror and the re-check ---------
+
+def mirror_world(n_nodes, dev, batches, guard_every=1, mesh=None):
+    """A Harness with the port's PlanApplier, ``batches`` register batches
+    of 4 jobs x 30 through TorchBatchScheduler on ``dev`` (or ``mesh``)
+    with the resident mirror on; returns the harness and the stats."""
+    from nomad_tpu_torch import mock
+    from nomad_tpu_torch.ops.batch_sched import TorchBatchScheduler
+    from nomad_tpu_torch.ops.breaker import KernelCircuitBreaker
+    from nomad_tpu_torch.scheduler.testing import Harness
+    from nomad_tpu_torch.server import PlanApplier
+    from nomad_tpu_torch.structs import structs as s
+
+    h = Harness()
+    h.planner = PlanApplier(h.state, device="cpu" if dev == "cpu" else
+                            "cuda", next_index=h.next_index)
+    for i in range(n_nodes):
+        node = mock.node()
+        node.id = node.name = f"node-{i:04d}"
+        node.resources.networks = []
+        node.reserved.networks = []
+        node.compute_class()
+        h.state.upsert_node(h.next_index(), node)
+    brk = KernelCircuitBreaker()
+    stats = []
+    for b in range(batches):
+        jobs = []
+        for k in range(4):
+            j = mock.job()
+            j.id = j.name = f"job-{b}-{k}"
+            j.task_groups[0].count = 30
+            for t in j.task_groups[0].tasks:
+                t.resources.networks = []
+            h.state.upsert_job(h.next_index(), j)
+            jobs.append(j)
+        evals = [s.Evaluation(id=f"ev-{j.id}", priority=j.priority,
+                              type=j.type, job_id=j.id,
+                              triggered_by=s.EVAL_TRIGGER_JOB_REGISTER,
+                              status=s.EVAL_STATUS_PENDING) for j in jobs]
+        where = {"mesh": mesh} if mesh is not None else {"device": dev}
+        st = TorchBatchScheduler(h.logger, h.snapshot(), h, rng_seed=b,
+                                 breaker=brk, guard_every=guard_every,
+                                 **where).schedule_batch(evals)
+        assert st.oracle_routed == 0 and st.device_ran
+        stats.append(st)
+    return h, stats
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shards", [0, 4])
+def test_mirror_after_cuda_applies_equals_host_mirror(shards):
+    """After N in-place CUDA applies the twin equals the host mirror bit
+    for bit, and the placements equal the CPU's."""
+    need_card()
+    from nomad_tpu_torch.ops import resident
+    from nomad_tpu_torch.parallel import make_node_mesh
+
+    resident.reset_counters()
+    mesh = make_node_mesh(["cuda:0"] * shards) if shards else None
+    h, stats = mirror_world(200, "cuda", 6, mesh=mesh)
+    st = resident._STATE
+    parts = st.used_dev if shards else [st.used_dev]
+    assert all(p.device.type == "cuda" for p in parts)
+    assert len(parts) == max(1, shards)
+    assert resident.DEV_INSTALLS == 1 and resident.DEV_APPLIES == 5
+    assert resident.GUARD_RUNS == 5 and resident.GUARD_MISMATCHES == 0
+    assert resident.DEV_GUARD_MISMATCHES == 0
+    np.testing.assert_array_equal(resident.device_used_host(st.used_dev),
+                                  st.used)
+    card = sorted((a.job_id, a.node_id) for a in h.state.allocs(None))
+    resident.reset_counters()
+    hc, _ = mirror_world(200, "cpu", 6)
+    assert card == sorted((a.job_id, a.node_id)
+                          for a in hc.state.allocs(None))
+    resident.reset_counters()
+
+
+@pytest.mark.gpu
+def test_delta_apply_on_cuda_equals_numpy():
+    """index_add_ of unpadded delta rows, repeated rows included, on an
+    int32 CUDA mirror; and the mesh route's per-shard applies."""
+    need_card()
+    from nomad_tpu_torch.ops import resident
+
+    rng = np.random.default_rng(3)
+    n = 10112
+    host = rng.integers(0, 1000, (n, 4)).astype(np.int64)
+    rows = rng.integers(0, n, 5000)
+    rows[:100] = 7                                  # one row, many times
+    vals = rng.integers(-50, 50, (5000, 4))
+    dev_rows = [(int(r), tuple(int(x) for x in v))
+                for r, v in zip(rows, vals)]
+    want = host.copy()
+    np.add.at(want, rows, vals)
+    single = torch.from_numpy(host.astype(np.int32)).cuda()
+    resident._apply_device_deltas(single, dev_rows)
+    parts = [torch.from_numpy(host[i * 2528:(i + 1) * 2528].astype(
+        np.int32)).cuda() for i in range(4)]
+    resident._apply_device_deltas(parts, dev_rows)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(resident.device_used_host(single), want)
+    np.testing.assert_array_equal(resident.device_used_host(parts), want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("slot", [True, False])
+def test_fused_pass_with_used_dev_equals_sparse_rows(slot):
+    """The pass started from the lent mirror gives the packed result of
+    the pass started from the sparse usage rows, and hands the mirror back
+    unchanged."""
+    need_card()
+    from nomad_tpu_torch import mock
+    from nomad_tpu_torch.ops import batch_sched, encode, xfer
+
+    nodes = []
+    for i in range(700):
+        node = mock.node()
+        node.id = f"node-{i:04d}"
+        node.resources.networks = []
+        node.reserved.networks = []
+        nodes.append(node)
+    jobs = [mock.job() for _ in range(5)]
+    for j in jobs:
+        j.task_groups[0].count = 90
+        for t in j.task_groups[0].tasks:
+            t.resources.networks = []
+    live = batch_sched.placed_allocs(batch_sched.schedule_batch(
+        nodes, jobs[:2], rng_seed=1, device="cpu"), jobs[:2])
+    by_node = {}
+    for a in live:
+        by_node.setdefault(a.node_id, []).append(a)
+    specs = batch_sched._prepare_specs(jobs[2:], {})
+    targets, literals = encode.collect_attr_targets(specs)
+    base = batch_sched._cluster_static(nodes, targets, literals, False, 128)
+    ct, touched = batch_sched._layer_usage(base, by_node)
+    b = batch_sched._encode_batch(specs, nodes, base, ct, touched,
+                                  lambda job_id: (), 5)
+    slot_m = b.slot_m if slot else 0
+    sbuf, meta_s = xfer.pack_host(b.static)
+    dbuf, meta_d = xfer.pack_host(b.dyn)
+    kw = dict(meta_s=meta_s, meta_d=meta_d, u_pad=b.st.u_pad,
+              n_pad=ct.n_pad, with_scores=b.with_scores, max_nnz=b.max_nnz,
+              slot_m=slot_m)
+    static = torch.from_numpy(sbuf).cuda()
+    sparse = kernels.fused_pass(static, torch.from_numpy(dbuf).cuda(), **kw)
+    dyn = dict(b.dyn)
+    del dyn["u_rows"], dyn["u_vals"]
+    dbuf2, meta_d2 = xfer.pack_host(dyn)
+    mirror = torch.from_numpy(ct.used.astype(np.int32)).cuda()
+    before = mirror.clone()
+    kw["meta_d"] = meta_d2
+    lent = kernels.fused_pass(static, torch.from_numpy(dbuf2).cuda(),
+                              used_dev=mirror, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(lent.buf, sparse.buf)
+    assert torch.equal(mirror, before)
+
+
+@pytest.mark.gpu
+def test_batch_allocs_fit_on_cuda_equals_cpu():
+    need_card()
+    rng = np.random.default_rng(5)
+    cap = torch.from_numpy(rng.integers(0, 5000, (3000, 4)).astype(np.int32))
+    used = cap + torch.from_numpy(
+        rng.integers(-300, 40, (3000, 4)).astype(np.int32))
+    fit, dim = kernels.batch_allocs_fit(cap.cuda(), used.cuda())
+    want_fit, want_dim = kernels.batch_allocs_fit(cap, used)
+    assert fit.device.type == "cuda"
+    assert torch.equal(fit.cpu(), want_fit)
+    assert torch.equal(dim.cpu(), want_dim)

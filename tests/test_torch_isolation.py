@@ -1,7 +1,9 @@
-"""The port stands alone: it imports neither jax nor nomad_tpu, runs with
-jax unimportable, and never falls back from the card to the CPU."""
+"""The port stands alone: it imports neither jax nor nomad_tpu, looks
+neither up by name, runs with jax unimportable, and never falls back from
+the card to the CPU."""
 import ast
 import pathlib
+import re
 import subprocess
 import sys
 
@@ -26,12 +28,54 @@ def imported_modules(path):
             yield node.module or ""
 
 
-@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) + [
-    ROOT / "chip_smoke.py"], ids=lambda p: str(p.relative_to(ROOT)))
+# A string that names a module of jax or of the reference: what a lookup
+# by name (sys.modules.get, importlib.import_module, __import__) takes.
+MODULE_NAME = re.compile(r"(jax|jaxlib|nomad_tpu)(\.[\w.]*)?")
+
+
+def named_modules(source, filename="<string>"):
+    """The string constants of ``source`` that name a forbidden module."""
+    tree = ast.parse(source, filename=filename)
+    for node in ast.walk(tree):
+        if (isinstance(node, ast.Constant) and isinstance(node.value, str)
+                and MODULE_NAME.fullmatch(node.value.strip())):
+            yield node.value
+
+
+PORT_FILES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_reference_imports(path):
     for mod in imported_modules(path):
         top = mod.split(".")[0]
         assert top not in ("jax", "jaxlib", "nomad_tpu"), (path, mod)
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_reference_module_looked_up_by_name(path):
+    assert list(named_modules(path.read_text(), str(path))) == [], path
+
+
+@pytest.mark.parametrize("source,found", [
+    ('import sys\nm = sys.modules.get("nomad_tpu.ops.resident")\n',
+     ["nomad_tpu.ops.resident"]),
+    ('import importlib\nimportlib.import_module("jax")\n', ["jax"]),
+    ('__import__("nomad_tpu")\n', ["nomad_tpu"]),
+    ('import sys\nm = sys.modules.get("nomad_tpu_torch.ops.resident")\n',
+     []),
+    ('"""Reads nomad_tpu/ops/resident.py, like jax.jit does."""\n', []),
+])
+def test_name_lookup_check_catches_what_it_should(source, found):
+    assert list(named_modules(source)) == found
+
+
+def test_plan_applier_notes_the_port_mirror():
+    from nomad_tpu_torch.server import plan_apply
+
+    assert plan_apply.resident.__name__ == "nomad_tpu_torch.ops.resident"
 
 
 def test_runs_with_jax_unimportable():
@@ -44,6 +88,7 @@ from nomad_tpu_torch.ops.batch_sched import schedule_batch
 nodes = [mock.node() for _ in range(20)]
 for n in nodes:
     n.resources.networks = []
+    n.reserved.networks = []
 job = mock.job()
 for t in job.task_groups[0].tasks:
     t.resources.networks = []
@@ -53,7 +98,9 @@ assert len(sp.node_ids) == 10 and sp.unplaced == 0, sp
 from nomad_tpu_torch.scheduler.scheduler import new_scheduler
 from nomad_tpu_torch.scheduler.testing import Harness
 from nomad_tpu_torch.structs import structs as s
+from nomad_tpu_torch.server import PlanApplier
 h = Harness()
+h.planner = PlanApplier(h.state, device="cpu", next_index=h.next_index)
 for n in nodes:
     h.state.upsert_node(h.next_index(), n)
 h.state.upsert_job(h.next_index(), job)
@@ -91,6 +138,10 @@ def test_default_device_raises_without_cuda():
     h = Harness()
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         TorchBatchScheduler(h.logger, h.snapshot(), h)
+    from nomad_tpu_torch.server import PlanApplier
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        PlanApplier(h.state)
 
 
 def test_kernel_wrapper_never_computes_plain_off_the_cpu():
