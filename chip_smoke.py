@@ -85,14 +85,32 @@ Phases, each printed as one JSON line:
                (its sharded twin; plans equal the single card's) and a
                batch with network asks through the applier's scalar
                check on the card and the CPU (plans and offers equal);
-15. times   -- each kernel's device time (profiler trace; CUDA events
+15. preempt -- device preemption: the eviction-set kernel against its
+               plain version on the card (edge rows; config_preempt's
+               shape and others, A = 2 to 64: 0 differing bits) and
+               against the scalar oracle (2,048 nodes x 64 specs: 0
+               mismatches); config_preempt (bench.py:716-818: 10,000
+               nodes, 70,000 fillers at priorities 10 and 30, 50 jobs x
+               1,000 asks at 70) through ``TorchBatchScheduler(
+               preemption_enabled=True)`` with the port's ``PlanApplier``
+               on the card and the CPU: 10,000 placed by eviction, every
+               eviction set equal to the oracle's, no victim at 70 or
+               above, no node over capacity, 10 follow-up evals, one
+               kernel launch, card plans = CPU plans; a mixed fleet
+               (``random_cluster``'s, 2,048 nodes, 64 jobs x 64 asks) on
+               the card, the CPU and a 4-shard mesh of the card: mesh =
+               single card, card = CPU but where two nodes' effective
+               scores, each within 4e-6 of the CPU's, are ordered the
+               other way (printed); the kernel's times at U = 50 x
+               10,112 x A = 8 and U = 128 x 10,112 x A = 16;
+16. times   -- each kernel's device time (profiler trace; CUDA events
                where the trace has none) over copies of its inputs that
                overflow the L2, its plain version's and the bound for the
                same work on this card; scored_rows also without base (the
                mesh's call at config_mesh); the launch floor (a one-element
                fill); the kernels' SASS instruction counts and the
                issue-rate time they give;
-16. profile -- config (b)'s first batch again, warm, on the single card
+17. profile -- config (b)'s first batch again, warm, on the single card
                and on a 4-shard mesh: untraced, and under a device-only
                trace for the device busy time and idle share.
 
@@ -260,13 +278,18 @@ def phase_parity(dev):
     # shard, keyed on the global node index of shards 1 and 3.  From
     # (1, 701, ...) on, the score tile's edges: N % 4 != 0 (the scalar
     # path), U = 1, 7, 9, 129 (no multiple of a row tile), config (b)'s
-    # 4-shard offsets and U = 9 over a config_mesh shard.
+    # 4-shard offsets and U = 9 over a config_mesh shard.  The last four
+    # are phase preempt's mixed fleet: one spec row over its 2,048-node
+    # axis on one card, and over the 512-node shards 1-3 of its 4-shard
+    # mesh.
     cases = [(1, 10112, 0, 0), (1, 10112, 37, 0), (1, 10112, 127, 0),
              (128, 10112, 0, 0), (3, 700, 5, 0),
              (1, 250_016, 41, 250_016), (1, 250_016, 99, 750_048),
              (1, 701, 0, 0), (9, 701, 3, 0), (7, 10112, 0, 0),
              (9, 10112, 5, 0), (129, 10112, 0, 0), (9, 2528, 11, 7584),
-             (9, 250_016, 2, 500_032)]
+             (9, 250_016, 2, 500_032),
+             (1, 2048, 13, 0), (1, 512, 29, 512), (1, 512, 47, 1024),
+             (1, 512, 63, 1536)]
     rows = []
     worst = 0.0
     for u, n, u_off, n_off in cases:
@@ -1055,21 +1078,27 @@ def reg_evals(jobs, ids, trigger="job-register"):
                           status=ps.EVAL_STATUS_PENDING) for j in jobs]
 
 
-def store_over_capacity(h) -> int:
-    """Nodes over capacity on any dimension, from the state store's live
-    allocs (reserved + each alloc's usage, combined or per task)."""
+def over_capacity_nodes(h) -> set:
+    """Ids of the nodes over capacity on any dimension, from the state
+    store's live allocs (reserved + each alloc's usage, combined or per
+    task)."""
     import numpy as np
 
     from nomad_tpu_torch.ops.encode import alloc_usage
 
-    over = 0
+    over = set()
     for node in h.state.nodes(None):
         use = np.array(node.reserved.as_tuple() if node.reserved
                        else (0,) * 4, dtype=np.int64)
         for a in h.state.allocs_by_node_terminal(None, node.id, False):
             use = use + alloc_usage(a)
-        over += bool((use > np.array(node.resources.as_tuple())).any())
+        if (use > np.array(node.resources.as_tuple())).any():
+            over.add(node.id)
     return over
+
+
+def store_over_capacity(h) -> int:
+    return len(over_capacity_nodes(h))
 
 
 def plan_rows(p):
@@ -1791,6 +1820,501 @@ def phase_applied(dev, n_nodes=10_000, n_jobs=100, count=1000,
         "card": smi}
 
 
+# -- phase 15: preempt --------------------------------------------------------
+
+PREEMPT_SEED = 20261019
+# (u, n, a) of the kernel's timed rows: config_preempt's shape (50
+# preempting specs over 10,112 padded nodes, 8 candidate slots) and a
+# wider one (128 specs, 16 slots).
+PREEMPT_TIMES = ((50, 10112, 8), (128, 10112, 16))
+
+
+def evict_bytes(u: int, n: int, a: int) -> int:
+    """Bytes the pass must move: per pair mask (a), feasible (1), n_evict
+    (4) and score (4) out; per node free, used (16 each), denom (8) and per
+    candidate prio (4) and sizes (16) in; per spec ask (16) and job_prio
+    (4) in."""
+    return u * n * (a + 9) + n * (20 * a + 40) + u * 20
+
+
+def evict_ops(u: int, n: int, a: int) -> int:
+    """Operations per pair: per candidate the forward count (a 4-wide add,
+    a 4-wide compare, the priority test: ~14) and the backward trim (~3
+    outside the set), and one ScoreFit (~30)."""
+    return u * n * (17 * a + 30)
+
+
+def evict_case(dev, u, n, a):
+    """(kernel call, plain call, bytes, operations) on rotating copies of
+    ``eviction_inputs.random_inputs`` at one shape."""
+    import torch
+
+    from eviction_inputs import random_inputs
+    from nomad_tpu_torch.ops import preempt
+
+    args = [torch.from_numpy(x).to(dev)
+            for x in random_inputs(n, u, a, seed=PREEMPT_SEED)]
+    nbytes = evict_bytes(u, n, a)
+    nxt = rotating(args, nbytes)
+    return (lambda: preempt.eviction_sets(*nxt()),
+            lambda: preempt.eviction_sets_reference(*nxt()),
+            nbytes, evict_ops(u, n, a))
+
+
+def evict_parity(dev):
+    """The kernel against its plain version on the card, same inputs: 0
+    differing bits in mask, feasible, n_evict and score.  Returns the
+    rows and the largest score difference."""
+    import torch
+
+    from eviction_inputs import edge_inputs, random_inputs
+    from nomad_tpu_torch.ops import preempt
+
+    cases = [("edge_rows", edge_inputs())]
+    cases += [(f"random u={u} n={n} a={a}",
+               random_inputs(n, u, a, seed=PREEMPT_SEED + a))
+              for u, n, a in PREEMPT_TIMES + ((64, 2048, 2), (64, 2048, 8),
+                                              (64, 2048, 16), (64, 2048, 64),
+                                              (7, 701, 8))]
+    rows, max_err = [], 0.0
+    for name, arrays in cases:
+        t = [torch.from_numpy(x).to(dev) for x in arrays]
+        got = preempt.eviction_sets(*t)
+        want = preempt.eviction_sets_reference(*t)
+        torch.cuda.synchronize()
+        differ = {k: (bit_diff(g, w) if g.dtype == torch.float32
+                      else int((g != w).sum()))
+                  for k, g, w in zip(("mask", "feasible", "n_evict",
+                                      "score"), got, want)}
+        err = float((got[3] - want[3]).abs().max())
+        max_err = max(max_err, err)
+        row = {"case": name, "shape": list(got[0].shape),
+               "feasible_pairs": int(got[1].sum()),
+               "differing": differ, "score_max_abs_err": err}
+        if any(differ.values()) or err:
+            raise AssertionError(f"eviction_sets disagrees with its plain "
+                                 f"version: {row}")
+        rows.append(row)
+    return rows, max_err
+
+
+def filler_fleet(n_nodes):
+    """config_preempt's fleet (bench.py:716-764) in the port's structs:
+    ``n_nodes`` copies of ``mock.node()`` with networks stripped, two
+    filler jobs at priorities 10 and 30, and 7 fillers of (520 MHz,
+    1060 MB) a node alternating between them (~93 % of the usable CPU:
+    the free 260 MHz does not fit a 500 MHz ask, one eviction does)."""
+    from nomad_tpu_torch import mock
+    from nomad_tpu_torch.structs import structs as ps
+
+    base = strip_node(mock.node())
+    nodes = []
+    for i in range(n_nodes):
+        node = base.copy()
+        node.id = node.name = f"node-{i:06d}"
+        nodes.append(node)
+    fillers = []
+    for prio in (10, 30):
+        fj = strip_job(mock.job(), 0)
+        fj.id = f"filler-{prio}"
+        fj.priority = prio
+        fillers.append(fj)
+    allocs = [ps.Allocation(
+        id=f"fill-{i:06d}-{k}", job_id=fillers[k % 2].id, job=fillers[k % 2],
+        node_id=nodes[i].id, task_group="web",
+        name=f"{fillers[k % 2].name}.web[{k}]",
+        resources=ps.Resources(cpu=520, memory_mb=1060))
+        for i in range(n_nodes) for k in range(7)]
+    return nodes, fillers, allocs
+
+
+def mixed_fleet(n_nodes, n_jobs, count):
+    """``preempt.random_cluster``'s nodes (given ``mock.node()``'s
+    attributes, so ``mock.job()``'s constraint and exec task fit), allocs,
+    asks and priorities as a store's fleet: each alloc's job upserted, and
+    ``n_jobs`` jobs of ``count`` asks that take the cluster's asks and
+    priorities (10-99)."""
+    from nomad_tpu_torch import mock
+    from nomad_tpu_torch.ops import preempt
+    from nomad_tpu_torch.structs import structs as ps
+
+    nodes, abn, asks, prios = preempt.random_cluster(n_nodes, n_jobs,
+                                                     PREEMPT_SEED)
+    attrs = mock.node().attributes     # linux, exec available
+    for n in nodes:
+        n.attributes = dict(attrs)
+        n.compute_class()
+    allocs = [a for i in range(n_nodes) for a in abn[nodes[i].id]]
+    for a in allocs:
+        a.task_group = "web"
+    fillers = [a.job for a in allocs]
+    jobs = []
+    for u in range(n_jobs):
+        j = strip_job(mock.job(), count)
+        j.id = f"mixed-{u:03d}"
+        j.priority = prios[u]
+        r = asks[u]
+        j.task_groups[0].ephemeral_disk.size_mb = r.disk_mb
+        j.task_groups[0].tasks[0].resources = ps.Resources(
+            cpu=r.cpu, memory_mb=r.memory_mb, iops=r.iops)
+        jobs.append(j)
+    return nodes, fillers, allocs, jobs
+
+
+def victim_rows(p):
+    return {n: [(a.id, a.job_id, a.desired_status, a.modify_index)
+                for a in v] for n, v in p.node_preemptions.items()}
+
+
+def preempt_world(dev, fleet, label, mesh=None, counted=False):
+    """One batch of ``fleet``'s jobs through a fresh Harness whose planner
+    is the port's ``PlanApplier``, with
+    ``TorchBatchScheduler(preemption_enabled=True)`` on ``dev`` or
+    ``mesh``; ids seeded, so worlds compare whole.  Records each
+    preemption commit's candidates and effective scores."""
+    from nomad_tpu_torch.ops import fused_score, kernels, preempt
+    from nomad_tpu_torch.ops.batch_sched import TorchBatchScheduler
+    from nomad_tpu_torch.ops.breaker import KernelCircuitBreaker
+    from nomad_tpu_torch.scheduler import preempt as oracle
+    from nomad_tpu_torch.scheduler.testing import Harness
+    from nomad_tpu_torch.server import PlanApplier
+    from nomad_tpu_torch.state import StateStore
+    from nomad_tpu_torch.structs import structs as ps
+
+    nodes, fillers, allocs, jobs = fleet
+    commits = []
+
+    class Recording(TorchBatchScheduler):
+        def _preempt_commit(self, ctx, fetched, spec_list, ct, *rest):
+            _, feasible, n_evict, score, feas_rows = fetched
+            commits.append({
+                "pu": list(ctx["pu"]), "node_ids": ct.node_ids,
+                "jobs": [spec_list[u].job.id for u in ctx["pu"]],
+                "ok": feasible & feas_rows.astype(bool),
+                "eff": score - (oracle.PREEMPTION_SCORE_PENALTY
+                                + oracle.PREEMPTION_PER_ALLOC_PENALTY
+                                * n_evict)})
+            return super()._preempt_commit(ctx, fetched, spec_list, ct,
+                                           *rest)
+
+    store = StateStore()
+    kw = {"mesh": mesh} if mesh is not None else {"device": dev}
+    t0 = time.perf_counter()
+    with seeded_ids(PREEMPT_SEED) as ids:
+        h = Harness(store)
+        for n in nodes:
+            h.state.upsert_node(h.next_index(), n)
+        seen = set()
+        for fj in fillers:
+            if fj.id not in seen:
+                seen.add(fj.id)
+                h.state.upsert_job(h.next_index(), fj)
+        h.state.upsert_allocs(h.next_index(), allocs)
+        for j in jobs:
+            h.state.upsert_job(h.next_index(), j)
+        app = PlanApplier(h.state, device=dev, next_index=h.next_index)
+        h.planner = app
+        evals = reg_evals(jobs, ids)
+        build_s = time.perf_counter() - t0
+        over_before = over_capacity_nodes(h)
+
+        def run():
+            return Recording(h.logger, h.snapshot(), h, rng_seed=SEED,
+                             breaker=KernelCircuitBreaker(),
+                             preemption_enabled=True, **kw
+                             ).schedule_batch(evals)
+
+        counts = {}
+        if counted:
+            fused_score.LAUNCHES = preempt.LAUNCHES = 0
+            kernels.COMMIT_STEPS = 0
+        st = run()
+        if counted:
+            counts = {"eviction_sets_launches": preempt.LAUNCHES,
+                      "scored_rows_launches": fused_score.LAUNCHES,
+                      "committing_spec_steps": kernels.COMMIT_STEPS}
+    evicted = [a for a in h.state.allocs(None)
+               if a.desired_status == ps.ALLOC_DESIRED_STATUS_EVICT]
+    follow_ups = sorted(
+        (e.job_id, e.status) for e in h.state.evals_table.values()
+        if e.triggered_by == ps.EVAL_TRIGGER_PREEMPTION)
+    placed = {j.id: len([a for a in h.state.allocs_by_job(None, j.id, True)
+                         if not a.terminal_status()]) for j in jobs}
+    row = {"phase": "preempt", "world": label, "device": str(dev),
+           "fleet_build_seconds": build_s,
+           "asks": st.num_asks, "rounds": st.rounds,
+           "oracle_routed": st.oracle_routed, "mesh_shards": st.mesh_shards,
+           **{k: getattr(st, k) for k in (
+               "preempt_placed", "preempt_evicted", "preempt_checked",
+               "preempt_agree", "preempt_encode_seconds", "encode_seconds",
+               "device_seconds", "metrics_seconds", "finalize_seconds",
+               "total_seconds", "fetch_bytes")},
+           "placed_main_pass": sum(sl.node_ids.__len__()
+                                   for p in h.plans for sl in p.alloc_slabs),
+           "placed": sum(placed.values()),
+           "unplaced": st.num_asks - sum(placed.values()),
+           "evicted_in_store": len(evicted),
+           "victim_max_priority": max(
+               (h.state.job_by_id(None, a.job_id).priority
+                for a in evicted), default=None),
+           "blocked_evals": sum(1 for e in h.create_evals
+                                if e.status == ps.EVAL_STATUS_BLOCKED),
+           "preemption_follow_up_evals": len(follow_ups),
+           # The evicted jobs named when few, else counted.
+           "follow_up_jobs": (sorted({j for j, _ in follow_ups})
+                              if len({j for j, _ in follow_ups}) <= 8
+                              else len({j for j, _ in follow_ups})),
+           # Nodes the fleet put over capacity stay so; the batch may
+           # put none there.
+           "nodes_over_capacity_before": len(over_before),
+           "nodes_over_capacity": len(over_capacity_nodes(h)
+                                      - over_before),
+           "applier": {k: (sorted(v) if isinstance(v, set) else v)
+                       for k, v in app.stats.items()},
+           **counts}
+    emit(row)
+    return {"row": row, "stats": st, "commits": commits,
+            "plans": [(plan_rows(p), victim_rows(p)) for p in h.plans],
+            "evals": eval_rows(h),
+            "created": [(e.id, e.job_id, e.status, e.triggered_by)
+                        for e in h.create_evals],
+            "follow_ups": follow_ups, "placed": placed}
+
+
+def flipped_pairs(card, cpu, tol=ATOL):
+    """Pairs of candidate nodes of one preempting spec whose effective
+    scores the card and the CPU order differently: (spec, node, node,
+    card values, CPU values).  Only a node whose two values differ can
+    take part, and only with a node within 2 tol on the CPU."""
+    import numpy as np
+
+    out = []
+    for c, p in zip(card["commits"], cpu["commits"]):
+        for k, u in enumerate(c["pu"]):
+            ok = c["ok"][k] & p["ok"][k]
+            ec, ep = c["eff"][k], p["eff"][k]
+            cand = np.nonzero(ok)[0]
+            if not len(cand):
+                continue
+            order = cand[np.argsort(ep[cand], kind="stable")]
+            sorted_ep = ep[order]
+            for i in cand[ec[cand] != ep[cand]].tolist():
+                lo = np.searchsorted(sorted_ep, ep[i] - 2 * tol, "left")
+                hi = np.searchsorted(sorted_ep, ep[i] + 2 * tol, "right")
+                for j in order[lo:hi].tolist():
+                    if j <= i and ec[j] != ep[j]:
+                        continue     # each pair once
+                    if np.sign(ec[i] - ec[j]) != np.sign(ep[i] - ep[j]):
+                        out.append({
+                            "spec": int(u), "job": c["jobs"][k],
+                            "nodes": [c["node_ids"][i],
+                                                      c["node_ids"][j]],
+                            "card_eff": [float(ec[i]), float(ec[j])],
+                            "cpu_eff": [float(ep[i]), float(ep[j])],
+                            "within_tol": bool(
+                                abs(ec[i] - ep[i]) <= tol
+                                and abs(ec[j] - ep[j]) <= tol)})
+    return out
+
+
+def placed_pairs(w):
+    """(job, node) -> count of the world's placements, the main pass's
+    slab rows and the explicit allocs (the preemption winners) alike, and
+    node -> its victims' ids over all plans."""
+    from collections import Counter
+
+    placed, victims = Counter(), {}
+    for (_, _, explicit, slabs), vic in w["plans"]:
+        for node, rows in explicit.items():
+            placed.update((name.split(".")[0], node) for _, name, _ in rows)
+        for _, _, names, node_ids, _ in slabs:
+            placed.update((name.split(".")[0], node)
+                          for name, node in zip(names, node_ids))
+        for node, rows in vic.items():
+            victims.setdefault(node, []).extend(r[0] for r in rows)
+    return placed, {n: sorted(v) for n, v in victims.items()}
+
+
+def unexplained_differences(card, cpu, pairs):
+    """The differences between two worlds' results that no flipped
+    near-tie pair explains.  A placement of job j on node n that only one
+    world made is explained by a pair of j's spec that holds n; a node
+    whose victims differ, by a pair that holds the node; the follow-up
+    evals may differ only when some victims do.  Evals, created evals and
+    the plans' stops must be equal."""
+    out = [k for k in ("evals", "created") if card[k] != cpu[k]]
+    stops = lambda w: [(p[0], p[1]) for p, _ in w["plans"]]  # noqa: E731
+    if stops(card) != stops(cpu):
+        out.append("plan stops")
+    (pc, vc), (pp, vp) = placed_pairs(card), placed_pairs(cpu)
+    by_job = {(p["job"], n) for p in pairs for n in p["nodes"]}
+    pair_nodes = {n for p in pairs for n in p["nodes"]}
+    out += [f"placement {jn} x{k}" for jn, k in ((pc - pp) + (pp - pc)).items()
+            if jn not in by_job]
+    bad_victims = [n for n in set(vc) | set(vp)
+                   if vc.get(n) != vp.get(n)]
+    out += [f"victims on {n}" for n in sorted(bad_victims)
+            if n not in pair_nodes]
+    if card["follow_ups"] != cpu["follow_ups"] and not bad_victims:
+        out.append("follow_ups")
+    return out
+
+
+def phase_preempt(dev, n_nodes=10_000, n_hi=50, count=1000,
+                  mixed_nodes=2048, mixed_jobs=64, mixed_count=64):
+    """Device preemption: (a) the eviction-set kernel against its plain
+    version and the scalar oracle on the card; (b) config_preempt
+    (bench.py:716-818) through the eval path with the port's
+    ``PlanApplier``, on the card and on the CPU; (c) a mixed fleet on the
+    card, the CPU and a 4-shard mesh of the card; then the kernel's
+    times."""
+    import numpy as np
+
+    from nomad_tpu_torch import mock
+    from nomad_tpu_torch.ops import preempt
+    from nomad_tpu_torch.parallel import make_node_mesh
+
+    smi = smi_name_power()
+    on_card = torch_device(dev).type == "cuda"
+
+    # (a) The kernel against its plain version, and against the oracle.
+    parity_rows, max_err = (evict_parity(dev) if on_card else ([], 0.0))
+    t0 = time.perf_counter()
+    agree_nodes, agree_specs = (2048, 64) if on_card else (64, 8)
+    checked, mismatches, first = preempt.agreement_check(
+        *preempt.random_cluster(agree_nodes, agree_specs, PREEMPT_SEED),
+        device=dev)
+    if mismatches:
+        raise AssertionError(f"{mismatches} of {checked} pairs disagree "
+                             f"with the oracle: {first}")
+    agreement = {"pairs": checked, "mismatches": mismatches,
+                 "seconds": time.perf_counter() - t0}
+
+    # (b) config_preempt: card and CPU.
+    nodes, fillers, allocs = filler_fleet(n_nodes)
+    hi = []
+    for k in range(n_hi):
+        j = strip_job(mock.job(), count, cpu=500, mem=256)
+        j.id = f"hi-{k:03d}"
+        j.priority = 70
+        hi.append(j)
+    fleet = (nodes, fillers, allocs, hi)
+    w_card = preempt_world(dev, fleet, "config_preempt card", counted=True)
+    w_cpu = preempt_world("cpu", fleet, "config_preempt cpu")
+    for w in (w_card, w_cpu):
+        r = w["row"]
+        filled = min(n_nodes // count, n_hi)
+        want = {"placed_main_pass": 0, "preempt_placed": n_nodes,
+                "preempt_evicted": n_nodes, "preempt_checked": n_nodes,
+                "preempt_agree": n_nodes, "evicted_in_store": n_nodes,
+                "unplaced": n_hi * count - n_nodes,
+                "blocked_evals": n_hi - filled,
+                "preemption_follow_up_evals": filled,
+                "follow_up_jobs": ["filler-10"],
+                "nodes_over_capacity": 0, "oracle_routed": 0}
+        got = {k: r[k] for k in want}
+        if got != want or r["victim_max_priority"] >= 70:
+            raise AssertionError(f"{r['world']}: {got} != {want}, victim "
+                                 f"priority {r['victim_max_priority']}")
+        full = [j for j, v in w["placed"].items() if v == count]
+        if full != [j.id for j in hi[:filled]]:
+            raise AssertionError(f"{r['world']}: full jobs {full}")
+    if on_card and w_card["row"]["eviction_sets_launches"] != 1:
+        raise AssertionError(f"config_preempt: {w_card['row']}")
+    for key in ("plans", "evals", "created", "follow_ups"):
+        if w_card[key] != w_cpu[key]:
+            raise AssertionError(f"config_preempt: card {key} differ from "
+                                 "the CPU's")
+
+    # (c) The mixed fleet: card, CPU, and a 4-shard mesh of the card.
+    mfleet = mixed_fleet(mixed_nodes, mixed_jobs, mixed_count)
+    m_card = preempt_world(dev, mfleet, "mixed card", counted=True)
+    m_cpu = preempt_world("cpu", mfleet, "mixed cpu")
+    m_mesh = preempt_world(dev, mfleet, "mixed card mesh4",
+                           mesh=make_node_mesh([dev] * MESH_SHARDS),
+                           counted=True)
+    mr = m_card["row"]
+    if not (mr["placed_main_pass"] and mr["preempt_placed"]
+            and mr["unplaced"]):
+        raise AssertionError(f"the mixed fleet does not mix: {mr}")
+    if mr["preempt_agree"] != mr["preempt_checked"] or \
+            mr["nodes_over_capacity"]:
+        raise AssertionError(f"mixed fleet: {mr}")
+    if on_card and (mr["eviction_sets_launches"] != 1
+                    or mr["scored_rows_launches"] <= 0
+                    or m_mesh["row"]["eviction_sets_launches"] != 1):
+        raise AssertionError(f"mixed fleet launches: {mr}, "
+                             f"{m_mesh['row']}")
+    if m_mesh["row"]["mesh_shards"] != MESH_SHARDS:
+        raise AssertionError(f"mesh batch: {m_mesh['row']}")
+    for key in ("plans", "evals", "created", "follow_ups"):
+        if m_mesh[key] != m_card[key]:
+            raise AssertionError(f"mixed fleet: mesh {key} differ from the "
+                                 "single card's")
+    pairs = flipped_pairs(m_card, m_cpu)
+    same = all(m_card[k] == m_cpu[k]
+               for k in ("plans", "evals", "created", "follow_ups"))
+    if not same:
+        unexplained = unexplained_differences(m_card, m_cpu, pairs)
+        if unexplained:
+            raise AssertionError(
+                f"mixed fleet: card results differ from the CPU's where "
+                f"no flipped near-tie pair explains it: {unexplained}; "
+                f"pairs: {pairs}")
+    if any(not p["within_tol"] for p in pairs):
+        raise AssertionError(f"mixed fleet: a card score is more than "
+                             f"{ATOL} from the CPU's: {pairs}")
+    eff_err = max((float(np.abs(c["eff"][c["ok"]] - p["eff"][c["ok"]]).max())
+                   for c, p in zip(m_card["commits"], m_cpu["commits"])
+                   if c["ok"].any()), default=0.0)
+
+    # The kernel's times at the two bound shapes (card only).
+    times = []
+    if on_card:
+        for u, n, a in PREEMPT_TIMES:
+            call, plain, nbytes, nops = evict_case(dev, u, n, a)
+            row = {"u": u, "n": n, "a": a,
+                   **timed_row(call, plain, "eviction_sets_kernel", nbytes,
+                               nops, n=60)}
+            emit({"phase": "preempt", "kernel": "eviction_sets", **row,
+                  "card": smi})
+            times.append(row)
+    main = times[0] if times else {}
+    table_row = {
+        "name": "eviction_sets", "route": "cuda",
+        "source": "nomad_tpu_torch/csrc/eviction_sets.cu",
+        "replaces": "nomad_tpu/ops/preempt.py:82",
+        "launches": w_card["row"].get("eviction_sets_launches"),
+        "max_abs_err": max_err,
+        **{k: main.get(k) for k in ("ms", "plain_ms", "bound_ms",
+                                    "bound_by")},
+        "library_ms": None}
+    keep = ("encode_seconds", "device_seconds", "metrics_seconds",
+            "finalize_seconds", "total_seconds", "preempt_encode_seconds",
+            "fetch_bytes", "fleet_build_seconds")
+    return {
+        "parity": parity_rows, "agreement": agreement,
+        "config_preempt": {
+            "card_equals_cpu": True,
+            "card": {k: w_card["row"][k] for k in keep},
+            "cpu": {k: w_cpu["row"][k] for k in keep},
+            "applier": {w["row"]["world"]: {
+                k: w["row"]["applier"][k] for k in (
+                    "plans", "evaluate_seconds", "apply_seconds",
+                    "touched_nodes", "vectorized", "scalar")}
+                for w in (w_card, w_cpu)}},
+        "mixed": {"card_equals_cpu": same, "mesh_equals_single_card": True,
+                  "flipped_near_tie_pairs": pairs,
+                  "eff_max_abs_card_minus_cpu": eff_err,
+                  **{k: mr[k] for k in ("placed_main_pass",
+                                         "preempt_placed", "unplaced",
+                                         "preempt_evicted",
+                                         "eviction_sets_launches",
+                                         "scored_rows_launches")
+                     if k in mr}},
+        "times": times, "kernel_row": table_row, "card": smi}
+
+
 def torch_device(dev):
     import torch
 
@@ -1800,7 +2324,7 @@ def torch_device(dev):
     return d
 
 
-# -- phase 15: times ---------------------------------------------------------
+# -- phase 16: times ---------------------------------------------------------
 
 def score_bytes(u: int, n: int, with_base: bool = True) -> int:
     """Bytes the function must move: feas (1) + collisions (4) in and
@@ -2095,6 +2619,8 @@ def build_against(root):
     for name in fused_score._C_API:
         so = os.path.join(out_dir, f"lib{name}.so")
         src = os.path.join(root, "nomad_tpu_torch", "csrc", f"{name}.cu")
+        if not os.path.exists(src):
+            continue      # a kernel that tree does not have
         procs[name] = (so, subprocess.Popen(
             [devmod.find_nvcc(), *devmod.NVCC_FLAGS, "-o", so, src],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
@@ -2297,6 +2823,9 @@ def main() -> int:
     emit({"phase": "evals", **evals})
     applied = run_phase("applied", phase_applied, dev)
     emit({"phase": "applied", **applied})
+    pre = run_phase("preempt", phase_preempt, dev)
+    emit({"phase": "preempt", **{k: v for k, v in pre.items()
+                                 if k != "kernel_row"}})
     table = run_phase("times", phase_times, dev, launches, max_err,
                       masked_launches, max(masked_err, cand_err))
     # scored_rows' launches on the eval-driven path (phase evals, each
@@ -2305,6 +2834,9 @@ def main() -> int:
     # ... and on the applied path (phase applied, the card with the mirror
     # and guard_every=1: batch 0, the follow-ups and the stream).
     table[0]["applied_path_launches"] = applied["applied_path_launches"]
+    # eviction_sets: launches on config_preempt's eval path (phase
+    # preempt, its count set to 0 just before the card's batch).
+    table.append(pre["kernel_row"])
     emit({"phase": "profile", **run_phase("profile", phase_profile, dev)})
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     emit({"kernels": table})

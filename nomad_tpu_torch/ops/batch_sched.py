@@ -21,10 +21,17 @@ or the mesh's ``sharded_fused_pass``, the one result fetch):
   go through the CPU oracle instead, as in the reference; each such route
   is counted in ``BatchStats.oracle_routed`` and logged with its reason.
   A raw device error (a failed build, launch or fetch) is no such route:
-  it propagates and is not recorded by the breaker.  Not ported
-  yet, and refused with ``NotImplementedError``: device preemption
-  (``preemption_enabled=True``) and ``annotate_plan`` evals (the
-  ``job plan`` dry run).
+  it propagates and is not recorded by the breaker.  With
+  ``preemption_enabled=True``, asks the capacity pass left unplaced take
+  the reference's second pass: one launch of the eviction-set kernel
+  (``ops/preempt.py``) over every still-failing (spec, node) pair, its
+  outputs fetched with the forensics rows, then a host greedy pass that
+  commits at most one preempting placement per node, each replayed
+  against the scalar oracle (the agreement feeds the breaker); the
+  placements and their victims go into the plan's
+  ``node_preemptions``.  Not ported yet, and refused with
+  ``NotImplementedError``: ``annotate_plan`` evals (the ``job plan`` dry
+  run).
 - :func:`schedule_batch` takes plain lists of nodes and jobs and treats
   every job as a registration.  It has no state store and no planner, so
   a spec the reference sends to its oracle raises ``NotImplementedError``
@@ -48,6 +55,7 @@ import torch
 from .. import fault
 from ..device import resolve_device
 from ..scheduler.context import EvalContext
+from ..scheduler import preempt as preempt_oracle
 from ..scheduler.generic import GenericScheduler
 from ..scheduler.propertyset import PropertySet, dp_used_values
 from ..scheduler.scheduler import register_scheduler
@@ -58,7 +66,7 @@ from ..structs import structs as s
 from ..structs.network import NetworkIndex
 from ..utils.lru import LRU
 from . import breaker as breaker_mod
-from . import decode, encode, kernels, resident, xfer
+from . import decode, encode, kernels, preempt, resident, xfer
 from .breaker import HALF_OPEN, KernelIntegrityError  # noqa: F401
 
 logger = logging.getLogger("nomad_tpu_torch.ops.batch_sched")
@@ -308,6 +316,9 @@ class _DeviceBatch:
     h2d_bytes: int = 0
     static_h2d_bytes: int = 0
     resident: Dict = field(default_factory=dict)   # resident.acquire info
+    # Rows of the nodes that carry live allocs (the usage walk's or the
+    # mirror's): the preemption pass is gated on them and enumerates them.
+    touched: List[int] = field(default_factory=list)
 
 
 def _node_pad_multiple(mesh) -> int:
@@ -487,7 +498,7 @@ def _encode_batch(spec_list: List[encode.PlacementSpec],
         spec_list=spec_list, nodes=nodes, base=base, ct=ct, st=st,
         static=static, dyn=dyn, with_networks=with_networks,
         with_scores=with_scores, slot_m=slot_m, max_nnz=max_nnz, shards=d,
-        k_cand=k_cand)
+        k_cand=k_cand, touched=list(touched))
 
 
 def _upload_static(sbuf: np.ndarray, meta_s, devices: Sequence,
@@ -568,6 +579,23 @@ def _fetch(b: _DeviceBatch):
         fetch_bytes += coo.nbytes
     b.device_seconds = b.timer.seconds()
     return summary, np.asarray(coo[:nnz], dtype=np.int64), fetch_bytes
+
+
+def _fetch_together(tensors: Sequence[torch.Tensor]) -> List[np.ndarray]:
+    """``tensors`` (one device) back to the host in one transfer: packed
+    as bytes on the device, copied once, cut into numpy arrays of their
+    dtypes and shapes."""
+    if not tensors:
+        return []
+    flat = [t.contiguous().reshape(-1).view(torch.uint8) for t in tensors]
+    raw = torch.cat(flat).cpu().numpy()
+    out, off = [], 0
+    for t, f in zip(tensors, flat):
+        n = f.numel()
+        dtype = torch.empty(0, dtype=t.dtype).numpy().dtype
+        out.append(raw[off:off + n].view(dtype).reshape(tuple(t.shape)))
+        off += n
+    return out
 
 
 def _overflow_coo(out, nnz, max_nnz, with_scores, compact_u16):
@@ -905,6 +933,17 @@ class TorchBatchScheduler:
     one per batch.  ``breaker`` defaults to the process-wide
     ``ops.breaker.BREAKER``.
 
+    ``preemption_enabled`` (default False; the reference's
+    ``NOMAD_TPU_PREEMPTION``, read from no environment here) runs the
+    priority-tier preemption pass for asks the capacity loop left
+    unplaced: the eviction-set kernel on the device (once per batch, over
+    the whole node axis on the mesh's first device), the commit on the
+    host (at most one preempting placement per node, each checked against
+    the scalar oracle), the victims in the plan's ``node_preemptions``.
+    Specs with network asks, ``distinct_property`` or ``distinct_hosts``
+    keep the capacity pass's result.  The CPU oracle routes (gate,
+    breaker, reject, plan conflict) take the same flag.
+
     The resident usage mirror (``ops/resident.py``) takes the place of
     the usage walk in batches without network asks, over a snapshot with
     a delta feed: ``resident`` turns it on (the reference's
@@ -927,12 +966,11 @@ class TorchBatchScheduler:
         self.mesh = mesh
         self.device = mesh.root if mesh is not None else resolve_device(
             device)
-        if preemption_enabled:
-            raise NotImplementedError(
-                "device preemption (the eviction-set pass of "
-                "nomad_tpu/ops/preempt.py and its commit) is not ported; "
-                "run with preemption_enabled=False")
-        self.preemption_enabled = False
+        self.preemption_enabled = preemption_enabled
+        # Per batch, the preemption pass's commits: (job id, group) ->
+        # [(node id, victim allocs)], read by _finalize.
+        self._preempt_plan: Dict[Tuple[str, str],
+                                 List[Tuple[str, List[s.Allocation]]]] = {}
         self.breaker = (breaker if breaker is not None
                         else breaker_mod.BREAKER)
         self.rng_seed = rng_seed
@@ -1115,6 +1153,7 @@ class TorchBatchScheduler:
     def _dispatch_prepared(self, prep: _PreparedBatch) -> None:
         """The breaker gate, then encode and the device dispatch."""
         stats = prep.stats
+        self._preempt_plan = {}
         if not prep.spec_list:
             return
         # While OPEN every eval takes the CPU oracle; HALF-OPEN lets this
@@ -1244,10 +1283,18 @@ class TorchBatchScheduler:
                 stats.num_evals = len(evals)
                 return stats
             # Any other error (a failed launch or fetch) propagates
-            # without feeding the breaker.
+            # without feeding the breaker.  Validation passed: one clean
+            # check, and every preemption kernel-vs-oracle comparison
+            # feeds the same window (batch_sched.py:734-744).
             self.breaker.record(True)
+            agree = stats.preempt_agree
+            disagree = stats.preempt_checked - agree
+            if agree:
+                self.breaker.record(True, n=agree)
+            if disagree:
+                self.breaker.record(False, n=disagree)
             if prep.probe:
-                self.breaker.on_probe(True)
+                self.breaker.on_probe(disagree == 0)
             stats.breaker_state = self.breaker.state
             stats.device_ran = True
 
@@ -1272,7 +1319,7 @@ class TorchBatchScheduler:
             GenericScheduler(
                 self.logger, self.state, self.planner,
                 batch=(ev.type == s.JOB_TYPE_BATCH),
-                preemption_enabled=False).process(ev)
+                preemption_enabled=self.preemption_enabled).process(ev)
 
     def _fetch_device(self, b: _DeviceBatch, stats: "BatchStats"):
         summary, coo, fetch_bytes = _fetch(b)
@@ -1325,8 +1372,11 @@ class TorchBatchScheduler:
 
         # Feasibility rows are fetched lazily, only for failed specs whose
         # feasible count is below their evaluated count (ready nodes in
-        # their DCs), i.e. a constraint filtered a node: at most one extra
-        # transfer a batch.  Capacity exhaustion needs no row.
+        # their DCs), i.e. a constraint filtered a node.  Capacity
+        # exhaustion needs no row.  With the preemption outputs they come
+        # back in one transfer: at most one extra a batch.  The host facts
+        # are built first, so the device timer below spans only uploads,
+        # launches and the fetch.
         feas_rows: Dict[int, np.ndarray] = {}
         rows_seconds = 0.0
         node_facts = None
@@ -1345,20 +1395,40 @@ class TorchBatchScheduler:
             need_rows = [int(u) for u in failed_u
                          if feas_count[u] < int(self._evaluated_mask(
                              node_facts, spec_list[u]).sum())]
-        if need_rows:
-            timer = _DeviceTimer(self.device)
-            idx = torch.as_tensor(need_rows, dtype=torch.long)
-            feas = b.out.feas
-            if isinstance(feas, list):     # the mesh's shard parts
-                rows = torch.cat([f[idx.to(f.device)].to(self.device)
-                                  for f in feas], dim=1)
-            else:
-                rows = feas[idx.to(feas.device)]
-            rows_np = rows.cpu().numpy()
-            stats.fetch_bytes += rows_np.nbytes
-            feas_rows = {u: rows_np[i] for i, u in enumerate(need_rows)}
+
+        # The preemption pass goes in flight now, so its outputs ride the
+        # same fetch as the forensics rows (batch_sched.py:1640).
+        preempt_ctx = None
+        if self.preemption_enabled and used_after is not None and b.touched:
+            # Writable: the commit takes its placements off the counts.
+            unplaced_arr = np.array(unplaced_arr)
+            preempt_ctx = self._preempt_dispatch(b, unplaced_arr,
+                                                 used_after)
+            if preempt_ctx is not None:
+                stats.preempt_encode_seconds = preempt_ctx["host_seconds"]
+
+        preempt_out = None
+        if need_rows or preempt_ctx is not None:
+            timer = (preempt_ctx["timer"] if preempt_ctx is not None
+                     else _DeviceTimer(self.device))
+            gets = [self._feas_rows(b, need_rows)] if need_rows else []
+            if preempt_ctx is not None:
+                gets.extend(preempt_ctx["dev"])
+            fetched = _fetch_together(gets)
+            stats.fetch_bytes += sum(a.nbytes for a in fetched)
+            if need_rows:
+                rows_np = fetched.pop(0)
+                feas_rows = {u: rows_np[i] for i, u in enumerate(need_rows)}
+            preempt_out = fetched
             rows_seconds = timer.seconds()
             stats.device_seconds += rows_seconds
+
+        # The preemption commit: the host greedy pass over the fetched
+        # eviction sets.  It takes its placements off unplaced_arr and
+        # updates used_after, so the forensics below see the result.
+        if preempt_ctx is not None:
+            self._preempt_commit(preempt_ctx, preempt_out, spec_list, ct,
+                                 unplaced_arr, used_after, stats)
 
         expanded: Dict[Tuple[str, str], List[str]] = {}
         unplaced: Dict[Tuple[str, str], int] = {}
@@ -1371,7 +1441,7 @@ class TorchBatchScheduler:
             lo, hi = int(u_lo[u]), int(u_hi[u])
             pl = placements[key]
             expanded[key] = pl.node_ids
-            unplaced[key] = pl.unplaced
+            unplaced[key] = int(unplaced_arr[u])
 
             n_unplaced = unplaced[key]
             sig = None
@@ -1409,6 +1479,158 @@ class TorchBatchScheduler:
         stats.metrics_seconds = (time.perf_counter() - t_host
                                  - rows_seconds)
         return expanded, unplaced, metrics
+
+    def _feas_rows(self, b: _DeviceBatch, rows: List[int]) -> torch.Tensor:
+        """Rows ``rows`` of the pass's feasibility matrix on the
+        scheduler's device; on the mesh, each shard's part of the rows,
+        concatenated in node order."""
+        idx = torch.as_tensor(rows, dtype=torch.long)
+        feas = b.out.feas
+        if isinstance(feas, list):     # the mesh's shard parts
+            return torch.cat([f[idx.to(f.device)].to(self.device)
+                              for f in feas], dim=1)
+        return feas[idx.to(feas.device)]
+
+    # -- the preemption pass ---------------------------------------------------
+
+    def _preempt_dispatch(self, b: _DeviceBatch, unplaced_arr,
+                          used_after) -> Optional[Dict]:
+        """Launch the eviction-set pass for the asks the capacity loop left
+        unplaced (batch_sched.py:1833-1896): one kernel launch over every
+        still-failing (spec, node) pair, and the preempting specs'
+        feasibility rows (constraints, datacenters and eligibility still
+        bind a preempting placement).  Returns the context the commit
+        reads, its ``dev`` outputs still on the device; None when no spec
+        qualifies.  On the mesh the pass runs once on the first device,
+        over the whole padded node axis.
+
+        Specs with network asks, distinct_hosts or distinct_property keep
+        the capacity pass's result: their feasibility after an eviction is
+        not expressible in the kernel's inputs."""
+        spec_list, ct, st = b.spec_list, b.ct, b.st
+        pu = [u for u in range(st.u_real)
+              if unplaced_arr[u] > 0
+              and spec_list[u].priority > 0
+              and not spec_list[u].net_active
+              and spec_list[u].dp_target is None
+              and not spec_list[u].distinct_hosts]
+        if not pu:
+            return None
+        t0 = time.perf_counter()
+        state = self.state
+
+        def prio_of(a: s.Allocation) -> int:
+            return preempt_oracle.alloc_priority(a, state)
+
+        # Materialized candidate rows from the store, not the usage rows:
+        # a slab-backed alloc's usage row is the slab's shared prototype,
+        # which has no id, and a victim needs its real id and
+        # modify_index or the applier's preemption fence rejects it.
+        allocs_by_node = {
+            ct.node_ids[i]: state.allocs_by_node_terminal(
+                None, ct.node_ids[i], False)
+            for i in b.touched if i < ct.n_real}
+        prio, sizes, sorted_allocs = preempt.encode_alloc_tensors(
+            ct.node_ids, allocs_by_node, prio_of, n_pad=ct.n_pad)
+        capacity = np.asarray(ct.capacity, dtype=np.int64)
+        free = np.clip(capacity - used_after, -(2 ** 31), 2 ** 31 - 1)
+        denom = np.asarray(ct.score_denom, dtype=np.float32)
+        ask = np.asarray(st.ask, dtype=np.int64)[pu].astype(np.int32)
+        jp = np.array([spec_list[u].priority for u in pu], dtype=np.int32)
+        host_seconds = time.perf_counter() - t0
+
+        timer = _DeviceTimer(self.device)
+
+        def up(a):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+        dev = (*preempt.eviction_sets(
+                   up(free.astype(np.int32)),
+                   up(used_after.astype(np.int32)), up(denom), up(prio),
+                   up(sizes), up(ask), up(jp)),
+               self._feas_rows(b, pu))
+        return {"pu": pu, "sorted_allocs": sorted_allocs,
+                "prio_of": prio_of, "free": free, "ask": ask, "jp": jp,
+                "dev": dev, "timer": timer, "host_seconds": host_seconds}
+
+    def _preempt_commit(self, ctx, fetched, spec_list, ct, unplaced_arr,
+                        used_after, stats: "BatchStats") -> None:
+        """The host half of the pass, over the fetched outputs
+        (batch_sched.py:1898-1965): in the batch's priority order, best
+        effective score first (post-eviction ScoreFit minus the preemption
+        discount), at most one preempting placement per node per batch (a
+        second eviction on a node would need the state after the first,
+        which the kernel did not see).  Each commit is replayed against the
+        scalar oracle on the same inputs; the counts go to ``stats``."""
+        pu = ctx["pu"]
+        sorted_allocs = ctx["sorted_allocs"]
+        prio_of = ctx["prio_of"]
+        free = ctx["free"]
+        ask = ctx["ask"]
+        jp = ctx["jp"]
+        mask_np, feasible, n_evict, score, feas_rows = fetched
+        feasible = feasible & feas_rows.astype(bool)
+        # float64, as the reference's expression makes it: the stable
+        # argsort below orders near-ties on it.
+        eff = score - (preempt_oracle.PREEMPTION_SCORE_PENALTY
+                       + preempt_oracle.PREEMPTION_PER_ALLOC_PENALTY
+                       * n_evict)
+
+        placed = evicted = checked = agree = 0
+        dirty = np.zeros(ct.n_pad, dtype=bool)
+        for p, u in enumerate(pu):
+            sp = spec_list[u]
+            key = (sp.job.id, sp.tg.name)
+            need = int(unplaced_arr[u])
+            ok = feasible[p] & ~dirty
+            ok[ct.n_real:] = False
+            if need <= 0 or not ok.any():
+                continue
+            cand = np.nonzero(ok)[0]
+            order = cand[np.argsort(-eff[p][cand], kind="stable")]
+            commits = self._preempt_plan.setdefault(key, [])
+            for i in order[:need].tolist():
+                victims = [sorted_allocs[i][a]
+                           for a in np.nonzero(mask_np[p, i])[0]]
+                checked += 1
+                if not self._preempt_oracle_agrees(
+                        sorted_allocs[i], free[i], ask[p], int(jp[p]),
+                        victims, prio_of):
+                    self.logger.warning(
+                        "preempt kernel/oracle disagreement on node %s; "
+                        "skipping commit", ct.node_ids[i])
+                    continue
+                agree += 1
+                commits.append((ct.node_ids[i], victims))
+                dirty[i] = True
+                placed += 1
+                evicted += len(victims)
+                # The forensics usage: the ask lands, the victims leave.
+                used_after[i] += ask[p].astype(np.int64)
+                for v in victims:
+                    used_after[i] -= np.array(preempt_oracle.alloc_size(v),
+                                              dtype=np.int64)
+                unplaced_arr[u] -= 1
+        stats.preempt_placed = placed
+        stats.preempt_evicted = evicted
+        stats.preempt_checked = checked
+        stats.preempt_agree = agree
+
+    @staticmethod
+    def _preempt_oracle_agrees(node_allocs_sorted, free_vec, ask_vec,
+                               priority, kernel_victims, prio_of) -> bool:
+        """Replay the scalar oracle (greedy prefix and reverse trim) on the
+        kernel's inputs and compare the sets (batch_sched.py:1968)."""
+        cand = [a for a in node_allocs_sorted if prio_of(a) < priority]
+        free = tuple(int(x) for x in free_vec)
+        ask = tuple(int(x) for x in ask_vec)
+        if all(ask[d] <= free[d] for d in range(4)):
+            return False  # fits without eviction: the kernel must not commit
+        chosen = preempt_oracle.select_eviction_prefix(
+            free, ask, [preempt_oracle.alloc_size(a) for a in cand])
+        if not chosen:
+            return False
+        return [cand[j].id for j in chosen] == [a.id for a in kernel_victims]
 
     @staticmethod
     def _evaluated_mask(node_facts, sp) -> np.ndarray:
@@ -1633,6 +1855,29 @@ class TorchBatchScheduler:
                         alloc.previous_allocation = prevs[i]
                     sched.plan.append_alloc(alloc)
                     appended += 1
+            # Placements won by the preemption pass: explicit allocs (each
+            # carries its evictions), the victims staged into the plan's
+            # node_preemptions so the applier commits evict and place
+            # together and rejects a stale victim (batch_sched.py:2267).
+            extra = self._preempt_plan.get(key) or []
+            if extra:
+                take = min(len(extra), n_asks - appended)
+                first = appended
+                extra_ids = s.generate_uuids(take)
+                for i in range(take):
+                    node_id, victims = extra[i]
+                    alloc = s._fast_copy(proto)
+                    alloc.id = extra_ids[i]
+                    alloc.name = (names[first + i] if names is not None
+                                  else f"{sched.job.name}.{tg.name}"
+                                       f"[{first + i}]")
+                    alloc.node_id = node_id
+                    if prevs is not None and prevs[first + i]:
+                        alloc.previous_allocation = prevs[first + i]
+                    for victim in victims:
+                        sched.plan.append_preempted_alloc(victim)
+                    sched.plan.append_alloc(alloc)
+                    appended += 1
             # A slot that yielded no alloc, a failed offer included, is a
             # placement failure: a blocked eval, not a silent
             # under-placement (generic_sched.go:218).
@@ -1672,7 +1917,8 @@ class TorchBatchScheduler:
             retry_state = new_state if new_state is not None else self.state
             GenericScheduler(self.logger, retry_state, self.planner,
                              batch=(ev.type == s.JOB_TYPE_BATCH),
-                             preemption_enabled=False).process(ev)
+                             preemption_enabled=self.preemption_enabled
+                             ).process(ev)
             return
 
         if ev.status == s.EVAL_STATUS_BLOCKED and sched.failed_tg_allocs:
@@ -1720,6 +1966,15 @@ class BatchStats:
         self.kernel_rejects = 0
         self.breaker_state = "closed"
         self.device_ran = False
+        # The preemption pass: placements won by eviction, allocs evicted,
+        # eviction sets replayed against the scalar oracle and those that
+        # agreed, and the host time of the candidate rows' materialization
+        # and encode (also in metrics_seconds).
+        self.preempt_placed = 0
+        self.preempt_evicted = 0
+        self.preempt_checked = 0
+        self.preempt_agree = 0
+        self.preempt_encode_seconds = 0.0
         # The resident usage mirror (ops/resident.py): whether the usage
         # came from the delta feed, the feed entries applied, full walks
         # (cold, key change, feed gap, guard mismatch), staleness fences,

@@ -115,13 +115,16 @@ def masked_score_matrix_reference(feas, used, capacity, denom, ask):
     return torch.where(ok, score_fit(used, ask, denom), NEG_INF)
 
 
-# (C symbol, argument types after the pointers) of each kernel library.
+# (C symbol, argument types) of each kernel library of csrc/.
 _C_API = {
     "scored_rows": ("nomad_scored_rows", [ctypes.c_void_p] * 7 + [
         ctypes.c_uint32, ctypes.c_uint32, ctypes.c_uint32, ctypes.c_int,
         ctypes.c_int] + [ctypes.c_void_p] * 3),
     "masked_score": ("nomad_masked_score", [ctypes.c_void_p] * 5 + [
         ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 2),
+    # ops/preempt.py's kernel.
+    "eviction_sets": ("nomad_eviction_sets", [ctypes.c_void_p] * 7 + [
+        ctypes.c_int] * 3 + [ctypes.c_void_p] * 5),
 }
 _FNS = {}
 

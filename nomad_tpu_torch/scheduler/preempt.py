@@ -10,9 +10,14 @@ largest-resource-first, so the cheapest work is displaced and the fewest
 allocations move).
 
 This module is the per-node CPU oracle (a copy of
-``nomad_tpu/scheduler/preempt.py``).  The batched device twin of the
-reference (``nomad_tpu/ops/preempt.py``) is not ported yet: the port's
-batch scheduler refuses ``preemption_enabled=True``.
+``nomad_tpu/scheduler/preempt.py``).  Its batched device twin,
+``ops/preempt.py`` (the ``csrc/eviction_sets.cu`` kernel and its plain
+PyTorch version), runs the same algorithm over every (task group, node)
+pair at once; both take their candidates from ``sort_candidates``, so
+their eviction sets agree exactly, and ``TorchBatchScheduler``
+replays this oracle on every set it commits.  ``preemption_enabled`` is
+a constructor argument of the schedulers (default False); the port reads
+no environment for it.
 
 Algorithm per (node, ask, priority):
 
@@ -37,6 +42,10 @@ from ..structs import structs as s
 # per-alloc term prefers smaller eviction sets among preempting nodes.
 PREEMPTION_SCORE_PENALTY = 20.0
 PREEMPTION_PER_ALLOC_PENALTY = 1.0
+
+# Priority of the padding rows of the device encoding: never a candidate
+# (real job priorities are 0-100, structs.go JobMaxPriority).
+PRIORITY_SENTINEL = 1 << 30
 
 
 def preemption_score_penalty(n_evicted: int) -> float:

@@ -8,6 +8,7 @@ import numpy as np
 import pytest
 import torch
 
+from eviction_inputs import edge_inputs, random_inputs
 from nomad_tpu_torch.ops import fused_score, kernels
 
 ATOL = 4e-6    # 2 ulp of float32 at 18, the top of ScoreFit
@@ -404,3 +405,127 @@ def test_batch_allocs_fit_on_cuda_equals_cpu():
     assert fit.device.type == "cuda"
     assert torch.equal(fit.cpu(), want_fit)
     assert torch.equal(dim.cpu(), want_dim)
+
+
+# -- the eviction-set kernel (ops/preempt.py, csrc/eviction_sets.cu) ----------
+
+def check_eviction_sets(arrays):
+    """One launch of the kernel against its plain version on the card, on
+    the same inputs: 0 differing bits in every output."""
+    from nomad_tpu_torch.ops import preempt
+
+    t = [torch.from_numpy(np.ascontiguousarray(a)).cuda() for a in arrays]
+    before = preempt.LAUNCHES
+    got = preempt.eviction_sets(*t)
+    want = preempt.eviction_sets_reference(*t)
+    torch.cuda.synchronize()
+    assert preempt.LAUNCHES == before + 1
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        if g.dtype == torch.float32:
+            assert same_bits(g, w)
+        else:
+            assert torch.equal(g, w)
+    return [g.cpu() for g in got]
+
+
+@pytest.mark.gpu
+def test_eviction_sets_kernel_matches_plain_on_edge_rows():
+    need_card()
+    _, feasible, _, _ = check_eviction_sets(edge_inputs())
+    assert feasible.any() and not feasible[:, :3].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,u,a", [(10112, 50, 8), (701, 7, 2),
+                                   (1000, 129, 16), (300, 3, 64)])
+def test_eviction_sets_kernel_matches_plain(n, u, a):
+    need_card()
+    check_eviction_sets(random_inputs(n, u, a, seed=n + u + a))
+
+
+@pytest.mark.gpu
+def test_eviction_sets_wrapper_refuses_bad_inputs():
+    need_card()
+    from nomad_tpu_torch.ops import preempt
+
+    arrays = [torch.from_numpy(a) for a in edge_inputs()]
+    cuda = [a.cuda() for a in arrays]
+    before = preempt.LAUNCHES
+    bad_dtype = list(cuda)
+    bad_dtype[1] = cuda[1].to(torch.int64)
+    with pytest.raises(TypeError, match="used"):
+        preempt.eviction_sets(*bad_dtype)
+    bad_shape = list(cuda)
+    bad_shape[2] = cuda[2][:-1]
+    with pytest.raises(ValueError, match="denom"):
+        preempt.eviction_sets(*bad_shape)
+    mixed = list(cuda)
+    mixed[4] = arrays[4]           # sizes left on the CPU
+    with pytest.raises(ValueError, match="sizes"):
+        preempt.eviction_sets(*mixed)
+    strided = list(cuda)
+    strided[0] = torch.cat([cuda[0], cuda[0]], dim=1)[:, :4]
+    with pytest.raises(ValueError, match="contiguous"):
+        preempt.eviction_sets(*strided)
+    assert preempt.LAUNCHES == before
+
+
+@pytest.mark.gpu
+def test_one_eviction_launch_per_preempting_batch():
+    """A preempting batch on the card launches the kernel once and makes
+    the CPU's plans; a batch with nothing to preempt launches nothing."""
+    need_card()
+    from nomad_tpu_torch import mock
+    from nomad_tpu_torch.ops import preempt
+    from nomad_tpu_torch.ops.batch_sched import TorchBatchScheduler
+    from nomad_tpu_torch.ops.breaker import KernelCircuitBreaker
+    from nomad_tpu_torch.scheduler.testing import Harness
+    from nomad_tpu_torch.structs import structs as ps
+
+    def world(dev):
+        h = Harness()
+        filler = mock.job()
+        filler.id = "filler"
+        filler.priority = 20
+        filler.task_groups[0].count = 0
+        h.state.upsert_job(h.next_index(), filler)
+        for i in range(6):
+            n = mock.node()
+            n.id = f"node-{i}"
+            n.resources.networks = []
+            n.reserved.networks = []
+            h.state.upsert_node(h.next_index(), n)
+            h.state.upsert_allocs(h.next_index(), [ps.Allocation(
+                id=f"f-{i}-{k}", job_id=filler.id, job=filler, node_id=n.id,
+                task_group="web", resources=ps.Resources(cpu=1200,
+                                                         memory_mb=2500))
+                for k in range(3)])
+        launches = []
+        # The second batch fits without an eviction: no unplaced ask.
+        for b, (prio, count, cpu) in enumerate(((70, 4, 1000),
+                                                (50, 1, 100))):
+            job = mock.job()
+            job.id = f"job-{b}"
+            job.priority = prio
+            job.task_groups[0].count = count
+            for tk in job.task_groups[0].tasks:
+                tk.resources = ps.Resources(cpu=cpu, memory_mb=cpu * 2)
+            h.state.upsert_job(h.next_index(), job)
+            ev = ps.Evaluation(id=f"ev-{b}", priority=prio, type=job.type,
+                               triggered_by=ps.EVAL_TRIGGER_JOB_REGISTER,
+                               job_id=job.id, status=ps.EVAL_STATUS_PENDING)
+            before = preempt.LAUNCHES
+            st = TorchBatchScheduler(
+                h.logger, h.snapshot(), h, device=dev, rng_seed=3,
+                breaker=KernelCircuitBreaker(),
+                preemption_enabled=True).schedule_batch([ev])
+            launches.append((preempt.LAUNCHES - before, st.preempt_placed))
+        victims = sorted((n, sorted(a.id for a in v)) for p in h.plans
+                         for n, v in p.node_preemptions.items())
+        return launches, victims
+
+    card, cpu = world("cuda"), world("cpu")
+    assert card[0] == [(1, 4), (0, 0)]
+    assert cpu[0] == [(0, 4), (0, 0)]
+    assert card[1] == cpu[1] and card[1]

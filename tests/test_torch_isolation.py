@@ -42,7 +42,8 @@ def named_modules(source, filename="<string>"):
             yield node.value
 
 
-PORT_FILES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_FILES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                          ROOT / "eviction_inputs.py"]
 
 
 @pytest.mark.parametrize("path", PORT_FILES,

@@ -534,9 +534,10 @@ def test_plan_conflict_retried_through_oracle(monkeypatch):
 
 def test_unported_options_raise():
     h, rng = port_cluster(2, 8)
-    with pytest.raises(NotImplementedError, match="preemption"):
-        TorchBatchScheduler(h.logger, h.snapshot(), h, device="cpu",
-                            preemption_enabled=True)
+    # Device preemption is ported: the flag is taken, no longer refused
+    # (its behaviour is held in tests/test_torch_preempt.py).
+    assert TorchBatchScheduler(h.logger, h.snapshot(), h, device="cpu",
+                               preemption_enabled=True).preemption_enabled
     _, evals = port_register(h, rng, (1,))
     evals[0].annotate_plan = True
     with pytest.raises(NotImplementedError, match="annotate_plan"):
