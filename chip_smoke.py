@@ -103,14 +103,38 @@ Phases, each printed as one JSON line:
                scores, each within 4e-6 of the CPU's, are ordered the
                other way (printed); the kernel's times at U = 50 x
                10,112 x A = 8 and U = 128 x 10,112 x A = 16;
-16. times   -- each kernel's device time (profiler trace; CUDA events
+16. server  -- the server path: jobs into the port's in-process
+               ``Server`` (``node_register``, ``job_register``), evals
+               through its broker and ``BatchWorker`` into
+               ``TorchBatchScheduler``, plans through its plan queue and
+               ``PlanApplier`` onto the in-memory log, on the card and on
+               the CPU.  10,000 ``mock.node()`` nodes; config (d)'s
+               system job on every node (first: after config (b) no node
+               has its 500 MHz free); config (b)'s 100 jobs x 1000 asks
+               and 10 x 200 follow-ups, each wave registered with the
+               workers paused, then released (batches of 64); the asks
+               that find no room block, and 6,000 more nodes unblock
+               them; 10 nodes down and their replacements; a job
+               deregistered; then a preempting drill on a second server
+               (64 nodes each filled by one priority-10 alloc, 32
+               priority-70 asks placed by eviction, the victims'
+               follow-up eval handed to ``BlockedEvals`` and placed when
+               32 nodes are added).  Card = CPU on every committed alloc
+               and eval status; no node over capacity; the breaker
+               closed with no trip and no oracle route; no eval nacked or
+               failed; one ``scored_rows`` launch per committing spec
+               step the batches report, one ``eviction_sets`` launch in
+               the drill; each wave's wall time, evals per second and the
+               server's telemetry (batch, scheduler, plan queue wait,
+               plan evaluate and apply);
+17. times   -- each kernel's device time (profiler trace; CUDA events
                where the trace has none) over copies of its inputs that
                overflow the L2, its plain version's and the bound for the
                same work on this card; scored_rows also without base (the
                mesh's call at config_mesh); the launch floor (a one-element
                fill); the kernels' SASS instruction counts and the
                issue-rate time they give;
-17. profile -- config (b)'s first batch again, warm, on the single card
+18. profile -- config (b)'s first batch again, warm, on the single card
                and on a 4-shard mesh: untraced, and under a device-only
                trace for the device busy time and idle share.
 
@@ -132,6 +156,7 @@ and power limit, not the result line.
 """
 from __future__ import annotations
 
+import contextlib
 import itertools
 import json
 import math
@@ -267,29 +292,38 @@ def scored_row(got, got_base, want, want_base, cpu, cpu_base, **shape):
     return row
 
 
-def phase_parity(dev):
+# (u, n, u_offset, n_offset).  (1, 250_016, ...) are the mesh's per-shard
+# calls on config_mesh: one spec row over one 250,016-node shard, keyed on
+# the global node index of shards 1 and 3.  From (1, 701, ...) on, the
+# score tile's edges: N % 4 != 0 (the scalar path), U = 1, 7, 9, 129 (no
+# multiple of a row tile), config (b)'s 4-shard offsets and U = 9 over a
+# config_mesh shard.  Then phase preempt's mixed fleet: one spec row over
+# its 2,048-node axis on one card, and over the 512-node shards 1-3 of its
+# 4-shard mesh.  The last two are phase server's: one spec row over the
+# 16,000-node fleet after the unblock wave, and over the drill's fleet,
+# padded to 128 nodes.
+SCORE_PARITY_CASES = (
+    (1, 10112, 0, 0), (1, 10112, 37, 0), (1, 10112, 127, 0),
+    (128, 10112, 0, 0), (3, 700, 5, 0),
+    (1, 250_016, 41, 250_016), (1, 250_016, 99, 750_048),
+    (1, 701, 0, 0), (9, 701, 3, 0), (7, 10112, 0, 0),
+    (9, 10112, 5, 0), (129, 10112, 0, 0), (9, 2528, 11, 7584),
+    (9, 250_016, 2, 500_032),
+    (1, 2048, 13, 0), (1, 512, 29, 512), (1, 512, 47, 1024),
+    (1, 512, 63, 1536),
+    (1, 16_000, 71, 0), (1, 128, 5, 0))
+
+
+def score_parity_rows(dev, cases):
+    """scored_rows against its plain version on the card and on the CPU,
+    with and without ``base``, at each (u, n, u_offset, n_offset) of
+    ``cases``: 0 differing bits.  Returns the rows and the largest
+    difference."""
     import torch
 
     from nomad_tpu_torch.ops import fused_score, kernels
 
     seed = kernels.jitter_seed(SEED)
-    # (u, n, u_offset, n_offset).  (1, 250_016, ...) are the mesh's
-    # per-shard calls on config_mesh: one spec row over one 250,016-node
-    # shard, keyed on the global node index of shards 1 and 3.  From
-    # (1, 701, ...) on, the score tile's edges: N % 4 != 0 (the scalar
-    # path), U = 1, 7, 9, 129 (no multiple of a row tile), config (b)'s
-    # 4-shard offsets and U = 9 over a config_mesh shard.  The last four
-    # are phase preempt's mixed fleet: one spec row over its 2,048-node
-    # axis on one card, and over the 512-node shards 1-3 of its 4-shard
-    # mesh.
-    cases = [(1, 10112, 0, 0), (1, 10112, 37, 0), (1, 10112, 127, 0),
-             (128, 10112, 0, 0), (3, 700, 5, 0),
-             (1, 250_016, 41, 250_016), (1, 250_016, 99, 750_048),
-             (1, 701, 0, 0), (9, 701, 3, 0), (7, 10112, 0, 0),
-             (9, 10112, 5, 0), (129, 10112, 0, 0), (9, 2528, 11, 7584),
-             (9, 250_016, 2, 500_032),
-             (1, 2048, 13, 0), (1, 512, 29, 512), (1, 512, 47, 1024),
-             (1, 512, 63, 1536)]
     rows = []
     worst = 0.0
     for u, n, u_off, n_off in cases:
@@ -311,6 +345,16 @@ def phase_parity(dev):
         if none is not None or row["without_base_bits_differ"]:
             raise AssertionError(f"scored_rows with_base=False differs: "
                                  f"{row}")
+    return rows, worst
+
+
+def phase_parity(dev):
+    import torch
+
+    from nomad_tpu_torch.ops import fused_score, kernels
+
+    seed = kernels.jitter_seed(SEED)
+    rows, worst = score_parity_rows(dev, SCORE_PARITY_CASES)
     # The loop's call: one row of a [U, N] tensor, u·N bytes into feas.
     # N = 10,113 misaligns the rows; a storage offset of 1 misaligns every
     # row of a 70,000-node tensor that would otherwise take the vector
@@ -1456,6 +1500,7 @@ def applied_world(dev, nodes, batches, smi, label, *, resident=True,
             row = {"phase": "applied", "world": label, "batch": name,
                    "evals": st.num_evals, "asks": st.num_asks,
                    "rounds": st.rounds, "oracle_routed": st.oracle_routed,
+                   "conflict_retries": st.conflict_retries,
                    "h2d_bytes": st.h2d_bytes,
                    "static_h2d_bytes": st.static_h2d_bytes,
                    "delta_rows": st.delta_rows,
@@ -1704,8 +1749,8 @@ def phase_applied(dev, n_nodes=10_000, n_jobs=100, count=1000,
             raise AssertionError(f"{w['label']}: {w['over_capacity']} nodes "
                                  "over capacity")
         for st, row in w["rows"]:
-            if not st.device_ran or (st.oracle_routed
-                                     and row["batch"] != "overcommit"):
+            if not st.device_ran or st.oracle_routed or (
+                    st.conflict_retries and row["batch"] != "overcommit"):
                 raise AssertionError(f"{w['label']}: {row}")
     for st, row in w5["rows"]:
         if st.mesh_shards != MESH_SHARDS:
@@ -1737,7 +1782,7 @@ def phase_applied(dev, n_nodes=10_000, n_jobs=100, count=1000,
 
     # Over-commit drill: a partial commit, the retry placed the rest.
     oc = w1["overcommit"]
-    if not (oc["applier"]["partial"] >= 1 and oc["oracle_routed"] >= 1):
+    if not (oc["applier"]["partial"] >= 1 and oc["conflict_retries"] >= 1):
         raise AssertionError(f"over-commit drill: {oc}")
     oc_jobs = drills[0][1]
     placed_oc = sum(len([a for a in w1["harness"].state.allocs_by_job(
@@ -1795,7 +1840,7 @@ def phase_applied(dev, n_nodes=10_000, n_jobs=100, count=1000,
         "batch0_applier": b0,
         "overcommit": {"node": oc["overcommit_node"],
                        "partial_commits": oc["applier"]["partial"],
-                       "oracle_routed": oc["oracle_routed"],
+                       "conflict_retries": oc["conflict_retries"],
                        "placed": placed_oc},
         "corrupt": {"guard_mismatches": cd["guard_mismatches"],
                     "breaker_agreement": cd["breaker_agreement"]},
@@ -1861,21 +1906,35 @@ def evict_case(dev, u, n, a):
             nbytes, evict_ops(u, n, a))
 
 
+# (u, n, a) of the eviction-set parity cases: the timed shapes, the mixed
+# fleet's A = 2-64 over 2,048 nodes, a misaligned edge, and phase server's
+# drill (one preempting spec over its fleet padded to 128 nodes, one
+# filler a node, padded to A = 2).
+EVICT_PARITY_SHAPES = PREEMPT_TIMES + (
+    (64, 2048, 2), (64, 2048, 8), (64, 2048, 16), (64, 2048, 64),
+    (7, 701, 8), (1, 128, 2))
+
+
 def evict_parity(dev):
     """The kernel against its plain version on the card, same inputs: 0
     differing bits in mask, feasible, n_evict and score.  Returns the
     rows and the largest score difference."""
-    import torch
-
     from eviction_inputs import edge_inputs, random_inputs
-    from nomad_tpu_torch.ops import preempt
 
     cases = [("edge_rows", edge_inputs())]
     cases += [(f"random u={u} n={n} a={a}",
                random_inputs(n, u, a, seed=PREEMPT_SEED + a))
-              for u, n, a in PREEMPT_TIMES + ((64, 2048, 2), (64, 2048, 8),
-                                              (64, 2048, 16), (64, 2048, 64),
-                                              (7, 701, 8))]
+              for u, n, a in EVICT_PARITY_SHAPES]
+    return evict_parity_rows(dev, cases)
+
+
+def evict_parity_rows(dev, cases):
+    """eviction_sets against its plain version on the card for each
+    (name, numpy inputs) of ``cases``: 0 differing bits."""
+    import torch
+
+    from nomad_tpu_torch.ops import preempt
+
     rows, max_err = [], 0.0
     for name, arrays in cases:
         t = [torch.from_numpy(x).to(dev) for x in arrays]
@@ -2315,6 +2374,426 @@ def phase_preempt(dev, n_nodes=10_000, n_hi=50, count=1000,
         "times": times, "kernel_row": table_row, "card": smi}
 
 
+# -- phase 16: server --------------------------------------------------------
+
+SERVER_SEED = 20261020
+# The node heartbeat TTL of every server of the phase: longer than the
+# run, so no node expires mid-run (the TTL would otherwise be 10 s plus
+# 10 s of grace for the first nodes of the fleet); the only node-down is
+# the deliberate one.
+SERVER_HEARTBEAT_TTL = 3600.0
+SERVER_SETTLE_TIMEOUT = 600.0
+SERVER_SAMPLES = ("worker.invoke_scheduler.batch", "worker.invoke_scheduler",
+                  "worker.invoke_scheduler.device",
+                  "worker.invoke_scheduler.encode",
+                  "worker.invoke_scheduler.finalize",
+                  "worker.invoke_scheduler.system", "plan.queue_wait",
+                  "plan.evaluate", "plan.apply", "raft.apply")
+
+
+def server_settled(srv) -> bool:
+    """Nothing queued, in flight or pending in ``srv``."""
+    b = srv.eval_broker.stats()
+    return (b["total_ready"] == b["total_failed"]
+            and b["total_unacked"] == 0 and b["total_waiting"] == 0
+            and srv.plan_queue.depth() == 0
+            and srv.blocked_evals._capacity_q.empty()
+            and not srv.blocked_evals.duplicates
+            and not any(e.status == "pending"
+                        for e in srv.state.evals(None)))
+
+
+def server_settle(srv) -> float:
+    """Settled twice in a row, 0.2 s apart (the second look catches a
+    reaper's apply); raises past ``SERVER_SETTLE_TIMEOUT``.  Returns the
+    host clock of the first look that found it settled."""
+    from nomad_tpu_torch.utils.backoff import wait_until
+
+    first = None
+    for _ in range(2):
+        if not wait_until(lambda: server_settled(srv),
+                          SERVER_SETTLE_TIMEOUT, max_interval=0.01):
+            raise AssertionError(f"server did not settle: {srv.stats()}")
+        first = first or time.perf_counter()
+        time.sleep(0.2)
+    return first
+
+
+def sample_totals(srv) -> dict:
+    """(count, sum in ms) of each timing the phase reads, since the
+    server started."""
+    tot = srv.metrics.sink.latest()["SampleTotals"]
+    return {k: tot.get(f"nomad.{k}", (0, 0.0)) for k in SERVER_SAMPLES}
+
+
+def server_counter(srv, key: str) -> float:
+    return srv.metrics.sink.latest()["CounterTotals"].get(f"nomad.{key}",
+                                                          0.0)
+
+
+def server_wave(srv, label, fn) -> dict:
+    """``fn(srv)`` with the workers paused, then released: the evals it
+    made are dequeued together, in batches of ``batch_size``.  Returns
+    the wave's wall time from the release to settled, its evals, and the
+    server's telemetry over the wave (count and ms of each timing)."""
+    if not srv.set_workers_paused(True, timeout=SERVER_SETTLE_TIMEOUT):
+        raise AssertionError(f"{label}: workers did not park")
+    before = sample_totals(srv)
+    acks0 = server_counter(srv, "broker.ack")
+    t_call = time.perf_counter()
+    fn(srv)
+    t0 = time.perf_counter()
+    srv.set_workers_paused(False)
+    wall = server_settle(srv) - t0
+    after = sample_totals(srv)
+    acked = int(server_counter(srv, "broker.ack") - acks0)
+    row = {"wave": label, "calls_s": t0 - t_call, "wall_s": wall,
+           "evals_acked": acked, "evals_per_s": acked / wall}
+    for k in SERVER_SAMPLES:
+        c = after[k][0] - before[k][0]
+        if c:
+            row[k] = {"count": c, "ms": after[k][1] - before[k][1]}
+    b = row.get("worker.invoke_scheduler.batch")
+    if b:
+        # The worker's batch time, split: the scheduler's call (which
+        # waits on its plans), and within it each plan's queue wait and
+        # the applier's evaluate and apply.
+        row["batch_share"] = {
+            name: row[name]["ms"] / b["ms"]
+            for name in ("worker.invoke_scheduler", "plan.queue_wait",
+                         "plan.evaluate", "plan.apply") if name in row}
+    return row
+
+
+def server_content(srv) -> dict:
+    """What the server committed, by content (no ids): every alloc's
+    (job, name, node, desired and client status) and every eval's (job,
+    trigger, status)."""
+    st = srv.state
+    return {"allocs": sorted((a.job_id, a.name, a.node_id,
+                              a.desired_status, a.client_status)
+                             for a in st.allocs(None)),
+            "evals": sorted((e.job_id, e.triggered_by, e.status)
+                            for e in st.evals(None)),
+            "blocked": dict(srv.blocked_evals.stats())}
+
+
+def server_scenario(n_nodes, n_jobs, count, follow_jobs, follow_count,
+                    extra_nodes, n_down, drill_nodes):
+    """The phase's objects, made once for every world: config (b)'s
+    fleet and waves, config (d)'s system job, the nodes that unblock the
+    waves' leftovers, and the preempting drill's fleet and jobs."""
+    from nomad_tpu_torch import mock
+    from nomad_tpu_torch.structs import structs as ps
+
+    def node(i, prefix="node"):
+        n = strip_node(mock.node())
+        n.id = f"{prefix}-{i:05d}"
+        return n
+
+    nodes = [node(i) for i in range(n_nodes)]
+    wave_a = [strip_job(mock.job(), count) for _ in range(n_jobs)]
+    wave_b = [strip_job(mock.job(), follow_count, cpu=100, mem=128)
+              for _ in range(follow_jobs)]
+    for k, j in enumerate(wave_a + wave_b):
+        j.id = j.name = f"job-{k:03d}"
+    # Config (d): bench.py:620-660's system job, networks stripped.
+    system = mock.job()
+    system.id = system.name = "system"
+    system.type = ps.JOB_TYPE_SYSTEM
+    system.priority = 100
+    strip_job(system, 1)
+    extra = [node(i, "extra") for i in range(extra_nodes)]
+    fleet = [node(i, "fleet") for i in range(drill_nodes)]
+    filler = strip_job(mock.job(), drill_nodes, cpu=3000, mem=512)
+    filler.id = filler.name = "filler"
+    filler.priority = 10
+    urgent = strip_job(mock.job(), drill_nodes // 2, cpu=2000, mem=512)
+    urgent.id = urgent.name = "urgent"
+    urgent.priority = 70
+    spare = [node(i, "spare") for i in range(drill_nodes // 2)]
+    return {"nodes": nodes, "wave_a": wave_a, "wave_b": wave_b,
+            "system": system, "extra": extra, "n_down": n_down,
+            "drill": (fleet, filler, urgent, spare)}
+
+
+@contextlib.contextmanager
+def kernel_shapes(shapes):
+    """Record into ``shapes`` the shape of every call of the server path's
+    kernel wrappers: ``(u, n, n_offset)`` of ``scored_rows`` and ``(u, n,
+    a)`` of ``eviction_sets``.  Both are called through their modules, so
+    the recorder stands in for them until the block ends."""
+    from nomad_tpu_torch.ops import fused_score, preempt
+
+    score, evict = fused_score.scored_rows, preempt.eviction_sets
+
+    def score_rec(feas, *args, n_offset=0, **kwargs):
+        shapes["scored_rows"].add((*feas.shape, n_offset))
+        return score(feas, *args, n_offset=n_offset, **kwargs)
+
+    def evict_rec(free, used, denom, prio, sizes, ask, job_prio):
+        shapes["eviction_sets"].add((ask.shape[0], *prio.shape))
+        return evict(free, used, denom, prio, sizes, ask, job_prio)
+
+    fused_score.scored_rows, preempt.eviction_sets = score_rec, evict_rec
+    try:
+        yield
+    finally:
+        fused_score.scored_rows, preempt.eviction_sets = score, evict
+
+
+def server_world(dev, sc, smi, counted=False) -> dict:
+    """Part C of the server slice through the port's ``Server`` on
+    ``dev`` (ids seeded, so worlds compare): the fleet registered by
+    ``node_register``; config (d)'s system job on every node; config
+    (b)'s waves by ``job_register`` (the asks that find no room block);
+    the extra nodes that unblock them; ``n_down`` nodes down and their
+    replacements; a job deregistered; then, on a second server with
+    preemption on, the drill.  With ``counted``, the kernels' launch
+    counts are set to 0 just before each server is driven and read just
+    after, and the shapes the path gives the kernels are recorded."""
+    from nomad_tpu_torch.ops import fused_score, kernels, preempt
+    from nomad_tpu_torch.ops.breaker import KernelCircuitBreaker
+    from nomad_tpu_torch.server import Server, ServerConfig
+
+    out = {"device": str(dev), "card": smi, "waves": [],
+           "kernel_shapes": {"scored_rows": set(), "eviction_sets": set()}}
+
+    def run_server(label, body, **cfg):
+        brk = KernelCircuitBreaker()
+        srv = Server(ServerConfig(
+            device=dev, rng_seed=SERVER_SEED, batch_size=64,
+            min_heartbeat_ttl=SERVER_HEARTBEAT_TTL, breaker=brk, **cfg))
+        try:
+            srv.start()
+            if counted:
+                fused_score.LAUNCHES = kernels.COMMIT_STEPS = 0
+                fused_score.MASKED_LAUNCHES = preempt.LAUNCHES = 0
+                with kernel_shapes(out["kernel_shapes"]):
+                    body(srv)
+            else:
+                body(srv)
+            launches = {"scored_rows": fused_score.LAUNCHES,
+                        "masked_score_matrix": fused_score.MASKED_LAUNCHES,
+                        "eviction_sets": preempt.LAUNCHES,
+                        "committing_spec_steps": kernels.COMMIT_STEPS,
+                        "batch_commit_steps": server_counter(
+                            srv, "batch.commit_steps")}
+            b = srv.eval_broker.stats()
+            out[label] = {
+                "launches": launches,
+                "breaker": {"state": brk.state, "trips": brk.trips,
+                            "oracle_routed": server_counter(
+                                srv, "breaker.oracle_routed")},
+                "nacks": b["total_nacks"], "failed": b["total_failed"],
+                "over_capacity": store_over_capacity(srv),
+                "content": server_content(srv)}
+        finally:
+            srv.shutdown()
+
+    def main(srv):
+        t0 = time.perf_counter()
+        for n in sc["nodes"]:
+            srv.node_register(n)
+        out["node_register_s"] = time.perf_counter() - t0
+        waves = [
+            ("config_d", lambda s: s.job_register(sc["system"])),
+            ("config_b", lambda s: [s.job_register(j)
+                                    for j in sc["wave_a"]]),
+            ("follow_up", lambda s: [s.job_register(j)
+                                     for j in sc["wave_b"]]),
+            ("unblock", lambda s: [s.node_register(n)
+                                   for n in sc["extra"]]),
+        ]
+        for label, fn in waves:
+            out["waves"].append(server_wave(srv, label, fn))
+            out[f"after_{label}"] = server_content(srv)
+        hosts = sorted({a.node_id for a in srv.state.allocs(None)
+                        if a.job_id == sc["wave_a"][0].id})[:sc["n_down"]]
+        out["down_hosts"] = hosts
+        out["waves"].append(server_wave(srv, "node_down", lambda s: [
+            s.node_update_status(nid, "down") for nid in hosts]))
+        out["after_node_down"] = server_content(srv)
+        out["waves"].append(server_wave(srv, "deregister", lambda s:
+                            s.job_deregister(sc["wave_a"][1].id,
+                                             purge=False)))
+
+    def drill(srv):
+        fleet, filler, urgent, spare = sc["drill"]
+        for n in fleet:
+            srv.node_register(n)
+        for label, fn in (
+                ("drill_fill", lambda s: s.job_register(filler)),
+                ("drill_preempt", lambda s: s.job_register(urgent)),
+                ("drill_replace", lambda s: [s.node_register(n)
+                                             for n in spare])):
+            out["waves"].append(server_wave(srv, label, fn))
+            if label == "drill_preempt":
+                out["drill_follow_up"] = sorted(
+                    (e.job_id, e.triggered_by, e.status)
+                    for e in srv.state.evals(None)
+                    if e.triggered_by == "preemption")
+                out["drill_blocked"] = dict(srv.blocked_evals.stats())
+
+    with seeded_ids(SERVER_SEED):
+        run_server("main", main)
+    with seeded_ids(SERVER_SEED + 1):
+        run_server("drill", drill, preemption_enabled=True)
+    return out
+
+
+def check_server_world(w, sc, on_card) -> dict:
+    """The world's own checks: what config (b) and (d) placed, the
+    blocked leftovers and their unblock, the replacements, the
+    deregistration, the drill's eviction and hand-off; no node over
+    capacity, the breaker closed with no trip and no oracle route, no
+    nack, no failed eval; and on the card one scored_rows launch per
+    committing spec step the batches report, one eviction_sets launch in
+    the drill."""
+    fleet, filler, urgent, spare = sc["drill"]
+    main, drill = w["main"], w["drill"]
+    live = lambda c, pred: [a for a in c["allocs"]  # noqa: E731
+                            if a[3] == "run" and pred(a)]
+    asks_b = sum(j.task_groups[0].count for j in sc["wave_a"])
+    asks_f = sum(j.task_groups[0].count for j in sc["wave_b"])
+    b_ids = {j.id for j in sc["wave_a"]}
+    f_ids = {j.id for j in sc["wave_b"]}
+    got = {
+        "system_allocs": len(live(w["after_config_d"],
+                                  lambda a: a[0] == "system")),
+        "config_b_placed_first": len(live(w["after_config_b"],
+                                          lambda a: a[0] in b_ids)),
+        "config_b_blocked": w["after_config_b"]["blocked"]["total_blocked"],
+        "follow_up_placed": len(live(w["after_follow_up"],
+                                     lambda a: a[0] in f_ids)),
+        "config_b_placed": len(live(w["after_unblock"],
+                                    lambda a: a[0] in b_ids)),
+        "blocked_after_unblock":
+            w["after_unblock"]["blocked"]["total_blocked"],
+        "lost": len([a for a in w["after_node_down"]["allocs"]
+                     if a[4] == "lost"]),
+        "drill_evicted": len([a for a in drill["content"]["allocs"]
+                              if a[3] == "evict"]),
+        "drill_follow_up": w["drill_follow_up"],
+        "drill_blocked": w["drill_blocked"]["total_blocked"],
+        "drill_filler_placed": len(live(drill["content"],
+                                        lambda a: a[0] == "filler")),
+    }
+    errors = []
+    if got["system_allocs"] != len(sc["nodes"]):
+        errors.append("config (d): not one system alloc on every node")
+    if got["config_b_placed"] != asks_b or got["follow_up_placed"] != asks_f:
+        errors.append("config (b): not every ask placed")
+    if not got["config_b_blocked"] or got["blocked_after_unblock"]:
+        errors.append("config (b): the leftovers did not block, then "
+                      "unblock")
+    lost = [a for a in w["after_node_down"]["allocs"]
+            if a[4] == "lost" and a[0] != "system"]
+    repl = {(a[0], a[1]) for a in live(w["after_node_down"],
+                                       lambda a: True)}
+    if not lost or any((a[0], a[1]) not in repl for a in lost):
+        errors.append("node down: a lost alloc was not replaced")
+    dereg = [a for a in main["content"]["allocs"]
+             if a[0] == sc["wave_a"][1].id]
+    if not dereg or any(a[3] != "stop" for a in dereg):
+        errors.append("deregister: an alloc of the job is not stopped")
+    half = len(fleet) // 2
+    if (got["drill_evicted"] != half
+            or got["drill_follow_up"] != [("filler", "preemption",
+                                           "blocked")]
+            or got["drill_blocked"] != 1
+            or got["drill_filler_placed"] != len(fleet)
+            or drill["content"]["blocked"]["total_blocked"]):
+        errors.append("preempting drill: eviction, hand-off or replacement")
+    for label in ("main", "drill"):
+        r = w[label]
+        if r["over_capacity"] or r["nacks"] or r["failed"] or r[
+                "breaker"] != {"state": "closed", "trips": 0,
+                               "oracle_routed": 0}:
+            errors.append(f"{label}: {r['over_capacity']} nodes over "
+                          f"capacity, {r['nacks']} nacks, {r['failed']} "
+                          f"failed, breaker {r['breaker']}")
+        lc = r["launches"]
+        if on_card and (lc["scored_rows"] <= 0
+                        or lc["scored_rows"] != lc["batch_commit_steps"]
+                        or lc["scored_rows"] != lc["committing_spec_steps"]):
+            errors.append(f"{label}: launches {lc}")
+    if on_card and any(w[k]["launches"]["masked_score_matrix"]
+                       for k in ("main", "drill")):
+        errors.append("masked_score_matrix launched on one card: main "
+                      f"{w['main']['launches']}, drill "
+                      f"{w['drill']['launches']}")
+    if on_card and (w["main"]["launches"]["eviction_sets"] != 0
+                    or w["drill"]["launches"]["eviction_sets"] != 1):
+        errors.append("eviction_sets launches: main "
+                      f"{w['main']['launches']['eviction_sets']}, drill "
+                      f"{w['drill']['launches']['eviction_sets']}")
+    if errors:
+        raise AssertionError(f"{w['device']}: {errors}; {got}")
+    return got
+
+
+def server_shape_parity(dev, shapes, on_card) -> dict:
+    """Each kernel against its plain version at every shape the card's
+    server run gave it: 0 differing bits."""
+    from eviction_inputs import random_inputs
+
+    if not on_card:
+        return {}
+    score = sorted(shapes["scored_rows"])
+    evict = sorted(shapes["eviction_sets"])
+    if not score or not evict:
+        raise AssertionError(f"the server path gave a kernel no shape: "
+                             f"{shapes}")
+    rows, worst = score_parity_rows(
+        dev, [(u, n, 17, n_off) for u, n, n_off in score])
+    erows, eworst = evict_parity_rows(
+        dev, [(f"server u={u} n={n} a={a}",
+               random_inputs(n, u, a, seed=PREEMPT_SEED + n + a))
+              for u, n, a in evict])
+    return {"scored_rows": rows, "eviction_sets": erows,
+            "max_abs_err": max(worst, eworst)}
+
+
+def phase_server(dev, n_nodes=10_000, n_jobs=100, count=1000,
+                 follow_jobs=10, follow_count=200, extra_nodes=6_000,
+                 n_down=10, drill_nodes=64):
+    """The server path: jobs into the port's ``Server``, evals through
+    its broker and ``BatchWorker`` into ``TorchBatchScheduler``, plans
+    through its plan queue and ``PlanApplier`` onto the in-memory log, on
+    the card and on the CPU, compared by content."""
+    smi = smi_name_power()
+    sc = server_scenario(n_nodes, n_jobs, count, follow_jobs, follow_count,
+                         extra_nodes, n_down, drill_nodes)
+    on_card = torch_device(dev).type == "cuda"
+    card = server_world(dev, sc, smi, counted=True)
+    got = check_server_world(card, sc, on_card=on_card)
+    shape_parity = server_shape_parity(dev, card["kernel_shapes"],
+                                       on_card)
+    cpu = server_world("cpu", sc, smi)
+    check_server_world(cpu, sc, on_card=False)
+    keys = [k for k in card if k.startswith("after_")]
+    for key in keys:
+        if card[key] != cpu[key]:
+            raise AssertionError(f"{key}: the card's allocs or eval "
+                                 "statuses differ from the CPU's")
+    for label in ("main", "drill"):
+        if card[label]["content"] != cpu[label]["content"]:
+            raise AssertionError(f"{label}: the card's allocs or eval "
+                                 "statuses differ from the CPU's")
+    for w in (card, cpu):
+        for row in w["waves"]:
+            emit({"phase": "server", "world": w["device"], **row})
+    return {"card_equals_cpu": True, **got,
+            "kernel_shapes": {k: sorted(v) for k, v in
+                              card["kernel_shapes"].items()},
+            "shape_parity": shape_parity,
+            "node_register_s": {"card": card["node_register_s"],
+                                "cpu": cpu["node_register_s"]},
+            "launches": {k: card[k]["launches"] for k in ("main", "drill")},
+            "breaker": card["main"]["breaker"], "card": smi}
+
+
 def torch_device(dev):
     import torch
 
@@ -2324,7 +2803,7 @@ def torch_device(dev):
     return d
 
 
-# -- phase 16: times ---------------------------------------------------------
+# -- phase 17: times ---------------------------------------------------------
 
 def score_bytes(u: int, n: int, with_base: bool = True) -> int:
     """Bytes the function must move: feas (1) + collisions (4) in and
@@ -2826,6 +3305,8 @@ def main() -> int:
     pre = run_phase("preempt", phase_preempt, dev)
     emit({"phase": "preempt", **{k: v for k, v in pre.items()
                                  if k != "kernel_row"}})
+    srv = run_phase("server", phase_server, dev)
+    emit({"phase": "server", **srv})
     table = run_phase("times", phase_times, dev, launches, max_err,
                       masked_launches, max(masked_err, cand_err))
     # scored_rows' launches on the eval-driven path (phase evals, each
@@ -2837,6 +3318,13 @@ def main() -> int:
     # eviction_sets: launches on config_preempt's eval path (phase
     # preempt, its count set to 0 just before the card's batch).
     table.append(pre["kernel_row"])
+    # ... and on the server path (phase server, each server driven with
+    # the counts set to 0 just before it): the main server's batches and
+    # the preempting drill's.
+    for row in table:
+        row["server_path_launches"] = {
+            label: srv["launches"][label][row["name"]]
+            for label in ("main", "drill")}
     emit({"phase": "profile", **run_phase("profile", phase_profile, dev)})
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     emit({"kernels": table})

@@ -18,8 +18,12 @@ or the mesh's ``sharded_fused_pass``, the one result fetch):
   batches in the reference's pipelined order.  Evals whose specs the device pass
   cannot express, every eval while the kernel breaker is open, the evals
   of a batch whose device result was rejected, and a plan that conflicted
-  go through the CPU oracle instead, as in the reference; each such route
-  is counted in ``BatchStats.oracle_routed`` and logged with its reason.
+  go through the CPU oracle instead, as in the reference, each logged
+  with its reason.  ``BatchStats.oracle_routed`` (and the
+  ``breaker.oracle_routed`` counter) counts what the reference counts:
+  the evals of the breaker and reject routes; the gate routes and the
+  conflict retries have counts of their own (``gate_routed``,
+  ``conflict_retries``).
   A raw device error (a failed build, launch or fetch) is no such route:
   it propagates and is not recorded by the breaker.  With
   ``preemption_enabled=True``, asks the capacity pass left unplaced take
@@ -65,6 +69,7 @@ from ..scheduler.util import (AllocTuple, adjust_queued_allocations,
 from ..structs import structs as s
 from ..structs.network import NetworkIndex
 from ..utils.lru import LRU
+from ..utils.telemetry import NULL_TELEMETRY
 from . import breaker as breaker_mod
 from . import decode, encode, kernels, preempt, resident, xfer
 from .breaker import HALF_OPEN, KernelIntegrityError  # noqa: F401
@@ -319,6 +324,7 @@ class _DeviceBatch:
     # Rows of the nodes that carry live allocs (the usage walk's or the
     # mirror's): the preemption pass is gated on them and enumerates them.
     touched: List[int] = field(default_factory=list)
+    commit_steps: int = 0             # committing spec steps of the pass
 
 
 def _node_pad_multiple(mesh) -> int:
@@ -944,6 +950,10 @@ class TorchBatchScheduler:
     keep the capacity pass's result.  The CPU oracle routes (gate,
     breaker, reject, plan conflict) take the same flag.
 
+    ``metrics`` (a ``utils.telemetry.Telemetry``) takes each batch's
+    ``BatchStats`` as the reference's ``worker.invoke_scheduler.*``
+    samples and ``batch.*``/``breaker.*`` counters and gauges.
+
     The resident usage mirror (``ops/resident.py``) takes the place of
     the usage walk in batches without network asks, over a snapshot with
     a delta feed: ``resident`` turns it on (the reference's
@@ -957,7 +967,7 @@ class TorchBatchScheduler:
                  device=None, preemption_enabled: bool = False,
                  breaker=None, rng_seed: Optional[int] = None,
                  resident: bool = True, resident_device: bool = True,
-                 guard_every: int = 64):
+                 guard_every: int = 64, metrics=None):
         if mesh is not None and device is not None:
             raise ValueError("pass a device or a mesh, not both")
         self.logger = logger_
@@ -977,16 +987,89 @@ class TorchBatchScheduler:
         self.resident = resident
         self.resident_device = resident_device
         self.guard_every = guard_every
+        self.metrics = metrics if metrics is not None else NULL_TELEMETRY
 
     def process(self, ev: s.Evaluation) -> None:
         self.schedule_batch([ev])
 
     def schedule_batch(self, evals: List[s.Evaluation]) -> "BatchStats":
         """Reconcile every eval on the host, place all their asks in one
-        device pass, then finalize and submit one plan per eval."""
+        device pass, then finalize and submit one plan per eval; the
+        batch's stats go to the telemetry."""
         prep = self._prepare_batch(evals)
         self._dispatch_prepared(prep)
-        return self._complete_prepared(prep)
+        stats = self._complete_prepared(prep)
+        self._emit_batch_stats(stats)
+        return stats
+
+    def _emit_batch_stats(self, stats: "BatchStats") -> None:
+        """The batch's stats as telemetry (batch_sched.py:380-470): the
+        timings in milliseconds, bytes as counters, the breaker's live
+        state and trips as gauges, and the oracle routes and rejects as
+        counters."""
+        m = self.metrics
+        m.add_sample("worker.invoke_scheduler",
+                     stats.total_seconds * 1000.0)
+        m.add_sample("worker.invoke_scheduler.phase1",
+                     stats.phase1_seconds * 1000.0)
+        m.add_sample("worker.invoke_scheduler.phase2",
+                     stats.phase2_seconds * 1000.0)
+        # The device phases only when the device pass ran: an oracle-
+        # routed batch would flood their windows with zeros.
+        if stats.device_ran:
+            m.add_sample("worker.invoke_scheduler.encode",
+                         stats.encode_seconds * 1000.0)
+            m.add_sample("worker.invoke_scheduler.device",
+                         stats.device_seconds * 1000.0)
+            m.add_sample("worker.invoke_scheduler.rounds", stats.rounds)
+            # The port's addition: the steps that launch scored_rows.
+            m.incr_counter("batch.commit_steps", stats.commit_steps)
+            # The port's host decode and forensics (the reference splits
+            # its commit and fetch).
+            m.add_sample("worker.invoke_scheduler.metrics",
+                         stats.metrics_seconds * 1000.0)
+            m.incr_counter("batch.fetch_bytes", stats.fetch_bytes)
+            m.incr_counter("batch.mesh_h2d_bytes" if stats.mesh_shards
+                           else "batch.h2d_bytes", stats.h2d_bytes)
+            if stats.delta_apply_seconds:
+                m.add_sample(
+                    "batch.mesh_delta_apply" if stats.mesh_shards
+                    else "batch.delta_apply",
+                    stats.delta_apply_seconds * 1000.0)
+        if not stats.oracle_routed:
+            m.add_sample("worker.invoke_scheduler.finalize",
+                         stats.finalize_seconds * 1000.0)
+        m.add_sample("worker.invoke_scheduler.asks", stats.num_asks)
+        if stats.resident_hits:
+            m.incr_counter("batch.resident_hits", stats.resident_hits)
+            m.add_sample("batch.delta_rows", stats.delta_rows)
+        if stats.full_reencodes:
+            m.incr_counter("batch.full_reencodes", stats.full_reencodes)
+        if stats.staleness_fences:
+            m.incr_counter("batch.staleness_fences", stats.staleness_fences)
+        if stats.pipeline_overlap_s:
+            m.add_sample("batch.pipeline_overlap",
+                         stats.pipeline_overlap_s * 1000.0)
+        if resident.GUARD_MISMATCHES:
+            m.set_gauge("batch.resident_guard_mismatches",
+                        resident.GUARD_MISMATCHES)
+        if resident.DEV_GUARD_MISMATCHES:
+            m.set_gauge("batch.resident_dev_mismatches",
+                        resident.DEV_GUARD_MISMATCHES)
+        if resident.DEV_APPLIES:
+            m.set_gauge("batch.resident_dev_applies", resident.DEV_APPLIES)
+        if stats.mesh_shards:
+            m.incr_counter("batch.mesh_passes", 1)
+            m.set_gauge("batch.mesh_shards", stats.mesh_shards)
+        m.set_gauge("breaker.trips", self.breaker.trips)
+        # The live breaker, not stats.breaker_state: a batch that never
+        # reaches the gate keeps the "closed" default.
+        m.set_gauge("breaker.state",
+                    breaker_mod.STATE_CODE.get(self.breaker.state, 0))
+        if stats.oracle_routed:
+            m.incr_counter("breaker.oracle_routed", stats.oracle_routed)
+        if stats.kernel_rejects:
+            m.incr_counter("breaker.kernel_rejects", stats.kernel_rejects)
 
     def schedule_stream(self, batches, state_source=None
                         ) -> List["BatchStats"]:
@@ -1003,9 +1086,9 @@ class TorchBatchScheduler:
         its results are the reference's, the overlap is not.  A batch's
         ``pipeline_overlap_s`` is the time of its prepare while a
         dispatched batch was pending.  An error completes the batch in
-        flight, then propagates.  (The reference's ``_finish_stream``
-        adds its tracing and telemetry to the completion; the port has
-        neither, so it completes with ``_complete_prepared``.)"""
+        flight, then propagates.  Each completed batch's stats go to the
+        telemetry (the reference's ``_finish_stream``, without its
+        tracing span)."""
         out: List[BatchStats] = []
         pending = None
         try:
@@ -1017,7 +1100,7 @@ class TorchBatchScheduler:
                 overlap = (time.perf_counter() - t_prep
                            if pending is not None else 0.0)
                 if pending is not None:
-                    out.append(self._complete_prepared(pending))
+                    out.append(self._complete_emitted(pending))
                     pending = None
                 if state_source is not None:
                     self.state = state_source()
@@ -1029,14 +1112,19 @@ class TorchBatchScheduler:
             # its plans are submitted and a probe it carries resolves.
             if pending is not None:
                 try:
-                    out.append(self._complete_prepared(pending))
+                    out.append(self._complete_emitted(pending))
                 except Exception:
                     self.logger.exception(
                         "in-flight batch failed during stream unwind")
             raise
         if pending is not None:
-            out.append(self._complete_prepared(pending))
+            out.append(self._complete_emitted(pending))
         return out
+
+    def _complete_emitted(self, prep: _PreparedBatch) -> "BatchStats":
+        stats = self._complete_prepared(prep)
+        self._emit_batch_stats(stats)
+        return stats
 
     # -- phase 1 and 2: reconcile, dedup, gate ------------------------------
 
@@ -1100,7 +1188,7 @@ class TorchBatchScheduler:
                 if ev.id in gated:
                     self.logger.info("batch: eval %s routed through the "
                                      "CPU oracle: %s", ev.id, gated[ev.id])
-                    stats.oracle_routed += 1
+                    stats.gate_routed += 1
                     self._route_through_oracle([(ev, sched)])
                 else:
                     kept.append((ev, sched))
@@ -1240,6 +1328,7 @@ class TorchBatchScheduler:
                 mesh=self.mesh if b.shards else None)
         _dispatch(b, self.device, self.mesh, _DEVICE_STATIC_CACHE,
                   used_dev=used_dev)
+        b.commit_steps = b.out.commit_steps
         if used_dev is not None:
             resident.give_device_used(res_key, snap_index, used_dev)
         b.h2d_bytes += resident.DEV_H2D_BYTES - h2d0
@@ -1330,6 +1419,7 @@ class TorchBatchScheduler:
         stats.mesh_shards = b.shards
         stats.fetch_bytes = fetch_bytes
         stats.device_seconds = b.device_seconds
+        stats.commit_steps = b.commit_steps
         self._apply_resident_stats(stats, b.resident)
         return self._finalize_device_outputs(b, summary, coo, stats)
 
@@ -1913,7 +2003,7 @@ class TorchBatchScheduler:
             # (plan_apply.go:27-41).
             self.logger.info("batch: plan conflict for eval %s; routing it "
                              "through the CPU oracle", ev.id)
-            stats.oracle_routed += 1
+            stats.conflict_retries += 1
             retry_state = new_state if new_state is not None else self.state
             GenericScheduler(self.logger, retry_state, self.planner,
                              batch=(ev.type == s.JOB_TYPE_BATCH),
@@ -1952,6 +2042,10 @@ class BatchStats:
         self.finalize_seconds = 0.0     # plans, submit, eval statuses
         self.total_seconds = 0.0
         self.rounds = 0
+        # Committing spec steps of the device pass: one scored_rows launch
+        # each on a card (one per shard on a mesh), counted by the pass
+        # itself, so batches placing at once do not count each other's.
+        self.commit_steps = 0
         # Bytes up (the dynamic buffer, the static one when not cached on
         # the device, and the resident mirror's install and delta rows)
         # and down (the result buffer and the forensics rows).
@@ -1959,10 +2053,15 @@ class BatchStats:
         self.static_h2d_bytes = 0
         self.fetch_bytes = 0
         self.mesh_shards = 0
-        # Degradation: evals routed through the CPU oracle (the gate, an
-        # open breaker, a rejected result, a plan conflict), device
-        # results rejected, and the breaker's state after the batch.
+        # Degradation: evals routed through the CPU oracle by an open
+        # breaker or a rejected result (what the reference counts),
+        # device results rejected, and the breaker's state after the
+        # batch.  The other oracle routes: evals whose specs the device
+        # pass cannot express (the gate), and evals whose plan conflicted
+        # and were retried on refreshed state.
         self.oracle_routed = 0
+        self.gate_routed = 0
+        self.conflict_retries = 0
         self.kernel_rejects = 0
         self.breaker_state = "closed"
         self.device_ran = False

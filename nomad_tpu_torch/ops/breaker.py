@@ -35,6 +35,9 @@ CLOSED = "closed"
 OPEN = "open"
 HALF_OPEN = "half-open"
 
+# The state's gauge code (breaker.state telemetry).
+STATE_CODE = {CLOSED: 0, HALF_OPEN: 1, OPEN: 2}
+
 
 class KernelIntegrityError(RuntimeError):
     """The device result broke a structural invariant; nothing of it was

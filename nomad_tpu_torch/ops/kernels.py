@@ -166,6 +166,7 @@ class PlacementResult(NamedTuple):
     slots: torch.Tensor             # [U, M] int32, -1 padding (slot mode)
     slot_scores: torch.Tensor       # [U, M] f32 (slot mode + scores)
     slot_coll: torch.Tensor         # [U, M] int32
+    commit_steps: int               # committing spec steps (launches)
 
 
 class NetTensors(NamedTuple):
@@ -291,6 +292,7 @@ def placement_rounds(feas, used0, capacity, denom, ask, count, penalty,
     value, keeps the best-scored one (lowest node index on ties).  Both
     masks are ANDed into the feasibility row the score kernel gets."""
     global COMMIT_STEPS, DP_HOST_READS
+    steps = 0
     dev = feas.device
     u_pad, n_pad = feas.shape
     ask_h = ask.cpu().numpy().astype(np.int64)
@@ -367,6 +369,7 @@ def placement_rounds(feas, used0, capacity, denom, ask, count, penalty,
             if k <= 0:
                 continue
             COMMIT_STEPS += 1
+            steps += 1
             scored, base = fused_score.scored_rows(
                 feas_u[None, :], used, capacity, denom, ask[u:u + 1],
                 penalty[u:u + 1], collisions[None, :], seed, u_offset=u,
@@ -418,7 +421,7 @@ def placement_rounds(feas, used0, capacity, denom, ask, count, penalty,
         unplaced=torch.as_tensor(remaining.astype(np.int32), device=dev),
         used_after=used, rounds=rounds, commit_scores=commit_scores,
         commit_collisions=commit_coll, slots=slots,
-        slot_scores=slot_scores, slot_coll=slot_coll)
+        slot_scores=slot_scores, slot_coll=slot_coll, commit_steps=steps)
 
 
 def scatter_job_counts(rows, cols, vals, u_pad: int,
@@ -590,6 +593,7 @@ class FusedOutput(NamedTuple):
     aux: tuple                   # overflow source: ("slots", (slots,
                                  # scores, coll)) or ("coo", coo)
     feas: torch.Tensor           # [U, N] bool, for failure forensics
+    commit_steps: int = 0        # the pass's committing spec steps
 
 
 def fused_pass(static_buf: torch.Tensor, dyn_buf: torch.Tensor, *, meta_s,
@@ -666,7 +670,8 @@ def fused_pass(static_buf: torch.Tensor, dyn_buf: torch.Tensor, *, meta_s,
     assert meta == fused_layout(u_pad, window_nnz=window_nnz,
                                 with_scores=with_scores,
                                 compact_u16=compact_u16)
-    return FusedOutput(buf=buf, meta=meta, aux=aux, feas=feas)
+    return FusedOutput(buf=buf, meta=meta, aux=aux, feas=feas,
+                       commit_steps=result.commit_steps)
 
 
 # -- plan verification (the plan applier's re-check) --------------------------

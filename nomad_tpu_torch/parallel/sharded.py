@@ -191,7 +191,7 @@ def _mesh_rounds(mesh: NodeMesh, shards: List[_Shard], ask, count, penalty,
     mode, or to its part of the slot record ``(slots, scores, coll)``
     ``[U, slot_m + 1]`` (the encoding ``global index + 1``, 0 for empty;
     the extra column takes the dropped writes).  Returns ``(remaining
-    [U] int64 numpy, rounds)``.
+    [U] int64 numpy, rounds, committing spec steps)``.
 
     Shards carrying ``net`` add the network fit and commit of the active
     specs; ``dp_spec`` = ``(col, active, used0)`` adds distinct_property
@@ -213,6 +213,7 @@ def _mesh_rounds(mesh: NodeMesh, shards: List[_Shard], ask, count, penalty,
     n_l = shards[0].used.shape[0]
     remaining = count.cpu().numpy().astype(np.int64)
     count_h = remaining.copy()
+    n_steps = 0
     dh_h = distinct_hosts.cpu().numpy()
     ji_h = job_index.cpu().numpy()
     ask_r = _per_device(mesh, ask.to(torch.int32))
@@ -283,6 +284,7 @@ def _mesh_rounds(mesh: NodeMesh, shards: List[_Shard], ask, count, penalty,
             if k <= 0:
                 continue
             kernels.COMMIT_STEPS += 1
+            n_steps += 1
             loc = []
             for sh, (feas_u, coll, _, _) in zip(shards, steps):
                 scored, base = fused_score.scored_rows(
@@ -364,7 +366,7 @@ def _mesh_rounds(mesh: NodeMesh, shards: List[_Shard], ask, count, penalty,
         raise RuntimeError(f"mesh commit placed {int(placed_dev)} allocs, "
                            f"the host counted "
                            f"{int((count_h - remaining).sum())}")
-    return remaining, rounds
+    return remaining, rounds, n_steps
 
 
 def _dp_dedup(mesh: NodeMesh, shards, sels, loc, steps, gidx, v_pad: int,
@@ -445,7 +447,7 @@ def sharded_placement_rounds(mesh: NodeMesh, feas, used0, capacity, denom,
             shard_nodes(mesh, denom.to(torch.float32)),
             shard_nodes(mesh, job_counts0.to(torch.int32), 1), nets,
             attrs))]
-    remaining, rounds = _mesh_rounds(
+    remaining, rounds, _ = _mesh_rounds(
         mesh, shards, ask, count, penalty, distinct_hosts, job_index, seed,
         k_cand=min(k_cand, n_l),
         dp_spec=None if dp is None else (dp.col, dp.active, dp.used0))
@@ -548,7 +550,7 @@ def sharded_fused_pass(mesh: NodeMesh, static_shards: Sequence[torch.Tensor],
                              attr=ds["attr"]))
     dd = dyn[mesh.root]
     seed = kernels.jitter_seed(int(dd["rng_seed"][0]))
-    remaining, rounds = _mesh_rounds(
+    remaining, rounds, steps = _mesh_rounds(
         mesh, shards, dd["ask"], dd["count"], dd["penalty"], dd["dh"],
         dd["ji"], seed, k_cand=k_cand, slot_m=slot_m,
         with_scores=with_scores,
@@ -586,4 +588,5 @@ def sharded_fused_pass(mesh: NodeMesh, static_shards: Sequence[torch.Tensor],
                                         compact_u16=compact_u16)
     return kernels.FusedOutput(buf=buf, meta=meta,
                                aux=("slots", (slots, sscores, scoll)),
-                               feas=[sh.feas for sh in shards])
+                               feas=[sh.feas for sh in shards],
+                               commit_steps=steps)

@@ -6,7 +6,9 @@ state snapshot and a planner to submit plans through).
 
 The port keeps its own registry: ``service`` and ``batch`` are the CPU
 oracle (``scheduler/generic.py``), ``torch-batch`` the batch scheduler
-of ``ops/batch_sched.py`` (the reference's ``tpu-batch``).
+of ``ops/batch_sched.py`` (the reference's ``tpu-batch``) and
+``torch-system`` the vectorized system scheduler of
+``ops/system_batch.py`` (the reference's ``tpu-system``).
 """
 from __future__ import annotations
 
@@ -62,7 +64,7 @@ def register_scheduler(name: str, factory: SchedulerFactory) -> None:
 def _load_builtins() -> None:
     """Import the modules that register the built-in schedulers."""
     from . import generic  # noqa: F401
-    from ..ops import batch_sched  # noqa: F401
+    from ..ops import batch_sched, system_batch  # noqa: F401
 
 
 def new_scheduler(name: str, logger: logging.Logger, state: State,

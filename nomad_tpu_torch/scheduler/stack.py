@@ -1,11 +1,13 @@
-"""The service/batch placement stack, the composed iterator chain of the
-CPU oracle (a copy of ``nomad_tpu/scheduler/stack.py``; reference
-scheduler/stack.go).  The system stack waits for the system scheduler.
+"""The placement stacks, the composed iterator chains of the CPU oracle
+(a copy of ``nomad_tpu/scheduler/stack.py``; reference
+scheduler/stack.go).
 
 GenericStack:  Random → FeasibilityWrapper(job; tg-drivers, tg-constraints)
                → DistinctHosts → DistinctProperty → FeasibleRank → BinPack
                → JobAntiAffinity → Limit(max(2, ⌈log₂N⌉) service / 2 batch)
                → MaxScore
+SystemStack:   Static → FeasibilityWrapper → DistinctProperty
+               → FeasibleRank → BinPack
 
 The batch scheduler (``ops/batch_sched.py``) computes this chain as
 masked tensor ops on the device; this is the per-placement oracle.
@@ -135,3 +137,58 @@ class GenericStack:
             return option, resources
         return self.select(tg)
 
+
+class SystemStack:
+    """System placement stack: evaluates every node (stack.go:195-286)."""
+
+    def __init__(self, ctx: EvalContext, preemption_enabled: bool = False):
+        self.ctx = ctx
+        self.source = StaticIterator(ctx, [])
+        self.job_constraint = ConstraintChecker(ctx)
+        self.task_group_drivers = DriverChecker(ctx)
+        self.task_group_constraint = ConstraintChecker(ctx)
+        self.wrapped_checks = FeasibilityWrapper(
+            ctx, self.source, [self.job_constraint],
+            [self.task_group_drivers, self.task_group_constraint],
+        )
+        self.distinct_property_constraint = DistinctPropertyIterator(ctx, self.wrapped_checks)
+        rank_source = FeasibleRankIterator(ctx, self.distinct_property_constraint)
+        self.bin_pack = BinPackIterator(ctx, rank_source, evict=True,
+                                        priority=0,
+                                        preemption_enabled=preemption_enabled)
+
+    def set_nodes(self, base_nodes: List[s.Node]) -> None:
+        self.source.set_nodes(base_nodes)
+
+    def set_job(self, job: s.Job) -> None:
+        self.job_constraint.set_constraints(job.constraints)
+        self.distinct_property_constraint.set_job(job)
+        self.bin_pack.set_priority(job.priority)
+        self.ctx.eligibility().set_job(job)
+
+    def select(self, tg: s.TaskGroup) -> Tuple[Optional[RankedNode], s.Resources]:
+        self.bin_pack.reset()
+        self.ctx.reset()
+
+        tg_constr = task_group_constraints(tg)
+        self.task_group_drivers.set_drivers(tg_constr.drivers)
+        self.task_group_constraint.set_constraints(tg_constr.constraints)
+        self.wrapped_checks.set_task_group(tg.name)
+        self.distinct_property_constraint.set_task_group(tg)
+        self.bin_pack.set_task_group(tg)
+
+        option = self.bin_pack.next_option()
+        if (option is None and self.bin_pack.preemption_enabled
+                and self.bin_pack.evict and self.bin_pack.priority > 0):
+            # Same last-resort second pass as GenericStack.select.
+            self.bin_pack.reset()
+            self.bin_pack.allow_preempt = True
+            try:
+                option = self.bin_pack.next_option()
+            finally:
+                self.bin_pack.allow_preempt = False
+
+        if option is not None and len(option.task_resources) != len(tg.tasks):
+            for task in tg.tasks:
+                option.set_task_resources(task, task.resources)
+        return option, tg_constr.size

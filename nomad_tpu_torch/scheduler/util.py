@@ -106,6 +106,40 @@ def diff_allocs(
     return result
 
 
+def diff_system_allocs(
+    job: s.Job,
+    nodes: List[s.Node],
+    tainted_nodes: Dict[str, Optional[s.Node]],
+    allocs: List[s.Allocation],
+    terminal_allocs: Dict[str, s.Allocation],
+) -> DiffResult:
+    """Per-node diff for system jobs; placements are node-annotated
+    (util.go:171-220)."""
+    node_allocs: Dict[str, List[s.Allocation]] = {}
+    for alloc in allocs:
+        node_allocs.setdefault(alloc.node_id, []).append(alloc)
+    for node in nodes:
+        node_allocs.setdefault(node.id, [])
+
+    required = materialize_task_groups(job)
+    result = DiffResult()
+    for node_id, nallocs in node_allocs.items():
+        diff = diff_allocs(job, tainted_nodes, required, nallocs,
+                           terminal_allocs)
+        if node_id in tainted_nodes:
+            diff.place = []
+        else:
+            for tup in diff.place:
+                if tup.alloc is None or tup.alloc.node_id != node_id:
+                    tup.alloc = s.Allocation(node_id=node_id)
+        # A tainted node invalidates system allocs outright: stop, not
+        # migrate (util.go:211-214).
+        diff.stop.extend(diff.migrate)
+        diff.migrate = []
+        result.append(diff)
+    return result
+
+
 def ready_nodes_in_dcs(state, dcs: List[str]) -> Tuple[List[s.Node], Dict[str, int]]:
     """Ready, undrained nodes in the job's datacenters + per-DC counts
     (util.go:224).

@@ -1,15 +1,15 @@
 """The plan applier: the serialization point of the optimistic scheduler
-(a subset of ``nomad_tpu/server/plan_apply.py``; reference
+(a copy of ``nomad_tpu/server/plan_apply.py``; reference
 nomad/plan_apply.go:27-371).
 
-A plan is re-checked against a snapshot of the port's state store: every
-node it touches must still be ready and not draining, every alloc it
-preempts must be unchanged, and the node's proposed allocs must still fit
+A plan is re-checked against the port's state store: every node it
+touches must still be ready and not draining, every alloc it preempts
+must be unchanged, and the node's proposed allocs must still fit
 (``allocs_fit``).  A plan that fails on some nodes commits on the others
 (a partial commit, with ``refresh_index``), an ``all_at_once`` plan
 commits nothing; the committed part goes into the store at the next
-index through ``StateStore.upsert_plan_results``, and the resident usage
-mirror (``ops/resident.py``) is told the index.
+index, and the resident usage mirror (``ops/resident.py``) is told the
+index.
 
 At :data:`VECTORIZE_THRESHOLD` touched nodes or more, the fit math of the
 re-check is one call of ``ops.kernels.batch_allocs_fit`` on the
@@ -17,21 +17,36 @@ applier's device (``cuda`` unless ``device="cpu"``); nodes whose proposed
 allocs reserve networks keep the scalar ``allocs_fit``, which owns the
 port and bandwidth math.  A device error there propagates.
 
-:meth:`PlanApplier.submit_plan` runs the reference's serial
-``_process_plan`` → ``_commit`` (plan_apply.py:174, :227) for one plan,
-so the applier is a planner: ``Harness.planner = PlanApplier(...)``.
+Two forms share one :meth:`PlanApplier.evaluate_plan` and
+:meth:`PlanApplier.apply_plan`:
+
+- ``PlanApplier(state, device=..., next_index=...)`` applies into a
+  ``StateStore`` directly; :meth:`PlanApplier.submit_plan` runs the serial
+  ``_process_plan`` → ``_commit`` for one plan, so the applier is a
+  planner (``Harness.planner = PlanApplier(...)``), and the preemption
+  follow-up evals are written to the store with the commit.
+- ``PlanApplier(plan_queue, raft, logger, metrics, blocked_evals)`` is
+  the server's (plan_apply.py:92-269): :meth:`PlanApplier.start` runs the
+  hot loop that dequeues plans, re-checks each against the live store and
+  the in-flight overlay, and hands the commit to a pool of
+  ``pipeline_depth`` commit threads (a plan that preempts waits for the
+  pool to drain and commits inline).  The commit goes through the log
+  (``APPLY_PLAN_RESULTS``), the plan queue notes the job's apply index,
+  and the preemption follow-up evals go to ``BlockedEvals``.  The
+  telemetry is the reference's: ``plan.evaluate`` and ``plan.apply``
+  timings, the ``plan.staleness`` sample and the ``plan.conflict``
+  counter; the port adds ``plan.queue_wait``, each plan's time in the
+  queue.
 
 Left out: the columnar fit route (plan_apply.py:361, which needs the
-store's columnar mirror), the plan queue, the commit-thread pool and its
-pipeline depth (the in-flight overlay is kept and read, but only a test
-fills it), the raft log, telemetry and tracing spans, the event-broker
-``PlanApplied`` summary, blocked-eval hand-off of preemption follow-ups
-(they are written to the store with the commit), and allocs'
-``create_time`` (the port's Allocation has no such field).
+store's columnar mirror), the tracing spans, the event-stream
+``PlanApplied`` summary, the ``plan.apply`` fault's ``delay`` action, and
+allocs' ``create_time`` (the port's Allocation has no such field).
 """
 from __future__ import annotations
 
 import logging
+import queue as _queue
 import threading
 import time
 from typing import Callable, Dict, List, Optional, Tuple
@@ -45,9 +60,16 @@ from ..ops import resident
 from ..ops.kernels import batch_allocs_fit
 from ..structs import structs as s
 from ..structs.funcs import allocs_fit, remove_allocs
+from ..utils.telemetry import NULL_TELEMETRY
+from .fsm import MessageType
+from .plan_queue import PlanFuture, PlanQueue
 
 # At or above this many touched nodes the vectorized fit re-check is used.
 VECTORIZE_THRESHOLD = 64
+
+# Concurrent in-flight plan commits of the server's applier (the
+# reference's NOMAD_TPU_PLAN_PIPELINE default; 1 is strictly serial).
+PIPELINE_DEPTH = 8
 
 
 class _InflightOverlay:
@@ -89,67 +111,268 @@ def _res_vec(r: Optional[s.Resources]) -> np.ndarray:
 
 
 class PlanApplier:
-    """Re-checks and commits plans into ``state`` (a ``StateStore``).
+    """Re-checks and commits plans.
 
-    ``next_index`` gives the commit index (default: the store's latest
-    index plus one; a ``Harness`` passes its own ``next_index``).
+    ``PlanApplier(state, device=..., next_index=...)`` commits into
+    ``state`` (a ``StateStore``) at ``next_index()`` (default: the
+    store's latest index plus one; a ``Harness`` passes its own).
+    ``PlanApplier(plan_queue, raft, logger, metrics, blocked_evals)``
+    commits through ``raft`` and re-checks against its FSM's store.
     ``device`` is where the vectorized re-check runs.  ``stats`` sums,
     since the last :meth:`reset_stats`, the plans seen, the seconds of
     evaluate and apply, the touched nodes, the plans per route
     (``vectorized``, ``scalar``), the nodes the vectorized route left to
-    the scalar check, and the devices ``batch_allocs_fit`` ran on."""
+    the scalar check, partial commits, and the devices
+    ``batch_allocs_fit`` ran on."""
 
-    def __init__(self, state, device=None,
-                 next_index: Optional[Callable[[], int]] = None,
-                 logger: Optional[logging.Logger] = None):
-        self.state = state
+    def __init__(self, source, raft=None,
+                 logger: Optional[logging.Logger] = None, metrics=None,
+                 blocked_evals=None, device=None,
+                 next_index: Optional[Callable[[], int]] = None):
+        if isinstance(source, PlanQueue):
+            if raft is None:
+                raise ValueError("the plan-queue form needs the raft log")
+            self.plan_queue: Optional[PlanQueue] = source
+            self.raft = raft
+            self._state = None
+        else:
+            if raft is not None or blocked_evals is not None:
+                raise ValueError("a store-backed applier commits into its "
+                                 "store; pass a PlanQueue for the log")
+            self.plan_queue = None
+            self.raft = None
+            self._state = source
         self.device = resolve_device(device)
         self._next_index = (next_index if next_index is not None
                             else lambda: self.state.latest_index() + 1)
         self.logger = logger or logging.getLogger(
             "nomad_tpu_torch.server.plan_apply")
+        self.metrics = metrics if metrics is not None else NULL_TELEMETRY
+        # Preempted jobs' follow-up evals are handed here after a
+        # preemption plan commits, so displaced work reschedules.
+        self.blocked_evals = blocked_evals
         self._overlay = _InflightOverlay()
+        self._stats_l = threading.Lock()
         self.reset_stats()
+        # The server form's threads: the hot loop and a bounded pool of
+        # commit waiters, with the count of commits in flight.
+        self.pipeline_depth = PIPELINE_DEPTH
+        self._thread: Optional[threading.Thread] = None
+        self._stop = threading.Event()
+        self._commit_q: "_queue.Queue" = _queue.Queue()
+        self._commit_threads: List[threading.Thread] = []
+        self._inflight = 0
+        self._inflight_cv = threading.Condition()
+        self._token_seq = 0
+
+    @property
+    def state(self):
+        """The store the re-check reads and, in the store form, the
+        commit writes (the log's FSM store in the server form)."""
+        return self._state if self.raft is None else self.raft.fsm.state
 
     def reset_stats(self) -> None:
-        self.stats = {"plans": 0, "evaluate_seconds": 0.0,
-                      "apply_seconds": 0.0, "touched_nodes": 0,
-                      "vectorized": 0, "scalar": 0, "scalar_fallback": 0,
-                      "partial": 0, "fit_devices": set()}
+        with self._stats_l:
+            self.stats = {"plans": 0, "evaluate_seconds": 0.0,
+                          "apply_seconds": 0.0, "touched_nodes": 0,
+                          "vectorized": 0, "scalar": 0,
+                          "scalar_fallback": 0, "partial": 0,
+                          "fit_devices": set()}
 
-    # -- the planner interface ---------------------------------------------
+    def _count(self, key: str, value=1) -> None:
+        with self._stats_l:
+            if key == "fit_devices":
+                self.stats[key].add(value)
+            else:
+                self.stats[key] += value
 
-    def submit_plan(self, plan: s.Plan
-                    ) -> Tuple[s.PlanResult, Optional[object]]:
-        """Evaluate ``plan`` and commit what is left (plan_apply.py:174
-        ``_process_plan``, :227 ``_commit``).  As in the reference, the
-        re-check reads the live store: the applier is its only plan
-        writer.  Returns the result and, when it has a ``refresh_index``
-        (a partial commit), a fresh snapshot for the scheduler to retry
-        on; None otherwise."""
+    # -- the server form: lifecycle ---------------------------------------
+
+    def start(self) -> None:
+        if self.plan_queue is None:
+            raise RuntimeError("start() needs the plan-queue form")
+        self._stop.clear()
+        self._thread = threading.Thread(target=self.run, daemon=True,
+                                        name="plan-applier")
+        self._thread.start()
+        for i in range(self.pipeline_depth):
+            t = threading.Thread(target=self._commit_loop, daemon=True,
+                                 name=f"plan-commit-{i}")
+            t.start()
+            self._commit_threads.append(t)
+
+    def stop(self, timeout: float = 5.0) -> None:
+        """Stop the loop and the commit pool, each join bounded by
+        ``timeout``."""
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join(timeout=timeout)
+            self._thread = None
+        for _ in self._commit_threads:
+            self._commit_q.put(None)
+        for t in self._commit_threads:
+            t.join(timeout=timeout)
+        self._commit_threads = []
+
+    def threads(self) -> List[threading.Thread]:
+        """The live loop and commit threads (empty once stopped)."""
+        out = [] if self._thread is None else [self._thread]
+        return out + list(self._commit_threads)
+
+    def run(self) -> None:
+        """The planApply hot loop (plan_apply.go:42-120).  The fit
+        re-check reads the live store plus the in-flight overlay: every
+        alloc an earlier plan added is either applied (visible in the
+        store: overlay entries are removed only after their log apply
+        returns) or still in the overlay.  Commit waits run on the pool,
+        so the evaluation of plan N+1 overlaps the commit of plan N."""
+        while not self._stop.is_set():
+            item = self.plan_queue.dequeue(timeout=0.2)
+            if item is None:
+                continue
+            plan, future = item
+            # The port's addition: how long the plan waited in the queue.
+            self.metrics.add_sample(
+                "plan.queue_wait",
+                (time.perf_counter() - future.enqueued_at) * 1000.0)
+            if not future.claim():
+                # The submitter gave up before we started: skipping here
+                # is what makes its replan safe.
+                self.logger.warning("plan for eval %s was cancelled before "
+                                    "apply; dropping", plan.eval_id)
+                continue
+            if plan.node_preemptions:
+                # The preemption fence reads live alloc rows
+                # (modify_index equality) that an in-flight plan could
+                # still change: such plans run strictly serial against a
+                # drained pipeline.
+                self._drain_inflight()
+                self._process_plan(plan, future, pipelined=False)
+            else:
+                self._process_plan(plan, future, pipelined=True)
+
+    def _process_plan(self, plan: s.Plan, future: PlanFuture,
+                      pipelined: bool) -> None:
         snap = self.state
-        t0 = time.perf_counter()
-        result = self.evaluate_plan(snap, plan)
-        self.stats["plans"] += 1
-        self.stats["evaluate_seconds"] += time.perf_counter() - t0
-        if result.node_update or result.node_allocation \
-                or result.alloc_slabs:
-            t1 = time.perf_counter()
-            index = self.apply_plan(plan, result, snap)
-            self.stats["apply_seconds"] += time.perf_counter() - t1
+        try:
+            with self.metrics.measure("plan.evaluate"):
+                result = self._timed_evaluate(snap, plan)
+        except Exception as exc:
+            self.logger.exception("plan evaluation failed")
+            future.respond(None, exc)
+            return
+
+        # Staleness and conflict telemetry: how far behind the log this
+        # plan's snapshot was, and whether the re-check rejected part of
+        # it (the submitter replans the rest on refreshed state).
+        if plan.snapshot_index:
+            self.metrics.add_sample(
+                "plan.staleness",
+                max(0, self.raft.applied_index() - plan.snapshot_index))
+        if result.refresh_index:
+            self.metrics.incr_counter("plan.conflict")
+
+        if not (result.node_update or result.node_allocation
+                or result.alloc_slabs):
+            future.respond(result, None)
+            return
+        if not pipelined or self.pipeline_depth <= 1 \
+                or not self._commit_threads:
+            self._commit(plan, result, future, snap)
+            return
+        # Hand the commit to the pool: the overlay entry makes the
+        # not-yet-visible placements count against every later re-check
+        # until the log apply lands.
+        with self._inflight_cv:
+            while self._inflight >= self.pipeline_depth \
+                    and not self._stop.is_set():
+                self._inflight_cv.wait(0.2)
+            self._inflight += 1
+            self._token_seq += 1
+            token = self._token_seq
+        self._overlay.add(token, result)
+        self._commit_q.put((token, plan, result, future, snap))
+
+    def _commit(self, plan, result, future, snap,
+                token: Optional[int] = None) -> None:
+        try:
+            with self.metrics.measure("plan.apply"):
+                index = self._timed_apply(plan, result, snap)
             result.alloc_index = index
             if result.refresh_index:
                 # A partial commit: the scheduler must see at least its
                 # own placements (plan_apply.go:187-193).
                 result.refresh_index = max(result.refresh_index, index)
+        except Exception as exc:
+            self.logger.exception("failed to apply plan")
+            future.respond(None, exc)
+            return
+        finally:
+            if token is not None:
+                # Removed only now: the apply is visible in the live
+                # store (or failed and never will be).
+                self._overlay.remove(token)
+        future.respond(result, None)
+
+    def _commit_loop(self) -> None:
+        while True:
+            item = self._commit_q.get()
+            if item is None:
+                return
+            token, plan, result, future, snap = item
+            try:
+                self._commit(plan, result, future, snap, token=token)
+            finally:
+                with self._inflight_cv:
+                    self._inflight -= 1
+                    self._inflight_cv.notify_all()
+
+    def _drain_inflight(self) -> None:
+        with self._inflight_cv:
+            while self._inflight and not self._stop.is_set():
+                self._inflight_cv.wait(0.2)
+
+    def _timed_evaluate(self, snap, plan: s.Plan) -> s.PlanResult:
+        t0 = time.perf_counter()
+        result = self.evaluate_plan(snap, plan)
+        self._count("plans")
+        self._count("evaluate_seconds", time.perf_counter() - t0)
         if result.refresh_index:
-            self.stats["partial"] += 1
+            self._count("partial")
+        return result
+
+    def _timed_apply(self, plan: s.Plan, result: s.PlanResult,
+                     snap) -> int:
+        t0 = time.perf_counter()
+        index = self.apply_plan(plan, result, snap)
+        self._count("apply_seconds", time.perf_counter() - t0)
+        return index
+
+    # -- the store form: the planner interface -----------------------------
+
+    def submit_plan(self, plan: s.Plan
+                    ) -> Tuple[s.PlanResult, Optional[object]]:
+        """Evaluate ``plan`` and commit what is left (plan_apply.py:174
+        ``_process_plan``, :227 ``_commit``), inline.  As in the
+        reference, the re-check reads the live store: the applier is its
+        only plan writer.  Returns the result and, when it has a
+        ``refresh_index`` (a partial commit), a fresh snapshot for the
+        scheduler to retry on; None otherwise."""
+        snap = self.state
+        result = self._timed_evaluate(snap, plan)
+        if result.node_update or result.node_allocation \
+                or result.alloc_slabs:
+            index = self._timed_apply(plan, result, snap)
+            result.alloc_index = index
+            if result.refresh_index:
+                result.refresh_index = max(result.refresh_index, index)
+        if result.refresh_index:
             return result, self.state.snapshot()
         return result, None
 
     def update_eval(self, ev: s.Evaluation) -> None:
-        """Eval writes belong to the server, which the port does not have
-        yet; the ``Harness`` records them."""
+        """Eval writes belong to the server (its worker's planner); the
+        ``Harness`` records them."""
 
     def create_eval(self, ev: s.Evaluation) -> None:
         """See :meth:`update_eval`."""
@@ -170,7 +393,7 @@ class PlanApplier:
         for slab in plan.alloc_slabs:
             touched.update(slab.node_ids)
         node_ids = list(touched)
-        self.stats["touched_nodes"] += len(node_ids)
+        self._count("touched_nodes", len(node_ids))
 
         slab_adds = self._slab_node_adds(plan)
         fits = self._evaluate_nodes(snap, plan, node_ids, slab_adds)
@@ -235,10 +458,10 @@ class PlanApplier:
                              node_ids: List[str], slab_adds: Dict,
                              overlay: Dict[str, list]) -> Dict[str, bool]:
         if len(node_ids) >= VECTORIZE_THRESHOLD:
-            self.stats["vectorized"] += 1
+            self._count("vectorized")
             return self._evaluate_nodes_vectorized(snap, plan, node_ids,
                                                    slab_adds, overlay)
-        self.stats["scalar"] += 1
+        self._count("scalar")
         return {nid: self._evaluate_node_plan(snap, plan, nid, slab_adds,
                                               overlay=overlay)
                 for nid in node_ids}
@@ -352,11 +575,11 @@ class PlanApplier:
                 scalar_fallback[node_id] = self._evaluate_node_plan(
                     snap, plan, node_id, slab_adds, overlay=overlay)
 
-        self.stats["scalar_fallback"] += len(scalar_fallback)
+        self._count("scalar_fallback", len(scalar_fallback))
         fit_t, _ = batch_allocs_fit(
             torch.as_tensor(capacity, dtype=torch.int32, device=self.device),
             torch.as_tensor(used, dtype=torch.int32, device=self.device))
-        self.stats["fit_devices"].add(str(fit_t.device))
+        self._count("fit_devices", str(fit_t.device))
         fit = fit_t.cpu().numpy()
         out: Dict[str, bool] = {}
         for i, node_id in enumerate(node_ids):
@@ -371,10 +594,11 @@ class PlanApplier:
     # -- apply -------------------------------------------------------------
 
     def apply_plan(self, plan: s.Plan, result: s.PlanResult, snap) -> int:
-        """Commit ``result`` at the next index (plan_apply.go:123-175
-        applyPlan) and return the index.  Fault point ``plan.apply``
-        (action ``error``) fires before anything is written: an error
-        there commits nothing."""
+        """Commit ``result`` (plan_apply.go:123-175 applyPlan) and return
+        its index: through the log in the server form, into the store at
+        the next index otherwise.  Fault point ``plan.apply`` (action
+        ``error``) fires before anything is written: an error there
+        commits nothing."""
         act = fault.faultpoint("plan.apply")
         if act is not None and act.kind == "error":
             act.raise_injected()
@@ -405,12 +629,28 @@ class PlanApplier:
                 preempted, snap.latest_index(),
                 job_lookup=lambda jid: snap.job_by_id(None, jid))
 
-        index = self._next_index()
-        self.state.upsert_plan_results(index, plan.job, allocs,
-                                       result.alloc_slabs or None)
+        if self.raft is None:
+            index = self._next_index()
+            self.state.upsert_plan_results(index, plan.job, allocs,
+                                           result.alloc_slabs or None)
+            if preemption_evals:
+                self.state.upsert_evals(index, preemption_evals)
+        else:
+            payload = {"job": plan.job, "allocs": allocs}
+            if result.alloc_slabs:
+                payload["slabs"] = result.alloc_slabs
+            if preemption_evals:
+                payload["preemption_evals"] = preemption_evals
+            _, index = self.raft.apply(MessageType.APPLY_PLAN_RESULTS,
+                                       payload)
+            # The worker's snapshot fence: no snapshot below this index
+            # may schedule this job again.
+            self.plan_queue.note_applied(
+                plan.job.id if plan.job is not None else "", index)
+        resident.note_plan_applied(index)
         if preemption_evals:
-            self.state.upsert_evals(index, preemption_evals)
             for ev in preemption_evals:
                 ev.snapshot_index = index
-        resident.note_plan_applied(index)
+            if self.blocked_evals is not None:
+                self.blocked_evals.block_preempted(preemption_evals)
         return index

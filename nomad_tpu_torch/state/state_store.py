@@ -316,6 +316,17 @@ class StateStore:
         with self._lock:
             return self.jobs_table.get(job_id)
 
+    def job_summary_by_id(self, ws, job_id: str) -> Optional[s.JobSummary]:
+        with self._lock:
+            return self.job_summary_table.get(job_id)
+
+    def jobs_by_scheduler(self, ws, sched_type: str) -> List[s.Job]:
+        """Every job of one scheduler type (the server's node evals reach
+        each system job through it)."""
+        with self._lock:
+            return [j for j in self.jobs_table.values()
+                    if j.type == sched_type]
+
     def _update_summary_with_job(self, index: int, job: s.Job) -> None:
         """Create or extend the summary when a job is upserted
         (state_store.go:2159)."""
@@ -387,6 +398,10 @@ class StateStore:
     def eval_by_id(self, ws, eval_id: str) -> Optional[s.Evaluation]:
         with self._lock:
             return self.evals_table.get(eval_id)
+
+    def evals(self, ws=None) -> List[s.Evaluation]:
+        with self._lock:
+            return list(self.evals_table.values())
 
     # -- allocs ------------------------------------------------------------
 

@@ -19,12 +19,23 @@ from typing import Any, Dict, List, Optional, Tuple
 JOB_TYPE_SERVICE = "service"
 JOB_TYPE_BATCH = "batch"
 JOB_TYPE_SYSTEM = "system"
+# Core (GC) evals: the server's own; the port's worker does not dequeue
+# them until the core scheduler is ported.
+JOB_TYPE_CORE = "_core"
 
 JOB_STATUS_PENDING = "pending"
 JOB_STATUS_RUNNING = "running"
 JOB_STATUS_DEAD = "dead"
 
+JOB_MIN_PRIORITY = 1
 JOB_DEFAULT_PRIORITY = 50
+JOB_MAX_PRIORITY = 100
+
+# Fair-dequeue objectives of the broker's ready queues
+# (tenancy/fairness.py).
+TENANCY_OBJECTIVE_DRF = "drf"
+TENANCY_OBJECTIVE_WRR = "weighted-rr"
+TENANCY_OBJECTIVE_FIFO = "fifo"
 
 NODE_STATUS_INIT = "initializing"
 NODE_STATUS_READY = "ready"
@@ -399,6 +410,55 @@ class Job:
                 return tg
         return None
 
+    def validate(self) -> List[str]:
+        """Structural problems, empty when none (structs.go:1334
+        Job.Validate; the periodic, parameterized and vault checks of
+        the reference have no fields here)."""
+        problems: List[str] = []
+        if not self.region:
+            problems.append("job region is empty")
+        if not self.id:
+            problems.append("job ID is empty")
+        if not self.name:
+            problems.append("job name is empty")
+        if self.type not in (JOB_TYPE_SERVICE, JOB_TYPE_BATCH,
+                             JOB_TYPE_SYSTEM):
+            problems.append(f"job type '{self.type}' is invalid")
+        if not JOB_MIN_PRIORITY <= self.priority <= JOB_MAX_PRIORITY:
+            problems.append(f"job priority must be between "
+                            f"[{JOB_MIN_PRIORITY}, {JOB_MAX_PRIORITY}]")
+        if not self.datacenters:
+            problems.append("job must specify at least one datacenter")
+        if not self.task_groups:
+            problems.append("job must have at least one task group")
+        seen: set = set()
+        for tg in self.task_groups:
+            if not tg.name:
+                problems.append("task group name is empty")
+            if tg.name in seen:
+                problems.append(
+                    f"task group '{tg.name}' defined more than once")
+            seen.add(tg.name)
+            if tg.count < 0:
+                problems.append(f"task group '{tg.name}' has negative count")
+            if self.type == JOB_TYPE_SYSTEM and tg.count not in (0, 1):
+                problems.append(f"system job task group '{tg.name}' should "
+                                f"have count 1, not {tg.count}")
+            if not tg.tasks:
+                problems.append(f"task group '{tg.name}' has no tasks")
+            tseen: set = set()
+            for task in tg.tasks:
+                if not task.name:
+                    problems.append(f"task name empty in group '{tg.name}'")
+                if task.name in tseen:
+                    problems.append(
+                        f"task '{task.name}' defined more than once")
+                tseen.add(task.name)
+                if not task.driver:
+                    problems.append(
+                        f"task '{task.name}' must specify a driver")
+        return problems
+
     def canonicalize(self) -> None:
         """Fill defaults (structs.go:1286 Job.Canonicalize)."""
         if not self.name:
@@ -547,6 +607,11 @@ class Allocation:
                                       ALLOC_CLIENT_STATUS_FAILED,
                                       ALLOC_CLIENT_STATUS_LOST)
 
+    def client_terminal_status(self) -> bool:
+        return self.client_status in (ALLOC_CLIENT_STATUS_COMPLETE,
+                                      ALLOC_CLIENT_STATUS_FAILED,
+                                      ALLOC_CLIENT_STATUS_LOST)
+
     def ran_successfully(self) -> bool:
         """Every task finished successfully (structs.go:3974)."""
         if not self.task_states:
@@ -594,6 +659,24 @@ class Evaluation:
     def terminal_status(self) -> bool:
         return self.status in (EVAL_STATUS_COMPLETE, EVAL_STATUS_FAILED,
                                EVAL_STATUS_CANCELLED)
+
+    def trigger_index(self) -> int:
+        """The lowest applied index a snapshot must cover for a
+        scheduler to see what this eval was created about: the job
+        write, the node transition, or the capacity change or previous
+        attempt in ``snapshot_index`` (raised to the unblock index by
+        ``BlockedEvals``).  Read by the worker's snapshot fence and the
+        broker's coalescing guard."""
+        return max(self.job_modify_index, self.node_modify_index,
+                   self.snapshot_index)
+
+    def should_enqueue(self) -> bool:
+        """The eval belongs in the broker's ready queue
+        (structs.go:4404)."""
+        return self.status == EVAL_STATUS_PENDING
+
+    def should_block(self) -> bool:
+        return self.status == EVAL_STATUS_BLOCKED
 
     def make_plan(self, job: Optional[Job]) -> "Plan":
         """An empty plan for this eval (structs.go:4418 MakePlan)."""
@@ -797,6 +880,11 @@ class Plan:
     apply (structs.go:4477-4570)."""
 
     eval_id: str = ""
+    # The broker token of the eval's delivery (fencing), and the applied
+    # index of the snapshot the scheduler planned on (the applier samples
+    # the plan's staleness from it).
+    eval_token: str = ""
+    snapshot_index: int = 0
     priority: int = 0
     all_at_once: bool = False
     job: Optional[Job] = None

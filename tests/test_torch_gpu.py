@@ -529,3 +529,27 @@ def test_one_eviction_launch_per_preempting_batch():
     assert card[0] == [(1, 4), (0, 0)]
     assert cpu[0] == [(0, 4), (0, 0)]
     assert card[1] == cpu[1] and card[1]
+
+
+@pytest.mark.gpu
+def test_server_path_on_the_card_equals_the_cpu():
+    """``chip_smoke.py`` phase ``server`` at a small size: jobs through
+    the port's ``Server`` on the card and on the CPU (config (d)'s system
+    job, two register waves whose leftovers block, the nodes that unblock
+    them, nodes down, a deregistration, the preempting drill): the same
+    committed allocs and eval statuses, one ``scored_rows`` launch per
+    committing step, one ``eviction_sets`` launch in the drill, the
+    breaker closed, no nack; every server shut down."""
+    need_card()
+    import chip_smoke
+
+    got = chip_smoke.phase_server(
+        "cuda", n_nodes=200, n_jobs=20, count=100, follow_jobs=3,
+        follow_count=20, extra_nodes=200, n_down=3, drill_nodes=16)
+    assert got["card_equals_cpu"]
+    assert got["system_allocs"] == 200
+    assert got["config_b_placed"] == 2000 and got["config_b_blocked"] > 0
+    assert got["drill_evicted"] == 8
+    assert got["launches"]["drill"]["eviction_sets"] == 1
+    main = got["launches"]["main"]
+    assert main["scored_rows"] == main["committing_spec_steps"] > 0

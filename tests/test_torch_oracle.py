@@ -218,9 +218,10 @@ def test_oracle_route_matches_reference(case, monkeypatch):
         pst = TorchBatchScheduler(t.ph.logger, t.ph.snapshot(), t.ph,
                                   device="cpu", rng_seed=5).schedule_batch(
             [conv(e, convert.eval_from_dict) for e in evals])
-    # The gated eval counts as routed in the port; the reference does
-    # not count gate routes.
-    assert pst.oracle_routed == 1 and jst.oracle_routed == 0
+    # Neither package counts a gate route as oracle_routed (only the
+    # breaker and reject routes); the port counts it in gate_routed.
+    assert pst.gate_routed == 1
+    assert pst.oracle_routed == jst.oracle_routed == 0
     assert pst.device_ran and jst.device_ran
     assert_same_world(t.jh, t.ph)
     placed = [a for a in t.ph.state.allocs_by_job(None, job.id, True)]

@@ -522,7 +522,8 @@ def test_plan_conflict_retried_through_oracle(monkeypatch):
         st = TorchBatchScheduler(t.ph.logger, t.ph.snapshot(), t.ph,
                                  device="cpu", rng_seed=4).schedule_batch(
             [conv(ev, convert.eval_from_dict)])
-    assert st.device_ran and st.oracle_routed == 1
+    assert st.device_ran and st.conflict_retries == 1
+    assert st.oracle_routed == 0
     assert [e.status for e in t.ph.evals] == [ps.EVAL_STATUS_FAILED]
     assert [e.triggered_by for e in t.ph.create_evals] == \
         [ps.EVAL_TRIGGER_MAX_PLANS]
