@@ -53,7 +53,20 @@ Phases, each printed as one JSON line:
 12. mesh    -- config_mesh (bench.py:79-89): 1,000,000 nodes, 100 jobs x
                100,000 asks, through ``schedule_batch`` on a 4-shard mesh
                and on the single-card path: identical placements;
-13. evals   -- the eval-driven entry: ``TorchBatchScheduler`` over the
+13. columnar -- the columnar state store at config_mesh width: phase
+               12's 1,000,000 nodes into a port ``StateStore`` (its
+               columnar mirror cold-built), config (b)'s 100 x 1,000
+               asks, then a node down (a cold static encode) and the
+               10 x 200 follow-up, twice (``columnar_guard_every=1``,
+               then the default 16), through ``TorchBatchScheduler`` and
+               the store-backed ``PlanApplier``; the same waves over a
+               ``StateStore(columnar=False)``: the same plans, no guard
+               mismatch, no node over capacity, every ask placed, one
+               ``scored_rows`` launch per committing step and the kernel
+               held at its shapes there; the static encode and the usage
+               read timed against their walks, and each wave's encode,
+               total and applier seconds by route;
+14. evals   -- the eval-driven entry: ``TorchBatchScheduler`` over the
                port's state store and ``Harness``, at config (b) width:
                100 register evals (batch 0), the two follow-ups, and a
                reconciler batch (10 jobs scaled down to half, 10 changed
@@ -64,14 +77,15 @@ Phases, each printed as one JSON line:
                per committing step; then the kernel breaker drill (a
                corrupted result rejected, the oracle carrying, a clean
                probe closing it);
-14. applied -- plans applied and fed back at config (b) width: the
+15. applied -- plans applied and fed back at config (b) width: the
                port's ``PlanApplier`` as the ``Harness`` planner and the
                resident usage mirror (``ops/resident.py``); batch 0, two
                follow-ups and six more through ``schedule_stream``, on
                the card with the mirror (``guard_every=1``), the card
                without it and the CPU with it: every plan, eval update
                and failure AllocMetric identical; batch 0 committed whole
-               by the vectorized re-check on the card; no mismatch of the
+               by the vectorized re-check on the card (that world's store
+               without the columnar mirror); no mismatch of the
                mirror's guards, one install, the card twin equal to the
                host mirror and to a full walk; an over-commit drill (a
                node filled between a batch's snapshot and its submit: a
@@ -85,7 +99,7 @@ Phases, each printed as one JSON line:
                (its sharded twin; plans equal the single card's) and a
                batch with network asks through the applier's scalar
                check on the card and the CPU (plans and offers equal);
-15. preempt -- device preemption: the eviction-set kernel against its
+16. preempt -- device preemption: the eviction-set kernel against its
                plain version on the card (edge rows; config_preempt's
                shape and others, A = 2 to 64: 0 differing bits) and
                against the scalar oracle (2,048 nodes x 64 specs: 0
@@ -103,7 +117,7 @@ Phases, each printed as one JSON line:
                scores, each within 4e-6 of the CPU's, are ordered the
                other way (printed); the kernel's times at U = 50 x
                10,112 x A = 8 and U = 128 x 10,112 x A = 16;
-16. server  -- the server path: jobs into the port's in-process
+17. server  -- the server path: jobs into the port's in-process
                ``Server`` (``node_register``, ``job_register``), evals
                through its broker and ``BatchWorker`` into
                ``TorchBatchScheduler``, plans through its plan queue and
@@ -126,15 +140,18 @@ Phases, each printed as one JSON line:
                step the batches report, one ``eviction_sets`` launch in
                the drill; each wave's wall time, evals per second and the
                server's telemetry (batch, scheduler, plan queue wait,
-               plan evaluate and apply);
-17. times   -- each kernel's device time (profiler trace; CUDA events
+               plan evaluate and apply); the servers keep their store's
+               columnar mirror (guards every 16): no guard mismatch, and
+               the applier's plans by route (columnar, and the guard's
+               vectorized and scalar walks);
+18. times   -- each kernel's device time (profiler trace; CUDA events
                where the trace has none) over copies of its inputs that
                overflow the L2, its plain version's and the bound for the
                same work on this card; scored_rows also without base (the
                mesh's call at config_mesh); the launch floor (a one-element
                fill); the kernels' SASS instruction counts and the
                issue-rate time they give;
-18. profile -- config (b)'s first batch again, warm, on the single card
+19. profile -- config (b)'s first batch again, warm, on the single card
                and on a 4-shard mesh: untraced, and under a device-only
                trace for the device busy time and idle share.
 
@@ -1083,7 +1100,295 @@ def phase_mesh(dev):
     return out
 
 
-# -- phase 13: evaluations through the state store ----------------------------
+# -- phase 13: the columnar state store at config_mesh width ------------------
+
+COLUMNAR_SEED = 20261021
+
+
+def columnar_over_capacity(store) -> int:
+    """Nodes over capacity on any dimension: reserved plus every live
+    alloc row, summed in numpy over the store's objects (not its
+    mirror)."""
+    import numpy as np
+
+    from nomad_tpu_torch.structs.structs import alloc_usage_vec
+
+    nodes = store.nodes(None)
+    index = {n.id: i for i, n in enumerate(nodes)}
+    cap = np.array([n.resources.as_tuple() for n in nodes], np.int64)
+    use = np.array([n.reserved.as_tuple() if n.reserved else (0,) * 4
+                    for n in nodes], np.int64)
+    rows = [(index[nid], alloc_usage_vec(r))
+            for nid, r in store.alloc_rows(None)
+            if not r.terminal_status() and nid in index]
+    if rows:
+        at = np.fromiter((i for i, _ in rows), np.int64, len(rows))
+        np.add.at(use, at, np.array([v for _, v in rows], np.int64))
+    return int((use > cap).any(1).sum())
+
+
+def columnar_counters() -> dict:
+    from nomad_tpu_torch.state import columnar
+
+    return {k: getattr(columnar, k) for k in (
+        "COLUMNAR_ENCODES", "WALK_ENCODES", "REBUILDS", "GUARD_RUNS",
+        "GUARD_MISMATCHES", "USAGE_READS", "USAGE_GUARD_RUNS",
+        "USAGE_GUARD_MISMATCHES")}
+
+
+def columnar_world(dev, nodes, waves, smi, *, columnar, flips,
+                   shapes=None):
+    """``waves`` through ``TorchBatchScheduler`` and a store-backed
+    ``PlanApplier`` over one port ``StateStore(columnar=columnar)`` on
+    ``dev`` (ids seeded, so the two worlds' plans compare whole).  Before
+    wave ``b`` the node ``flips[b]`` (if any) goes down: the nodes index
+    moves and the next static encode is cold.  Each wave is ``(name,
+    jobs, columnar_guard_every)``, the guard cadence of the scheduler and
+    the applier alike.  With ``shapes``, the shapes the waves give the
+    kernel wrappers are recorded into it."""
+    from nomad_tpu_torch.ops import resident
+    from nomad_tpu_torch.ops.batch_sched import TorchBatchScheduler
+    from nomad_tpu_torch.ops.breaker import KernelCircuitBreaker
+    from nomad_tpu_torch.scheduler.testing import Harness
+    from nomad_tpu_torch.server import PlanApplier
+    from nomad_tpu_torch.state import StateStore
+    from nomad_tpu_torch.state import columnar as colmod
+
+    resident.invalidate()
+    resident.reset_counters()
+    colmod.reset_counters()
+    store = StateStore(columnar=columnar)
+    label = "columnar" if columnar else "walk"
+    out = {"label": label, "rows": [], "plans": []}
+    with seeded_ids(COLUMNAR_SEED) as ids:
+        h = Harness(store)
+        t0 = time.perf_counter()
+        for n in nodes:
+            h.state.upsert_node(h.next_index(), n)
+        out["register_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cols = h.state.columns()
+        out["cold_build_s"] = (time.perf_counter() - t0
+                               if cols is not None else None)
+        app = PlanApplier(h.state, device=dev, next_index=h.next_index)
+        h.planner = app
+        brk = KernelCircuitBreaker()
+        for b, (name, jobs, guard) in enumerate(waves):
+            if flips.get(b):
+                h.state.update_node_status(h.next_index(), flips[b], "down")
+            for j in jobs:
+                h.state.upsert_job(h.next_index(), j)
+            evals = reg_evals(jobs, ids)
+            n_plans = len(h.plans)
+            app.reset_stats()
+            app.columnar_guard_every = guard
+            c0 = columnar_counters()
+            t0 = time.perf_counter()
+            with (kernel_shapes(shapes) if shapes is not None
+                  else contextlib.nullcontext()):
+                st, counts = run_counted(lambda: TorchBatchScheduler(
+                    h.logger, h.snapshot(), h, device=dev,
+                    rng_seed=COLUMNAR_SEED + b, breaker=brk,
+                    columnar_guard_every=guard).schedule_batch(evals))
+            wall = time.perf_counter() - t0
+            c1 = columnar_counters()
+            stats = app.stats
+            row = {"phase": "columnar", "world": label, "wave": name,
+                   "columnar_guard_every": guard, "evals": st.num_evals,
+                   "asks": st.num_asks, "wall_s": wall,
+                   "oracle_routed": st.oracle_routed,
+                   **{k: getattr(st, k) for k in (
+                       "phase1_seconds", "encode_seconds",
+                       "device_seconds", "metrics_seconds",
+                       "finalize_seconds", "total_seconds",
+                       "resident_hits", "full_reencodes")},
+                   "applier": {k: (sorted(v) if isinstance(v, set) else v)
+                               for k, v in stats.items()},
+                   "counters": {k: c1[k] - c0[k] for k in c1},
+                   **counts, "card": smi}
+            emit(row)
+            out["rows"].append(row)
+            out["plans"].append([plan_rows(p) for p in h.plans[n_plans:]])
+        out["harness"] = h
+        out["breaker"] = {"state": brk.state, "trips": brk.trips}
+        t0 = time.perf_counter()
+        out["over_capacity"] = columnar_over_capacity(h.state)
+        out["over_capacity_check_s"] = time.perf_counter() - t0
+    return out
+
+
+def columnar_reads(dev, h, jobs) -> dict:
+    """The columnar world's two readers timed against their walks on one
+    snapshot (the host clock, one call each): the static encode
+    (``build_cluster_static`` over the mirror against
+    ``encode_cluster_static`` + ``finalize_codebooks``) and the live-usage
+    read (``_columnar_usage`` against the full alloc-row walk); each pair
+    must be bit-identical."""
+    import numpy as np
+
+    from nomad_tpu_torch.ops import batch_sched, encode, resident
+    from nomad_tpu_torch.ops.batch_sched import TorchBatchScheduler
+
+    snap = h.snapshot()
+    nodes = snap.nodes(None)
+    targets, literals = encode.collect_attr_targets(
+        batch_sched._prepare_specs(jobs, {}))
+    t0 = time.perf_counter()
+    ct = encode.build_cluster_static(snap, nodes, targets, literals,
+                                     guard_every=0)
+    col_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ref = encode.encode_cluster_static(nodes, targets)
+    encode.finalize_codebooks(ref, literals)
+    walk_s = time.perf_counter() - t0
+    bad = encode._static_mismatch(ct, ref)
+    if not ct.columnar or bad:
+        raise AssertionError(f"columnar static encode: columnar "
+                             f"{ct.columnar}, differs in {bad!r}")
+    sched = TorchBatchScheduler(h.logger, snap, h, device=dev,
+                                columnar_guard_every=0)
+    t0 = time.perf_counter()
+    used, touched = sched._columnar_usage(ct)
+    ucol_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ref_used, ref_touched = resident._full_usage(
+        ct, sched._live_allocs_by_node)
+    uwalk_s = time.perf_counter() - t0
+    if not np.array_equal(used, ref_used) or touched != ref_touched:
+        raise AssertionError("columnar usage read differs from the walk")
+    return {"nodes": ct.n_real, "n_pad": ct.n_pad, "attr_targets": targets,
+            "live_nodes": len(touched),
+            "static_encode_s": {"columnar": col_s, "walk": walk_s},
+            "usage_read_s": {"columnar": ucol_s, "walk": uwalk_s}}
+
+
+def phase_columnar(dev, nodes=None, n_jobs=100, count=1000, follow_jobs=10,
+                   follow_count=200):
+    """The columnar state store at config_mesh's 1,000,000 nodes (phase
+    mesh's fleet): config (b)'s wave of 100 x 1,000 asks (500 MHz / 256
+    MB), then, each after one node goes down (a cold static encode), the
+    follow-up wave of 10 x 200 twice: with ``columnar_guard_every=1``
+    and with the default.  Through ``TorchBatchScheduler`` and the
+    store-backed ``PlanApplier`` on the card, over a store with the
+    mirror and one without: the same plans, no guard mismatch, no node
+    over capacity, one ``scored_rows`` launch per committing step."""
+    from nomad_tpu_torch import mock
+    from nomad_tpu_torch.ops import batch_sched
+    from nomad_tpu_torch.state import columnar
+
+    smi = smi_name_power()
+    if nodes is None:
+        nodes = mesh_fleet()["nodes"]
+    wave0 = [strip_job(mock.job(), count) for _ in range(n_jobs)]
+    follow = [[strip_job(mock.job(), follow_count, cpu=100, mem=128)
+               for _ in range(follow_jobs)] for _ in range(2)]
+    for k, j in enumerate(wave0 + follow[0] + follow[1]):
+        j.id = j.name = f"col-job-{k:03d}"
+    waves = [("config_b", wave0, columnar.GUARD_EVERY),
+             ("follow_up_guard1", follow[0], 1),
+             ("follow_up_default", follow[1], columnar.GUARD_EVERY)]
+    flips = {1: nodes[0].id, 2: nodes[1].id}
+    on_card = torch_device(dev).type == "cuda"
+
+    shapes = {"scored_rows": set(), "eviction_sets": set()}
+    wc = columnar_world(dev, nodes, waves, smi, columnar=True, flips=flips,
+                        shapes=shapes)
+    reads = columnar_reads(dev, wc["harness"], follow[1])
+    emit({"phase": "columnar", "reads": reads, "card": smi})
+    c_counts = columnar_counters()
+    wc.pop("harness")
+    batch_sched._CLUSTER_CACHE.clear()
+    batch_sched._DEVICE_STATIC_CACHE.clear()
+    ww = columnar_world(dev, nodes, waves, smi, columnar=False, flips=flips)
+    ww.pop("harness")
+    batch_sched._CLUSTER_CACHE.clear()
+    batch_sched._DEVICE_STATIC_CACHE.clear()
+
+    errors = []
+    for b, (name, jobs, _) in enumerate(waves):
+        if wc["plans"][b] != ww["plans"][b]:
+            errors.append(f"{name}: the mirror's plans differ from the "
+                          "walk's")
+    asks = sum(j.task_groups[0].count for _, jobs, _ in waves for j in jobs)
+    placed = sum(sum(len(sl[3]) for sl in p[3])
+                 + sum(len(v) for v in p[2].values())
+                 for plans in wc["plans"] for p in plans)
+    if placed != asks:
+        errors.append(f"{placed} of {asks} asks placed")
+    for w in (wc, ww):
+        if w["over_capacity"]:
+            errors.append(f"{w['label']}: {w['over_capacity']} nodes over "
+                          "capacity")
+        if w["breaker"] != {"state": "closed", "trips": 0}:
+            errors.append(f"{w['label']}: breaker {w['breaker']}")
+        for row in w["rows"]:
+            c = row["counters"]
+            if (row["oracle_routed"] or c["GUARD_MISMATCHES"]
+                    or c["USAGE_GUARD_MISMATCHES"]):
+                errors.append(f"{w['label']} {row['wave']}: oracle or "
+                              f"guard mismatch {c}")
+            if on_card and (row["scored_rows_launches"] <= 0
+                            or row["scored_rows_launches"]
+                            != row["committing_spec_steps"]):
+                errors.append(f"{w['label']} {row['wave']}: launches "
+                              f"{row['scored_rows_launches']} for "
+                              f"{row['committing_spec_steps']} steps")
+    for row in wc["rows"]:
+        c, app = row["counters"], row["applier"]
+        if (c["COLUMNAR_ENCODES"] != 1 or c["WALK_ENCODES"]
+                or app["columnar"] != app["plans"]):
+            errors.append(f"mirror {row['wave']}: encodes {c}, applier "
+                          f"{app}")
+        if row["columnar_guard_every"] == 1 and not (
+                c["GUARD_RUNS"] == 1 and c["USAGE_GUARD_RUNS"] >= 1
+                and app["columnar_guards"] == app["plans"]):
+            errors.append(f"mirror {row['wave']}: guards did not run: "
+                          f"{c}, {app}")
+    for row in ww["rows"]:
+        c, app = row["counters"], row["applier"]
+        if c["COLUMNAR_ENCODES"] or c["USAGE_READS"] or app["columnar"]:
+            errors.append(f"walk {row['wave']}: the mirror was read: {c}")
+    if errors:
+        raise AssertionError(f"phase columnar: {errors}")
+    # scored_rows against its plain version at every shape the waves gave
+    # it: 0 differing bits.
+    parity = []
+    if on_card:
+        parity, _ = score_parity_rows(
+            dev, [(u, n, 17, n_off)
+                  for u, n, n_off in sorted(shapes["scored_rows"])])
+
+    def per_wave(w, key):
+        return {row["wave"]: row[key] for row in w["rows"]}
+
+    def evaluate(w):
+        return {row["wave"]: {k: row["applier"][k] for k in (
+            "evaluate_seconds", "columnar", "columnar_guards",
+            "vectorized", "scalar", "plans", "touched_nodes")}
+            for row in w["rows"]}
+
+    return {"nodes": len(nodes), "plans_equal_walk": True,
+            "asks_placed": placed, "over_capacity": 0,
+            "register_s": {"columnar": wc["register_s"],
+                           "walk": ww["register_s"]},
+            "cold_build_s": wc["cold_build_s"],
+            "reads": reads,
+            "encode_seconds": {"columnar": per_wave(wc, "encode_seconds"),
+                               "walk": per_wave(ww, "encode_seconds")},
+            "total_seconds": {"columnar": per_wave(wc, "total_seconds"),
+                              "walk": per_wave(ww, "total_seconds")},
+            "applier": {"columnar": evaluate(wc), "walk": evaluate(ww)},
+            "guards": {k: c_counts[k] for k in (
+                "GUARD_RUNS", "GUARD_MISMATCHES", "USAGE_GUARD_RUNS",
+                "USAGE_GUARD_MISMATCHES", "REBUILDS")},
+            "scored_rows_launches": sum(r["scored_rows_launches"]
+                                        for r in wc["rows"]),
+            "kernel_shapes": sorted(shapes["scored_rows"]),
+            "shape_parity": parity,
+            "card": smi}
+
+
+# -- phase 14: evaluations through the state store ----------------------------
 
 EVAL_SEED = 20261017
 
@@ -1381,7 +1686,7 @@ def phase_evals(dev, n_nodes=10_000, n_jobs=100, count=1000):
             "card": smi}
 
 
-# -- phase 14: applied -------------------------------------------------------
+# -- phase 15: applied -------------------------------------------------------
 
 APPLIED_SEED = 20261018
 
@@ -1458,14 +1763,17 @@ def mirror_check(h, pad_m=128) -> dict:
 
 def applied_world(dev, nodes, batches, smi, label, *, resident=True,
                   guard_every=1, mesh=None, stream=(), drills=(),
-                  serial_tail=(), counted=False, check_mirror=False):
+                  serial_tail=(), counted=False, check_mirror=False,
+                  columnar=True):
     """Batches through a fresh Harness whose planner is the port's
     ``PlanApplier`` on ``dev``: ``batches`` one by one, then ``stream``
     through ``schedule_stream``, then the ``drills`` (``overcommit``,
     ``corrupt``) and ``serial_tail`` one by one.  With
     ``check_mirror``, the mirror's counters and :func:`mirror_check`
-    after the stream and again after the drills.  Ids and seeds as in
-    every other world, so plans compare whole."""
+    after the stream and again after the drills.  ``columnar`` is the
+    store's columnar mirror (off: the applier's walk and vectorized
+    re-check).  Ids and seeds as in every other world, so plans compare
+    whole."""
     from nomad_tpu_torch import fault
     from nomad_tpu_torch.ops import resident as resmod
     from nomad_tpu_torch.ops.batch_sched import TorchBatchScheduler
@@ -1478,7 +1786,7 @@ def applied_world(dev, nodes, batches, smi, label, *, resident=True,
     resmod.reset_counters()
     # A store of its own lineage (made before the ids are seeded): the
     # resident mirror of one world never keys as another's.
-    store = StateStore()
+    store = StateStore(columnar=columnar)
     out = {"label": label, "rows": [], "plans": [], "checkpoint": None,
            "store_uid": store.store_uid}
     kw = {"mesh": mesh} if mesh is not None else {"device": dev}
@@ -1709,9 +2017,11 @@ def phase_applied(dev, n_nodes=10_000, n_jobs=100, count=1000,
     drills = [("corrupt", follow(1)), ("overcommit", follow(1))]
     tail = [(f"serial{k + 1}", follow(1)) for k in range(n_stream)]
 
+    # The first world's store has no columnar mirror: its applier keeps
+    # the walk, and batch_allocs_fit on the card.
     w1 = applied_world(dev, nodes, head, smi, "card mirror guard_every=1",
                        stream=stream, drills=drills, counted=True,
-                       check_mirror=True)
+                       check_mirror=True, columnar=False)
     w2 = applied_world(dev, nodes, head, smi, "card no mirror",
                        resident=False, stream=stream, drills=drills)
     w3 = applied_world("cpu", nodes, head, smi, "cpu mirror guard_every=1",
@@ -1756,7 +2066,8 @@ def phase_applied(dev, n_nodes=10_000, n_jobs=100, count=1000,
         if st.mesh_shards != MESH_SHARDS:
             raise AssertionError(f"mesh batch on {st.mesh_shards} shards")
 
-    # The applier: batch 0 whole through the vectorized route on the card.
+    # The applier: batch 0 whole through the vectorized route on the card
+    # (the first world's store has no columnar mirror).
     b0 = w1["rows"][0][1]["applier"]
     if (b0["partial"] or b0["vectorized"] != b0["plans"]
             or b0["fit_devices"] != [str(torch_device(dev))]):
@@ -1865,7 +2176,7 @@ def phase_applied(dev, n_nodes=10_000, n_jobs=100, count=1000,
         "card": smi}
 
 
-# -- phase 15: preempt --------------------------------------------------------
+# -- phase 16: preempt --------------------------------------------------------
 
 PREEMPT_SEED = 20261019
 # (u, n, a) of the kernel's timed rows: config_preempt's shape (50
@@ -2374,7 +2685,7 @@ def phase_preempt(dev, n_nodes=10_000, n_hi=50, count=1000,
         "times": times, "kernel_row": table_row, "card": smi}
 
 
-# -- phase 16: server --------------------------------------------------------
+# -- phase 17: server --------------------------------------------------------
 
 SERVER_SEED = 20261020
 # The node heartbeat TTL of every server of the phase: longer than the
@@ -2555,24 +2866,30 @@ def server_world(dev, sc, smi, counted=False) -> dict:
     from nomad_tpu_torch.ops import fused_score, kernels, preempt
     from nomad_tpu_torch.ops.breaker import KernelCircuitBreaker
     from nomad_tpu_torch.server import Server, ServerConfig
+    from nomad_tpu_torch.state import columnar as colmod
 
     out = {"device": str(dev), "card": smi, "waves": [],
            "kernel_shapes": {"scored_rows": set(), "eviction_sets": set()}}
 
-    def run_server(label, body, **cfg):
+    def run_server(label, seed, body, **cfg):
+        colmod.reset_counters()
         brk = KernelCircuitBreaker()
+        # A store of its own lineage (made before the ids are seeded): the
+        # card's world never keys a cache or the resident mirror as the
+        # CPU's does.
         srv = Server(ServerConfig(
             device=dev, rng_seed=SERVER_SEED, batch_size=64,
             min_heartbeat_ttl=SERVER_HEARTBEAT_TTL, breaker=brk, **cfg))
         try:
-            srv.start()
-            if counted:
-                fused_score.LAUNCHES = kernels.COMMIT_STEPS = 0
-                fused_score.MASKED_LAUNCHES = preempt.LAUNCHES = 0
-                with kernel_shapes(out["kernel_shapes"]):
+            with seeded_ids(seed):
+                srv.start()
+                if counted:
+                    fused_score.LAUNCHES = kernels.COMMIT_STEPS = 0
+                    fused_score.MASKED_LAUNCHES = preempt.LAUNCHES = 0
+                    with kernel_shapes(out["kernel_shapes"]):
+                        body(srv)
+                else:
                     body(srv)
-            else:
-                body(srv)
             launches = {"scored_rows": fused_score.LAUNCHES,
                         "masked_score_matrix": fused_score.MASKED_LAUNCHES,
                         "eviction_sets": preempt.LAUNCHES,
@@ -2580,8 +2897,13 @@ def server_world(dev, sc, smi, counted=False) -> dict:
                         "batch_commit_steps": server_counter(
                             srv, "batch.commit_steps")}
             b = srv.eval_broker.stats()
+            app = srv.plan_applier.stats
             out[label] = {
                 "launches": launches,
+                "applier": {k: app[k] for k in (
+                    "plans", "columnar", "columnar_guards", "vectorized",
+                    "scalar", "scalar_fallback")},
+                "columnar": columnar_counters(),
                 "breaker": {"state": brk.state, "trips": brk.trips,
                             "oracle_routed": server_counter(
                                 srv, "breaker.oracle_routed")},
@@ -2635,10 +2957,8 @@ def server_world(dev, sc, smi, counted=False) -> dict:
                     if e.triggered_by == "preemption")
                 out["drill_blocked"] = dict(srv.blocked_evals.stats())
 
-    with seeded_ids(SERVER_SEED):
-        run_server("main", main)
-    with seeded_ids(SERVER_SEED + 1):
-        run_server("drill", drill, preemption_enabled=True)
+    run_server("main", SERVER_SEED, main)
+    run_server("drill", SERVER_SEED + 1, drill, preemption_enabled=True)
     return out
 
 
@@ -2713,6 +3033,11 @@ def check_server_world(w, sc, on_card) -> dict:
             errors.append(f"{label}: {r['over_capacity']} nodes over "
                           f"capacity, {r['nacks']} nacks, {r['failed']} "
                           f"failed, breaker {r['breaker']}")
+        c, app = r["columnar"], r["applier"]
+        if (c["GUARD_MISMATCHES"] or c["USAGE_GUARD_MISMATCHES"]
+                or not c["COLUMNAR_ENCODES"] or not app["columnar"]):
+            errors.append(f"{label}: the columnar mirror: {c}, the "
+                          f"applier's routes {app}")
         lc = r["launches"]
         if on_card and (lc["scored_rows"] <= 0
                         or lc["scored_rows"] != lc["batch_commit_steps"]
@@ -2791,6 +3116,12 @@ def phase_server(dev, n_nodes=10_000, n_jobs=100, count=1000,
             "node_register_s": {"card": card["node_register_s"],
                                 "cpu": cpu["node_register_s"]},
             "launches": {k: card[k]["launches"] for k in ("main", "drill")},
+            "applier_routes": {w["device"]: {k: w[k]["applier"]
+                                             for k in ("main", "drill")}
+                               for w in (card, cpu)},
+            "columnar": {w["device"]: {k: w[k]["columnar"]
+                                       for k in ("main", "drill")}
+                         for w in (card, cpu)},
             "breaker": card["main"]["breaker"], "card": smi}
 
 
@@ -2803,7 +3134,7 @@ def torch_device(dev):
     return d
 
 
-# -- phase 17: times ---------------------------------------------------------
+# -- phase 18: times ---------------------------------------------------------
 
 def score_bytes(u: int, n: int, with_base: bool = True) -> int:
     """Bytes the function must move: feas (1) + collisions (4) in and
@@ -3297,6 +3628,8 @@ def main() -> int:
                                                 phase_candidates, dev)
     emit({"phase": "candidates", **cand})
     emit({"phase": "mesh", **run_phase("mesh", phase_mesh, dev)})
+    col = run_phase("columnar", phase_columnar, dev)
+    emit({"phase": "columnar", **col})
     _MESH_FLEET.clear()
     evals = run_phase("evals", phase_evals, dev)
     emit({"phase": "evals", **evals})
@@ -3315,6 +3648,10 @@ def main() -> int:
     # ... and on the applied path (phase applied, the card with the mirror
     # and guard_every=1: batch 0, the follow-ups and the stream).
     table[0]["applied_path_launches"] = applied["applied_path_launches"]
+    # ... and on the columnar path (phase columnar, the store with the
+    # mirror: its three waves, each driven with the counts set to 0 just
+    # before it).
+    table[0]["columnar_path_launches"] = col["scored_rows_launches"]
     # eviction_sets: launches on config_preempt's eval path (phase
     # preempt, its count set to 0 just before the card's batch).
     table.append(pre["kernel_row"])

@@ -1,10 +1,12 @@
 """Deterministic, seeded fault injection (a minimal copy of
 ``nomad_tpu/fault.py``).
 
-The port has three fault points: ``ops.kernel_result`` (the device→host
-placement outputs, ops/batch_sched.py) and ``ops.resident_state`` (one
-row of the resident usage mirror, ops/resident.py), both with the action
-``corrupt``, which hands the site a seeded RNG to do its damage with; and
+The port has four fault points: ``ops.kernel_result`` (the device→host
+placement outputs, ops/batch_sched.py), ``ops.resident_state`` (one row
+of the resident usage mirror, ops/resident.py) and ``state.columns`` (one
+cell of a static encode sliced from the columnar mirror, ops/encode.py),
+each with the action ``corrupt``, which hands the site a seeded RNG to do
+its damage with; and
 ``plan.apply`` (server/plan_apply.py, before the commit), with ``error``
 (raise :class:`InjectedFault`)::
 

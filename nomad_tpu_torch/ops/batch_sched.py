@@ -12,13 +12,16 @@ or the mesh's ``sharded_fused_pass``, the one result fetch):
   updates, lost allocations, rolling limits), places every ask of the
   batch in one device pass, and submits one plan per eval to its planner
   (alloc slabs, AllocMetric failure forensics, blocked and rolling
-  follow-up evals, queued counts).  The live usage comes from the
-  resident mirror of ``ops/resident.py``, caught up from the store's
-  delta feed, in batches without network asks; ``schedule_stream`` runs
-  batches in the reference's pipelined order.  Evals whose specs the device pass
-  cannot express, every eval while the kernel breaker is open, the evals
-  of a batch whose device result was rejected, and a plan that conflicted
-  go through the CPU oracle instead, as in the reference, each logged
+  follow-up evals, queued counts).  The static tensors are sliced from
+  the store's columnar mirror (``state/columnar.py``) where it has one,
+  and the live usage comes from the resident mirror of
+  ``ops/resident.py`` (which starts from the columnar mirror's usage),
+  caught up from the store's delta feed, in batches without network
+  asks; ``schedule_stream`` runs batches in the reference's pipelined
+  order.  Evals whose specs the device pass cannot express, every eval
+  while the kernel breaker is open, the evals of a batch whose device
+  result was rejected, and a plan that conflicted go through the CPU
+  oracle instead, as in the reference, each logged
   with its reason.  ``BatchStats.oracle_routed`` (and the
   ``breaker.oracle_routed`` counter) counts what the reference counts:
   the evals of the breaker and reject routes; the gate routes and the
@@ -66,6 +69,7 @@ from ..scheduler.scheduler import register_scheduler
 from ..scheduler.stack import GenericStack
 from ..scheduler.util import (AllocTuple, adjust_queued_allocations,
                               ready_nodes_in_dcs, set_status)
+from ..state import columnar
 from ..structs import structs as s
 from ..structs.network import NetworkIndex
 from ..utils.lru import LRU
@@ -337,12 +341,18 @@ def _node_pad_multiple(mesh) -> int:
 
 
 def _cluster_static(nodes: Sequence[s.Node], attr_targets, literals,
-                    with_networks: bool, pad_m: int) -> encode.ClusterTensors:
-    base = encode.encode_cluster_static(
-        nodes, attr_targets, node_pad_multiple=pad_m,
-        with_networks=with_networks)
-    encode.finalize_codebooks(base, literals)
-    return base
+                    with_networks: bool, pad_m: int, state=None,
+                    breaker=None,
+                    guard_every: int = columnar.GUARD_EVERY
+                    ) -> encode.ClusterTensors:
+    """The finalized static tensors: sliced from ``state``'s columnar
+    mirror where it has one in step with ``nodes`` (its guard every
+    ``guard_every`` columnar encodes, feeding ``breaker``), walked
+    otherwise (the list entry has no store)."""
+    return encode.build_cluster_static(
+        state, nodes, attr_targets, literals, node_pad_multiple=pad_m,
+        with_networks=with_networks, breaker=breaker,
+        guard_every=guard_every)
 
 
 def _quantized_rows(base: encode.ClusterTensors, shards: int = 0,
@@ -961,13 +971,21 @@ class TorchBatchScheduler:
     the pass instead of shipping sparse usage rows
     (``NOMAD_TPU_RESIDENT_DEVICE``), and ``guard_every`` is the
     differential guard's cadence in delta hits, 0 for never
-    (``NOMAD_TPU_RESIDENT_GUARD_EVERY``)."""
+    (``NOMAD_TPU_RESIDENT_GUARD_EVERY``).
+
+    The static tensors and, where the resident mirror does not serve it,
+    the live usage are sliced from the state store's columnar mirror
+    (``state/columnar.py``; on unless the store was made with
+    ``columnar=False``); ``columnar_guard_every`` is the cadence of its
+    guards in columnar encodes and usage reads, 0 for never (the
+    reference's ``NOMAD_TPU_COLUMNAR_GUARD_EVERY``, default 16)."""
 
     def __init__(self, logger_: logging.Logger, state, planner, mesh=None,
                  device=None, preemption_enabled: bool = False,
                  breaker=None, rng_seed: Optional[int] = None,
                  resident: bool = True, resident_device: bool = True,
-                 guard_every: int = 64, metrics=None):
+                 guard_every: int = 64, metrics=None,
+                 columnar_guard_every: int = columnar.GUARD_EVERY):
         if mesh is not None and device is not None:
             raise ValueError("pass a device or a mesh, not both")
         self.logger = logger_
@@ -987,6 +1005,7 @@ class TorchBatchScheduler:
         self.resident = resident
         self.resident_device = resident_device
         self.guard_every = guard_every
+        self.columnar_guard_every = columnar_guard_every
         self.metrics = metrics if metrics is not None else NULL_TELEMETRY
 
     def process(self, ev: s.Evaluation) -> None:
@@ -1269,6 +1288,45 @@ class TorchBatchScheduler:
                 allocs_by_node.setdefault(node_id, []).append(row)
         return allocs_by_node
 
+    def _columnar_usage(self, base: encode.ClusterTensors):
+        """The live usage rows sliced from the store's columnar mirror:
+        the reserved-only base plus the mirror's usage matrix, folded
+        from the delta feed, O(changed allocs) instead of the row walk
+        (``batch_sched.py:878``).  Returns ``(used int64 [n_pad, 4],
+        touched rows)``, or None when the mirror is off, unavailable or
+        out of step with ``base``.  Every ``columnar_guard_every`` reads
+        (0: never) the walk runs anyway and must match bit for bit: a
+        mismatch feeds the breaker, bumps the columnar epoch, and this
+        batch goes on with the walk's rows."""
+        if base.with_networks:
+            return None
+        columns_fn = getattr(self.state, "columns", None)
+        if columns_fn is None:
+            return None
+        cols = columns_fn()
+        if cols is None or cols.n != base.n_real:
+            return None
+        usage = self.state.column_usage(cols)[:cols.n]
+        used = np.asarray(base.used, dtype=np.int64).copy()
+        used[:cols.n] += usage
+        touched = set(np.nonzero(usage.any(axis=1))[0].tolist())
+        columnar.USAGE_READS += 1
+        every = self.columnar_guard_every
+        if every > 0 and columnar.USAGE_READS % every == 0:
+            columnar.USAGE_GUARD_RUNS += 1
+            ref_used, ref_touched = resident._full_usage(
+                base, self._live_allocs_by_node)
+            if not np.array_equal(used, ref_used):
+                bad = int((used != ref_used).any(axis=1).sum())
+                columnar.note_guard_mismatch("usage", "usage",
+                                             breaker=self.breaker, Rows=bad)
+                return ref_used, set(ref_touched)
+            self.breaker.record(True)
+            # The walk's touched set is the authority: it also holds
+            # nodes whose live allocs net to zero usage.
+            return used, set(ref_touched)
+        return used, touched
+
     def _job_nodes(self, job_id: str) -> List[str]:
         return [nid for nid, row in self.state.alloc_rows_by_job(None,
                                                                  job_id)
@@ -1290,7 +1348,9 @@ class TorchBatchScheduler:
         base = _CLUSTER_CACHE.get(cache_key)
         if base is None:
             base = _cluster_static(all_nodes, attr_targets, literals,
-                                   with_networks, pad_m)
+                                   with_networks, pad_m, state=self.state,
+                                   breaker=self.breaker,
+                                   guard_every=self.columnar_guard_every)
             _CLUSTER_CACHE.put(cache_key, base)
         rng_seed = (self.rng_seed if self.rng_seed is not None
                     else int.from_bytes(os.urandom(4), "big"))
@@ -1308,10 +1368,18 @@ class TorchBatchScheduler:
                 self.state, res_key, base, self._live_allocs_by_node,
                 breaker=self.breaker,
                 shards=self.mesh.size if self.mesh is not None else 0,
-                guard_every=self.guard_every)
+                guard_every=self.guard_every,
+                usage_fn=lambda: self._columnar_usage(base))
             ct = encode.with_usage(base, used)
         else:
-            ct, touched = _layer_usage(base, self._live_allocs_by_node())
+            cu = self._columnar_usage(base)
+            if cu is not None:
+                used, touched_set = cu
+                ct = encode.with_usage(base, used)
+                touched = sorted(touched_set)
+            else:
+                ct, touched = _layer_usage(base,
+                                           self._live_allocs_by_node())
         b = _encode_batch(spec_list, all_nodes, base, ct, touched,
                           self._job_nodes, rng_seed, self.mesh,
                           breaker=self.breaker)

@@ -6,8 +6,9 @@ usage, the exact quantized resource rows, the network accounting (port
 bitmaps, bandwidth and free dynamic ports, built only when the batch asks
 for networks), distinct_property columns, and the spec lowering of
 drivers and constraints: vectorizable ones become integer compares, the
-rest become host-evaluated boolean rows cached per computed class.  The
-reference's columnar store path is not ported.
+rest become host-evaluated boolean rows cached per computed class.  The static
+tensors are sliced from the state store's columnar mirror where it has
+one (:func:`build_cluster_static`), with the walk as its guard.
 
 Ordered interning: each attribute target gets its own codebook whose
 codes are assigned in sorted-value order, so lexical <, <=, >, >= lower
@@ -20,10 +21,12 @@ from typing import Dict, List, Optional, Sequence, Set, Tuple
 
 import numpy as np
 
+from .. import fault
 from ..scheduler.context import EvalContext
 from ..scheduler.feasible import (check_constraint, parse_bool,
                                   resolve_constraint_target)
 from ..scheduler.util import task_group_constraints
+from ..state import columnar
 from ..structs import structs as s
 from ..structs.network import MAX_DYNAMIC_PORT, MAX_VALID_PORT, MIN_DYNAMIC_PORT
 
@@ -240,6 +243,8 @@ class ClusterTensors:
     bw_used: np.ndarray = None          # [n_pad] int32
     dyn_free: np.ndarray = None         # [n_pad] int32
     port_words: np.ndarray = None       # [n_pad, w] uint32
+    # Sliced from the store's columnar mirror (build_cluster_static).
+    columnar: bool = False
 
 
 def _node_ports(nets: Sequence[s.NetworkResource]) -> Tuple[int, Set[int]]:
@@ -262,6 +267,30 @@ def _port_row(ports: Set[int], w: int) -> Tuple[np.ndarray, int]:
         row[p >> 5] |= np.uint32(1 << (p & 31))
     in_dyn = sum(1 for p in ports if MIN_DYNAMIC_PORT <= p < MAX_DYNAMIC_PORT)
     return row, (MAX_DYNAMIC_PORT - MIN_DYNAMIC_PORT) - in_dyn
+
+
+def _resolve_attr_rows(nodes: Sequence[s.Node], attr_targets: Sequence[str]
+                       ) -> Tuple[List[Dict[str, Optional[str]]],
+                                  Dict[str, Set[str]]]:
+    """Each node's resolved attribute targets and the value set of each
+    target: the walk's second loop, shared with the columnar encode
+    (string attributes have no columnar form)."""
+    value_sets: Dict[str, Set[str]] = {t: set() for t in attr_targets}
+    if not attr_targets:
+        # One shared empty row: finalize_codebooks only reads them.
+        return [{}] * len(nodes), value_sets
+    raw_rows: List[Dict[str, Optional[str]]] = []
+    for node in nodes:
+        row: Dict[str, Optional[str]] = {}
+        for t in attr_targets:
+            val, ok = resolve_constraint_target(t, node)
+            if ok and isinstance(val, str):
+                row[t] = val
+                value_sets[t].add(val)
+            else:
+                row[t] = None
+        raw_rows.append(row)
+    return raw_rows, value_sets
 
 
 def encode_cluster_static(nodes: Sequence[s.Node],
@@ -313,21 +342,7 @@ def encode_cluster_static(nodes: Sequence[s.Node],
                 node.reserved.networks or [] if node.reserved else [])
             port_words[i], dyn_free[i] = _port_row(ports, w)
 
-    value_sets: Dict[str, Set[str]] = {t: set() for t in attr_targets}
-    if attr_targets:
-        raw_rows: List[Dict[str, Optional[str]]] = []
-        for node in nodes:
-            row: Dict[str, Optional[str]] = {}
-            for t in attr_targets:
-                val, ok = resolve_constraint_target(t, node)
-                if ok and isinstance(val, str):
-                    row[t] = val
-                    value_sets[t].add(val)
-                else:
-                    row[t] = None
-            raw_rows.append(row)
-    else:
-        raw_rows = [{}] * len(nodes)
+    raw_rows, value_sets = _resolve_attr_rows(nodes, attr_targets)
 
     return ClusterTensors(
         node_ids=node_ids, n_real=n_real, n_pad=n_pad, capacity=capacity,
@@ -343,6 +358,129 @@ def encode_cluster_static(nodes: Sequence[s.Node],
         node_index={nid: i for i, nid in enumerate(node_ids)},
         nodes=list(nodes), with_networks=with_networks, bw_cap=bw_cap,
         bw_used=bw_used, dyn_free=dyn_free, port_words=port_words)
+
+
+def encode_cluster_static_columnar(cols, nodes: Sequence[s.Node],
+                                   attr_targets: Sequence[str],
+                                   node_pad_multiple: int = 128
+                                   ) -> ClusterTensors:
+    """:func:`encode_cluster_static` built by slicing the store's columnar
+    mirror (``state/columnar.ClusterColumns``) instead of walking a node
+    object a row (``encode.py:450``).  Bit-identical to the walk by
+    construction: the codes are assigned in the walk's first-seen order,
+    and the guard of :func:`build_cluster_static` holds it.  Batches with
+    network asks keep the walk (port bitmaps have no columnar form)."""
+    n_real = cols.n
+    n_pad = max(node_pad_multiple, round_up(n_real, node_pad_multiple))
+
+    capacity = np.zeros((n_pad, RES_DIMS), dtype=np.int64)
+    capacity[:n_real] = cols.cap[:n_real]
+    used = np.zeros((n_pad, RES_DIMS), dtype=np.int64)
+    used[:n_real] = cols.res[:n_real]
+    score_denom = np.ones((n_pad, 2), dtype=np.float32)
+    score_denom[:n_real, 0] = cols.cap[:n_real, 0] - cols.res[:n_real, 0]
+    score_denom[:n_real, 1] = cols.cap[:n_real, 1] - cols.res[:n_real, 1]
+    eligible = np.zeros(n_pad, dtype=bool)
+    eligible[:n_real] = cols.eligible[:n_real]
+    dc_code = np.full(n_pad, MISSING, dtype=np.int32)
+    dc_code[:n_real] = cols.dc_code[:n_real]
+    class_code = np.full(n_pad, MISSING, dtype=np.int32)
+    class_code[:n_real] = cols.class_code[:n_real]
+
+    node_ids = list(cols.node_ids[:n_real])
+    raw_rows, value_sets = _resolve_attr_rows(nodes, attr_targets)
+    return ClusterTensors(
+        node_ids=node_ids, n_real=n_real, n_pad=n_pad, capacity=capacity,
+        used=used, score_denom=score_denom, eligible=eligible,
+        dc_code=dc_code, class_code=class_code,
+        attr_values=np.full((n_pad, max(1, len(attr_targets))), MISSING,
+                            dtype=np.int32),
+        attr_index={t: j for j, t in enumerate(attr_targets)},
+        dc_codebook=cols.dc_codebook(),
+        value_codebooks={t: {} for t in attr_targets},
+        raw_rows=raw_rows, value_sets=value_sets,
+        class_codebook=cols.class_codebook(),
+        node_index={nid: i for i, nid in enumerate(node_ids)},
+        nodes=nodes if type(nodes) is list else list(nodes),
+        with_networks=False, bw_cap=np.zeros(n_pad, dtype=np.int32),
+        bw_used=np.zeros(n_pad, dtype=np.int32),
+        dyn_free=np.zeros(n_pad, dtype=np.int32),
+        port_words=np.zeros((n_pad, 1), dtype=np.uint32), columnar=True)
+
+
+def _static_mismatch(ct: ClusterTensors, ref: ClusterTensors) -> str:
+    """The first difference between a column-built and a walk-built
+    static encode, or '' when they are bit-identical: everything the
+    device pass and the spec lowering read."""
+    if ct.node_ids != ref.node_ids:
+        return "node_ids order"
+    for name in ("capacity", "used", "score_denom", "eligible",
+                 "dc_code", "class_code", "attr_values"):
+        if not np.array_equal(getattr(ct, name), getattr(ref, name)):
+            return name
+    if ct.dc_codebook != ref.dc_codebook:
+        return "dc_codebook"
+    if ct.value_codebooks != ref.value_codebooks:
+        return "value_codebooks"
+    if ct.class_codebook != ref.class_codebook:
+        return "class_codebook"
+    return ""
+
+
+def build_cluster_static(state, nodes: Sequence[s.Node],
+                         attr_targets: Sequence[str],
+                         literals: Dict[str, Set[str]],
+                         node_pad_multiple: int = 128,
+                         with_networks: bool = False, breaker=None,
+                         guard_every: int = columnar.GUARD_EVERY
+                         ) -> ClusterTensors:
+    """The static cluster tensors with finalized codebooks, sliced from
+    the store's columnar mirror when it has one in step with ``nodes``,
+    walked otherwise (``encode.py:535``).  Every ``guard_every`` columnar
+    encodes (0: never) the walk runs anyway and the two are bit-compared:
+    a mismatch feeds ``breaker``, bumps the columnar epoch (every mirror
+    rebuilds before it is trusted again), and the batch goes on with the
+    walk's buffers.  Fault point ``state.columns`` (action ``corrupt``)
+    perturbs one column-built capacity cell, for the guard to catch."""
+    cols = None
+    if not with_networks:
+        columns_fn = getattr(state, "columns", None)
+        if columns_fn is not None:
+            cols = columns_fn()
+        if cols is not None and cols.n != len(nodes):
+            cols = None  # the mirror is out of step with the node list
+    if cols is None:
+        columnar.WALK_ENCODES += 1
+        ct = encode_cluster_static(nodes, attr_targets,
+                                   node_pad_multiple=node_pad_multiple,
+                                   with_networks=with_networks)
+        finalize_codebooks(ct, literals)
+        return ct
+
+    columnar.COLUMNAR_ENCODES += 1
+    ct = encode_cluster_static_columnar(
+        cols, nodes, attr_targets, node_pad_multiple=node_pad_multiple)
+    finalize_codebooks(ct, literals)
+
+    act = fault.faultpoint("state.columns")
+    if act is not None and act.kind == "corrupt":
+        row = act.rng.randrange(max(1, ct.n_real))
+        ct.capacity[row, act.rng.randrange(RES_DIMS)] += \
+            1 + act.rng.randrange(1000)
+
+    if guard_every > 0 and columnar.COLUMNAR_ENCODES % guard_every == 0:
+        columnar.GUARD_RUNS += 1
+        ref = encode_cluster_static(nodes, attr_targets,
+                                    node_pad_multiple=node_pad_multiple)
+        finalize_codebooks(ref, literals)
+        bad = _static_mismatch(ct, ref)
+        if bad:
+            columnar.note_guard_mismatch("static", bad, breaker=breaker,
+                                         Nodes=int(ref.n_real))
+            return ref
+        if breaker is not None:
+            breaker.record(True)
+    return ct
 
 
 def alloc_usage(alloc: s.Allocation) -> np.ndarray:

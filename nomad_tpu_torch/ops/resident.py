@@ -288,6 +288,21 @@ def _full_usage(base, rows_fn) -> Tuple[np.ndarray, set]:
     return used, touched
 
 
+def _usage_source(base, rows_fn, usage_fn) -> Tuple[np.ndarray, set]:
+    """The full live usage of a cold build, a fence or a feed-gap
+    rebuild: the store's columnar mirror (``usage_fn``, O(changed) over
+    the delta feed) where the caller gives one and it answers, the walk
+    otherwise (``resident.py:456``).  The differential guard never reads
+    ``usage_fn``: the mirror and this module both ride the delta log, and
+    the guard is there to catch that log lying."""
+    if usage_fn is not None:
+        out = usage_fn()
+        if out is not None:
+            used, touched = out
+            return used, set(touched)
+    return _full_usage(base, rows_fn)
+
+
 def _bad_shards(bad_rows, n_rows: int, shards: int) -> List[int]:
     if shards <= 0:
         return []
@@ -296,15 +311,18 @@ def _bad_shards(bad_rows, n_rows: int, shards: int) -> List[int]:
 
 
 def acquire(state, cache_key: Tuple, base, rows_fn, breaker=None,
-            shards: int = 0, guard_every: int = 64
+            shards: int = 0, guard_every: int = 64, usage_fn=None
             ) -> Tuple[np.ndarray, List[int], Dict]:
     """The live usage matrix for this batch.
 
     ``state`` is the scheduler's snapshot, ``cache_key`` the residency key
     ``(store_uid, nodes-table index, n_pad)``, ``base`` the static
     ``ClusterTensors`` (reserved-only usage), ``rows_fn`` returns
-    ``{node_id: [live alloc rows]}`` for a full walk.  ``shards`` (the
-    mesh size, 0 on one device) attributes a guard mismatch to shards.
+    ``{node_id: [live alloc rows]}`` for a full walk, and ``usage_fn``
+    (optional) returns ``(used, touched)`` from the store's columnar
+    mirror, or None: the source of a cold build, a fence or a rebuild.
+    ``shards`` (the mesh size, 0 on one device) attributes a guard
+    mismatch to shards.
 
     Returns ``(used int64 [n_pad, 4] -- the caller's copy, touched rows
     sorted, info)``; info carries ``resident_hit``, ``delta_rows``,
@@ -327,7 +345,7 @@ def acquire(state, cache_key: Tuple, base, rows_fn, breaker=None,
             # one-off walk that must not replace the newer mirror.
             STALENESS_FALLBACKS += 1
             info["fence"] = info["full_reencode"] = True
-            used, touched = _full_usage(base, rows_fn)
+            used, touched = _usage_source(base, rows_fn, usage_fn)
             _publish("staleness_fence", SnapshotNodesIndex=cache_key[1],
                      CachedNodesIndex=st.key[1])
             return used, sorted(touched), info
@@ -336,7 +354,7 @@ def acquire(state, cache_key: Tuple, base, rows_fn, breaker=None,
                 # The snapshot predates the mirror: the same fence.
                 STALENESS_FALLBACKS += 1
                 info["fence"] = info["full_reencode"] = True
-                used, touched = _full_usage(base, rows_fn)
+                used, touched = _usage_source(base, rows_fn, usage_fn)
                 _publish("staleness_fence", SnapshotIndex=snap_index,
                          CachedIndex=st.alloc_index)
                 return used, sorted(touched), info
@@ -455,7 +473,7 @@ def acquire(state, cache_key: Tuple, base, rows_fn, breaker=None,
                   else ("key_change" if st is not None else "cold"))
         FULL_REENCODES += 1
         info["full_reencode"] = True
-        used, touched = _full_usage(base, rows_fn)
+        used, touched = _usage_source(base, rows_fn, usage_fn)
         _STATE = ResidentState(cache_key, used, snap_index, set(touched))
         if reason != "cold":
             _publish(reason, AllocIndex=snap_index, Nodes=int(base.n_real))

@@ -6,10 +6,10 @@ emits blocked-eval unblocks on capacity changes and feeds the eval broker
 on the leader, the side-channel hooks nomadFSM.Apply performs.
 
 The handlers kept are the ones the server path applies: node register,
-status and drain; job register and deregister; eval update; alloc update
-and client update; plan results.  Left out, with the slices that need
-them: node deregister, eval delete, summary reconcile, the vault,
-periodic and namespace handlers, and snapshot/restore.
+deregister, status and drain; job register and deregister; eval update;
+alloc update and client update; plan results.  Left out, with the slices
+that need them: eval delete, summary reconcile, the vault, periodic and
+namespace handlers, and snapshot/restore.
 """
 from __future__ import annotations
 
@@ -27,6 +27,7 @@ class MessageType(IntEnum):
     the reference's."""
 
     NODE_REGISTER = 0
+    NODE_DEREGISTER = 1
     NODE_UPDATE_STATUS = 2
     NODE_UPDATE_DRAIN = 3
     JOB_REGISTER = 4
@@ -72,6 +73,9 @@ class FSM:
         # (fsm.go:182-188).
         if self.on_unblock and node.computed_class:
             self.on_unblock(node.computed_class, index)
+
+    def _apply_node_deregister(self, index: int, req: dict):
+        self.state.delete_node(index, req["node_id"])
 
     def _apply_node_update_status(self, index: int, req: dict):
         self.state.update_node_status(index, req["node_id"], req["status"])
@@ -164,6 +168,7 @@ class FSM:
 
     _DISPATCH: Dict[MessageType, Callable] = {
         MessageType.NODE_REGISTER: _apply_node_register,
+        MessageType.NODE_DEREGISTER: _apply_node_deregister,
         MessageType.NODE_UPDATE_STATUS: _apply_node_update_status,
         MessageType.NODE_UPDATE_DRAIN: _apply_node_update_drain,
         MessageType.JOB_REGISTER: _apply_job_register,

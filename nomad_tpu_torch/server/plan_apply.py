@@ -11,11 +11,12 @@ commits nothing; the committed part goes into the store at the next
 index, and the resident usage mirror (``ops/resident.py``) is told the
 index.
 
-At :data:`VECTORIZE_THRESHOLD` touched nodes or more, the fit math of the
-re-check is one call of ``ops.kernels.batch_allocs_fit`` on the
-applier's device (``cuda`` unless ``device="cpu"``); nodes whose proposed
-allocs reserve networks keep the scalar ``allocs_fit``, which owns the
-port and bandwidth math.  A device error there propagates.
+Without the columnar route, at :data:`VECTORIZE_THRESHOLD` touched nodes
+or more, the fit math of the re-check is one call of
+``ops.kernels.batch_allocs_fit`` on the applier's device (``cuda`` unless
+``device="cpu"``); nodes whose proposed allocs reserve networks keep the
+scalar ``allocs_fit``, which owns the port and bandwidth math.  A device
+error there propagates.
 
 Two forms share one :meth:`PlanApplier.evaluate_plan` and
 :meth:`PlanApplier.apply_plan`:
@@ -38,8 +39,18 @@ Two forms share one :meth:`PlanApplier.evaluate_plan` and
   counter; the port adds ``plan.queue_wait``, each plan's time in the
   queue.
 
-Left out: the columnar fit route (plan_apply.py:361, which needs the
-store's columnar mirror), the tracing spans, the event-stream
+The columnar fit route is tried first (plan_apply.py:361): capacity,
+reserved, eligibility and live usage come from the store's columnar
+mirror (``state/columnar.py``) instead of each touched node's alloc
+objects; nodes whose proposed allocs reserve networks, and rows the
+mirror dropped, take the scalar check.  Every ``columnar_guard_every``
+evaluations (0: never) the walk (and with it ``batch_allocs_fit`` at 64
+touched nodes or more) runs anyway and must agree; a disagreement that a
+second columnar pass does not explain is counted as a guard mismatch,
+and the walk's verdicts win.  A store made with ``columnar=False`` takes
+the walk.
+
+Left out: the tracing spans, the event-stream
 ``PlanApplied`` summary, the ``plan.apply`` fault's ``delay`` action, and
 allocs' ``create_time`` (the port's Allocation has no such field).
 """
@@ -58,6 +69,7 @@ from .. import fault
 from ..device import resolve_device
 from ..ops import resident
 from ..ops.kernels import batch_allocs_fit
+from ..state import columnar
 from ..structs import structs as s
 from ..structs.funcs import allocs_fit, remove_allocs
 from ..utils.telemetry import NULL_TELEMETRY
@@ -118,17 +130,22 @@ class PlanApplier:
     store's latest index plus one; a ``Harness`` passes its own).
     ``PlanApplier(plan_queue, raft, logger, metrics, blocked_evals)``
     commits through ``raft`` and re-checks against its FSM's store.
-    ``device`` is where the vectorized re-check runs.  ``stats`` sums,
+    ``device`` is where the vectorized re-check runs.
+    ``columnar_guard_every`` is the cadence of the columnar route's guard
+    (the reference's ``NOMAD_TPU_COLUMNAR_GUARD_EVERY``).  ``stats`` sums,
     since the last :meth:`reset_stats`, the plans seen, the seconds of
     evaluate and apply, the touched nodes, the plans per route
-    (``vectorized``, ``scalar``), the nodes the vectorized route left to
-    the scalar check, partial commits, and the devices
-    ``batch_allocs_fit`` ran on."""
+    (``columnar``, ``vectorized``, ``scalar``; a guard's walk counts
+    under its own route too), the columnar guard's runs
+    (``columnar_guards``), the nodes the columnar and vectorized routes
+    left to the scalar check (``scalar_fallback``), partial commits, and
+    the devices ``batch_allocs_fit`` ran on."""
 
     def __init__(self, source, raft=None,
                  logger: Optional[logging.Logger] = None, metrics=None,
                  blocked_evals=None, device=None,
-                 next_index: Optional[Callable[[], int]] = None):
+                 next_index: Optional[Callable[[], int]] = None,
+                 columnar_guard_every: int = columnar.GUARD_EVERY):
         if isinstance(source, PlanQueue):
             if raft is None:
                 raise ValueError("the plan-queue form needs the raft log")
@@ -152,6 +169,8 @@ class PlanApplier:
         # preemption plan commits, so displaced work reschedules.
         self.blocked_evals = blocked_evals
         self._overlay = _InflightOverlay()
+        self.columnar_guard_every = columnar_guard_every
+        self._fit_guard_reads = 0
         self._stats_l = threading.Lock()
         self.reset_stats()
         # The server form's threads: the hot loop and a bounded pool of
@@ -175,6 +194,7 @@ class PlanApplier:
         with self._stats_l:
             self.stats = {"plans": 0, "evaluate_seconds": 0.0,
                           "apply_seconds": 0.0, "touched_nodes": 0,
+                          "columnar": 0, "columnar_guards": 0,
                           "vectorized": 0, "scalar": 0,
                           "scalar_fallback": 0, "partial": 0,
                           "fit_devices": set()}
@@ -451,8 +471,121 @@ class PlanApplier:
         # The overlay first, the store second: a commit landing between
         # the two reads is counted twice (conservative), never in neither.
         overlay = {nid: self._overlay.pending_for(nid) for nid in node_ids}
+        out = self._evaluate_nodes_columnar(snap, plan, node_ids, slab_adds,
+                                            overlay)
+        if out is not None:
+            self._count("columnar")
+            return out
         return self._evaluate_nodes_walk(snap, plan, node_ids, slab_adds,
                                          overlay)
+
+    def _evaluate_nodes_columnar(self, snap, plan: s.Plan,
+                                 node_ids: List[str], slab_adds: Dict,
+                                 overlay_map: Dict[str, list],
+                                 guard: bool = True
+                                 ) -> Optional[Dict[str, bool]]:
+        """The fit re-check off the store's columnar mirror
+        (plan_apply.py:361): capacity, reserved, eligibility and live
+        usage are int64 rows of the mirror, and the plan's own removals
+        and adds and the in-flight overlay are added on the host.  A node
+        whose proposed allocs reserve networks, or whose row the mirror
+        does not have, takes the scalar check.  None when the store has
+        no mirror (the caller walks).  Every ``columnar_guard_every``
+        calls the walk runs anyway and must agree (see the module
+        docstring)."""
+        columns_fn = getattr(snap, "columns", None)
+        if columns_fn is None:
+            return None
+        cols = columns_fn()
+        if cols is None:
+            return None
+        usage = snap.column_usage(cols)
+
+        def combined(alloc: s.Allocation) -> np.ndarray:
+            return np.array(s.alloc_usage_vec(alloc), dtype=np.int64)
+
+        def has_ports(alloc: s.Allocation) -> bool:
+            if alloc.resources is not None and alloc.resources.networks:
+                return True
+            return any(tr.networks for tr in alloc.task_resources.values())
+
+        def proto_ports(pairs) -> bool:
+            return any(p.resources is not None and p.resources.networks
+                       for p, _ in pairs)
+
+        out: Dict[str, bool] = {}
+        n_scalar = 0
+        for node_id in node_ids:
+            if not self._preemptions_fresh(snap, plan, node_id):
+                out[node_id] = False
+                continue
+            adds = plan.node_allocation.get(node_id, [])
+            slab_here = slab_adds.get(node_id, [])
+            overlay = overlay_map.get(node_id, ())
+            if not adds and not slab_here:
+                out[node_id] = True  # evict-only always fits
+                continue
+            row = cols.row_of.get(node_id)
+            if (row is None or row >= cols.n
+                    or any(has_ports(a) for a in adds)
+                    or proto_ports(slab_here) or proto_ports(overlay)):
+                # Port accounting, or a row the mirror does not have:
+                # the scalar check for this node only.
+                n_scalar += 1
+                out[node_id] = self._evaluate_node_plan(
+                    snap, plan, node_id, slab_adds, overlay=overlay_map)
+                continue
+            if not cols.eligible[row]:
+                out[node_id] = False
+                continue
+            need = cols.res[row] + usage[row]
+            for removal in (list(plan.node_update.get(node_id, ()))
+                            + list(plan.node_preemptions.get(node_id, ()))):
+                live = snap.alloc_by_id(None, removal.id)
+                if (live is not None and not live.terminal_status()
+                        and live.node_id == node_id):
+                    need = need - combined(live)
+            for alloc in adds:
+                need = need + combined(alloc)
+            for proto, cnt in slab_here:
+                need = need + cnt * _res_vec(proto.resources)
+            for proto, cnt in overlay:
+                need = need + cnt * _res_vec(proto.resources)
+            out[node_id] = bool(np.all(need <= cols.cap[row]))
+        if guard:
+            self._count("scalar_fallback", n_scalar)
+
+        every = self.columnar_guard_every
+        if guard and every > 0:
+            with self._stats_l:
+                self._fit_guard_reads += 1
+                due = self._fit_guard_reads % every == 0
+            if due:
+                self._count("columnar_guards")
+                ref = self._evaluate_nodes_walk(snap, plan, node_ids,
+                                                slab_adds, overlay_map)
+                if ref != out:
+                    # Both passes read the live store: a write between
+                    # them (a pipelined commit, a client update) gives a
+                    # benign difference that a second columnar pass,
+                    # against the walk's newer view, does not repeat; a
+                    # fault of the mirror does.
+                    out2 = self._evaluate_nodes_columnar(
+                        snap, plan, node_ids, slab_adds, overlay_map,
+                        guard=False)
+                    if out2 == ref:
+                        return ref
+                    bad = [nid for nid in node_ids
+                           if ref.get(nid) != out.get(nid)]
+                    columnar.note_guard_mismatch(
+                        "plan_fit", f"{len(bad)} node verdicts",
+                        Nodes=len(bad))
+                    self.logger.error(
+                        "columnar plan-fit guard mismatch on %d nodes "
+                        "(first: %s); using the walk's verdicts",
+                        len(bad), bad[:3])
+                    return ref
+        return out
 
     def _evaluate_nodes_walk(self, snap, plan: s.Plan,
                              node_ids: List[str], slab_adds: Dict,

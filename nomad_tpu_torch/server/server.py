@@ -19,11 +19,12 @@ or a build that fails raises there, instead of nacking every eval in a
 worker thread.
 
 Entry points: :meth:`Server.node_register`,
-:meth:`Server.node_update_status`, :meth:`Server.node_update_drain`,
-:meth:`Server.job_register`, :meth:`Server.job_deregister`,
-:meth:`Server.shutdown`.  The metrics emitter publishes the broker,
-blocked-eval, plan-queue, heartbeat and log gauges and the kernel
-breaker's ``breaker.state``/``breaker.trips`` each second.
+:meth:`Server.node_deregister`, :meth:`Server.node_update_status`,
+:meth:`Server.node_update_drain`, :meth:`Server.job_register`,
+:meth:`Server.job_deregister`, :meth:`Server.shutdown`.  The metrics
+emitter publishes the broker, blocked-eval, plan-queue, heartbeat and log
+gauges and the kernel breaker's ``breaker.state``/``breaker.trips`` each
+second.
 
 Left out, for later slices: RPC, endpoints, membership and forwarding;
 the durable log, snapshots and multi-voter raft; follower scheduling;
@@ -39,6 +40,8 @@ from typing import List, Optional, Tuple
 
 from .. import device as device_mod
 from ..ops import breaker as breaker_mod
+from ..state import columnar as columnar_mod
+from ..state.state_store import StateStore
 from ..structs import structs as s
 from ..utils.telemetry import Telemetry
 from .blocked_evals import BlockedEvals
@@ -72,7 +75,12 @@ class ServerConfig:
     is the kernel breaker every batch scheduler uses (default: the
     process-wide ``ops.breaker.BREAKER``, read at each batch).
     ``min_heartbeat_ttl`` is the shortest node TTL granted (it grows with
-    the fleet, at 50 heartbeats a second)."""
+    the fleet, at 50 heartbeats a second).  ``columnar`` keeps the state
+    store's columnar mirror (``state/columnar.py``), which the batch
+    scheduler's encode and usage read and the applier's fit route slice,
+    and ``columnar_guard_every`` is the cadence of their guards (the
+    reference's ``NOMAD_TPU_COLUMNAR`` and
+    ``NOMAD_TPU_COLUMNAR_GUARD_EVERY``)."""
 
     num_schedulers: int = 1
     batch_size: int = 64
@@ -86,6 +94,8 @@ class ServerConfig:
     eval_nack_timeout: float = 60.0
     eval_delivery_limit: int = 3
     min_heartbeat_ttl: float = 10.0
+    columnar: bool = True
+    columnar_guard_every: int = columnar_mod.GUARD_EVERY
 
 
 class Server:
@@ -111,14 +121,16 @@ class Server:
         self.blocked_evals = BlockedEvals(self.eval_broker)
         self.plan_queue = PlanQueue()
         self.time_table = TimeTable()
-        self.fsm = FSM(logger=self.logger,
+        self.fsm = FSM(state=StateStore(columnar=cfg.columnar),
+                       logger=self.logger,
                        on_eval_update=self._fsm_eval_updated,
                        on_unblock=self._fsm_unblock)
         self.raft = InmemLog(self.fsm)
         self.raft.metrics = self.metrics
         self.plan_applier = PlanApplier(
             self.plan_queue, self.raft, self.logger, metrics=self.metrics,
-            blocked_evals=self.blocked_evals, device=self.device)
+            blocked_evals=self.blocked_evals, device=self.device,
+            columnar_guard_every=cfg.columnar_guard_every)
         self.heartbeat = HeartbeatTimers(
             on_expire=self._heartbeat_expired,
             min_ttl=cfg.min_heartbeat_ttl, logger=self.logger,
@@ -140,7 +152,8 @@ class Server:
         self._threads.append(t)
         cfg = self.config
         sched_kwargs = {"rng_seed": cfg.rng_seed,
-                        "preemption_enabled": cfg.preemption_enabled}
+                        "preemption_enabled": cfg.preemption_enabled,
+                        "columnar_guard_every": cfg.columnar_guard_every}
         if cfg.mesh is not None:
             sched_kwargs["mesh"] = cfg.mesh
         else:
@@ -408,6 +421,16 @@ class Server:
         if existed is not None and existed.status != node.status:
             self._create_node_evals(node.id, index)
         return index, ttl
+
+    def node_deregister(self, node_id: str) -> int:
+        """(node_endpoint.go Deregister): the node out of the store
+        through the log, its heartbeat timer cleared, and evals for the
+        jobs with allocs on it."""
+        _, index = self.raft.apply(MessageType.NODE_DEREGISTER,
+                                   {"node_id": node_id})
+        self.heartbeat.clear_heartbeat_timer(node_id)
+        self._create_node_evals(node_id, index)
+        return index
 
     def node_update_status(self, node_id: str,
                            status: str) -> Tuple[int, float]:

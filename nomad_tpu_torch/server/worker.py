@@ -344,9 +344,9 @@ class BatchWorker(Worker):
     Service and batch evals are batched; system evals run through the
     vectorized ``torch-system`` pass.  ``scheduler_kwargs`` go to every
     ``TorchBatchScheduler`` (``device`` or ``mesh``, ``rng_seed``,
-    ``preemption_enabled``, ``breaker``); ``pipeline`` turns on the
-    double-buffered drain (the reference's ``NOMAD_TPU_PIPELINE``,
-    default off)."""
+    ``preemption_enabled``, ``breaker``, ``columnar_guard_every``);
+    ``pipeline`` turns on the double-buffered drain (the reference's
+    ``NOMAD_TPU_PIPELINE``, default off)."""
 
     def __init__(self, *args, max_batch: int = 64, pipeline: bool = False,
                  **kwargs):

@@ -19,7 +19,13 @@ usage-delta feed, :meth:`StateStore.allocs_since`, state_store.py:
 upserted.  :meth:`StateStore.upsert_plan_results` is the commit of the
 plan applier (``server/plan_apply.py``).
 
-Left out of the copy: the columnar node mirror, deployments, namespaces
+The store keeps the columnar mirror of its node table and live usage
+(``state/columnar.py``; ``StateStore(columnar=True)``, the default): node
+writes maintain it, the usage is folded from the delta feed when read,
+and snapshots share it copy-on-write (:meth:`StateStore.columns`,
+:meth:`StateStore.column_usage`).
+
+Left out of the copy: deployments, namespaces
 (and the per-namespace usage fold of the delta log), vault accessors,
 periodic launches, job version history, watch sets, the event stream and
 persistence.  The ``ws`` argument of the readers is kept for the
@@ -32,7 +38,10 @@ import threading
 from collections import defaultdict
 from typing import Dict, List, Optional, Set, Tuple
 
+import numpy as np
+
 from ..structs import structs as s
+from . import columnar as columnar_mod
 
 # Shared immutable empty result for index misses (never mutated).
 _EMPTY_SET: Set[str] = set()
@@ -46,7 +55,8 @@ ALLOC_LOG_CAP = 262_144
 class StateStore:
     """The authoritative in-memory database of cluster state."""
 
-    def __init__(self, alloc_log_cap: int = ALLOC_LOG_CAP) -> None:
+    def __init__(self, alloc_log_cap: int = ALLOC_LOG_CAP,
+                 columnar: bool = True) -> None:
         self._lock = threading.RLock()
         # Store-lineage id: snapshots inherit it, distinct stores differ;
         # table indexes are only comparable within one lineage (the batch
@@ -82,6 +92,12 @@ class StateStore:
         self._alloc_log_owned = True
         self._alloc_log_floor = 0
         self._alloc_log_weight = 0
+        # The columnar mirror (state/columnar.py; the reference's
+        # NOMAD_TPU_COLUMNAR is ``columnar``): None until built, or after
+        # a structural change dropped it; the owner rebuilds it at its
+        # next snapshot() or columns().
+        self.columnar = columnar
+        self._columns: Optional[columnar_mod.ClusterColumns] = None
 
     # -- snapshot ----------------------------------------------------------
 
@@ -114,12 +130,133 @@ class StateStore:
             snap._alloc_log_owned = False
             snap._alloc_log_floor = self._alloc_log_floor
             snap._alloc_log_weight = self._alloc_log_weight
+            # The columnar mirror: an O(1) share behind copy-on-write
+            # (state_store.py:269-278), built here on first use so it
+            # warms on the owning store and outlives the snapshot.
+            snap.columnar = self.columnar
+            snap._columns = None
+            if self.columnar:
+                cols = self._ensure_columns_locked()
+                if cols is not None:
+                    self._col_fold_if_stale(cols)
+                    snap._columns = cols.share()
             # The ready-node memo (scheduler/util.ready_nodes_in_dcs) is
             # shared by every snapshot cut from the same node table; a
             # node write drops only the writer's reference (_bump).
             snap._ready_nodes_cache = self.__dict__.setdefault(
                 "_ready_nodes_cache", {})
             return snap
+
+    # -- the columnar mirror ------------------------------------------------
+
+    def _ensure_columns_locked(self) -> Optional[columnar_mod.ClusterColumns]:
+        """The mirror, built cold when it is absent or of an old epoch.
+        A snapshot never builds one: the mirror warms on the owning
+        store, not on a per-batch view.  The caller holds the lock."""
+        cols = self._columns
+        if cols is not None and cols.epoch == columnar_mod.EPOCH:
+            return cols
+        if isinstance(self, StateSnapshot):
+            return None
+        self._columns = columnar_mod.ClusterColumns.build(self)
+        return self._columns
+
+    def columns(self) -> Optional[columnar_mod.ClusterColumns]:
+        """The columnar node and usage mirror, or None when it is off or
+        unavailable (the callers walk the objects then)."""
+        if not self.columnar:
+            return None
+        with self._lock:
+            return self._ensure_columns_locked()
+
+    def column_usage(self, cols: columnar_mod.ClusterColumns) -> np.ndarray:
+        """``cols``' usage matrix caught up with this store's alloc writes
+        (the delta feed; a full row walk on a feed gap).  Rows at or past
+        ``cols.n`` are padding."""
+        with self._lock:
+            if not cols.fold_usage(self):
+                cols.rebuild_usage(self)
+            return cols.usage
+
+    #: Log entries past the owner's usage cursor beyond which snapshot()
+    #: folds the owner forward before sharing.  Folding at every snapshot
+    #: would copy [n, 4] for batches that never read usage; never folding
+    #: lets the cursor fall below the log's trim floor, and every read
+    #: would then rebuild from a full row walk.
+    COL_FOLD_BACKLOG = 4096
+
+    def _col_fold_if_stale(self, cols: columnar_mod.ClusterColumns) -> None:
+        """The owner's usage cursor kept near the log's head at snapshot
+        time (the caller holds the lock), so each view's fold stays
+        O(recent)."""
+        if cols.usage_index < self._alloc_log_floor:
+            cols.rebuild_usage(self)
+            return
+        start = bisect.bisect_right(self._alloc_log, cols.usage_index,
+                                    0, self._alloc_log_len,
+                                    key=lambda e: e[0])
+        if self._alloc_log_len - start > self.COL_FOLD_BACKLOG:
+            if not cols.fold_usage(self):
+                cols.rebuild_usage(self)
+
+    def _col_node_upserted(self, node: s.Node,
+                           existing: Optional[s.Node]) -> None:
+        """upsert_node's hook (the caller holds the lock): append or
+        update the node's row.  A datacenter or computed-class change of
+        an existing node could reorder the first-seen codebooks: it drops
+        the mirror instead."""
+        cols = self._columns
+        if cols is None:
+            return
+        if existing is None:
+            # Fold BEFORE appending: the backfill reads the tables' truth
+            # for this node, so its pending log entries must land first
+            # or they would count twice.
+            if not cols.fold_usage(self):
+                cols.rebuild_usage(self)
+            row = cols.append_node(node)
+            self._col_backfill_usage(cols, node.id, row)
+        elif not cols.update_node(node):
+            self._columns = None
+
+    @staticmethod
+    def _slab_node_set(slab: s.AllocSlab) -> frozenset:
+        """A slab's node ids as a set, built once and kept on the slab
+        (its node ids never change after the insert)."""
+        ns = getattr(slab, "_node_set", None)
+        if ns is None:
+            ns = frozenset(slab.node_ids)
+            slab._node_set = ns
+        return ns
+
+    def _col_backfill_usage(self, cols: columnar_mod.ClusterColumns,
+                            node_id: str, row: int) -> None:
+        """A node registered after allocs that name it: its fresh usage
+        row is seeded from the live rows already in the tables (the walk
+        counts them)."""
+        # Pending slabs are indexed only when one of them places on this
+        # node, so a registration does not drain a large pending slab.
+        if self._pending_slabs and any(
+                node_id in self._slab_node_set(slab)
+                for slab in self._pending_slabs):
+            self._materialize_pending()
+        ids = self._idx_get(self._allocs_by_node, node_id)
+        if not ids:
+            return
+        c = m = d = io = 0
+        for aid in ids:
+            v = self.allocs_table.get(aid)
+            if v is None:
+                continue
+            r = v.proto if type(v) is s.AllocSlab else v
+            if r.terminal_status():
+                continue
+            vec = s.alloc_usage_vec(r)
+            c += vec[0]
+            m += vec[1]
+            d += vec[2]
+            io += vec[3]
+        cols.usage[row] = (c, m, d, io)
 
     # -- secondary index values ---------------------------------------------
     #
@@ -245,6 +382,18 @@ class StateStore:
                                  if existing is not None else index)
             node.modify_index = index
             self.nodes_table[node.id] = node
+            self._col_node_upserted(node, existing)
+            self._bump("nodes", index)
+
+    def delete_node(self, index: int, node_id: str) -> None:
+        """(state_store.go:446).  A delete shifts every later row: the
+        mirror is dropped and rebuilt by the owner at its next
+        snapshot() or columns()."""
+        with self._lock:
+            if node_id not in self.nodes_table:
+                raise KeyError(f"node not found: {node_id}")
+            del self.nodes_table[node_id]
+            self._columns = None
             self._bump("nodes", index)
 
     def update_node_status(self, index: int, node_id: str,
@@ -258,6 +407,8 @@ class StateStore:
             node.status = status
             node.modify_index = index
             self.nodes_table[node_id] = node
+            if self._columns is not None:
+                self._columns.set_eligible(node_id, node.ready())
             self._bump("nodes", index)
 
     def update_node_drain(self, index: int, node_id: str,
@@ -271,6 +422,8 @@ class StateStore:
             node.drain = drain
             node.modify_index = index
             self.nodes_table[node_id] = node
+            if self._columns is not None:
+                self._columns.set_eligible(node_id, node.ready())
             self._bump("nodes", index)
 
     def node_by_id(self, ws, node_id: str) -> Optional[s.Node]:

@@ -553,3 +553,59 @@ def test_server_path_on_the_card_equals_the_cpu():
     assert got["launches"]["drill"]["eviction_sets"] == 1
     main = got["launches"]["main"]
     assert main["scored_rows"] == main["committing_spec_steps"] > 0
+
+
+@pytest.mark.gpu
+def test_columnar_server_batch_on_the_card_equals_the_cpu():
+    """One register wave through the port's ``Server`` with its store's
+    columnar mirror and every guard at every read
+    (``columnar_guard_every=1``), on the card and on the CPU: the same
+    committed allocs and eval statuses, every plan re-checked on the
+    applier's columnar route and double-checked by its guard, no guard
+    mismatch."""
+    need_card()
+    import chip_smoke
+    from nomad_tpu_torch import mock
+    from nomad_tpu_torch.ops.breaker import KernelCircuitBreaker
+    from nomad_tpu_torch.server import Server, ServerConfig
+    from nomad_tpu_torch.state import columnar
+
+    nodes = []
+    for i in range(300):
+        n = chip_smoke.strip_node(mock.node())
+        n.id = f"node-{i:05d}"
+        nodes.append(n)
+    jobs = []
+    for k in range(8):
+        j = chip_smoke.strip_job(mock.job(), 50)
+        j.id = j.name = f"job-{k:03d}"
+        jobs.append(j)
+
+    def run(dev):
+        columnar.reset_counters()
+        # Made before the ids are seeded: a store lineage of its own, so
+        # the CPU's run never reads the card's caches.
+        srv = Server(ServerConfig(
+            device=dev, rng_seed=5, min_heartbeat_ttl=3600.0,
+            breaker=KernelCircuitBreaker(), columnar_guard_every=1))
+        with chip_smoke.seeded_ids(5):
+            try:
+                srv.start()
+                for n in nodes:
+                    srv.node_register(n)
+                chip_smoke.server_wave(srv, "wave", lambda s: [
+                    s.job_register(j) for j in jobs])
+                return (chip_smoke.server_content(srv),
+                        dict(srv.plan_applier.stats),
+                        chip_smoke.columnar_counters())
+            finally:
+                srv.shutdown()
+
+    card, cpu = run("cuda"), run("cpu")
+    assert card[0] == cpu[0]
+    assert len([a for a in card[0]["allocs"] if a[3] == "run"]) == 400
+    for content, app, counts in (card, cpu):
+        assert app["columnar"] == app["columnar_guards"] == app["plans"] > 0
+        assert counts["GUARD_RUNS"] > 0 and counts["USAGE_GUARD_RUNS"] > 0
+        assert counts["GUARD_MISMATCHES"] == 0
+        assert counts["USAGE_GUARD_MISMATCHES"] == 0

@@ -6,8 +6,10 @@ The same plans go through ``nomad_tpu.server.plan_apply.PlanApplier``
 built in both packages.  ``evaluate_plan``'s result and, after
 ``apply_plan``, every alloc, job summary, job status, eval and table
 index of the two stores, and their usage-delta feeds, must be equal.
-The reference's columnar fit route is switched off: the port copies the
-walk (the columnar route waits for the port's columnar mirror).
+Both packages' columnar fit routes are off here (the reference's
+``NOMAD_TPU_COLUMNAR=0``, the port's ``StateStore(columnar=False)``), so
+the walk and the vectorized re-check are held;
+``tests/test_torch_columnar.py`` holds the columnar route.
 
 Also here: ``batch_allocs_fit`` (exactly) and ``aggregate_binpack_score``
 (to 1e-5 relative) against the JAX functions, ``submit_plan`` and the
@@ -68,9 +70,10 @@ class World:
     """One cluster and one job in both packages' stores; every write goes
     to both at the same index."""
 
-    def __init__(self, n_nodes, seed=1, networks=False):
+    def __init__(self, n_nodes, seed=1, networks=False, columnar=False,
+                 **applier_kw):
         self.rng = random.Random(seed)
-        self.js, self.ps = JStore(), StateStore()
+        self.js, self.ps = JStore(), StateStore(columnar=columnar)
         self.index = 0
         self.nodes = []
         for i in range(n_nodes):
@@ -100,7 +103,7 @@ class World:
         self.japp = JApplier(PlanQueue(), IndexRaft(self.js,
                                                     self._commit_index))
         self.papp = PlanApplier(self.ps, device="cpu",
-                                next_index=self._commit_index)
+                                next_index=self._commit_index, **applier_kw)
 
     def next(self):
         self.index += 1

@@ -22,6 +22,7 @@ with a breaker of its own).  Also here: failure forensics, the breaker's
 trip and probe recovery, the static-buffer cache, and a plan conflict.
 """
 import dataclasses
+import os
 import random
 
 import jax  # noqa: F401  (the reference computes on the CPU backend)
@@ -39,6 +40,7 @@ from nomad_tpu_torch.ops.batch_sched import TorchBatchScheduler
 from nomad_tpu_torch.ops.breaker import KernelCircuitBreaker
 from nomad_tpu_torch.scheduler.scheduler import new_scheduler
 from nomad_tpu_torch.scheduler.testing import Harness, RejectPlan
+from nomad_tpu_torch.state import StateStore
 from nomad_tpu_torch.structs import structs as ps
 
 SCORE_ATOL = 1e-5
@@ -93,13 +95,17 @@ def make_job(rng, count, cpu=None):
 
 
 class Twin:
-    """One cluster in both packages' harnesses."""
+    """One cluster in both packages' harnesses.  The port's store keeps a
+    columnar mirror when the reference's ``NOMAD_TPU_COLUMNAR`` (read
+    here) leaves the reference's on."""
 
     def __init__(self, monkeypatch, seed):
         self.mp = monkeypatch
         self.seed = seed
         self.rng = random.Random(seed)
-        self.jh, self.ph = JHarness(), Harness()
+        columnar = os.environ.get("NOMAD_TPU_COLUMNAR", "1") != "0"
+        self.jh = JHarness()
+        self.ph = Harness(StateStore(columnar=columnar))
         self.jids, self.pids = Ids(seed), Ids(seed)
         self.jobs = {}
 
@@ -127,7 +133,9 @@ class Twin:
             priority=job.priority, type=job.type, triggered_by=trigger,
             job_id=job.id, status=js.EVAL_STATUS_PENDING)
 
-    def run(self, evals, seed=None):
+    def run(self, evals, seed=None, **port_kw):
+        """One batch through both schedulers; ``port_kw`` go to the
+        port's."""
         seed = self.seed if seed is None else seed
         self.mp.setenv("NOMAD_TPU_RNG_SEED", str(seed))
         with self.mp.context() as m:
@@ -141,7 +149,7 @@ class Twin:
             m.setattr(ps, "generate_uuids", self.pids.many)
             pst = TorchBatchScheduler(
                 self.ph.logger, self.ph.snapshot(), self.ph, device="cpu",
-                rng_seed=seed, breaker=KernelCircuitBreaker()
+                rng_seed=seed, breaker=KernelCircuitBreaker(), **port_kw
             ).schedule_batch([conv(e, convert.eval_from_dict)
                               for e in evals])
         assert jst.oracle_routed == 0

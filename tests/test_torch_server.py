@@ -6,8 +6,9 @@ num_schedulers=1, batch_size=8))`` and the reference's
 batch_size=8))`` under ``NOMAD_TPU_RNG_SEED=S`` take the same calls on
 one cluster (the reference's mock objects, converted for the port): a
 register stream in two waves, capacity exhaustion then the node that
-unblocks it, two nodes going down, a job deregistered, a system job on
-every node, and, on a second pair of servers with preemption on, a
+unblocks it, two nodes going down, a job deregistered, a node
+deregistered, a system job on every node, and, on a second pair of
+servers with preemption on, a
 preempting drill whose victims' follow-up eval reaches ``BlockedEvals``
 through ``block_preempted`` and is placed when capacity is added.
 
@@ -21,6 +22,13 @@ sets agree.  After each phase the two worlds are compared by content,
 not ids: every alloc's (job, name, node, desired status, client status),
 every eval's (job, trigger, status), the blocked-eval stats and the
 queued counts of the job summaries.
+
+Both run their state store's columnar mirror with every guard at every
+read (the reference's ``NOMAD_TPU_COLUMNAR=1`` and
+``NOMAD_TPU_COLUMNAR_GUARD_EVERY=1``; the port's ``ServerConfig(
+columnar=True, columnar_guard_every=1)``): each static encode and usage
+read is checked against the walk, and each plan the port's applier
+re-checks on its columnar route is checked against the walk's verdicts.
 
 Heartbeats: both servers grant a node TTL of an hour, longer than any
 run here, so no node expires mid-run and the only node-down is the
@@ -43,11 +51,13 @@ import nomad_tpu.server.eval_broker as jeval_broker
 from nomad_tpu import mock as jmock
 from nomad_tpu.server import Server as JServer
 from nomad_tpu.server import ServerConfig as JServerConfig
+from nomad_tpu.state import columnar as jcolumnar
 from nomad_tpu.structs import structs as js
 from nomad_tpu_torch import convert, device
 from nomad_tpu_torch.ops.breaker import KernelCircuitBreaker
 from nomad_tpu_torch.server import Server, ServerConfig
 from nomad_tpu_torch.server import eval_broker as peval_broker
+from nomad_tpu_torch.state import columnar as pcolumnar
 from nomad_tpu_torch.structs import structs as ps
 from nomad_tpu_torch.utils.backoff import wait_until
 
@@ -125,9 +135,12 @@ class World:
         structs = js if self.ref else ps
         mp.setattr(structs, "generate_uuid", ids.one)
         mp.setattr(structs, "generate_uuids", ids.many)
+        self.columnar = jcolumnar if self.ref else pcolumnar
+        self.columnar.reset_counters()
         if self.ref:
             mp.setenv("NOMAD_TPU_RNG_SEED", str(SEED))
-            mp.setenv("NOMAD_TPU_COLUMNAR", "0")
+            mp.setenv("NOMAD_TPU_COLUMNAR", "1")
+            mp.setenv("NOMAD_TPU_COLUMNAR_GUARD_EVERY", "1")
             mp.setenv("NOMAD_TPU_PREEMPTION", "1" if preemption else "0")
             self.breaker = jbreaker.KernelCircuitBreaker()
             # The reference's scheduler reads the process-wide breaker
@@ -143,7 +156,8 @@ class World:
             self.srv = Server(ServerConfig(
                 device="cpu", rng_seed=SEED, num_schedulers=1,
                 batch_size=batch_size, min_heartbeat_ttl=HEARTBEAT_TTL,
-                preemption_enabled=preemption, breaker=self.breaker))
+                preemption_enabled=preemption, breaker=self.breaker,
+                columnar=True, columnar_guard_every=1))
 
     def _obj(self, obj, fn):
         return obj if self.ref else conv(obj, fn)
@@ -191,6 +205,22 @@ class World:
     def counter(self, key):
         return self.srv.metrics.sink.latest()["CounterTotals"].get(
             f"nomad.{key}", 0)
+
+    def columnar_stats(self):
+        """The columnar mirror's counters of this world's package, and
+        (port) the applier's columnar route and guard runs."""
+        c = self.columnar
+        out = {"encodes": c.COLUMNAR_ENCODES, "guard_runs": c.GUARD_RUNS,
+               "guard_mismatches": c.GUARD_MISMATCHES,
+               "usage_reads": c.USAGE_READS,
+               "usage_guard_runs": c.USAGE_GUARD_RUNS,
+               "usage_guard_mismatches": c.USAGE_GUARD_MISMATCHES}
+        if not self.ref:
+            stats = self.srv.plan_applier.stats
+            out["applier"] = {k: stats[k]
+                              for k in ("plans", "columnar",
+                                        "columnar_guards")}
+        return out
 
 
 def park_signal(worker):
@@ -313,9 +343,18 @@ def run_main(world, scenario, sys_job):
     with world.paused() as srv:
         srv.job_deregister("svc-c", purge=False)
     out["deregister"] = content(world.srv)
+    # A node that carries live allocs leaves: the mirror is dropped and
+    # rebuilt, and its allocs are placed again elsewhere.
+    gone = sorted({a.node_id for a in world.srv.state.allocs(None)
+                   if a.job_id == "svc-d" and not a.terminal_status()})[0]
+    with world.paused() as srv:
+        srv.node_deregister(gone)
+    out["node_deregister"] = content(world.srv)
+    out["gone"] = gone
     world.wave([sys_job])
     out["system"] = content(world.srv)
     out["health"] = health(world)
+    out["columnar"] = world.columnar_stats()
     return out
 
 
@@ -333,7 +372,7 @@ def main_runs():
 
 
 PHASES = ["wave1", "wave2", "blocked", "unblocked", "node_down",
-          "deregister", "system"]
+          "deregister", "node_deregister", "system"]
 
 
 @pytest.mark.parametrize("phase", PHASES)
@@ -389,10 +428,41 @@ def test_job_deregister_stops_its_allocs(main_runs):
                 if a[4] != ps.ALLOC_CLIENT_STATUS_LOST]) == 12
 
 
+def test_node_deregister_replaces_its_allocs(main_runs):
+    port = main_runs["port"]
+    gone = port["gone"]
+    assert gone == main_runs["ref"]["gone"]
+    before = [a for a in port["deregister"]["allocs"]
+              if a[2] == gone and a[3] == "run"]
+    after = port["node_deregister"]["allocs"]
+    assert before
+    for job_id, name, *_ in before:
+        repl = [a for a in after if a[0] == job_id and a[1] == name
+                and a[3] == "run" and a[2] != gone]
+        assert len(repl) == 1, (job_id, name)
+    assert any(e[1] == ps.EVAL_TRIGGER_NODE_UPDATE
+               for e in port["node_deregister"]["evals"])
+
+
+@pytest.mark.parametrize("kind", ["ref", "port"])
+def test_columnar_guards_ran_without_mismatch(main_runs, kind):
+    """Both servers ran their columnar mirror with every guard at every
+    read: the static encode, the usage read and, on the port, the
+    applier's fit route, each plan double-checked against the walk."""
+    c = main_runs[kind]["columnar"]
+    assert c["encodes"] > 0 and c["guard_runs"] == c["encodes"]
+    assert c["guard_mismatches"] == c["usage_guard_mismatches"] == 0
+    assert c["usage_guard_runs"] == c["usage_reads"] > 0
+    if kind == "port":
+        app = c["applier"]
+        assert app["columnar"] == app["columnar_guards"] == app["plans"] > 0
+
+
 def test_system_job_on_every_ready_node(main_runs):
     port = main_runs["port"]
     nodes, *_, extra = cluster()
-    ready = {n.id for n in nodes + extra} - set(port["down_hosts"])
+    ready = ({n.id for n in nodes + extra} - set(port["down_hosts"])
+             - {port["gone"]})
     placed = [a for a in port["system"]["allocs"] if a[0] == "system"]
     assert sorted(a[2] for a in placed) == sorted(ready)
 
