@@ -101,7 +101,10 @@ Phases, each printed as one JSON line:
                check on the card and the CPU (plans and offers equal);
 16. preempt -- device preemption: the eviction-set kernel against its
                plain version on the card (edge rows; config_preempt's
-               shape and others, A = 2 to 64: 0 differing bits) and
+               shape and others, A = 2 to 64, and the kernel's tile
+               edges: A = 3, 32, 128 and 1,024, U = 1 and 129, N one
+               off a tile multiple: 0 differing bits), its ptxas report
+               (registers and spills of every instantiation), and
                against the scalar oracle (2,048 nodes x 64 specs: 0
                mismatches); config_preempt (bench.py:716-818: 10,000
                nodes, 70,000 fillers at priorities 10 and 30, 50 jobs x
@@ -116,7 +119,8 @@ Phases, each printed as one JSON line:
                single card, card = CPU but where two nodes' effective
                scores, each within 4e-6 of the CPU's, are ordered the
                other way (printed); the kernel's times at U = 50 x
-               10,112 x A = 8 and U = 128 x 10,112 x A = 16;
+               10,112 x A = 8 and U = 128 x 10,112 x A = 16 over copies
+               of its inputs that overflow the L2;
 17. server  -- the server path: jobs into the port's in-process
                ``Server`` (``node_register``, ``job_register``), evals
                through its broker and ``BatchWorker`` into
@@ -146,10 +150,12 @@ Phases, each printed as one JSON line:
                vectorized and scalar walks);
 18. times   -- each kernel's device time (profiler trace; CUDA events
                where the trace has none) over copies of its inputs that
-               overflow the L2, its plain version's and the bound for the
-               same work on this card; scored_rows also without base (the
-               mesh's call at config_mesh); the launch floor (a one-element
-               fill); the kernels' SASS instruction counts and the
+               overflow the L2 (``rotating``: twice the L2 of input bytes
+               a cycle), its plain version's, the bound for the same work
+               on this card and the share of it reached (none where the
+               time reads above the bound); scored_rows also without base
+               (the mesh's call at config_mesh); the launch floor (a
+               one-element fill); the kernels' SASS instruction counts and the
                issue-rate time they give;
 19. profile -- config (b)'s first batch again, warm, on the single card
                and on a 4-shard mesh: untraced, and under a device-only
@@ -165,11 +171,11 @@ result, if CUDA is absent, the package is missing or any phase fails.
 Imports nothing of JAX.
 
 ``--against TREE`` runs only the device and build phases and then
-``against``: every timed row of ``times`` with the kernels of the
-checkout at TREE (built with this tree's flags; their C interface must be
-this tree's) and with this tree's, on the same inputs, in turns (that
-tree, this, this, that, twice).  It prints the rows and the card's name
-and power limit, not the result line.
+``against``: every timed row of ``times`` and ``preempt`` with the
+kernels of the checkout at TREE (built with this tree's flags; their C
+interface must be this tree's) and with this tree's, on the same inputs,
+in turns (that tree, this, this, that, twice).  It prints the rows and
+the card's name and power limit, not the result line.
 """
 from __future__ import annotations
 
@@ -2211,7 +2217,7 @@ def evict_case(dev, u, n, a):
     args = [torch.from_numpy(x).to(dev)
             for x in random_inputs(n, u, a, seed=PREEMPT_SEED)]
     nbytes = evict_bytes(u, n, a)
-    nxt = rotating(args, nbytes)
+    nxt = rotating(args)
     return (lambda: preempt.eviction_sets(*nxt()),
             lambda: preempt.eviction_sets_reference(*nxt()),
             nbytes, evict_ops(u, n, a))
@@ -2220,10 +2226,16 @@ def evict_case(dev, u, n, a):
 # (u, n, a) of the eviction-set parity cases: the timed shapes, the mixed
 # fleet's A = 2-64 over 2,048 nodes, a misaligned edge, and phase server's
 # drill (one preempting spec over its fleet padded to 128 nodes, one
-# filler a node, padded to A = 2).
+# filler a node, padded to A = 2); then the kernel's tile edges: A = 3 and
+# 128 (the generic instantiation; 128 with dynamic shared memory) and 32,
+# U = 1 and 129 (no multiple of a spec chunk), N one below and one above
+# a multiple of the 32-node tile, and 1,024 candidates (a tile of 8
+# nodes).
 EVICT_PARITY_SHAPES = PREEMPT_TIMES + (
     (64, 2048, 2), (64, 2048, 8), (64, 2048, 16), (64, 2048, 64),
-    (7, 701, 8), (1, 128, 2))
+    (7, 701, 8), (1, 128, 2),
+    (9, 700, 3), (9, 700, 32), (9, 300, 128), (1, 10112, 8),
+    (129, 2048, 16), (50, 2047, 8), (50, 2049, 8), (3, 50, 1024))
 
 
 def evict_parity(dev):
@@ -2266,6 +2278,35 @@ def evict_parity_rows(dev, cases):
                                  f"version: {row}")
         rows.append(row)
     return rows, max_err
+
+
+def ptxas_report(log: str):
+    """The ptxas report of a build log, one entry an instantiation: its
+    name (``kernel<A>``; ``<0>`` the generic one), registers, stack and
+    spills."""
+    import re
+
+    rows, cur = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+            t = re.search(r"([a-z][a-z_]*_kernel)(?:ILi(\d+)E)?", name)
+            cur = {"function": (f"{t.group(1)}<{t.group(2)}>" if t and
+                                t.group(2) else t.group(1) if t else name)}
+            rows.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            cur.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                       spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+    return rows
 
 
 def filler_fleet(n_nodes):
@@ -2549,6 +2590,13 @@ def phase_preempt(dev, n_nodes=10_000, n_hi=50, count=1000,
 
     # (a) The kernel against its plain version, and against the oracle.
     parity_rows, max_err = (evict_parity(dev) if on_card else ([], 0.0))
+    if on_card:
+        from nomad_tpu_torch import device as devmod
+
+        log = devmod.BUILD_LOGS.get("eviction_sets")
+        emit({"phase": "preempt", "kernel": "eviction_sets",
+              "ptxas": ptxas_report(log) if log is not None else
+              "not in this process's build (the library was built before)"})
     t0 = time.perf_counter()
     agree_nodes, agree_specs = (2048, 64) if on_card else (64, 8)
     checked, mismatches, first = preempt.agreement_check(
@@ -3214,14 +3262,39 @@ def masked_ops(u: int, n: int) -> int:
     return u * n * 38
 
 
-def rotating(args, n_bytes):
-    """A function giving the next of enough copies of ``args`` that a
-    pass over them moves at least twice the L2: each timed launch then
-    reads its inputs from HBM, not from the L2 the launch before filled."""
-    reps = max(1, min(1024, math.ceil(2 * L2_BYTES / n_bytes)))
+def rotating(args):
+    """A function giving the next of enough copies of ``args`` that a pass
+    over them reads at least twice the L2's size: each timed launch then
+    reads its inputs from HBM, not from the L2 the launches before filled.
+    Sized by the bytes of the tensors it copies, not by what a launch
+    writes: outputs are allocated anew by each call and may stay in the
+    L2."""
+    in_bytes = sum(a.numel() * a.element_size() for a in args)
+    reps = max(1, min(1024, math.ceil(2 * L2_BYTES / max(1, in_bytes))))
     sets = [args] + [[a.clone() for a in args] for _ in range(reps - 1)]
     it = itertools.cycle(sets)
     return lambda: next(it)
+
+
+def bound_of(n_bytes, n_ops):
+    """(bound ms, what bounds it): the larger of the bytes over the HBM
+    rate and the operations over the float32 rate."""
+    b_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    b_ops = n_ops / FP32_FLOPS * 1e3
+    return max(b_bytes, b_ops), ("bytes" if b_bytes >= b_ops
+                                 else "operations")
+
+
+def bound_share(bound_ms, ms):
+    """The share of the bound a time reaches, or None with the reason when
+    it reads above 1 (outputs that stay dirty in the L2 across launches
+    are not written to HBM within the launch)."""
+    share = bound_ms / ms if ms else None
+    if share is None or share > 1.0:
+        return {"bound_share": None,
+                "bound_note": f"reads {share} of the HBM bound: above it, "
+                              "so not a share (outputs stay in the L2)"}
+    return {"bound_share": share}
 
 
 def timed_row(call, plain, kernel_name, n_bytes, n_ops, n=100):
@@ -3229,17 +3302,16 @@ def timed_row(call, plain, kernel_name, n_bytes, n_ops, n=100):
     launches, one call's median through the wrapper, back-to-back calls,
     its plain version's median, and the bound for the same work."""
     dev_ms = kernel_device_ms(call, kernel_name, n)
-    b_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    b_ops = n_ops / FP32_FLOPS * 1e3
-    return {"ms": dev_ms if dev_ms is not None else back_to_back_ms(call),
+    ms = dev_ms if dev_ms is not None else back_to_back_ms(call)
+    bound_ms, bound_by = bound_of(n_bytes, n_ops)
+    return {"ms": ms,
             "ms_source": ("profiler device time, median" if dev_ms is not None
                           else "CUDA events, back-to-back launches"),
             "call_ms_median": time_ms(call),
             "back_to_back_ms": back_to_back_ms(call),
             "plain_ms": time_ms(plain, n=20),
-            "bound_ms": max(b_bytes, b_ops),
-            "bound_by": "bytes" if b_bytes >= b_ops else "operations",
-            "bytes": n_bytes}
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            **bound_share(bound_ms, ms), "bytes": n_bytes}
 
 
 # The timed rows: ("masked", u, n, distinct_asks) of masked_score_matrix;
@@ -3265,14 +3337,14 @@ def timed_case(dev, shape):
     if shape[0] == "masked":
         _, u, n, distinct = shape
         nbytes = masked_bytes(u, n)
-        nxt = rotating(score_inputs(u, n, SEED, dev, distinct)[:5], nbytes)
+        nxt = rotating(score_inputs(u, n, SEED, dev, distinct)[:5])
         return (lambda: fused_score.masked_score_matrix(*nxt()),
                 lambda: fused_score.masked_score_matrix_reference(*nxt()),
                 "masked_score_kernel", nbytes, masked_ops(u, n))
     _, u, n, n_off, with_base = shape
     seed = kernels.jitter_seed(SEED)
     nbytes = score_bytes(u, n, with_base)
-    nxt = rotating(score_inputs(u, n, SEED, dev), nbytes)
+    nxt = rotating(score_inputs(u, n, SEED, dev))
     return (lambda: fused_score.scored_rows(*nxt(), seed, n_offset=n_off,
                                             with_base=with_base),
             lambda: fused_score.scored_rows_reference(*nxt(), seed,
@@ -3447,19 +3519,30 @@ def build_against(root):
     return fns
 
 
+def against_cases(dev):
+    """(shape, kernel call, kernel name, bytes, operations) of every timed
+    row: those of ``times`` and phase ``preempt``'s, one at a time."""
+    for shape in MASKED_TIMES + SCORED_TIMES:
+        call, _, name, nbytes, nops = timed_case(dev, shape)
+        yield list(shape), call, name, nbytes, nops
+    for u, n, a in PREEMPT_TIMES:
+        call, _, nbytes, nops = evict_case(dev, u, n, a)
+        yield (["evict", u, n, a], call, "eviction_sets_kernel", nbytes,
+               nops)
+
+
 def phase_against(dev, root):
-    """Every timed row of ``times`` with the kernels of the tree at
-    ``root`` and with this tree's, through this tree's wrappers on the
-    same rotating inputs, in turns: that tree, this, this, that, twice.
-    Each entry is the profiler's median over 100 launches."""
+    """Every timed row of ``times`` and ``preempt`` with the kernels of the
+    tree at ``root`` and with this tree's, through this tree's wrappers on
+    the same rotating inputs, in turns: that tree, this, this, that,
+    twice.  Each entry is the profiler's median over 100 launches."""
     from nomad_tpu_torch.ops import fused_score
 
     mine = {name: fused_score._fn(name) for name in fused_score._C_API}
     theirs = build_against(root)
     rows = []
     try:
-        for shape in MASKED_TIMES + SCORED_TIMES:
-            call, _, name, nbytes, _ = timed_case(dev, shape)
+        for shape, call, name, nbytes, nops in against_cases(dev):
             times = {"against": [], "this": []}
             for who in ("against", "this", "this", "against") * 2:
                 fused_score._FNS.update(theirs if who == "against" else mine)
@@ -3468,12 +3551,16 @@ def phase_against(dev, root):
                                   else back_to_back_ms(call))
             a, t = times["against"], times["this"]
             spread = max(max(a) - min(a), max(t) - min(t))
-            row = {"kernel": name, "shape": list(shape), "bytes": nbytes,
+            bound_ms, bound_by = bound_of(nbytes, nops)
+            row = {"kernel": name, "shape": shape, "bytes": nbytes,
+                   "bound_ms": bound_ms, "bound_by": bound_by,
                    "against_ms": a, "this_ms": t,
                    "speedup_of_medians": statistics.median(a)
                    / statistics.median(t),
                    "largest_repeat_spread_ms": spread,
-                   "slower_beyond_spread": min(t) - max(a) > spread}
+                   "slower_beyond_spread": min(t) - max(a) > spread,
+                   "faster_beyond_spread": min(a) - max(t) > spread,
+                   **bound_share(bound_ms, statistics.median(t))}
             emit({"phase": "against", **row})
             rows.append(row)
     finally:

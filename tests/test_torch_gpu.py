@@ -436,9 +436,18 @@ def test_eviction_sets_kernel_matches_plain_on_edge_rows():
     assert feasible.any() and not feasible[:, :3].any()
 
 
+# The kernel's tile edges: the templated widths (A = 1-64, 32-node tiles)
+# and the generic one (A = 3, 128 with dynamic shared memory, 1,024 with
+# an 8-node tile, 12,000 read in place), U = 1 and 129 (no multiple of a
+# spec chunk), N one below and above a tile multiple, misaligned rows.
 @pytest.mark.gpu
 @pytest.mark.parametrize("n,u,a", [(10112, 50, 8), (701, 7, 2),
-                                   (1000, 129, 16), (300, 3, 64)])
+                                   (1000, 129, 16), (300, 3, 64),
+                                   (701, 7, 8), (700, 9, 3), (700, 9, 32),
+                                   (300, 9, 128), (50, 3, 1024),
+                                   (3, 2, 12000), (10112, 1, 8),
+                                   (2048, 129, 16), (2047, 50, 8),
+                                   (2049, 50, 8), (33, 300, 1)])
 def test_eviction_sets_kernel_matches_plain(n, u, a):
     need_card()
     check_eviction_sets(random_inputs(n, u, a, seed=n + u + a))

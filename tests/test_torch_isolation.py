@@ -43,7 +43,8 @@ def named_modules(source, filename="<string>"):
 
 
 PORT_FILES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                          ROOT / "eviction_inputs.py"]
+                                          ROOT / "eviction_inputs.py",
+                                          ROOT / "evict_ablation.py"]
 
 
 @pytest.mark.parametrize("path", PORT_FILES,

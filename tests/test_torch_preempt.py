@@ -24,8 +24,9 @@ import numpy as np
 import pytest
 import torch
 
-from eviction_inputs import edge_inputs
+from eviction_inputs import edge_inputs, random_inputs
 from nomad_tpu import mock as jmock
+from nomad_tpu.ops import breaker as jbreaker
 from nomad_tpu.ops import preempt as jpreempt
 from nomad_tpu.ops.batch_sched import TPUBatchScheduler
 from nomad_tpu.ops.breaker import KernelCircuitBreaker as JBreaker
@@ -125,6 +126,22 @@ def test_eviction_sets_match_reference_on_edge_rows():
     assert feasible[0, 7] and n_evict[0, 7] < 3    # the reverse trim
     assert not feasible[:, 9].any()       # padding
     np.testing.assert_array_equal(mask.sum(axis=-1), n_evict)
+
+
+@pytest.mark.parametrize("a", [2, 3, 16, 64, 128])
+def test_eviction_sets_match_reference_at_wide_alloc_axes(a, monkeypatch):
+    """The plain version against the reference's jitted program past the
+    main path's A = 8 (3 and 128 are no power of two), on
+    ``random_inputs``' near-full nodes: the semantics the card's kernel
+    is held to at every width it is built for.  The reference gets its
+    own breaker."""
+    own = JBreaker()
+    monkeypatch.setattr(jbreaker, "BREAKER", own)
+    got, want = both_eviction_sets(random_inputs(96, 9, a, seed=a))
+    assert got[1].any(), "the inputs have preempting pairs"
+    assert (got[2] > 1).any(), "some trims keep more than one candidate"
+    assert_same_sets(got, want)
+    assert own.state == "closed"
 
 
 def test_kernel_invariant_no_high_priority_eviction():
