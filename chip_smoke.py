@@ -145,10 +145,41 @@ Phases, each printed as one JSON line:
                the drill; each wave's wall time, evals per second and the
                server's telemetry (batch, scheduler, plan queue wait,
                plan evaluate and apply); the servers keep their store's
-               columnar mirror (guards every 16): no guard mismatch, and
-               the applier's plans by route (columnar, and the guard's
-               vectorized and scalar walks);
-18. times   -- each kernel's device time (profiler trace; CUDA events
+               columnar mirror, both main servers with every guard at
+               every read (``columnar_guard_every=1``: the static, usage
+               and plan-fit guards all run), the drills every 16: no
+               guard mismatch, and the applier's plans by route
+               (columnar, and the guard's vectorized and scalar walks);
+18. plan    -- the ``job plan`` dry run at config (b) width: batch 0
+               (100 jobs x 1000 asks on 10,000 nodes) through
+               ``TorchBatchScheduler`` into a ``Harness``; then 20 of
+               those jobs edited (7 with their count raised by 100, 7
+               with a task env edit, destructive, 6 with a job-level
+               constraint edited, in place) and 5 new jobs, all 25 as
+               ``annotate_plan`` evals in one batch over a snapshot
+               holding their new versions, on the card and on the CPU:
+               the same plans, plan annotations, eval updates and
+               failure forensics, no oracle route, one ``scored_rows``
+               launch per committing step, the store's allocs untouched;
+               each job's ``job_diff`` annotated with its plan's updates
+               ("forces create" on Count, "forces create/destroy update"
+               on the env edit); then ``Server.job_plan`` of a job's
+               edited version on a port ``Server`` (1,000 nodes) on the
+               card and on the CPU: the same response, the store
+               untouched;
+19. fingerprint -- ``GPUFingerprint`` (``fingerprint.gpu.enable``) on
+               the card: ``gpu.count``, ``gpu.type`` and ``driver.gpu``
+               from ``torch.cuda``, listed by ``fingerprint_node``; the
+               three attributes copied onto 2,500 of 10,000 nodes and 10
+               jobs x 1000 asks constrained on ``${attr.gpu.type}`` and
+               ``${attr.driver.gpu}`` placed through
+               ``TorchBatchScheduler`` inside a ``DeviceTracer`` session
+               on the card, then on the CPU: every placement on a
+               fingerprinted node, no node over capacity, card = CPU
+               plans, as many ``scored_rows`` kernel events in the
+               session's chrome trace as launches counted, and a second
+               ``start()`` during the session refused;
+20. times   -- each kernel's device time (profiler trace; CUDA events
                where the trace has none) over copies of its inputs that
                overflow the L2 (``rotating``: twice the L2 of input bytes
                a cycle), its plain version's, the bound for the same work
@@ -157,7 +188,7 @@ Phases, each printed as one JSON line:
                (the mesh's call at config_mesh); the launch floor (a
                one-element fill); the kernels' SASS instruction counts and the
                issue-rate time they give;
-19. profile -- config (b)'s first batch again, warm, on the single card
+21. profile -- config (b)'s first batch again, warm, on the single card
                and on a 4-shard mesh: untraced, and under a device-only
                trace for the device busy time and idle share.
 
@@ -1425,6 +1456,25 @@ class seeded_ids:
         structs.generate_uuid, structs.generate_uuids = self.saved
 
 
+@contextlib.contextmanager
+def seeded_world(seed, nodes, jobs=(), store=None):
+    """A fresh Harness over ``store`` (default: a new one, made before the
+    ids are seeded, so its lineage is its own) holding ``nodes``, then
+    ``jobs``; yields ``(h, ids)`` with the ids seeded from ``seed`` while
+    the block runs."""
+    from nomad_tpu_torch.scheduler.testing import Harness
+    from nomad_tpu_torch.state import StateStore
+
+    store = StateStore() if store is None else store
+    with seeded_ids(seed) as ids:
+        h = Harness(store)
+        for n in nodes:
+            h.state.upsert_node(h.next_index(), n)
+        for j in jobs:
+            h.state.upsert_job(h.next_index(), j)
+        yield h, ids
+
+
 def reg_evals(jobs, ids, trigger="job-register"):
     from nomad_tpu_torch.structs import structs as ps
 
@@ -1485,17 +1535,11 @@ def eval_world(dev, nodes, batches, smi, counted):
     fresh Harness and ``TorchBatchScheduler`` on ``dev``; ids seeded."""
     from nomad_tpu_torch.ops.batch_sched import TorchBatchScheduler
     from nomad_tpu_torch.ops.breaker import KernelCircuitBreaker
-    from nomad_tpu_torch.scheduler.testing import Harness
-    from nomad_tpu_torch.state import StateStore
 
-    # A store of its own lineage (made before the ids are seeded), so the
-    # resident usage mirror of the card's world never keys as the CPU's.
-    store = StateStore()
-    out = {"stats": [], "plans": [], "store_uid": store.store_uid}
-    with seeded_ids(EVAL_SEED) as ids:
-        h = Harness(store)
-        for n in nodes:
-            h.state.upsert_node(h.next_index(), n)
+    # A store of its own lineage, so the resident usage mirror of the
+    # card's world never keys as the CPU's.
+    with seeded_world(EVAL_SEED, nodes) as (h, ids):
+        out = {"stats": [], "plans": [], "store_uid": h.state.store_uid}
         brk = KernelCircuitBreaker()
         for b, (name, jobs, make) in enumerate(batches):
             for j in jobs:
@@ -1785,7 +1829,6 @@ def applied_world(dev, nodes, batches, smi, label, *, resident=True,
     from nomad_tpu_torch.ops.batch_sched import TorchBatchScheduler
     from nomad_tpu_torch.ops.breaker import KernelCircuitBreaker
     from nomad_tpu_torch.scheduler import context as pcontext
-    from nomad_tpu_torch.scheduler.testing import Harness
     from nomad_tpu_torch.server import PlanApplier
     from nomad_tpu_torch.state import StateStore
 
@@ -1796,10 +1839,7 @@ def applied_world(dev, nodes, batches, smi, label, *, resident=True,
     out = {"label": label, "rows": [], "plans": [], "checkpoint": None,
            "store_uid": store.store_uid}
     kw = {"mesh": mesh} if mesh is not None else {"device": dev}
-    with seeded_ids(APPLIED_SEED) as ids:
-        h = Harness(store)
-        for n in nodes:
-            h.state.upsert_node(h.next_index(), n)
+    with seeded_world(APPLIED_SEED, nodes, store=store) as (h, ids):
         app = PlanApplier(h.state, device=dev, next_index=h.next_index)
         h.planner = app
         brk = KernelCircuitBreaker()
@@ -1954,16 +1994,10 @@ def network_world(dev, nodes, jobs, smi):
     from nomad_tpu_torch.ops import resident as resmod
     from nomad_tpu_torch.ops.batch_sched import TorchBatchScheduler
     from nomad_tpu_torch.ops.breaker import KernelCircuitBreaker
-    from nomad_tpu_torch.scheduler.testing import Harness
     from nomad_tpu_torch.server import PlanApplier
-    from nomad_tpu_torch.state import StateStore
 
     resmod.reset_counters()
-    store = StateStore()
-    with seeded_ids(APPLIED_SEED + 1) as ids:
-        h = Harness(store)
-        for n in nodes:
-            h.state.upsert_node(h.next_index(), n)
+    with seeded_world(APPLIED_SEED + 1, nodes) as (h, ids):
         app = PlanApplier(h.state, device=dev, next_index=h.next_index)
         h.planner = app
         for j in jobs:
@@ -2387,9 +2421,7 @@ def preempt_world(dev, fleet, label, mesh=None, counted=False):
     from nomad_tpu_torch.ops.batch_sched import TorchBatchScheduler
     from nomad_tpu_torch.ops.breaker import KernelCircuitBreaker
     from nomad_tpu_torch.scheduler import preempt as oracle
-    from nomad_tpu_torch.scheduler.testing import Harness
     from nomad_tpu_torch.server import PlanApplier
-    from nomad_tpu_torch.state import StateStore
     from nomad_tpu_torch.structs import structs as ps
 
     nodes, fillers, allocs, jobs = fleet
@@ -2408,13 +2440,9 @@ def preempt_world(dev, fleet, label, mesh=None, counted=False):
             return super()._preempt_commit(ctx, fetched, spec_list, ct,
                                            *rest)
 
-    store = StateStore()
     kw = {"mesh": mesh} if mesh is not None else {"device": dev}
     t0 = time.perf_counter()
-    with seeded_ids(PREEMPT_SEED) as ids:
-        h = Harness(store)
-        for n in nodes:
-            h.state.upsert_node(h.next_index(), n)
+    with seeded_world(PREEMPT_SEED, nodes) as (h, ids):
         seen = set()
         for fj in fillers:
             if fj.id not in seen:
@@ -2741,7 +2769,7 @@ SERVER_SEED = 20261020
 # 10 s of grace for the first nodes of the fleet); the only node-down is
 # the deliberate one.
 SERVER_HEARTBEAT_TTL = 3600.0
-SERVER_SETTLE_TIMEOUT = 600.0
+SERVER_SETTLE_TIMEOUT = 120.0
 SERVER_SAMPLES = ("worker.invoke_scheduler.batch", "worker.invoke_scheduler",
                   "worker.invoke_scheduler.device",
                   "worker.invoke_scheduler.encode",
@@ -2763,19 +2791,24 @@ def server_settled(srv) -> bool:
 
 
 def server_settle(srv) -> float:
-    """Settled twice in a row, 0.2 s apart (the second look catches a
-    reaper's apply); raises past ``SERVER_SETTLE_TIMEOUT``.  Returns the
-    host clock of the first look that found it settled."""
+    """Settled at two looks 0.2 s apart with no log entry applied between
+    them (a reaper's cancel or a watcher's unblock that lands in the gap
+    starts the wait over); raises past ``SERVER_SETTLE_TIMEOUT``.
+    Returns the host clock of the first of the two looks."""
     from nomad_tpu_torch.utils.backoff import wait_until
 
-    first = None
-    for _ in range(2):
-        if not wait_until(lambda: server_settled(srv),
-                          SERVER_SETTLE_TIMEOUT, max_interval=0.01):
-            raise AssertionError(f"server did not settle: {srv.stats()}")
-        first = first or time.perf_counter()
+    deadline = time.perf_counter() + SERVER_SETTLE_TIMEOUT
+    while True:
+        left = deadline - time.perf_counter()
+        if left <= 0 or not wait_until(lambda: server_settled(srv), left,
+                                       max_interval=0.01):
+            raise AssertionError(f"server did not settle in "
+                                 f"{SERVER_SETTLE_TIMEOUT} s: {srv.stats()}")
+        first = time.perf_counter()
+        index = srv.raft.applied_index()
         time.sleep(0.2)
-    return first
+        if server_settled(srv) and srv.raft.applied_index() == index:
+            return first
 
 
 def sample_totals(srv) -> dict:
@@ -2835,6 +2868,21 @@ def server_content(srv) -> dict:
             "evals": sorted((e.job_id, e.triggered_by, e.status)
                             for e in st.evals(None)),
             "blocked": dict(srv.blocked_evals.stats())}
+
+
+def content_diff(card, cpu, k: int = 8) -> dict:
+    """Where two ``server_content`` views differ: the first ``k`` allocs
+    and evals that only one side holds, and both blocked counts."""
+    out = {}
+    for key in ("allocs", "evals"):
+        if card[key] != cpu[key]:
+            a, b = set(card[key]), set(cpu[key])
+            out[key] = {"card_only": sorted(a - b)[:k],
+                        "cpu_only": sorted(b - a)[:k],
+                        "counts": [len(card[key]), len(cpu[key])]}
+    if card["blocked"] != cpu["blocked"]:
+        out["blocked"] = {"card": card["blocked"], "cpu": cpu["blocked"]}
+    return out
 
 
 def server_scenario(n_nodes, n_jobs, count, follow_jobs, follow_count,
@@ -2901,7 +2949,7 @@ def kernel_shapes(shapes):
         fused_score.scored_rows, preempt.eviction_sets = score, evict
 
 
-def server_world(dev, sc, smi, counted=False) -> dict:
+def server_world(dev, sc, smi, counted=False, guard_every=None) -> dict:
     """Part C of the server slice through the port's ``Server`` on
     ``dev`` (ids seeded, so worlds compare): the fleet registered by
     ``node_register``; config (d)'s system job on every node; config
@@ -2910,13 +2958,16 @@ def server_world(dev, sc, smi, counted=False) -> dict:
     replacements; a job deregistered; then, on a second server with
     preemption on, the drill.  With ``counted``, the kernels' launch
     counts are set to 0 just before each server is driven and read just
-    after, and the shapes the path gives the kernels are recorded."""
+    after, and the shapes the path gives the kernels are recorded.
+    ``guard_every`` is the main server's ``columnar_guard_every`` (None:
+    the default cadence)."""
     from nomad_tpu_torch.ops import fused_score, kernels, preempt
     from nomad_tpu_torch.ops.breaker import KernelCircuitBreaker
     from nomad_tpu_torch.server import Server, ServerConfig
     from nomad_tpu_torch.state import columnar as colmod
 
     out = {"device": str(dev), "card": smi, "waves": [],
+           "guard_every": guard_every,
            "kernel_shapes": {"scored_rows": set(), "eviction_sets": set()}}
 
     def run_server(label, seed, body, **cfg):
@@ -3005,7 +3056,9 @@ def server_world(dev, sc, smi, counted=False) -> dict:
                     if e.triggered_by == "preemption")
                 out["drill_blocked"] = dict(srv.blocked_evals.stats())
 
-    run_server("main", SERVER_SEED, main)
+    run_server("main", SERVER_SEED, main,
+               **({} if guard_every is None
+                  else {"columnar_guard_every": guard_every}))
     run_server("drill", SERVER_SEED + 1, drill, preemption_enabled=True)
     return out
 
@@ -3091,6 +3144,13 @@ def check_server_world(w, sc, on_card) -> dict:
                         or lc["scored_rows"] != lc["batch_commit_steps"]
                         or lc["scored_rows"] != lc["committing_spec_steps"]):
             errors.append(f"{label}: launches {lc}")
+    # At every read, the static, usage and plan-fit guards all ran.
+    c, app = main["columnar"], main["applier"]
+    if w["guard_every"] == 1 and not (c["GUARD_RUNS"] > 0
+                                      and c["USAGE_GUARD_RUNS"] > 0
+                                      and app["columnar_guards"] > 0):
+        errors.append(f"main: guards at every read did not all run: {c}, "
+                      f"the applier's routes {app}")
     if on_card and any(w[k]["launches"]["masked_score_matrix"]
                        for k in ("main", "drill")):
         errors.append("masked_score_matrix launched on one card: main "
@@ -3139,21 +3199,29 @@ def phase_server(dev, n_nodes=10_000, n_jobs=100, count=1000,
     sc = server_scenario(n_nodes, n_jobs, count, follow_jobs, follow_count,
                          extra_nodes, n_down, drill_nodes)
     on_card = torch_device(dev).type == "cuda"
-    card = server_world(dev, sc, smi, counted=True)
+    # Both main servers run every columnar guard at every read (the static
+    # encode, the usage read, the applier's plan fit).  The cadence must
+    # match: a guard's object walk materializes the store's per-node alloc
+    # sets, whose iteration order then orders a node update's evals, and
+    # so a batch's specs and their tie-breaks.
+    card = server_world(dev, sc, smi, counted=True, guard_every=1)
     got = check_server_world(card, sc, on_card=on_card)
     shape_parity = server_shape_parity(dev, card["kernel_shapes"],
                                        on_card)
-    cpu = server_world("cpu", sc, smi)
+    cpu = server_world("cpu", sc, smi, guard_every=1)
     check_server_world(cpu, sc, on_card=False)
     keys = [k for k in card if k.startswith("after_")]
     for key in keys:
         if card[key] != cpu[key]:
             raise AssertionError(f"{key}: the card's allocs or eval "
-                                 "statuses differ from the CPU's")
+                                 "statuses differ from the CPU's: "
+                                 f"{content_diff(card[key], cpu[key])}")
     for label in ("main", "drill"):
         if card[label]["content"] != cpu[label]["content"]:
-            raise AssertionError(f"{label}: the card's allocs or eval "
-                                 "statuses differ from the CPU's")
+            raise AssertionError(
+                f"{label}: the card's allocs or eval statuses differ from "
+                "the CPU's: "
+                f"{content_diff(card[label]['content'], cpu[label]['content'])}")
     for w in (card, cpu):
         for row in w["waves"]:
             emit({"phase": "server", "world": w["device"], **row})
@@ -3170,7 +3238,388 @@ def phase_server(dev, n_nodes=10_000, n_jobs=100, count=1000,
             "columnar": {w["device"]: {k: w[k]["columnar"]
                                        for k in ("main", "drill")}
                          for w in (card, cpu)},
+            "main_guard_every": {w["device"]: w["guard_every"]
+                                 for w in (card, cpu)},
             "breaker": card["main"]["breaker"], "card": smi}
+
+
+# -- phase 18: plan ----------------------------------------------------------
+
+PLAN_SEED = 20261021
+# Edited versions of batch 0's first jobs, by kind; then new jobs.
+PLAN_EDITS = (("count", 7), ("env", 7), ("constraint", 6))
+
+
+def plan_jobs(jobs0, n_new, new_count):
+    """The dry run's jobs, made once for every world: new versions of
+    batch 0's first jobs -- their count raised by 100, a task env edit
+    (destructive), a job-level constraint edited (in place) -- and
+    ``n_new`` jobs not registered yet.  Returns ``[(kind, job)]``."""
+    from nomad_tpu_torch import mock
+    from nomad_tpu_torch.structs import structs as ps
+
+    out = []
+    old = iter(jobs0)
+    for kind, n in PLAN_EDITS:
+        for _ in range(n):
+            j = next(old).copy()
+            if kind == "count":
+                j.task_groups[0].count += 100
+            elif kind == "env":
+                t = j.task_groups[0].tasks[0]
+                t.env = dict(t.env, PLAN_EDIT="1")
+            else:
+                j.constraints = [ps.Constraint("${attr.arch}", "x86", "=")]
+            out.append((kind, j))
+    out += [("new", strip_job(mock.job(), new_count, cpu=100, mem=128))
+            for _ in range(n_new)]
+    return out
+
+
+def store_allocs(store):
+    return sorted((a.id, a.node_id, a.desired_status, a.client_status,
+                   a.modify_index) for a in store.allocs(None))
+
+
+def plan_world(dev, nodes, jobs0, edits, smi, counted):
+    """Config (b)'s batch 0 into a fresh Harness on ``dev``, then every
+    edited and new job as an ``annotate_plan`` eval, in one batch, over a
+    snapshot holding their new versions, into a Harness over that
+    snapshot (the dry run of ``Server.job_plan``); ids seeded."""
+    from nomad_tpu_torch.ops.batch_sched import TorchBatchScheduler
+    from nomad_tpu_torch.ops.breaker import KernelCircuitBreaker
+    from nomad_tpu_torch.scheduler.testing import Harness
+
+    with seeded_world(PLAN_SEED, nodes, jobs0) as (h, ids):
+        brk = KernelCircuitBreaker()
+        TorchBatchScheduler(h.logger, h.snapshot(), h, device=dev,
+                            rng_seed=SEED, breaker=brk).schedule_batch(
+            reg_evals(jobs0, ids))
+        before = store_allocs(h.state)
+        snap = h.state.snapshot()
+        for _, j in edits:
+            snap.upsert_job(h.next_index(), j)
+        dry = Harness(snap)
+        dry._next_index = h.next_index()
+        evals = reg_evals([j for _, j in edits], ids)
+        for ev in evals:
+            ev.annotate_plan = True
+
+        def run():
+            return TorchBatchScheduler(
+                h.logger, snap.snapshot(), dry, device=dev,
+                rng_seed=SEED + 1, breaker=brk).schedule_batch(evals)
+
+        st, counts = run_counted(run) if counted else (run(), {})
+        return {"h": h, "dry": dry, "stats": st, "counts": counts,
+                "evals": evals, "allocs_before": before,
+                "allocs_after": store_allocs(h.state)}
+
+
+def batch_split(st) -> dict:
+    """A batch's seconds by part (``BatchStats``)."""
+    return {k: getattr(st, k) for k in (
+        "phase1_seconds", "phase2_seconds", "encode_seconds",
+        "device_seconds", "metrics_seconds", "finalize_seconds",
+        "total_seconds")}
+
+
+def plan_annotations(p):
+    import dataclasses
+
+    return None if p.annotations is None else dataclasses.asdict(
+        p.annotations)
+
+
+def plan_server(dev, nodes, job, edit, smi):
+    """``Server.job_plan`` of ``edit`` on a port ``Server`` on ``dev``
+    holding ``nodes`` and the registered ``job``: the response as plain
+    data (no ids), and the store before and after the dry run."""
+    import dataclasses
+
+    from nomad_tpu_torch.ops.breaker import KernelCircuitBreaker
+    from nomad_tpu_torch.server import Server, ServerConfig
+
+    srv = Server(ServerConfig(device=dev, rng_seed=SERVER_SEED,
+                              min_heartbeat_ttl=SERVER_HEARTBEAT_TTL,
+                              breaker=KernelCircuitBreaker()))
+    try:
+        with seeded_ids(PLAN_SEED + 1):
+            srv.start()
+            for n in nodes:
+                srv.node_register(n)
+            srv.job_register(job)
+            server_settle(srv)
+
+            def view():
+                stored = srv.state.job_by_id(None, job.id)
+                return (server_content(srv), srv.raft.applied_index(),
+                        stored.version, stored.task_groups[0].count)
+
+            before = view()
+            resp = srv.job_plan(edit)
+            after = view()
+    finally:
+        srv.shutdown()
+    return {"diff": dataclasses.asdict(resp.diff),
+            "annotations": plan_annotations(resp),
+            "failed_tg_allocs": {k: metric_row(m) for k, m in
+                                 resp.failed_tg_allocs.items()},
+            "job_modify_index": resp.job_modify_index,
+            "created_evals": [(e.job_id, e.triggered_by, e.status)
+                              for e in resp.created_evals],
+            "next_periodic_launch": resp.next_periodic_launch,
+            "untouched": before == after, "card": smi}
+
+
+def phase_plan(dev, n_nodes=10_000, n_jobs=100, count=1000, n_new=5,
+               server_nodes=1_000):
+    """The ``job plan`` dry run at config (b) width: annotate-plan evals
+    through ``TorchBatchScheduler`` on the card and on the CPU, the
+    diffs and annotations of every edited job, and ``Server.job_plan``
+    on the card against the CPU."""
+    from nomad_tpu_torch import mock
+    from nomad_tpu_torch.scheduler.annotate import (
+        ANNOTATION_FORCES_CREATE, ANNOTATION_FORCES_DESTRUCTIVE_UPDATE,
+        annotate)
+    from nomad_tpu_torch.structs.diff import job_diff
+
+    smi = smi_name_power()
+    on_card = torch_device(dev).type == "cuda"
+    nodes = [strip_node(mock.node()) for _ in range(n_nodes)]
+    jobs0 = [strip_job(mock.job(), count) for _ in range(n_jobs)]
+    edits = plan_jobs(jobs0, n_new, count)
+    card = plan_world(dev, nodes, jobs0, edits, smi, counted=True)
+    cpu = plan_world("cpu", nodes, jobs0, edits, smi, counted=False)
+    for w in (card, cpu):
+        if w["allocs_after"] != w["allocs_before"]:
+            raise AssertionError("the dry run changed the store's allocs")
+        st = w["stats"]
+        if st.oracle_routed or not st.device_ran:
+            raise AssertionError(f"oracle_routed {st.oracle_routed}, "
+                                 f"device_ran {st.device_ran}")
+    dry, cdry = card["dry"], cpu["dry"]
+    differ = [name for name, view in (
+        ("plans", lambda d: [plan_rows(p) for p in d.plans]),
+        ("annotations", lambda d: [plan_annotations(p) for p in d.plans]),
+        ("eval updates", eval_rows),
+        ("created evals", lambda d: [e.job_id for e in d.create_evals]))
+        if view(dry) != view(cdry)]
+    if differ:
+        raise AssertionError(f"the card's dry-run {differ} differ from the "
+                             "CPU's")
+    counts = card["counts"]
+    if on_card and (counts["scored_rows_launches"] <= 0
+                    or counts["scored_rows_launches"]
+                    != counts["committing_spec_steps"]):
+        raise AssertionError(f"launches {counts}")
+    # Each job's diff against the stored version, annotated with its
+    # plan's desired updates.
+    plan_of = {p.eval_id: p for p in dry.plans}
+    h = card["h"]
+    kinds = {}
+    for (kind, job), ev in zip(edits, card["evals"]):
+        plan = plan_of.get(ev.id)
+        if plan is None or plan.annotations is None:
+            raise AssertionError(f"{kind} {job.id}: no annotated plan")
+        diff = job_diff(h.state.job_by_id(None, job.id), job)
+        annotate(diff, plan.annotations)
+        tg = diff.task_groups[0] if diff.task_groups else None
+        task = tg.tasks[0] if tg is not None and tg.tasks else None
+        count_field = next((f for f in tg.fields if f.name == "Count"),
+                           None) if tg is not None else None
+        ok = {
+            "count": count_field is not None
+            and count_field.annotations == [ANNOTATION_FORCES_CREATE],
+            "env": task is not None
+            and task.annotations == [ANNOTATION_FORCES_DESTRUCTIVE_UPDATE],
+            "constraint": not diff.task_groups and any(
+                o.name == "Constraint" for o in diff.objects),
+            "new": diff.type == "Added" and task is not None
+            and task.annotations == [ANNOTATION_FORCES_CREATE],
+        }[kind]
+        if not ok:
+            raise AssertionError(f"{kind} {job.id}: diff {diff}")
+        up = plan.annotations.desired_tg_updates["web"]
+        row = kinds.setdefault(kind, {"jobs": 0, "place": 0, "stop": 0,
+                                      "in_place_update": 0,
+                                      "destructive_update": 0,
+                                      "ignore": 0})
+        row["jobs"] += 1
+        for k in row:
+            if k != "jobs":
+                row[k] += getattr(up, k)
+    failed = {e.job_id: {k: metric_row(m) for k, m in
+                         e.failed_tg_allocs.items()}
+              for e in dry.evals if e.failed_tg_allocs}
+
+    # Server.job_plan: the same response from a server on the card and
+    # one on the CPU, the store untouched.
+    job = strip_job(mock.job(), count)
+    job.id = job.name = "plan-job"
+    edit = job.copy()
+    edit.task_groups[0].count += 100
+    t = edit.task_groups[0].tasks[0]
+    t.env = dict(t.env, PLAN_EDIT="1")
+    srv_card = plan_server(dev, nodes[:server_nodes], job, edit, smi)
+    srv_cpu = plan_server("cpu", nodes[:server_nodes], job, edit, smi)
+    if srv_card != srv_cpu or not srv_card["untouched"]:
+        raise AssertionError(f"job_plan: card {srv_card}, cpu {srv_cpu}")
+    st = card["stats"]
+    return {"card_equals_cpu": True, "evals": len(edits),
+            "plans": len(dry.plans), "by_kind": kinds,
+            "failed_groups": len(failed), "created_evals": len(
+                dry.create_evals),
+            "store_untouched": True, "oracle_routed": st.oracle_routed,
+            "rounds": st.rounds, "split": batch_split(st),
+            "cpu_split": batch_split(cpu["stats"]),
+            "scored_rows_launches": counts.get("scored_rows_launches", 0),
+            "committing_spec_steps": counts.get("committing_spec_steps", 0),
+            "job_plan": {k: srv_card[k] for k in (
+                "annotations", "failed_tg_allocs", "job_modify_index",
+                "created_evals")},
+            "card": smi}
+
+
+# -- phase 19: fingerprint ---------------------------------------------------
+
+FINGERPRINT_SEED = 20261022
+# The fingerprints that open a socket (a route probe, the cloud metadata
+# address): left out of the builtin list while this phase runs
+# ``fingerprint_node``, since the smoke contacts no host off the machine.
+SOCKET_FINGERPRINTS = ("network", "env_aws", "env_gce")
+
+
+def trace_kernel_events(trace_dir, name):
+    """The kernel events of a ``DeviceTracer`` session whose name holds
+    ``name``."""
+    from nomad_tpu_torch.utils.profiling import DeviceTracer
+
+    with open(os.path.join(trace_dir, DeviceTracer.TRACE_FILE)) as f:
+        events = json.load(f)["traceEvents"]
+    return [e for e in events
+            if e.get("cat") == "kernel" and name in e.get("name", "")]
+
+
+def fingerprint_world(dev, nodes, jobs, trace_dir=None):
+    """The constrained jobs through ``TorchBatchScheduler`` into a fresh
+    Harness on ``dev`` (ids seeded); with ``trace_dir``, inside a
+    ``DeviceTracer`` session there, the launch counts set to 0 just
+    before the batch and read just after."""
+    from nomad_tpu_torch.ops.batch_sched import TorchBatchScheduler
+    from nomad_tpu_torch.ops.breaker import KernelCircuitBreaker
+    from nomad_tpu_torch.utils.profiling import DeviceTracer
+
+    out = {}
+    with seeded_world(FINGERPRINT_SEED, nodes, jobs) as (h, ids):
+        evals = reg_evals(jobs, ids)
+
+        def run():
+            return TorchBatchScheduler(
+                h.logger, h.snapshot(), h, device=dev, rng_seed=SEED,
+                breaker=KernelCircuitBreaker()).schedule_batch(evals)
+
+        if trace_dir is None:
+            out["stats"] = run()
+        else:
+            tracer = DeviceTracer(base_dir=trace_dir, device=dev)
+            tracer.start()
+            try:
+                try:
+                    tracer.start()
+                    out["second_start_refused"] = False
+                except RuntimeError:
+                    out["second_start_refused"] = True
+                out["stats"], out["counts"] = run_counted(run)
+            finally:
+                out["session"] = tracer.stop()
+    out["h"] = h
+    return out
+
+
+def phase_fingerprint(dev, n_nodes=10_000, gpu_every=4, n_jobs=10,
+                      count=1000):
+    """The GPU fingerprint on the card, then jobs constrained on its
+    attributes placed on the nodes that carry them, inside a
+    ``DeviceTracer`` session."""
+    import tempfile
+    from unittest.mock import patch as mock_patch
+
+    import torch
+
+    from nomad_tpu_torch import mock
+    from nomad_tpu_torch.client import ClientConfig, fingerprint as fp
+    from nomad_tpu_torch.structs import structs as ps
+
+    smi = smi_name_power()
+    on_card = torch_device(dev).type == "cuda"
+    cfg = ClientConfig(options={"fingerprint.gpu.enable": "true"})
+    node = ps.Node()
+    if not fp.GPUFingerprint().fingerprint(cfg, node):
+        raise AssertionError("the GPU fingerprint did not apply")
+    want = {"gpu.count": str(torch.cuda.device_count()),
+            "gpu.type": torch.cuda.get_device_name(0), "driver.gpu": "1"}
+    if node.attributes != want:
+        raise AssertionError(f"GPU fingerprint {node.attributes}, "
+                             f"want {want}")
+    local = [f for f in fp.BUILTIN_FINGERPRINTS
+             if f.name not in SOCKET_FINGERPRINTS]
+    with mock_patch.object(fp, "BUILTIN_FINGERPRINTS", local):
+        applied = fp.fingerprint_node(cfg, ps.Node(resources=None))
+    if "gpu" not in applied:
+        raise AssertionError(f"fingerprint_node applied {applied}")
+
+    nodes = [strip_node(mock.node()) for _ in range(n_nodes)]
+    for n in nodes[::gpu_every]:
+        n.attributes.update(want)
+        n.compute_class()
+    gpu_nodes = {n.id for n in nodes[::gpu_every]}
+    jobs = []
+    for _ in range(n_jobs):
+        j = strip_job(mock.job(), count)
+        j.constraints += [
+            ps.Constraint("${attr.gpu.type}", want["gpu.type"], "="),
+            ps.Constraint("${attr.driver.gpu}", "1", "=")]
+        jobs.append(j)
+    with tempfile.TemporaryDirectory() as tmp:
+        card = fingerprint_world(dev, nodes, jobs, trace_dir=tmp)
+        events = trace_kernel_events(card["session"]["dir"], "scored_rows")
+    cpu = fingerprint_world("cpu", nodes, jobs)
+    h = card["h"]
+    placed = [a for a in h.state.allocs(None) if not a.terminal_status()]
+    off = [a.id for a in placed if a.node_id not in gpu_nodes]
+    counts = card["counts"]
+    launches = counts["scored_rows_launches"]
+    errors = []
+    if len(placed) != n_jobs * count or off:
+        errors.append(f"{len(placed)} placed, {len(off)} off the "
+                      "fingerprinted nodes")
+    over = store_over_capacity(h)
+    if over:
+        errors.append(f"{over} nodes over capacity")
+    if ([plan_rows(p) for p in h.plans]
+            != [plan_rows(p) for p in cpu["h"].plans]):
+        errors.append("the card's plans differ from the CPU's")
+    if not card["second_start_refused"]:
+        errors.append("a second start() during the session was taken")
+    if card["stats"].oracle_routed:
+        errors.append(f"oracle_routed {card['stats'].oracle_routed}")
+    if on_card and (launches <= 0 or len(events) != launches
+                    or launches != counts["committing_spec_steps"]):
+        errors.append(f"{len(events)} scored_rows events in the trace, "
+                      f"counts {counts}")
+    if errors:
+        raise AssertionError(f"fingerprint: {errors}")
+    return {"attributes": want, "fingerprint_node": applied,
+            "gpu_nodes": len(gpu_nodes), "placed": len(placed),
+            "off_fingerprinted_nodes": 0, "nodes_over_capacity": 0,
+            "card_equals_cpu": True, "second_start_refused": True,
+            "session_s": card["session"]["duration_s"],
+            "trace_scored_rows_events": len(events),
+            "scored_rows_launches": launches,
+            "committing_spec_steps": counts["committing_spec_steps"],
+            "split": batch_split(card["stats"]),
+            "cpu_split": batch_split(cpu["stats"]), "card": smi}
 
 
 def torch_device(dev):
@@ -3182,7 +3631,7 @@ def torch_device(dev):
     return d
 
 
-# -- phase 18: times ---------------------------------------------------------
+# -- phase 20: times ---------------------------------------------------------
 
 def score_bytes(u: int, n: int, with_base: bool = True) -> int:
     """Bytes the function must move: feas (1) + collisions (4) in and
@@ -3647,8 +4096,12 @@ def run_phase(name, fn, *args):
     try:
         result = fn(*args)
     except Exception as exc:  # noqa: BLE001 — report the phase and stop
+        tb = traceback.format_exc()[-4000:]
         emit({"phase": name, "ok": False, "error": repr(exc),
-              "traceback": traceback.format_exc()[-4000:]})
+              "traceback": tb})
+        # Also on stderr, whose tail is what a caller keeps of a failed run.
+        print(f"chip_smoke: phase {name} failed: {exc!r}\n{tb}",
+              file=sys.stderr, flush=True)
         sys.exit(1)
     emit({"phase": name, "ok": True, "seconds": time.perf_counter() - t0})
     return result
@@ -3727,6 +4180,10 @@ def main() -> int:
                                  if k != "kernel_row"}})
     srv = run_phase("server", phase_server, dev)
     emit({"phase": "server", **srv})
+    plan = run_phase("plan", phase_plan, dev)
+    emit({"phase": "plan", **plan})
+    fpr = run_phase("fingerprint", phase_fingerprint, dev)
+    emit({"phase": "fingerprint", **fpr})
     table = run_phase("times", phase_times, dev, launches, max_err,
                       masked_launches, max(masked_err, cand_err))
     # scored_rows' launches on the eval-driven path (phase evals, each
@@ -3739,6 +4196,10 @@ def main() -> int:
     # mirror: its three waves, each driven with the counts set to 0 just
     # before it).
     table[0]["columnar_path_launches"] = col["scored_rows_launches"]
+    # ... on the dry-run path (phase plan: the annotate-plan batch) and on
+    # the fingerprint path (phase fingerprint: the constrained batch).
+    table[0]["plan_path_launches"] = plan["scored_rows_launches"]
+    table[0]["fingerprint_path_launches"] = fpr["scored_rows_launches"]
     # eviction_sets: launches on config_preempt's eval path (phase
     # preempt, its count set to 0 just before the card's batch).
     table.append(pre["kernel_row"])

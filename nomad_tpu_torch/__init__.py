@@ -7,3 +7,5 @@ the same layout (``structs/``, ``scheduler/``, ``ops/``).
 
 Entry point: :func:`nomad_tpu_torch.ops.batch_sched.schedule_batch`.
 """
+
+__version__ = "0.1.0"

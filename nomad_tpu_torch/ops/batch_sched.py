@@ -36,9 +36,10 @@ or the mesh's ``sharded_fused_pass``, the one result fetch):
   commits at most one preempting placement per node, each replayed
   against the scalar oracle (the agreement feeds the breaker); the
   placements and their victims go into the plan's
-  ``node_preemptions``.  Not ported yet, and refused with
-  ``NotImplementedError``: ``annotate_plan`` evals (the ``job plan`` dry
-  run).
+  ``node_preemptions``.  An ``annotate_plan`` eval (the ``job plan``
+  dry run) skips the register fast path, so the oracle's diff sets the
+  plan's annotations, its placements still go through the device pass,
+  and its plan is submitted even when it changes nothing.
 - :func:`schedule_batch` takes plain lists of nodes and jobs and treats
   every job as a registration.  It has no state store and no planner, so
   a spec the reference sends to its oracle raises ``NotImplementedError``
@@ -883,10 +884,11 @@ class _CollectingScheduler(GenericScheduler):
         """Register fast path (batch_sched.py:244): a job with no existing
         allocations places every instance (the diff is the identity,
         util.go:70), so the name dict, the tuples, the taint scan and the
-        in-place machinery are skipped.  Anything with history takes the
-        oracle's path."""
+        in-place machinery are skipped.  Anything with history, and an
+        ``annotate_plan`` eval (its annotations come from the diff), takes
+        the oracle's path."""
         job = self.job
-        if (job is None or job.stopped()
+        if (job is None or job.stopped() or self.eval.annotate_plan
                 or self.state.allocs_by_job(None, self.eval.job_id, True)):
             super()._compute_job_allocs()
             return
@@ -1148,12 +1150,6 @@ class TorchBatchScheduler:
     # -- phase 1 and 2: reconcile, dedup, gate ------------------------------
 
     def _prepare_batch(self, evals: List[s.Evaluation]) -> _PreparedBatch:
-        for ev in evals:
-            if ev.annotate_plan:
-                raise NotImplementedError(
-                    f"eval {ev.id}: annotate_plan (the job plan dry run) "
-                    "needs structs/diff.py and scheduler/annotate.py, "
-                    "which are not ported")
         prep = _PreparedBatch(evals)
         stats = prep.stats
 
@@ -2055,7 +2051,7 @@ class TorchBatchScheduler:
             sched.next_eval = ev.next_rolling_eval(sched.job.update.stagger)
             self.planner.create_eval(sched.next_eval)
 
-        if sched.plan.is_no_op():
+        if sched.plan.is_no_op() and not ev.annotate_plan:
             set_status(self.logger, self.planner, ev, sched.next_eval,
                        sched.blocked, sched.failed_tg_allocs,
                        s.EVAL_STATUS_COMPLETE, "", sched.queued_allocs)

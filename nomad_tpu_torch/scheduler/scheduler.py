@@ -5,7 +5,8 @@ and Planner interfaces that keep a scheduler free of plumbing (it sees a
 state snapshot and a planner to submit plans through).
 
 The port keeps its own registry: ``service`` and ``batch`` are the CPU
-oracle (``scheduler/generic.py``), ``torch-batch`` the batch scheduler
+oracle (``scheduler/generic.py``), ``system`` its system scheduler
+(``scheduler/system.py``), ``torch-batch`` the batch scheduler
 of ``ops/batch_sched.py`` (the reference's ``tpu-batch``) and
 ``torch-system`` the vectorized system scheduler of
 ``ops/system_batch.py`` (the reference's ``tpu-system``).
@@ -63,7 +64,7 @@ def register_scheduler(name: str, factory: SchedulerFactory) -> None:
 
 def _load_builtins() -> None:
     """Import the modules that register the built-in schedulers."""
-    from . import generic  # noqa: F401
+    from . import generic, system  # noqa: F401
     from ..ops import batch_sched, system_batch  # noqa: F401
 
 

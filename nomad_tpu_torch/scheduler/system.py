@@ -1,7 +1,8 @@
 """SystemScheduler: one alloc per feasible node (a copy of
 ``nomad_tpu/scheduler/system.py``; reference scheduler/system_sched.go).
-The server routes system evals to its vectorized subclass,
-``ops/system_batch.py`` (``torch-system``)."""
+Registered as ``system`` (what ``Server.job_plan`` runs for a system
+job); the server's workers route system evals to its vectorized
+subclass, ``ops/system_batch.py`` (``torch-system``)."""
 from __future__ import annotations
 
 import logging
@@ -11,6 +12,7 @@ from typing import Dict, List, Optional
 from ..structs import structs as s
 from ..structs.funcs import filter_terminal_allocs
 from .context import EvalContext
+from .scheduler import register_scheduler
 from .stack import SystemStack
 from .util import (
     ALLOC_LOST,
@@ -220,3 +222,6 @@ class SystemScheduler:
 
 def new_system_scheduler(logger, state, planner) -> SystemScheduler:
     return SystemScheduler(logger, state, planner)
+
+
+register_scheduler(s.JOB_TYPE_SYSTEM, new_system_scheduler)

@@ -21,10 +21,11 @@ worker thread.
 Entry points: :meth:`Server.node_register`,
 :meth:`Server.node_deregister`, :meth:`Server.node_update_status`,
 :meth:`Server.node_update_drain`, :meth:`Server.job_register`,
-:meth:`Server.job_deregister`, :meth:`Server.shutdown`.  The metrics
-emitter publishes the broker, blocked-eval, plan-queue, heartbeat and log
-gauges and the kernel breaker's ``breaker.state``/``breaker.trips`` each
-second.
+:meth:`Server.job_deregister`, :meth:`Server.job_plan` (the ``job
+plan`` dry run: the annotated diff, nothing committed),
+:meth:`Server.shutdown`.  The metrics emitter publishes the broker,
+blocked-eval, plan-queue, heartbeat and log gauges and the kernel
+breaker's ``breaker.state``/``breaker.trips`` each second.
 
 Left out, for later slices: RPC, endpoints, membership and forwarding;
 the durable log, snapshots and multi-voter raft; follower scheduling;
@@ -40,9 +41,13 @@ from typing import List, Optional, Tuple
 
 from .. import device as device_mod
 from ..ops import breaker as breaker_mod
+from ..scheduler.annotate import annotate
+from ..scheduler.scheduler import new_scheduler
+from ..scheduler.testing import Harness
 from ..state import columnar as columnar_mod
 from ..state.state_store import StateStore
 from ..structs import structs as s
+from ..structs.diff import job_diff
 from ..utils.telemetry import Telemetry
 from .blocked_evals import BlockedEvals
 from .eval_broker import EvalBroker
@@ -403,6 +408,45 @@ class Server:
             job_modify_index=index, status=s.EVAL_STATUS_PENDING)
         self.raft.apply(MessageType.EVAL_UPDATE, {"evals": [ev]})
         return index, ev.id
+
+    def job_plan(self, job: s.Job, diff: bool = True) -> s.JobPlanResponse:
+        """Dry-run scheduling (job_endpoint.go:~490 Plan): the job's
+        scheduler (the CPU oracle of ``job.type``, as in the reference, not
+        the batch worker) runs synchronously over a snapshot holding the
+        job, into a ``Harness``; returns the annotated job diff and the
+        placement forensics.  Nothing is committed to the store.  The port
+        has no periodic jobs, so ``next_periodic_launch`` stays 0."""
+        old_job = self.state.job_by_id(None, job.id)
+        job = job.copy()
+        job.canonicalize()
+        snap = self.state.snapshot()
+        index = self.raft.applied_index() + 1
+        snap.upsert_job(index, job)
+
+        harness = Harness(snap)
+        harness._next_index = index + 1
+        ev = s.Evaluation(
+            id=s.generate_uuid(), priority=job.priority, type=job.type,
+            triggered_by=s.EVAL_TRIGGER_JOB_REGISTER, job_id=job.id,
+            job_modify_index=index, status=s.EVAL_STATUS_PENDING,
+            annotate_plan=True)
+        sched = new_scheduler(job.type, self.logger, snap.snapshot(), harness)
+        sched.process(ev)
+        plan = harness.plans[0] if harness.plans else ev.make_plan(job)
+
+        # The scheduler records placement forensics on a copy of the eval
+        # handed to Planner.UpdateEval (scheduler/util.go setStatus): read
+        # the updated eval from the harness, as job_endpoint.go Plan does.
+        updated = next((e for e in reversed(harness.evals) if e.id == ev.id), ev)
+        resp = s.JobPlanResponse(
+            annotations=plan.annotations,
+            failed_tg_allocs=dict(updated.failed_tg_allocs),
+            job_modify_index=old_job.job_modify_index if old_job else 0,
+            created_evals=list(harness.create_evals))
+        if diff:
+            resp.diff = job_diff(old_job, job)
+            annotate(resp.diff, plan.annotations)
+        return resp
 
     # -- nodes -------------------------------------------------------------
 

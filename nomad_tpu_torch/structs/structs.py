@@ -7,8 +7,9 @@ int32 ``[N, 4]`` / ``[U, 4]`` tensors in ``ops/encode.py``.
 
 Left out of the copy: periodic and parameterized jobs, services, vault,
 templates and artifacts as types (a task keeps the last three as plain
-data, compared only by the in-place update test), deployments,
-namespaces, job diffs and the event stream.
+data, compared by the in-place update test and rendered by the job
+diff, ``structs/diff.py``, as the reference renders their types),
+deployments, namespaces and the event stream.
 """
 from __future__ import annotations
 
@@ -872,6 +873,74 @@ class PlanAnnotations:
 
     desired_tg_updates: Dict[str, DesiredUpdates] = field(
         default_factory=dict)
+
+
+# Job diff wire types (structs.go:1601-1662; the diff engine is
+# structs/diff.py).
+
+DIFF_TYPE_NONE = "None"
+DIFF_TYPE_ADDED = "Added"
+DIFF_TYPE_DELETED = "Deleted"
+DIFF_TYPE_EDITED = "Edited"
+
+
+@dataclass
+class FieldDiff:
+    type: str = DIFF_TYPE_NONE
+    name: str = ""
+    old: str = ""
+    new: str = ""
+    annotations: List[str] = field(default_factory=list)
+
+
+@dataclass
+class ObjectDiff:
+    type: str = DIFF_TYPE_NONE
+    name: str = ""
+    fields: List[FieldDiff] = field(default_factory=list)
+    objects: List["ObjectDiff"] = field(default_factory=list)
+
+
+@dataclass
+class TaskDiff:
+    type: str = DIFF_TYPE_NONE
+    name: str = ""
+    fields: List[FieldDiff] = field(default_factory=list)
+    objects: List[ObjectDiff] = field(default_factory=list)
+    annotations: List[str] = field(default_factory=list)
+
+
+@dataclass
+class TaskGroupDiff:
+    type: str = DIFF_TYPE_NONE
+    name: str = ""
+    fields: List[FieldDiff] = field(default_factory=list)
+    objects: List[ObjectDiff] = field(default_factory=list)
+    tasks: List[TaskDiff] = field(default_factory=list)
+    updates: Dict[str, int] = field(default_factory=dict)
+
+
+@dataclass
+class JobDiff:
+    type: str = DIFF_TYPE_NONE
+    id: str = ""
+    fields: List[FieldDiff] = field(default_factory=list)
+    objects: List[ObjectDiff] = field(default_factory=list)
+    task_groups: List[TaskGroupDiff] = field(default_factory=list)
+
+
+@dataclass
+class JobPlanResponse:
+    """The dry run's result (structs.go JobPlanResponse): the annotated
+    diff and the placement forensics; nothing is committed.  The port
+    has no periodic jobs, so ``next_periodic_launch`` stays 0."""
+
+    annotations: Optional[PlanAnnotations] = None
+    failed_tg_allocs: Dict[str, AllocMetric] = field(default_factory=dict)
+    job_modify_index: int = 0
+    created_evals: List[Evaluation] = field(default_factory=list)
+    diff: Optional[JobDiff] = None
+    next_periodic_launch: float = 0.0
 
 
 @dataclass

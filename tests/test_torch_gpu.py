@@ -618,3 +618,79 @@ def test_columnar_server_batch_on_the_card_equals_the_cpu():
         assert counts["GUARD_RUNS"] > 0 and counts["USAGE_GUARD_RUNS"] > 0
         assert counts["GUARD_MISMATCHES"] == 0
         assert counts["USAGE_GUARD_MISMATCHES"] == 0
+
+
+@pytest.mark.gpu
+def test_annotate_plan_batch_on_the_card_equals_the_cpu():
+    """``chip_smoke.py`` phase ``plan`` at a small size: annotate-plan
+    evals (count, env and constraint edits, new jobs) in one batch over a
+    snapshot, on the card and on the CPU: the same plans, annotations and
+    eval updates, one ``scored_rows`` launch per committing step, no
+    oracle route, the store untouched; ``Server.job_plan`` on the card
+    equals the CPU's."""
+    need_card()
+    import chip_smoke
+
+    got = chip_smoke.phase_plan("cuda", n_nodes=300, n_jobs=30, count=80,
+                                n_new=5, server_nodes=100)
+    assert got["card_equals_cpu"] and got["store_untouched"]
+    assert got["plans"] == got["evals"] == 25
+    assert got["oracle_routed"] == 0
+    assert got["scored_rows_launches"] == got["committing_spec_steps"] > 0
+    assert got["by_kind"]["new"]["place"] == 5 * 80
+
+
+@pytest.mark.gpu
+def test_gpu_fingerprint_and_tracer_on_the_card(tmp_path):
+    """``GPUFingerprint`` publishes the card as ``torch.cuda`` sees it;
+    a ``DeviceTracer`` session on the card (its default device) records
+    one ``scored_rows`` kernel event per launch."""
+    need_card()
+    import json
+    import os
+
+    from nomad_tpu_torch.client import ClientConfig
+    from nomad_tpu_torch.client.fingerprint import GPUFingerprint
+    from nomad_tpu_torch.structs import structs as ps
+    from nomad_tpu_torch.utils.profiling import DeviceTracer
+
+    node = ps.Node()
+    cfg = ClientConfig(options={"fingerprint.gpu.enable": "true"})
+    assert GPUFingerprint().fingerprint(cfg, node)
+    assert node.attributes == {
+        "gpu.count": str(torch.cuda.device_count()),
+        "gpu.type": torch.cuda.get_device_name(0), "driver.gpu": "1"}
+
+    tracer = DeviceTracer(base_dir=str(tmp_path))
+    assert tracer.device.type == "cuda"
+    args = inputs(9, 10112, 5, "cuda")
+    before = fused_score.LAUNCHES
+    tracer.start()
+    with pytest.raises(RuntimeError, match="already active"):
+        tracer.start()
+    for _ in range(3):
+        fused_score.scored_rows(*args, 12345)
+    info = tracer.stop()
+    assert fused_score.LAUNCHES == before + 3
+    with open(os.path.join(info["dir"], DeviceTracer.TRACE_FILE)) as f:
+        events = json.load(f)["traceEvents"]
+    kernels_seen = [e for e in events if e.get("cat") == "kernel"
+                    and "scored_rows" in e.get("name", "")]
+    assert len(kernels_seen) == 3
+
+
+@pytest.mark.gpu
+def test_fingerprint_path_on_the_card():
+    """``chip_smoke.py`` phase ``fingerprint`` at a small size: jobs
+    constrained on the fingerprinted ``${attr.gpu.type}`` placed only on
+    the nodes that carry it, card = CPU, as many kernel events in the
+    session's trace as launches counted."""
+    need_card()
+    import chip_smoke
+
+    got = chip_smoke.phase_fingerprint("cuda", n_nodes=400, n_jobs=4,
+                                       count=60)
+    assert got["placed"] == 240 and got["off_fingerprinted_nodes"] == 0
+    assert got["card_equals_cpu"] and got["second_start_refused"]
+    assert (got["trace_scored_rows_events"] == got["scored_rows_launches"]
+            == got["committing_spec_steps"] > 0)

@@ -547,11 +547,15 @@ def test_unported_options_raise():
     # (its behaviour is held in tests/test_torch_preempt.py).
     assert TorchBatchScheduler(h.logger, h.snapshot(), h, device="cpu",
                                preemption_enabled=True).preemption_enabled
+    # So are annotate_plan evals (the job plan dry run): the plan carries
+    # the annotations (held against the reference in
+    # tests/test_torch_plan.py).
     _, evals = port_register(h, rng, (1,))
     evals[0].annotate_plan = True
-    with pytest.raises(NotImplementedError, match="annotate_plan"):
-        TorchBatchScheduler(h.logger, h.snapshot(), h,
-                            device="cpu").process(evals[0])
+    TorchBatchScheduler(h.logger, h.snapshot(), h,
+                        device="cpu").process(evals[0])
+    assert h.plans[-1].eval_id == evals[0].id
+    assert h.plans[-1].annotations.desired_tg_updates["web"].place == 1
 
 
 def test_mesh_matches_single_device(monkeypatch):
