@@ -150,7 +150,34 @@ Phases, each printed as one JSON line:
                and plan-fit guards all run), the drills every 16: no
                guard mismatch, and the applier's plans by route
                (columnar, and the guard's vectorized and scalar walks);
-18. plan    -- the ``job plan`` dry run at config (b) width: batch 0
+18. trace   -- the observability plane on the server path: phase 17's
+               fleet (10,000 nodes through ``node_register``) and config
+               (b)'s waves (100 x 1000, then 10 x 200, each paused and
+               released) through a ``Server(ServerConfig(trace=True,
+               events=True))`` on the card with an event subscriber from
+               index 0 consumed live on its own thread, then phase 17's
+               preempting drill on a second armed server; the same wave on
+               the CPU.  Every acked eval's trace holds its whole
+               lifecycle (broker enqueue and dequeue, the worker's batch,
+               ``batch.schedule`` with every phase span under it, plan
+               submit, evaluate and apply, the log apply, the ack and a
+               closed ``eval.e2e``), starts in lifecycle order; each
+               device batch has one ``batch.fetch`` and a
+               ``batch.device`` of its ``BatchStats.device_seconds``
+               (within 1 us) and rounds; the stream's indices never
+               decrease, one ``PlanApplied`` per applied plan, their
+               placements sum to the committed allocs, one
+               ``NodeRegistered`` per node, the subscriber never shed;
+               one ``scored_rows`` launch per committing step, the
+               drill's one ``eviction_sets`` launch in the batch whose
+               ``batch.preempt`` span commits it; card = CPU on each
+               eval's span names and on the events by content; one traced
+               and one untraced batch of the same input in
+               ``DeviceTracer`` sessions with the same device-to-host
+               copies and synchronizations; then the wave disarmed and
+               armed in turns, three each, for evals per second (printed,
+               not gated);
+19. plan    -- the ``job plan`` dry run at config (b) width: batch 0
                (100 jobs x 1000 asks on 10,000 nodes) through
                ``TorchBatchScheduler`` into a ``Harness``; then 20 of
                those jobs edited (7 with their count raised by 100, 7
@@ -167,7 +194,7 @@ Phases, each printed as one JSON line:
                edited version on a port ``Server`` (1,000 nodes) on the
                card and on the CPU: the same response, the store
                untouched;
-19. fingerprint -- ``GPUFingerprint`` (``fingerprint.gpu.enable``) on
+20. fingerprint -- ``GPUFingerprint`` (``fingerprint.gpu.enable``) on
                the card: ``gpu.count``, ``gpu.type`` and ``driver.gpu``
                from ``torch.cuda``, listed by ``fingerprint_node``; the
                three attributes copied onto 2,500 of 10,000 nodes and 10
@@ -179,7 +206,7 @@ Phases, each printed as one JSON line:
                plans, as many ``scored_rows`` kernel events in the
                session's chrome trace as launches counted, and a second
                ``start()`` during the session refused;
-20. times   -- each kernel's device time (profiler trace; CUDA events
+21. times   -- each kernel's device time (profiler trace; CUDA events
                where the trace has none) over copies of its inputs that
                overflow the L2 (``rotating``: twice the L2 of input bytes
                a cycle), its plain version's, the bound for the same work
@@ -188,7 +215,7 @@ Phases, each printed as one JSON line:
                (the mesh's call at config_mesh); the launch floor (a
                one-element fill); the kernels' SASS instruction counts and the
                issue-rate time they give;
-21. profile -- config (b)'s first batch again, warm, on the single card
+22. profile -- config (b)'s first batch again, warm, on the single card
                and on a 4-shard mesh: untraced, and under a device-only
                trace for the device busy time and idle share.
 
@@ -210,6 +237,7 @@ the card's name and power limit, not the result line.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import itertools
 import json
@@ -219,6 +247,7 @@ import random
 import statistics
 import subprocess
 import sys
+import threading
 import time
 import traceback
 
@@ -2949,6 +2978,85 @@ def kernel_shapes(shapes):
         fused_score.scored_rows, preempt.eviction_sets = score, evict
 
 
+def server_run(out, dev, label, seed, body, counted=False, shapes=None,
+               **cfg) -> None:
+    """One port ``Server`` on ``dev`` (batches of 64, ids seeded from
+    ``seed``, a breaker of its own, ``cfg`` on top) started, driven by
+    ``body(srv)`` and shut down; ``out[label]`` gets its launches, the
+    applier's routes, the columnar counters, its health and what it
+    committed.  With ``counted``, the kernels' launch counts are set to 0
+    just before ``body`` and read just after, and with ``shapes`` (see
+    :func:`kernel_shapes`) the shapes the path gives the kernels are
+    recorded."""
+    from nomad_tpu_torch.ops import fused_score, kernels, preempt
+    from nomad_tpu_torch.ops.breaker import KernelCircuitBreaker
+    from nomad_tpu_torch.server import Server, ServerConfig
+    from nomad_tpu_torch.state import columnar as colmod
+
+    colmod.reset_counters()
+    brk = KernelCircuitBreaker()
+    # A store of its own lineage (made before the ids are seeded): the
+    # card's world never keys a cache or the resident mirror as the CPU's
+    # does.
+    srv = Server(ServerConfig(
+        device=dev, rng_seed=SERVER_SEED, batch_size=64,
+        min_heartbeat_ttl=SERVER_HEARTBEAT_TTL, breaker=brk, **cfg))
+    try:
+        with seeded_ids(seed):
+            srv.start()
+            if counted:
+                fused_score.LAUNCHES = kernels.COMMIT_STEPS = 0
+                fused_score.MASKED_LAUNCHES = preempt.LAUNCHES = 0
+            with (kernel_shapes(shapes) if shapes is not None
+                  else contextlib.nullcontext()):
+                body(srv)
+        launches = {"scored_rows": fused_score.LAUNCHES,
+                    "masked_score_matrix": fused_score.MASKED_LAUNCHES,
+                    "eviction_sets": preempt.LAUNCHES,
+                    "committing_spec_steps": kernels.COMMIT_STEPS,
+                    "batch_commit_steps": server_counter(
+                        srv, "batch.commit_steps")}
+        b = srv.eval_broker.stats()
+        app = srv.plan_applier.stats
+        out[label] = {
+            "launches": launches,
+            "applier": {k: app[k] for k in (
+                "plans", "columnar", "columnar_guards", "vectorized",
+                "scalar", "scalar_fallback")},
+            "columnar": columnar_counters(),
+            "breaker": {"state": brk.state, "trips": brk.trips,
+                        "oracle_routed": server_counter(
+                            srv, "breaker.oracle_routed")},
+            "nacks": b["total_nacks"], "failed": b["total_failed"],
+            "over_capacity": store_over_capacity(srv),
+            "content": server_content(srv)}
+    finally:
+        srv.shutdown()
+
+
+def drill_waves(sc, out):
+    """The preempting drill's body: the fleet registered, the filler,
+    the urgent job placed by eviction, the spare nodes that place the
+    victims' follow-up; each wave's row into ``out["waves"]``."""
+    def drill(srv):
+        fleet, filler, urgent, spare = sc["drill"]
+        for n in fleet:
+            srv.node_register(n)
+        for label, fn in (
+                ("drill_fill", lambda s: s.job_register(filler)),
+                ("drill_preempt", lambda s: s.job_register(urgent)),
+                ("drill_replace", lambda s: [s.node_register(n)
+                                             for n in spare])):
+            out["waves"].append(server_wave(srv, label, fn))
+            if label == "drill_preempt":
+                out["drill_follow_up"] = sorted(
+                    (e.job_id, e.triggered_by, e.status)
+                    for e in srv.state.evals(None)
+                    if e.triggered_by == "preemption")
+                out["drill_blocked"] = dict(srv.blocked_evals.stats())
+    return drill
+
+
 def server_world(dev, sc, smi, counted=False, guard_every=None) -> dict:
     """Part C of the server slice through the port's ``Server`` on
     ``dev`` (ids seeded, so worlds compare): the fleet registered by
@@ -2961,56 +3069,10 @@ def server_world(dev, sc, smi, counted=False, guard_every=None) -> dict:
     after, and the shapes the path gives the kernels are recorded.
     ``guard_every`` is the main server's ``columnar_guard_every`` (None:
     the default cadence)."""
-    from nomad_tpu_torch.ops import fused_score, kernels, preempt
-    from nomad_tpu_torch.ops.breaker import KernelCircuitBreaker
-    from nomad_tpu_torch.server import Server, ServerConfig
-    from nomad_tpu_torch.state import columnar as colmod
-
     out = {"device": str(dev), "card": smi, "waves": [],
            "guard_every": guard_every,
            "kernel_shapes": {"scored_rows": set(), "eviction_sets": set()}}
-
-    def run_server(label, seed, body, **cfg):
-        colmod.reset_counters()
-        brk = KernelCircuitBreaker()
-        # A store of its own lineage (made before the ids are seeded): the
-        # card's world never keys a cache or the resident mirror as the
-        # CPU's does.
-        srv = Server(ServerConfig(
-            device=dev, rng_seed=SERVER_SEED, batch_size=64,
-            min_heartbeat_ttl=SERVER_HEARTBEAT_TTL, breaker=brk, **cfg))
-        try:
-            with seeded_ids(seed):
-                srv.start()
-                if counted:
-                    fused_score.LAUNCHES = kernels.COMMIT_STEPS = 0
-                    fused_score.MASKED_LAUNCHES = preempt.LAUNCHES = 0
-                    with kernel_shapes(out["kernel_shapes"]):
-                        body(srv)
-                else:
-                    body(srv)
-            launches = {"scored_rows": fused_score.LAUNCHES,
-                        "masked_score_matrix": fused_score.MASKED_LAUNCHES,
-                        "eviction_sets": preempt.LAUNCHES,
-                        "committing_spec_steps": kernels.COMMIT_STEPS,
-                        "batch_commit_steps": server_counter(
-                            srv, "batch.commit_steps")}
-            b = srv.eval_broker.stats()
-            app = srv.plan_applier.stats
-            out[label] = {
-                "launches": launches,
-                "applier": {k: app[k] for k in (
-                    "plans", "columnar", "columnar_guards", "vectorized",
-                    "scalar", "scalar_fallback")},
-                "columnar": columnar_counters(),
-                "breaker": {"state": brk.state, "trips": brk.trips,
-                            "oracle_routed": server_counter(
-                                srv, "breaker.oracle_routed")},
-                "nacks": b["total_nacks"], "failed": b["total_failed"],
-                "over_capacity": store_over_capacity(srv),
-                "content": server_content(srv)}
-        finally:
-            srv.shutdown()
+    shapes = out["kernel_shapes"] if counted else None
 
     def main(srv):
         t0 = time.perf_counter()
@@ -3039,27 +3101,12 @@ def server_world(dev, sc, smi, counted=False, guard_every=None) -> dict:
                             s.job_deregister(sc["wave_a"][1].id,
                                              purge=False)))
 
-    def drill(srv):
-        fleet, filler, urgent, spare = sc["drill"]
-        for n in fleet:
-            srv.node_register(n)
-        for label, fn in (
-                ("drill_fill", lambda s: s.job_register(filler)),
-                ("drill_preempt", lambda s: s.job_register(urgent)),
-                ("drill_replace", lambda s: [s.node_register(n)
-                                             for n in spare])):
-            out["waves"].append(server_wave(srv, label, fn))
-            if label == "drill_preempt":
-                out["drill_follow_up"] = sorted(
-                    (e.job_id, e.triggered_by, e.status)
-                    for e in srv.state.evals(None)
-                    if e.triggered_by == "preemption")
-                out["drill_blocked"] = dict(srv.blocked_evals.stats())
-
-    run_server("main", SERVER_SEED, main,
+    server_run(out, dev, "main", SERVER_SEED, main, counted=counted,
+               shapes=shapes,
                **({} if guard_every is None
                   else {"columnar_guard_every": guard_every}))
-    run_server("drill", SERVER_SEED + 1, drill, preemption_enabled=True)
+    server_run(out, dev, "drill", SERVER_SEED + 1, drill_waves(sc, out),
+               counted=counted, shapes=shapes, preemption_enabled=True)
     return out
 
 
@@ -3243,7 +3290,470 @@ def phase_server(dev, n_nodes=10_000, n_jobs=100, count=1000,
             "breaker": card["main"]["breaker"], "card": smi}
 
 
-# -- phase 18: plan ----------------------------------------------------------
+# -- phase 18: trace ---------------------------------------------------------
+
+TRACE_SEED = 20261023
+# What every acked eval's trace holds, in the order its spans start
+# (tests/test_tracing.py:164-166, extended by the batch's phases), but
+# the plan's three spans for an eval whose plan placed nothing (it
+# submits none); and the log applies of its writes.
+TRACE_LIFECYCLE = ("broker.enqueue", "broker.dequeue", "worker.process_batch",
+                   "batch.schedule", "batch.phase1", "batch.phase2",
+                   "batch.encode", "batch.device", "batch.fetch",
+                   "batch.metrics", "batch.finalize", "worker.submit_plan",
+                   "plan.evaluate", "plan.apply", "broker.ack")
+TRACE_PLAN = ("worker.submit_plan", "plan.evaluate", "plan.apply")
+TRACE_PHASES = ("batch.phase1", "batch.phase2", "batch.encode",
+                "batch.device", "batch.fetch", "batch.metrics",
+                "batch.finalize")
+# Payload fields that carry indices: events compare without them.
+TRACE_INDEX_FIELDS = ("PlanIndex", "AllocIndex", "SnapshotIndex",
+                      "CachedIndex")
+# The timing worlds: disarmed and armed, in turns, on the card.
+TRACE_TIMING_TURNS = 3
+
+
+class StreamConsumer:
+    """A subscriber to ``srv``'s event stream from index 0, consumed live
+    on a thread of its own, so the ring need not hold the run."""
+
+    def __init__(self, srv):
+        self.srv = srv
+        self.sub = srv.event_stream_subscribe(from_index=0)
+        self.events = []
+        self._done = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True,
+                                        name="event-consumer")
+        self._thread.start()
+
+    def _run(self):
+        while True:
+            ev = self.sub.next(timeout=0.05)
+            if ev is not None:
+                self.events.append(ev)
+            elif self._done.is_set() or self.sub.closed:
+                return
+
+    def stop(self) -> dict:
+        """Wait until the subscriber has taken every event published,
+        then stop the thread: the events, the broker's stats (the
+        subscriber still attached) and the subscriber's close error (None:
+        never shed)."""
+        from nomad_tpu_torch.utils.backoff import wait_until
+
+        wait_until(lambda: self.sub.pending() == 0 or self.sub.closed,
+                   30.0)
+        stats = self.srv.stats()["events"]
+        self._done.set()
+        self._thread.join(timeout=30.0)
+        if self._thread.is_alive():
+            raise AssertionError("the event consumer did not stop")
+        return {"events": self.events, "stats": stats,
+                "shed": self.sub.close_error}
+
+
+@contextlib.contextmanager
+def batch_recorder(batches, parents):
+    """Record each ``TorchBatchScheduler.schedule_batch``'s BatchStats by
+    its evals (sorted ids) into ``batches``, and the span under which
+    each ``eviction_sets`` launch runs into ``parents``."""
+    from nomad_tpu_torch.ops import batch_sched, preempt
+    from nomad_tpu_torch.utils import tracing
+
+    cls = batch_sched.TorchBatchScheduler
+    schedule, evict = cls.schedule_batch, preempt.eviction_sets
+
+    def schedule_rec(self, evals):
+        stats = schedule(self, evals)
+        batches[tuple(sorted(ev.id for ev in evals))] = stats
+        return stats
+
+    def evict_rec(*args):
+        tr = tracing.TRACER
+        cur = tr.current() if tr is not None else None
+        parents.append(cur.span_id if cur is not None else 0)
+        return evict(*args)
+
+    cls.schedule_batch, preempt.eviction_sets = schedule_rec, evict_rec
+    try:
+        yield
+    finally:
+        cls.schedule_batch, preempt.eviction_sets = schedule, evict
+
+
+def trace_main(sc, out, armed, label):
+    """The traced wave's body: the fleet through ``node_register``, then
+    config (b)'s waves (each registered with the workers paused, then
+    released), with a live subscriber from index 0 when ``armed``."""
+    def main(srv):
+        stream = StreamConsumer(srv) if armed else None
+        t0 = time.perf_counter()
+        for n in sc["nodes"]:
+            srv.node_register(n)
+        out[f"{label}_node_register_s"] = time.perf_counter() - t0
+        for wave, fn in (
+                ("config_b", lambda s: [s.job_register(j)
+                                        for j in sc["wave_a"]]),
+                ("follow_up", lambda s: [s.job_register(j)
+                                         for j in sc["wave_b"]])):
+            out["waves"].append(dict(server_wave(srv, wave, fn),
+                                     server=label))
+        trace_collect(srv, out, label, stream)
+    return main
+
+
+def trace_collect(srv, out, label, stream):
+    """What the server did, read before its shutdown: each eval's trace,
+    the stream, the plans applied and the committed allocs."""
+    from nomad_tpu_torch.utils import tracing
+
+    out[f"{label}_evals"] = [
+        (e.id, e.job_id, e.triggered_by, e.status, e.create_index)
+        for e in srv.state.evals(None)]
+    out[f"{label}_traces"] = {e.id: tracing.trace_for_eval(e.id)
+                              for e in srv.state.evals(None)}
+    out[f"{label}_plans_applied"] = sample_totals(srv)["plan.apply"][0]
+    out[f"{label}_allocs"] = len(srv.state.allocs(None))
+    if stream is not None:
+        out[f"{label}_stream"] = stream.stop()
+
+
+def trace_world(dev, sc, smi, armed, checked=False) -> dict:
+    """The traced wave on ``dev``, both planes ``armed`` or off (a fresh
+    tracer each time); ``checked``: the kernels' counts set to 0 just
+    before each server is driven and read just after, each batch's stats
+    recorded, and the preempting drill on a second server."""
+    from nomad_tpu_torch.ops import resident
+    from nomad_tpu_torch.utils import tracing
+
+    tracing.disable()
+    # The resident mirror's one slot starts cold in every world, or the
+    # first batch's NodeStateDelta would name the world before it.
+    resident.invalidate()
+    out = {"device": str(dev), "card": smi, "armed": armed, "waves": []}
+    batches, parents = {}, []
+    out["batches"], out["evict_parents"] = batches, parents
+    cfg = {"trace": armed, "events": armed}
+    try:
+        with (batch_recorder(batches, parents) if checked
+              else contextlib.nullcontext()):
+            server_run(out, dev, "main", TRACE_SEED,
+                       trace_main(sc, out, armed, "main"),
+                       counted=checked, **cfg)
+            if checked:
+                drill = drill_waves(sc, out)
+
+                def drill_traced(srv):
+                    stream = StreamConsumer(srv) if armed else None
+                    drill(srv)
+                    trace_collect(srv, out, "drill", stream)
+
+                server_run(out, dev, "drill", TRACE_SEED + 1, drill_traced,
+                           counted=True, preemption_enabled=True, **cfg)
+    finally:
+        tracing.disable()
+    return out
+
+
+def trace_eval_key(evals):
+    """Eval id -> (job, trigger, ordinal by create index): the same eval
+    in two worlds whose ids differ."""
+    seen = collections.Counter()
+    out = {}
+    for eid, job, trig, _status, _ci in sorted(
+            evals, key=lambda e: (e[1], e[2], e[4])):
+        out[eid] = (job, trig, seen[(job, trig)])
+        seen[(job, trig)] += 1
+    return out
+
+
+def trace_event_key(ev, eval_job):
+    """(topic, type, content key, payload) of one event: jobs and nodes
+    by name, evals and allocs by their job, no index fields."""
+    key = ev.key
+    if ev.topic == "Eval" or (ev.topic == "Alloc"
+                              and ev.type != "AllocPlacedBulk"):
+        key = ev.payload.get("JobID") or eval_job.get(ev.key, "?")
+    elif ev.topic == "Plan":
+        key = eval_job.get(ev.key, "?")
+    payload = tuple(sorted(
+        (k, tuple(v) if isinstance(v, list) else v)
+        for k, v in ev.payload.items() if k not in TRACE_INDEX_FIELDS))
+    return (ev.topic, ev.type, key, payload)
+
+
+def check_trace_world(w, sc, label, on_card) -> dict:
+    """The armed world's checks of one server: every acked eval's
+    lifecycle, each device batch's one fetch and its device span, and the
+    stream (monotone, one PlanApplied per applied plan whose placements
+    sum to the committed allocs, the registrations, never shed)."""
+    errors = []
+    evals, traces = w[f"{label}_evals"], w[f"{label}_traces"]
+    acked = {eid: traces[eid] for eid, *_ in evals
+             if any(sp["Name"] == "broker.ack" for sp in traces[eid])}
+    # An acked eval of trigger job-register came through job_register (a
+    # blocked follow-up keeps the trigger, but none is unblocked here):
+    # its eval.e2e umbrella must be closed.
+    registered = {eid for eid, _job, trig, *_ in evals
+                  if trig == "job-register"}
+    # The evals whose plan was applied: one PlanApplied each, by eval.
+    st = w[f"{label}_stream"]
+    planned = {e.key for e in st["events"] if e.type == "PlanApplied"}
+    roots = {}
+    for eid, spans in acked.items():
+        by_name = {}
+        for sp in spans:
+            by_name.setdefault(sp["Name"], sp)
+        order = [n for n in TRACE_LIFECYCLE
+                 if eid in planned or n not in TRACE_PLAN]
+        want = order + ["raft.apply"]
+        if eid in registered:
+            want.append("eval.e2e")
+        missing = [n for n in want if n not in by_name]
+        if missing:
+            errors.append(f"{label}: eval {eid} misses {missing}")
+            continue
+        if eid not in planned and any(n in by_name for n in TRACE_PLAN):
+            errors.append(f"{label}: eval {eid}: plan spans without a "
+                          "PlanApplied")
+        starts = [by_name[n]["Start"] for n in order]
+        if starts != sorted(starts):
+            errors.append(f"{label}: eval {eid}: starts out of order")
+        root = by_name["batch.schedule"]
+        if any(by_name[n]["ParentID"] != root["SpanID"]
+               for n in TRACE_PHASES):
+            errors.append(f"{label}: eval {eid}: a phase span is not "
+                          "under batch.schedule")
+        e2e = by_name.get("eval.e2e")
+        if e2e is not None and (e2e["Attrs"].get("outcome") != "acked"
+                                or e2e["End"] < by_name["broker.ack"][
+                                    "Start"]):
+            errors.append(f"{label}: eval {eid}: eval.e2e not closed at "
+                          "the ack")
+        for sp in spans:
+            if sp["Name"] == "batch.schedule":
+                roots[sp["SpanID"]] = (sp, spans)
+    # Per batch: one fetch, the device span = BatchStats.device_seconds.
+    batch_rows = []
+    for sid, (root, spans) in roots.items():
+        ids = tuple(sorted(root["Attrs"].get("eval_ids", ())))
+        stats = w["batches"].get(ids)
+        kids = [sp for sp in spans if sp["ParentID"] == sid]
+        fetches = [sp for sp in kids if sp["Name"] == "batch.fetch"]
+        device = [sp for sp in kids if sp["Name"] == "batch.device"]
+        if stats is None:
+            errors.append(f"{label}: no stats for batch {sid}")
+            continue
+        if not stats.device_ran:
+            continue
+        if len(fetches) != 1 or len(device) != 1:
+            errors.append(f"{label}: batch {sid}: {len(fetches)} fetch, "
+                          f"{len(device)} device spans")
+            continue
+        d = device[0]
+        gap = abs((d["End"] - d["Start"]) - stats.device_seconds)
+        if gap > 1e-6 or d["Attrs"].get("rounds") != stats.rounds:
+            errors.append(f"{label}: batch {sid}: batch.device "
+                          f"{d['End'] - d['Start']} s rounds "
+                          f"{d['Attrs'].get('rounds')}, stats "
+                          f"{stats.device_seconds} s {stats.rounds}")
+        batch_rows.append({"evals": len(ids), "rounds": stats.rounds,
+                           "device_s": stats.device_seconds,
+                           "span_gap_s": gap})
+    # The stream.
+    events = st["events"]
+    idx = [e.index for e in events]
+    applied = [e for e in events if e.type == "PlanApplied"]
+    node_keys = sorted(e.key for e in events
+                       if e.type == "NodeRegistered")
+    if idx != sorted(idx):
+        errors.append(f"{label}: event indices decrease")
+    if len(applied) != w[f"{label}_plans_applied"]:
+        errors.append(f"{label}: {len(applied)} PlanApplied events, "
+                      f"{w[f'{label}_plans_applied']} plans applied")
+    if sum(e.payload["Placed"] for e in applied) != w[f"{label}_allocs"]:
+        errors.append(f"{label}: PlanApplied placed "
+                      f"{sum(e.payload['Placed'] for e in applied)}, "
+                      f"{w[f'{label}_allocs']} allocs committed")
+    fleet = (sc["nodes"] if label == "main"
+             else sc["drill"][0] + sc["drill"][3])
+    if node_keys != sorted(n.id for n in fleet):
+        errors.append(f"{label}: {len(node_keys)} NodeRegistered events "
+                      f"for {len(fleet)} registrations")
+    if st["shed"] is not None or st["stats"]["max_subscriber_lag"]:
+        errors.append(f"{label}: the subscriber was shed or lagging: "
+                      f"{st['shed']} {st['stats']}")
+    lc = w[label]["launches"]
+    if on_card and (lc["scored_rows"] <= 0
+                    or lc["scored_rows"] != lc["batch_commit_steps"]
+                    or lc["scored_rows"] != lc["committing_spec_steps"]):
+        errors.append(f"{label}: launches {lc}")
+    r = w[label]
+    if r["over_capacity"] or r["nacks"] or r["failed"] or r[
+            "breaker"] != {"state": "closed", "trips": 0,
+                           "oracle_routed": 0}:
+        errors.append(f"{label}: health {r['breaker']}, {r['nacks']} "
+                      f"nacks, {r['failed']} failed, "
+                      f"{r['over_capacity']} over capacity")
+    if errors:
+        raise AssertionError(f"{w['device']}: {errors[:8]}")
+    spans = sum(len(t) for t in acked.values())
+    return {"acked_evals": len(acked), "device_batches": len(batch_rows),
+            "batches": batch_rows, "spans_per_eval": spans / len(acked),
+            "events": len(events), "events_per_eval": len(events)
+            / len(acked), "launches": lc,
+            "stream": st["stats"]}
+
+
+def trace_multisets(w, label) -> dict:
+    """What users see of one server's trace and stream, by content: per
+    eval (job, trigger, ordinal), the multiset of span names; the
+    multiset of events by (topic, type, content key, payload)."""
+    key = trace_eval_key(w[f"{label}_evals"])
+    eval_job = {eid: k[0] for eid, k in key.items()}
+    spans = {key[eid]: sorted(sp["Name"] for sp in t)
+             for eid, t in w[f"{label}_traces"].items()}
+    events = collections.Counter(trace_event_key(e, eval_job)
+                                 for e in w[f"{label}_stream"]["events"])
+    return {"spans": spans, "events": events}
+
+
+def trace_preempt_check(w) -> dict:
+    """The drill's one eviction_sets launch ran in the batch whose
+    batch.preempt span commits its outputs."""
+    lc = w["drill"]["launches"]
+    preempts = {}
+    for spans in w["drill_traces"].values():
+        for sp in spans:
+            if sp["Name"] == "batch.preempt":
+                preempts[sp["SpanID"]] = sp["ParentID"]
+    if (lc["eviction_sets"] != 1 or len(preempts) != 1
+            or list(preempts.values()) != w["evict_parents"]):
+        raise AssertionError(
+            f"drill: {lc['eviction_sets']} eviction_sets launches under "
+            f"{w['evict_parents']}, batch.preempt spans {preempts}")
+    return {"eviction_sets": 1, "batch_preempt_spans": 1}
+
+
+def trace_sync_counts(dev, nodes, jobs, armed, trace_dir) -> dict:
+    """One batch of ``jobs`` on ``nodes`` (a fresh store, ids seeded)
+    inside a ``DeviceTracer`` session, the tracing plane armed or off:
+    the session's device-to-host copies and synchronizations."""
+    from nomad_tpu_torch.ops.batch_sched import TorchBatchScheduler
+    from nomad_tpu_torch.ops.breaker import KernelCircuitBreaker
+    from nomad_tpu_torch.utils import tracing
+    from nomad_tpu_torch.utils.profiling import DeviceTracer
+
+    with seeded_world(TRACE_SEED, nodes, jobs) as (h, ids):
+        evals = reg_evals(jobs, ids)
+        tracer = DeviceTracer(base_dir=trace_dir, device=dev)
+        if armed:
+            tracing.enable()
+        else:
+            tracing.disable()
+        tracer.start()
+        try:
+            stats = TorchBatchScheduler(
+                h.logger, h.snapshot(), h, device=dev, rng_seed=SEED,
+                breaker=KernelCircuitBreaker()).schedule_batch(evals)
+        finally:
+            info = tracer.stop()
+            spans = len(tracing.recent(10_000))
+            tracing.disable()
+    with open(os.path.join(info["dir"], DeviceTracer.TRACE_FILE)) as f:
+        events = json.load(f)["traceEvents"]
+    d2h = sum(1 for e in events if e.get("cat") == "gpu_memcpy"
+              and "DtoH" in e.get("name", ""))
+    syncs = collections.Counter(
+        e["name"] for e in events if e.get("cat") == "cuda_runtime"
+        and "ynchronize" in e.get("name", ""))
+    copies = sum(1 for e in events if e.get("cat") == "cuda_runtime"
+                 and e.get("name", "").startswith("cudaMemcpy"))
+    return {"d2h_copies": d2h, "memcpy_calls": copies,
+            "syncs": dict(syncs), "spans": spans,
+            "placed": len([a for a in h.state.allocs(None)
+                           if not a.terminal_status()]),
+            "device_seconds": stats.device_seconds,
+            "rounds": stats.rounds}
+
+
+def trace_sync_check(dev, sc) -> dict:
+    """The armed plane adds no host-device sync: one traced and one
+    untraced batch of the same input (config (b)'s follow-up jobs on the
+    fleet, after an untimed warm batch) show the same copies and
+    synchronizations in their ``DeviceTracer`` sessions."""
+    import tempfile
+
+    nodes, jobs = sc["nodes"], sc["wave_b"]
+    with tempfile.TemporaryDirectory() as tmp:
+        trace_sync_counts(dev, nodes, jobs, False,
+                          os.path.join(tmp, "warm"))
+        off = trace_sync_counts(dev, nodes, jobs, False,
+                                os.path.join(tmp, "off"))
+        on = trace_sync_counts(dev, nodes, jobs, True,
+                               os.path.join(tmp, "on"))
+    same = ("d2h_copies", "memcpy_calls", "syncs", "placed", "rounds")
+    if (any(on[k] != off[k] for k in same) or not on["d2h_copies"]
+            or not on["syncs"] or not on["spans"] or off["spans"]):
+        raise AssertionError(f"sync contract: armed {on}, disarmed {off}")
+    return {"armed": on, "disarmed": off}
+
+
+def phase_trace(dev, n_nodes=10_000, n_jobs=100, count=1000,
+                follow_jobs=10, follow_count=200, drill_nodes=64,
+                turns=TRACE_TIMING_TURNS):
+    """The observability plane on the server path: the traced wave on the
+    card (checked: lifecycles, fetches, device spans, launches, the
+    stream, the drill) and on the CPU, card = CPU on the trace's and the
+    stream's multisets; the sync contract in ``DeviceTracer`` sessions;
+    then the wave disarmed and armed in turns on the card, for its evals
+    per second (printed, not gated)."""
+    t0 = time.perf_counter()
+    smi = smi_name_power()
+    on_card = torch_device(dev).type == "cuda"
+    sc = server_scenario(n_nodes, n_jobs, count, follow_jobs, follow_count,
+                         0, 0, drill_nodes)
+    card = trace_world(dev, sc, smi, armed=True, checked=True)
+    got = {"main": check_trace_world(card, sc, "main", on_card),
+           "drill": check_trace_world(card, sc, "drill", on_card)}
+    if on_card:
+        got["preempt"] = trace_preempt_check(card)
+    cpu = trace_world("cpu", sc, smi, armed=True)
+    for label in ("main",):
+        a, b = trace_multisets(card, label), trace_multisets(cpu, label)
+        for what in ("spans", "events"):
+            if a[what] != b[what]:
+                if what == "spans":
+                    diff = {k: (a[what].get(k), b[what].get(k))
+                            for k in set(a[what]) | set(b[what])
+                            if a[what].get(k) != b[what].get(k)}
+                else:
+                    diff = {"card_only": list((a[what] - b[what]))[:8],
+                            "cpu_only": list((b[what] - a[what]))[:8]}
+                raise AssertionError(f"{label}: the card's {what} differ "
+                                     f"from the CPU's: "
+                                     f"{str(diff)[:3000]}")
+    got["card_equals_cpu"] = True
+    if on_card:
+        got["sync"] = trace_sync_check(dev, sc)
+    # Evals per second, disarmed and armed in turns, in this call.
+    rates = {"disarmed": [], "armed": []}
+    for _ in range(turns):
+        for mode in ("disarmed", "armed"):
+            w = trace_world(dev, sc, smi, armed=mode == "armed")
+            rates[mode].append({r["wave"]: r["evals_per_s"]
+                                for r in w["waves"]})
+    for w in (card, cpu):
+        for row in w["waves"]:
+            emit({"phase": "trace", "world": w["device"], **row})
+    return {**got, "evals_per_s": rates,
+            "spans_per_eval": got["main"]["spans_per_eval"],
+            "events_per_eval": got["main"]["events_per_eval"],
+            "launches": {k: card[k]["launches"] for k in ("main", "drill")},
+            "seconds": time.perf_counter() - t0, "card": smi}
+
+
+# -- phase 19: plan ----------------------------------------------------------
 
 PLAN_SEED = 20261021
 # Edited versions of batch 0's first jobs, by kind; then new jobs.
@@ -3481,7 +3991,7 @@ def phase_plan(dev, n_nodes=10_000, n_jobs=100, count=1000, n_new=5,
             "card": smi}
 
 
-# -- phase 19: fingerprint ---------------------------------------------------
+# -- phase 20: fingerprint ---------------------------------------------------
 
 FINGERPRINT_SEED = 20261022
 # The fingerprints that open a socket (a route probe, the cloud metadata
@@ -3631,7 +4141,7 @@ def torch_device(dev):
     return d
 
 
-# -- phase 20: times ---------------------------------------------------------
+# -- phase 21: times ---------------------------------------------------------
 
 def score_bytes(u: int, n: int, with_base: bool = True) -> int:
     """Bytes the function must move: feas (1) + collisions (4) in and
@@ -4180,6 +4690,8 @@ def main() -> int:
                                  if k != "kernel_row"}})
     srv = run_phase("server", phase_server, dev)
     emit({"phase": "server", **srv})
+    trc = run_phase("trace", phase_trace, dev)
+    emit({"phase": "trace", **trc})
     plan = run_phase("plan", phase_plan, dev)
     emit({"phase": "plan", **plan})
     fpr = run_phase("fingerprint", phase_fingerprint, dev)
@@ -4209,6 +4721,12 @@ def main() -> int:
     for row in table:
         row["server_path_launches"] = {
             label: srv["launches"][label][row["name"]]
+            for label in ("main", "drill")}
+        # ... and on the traced server path (phase trace, the armed card
+        # world, each server driven with the counts set to 0 just
+        # before it).
+        row["trace_path_launches"] = {
+            label: trc["launches"][label][row["name"]]
             for label in ("main", "drill")}
     emit({"phase": "profile", **run_phase("profile", phase_profile, dev)})
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})

@@ -17,12 +17,16 @@ its damage with; and
         fault.trace()   # [("ops.kernel_result", 0, "corrupt")]
 
 Disarmed (the default) a fault point costs one module-global load.
+Every fire is mirrored into the tracing plane (a ``fault.fire`` span) and
+the cluster event stream (``Fault``/``FaultFired``), as the reference's
+``FaultPlane.fire`` does (``fault.py:185-230``).
 """
 from __future__ import annotations
 
 import random
+import sys
 from types import SimpleNamespace
-from typing import List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 ACTIONS = ("corrupt", "error")
 
@@ -51,11 +55,29 @@ def faultpoint(name: str) -> Optional[SimpleNamespace]:
                                    or rule.fired < rule.times):
             rule.fired += 1
             plane.trace.append((name, i, rule.action))
+            # Import here: fires are rare, and the disarmed path must
+            # not pay it.
+            from .utils import tracing
+            tracing.note_fault(name, i, rule.action)
+            note_event_stream("Fault", "FaultFired", name,
+                              {"Rule": i, "Action": rule.action})
             return SimpleNamespace(
                 kind=rule.action, rng=rule.rng,
                 raise_injected=_raise_injected(
                     f"injected {rule.action} at {name}"))
     return None
+
+
+def note_event_stream(topic: str, etype: str, key: str,
+                      payload: Optional[Dict[str, Any]] = None,
+                      eval_id: str = "") -> None:
+    """Mirror a cross-cutting occurrence (fault fire, breaker transition,
+    resident mirror delta) into the cluster event stream without
+    importing the server package: if ``server.event_broker`` was never
+    loaded, no broker can be armed anyway."""
+    mod = sys.modules.get("nomad_tpu_torch.server.event_broker")
+    if mod is not None:
+        mod.note_external(topic, etype, key, payload, eval_id)
 
 
 def trace() -> List[Tuple[str, int, str]]:

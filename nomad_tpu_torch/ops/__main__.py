@@ -16,10 +16,18 @@
   breaker while the walk's buffers carry that batch (its placements equal
   a clean twin's), and the open breaker routes the next batch through
   the oracle.
+- The tracing drill (``nomad_tpu/ops/__main__.py:113-211``): with the
+  tracing plane armed, one batch on ``--device`` must leave a
+  ``batch.schedule`` root with every phase span under it (``phase1``,
+  ``phase2``, ``encode``, ``device``, one ``fetch``, ``metrics``,
+  ``finalize``), starts monotone; an injected ``ops.kernel_result``
+  corruption must be traced as ``batch.oracle_routed(kernel_reject)`` with
+  its ``fault.fire``, and the open breaker's next batch as
+  ``batch.oracle_routed(breaker_open)``.  It always disarms on exit.
 
 Exits 0 when every drill passes, 1 otherwise.  The reference's other
-drills (breaker, tracing, residency, fused, residue, mesh) wait for their
-modules' ports.
+drills (breaker, residency, fused, residue, mesh) wait for their modules'
+ports.
 """
 from __future__ import annotations
 
@@ -67,6 +75,7 @@ class _DrillWorld:
         self.breaker = KernelCircuitBreaker(threshold=0.9, window=8,
                                             min_checks=1, cooldown=3600.0)
         self.jobs = 0
+        self.last_eval_id = ""
 
     def add_node(self, i: int) -> None:
         self.h.state.upsert_node(self.h.next_index(), _drill_node(i))
@@ -84,6 +93,7 @@ class _DrillWorld:
             id=f"drill-eval-{self.jobs}", priority=job.priority,
             type=job.type, triggered_by=s.EVAL_TRIGGER_JOB_REGISTER,
             job_id=job.id, status=s.EVAL_STATUS_PENDING)
+        self.last_eval_id = ev.id
         sched = TorchBatchScheduler(
             self.h.logger, self.h.snapshot(), self.h, device=self.device,
             breaker=self.breaker, rng_seed=self.seed,
@@ -185,6 +195,99 @@ def columnar_drill(seed: int = 0, device=None, log=print) -> bool:
     return True
 
 
+# The phase spans of one device batch, in the order their starts must
+# follow, each parented under the batch.schedule root.
+PHASE_SPANS = ("batch.phase1", "batch.phase2", "batch.encode",
+               "batch.device", "batch.fetch", "batch.metrics",
+               "batch.finalize")
+
+
+def tracing_drill(seed: int = 0, device=None, log=print) -> bool:
+    """The tracing drill (see the module docstring)."""
+    from .. import fault
+    from ..utils import tracing
+
+    def check(cond, msg):
+        if not cond:
+            log(f"tracing drill: FAIL — {msg}")
+        return cond
+
+    world = _DrillWorld(device, seed)
+    for i in range(8):
+        world.add_node(i)
+    tracing.enable()
+    try:
+        stats, placed = world.run_batch()
+        spans = tracing.trace_for_eval(world.last_eval_id)
+        names = [sp["Name"] for sp in spans]
+        roots = [sp for sp in spans if sp["Name"] == "batch.schedule"]
+        if not (check(len(roots) == 1, f"{len(roots)} batch.schedule "
+                      "roots")
+                and check(len(placed) == 2, f"the batch placed {placed}")
+                and check(all(names.count(n) == 1 for n in PHASE_SPANS),
+                          f"phase spans missing or repeated in {names}")):
+            return False
+        by_name = {sp["Name"]: sp for sp in spans}
+        root = roots[0]
+        starts = [by_name[n]["Start"] for n in PHASE_SPANS]
+        device_ms = by_name["batch.device"]["DurationMs"]
+        if not (check(all(by_name[n]["ParentID"] == root["SpanID"]
+                          for n in PHASE_SPANS),
+                      "phase spans not parented under batch.schedule")
+                and check(root["Start"] <= starts[0]
+                          and starts == sorted(starts),
+                          f"phase starts not monotone: "
+                          f"{list(zip(PHASE_SPANS, starts))}")
+                and check(abs(device_ms - stats.device_seconds * 1000.0)
+                          < 1e-3,
+                          f"batch.device {device_ms} ms, device_seconds "
+                          f"{stats.device_seconds}")
+                and check(by_name["batch.device"]["Attrs"].get("rounds")
+                          == stats.rounds, "batch.device rounds")):
+            return False
+
+        with fault.scenario({"seed": seed, "faults": [
+                {"point": "ops.kernel_result", "action": "corrupt",
+                 "times": 1}]}):
+            stats2, placed2 = world.run_batch()
+        spans2 = tracing.trace_for_eval(world.last_eval_id)
+        routed = [sp for sp in spans2
+                  if sp["Name"] == "batch.oracle_routed"]
+        fires = [sp for sp in spans2 if sp["Name"] == "fault.fire"]
+        if not (check(routed, "the corrupted batch produced no "
+                              "batch.oracle_routed span")
+                and check(routed[0]["Attrs"].get("reason")
+                          == "kernel_reject", f"bad attrs {routed[0]}")
+                and check(fires and fires[0]["Attrs"].get("point")
+                          == "ops.kernel_result",
+                          "fault.fire not correlated into the eval trace")
+                and check(world.breaker.state == "open",
+                          f"breaker {world.breaker.state!r}, expected "
+                          "open")
+                and check(len(placed2) == 2, "the oracle did not place "
+                                             "the corrupted batch")):
+            return False
+
+        _, placed3 = world.run_batch()    # the breaker is open
+        routed3 = [sp for sp in tracing.trace_for_eval(world.last_eval_id)
+                   if sp["Name"] == "batch.oracle_routed"]
+        if not (check(routed3, "the open-breaker batch produced no "
+                               "batch.oracle_routed span")
+                and check(routed3[0]["Attrs"].get("reason")
+                          == "breaker_open", f"bad attrs {routed3[0]}")
+                and check(len(placed3) == 2, "the oracle did not place "
+                                             "the open-breaker batch")):
+            return False
+    finally:
+        tracing.disable()
+    log(f"tracing drill: OK — batch.schedule with the {len(PHASE_SPANS)} "
+        f"phase spans under it, starts monotone ({len(spans)} spans for "
+        "one eval), the corrupt batch traced as oracle_routed("
+        "kernel_reject) + fault.fire, the open breaker as oracle_routed("
+        f"breaker_open) (device {world.device or 'cuda'})")
+    return True
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(prog="python -m nomad_tpu_torch.ops")
     parser.add_argument("--selfcheck", action="store_true",
@@ -202,6 +305,7 @@ def main(argv=None) -> int:
     ok = selfcheck(n_nodes=args.nodes, n_specs=args.specs, seed=args.seed,
                    device=args.device)
     ok = columnar_drill(seed=args.seed, device=args.device) and ok
+    ok = tracing_drill(seed=args.seed, device=args.device) and ok
     return 0 if ok else 1
 
 

@@ -40,6 +40,16 @@ or the mesh's ``sharded_fused_pass``, the one result fetch):
   dry run) skips the register fast path, so the oracle's diff sets the
   plan's annotations, its placements still go through the device pass,
   and its plan is submitted even when it changes nothing.
+  Each batch is traced as the reference traces it: a ``batch.schedule``
+  root (``eval_ids`` of its members) with ``batch.phase1``,
+  ``batch.phase2``, ``batch.encode``, ``batch.device``, exactly one
+  ``batch.fetch``, ``batch.metrics`` and ``batch.finalize`` under it,
+  plus ``batch.fetch_forensics``, ``batch.preempt``,
+  ``batch.oracle_routed`` and ``oracle.process`` where those happen.  The
+  phase spans are recorded from the timers the path already takes; in
+  particular ``batch.device`` starts where packing ended and lasts
+  ``BatchStats.device_seconds``, the CUDA-event interval closed at the
+  fetch, so no span adds a synchronization.
 - :func:`schedule_batch` takes plain lists of nodes and jobs and treats
   every job as a registration.  It has no state store and no planner, so
   a spec the reference sends to its oracle raises ``NotImplementedError``
@@ -73,6 +83,7 @@ from ..scheduler.util import (AllocTuple, adjust_queued_allocations,
 from ..state import columnar
 from ..structs import structs as s
 from ..structs.network import NetworkIndex
+from ..utils import tracing
 from ..utils.lru import LRU
 from ..utils.telemetry import NULL_TELEMETRY
 from . import breaker as breaker_mod
@@ -1015,13 +1026,31 @@ class TorchBatchScheduler:
 
     def schedule_batch(self, evals: List[s.Evaluation]) -> "BatchStats":
         """Reconcile every eval on the host, place all their asks in one
-        device pass, then finalize and submit one plan per eval; the
-        batch's stats go to the telemetry."""
-        prep = self._prepare_batch(evals)
-        self._dispatch_prepared(prep)
-        stats = self._complete_prepared(prep)
+        device pass, then finalize and submit one plan per eval, under a
+        ``batch.schedule`` span; the batch's stats go to the
+        telemetry."""
+        tr = tracing.TRACER
+        if tr is None:
+            stats = self._schedule_batch(evals)
+        else:
+            with tr.span("batch.schedule",
+                         num_evals=len(evals),
+                         **tracing.eval_id_attrs(evals, len(evals))) as sp:
+                stats = self._schedule_batch(evals)
+                sp.set(num_specs=stats.num_specs, num_asks=stats.num_asks,
+                       breaker_state=stats.breaker_state,
+                       oracle_routed=stats.oracle_routed,
+                       resident_hits=stats.resident_hits,
+                       delta_rows=stats.delta_rows,
+                       h2d_bytes=stats.h2d_bytes,
+                       delta_apply_s=round(stats.delta_apply_seconds, 6))
         self._emit_batch_stats(stats)
         return stats
+
+    def _schedule_batch(self, evals: List[s.Evaluation]) -> "BatchStats":
+        prep = self._prepare_batch(evals)
+        self._dispatch_prepared(prep)
+        return self._complete_prepared(prep)
 
     def _emit_batch_stats(self, stats: "BatchStats") -> None:
         """The batch's stats as telemetry (batch_sched.py:380-470): the
@@ -1107,9 +1136,10 @@ class TorchBatchScheduler:
         its results are the reference's, the overlap is not.  A batch's
         ``pipeline_overlap_s`` is the time of its prepare while a
         dispatched batch was pending.  An error completes the batch in
-        flight, then propagates.  Each completed batch's stats go to the
-        telemetry (the reference's ``_finish_stream``, without its
-        tracing span)."""
+        flight, then propagates.  Each completed batch is recorded as a
+        ``batch.schedule`` span from its prepare to its completion, and
+        its stats go to the telemetry (the reference's
+        ``_finish_stream``)."""
         out: List[BatchStats] = []
         pending = None
         try:
@@ -1144,6 +1174,13 @@ class TorchBatchScheduler:
 
     def _complete_emitted(self, prep: _PreparedBatch) -> "BatchStats":
         stats = self._complete_prepared(prep)
+        tr = tracing.TRACER
+        if tr is not None:
+            tr.record("batch.schedule", prep.t0, tracing.now(),
+                      num_evals=stats.num_evals, num_specs=stats.num_specs,
+                      resident_hits=stats.resident_hits,
+                      pipeline_overlap_s=round(stats.pipeline_overlap_s, 4),
+                      **tracing.eval_id_attrs(prep.evals, len(prep.evals)))
         self._emit_batch_stats(stats)
         return stats
 
@@ -1172,6 +1209,11 @@ class TorchBatchScheduler:
             sched._compute_job_allocs()
             scheds.append((ev, sched))
         stats.phase1_seconds = time.perf_counter() - t_phase1
+        tr = tracing.TRACER
+        if tr is not None:
+            tr.record("batch.phase1", t_phase1,
+                      t_phase1 + stats.phase1_seconds,
+                      num_evals=len(evals))
         t_phase2 = time.perf_counter()
 
         # Phase 2: dedup placement asks into specs.
@@ -1214,6 +1256,10 @@ class TorchBatchScheduler:
         stats.num_specs = len(spec_list)
         stats.num_asks = sum(sp.count for sp in spec_list)
         stats.phase2_seconds = time.perf_counter() - t_phase2
+        if tr is not None:
+            tr.record("batch.phase2", t_phase2,
+                      t_phase2 + stats.phase2_seconds,
+                      num_specs=stats.num_specs, num_asks=stats.num_asks)
         prep.evals = evals
         prep.scheds = scheds
         prep.specs = specs
@@ -1267,6 +1313,9 @@ class TorchBatchScheduler:
             self.logger.info(
                 "batch: kernel breaker %s; routing %d evals through the "
                 "CPU oracle", stats.breaker_state, len(prep.scheds))
+            tracing.event("batch.oracle_routed", reason="breaker_open",
+                          breaker_state=stats.breaker_state,
+                          num_evals=len(prep.scheds))
             self._route_through_oracle(prep.scheds)
             prep.routed = True
             return
@@ -1431,6 +1480,9 @@ class TorchBatchScheduler:
                 stats.kernel_rejects = 1
                 stats.oracle_routed += len(scheds)
                 stats.breaker_state = self.breaker.state
+                tracing.event("batch.oracle_routed", reason="kernel_reject",
+                              breaker_state=stats.breaker_state,
+                              num_evals=len(scheds), detail=str(e))
                 self._route_through_oracle(scheds)
                 stats.total_seconds = time.perf_counter() - prep.t0
                 stats.num_evals = len(evals)
@@ -1461,21 +1513,36 @@ class TorchBatchScheduler:
             self._finalize(ev, sched, prep.specs, expanded, unplaced,
                            per_spec_metrics, net_indexes, stats)
         stats.finalize_seconds = time.perf_counter() - t_final
+        tr = tracing.TRACER
+        if tr is not None:
+            tr.record("batch.finalize", t_final,
+                      t_final + stats.finalize_seconds)
         stats.total_seconds = time.perf_counter() - prep.t0
         stats.num_evals = len(evals)
         return stats
 
     def _route_through_oracle(self, scheds) -> None:
         """Process each eval with the CPU GenericScheduler against live
-        state (batch_sched.py:788)."""
+        state (batch_sched.py:788), each under an ``oracle.process``
+        span."""
+        tr = tracing.TRACER
         for ev, _sched in scheds:
-            GenericScheduler(
+            oracle = GenericScheduler(
                 self.logger, self.state, self.planner,
                 batch=(ev.type == s.JOB_TYPE_BATCH),
-                preemption_enabled=self.preemption_enabled).process(ev)
+                preemption_enabled=self.preemption_enabled)
+            if tr is None:
+                oracle.process(ev)
+            else:
+                with tr.span("oracle.process", eval_id=ev.id):
+                    oracle.process(ev)
 
     def _fetch_device(self, b: _DeviceBatch, stats: "BatchStats"):
-        summary, coo, fetch_bytes = _fetch(b)
+        # The whole result comes back in one transfer (past the payload
+        # window, one more prefix fetch inside the same span): exactly
+        # one batch.fetch span a batch.
+        with tracing.span("batch.fetch", fused=1):
+            summary, coo, fetch_bytes = _fetch(b)
         stats.rounds = int(summary["scalars"][1])
         stats.encode_seconds = b.encode_seconds
         stats.h2d_bytes = b.h2d_bytes
@@ -1568,7 +1635,10 @@ class TorchBatchScheduler:
             gets = [self._feas_rows(b, need_rows)] if need_rows else []
             if preempt_ctx is not None:
                 gets.extend(preempt_ctx["dev"])
-            fetched = _fetch_together(gets)
+            with tracing.span("batch.fetch_forensics",
+                              feas_rows=len(need_rows),
+                              preempt=int(preempt_ctx is not None)):
+                fetched = _fetch_together(gets)
             stats.fetch_bytes += sum(a.nbytes for a in fetched)
             if need_rows:
                 rows_np = fetched.pop(0)
@@ -1581,8 +1651,9 @@ class TorchBatchScheduler:
         # eviction sets.  It takes its placements off unplaced_arr and
         # updates used_after, so the forensics below see the result.
         if preempt_ctx is not None:
-            self._preempt_commit(preempt_ctx, preempt_out, spec_list, ct,
-                                 unplaced_arr, used_after, stats)
+            with tracing.span("batch.preempt"):
+                self._preempt_commit(preempt_ctx, preempt_out, spec_list,
+                                     ct, unplaced_arr, used_after, stats)
 
         expanded: Dict[Tuple[str, str], List[str]] = {}
         unplaced: Dict[Tuple[str, str], int] = {}
@@ -1630,8 +1701,21 @@ class TorchBatchScheduler:
                 if sig is not None:
                     fail_cache[sig] = m
             metrics[key] = m
-        stats.metrics_seconds = (time.perf_counter() - t_host
-                                 - rows_seconds)
+        t_end = time.perf_counter()
+        stats.metrics_seconds = t_end - t_host - rows_seconds
+        tr = tracing.TRACER
+        if tr is not None:
+            # The phase spans from the timers already taken: packing
+            # ended at t_dispatch, where the device interval (CUDA events
+            # from the upload to the fetched result, and the forensics
+            # rows') begins.  No span of its own waits on the card.
+            tr.record("batch.encode", b.t_dispatch - b.encode_seconds,
+                      b.t_dispatch)
+            tr.record("batch.device", b.t_dispatch,
+                      b.t_dispatch + stats.device_seconds,
+                      rounds=stats.rounds)
+            tr.record("batch.metrics", t_end - stats.metrics_seconds, t_end,
+                      preempt_placed=stats.preempt_placed)
         return expanded, unplaced, metrics
 
     def _feas_rows(self, b: _DeviceBatch, rows: List[int]) -> torch.Tensor:

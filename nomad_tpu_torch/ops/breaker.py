@@ -12,8 +12,10 @@ one opens it again.
 
 The breaker is process-wide (``BREAKER``) so that a trip outlives the
 scheduler made for one batch; tests pass their own instance.  Each
-transition is logged (the reference's blackbox, tracing and event-stream
-hooks come with the server wiring).
+transition is logged, traced (a ``breaker.transition`` span) and
+published on the cluster event stream (``Breaker``/``BreakerTransition``).
+The reference's blackbox trigger waits for the blackbox (ROADMAP queue 1
+item 21).
 
 Verdicts recorded: the structural validation of each device result, the
 resident usage mirror's differential guard and the quantized rows'
@@ -29,11 +31,21 @@ import time
 from collections import deque
 from typing import Callable
 
+from .. import fault
+from ..utils import tracing
+
 logger = logging.getLogger("nomad_tpu_torch.ops.breaker")
 
 CLOSED = "closed"
 OPEN = "open"
 HALF_OPEN = "half-open"
+
+def _stream_transition(frm: str, to: str, **payload) -> None:
+    """Mirror a breaker transition into the cluster event stream
+    (fault.note_event_stream avoids importing the server package)."""
+    fault.note_event_stream("Breaker", "BreakerTransition", to,
+                            dict(payload, From=frm, To=to))
+
 
 # The state's gauge code (breaker.state telemetry).
 STATE_CODE = {CLOSED: 0, HALF_OPEN: 1, OPEN: 2}
@@ -79,6 +91,11 @@ class KernelCircuitBreaker:
                 self._state = OPEN
                 self._tripped_at = self.clock()
                 self.trips += 1
+                tracing.event("breaker.transition", frm=CLOSED, to=OPEN,
+                              agreement=round(ratio, 4), trips=self.trips)
+                _stream_transition(CLOSED, OPEN,
+                                   Agreement=round(ratio, 4),
+                                   Trips=self.trips)
                 logger.warning(
                     "kernel circuit breaker OPEN: agreement %.2f < %.2f "
                     "over %d checks; routing evals through the CPU oracle "
@@ -98,6 +115,8 @@ class KernelCircuitBreaker:
                     self.clock() - self._tripped_at >= self.cooldown):
                 self._state = HALF_OPEN
                 self._probe_started = self.clock()
+                tracing.event("breaker.transition", frm=OPEN, to=HALF_OPEN)
+                _stream_transition(OPEN, HALF_OPEN)
                 logger.info("kernel circuit breaker HALF-OPEN: probing the "
                             "device path with one batch")
                 return True
@@ -120,11 +139,15 @@ class KernelCircuitBreaker:
             if ok:
                 self._state = CLOSED
                 self._checks.clear()
+                tracing.event("breaker.transition", frm=HALF_OPEN, to=CLOSED)
+                _stream_transition(HALF_OPEN, CLOSED)
                 logger.info("kernel circuit breaker CLOSED: probe batch "
                             "agreed; device path restored")
             else:
                 self._state = OPEN
                 self._tripped_at = self.clock()
+                tracing.event("breaker.transition", frm=HALF_OPEN, to=OPEN)
+                _stream_transition(HALF_OPEN, OPEN)
                 logger.warning("kernel circuit breaker RE-OPEN: probe batch "
                                "disagreed; staying on the CPU oracle")
 

@@ -26,8 +26,12 @@ Correctness machinery, as in the reference:
   (``record(False)``), drops the mirror, and the batch runs on the walk.
 
 Usage rows only, and only for batches without network asks (port bitmaps
-are not in the feed).  The reference's ``NodeStateDelta`` event (its
-``_publish``) is a logged warning here: the port has no event stream yet.
+are not in the feed).  Every install, fence, full walk and mismatch is
+traced (``resident.device_install``, ``resident.fence``,
+``resident.full_reencode``, ``resident.quant_mismatch``,
+``resident.device_mismatch``, ``resident.guard_mismatch``), and all but
+the install and a cold walk are published on the cluster event stream as
+``Node``/``NodeStateDelta`` with the reason as its key.
 
 Fault point ``ops.resident_state`` (action ``corrupt``): one mirror row
 is perturbed after a delta apply, host and device alike, for the guard to
@@ -50,6 +54,7 @@ import torch
 
 from .. import fault
 from ..structs.structs import alloc_usage_vec
+from ..utils import tracing
 
 logger = logging.getLogger("nomad_tpu_torch.ops.resident")
 
@@ -110,8 +115,9 @@ LAST_PLAN_INDEX = 0
 
 def note_plan_applied(index: int) -> None:
     """The plan applier's hook: record its newest commit index.  The
-    fences key on the snapshot's allocs index; this is a breadcrumb for
-    the logged residency events."""
+    fences key on the snapshot's allocs index; this is the breadcrumb
+    (``PlanIndex``) that lines the ``NodeStateDelta`` events up against
+    plan traffic."""
     global LAST_PLAN_INDEX
     if index > LAST_PLAN_INDEX:
         LAST_PLAN_INDEX = index
@@ -178,6 +184,8 @@ def take_device_used(key: Tuple, snap_index: int, host_used: np.ndarray,
             dev = torch.from_numpy(src).to(device)
         DEV_INSTALLS += 1
         DEV_H2D_BYTES += src.nbytes
+        tracing.event("resident.device_install", rows=host_used.shape[0],
+                      shards=mesh.size if mesh is not None else 0)
     return dev
 
 
@@ -218,6 +226,7 @@ def check_quant_roundtrip(exact: np.ndarray, quantized: np.ndarray,
     logger.error(
         "quantized %s failed the round-trip bound on %d rows; shipping "
         "exact int32 rows and feeding the breaker", what, bad)
+    tracing.event("resident.quant_mismatch", rows=bad, what=what)
     _publish("quant_mismatch", Rows=bad, What=what)
     if breaker is not None:
         breaker.record(False)
@@ -259,10 +268,12 @@ def _apply_device_deltas(used_dev, dev_rows) -> None:
 
 
 def _publish(reason: str, **payload) -> None:
-    """The reference's NodeStateDelta event, logged (no event stream in
-    the port yet)."""
-    logger.warning("NodeStateDelta %s: %s", reason,
-                   dict(payload, PlanIndex=LAST_PLAN_INDEX))
+    """The NodeStateDelta summary on the cluster event stream: one branch
+    while disarmed, through the fault module's indirection, which does
+    not import the server package (resident.py:423-429)."""
+    fault.note_event_stream(
+        "Node", "NodeStateDelta", reason,
+        dict(payload, Reason=reason, PlanIndex=LAST_PLAN_INDEX))
 
 
 def _full_usage(base, rows_fn) -> Tuple[np.ndarray, set]:
@@ -346,6 +357,8 @@ def acquire(state, cache_key: Tuple, base, rows_fn, breaker=None,
             STALENESS_FALLBACKS += 1
             info["fence"] = info["full_reencode"] = True
             used, touched = _usage_source(base, rows_fn, usage_fn)
+            tracing.event("resident.fence", snap_nodes_index=cache_key[1],
+                          cached_nodes_index=st.key[1])
             _publish("staleness_fence", SnapshotNodesIndex=cache_key[1],
                      CachedNodesIndex=st.key[1])
             return used, sorted(touched), info
@@ -355,6 +368,8 @@ def acquire(state, cache_key: Tuple, base, rows_fn, breaker=None,
                 STALENESS_FALLBACKS += 1
                 info["fence"] = info["full_reencode"] = True
                 used, touched = _usage_source(base, rows_fn, usage_fn)
+                tracing.event("resident.fence", snap_index=snap_index,
+                              cached_index=st.alloc_index)
                 _publish("staleness_fence", SnapshotIndex=snap_index,
                          CachedIndex=st.alloc_index)
                 return used, sorted(touched), info
@@ -428,6 +443,9 @@ def acquire(state, cache_key: Tuple, base, rows_fn, breaker=None,
                                 "and feeding the breaker", len(bad_rows),
                                 (f" (mesh shards {bad_shards})"
                                  if bad_shards else ""))
+                            tracing.event("resident.device_mismatch",
+                                          rows=int(len(bad_rows)),
+                                          shards=bad_shards)
                             _publish("device_mirror_mismatch",
                                      Rows=int(len(bad_rows)),
                                      AllocIndex=snap_index,
@@ -451,6 +469,9 @@ def acquire(state, cache_key: Tuple, base, rows_fn, breaker=None,
                             "feeding the breaker", len(bad_rows),
                             (f" (mesh shards {bad_shards})"
                              if bad_shards else ""))
+                        tracing.event("resident.guard_mismatch",
+                                      rows=int(len(bad_rows)),
+                                      shards=bad_shards)
                         _publish("guard_mismatch", Rows=int(len(bad_rows)),
                                  AllocIndex=snap_index, Shards=bad_shards)
                         if breaker is not None:
@@ -475,6 +496,8 @@ def acquire(state, cache_key: Tuple, base, rows_fn, breaker=None,
         info["full_reencode"] = True
         used, touched = _usage_source(base, rows_fn, usage_fn)
         _STATE = ResidentState(cache_key, used, snap_index, set(touched))
+        tracing.event("resident.full_reencode", reason=reason,
+                      alloc_index=snap_index)
         if reason != "cold":
             _publish(reason, AllocIndex=snap_index, Nodes=int(base.n_real))
         return used.copy(), sorted(touched), info

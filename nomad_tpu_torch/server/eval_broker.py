@@ -18,9 +18,16 @@ pending queue (``max_pending``; :meth:`EvalBroker.check_admission` raises
 :class:`BrokerLimitError` before the eval is persisted), and a bypass
 priority that is always admitted.
 
-Left out: the tracing events, the event-stream publishes, and the
-per-namespace quota hooks (namespace policies, the per-tenant pending
-quota and its stats), which come with the tenancy slice.  The ready
+Each admission, coalesce, dequeue, ack and nack is traced
+(``broker.enqueue``, ``broker.coalesce``, ``broker.dequeue``,
+``broker.ack``, ``broker.nack``); the ack closes the eval's ``eval.e2e``
+umbrella, and with the stream armed the ack and nack are published as
+``Eval``/``EvalAcked`` and ``EvalNacked``.
+
+Left out: the per-namespace quota hooks (namespace policies, the
+per-tenant pending quota and its stats) with their
+``broker.admission_reject`` and ``broker.quota_reject`` events, which
+come with the tenancy slice (ROADMAP queue 1 item 19).  The ready
 queues keep the reference's :class:`TenantQueue`, so the dequeue order
 is the reference's.
 """
@@ -36,6 +43,7 @@ from typing import Dict, List, Optional, Tuple
 
 from ..structs import structs as s
 from ..tenancy.fairness import FairnessState, TenantQueue
+from ..utils import tracing
 from ..utils.telemetry import NULL_TELEMETRY
 
 FAILED_QUEUE = "_failed"
@@ -87,6 +95,12 @@ class _Unack:
 
 
 class EvalBroker:
+    # The owning server's event broker, attached by
+    # Server.enable_event_stream.  Per server, so ack and nack events do
+    # not go through the global note_external hook, which would stamp
+    # them onto every armed stream.  Disarmed: one load and a branch.
+    event_broker = None
+
     def __init__(
         self,
         nack_timeout: float = 60.0,
@@ -216,6 +230,14 @@ class EvalBroker:
             return
         elif self._enabled:
             self.evals[ev.id] = 0
+            # The one choke point of every admission (enqueue, an
+            # unblock's enqueue_all, a post-ack requeue): exactly one
+            # broker.enqueue each; duplicates and a disabled broker's
+            # drops record none.
+            tr = tracing.TRACER
+            if tr is not None:
+                tr.event("broker.enqueue", eval_id=ev.id, job_id=ev.job_id,
+                         eval_type=ev.type, priority=ev.priority)
             self.metrics.incr_counter("broker.enqueue")
 
         if ev.wait > 0:
@@ -278,6 +300,10 @@ class EvalBroker:
         self._shed_locked(loser)
         self.coalesced_total += 1
         self.metrics.incr_counter("broker.coalesce")
+        tr = tracing.TRACER
+        if tr is not None:
+            tr.event("broker.coalesce", eval_id=loser.id,
+                     job_id=loser.job_id, kept_eval=keeper.id)
         return True
 
     def _shed_locked(self, ev: s.Evaluation) -> None:
@@ -394,6 +420,10 @@ class EvalBroker:
                     if self.nack_timeout > 0 else None)
         self.unack[ev.id] = _Unack(ev, token, deadline)
         self.evals[ev.id] = self.evals.get(ev.id, 0) + 1
+        tr = tracing.TRACER
+        if tr is not None:
+            tr.event("broker.dequeue", eval_id=ev.id, job_id=ev.job_id,
+                     eval_type=ev.type, attempt=self.evals[ev.id])
         self.metrics.incr_counter("broker.dequeue")
         return ev, token
 
@@ -430,7 +460,23 @@ class EvalBroker:
                     raise EvalBrokerError(
                         "Evaluation ID Ack'd after Nack timer expiration")
                 job_id = unack.eval.job_id
+                tr = tracing.TRACER
+                if tr is not None:
+                    tr.event("broker.ack", eval_id=eval_id, job_id=job_id,
+                             attempts=self.evals.get(eval_id, 0))
+                    # Close the submit-to-scheduled umbrella (eval.e2e):
+                    # at the ack the eval's plan has applied.
+                    tr.close_mark(eval_id, job_id=job_id,
+                                  outcome="acked",
+                                  attempts=self.evals.get(eval_id, 0))
                 self.metrics.incr_counter("broker.ack")
+                eb = self.event_broker
+                if eb is not None:
+                    eb.publish_external(
+                        "Eval", "EvalAcked", eval_id,
+                        {"JobID": job_id,
+                         "Attempts": self.evals.get(eval_id, 0)},
+                        eval_id=eval_id)
                 del self.unack[eval_id]
                 self.evals.pop(eval_id, None)
                 self.job_evals.pop(job_id, None)
@@ -459,15 +505,33 @@ class EvalBroker:
 
             dequeues = self.evals.get(eval_id, 0)
             if dequeues >= self.delivery_limit:
+                outcome, wait = "failed", 0.0
                 self._enqueue_locked(unack.eval, FAILED_QUEUE)
             else:
                 ev = unack.eval
                 ev.wait = self._nack_reenqueue_delay(dequeues)
+                outcome, wait = "requeue", ev.wait
                 if ev.wait > 0:
                     self._process_waiting_enqueue(ev)
                 else:
                     self._enqueue_locked(ev, ev.type)
+            tr = tracing.TRACER
+            if tr is not None:
+                tr.event("broker.nack", eval_id=eval_id,
+                         job_id=unack.eval.job_id, attempts=dequeues,
+                         outcome=outcome, wait=wait)
+                if outcome == "failed":
+                    # A terminal nack closes the umbrella with the
+                    # attempts it burnt.
+                    tr.close_mark(eval_id, job_id=unack.eval.job_id,
+                                  outcome="failed", attempts=dequeues)
             self.metrics.incr_counter("broker.nack")
+            eb = self.event_broker
+            if eb is not None:
+                eb.publish_external(
+                    "Eval", "EvalNacked", eval_id,
+                    {"JobID": unack.eval.job_id, "Attempts": dequeues,
+                     "Outcome": outcome}, eval_id=eval_id)
 
     def _nack_reenqueue_delay(self, prev_dequeues: int) -> float:
         if prev_dequeues <= 0:

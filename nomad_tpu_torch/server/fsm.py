@@ -7,9 +7,12 @@ on the leader, the side-channel hooks nomadFSM.Apply performs.
 
 The handlers kept are the ones the server path applies: node register,
 deregister, status and drain; job register and deregister; eval update;
-alloc update and client update; plan results.  Left out, with the slices
-that need them: eval delete, summary reconcile, the vault, periodic and
-namespace handlers, and snapshot/restore.
+alloc update and client update; plan results.  The FSM remembers the
+cluster event broker (``event_broker``) that ``Server.enable_event_stream``
+hands its store.  Left out, with the slices that need them: eval delete,
+summary reconcile, the vault, periodic and namespace handlers, and
+snapshot/restore with its hand-off of the broker to the restored store
+(fsm.py:250-257; ROADMAP queue 1 item 16).
 """
 from __future__ import annotations
 
@@ -53,6 +56,9 @@ class FSM:
         # Leader-side hooks (fsm.go:58-66).
         self.on_eval_update = on_eval_update
         self.on_unblock = on_unblock
+        # The cluster event broker (server/event_broker.py), remembered
+        # here for a restore to hand to its new store (fsm.py:71-74).
+        self.event_broker = None
 
     def apply(self, index: int, msg_type: MessageType, payload: dict):
         """(fsm.go:115 Apply / :132-158 dispatch)."""
@@ -158,7 +164,8 @@ class FSM:
 
     def _apply_plan_results(self, index: int, req: dict):
         self.state.upsert_plan_results(index, req.get("job"), req["allocs"],
-                                       req.get("slabs"))
+                                       req.get("slabs"),
+                                       eval_id=req.get("eval_id", ""))
         # Preemption follow-up evals commit with the evict and place they
         # belong to (plan_apply.py builds them); the applier hands them to
         # BlockedEvals after this apply returns.

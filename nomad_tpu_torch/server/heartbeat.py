@@ -4,9 +4,10 @@
 TTL scales with fleet size: ttl = max(min_heartbeat_ttl,
 nodes / max_heartbeats_per_second) + grace (config.go:185-197,264-266).
 Expiry transitions the node to down through the log, which fans out
-node-update evals via the server hook.  Left out: the
-``heartbeat.deliver`` fault point, the tracing event and the event-stream
-publish of an expiry.
+node-update evals via the server hook; it is traced (a
+``heartbeat.expire`` event) and, with the stream armed, published as
+``Node``/``NodeHeartbeatExpired``.  Left out: the ``heartbeat.deliver``
+fault point.
 """
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ import threading
 import time
 from typing import Callable, Dict, Optional
 
+from ..utils import tracing
 from ..utils.telemetry import NULL_TELEMETRY
 
 MIN_HEARTBEAT_TTL = 10.0
@@ -29,6 +31,12 @@ HEARTBEAT_TTL_JITTER = 0.1
 
 
 class HeartbeatTimers:
+    # The owning server's event broker (attached by
+    # Server.enable_event_stream): expiry events are per server, not
+    # process-wide, so they do not go through the global note_external
+    # hook, which would stamp them onto every armed stream.
+    event_broker = None
+
     def __init__(
         self,
         on_expire: Callable[[str], None],
@@ -122,6 +130,12 @@ class HeartbeatTimers:
                 return
         self.logger.warning("node %s heartbeat missed; marking down", node_id)
         self.metrics.incr_counter("heartbeat.invalidate")
+        tracing.event("heartbeat.expire", node_id=node_id)
+        # The expiry itself; the NodeStatusUpdated it causes is the
+        # store's.  One branch while no broker is armed.
+        eb = self.event_broker
+        if eb is not None:
+            eb.publish_external("Node", "NodeHeartbeatExpired", node_id)
         try:
             self.on_expire(node_id)
         except Exception:

@@ -50,9 +50,12 @@ second columnar pass does not explain is counted as a guard mismatch,
 and the walk's verdicts win.  A store made with ``columnar=False`` takes
 the walk.
 
-Left out: the tracing spans, the event-stream
-``PlanApplied`` summary, the ``plan.apply`` fault's ``delay`` action, and
-allocs' ``create_time`` (the port's Allocation has no such field).
+Each plan is traced (``plan.evaluate``, ``plan.conflict``, ``plan.apply``
+spans under its eval) and, with the event stream armed, summarized as one
+``Plan``/``PlanApplied`` event after its commit (plan_apply.py:705-726).
+
+Left out: the ``plan.apply`` fault's ``delay`` action, and allocs'
+``create_time`` (the port's Allocation has no such field).
 """
 from __future__ import annotations
 
@@ -72,6 +75,7 @@ from ..ops.kernels import batch_allocs_fit
 from ..state import columnar
 from ..structs import structs as s
 from ..structs.funcs import allocs_fit, remove_allocs
+from ..utils import tracing
 from ..utils.telemetry import NULL_TELEMETRY
 from .fsm import MessageType
 from .plan_queue import PlanFuture, PlanQueue
@@ -274,8 +278,13 @@ class PlanApplier:
     def _process_plan(self, plan: s.Plan, future: PlanFuture,
                       pipelined: bool) -> None:
         snap = self.state
+        # Branch before building span attrs: disarmed, a plan pays one
+        # load and a comparison.
+        tr = tracing.TRACER
         try:
-            with self.metrics.measure("plan.evaluate"):
+            ev_span = tracing.NOOP if tr is None else tr.span(
+                "plan.evaluate", eval_id=plan.eval_id)
+            with self.metrics.measure("plan.evaluate"), ev_span:
                 result = self._timed_evaluate(snap, plan)
         except Exception as exc:
             self.logger.exception("plan evaluation failed")
@@ -291,6 +300,10 @@ class PlanApplier:
                 max(0, self.raft.applied_index() - plan.snapshot_index))
         if result.refresh_index:
             self.metrics.incr_counter("plan.conflict")
+            if tr is not None:
+                tr.event("plan.conflict", eval_id=plan.eval_id,
+                         snapshot_index=plan.snapshot_index,
+                         refresh_index=result.refresh_index)
 
         if not (result.node_update or result.node_allocation
                 or result.alloc_slabs):
@@ -315,8 +328,11 @@ class PlanApplier:
 
     def _commit(self, plan, result, future, snap,
                 token: Optional[int] = None) -> None:
+        tr = tracing.TRACER
         try:
-            with self.metrics.measure("plan.apply"):
+            ap_span = tracing.NOOP if tr is None else tr.span(
+                "plan.apply", eval_id=plan.eval_id)
+            with self.metrics.measure("plan.apply"), ap_span:
                 index = self._timed_apply(plan, result, snap)
             result.alloc_index = index
             if result.refresh_index:
@@ -765,11 +781,15 @@ class PlanApplier:
         if self.raft is None:
             index = self._next_index()
             self.state.upsert_plan_results(index, plan.job, allocs,
-                                           result.alloc_slabs or None)
+                                           result.alloc_slabs or None,
+                                           eval_id=plan.eval_id)
             if preemption_evals:
                 self.state.upsert_evals(index, preemption_evals)
         else:
-            payload = {"job": plan.job, "allocs": allocs}
+            # The driving eval rides the payload for the event stream: a
+            # stop or eviction keeps its placement eval on the alloc row.
+            payload = {"job": plan.job, "allocs": allocs,
+                       "eval_id": plan.eval_id}
             if result.alloc_slabs:
                 payload["slabs"] = result.alloc_slabs
             if preemption_evals:
@@ -781,6 +801,23 @@ class PlanApplier:
             self.plan_queue.note_applied(
                 plan.job.id if plan.job is not None else "", index)
         resident.note_plan_applied(index)
+        eb = self.state.event_broker
+        if eb is not None:
+            # One plan-level summary on top of the store's per-alloc and
+            # per-slab events.  It is published after the log apply
+            # returned, outside its serialization, so a concurrent apply
+            # may already have published a higher index: clamp keeps the
+            # stream monotone, and PlanIndex keeps the true index.
+            placed = (sum(len(v) for v in result.node_allocation.values())
+                      + sum(len(sl.ids) for sl in result.alloc_slabs))
+            eb.publish_one(
+                s.TOPIC_PLAN, "PlanApplied", plan.eval_id, index,
+                {"Placed": placed,
+                 "Updated": sum(len(v) for v in result.node_update.values()),
+                 "Preempted": len(preempted),
+                 "Partial": bool(result.refresh_index),
+                 "PlanIndex": index},
+                eval_id=plan.eval_id, clamp=True)
         if preemption_evals:
             for ev in preemption_evals:
                 ev.snapshot_index = index

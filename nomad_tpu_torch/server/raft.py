@@ -9,9 +9,12 @@ in-memory store of nomad/server.go:91-95).
 - ``InmemLog`` — the single-voter in-memory log (raftInmem): always the
   leader.
 
+Each apply is traced as a ``raft.apply`` span (raft.py:241-245), which
+inherits the eval of the span it runs under (``plan.apply``).
+
 Left out, for later slices: the durable ``FileLog`` (WAL, fsync group
-commit, snapshots), ``MultiRaft``, and the ``raft.apply`` fault point
-and tracing span.
+commit, snapshots; ROADMAP queue 1 item 16), ``MultiRaft`` (item 17), and
+the ``raft.apply`` fault point.
 """
 from __future__ import annotations
 
@@ -19,6 +22,7 @@ import threading
 import time
 from typing import Callable, List
 
+from ..utils import tracing
 from ..utils.telemetry import NULL_TELEMETRY
 from .fsm import FSM, MessageType
 
@@ -101,6 +105,12 @@ class RaftLog:
                 self._apply_next = index + 1
                 self._apply_cv.notify_all()
         self.metrics.measure_since("raft.apply", t0)
+        # Branch before building attrs: disarmed, a commit pays one load
+        # and a comparison.
+        tr = tracing.TRACER
+        if tr is not None:
+            tr.record("raft.apply", t0, time.perf_counter(), index=index,
+                      msg_type=getattr(msg_type, "name", str(msg_type)))
         return result, index
 
     def close(self) -> None:

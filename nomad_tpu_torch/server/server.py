@@ -21,16 +21,28 @@ worker thread.
 Entry points: :meth:`Server.node_register`,
 :meth:`Server.node_deregister`, :meth:`Server.node_update_status`,
 :meth:`Server.node_update_drain`, :meth:`Server.job_register`,
-:meth:`Server.job_deregister`, :meth:`Server.job_plan` (the ``job
-plan`` dry run: the annotated diff, nothing committed),
-:meth:`Server.shutdown`.  The metrics emitter publishes the broker,
+:meth:`Server.job_evaluate`, :meth:`Server.job_deregister`,
+:meth:`Server.job_plan` (the ``job plan`` dry run: the annotated diff,
+nothing committed), :meth:`Server.shutdown`.  The metrics emitter publishes the broker,
 blocked-eval, plan-queue, heartbeat and log gauges and the kernel
 breaker's ``breaker.state``/``breaker.trips`` each second.
 
-Left out, for later slices: RPC, endpoints, membership and forwarding;
-the durable log, snapshots and multi-voter raft; follower scheduling;
-core (GC) and periodic jobs; vault; the tenancy quotas and namespaces;
-tracing, the event stream and the blackbox hooks.
+Observability (server.py:150-157, :289-315, :392-440): ``ServerConfig(
+trace=True)`` arms the process-wide tracing plane at construction (the
+reference's ``NOMAD_TPU_TRACE``); an eval's ``eval.e2e`` umbrella opens
+at :meth:`Server.job_register` or :meth:`Server.job_evaluate` and closes
+at its broker ack; :meth:`Server.trace_for_eval` returns its timeline.
+``ServerConfig(events=True)`` (``NOMAD_TPU_EVENTS``) arms this server's
+cluster event stream at construction, and the first
+:meth:`Server.event_stream_subscribe` arms it lazily; the ring holds
+``events_ring`` events (``NOMAD_TPU_EVENTS_RING``).
+
+Left out, for later slices: RPC, endpoints, membership and forwarding,
+with the ``rpc.request`` span, the ``/v1/trace/*`` and
+``/v1/event/stream`` endpoints and the trace fanout over peers (ROADMAP
+queue 1 item 20); the durable log, snapshots and multi-voter raft;
+follower scheduling; core (GC) and periodic jobs; vault; the tenancy
+quotas and namespaces; the blackbox hooks (item 21).
 """
 from __future__ import annotations
 
@@ -48,9 +60,12 @@ from ..state import columnar as columnar_mod
 from ..state.state_store import StateStore
 from ..structs import structs as s
 from ..structs.diff import job_diff
+from ..utils import tracing
 from ..utils.telemetry import Telemetry
+from . import event_broker as event_stream
 from .blocked_evals import BlockedEvals
 from .eval_broker import EvalBroker
+from .event_broker import EventBroker, Subscription
 from .fsm import FSM, MessageType, TimeTable
 from .heartbeat import HeartbeatTimers
 from .plan_apply import PlanApplier
@@ -85,7 +100,11 @@ class ServerConfig:
     scheduler's encode and usage read and the applier's fit route slice,
     and ``columnar_guard_every`` is the cadence of their guards (the
     reference's ``NOMAD_TPU_COLUMNAR`` and
-    ``NOMAD_TPU_COLUMNAR_GUARD_EVERY``)."""
+    ``NOMAD_TPU_COLUMNAR_GUARD_EVERY``).  ``trace`` arms the process-wide
+    tracing plane at construction, ``events`` this server's event stream,
+    whose ring holds ``events_ring`` events (``NOMAD_TPU_TRACE``,
+    ``NOMAD_TPU_EVENTS``, ``NOMAD_TPU_EVENTS_RING``); both are off by
+    default."""
 
     num_schedulers: int = 1
     batch_size: int = 64
@@ -101,6 +120,9 @@ class ServerConfig:
     min_heartbeat_ttl: float = 10.0
     columnar: bool = True
     columnar_guard_every: int = columnar_mod.GUARD_EVERY
+    trace: bool = False
+    events: bool = False
+    events_ring: int = 4096
 
 
 class Server:
@@ -116,6 +138,9 @@ class Server:
             self.device = device_mod.resolve_device(cfg.device)
         self.logger = logger or logging.getLogger("nomad_tpu_torch.server")
         self.metrics = Telemetry()
+        # The tracing plane is process-wide and off by default.
+        if cfg.trace and not tracing.enabled():
+            tracing.enable()
         self._leader = False
         self._shutdown = threading.Event()
 
@@ -140,6 +165,19 @@ class Server:
             on_expire=self._heartbeat_expired,
             min_ttl=cfg.min_heartbeat_ttl, logger=self.logger,
             metrics=self.metrics)
+        # The cluster event stream: built always, armed (attached to the
+        # store and the process-wide registry) only by ``events`` or the
+        # first subscriber; disarmed, a state write pays one attribute
+        # load and a branch.  The relaxed index source: external events
+        # are clamped monotone by the broker anyway, and must not queue
+        # on the log lock behind the apply stream.
+        self.event_broker = EventBroker(
+            ring_size=cfg.events_ring, metrics=self.metrics,
+            index_source=self.raft.applied_index_relaxed)
+        self._events_enabled = False
+        self._events_lock = threading.Lock()
+        if cfg.events:
+            self.enable_event_stream()
         self.workers: List[BatchWorker] = []
         self._threads: List[threading.Thread] = []
 
@@ -182,6 +220,8 @@ class Server:
         (``JOIN_TIMEOUT`` a thread)."""
         self._shutdown.set()
         self._leader = False
+        event_stream.unregister(self.event_broker)
+        self.event_broker.close()
         for worker in self.workers:
             worker.stop(timeout=JOIN_TIMEOUT)
         self.plan_applier.stop(timeout=JOIN_TIMEOUT)
@@ -219,6 +259,48 @@ class Server:
     @property
     def state(self):
         return self.fsm.state
+
+    # -- observability -----------------------------------------------------
+
+    def enable_event_stream(self) -> None:
+        """Arm the event broker (server.py:392): attach it to the state
+        store's write path, the eval broker and the heartbeats, and to
+        the process-wide registry of external publishers.  Idempotent;
+        it stays armed for the server's lifetime, so a subscriber that
+        disconnects can resume against a ring that kept buffering."""
+        with self._events_lock:
+            if self._events_enabled:
+                return
+            self._events_enabled = True
+            self.fsm.event_broker = self.event_broker
+            self.fsm.state.event_broker = self.event_broker
+            # Writes applied before arming were never buffered: the gap
+            # horizon goes up to the applied index, read after the
+            # attach, so a stale resume errors instead of replaying
+            # nothing.
+            self.event_broker.mark_armed(self.raft.applied_index())
+            self.eval_broker.event_broker = self.event_broker
+            self.heartbeat.event_broker = self.event_broker
+            event_stream.register(self.event_broker)
+
+    def event_stream_subscribe(self, topics=None, from_index: int = 0,
+                               replay_all: bool = False) -> Subscription:
+        """Subscribe to the cluster event stream (server.py:423), arming
+        it on first use.  ``topics``: ``{topic: {keys}}`` (an empty set
+        for every key; see ``event_broker.parse_topic_filter``), None
+        for all.  Raises ``event_broker.EventIndexError`` when
+        ``from_index`` is below the ring's buffered horizon;
+        ``replay_all`` dumps whatever the ring still holds."""
+        self.enable_event_stream()
+        return self.event_broker.subscribe(topics=topics,
+                                           from_index=from_index,
+                                           replay_all=replay_all)
+
+    def trace_for_eval(self, eval_id: str) -> List[dict]:
+        """The eval's spans from this process's tracer, by start time
+        (empty while tracing is off).  The reference's fanout over peer
+        servers waits for RPC."""
+        return tracing.trace_for_eval(eval_id)
 
     def is_leader(self) -> bool:
         return self._leader
@@ -389,7 +471,33 @@ class Server:
             namespace=job.namespace,
             triggered_by=s.EVAL_TRIGGER_JOB_REGISTER, job_id=job.id,
             job_modify_index=index, status=s.EVAL_STATUS_PENDING)
+        # Open the eval.e2e umbrella (submit to broker ack) before the
+        # eval write, so it covers the enqueue and the queue wait.
+        tr = tracing.TRACER
+        if tr is not None:
+            tr.mark(ev.id, job_id=job.id, submit="job_register",
+                    priority=job.priority, namespace=job.namespace)
         self.raft.apply(MessageType.EVAL_UPDATE, {"evals": [ev]})
+        return index, ev.id
+
+    def job_evaluate(self, job_id: str) -> Tuple[int, str]:
+        """Force a new evaluation of an existing job (job_endpoint.go
+        Evaluate): returns (index, eval_id)."""
+        job = self.state.job_by_id(None, job_id)
+        if job is None:
+            raise KeyError(f"job not found: {job_id}")
+        if self._leader:
+            self.eval_broker.check_admission(job.priority)
+        ev = s.Evaluation(
+            id=s.generate_uuid(), priority=job.priority, type=job.type,
+            namespace=job.namespace,
+            triggered_by=s.EVAL_TRIGGER_JOB_REGISTER, job_id=job.id,
+            job_modify_index=job.modify_index, status=s.EVAL_STATUS_PENDING)
+        tr = tracing.TRACER
+        if tr is not None:
+            tr.mark(ev.id, job_id=job.id, submit="job_evaluate",
+                    priority=job.priority, namespace=job.namespace)
+        _, index = self.raft.apply(MessageType.EVAL_UPDATE, {"evals": [ev]})
         return index, ev.id
 
     def job_deregister(self, job_id: str,
@@ -550,7 +658,7 @@ class Server:
     # -- reads -------------------------------------------------------------
 
     def stats(self) -> dict:
-        return {
+        out = {
             "leader": self._leader,
             "applied_index": self.raft.applied_index(),
             "broker": self.eval_broker.stats(),
@@ -558,3 +666,6 @@ class Server:
             "plan_queue_depth": self.plan_queue.depth(),
             "heartbeat_active": self.heartbeat.active(),
         }
+        if self._events_enabled:
+            out["events"] = self.event_broker.stats()
+        return out

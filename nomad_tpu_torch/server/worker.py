@@ -15,9 +15,14 @@ The reference reads the stale-snapshot and pipeline switches from its
 environment (worker.py:36, :471); here they are constructor arguments
 (``stale_snapshot``, ``pipeline``), and the server's config carries them.
 Core (GC) evals are not dequeued until the core scheduler is ported.
+Both drains are traced as the reference's are: ``worker.process_batch``
+(a retroactive span in the pipelined drain, whose phases interleave
+batches on one thread), ``worker.wait_for_index``, one ``worker.attempt``
+marker a delivery, and ``worker.submit_plan`` around each plan's queue
+wait; the per-eval path has its ``worker.attempt`` and
+``worker.invoke_scheduler`` spans.
 Left out: the per-eval worker's own loop (the reference's oracle-only
-``Worker.run``; the port's server runs batch workers), the tracing spans
-and attempt markers.
+``Worker.run``; the port's server runs batch workers).
 """
 from __future__ import annotations
 
@@ -28,6 +33,7 @@ from typing import List, Optional, Tuple
 
 from ..scheduler.scheduler import new_scheduler
 from ..structs import structs as s
+from ..utils import tracing
 from ..utils.backoff import Backoff, wait_until
 from ..utils.telemetry import NULL_TELEMETRY
 from .eval_broker import EvalBroker, EvalBrokerError
@@ -72,8 +78,12 @@ class WorkerPlanner:
         except EvalBrokerError:
             pass
         try:
-            future = w.plan_queue.enqueue(plan)
-            result = future.wait()
+            tr = tracing.TRACER
+            submit_span = tracing.NOOP if tr is None else tr.span(
+                "worker.submit_plan", eval_id=self.eval.id)
+            with submit_span:
+                future = w.plan_queue.enqueue(plan)
+                result = future.wait()
         finally:
             try:
                 w.broker.resume_nack_timeout(self.eval.id, self.token)
@@ -195,19 +205,30 @@ class Worker:
         """Dequeue→schedule→ack cycle (worker.go:106-227).  The unsuffixed
         ``worker.invoke_scheduler`` sample belongs to the batch
         scheduler's batches; one eval here is sampled by its type."""
-        try:
-            with self.metrics.measure("worker.wait_for_index"):
-                self.wait_for_index(ev.modify_index, RAFT_SYNC_LIMIT)
-            with self.metrics.measure(f"worker.invoke_scheduler.{ev.type}"):
-                self.invoke_scheduler(ev, token)
-            self.broker.ack(ev.id, token)
-        except Exception as exc:
-            self.logger.exception("eval %s failed; nacking", ev.id)
-            self.record_eval_failure(ev, exc)
+        # Branch on the tracer before building attrs: delivery_attempts
+        # takes the broker lock, which the disarmed path must not pay.
+        tr = tracing.TRACER
+        attempt_span = tracing.NOOP if tr is None else tr.span(
+            "worker.attempt", eval_id=ev.id, eval_type=ev.type,
+            attempt=self.broker.delivery_attempts(ev.id))
+        with attempt_span as sp:
             try:
-                self.broker.nack(ev.id, token)
-            except EvalBrokerError:
-                pass
+                with self.metrics.measure("worker.wait_for_index"), \
+                        tracing.span("worker.wait_for_index"):
+                    self.wait_for_index(ev.modify_index, RAFT_SYNC_LIMIT)
+                with self.metrics.measure(
+                        f"worker.invoke_scheduler.{ev.type}"), \
+                        tracing.span("worker.invoke_scheduler"):
+                    self.invoke_scheduler(ev, token)
+                self.broker.ack(ev.id, token)
+            except Exception as exc:
+                self.logger.exception("eval %s failed; nacking", ev.id)
+                sp.set(nack_reason=f"{type(exc).__name__}: {exc}")
+                self.record_eval_failure(ev, exc)
+                try:
+                    self.broker.nack(ev.id, token)
+                except EvalBrokerError:
+                    pass
 
     def record_eval_failure(self, ev: s.Evaluation, exc: Exception) -> None:
         self.record_eval_failures([ev], exc)
@@ -329,12 +350,13 @@ class _BatchCtx:
     """One in-flight batch of the pipelined drain: broker tokens, the
     scheduler and its prepared batch, and when its processing began."""
 
-    __slots__ = ("batch", "sched", "prep", "t0")
+    __slots__ = ("batch", "sched", "prep", "attempts", "t0")
 
-    def __init__(self, batch, sched, prep, t0):
+    def __init__(self, batch, sched, prep, attempts, t0):
         self.batch = batch
         self.sched = sched
         self.prep = prep
+        self.attempts = attempts
         self.t0 = t0
 
 
@@ -377,7 +399,7 @@ class BatchWorker(Worker):
                 else:
                     with self.metrics.measure(
                             "worker.invoke_scheduler.batch"):
-                        self._process_batch(batch)
+                        self.process_batch(batch)
             # Always also poll system evals (zero timeout), so a
             # sustained service/batch stream cannot starve them.
             self._poll_system()
@@ -397,10 +419,38 @@ class BatchWorker(Worker):
                                    metrics=self.metrics,
                                    **self.scheduler_kwargs)
 
+    def process_batch(self, batch: List[Tuple[s.Evaluation, str]]):
+        """One batch under a ``worker.process_batch`` span: the batch's
+        BatchStats, or None when the batch was nacked."""
+        tr = tracing.TRACER
+        if tr is None:
+            return self._process_batch(batch)
+        with tr.span("worker.process_batch",
+                     num_evals=len(batch),
+                     **tracing.eval_id_attrs(
+                         (ev for ev, _ in batch), len(batch))) as sp:
+            stats = self._process_batch(batch)
+            if stats is not None and stats.device_ran:
+                # What the batch cost on the link, auditable per batch
+                # from the span tree alone (the port's pass is always
+                # fused: one result fetch).
+                sp.set(fused=1, fetch_bytes=stats.fetch_bytes,
+                       commit_steps=stats.commit_steps)
+        return stats
+
+    def _attempts(self, batch) -> dict:
+        """Each eval's delivery number, read before scheduling: a nack
+        timeout firing mid-batch would bump it for the next delivery."""
+        if tracing.TRACER is None:
+            return {}
+        return {ev.id: self.broker.delivery_attempts(ev.id)
+                for ev, _ in batch}
+
     def _process_batch(self, batch: List[Tuple[s.Evaluation, str]]):
         """The batch's BatchStats, or None when the batch was nacked."""
         max_index = max(ev.modify_index for ev, _ in batch)
-        self.wait_for_index(max_index, RAFT_SYNC_LIMIT)
+        with tracing.span("worker.wait_for_index"):
+            self.wait_for_index(max_index, RAFT_SYNC_LIMIT)
         # Always a fresh snapshot on the batch path: the resident usage
         # mirror advances by inter-snapshot deltas, and a reused
         # snapshot would hide the previous batch's own placements.
@@ -408,24 +458,36 @@ class BatchWorker(Worker):
         snap = self.raft.fsm.state.snapshot()
         # One scheduler per batch; per-eval planners for token fencing.
         mux = _MuxPlanner(self, batch, snapshot_index)
+        attempts = self._attempts(batch)
         try:
             sched = self._new_batch_scheduler(snap, mux)
             stats = sched.schedule_batch([ev for ev, _ in batch])
         except Exception as exc:
-            self._nack_batch(batch, exc)
+            self._nack_batch(batch, attempts, exc)
             return None
-        self._ack_batch(batch)
+        self._ack_batch(batch, attempts)
         return stats
 
-    def _ack_batch(self, batch) -> None:
+    def _ack_batch(self, batch, attempts) -> None:
+        """Ack every eval, with one ``worker.attempt`` marker a delivery
+        (the batch path's twin of the per-eval worker's span)."""
+        tr = tracing.TRACER
         for ev, token in batch:
             try:
                 self.broker.ack(ev.id, token)
-            except EvalBrokerError:
+            except EvalBrokerError as exc:
                 # The delivery burned anyway (a nack timeout redelivered
-                # the eval mid-batch).
+                # the eval mid-batch): the marker says so.
                 self.logger.warning("ack of eval %s failed", ev.id,
                                     exc_info=True)
+                if tr is not None:
+                    tr.event("worker.attempt", eval_id=ev.id,
+                             attempt=attempts.get(ev.id, 0),
+                             nack_reason=f"ack failed: {exc}")
+            else:
+                if tr is not None:
+                    tr.event("worker.attempt", eval_id=ev.id,
+                             attempt=attempts.get(ev.id, 0))
 
     # -- pipelined drain ---------------------------------------------------
     #
@@ -468,7 +530,8 @@ class BatchWorker(Worker):
         return self._pipeline_dispatch(ctx)
 
     def _pipeline_prepare(self, batch) -> Optional[_BatchCtx]:
-        t0 = time.perf_counter()
+        t0 = tracing.now()
+        attempts = self._attempts(batch)
         try:
             max_index = max(ev.modify_index for ev, _ in batch)
             self.wait_for_index(max_index, RAFT_SYNC_LIMIT)
@@ -477,9 +540,9 @@ class BatchWorker(Worker):
             mux = _MuxPlanner(self, batch, snapshot_index)
             sched = self._new_batch_scheduler(snap, mux)
             prep = sched._prepare_batch([ev for ev, _ in batch])
-            return _BatchCtx(batch, sched, prep, t0)
+            return _BatchCtx(batch, sched, prep, attempts, t0)
         except Exception as exc:
-            self._nack_batch(batch, exc)
+            self._nack_batch(batch, attempts, exc)
             return None
 
     def _pipeline_dispatch(self, ctx: _BatchCtx) -> Optional[_BatchCtx]:
@@ -490,28 +553,43 @@ class BatchWorker(Worker):
             ctx.sched._dispatch_prepared(ctx.prep)
             return ctx
         except Exception as exc:
-            self._nack_batch(ctx.batch, exc)
+            self._nack_batch(ctx.batch, ctx.attempts, exc)
             return None
 
     def _pipeline_finish(self, ctx: _BatchCtx) -> None:
         try:
             stats = ctx.sched._complete_prepared(ctx.prep)
         except Exception as exc:
-            self._nack_batch(ctx.batch, exc)
+            self._nack_batch(ctx.batch, ctx.attempts, exc)
             return
         ctx.sched._emit_batch_stats(stats)
         # This batch's wall time from its dequeue to its ack, neighbour
         # batches' host phases included.
         self.metrics.add_sample("worker.invoke_scheduler.batch",
-                                (time.perf_counter() - ctx.t0) * 1000.0)
-        self._ack_batch(ctx.batch)
+                                (tracing.now() - ctx.t0) * 1000.0)
+        tr = tracing.TRACER
+        if tr is not None:
+            # Retroactive: the pipelined phases interleave batches on
+            # this thread, so a context-managed span would mis-stack.
+            tr.record("worker.process_batch", ctx.t0, tracing.now(),
+                      num_evals=len(ctx.batch), pipelined=True, fused=1,
+                      fetch_bytes=stats.fetch_bytes,
+                      **tracing.eval_id_attrs(
+                          (ev for ev, _ in ctx.batch), len(ctx.batch)))
+        self._ack_batch(ctx.batch, ctx.attempts)
 
-    def _nack_batch(self, batch, exc: Exception) -> None:
+    def _nack_batch(self, batch, attempts, exc: Exception) -> None:
         """A failed batch (worker.py:605-620): the reason written onto
-        every eval, then every eval nacked for redelivery."""
+        every eval, then every eval nacked for redelivery, each with its
+        ``worker.attempt`` marker."""
+        tr = tracing.TRACER
         self.logger.exception("batch scheduling failed; nacking batch")
         self.record_eval_failures([ev for ev, _ in batch], exc)
         for ev, token in batch:
+            if tr is not None:
+                tr.event("worker.attempt", eval_id=ev.id,
+                         attempt=attempts.get(ev.id, 0),
+                         nack_reason=f"{type(exc).__name__}: {exc}")
             try:
                 self.broker.nack(ev.id, token)
             except EvalBrokerError:

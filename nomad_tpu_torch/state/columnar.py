@@ -85,10 +85,13 @@ def note_guard_mismatch(kind: str, detail: str, breaker=None,
                         **payload) -> None:
     """The one response of every columnar guard (static encode, usage,
     plan fit) to a mismatch: count it, bump the epoch (every mirror in
-    the process rebuilds before it is trusted again), log it and feed the
-    breaker.  The reference's trace event and ``ColumnarGuardMismatch``
-    event-stream entry are this log line (no tracing or event stream in
-    the port yet)."""
+    the process rebuilds before it is trusted again), log it, trace it (a
+    ``columnar.guard_mismatch`` event), publish a
+    ``Node``/``ColumnarGuardMismatch`` event and feed the breaker
+    (columnar.py:95-121)."""
+    from .. import fault
+    from ..utils import tracing
+
     global GUARD_MISMATCHES, USAGE_GUARD_MISMATCHES
     if kind == "static":
         GUARD_MISMATCHES += 1
@@ -99,6 +102,11 @@ def note_guard_mismatch(kind: str, detail: str, breaker=None,
         "columnar %s guard diverged from the object walk (%s, %s); "
         "rebuilding the mirror and feeding the breaker", kind, detail,
         payload)
+    tracing.event("columnar.guard_mismatch", kind=kind, detail=detail,
+                  **{k.lower(): v for k, v in payload.items()})
+    fault.note_event_stream(
+        "Node", "ColumnarGuardMismatch", detail,
+        dict(payload, Kind=kind, Field=detail))
     if breaker is not None:
         breaker.record(False)
 

@@ -25,11 +25,18 @@ writes maintain it, the usage is folded from the delta feed when read,
 and snapshots share it copy-on-write (:meth:`StateStore.columns`,
 :meth:`StateStore.column_usage`).
 
+Every write path publishes its events on the cluster event stream
+(``server/event_broker.py``) when a broker is attached
+(``StateStore.event_broker``, None by default: one attribute load and a
+branch a write), after the write and outside the lock; a snapshot never
+publishes (state_store.py:295).
+
 Left out of the copy: deployments, namespaces
-(and the per-namespace usage fold of the delta log), vault accessors,
-periodic launches, job version history, watch sets, the event stream and
-persistence.  The ``ws`` argument of the readers is kept for the
-interface and ignored.
+(and the per-namespace usage fold of the delta log) with their publishes,
+vault accessors, periodic launches, job version history, eval delete (the
+GC path; its ``EvalDeleted`` publish comes with it, ROADMAP queue 1 item
+18), watch sets and persistence.  The ``ws`` argument of the readers is
+kept for the interface and ignored.
 """
 from __future__ import annotations
 
@@ -54,6 +61,11 @@ ALLOC_LOG_CAP = 262_144
 
 class StateStore:
     """The authoritative in-memory database of cluster state."""
+
+    # The cluster event stream's broker: attached by the Server when the
+    # stream is armed, None otherwise.  A class attribute, so snapshots
+    # made through __new__ read None.
+    event_broker = None
 
     def __init__(self, alloc_log_cap: int = ALLOC_LOG_CAP,
                  columnar: bool = True) -> None:
@@ -145,6 +157,9 @@ class StateStore:
             # node write drops only the writer's reference (_bump).
             snap._ready_nodes_cache = self.__dict__.setdefault(
                 "_ready_nodes_cache", {})
+            # Writes to a snapshot (job plan dry runs, scheduler harness
+            # worlds) are hypothetical: they never publish events.
+            snap.event_broker = None
             return snap
 
     # -- the columnar mirror ------------------------------------------------
@@ -384,6 +399,13 @@ class StateStore:
             self.nodes_table[node.id] = node
             self._col_node_upserted(node, existing)
             self._bump("nodes", index)
+        eb = self.event_broker
+        if eb is not None:
+            eb.publish_one(
+                s.TOPIC_NODE,
+                "NodeRegistered" if existing is None else "NodeUpdated",
+                node.id, index,
+                {"Status": node.status, "Datacenter": node.datacenter})
 
     def delete_node(self, index: int, node_id: str) -> None:
         """(state_store.go:446).  A delete shifts every later row: the
@@ -395,6 +417,9 @@ class StateStore:
             del self.nodes_table[node_id]
             self._columns = None
             self._bump("nodes", index)
+        eb = self.event_broker
+        if eb is not None:
+            eb.publish_one(s.TOPIC_NODE, "NodeDeregistered", node_id, index)
 
     def update_node_status(self, index: int, node_id: str,
                            status: str) -> None:
@@ -410,6 +435,10 @@ class StateStore:
             if self._columns is not None:
                 self._columns.set_eligible(node_id, node.ready())
             self._bump("nodes", index)
+        eb = self.event_broker
+        if eb is not None:
+            eb.publish_one(s.TOPIC_NODE, "NodeStatusUpdated", node_id, index,
+                           {"Status": status, "Previous": existing.status})
 
     def update_node_drain(self, index: int, node_id: str,
                           drain: bool) -> None:
@@ -425,6 +454,10 @@ class StateStore:
             if self._columns is not None:
                 self._columns.set_eligible(node_id, node.ready())
             self._bump("nodes", index)
+        eb = self.event_broker
+        if eb is not None:
+            eb.publish_one(s.TOPIC_NODE, "NodeDrainUpdated", node_id, index,
+                           {"Drain": drain})
 
     def node_by_id(self, ws, node_id: str) -> Optional[s.Node]:
         with self._lock:
@@ -454,6 +487,12 @@ class StateStore:
             self._update_summary_with_job(index, job)
             self.jobs_table[job.id] = job
             self._bump("jobs", index)
+        eb = self.event_broker
+        if eb is not None:
+            eb.publish_one(s.TOPIC_JOB, "JobRegistered", job.id, index,
+                           {"Type": job.type, "Status": job.status,
+                            "Version": job.version, "Stop": job.stop,
+                            "Namespace": job.namespace})
 
     def delete_job(self, index: int, job_id: str) -> None:
         """(state_store.go:653): removes the job and its summary."""
@@ -464,6 +503,9 @@ class StateStore:
             self.job_summary_table.pop(job_id, None)
             self._bump("jobs", index)
             self._bump("job_summary", index)
+        eb = self.event_broker
+        if eb is not None:
+            eb.publish_one(s.TOPIC_JOB, "JobDeregistered", job_id, index)
 
     def job_by_id(self, ws, job_id: str) -> Optional[s.Job]:
         with self._lock:
@@ -510,6 +552,14 @@ class StateStore:
                 jobs.setdefault(ev.job_id, "")
             self._set_job_statuses(index, jobs, eval_delete=False)
             self._bump("evals", index)
+        eb = self.event_broker
+        if eb is not None:
+            eb.publish([eb.make_event(
+                s.TOPIC_EVAL, "EvalUpdated", ev.id, index,
+                {"Status": ev.status, "JobID": ev.job_id,
+                 "TriggeredBy": ev.triggered_by, "NodeID": ev.node_id,
+                 "Namespace": ev.namespace},
+                eval_id=ev.id) for ev in evals])
 
     def _nested_upsert_eval(self, index: int, ev: s.Evaluation) -> None:
         ev = ev.copy()
@@ -563,11 +613,36 @@ class StateStore:
         """(state_store.go:1435).  ``owned=True``: the caller hands the
         objects over (a plan commit makes fresh allocs) and the store
         inserts them as they are."""
+        eb = self.event_broker
+        events: Optional[List[s.Event]] = [] if eb is not None else None
         with self._lock:
-            self._upsert_allocs_impl(index, allocs, owned)
+            self._upsert_allocs_impl(index, allocs, owned, events=events)
+        if events:
+            eb.publish(events)
+
+    @staticmethod
+    def _alloc_event_type(alloc: s.Allocation,
+                          existing: Optional[s.Allocation]) -> str:
+        """Event type for one alloc write: the transition an operator
+        cares about, not the table mechanics."""
+        if alloc.client_status == s.ALLOC_CLIENT_STATUS_LOST:
+            return "AllocLost"
+        if alloc.desired_status == s.ALLOC_DESIRED_STATUS_EVICT:
+            return "AllocEvicted"
+        if alloc.desired_status == s.ALLOC_DESIRED_STATUS_STOP:
+            return "AllocStopped"
+        if existing is None:
+            return "AllocPlaced"
+        return "AllocUpdated"
 
     def _upsert_allocs_impl(self, index: int, allocs: List[s.Allocation],
-                            owned: bool = False) -> None:
+                            owned: bool = False,
+                            events: Optional[List[s.Event]] = None,
+                            plan_eval_id: str = "") -> None:
+        """``events`` (a list, when a broker is attached) collects one
+        event per alloc; ``plan_eval_id`` is the plan's driving eval,
+        which a stop or eviction keeps off the alloc row itself."""
+        eb = self.event_broker
         jobs: Dict[str, str] = {}
         summary_cache: Dict[str, s.JobSummary] = {}
         # Index additions of fresh allocs are batched per key: one O(1)
@@ -598,6 +673,16 @@ class StateStore:
                 alloc.job = existing.job
             self._log_transition(index, existing, alloc)
             self.allocs_table[alloc.id] = alloc
+            if events is not None:
+                events.append(eb.make_event(
+                    s.TOPIC_ALLOC, self._alloc_event_type(alloc, existing),
+                    alloc.id, index,
+                    {"JobID": alloc.job_id, "NodeID": alloc.node_id,
+                     "TaskGroup": alloc.task_group,
+                     "DesiredStatus": alloc.desired_status,
+                     "ClientStatus": alloc.client_status,
+                     "Namespace": alloc.namespace},
+                    eval_id=plan_eval_id or alloc.eval_id))
             if existing is None:
                 new_by_node.setdefault(alloc.node_id, []).append(alloc.id)
                 new_by_job.setdefault(alloc.job_id, []).append(alloc.id)
@@ -629,6 +714,8 @@ class StateStore:
                                   allocs: List[s.Allocation]) -> None:
         """Merge the client-authoritative fields (status, description,
         task states) into the stored allocs (state_store.go:1367)."""
+        eb = self.event_broker
+        events: Optional[List[s.Event]] = [] if eb is not None else None
         with self._lock:
             for client_alloc in allocs:
                 existing = self._get_alloc(client_alloc.id)
@@ -643,11 +730,21 @@ class StateStore:
                 self._update_summary_with_alloc(index, updated, existing)
                 self._log_transition(index, existing, updated)
                 self.allocs_table[client_alloc.id] = updated
+                if events is not None:
+                    events.append(eb.make_event(
+                        s.TOPIC_ALLOC, "AllocClientUpdated", updated.id,
+                        index,
+                        {"JobID": updated.job_id, "NodeID": updated.node_id,
+                         "ClientStatus": updated.client_status,
+                         "Previous": existing.client_status},
+                        eval_id=updated.eval_id))
                 forced = ("" if updated.terminal_status()
                           else s.JOB_STATUS_RUNNING)
                 self._set_job_statuses(index, {existing.job_id: forced},
                                        eval_delete=False)
             self._bump("allocs", index)
+        if events:
+            eb.publish(events)
 
     def alloc_by_id(self, ws, alloc_id: str) -> Optional[s.Allocation]:
         with self._lock:
@@ -851,12 +948,17 @@ class StateStore:
 
     def upsert_plan_results(self, index: int, job: Optional[s.Job],
                             allocs: List[s.Allocation],
-                            slabs: Optional[List[s.AllocSlab]] = None
-                            ) -> None:
+                            slabs: Optional[List[s.AllocSlab]] = None,
+                            eval_id: str = "") -> None:
         """Commit a plan's result (state_store.go:89): the plan's job
         onto its live allocs and slab prototypes that carry none, the
         combined resources of an alloc that has only per-task ones, then
-        the upsert (the store owns the allocs from here on)."""
+        the upsert (the store owns the allocs from here on).  ``eval_id``
+        is the plan's driving eval: a stop or eviction keeps its
+        placement eval on the alloc row, so the event stream takes the
+        driving one from here."""
+        eb = self.event_broker
+        events: Optional[List[s.Event]] = [] if eb is not None else None
         with self._lock:
             for alloc in allocs:
                 if alloc.job is None and not alloc.terminal_status():
@@ -867,27 +969,35 @@ class StateStore:
                         total.add(task_res)
                     total.add(alloc.shared_resources)
                     alloc.resources = total
-            self._upsert_allocs_impl(index, allocs, owned=True)
+            self._upsert_allocs_impl(index, allocs, owned=True,
+                                     events=events, plan_eval_id=eval_id)
             if slabs:
                 for slab in slabs:
                     p = slab.proto
                     if p.job is None and not p.terminal_status():
                         p.job = job
-                self._upsert_slabs_impl(index, slabs)
+                self._upsert_slabs_impl(index, slabs, events=events)
+        if events:
+            eb.publish(events)
 
     # -- bulk placements ---------------------------------------------------
 
     def upsert_slabs(self, index: int, slabs: List[s.AllocSlab]) -> None:
         """Bulk columnar insert of fresh placements (the batch scheduler's
         plans)."""
+        eb = self.event_broker
+        events: Optional[List[s.Event]] = [] if eb is not None else None
         with self._lock:
-            self._upsert_slabs_impl(index, slabs)
+            self._upsert_slabs_impl(index, slabs, events=events)
+        if events:
+            eb.publish(events)
 
-    def _upsert_slabs_impl(self, index: int,
-                           slabs: List[s.AllocSlab]) -> None:
+    def _upsert_slabs_impl(self, index: int, slabs: List[s.AllocSlab],
+                           events: Optional[List[s.Event]] = None) -> None:
         """The table value of each alloc id is the slab itself; the
         per-alloc work is deferred to the first reader, the summary and
-        job status are updated once per slab."""
+        job status are updated once per slab, and so is the event: one
+        ``AllocPlacedBulk`` a slab, not one a placement."""
         jobs: Dict[str, str] = {}
         for slab in slabs:
             ids = slab.ids
@@ -903,6 +1013,12 @@ class StateStore:
             self._log_slab(index, slab)
             self._pending_slabs.append(slab)
             self._pending_by_job.setdefault(proto.job_id, []).append(slab)
+            if events is not None:
+                events.append(self.event_broker.make_event(
+                    s.TOPIC_ALLOC, "AllocPlacedBulk", proto.job_id, index,
+                    {"JobID": proto.job_id, "TaskGroup": proto.task_group,
+                     "Count": len(ids), "Namespace": proto.namespace},
+                    eval_id=proto.eval_id))
             self._update_summary_bulk(index, proto, len(ids))
             if proto.job is not None:
                 forced = ("" if proto.terminal_status()

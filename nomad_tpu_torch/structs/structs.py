@@ -9,7 +9,9 @@ Left out of the copy: periodic and parameterized jobs, services, vault,
 templates and artifacts as types (a task keeps the last three as plain
 data, compared by the in-place update test and rendered by the job
 diff, ``structs/diff.py``, as the reference renders their types),
-deployments, namespaces and the event stream.
+deployments and namespaces.  The event stream's structs (``TOPIC_*``,
+``EVENT_TOPICS``, ``Event``) are here; the deployment and namespace
+topics name tables the port does not have yet.
 """
 from __future__ import annotations
 
@@ -1073,3 +1075,45 @@ class JobSummary:
         j = _fast_copy(self)
         j.summary = {k: v.copy() for k, v in self.summary.items()}
         return j
+
+
+# -- cluster event stream (reference: nomad/stream, the 1.0 event broker) ----
+
+TOPIC_NODE = "Node"
+TOPIC_JOB = "Job"
+TOPIC_EVAL = "Eval"
+TOPIC_ALLOC = "Alloc"
+TOPIC_DEPLOYMENT = "Deployment"
+TOPIC_PLAN = "Plan"
+TOPIC_BREAKER = "Breaker"
+TOPIC_FAULT = "Fault"
+TOPIC_NAMESPACE = "Namespace"
+
+EVENT_TOPICS = (TOPIC_NODE, TOPIC_JOB, TOPIC_EVAL, TOPIC_ALLOC,
+                TOPIC_DEPLOYMENT, TOPIC_PLAN, TOPIC_BREAKER, TOPIC_FAULT,
+                TOPIC_NAMESPACE)
+
+
+@dataclass
+class Event:
+    """One structured state-change event (structs/event.go Event): a
+    (topic, type, key) triple stamped with the raft index of the write
+    that produced it, a payload stub, and — when the write happened
+    under a traced span — the correlating eval/span ids from the
+    tracing plane, so an event timeline joins against
+    ``trace_for_eval``."""
+
+    topic: str = ""
+    type: str = ""
+    key: str = ""
+    index: int = 0
+    payload: Dict[str, object] = field(default_factory=dict)
+    eval_id: str = ""
+    span_id: int = 0
+    wall: float = 0.0
+
+    def to_wire_dict(self) -> Dict[str, object]:
+        return {"Topic": self.topic, "Type": self.type, "Key": self.key,
+                "Index": self.index, "Payload": self.payload,
+                "EvalID": self.eval_id, "SpanID": self.span_id,
+                "Wall": self.wall}

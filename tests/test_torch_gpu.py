@@ -694,3 +694,91 @@ def test_fingerprint_path_on_the_card():
     assert got["card_equals_cpu"] and got["second_start_refused"]
     assert (got["trace_scored_rows_events"] == got["scored_rows_launches"]
             == got["committing_spec_steps"] > 0)
+
+
+@pytest.mark.gpu
+def test_traced_batch_on_the_card():
+    """One batch on the card with the tracing plane armed: the
+    ``batch.schedule`` root holds every phase span, one ``batch.fetch``,
+    and a ``batch.device`` as long as the batch's ``device_seconds`` (the
+    CUDA-event interval) with its rounds; the placements equal the
+    untraced CPU batch's."""
+    need_card()
+    from nomad_tpu_torch import mock
+    from nomad_tpu_torch.ops.batch_sched import TorchBatchScheduler
+    from nomad_tpu_torch.ops.breaker import KernelCircuitBreaker
+    from nomad_tpu_torch.scheduler.testing import Harness
+    from nomad_tpu_torch.structs import structs as ps
+    from nomad_tpu_torch.utils import tracing
+
+    def world(dev, traced):
+        h = Harness()
+        for i in range(64):
+            n = mock.node()
+            n.id = f"node-{i:02d}"
+            n.resources.networks = []
+            n.reserved.networks = []
+            h.state.upsert_node(h.next_index(), n)
+        evals = []
+        for k in range(4):
+            job = mock.job()
+            job.id = f"job-{k}"
+            job.task_groups[0].count = 20
+            for tk in job.task_groups[0].tasks:
+                tk.resources.networks = []
+            h.state.upsert_job(h.next_index(), job)
+            evals.append(ps.Evaluation(
+                id=f"ev-{k}", priority=job.priority, type=job.type,
+                triggered_by=ps.EVAL_TRIGGER_JOB_REGISTER, job_id=job.id,
+                status=ps.EVAL_STATUS_PENDING))
+        if traced:
+            tracing.enable()
+        try:
+            st = TorchBatchScheduler(
+                h.logger, h.snapshot(), h, device=dev, rng_seed=3,
+                breaker=KernelCircuitBreaker()).schedule_batch(evals)
+            spans = tracing.trace_for_eval("ev-0")
+        finally:
+            tracing.disable()
+        placed = sorted((a.job_id, a.name, a.node_id)
+                        for a in h.state.allocs(None))
+        return st, spans, placed
+
+    st, spans, placed = world("cuda", True)
+    _, none, want = world("cpu", False)
+    assert none == [] and placed == want and len(placed) == 80
+    (root,) = [sp for sp in spans if sp["Name"] == "batch.schedule"]
+    kids = [sp for sp in spans if sp["ParentID"] == root["SpanID"]]
+    names = [sp["Name"] for sp in kids]
+    for n in ("batch.phase1", "batch.phase2", "batch.encode",
+              "batch.device", "batch.metrics", "batch.finalize"):
+        assert names.count(n) == 1, (n, names)
+    assert names.count("batch.fetch") == 1
+    (dev_span,) = [sp for sp in kids if sp["Name"] == "batch.device"]
+    assert abs((dev_span["End"] - dev_span["Start"])
+               - st.device_seconds) < 1e-6
+    assert dev_span["Attrs"]["rounds"] == st.rounds
+    assert st.device_seconds > 0
+
+
+@pytest.mark.gpu
+def test_trace_path_on_the_card_equals_the_cpu():
+    """``chip_smoke.py`` phase ``trace`` at a small size: complete
+    lifecycles, one fetch and the device span per batch, the stream
+    monotone and never shed, launches = committing steps, the drill's
+    one eviction launch under its ``batch.preempt``, card = CPU on the
+    trace's and the stream's multisets, and the same copies and syncs
+    armed and disarmed."""
+    need_card()
+    import chip_smoke
+
+    got = chip_smoke.phase_trace("cuda", n_nodes=300, n_jobs=10, count=100,
+                                 follow_jobs=3, follow_count=20,
+                                 drill_nodes=16, turns=1)
+    assert got["card_equals_cpu"]
+    assert got["main"]["acked_evals"] == 13
+    assert got["preempt"]["eviction_sets"] == 1
+    main = got["launches"]["main"]
+    assert main["scored_rows"] == main["committing_spec_steps"] > 0
+    sync = got["sync"]
+    assert sync["armed"]["syncs"] == sync["disarmed"]["syncs"]

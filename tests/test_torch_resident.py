@@ -17,7 +17,6 @@ package's plan applier (the reference's over its FSM, the port's
 submit; plans, stores and host mirrors must be equal.
 """
 import dataclasses
-import logging
 import random
 
 import jax  # noqa: F401  (the reference computes on the CPU backend)
@@ -33,11 +32,13 @@ from nomad_tpu.ops.breaker import KernelCircuitBreaker as JBreaker
 from nomad_tpu.scheduler import Harness as JHarness
 from nomad_tpu.scheduler import context as jcontext
 from nomad_tpu.server.plan_apply import PlanApplier as JApplier
+from nomad_tpu.server import event_broker as jevent_broker
 from nomad_tpu.server.plan_queue import PlanQueue
 from nomad_tpu.structs import structs as js
 from nomad_tpu_torch import convert, fault
 from nomad_tpu_torch.ops import resident
 from nomad_tpu_torch.ops.batch_sched import TorchBatchScheduler
+from nomad_tpu_torch.server import event_broker as pevent_broker
 from nomad_tpu_torch.ops.breaker import KernelCircuitBreaker
 from nomad_tpu_torch.scheduler import context as pcontext
 from nomad_tpu_torch.scheduler.testing import Harness
@@ -375,26 +376,33 @@ def test_staleness_fence_serves_old_snapshot_without_regressing(
     assert got["kept"] and got["placed"] == 1
 
 
-def feed_gap_scenario(p, caplog=None):
-    h = p.harness()
-    for i in range(8):
-        h.state.upsert_node(h.next_index(), p.node(i))
-    p.schedule(h, [p.job(2)])
-    h.state._alloc_log_floor = p.res._STATE.alloc_index + 10
-    h.state._alloc_log.clear()
-    stats = p.schedule(h, [p.job(2)])
+def feed_gap_scenario(p):
+    # An armed event stream in the package, to catch the NodeStateDelta.
+    ebm = pevent_broker if p.port else jevent_broker
+    broker = ebm.EventBroker()
+    ebm.register(broker)
+    try:
+        h = p.harness()
+        for i in range(8):
+            h.state.upsert_node(h.next_index(), p.node(i))
+        p.schedule(h, [p.job(2)])
+        h.state._alloc_log_floor = p.res._STATE.alloc_index + 10
+        h.state._alloc_log.clear()
+        stats = p.schedule(h, [p.job(2)])
+    finally:
+        ebm.unregister(broker)
     return {"full": stats.full_reencodes, "hits": stats.resident_hits,
-            "placements": p.placements(h), "mirror": p.mirror()}
+            "placements": p.placements(h), "mirror": p.mirror(),
+            "events": [(e.topic, e.type, e.key, sorted(e.payload))
+                       for e in broker.buffered()]}
 
 
-def test_feed_gap_forces_full_reencode(monkeypatch, caplog):
-    with caplog.at_level(logging.WARNING,
-                         logger="nomad_tpu_torch.ops.resident"):
-        got = both(monkeypatch, feed_gap_scenario)
+def test_feed_gap_forces_full_reencode(monkeypatch):
+    got = both(monkeypatch, feed_gap_scenario)
     assert got["full"] == 1 and got["hits"] == 0
-    # The reference's NodeStateDelta event, logged by the port.
-    assert any("NodeStateDelta feed_gap" in r.getMessage()
-               for r in caplog.records)
+    # The reference's NodeStateDelta event, on each package's stream.
+    assert ("Node", "NodeStateDelta", "feed_gap",
+            ["AllocIndex", "Nodes", "PlanIndex", "Reason"]) in got["events"]
 
 
 def corruption_scenario(p, warm=1):

@@ -40,7 +40,7 @@ from nomad_tpu_torch.ops.batch_sched import TorchBatchScheduler
 from nomad_tpu_torch.ops.breaker import KernelCircuitBreaker
 from nomad_tpu_torch.scheduler.scheduler import new_scheduler
 from nomad_tpu_torch.scheduler.testing import Harness, RejectPlan
-from nomad_tpu_torch.state import StateStore
+from nomad_tpu_torch.state import StateStore, columnar
 from nomad_tpu_torch.structs import structs as ps
 
 SCORE_ATOL = 1e-5
@@ -459,6 +459,9 @@ def test_raw_device_error_propagates_without_the_breaker(monkeypatch,
     """A failed launch or fetch is no validation verdict: it propagates,
     the breaker records nothing and stays closed, and no eval is routed
     through the oracle."""
+    # The columnar guards' cadence counts reads process-wide: from zero,
+    # no guard verdict of the encode lands on this breaker either.
+    columnar.reset_counters()
     brk = KernelCircuitBreaker(threshold=0.9, window=8, min_checks=1)
     h, rng = port_cluster(8, 9)
     jobs, evals = port_register(h, rng, (2, 2))

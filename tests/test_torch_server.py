@@ -128,7 +128,8 @@ class World:
     """One server of either package, driven with the reference's objects
     (converted for the port)."""
 
-    def __init__(self, kind, mp, preemption=False, batch_size=8):
+    def __init__(self, kind, mp, preemption=False, batch_size=8,
+                 trace=False, events=False):
         self.kind = kind
         self.ref = kind == "ref"
         ids = Ids(SEED)
@@ -142,6 +143,9 @@ class World:
             mp.setenv("NOMAD_TPU_COLUMNAR", "1")
             mp.setenv("NOMAD_TPU_COLUMNAR_GUARD_EVERY", "1")
             mp.setenv("NOMAD_TPU_PREEMPTION", "1" if preemption else "0")
+            # The reference arms its planes at construction from these.
+            mp.setenv("NOMAD_TPU_TRACE", "1" if trace else "0")
+            mp.setenv("NOMAD_TPU_EVENTS", "1" if events else "0")
             self.breaker = jbreaker.KernelCircuitBreaker()
             # The reference's scheduler reads the process-wide breaker
             # at construction (nomad_tpu/ops/batch_sched.py:346).
@@ -157,7 +161,8 @@ class World:
                 device="cpu", rng_seed=SEED, num_schedulers=1,
                 batch_size=batch_size, min_heartbeat_ttl=HEARTBEAT_TTL,
                 preemption_enabled=preemption, breaker=self.breaker,
-                columnar=True, columnar_guard_every=1))
+                columnar=True, columnar_guard_every=1, trace=trace,
+                events=events))
 
     def _obj(self, obj, fn):
         return obj if self.ref else conv(obj, fn)
