@@ -65,7 +65,13 @@ Phases, each printed as one JSON line:
                ``scored_rows`` launch per committing step and the kernel
                held at its shapes there; the static encode and the usage
                read timed against their walks, and each wave's encode,
-               total and applier seconds by route;
+               total and applier seconds by route; then the store with
+               the mirror persisted in the v2 snapshot format and
+               restored (bytes and seconds): the restored mirror comes
+               from the snapshot's column section, its static encode and
+               usage read equal the original's (guard walks, 0
+               mismatches), and one more config (b) batch over each
+               store on the card gives the same plans;
 14. evals   -- the eval-driven entry: ``TorchBatchScheduler`` over the
                port's state store and ``Harness``, at config (b) width:
                100 register evals (batch 0), the two follow-ups, and a
@@ -206,7 +212,33 @@ Phases, each printed as one JSON line:
                plans, as many ``scored_rows`` kernel events in the
                session's chrome trace as launches counted, and a second
                ``start()`` during the session refused;
-21. times   -- each kernel's device time (profiler trace; CUDA events
+21. durable -- the durable server: phase 17's fleet and config (b)'s
+               waves through the port's ``Server`` on a ``FileLog`` (the
+               native group-commit WAL, fsync on, in a fresh temporary
+               dir) on the card (A), an uninterrupted twin on the
+               in-memory log on the card (B), and the CPU server on a
+               ``FileLog`` (C), each world in a process of its own under
+               one string hash seed.  A and C: the fleet, wave 1 (100 x
+               1000) to settled, ``raft.snapshot()``, wave 2 (10 x 200)
+               and one node down, wave 3's jobs registered with their
+               evals pending, one more entry under a ``wal.fsync`` crash,
+               and the process dies (no shutdown, no final snapshot);
+               restarted on the same dir: the recovery split (snapshot
+               read and restore, replay, leadership), the applied index
+               equal to the last acknowledged one, the content equal to
+               the pre-crash content, the torn entry absent, the mirror
+               from the snapshot's columns; then wave 3 (re-enqueued by
+               the leadership restore) and a follow-up (5 x 200): A = B
+               = C on committed allocs, eval statuses, blocked stats and
+               queued counts; one ``scored_rows`` launch per committing
+               step; one full re-encode of the resident mirror after the
+               restore, then hits; no guard mismatch, no nack, the
+               breaker closed, no node over capacity; a restart from the
+               snapshot alone equal again.  ``raft.apply`` mean and p99
+               on the file log against the in-memory log, fsyncs per
+               apply, wave 1's evals per second, snapshot bytes, each
+               with the data dir's filesystem type;
+22. times   -- each kernel's device time (profiler trace; CUDA events
                where the trace has none) over copies of its inputs that
                overflow the L2 (``rotating``: twice the L2 of input bytes
                a cycle), its plain version's, the bound for the same work
@@ -215,7 +247,7 @@ Phases, each printed as one JSON line:
                (the mesh's call at config_mesh); the launch floor (a
                one-element fill); the kernels' SASS instruction counts and the
                issue-rate time they give;
-22. profile -- config (b)'s first batch again, warm, on the single card
+23. profile -- config (b)'s first batch again, warm, on the single card
                and on a 4-shard mesh: untraced, and under a device-only
                trace for the device busy time and idle share.
 
@@ -1328,6 +1360,99 @@ def columnar_reads(dev, h, jobs) -> dict:
             "usage_read_s": {"columnar": ucol_s, "walk": uwalk_s}}
 
 
+def columnar_restore(dev, h, jobs, smi) -> dict:
+    """Step 8 of phase ``durable``, on this phase's store (it holds the
+    fleet already): ``persist`` in v2 and ``restore``, timed; the static
+    encode and the usage read of the restored store equal the original's
+    (each through its guard walk); then one config (b) batch of ``jobs``
+    on ``dev`` over a snapshot of each store: the same plans."""
+    import numpy as np
+
+    from nomad_tpu_torch.ops import batch_sched, encode
+    from nomad_tpu_torch.ops.batch_sched import TorchBatchScheduler
+    from nomad_tpu_torch.ops.breaker import KernelCircuitBreaker
+    from nomad_tpu_torch.scheduler.testing import Harness
+    from nomad_tpu_torch.state import StateStore
+    from nomad_tpu_torch.state import columnar as colmod
+
+    store = h.state
+    t0 = time.perf_counter()
+    blob = store.persist()
+    persist_s = time.perf_counter() - t0
+    rebuilds = colmod.REBUILDS
+    t0 = time.perf_counter()
+    restored = StateStore.restore(blob)
+    restore_s = time.perf_counter() - t0
+    errors = []
+    if (restored._columns is None or colmod.REBUILDS != rebuilds
+            or restored.store_uid == store.store_uid):
+        errors.append("the restored mirror is not the snapshot's columns, "
+                      "or the lineage was kept")
+    targets, literals = encode.collect_attr_targets(
+        batch_sched._prepare_specs(jobs, {}))
+    reads, g0 = {}, colmod.GUARD_RUNS
+    m0 = (colmod.GUARD_MISMATCHES, colmod.USAGE_GUARD_MISMATCHES)
+    for label, st in (("original", store), ("restored", restored)):
+        snap = st.snapshot()
+        ct = encode.build_cluster_static(snap, snap.nodes(None), targets,
+                                         literals, guard_every=1)
+        sched = TorchBatchScheduler(h.logger, snap, h, device=dev,
+                                    columnar_guard_every=1)
+        used, touched = sched._columnar_usage(ct)
+        reads[label] = (ct, used, touched)
+    (ct_o, used_o, t_o), (ct_r, used_r, t_r) = (reads["original"],
+                                                reads["restored"])
+    bad = encode._static_mismatch(ct_o, ct_r)
+    if not ct_r.columnar or bad:
+        errors.append(f"the restored static encode differs in {bad!r}")
+    if not np.array_equal(used_o, used_r) or t_o != t_r:
+        errors.append("the restored usage read differs")
+    guard_runs = colmod.GUARD_RUNS - g0
+    if (colmod.GUARD_MISMATCHES, colmod.USAGE_GUARD_MISMATCHES) != m0 \
+            or guard_runs < 2:
+        errors.append(f"guards: {guard_runs} runs, mismatches "
+                      f"{columnar_counters()}")
+    plans, rows = {}, {}
+    for label, st in (("original", store), ("restored", restored)):
+        with seeded_ids(COLUMNAR_SEED + 8) as ids:
+            hh = Harness(st.snapshot())
+            hh._next_index = st.latest_index() + 1
+            for j in jobs:
+                hh.state.upsert_job(hh.next_index(), j)
+            evals = reg_evals(jobs, ids)
+            t0 = time.perf_counter()
+            # The default guard cadence: the reads above already held
+            # the restored encode and usage read to their walks.
+            stats, counts = run_counted(lambda: TorchBatchScheduler(
+                hh.logger, hh.state.snapshot(), hh, device=dev,
+                rng_seed=COLUMNAR_SEED + 8,
+                breaker=KernelCircuitBreaker()).schedule_batch(evals))
+            rows[label] = {"wall_s": time.perf_counter() - t0,
+                           "oracle_routed": stats.oracle_routed,
+                           **{k: getattr(stats, k) for k in (
+                               "phase1_seconds", "encode_seconds",
+                               "device_seconds", "metrics_seconds",
+                               "finalize_seconds", "total_seconds",
+                               "full_reencodes", "resident_hits")},
+                           **counts}
+            plans[label] = [plan_rows(p) for p in hh.plans]
+    if plans["original"] != plans["restored"] or not plans["original"]:
+        errors.append("the batch over the restored store places otherwise")
+    for label, row in rows.items():
+        if row["oracle_routed"] or (
+                torch_device(dev).type == "cuda"
+                and (row["scored_rows_launches"] <= 0
+                     or row["scored_rows_launches"]
+                     != row["committing_spec_steps"])):
+            errors.append(f"{label} batch: {row}")
+    if errors:
+        raise AssertionError(f"columnar restore: {errors}")
+    return {"nodes": len(store.nodes_table), "snapshot_bytes": len(blob),
+            "persist_s": persist_s, "restore_s": restore_s,
+            "guard_runs": guard_runs, "plans_equal": True,
+            "batches": rows, "card": smi}
+
+
 def phase_columnar(dev, nodes=None, n_jobs=100, count=1000, follow_jobs=10,
                    follow_count=200):
     """The columnar state store at config_mesh's 1,000,000 nodes (phase
@@ -1348,7 +1473,8 @@ def phase_columnar(dev, nodes=None, n_jobs=100, count=1000, follow_jobs=10,
     wave0 = [strip_job(mock.job(), count) for _ in range(n_jobs)]
     follow = [[strip_job(mock.job(), follow_count, cpu=100, mem=128)
                for _ in range(follow_jobs)] for _ in range(2)]
-    for k, j in enumerate(wave0 + follow[0] + follow[1]):
+    restore_wave = [strip_job(mock.job(), count) for _ in range(n_jobs)]
+    for k, j in enumerate(wave0 + follow[0] + follow[1] + restore_wave):
         j.id = j.name = f"col-job-{k:03d}"
     waves = [("config_b", wave0, columnar.GUARD_EVERY),
              ("follow_up_guard1", follow[0], 1),
@@ -1361,6 +1487,8 @@ def phase_columnar(dev, nodes=None, n_jobs=100, count=1000, follow_jobs=10,
                         shapes=shapes)
     reads = columnar_reads(dev, wc["harness"], follow[1])
     emit({"phase": "columnar", "reads": reads, "card": smi})
+    restore = columnar_restore(dev, wc["harness"], restore_wave, smi)
+    emit({"phase": "columnar", "restore": restore})
     c_counts = columnar_counters()
     wc.pop("harness")
     batch_sched._CLUSTER_CACHE.clear()
@@ -1451,6 +1579,7 @@ def phase_columnar(dev, nodes=None, n_jobs=100, count=1000, follow_jobs=10,
                                         for r in wc["rows"]),
             "kernel_shapes": sorted(shapes["scored_rows"]),
             "shape_parity": parity,
+            "restore": restore,
             "card": smi}
 
 
@@ -1466,10 +1595,17 @@ class seeded_ids:
 
     def __init__(self, seed):
         self.rng = random.Random(seed)
+        self.draws = 0
 
     def one(self):
+        self.draws += 1
         h = f"{self.rng.getrandbits(128):032x}"
         return f"{h[:8]}-{h[8:12]}-{h[12:16]}-{h[16:20]}-{h[20:]}"
+
+    def skip(self, n):
+        """Advance past the first ``n`` ids (another process drew them)."""
+        for _ in range(n):
+            self.one()
 
     def __enter__(self):
         from nomad_tpu_torch.structs import structs
@@ -4132,6 +4268,582 @@ def phase_fingerprint(dev, n_nodes=10_000, gpu_every=4, n_jobs=10,
             "cpu_split": batch_split(cpu["stats"]), "card": smi}
 
 
+# -- phase 21: durable -------------------------------------------------------
+
+DURABLE_SEED = 20261024
+DURABLE_TORN = "torn-job"
+DURABLE_CHILD_TIMEOUT = 400.0
+# Every world of the phase runs in a process of its own with this string
+# hash seed: the server's walks over id-keyed sets (a node's jobs when a
+# node goes down, the reconciler's) order its evals and tie-breaks, so
+# worlds compare only under one hash order.
+DURABLE_HASH_SEED = 20261024
+# Phase 17's fleet and config (b)'s waves; wave 3 and the follow-up.
+DURABLE_SIZES = {"n_nodes": 10_000, "n_jobs": 100, "count": 1000,
+                 "wave_jobs": 10, "wave_count": 200, "follow_jobs": 5}
+
+
+def durable_scenario(n_nodes, n_jobs, count, wave_jobs, wave_count,
+                     follow_jobs):
+    """Phase 17's fleet and config (b)'s waves (``n_jobs`` x ``count``,
+    then ``wave_jobs`` x ``wave_count`` and one node down), wave 3
+    (``wave_jobs`` x ``wave_count``), the follow-up after the restart
+    (``follow_jobs`` x ``wave_count``) and the job whose registration the
+    crash tears."""
+    from nomad_tpu_torch import mock
+
+    sc = server_scenario(n_nodes, n_jobs, count, wave_jobs, wave_count, 0,
+                         1, 0)
+    wave3 = [strip_job(mock.job(), wave_count, cpu=100, mem=128)
+             for _ in range(wave_jobs)]
+    follow = [strip_job(mock.job(), wave_count, cpu=100, mem=128)
+              for _ in range(follow_jobs)]
+    for k, j in enumerate(wave3 + follow):
+        j.id = j.name = f"job-{n_jobs + wave_jobs + k:03d}"
+    torn = strip_job(mock.job(), 10, cpu=100, mem=128)
+    torn.id = torn.name = DURABLE_TORN
+    sc.update(wave3=wave3, follow=follow, torn=torn)
+    return sc
+
+
+def fs_type(path) -> str:
+    """The filesystem type of ``path`` (``stat -f -c %T``)."""
+    return subprocess.run(["stat", "-f", "-c", "%T", path],
+                          capture_output=True, text=True,
+                          timeout=30).stdout.strip()
+
+
+def durable_content(srv) -> dict:
+    """``server_content`` and the queued count of every job's groups, as
+    JSON gives them back (so a child's report compares)."""
+    out = server_content(srv)
+    st = srv.state
+    queued = {}
+    for job_id in sorted({e.job_id for e in st.evals(None)}):
+        summ = st.job_summary_by_id(None, job_id)
+        if summ is not None:
+            queued[job_id] = {tg: v.queued
+                              for tg, v in sorted(summ.summary.items())}
+    out["queued"] = queued
+    return json.loads(json.dumps(out))
+
+
+class apply_timer:
+    """Records the wall time of every ``raft.apply`` of ``srv`` (the log's
+    whole commit: write, durability wait, the sequencer and the FSM)."""
+
+    def __init__(self, srv):
+        self.raft, self.ms = srv.raft, []
+        inner = srv.raft.apply
+
+        def timed(msg_type, payload):
+            t0 = time.perf_counter()
+            try:
+                return inner(msg_type, payload)
+            finally:
+                self.ms.append((time.perf_counter() - t0) * 1e3)
+
+        srv.raft.apply = timed
+
+    def summary(self) -> dict:
+        import numpy as np
+
+        a = np.asarray(self.ms or [0.0])
+        return {"applies": len(self.ms), "mean_ms": float(a.mean()),
+                "p99_ms": float(np.percentile(a, 99))}
+
+
+def durable_server(dev, data_dir=""):
+    """A port ``Server`` for phase ``durable`` on ``dev`` (on a
+    ``FileLog`` in ``data_dir``, with fsync, or on an ``InmemLog``),
+    constructed and started before any id is seeded, so its store's
+    lineage is its own; automatic snapshots off, every columnar guard at
+    every read.  Building it on a data dir recovers the store."""
+    from nomad_tpu_torch.ops.breaker import KernelCircuitBreaker
+    from nomad_tpu_torch.server import Server, ServerConfig
+
+    brk = KernelCircuitBreaker()
+    t0 = time.perf_counter()
+    srv = Server(ServerConfig(
+        device=dev, rng_seed=SERVER_SEED, batch_size=64,
+        min_heartbeat_ttl=SERVER_HEARTBEAT_TTL, breaker=brk,
+        columnar_guard_every=1, data_dir=data_dir, snapshot_entries=0,
+        snapshot_bytes=0))
+    built_s = time.perf_counter() - t0
+    return srv, brk, built_s
+
+
+def durable_health(srv, brk) -> dict:
+    b = srv.eval_broker.stats()
+    return {"breaker": {"state": brk.state, "trips": brk.trips,
+                        "oracle_routed": server_counter(
+                            srv, "breaker.oracle_routed")},
+            "nacks": b["total_nacks"], "failed": b["total_failed"],
+            "over_capacity": store_over_capacity(srv)}
+
+
+def zero_launches(srv) -> float:
+    """Set the kernels' launch counts to 0; returns the server's count of
+    committing steps so far, for :func:`durable_launches`."""
+    from nomad_tpu_torch.ops import fused_score, kernels, preempt
+
+    fused_score.LAUNCHES = kernels.COMMIT_STEPS = 0
+    fused_score.MASKED_LAUNCHES = preempt.LAUNCHES = 0
+    return server_counter(srv, "batch.commit_steps")
+
+
+def durable_launches(srv, steps0) -> dict:
+    """The launch counts since :func:`zero_launches` returned
+    ``steps0``, and the committing steps the batches reported since."""
+    from nomad_tpu_torch.ops import fused_score, kernels, preempt
+
+    return {"scored_rows": fused_score.LAUNCHES,
+            "masked_score_matrix": fused_score.MASKED_LAUNCHES,
+            "eviction_sets": preempt.LAUNCHES,
+            "committing_spec_steps": kernels.COMMIT_STEPS,
+            "batch_commit_steps": server_counter(
+                srv, "batch.commit_steps") - steps0}
+
+
+def durable_before(srv, sc, ids, out) -> None:
+    """Steps 1-3 before the crash: the fleet registered, wave 1 to
+    settled, ``raft.snapshot()`` (a no-op on ``InmemLog``), wave 2 and one
+    node down, then wave 3's jobs registered with the workers paused
+    (their evals stay pending).  The launch counts are set to 0 just
+    before and read just after (with the wave-3 registration, which
+    launches nothing)."""
+    steps0 = zero_launches(srv)
+    with ids:
+        t0 = time.perf_counter()
+        for n in sc["nodes"]:
+            srv.node_register(n)
+        out["node_register_s"] = time.perf_counter() - t0
+        out["waves"] = [server_wave(srv, "wave1", lambda s: [
+            s.job_register(j) for j in sc["wave_a"]])]
+        t0 = time.perf_counter()
+        srv.raft.snapshot()
+        out["snapshot_s"] = time.perf_counter() - t0
+        out["snapshot_bytes"] = getattr(srv.raft, "last_snapshot_bytes", 0)
+
+        def wave2(s):
+            for j in sc["wave_b"]:
+                s.job_register(j)
+            host = sorted({a.node_id for a in s.state.allocs(None)
+                           if a.job_id == sc["wave_a"][0].id})[0]
+            out["down_host"] = host
+            s.node_update_status(host, "down")
+
+        out["waves"].append(server_wave(srv, "wave2_node_down", wave2))
+        if not srv.set_workers_paused(True, timeout=SERVER_SETTLE_TIMEOUT):
+            raise AssertionError("durable: workers did not park")
+        for j in sc["wave3"]:
+            srv.job_register(j)
+    out["launches_before"] = durable_launches(srv, steps0)
+    out["acked_index"] = srv.raft.applied_index()
+    out["before"] = durable_content(srv)
+    out["pending"] = sorted(e.job_id for e in srv.state.evals(None)
+                            if e.status == "pending")
+    out["draws"] = ids.draws
+
+
+def durable_after(srv, sc, ids, out, start=None) -> None:
+    """Step 6: wave 3 scheduled, then the follow-up.  On a restarted
+    server ``start`` starts it: its leadership re-enqueues wave 3's
+    pending evals and the workers take them (the wave's wall time runs
+    from the start to settled); on the twin the paused workers are
+    released.  Launch counts and the resident mirror's counters are set
+    to 0 just before, read just after."""
+    from nomad_tpu_torch.ops import resident
+
+    steps0 = zero_launches(srv)
+    resident.reset_counters()
+    with ids:
+        if start is None:
+            out["waves_after"] = [server_wave(srv, "wave3", lambda s: None)]
+        else:
+            acks0 = server_counter(srv, "broker.ack")
+            t0 = time.perf_counter()
+            start()
+            wall = server_settle(srv) - t0
+            acked = int(server_counter(srv, "broker.ack") - acks0)
+            out["waves_after"] = [{"wave": "wave3", "wall_s": wall,
+                                   "evals_acked": acked,
+                                   "evals_per_s": acked / wall}]
+        out["after_wave3"] = durable_content(srv)
+        out["waves_after"].append(server_wave(srv, "follow", lambda s: [
+            s.job_register(j) for j in sc["follow"]]))
+    out["launches_after"] = durable_launches(srv, steps0)
+    out["resident"] = {"full_reencodes": resident.FULL_REENCODES,
+                       "hits": resident.HITS,
+                       "guard_mismatches": resident.GUARD_MISMATCHES,
+                       "dev_guard_mismatches":
+                           resident.DEV_GUARD_MISMATCHES}
+    out["after"] = durable_content(srv)
+    out["applier"] = {k: srv.plan_applier.stats[k] for k in (
+        "plans", "columnar", "columnar_guards")}
+
+
+def durable_crash(dev, data_dir, sizes) -> dict:
+    """Worlds (A) and (C) before the crash: steps 1-3 on a ``FileLog`` in
+    ``data_dir``, then one more entry (the torn job's registration) under
+    a ``wal.fsync`` crash.  The caller's process then dies: no
+    ``shutdown()``, no final snapshot, nothing closed."""
+    from nomad_tpu_torch import fault
+    from nomad_tpu_torch.state import columnar as colmod
+
+    sc = durable_scenario(**sizes)
+    colmod.reset_counters()
+    srv, brk, _ = durable_server(dev, data_dir)
+    srv.start()
+    timer = apply_timer(srv)
+    out = {"device": dev, "fs": fs_type(data_dir)}
+    ids = seeded_ids(DURABLE_SEED)
+    durable_before(srv, sc, ids, out)
+    out["raft_apply"] = timer.summary()
+    out["entries_written"] = srv.raft.entries_written
+    out["fsyncs"] = srv.raft.fsyncs()
+    with fault.scenario({"seed": DURABLE_SEED, "faults": [
+            {"point": "wal.fsync", "action": "crash", "times": 1,
+             "match": {"msg_type": "JOB_REGISTER"}}]}):
+        try:
+            srv.job_register(sc["torn"])
+            out["crashed"] = False
+        except fault.InjectedFault:
+            out["crashed"] = True
+        out["fault_trace"] = fault.trace()
+    out["draws_after_crash"] = ids.draws
+    out["health"] = durable_health(srv, brk)
+    out["columnar"] = columnar_counters()
+    return out
+
+
+def durable_child(mode, dev, data_dir, out_path, sizes, skip=0) -> None:
+    """One world's part of phase ``durable`` in a process of its own:
+    ``crash`` (``durable_crash``; the process then dies with
+    ``os._exit``), ``restart`` (``durable_restart``) or ``twin``
+    (``durable_twin``); the report is written to ``out_path``."""
+    if mode == "crash":
+        out = durable_crash(dev, data_dir, sizes)
+    elif mode == "restart":
+        out = durable_restart(dev, data_dir, skip, sizes)
+    else:
+        out = durable_twin(dev, sizes)
+    with open(out_path, "w") as fh:
+        json.dump(out, fh)
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(0)
+
+
+def run_durable_child(mode, dev, data_dir, sizes, skip=0) -> dict:
+    """``durable_child`` in a fresh process with the phase's fixed string
+    hash seed; its report."""
+    out_path = os.path.join(data_dir, f"{mode}-{dev}.json")
+    code = ("import sys; sys.path.insert(0, {0!r}); import chip_smoke as c; "
+            "c.durable_child({1!r}, {2!r}, {3!r}, {4!r}, {5!r}, {6!r})"
+            ).format(REPO, mode, dev, data_dir, out_path, sizes, skip)
+    env = dict(os.environ, PYTHONHASHSEED=str(DURABLE_HASH_SEED))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True,
+                          timeout=DURABLE_CHILD_TIMEOUT)
+    if proc.returncode != 0 or not os.path.exists(out_path):
+        raise AssertionError(f"durable {mode} child on {dev}: rc "
+                             f"{proc.returncode}: {proc.stderr[-3000:]}")
+    with open(out_path) as fh:
+        out = json.load(fh)
+    os.unlink(out_path)
+    out["child_wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def durable_restart(dev, data_dir, skip, sizes) -> dict:
+    """Steps 5-7: the server rebuilt on ``data_dir`` (the recovery and
+    its split), started (its leadership re-enqueues wave 3's pending
+    evals), step 6's waves with the ids drawn after the first ``skip``
+    (the crashed process drew those), ``raft.snapshot()``, and a restart
+    from the snapshot alone."""
+    from nomad_tpu_torch.ops import resident
+    from nomad_tpu_torch.state import columnar as colmod
+
+    sc = durable_scenario(**sizes)
+    resident.invalidate()
+    colmod.reset_counters()
+    out = {"device": dev, "fs": fs_type(data_dir)}
+    t0 = time.perf_counter()
+    srv, brk, built_s = durable_server(dev, data_dir)
+    rec = dict(srv.raft.recovery)
+    rec["server_build_s"] = built_s
+    rec["replay_entries_per_s"] = (
+        rec["replayed_entries"] / rec["replay_apply_s"]
+        if rec["replay_apply_s"] else None)
+    out["recovery"] = rec
+    out["mirror_from_snapshot"] = (srv.state._columns is not None
+                                   and colmod.REBUILDS == 0)
+    out["recovered_index"] = srv.raft.applied_index()
+    out["recovered"] = durable_content(srv)
+    out["torn_absent"] = srv.state.job_by_id(None, DURABLE_TORN) is None
+    try:
+        timer = apply_timer(srv)
+        ids = seeded_ids(DURABLE_SEED)
+        ids.skip(skip)
+
+        def start():
+            t1 = time.perf_counter()
+            srv.start()
+            rec["leadership_s"] = time.perf_counter() - t1
+            rec["total_s"] = time.perf_counter() - t0
+
+        durable_after(srv, sc, ids, out, start=start)
+        out["raft_apply"] = timer.summary()
+        out["health"] = durable_health(srv, brk)
+        out["columnar"] = columnar_counters()
+        t1 = time.perf_counter()
+        srv.raft.snapshot()
+        out["snapshot_s"] = time.perf_counter() - t1
+        out["snapshot_bytes"] = srv.raft.last_snapshot_bytes
+        out["applied_final"] = srv.raft.applied_index()
+    finally:
+        srv.shutdown()
+    srv2, _, _ = durable_server(dev, data_dir)
+    try:
+        out["from_snapshot"] = durable_content(srv2)
+        out["from_snapshot_recovery"] = dict(srv2.raft.recovery)
+        out["from_snapshot_index"] = srv2.raft.applied_index()
+    finally:
+        srv2.shutdown()
+    return out
+
+
+def durable_twin(dev, sizes) -> dict:
+    """World (B): the same steps on an uninterrupted ``InmemLog`` server,
+    no crash."""
+    from nomad_tpu_torch.ops import resident
+    from nomad_tpu_torch.state import columnar as colmod
+
+    sc = durable_scenario(**sizes)
+    resident.invalidate()
+    colmod.reset_counters()
+    srv, brk, _ = durable_server(dev)
+    out = {"device": dev}
+    try:
+        srv.start()
+        timer = apply_timer(srv)
+        ids = seeded_ids(DURABLE_SEED)
+        durable_before(srv, sc, ids, out)
+        out["raft_apply"] = timer.summary()
+        durable_after(srv, sc, ids, out)
+        out["health"] = durable_health(srv, brk)
+        out["columnar"] = columnar_counters()
+    finally:
+        srv.shutdown()
+    return out
+
+
+def same_commits(a, b) -> dict:
+    """Where two ``durable_content`` views differ (empty: equal)."""
+    def rows(c):
+        return {**c, **{k: [tuple(r) for r in c[k]]
+                        for k in ("allocs", "evals")}}
+
+    diff = content_diff(rows(a), rows(b))
+    if a["queued"] != b["queued"]:
+        diff["queued"] = {k: (a["queued"].get(k), b["queued"].get(k))
+                          for k in set(a["queued"]) | set(b["queued"])
+                          if a["queued"].get(k) != b["queued"].get(k)}
+    return diff
+
+
+def check_durable_launches(label, before, after) -> list:
+    """One ``scored_rows`` launch per committing step in each part of a
+    card world's run, and no other kernel's launch."""
+    errors = []
+    for part, counts in (("before the crash", before),
+                         ("after the restart", after)):
+        if (counts["scored_rows"] <= 0
+                or counts["scored_rows"] != counts["committing_spec_steps"]
+                or counts["scored_rows"] != counts["batch_commit_steps"]
+                or counts["masked_score_matrix"]
+                or counts["eviction_sets"]):
+            errors.append(f"{label} {part}: launches {counts}")
+    return errors
+
+
+def check_durable(child, restart, label, on_card, sc) -> list:
+    """Steps 5-7's checks of one crashed world."""
+    errors = []
+    if not child["crashed"] or child["fault_trace"] != [
+            ["wal.fsync", 0, "crash"]]:
+        errors.append(f"{label}: the wal.fsync crash did not fire: "
+                      f"{child['fault_trace']}")
+    if restart["recovered_index"] != child["acked_index"]:
+        errors.append(f"{label}: recovered index "
+                      f"{restart['recovered_index']} != the last "
+                      f"acknowledged {child['acked_index']}")
+    rec, before = restart["recovered"], child["before"]
+    for key in ("allocs", "evals", "queued"):
+        if rec[key] != before[key]:
+            errors.append(f"{label}: restored {key} differ from the "
+                          f"pre-crash content: "
+                          f"{str(same_commits(rec, before))[:2000]}")
+    if not restart["torn_absent"]:
+        errors.append(f"{label}: the torn entry was applied")
+    if not restart["mirror_from_snapshot"]:
+        errors.append(f"{label}: the columnar mirror was not installed "
+                      "from the snapshot's column section")
+    if restart["recovery"]["snapshot_index"] <= 0:
+        errors.append(f"{label}: recovery did not start from a snapshot")
+    wave3 = [j.id for j in sc["wave3"]]
+    if not set(wave3) <= set(child["pending"]):
+        errors.append(f"{label}: wave 3's evals were not pending at the "
+                      f"crash: {child['pending']}")
+    after = restart["after_wave3"]
+    for job_id in wave3:
+        if [e for e in after["evals"] if e[0] == job_id
+                and e[1] == "job-register" and e[2] != "complete"]:
+            errors.append(f"{label}: wave 3's eval of {job_id} was not "
+                          "re-enqueued and completed after the restart")
+    if (restart["from_snapshot_recovery"]["replayed_entries"] != 0
+            or restart["from_snapshot_index"] != restart["applied_final"]):
+        errors.append(f"{label}: the restart from the snapshot replayed "
+                      f"{restart['from_snapshot_recovery']}")
+    for key in ("allocs", "evals", "queued"):
+        if restart["from_snapshot"][key] != restart["after"][key]:
+            errors.append(f"{label}: the content restored from the "
+                          f"snapshot alone differs in {key}")
+    if on_card:
+        errors += check_durable_launches(
+            label, child["launches_before"], restart["launches_after"])
+    res = restart["resident"]
+    if (res["full_reencodes"] != 1 or res["hits"] < 1
+            or res["guard_mismatches"] or res["dev_guard_mismatches"]):
+        errors.append(f"{label}: the resident mirror after the restore: "
+                      f"{res}")
+    return errors
+
+
+def check_world_health(w, label) -> list:
+    errors = []
+    h, c = w["health"], w["columnar"]
+    if (h["over_capacity"] or h["nacks"] or h["failed"]
+            or h["breaker"] != {"state": "closed", "trips": 0,
+                                "oracle_routed": 0}):
+        errors.append(f"{label}: health {h}")
+    if (c["GUARD_MISMATCHES"] or c["USAGE_GUARD_MISMATCHES"]
+            or not c["GUARD_RUNS"] or not c["USAGE_GUARD_RUNS"]):
+        errors.append(f"{label}: columnar guards {c}")
+    app = w.get("applier")
+    if app is not None and (not app["columnar_guards"]
+                            or app["columnar"] != app["plans"]):
+        errors.append(f"{label}: the applier's routes {app}")
+    return errors
+
+
+def phase_durable(dev, sizes=None):
+    """The durable server (see the module docstring, phase 21): (A) the
+    card server on a ``FileLog``, crashed in a process of its own and
+    restarted in another, (B) its uninterrupted twin on ``InmemLog``,
+    (C) the CPU server on a ``FileLog``, crashed and restarted the same
+    way; every world in a process of its own under one string hash seed
+    (``DURABLE_HASH_SEED``), compared here."""
+    import shutil
+    import tempfile
+
+    t_phase = time.perf_counter()
+    smi = smi_name_power()
+    on_card = torch_device(dev).type == "cuda"
+    sizes = dict(DURABLE_SIZES if sizes is None else sizes)
+    sc = durable_scenario(**sizes)
+    root = tempfile.mkdtemp(prefix="nomad-torch-durable-")
+    try:
+        dirs = {k: os.path.join(root, k) for k in ("A", "C")}
+        for d in dirs.values():
+            os.makedirs(d)
+        t0 = time.perf_counter()
+        a_child = run_durable_child("crash", dev, dirs["A"], sizes)
+        a = run_durable_child("restart", dev, dirs["A"], sizes,
+                              a_child["draws_after_crash"])
+        t_a = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        b = run_durable_child("twin", dev, root, sizes)
+        t_b = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        c_child = run_durable_child("crash", "cpu", dirs["C"], sizes)
+        c = run_durable_child("restart", "cpu", dirs["C"], sizes,
+                              c_child["draws_after_crash"])
+        t_c = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    errors = check_durable(a_child, a, "A", on_card, sc)
+    errors += check_durable(c_child, c, "C", False, sc)
+    if a_child["draws_after_crash"] != b["draws"]:
+        errors.append(f"ids drawn before the crash: A "
+                      f"{a_child['draws_after_crash']}, B {b['draws']}")
+    for key, mine, others in (
+            ("before", a_child, ((b, "B"), (c_child, "C"))),
+            ("after_wave3", a, ((b, "B"), (c, "C"))),
+            ("after", a, ((b, "B"), (c, "C")))):
+        for other, label in others:
+            diff = same_commits(mine[key], other[key])
+            if diff:
+                errors.append(f"{key}: A differs from {label}: "
+                              f"{str(diff)[:2000]}")
+    if on_card:
+        errors += check_durable_launches("B", b["launches_before"],
+                                         b["launches_after"])
+    for w, label in ((a_child, "A before the crash"), (a, "A"), (b, "B"),
+                     (c_child, "C before the crash"), (c, "C")):
+        errors += check_world_health(w, label)
+    if errors:
+        raise AssertionError(f"phase durable: {errors}")
+
+    for w, label in ((a_child, "A"), (b, "B"), (c_child, "C")):
+        for row in w["waves"]:
+            emit({"phase": "durable", "world": label, **row})
+    for w, label in ((a, "A"), (b, "B"), (c, "C")):
+        for row in w["waves_after"]:
+            emit({"phase": "durable", "world": label, "after_restart":
+                  label != "B", **row})
+
+    def wave1_rate(w):
+        return w["waves"][0]["evals_per_s"]
+
+    return {
+        "card": smi, "fs": {"A": a["fs"], "C": c["fs"]},
+        "restored_equals_pre_crash": True, "torn_entry_absent": True,
+        "a_equals_b_equals_c": True,
+        "recovery": {"A": a["recovery"], "C": c["recovery"]},
+        "recovered_index": a["recovered_index"],
+        "replay_entries": a["recovery"]["replayed_entries"],
+        "raft_apply": {"FileLog_A_before_crash": a_child["raft_apply"],
+                       "FileLog_A_after_restart": a["raft_apply"],
+                       "InmemLog_B": b["raft_apply"],
+                       "FileLog_C_before_crash": c_child["raft_apply"]},
+        "fsyncs_per_apply": {
+            "A": a_child["fsyncs"] / max(1, a_child["entries_written"]),
+            "C": c_child["fsyncs"] / max(1, c_child["entries_written"])},
+        "wave1_evals_per_s": {"A": wave1_rate(a_child),
+                              "B": wave1_rate(b),
+                              "C": wave1_rate(c_child)},
+        "snapshot_bytes_10k": {"after_wave1": a_child["snapshot_bytes"],
+                               "final": a["snapshot_bytes"]},
+        "snapshot_s": {"after_wave1": a_child["snapshot_s"],
+                       "final": a["snapshot_s"]},
+        "resident_after_restore": a["resident"],
+        "launches": {"A_before_crash": a_child["launches_before"],
+                     "A_after_restart": a["launches_after"],
+                     "B": {k: b["launches_before"][k]
+                           + b["launches_after"][k]
+                           for k in b["launches_after"]}},
+        "columnar": {"A": a["columnar"], "B": b["columnar"],
+                     "C": c["columnar"]},
+        "world_seconds": {"A": t_a, "A_crash_child": a_child["child_wall_s"],
+                          "A_restart_child": a["child_wall_s"],
+                          "B": t_b, "C": t_c},
+        "seconds": time.perf_counter() - t_phase}
+
+
 def torch_device(dev):
     import torch
 
@@ -4696,6 +5408,8 @@ def main() -> int:
     emit({"phase": "plan", **plan})
     fpr = run_phase("fingerprint", phase_fingerprint, dev)
     emit({"phase": "fingerprint", **fpr})
+    dur = run_phase("durable", phase_durable, dev)
+    emit({"phase": "durable", **dur})
     table = run_phase("times", phase_times, dev, launches, max_err,
                       masked_launches, max(masked_err, cand_err))
     # scored_rows' launches on the eval-driven path (phase evals, each
@@ -4728,6 +5442,13 @@ def main() -> int:
         row["trace_path_launches"] = {
             label: trc["launches"][label][row["name"]]
             for label in ("main", "drill")}
+        # ... and on the durable server path (phase durable, each part
+        # driven with the counts set to 0 just before it): world (A)
+        # before its crash (in its own process) and after its restart,
+        # and its uninterrupted twin (B).
+        row["durable_path_launches"] = {
+            label: dur["launches"][label][row["name"]]
+            for label in ("A_before_crash", "A_after_restart", "B")}
     emit({"phase": "profile", **run_phase("profile", phase_profile, dev)})
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     emit({"kernels": table})

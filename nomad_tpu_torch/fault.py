@@ -1,14 +1,30 @@
 """Deterministic, seeded fault injection (a minimal copy of
 ``nomad_tpu/fault.py``).
 
-The port has four fault points: ``ops.kernel_result`` (the device→host
-placement outputs, ops/batch_sched.py), ``ops.resident_state`` (one row
-of the resident usage mirror, ops/resident.py) and ``state.columns`` (one
-cell of a static encode sliced from the columnar mirror, ops/encode.py),
-each with the action ``corrupt``, which hands the site a seeded RNG to do
-its damage with; and
-``plan.apply`` (server/plan_apply.py, before the commit), with ``error``
-(raise :class:`InjectedFault`)::
+The port's fault points:
+
+- ``ops.kernel_result`` (the device→host placement outputs,
+  ops/batch_sched.py), ``ops.resident_state`` (one row of the resident
+  usage mirror, ops/resident.py) and ``state.columns`` (one cell of a
+  static encode sliced from the columnar mirror, ops/encode.py), each
+  with ``corrupt``, which hands the site a seeded RNG to do its damage
+  with;
+- ``plan.apply`` (server/plan_apply.py, before the commit), with
+  ``error`` (raise :class:`InjectedFault`);
+- ``raft.apply`` (server/raft.py, before an entry is given its index;
+  fault.py:46, raft.py:40-58), with ``crash`` and ``error`` (raise: the
+  entry never reaches the log), ``delay`` (sleep the rule's ``delay``
+  seconds) and ``step_down`` (the log refuses the entry as a demoted
+  leader would);
+- ``wal.fsync`` (server/raft.py ``FileLog._persist``, raft.py:551), with
+  ``crash``: a torn half frame is left at the tail of the WAL, the log
+  is dead for this process, and recovery must truncate the frame; and
+  ``delay``.
+
+A rule is ``{"point", "action", "times", "delay", "match"}``: ``match``
+holds context values the site passes (``raft.apply`` and ``wal.fsync``
+pass ``index`` and ``msg_type``, the message type's name) that must all
+be equal for the rule to fire::
 
     with fault.scenario({"seed": 5, "faults": [
             {"point": "ops.kernel_result", "action": "corrupt",
@@ -25,10 +41,11 @@ from __future__ import annotations
 
 import random
 import sys
+import threading
 from types import SimpleNamespace
 from typing import Any, Dict, List, Optional, Tuple
 
-ACTIONS = ("corrupt", "error")
+ACTIONS = ("corrupt", "error", "crash", "delay", "step_down")
 
 # The armed scenario's rules and fire trace; None: disarmed.
 _PLANE: Optional[SimpleNamespace] = None
@@ -44,27 +61,34 @@ def _raise_injected(message: str):
     return raise_injected
 
 
-def faultpoint(name: str) -> Optional[SimpleNamespace]:
+def faultpoint(name: str, **ctx: Any) -> Optional[SimpleNamespace]:
     """None when disarmed or when no rule fires; else the action
-    (``kind``, the rule's private ``rng`` and ``raise_injected()``)."""
+    (``kind``, ``delay``, the rule's private ``rng`` and
+    ``raise_injected()``)."""
     plane = _PLANE
     if plane is None:
         return None
     for i, rule in enumerate(plane.rules):
-        if rule.point == name and (rule.times is None
-                                   or rule.fired < rule.times):
+        if rule.point != name or any(ctx.get(k) != v
+                                     for k, v in rule.match.items()):
+            continue
+        # Counted under the plane's lock: concurrent sites (the log's
+        # appliers) never fire a rule past its ``times``.
+        with plane.lock:
+            if rule.times is not None and rule.fired >= rule.times:
+                continue
             rule.fired += 1
             plane.trace.append((name, i, rule.action))
-            # Import here: fires are rare, and the disarmed path must
-            # not pay it.
-            from .utils import tracing
-            tracing.note_fault(name, i, rule.action)
-            note_event_stream("Fault", "FaultFired", name,
-                              {"Rule": i, "Action": rule.action})
-            return SimpleNamespace(
-                kind=rule.action, rng=rule.rng,
-                raise_injected=_raise_injected(
-                    f"injected {rule.action} at {name}"))
+        # Import here: fires are rare, and the disarmed path must not
+        # pay it.
+        from .utils import tracing
+        tracing.note_fault(name, i, rule.action)
+        note_event_stream("Fault", "FaultFired", name,
+                          {"Rule": i, "Action": rule.action})
+        return SimpleNamespace(
+            kind=rule.action, rng=rule.rng, delay=rule.delay,
+            raise_injected=_raise_injected(
+                f"injected {rule.action} at {name}"))
     return None
 
 
@@ -87,7 +111,8 @@ def trace() -> List[Tuple[str, int, str]]:
 
 class scenario:
     """``with fault.scenario({"seed": s, "faults": [rules]}): ...``; each
-    rule is ``{"point", "action", "times"}``; always disarms on exit."""
+    rule is ``{"point", "action", "times", "delay", "match"}``; always
+    disarms on exit."""
 
     def __init__(self, cfg):
         seed = int(cfg.get("seed", 0))
@@ -98,8 +123,11 @@ class scenario:
             rules.append(SimpleNamespace(
                 point=spec["point"], action=spec["action"],
                 times=spec.get("times"), fired=0,
+                delay=float(spec.get("delay", 0.05)),
+                match=dict(spec.get("match") or {}),
                 rng=random.Random(f"{seed}/{i}/{spec['point']}")))
-        self.plane = SimpleNamespace(rules=rules, trace=[])
+        self.plane = SimpleNamespace(rules=rules, trace=[],
+                                     lock=threading.Lock())
 
     def __enter__(self):
         global _PLANE

@@ -25,6 +25,14 @@
   its ``fault.fire``, and the open breaker's next batch as
   ``batch.oracle_routed(breaker_open)``.  It always disarms on exit.
 
+- The WAL drill (``nomad_tpu/ops/__main__.py:456-528``): entries
+  appended through a ``FileLog`` on the native group-commit WAL and
+  snapshotted, more appended, then one under a ``wal.fsync`` crash (a
+  torn half frame is left on disk); recovery truncates the torn tail,
+  keeps every committed entry and never applies the torn one; the
+  recovered store schedules one batch on ``--device``, and an entry
+  appended after the recovery survives the next boot.
+
 Exits 0 when every drill passes, 1 otherwise.  The reference's other
 drills (breaker, residency, fused, residue, mesh) wait for their modules'
 ports.
@@ -288,6 +296,98 @@ def tracing_drill(seed: int = 0, device=None, log=print) -> bool:
     return True
 
 
+def wal_drill(seed: int = 0, device: str = "cuda", log=print) -> bool:
+    """Crash mid-frame, recover, and keep going (see the module
+    docstring)."""
+    import os
+    import shutil
+    import tempfile
+
+    from .. import fault
+    from ..scheduler.testing import Harness
+    from ..server.fsm import FSM, MessageType
+    from ..server.raft import FileLog
+    from ..structs import structs as s
+    from .batch_sched import TorchBatchScheduler
+
+    def check(cond, msg):
+        if not cond:
+            log(f"wal drill: FAIL — {msg}")
+        return cond
+
+    d = tempfile.mkdtemp(prefix="nomad-torch-waldrill-")
+    try:
+        flog = FileLog(FSM(), d, snapshot_entries=0, snapshot_bytes=0)
+        nodes = [_drill_node(i) for i in range(8)]
+        for node in nodes[:4]:
+            flog.apply(MessageType.NODE_REGISTER, {"node": node})
+        flog.snapshot()
+        for node in nodes[4:]:
+            flog.apply(MessageType.NODE_REGISTER, {"node": node})
+        applied = flog.applied_index()
+        torn_job = _drill_job(0)
+        crashed = False
+        with fault.scenario({"seed": seed, "faults": [
+                {"point": "wal.fsync", "action": "crash", "times": 1}]}):
+            try:
+                flog.apply(MessageType.JOB_REGISTER, {"job": torn_job})
+            except fault.InjectedFault:
+                crashed = True
+        flog.close()
+        if not check(crashed, "the injected mid-frame crash did not fire"):
+            return False
+        wal_file = os.path.join(d, "wal.crc")
+        torn_size = os.path.getsize(wal_file)
+
+        flog2 = FileLog(FSM(), d, snapshot_entries=0, snapshot_bytes=0)
+        st = flog2.fsm.state
+        if not (check(flog2.applied_index() == applied,
+                      "recovery lost or invented entries")
+                and check(flog2.recovery["snapshot_index"] == 4,
+                          "recovery did not start from the snapshot")
+                and check(len(st.nodes(None)) == len(nodes),
+                          "a committed entry was lost")
+                and check(st.job_by_id(None, torn_job.id) is None,
+                          "the torn entry was applied")
+                and check(os.path.getsize(wal_file) < torn_size,
+                          "the torn tail was not truncated")):
+            flog2.close()
+            return False
+        # The recovered store keeps scheduling on the device.
+        job = _drill_job(1, count=4)
+        flog2.apply(MessageType.JOB_REGISTER, {"job": job})
+        h = Harness(st)
+        h._next_index = flog2.applied_index() + 1
+        ev = s.Evaluation(id=s.generate_uuid(), priority=job.priority,
+                          type=job.type, job_id=job.id,
+                          triggered_by=s.EVAL_TRIGGER_JOB_REGISTER)
+        TorchBatchScheduler(h.logger, st.snapshot(), h, device=device,
+                            rng_seed=seed).schedule_batch([ev])
+        placed = [a for a in st.allocs_by_job(None, job.id, True)
+                  if not a.terminal_status()]
+        applied2 = flog2.applied_index()
+        flog2.close()
+        if not check(len(placed) == 4,
+                     f"the recovered store placed {len(placed)} of 4"):
+            return False
+
+        flog3 = FileLog(FSM(), d, snapshot_entries=0, snapshot_bytes=0)
+        ok = (check(flog3.applied_index() == applied2,
+                    "the post-recovery append did not survive")
+              and check(flog3.fsm.state.job_by_id(None, job.id)
+                        is not None, "the post-recovery entry was lost"))
+        flog3.close()
+        if not ok:
+            return False
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    log("wal drill: OK — the native WAL crashed mid-frame, recovery "
+        "restored the snapshot, truncated the torn tail and kept every "
+        "committed entry, the recovered store placed a batch on "
+        f"{device}, and the post-recovery append survived the next boot")
+    return True
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(prog="python -m nomad_tpu_torch.ops")
     parser.add_argument("--selfcheck", action="store_true",
@@ -306,6 +406,7 @@ def main(argv=None) -> int:
                    device=args.device)
     ok = columnar_drill(seed=args.seed, device=args.device) and ok
     ok = tracing_drill(seed=args.seed, device=args.device) and ok
+    ok = wal_drill(seed=args.seed, device=args.device) and ok
     return 0 if ok else 1
 
 

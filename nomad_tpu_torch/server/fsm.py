@@ -7,12 +7,15 @@ on the leader, the side-channel hooks nomadFSM.Apply performs.
 
 The handlers kept are the ones the server path applies: node register,
 deregister, status and drain; job register and deregister; eval update;
-alloc update and client update; plan results.  The FSM remembers the
-cluster event broker (``event_broker``) that ``Server.enable_event_stream``
-hands its store.  Left out, with the slices that need them: eval delete,
-summary reconcile, the vault, periodic and namespace handlers, and
-snapshot/restore with its hand-off of the broker to the restored store
-(fsm.py:250-257; ROADMAP queue 1 item 16).
+alloc update and client update; plan results; the vault accessors, the
+periodic launches and the namespaces.  :meth:`FSM.snapshot` and
+:meth:`FSM.restore` (fsm.py:239-257) persist and replace the store; a
+restore hands the cluster event broker (``event_broker``, which
+``Server.enable_event_stream`` remembers here) to the restored store and
+raises its gap horizon to the restored index.  Left out, with the slices
+that need them: eval delete (the GC path, ROADMAP queue 1 item 18) and
+summary reconcile; the tenancy hook ``on_namespace_update`` is kept and
+stays None until the tenancy plane comes (item 19).
 """
 from __future__ import annotations
 
@@ -21,7 +24,7 @@ import time
 from enum import IntEnum
 from typing import Callable, Dict, List, Optional
 
-from ..state.state_store import StateStore
+from ..state.state_store import PeriodicLaunch, StateStore, VaultAccessor
 from ..structs import structs as s
 
 
@@ -38,7 +41,13 @@ class MessageType(IntEnum):
     EVAL_UPDATE = 6
     ALLOC_UPDATE = 8
     ALLOC_CLIENT_UPDATE = 9
+    VAULT_ACCESSOR_REGISTER = 11
+    VAULT_ACCESSOR_DEREGISTER = 12
     APPLY_PLAN_RESULTS = 13
+    PERIODIC_LAUNCH_UPSERT = 14
+    PERIODIC_LAUNCH_DELETE = 15
+    NAMESPACE_UPSERT = 16
+    NAMESPACE_DELETE = 17
 
 
 class FSM:
@@ -50,12 +59,17 @@ class FSM:
         logger: Optional[logging.Logger] = None,
         on_eval_update: Optional[Callable[[s.Evaluation], None]] = None,
         on_unblock: Optional[Callable[[str, int], None]] = None,
+        on_namespace_update: Optional[
+            Callable[[str, Optional[s.Namespace]], None]] = None,
     ):
         self.state = state if state is not None else StateStore()
         self.logger = logger or logging.getLogger("nomad_tpu_torch.fsm")
         # Leader-side hooks (fsm.go:58-66).
         self.on_eval_update = on_eval_update
         self.on_unblock = on_unblock
+        # The tenancy push (fires with (name, ns) on upsert and (name,
+        # None) on delete); no server sets it before the tenancy plane.
+        self.on_namespace_update = on_namespace_update
         # The cluster event broker (server/event_broker.py), remembered
         # here for a restore to hand to its new store (fsm.py:71-74).
         self.event_broker = None
@@ -173,6 +187,56 @@ class FSM:
         if evals:
             self.state.upsert_evals(index, evals)
 
+    # -- vault / periodic --------------------------------------------------
+
+    def _apply_vault_register(self, index: int, req: dict):
+        accessors: List[VaultAccessor] = req["accessors"]
+        self.state.upsert_vault_accessors(index, accessors)
+
+    def _apply_vault_deregister(self, index: int, req: dict):
+        self.state.delete_vault_accessors(index, req["accessors"])
+
+    def _apply_periodic_launch_upsert(self, index: int, req: dict):
+        self.state.upsert_periodic_launch(
+            index, PeriodicLaunch(id=req["job_id"], launch=req["launch"]))
+
+    def _apply_periodic_launch_delete(self, index: int, req: dict):
+        self.state.delete_periodic_launch(index, req["job_id"])
+
+    # -- namespaces --------------------------------------------------------
+
+    def _apply_namespace_upsert(self, index: int, req: dict):
+        ns: s.Namespace = req["namespace"]
+        self.state.upsert_namespace(index, ns)
+        if self.on_namespace_update is not None:
+            self.on_namespace_update(ns.name, ns)
+
+    def _apply_namespace_delete(self, index: int, req: dict):
+        self.state.delete_namespace(index, req["name"])
+        if self.on_namespace_update is not None:
+            self.on_namespace_update(req["name"], None)
+
+    # -- snapshot / restore ------------------------------------------------
+
+    def snapshot(self) -> bytes:
+        """(fsm.go:568): the store's v2 blob when it keeps the columnar
+        mirror, its per-object blob otherwise."""
+        return self.state.persist()
+
+    def restore(self, blob: bytes) -> None:
+        """(fsm.go:582): the state store replaced wholesale by the one the
+        blob holds (either format), with this store's columnar setting and
+        delta-log cap.  The restored store is a new lineage; the event
+        broker moves to it, and its gap horizon rises to the restored
+        index: the snapshot's writes were never published, so a resume
+        inside that range errors instead of replaying nothing."""
+        self.state = StateStore.restore(
+            blob, alloc_log_cap=self.state.alloc_log_cap,
+            columnar=self.state.columnar)
+        if self.event_broker is not None:
+            self.state.event_broker = self.event_broker
+            self.event_broker.mark_armed(self.state.latest_index())
+
     _DISPATCH: Dict[MessageType, Callable] = {
         MessageType.NODE_REGISTER: _apply_node_register,
         MessageType.NODE_DEREGISTER: _apply_node_deregister,
@@ -183,7 +247,13 @@ class FSM:
         MessageType.EVAL_UPDATE: _apply_eval_update,
         MessageType.ALLOC_UPDATE: _apply_alloc_update,
         MessageType.ALLOC_CLIENT_UPDATE: _apply_alloc_client_update,
+        MessageType.VAULT_ACCESSOR_REGISTER: _apply_vault_register,
+        MessageType.VAULT_ACCESSOR_DEREGISTER: _apply_vault_deregister,
         MessageType.APPLY_PLAN_RESULTS: _apply_plan_results,
+        MessageType.PERIODIC_LAUNCH_UPSERT: _apply_periodic_launch_upsert,
+        MessageType.PERIODIC_LAUNCH_DELETE: _apply_periodic_launch_delete,
+        MessageType.NAMESPACE_UPSERT: _apply_namespace_upsert,
+        MessageType.NAMESPACE_DELETE: _apply_namespace_delete,
     }
 
 

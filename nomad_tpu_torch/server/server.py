@@ -3,11 +3,21 @@ copy of ``nomad_tpu/server/server.py:141-420``; reference
 nomad/server.go:78-305, nomad/leader.go:28-641).
 
 It wires the control plane of one single-voter server: the eval broker,
-blocked evals, the plan queue, the FSM and its leader-side hooks over an
-``InmemLog``, the queue-driven ``PlanApplier``, the heartbeat timers, and
+blocked evals, the plan queue, the FSM and its leader-side hooks over the
+log (``FileLog`` in ``ServerConfig.data_dir``, or an ``InmemLog`` when
+it is empty), the queue-driven ``PlanApplier``, the heartbeat timers, and
 ``num_schedulers`` ``BatchWorker``\\ s that run ``TorchBatchScheduler`` on
 the card (``device="cuda"``, the default), on the CPU (``device="cpu"``)
 or node-sharded over a ``NodeMesh`` (``mesh``).
+
+Durability (server.py:47, :270-278): with a ``data_dir`` every
+acknowledged write is in the log's WAL before it applies; a server built
+on the same directory after a crash recovers the newest FSM snapshot and
+the WAL past it before it starts (the torn last frame of a crash is
+truncated, never applied), and its leadership then re-enqueues the
+pending evals and re-blocks the blocked ones it finds in the restored
+store.  The snapshot thresholds are ``snapshot_entries``,
+``snapshot_bytes`` and ``snapshot_interval``.
 
 The single voter leads from :meth:`Server.start`.  Leadership enables the
 broker, the plan queue, blocked evals and the heartbeats, starts the
@@ -40,8 +50,7 @@ cluster event stream at construction, and the first
 Left out, for later slices: RPC, endpoints, membership and forwarding,
 with the ``rpc.request`` span, the ``/v1/trace/*`` and
 ``/v1/event/stream`` endpoints and the trace fanout over peers (ROADMAP
-queue 1 item 20); the durable log, snapshots and multi-voter raft;
-follower scheduling; core (GC) and periodic jobs; vault; the tenancy
+queue 1 item 20); multi-voter raft and follower scheduling (item 17); core (GC) and periodic jobs; vault; the tenancy
 quotas and namespaces; the blackbox hooks (item 21).
 """
 from __future__ import annotations
@@ -70,7 +79,7 @@ from .fsm import FSM, MessageType, TimeTable
 from .heartbeat import HeartbeatTimers
 from .plan_apply import PlanApplier
 from .plan_queue import PlanQueue
-from .raft import InmemLog, NotLeaderError
+from .raft import FileLog, InmemLog, NotLeaderError
 from .worker import BatchWorker
 
 # Bound on every join at shutdown, per thread.
@@ -104,7 +113,11 @@ class ServerConfig:
     tracing plane at construction, ``events`` this server's event stream,
     whose ring holds ``events_ring`` events (``NOMAD_TPU_TRACE``,
     ``NOMAD_TPU_EVENTS``, ``NOMAD_TPU_EVENTS_RING``); both are off by
-    default."""
+    default.  ``data_dir`` holds the durable log (empty: the in-memory
+    log), and ``snapshot_entries``, ``snapshot_bytes`` and
+    ``snapshot_interval`` are its automatic snapshot's thresholds (the
+    reference's ``NOMAD_TPU_FILELOG_SNAPSHOT_*``; 0 entries and 0 bytes
+    turn it off)."""
 
     num_schedulers: int = 1
     batch_size: int = 64
@@ -123,6 +136,10 @@ class ServerConfig:
     trace: bool = False
     events: bool = False
     events_ring: int = 4096
+    data_dir: str = ""
+    snapshot_entries: int = 8192
+    snapshot_bytes: int = 64 << 20
+    snapshot_interval: float = 1.0
 
 
 class Server:
@@ -155,7 +172,16 @@ class Server:
                        logger=self.logger,
                        on_eval_update=self._fsm_eval_updated,
                        on_unblock=self._fsm_unblock)
-        self.raft = InmemLog(self.fsm)
+        # The log (server.go:257 setupRaft): the durable single voter
+        # when a data dir is given, which recovers the store here.
+        if cfg.data_dir:
+            self.raft = FileLog(
+                self.fsm, cfg.data_dir,
+                snapshot_entries=cfg.snapshot_entries,
+                snapshot_bytes=cfg.snapshot_bytes,
+                snapshot_interval=cfg.snapshot_interval)
+        else:
+            self.raft = InmemLog(self.fsm)
         self.raft.metrics = self.metrics
         self.plan_applier = PlanApplier(
             self.plan_queue, self.raft, self.logger, metrics=self.metrics,
@@ -238,6 +264,8 @@ class Server:
         after a clean :meth:`shutdown`)."""
         out = [w._thread for w in self.workers if w._thread is not None]
         out += self.plan_applier.threads() + list(self._threads)
+        if isinstance(self.raft, FileLog):
+            out += self.raft.threads()
         for extra in (self.eval_broker.sweeper(), self.heartbeat.sweeper(),
                       self.blocked_evals._watcher):
             if extra is not None:

@@ -1,6 +1,6 @@
 """Columnar numpy mirror of the state store's node table and live-usage
 matrix (a copy of ``nomad_tpu/state/columnar.py`` without its environment
-switches and without the snapshot serialization).
+switches).
 
 At a million nodes the host's cost is walking Python objects: the static
 encode loops over every ``Node`` and the usage read over every alloc row.
@@ -30,6 +30,11 @@ never reads rows at or past its own ``n``), so only the creating store
 appends in place; any in-place row update or usage fold first copies the
 arrays it writes when they are shared.
 
+Snapshot: :func:`pack_columns` writes the numeric columns into the FSM
+snapshot's column section (:func:`pack_array`'s dtype, shape and bytes
+framing) and :func:`unpack_columns` installs them, with the usage
+cursor, as a restored store's mirror: no walk over the node objects.
+
 Invalidation: a structural change that could reorder a codebook (a node
 delete, an existing node changing datacenter or computed class) drops the
 container; the owning store rebuilds it at its next ``snapshot()`` or
@@ -45,6 +50,7 @@ on and 16, 0 turns a guard off).
 from __future__ import annotations
 
 import logging
+import struct
 from typing import Dict, List, Tuple
 
 import numpy as np
@@ -399,3 +405,85 @@ def _trim_book(book: Dict[str, int], length: int) -> Dict[str, int]:
             break
         out[k] = v
     return out
+
+
+# ---------------------------------------------------------------------------
+# Binary array framing (columnar.py:434-516): [u16 dtype-str len][dtype
+# str][u8 ndim][u64 dim]*ndim[u64 payload len][payload bytes], the format
+# of the FSM snapshot's column sections.
+# ---------------------------------------------------------------------------
+
+_U16 = struct.Struct("<H")
+_U8 = struct.Struct("<B")
+_U64 = struct.Struct("<Q")
+
+
+def pack_array(a: np.ndarray) -> bytes:
+    a = np.ascontiguousarray(a)
+    dt = a.dtype.str.encode("ascii")
+    parts = [_U16.pack(len(dt)), dt, _U8.pack(a.ndim)]
+    for d in a.shape:
+        parts.append(_U64.pack(d))
+    payload = a.tobytes()
+    parts.append(_U64.pack(len(payload)))
+    parts.append(payload)
+    return b"".join(parts)
+
+
+def unpack_array(buf: memoryview, off: int) -> Tuple[np.ndarray, int]:
+    (dtl,) = _U16.unpack_from(buf, off)
+    off += 2
+    dt = np.dtype(bytes(buf[off:off + dtl]).decode("ascii"))
+    off += dtl
+    (ndim,) = _U8.unpack_from(buf, off)
+    off += 1
+    shape = []
+    for _ in range(ndim):
+        (d,) = _U64.unpack_from(buf, off)
+        shape.append(d)
+        off += 8
+    (plen,) = _U64.unpack_from(buf, off)
+    off += 8
+    a = np.frombuffer(buf[off:off + plen], dtype=dt).reshape(shape).copy()
+    return a, off + plen
+
+
+def pack_columns(cols: ClusterColumns) -> bytes:
+    """The numeric columns of the mirror's first ``n`` rows (their node
+    order is the snapshot's node section)."""
+    n = cols.n
+    return b"".join(pack_array(a[:n]) for a in (
+        cols.cap, cols.res, cols.eligible, cols.dc_code, cols.class_code,
+        cols.usage))
+
+
+def unpack_columns(blob: bytes, node_ids: List[str], dc_names: List[str],
+                   class_names: List[str],
+                   usage_index: int) -> ClusterColumns:
+    """A mirror from a snapshot's column section: the arrays, the row
+    index and the codebooks, and ``usage_index``, the allocs index the
+    usage matrix was folded to."""
+    buf = memoryview(blob)
+    off = 0
+    arrays = []
+    for _ in range(6):
+        a, off = unpack_array(buf, off)
+        arrays.append(a)
+    cap, res, eligible, dc_code, class_code, usage = arrays
+    n = len(node_ids)
+    cols = ClusterColumns(capy=max(256, n))
+    cols.n = n
+    cols.cap[:n] = cap
+    cols.res[:n] = res
+    cols.eligible[:n] = eligible
+    cols.dc_code[:n] = dc_code
+    cols.class_code[:n] = class_code
+    cols.usage[:n] = usage
+    cols.node_ids = list(node_ids)
+    cols.row_of = {nid: i for i, nid in enumerate(node_ids)}
+    cols.dc_book = {name: i for i, name in enumerate(dc_names)}
+    cols.class_book = {name: i for i, name in enumerate(class_names)}
+    cols.dc_len = len(dc_names)
+    cols.class_len = len(class_names)
+    cols.usage_index = usage_index
+    return cols

@@ -31,18 +31,34 @@ Every write path publishes its events on the cluster event stream
 branch a write), after the write and outside the lock; a snapshot never
 publishes (state_store.py:295).
 
-Left out of the copy: deployments, namespaces
-(and the per-namespace usage fold of the delta log) with their publishes,
-vault accessors, periodic launches, job version history, eval delete (the
-GC path; its ``EvalDeleted`` publish comes with it, ROADMAP queue 1 item
-18), watch sets and persistence.  The ``ws`` argument of the readers is
-kept for the interface and ignored.
+The store also keeps the periodic launches, the vault accessors (with
+their by-alloc and by-node indexes) and the namespaces, which the FSM
+applies and the snapshot carries.
+
+Persistence (state_store.py:1966-2400): :meth:`StateStore.persist` writes
+the FSM snapshot, :meth:`StateStore.restore` rebuilds a store from one.
+A store with the columnar mirror writes the v2 format (``SNAP2_MAGIC``,
+then one struct-codec frame of the document: the tables, the node table
+struct-of-arrays, the standalone alloc rows, the slabs kept columnar and
+the mirror's numeric columns); one without it writes the per-object
+format (one struct-codec frame of every table).  Both restore.  The
+store's lineage (``store_uid``) and the usage-delta log are not
+persisted: a restored store is a new lineage whose delta-log floor sits
+at the restored allocs index, so every cache keyed on the old one misses.
+
+Left out of the copy: deployments and job version history (the snapshot
+has no sections for them), the per-namespace usage fold of the delta
+log, eval delete (the GC path; its ``EvalDeleted`` publish comes with it,
+ROADMAP queue 1 item 18) and watch sets.  The ``ws`` argument of the
+readers is kept for the interface and ignored.
 """
 from __future__ import annotations
 
 import bisect
+import dataclasses
 import threading
 from collections import defaultdict
+from dataclasses import dataclass
 from typing import Dict, List, Optional, Set, Tuple
 
 import numpy as np
@@ -57,6 +73,28 @@ _EMPTY_SET: Set[str] = set()
 # (NOMAD_TPU_ALLOC_LOG_CAP), in alloc rows: a slab entry weighs its
 # length.
 ALLOC_LOG_CAP = 262_144
+
+
+@dataclass
+class PeriodicLaunch:
+    """The last launch time of a periodic job (state_store.py:49)."""
+
+    id: str = ""
+    launch: float = 0.0
+    create_index: int = 0
+    modify_index: int = 0
+
+
+@dataclass
+class VaultAccessor:
+    """A derived Vault token's accessor (state_store.py:59)."""
+
+    accessor: str = ""
+    alloc_id: str = ""
+    node_id: str = ""
+    task: str = ""
+    creation_ttl: int = 0
+    create_index: int = 0
 
 
 class StateStore:
@@ -79,12 +117,17 @@ class StateStore:
         self.job_summary_table: Dict[str, s.JobSummary] = {}
         self.evals_table: Dict[str, s.Evaluation] = {}
         self.allocs_table: Dict[str, s.Allocation] = {}
+        self.periodic_launch_table: Dict[str, PeriodicLaunch] = {}
+        self.vault_accessors_table: Dict[str, VaultAccessor] = {}
+        self.namespaces_table: Dict[str, s.Namespace] = {}
         self._indexes: Dict[str, int] = {}
         # Secondary indexes (schema.go secondary memdb indexes).
         self._allocs_by_node: Dict[str, object] = defaultdict(set)
         self._allocs_by_job: Dict[str, object] = defaultdict(set)
         self._allocs_by_eval: Dict[str, object] = defaultdict(set)
         self._evals_by_job: Dict[str, object] = defaultdict(set)
+        self._vault_by_alloc: Dict[str, object] = defaultdict(set)
+        self._vault_by_node: Dict[str, object] = defaultdict(set)
         # Slabs whose by-id rows and per-node index cells are not built
         # yet: a bulk commit never reads them back in the same batch, so
         # the per-alloc indexing lands on the first reader that needs it.
@@ -124,6 +167,9 @@ class StateStore:
             snap.job_summary_table = dict(self.job_summary_table)
             snap.evals_table = dict(self.evals_table)
             snap.allocs_table = dict(self.allocs_table)
+            snap.periodic_launch_table = dict(self.periodic_launch_table)
+            snap.vault_accessors_table = dict(self.vault_accessors_table)
+            snap.namespaces_table = dict(self.namespaces_table)
             snap._indexes = dict(self._indexes)
             # Index values are immutable by contract (the mutators
             # replace them), so a shallow dict copy is a full fork.
@@ -131,6 +177,8 @@ class StateStore:
             snap._allocs_by_job = defaultdict(set, self._allocs_by_job)
             snap._allocs_by_eval = defaultdict(set, self._allocs_by_eval)
             snap._evals_by_job = defaultdict(set, self._evals_by_job)
+            snap._vault_by_alloc = defaultdict(set, self._vault_by_alloc)
+            snap._vault_by_node = defaultdict(set, self._vault_by_node)
             snap._pending_slabs = list(self._pending_slabs)
             snap._pending_by_job = {k: list(v)
                                     for k, v in self._pending_by_job.items()}
@@ -308,6 +356,13 @@ class StateStore:
     def _idx_add(cls, idx: Dict[str, object], key: str, item: str) -> None:
         cur = cls._idx_get(idx, key)
         idx[key] = {item} if not cur else cur | {item}
+
+    @classmethod
+    def _idx_discard(cls, idx: Dict[str, object], key: str,
+                     item: str) -> None:
+        cur = cls._idx_get(idx, key)
+        if item in cur:
+            idx[key] = cur - {item}
 
     @staticmethod
     def _idx_append(idx: Dict[str, object], key: str, items) -> None:
@@ -539,6 +594,121 @@ class StateStore:
             summary.modify_index = index
             self.job_summary_table[job.id] = summary
             self._bump("job_summary", index)
+
+    # -- periodic launches -------------------------------------------------
+
+    def upsert_periodic_launch(self, index: int,
+                               launch: PeriodicLaunch) -> None:
+        """(state_store.go:1003); keeps create_index on update."""
+        with self._lock:
+            existing = self.periodic_launch_table.get(launch.id)
+            launch = PeriodicLaunch(
+                launch.id, launch.launch,
+                existing.create_index if existing else index, index)
+            self.periodic_launch_table[launch.id] = launch
+            self._bump("periodic_launch", index)
+
+    def delete_periodic_launch(self, index: int, job_id: str) -> None:
+        with self._lock:
+            self.periodic_launch_table.pop(job_id, None)
+            self._bump("periodic_launch", index)
+
+    def periodic_launch_by_id(self, ws,
+                              job_id: str) -> Optional[PeriodicLaunch]:
+        with self._lock:
+            return self.periodic_launch_table.get(job_id)
+
+    def periodic_launches(self, ws=None) -> List[PeriodicLaunch]:
+        with self._lock:
+            return list(self.periodic_launch_table.values())
+
+    # -- vault accessors ---------------------------------------------------
+
+    def upsert_vault_accessors(self, index: int,
+                               accessors: List[VaultAccessor]) -> None:
+        with self._lock:
+            for acc in accessors:
+                acc = dataclasses.replace(acc, create_index=index)
+                self.vault_accessors_table[acc.accessor] = acc
+                self._idx_add(self._vault_by_alloc, acc.alloc_id,
+                              acc.accessor)
+                self._idx_add(self._vault_by_node, acc.node_id,
+                              acc.accessor)
+            self._bump("vault_accessors", index)
+
+    def delete_vault_accessors(self, index: int,
+                               accessors: List[VaultAccessor]) -> None:
+        with self._lock:
+            for acc in accessors:
+                stored = self.vault_accessors_table.pop(acc.accessor, None)
+                if stored is not None:
+                    self._idx_discard(self._vault_by_alloc, stored.alloc_id,
+                                      acc.accessor)
+                    self._idx_discard(self._vault_by_node, stored.node_id,
+                                      acc.accessor)
+            self._bump("vault_accessors", index)
+
+    def vault_accessors(self, ws=None) -> List[VaultAccessor]:
+        with self._lock:
+            return list(self.vault_accessors_table.values())
+
+    def vault_accessor(self, ws, accessor: str) -> Optional[VaultAccessor]:
+        with self._lock:
+            return self.vault_accessors_table.get(accessor)
+
+    def vault_accessors_by_alloc(self, ws,
+                                 alloc_id: str) -> List[VaultAccessor]:
+        with self._lock:
+            table = self.vault_accessors_table
+            return [table[a]
+                    for a in self._idx_get(self._vault_by_alloc, alloc_id)
+                    if a in table]
+
+    def vault_accessors_by_node(self, ws,
+                                node_id: str) -> List[VaultAccessor]:
+        with self._lock:
+            table = self.vault_accessors_table
+            return [table[a]
+                    for a in self._idx_get(self._vault_by_node, node_id)
+                    if a in table]
+
+    # -- namespaces --------------------------------------------------------
+
+    def upsert_namespace(self, index: int, ns: s.Namespace) -> None:
+        """A tenant registered or updated (the NAMESPACE_UPSERT apply)."""
+        with self._lock:
+            ns = ns.copy()
+            existing = self.namespaces_table.get(ns.name)
+            ns.create_index = (existing.create_index
+                               if existing is not None else index)
+            ns.modify_index = index
+            self.namespaces_table[ns.name] = ns
+            self._bump("namespaces", index)
+        eb = self.event_broker
+        if eb is not None:
+            eb.publish_one(s.TOPIC_NAMESPACE, "NamespaceUpserted", ns.name,
+                           index,
+                           {"Namespace": ns.name,
+                            "DequeueWeight": ns.dequeue_weight,
+                            "MaxLiveAllocs": ns.max_live_allocs,
+                            "MaxPendingEvals": ns.max_pending_evals})
+
+    def delete_namespace(self, index: int, name: str) -> None:
+        with self._lock:
+            if self.namespaces_table.pop(name, None) is not None:
+                self._bump("namespaces", index)
+        eb = self.event_broker
+        if eb is not None:
+            eb.publish_one(s.TOPIC_NAMESPACE, "NamespaceDeleted", name,
+                           index, {"Namespace": name})
+
+    def namespace_by_name(self, ws, name: str) -> Optional[s.Namespace]:
+        with self._lock:
+            return self.namespaces_table.get(name)
+
+    def namespaces(self, ws=None) -> List[s.Namespace]:
+        with self._lock:
+            return list(self.namespaces_table.values())
 
     # -- evals -------------------------------------------------------------
 
@@ -1154,7 +1324,451 @@ class StateStore:
             self.job_summary_table[alloc.job_id] = summary
             self._bump("job_summary", index)
 
+    # -- persistence (the FSM snapshot) ------------------------------------
+
+    #: The v2 format's magic (state_store.py:1973).  The per-object format
+    #: starts with the codec frame's magic byte, never an ASCII "N", so an
+    #: 8-byte sniff tells the two apart.
+    SNAP2_MAGIC = b"NTPUSNP2"
+
+    def persist(self) -> bytes:
+        """Serialize every table for an FSM snapshot (fsm.go:568).  A
+        store with the columnar mirror writes the v2 format, one without
+        it the per-object format; both restore."""
+        if self.columnar:
+            return self._persist_columnar()
+        return self._persist_legacy()
+
+    @staticmethod
+    def _slab_col_spec(col):
+        """The snapshot form of one slab string column: a lazy column
+        stays its prefix and count (the codec's value tree carries lazy
+        columns as such), a list is one packed string column."""
+        if isinstance(col, s._LazyStrs):
+            return col
+        return _pack_str_col(list(col))
+
+    @staticmethod
+    def _slab_col_load(v):
+        if isinstance(v, s._LazyStrs):
+            return v
+        return _unpack_str_col(v)
+
+    def _persist_columnar(self) -> bytes:
+        """v2 (state_store.py:2004): ``SNAP2_MAGIC`` and one struct-codec
+        frame of the document {tables, nodes as struct-of-arrays,
+        standalone alloc rows, columnar slabs, the mirror's numeric
+        columns}.  Slabs are not materialized: each proto is written
+        once, its string columns as columns (lazy ones as their prefix
+        and count), and restore installs them as pending slabs.  Job
+        trees shared by alloc rows and protos are written once, by
+        identity.  The reference's envelope is a msgpack map; the port
+        has no msgpack, so the envelope is the codec frame itself."""
+        from ..server.log_codec import encode_payload
+
+        with self._lock:
+            shared = _SharedRefs()
+            ref_job = shared.jobs.ref
+            table = self.allocs_table
+            allocs_out: Dict[str, s.Allocation] = {}
+            slab_docs: List[dict] = []
+            seen_slabs: Set[int] = set()
+
+            def slab_doc(slab: s.AllocSlab, dead: List[int]) -> dict:
+                proto = slab.proto
+                jr = None
+                if proto.job is not None:
+                    jr = ref_job(proto.job)
+                    proto = s._fast_copy(proto)
+                    proto.job = None
+                return {"proto": proto, "job_ref": jr,
+                        "ids": self._slab_col_spec(slab.ids),
+                        "names": self._slab_col_spec(slab.names),
+                        "node_ids": self._slab_col_spec(slab.node_ids),
+                        "prev_ids": self._slab_col_spec(slab.prev_ids),
+                        "ci": slab.create_index, "mi": slab.modify_index,
+                        "dead": dead}
+
+            for aid, v in table.items():
+                if type(v) is s.AllocSlab:
+                    if id(v) in seen_slabs:
+                        continue
+                    seen_slabs.add(id(v))
+                    # Slots whose table entry was replaced (a client
+                    # update, a read's cache-back, a stop) persist through
+                    # their own row.
+                    dead = [i for i, aid2 in enumerate(v.ids)
+                            if table.get(aid2) is not v]
+                    slab_docs.append(slab_doc(v, dead))
+                else:
+                    allocs_out[aid] = shared.strip(aid, v)
+            # Pending slabs are disjoint from the table's values and have
+            # no replaced slots.
+            for slab in self._pending_slabs:
+                slab_docs.append(slab_doc(slab, []))
+
+            doc = {
+                "tables": {
+                    "jobs": self.jobs_table,
+                    "job_summary": self.job_summary_table,
+                    "evals": self.evals_table,
+                    "periodic_launch": self.periodic_launch_table,
+                    "vault_accessors": self.vault_accessors_table,
+                    "namespaces": self.namespaces_table,
+                    "indexes": self._indexes,
+                },
+                "nodes": _node_soa(list(self.nodes_table.values())),
+                "allocs": {"rows": allocs_out, **shared.doc()},
+                "slabs": slab_docs,
+                "columns": None, "colmeta": None,
+            }
+            # The mirror's numeric columns, caught up with the allocs,
+            # ride along when their rows are the node table's, so the
+            # restored store encodes without a cold build.
+            cols = self._ensure_columns_locked()
+            if (cols is not None and cols.n == len(self.nodes_table)
+                    and cols.node_ids[:cols.n]
+                    == list(self.nodes_table)):
+                if not cols.fold_usage(self):
+                    cols.rebuild_usage(self)
+                doc["columns"] = columnar_mod.pack_columns(cols)
+                doc["colmeta"] = {
+                    "dc": list(cols.dc_codebook()),
+                    "class": list(cols.class_codebook()),
+                    "usage_index": cols.usage_index}
+            return self.SNAP2_MAGIC + encode_payload(doc, "snapshot")
+
+    def _persist_legacy(self) -> bytes:
+        """The per-object format (state_store.py:2157): every table as
+        objects, slabs materialized into plain alloc rows for the blob
+        only, shared job trees written once by identity."""
+        from ..server.log_codec import encode_payload
+
+        with self._lock:
+            if self._pending_slabs:
+                self._materialize_pending()
+            shared = _SharedRefs()
+            allocs_out: Dict[str, s.Allocation] = {}
+            for aid, v in self.allocs_table.items():
+                a = (v.materialize(v.id_index(aid))
+                     if type(v) is s.AllocSlab else v)
+                allocs_out[aid] = shared.strip(aid, a)
+            return encode_payload({
+                "nodes": self.nodes_table,
+                "jobs": self.jobs_table,
+                "job_summary": self.job_summary_table,
+                "evals": self.evals_table,
+                "allocs": allocs_out,
+                "alloc_shared": shared.doc(),
+                "periodic_launch": self.periodic_launch_table,
+                "vault_accessors": self.vault_accessors_table,
+                "namespaces": self.namespaces_table,
+                "indexes": self._indexes,
+            }, "snapshot")
+
+    @classmethod
+    def restore(cls, blob: bytes, alloc_log_cap: int = ALLOC_LOG_CAP,
+                columnar: bool = True) -> "StateStore":
+        """A store (and its secondary indexes) rebuilt from a snapshot
+        (fsm.go:582 Restore), of either format (the v2 magic is
+        sniffed).  The store is a new lineage (a fresh ``store_uid``);
+        the usage-delta log starts empty with its floor at the restored
+        allocs index, so every consumer from before the restore does a
+        full re-encode."""
+        if blob[:len(cls.SNAP2_MAGIC)] == cls.SNAP2_MAGIC:
+            store = cls._restore_columnar(blob, alloc_log_cap, columnar)
+        else:
+            store = cls._restore_legacy(blob, alloc_log_cap, columnar)
+        store._alloc_log_floor = store._indexes.get("allocs", 0)
+        return store
+
+    def _restore_common(self, t: dict) -> None:
+        self.jobs_table = t["jobs"]
+        self.job_summary_table = t["job_summary"]
+        self.evals_table = t["evals"]
+        self.periodic_launch_table = t["periodic_launch"]
+        self.vault_accessors_table = t["vault_accessors"]
+        self.namespaces_table = t["namespaces"]
+        self._indexes = t["indexes"]
+        for ev in self.evals_table.values():
+            self._evals_by_job[ev.job_id].add(ev.id)
+        for acc in self.vault_accessors_table.values():
+            self._vault_by_alloc[acc.alloc_id].add(acc.accessor)
+            self._vault_by_node[acc.node_id].add(acc.accessor)
+
+    def _restore_rows(self, rows: Dict[str, s.Allocation],
+                      shared: dict) -> None:
+        """Install standalone alloc rows, their job trees and placement
+        metrics re-attached (one shared object a ref, as they were
+        shared when persisted)."""
+        self.allocs_table = rows
+        _SharedRefs.attach(rows, shared)
+        for alloc in rows.values():
+            self._allocs_by_node[alloc.node_id].add(alloc.id)
+            self._allocs_by_job[alloc.job_id].add(alloc.id)
+            self._allocs_by_eval[alloc.eval_id].add(alloc.id)
+
+    @classmethod
+    def _restore_legacy(cls, blob: bytes, alloc_log_cap: int,
+                        columnar: bool) -> "StateStore":
+        from ..server.log_codec import decode_payload
+
+        payload = decode_payload(blob, "snapshot")
+        store = cls(alloc_log_cap=alloc_log_cap, columnar=columnar)
+        store.nodes_table = payload["nodes"]
+        store._restore_common(payload)
+        store._restore_rows(payload["allocs"], payload["alloc_shared"])
+        return store
+
+    @classmethod
+    def _restore_columnar(cls, blob: bytes, alloc_log_cap: int,
+                          columnar: bool) -> "StateStore":
+        """v2 restore (state_store.py:2260): node objects rebuilt from the
+        struct-of-arrays without ``__init__``, slabs installed as pending
+        (their per-alloc rows and node-index cells are built on first
+        read, dead slots left out), and the mirror installed from the
+        column section (``columnar.unpack_columns``), not rebuilt by a
+        walk over the nodes."""
+        from ..server.log_codec import decode_payload
+
+        doc = decode_payload(blob[len(cls.SNAP2_MAGIC):], "snapshot")
+        store = cls(alloc_log_cap=alloc_log_cap, columnar=columnar)
+        store._restore_common(doc["tables"])
+        ids = _restore_nodes(store.nodes_table, doc["nodes"])
+
+        a = doc["allocs"]
+        alloc_jobs = a["jobs"]
+        store._restore_rows(a["rows"], a)
+
+        for sd in doc["slabs"]:
+            proto = sd["proto"]
+            jr = sd["job_ref"]
+            if jr is not None and 0 <= jr < len(alloc_jobs):
+                proto.job = alloc_jobs[jr]
+            cols = [cls._slab_col_load(sd[k])
+                    for k in ("ids", "names", "node_ids", "prev_ids")]
+            dead = sd["dead"]
+            if dead:
+                deadset = set(dead)
+                keep = [i for i in range(len(cols[0])) if i not in deadset]
+                cols = [[c[i] for i in keep] for c in cols[:3]] + [
+                    [cols[3][i] for i in keep] if cols[3] else []]
+            slab = s.AllocSlab(proto=proto, ids=cols[0], names=cols[1],
+                               node_ids=cols[2], prev_ids=cols[3],
+                               create_index=sd["ci"], modify_index=sd["mi"])
+            if not len(slab):
+                continue
+            store._pending_slabs.append(slab)
+            store._pending_by_job.setdefault(proto.job_id, []).append(slab)
+            store._idx_append(store._allocs_by_job, proto.job_id, slab.ids)
+            store._idx_append(store._allocs_by_eval, proto.eval_id,
+                              slab.ids)
+
+        if columnar and doc["columns"] is not None:
+            cm = doc["colmeta"]
+            store._columns = columnar_mod.unpack_columns(
+                doc["columns"], ids, cm["dc"], cm["class"],
+                cm["usage_index"])
+        return store
+
 
 class StateSnapshot(StateStore):
     """A point-in-time view; writes to a snapshot do not reach the parent
     store."""
+
+
+# -- snapshot helpers ----------------------------------------------------------
+
+
+class _Refs:
+    """Objects shared by identity, each written once: ``ref(obj)`` is its
+    position in ``items``."""
+
+    def __init__(self) -> None:
+        self.items: list = []
+        self._by_id: Dict[int, int] = {}
+
+    def ref(self, obj) -> int:
+        r = self._by_id.get(id(obj))
+        if r is None:
+            r = self._by_id[id(obj)] = len(self.items)
+            self.items.append(obj)
+        return r
+
+
+class _SharedRefs:
+    """The job trees and placement metrics that alloc rows share: a batch
+    gives every alloc of one placement spec the same ``AllocMetric``
+    (its scores run to one entry a placement) and the same ``Job``, so a
+    row is written without them and with a reference to the one copy
+    (the reference dedupes the jobs only; its rows each carry their
+    metric)."""
+
+    def __init__(self) -> None:
+        self.jobs, self.metrics = _Refs(), _Refs()
+        self.job_refs: Dict[str, int] = {}
+        self.metric_refs: Dict[str, int] = {}
+
+    def strip(self, aid: str, a: s.Allocation) -> s.Allocation:
+        if a.job is None and a.metrics is None:
+            return a
+        a = s._fast_copy(a)
+        if a.job is not None:
+            self.job_refs[aid] = self.jobs.ref(a.job)
+            a.job = None
+        if a.metrics is not None:
+            self.metric_refs[aid] = self.metrics.ref(a.metrics)
+            a.metrics = None
+        return a
+
+    def doc(self) -> dict:
+        return {"jobs": self.jobs.items, "refs": self.job_refs,
+                "metrics": self.metrics.items,
+                "metric_refs": self.metric_refs}
+
+    @staticmethod
+    def attach(rows: Dict[str, s.Allocation], doc: dict) -> None:
+        for key, refs, attr in (("jobs", "refs", "job"),
+                                ("metrics", "metric_refs", "metrics")):
+            objs = doc[key]
+            for aid, r in doc[refs].items():
+                row = rows.get(aid)
+                if row is not None and 0 <= r < len(objs):
+                    setattr(row, attr, objs[r])
+
+_NODE_STR_FIELDS = ("datacenter", "name", "node_class", "computed_class",
+                    "status", "status_description")
+_ZERO4 = (0, 0, 0, 0)
+
+
+def _pack_str_col(values: List[str]) -> bytes:
+    """A string column as one bytes value: the varint count, then the
+    packed strings (``codec/native.pack_strs``)."""
+    from ..codec import gen, native
+
+    w = bytearray()
+    gen._uv(w, len(values))
+    w += native.pack_strs(values)
+    return bytes(w)
+
+
+def _unpack_str_col(b: bytes) -> List[str]:
+    from ..codec import gen, native
+
+    n, p = gen._duv(b, 0)
+    out, end = native.unpack_strs(b, p, n)
+    if end != len(b):
+        raise gen.CodecError("trailing bytes after a string column")
+    return out
+
+
+def _intern_col(values, key=None) -> dict:
+    """A column of few distinct values: the distinct values in first-seen
+    order and an int32 array of references into them (``key`` makes an
+    unhashable value hashable)."""
+    keys = values if key is None else list(map(key, values))
+    index = {k: i for i, k in enumerate(dict.fromkeys(keys))}
+    if key is None:
+        book = list(index)
+    else:
+        first = dict(zip(reversed(keys), reversed(values)))
+        book = [first[k] for k in index]
+    refs = np.fromiter(map(index.__getitem__, keys), np.int32, len(keys))
+    return {"book": book, "refs": columnar_mod.pack_array(refs)}
+
+
+def _uninterned(col: dict, copy=None) -> list:
+    book = col["book"]
+    refs = columnar_mod.unpack_array(memoryview(col["refs"]), 0)[0]
+    if copy is None:
+        return [book[r] for r in refs.tolist()]
+    return [copy(book[r]) for r in refs.tolist()]
+
+
+def _res_rows(rs) -> Tuple[bytes, bytes, dict]:
+    """Resource 4-vectors of a node column as one int64 array, the
+    presence mask, and the networks of the rows that have any."""
+    present = [r is not None for r in rs]
+    vec = np.array([(r.cpu, r.memory_mb, r.disk_mb, r.iops)
+                    if r is not None else _ZERO4 for r in rs],
+                   np.int64).reshape(len(rs), 4)
+    nets = {str(i): r.networks for i, r in enumerate(rs)
+            if r is not None and r.networks}
+    return (columnar_mod.pack_array(vec),
+            columnar_mod.pack_array(np.asarray(present, bool)), nets)
+
+
+def _node_soa(nodes: List[s.Node]) -> dict:
+    """The node table as struct-of-arrays (state_store.py:2091-2135):
+    ids as a packed string column, the few-valued string fields and the
+    attribute and meta maps interned, the resource 4-vectors, flags and
+    indexes as arrays, networks sparse."""
+    cap, cap_present, nets = _res_rows([nd.resources for nd in nodes])
+    res, res_present, rnets = _res_rows([nd.reserved for nd in nodes])
+    soa = {
+        "id": _pack_str_col([nd.id for nd in nodes]),
+        "cap": cap, "cap_present": cap_present, "networks": nets,
+        "res": res, "res_present": res_present, "res_networks": rnets,
+        "drain": columnar_mod.pack_array(
+            np.asarray([nd.drain for nd in nodes], bool)),
+        "create_index": columnar_mod.pack_array(
+            np.asarray([nd.create_index for nd in nodes], np.int64)),
+        "modify_index": columnar_mod.pack_array(
+            np.asarray([nd.modify_index for nd in nodes], np.int64)),
+        "attributes": _intern_col([nd.attributes for nd in nodes],
+                                  key=lambda d: tuple(d.items())),
+        "meta": _intern_col([nd.meta for nd in nodes],
+                            key=lambda d: tuple(d.items())),
+    }
+    for f in _NODE_STR_FIELDS:
+        soa[f] = _intern_col([getattr(nd, f) for nd in nodes])
+    return soa
+
+
+def _restore_nodes(table: Dict[str, s.Node], nd: dict) -> List[str]:
+    """Node objects from the struct-of-arrays, made with ``__new__`` and
+    a direct ``__dict__`` (state_store.py:2282-2321), into ``table`` in
+    the persisted order; returns their ids."""
+    ids = _unpack_str_col(nd["id"])
+    arr = lambda key: columnar_mod.unpack_array(  # noqa: E731
+        memoryview(nd[key]), 0)[0]
+    cap, cap_p = arr("cap").tolist(), arr("cap_present").tolist()
+    res, res_p = arr("res").tolist(), arr("res_present").tolist()
+    nets, rnets = nd["networks"], nd["res_networks"]
+    drain = arr("drain").tolist()
+    cidx, midx = arr("create_index").tolist(), arr("modify_index").tolist()
+    attrs = _uninterned(nd["attributes"], dict)
+    metas = _uninterned(nd["meta"], dict)
+    strs = {f: _uninterned(nd[f]) for f in _NODE_STR_FIELDS}
+    dcs, names, ncls = strs["datacenter"], strs["name"], strs["node_class"]
+    ccls, sts, stsd = (strs["computed_class"], strs["status"],
+                       strs["status_description"])
+    new = object.__new__
+    R, ND = s.Resources, s.Node
+    for i, nid in enumerate(ids):
+        key = str(i) if (nets or rnets) else ""
+        if cap_p[i]:
+            v = cap[i]
+            r = new(R)
+            r.__dict__ = {"cpu": v[0], "memory_mb": v[1], "disk_mb": v[2],
+                          "iops": v[3], "networks": nets.get(key, [])}
+        else:
+            r = None
+        if res_p[i]:
+            v = res[i]
+            rv = new(R)
+            rv.__dict__ = {"cpu": v[0], "memory_mb": v[1], "disk_mb": v[2],
+                           "iops": v[3], "networks": rnets.get(key, [])}
+        else:
+            rv = None
+        node = new(ND)
+        node.__dict__ = {
+            "id": nid, "datacenter": dcs[i], "name": names[i],
+            "attributes": attrs[i], "resources": r, "reserved": rv,
+            "meta": metas[i], "node_class": ncls[i],
+            "computed_class": ccls[i], "drain": drain[i],
+            "status": sts[i], "status_description": stsd[i],
+            "create_index": cidx[i], "modify_index": midx[i],
+        }
+        table[nid] = node
+    return ids

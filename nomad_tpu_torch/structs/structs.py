@@ -8,10 +8,11 @@ int32 ``[N, 4]`` / ``[U, 4]`` tensors in ``ops/encode.py``.
 Left out of the copy: periodic and parameterized jobs, services, vault,
 templates and artifacts as types (a task keeps the last three as plain
 data, compared by the in-place update test and rendered by the job
-diff, ``structs/diff.py``, as the reference renders their types),
-deployments and namespaces.  The event stream's structs (``TOPIC_*``,
-``EVENT_TOPICS``, ``Event``) are here; the deployment and namespace
-topics name tables the port does not have yet.
+diff, ``structs/diff.py``, as the reference renders their types), and
+deployments.  ``Namespace`` is here (the state store keeps its table and
+the snapshot carries it; the tenancy hooks on it come later).  The event
+stream's structs (``TOPIC_*``, ``EVENT_TOPICS``, ``Event``) are here; the
+deployment topic names a table the port does not have yet.
 """
 from __future__ import annotations
 
@@ -39,6 +40,8 @@ JOB_MAX_PRIORITY = 100
 TENANCY_OBJECTIVE_DRF = "drf"
 TENANCY_OBJECTIVE_WRR = "weighted-rr"
 TENANCY_OBJECTIVE_FIFO = "fifo"
+TENANCY_OBJECTIVES = (TENANCY_OBJECTIVE_DRF, TENANCY_OBJECTIVE_WRR,
+                      TENANCY_OBJECTIVE_FIFO)
 
 NODE_STATUS_INIT = "initializing"
 NODE_STATUS_READY = "ready"
@@ -777,9 +780,10 @@ class LazyUuids(_LazyStrs):
 
     __slots__ = ("prefix",)
 
-    def __init__(self, n: int) -> None:
+    def __init__(self, n: int, prefix: Optional[str] = None) -> None:
         super().__init__(n)
-        self.prefix = generate_uuid()[:24]
+        # A restored column keeps the prefix it was written with.
+        self.prefix = generate_uuid()[:24] if prefix is None else prefix
 
     def _make(self, i: int) -> str:
         return f"{self.prefix}{i:012x}"
@@ -857,6 +861,29 @@ class AllocSlab:
             create_index=self.create_index,
             modify_index=self.modify_index,
         )
+
+
+@dataclass
+class Namespace:
+    """A tenant: quota and fairness configuration, registered through the
+    log like jobs and carried by the snapshot (structs.py:1275).  Every
+    quota field uses 0 for unlimited, so a namespace made with bare
+    defaults throttles nothing."""
+
+    name: str = ""
+    description: str = ""
+    quota_node_units: float = 0.0
+    max_live_allocs: int = 0
+    max_pending_evals: int = 0
+    api_rate: float = 0.0
+    api_burst: int = 0
+    dequeue_weight: float = 1.0
+    objective: str = ""
+    create_index: int = 0
+    modify_index: int = 0
+
+    def copy(self) -> "Namespace":
+        return _fast_copy(self)
 
 
 @dataclass

@@ -1,6 +1,7 @@
-"""The port stands alone: it imports neither jax nor nomad_tpu, looks
-neither up by name, runs with jax unimportable, and never falls back from
-the card to the CPU."""
+"""The port stands alone: it imports neither jax nor nomad_tpu, nor
+msgpack (the card's machine does not install it: the port's log and
+snapshot use its own struct codec), looks none of them up by name, runs
+with jax unimportable, and never falls back from the card to the CPU."""
 import ast
 import pathlib
 import re
@@ -30,7 +31,7 @@ def imported_modules(path):
 
 # A string that names a module of jax or of the reference: what a lookup
 # by name (sys.modules.get, importlib.import_module, __import__) takes.
-MODULE_NAME = re.compile(r"(jax|jaxlib|nomad_tpu)(\.[\w.]*)?")
+MODULE_NAME = re.compile(r"(jax|jaxlib|nomad_tpu|msgpack)(\.[\w.]*)?")
 
 
 def named_modules(source, filename="<string>"):
@@ -52,7 +53,8 @@ PORT_FILES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py",
 def test_no_jax_or_reference_imports(path):
     for mod in imported_modules(path):
         top = mod.split(".")[0]
-        assert top not in ("jax", "jaxlib", "nomad_tpu"), (path, mod)
+        assert top not in ("jax", "jaxlib", "nomad_tpu", "msgpack"), (path,
+                                                                   mod)
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
@@ -66,6 +68,7 @@ def test_no_reference_module_looked_up_by_name(path):
      ["nomad_tpu.ops.resident"]),
     ('import importlib\nimportlib.import_module("jax")\n', ["jax"]),
     ('__import__("nomad_tpu")\n', ["nomad_tpu"]),
+    ('import importlib\nimportlib.import_module("msgpack")\n', ["msgpack"]),
     ('import sys\nm = sys.modules.get("nomad_tpu_torch.ops.resident")\n',
      []),
     ('"""Reads nomad_tpu/ops/resident.py, like jax.jit does."""\n', []),
@@ -85,6 +88,7 @@ def test_runs_with_jax_unimportable():
 import sys
 sys.modules["jax"] = None
 sys.modules["nomad_tpu"] = None
+sys.modules["msgpack"] = None
 from nomad_tpu_torch import mock
 from nomad_tpu_torch.ops.batch_sched import schedule_batch
 nodes = [mock.node() for _ in range(20)]
@@ -113,6 +117,20 @@ stats = new_scheduler("torch-batch", h.logger, h.snapshot(), h,
 assert stats.device_ran and stats.oracle_routed == 0, stats
 assert len(h.state.allocs_by_job(None, job.id, True)) == 10
 assert [e.status for e in h.evals] == [s.EVAL_STATUS_COMPLETE], h.evals
+import shutil, tempfile
+from nomad_tpu_torch.server.fsm import FSM, MessageType
+from nomad_tpu_torch.server.raft import FileLog
+d = tempfile.mkdtemp()
+log = FileLog(FSM(), d, snapshot_entries=0, snapshot_bytes=0)
+log.apply(MessageType.NODE_REGISTER, {"node": nodes[0]})
+assert log.snapshot()
+log.apply(MessageType.JOB_REGISTER, {"job": job})
+log.close()
+log = FileLog(FSM(), d, snapshot_entries=0, snapshot_bytes=0)
+assert log.applied_index() == 2 and log.recovery["snapshot_index"] == 1
+assert log.fsm.state.job_by_id(None, job.id) is not None
+log.close()
+shutil.rmtree(d)
 print("ok")
 """
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
