@@ -238,7 +238,40 @@ Phases, each printed as one JSON line:
                on the file log against the in-memory log, fsyncs per
                apply, wave 1's evals per second, snapshot bytes, each
                with the data dir's filesystem type;
-22. times   -- each kernel's device time (profiler trace; CUDA events
+22. cluster -- the replicated cluster: three port servers over loopback
+               TCP (RPC over the struct codec, serf-lite membership,
+               ``MultiRaft``, forwarding), each world in a process of its
+               own under one string hash seed and one guard cadence
+               (every read).  Leg 1, exact: phase 17's fleet (every fifth
+               node registered through a follower, forwarded), config
+               (b)'s wave 1 (100 x 1000), every worker paused and wave 2
+               (10 x 200) registered through a follower, the leader shut
+               down (its broker first), a new leader elected whose
+               restore re-enqueues wave 2, the workers released, a node
+               down, a follow-up (10 x 200); on the card (A), on the CPU
+               (C), and on one card server on the in-memory log (B, no
+               failover).  A = C on allocs, eval statuses, blocked stats
+               and queued counts after each step; A against B printed
+               where it differs; every survivor's fingerprint equal; the
+               new leader's applied index at least the last acknowledged;
+               one ``scored_rows`` launch per committing step on the old
+               leader and on the new one; one full re-encode of the
+               resident mirror more than B's after the failover; no guard
+               mismatch, no nack, the breaker closed, no node over
+               capacity; node registration seconds and ``raft.apply``
+               mean and p99 through ``MultiRaft`` against B's, the kill
+               to a new leader and to wave 2 settled, wave 1's evals per
+               second, the forwarded writes.  Leg 2, invariants:
+               follower-read scheduling (the leader's batch worker on
+               the card, the followers' on the CPU schedulers), 2,000
+               nodes and 200 jobs x 20 asks, the leader killed mid-drain
+               at a seeded point: every eval complete, each job exactly
+               its count of distinct allocs, no node over capacity, the
+               survivors' fingerprints equal, plans forwarded by the
+               followers and none by the leader's own channel, launches =
+               committing steps on each leader; the lag handbacks and
+               the ``follower.snapshot_lag`` samples;
+23. times   -- each kernel's device time (profiler trace; CUDA events
                where the trace has none) over copies of its inputs that
                overflow the L2 (``rotating``: twice the L2 of input bytes
                a cycle), its plain version's, the bound for the same work
@@ -247,7 +280,7 @@ Phases, each printed as one JSON line:
                (the mesh's call at config_mesh); the launch floor (a
                one-element fill); the kernels' SASS instruction counts and the
                issue-rate time they give;
-23. profile -- config (b)'s first batch again, warm, on the single card
+24. profile -- config (b)'s first batch again, warm, on the single card
                and on a 4-shard mesh: untraced, and under a device-only
                trace for the device busy time and idle share.
 
@@ -4330,10 +4363,12 @@ def durable_content(srv) -> dict:
 
 class apply_timer:
     """Records the wall time of every ``raft.apply`` of ``srv`` (the log's
-    whole commit: write, durability wait, the sequencer and the FSM)."""
+    whole commit: write, durability wait, the sequencer and the FSM);
+    with ``by_type`` the summary also splits them by message type."""
 
-    def __init__(self, srv):
-        self.raft, self.ms = srv.raft, []
+    def __init__(self, srv, by_type=False):
+        self.raft, self.ms, self.types = srv.raft, [], []
+        self.by_type = by_type
         inner = srv.raft.apply
 
         def timed(msg_type, payload):
@@ -4342,15 +4377,30 @@ class apply_timer:
                 return inner(msg_type, payload)
             finally:
                 self.ms.append((time.perf_counter() - t0) * 1e3)
+                self.types.append(getattr(msg_type, "name", str(msg_type)))
 
         srv.raft.apply = timed
 
-    def summary(self) -> dict:
+    def reset(self) -> None:
+        self.ms, self.types = [], []
+
+    @staticmethod
+    def _stats(ms) -> dict:
         import numpy as np
 
-        a = np.asarray(self.ms or [0.0])
-        return {"applies": len(self.ms), "mean_ms": float(a.mean()),
+        a = np.asarray(ms or [0.0])
+        return {"applies": len(ms), "mean_ms": float(a.mean()),
                 "p99_ms": float(np.percentile(a, 99))}
+
+    def summary(self) -> dict:
+        out = self._stats(self.ms)
+        if self.by_type:
+            groups = collections.defaultdict(list)
+            for name, ms in zip(self.types, self.ms):
+                groups[name].append(ms)
+            out["by_type"] = {k: self._stats(v)
+                              for k, v in sorted(groups.items())}
+        return out
 
 
 def durable_server(dev, data_dir=""):
@@ -4654,19 +4704,21 @@ def same_commits(a, b) -> dict:
     return diff
 
 
+def check_launches(label, counts, need_launch=True) -> list:
+    """One ``scored_rows`` launch per committing step in one part of a
+    card world's run (at least one when ``need_launch``), and no other
+    kernel's launch."""
+    if ((need_launch and counts["scored_rows"] <= 0)
+            or counts["scored_rows"] != counts["committing_spec_steps"]
+            or counts["scored_rows"] != counts["batch_commit_steps"]
+            or counts["masked_score_matrix"] or counts["eviction_sets"]):
+        return [f"{label}: launches {counts}"]
+    return []
+
+
 def check_durable_launches(label, before, after) -> list:
-    """One ``scored_rows`` launch per committing step in each part of a
-    card world's run, and no other kernel's launch."""
-    errors = []
-    for part, counts in (("before the crash", before),
-                         ("after the restart", after)):
-        if (counts["scored_rows"] <= 0
-                or counts["scored_rows"] != counts["committing_spec_steps"]
-                or counts["scored_rows"] != counts["batch_commit_steps"]
-                or counts["masked_score_matrix"]
-                or counts["eviction_sets"]):
-            errors.append(f"{label} {part}: launches {counts}")
-    return errors
+    return (check_launches(f"{label} before the crash", before)
+            + check_launches(f"{label} after the restart", after))
 
 
 def check_durable(child, restart, label, on_card, sc) -> list:
@@ -4844,6 +4896,556 @@ def phase_durable(dev, sizes=None):
         "seconds": time.perf_counter() - t_phase}
 
 
+# -- phase 22: cluster -------------------------------------------------------
+
+CLUSTER_SEED = 20261025
+CLUSTER_CHILD_TIMEOUT = 420.0
+# Every world of the phase runs in a process of its own under this string
+# hash seed (node-update evals follow set order; queue 3 item 13).
+CLUSTER_HASH_SEED = 20261025
+# The loaded-host election timing of the reference's loadgen harness
+# (nomad_tpu/loadgen/harness.py:45-47): the three servers share one
+# process and the card's batches hold the GIL in stretches.
+CLUSTER_RAFT = {"raft_heartbeat": 0.2, "raft_election_min": 5.0,
+                "raft_election_max": 8.0}
+CLUSTER_ELECTION_TIMEOUT = 60.0
+# Leg 1: phase 17's fleet, config (b)'s wave 1 (100 x 1000), wave 2
+# (10 x 200) and a follow-up (10 x 200).  Leg 2: its fleet and jobs.
+CLUSTER_SIZES = {"n_nodes": 10_000, "n_jobs": 100, "count": 1000,
+                 "wave_jobs": 10, "wave_count": 200, "follow_jobs": 10}
+LEG2_SIZES = {"n_nodes": 2_000, "n_jobs": 200, "count": 20}
+CLUSTER_STEPS = ("nodes", "wave1", "wave2_paused", "leader_down",
+                 "restored", "node_down", "follow")
+
+
+def cluster_scenario(n_nodes, n_jobs, count, wave_jobs, wave_count,
+                     follow_jobs):
+    """Phase 17's fleet and config (b)'s waves (``n_jobs`` x ``count``,
+    then ``wave_jobs`` x ``wave_count``), and the follow-up
+    (``follow_jobs`` x ``wave_count``)."""
+    from nomad_tpu_torch import mock
+
+    sc = server_scenario(n_nodes, n_jobs, count, wave_jobs, wave_count, 0,
+                         1, 0)
+    follow = [strip_job(mock.job(), wave_count, cpu=100, mem=128)
+              for _ in range(follow_jobs)]
+    for k, j in enumerate(follow):
+        j.id = j.name = f"job-{n_jobs + wave_jobs + k:03d}"
+    sc["follow"] = follow
+    return sc
+
+
+def cluster_servers(dev, brk, follower_scheduling, single=False):
+    """Three port servers over loopback TCP (the first the seed), or one
+    ``Server`` on the in-memory log; constructed before any id is
+    seeded, every columnar guard at every read."""
+    from nomad_tpu_torch.server import Server, ServerConfig
+
+    common = dict(device=dev, rng_seed=SERVER_SEED, batch_size=64,
+                  min_heartbeat_ttl=SERVER_HEARTBEAT_TTL, breaker=brk,
+                  columnar_guard_every=1)
+    if single:
+        return [Server(ServerConfig(**common))]
+    servers, first = [], None
+    for i in range(3):
+        srv = Server(ServerConfig(
+            node_name=f"cluster-{i + 1}", enable_rpc=True,
+            bootstrap_expect=3, start_join=[first] if first else [],
+            follower_scheduling=follower_scheduling, **CLUSTER_RAFT,
+            **common))
+        first = first or srv.config.rpc_advertise
+        servers.append(srv)
+    return servers
+
+
+def cluster_leader(servers, timeout=CLUSTER_ELECTION_TIMEOUT):
+    """The elected leader of ``servers`` (its raft leads and its
+    leadership is established); raises past ``timeout``."""
+    from nomad_tpu_torch.utils.backoff import wait_until
+
+    def lead():
+        return next((x for x in servers
+                     if x.is_leader() and getattr(
+                         x.raft, "is_raft_leader", lambda: True)()), None)
+
+    if not wait_until(lambda: lead() is not None, timeout,
+                      max_interval=0.02):
+        raise AssertionError("cluster: no leader in "
+                             f"{timeout} s: {[x.stats() for x in servers]}")
+    return lead()
+
+
+def cluster_fingerprints(servers) -> list:
+    """Every server's (index, digest) once they agree (30 s at most)."""
+    from nomad_tpu_torch.utils.backoff import wait_until
+
+    wait_until(lambda: len({x.fsm_fingerprint() for x in servers}) == 1,
+               30.0, max_interval=0.05)
+    return [list(x.fsm_fingerprint()) for x in servers]
+
+
+def cluster_pause(servers) -> None:
+    for x in servers:
+        if not x.set_workers_paused(True, timeout=SERVER_SETTLE_TIMEOUT):
+            raise AssertionError("cluster: workers did not park")
+
+
+def cluster_release(servers) -> None:
+    for x in servers:
+        x.set_workers_paused(False)
+
+
+def resident_counts() -> dict:
+    from nomad_tpu_torch.ops import resident
+
+    return {"full_reencodes": resident.FULL_REENCODES,
+            "hits": resident.HITS,
+            "guard_mismatches": resident.GUARD_MISMATCHES,
+            "dev_guard_mismatches": resident.DEV_GUARD_MISMATCHES}
+
+
+def cluster_leg1(dev, sizes, single=False) -> dict:
+    """One world of leg 1: the script on three servers (A on the card, C
+    on the CPU) or on one (B), with the counts set to 0 just before each
+    leader's part and read just after."""
+    from nomad_tpu_torch.ops import resident
+    from nomad_tpu_torch.ops.breaker import KernelCircuitBreaker
+    from nomad_tpu_torch.state import columnar as colmod
+
+    sc = cluster_scenario(**sizes)
+    resident.invalidate()
+    colmod.reset_counters()
+    brk = KernelCircuitBreaker()
+    servers = cluster_servers(dev, brk, False, single=single)
+    out = {"device": dev, "single": single, "contents": {}}
+    t0 = time.perf_counter()
+    for x in servers:
+        x.start()
+    lead = cluster_leader(servers)
+    out["first_leader_s"] = time.perf_counter() - t0
+    alive = list(servers)
+    followers = [x for x in servers if x is not lead]
+    ids = seeded_ids(CLUSTER_SEED)
+    try:
+        if not single:
+            from nomad_tpu_torch.utils.backoff import wait_until
+
+            if not wait_until(lambda: all(len(x.raft.peers) == 3
+                                          for x in servers), 30.0):
+                raise AssertionError("cluster: the voter set did not form")
+        timer = apply_timer(lead, by_type=True)
+        steps0 = zero_launches(lead)
+        with ids:
+            t0 = time.perf_counter()
+            for i, n in enumerate(sc["nodes"]):
+                via = followers[0] if followers and i % 5 == 4 else lead
+                via.node_register(n)
+            out["node_register_s"] = time.perf_counter() - t0
+            out["contents"]["nodes"] = durable_content(lead)
+            out["waves"] = [server_wave(lead, "wave1", lambda s: [
+                s.job_register(j) for j in sc["wave_a"]])]
+            out["contents"]["wave1"] = durable_content(lead)
+            cluster_pause(alive)
+            via = followers[0] if followers else lead
+            for j in sc["wave_b"]:
+                via.job_register(j)
+            out["contents"]["wave2_paused"] = durable_content(lead)
+        out["launches_before"] = durable_launches(lead, steps0)
+        out["raft_apply_before"] = timer.summary()
+        out["acked_index"] = lead.raft.applied_index()
+        out["old_leader_health"] = durable_health(lead, brk)
+        out["old_leader_forwards"] = server_counter(lead, "rpc.forward")
+        t_kill = time.perf_counter()
+        if not single:
+            # Its broker first: a worker released from its pause by
+            # stop() would take wave 2 on its way out.
+            lead.eval_broker.set_enabled(False)
+            lead.shutdown()
+            alive.remove(lead)
+            lead = cluster_leader(alive)
+            out["kill_to_leader_s"] = time.perf_counter() - t_kill
+            out["new_leader_applied"] = lead.raft.applied_index()
+            out["contents"]["leader_down"] = durable_content(lead)
+            from nomad_tpu_torch.utils.backoff import wait_until
+
+            if not wait_until(lambda: lead.eval_broker.stats()[
+                    "total_ready"] == len(sc["wave_b"]),
+                    SERVER_SETTLE_TIMEOUT):
+                raise AssertionError("cluster: the new leader did not "
+                                     "re-enqueue wave 2")
+            timer = apply_timer(lead, by_type=True)
+        else:
+            timer.reset()
+        steps1 = zero_launches(lead)
+        # Read, not reset: a reset drops the mirror, and whether the new
+        # leader's first batch finds it is what is measured.
+        res0 = resident_counts()
+        with ids:
+            acks0 = server_counter(lead, "broker.ack")
+            t0 = time.perf_counter()
+            cluster_release(alive)
+            settled = server_settle(lead)
+            acked = int(server_counter(lead, "broker.ack") - acks0)
+            out["waves"].append({"wave": "wave2", "wall_s": settled - t0,
+                                 "evals_acked": acked,
+                                 "evals_per_s": acked / (settled - t0)})
+            out["kill_to_wave2_settled_s"] = settled - t_kill
+            out["contents"]["restored"] = durable_content(lead)
+            host = sorted({a.node_id for a in lead.state.allocs(None)
+                           if a.job_id == sc["wave_a"][0].id})[0]
+            out["waves"].append(server_wave(
+                lead, "node_down",
+                lambda s: s.node_update_status(host, "down")))
+            out["contents"]["node_down"] = durable_content(lead)
+            out["waves"].append(server_wave(lead, "follow", lambda s: [
+                s.job_register(j) for j in sc["follow"]]))
+            out["contents"]["follow"] = durable_content(lead)
+        out["launches_after"] = durable_launches(lead, steps1)
+        out["raft_apply_after"] = timer.summary()
+        out["resident"] = {k: v - res0[k]
+                           for k, v in resident_counts().items()}
+        out["fingerprints"] = cluster_fingerprints(alive)
+        out["forwarded_writes"] = sum(server_counter(x, "rpc.forward")
+                                      for x in servers)
+        out["health"] = durable_health(lead, brk)
+        out["columnar"] = columnar_counters()
+        out["applier"] = {k: lead.plan_applier.stats[k] for k in (
+            "plans", "columnar", "columnar_guards")}
+        out["draws"] = ids.draws
+    finally:
+        for x in alive:
+            x.shutdown()
+    return out
+
+
+def cluster_leg2(dev, sizes) -> dict:
+    """Leg 2: follower-read scheduling (the leader's ``BatchWorker`` on
+    ``dev``, each follower's worker on the CPU schedulers), the leader
+    killed mid-drain at a seeded point."""
+    from nomad_tpu_torch import mock
+    from nomad_tpu_torch.ops.breaker import KernelCircuitBreaker
+    from nomad_tpu_torch.utils.backoff import wait_until
+
+    rng = random.Random(CLUSTER_SEED)
+    nodes = []
+    for i in range(sizes["n_nodes"]):
+        n = strip_node(mock.node())
+        n.id = n.name = f"leg2-{i:05d}"
+        nodes.append(n)
+    jobs = []
+    for k in range(sizes["n_jobs"]):
+        j = strip_job(mock.job(), sizes["count"])
+        j.id = j.name = f"leg2-job-{k:03d}"
+        jobs.append(j)
+    kill_after = rng.randint(sizes["n_jobs"] // 4, sizes["n_jobs"] // 2)
+    brk = KernelCircuitBreaker()
+    servers = cluster_servers(dev, brk, True)
+    out = {"device": dev, "kill_after_complete": kill_after}
+    for x in servers:
+        x.start()
+    alive = list(servers)
+    try:
+        lead = cluster_leader(servers)
+        if not wait_until(lambda: all(len(x.raft.peers) == 3
+                                      for x in servers), 30.0):
+            raise AssertionError("leg 2: the voter set did not form")
+        old = lead
+        steps0 = zero_launches(lead)
+        t0 = time.perf_counter()
+        for n in nodes:
+            lead.node_register(n)
+        out["node_register_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        eval_ids = [lead.job_register(j)[1] for j in jobs]
+
+        def complete(srv):
+            st = srv.state
+            return sum(1 for e in eval_ids
+                       if (ev := st.eval_by_id(None, e)) is not None
+                       and ev.status == "complete")
+
+        if not wait_until(lambda: complete(lead) >= kill_after,
+                          SERVER_SETTLE_TIMEOUT, max_interval=0.005):
+            raise AssertionError("leg 2: the drain did not start")
+        out["complete_at_kill"] = complete(lead)
+        # The survivors' card workers stay parked until the new leader's
+        # counts are set to 0; their follower workers go on scheduling.
+        cluster_pause([x for x in alive if x is not lead])
+        t_kill = time.perf_counter()
+        lead.shutdown()
+        alive.remove(lead)
+        wait_until(lambda: not old.threads(), 30.0)
+        out["launches_old_leader"] = durable_launches(old, steps0)
+        out["old_leader_channel"] = old.leader_channel.stats()
+        lead = cluster_leader(alive)
+        out["kill_to_leader_s"] = time.perf_counter() - t_kill
+        steps1 = zero_launches(lead)
+        cluster_release(alive)
+        if not wait_until(lambda: all(
+                (ev := lead.state.eval_by_id(None, e)) is not None
+                and ev.terminal_status() for e in eval_ids),
+                SERVER_SETTLE_TIMEOUT, max_interval=0.01):
+            raise AssertionError("leg 2: the drain did not finish")
+        out["drain_s"] = time.perf_counter() - t0
+        out["kill_to_drained_s"] = time.perf_counter() - t_kill
+        server_settle(lead)
+        out["launches_new_leader"] = durable_launches(lead, steps1)
+        st = lead.state
+        out["eval_statuses"] = sorted({st.eval_by_id(None, e).status
+                                       for e in eval_ids})
+        by_job = collections.defaultdict(list)
+        for a in st.allocs(None):
+            if not a.terminal_status():
+                by_job[a.job_id].append(a)
+        out["jobs_wrong_count"] = sorted(
+            j.id for j in jobs
+            if len(by_job[j.id]) != sizes["count"]
+            or len({a.name for a in by_job[j.id]}) != sizes["count"]
+            or len({a.id for a in by_job[j.id]}) != sizes["count"])
+        out["over_capacity"] = store_over_capacity(lead)
+        out["fingerprints"] = cluster_fingerprints(alive)
+        out["follower_channels"] = [x.leader_channel.stats()
+                                    for x in servers if x is not old]
+        out["lag_handbacks"] = sum(server_counter(x, "follower.lag_handback")
+                                   for x in servers)
+        out["follower_evals_scheduled"] = sum(
+            server_counter(x, "follower.evals_scheduled") for x in servers)
+        out["snapshot_lag"] = {
+            x.config.node_name: x.metrics.sink.latest()["SampleTotals"].get(
+                "nomad.follower.snapshot_lag", (0, 0.0))
+            for x in servers}
+        out["health"] = durable_health(lead, brk)
+        out["old_health"] = durable_health(old, brk)
+    finally:
+        for x in alive:
+            x.shutdown()
+    return out
+
+
+def cluster_child(mode, dev, out_path, sizes) -> None:
+    """One world of phase ``cluster`` in a process of its own: ``leg1``
+    (three servers), ``single`` (B) or ``leg2``; the report is written to
+    ``out_path``."""
+    if mode == "leg2":
+        out = cluster_leg2(dev, sizes)
+    else:
+        out = cluster_leg1(dev, sizes, single=mode == "single")
+    with open(out_path, "w") as fh:
+        json.dump(out, fh)
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(0)
+
+
+def run_cluster_child(mode, dev, root, sizes) -> dict:
+    """``cluster_child`` in a fresh process with the phase's fixed string
+    hash seed; its report."""
+    out_path = os.path.join(root, f"{mode}-{dev}.json")
+    code = ("import sys; sys.path.insert(0, {0!r}); import chip_smoke as c; "
+            "c.cluster_child({1!r}, {2!r}, {3!r}, {4!r})"
+            ).format(REPO, mode, dev, out_path, sizes)
+    env = dict(os.environ, PYTHONHASHSEED=str(CLUSTER_HASH_SEED))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True,
+                          timeout=CLUSTER_CHILD_TIMEOUT)
+    if proc.returncode != 0 or not os.path.exists(out_path):
+        raise AssertionError(f"cluster {mode} child on {dev}: rc "
+                             f"{proc.returncode}: {proc.stderr[-3000:]}")
+    with open(out_path) as fh:
+        out = json.load(fh)
+    os.unlink(out_path)
+    out["child_wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def check_cluster_world(w, label, on_card) -> list:
+    """Leg 1's checks of one cluster world."""
+    errors = []
+    if len({tuple(fp) for fp in w["fingerprints"]}) != 1:
+        errors.append(f"{label}: survivors' fingerprints {w['fingerprints']}")
+    if w["new_leader_applied"] < w["acked_index"]:
+        errors.append(f"{label}: the new leader applied "
+                      f"{w['new_leader_applied']} < the last acknowledged "
+                      f"{w['acked_index']}")
+    if on_card:
+        errors += check_launches(f"{label} before the failover",
+                                 w["launches_before"])
+        errors += check_launches(f"{label} after the failover",
+                                 w["launches_after"])
+    res = w["resident"]
+    if res["guard_mismatches"] or res["dev_guard_mismatches"]:
+        errors.append(f"{label}: the resident mirror after the failover: "
+                      f"{res}")
+    if w["old_leader_health"]["nacks"] or w["old_leader_health"]["failed"]:
+        errors.append(f"{label}: the old leader's broker "
+                      f"{w['old_leader_health']}")
+    return errors
+
+
+def check_leg2(w, sizes, on_card) -> list:
+    errors = []
+    if w["eval_statuses"] != ["complete"]:
+        errors.append(f"leg 2: eval statuses {w['eval_statuses']}")
+    if w["jobs_wrong_count"]:
+        errors.append(f"leg 2: jobs without exactly {sizes['count']} "
+                      f"distinct allocs: {w['jobs_wrong_count'][:10]}")
+    if w["over_capacity"]:
+        errors.append(f"leg 2: {w['over_capacity']} nodes over capacity")
+    if len({tuple(fp) for fp in w["fingerprints"]}) != 1:
+        errors.append(f"leg 2: survivors' fingerprints {w['fingerprints']}")
+    if sum(c["ForwardedPlans"] for c in w["follower_channels"]) < 1:
+        errors.append(f"leg 2: no plan forwarded {w['follower_channels']}")
+    if w["old_leader_channel"]["ForwardedPlans"] != 0:
+        errors.append(f"leg 2: the leader's own channel forwarded "
+                      f"{w['old_leader_channel']}")
+    if on_card:
+        # The followers may finish the drain with the new leader's
+        # workers launching nothing.
+        errors += check_launches("leg 2 old leader",
+                                 w["launches_old_leader"])
+        errors += check_launches("leg 2 new leader",
+                                 w["launches_new_leader"],
+                                 need_launch=False)
+    for key in ("health", "old_health"):
+        h = w[key]
+        if h["breaker"] != {"state": "closed", "trips": 0,
+                            "oracle_routed": 0} or h["over_capacity"]:
+            errors.append(f"leg 2 {key}: {h}")
+    return errors
+
+
+def phase_cluster(dev, sizes=None, leg2_sizes=None):
+    """The replicated cluster (see the module docstring, phase 22): leg
+    1's worlds A (three servers on the card), B (one server on the card,
+    no failover) and C (three servers on the CPU), then leg 2 on the
+    card; every world in a process of its own under one string hash
+    seed, compared here."""
+    import shutil
+    import tempfile
+
+    t_phase = time.perf_counter()
+    smi = smi_name_power()
+    on_card = torch_device(dev).type == "cuda"
+    sizes = dict(CLUSTER_SIZES if sizes is None else sizes)
+    leg2_sizes = dict(LEG2_SIZES if leg2_sizes is None else leg2_sizes)
+    root = tempfile.mkdtemp(prefix="nomad-torch-cluster-")
+    secs = {}
+    try:
+        worlds = {}
+        for label, mode, d in (("A", "leg1", dev), ("B", "single", dev),
+                               ("C", "leg1", "cpu")):
+            t0 = time.perf_counter()
+            worlds[label] = run_cluster_child(mode, d, root, sizes)
+            secs[label] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        leg2 = run_cluster_child("leg2", dev, root, leg2_sizes)
+        secs["leg2"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    a, b, c = worlds["A"], worlds["B"], worlds["C"]
+
+    errors = check_cluster_world(a, "A", on_card)
+    errors += check_cluster_world(c, "C", False)
+    # Every fifth node and wave 2's jobs went through a follower.
+    want_fwd = sizes["n_nodes"] // 5 + sizes["wave_jobs"]
+    for w, label in ((a, "A"), (c, "C")):
+        if w["forwarded_writes"] != want_fwd:
+            errors.append(f"{label}: {w['forwarded_writes']} forwarded "
+                          f"writes, not {want_fwd}")
+    for step in CLUSTER_STEPS:
+        diff = same_commits(a["contents"][step], c["contents"][step])
+        if diff:
+            errors.append(f"{step}: A differs from C: {str(diff)[:2000]}")
+    if a["draws"] != c["draws"]:
+        errors.append(f"ids drawn: A {a['draws']}, C {c['draws']}")
+    a_vs_b = {}
+    for step in CLUSTER_STEPS:
+        if step in b["contents"]:
+            diff = same_commits(a["contents"][step], b["contents"][step])
+            if diff:
+                a_vs_b[step] = diff
+    # The new leader's store was built by replication, a lineage of its
+    # own: one full re-encode more than B's (whose node-down makes one),
+    # then the same hits.
+    for w, label in ((a, "A"), (c, "C")):
+        res, res_b = w["resident"], b["resident"]
+        if (res["full_reencodes"] != res_b["full_reencodes"] + 1
+                or res["hits"] != res_b["hits"] - 1 or res["hits"] < 1):
+            errors.append(f"{label}: the resident mirror after the "
+                          f"failover {res}, B {res_b}")
+    if on_card:
+        errors += check_launches("B", {
+            k: b["launches_before"][k] + b["launches_after"][k]
+            for k in b["launches_after"]})
+    for w, label in ((a, "A"), (b, "B"), (c, "C")):
+        errors += check_world_health(w, label)
+    errors += check_leg2(leg2, leg2_sizes, on_card)
+    for w, label in ((a, "A"), (b, "B"), (c, "C")):
+        for row in w["waves"]:
+            emit({"phase": "cluster", "world": label, **row})
+    if a_vs_b:
+        # The first differing rows, printed; PERF.md says why.
+        emit({"phase": "cluster", "a_vs_b": {
+            k: str(v)[:1500] for k, v in a_vs_b.items()}})
+    if errors:
+        raise AssertionError(f"phase cluster: {errors}")
+
+    def wave(w, name, key="evals_per_s"):
+        return next(r[key] for r in w["waves"] if r["wave"] == name)
+
+    def both_leaders(x):
+        return {k: x["launches_old_leader"][k] + x["launches_new_leader"][k]
+                for k in x["launches_new_leader"]}
+
+    return {
+        "card": smi, "a_equals_c": True, "a_equals_b": not a_vs_b,
+        "a_vs_b_steps": sorted(a_vs_b),
+        "fingerprints_equal": True,
+        "first_leader_s": {"A": a["first_leader_s"], "C": c["first_leader_s"]},
+        "kill_to_leader_s": {"A": a["kill_to_leader_s"],
+                             "C": c["kill_to_leader_s"],
+                             "leg2": leg2["kill_to_leader_s"]},
+        "kill_to_wave2_settled_s": {"A": a["kill_to_wave2_settled_s"],
+                                    "C": c["kill_to_wave2_settled_s"]},
+        "acked_index": a["acked_index"],
+        "new_leader_applied": a["new_leader_applied"],
+        "node_register_s": {"A_multiraft": a["node_register_s"],
+                            "B_inmem": b["node_register_s"],
+                            "C_multiraft": c["node_register_s"]},
+        "raft_apply": {"A_before_failover": a["raft_apply_before"],
+                       "A_after_failover": a["raft_apply_after"],
+                       "B_inmem": b["raft_apply_before"],
+                       "B_inmem_after": b["raft_apply_after"],
+                       "C_before_failover": c["raft_apply_before"]},
+        "wave1_evals_per_s": {"A": wave(a, "wave1"), "B": wave(b, "wave1"),
+                              "C": wave(c, "wave1")},
+        "forwarded_writes": {"A": a["forwarded_writes"],
+                             "C": c["forwarded_writes"]},
+        "resident_after_failover": {"A": a["resident"],
+                                    "B": b["resident"]},
+        "launches": {"A_before_failover": a["launches_before"],
+                     "A_after_failover": a["launches_after"],
+                     "B": {k: b["launches_before"][k]
+                           + b["launches_after"][k]
+                           for k in b["launches_after"]},
+                     "leg2": both_leaders(leg2),
+                     "leg2_old_leader": leg2["launches_old_leader"],
+                     "leg2_new_leader": leg2["launches_new_leader"]},
+        "leg2": {k: leg2[k] for k in (
+            "kill_after_complete", "complete_at_kill", "node_register_s",
+            "drain_s", "kill_to_drained_s", "lag_handbacks",
+            "follower_evals_scheduled", "snapshot_lag",
+            "follower_channels", "old_leader_channel")},
+        "columnar": {"A": a["columnar"], "B": b["columnar"],
+                     "C": c["columnar"]},
+        "world_seconds": {**secs,
+                          **{f"{k}_child": w["child_wall_s"] for k, w in
+                             (("A", a), ("B", b), ("C", c),
+                              ("leg2", leg2))}},
+        "seconds": time.perf_counter() - t_phase}
+
+
 def torch_device(dev):
     import torch
 
@@ -4853,7 +5455,7 @@ def torch_device(dev):
     return d
 
 
-# -- phase 21: times ---------------------------------------------------------
+# -- phase 23: times ---------------------------------------------------------
 
 def score_bytes(u: int, n: int, with_base: bool = True) -> int:
     """Bytes the function must move: feas (1) + collisions (4) in and
@@ -5410,6 +6012,8 @@ def main() -> int:
     emit({"phase": "fingerprint", **fpr})
     dur = run_phase("durable", phase_durable, dev)
     emit({"phase": "durable", **dur})
+    clu = run_phase("cluster", phase_cluster, dev)
+    emit({"phase": "cluster", **clu})
     table = run_phase("times", phase_times, dev, launches, max_err,
                       masked_launches, max(masked_err, cand_err))
     # scored_rows' launches on the eval-driven path (phase evals, each
@@ -5449,6 +6053,13 @@ def main() -> int:
         row["durable_path_launches"] = {
             label: dur["launches"][label][row["name"]]
             for label in ("A_before_crash", "A_after_restart", "B")}
+        # ... and on the replicated cluster's path (phase cluster, each
+        # leader's part driven with the counts set to 0 just before it):
+        # leg 1's card cluster before and after its failover, and leg 2
+        # (follower-read scheduling; both leaders, the kill mid-drain).
+        row["cluster_path_launches"] = {
+            label: clu["launches"][label][row["name"]]
+            for label in ("A_before_failover", "A_after_failover", "leg2")}
     emit({"phase": "profile", **run_phase("profile", phase_profile, dev)})
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     emit({"kernels": table})

@@ -12,8 +12,11 @@ C++ (``native/codec.cc`` through ``codec/native.py``) with a pure-Python
 twin behind a differential guard.
 
 ``encode``/``decode`` count frames, bytes and seconds per subsystem
-(``raft``: log entries, ``snapshot``: snapshot documents); ``stats()``
-reads the counts.
+(``raft``: log entries and the replicated log's messages' entries,
+``snapshot``: snapshot documents, ``rpc``: the RPC layer's frames);
+``stats()`` reads the counts.  A value outside the schema raises
+``CodecError`` at encode in every subsystem: the RPC layer has no
+msgpack channel to fall back to.
 """
 from __future__ import annotations
 
@@ -27,7 +30,7 @@ from .schema import FINGERPRINT, MAGIC, VERSION
 __all__ = ["CodecError", "MAGIC", "VERSION", "FINGERPRINT", "encode",
            "decode", "is_frame", "stats", "reset", "native"]
 
-_SUBSYSTEMS = ("raft", "snapshot", "other")
+_SUBSYSTEMS = ("raft", "snapshot", "rpc", "other")
 
 
 def _fresh_counters() -> Dict[str, Dict[str, float]]:

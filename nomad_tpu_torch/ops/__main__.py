@@ -1,7 +1,7 @@
 """``python -m nomad_tpu_torch.ops --selfcheck``: the port's drills.
 
     python -m nomad_tpu_torch.ops --selfcheck [--device cpu|cuda]
-        [--nodes N --specs U --seed S]
+        [--nodes N --specs U --seed S --snapshot-chunk BYTES]
 
 - The preemption drill (``nomad_tpu/ops/__main__.py:1542-1562``, its
   first check): the eviction sets of ``ops/preempt.py`` on ``--device``
@@ -32,6 +32,14 @@
   keeps every committed entry and never applies the torn one; the
   recovered store schedules one batch on ``--device``, and an entry
   appended after the recovery survives the next boot.
+- The follower drill (``nomad_tpu/ops/__main__.py:1186-1318``): a
+  3-voter port cluster on loopback whose servers run no batch workers,
+  only follower workers, schedules a job on a follower (the plan
+  forwarded to the leader's plan-apply, visible on every FSM); then the
+  leader is compacted past its log and a fresh joiner catches up by a
+  chunked InstallSnapshot (``--snapshot-chunk`` bytes, default 1024).
+  The servers run on ``--device`` (the leader's plan applier re-checks
+  the fit there); follower workers use the CPU schedulers.
 
 Exits 0 when every drill passes, 1 otherwise.  The reference's other
 drills (breaker, residency, fused, residue, mesh) wait for their modules'
@@ -388,6 +396,110 @@ def wal_drill(seed: int = 0, device: str = "cuda", log=print) -> bool:
     return True
 
 
+def follower_drill(seed: int = 0, device: str = "cuda",
+                   snapshot_chunk: int = 1024, log=print) -> bool:
+    """Follower-read scheduling and a chunked InstallSnapshot (see the
+    module docstring)."""
+    from ..server import Server, ServerConfig
+    from ..structs import structs as s
+    from ..utils.backoff import wait_until
+
+    def check(cond, msg):
+        if not cond:
+            log(f"follower drill: FAIL — {msg}")
+        return cond
+
+    def chunks_sent(srv):
+        return srv.metrics.sink.latest()["CounterTotals"].get(
+            "nomad.raft.snapshot.chunks_sent", 0)
+
+    # The loaded-host election timing of the reference's loadgen harness
+    # (nomad_tpu/loadgen/harness.py:45-47): elections hold while the
+    # drill's process is busy.
+    raft = {"raft_heartbeat": 0.2, "raft_election_min": 5.0,
+            "raft_election_max": 8.0, "snapshot_chunk": snapshot_chunk}
+    servers = []
+    fresh = None
+    try:
+        first = None
+        for i in range(3):
+            # num_schedulers=0: no server runs a batch worker, and one
+            # follower worker each, so the eval completes only through
+            # the follower path (the leader's own follower worker parks).
+            srv = Server(ServerConfig(
+                device=device, rng_seed=seed, node_name=f"drill-s{i + 1}",
+                enable_rpc=True, bootstrap_expect=3,
+                start_join=[first] if first else [], num_schedulers=0,
+                follower_schedulers=1, min_heartbeat_ttl=60.0, **raft))
+            if first is None:
+                first = srv.config.rpc_advertise
+            servers.append(srv)
+        for srv in servers:
+            srv.start()
+        if not check(wait_until(lambda: any(
+                x.is_leader() and x.raft.is_raft_leader()
+                for x in servers), 40.0), "no leader elected"):
+            return False
+        leader = next(x for x in servers if x.is_leader())
+        followers = [x for x in servers if x is not leader]
+        if not check(wait_until(lambda: all(
+                len(x.raft.peers) == 3 for x in servers), 30.0),
+                "the voter set did not converge"):
+            return False
+
+        leader.node_register(_drill_node(0))
+        job = _drill_job(0, count=2)
+        _, eval_id = leader.job_register(job)
+        if not check(wait_until(lambda: (
+                (ev := leader.state.eval_by_id(None, eval_id)) is not None
+                and ev.status == s.EVAL_STATUS_COMPLETE), 30.0),
+                "the eval did not complete through follower scheduling"):
+            return False
+        forwarded = sum(f.leader_channel.stats()["ForwardedPlans"]
+                        for f in followers)
+        if not (check(forwarded >= 1, "no plan was forwarded by a follower")
+                and check(leader.leader_channel.stats()["ForwardedPlans"]
+                          == 0, "the leader's own channel forwarded")
+                and check(wait_until(lambda: all(
+                    len(x.state.allocs_by_job(None, job.id, True)) == 2
+                    for x in servers), 30.0),
+                    "the placements are not on every FSM")):
+            return False
+
+        # A lagging joiner: the leader compacted past its log, then a
+        # fresh server joins and must catch up by a chunked install.
+        leader.raft.snapshot()
+        before = chunks_sent(leader)
+        fresh = Server(ServerConfig(
+            device=device, node_name="drill-fresh", enable_rpc=True,
+            bootstrap_expect=3, start_join=[leader.config.rpc_advertise],
+            num_schedulers=0, min_heartbeat_ttl=60.0, **raft))
+        fresh.start()
+        if not check(wait_until(lambda: fresh.state.job_by_id(
+                None, job.id) is not None, 30.0),
+                "the fresh joiner did not receive the snapshot"):
+            return False
+        if not check(wait_until(
+                lambda: fresh.raft.base_index >= leader.raft.base_index,
+                10.0), "the joiner's log base did not advance"):
+            return False
+        chunks = chunks_sent(leader) - before
+        if not check(chunks >= 2, f"the snapshot was not chunked ({chunks} "
+                     "chunks sent)"):
+            return False
+    finally:
+        if fresh is not None:
+            fresh.shutdown()
+        for srv in servers:
+            srv.shutdown()
+    log("follower drill: OK — a 3-voter port cluster scheduled on a "
+        f"follower ({forwarded} plan(s) forwarded to the leader's "
+        "plan-apply, visible on every FSM), and a lagging joiner caught up "
+        f"by a chunked InstallSnapshot ({chunks} chunks of "
+        f"{snapshot_chunk} bytes) (device {device})")
+    return True
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(prog="python -m nomad_tpu_torch.ops")
     parser.add_argument("--selfcheck", action="store_true",
@@ -398,6 +510,9 @@ def main(argv=None) -> int:
     parser.add_argument("--nodes", type=int, default=64)
     parser.add_argument("--specs", type=int, default=64)
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--snapshot-chunk", type=int, default=1024,
+                        help="the follower drill's InstallSnapshot chunk "
+                             "in bytes")
     args = parser.parse_args(argv)
     if not args.selfcheck:
         parser.print_help()
@@ -407,6 +522,8 @@ def main(argv=None) -> int:
     ok = columnar_drill(seed=args.seed, device=args.device) and ok
     ok = tracing_drill(seed=args.seed, device=args.device) and ok
     ok = wal_drill(seed=args.seed, device=args.device) and ok
+    ok = follower_drill(seed=args.seed, device=args.device,
+                        snapshot_chunk=args.snapshot_chunk) and ok
     return 0 if ok else 1
 
 

@@ -65,6 +65,18 @@ class BrokerLimitError(EvalBrokerError):
             f"eval broker at capacity ({pending}/{limit} pending); "
             f"retry_after={retry_after:.2f}")
 
+    @staticmethod
+    def from_message(msg: str) -> "BrokerLimitError":
+        """Rebuilt from the wire's error string (eval_broker.py:75; the
+        RPC layer sends errors as '<TypeName>: <message>')."""
+        import re
+
+        m = re.search(r"retry_after=([0-9.]+)", msg)
+        retry = float(m.group(1)) if m else 1.0
+        m = re.search(r"\((\d+)/(\d+) pending\)", msg)
+        pending, limit = (int(m.group(1)), int(m.group(2))) if m else (0, 0)
+        return BrokerLimitError(retry, pending, limit)
+
 
 ERR_NOT_OUTSTANDING = "evaluation is not outstanding"
 ERR_TOKEN_MISMATCH = "evaluation token does not match"

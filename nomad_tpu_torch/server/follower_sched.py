@@ -1,0 +1,469 @@
+"""Follower-read scheduling: eval workers on follower servers (a copy of
+``nomad_tpu/server/follower_sched.py``; the horizontal scale axis of the
+control plane).
+
+The reference's optimistic-concurrency design (PAPER.md L3) lets a
+scheduler work off ANY state snapshot as long as the plan applier
+serializes the commit: capacity staleness is caught by the applier's
+per-node re-check, and same-job duplication is fenced by ordering.  The
+stale-snapshot worker cache exploits that within one server; this module
+exploits it across servers:
+
+- a :class:`FollowerWorker` runs on every server of a multi-raft
+  cluster.  While its server is a follower it PULLS ready evals from
+  the leader's broker over RPC (``Eval.DequeueBatch``), schedules them
+  against its **locally replicated FSM** (MultiRaft applies the same
+  log), and forwards the resulting plan to the leader's serialized
+  plan-apply (``Plan.Submit``).  While its server is the leader it
+  idles — the local worker pool owns the broker there.
+
+Consistency argument (why a follower snapshot can never stale
+double-place):
+
+1. every eval's dequeue reply carries a **plan fence** — the leader's
+   ``PlanQueue.applied_index_for(job_id)``, the raft index of the job's
+   newest committed plan — and the follower schedules only once its own
+   applied index covers ``max(eval.trigger_index(), fence)`` (it WAITS
+   for replication, or hands the eval back via nack when its log cannot
+   catch up inside the sync limit);
+2. the broker serializes evals per job (one outstanding delivery), so
+   no two schedulers ever hold the same job concurrently;
+3. the plan still commits through the **leader's** single plan-apply
+   thread, whose live-store fit re-check rejects any capacity the
+   follower's snapshot over-promised (partial commit + replan, exactly
+   the stale-snapshot conflict path).
+
+(1)+(2) make the follower's snapshot cover the job's own placements,
+(3) covers everyone else's — the same two-part argument as the
+single-server stale-snapshot pool, with replication lag folded into the
+fence wait.
+
+Failure semantics: ``Plan.Submit``/``Eval.*`` replies of
+``NoLeaderError`` (the request was refused before touching the plan
+queue) retry against the embedded leader hint; transport errors AFTER a
+plan submit may have applied remotely, so they are never retried — the
+worker nacks and the redelivered eval replans off fresh state, where a
+committed plan shows up as a no-op diff.
+
+Followers schedule with the CPU schedulers of each eval's type
+(``FOLLOWER_SCHEDULERS``), as the reference's do; the leader's batch
+workers stay on the card.  Bodies cross the wire as struct-codec frames
+(``server/rpc.py``): typed dataclasses both ways, no CamelCase trees.
+The reference's ``NOMAD_TPU_REMOTE_NACK_PAUSE`` is the
+``remote_nack_pause`` argument of :class:`RemoteBroker` (default off).
+"""
+from __future__ import annotations
+
+import logging
+import threading
+import time
+from typing import Dict, List, Optional, Tuple
+
+from ..structs import structs as s
+from ..utils.telemetry import NULL_TELEMETRY
+from .eval_broker import EvalBrokerError
+from .raft import RaftLog
+from .rpc import RPC_NOMAD, DialError, NoLeaderError, RPCError
+from .worker import RAFT_SYNC_LIMIT, Worker
+
+
+class FollowerLagError(Exception):
+    """The follower's replicated log could not catch up to the eval's
+    fence inside the sync limit — the eval is handed back (nack) for
+    redelivery to a caught-up worker."""
+
+
+class LeaderChannel:
+    """RPC channel from a follower to the cluster leader.
+
+    Resolves the leader address per call (the follower's raft layer
+    tracks it from AppendEntries), follows a bounded number of
+    ``NoLeaderError`` hints, and keeps the forwarded-plan telemetry the
+    loadgen report and ``/v1/broker/stats`` surface:
+
+    - ``nomad.plan.forward``        — per-plan forward RTT histogram
+    - ``nomad.plan.forward.inflight`` gauge via :meth:`inflight`
+    - forwarded/error counters via :meth:`stats`
+    """
+
+    MAX_HINT_HOPS = 2
+
+    def __init__(self, pool, leader_addr_fn, my_addr: str = "",
+                 metrics=None):
+        self.pool = pool
+        self.leader_addr_fn = leader_addr_fn
+        self.my_addr = my_addr
+        self.metrics = metrics if metrics is not None else NULL_TELEMETRY
+        self._l = threading.Lock()
+        self._inflight_plans = 0
+        self.forwarded_plans = 0
+        self.forward_errors = 0
+
+    @staticmethod
+    def _looks_like_addr(hint: str) -> bool:
+        host, sep, port = hint.rpartition(":")
+        return bool(sep) and bool(host) and port.isdigit()
+
+    def call(self, method: str, body, timeout: float = 10.0):
+        """One leader RPC.  A ``NoLeaderError`` reply means the remote
+        refused BEFORE acting (leader-only gate), so following the hint
+        and retrying is safe for every method on this channel; a
+        post-send transport error is NOT retried (the request may have
+        applied) and propagates to the caller."""
+        addr = self.leader_addr_fn() or ""
+        last: Optional[Exception] = None
+        for _hop in range(self.MAX_HINT_HOPS + 1):
+            if not addr or addr == self.my_addr:
+                # No known leader (election in flight), or WE are the
+                # leader (the local worker pool owns the broker).
+                raise NoLeaderError(addr or "")
+            try:
+                return self.pool.call(addr, method, body,
+                                      channel=RPC_NOMAD, timeout=timeout)
+            except NoLeaderError as e:
+                last = e
+                hint = str(e).strip()
+                if self._looks_like_addr(hint) and hint != addr:
+                    addr = hint
+                    continue
+                raise
+            except DialError:
+                # Never sent: re-resolve once (leadership may have just
+                # moved and our raft layer already knows the new addr).
+                fresh = self.leader_addr_fn() or ""
+                if fresh and fresh != addr:
+                    addr = fresh
+                    continue
+                raise
+        raise last if last is not None else NoLeaderError(addr)
+
+    # -- plan forwarding ---------------------------------------------------
+
+    # Below this many homogeneous placements the per-alloc wire form is
+    # kept (slab overhead isn't worth it).
+    COMPACT_MIN = 4
+
+    @classmethod
+    def _strip_plan_for_wire(cls, plan: s.Plan) -> s.Plan:
+        """Wire-size surgery on a copy (the caller's objects are
+        untouched), two layers:
+
+        1. every placement alloc embeds the full Job tree and a plan's
+           placements all belong to ``plan.job`` — ship the job ONCE on
+           the plan and the allocs with ``job=None`` (the receiving
+           endpoint re-denormalizes before evaluation);
+        2. a task group's placements are near-identical (the TG spec
+           fixes resources/tasks; only id/name/node/prev vary) — ride
+           the columnar machinery and ship them as an
+           :class:`AllocSlab` (proto once + per-alloc columns).  The
+           leader's applier, FSM (O(columns) insert, ONE
+           AllocPlacedBulk event), and every follower's replicated
+           apply all get the columnar cost too.  Per-alloc scoring
+           forensics (Allocation.metrics) don't ride a slab — the same
+           trade the TPU batch path makes at scale; allocs with port
+           reservations stay in per-alloc form (ports differ per
+           alloc).
+
+        Together ~20-40x off the per-plan codec cost at gang scale."""
+        if plan.job is None or not plan.node_allocation:
+            return plan
+        slim = s.Plan(
+            eval_id=plan.eval_id, eval_token=plan.eval_token,
+            snapshot_index=plan.snapshot_index, priority=plan.priority,
+            all_at_once=plan.all_at_once, job=plan.job,
+            node_update=plan.node_update,
+            node_preemptions=plan.node_preemptions,
+            alloc_slabs=list(plan.alloc_slabs),
+            annotations=plan.annotations)
+        slim.node_allocation = {}
+        by_tg: Dict[str, List[Tuple[str, s.Allocation]]] = {}
+        for node_id, allocs in plan.node_allocation.items():
+            for alloc in allocs:
+                res = alloc.resources
+                compactable = (
+                    alloc.job is not None
+                    and alloc.job_id == plan.job.id
+                    and not alloc.terminal_status()
+                    and not (res is not None and res.networks)
+                    and not any(tr.networks
+                                for tr in alloc.task_resources.values()))
+                if compactable:
+                    by_tg.setdefault(alloc.task_group, []).append(
+                        (node_id, alloc))
+                    continue
+                if alloc.job is not None and alloc.job_id == plan.job.id:
+                    alloc = alloc.copy()
+                    alloc.job = None
+                slim.node_allocation.setdefault(node_id, []).append(alloc)
+        for tg, items in by_tg.items():
+            if len(items) < cls.COMPACT_MIN:
+                for node_id, alloc in items:
+                    alloc = alloc.copy()
+                    alloc.job = None
+                    slim.node_allocation.setdefault(node_id,
+                                                    []).append(alloc)
+                continue
+            proto = items[0][1].copy()
+            proto.job = None
+            proto.id = ""
+            proto.name = ""
+            proto.node_id = ""
+            proto.previous_allocation = ""
+            proto.metrics = None
+            slim.alloc_slabs.append(s.AllocSlab(
+                proto=proto,
+                ids=[a.id for _, a in items],
+                names=[a.name for _, a in items],
+                node_ids=[nid for nid, _ in items],
+                prev_ids=[a.previous_allocation or "" for _, a in items]))
+        return slim
+
+    def submit_plan(self, plan: s.Plan) -> Optional[s.PlanResult]:
+        """Forward one plan to the leader's serialized plan-apply and
+        block for the result (the remote twin of PlanQueue.enqueue +
+        future.wait).  Full commits come back as a compact
+        ``{"Full": true}`` marker (the result would only echo the
+        plan's own allocations); the PlanResult is rebuilt locally from
+        the original plan."""
+        t0 = time.perf_counter()
+        with self._l:
+            self._inflight_plans += 1
+        try:
+            # The dataclass itself on the wire: the struct codec encodes
+            # it with the generated flat layout (server/rpc.py).
+            reply = self.call(
+                "Plan.Submit",
+                {"Plan": self._strip_plan_for_wire(plan)},
+                timeout=120.0)
+        except Exception:
+            with self._l:
+                self.forward_errors += 1
+            raise
+        finally:
+            with self._l:
+                self._inflight_plans -= 1
+            self.metrics.measure_since("plan.forward", t0)
+        with self._l:
+            self.forwarded_plans += 1
+        data = reply.get("Result") if isinstance(reply, dict) else None
+        if data is None:
+            return None
+        if isinstance(data, dict) and data.get("Full"):
+            return s.PlanResult(
+                node_update=plan.node_update,
+                node_allocation=plan.node_allocation,
+                alloc_slabs=list(plan.alloc_slabs),
+                node_preemptions=plan.node_preemptions,
+                refresh_index=0,
+                alloc_index=int(data.get("AllocIndex", 0) or 0))
+        return data
+
+    def inflight(self) -> int:
+        with self._l:
+            return self._inflight_plans
+
+    def stats(self) -> Dict[str, int]:
+        with self._l:
+            return {"ForwardedPlans": self.forwarded_plans,
+                    "ForwardErrors": self.forward_errors,
+                    "ForwardedPlansInFlight": self._inflight_plans}
+
+
+def _as_broker_error(exc: Exception) -> EvalBrokerError:
+    """Wire errors from broker methods come back as RPCError strings
+    ('EvalBrokerError: …'); surface them to the worker loop as the
+    EvalBrokerError it already handles (skip/backoff semantics)."""
+    if isinstance(exc, EvalBrokerError):
+        return exc
+    return EvalBrokerError(str(exc))
+
+
+class RemoteBroker:
+    """The EvalBroker subset workers consume, carried over the wire to
+    the leader.  Dequeue replies feed three local caches:
+
+    - per-eval delivery attempts (tracing/forensics),
+    - per-job plan fences (the stale double-place guard — shared with
+      :class:`RemotePlanQueue` via ``fences``),
+    - the leader's applied index (the follower snapshot-lag sample).
+    """
+
+    def __init__(self, channel: LeaderChannel, fences: Dict[str, int],
+                 metrics=None, remote_nack_pause: bool = False):
+        self.channel = channel
+        self.remote_nack_pause = remote_nack_pause
+        self.metrics = metrics if metrics is not None else NULL_TELEMETRY
+        self._fences = fences
+        self._attempts: Dict[str, int] = {}
+        self.last_leader_applied = 0
+
+    def dequeue_batch(self, schedulers: List[str], max_batch: int,
+                      timeout: Optional[float] = None,
+                      ) -> List[Tuple[s.Evaluation, str]]:
+        wait = float(timeout or 0.0)
+        try:
+            reply = self.channel.call(
+                "Eval.DequeueBatch",
+                {"Schedulers": list(schedulers), "Max": int(max_batch),
+                 "Timeout": wait},
+                timeout=max(10.0, wait + 5.0))
+        except (NoLeaderError, RPCError, OSError) as e:
+            raise _as_broker_error(e)
+        out: List[Tuple[s.Evaluation, str]] = []
+        self.last_leader_applied = int(reply.get("AppliedIndex", 0) or 0)
+        for item in reply.get("Evals") or []:
+            ev = item["Eval"]
+            fence = int(item.get("PlanFence", 0) or 0)
+            if fence > self._fences.get(ev.job_id, 0):
+                self._fences[ev.job_id] = fence
+            self._attempts[ev.id] = int(item.get("Attempts", 0) or 0)
+            out.append((ev, item["Token"]))
+        return out
+
+    def dequeue(self, schedulers: List[str],
+                timeout: Optional[float] = None):
+        batch = self.dequeue_batch(schedulers, 1, timeout)
+        return batch[0] if batch else (None, "")
+
+    def _simple(self, method: str, eval_id: str, token: str) -> None:
+        try:
+            self.channel.call(method, {"EvalID": eval_id, "Token": token})
+        except (NoLeaderError, RPCError, OSError) as e:
+            raise _as_broker_error(e)
+
+    def ack(self, eval_id: str, token: str) -> None:
+        self._simple("Eval.Ack", eval_id, token)
+        self._attempts.pop(eval_id, None)
+
+    def nack(self, eval_id: str, token: str) -> None:
+        self._simple("Eval.Nack", eval_id, token)
+        self._attempts.pop(eval_id, None)
+
+    # Nack-deadline pause/resume: LOCAL no-ops by default.  The worker
+    # loop pauses around in-worker queueing measured in milliseconds,
+    # while remote deliveries run against the full (default 60s) nack
+    # deadline — four extra leader round trips per eval bought nothing
+    # but leader CPU.  At-least-once semantics are unchanged: a follower
+    # that dies mid-eval lets the deadline fire and the eval redelivers;
+    # the token fence already rejects the dead delivery's late writes.
+    # The wire methods (Eval.PauseNack/ResumeNack) exist for deployments
+    # running short deadlines: ``remote_nack_pause=True`` turns them on.
+    def pause_nack_timeout(self, eval_id: str, token: str) -> None:
+        if self.remote_nack_pause:
+            self._simple("Eval.PauseNack", eval_id, token)
+
+    def resume_nack_timeout(self, eval_id: str, token: str) -> None:
+        if self.remote_nack_pause:
+            self._simple("Eval.ResumeNack", eval_id, token)
+
+    def delivery_attempts(self, eval_id: str) -> int:
+        return self._attempts.get(eval_id, 0)
+
+
+class _RemotePlanFuture:
+    """Duck-types PlanFuture for WorkerPlanner.submit_plan: the RPC runs
+    at wait() so the submit/wait split matches the local queue's."""
+
+    def __init__(self, channel: LeaderChannel, plan: s.Plan):
+        self.channel = channel
+        self.plan = plan
+
+    def wait(self, timeout: Optional[float] = None):
+        return self.channel.submit_plan(self.plan)
+
+
+class RemotePlanQueue:
+    """The PlanQueue subset workers consume: plan submission forwards
+    to the leader; the per-job apply fence reads the cache the dequeue
+    replies maintain (the leader stamps each eval with its job's newest
+    committed plan index)."""
+
+    def __init__(self, channel: LeaderChannel, fences: Dict[str, int]):
+        self.channel = channel
+        self._fences = fences
+
+    def enqueue(self, plan: s.Plan) -> _RemotePlanFuture:
+        return _RemotePlanFuture(self.channel, plan)
+
+    def applied_index_for(self, job_id: str) -> int:
+        return self._fences.get(job_id, 0)
+
+    def note_applied(self, job_id: str, index: int) -> None:
+        if index > self._fences.get(job_id, 0):
+            self._fences[job_id] = index
+
+
+class FollowerWorker(Worker):
+    """A scheduling worker bound to a server's LOCAL raft/FSM but to the
+    LEADER's broker and plan queue over RPC.  Active only while the
+    owning server is a follower with a known leader; on the leader it
+    parks (the in-process pool owns the broker there).
+
+    Core evals are excluded: GC sweeps mutate state through many apply
+    types and must see current state — they stay leader-local.
+    """
+
+    FOLLOWER_SCHEDULERS = [s.JOB_TYPE_SERVICE, s.JOB_TYPE_BATCH,
+                           s.JOB_TYPE_SYSTEM]
+
+    def __init__(self, raft: RaftLog, channel: LeaderChannel,
+                 is_leader_fn, schedulers: Optional[List[str]] = None,
+                 logger: Optional[logging.Logger] = None, metrics=None,
+                 remote_nack_pause: bool = False):
+        fences: Dict[str, int] = {}
+        broker = RemoteBroker(channel, fences, metrics=metrics,
+                              remote_nack_pause=remote_nack_pause)
+        plan_queue = RemotePlanQueue(channel, fences)
+        super().__init__(
+            broker, plan_queue, raft,
+            schedulers=schedulers or list(self.FOLLOWER_SCHEDULERS),
+            blocked_evals=None,
+            logger=(logger or logging.getLogger("nomad_tpu_torch.worker")
+                    ).getChild("follower"),
+            metrics=metrics)
+        self.channel = channel
+        self._is_leader_fn = is_leader_fn
+
+    def start(self) -> None:
+        self._stop.clear()
+        self._thread = threading.Thread(target=self.run, daemon=True,
+                                        name="follower-worker")
+        self._thread.start()
+
+    def _dequeue_batch(self):
+        if self._is_leader_fn():
+            # The local worker pool owns the broker on the leader; park
+            # instead of dequeuing our own broker over loopback RPC.
+            self._stop.wait(0.25)
+            return []
+        batch = super()._dequeue_batch()
+        if batch:
+            # How far this follower's FSM lags the leader's at dequeue
+            # time — the replication debt the fence wait below pays.
+            lag = max(0, self.broker.last_leader_applied
+                      - self.raft.applied_index_relaxed())
+            self.metrics.add_sample("follower.snapshot_lag", lag)
+        return batch
+
+    def invoke_scheduler(self, ev: s.Evaluation, token: str) -> None:
+        # The follower-read fence: the LOCAL log must cover the eval's
+        # trigger indexes AND the job's newest committed plan before a
+        # local snapshot may serve this eval.  wait = replication
+        # catch-up; a timeout hands the eval back (the nack path).
+        required = self._required_index(ev)
+        if not self.wait_for_index(required, RAFT_SYNC_LIMIT):
+            self.metrics.incr_counter("follower.lag_handback")
+            raise FollowerLagError(
+                f"follower log at {self.raft.applied_index_relaxed()} "
+                f"did not reach fence {required} for eval {ev.id} within "
+                f"{RAFT_SYNC_LIMIT}s; handing back")
+        self.metrics.incr_counter("follower.evals_scheduled")
+        super().invoke_scheduler(ev, token)
+
+    # -- leader-write hooks (the Worker surface that must cross the wire) --
+
+    def apply_eval_updates(self, evals: List[s.Evaluation]) -> None:
+        self.channel.call("Eval.Update", {"Evals": list(evals)})
+
+    def reblock_eval_update(self, ev: s.Evaluation, token: str) -> None:
+        self.channel.call("Eval.Reblock", {"Eval": ev, "Token": token})

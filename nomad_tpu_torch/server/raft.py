@@ -1,6 +1,6 @@
-"""The replicated log under the FSM (a subset of
-``nomad_tpu/server/raft.py:1-846``; reference hashicorp/raft with its
-in-memory store, nomad/server.go:91-95, and raft-boltdb).
+"""The replicated log under the FSM (a copy of
+``nomad_tpu/server/raft.py``; reference hashicorp/raft with its in-memory
+store and raft-boltdb, nomad/server.go:91-95, raft_rpc.go).
 
 - ``RaftLog`` — the interface the server applies through: ``apply``
   assigns the next index, writes the entry (the durable logs), waits for
@@ -15,6 +15,16 @@ in-memory store, nomad/server.go:91-95, and raft-boltdb).
   the pure-Python writer of the same frames instead), FSM snapshots are
   taken off the apply path, and a restart recovers from the newest
   snapshot and the WAL.
+- ``MultiRaft`` — election and replication across servers over the RPC
+  layer's raft channel (raft.py:1042-1855): randomized elections,
+  persisted term and vote, AppendEntries with the prev-entry check and
+  conflict truncation, per-peer replicators, majority commit of
+  current-term entries, learners, voter-set changes through ``CONFIG``
+  entries, the followers' FSM apply off the reply path, the ordered
+  leadership dispatcher, compaction and chunked InstallSnapshot.  Its
+  durable state (``_RaftStore``) is CRC-framed struct-codec frames, as
+  ``FileLog``'s; the reference's env knobs for its timing and snapshot
+  chunk are constructor arguments with the same defaults.
 
 Each apply passes the ``raft.apply`` fault point first (``crash``,
 ``error``, ``delay``, ``step_down``; raft.py:40-58) and is traced as a
@@ -23,14 +33,13 @@ span it runs under (``plan.apply``).  Entries and snapshots are struct-
 codec frames (``server/log_codec.py``): a corrupt or foreign file can
 only produce registered data types, never code, and a frame of another
 struct schema fails to decode.
-
-Left out, for a later slice: ``MultiRaft`` and the replication transport
-(ROADMAP queue 1 item 17).
 """
 from __future__ import annotations
 
 import logging
 import os
+import queue
+import random
 import struct
 import threading
 import time
@@ -78,6 +87,42 @@ def _decode_entry(blob):
 
 
 _CRC_HDR = struct.Struct("<II")
+
+
+def _crc_frame(blob: bytes) -> bytes:
+    return _CRC_HDR.pack(len(blob), zlib.crc32(blob) & 0xFFFFFFFF) + blob
+
+
+def _read_crc_frames(path: str) -> Tuple[List[bytes], int, int]:
+    """The valid CRC frames at the head of ``path``, the offset after the
+    last of them, and the file's size (a torn or corrupt tail lies
+    between the two)."""
+    out: List[bytes] = []
+    good = 0
+    size = os.path.getsize(path)
+    with open(path, "rb") as fh:
+        while True:
+            header = fh.read(_CRC_HDR.size)
+            if len(header) < _CRC_HDR.size:
+                break
+            length, crc = _CRC_HDR.unpack(header)
+            if length > size - fh.tell():
+                break
+            blob = fh.read(length)
+            if len(blob) < length or (zlib.crc32(blob)
+                                      & 0xFFFFFFFF) != crc:
+                break
+            out.append(blob)
+            good = fh.tell()
+    return out, good, size
+
+
+def _fsync_dir(path: str) -> None:
+    fd = os.open(path, os.O_RDONLY)
+    try:
+        os.fsync(fd)
+    finally:
+        os.close(fd)
 
 # FSM snapshots kept on disk (server.go:51 snapshotsRetained = 2).
 SNAPSHOTS_RETAINED = 2
@@ -423,27 +468,16 @@ class FileLog(RaftLog):
         path = path or self.crc_path
         if not os.path.exists(path):
             return out
-        size = os.path.getsize(path)
+        frames, _, size = _read_crc_frames(path)
         good = 0
-        with open(path, "rb") as fh:
-            while True:
-                header = fh.read(_CRC_HDR.size)
-                if len(header) < _CRC_HDR.size:
-                    break
-                length, crc = _CRC_HDR.unpack(header)
-                if length > size - fh.tell():
-                    break
-                blob = fh.read(length)
-                if len(blob) < length or (zlib.crc32(blob)
-                                          & 0xFFFFFFFF) != crc:
-                    break
-                try:
-                    index, msg_type, payload = _decode_entry(blob)
-                except Exception:
-                    break  # an undecodable record: a corrupt tail
-                good = fh.tell()
-                if index > snap_idx:
-                    out.append((index, msg_type, payload))
+        for blob in frames:
+            try:
+                index, msg_type, payload = _decode_entry(blob)
+            except Exception:
+                break  # an undecodable record: a corrupt tail
+            good += _CRC_HDR.size + len(blob)
+            if index > snap_idx:
+                out.append((index, msg_type, payload))
         if good < size:
             with open(path, "r+b") as fh:
                 fh.truncate(good)
@@ -477,9 +511,7 @@ class FileLog(RaftLog):
         else:
             pos = self._fh.tell()
             try:
-                self._fh.write(_CRC_HDR.pack(
-                    len(blob), zlib.crc32(blob) & 0xFFFFFFFF))
-                self._fh.write(blob)
+                self._fh.write(_crc_frame(blob))
                 self._fh.flush()
             except OSError:
                 # Roll the torn frame back (ENOSPC): left mid-log it would
@@ -558,11 +590,7 @@ class FileLog(RaftLog):
 
     def _fsync_dir(self) -> None:
         """Make the data dir's entries (renames, a created file) durable."""
-        fd = os.open(self.data_dir, os.O_RDONLY)
-        try:
-            os.fsync(fd)
-        finally:
-            os.close(fd)
+        _fsync_dir(self.data_dir)
 
     def fsyncs(self) -> int:
         """fsyncs made by appliers' durability waits since this log
@@ -718,3 +746,973 @@ class FileLog(RaftLog):
             self._nwal.close()
         if self._fh is not None:
             self._fh.close()
+
+
+# ---------------------------------------------------------------------------
+# Multi-server replication (hashicorp/raft)
+# ---------------------------------------------------------------------------
+
+# Log entries are [index, term, msg_type, payload_blob] lists, as they
+# cross the wire.  NOOP_TYPE marks an entry that commits prior-term
+# entries without feeding the FSM (hashicorp/raft LogNoop); CONFIG_TYPE
+# entries carry the voter set (LogConfiguration), so every server's
+# quorum derives from a committed configuration, never from its private
+# membership view (raft.py:845-846).  A CONFIG entry's blob is a struct-
+# codec frame of the sorted voter addresses (the reference packs it with
+# msgpack, raft.py:1263, :1430).
+NOOP_TYPE = -1
+CONFIG_TYPE = -2
+
+
+def _encode_peers(peers: List[str]) -> bytes:
+    return encode_payload(list(peers))
+
+
+def _decode_peers(blob: bytes) -> List[str]:
+    return list(decode_payload(blob))
+
+
+class RaftTimeoutError(Exception):
+    """An apply did not reach a quorum within the timeout (raft.Apply's
+    ErrEnqueueTimeout)."""
+
+
+class _ApplyFuture:
+    """The outcome of one leader-appended entry: the FSM's result once
+    the entry commits and applies, or the error when leadership was lost
+    first (raft.py:854)."""
+
+    __slots__ = ("_ev", "result", "error")
+
+    def __init__(self):
+        self._ev = threading.Event()
+        self.result = None
+        self.error: Optional[Exception] = None
+
+    def resolve(self, result) -> None:
+        self.result = result
+        self._ev.set()
+
+    def fail(self, exc: Exception) -> None:
+        self.error = exc
+        self._ev.set()
+
+    def wait(self, timeout: float):
+        if not self._ev.wait(timeout):
+            raise RaftTimeoutError("raft apply timed out awaiting quorum")
+        if self.error is not None:
+            raise self.error
+        return self.result
+
+
+class _RaftStore:
+    """``MultiRaft``'s durable state: the current term and vote, the entry
+    log and FSM snapshots (raft.py:883; raft-boltdb's log and stable
+    stores and the snapshot store).  ``data_dir=None`` keeps everything
+    in memory (the raftInmem dev path).
+
+    Layout, every file in ``FileLog``'s ``[u32 len][u32 crc32][payload]``
+    framing:
+
+    - ``meta.crc``     — one frame, a codec frame of ``{term, voted_for,
+      peers}``, rewritten through a fsynced temporary file;
+    - ``wal.crc``      — one frame per entry, a codec frame of
+      ``[index, term, type, blob]``;
+    - ``snapshot-<idx>-<term>`` — one frame holding the FSM snapshot.
+
+    A torn or corrupt WAL tail is truncated at load; a snapshot whose
+    frame does not check is skipped for the next newest.  Every rewrite
+    or rename is followed by a fsync of the directory, as ``FileLog``
+    does: the reference skips it (raft.py:973-1032), which leaves a power
+    loss after a rename uncovered."""
+
+    def __init__(self, data_dir: Optional[str]):
+        self.dir = data_dir
+        self._fh = None
+        if self.dir:
+            os.makedirs(self.dir, exist_ok=True)
+
+    # -- load --------------------------------------------------------------
+
+    def load(self):
+        """(term, voted_for, peers, base_index, base_term, entries,
+        snapshot_blob or None)."""
+        term, voted = 0, None
+        peers: List[str] = []
+        base_index, base_term = 0, 0
+        entries: List[list] = []
+        snap_blob = None
+        if not self.dir:
+            return term, voted, peers, base_index, base_term, entries, snap_blob
+
+        meta_path = os.path.join(self.dir, "meta.crc")
+        if os.path.exists(meta_path):
+            frames, _, _ = _read_crc_frames(meta_path)
+            if not frames:
+                raise ValueError(f"raft meta {meta_path} is corrupt")
+            meta = decode_payload(frames[0])
+            term, voted = meta.get("term", 0), meta.get("voted_for")
+            peers = list(meta.get("peers") or [])
+
+        for (idx, snap_term), path in reversed(self._snapshot_files()):
+            frames, _, _ = _read_crc_frames(path)
+            if frames:
+                base_index, base_term, snap_blob = idx, snap_term, frames[0]
+                break
+            logger.warning("raft: skipping corrupt snapshot %s", path)
+
+        wal_path = os.path.join(self.dir, "wal.crc")
+        if os.path.exists(wal_path):
+            frames, good, size = _read_crc_frames(wal_path)
+            end = 0
+            for blob in frames:
+                try:
+                    entry = list(decode_payload(blob))
+                except Exception:
+                    break  # an undecodable record: a corrupt tail
+                end += _CRC_HDR.size + len(blob)
+                if entry[0] <= base_index:
+                    continue  # covered by the snapshot
+                entries.append(entry)
+            if end < size:
+                with open(wal_path, "r+b") as fh:
+                    fh.truncate(end)
+                    fh.flush()
+                    os.fsync(fh.fileno())
+        self._fh = open(wal_path, "ab")
+        _fsync_dir(self.dir)
+        return term, voted, peers, base_index, base_term, entries, snap_blob
+
+    def _snapshot_files(self):
+        out = []
+        for name in os.listdir(self.dir):
+            if name.startswith("snapshot-") and not name.endswith(".tmp"):
+                parts = name.split("-")
+                try:
+                    idx, term = int(parts[1]), int(parts[2])
+                except (IndexError, ValueError):
+                    continue
+                out.append(((idx, term), os.path.join(self.dir, name)))
+        return sorted(out)
+
+    # -- persist -----------------------------------------------------------
+
+    def _replace(self, path: str, data: bytes) -> None:
+        tmp = path + ".tmp"
+        with open(tmp, "wb") as fh:
+            fh.write(data)
+            fh.flush()
+            os.fsync(fh.fileno())
+        os.replace(tmp, path)
+        _fsync_dir(self.dir)
+
+    def save_meta(self, term: int, voted_for: Optional[str],
+                  peers: Optional[List[str]] = None) -> None:
+        if not self.dir:
+            return
+        self._replace(os.path.join(self.dir, "meta.crc"), _crc_frame(
+            encode_payload({"term": term, "voted_for": voted_for,
+                            "peers": list(peers or [])})))
+
+    @staticmethod
+    def _entry_frames(entries: List[list]) -> bytes:
+        return b"".join(_crc_frame(encode_payload(list(e)))
+                        for e in entries)
+
+    def append(self, entries: List[list]) -> None:
+        """One write and one fsync for the whole batch."""
+        if self._fh is None:
+            return
+        self._fh.write(self._entry_frames(entries))
+        self._fh.flush()
+        os.fsync(self._fh.fileno())
+
+    def rewrite(self, entries: List[list]) -> None:
+        """Conflict truncation and compaction: the whole WAL replaced
+        atomically (a fsynced temporary file renamed over it), so a crash
+        mid-rewrite never loses an entry a quorum counted on."""
+        if not self.dir:
+            return
+        path = os.path.join(self.dir, "wal.crc")
+        if self._fh is not None:
+            self._fh.close()
+        self._replace(path, self._entry_frames(entries))
+        self._fh = open(path, "ab")
+
+    def save_snapshot(self, index: int, term: int, blob: bytes) -> None:
+        if not self.dir:
+            return
+        self._replace(os.path.join(self.dir, f"snapshot-{index}-{term}"),
+                      _crc_frame(blob))
+        for _, old in self._snapshot_files()[:-SNAPSHOTS_RETAINED]:
+            os.unlink(old)
+
+    def close(self) -> None:
+        if self._fh is not None:
+            self._fh.close()
+            self._fh = None
+
+
+class MultiRaft(RaftLog):
+    """Leader election and log replication across servers over the RPC
+    layer's raft channel (raft.py:1042; hashicorp/raft beneath
+    nomad/server.go setupRaft, carried by raft_rpc.go's RaftLayer on the
+    shared RPC port).
+
+    ``apply`` blocks until the entry is committed by a majority and
+    applied locally and returns (result, index), as the single voter's
+    does, so the server above it does not change.  The leader applies its
+    own entries from the payload objects it was handed; followers decode
+    the replicated blob.
+
+    Timing (the reference's ``NOMAD_TPU_RAFT_HEARTBEAT_S``,
+    ``NOMAD_TPU_RAFT_ELECTION_MIN_S``/``MAX_S`` and
+    ``NOMAD_TPU_SNAPSHOT_CHUNK``, raft.py:1094-1100, :1568): the
+    ``heartbeat_interval``, ``election_timeout`` (min, max) and
+    ``snapshot_chunk`` arguments, with the same defaults.  The election
+    jitter is seeded with ``hash(my_addr)`` (raft.py:1085), which depends
+    on the process's string hash seed: which server wins an election is
+    not a thing to rely on."""
+
+    # Election timeout must exceed the worst-case latency of a new
+    # leader's first heartbeat (the reference runs 500 ms-1 s timeouts
+    # against 100 ms heartbeats).
+    HEARTBEAT_INTERVAL = 0.05
+    ELECTION_TIMEOUT = (0.30, 0.60)
+    APPLY_TIMEOUT = 10.0
+    REPLICATE_BATCH = 512
+    # Compact once the in-memory log passes this many entries
+    # (hashicorp/raft SnapshotThreshold).
+    SNAPSHOT_THRESHOLD = 8192
+    SNAPSHOT_CHUNK = 4 << 20
+    # Entries applied per lock hold by the applier thread: an incoming
+    # AppendEntries never waits behind a long committed backlog.
+    APPLY_CHUNK = 16
+
+    def __init__(self, fsm: FSM, my_addr: str, pool,
+                 data_dir: Optional[str] = None, logger=None,
+                 heartbeat_interval: Optional[float] = None,
+                 election_timeout: Optional[Tuple[float, float]] = None,
+                 snapshot_chunk: Optional[int] = None):
+        super().__init__(fsm)
+        self.logger = logger or logging.getLogger("nomad_tpu_torch.raft")
+        self.my_addr = my_addr
+        self.pool = pool
+        self._rand = random.Random(hash(my_addr) & 0xFFFFFF)
+        self._leader = False  # starts as a follower
+        if heartbeat_interval is not None:
+            self.HEARTBEAT_INTERVAL = heartbeat_interval
+        if election_timeout is not None:
+            self.ELECTION_TIMEOUT = tuple(election_timeout)
+        if snapshot_chunk is not None:
+            self.SNAPSHOT_CHUNK = max(1, int(snapshot_chunk))
+
+        self.store = _RaftStore(data_dir)
+        (self.term, self.voted_for, saved_peers, self.base_index,
+         self.base_term, self.log, snap_blob) = self.store.load()
+        if snap_blob is not None:
+            self.fsm.restore(snap_blob)
+        # Only the snapshot's prefix is known committed at boot: entries
+        # past it are committed again by the leader.
+        self.commit_index = self.base_index
+        self._last_index = self.base_index  # the last applied
+        self._applied = self.base_index
+
+        self.leader_addr: Optional[str] = None
+        self.state = "follower"
+        # The voter set comes from the persisted committed configuration;
+        # a fresh server has none and cannot campaign until it is
+        # bootstrapped (initial formation) or added through a CONFIG entry.
+        self.peers: List[str] = saved_peers or [my_addr]
+        self._bootstrapped = bool(saved_peers)
+        # Non-voting members: replicated like voters (they apply the FSM,
+        # which follower scheduling needs) but never counted toward a
+        # quorum and never campaigning.
+        self.learners: List[str] = []
+
+        self._futures: dict = {}           # index -> _ApplyFuture
+        # The payload objects of the leader's own entries: its FSM apply
+        # skips decoding its own blob.  Dropped at apply and at conflict
+        # truncation (a truncated index may be refilled by another
+        # leader's entry).
+        self._local_payloads: dict = {}    # index -> payload
+        self._next: dict = {}              # peer -> next index to send
+        self._match: dict = {}             # peer -> highest replicated
+        self._repl_events: dict = {}       # peer -> threading.Event
+        self._repl_threads: dict = {}      # peer -> (term, Thread)
+        self._snap_rx: Optional[dict] = None
+
+        self._last_contact = 0.0
+        self._stop = threading.Event()
+        self._threads: List[threading.Thread] = []
+        # The applier thread drains commit_index outside the
+        # AppendEntries reply path: a follower acks once it has appended.
+        self._apply_kick = threading.Event()
+        # Leadership transitions reach the callbacks in the order they
+        # happened, through one dispatcher thread.
+        self._leader_q: "queue.Queue" = queue.Queue()
+
+    def _leader_dispatch_loop(self) -> None:
+        while not self._stop.is_set():
+            try:
+                val = self._leader_q.get(timeout=0.5)
+            except queue.Empty:
+                continue
+            try:
+                self._set_leader(val)
+            except Exception:
+                # A raising callback must not kill the dispatcher: later
+                # transitions still need delivery.
+                self.logger.exception("raft: leadership callback failed")
+
+    # -- log shape helpers (the caller holds self._l) ----------------------
+
+    def _last_log_index(self) -> int:
+        return self.base_index + len(self.log)
+
+    def _term_at(self, index: int) -> int:
+        if index == self.base_index:
+            return self.base_term
+        if index < self.base_index or index > self._last_log_index():
+            return -1  # unknown (compacted away, or beyond the end)
+        return self.log[index - self.base_index - 1][1]
+
+    def _entries_from(self, index: int, limit: int) -> List[list]:
+        start = index - self.base_index - 1
+        return self.log[start:start + limit]
+
+    # -- lifecycle ---------------------------------------------------------
+
+    def start(self) -> None:
+        self._last_contact = time.monotonic()
+        for target, name in ((self._ticker, "raft-ticker"),
+                             (self._leader_dispatch_loop, "raft-leadership"),
+                             (self._apply_loop, "raft-applier")):
+            t = threading.Thread(target=target, name=name, daemon=True)
+            t.start()
+            self._threads.append(t)
+
+    def _apply_loop(self) -> None:
+        """Drains ``commit_index`` in chunks; ordering holds because
+        ``_apply_to`` advances ``_last_index`` only under the lock."""
+        while not self._stop.is_set():
+            if not self._apply_kick.wait(0.05):
+                continue
+            self._apply_kick.clear()
+            while not self._stop.is_set():
+                with self._l:
+                    if self._last_index >= self.commit_index:
+                        break
+                    self._apply_to(min(self.commit_index,
+                                       self._last_index + self.APPLY_CHUNK))
+
+    def threads(self) -> List[threading.Thread]:
+        out = list(self._threads)
+        out += [t for _term, t in list(self._repl_threads.values())]
+        return [t for t in out if t.is_alive()]
+
+    def close(self) -> None:
+        self._stop.set()
+        with self._l:
+            self._fail_futures(NotLeaderError("shutting down"))
+            events = list(self._repl_events.values())
+        for ev in events:
+            ev.set()
+        self._apply_kick.set()
+        for t in self.threads():
+            if t is not threading.current_thread():
+                t.join(timeout=5.0)
+        with self._l:
+            self.store.close()
+
+    def bootstrap(self, peers: List[str]) -> None:
+        """Adopt the initial voter set and enable elections (serf.go:91
+        maybeBootstrap).  A no-op once a configuration exists: later
+        changes replicate through the log (``propose_config``)."""
+        with self._l:
+            if self._bootstrapped:
+                return
+            self.peers = sorted(set(peers) | {self.my_addr})
+            self._bootstrapped = True
+            self._persist_meta()
+
+    def propose_config(self, peers: List[str]) -> None:
+        """A leader-only voter-set change through a replicated CONFIG
+        entry (hashicorp/raft AddVoter; the leader uses the new set once
+        it is appended, followers once it applies)."""
+        with self._l:
+            if self.state != "leader":
+                raise NotLeaderError(self.leader_addr or "")
+            peers = sorted(set(peers) | {self.my_addr})
+            if peers == self.peers:
+                return
+            index = self._last_log_index() + 1
+            entry = [index, self.term, CONFIG_TYPE, _encode_peers(peers)]
+            self.log.append(entry)
+            self.store.append([entry])
+            fut = _ApplyFuture()
+            self._futures[index] = fut
+            self._adopt_peers(peers)
+            self._advance_commit()
+        self._kick_replicators()
+        fut.wait(self.APPLY_TIMEOUT)
+
+    def _adopt_peers(self, peers: List[str]) -> None:
+        # the caller holds self._l
+        added = [p for p in peers if p not in self.peers]
+        self.peers = list(peers)
+        self._bootstrapped = True
+        self._persist_meta()
+        if self.state == "leader":
+            for p in added:
+                if p != self.my_addr:
+                    self._start_replicator(p)
+
+    def _quorum(self) -> int:
+        return len(self.peers) // 2 + 1
+
+    def is_raft_leader(self) -> bool:
+        with self._l:
+            return self.state == "leader"
+
+    def fence_index(self) -> int:
+        """The last log index: election safety puts every committed entry
+        at or below it, and unlike the applied index it cannot lag the
+        applier thread."""
+        with self._l:
+            return self._last_log_index()
+
+    def _persist_meta(self) -> None:
+        # the caller holds self._l
+        self.store.save_meta(self.term, self.voted_for,
+                             self.peers if self._bootstrapped else [])
+
+    # -- RPC entry (RPCServer.raft_handler) --------------------------------
+
+    def handle_message(self, msg: dict) -> dict:
+        if self._stop.is_set():
+            raise RuntimeError("raft: node is shut down")
+        kind = msg.get("kind")
+        if kind == "request_vote":
+            return self._on_request_vote(msg)
+        if kind == "append_entries":
+            return self._on_append_entries(msg)
+        if kind == "install_snapshot":
+            return self._on_install_snapshot(msg)
+        raise ValueError(f"unknown raft message kind {kind!r}")
+
+    # -- election ----------------------------------------------------------
+
+    def _election_timeout(self) -> float:
+        lo, hi = self.ELECTION_TIMEOUT
+        return lo + self._rand.random() * (hi - lo)
+
+    def add_learner(self, addr: str) -> None:
+        """Leader side: a non-voting member joins the replication fan-out
+        (no CONFIG entry: learners are not in the quorum's set)."""
+        with self._l:
+            if (addr == self.my_addr or addr in self.peers
+                    or addr in self.learners):
+                return
+            self.learners.append(addr)
+            if self.state == "leader":
+                self._start_replicator(addr)
+
+    def _ticker(self) -> None:
+        timeout = self._election_timeout()
+        while not self._stop.is_set():
+            time.sleep(0.015)
+            with self._l:
+                # Non-members never campaign: a learner, or a voter
+                # removed from the set, cannot win a quorum.
+                campaigning_ok = (self._bootstrapped
+                                  and self.state != "leader"
+                                  and self.my_addr in self.peers)
+                since = time.monotonic() - self._last_contact
+            if campaigning_ok and since >= timeout and \
+                    not self._stop.is_set():
+                self._run_election()
+                timeout = self._election_timeout()
+
+    def _run_election(self) -> None:
+        from .rpc import RPC_RAFT
+
+        with self._l:
+            self.state = "candidate"
+            self.term += 1
+            term = self.term
+            self.voted_for = self.my_addr
+            self._persist_meta()
+            self.leader_addr = None
+            last_index = self._last_log_index()
+            last_term = self._term_at(last_index)
+            peers = [p for p in self.peers if p != self.my_addr]
+            self._last_contact = time.monotonic()
+        votes = 1
+        lock = threading.Lock()
+        done = threading.Event()
+
+        def ask(peer):
+            nonlocal votes
+            try:
+                reply = self.pool.call(peer, "raft", {
+                    "kind": "request_vote", "term": term,
+                    "candidate": self.my_addr,
+                    "last_log_index": last_index, "last_log_term": last_term,
+                }, channel=RPC_RAFT, timeout=0.5)
+            except Exception:
+                return
+            step_down = False
+            with self._l:
+                if reply.get("term", 0) > self.term:
+                    self._step_down(reply["term"])
+                    step_down = True
+            if step_down:
+                done.set()
+                return
+            with lock:
+                if reply.get("granted"):
+                    votes += 1
+                    if votes >= self._quorum():
+                        done.set()
+
+        threads = [threading.Thread(target=ask, args=(p,), daemon=True,
+                                    name="raft-vote")
+                   for p in peers]
+        for t in threads:
+            t.start()
+        if not peers:
+            done.set()
+        done.wait(timeout=0.6)
+        with self._l:
+            if self.state == "candidate" and self.term == term \
+                    and votes >= self._quorum() and not self._stop.is_set():
+                self._become_leader()
+                # The callbacks (broker enable, eval restore, ...) run on
+                # the dispatcher thread, outside the raft lock: they may
+                # apply entries themselves.
+                self._leader_q.put(True)
+
+    def _become_leader(self) -> None:
+        # the caller holds self._l
+        self.state = "leader"
+        self.leader_addr = self.my_addr
+        self.logger.info("raft: %s won election for term %d",
+                         self.my_addr, self.term)
+        last = self._last_log_index()
+        for p in self.peers:
+            if p == self.my_addr:
+                continue
+            self._next[p] = last + 1
+            self._match[p] = 0
+        # The term-establishment entry (Raft §5.4.2: a leader never counts
+        # replicas of older-term entries toward a commit).  It carries the
+        # voter set, so every follower adopts and persists the committed
+        # configuration.
+        cfg = [last + 1, self.term, CONFIG_TYPE, _encode_peers(self.peers)]
+        self.log.append(cfg)
+        self.store.append([cfg])
+        for p in self.peers + self.learners:
+            if p != self.my_addr:
+                self._start_replicator(p)
+        self._advance_commit()
+
+    def _start_replicator(self, peer: str) -> None:
+        # The caller holds self._l.  Replicators are per (peer, term): an
+        # older term's thread is already exiting (its term check fails).
+        old = self._repl_threads.get(peer)
+        if old is not None and old[0] == self.term and old[1].is_alive():
+            self._repl_events[peer].set()
+            return
+        self._next.setdefault(peer, self._last_log_index() + 1)
+        self._match.setdefault(peer, 0)
+        ev = threading.Event()
+        ev.set()
+        self._repl_events[peer] = ev
+        t = threading.Thread(target=self._replicate_peer,
+                             args=(peer, self.term, ev),
+                             name=f"raft-repl-{peer}", daemon=True)
+        self._repl_threads[peer] = (self.term, t)
+        t.start()
+
+    def _step_down(self, term: int) -> None:
+        # the caller holds self._l
+        was_leader = self.state == "leader"
+        if term > self.term:
+            self.term = term
+            self.voted_for = None
+            self._persist_meta()
+        self.state = "follower"
+        self._fail_futures(NotLeaderError(self.leader_addr or ""))
+        for ev in self._repl_events.values():
+            ev.set()  # replicators observe the term change
+        if was_leader:
+            self._leader_q.put(False)
+
+    def _fail_futures(self, exc: Exception) -> None:
+        # the caller holds self._l
+        for fut in self._futures.values():
+            fut.fail(exc)
+        self._futures.clear()
+
+    def _on_request_vote(self, msg: dict) -> dict:
+        with self._l:
+            if msg["term"] < self.term:
+                return {"granted": False, "term": self.term}
+            if msg["term"] > self.term:
+                self._step_down(msg["term"])
+            my_last = self._last_log_index()
+            up_to_date = (
+                msg["last_log_term"], msg["last_log_index"]
+            ) >= (self._term_at(my_last), my_last)
+            if up_to_date and self.voted_for in (None, msg["candidate"]):
+                self.voted_for = msg["candidate"]
+                self._persist_meta()  # durable before granting (§5.2)
+                self._last_contact = time.monotonic()
+                return {"granted": True, "term": self.term}
+            return {"granted": False, "term": self.term}
+
+    # -- leader replication ------------------------------------------------
+
+    def _replicate_peer(self, peer: str, term: int,
+                        kick: threading.Event) -> None:
+        """The per-peer replication loop (hashicorp/raft replicate()):
+        ships missing entries or heartbeats, and InstallSnapshot when the
+        peer is behind the compaction horizon."""
+        from .rpc import RPC_RAFT
+
+        while not self._stop.is_set():
+            with self._l:
+                if self.state != "leader" or self.term != term:
+                    return
+                ni = self._next.get(peer, self.base_index + 1)
+                snapshot_needed = ni <= self.base_index
+                if not snapshot_needed:
+                    entries = self._entries_from(ni, self.REPLICATE_BATCH)
+                    prev_index = ni - 1
+                    prev_term = self._term_at(prev_index)
+                    commit = self.commit_index
+            try:
+                if snapshot_needed:
+                    self._send_snapshot(peer, term)
+                    continue
+                reply = self.pool.call(peer, "raft", {
+                    "kind": "append_entries", "term": term,
+                    "leader": self.my_addr,
+                    "prev_log_index": prev_index,
+                    "prev_log_term": prev_term,
+                    "entries": entries,
+                    "leader_commit": commit,
+                }, channel=RPC_RAFT, timeout=2.0)
+            except Exception:
+                kick.clear()
+                kick.wait(0.1)
+                continue
+            with self._l:
+                if reply.get("term", 0) > self.term:
+                    self._step_down(reply["term"])
+                    return
+                if self.state != "leader" or self.term != term:
+                    return
+                if reply.get("success"):
+                    sent_through = prev_index + len(entries)
+                    self._match[peer] = max(self._match.get(peer, 0),
+                                            sent_through)
+                    self._next[peer] = sent_through + 1
+                    self._advance_commit()
+                    more = self._next[peer] <= self._last_log_index()
+                else:
+                    # The consistency check failed: back up by the
+                    # follower's hint.  A hint behind the compaction
+                    # horizon means a snapshot.
+                    hint = reply.get("match", prev_index - 1)
+                    if hint < self.base_index:
+                        self._next[peer] = self.base_index
+                    else:
+                        self._next[peer] = max(self.base_index + 1,
+                                               min(hint + 1, ni - 1))
+                    more = True
+            if not more:
+                kick.clear()
+                kick.wait(self.HEARTBEAT_INTERVAL)
+
+    def _send_snapshot(self, peer: str, term: int) -> None:
+        """InstallSnapshot for a peer behind the log horizon: one frame up
+        to ``SNAPSHOT_CHUNK`` bytes, chunked offset/total/done frames past
+        it.  Each chunk refreshes the follower's leader-contact clock, so
+        a large install does not starve its election timer."""
+        from .rpc import RPC_RAFT
+
+        with self._l:
+            if self.state != "leader" or self.term != term:
+                return
+            blob = self.fsm.snapshot()
+            last_index = self._last_index
+            last_term = self._term_at(last_index)
+            if last_term < 0:
+                last_term = self.base_term
+            peers = list(self.peers)
+        chunk = self.SNAPSHOT_CHUNK
+        base = {"kind": "install_snapshot", "term": term,
+                "leader": self.my_addr,
+                "last_index": last_index, "last_term": last_term,
+                "peers": peers}  # the configuration rides the snapshot
+        try:
+            if len(blob) <= chunk:
+                reply = self.pool.call(
+                    peer, "raft", dict(base, data=blob),
+                    channel=RPC_RAFT, timeout=10.0)
+            else:
+                total = len(blob)
+                reply = None
+                for off in range(0, total, chunk):
+                    with self._l:
+                        if self.state != "leader" or self.term != term:
+                            return
+                    reply = self.pool.call(peer, "raft", dict(
+                        base, data=blob[off:off + chunk], offset=off,
+                        total=total, done=off + chunk >= total,
+                    ), channel=RPC_RAFT, timeout=10.0)
+                    self.metrics.incr_counter("raft.snapshot.chunks_sent")
+                    if reply.get("term", 0) > term \
+                            or not reply.get("success", False):
+                        break  # demoted, or the receiver lost the sequence
+        except Exception:
+            self._repl_events[peer].clear()
+            self._repl_events[peer].wait(0.2)
+            return
+        with self._l:
+            if reply is not None and reply.get("term", 0) > self.term:
+                self._step_down(reply["term"])
+                return
+            if reply is None or not reply.get("success", True):
+                # The receiver aborted: the loop retries from offset 0.
+                return
+            self._match[peer] = max(self._match.get(peer, 0), last_index)
+            self._next[peer] = last_index + 1
+            self._advance_commit()
+
+    def _kick_replicators(self) -> None:
+        with self._l:
+            events = list(self._repl_events.values())
+        for ev in events:
+            ev.set()
+
+    def _advance_commit(self) -> None:
+        """Majority-match commit; only current-term entries commit by
+        counting (Raft §5.4.2).  The caller holds self._l."""
+        if self.state != "leader":
+            return
+        matches = sorted(
+            [self._last_log_index()]
+            + [self._match.get(p, 0) for p in self.peers if p != self.my_addr]
+        )
+        n = matches[len(matches) - self._quorum()]
+        if n > self.commit_index and self._term_at(n) == self.term:
+            self.commit_index = n
+            if self._threads:
+                # The FSM applies (and the futures resolve) on the
+                # applier thread, not under a replicator's reply handling.
+                self._apply_kick.set()
+            else:  # not started (a unit test's harness): inline
+                self._apply_to(self.commit_index)
+
+    def _apply_to(self, target: int) -> None:
+        """Apply committed entries through ``target`` in index order,
+        resolving their futures.  The caller holds self._l."""
+        while self._last_index < target:
+            idx = self._last_index + 1
+            _eidx, _eterm, mt, blob = self.log[idx - self.base_index - 1]
+            result = None
+            fut = self._futures.pop(idx, None)
+            if mt == CONFIG_TYPE:
+                peers = _decode_peers(blob)
+                if peers != self.peers:
+                    self._adopt_peers(peers)
+                else:
+                    self._bootstrapped = True
+                    self._persist_meta()
+            elif mt != NOOP_TYPE:
+                payload = self._local_payloads.pop(idx, None)
+                try:
+                    result = self.fsm.apply(
+                        idx, MessageType(mt),
+                        payload if payload is not None
+                        else decode_payload(blob))
+                except Exception as exc:
+                    self.logger.exception("raft: fsm apply failed at %d",
+                                          idx)
+                    self._last_index = self._applied = idx
+                    if fut is not None:
+                        fut.fail(exc)
+                    continue
+            self._last_index = idx
+            self._applied = idx
+            if fut is not None:
+                fut.resolve(result)
+        if len(self.log) > self.SNAPSHOT_THRESHOLD:
+            self._compact()
+
+    # -- follower side -----------------------------------------------------
+
+    def _on_append_entries(self, msg: dict) -> dict:
+        with self._l:
+            if msg["term"] < self.term:
+                return {"success": False, "term": self.term}
+            if msg["term"] > self.term or self.state != "follower":
+                self._step_down(msg["term"])
+                self.term = msg["term"]
+                self._persist_meta()
+            self.leader_addr = msg["leader"]
+            self._last_contact = time.monotonic()
+
+            prev_index = msg["prev_log_index"]
+            prev_term = msg["prev_log_term"]
+            entries = [list(e) for e in msg["entries"]]
+            # At or before our snapshot's base everything is committed
+            # here: skip those entries and anchor at the base.
+            if prev_index < self.base_index:
+                entries = [e for e in entries if e[0] > self.base_index]
+                prev_index = self.base_index
+                prev_term = self.base_term
+            if prev_index > self._last_log_index():
+                return {"success": False, "term": self.term,
+                        "match": self._last_log_index()}
+            if self._term_at(prev_index) != prev_term:
+                return {"success": False, "term": self.term,
+                        "match": max(self.base_index, prev_index - 1)}
+            # Truncate a conflict, then append the new suffix with one
+            # durable write (one fsync a message, not an entry).
+            append_from = None
+            for k, e in enumerate(entries):
+                pos = e[0] - self.base_index - 1
+                if pos < len(self.log):
+                    if self.log[pos][1] != e[1]:
+                        del self.log[pos:]
+                        self.store.rewrite(self.log)
+                        # Another leader refills these indexes.
+                        for cached in [i for i in self._local_payloads
+                                       if i >= e[0]]:
+                            del self._local_payloads[cached]
+                        append_from = k
+                        break
+                    # the same entry is already here: skip
+                else:
+                    append_from = k
+                    break
+            if append_from is not None:
+                new = entries[append_from:]
+                self.log.extend(new)
+                self.store.append(new)
+            new_commit = min(msg["leader_commit"], self._last_log_index())
+            if new_commit > self.commit_index:
+                self.commit_index = new_commit
+                if self._threads:
+                    # Ack now, apply on the applier thread: a busy
+                    # follower's apply time never rides the leader's
+                    # quorum wait.
+                    self._apply_kick.set()
+                else:  # not started (a unit test's harness): inline
+                    self._apply_to(new_commit)
+            return {"success": True, "term": self.term,
+                    "match": self._last_log_index()}
+
+    def _on_install_snapshot(self, msg: dict) -> dict:
+        with self._l:
+            if msg["term"] < self.term:
+                return {"term": self.term}
+            if msg["term"] > self.term or self.state != "follower":
+                self._step_down(msg["term"])
+                self.term = msg["term"]
+                self._persist_meta()
+            self.leader_addr = msg["leader"]
+            self._last_contact = time.monotonic()
+            if "offset" in msg:
+                # A chunked install: chunks buffer until ``done``.  The key
+                # pins one transfer; any break in the sequence (a leader
+                # restart, an interleaved transfer) replies success=False
+                # and the leader starts again from offset 0.
+                key = (msg["term"], msg["last_index"], msg["total"])
+                rx = self._snap_rx
+                if msg["offset"] == 0:
+                    rx = self._snap_rx = {"key": key, "chunks": [],
+                                          "received": 0}
+                if (rx is None or rx["key"] != key
+                        or rx["received"] != msg["offset"]):
+                    self._snap_rx = None
+                    return {"term": self.term, "success": False}
+                rx["chunks"].append(msg["data"])
+                rx["received"] += len(msg["data"])
+                if not msg.get("done"):
+                    return {"term": self.term, "success": True}
+                self._snap_rx = None
+                if rx["received"] != msg["total"]:
+                    return {"term": self.term, "success": False}
+                msg = dict(msg, data=b"".join(rx["chunks"]))
+            self.fsm.restore(msg["data"])
+            if msg.get("peers"):
+                self._adopt_peers(list(msg["peers"]))
+            self.base_index = msg["last_index"]
+            self.base_term = msg["last_term"]
+            self.log = []
+            self._local_payloads.clear()
+            self.store.save_snapshot(self.base_index, self.base_term,
+                                     msg["data"])
+            self.store.rewrite([])
+            self.commit_index = self.base_index
+            self._last_index = self.base_index
+            self._applied = self.base_index
+            return {"term": self.term, "success": True}
+
+    # -- compaction --------------------------------------------------------
+
+    def _compact(self) -> None:
+        """Snapshot the FSM at the applied index and drop the entries it
+        covers.  The caller holds self._l."""
+        applied = self._last_index
+        if applied <= self.base_index:
+            return
+        blob = self.fsm.snapshot()
+        new_base_term = self._term_at(applied)
+        self.log = self.log[applied - self.base_index:]
+        self.base_index = applied
+        self.base_term = new_base_term
+        self.store.save_snapshot(applied, new_base_term, blob)
+        self.store.rewrite(self.log)
+
+    def snapshot(self) -> None:
+        with self._l:
+            self._compact()
+
+    # -- the apply path ----------------------------------------------------
+
+    def apply(self, msg_type: MessageType, payload: dict):
+        t0 = time.perf_counter()
+        # Encoded outside the raft lock: concurrent appliers pay their own
+        # codec time (index assignment below still orders the log).
+        blob = encode_payload(payload)
+        with self._l:
+            if self.state != "leader":
+                raise NotLeaderError(self.leader_addr or "")
+            if _fire_apply_fault(self._last_log_index() + 1,
+                                 msg_type) is not None:
+                # An injected step-down is a real demotion: the cluster
+                # re-elects (possibly us) through the election timer.
+                self._step_down(self.term)
+                raise NotLeaderError(self.leader_addr or "")
+            index = self._last_log_index() + 1
+            entry = [index, self.term, int(msg_type), blob]
+            self.log.append(entry)
+            self.store.append([entry])
+            fut = _ApplyFuture()
+            self._futures[index] = fut
+            self._local_payloads[index] = payload
+            self._advance_commit()  # a single-voter cluster commits here
+        self._kick_replicators()
+        result = fut.wait(self.APPLY_TIMEOUT)
+        self.metrics.measure_since("raft.apply", t0)
+        tr = tracing.TRACER
+        if tr is not None:
+            tr.record("raft.apply", t0, time.perf_counter(), index=index,
+                      msg_type=getattr(msg_type, "name", str(msg_type)))
+        return result, index

@@ -1,14 +1,43 @@
 """The port's in-process server: jobs in, running allocations out (a slim
-copy of ``nomad_tpu/server/server.py:141-420``; reference
-nomad/server.go:78-305, nomad/leader.go:28-641).
+copy of ``nomad_tpu/server/server.py``; reference nomad/server.go:78-305,
+nomad/leader.go:28-641).
 
-It wires the control plane of one single-voter server: the eval broker,
-blocked evals, the plan queue, the FSM and its leader-side hooks over the
-log (``FileLog`` in ``ServerConfig.data_dir``, or an ``InmemLog`` when
-it is empty), the queue-driven ``PlanApplier``, the heartbeat timers, and
+It wires the control plane of one server: the eval broker, blocked
+evals, the plan queue, the FSM and its leader-side hooks over the log,
+the queue-driven ``PlanApplier``, the heartbeat timers, and
 ``num_schedulers`` ``BatchWorker``\\ s that run ``TorchBatchScheduler`` on
 the card (``device="cuda"``, the default), on the CPU (``device="cpu"``)
 or node-sharded over a ``NodeMesh`` (``mesh``).
+
+The log (server.py:263-278): ``MultiRaft`` when the server is clustered
+(``enable_rpc`` with ``bootstrap_expect > 1``, a ``start_join`` or
+``force_multi_raft``; its state in ``data_dir/raft`` when a data dir is
+given), else ``FileLog`` in ``data_dir``, else an ``InmemLog``.  A server
+without ``enable_rpc`` is the single voter it always was.
+
+The cluster (server.py:210-287, :460-735, :1288, :1655-1666): with
+``enable_rpc`` the server binds an ``RPCServer`` (``server/rpc.py``,
+struct-codec frames, the endpoints of ``server/endpoints.py`` and the
+raft channel) and advertises ``rpc_advertise``'s host with the bound
+port.  Membership is serf-lite over that port (:meth:`Server.join`,
+:meth:`Server.members`, :meth:`Server.force_leave`; ``start_join``
+retries in the background): the seed server (no ``start_join``)
+bootstraps the voter set once ``bootstrap_expect`` members are alive, and
+the leader adds later members through a replicated configuration
+change; ``non_voting`` members replicate as learners.  Every write method
+forwards to the leader on ``NotLeaderError`` (one hop).  The leader's
+batch workers stay on ``device``; with ``follower_scheduling`` each
+clustered server also runs ``follower_schedulers`` (0: as many as
+``num_schedulers``) ``FollowerWorker``\\ s that, while it follows, pull
+evals from the leader's broker, schedule them on the CPU schedulers
+against the local replica and forward the plans (``Plan.Submit``).
+Leadership raises the plan queue's fence floor to the log's last index,
+so no follower schedules off a replica missing a pre-failover plan.
+:meth:`Server.fsm_fingerprint` digests the committed store at an entry
+boundary, for cross-server checks.  The raft timing and the snapshot
+chunk are ``raft_heartbeat``, ``raft_election_min``/``max`` and
+``snapshot_chunk`` (the reference's ``NOMAD_TPU_RAFT_*`` and
+``NOMAD_TPU_SNAPSHOT_CHUNK``).
 
 Durability (server.py:47, :270-278): with a ``data_dir`` every
 acknowledged write is in the log's WAL before it applies; a server built
@@ -47,18 +76,19 @@ cluster event stream at construction, and the first
 :meth:`Server.event_stream_subscribe` arms it lazily; the ring holds
 ``events_ring`` events (``NOMAD_TPU_EVENTS_RING``).
 
-Left out, for later slices: RPC, endpoints, membership and forwarding,
-with the ``rpc.request`` span, the ``/v1/trace/*`` and
-``/v1/event/stream`` endpoints and the trace fanout over peers (ROADMAP
-queue 1 item 20); multi-voter raft and follower scheduling (item 17); core (GC) and periodic jobs; vault; the tenancy
-quotas and namespaces; the blackbox hooks (item 21).
+Left out, for later slices: the agent, HTTP, the client's RPC, the
+endpoints without a server method here, ``/v1/trace/*``,
+``/v1/event/stream`` and the trace fanout over peers (ROADMAP queue 1
+item 20); federation and WAN joins; core (GC) and periodic jobs; vault;
+the tenancy quotas and namespaces; the blackbox hooks (item 21).
 """
 from __future__ import annotations
 
 import logging
+import os
 import threading
-from dataclasses import dataclass
-from typing import List, Optional, Tuple
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Tuple
 
 from .. import device as device_mod
 from ..ops import breaker as breaker_mod
@@ -71,6 +101,7 @@ from ..structs import structs as s
 from ..structs.diff import job_diff
 from ..utils import tracing
 from ..utils.telemetry import Telemetry
+from ..utils.tlsutil import TLSConfig, client_context, server_context
 from . import event_broker as event_stream
 from .blocked_evals import BlockedEvals
 from .eval_broker import EvalBroker
@@ -79,8 +110,8 @@ from .fsm import FSM, MessageType, TimeTable
 from .heartbeat import HeartbeatTimers
 from .plan_apply import PlanApplier
 from .plan_queue import PlanQueue
-from .raft import FileLog, InmemLog, NotLeaderError
-from .worker import BatchWorker
+from .raft import FileLog, InmemLog, MultiRaft, NotLeaderError
+from .worker import BatchWorker, Worker
 
 # Bound on every join at shutdown, per thread.
 JOIN_TIMEOUT = 5.0
@@ -117,7 +148,23 @@ class ServerConfig:
     log), and ``snapshot_entries``, ``snapshot_bytes`` and
     ``snapshot_interval`` are its automatic snapshot's thresholds (the
     reference's ``NOMAD_TPU_FILELOG_SNAPSHOT_*``; 0 entries and 0 bytes
-    turn it off)."""
+    turn it off).
+
+    The cluster (nomad/config.go RPCAddr, BootstrapExpect, serf join):
+    ``enable_rpc`` binds the listener on ``rpc_bind``:``rpc_port`` (0:
+    ephemeral), ``rpc_advertise``'s host is advertised with the bound
+    port, ``node_name`` and ``region`` name the member, and
+    ``bootstrap_expect``, ``start_join``, ``non_voting`` and
+    ``force_multi_raft`` shape the raft (see the module docstring).
+    ``follower_scheduling`` (the reference's ``NOMAD_TPU_FOLLOWER_SCHED``,
+    default on) and ``follower_schedulers`` size the follower workers.
+    ``raft_heartbeat``, ``raft_election_min``, ``raft_election_max`` and
+    ``snapshot_chunk`` are ``MultiRaft``'s timing and InstallSnapshot
+    chunk (the reference's ``NOMAD_TPU_RAFT_HEARTBEAT_S``,
+    ``NOMAD_TPU_RAFT_ELECTION_MIN_S``/``MAX_S``,
+    ``NOMAD_TPU_SNAPSHOT_CHUNK``).  ``tls`` (a ``utils.tlsutil.TLSConfig``)
+    puts the listener and every dial of the pool on mutual TLS against
+    the cluster CA (the reference's tls{} block)."""
 
     num_schedulers: int = 1
     batch_size: int = 64
@@ -140,6 +187,23 @@ class ServerConfig:
     snapshot_entries: int = 8192
     snapshot_bytes: int = 64 << 20
     snapshot_interval: float = 1.0
+    region: str = "global"
+    node_name: str = "server-1"
+    enable_rpc: bool = False
+    rpc_bind: str = "127.0.0.1"
+    rpc_port: int = 0
+    rpc_advertise: str = "127.0.0.1:4647"
+    bootstrap_expect: int = 1
+    start_join: List[str] = field(default_factory=list)
+    non_voting: bool = False
+    force_multi_raft: bool = False
+    follower_scheduling: bool = True
+    follower_schedulers: int = 0
+    raft_heartbeat: float = MultiRaft.HEARTBEAT_INTERVAL
+    raft_election_min: float = MultiRaft.ELECTION_TIMEOUT[0]
+    raft_election_max: float = MultiRaft.ELECTION_TIMEOUT[1]
+    snapshot_chunk: int = MultiRaft.SNAPSHOT_CHUNK
+    tls: Optional[TLSConfig] = None
 
 
 class Server:
@@ -172,9 +236,53 @@ class Server:
                        logger=self.logger,
                        on_eval_update=self._fsm_eval_updated,
                        on_unblock=self._fsm_unblock)
-        # The log (server.go:257 setupRaft): the durable single voter
-        # when a data dir is given, which recovers the store here.
-        if cfg.data_dir:
+        # The RPC listener and the connection pool (server.go:250
+        # setupRPC), bound here so the advertised address is known before
+        # the raft is built; served from start().
+        self.rpc = None
+        self.pool = None
+        self._members: Dict[tuple, Dict] = {}
+        self._members_lock = threading.Lock()
+        # The incarnation of this server's own member record (serf's
+        # refutation counter): bumped past any gossiped 'left' about us.
+        self._status_time = 1
+        # Set on a thread serving a request that was already forwarded
+        # once (endpoints.py): it blocks a second hop.
+        self._fwd_ctx = threading.local()
+        if cfg.enable_rpc:
+            from .rpc import ConnPool, RPCServer
+
+            tls_cfg = cfg.tls or TLSConfig()
+            self.pool = ConnPool(tls_context=client_context(tls_cfg))
+            self.rpc = RPCServer(host=cfg.rpc_bind, port=cfg.rpc_port,
+                                 logger=self.logger.getChild("rpc"),
+                                 tls_context=server_context(tls_cfg),
+                                 metrics=self.metrics)
+            # Advertise the configured host (never a wildcard bind) with
+            # the port actually bound (config.go AdvertiseAddrs).
+            adv_host = cfg.rpc_advertise.rsplit(":", 1)[0] \
+                if cfg.rpc_advertise else ""
+            if not adv_host or adv_host == "0.0.0.0":
+                adv_host = (cfg.rpc_bind if cfg.rpc_bind != "0.0.0.0"
+                            else "127.0.0.1")
+            cfg.rpc_advertise = f"{adv_host}:{self.rpc.port}"
+        # The log (server.go:257 setupRaft): the replicated log when
+        # clustered, else the durable single voter when a data dir is
+        # given (which recovers the store here), else the in-memory one.
+        multi = cfg.enable_rpc and (cfg.bootstrap_expect > 1
+                                    or bool(cfg.start_join)
+                                    or cfg.force_multi_raft)
+        if multi:
+            self.raft = MultiRaft(
+                self.fsm, cfg.rpc_advertise, self.pool,
+                data_dir=(os.path.join(cfg.data_dir, "raft")
+                          if cfg.data_dir else None),
+                logger=self.logger.getChild("raft"),
+                heartbeat_interval=cfg.raft_heartbeat,
+                election_timeout=(cfg.raft_election_min,
+                                  cfg.raft_election_max),
+                snapshot_chunk=cfg.snapshot_chunk)
+        elif cfg.data_dir:
             self.raft = FileLog(
                 self.fsm, cfg.data_dir,
                 snapshot_entries=cfg.snapshot_entries,
@@ -183,6 +291,12 @@ class Server:
         else:
             self.raft = InmemLog(self.fsm)
         self.raft.metrics = self.metrics
+        if self.rpc is not None:
+            from .endpoints import register_endpoints
+
+            register_endpoints(self, self.rpc)
+            if isinstance(self.raft, MultiRaft):
+                self.rpc.raft_handler = self.raft.handle_message
         self.plan_applier = PlanApplier(
             self.plan_queue, self.raft, self.logger, metrics=self.metrics,
             blocked_evals=self.blocked_evals, device=self.device,
@@ -205,16 +319,29 @@ class Server:
         if cfg.events:
             self.enable_event_stream()
         self.workers: List[BatchWorker] = []
+        self.follower_workers: List[Worker] = []
+        self.leader_channel = None
         self._threads: List[threading.Thread] = []
 
     # -- lifecycle ---------------------------------------------------------
 
     def start(self) -> None:
-        """Build the kernels (on a card), start the workers and the
-        metrics emitter, and take leadership (server.go:250-284,
-        leader.go:28)."""
+        """Build the kernels (on a card), serve RPC, start the raft and
+        membership, start the workers and the metrics emitter, and follow
+        leadership (server.go:250-284, leader.go:28)."""
         if self.device.type == "cuda":
             device_mod.build_kernels()
+        if self.rpc is not None:
+            self.rpc.start()
+            self._merge_members([self._self_member()])
+        if isinstance(self.raft, MultiRaft):
+            self.raft.start()
+            self._maybe_bootstrap()
+        if self.rpc is not None and self.config.start_join:
+            t = threading.Thread(target=self._join_loop, daemon=True,
+                                 name="serf-join")
+            t.start()
+            self._threads.append(t)
         t = threading.Thread(target=self._emit_metrics_loop, daemon=True,
                              name="metrics-emitter")
         t.start()
@@ -237,8 +364,24 @@ class Server:
                 stale_snapshot=cfg.stale_snapshot,
                 scheduler_kwargs=sched_kwargs,
                 max_batch=cfg.batch_size, pipeline=cfg.pipeline))
+        # Follower-read scheduling (server.py:364-389): a pool per
+        # clustered server.  Its workers park while this server leads (the
+        # batch workers above own the broker there) and pull from the
+        # leader otherwise: both pools exist, one is active.
+        n_follow = cfg.follower_schedulers or cfg.num_schedulers
+        if (cfg.follower_scheduling and self.pool is not None
+                and isinstance(self.raft, MultiRaft) and n_follow > 0):
+            from .follower_sched import FollowerWorker, LeaderChannel
+
+            self.leader_channel = LeaderChannel(
+                self.pool, self.leader_address,
+                my_addr=cfg.rpc_advertise, metrics=self.metrics)
+            for _ in range(n_follow):
+                self.follower_workers.append(FollowerWorker(
+                    self.raft, self.leader_channel, self.is_leader,
+                    logger=self.logger, metrics=self.metrics))
         self.raft.notify_leadership(self._leadership_changed)
-        for worker in self.workers:
+        for worker in self.workers + self.follower_workers:
             worker.start()
 
     def shutdown(self) -> None:
@@ -248,7 +391,7 @@ class Server:
         self._leader = False
         event_stream.unregister(self.event_broker)
         self.event_broker.close()
-        for worker in self.workers:
+        for worker in self.workers + self.follower_workers:
             worker.stop(timeout=JOIN_TIMEOUT)
         self.plan_applier.stop(timeout=JOIN_TIMEOUT)
         self.eval_broker.set_enabled(False)
@@ -258,14 +401,21 @@ class Server:
         for t in self._threads:
             t.join(timeout=JOIN_TIMEOUT)
         self.raft.close()
+        if self.rpc is not None:
+            self.rpc.shutdown()
+        if self.pool is not None:
+            self.pool.close()
 
     def threads(self) -> List[threading.Thread]:
         """Every thread this server started that is still alive (empty
         after a clean :meth:`shutdown`)."""
-        out = [w._thread for w in self.workers if w._thread is not None]
+        out = [w._thread for w in self.workers + self.follower_workers
+               if w._thread is not None]
         out += self.plan_applier.threads() + list(self._threads)
-        if isinstance(self.raft, FileLog):
+        if isinstance(self.raft, (FileLog, MultiRaft)):
             out += self.raft.threads()
+        if self.rpc is not None:
+            out += self.rpc.threads()
         for extra in (self.eval_broker.sweeper(), self.heartbeat.sweeper(),
                       self.blocked_evals._watcher):
             if extra is not None:
@@ -333,6 +483,212 @@ class Server:
     def is_leader(self) -> bool:
         return self._leader
 
+    # -- membership (serf-lite over the RPC port; nomad/serf.go) -----------
+
+    def _self_member(self) -> Dict:
+        return {"Name": self.config.node_name,
+                "Addr": self.config.rpc_advertise,
+                "Region": self.config.region,
+                "Status": "alive",
+                "StatusTime": self._status_time,
+                "NonVoter": self.config.non_voting}
+
+    def members(self) -> List[Dict]:
+        """(serf.Members, the peer table of nomad/serf.go)."""
+        with self._members_lock:
+            return sorted(self._members.values(),
+                          key=lambda m: (m.get("Region", ""), m["Name"]))
+
+    def join(self, addresses: List[str]) -> int:
+        """An operator's join (agent_endpoint.go Join → serf.Join): each
+        address's ``Serf.Join`` dialled (two backed-off retries: the join
+        is an idempotent merge) and the replies merged; returns how many
+        answered."""
+        from ..utils.backoff import Backoff, retry
+
+        if self.pool is None:
+            raise ValueError("RPC is not enabled")
+        me = self._self_member()
+        joined = 0
+        for addr in addresses:
+            try:
+                reply = retry(
+                    lambda a=addr: self.pool.call(a, "Serf.Join",
+                                                  {"Member": me},
+                                                  timeout=2.0),
+                    retries=2, backoff=Backoff(base=0.1, max_delay=0.5))
+                self._merge_members(reply.get("Members") or [])
+                joined += 1
+            except Exception as e:
+                self.logger.warning("server: join %s failed: %s", addr, e)
+        return joined
+
+    def force_leave(self, name: str) -> bool:
+        """Mark a member as left (serf.RemoveFailedNode) and gossip it,
+        with a bumped StatusTime so peers keep 'left' over a stale
+        'alive'.  The raft voter set is untouched (removing a voter is a
+        configuration change)."""
+        changed = False
+        with self._members_lock:
+            for m in self._members.values():
+                if m["Name"] == name:
+                    m["Status"] = "left"
+                    m["StatusTime"] = int(m.get("StatusTime", 1)) + 1
+                    changed = True
+            view = list(self._members.values())
+        if changed and self.pool is not None:
+            self._spawn(self._push_members, view)
+        return changed
+
+    def membership_join(self, member: Dict) -> Dict:
+        """A peer's ``Serf.Join``: merge, gossip the change, and answer
+        with the whole member list (serf.go:51 nodeJoin)."""
+        self._merge_members([member])
+        return {"Members": self.members()}
+
+    def _merge_members(self, incoming: List[Dict]) -> None:
+        """Merge member records; on a change, push our view to the peers
+        (the gossip step) and check the bootstrap again (serf.go:91)."""
+        added = []
+        with self._members_lock:
+            for m in incoming:
+                name = m.get("Name")
+                if not name or not m.get("Addr"):
+                    continue
+                key = (name, m.get("Region", ""))
+                old = self._members.get(key)
+                if old is None:
+                    added.append(m)
+                    self._members[key] = dict(m)
+                    continue
+                # Refutation: a 'left' about ourselves while we are alive
+                # is out-bid by an incarnation past it, gossiped again.
+                if (name == self.config.node_name
+                        and m.get("Region", "") == self.config.region
+                        and m.get("Status") != "alive"
+                        and int(m.get("StatusTime", 1)) >= self._status_time):
+                    self._status_time = int(m.get("StatusTime", 1)) + 1
+                    refreshed = self._self_member()
+                    self._members[key] = refreshed
+                    added.append(refreshed)
+                    continue
+                # The newer StatusTime wins, so a gossiped 'left' is not
+                # resurrected by a peer's stale 'alive'.
+                if int(m.get("StatusTime", 1)) >= \
+                        int(old.get("StatusTime", 1)):
+                    if m.get("Status") != old.get("Status"):
+                        added.append(m)
+                    self._members[key] = dict(m)
+            view = list(self._members.values())
+        if not added:
+            return
+        self.logger.info("server: membership now %d members (+%s)",
+                         len(view), ",".join(m["Name"] for m in added))
+        self._maybe_bootstrap()
+        if self.pool is not None:
+            self._spawn(self._push_members, view)
+
+    def _spawn(self, target, *args) -> None:
+        """A short-lived daemon thread (gossip pushes, config proposals);
+        skipped once the server is shutting down."""
+        if self._shutdown.is_set():
+            return
+        threading.Thread(target=target, args=args, daemon=True,
+                         name=target.__name__).start()
+
+    def _push_members(self, view: List[Dict]) -> None:
+        """Anti-entropy: every member we know, sent to every peer.  A
+        receiver that learns nothing new does not push again, so this
+        ends."""
+        me = self.config.rpc_advertise
+        for m in view:
+            addr = m["Addr"]
+            if addr == me:
+                continue
+            for peer in view:
+                if self._shutdown.is_set():
+                    return
+                try:
+                    self.pool.call(addr, "Serf.Join", {"Member": peer},
+                                   timeout=1.0)
+                except Exception:
+                    break  # unreachable: a later join or push recovers
+
+    def _maybe_bootstrap(self) -> None:
+        """Initial formation and growth of the voter set (serf.go:91
+        maybeBootstrap).  Only a seed server (no ``start_join``) adopts the
+        initial set from its view, once ``bootstrap_expect`` members are
+        alive; a joiner waits for the leader's CONFIG entry (a quorum
+        assembled from a private view could be a second, disjoint one).
+        After bootstrap the leader proposes a configuration change when
+        membership shows voters it does not have (raft AddVoter)."""
+        if not isinstance(self.raft, MultiRaft):
+            return
+        with self._members_lock:
+            local = [m for m in self._members.values()
+                     if m.get("Region", self.config.region)
+                     == self.config.region]
+            addrs = [m["Addr"] for m in local if not m.get("NonVoter")]
+            learner_addrs = [m["Addr"] for m in local if m.get("NonVoter")]
+        if not self.raft._bootstrapped:
+            if self.config.start_join or self.config.non_voting:
+                return
+            if len(addrs) >= self.config.bootstrap_expect:
+                self.raft.bootstrap(addrs)
+            return
+        if self.raft.is_raft_leader():
+            for addr in learner_addrs:
+                self.raft.add_learner(addr)
+            new = sorted(set(self.raft.peers) | set(addrs))
+            if new != sorted(self.raft.peers):
+                def propose_config():
+                    try:
+                        self.raft.propose_config(new)
+                    except Exception as e:
+                        self.logger.warning(
+                            "server: config change failed: %s", e)
+                self._spawn(propose_config)
+
+    def _join_loop(self) -> None:
+        """Retry the ``start_join`` addresses until each answers, with a
+        capped backoff (the agent's retry_join)."""
+        pending = list(self.config.start_join)
+        me = self._self_member()
+        delay = 0.25
+        attempts = 0
+        while not self._shutdown.is_set() and pending:
+            still = []
+            for addr in pending:
+                try:
+                    reply = self.pool.call(addr, "Serf.Join", {"Member": me},
+                                           timeout=1.0)
+                    self._merge_members(reply.get("Members") or [])
+                except Exception:
+                    still.append(addr)
+            pending = still
+            if pending:
+                attempts += 1
+                if attempts % 20 == 0:
+                    self.logger.warning(
+                        "server: still unable to join %s after %d attempts",
+                        ",".join(pending), attempts)
+                self._shutdown.wait(delay)
+                delay = min(delay * 1.5, 5.0)
+
+    def consistent_snapshot(self):
+        """A copy-on-write store snapshot taken at a log entry boundary:
+        the log lock serializes with the applier, so a multi-write apply
+        is never seen half landed (server.py:668)."""
+        with self.raft._l:
+            return self.state.snapshot()
+
+    def fsm_fingerprint(self) -> Tuple[int, str]:
+        """(the snapshot's latest write index, the store's digest): equal
+        across servers that applied the same committed prefix (entries
+        that touch no table bump the index on none of them)."""
+        snap = self.consistent_snapshot()
+        return snap.latest_index(), snap.fingerprint()
+
     # -- leadership --------------------------------------------------------
 
     def _leadership_changed(self, leader: bool) -> None:
@@ -355,6 +711,8 @@ class Server:
         self.plan_applier.start()
         self._restore_evals()
         self._start_reapers()
+        # Reconcile the voters with the members found while following.
+        self._maybe_bootstrap()
 
     def _revoke_leadership(self) -> None:
         self._leader = False
@@ -493,7 +851,12 @@ class Server:
         # Admission at the front door, before anything is written.
         if self._leader:
             self.eval_broker.check_admission(job.priority)
-        _, index = self.raft.apply(MessageType.JOB_REGISTER, {"job": job})
+        try:
+            _, index = self.raft.apply(MessageType.JOB_REGISTER,
+                                       {"job": job})
+        except NotLeaderError as e:
+            reply = self._forward("Job.Register", {"Job": job}, e)
+            return reply["Index"], reply["EvalID"]
         ev = s.Evaluation(
             id=s.generate_uuid(), priority=job.priority, type=job.type,
             namespace=job.namespace,
@@ -525,7 +888,12 @@ class Server:
         if tr is not None:
             tr.mark(ev.id, job_id=job.id, submit="job_evaluate",
                     priority=job.priority, namespace=job.namespace)
-        _, index = self.raft.apply(MessageType.EVAL_UPDATE, {"evals": [ev]})
+        try:
+            _, index = self.raft.apply(MessageType.EVAL_UPDATE,
+                                       {"evals": [ev]})
+        except NotLeaderError as e:
+            reply = self._forward("Job.Evaluate", {"JobID": job_id}, e)
+            return reply["Index"], reply["EvalID"]
         return index, ev.id
 
     def job_deregister(self, job_id: str,
@@ -535,8 +903,13 @@ class Server:
         job = self.state.job_by_id(None, job_id)
         if job is None:
             raise KeyError(f"job not found: {job_id}")
-        _, index = self.raft.apply(MessageType.JOB_DEREGISTER,
-                                   {"job_id": job_id, "purge": purge})
+        try:
+            _, index = self.raft.apply(MessageType.JOB_DEREGISTER,
+                                       {"job_id": job_id, "purge": purge})
+        except NotLeaderError as e:
+            reply = self._forward("Job.Deregister",
+                                  {"JobID": job_id, "Purge": purge}, e)
+            return reply["Index"], reply["EvalID"]
         ev = s.Evaluation(
             id=s.generate_uuid(), priority=job.priority, type=job.type,
             namespace=job.namespace,
@@ -594,8 +967,12 @@ class Server:
         existed = self.state.node_by_id(None, node.id)
         if not node.status:
             node.status = s.NODE_STATUS_INIT
-        _, index = self.raft.apply(MessageType.NODE_REGISTER,
-                                   {"node": node})
+        try:
+            _, index = self.raft.apply(MessageType.NODE_REGISTER,
+                                       {"node": node})
+        except NotLeaderError as e:
+            reply = self._forward("Node.Register", {"Node": node}, e)
+            return reply["Index"], reply["HeartbeatTTL"]
         ttl = self.heartbeat.reset_heartbeat_timer(node.id)
         # Transitions create node evals (node_endpoint.go:165).
         if existed is not None and existed.status != node.status:
@@ -606,8 +983,12 @@ class Server:
         """(node_endpoint.go Deregister): the node out of the store
         through the log, its heartbeat timer cleared, and evals for the
         jobs with allocs on it."""
-        _, index = self.raft.apply(MessageType.NODE_DEREGISTER,
-                                   {"node_id": node_id})
+        try:
+            _, index = self.raft.apply(MessageType.NODE_DEREGISTER,
+                                       {"node_id": node_id})
+        except NotLeaderError as e:
+            return self._forward("Node.Deregister", {"NodeID": node_id},
+                                 e)["Index"]
         self.heartbeat.clear_heartbeat_timer(node_id)
         self._create_node_evals(node_id, index)
         return index
@@ -619,6 +1000,12 @@ class Server:
         node = self.state.node_by_id(None, node_id)
         if node is None:
             raise KeyError(f"node not found: {node_id}")
+        if self.pool is not None and not self._leader:
+            # A follower forwards even an unchanged status: the heartbeat
+            # timer lives on the leader (node_endpoint.go:277).
+            reply = self._forward("Node.UpdateStatus",
+                                  {"NodeID": node_id, "Status": status})
+            return reply["Index"], reply["HeartbeatTTL"]
         index = self.raft.applied_index_relaxed()
         if node.status != status:
             _, index = self.raft.apply(
@@ -647,8 +1034,13 @@ class Server:
         node = self.state.node_by_id(None, node_id)
         if node is None:
             raise KeyError(f"node not found: {node_id}")
-        _, index = self.raft.apply(MessageType.NODE_UPDATE_DRAIN,
-                                   {"node_id": node_id, "drain": drain})
+        try:
+            _, index = self.raft.apply(MessageType.NODE_UPDATE_DRAIN,
+                                       {"node_id": node_id, "drain": drain})
+        except NotLeaderError as e:
+            return self._forward("Node.UpdateDrain",
+                                 {"NodeID": node_id, "Drain": drain},
+                                 e)["Index"]
         if drain:
             self._create_node_evals(node_id, index)
         return index
@@ -683,6 +1075,166 @@ class Server:
             self.raft.apply(MessageType.EVAL_UPDATE, {"evals": evals})
         return [e.id for e in evals]
 
+    # -- forwarding, status and the operator ------------------------------
+
+    def _forward(self, wire_method: str, body: Dict,
+                 err: Optional[NotLeaderError] = None):
+        """A write that hit ``NotLeaderError``, re-issued as an RPC to the
+        leader (nomad/rpc.go:178 forward).  Unforwardable (no RPC, no
+        known leader, the leader is us, or the request already took its
+        one hop): ``err`` is raised again, or a ``NotLeaderError`` naming
+        the best-known leader."""
+        leader = self.leader_address()
+        if (self.pool is None or not leader
+                or leader == self.config.rpc_advertise
+                or getattr(self._fwd_ctx, "active", False)):
+            raise err if err is not None else NotLeaderError(leader)
+        body = dict(body)
+        body["__forwarded__"] = True
+        self.metrics.incr_counter("rpc.forward")
+        return self.pool.call(leader, wire_method, body)
+
+    def leader_address(self) -> str:
+        """The best-known leader's RPC address (Status.Leader)."""
+        if isinstance(self.raft, MultiRaft):
+            return self.raft.leader_addr or ""
+        return self.config.rpc_advertise if self.is_leader() else ""
+
+    def peer_addresses(self) -> List[str]:
+        if isinstance(self.raft, MultiRaft):
+            return list(self.raft.peers)
+        return [self.config.rpc_advertise]
+
+    def operator_raft_remove_peer(self, address: str) -> None:
+        """Remove a (possibly dead) server from the voter set
+        (operator_endpoint.go RaftRemovePeerByAddress): the leader
+        replicates a configuration without it; a follower forwards."""
+        if not address:
+            raise ValueError("missing peer address")
+        if self._leader:
+            try:
+                self._remove_peer_as_leader(address)
+                return
+            except NotLeaderError:
+                pass  # stepped down mid-flight: forward
+        try:
+            self._forward("Operator.RaftRemovePeerByAddress",
+                          {"Address": address})
+        except Exception as e:
+            # The wire sends errors as '<TypeName>: <message>': the
+            # leader's typed errors are raised again by type.
+            msg = str(e)
+            if msg.startswith("KeyError"):
+                raise KeyError(msg.split(": ", 1)[-1].strip("'")) from e
+            if msg.startswith("ValueError"):
+                raise ValueError(msg.split(": ", 1)[-1]) from e
+            raise
+
+    def _remove_peer_as_leader(self, address: str) -> None:
+        if address == self.config.rpc_advertise:
+            raise ValueError(
+                "refusing to remove the current leader; remove it from "
+                "another server after leadership moves")
+        if not isinstance(self.raft, MultiRaft):
+            raise KeyError(f"peer not found: {address}")
+        peers = [p for p in self.raft.peers if p != address]
+        if len(peers) == len(self.raft.peers):
+            raise KeyError(f"peer not found: {address}")
+        self.raft.propose_config(peers)
+
+    def raft_configuration(self) -> Dict:
+        leader = self.leader_address()
+        servers = []
+        for m in self.members() or [self._self_member()]:
+            servers.append({
+                "ID": m["Name"], "Node": m["Name"], "Address": m["Addr"],
+                "Leader": m["Addr"] == leader if leader else (
+                    m["Name"] == self.config.node_name and self.is_leader()),
+                "Voter": not m.get("NonVoter", False)})
+        return {"Servers": servers, "Index": self.raft.applied_index()}
+
+    # -- the worker surface over the wire (eval_endpoint.go) --------------
+
+    def _require_leader(self) -> None:
+        """The broker and the plan queue live on the leader: a follower
+        refuses with the leader's address (these calls do not forward)."""
+        if not self._leader:
+            raise NotLeaderError(self.leader_address())
+
+    def eval_dequeue(self, schedulers: List[str], timeout: float = 0.0
+                     ) -> Tuple[Optional[s.Evaluation], str]:
+        self._require_leader()
+        return self.eval_broker.dequeue(schedulers, timeout)
+
+    def eval_dequeue_batch(self, schedulers: List[str], max_batch: int,
+                           timeout: float = 0.0) -> Dict:
+        """A remote worker's dequeue (Eval.DequeueBatch): up to
+        ``max_batch`` (at most 32) ready evals, each with its delivery
+        count and its job's plan fence (the index of its newest committed
+        plan, which a follower's replica must reach before it schedules),
+        and the leader's applied index."""
+        self._require_leader()
+        batch = self.eval_broker.dequeue_batch(
+            schedulers, max(1, min(int(max_batch), 32)), timeout)
+        items = [{"eval": ev, "token": token,
+                  "attempts": self.eval_broker.delivery_attempts(ev.id),
+                  "fence": self.plan_queue.applied_index_for(ev.job_id)}
+                 for ev, token in batch]
+        return {"items": items,
+                "applied_index": self.raft.applied_index_relaxed()}
+
+    def eval_update(self, evals: List[s.Evaluation]) -> int:
+        """An EVAL_UPDATE for a remote worker (Eval.Update)."""
+        _, index = self.raft.apply(MessageType.EVAL_UPDATE,
+                                   {"evals": evals})
+        return index
+
+    def eval_reblock(self, ev: s.Evaluation, token: str) -> int:
+        """The update and the reblock for a remote worker (Eval.Reblock):
+        the blocked-eval tracker is the leader's."""
+        self._require_leader()
+        _, index = self.raft.apply(MessageType.EVAL_UPDATE, {"evals": [ev]})
+        self.blocked_evals.reblock(ev, token)
+        return index
+
+    def eval_pause_nack(self, eval_id: str, token: str) -> None:
+        self._require_leader()
+        self.eval_broker.pause_nack_timeout(eval_id, token)
+
+    def eval_resume_nack(self, eval_id: str, token: str) -> None:
+        self._require_leader()
+        self.eval_broker.resume_nack_timeout(eval_id, token)
+
+    def eval_ack(self, eval_id: str, token: str) -> None:
+        if not self._leader:
+            self._forward("Eval.Ack", {"EvalID": eval_id, "Token": token})
+            return
+        self.eval_broker.ack(eval_id, token)
+
+    def eval_nack(self, eval_id: str, token: str) -> None:
+        if not self._leader:
+            self._forward("Eval.Nack", {"EvalID": eval_id, "Token": token})
+            return
+        self.eval_broker.nack(eval_id, token)
+
+    def eval_get(self, eval_id: str) -> Optional[s.Evaluation]:
+        return self.state.eval_by_id(None, eval_id)
+
+    def plan_submit(self, plan: s.Plan):
+        """(Plan.Submit → the plan queue, plan_endpoint.go).  A plan whose
+        eval token is not the broker's outstanding delivery's is a stale
+        worker's (the eval was redelivered): refused, since a same-job
+        double placement is the one staleness the applier's re-check
+        cannot catch.  A plan without a token passes."""
+        self._require_leader()
+        if plan.eval_id and plan.eval_token:
+            token, outstanding = self.eval_broker.outstanding(plan.eval_id)
+            if outstanding and token != plan.eval_token:
+                raise RuntimeError(
+                    f"plan token fence: eval {plan.eval_id} was "
+                    "redelivered; stale delivery's plan rejected")
+        return self.plan_queue.enqueue(plan)
+
     # -- reads -------------------------------------------------------------
 
     def stats(self) -> dict:
@@ -696,4 +1248,15 @@ class Server:
         }
         if self._events_enabled:
             out["events"] = self.event_broker.stats()
+        # Follower-read scheduling (server.py:2182-2193): what this server
+        # forwards to the leader, and how far its replica lags the commit
+        # horizon it knows.
+        fs: Dict = {"Enabled": bool(self.follower_workers),
+                    "IsLeader": self._leader}
+        if self.leader_channel is not None:
+            fs.update(self.leader_channel.stats())
+        if isinstance(self.raft, MultiRaft):
+            fs["SnapshotLag"] = max(0, self.raft.commit_index
+                                    - self.raft.applied_index_relaxed())
+        out["FollowerSched"] = fs
         return out

@@ -1,10 +1,13 @@
 """Scheduling workers (a copy of ``nomad_tpu/server/worker.py``; reference
 nomad/worker.go:55-538).
 
-Worker        — per-eval loop: dequeue → wait for the log → snapshot →
-                scheduler.process → ack/nack; implements the scheduler's
-                Planner interface by submitting to the plan queue and
-                writing evals through the log.
+Worker        — per-eval loop (worker.py:209-262): a greedy dequeue of
+                up to ``GREEDY_BATCH`` ready evals with their nack
+                deadlines paused, then for each: wait for the log →
+                snapshot → scheduler.process → ack/nack; implements the
+                scheduler's Planner interface by submitting to the plan
+                queue and writing evals through the log.  The follower
+                workers (``server/follower_sched.py``) run this loop.
 BatchWorker   — drains the broker into batches of up to ``max_batch``
                 service and batch evals and runs one
                 ``TorchBatchScheduler`` per batch over a fresh snapshot
@@ -21,8 +24,6 @@ batches on one thread), ``worker.wait_for_index``, one ``worker.attempt``
 marker a delivery, and ``worker.submit_plan`` around each plan's queue
 wait; the per-eval path has its ``worker.attempt`` and
 ``worker.invoke_scheduler`` spans.
-Left out: the per-eval worker's own loop (the reference's oracle-only
-``Worker.run``; the port's server runs batch workers).
 """
 from __future__ import annotations
 
@@ -124,8 +125,9 @@ class WorkerPlanner:
 
 class Worker:
     """One scheduling worker (count = num_schedulers, config.go:250): the
-    per-eval path (``process_eval``) and the planner plumbing the batch
-    worker builds on."""
+    per-eval loop over ``schedulers`` (the CPU schedulers of each eval's
+    type; core evals are not dequeued until the core scheduler is
+    ported) and the planner plumbing the batch worker builds on."""
 
     def __init__(
         self,
@@ -137,8 +139,11 @@ class Worker:
         metrics=None,
         stale_snapshot: bool = True,
         scheduler_kwargs: Optional[dict] = None,
+        schedulers: Optional[List[str]] = None,
     ):
         self.broker = broker
+        self.schedulers = list(schedulers or [
+            s.JOB_TYPE_SERVICE, s.JOB_TYPE_BATCH, s.JOB_TYPE_SYSTEM])
         self.plan_queue = plan_queue
         self.raft = raft
         self.metrics = metrics if metrics is not None else NULL_TELEMETRY
@@ -198,8 +203,53 @@ class Worker:
                 self._pause_cond.wait(0.5)
             self._parked.clear()
 
+    # How many ready evals one dequeue takes (worker.py:207).  Each is
+    # still scheduled and acked on its own, but the first one's fresh
+    # snapshot covers its batch-mates' trigger indexes (all written before
+    # the dequeue), so under a backlog the stale-snapshot cache serves
+    # them all.
+    GREEDY_BATCH = 8
+
     def run(self) -> None:
-        raise NotImplementedError("the port's server runs BatchWorker")
+        while not self._stop.is_set():
+            self._check_paused()
+            for ev, token in self._dequeue_batch():
+                if self._stop.is_set():
+                    # Shutting down mid-batch: the undone evals go back
+                    # for redelivery.
+                    try:
+                        self.broker.nack(ev.id, token)
+                    except EvalBrokerError:
+                        pass
+                    continue
+                # The nack deadline guards processing, not the wait in
+                # this worker's hand: resume it as this eval's turn
+                # starts.  A failed resume means the delivery already
+                # burned (the broker flushed on a leadership loss): skip.
+                try:
+                    self.broker.resume_nack_timeout(ev.id, token)
+                except EvalBrokerError:
+                    continue
+                self.process_eval(ev, token)
+
+    def _dequeue_batch(self) -> List[Tuple[s.Evaluation, str]]:
+        try:
+            batch = self.broker.dequeue_batch(
+                self.schedulers, self.GREEDY_BATCH, DEQUEUE_TIMEOUT)
+        except EvalBrokerError:
+            time.sleep(self._idle_backoff.next_delay())
+            return []
+        self._idle_backoff.reset()
+        # Pause every batch-mate's nack deadline: it must cover one eval's
+        # processing, not its wait behind its predecessors (an expiry
+        # mid-batch would redeliver an eval this worker will still
+        # schedule: a same-job double placement).
+        for ev, token in batch:
+            try:
+                self.broker.pause_nack_timeout(ev.id, token)
+            except EvalBrokerError:
+                pass
+        return batch
 
     def process_eval(self, ev: s.Evaluation, token: str) -> None:
         """Dequeue→schedule→ack cycle (worker.go:106-227).  The unsuffixed

@@ -391,6 +391,31 @@ class StateStore:
         with self._lock:
             return max(self._indexes.values(), default=0)
 
+    def fingerprint(self) -> str:
+        """A digest of the replicated core state (state_store.py:579):
+        nodes, jobs, allocs and evals, by the fields the log stamps.  Two
+        stores that applied the same committed prefix return the same hex
+        string, whoever led.  Call it on a snapshot taken at an entry
+        boundary (``Server.consistent_snapshot``)."""
+        import hashlib
+
+        h = hashlib.sha256()
+
+        def w(*parts) -> None:
+            h.update("\x1f".join(str(p) for p in parts).encode())
+            h.update(b"\x1e")
+
+        for n in sorted(self.nodes(None), key=lambda x: x.id):
+            w("node", n.id, n.status, int(n.drain), n.modify_index)
+        for j in sorted(self.jobs(None), key=lambda x: x.id):
+            w("job", j.id, int(j.stop), j.version, j.modify_index)
+        for a in sorted(self.allocs(None), key=lambda x: x.id):
+            w("alloc", a.id, a.name, a.job_id, a.node_id, a.task_group,
+              a.desired_status, a.client_status, a.modify_index)
+        for e in sorted(self.evals(None), key=lambda x: x.id):
+            w("eval", e.id, e.status, e.job_id, e.modify_index)
+        return h.hexdigest()
+
     # -- lazy slab resolution ---------------------------------------------
 
     def _materialize_pending(self) -> None:
@@ -565,6 +590,10 @@ class StateStore:
     def job_by_id(self, ws, job_id: str) -> Optional[s.Job]:
         with self._lock:
             return self.jobs_table.get(job_id)
+
+    def jobs(self, ws=None) -> List[s.Job]:
+        with self._lock:
+            return list(self.jobs_table.values())
 
     def job_summary_by_id(self, ws, job_id: str) -> Optional[s.JobSummary]:
         with self._lock:

@@ -782,3 +782,25 @@ def test_trace_path_on_the_card_equals_the_cpu():
     assert main["scored_rows"] == main["committing_spec_steps"] > 0
     sync = got["sync"]
     assert sync["armed"]["syncs"] == sync["disarmed"]["syncs"]
+
+
+@pytest.mark.gpu
+def test_cluster_path_on_the_card_equals_the_cpu():
+    """``chip_smoke.py`` phase ``cluster`` at a small size: a 3-server
+    cluster on the card through the failover script equals the same
+    cluster on the CPU after every step, its survivors' fingerprints
+    agree, ``scored_rows`` launches = committing steps on the old leader
+    and on the new one, and follower-read scheduling keeps its
+    invariants with the leader killed mid-drain."""
+    need_card()
+    import chip_smoke
+
+    got = chip_smoke.phase_cluster(
+        "cuda", sizes={"n_nodes": 300, "n_jobs": 10, "count": 100,
+                       "wave_jobs": 4, "wave_count": 20, "follow_jobs": 3},
+        leg2_sizes={"n_nodes": 200, "n_jobs": 40, "count": 4})
+    assert got["a_equals_c"] and got["fingerprints_equal"]
+    for part in ("A_before_failover", "A_after_failover", "leg2"):
+        c = got["launches"][part]
+        assert c["scored_rows"] == c["committing_spec_steps"] > 0, part
+    assert got["new_leader_applied"] >= got["acked_index"]

@@ -1,7 +1,9 @@
 """The port stands alone: it imports neither jax nor nomad_tpu, nor
-msgpack (the card's machine does not install it: the port's log and
-snapshot use its own struct codec), looks none of them up by name, runs
-with jax unimportable, and never falls back from the card to the CPU."""
+msgpack (the card's machine does not install it: the port's log,
+snapshot, RPC frames and replicated log use its own struct codec), looks
+none of them up by name, runs with jax unimportable (and a replicated
+cluster over the wire with all three unimportable), and never falls back
+from the card to the CPU."""
 import ast
 import pathlib
 import re
@@ -135,6 +137,57 @@ print("ok")
 """
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def test_cluster_runs_with_msgpack_unimportable():
+    """Three port servers over loopback: RPC, membership, MultiRaft and a
+    write forwarded from a follower, with jax, nomad_tpu and msgpack
+    unimportable."""
+    code = """
+import sys
+sys.modules["jax"] = None
+sys.modules["nomad_tpu"] = None
+sys.modules["msgpack"] = None
+from nomad_tpu_torch import mock
+from nomad_tpu_torch.server import Server, ServerConfig
+from nomad_tpu_torch.utils.backoff import wait_until
+servers, first = [], None
+for i in range(3):
+    srv = Server(ServerConfig(
+        device="cpu", node_name=f"iso-{i}", enable_rpc=True,
+        bootstrap_expect=3, start_join=[first] if first else [],
+        num_schedulers=1, follower_schedulers=1, min_heartbeat_ttl=3600.0,
+        raft_heartbeat=0.2, raft_election_min=5.0, raft_election_max=8.0))
+    first = first or srv.config.rpc_advertise
+    servers.append(srv)
+for srv in servers:
+    srv.start()
+try:
+    assert wait_until(lambda: any(x.is_leader() for x in servers), 40.0)
+    leader = next(x for x in servers if x.is_leader())
+    follower = next(x for x in servers if x is not leader)
+    node = mock.node()
+    node.resources.networks = []
+    node.reserved.networks = []
+    follower.node_register(node)
+    job = mock.job()
+    for t in job.task_groups[0].tasks:
+        t.resources.networks = []
+    _, eval_id = follower.job_register(job)
+    assert wait_until(lambda: (e := leader.state.eval_by_id(None, eval_id))
+                      is not None and e.status == "complete", 60.0)
+    assert wait_until(lambda: len({x.fsm_fingerprint()
+                                   for x in servers}) == 1, 30.0)
+finally:
+    for srv in servers:
+        srv.shutdown()
+assert sys.modules["msgpack"] is None
+print("ok")
+"""
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=180)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
 

@@ -16,6 +16,11 @@ the reference's (``nomad_tpu/utils/tracing.py``).
   checks: a complete lifecycle for every register eval, one
   ``batch.fetch`` and a ``batch.device`` as long as the batch's device
   time, starts in lifecycle order.
+- A plan forwarded over the wire: on a 3-server cluster of each package
+  whose servers schedule only on follower workers, an eval's plan reaches
+  the leader through ``Plan.Submit``; the eval's span names and parents
+  and the ``rpc.request`` spans of the write methods equal the
+  reference's.
 - Disarmed, nothing: no ``Span`` and no ``Event`` is made through a
   config (b)-shaped server wave at a small size with both planes off.
 - The port's tracing drill (``python -m nomad_tpu_torch.ops
@@ -30,6 +35,7 @@ import jax  # noqa: F401  (the reference computes on the CPU backend)
 import pytest
 
 from nomad_tpu import fault as jfault
+from nomad_tpu import mock as jmock
 from nomad_tpu.ops import resident as jresident
 from nomad_tpu.utils import tracing as jtracing
 from nomad_tpu_torch import convert
@@ -47,7 +53,6 @@ from test_torch_server import (World, cluster, conv, make_job, running,
 # Span names the reference emits on this path and the port does not yet,
 # with the ROADMAP queue 1 item each waits for.
 REF_ONLY = {
-    "rpc.request": "item 20 (RPC and endpoints)",
     "broker.admission_reject": "item 19 (the tenancy quotas)",
     "broker.quota_reject": "item 19 (the tenancy quotas)",
 }
@@ -376,6 +381,96 @@ def test_pipelined_drain_leaks_no_span(monkeypatch):
         (pb,) = [sp for sp in srv.trace_for_eval(i)
                  if sp["Name"] == "worker.process_batch"]
         assert pb["Attrs"]["pipelined"] is True
+
+
+# -- a plan forwarded from a follower ----------------------------------------
+
+# The write methods a follower worker sends its leader for one eval, each
+# once (the dequeue is polled, so its count varies).
+WIRE_WRITES = ("Plan.Submit", "Eval.Update", "Eval.Ack")
+
+
+def forwarded_plan_run(kind, mp):
+    """A 3-server cluster of ``kind`` with follower workers only, traced:
+    one job placed through a follower.  The eval's spans, and every
+    ``rpc.request`` span of ``WIRE_WRITES`` with its subtree."""
+    from nomad_tpu.server import Server as JServer
+    from nomad_tpu.server import ServerConfig as JServerConfig
+    from test_torch_raft import SLOW_RAFT, wait_for_leader
+
+    tr = PKGS[kind][0]
+    tr.enable()
+    servers, first = [], None
+    for key, env in (("raft_heartbeat", "NOMAD_TPU_RAFT_HEARTBEAT_S"),
+                     ("raft_election_min", "NOMAD_TPU_RAFT_ELECTION_MIN_S"),
+                     ("raft_election_max",
+                      "NOMAD_TPU_RAFT_ELECTION_MAX_S")):
+        mp.setenv(env, str(SLOW_RAFT[key]))
+    try:
+        for i in range(3):
+            join = [first] if first else []
+            if kind == "ref":
+                srv = JServer(JServerConfig(
+                    node_name=f"t-{i}", enable_rpc=True, bootstrap_expect=3,
+                    start_join=join, num_schedulers=0,
+                    follower_schedulers=1, follower_scheduling=True,
+                    min_heartbeat_ttl=3600.0))
+            else:
+                srv = Server(ServerConfig(
+                    device="cpu", node_name=f"t-{i}", enable_rpc=True,
+                    bootstrap_expect=3, start_join=join, num_schedulers=0,
+                    follower_schedulers=1, min_heartbeat_ttl=3600.0,
+                    **SLOW_RAFT))
+            first = first or srv.config.rpc_advertise
+            servers.append(srv)
+        for srv in servers:
+            srv.start()
+        leader = wait_for_leader(servers)
+        assert wait_until(lambda: all(len(x.raft.peers) == 3
+                                      for x in servers), 30.0)
+        node = strip_node(jmock.node(), "t-node")
+        job = make_job("t-job", 2, 100, 128)
+        if kind == "port":
+            node = conv(node, convert.node_from_dict)
+            job = conv(job, convert.job_from_dict)
+        leader.node_register(node)
+        _, eval_id = leader.job_register(job)
+        assert wait_until(lambda: any(
+            sp["Name"] == "broker.ack" for sp in tr.trace_for_eval(eval_id)),
+            60.0)
+        recent = tr.recent(tr.DEFAULT_CAPACITY)
+        spans = tr.trace_for_eval(eval_id)
+    finally:
+        for srv in servers:
+            srv.shutdown()
+        tr.disable()
+    roots = {sp["SpanID"] for sp in recent if sp["Name"] == "rpc.request"
+             and sp["Attrs"].get("method") in WIRE_WRITES}
+    subtree = [sp for sp in recent
+               if sp["SpanID"] in roots or sp["ParentID"] in roots]
+    # Ids are drawn at random in both packages: the attrs compare without.
+    return {"eval": structure(spans), "wire": sorted(
+        (d["Name"], d["Parent"], repr(sorted(
+            (k, v) for k, v in d["Attrs"].items() if k != "eval_id")))
+        for d in shape(subtree))}
+
+
+@pytest.fixture(scope="module")
+def forwarded_runs():
+    runs = {}
+    for kind in ("ref", "port"):
+        with pytest.MonkeyPatch.context() as mp:
+            runs[kind] = forwarded_plan_run(kind, mp)
+    return runs
+
+
+def test_forwarded_plan_spans_match_the_reference(forwarded_runs):
+    ref, port = forwarded_runs["ref"], forwarded_runs["port"]
+    assert port["eval"] == ref["eval"]
+    assert any(name == "worker.submit_plan" for name, _ in port["eval"])
+    assert port["wire"] == ref["wire"]
+    assert [w[:2] for w in port["wire"]
+            if "Plan.Submit" in w[2]] == [("rpc.request", "-")]
 
 
 # -- disarmed, nothing -----------------------------------------------------
