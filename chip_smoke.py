@@ -53,9 +53,11 @@ Phases, each printed as one JSON line:
 12. mesh    -- config_mesh (bench.py:79-89): 1,000,000 nodes, 100 jobs x
                100,000 asks, through ``schedule_batch`` on a 4-shard mesh
                and on the single-card path: identical placements;
-13. columnar -- the columnar state store at config_mesh width: phase
-               12's 1,000,000 nodes into a port ``StateStore`` (its
-               columnar mirror cold-built), config (b)'s 100 x 1,000
+13. columnar -- the columnar state store at half of config_mesh's
+               width: the first 500,000 of phase 12's nodes into a port
+               ``StateStore`` (its columnar mirror cold-built; cut from
+               1,000,000 to keep the whole run inside its time limit),
+               config (b)'s 100 x 1,000
                asks, then a node down (a cold static encode) and the
                10 x 200 follow-up, twice (``columnar_guard_every=1``,
                then the default 16), through ``TorchBatchScheduler`` and
@@ -271,7 +273,40 @@ Phases, each printed as one JSON line:
                followers and none by the leader's own channel, launches =
                committing steps on each leader; the lag handbacks and
                the ``follower.snapshot_lag`` samples;
-23. times   -- each kernel's device time (profiler trace; CUDA events
+23. lifecycle -- the job lifecycle: periodic and parameterized batch
+               jobs in tenant namespaces through a port ``Server`` on the
+               in-memory log (every columnar guard at every read, the
+               resident mirror's guard every batch, both observability
+               planes armed), on the card and on the CPU, each world in a
+               process of its own under one string hash seed: phase 17's
+               10,000 ``mock.node()`` nodes; namespaces ``prod`` (weight
+               2) and ``batch`` (weight 1, 25,000 live allocs), DRF; wave
+               1 with the workers paused: ``prod``'s 30 service jobs x
+               1000, ten periodic parents x 1000 (a test spec ten days
+               out) each launched by ``periodic_force``, a parameterized
+               parent x 1000 dispatched ten times, then dispatched until
+               the quota refuses (five admitted, the sixth refused with
+               ``BrokerLimitError`` naming ``batch``, nothing of it
+               committed); every child's allocs completed through
+               ``node_update_allocs``, 1000 a call; ``system_gc``: one
+               force-gc core eval through the leader's worker purges the
+               children's evals, allocs and jobs (one ``EvalDeleted`` an
+               eval), ``prod`` and the parents stay; wave 2: every
+               periodic parent launched again and five dispatches; then a
+               parent on a test spec 3 s out, launched once by the
+               dispatcher's timer (its launch row written, its child
+               placed).  Card = CPU on allocs, eval and job statuses, the
+               job summaries with their children counts, the launch rows,
+               the usage fold, the refusals, the dequeue counts per tenant
+               and what GC deleted (children keyed by parent and
+               ordinal); 0 guard mismatches before and after the GC; no
+               node over capacity; the breaker closed, no oracle route, no
+               nack, no failed eval; one ``scored_rows`` launch per
+               committing step in each wave and none of
+               ``eviction_sets``; each wave's evals per second, the GC's
+               seconds, the tenants' dequeues and the force and dispatch
+               latencies;
+24. times   -- each kernel's device time (profiler trace; CUDA events
                where the trace has none) over copies of its inputs that
                overflow the L2 (``rotating``: twice the L2 of input bytes
                a cycle), its plain version's, the bound for the same work
@@ -280,7 +315,7 @@ Phases, each printed as one JSON line:
                (the mesh's call at config_mesh); the launch floor (a
                one-element fill); the kernels' SASS instruction counts and the
                issue-rate time they give;
-24. profile -- config (b)'s first batch again, warm, on the single card
+25. profile -- config (b)'s first batch again, warm, on the single card
                and on a 4-shard mesh: untraced, and under a device-only
                trace for the device busy time and idle share.
 
@@ -309,6 +344,7 @@ import json
 import math
 import os
 import random
+import re
 import statistics
 import subprocess
 import sys
@@ -1234,6 +1270,9 @@ def phase_mesh(dev):
 # -- phase 13: the columnar state store at config_mesh width ------------------
 
 COLUMNAR_SEED = 20261021
+# Phase columnar's fleet: the first half of phase mesh's 1,000,000 nodes
+# (the depth the whole run could give up to stay inside its limit).
+COLUMNAR_NODES = 500_000
 
 
 def columnar_over_capacity(store) -> int:
@@ -1488,8 +1527,8 @@ def columnar_restore(dev, h, jobs, smi) -> dict:
 
 def phase_columnar(dev, nodes=None, n_jobs=100, count=1000, follow_jobs=10,
                    follow_count=200):
-    """The columnar state store at config_mesh's 1,000,000 nodes (phase
-    mesh's fleet): config (b)'s wave of 100 x 1,000 asks (500 MHz / 256
+    """The columnar state store over the first ``COLUMNAR_NODES`` of
+    phase mesh's fleet: config (b)'s wave of 100 x 1,000 asks (500 MHz / 256
     MB), then, each after one node goes down (a cold static encode), the
     follow-up wave of 10 x 200 twice: with ``columnar_guard_every=1``
     and with the default.  Through ``TorchBatchScheduler`` and the
@@ -1502,7 +1541,7 @@ def phase_columnar(dev, nodes=None, n_jobs=100, count=1000, follow_jobs=10,
 
     smi = smi_name_power()
     if nodes is None:
-        nodes = mesh_fleet()["nodes"]
+        nodes = mesh_fleet()["nodes"][:COLUMNAR_NODES]
     wave0 = [strip_job(mock.job(), count) for _ in range(n_jobs)]
     follow = [[strip_job(mock.job(), follow_count, cpu=100, mem=128)
                for _ in range(follow_jobs)] for _ in range(2)]
@@ -4999,7 +5038,7 @@ def resident_counts() -> dict:
     from nomad_tpu_torch.ops import resident
 
     return {"full_reencodes": resident.FULL_REENCODES,
-            "hits": resident.HITS,
+            "hits": resident.HITS, "guard_runs": resident.GUARD_RUNS,
             "guard_mismatches": resident.GUARD_MISMATCHES,
             "dev_guard_mismatches": resident.DEV_GUARD_MISMATCHES}
 
@@ -5446,6 +5485,516 @@ def phase_cluster(dev, sizes=None, leg2_sizes=None):
         "seconds": time.perf_counter() - t_phase}
 
 
+# -- phase 23: lifecycle -----------------------------------------------------
+
+LIFECYCLE_SEED = 20261026
+LIFECYCLE_CHILD_TIMEOUT = 400.0
+# Every world of the phase runs in a process of its own under this string
+# hash seed (node-update evals follow set order; queue 3 item 13).
+LIFECYCLE_HASH_SEED = 20261026
+# The clock of the launches and dispatches (both worlds share it; the
+# periodic parents' test specs lie ten days past it).
+LIFECYCLE_NOW = 1_900_000_000.0
+LIFECYCLE_SIZES = {"n_nodes": 10_000, "n_prod": 30, "n_periodic": 10,
+                   "count": 1000, "n_dispatch": 10, "quota": 25_000,
+                   "wave2_dispatch": 5, "timer_count": 100}
+# Allocs marked complete per node_update_allocs call.
+LIFECYCLE_UPDATE_CHUNK = 1000
+LIFECYCLE_TIMER_DELAY = 3.0
+LIFECYCLE_TIMER_TIMEOUT = 30.0
+DISPATCH_ID = re.compile(r"(.+)/dispatch-(\d+)-[0-9a-f]{8}")
+
+
+def lifecycle_scenario(n_nodes, n_prod, n_periodic, count, n_dispatch,
+                       quota, wave2_dispatch, timer_count):
+    """The phase's fleet and jobs: ``mock.node()`` nodes, ``prod``'s
+    service jobs, ``batch``'s periodic parents on a test spec ten days
+    past the phase's clock, the parameterized parent (one required meta
+    key, payload optional) and the timer's parent."""
+    from nomad_tpu_torch import mock
+    from nomad_tpu_torch.structs import structs as ps
+
+    nodes = []
+    for i in range(n_nodes):
+        n = strip_node(mock.node())
+        n.id = f"node-{i:05d}"
+        nodes.append(n)
+
+    def job(job_id, ns, type_, n_asks):
+        j = strip_job(mock.job(), n_asks)
+        j.id = j.name = job_id
+        j.namespace = ns
+        j.type = type_
+        return j
+
+    prod = [job(f"prod-{k:02d}", "prod", ps.JOB_TYPE_SERVICE, count)
+            for k in range(n_prod)]
+    periodic = []
+    for k in range(n_periodic):
+        j = job(f"per-{k:02d}", "batch", ps.JOB_TYPE_BATCH, count)
+        j.periodic = ps.PeriodicConfig(
+            enabled=True, spec=str(LIFECYCLE_NOW + 10 * 86400),
+            spec_type=ps.PERIODIC_SPEC_TEST)
+        periodic.append(j)
+    par = job("par", "batch", ps.JOB_TYPE_BATCH, count)
+    par.parameterized_job = ps.ParameterizedJobConfig(
+        payload="optional", meta_required=["k"])
+    timer = job("timer", "batch", ps.JOB_TYPE_BATCH, timer_count)
+    return {"nodes": nodes, "prod": prod, "periodic": periodic, "par": par,
+            "timer": timer, "n_dispatch": n_dispatch, "quota": quota,
+            "wave2_dispatch": wave2_dispatch}
+
+
+class lifecycle_clock:
+    """While active, the launch clock (the periodic module's
+    ``time.time``) and the dispatch clock (``structs.now``) read ``t``."""
+
+    def __init__(self, t):
+        self.t = t
+
+    def time(self):
+        return self.t
+
+    def __enter__(self):
+        import types
+
+        from nomad_tpu_torch.server import periodic
+        from nomad_tpu_torch.structs import structs
+
+        self.saved = periodic.time, structs.now
+        periodic.time = types.SimpleNamespace(time=self.time)
+        structs.now = self.time
+        return self
+
+    def __exit__(self, *exc):
+        from nomad_tpu_torch.server import periodic
+        from nomad_tpu_torch.structs import structs
+
+        periodic.time, structs.now = self.saved
+
+
+def lifecycle_keys(srv):
+    """Dispatched children keyed by (parent, ordinal of creation): their
+    ids carry a uuid."""
+    keys, count = {}, {}
+    for j in sorted(srv.state.jobs(None), key=lambda j: j.create_index):
+        m = DISPATCH_ID.fullmatch(j.id)
+        if m:
+            n = count[m.group(1)] = count.get(m.group(1), -1) + 1
+            keys[j.id] = f"{m.group(1)}/dispatch-{m.group(2)}-#{n}"
+    return lambda job_id: keys.get(job_id, job_id)
+
+
+def lifecycle_content(srv) -> dict:
+    """What the server committed, children keyed by parent and ordinal:
+    allocs, eval statuses, job statuses with their summaries (queued
+    counts and children), the launch rows' times, the usage fold."""
+    key = lifecycle_keys(srv)
+    st = srv.state
+    out = server_content(srv)
+    out["allocs"] = sorted((key(a[0]),) + a[1:] for a in out["allocs"])
+    out["evals"] = sorted((key(e[0]),) + e[1:] for e in out["evals"])
+    jobs = {}
+    for j in st.jobs(None):
+        summ = st.job_summary_by_id(None, j.id)
+        jobs[key(j.id)] = [
+            j.status, j.parent_id,
+            {tg: [v.queued, v.starting, v.running, v.complete]
+             for tg, v in sorted(summ.summary.items())} if summ else None,
+            [summ.children.pending, summ.children.running,
+             summ.children.dead] if summ and summ.children else None]
+    out["jobs"] = jobs
+    out["launches"] = sorted([p.id, p.launch]
+                             for p in st.periodic_launches(None))
+    out["usage"] = {k: list(v) for k, v in
+                    sorted(st.namespace_usage().items())}
+    return json.loads(json.dumps(out))
+
+
+def lifecycle_wave(srv, label, fn) -> dict:
+    """``server_wave`` with the kernels' counts set to 0 just before
+    ``fn`` and read after the wave settled, and the tenancy feed run
+    before the release (the DRF order then follows the same usage in
+    every world)."""
+    steps0 = zero_launches(srv)
+
+    def body(s):
+        fn(s)
+        s._feed_tenancy(s.config.tenancy_metrics_top)
+
+    row = server_wave(srv, label, body)
+    row["launches"] = durable_launches(srv, steps0)
+    return row
+
+
+def lifecycle_world(dev, sizes) -> dict:
+    """One world of phase ``lifecycle`` (see the module docstring): the
+    port ``Server`` on ``dev`` on the in-memory log, every columnar guard
+    at every read, the resident mirror's guard every batch, both
+    observability planes armed."""
+    from nomad_tpu_torch.ops import resident
+    from nomad_tpu_torch.ops.breaker import KernelCircuitBreaker
+    from nomad_tpu_torch.server import Server, ServerConfig
+    from nomad_tpu_torch.server import eval_broker as broker_mod
+    from nomad_tpu_torch.server.eval_broker import BrokerLimitError
+    from nomad_tpu_torch.state import columnar as colmod
+    from nomad_tpu_torch.structs import structs as ps
+    from nomad_tpu_torch.utils.backoff import wait_until
+
+    sc = lifecycle_scenario(**sizes)
+    colmod.reset_counters()
+    resident.reset_counters()
+    # The broker draws among the ready service and batch queues at
+    # random: one seeded draw sequence in every world, so the batches
+    # hold their evals in the same order.
+    broker_mod.random = random.Random(LIFECYCLE_SEED)
+    brk = KernelCircuitBreaker()
+    srv = Server(ServerConfig(
+        device=dev, rng_seed=SERVER_SEED, batch_size=64,
+        min_heartbeat_ttl=SERVER_HEARTBEAT_TTL, breaker=brk,
+        columnar_guard_every=1, trace=True, events=True))
+    out = {"waves": [], "refused": [], "force_ms": [], "dispatch_ms": []}
+    try:
+        with seeded_ids(LIFECYCLE_SEED), \
+                lifecycle_clock(LIFECYCLE_NOW) as clock:
+            srv.start()
+            for w in srv.workers:
+                w.scheduler_kwargs["guard_every"] = 1
+            t0 = time.perf_counter()
+            for n in sc["nodes"]:
+                srv.node_register(n)
+            out["node_register_s"] = time.perf_counter() - t0
+            srv.namespace_upsert(ps.Namespace(name="prod",
+                                              dequeue_weight=2.0))
+            srv.namespace_upsert(ps.Namespace(
+                name="batch", dequeue_weight=1.0,
+                max_live_allocs=sc["quota"]))
+
+            def force(s, job_id):
+                t = time.perf_counter()
+                child = s.periodic_force(job_id)
+                out["force_ms"].append((time.perf_counter() - t) * 1e3)
+                return child
+
+            def dispatch(s, k):
+                t = time.perf_counter()
+                try:
+                    s.job_dispatch("par", b"", {"k": str(k)})
+                except BrokerLimitError as e:
+                    out["refused"].append([e.namespace, e.pending, e.limit])
+                    return False
+                out["dispatch_ms"].append((time.perf_counter() - t) * 1e3)
+                return True
+
+            def wave1(s):
+                for j in sc["prod"] + sc["periodic"] + [sc["par"]]:
+                    s.job_register(j)
+                clock.t = LIFECYCLE_NOW + 60
+                for j in sc["periodic"]:
+                    force(s, j.id)
+                for k in range(sc["n_dispatch"]):
+                    dispatch(s, k)
+                # The quota drill: dispatch until the namespace refuses.
+                k = sc["n_dispatch"]
+                jobs_before = len(s.state.jobs(None))
+                while dispatch(s, k):
+                    k += 1
+                out["drill_admitted"] = k - sc["n_dispatch"]
+                out["drill_jobs_committed"] = (len(s.state.jobs(None))
+                                               - jobs_before)
+
+            out["waves"].append(lifecycle_wave(srv, "wave1", wave1))
+            out["wave1"] = lifecycle_content(srv)
+            out["tenants"] = {ns: row["Dequeued"] for ns, row in
+                              srv.broker_stats()["Tenants"].items()}
+            out["guards_before_gc"] = {**columnar_counters(),
+                                       **resident_counts()}
+
+            # Completion: every batch child's allocs through the client
+            # sync, a thousand a call.
+            done = []
+            for a in srv.state.allocs(None):
+                if "/" in a.job_id:
+                    a = a.copy()
+                    a.client_status = ps.ALLOC_CLIENT_STATUS_COMPLETE
+                    done.append(a)
+            t0 = time.perf_counter()
+            for i in range(0, len(done), LIFECYCLE_UPDATE_CHUNK):
+                srv.node_update_allocs(done[i:i + LIFECYCLE_UPDATE_CHUNK])
+            out["completed_allocs"] = len(done)
+            out["update_allocs_s"] = time.perf_counter() - t0
+            out["completed"] = lifecycle_content(srv)
+
+            # GC: one force-gc core eval through the leader's worker.
+            sub = srv.event_stream_subscribe(topics={"Eval": set()})
+            before = {k: len(v) for k, v in (
+                ("evals", srv.state.evals(None)),
+                ("allocs", srv.state.allocs(None)),
+                ("jobs", srv.state.jobs(None)))}
+            t0 = time.perf_counter()
+            srv.system_gc()
+
+            def core_done():
+                return [e for e in srv.state.evals(None)
+                        if e.type == ps.JOB_TYPE_CORE
+                        and e.status == ps.EVAL_STATUS_COMPLETE]
+
+            if not wait_until(core_done, SERVER_SETTLE_TIMEOUT,
+                              max_interval=0.05):
+                raise AssertionError("the force-gc core eval did not "
+                                     "complete")
+            out["gc_s"] = time.perf_counter() - t0
+            server_settle(srv)
+            deleted = 0
+            while True:
+                ev = sub.next(0.5)
+                if ev is None:
+                    break
+                deleted += ev.type == "EvalDeleted"
+            after = {k: len(v) for k, v in (
+                ("evals", srv.state.evals(None)),
+                ("allocs", srv.state.allocs(None)),
+                ("jobs", srv.state.jobs(None)))}
+            # The core eval itself is the one eval added.
+            out["deleted"] = {"evals": before["evals"] + 1 - after["evals"],
+                              "allocs": before["allocs"] - after["allocs"],
+                              "jobs": before["jobs"] - after["jobs"]}
+            out["eval_deleted_events"] = deleted
+            out["gc"] = lifecycle_content(srv)
+            out["guards_after_gc"] = {**columnar_counters(),
+                                      **resident_counts()}
+
+            def wave2(s):
+                clock.t = LIFECYCLE_NOW + 120
+                for j in sc["periodic"]:
+                    force(s, j.id)
+                for k in range(sc["wave2_dispatch"]):
+                    dispatch(s, 100 + k)
+
+            out["waves"].append(lifecycle_wave(srv, "wave2", wave2))
+            out["wave2"] = lifecycle_content(srv)
+        out["health"] = durable_health(srv, brk)
+        out["guards"] = {**columnar_counters(), **resident_counts()}
+        app = srv.plan_applier.stats
+        out["applier"] = {k: app[k] for k in ("plans", "columnar",
+                                              "columnar_guards")}
+
+        # The timer: a parent on a test spec a few seconds out, on the
+        # real clock; the dispatcher's thread launches it once.
+        timer = sc["timer"]
+        at = time.time() + LIFECYCLE_TIMER_DELAY
+        timer.periodic = ps.PeriodicConfig(
+            enabled=True, spec=f"{at}", spec_type=ps.PERIODIC_SPEC_TEST)
+        steps0 = zero_launches(srv)
+        srv.job_register(timer)
+        if not wait_until(
+                lambda: srv.state.periodic_launch_by_id(None, "timer"),
+                LIFECYCLE_TIMER_TIMEOUT, max_interval=0.05):
+            raise AssertionError("the timer's launch was not recorded")
+        seen_s = time.time() - at
+        server_settle(srv)
+        children = [j for j in srv.state.jobs(None)
+                    if j.parent_id == "timer"]
+        launch = srv.state.periodic_launch_by_id(None, "timer")
+        placed = sum(len(srv.state.allocs_by_job(None, j.id))
+                     for j in children)
+        out["timer"] = {"children": len(children), "placed": placed,
+                        "launch_time_off_s": launch.launch - at,
+                        "row_seen_after_s": seen_s,
+                        "launches": durable_launches(srv, steps0)}
+    finally:
+        srv.shutdown()
+    return out
+
+
+def lifecycle_child(dev, out_path, sizes) -> None:
+    """One world of phase ``lifecycle`` in a process of its own; the
+    report is written to ``out_path``."""
+    out = lifecycle_world(dev, sizes)
+    with open(out_path, "w") as fh:
+        json.dump(out, fh)
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(0)
+
+
+def run_lifecycle_child(dev, root, sizes) -> dict:
+    """``lifecycle_child`` in a fresh process with the phase's fixed
+    string hash seed; its report."""
+    out_path = os.path.join(root, f"lifecycle-{dev}.json")
+    code = ("import sys; sys.path.insert(0, {0!r}); import chip_smoke as c; "
+            "c.lifecycle_child({1!r}, {2!r}, {3!r})"
+            ).format(REPO, dev, out_path, sizes)
+    env = dict(os.environ, PYTHONHASHSEED=str(LIFECYCLE_HASH_SEED))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True,
+                          timeout=LIFECYCLE_CHILD_TIMEOUT)
+    if proc.returncode != 0 or not os.path.exists(out_path):
+        raise AssertionError(f"lifecycle child on {dev}: rc "
+                             f"{proc.returncode}: {proc.stderr[-3000:]}")
+    with open(out_path) as fh:
+        out = json.load(fh)
+    os.unlink(out_path)
+    out["child_wall_s"] = time.perf_counter() - t0
+    return out
+
+
+LIFECYCLE_COMPARED = ("allocs", "evals", "blocked", "jobs", "launches",
+                      "usage")
+
+
+def check_lifecycle_world(w, label, sizes, on_card) -> list:
+    """The invariants of one world."""
+    errors = []
+    n_per, count = sizes["n_periodic"], sizes["count"]
+    held = (n_per + sizes["n_dispatch"]) * count
+    want_admitted = (sizes["quota"] - held) // count
+    if (w["drill_admitted"] != want_admitted
+            or w["refused"] != [["batch", held + (want_admitted + 1) * count,
+                                 sizes["quota"]]]
+            or w["drill_jobs_committed"] != want_admitted):
+        errors.append(f"{label}: quota drill admitted "
+                      f"{w['drill_admitted']} (want {want_admitted}), "
+                      f"refused {w['refused']}, committed "
+                      f"{w['drill_jobs_committed']}")
+    children = n_per + sizes["n_dispatch"] + want_admitted
+    w1 = w["wave1"]
+    kids = [j for j, v in w1["jobs"].items() if v[1]]
+    placed = [a for a in w1["allocs"] if "/" in a[0] and a[3] == "run"]
+    if len(kids) != children or len(placed) != children * count:
+        errors.append(f"{label}: wave 1 placed {len(placed)} allocs of "
+                      f"{len(kids)} children (want {children} x {count})")
+    if w["completed_allocs"] != children * count:
+        errors.append(f"{label}: completed {w['completed_allocs']}")
+    gc = w["gc"]
+    left = [j for j, v in gc["jobs"].items() if v[1]]
+    if left or [a for a in gc["allocs"] if "/" in a[0]]:
+        errors.append(f"{label}: GC left children {left[:5]}")
+    stay = ([f"prod-{k:02d}" for k in range(sizes["n_prod"])]
+            + [f"per-{k:02d}" for k in range(n_per)] + ["par"])
+    if [j for j in stay if j not in gc["jobs"]]:
+        errors.append(f"{label}: GC took a parent or a prod job")
+    if (w["deleted"]["jobs"] != children
+            or w["deleted"]["allocs"] != children * count
+            or w["deleted"]["evals"] != w["eval_deleted_events"]
+            or w["deleted"]["evals"] < children):
+        errors.append(f"{label}: deleted {w['deleted']}, EvalDeleted "
+                      f"{w['eval_deleted_events']}")
+    w2 = w["wave2"]
+    placed2 = [a for a in w2["allocs"] if "/" in a[0] and a[3] == "run"]
+    if len(placed2) != (n_per + sizes["wave2_dispatch"]) * count:
+        errors.append(f"{label}: wave 2 placed {len(placed2)}")
+    if [e for e in w2["evals"] if e[2] != "complete"]:
+        errors.append(f"{label}: evals not complete after wave 2")
+    for key in ("guards_before_gc", "guards_after_gc", "guards"):
+        g = w[key]
+        if (g["GUARD_MISMATCHES"] or g["USAGE_GUARD_MISMATCHES"]
+                or not g["GUARD_RUNS"] or not g["USAGE_GUARD_RUNS"]
+                or g["guard_mismatches"] or g["dev_guard_mismatches"]):
+            errors.append(f"{label}: {key} {g}")
+    app = w["applier"]
+    if not app["plans"] or app["columnar_guards"] != app["plans"]:
+        errors.append(f"{label}: the applier's plan-fit guard {app}")
+    # The resident mirror's guard ran on wave 2's batch, after the GC's
+    # negative deltas.
+    if w["guards"]["guard_runs"] <= w["guards_after_gc"]["guard_runs"]:
+        errors.append(f"{label}: no resident guard after the GC")
+    h = w["health"]
+    if (h["over_capacity"] or h["nacks"] or h["failed"]
+            or h["breaker"] != {"state": "closed", "trips": 0,
+                                "oracle_routed": 0}):
+        errors.append(f"{label}: health {h}")
+    t = w["timer"]
+    if (t["children"] != 1 or t["placed"] != sizes["timer_count"]
+            or t["launch_time_off_s"] != 0 or t["row_seen_after_s"] < 0):
+        errors.append(f"{label}: timer {t}")
+    if on_card:
+        for row in w["waves"]:
+            errors += check_launches(f"{label} {row['wave']}",
+                                     row["launches"])
+        errors += check_launches(f"{label} timer", t["launches"])
+    return errors
+
+
+def phase_lifecycle(dev, sizes=None):
+    """The job lifecycle (see the module docstring, phase 23): the card
+    world and the CPU world, each in a process of its own under one
+    string hash seed, compared here."""
+    import shutil
+    import tempfile
+
+    t_phase = time.perf_counter()
+    smi = smi_name_power()
+    on_card = torch_device(dev).type == "cuda"
+    sizes = dict(LIFECYCLE_SIZES if sizes is None else sizes)
+    root = tempfile.mkdtemp(prefix="nomad-torch-lifecycle-")
+    try:
+        card = run_lifecycle_child(dev, root, sizes)
+        cpu = run_lifecycle_child("cpu", root, sizes)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    errors = check_lifecycle_world(card, "card", sizes, on_card)
+    errors += check_lifecycle_world(cpu, "cpu", sizes, False)
+    for step in ("wave1", "completed", "gc", "wave2"):
+        for key in LIFECYCLE_COMPARED:
+            a, b = card[step][key], cpu[step][key]
+            if a != b:
+                if isinstance(a, list):
+                    a = {tuple(r) if isinstance(r, list) else r for r in a}
+                    b = {tuple(r) if isinstance(r, list) else r for r in b}
+                    diff = {"card_only": sorted(a - b)[:8],
+                            "cpu_only": sorted(b - a)[:8]}
+                elif isinstance(a, dict):
+                    diff = {k: (a.get(k), b.get(k)) for k in set(a) | set(b)
+                            if a.get(k) != b.get(k)}
+                else:
+                    diff = (a, b)
+                errors.append(f"{step}: card != cpu on {key}: "
+                              f"{str(diff)[:2000]}")
+    for key in ("refused", "drill_admitted", "deleted",
+                "eval_deleted_events", "tenants"):
+        if card[key] != cpu[key]:
+            errors.append(f"card != cpu on {key}: {card[key]} "
+                          f"{cpu[key]}")
+    if errors:
+        raise AssertionError(f"phase lifecycle: {errors}")
+
+    for w, label in ((card, "card"), (cpu, "cpu")):
+        for row in w["waves"]:
+            emit({"phase": "lifecycle", "world": label,
+                  **{k: v for k, v in row.items() if k != "launches"}})
+
+    def ms(xs):
+        return {"n": len(xs), "mean_ms": statistics.fmean(xs),
+                "max_ms": max(xs)}
+
+    return {
+        "card": smi, "card_equals_cpu": True,
+        "evals_per_s": {w: {row["wave"]: row["evals_per_s"]
+                            for row in x["waves"]}
+                        for w, x in (("card", card), ("cpu", cpu))},
+        "gc_s": {"card": card["gc_s"], "cpu": cpu["gc_s"]},
+        "deleted": card["deleted"],
+        "eval_deleted_events": card["eval_deleted_events"],
+        "quota_drill": {"admitted": card["drill_admitted"],
+                        "refused": card["refused"]},
+        "tenant_dequeued": card["tenants"],
+        "periodic_force_ms": ms(card["force_ms"]),
+        "job_dispatch_ms": ms(card["dispatch_ms"]),
+        "node_register_s": {"card": card["node_register_s"],
+                            "cpu": cpu["node_register_s"]},
+        "update_allocs_s": {"card": card["update_allocs_s"],
+                            "cpu": cpu["update_allocs_s"]},
+        "timer": {"card": card["timer"], "cpu": cpu["timer"]},
+        "guards": {"card": card["guards"], "cpu": cpu["guards"]},
+        "applier": {"card": card["applier"], "cpu": cpu["applier"]},
+        "launches": {row["wave"]: row["launches"] for row in card["waves"]},
+        "world_seconds": {"card": card["child_wall_s"],
+                          "cpu": cpu["child_wall_s"]},
+        "seconds": time.perf_counter() - t_phase}
+
+
 def torch_device(dev):
     import torch
 
@@ -5455,7 +6004,7 @@ def torch_device(dev):
     return d
 
 
-# -- phase 23: times ---------------------------------------------------------
+# -- phase 24: times ---------------------------------------------------------
 
 def score_bytes(u: int, n: int, with_base: bool = True) -> int:
     """Bytes the function must move: feas (1) + collisions (4) in and
@@ -6014,6 +6563,8 @@ def main() -> int:
     emit({"phase": "durable", **dur})
     clu = run_phase("cluster", phase_cluster, dev)
     emit({"phase": "cluster", **clu})
+    life = run_phase("lifecycle", phase_lifecycle, dev)
+    emit({"phase": "lifecycle", **life})
     table = run_phase("times", phase_times, dev, launches, max_err,
                       masked_launches, max(masked_err, cand_err))
     # scored_rows' launches on the eval-driven path (phase evals, each
@@ -6060,6 +6611,12 @@ def main() -> int:
         row["cluster_path_launches"] = {
             label: clu["launches"][label][row["name"]]
             for label in ("A_before_failover", "A_after_failover", "leg2")}
+        # ... and on the job lifecycle's path (phase lifecycle, the card
+        # world, each wave driven with the counts set to 0 just before
+        # it): wave 1 and wave 2 after the GC.
+        row["lifecycle_path_launches"] = {
+            label: life["launches"][label][row["name"]]
+            for label in ("wave1", "wave2")}
     emit({"phase": "profile", **run_phase("profile", phase_profile, dev)})
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     emit({"kernels": table})

@@ -6,7 +6,9 @@ of ``nomad_tpu``'s structs (keys this port does not model are ignored);
 networks, with their reserved and dynamic ports, are kept -- an alloc's
 ``task_resources`` carry the offers its ports came from.  Jobs keep what
 the reconciler compares (the update strategy, version, meta, the task
-fields of the in-place update test, ``stop``); allocs keep their name,
+fields of the in-place update test, ``stop``) and the lifecycle's fields
+(``parent_id``, the periodic and parameterized configs, the payload, a
+task's ``dispatch_payload``); allocs keep their name,
 evaluation, previous allocation, metrics and job; evaluations keep every
 field the scheduler reads and writes, so the tests can build one cluster
 in both packages.  ``device_inputs_from_buffers``
@@ -67,14 +69,19 @@ def _task(t: dict) -> s.Task:
         vault=t.get("vault"), templates=list(t.get("templates") or []),
         constraints=_constraints(t.get("constraints")),
         resources=_res(t["resources"]), meta=dict(t.get("meta") or {}),
-        artifacts=list(t.get("artifacts") or []))
+        artifacts=list(t.get("artifacts") or []),
+        dispatch_payload=(s.DispatchPayloadConfig(**t["dispatch_payload"])
+                          if t.get("dispatch_payload") else None))
 
 
 def job_from_dict(d: dict) -> s.Job:
     upd = d.get("update") or {}
+    per = d.get("periodic")
+    par = d.get("parameterized_job")
     return s.Job(
         region=d.get("region", "global"),
         namespace=d.get("namespace", s.DEFAULT_NAMESPACE), id=d["id"],
+        parent_id=d.get("parent_id", ""),
         name=d["name"], type=d["type"], priority=d["priority"],
         all_at_once=d.get("all_at_once", False),
         datacenters=list(d["datacenters"]),
@@ -90,6 +97,13 @@ def job_from_dict(d: dict) -> s.Job:
             for tg in d["task_groups"]],
         update=s.UpdateStrategy(stagger=upd.get("stagger", 0.0),
                                 max_parallel=upd.get("max_parallel", 0)),
+        periodic=s.PeriodicConfig(**per) if per else None,
+        parameterized_job=(s.ParameterizedJobConfig(
+            payload=par.get("payload", ""),
+            meta_required=list(par.get("meta_required") or []),
+            meta_optional=list(par.get("meta_optional") or []))
+            if par else None),
+        payload=bytes(d.get("payload") or b""),
         meta=dict(d.get("meta") or {}),
         status=d.get("status", s.JOB_STATUS_PENDING),
         status_description=d.get("status_description", ""),

@@ -13,14 +13,16 @@ turns an unforwardable ``NotLeaderError`` into the wire's
 Bodies and replies are struct-codec values (``server/rpc.py``): the
 structs arrive typed, and a body of the wrong type is refused.
 
-Registered: ``Status.Ping/Leader/Peers/Fingerprint``,
+Registered: ``Status.Ping/Leader/Peers/Fingerprint/BrokerStats``,
 ``Serf.Join/Members``, ``Node.Register/UpdateStatus/Deregister/
-UpdateDrain``, ``Job.Register/Deregister/Evaluate``, ``Eval.Dequeue/
-DequeueBatch/Ack/Nack/Update/Reblock/PauseNack/ResumeNack/GetEval``,
-``Plan.Submit`` and ``Operator.RaftGetConfiguration/
-RaftRemovePeerByAddress``.  The client's alloc sync, Vault, dispatch,
-namespaces, events, chaos and regions wait for their server methods
-(ROADMAP queue 1 item 20).
+UpdateDrain/UpdateAlloc``, ``Job.Register/Deregister/Evaluate/
+Dispatch``, ``Periodic.Force``, ``Namespace.Upsert/Delete/List/
+Status``, ``System.GarbageCollect/ReconcileJobSummaries``,
+``Eval.Dequeue/DequeueBatch/Ack/Nack/Update/Reblock/PauseNack/
+ResumeNack/GetEval``, ``Plan.Submit`` and ``Operator.
+RaftGetConfiguration/RaftRemovePeerByAddress``.  Vault, events, chaos,
+regions and the client's reads wait for their server methods (ROADMAP
+queue 1 item 20).
 """
 
 from __future__ import annotations
@@ -72,6 +74,7 @@ def register_endpoints(server, rpc) -> None:
     rpc.register("Status.Leader", lambda body: server.leader_address())
     rpc.register("Status.Peers", lambda body: server.peer_addresses())
     rpc.register("Status.Fingerprint", status_fingerprint)
+    rpc.register("Status.BrokerStats", lambda body: server.broker_stats())
 
     # -- serf-lite membership ----------------------------------------------
 
@@ -100,6 +103,12 @@ def register_endpoints(server, rpc) -> None:
     register("Node.Deregister", node_deregister)
     register("Node.UpdateDrain", node_update_drain)
 
+    def node_update_alloc(body):
+        allocs = [_typed(s.Allocation, a) for a in body["Allocs"]]
+        return {"Index": server.node_update_allocs(allocs)}
+
+    register("Node.UpdateAlloc", node_update_alloc)
+
     # -- Job -----------------------------------------------------------------
 
     def job_register(body):
@@ -115,9 +124,51 @@ def register_endpoints(server, rpc) -> None:
         index, eval_id = server.job_evaluate(body["JobID"])
         return {"Index": index, "EvalID": eval_id}
 
+    def job_dispatch(body):
+        index, child_id, eval_id = server.job_dispatch(
+            body["JobID"], body.get("Payload") or b"",
+            body.get("Meta") or {})
+        return {"Index": index, "DispatchedJobID": child_id,
+                "EvalID": eval_id}
+
+    def periodic_force(body):
+        child = server.periodic_force(body["JobID"])
+        return {"ChildJobID": child.id if child else ""}
+
     register("Job.Register", job_register)
     register("Job.Deregister", job_deregister)
     register("Job.Evaluate", job_evaluate)
+    register("Job.Dispatch", job_dispatch)
+    register("Periodic.Force", periodic_force)
+
+    # -- Namespace and System (the tenancy plane, system_endpoint.go) -------
+
+    def namespace_upsert(body):
+        ns = _typed(s.Namespace, body["Namespace"])
+        return {"Index": server.namespace_upsert(ns)}
+
+    def namespace_delete(body):
+        return {"Index": server.namespace_delete(body["Name"])}
+
+    def namespace_list(body):
+        return {"Namespaces": server.namespace_list(),
+                "Index": server.state.table_index("namespaces")}
+
+    def system_gc(body):
+        server.system_gc()
+        return {}
+
+    def system_reconcile(body):
+        server.system_reconcile_summaries()
+        return {}
+
+    register("Namespace.Upsert", namespace_upsert)
+    register("Namespace.Delete", namespace_delete)
+    register("Namespace.List", namespace_list)
+    register("Namespace.Status",
+             lambda body: server.namespace_status(body["Name"]))
+    register("System.GarbageCollect", system_gc)
+    register("System.ReconcileJobSummaries", system_reconcile)
 
     # -- Eval (the worker surface, eval_endpoint.go:64-211) ----------------
 

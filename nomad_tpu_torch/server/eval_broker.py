@@ -15,21 +15,26 @@ one job.
 Admission control: per-job coalescing of deferred duplicates (the shed
 eval is cancelled through the log by the server's shed reaper), a bounded
 pending queue (``max_pending``; :meth:`EvalBroker.check_admission` raises
-:class:`BrokerLimitError` before the eval is persisted), and a bypass
-priority that is always admitted.
+:class:`BrokerLimitError` before the eval is persisted), a per-namespace
+pending quota (``ns_max_pending``), and a bypass priority that is always
+admitted.  Refusals decided outside the broker (the server's quota
+ledger) are counted through :meth:`EvalBroker.note_quota_reject`.
 
 Each admission, coalesce, dequeue, ack and nack is traced
 (``broker.enqueue``, ``broker.coalesce``, ``broker.dequeue``,
-``broker.ack``, ``broker.nack``); the ack closes the eval's ``eval.e2e``
-umbrella, and with the stream armed the ack and nack are published as
-``Eval``/``EvalAcked`` and ``EvalNacked``.
+``broker.ack``, ``broker.nack``), and so is each refusal
+(``broker.admission_reject``, with the namespace when a tenant's quota
+refused it, and ``broker.quota_reject``); the ack closes the eval's
+``eval.e2e`` umbrella, and with the stream armed the ack and nack are
+published as ``Eval``/``EvalAcked`` and ``EvalNacked``.
 
-Left out: the per-namespace quota hooks (namespace policies, the
-per-tenant pending quota and its stats) with their
-``broker.admission_reject`` and ``broker.quota_reject`` events, which
-come with the tenancy slice (ROADMAP queue 1 item 19).  The ready
-queues keep the reference's :class:`TenantQueue`, so the dequeue order
-is the reference's.
+The tenancy hooks (eval_broker.py:369-478, :727-797): the ready queues
+are the reference's :class:`TenantQueue`, fed each namespace's weight and
+objective (:meth:`EvalBroker.set_namespace_policy`), the cluster-wide
+objective, the cluster capacity and the per-namespace usage
+(:meth:`EvalBroker.note_usage_changed`), which order the DRF dequeue;
+:meth:`EvalBroker.extended_stats` and :meth:`EvalBroker.tenant_counters`
+give the per-tenant pending, dequeued, shed and refused counts.
 """
 from __future__ import annotations
 
@@ -48,6 +53,10 @@ from ..utils.telemetry import NULL_TELEMETRY
 
 FAILED_QUEUE = "_failed"
 
+#: Cap on the per-tenant rows extended_stats() returns: the busiest rows
+#: ship and the rest are counted as elided.
+STATS_MAX_TENANTS = 256
+
 
 class EvalBrokerError(Exception):
     pass
@@ -57,12 +66,16 @@ class BrokerLimitError(EvalBrokerError):
     """Admission NACK: the pending-eval queue is at capacity.  Carries
     ``retry_after`` (seconds) so clients back off instead of hammering."""
 
-    def __init__(self, retry_after: float, pending: int, limit: int):
+    def __init__(self, retry_after: float, pending: int, limit: int,
+                 namespace: str = ""):
         self.retry_after = retry_after
         self.pending = pending
         self.limit = limit
+        self.namespace = namespace
+        what = (f"tenant {namespace!r} at quota" if namespace
+                else "eval broker at capacity")
         super().__init__(
-            f"eval broker at capacity ({pending}/{limit} pending); "
+            f"{what} ({pending}/{limit} pending); "
             f"retry_after={retry_after:.2f}")
 
     @staticmethod
@@ -75,7 +88,9 @@ class BrokerLimitError(EvalBrokerError):
         retry = float(m.group(1)) if m else 1.0
         m = re.search(r"\((\d+)/(\d+) pending\)", msg)
         pending, limit = (int(m.group(1)), int(m.group(2))) if m else (0, 0)
-        return BrokerLimitError(retry, pending, limit)
+        m = re.search(r"tenant '([^']*)' at quota", msg)
+        ns = m.group(1) if m else ""
+        return BrokerLimitError(retry, pending, limit, namespace=ns)
 
 
 ERR_NOT_OUTSTANDING = "evaluation is not outstanding"
@@ -149,9 +164,13 @@ class EvalBroker:
         self.requeue: Dict[str, s.Evaluation] = {}  # token → eval
         self.time_wait: Dict[str, threading.Timer] = {}
 
-        # Fairness state shared by every ready queue (one tenant until
-        # namespaces are ported: the order is by priority, then arrival).
+        # The tenancy plane: the fairness state (policies, usage, virtual
+        # time) every ready queue shares, and the per-tenant pending, shed
+        # and refusal counts.  All under self._l.
         self.fairness = FairnessState()
+        self._ns_pending: Dict[str, int] = {}
+        self._ns_shed: Dict[str, int] = {}
+        self._ns_rejects: Dict[str, int] = {}
 
         # Saturation counters + the shed hand-off (evals coalesced away;
         # the server's shed reaper cancels them through the log — the
@@ -242,6 +261,8 @@ class EvalBroker:
             return
         elif self._enabled:
             self.evals[ev.id] = 0
+            ns = ev.namespace or s.DEFAULT_NAMESPACE
+            self._ns_pending[ns] = self._ns_pending.get(ns, 0) + 1
             # The one choke point of every admission (enqueue, an
             # unblock's enqueue_all, a post-ack requeue): exactly one
             # broker.enqueue each; duplicates and a disabled broker's
@@ -319,7 +340,10 @@ class EvalBroker:
         return True
 
     def _shed_locked(self, ev: s.Evaluation) -> None:
-        self.evals.pop(ev.id, None)
+        ns = ev.namespace or s.DEFAULT_NAMESPACE
+        if self.evals.pop(ev.id, None) is not None:
+            self._ns_pending_dec(ns)
+        self._ns_shed[ns] = self._ns_shed.get(ns, 0) + 1
         self.shed_total += 1
         self.metrics.incr_counter("broker.shed")
         self._shed.append(ev)
@@ -340,23 +364,104 @@ class EvalBroker:
         with self._l:
             return len(self.evals)
 
-    def check_admission(self, priority: int = 0) -> None:
+    def ns_pending_count(self, namespace: str) -> int:
+        with self._l:
+            return self._ns_pending.get(namespace or s.DEFAULT_NAMESPACE, 0)
+
+    def _ns_pending_dec(self, ns: str) -> None:
+        """The caller holds the lock."""
+        left = self._ns_pending.get(ns, 0) - 1
+        if left > 0:
+            self._ns_pending[ns] = left
+        else:
+            self._ns_pending.pop(ns, None)
+
+    def check_admission(self, priority: int = 0, namespace: str = "",
+                        ns_max_pending: int = 0) -> None:
         """Front-door admission check, before the eval-creating log
         apply: raises :class:`BrokerLimitError` while the broker tracks
-        ``max_pending`` or more evals, unless ``priority`` is at or above
-        ``bypass_priority``.  ``retry_after`` grows with the overload."""
-        if self.max_pending <= 0:
+        ``max_pending`` or more evals, or, with a per-tenant quota
+        (``ns_max_pending`` > 0), while ``namespace`` alone has that many
+        pending; unless ``priority`` is at or above ``bypass_priority``.
+        ``retry_after`` grows with the overload."""
+        if self.max_pending <= 0 and ns_max_pending <= 0:
             return
+        ns = namespace or s.DEFAULT_NAMESPACE
         with self._l:
             if not self._enabled or priority >= self.bypass_priority:
                 return
+            ns_pending = self._ns_pending.get(ns, 0)
+            if ns_max_pending > 0 and ns_pending >= ns_max_pending:
+                self.admission_rejects += 1
+                self._ns_rejects[ns] = self._ns_rejects.get(ns, 0) + 1
+                self.metrics.incr_counter("broker.admission_reject")
+                tr = tracing.TRACER
+                if tr is not None:
+                    tr.event("broker.admission_reject", namespace=ns,
+                             pending=ns_pending, limit=ns_max_pending)
+                retry_after = min(
+                    5.0, 0.2 + 0.3 * (ns_pending / ns_max_pending))
+                raise BrokerLimitError(retry_after, ns_pending,
+                                       ns_max_pending, namespace=ns)
             pending = len(self.evals)
-            if pending < self.max_pending:
+            if self.max_pending <= 0 or pending < self.max_pending:
                 return
             self.admission_rejects += 1
+            self._ns_rejects[ns] = self._ns_rejects.get(ns, 0) + 1
         self.metrics.incr_counter("broker.admission_reject")
+        tr = tracing.TRACER
+        if tr is not None:
+            tr.event("broker.admission_reject", pending=pending,
+                     limit=self.max_pending)
         retry_after = min(5.0, 0.2 + 0.3 * (pending / self.max_pending))
         raise BrokerLimitError(retry_after, pending, self.max_pending)
+
+    def note_quota_reject(self, namespace: str) -> None:
+        """Count a refusal decided outside the broker (the server's quota
+        ledger), so the per-tenant refusal counts tell one story."""
+        ns = namespace or s.DEFAULT_NAMESPACE
+        with self._l:
+            self.admission_rejects += 1
+            self._ns_rejects[ns] = self._ns_rejects.get(ns, 0) + 1
+        self.metrics.incr_counter("broker.admission_reject")
+        tr = tracing.TRACER
+        if tr is not None:
+            tr.event("broker.quota_reject", namespace=ns)
+
+    # -- tenancy wiring ----------------------------------------------------
+
+    def set_namespace_policy(self, name: str, weight: float,
+                             objective: str) -> None:
+        """Install or refresh a tenant's fairness policy (on a namespace
+        upsert) and rescore its queued entries."""
+        with self._l:
+            self.fairness.set_policy(name, weight, objective)
+            for q in self.ready.values():
+                q.note_usage_changed((name,))
+
+    def drop_namespace_policy(self, name: str) -> None:
+        with self._l:
+            self.fairness.drop_policy(name)
+
+    def set_objective(self, objective: str) -> None:
+        """The cluster-wide default fairness objective."""
+        with self._l:
+            self.fairness.objective = objective
+
+    def set_cluster_capacity(self, cap: Tuple[int, int, int, int]) -> None:
+        with self._l:
+            self.fairness.set_capacity(cap)
+
+    def note_usage_changed(self, usage: Dict[str, Tuple]) -> None:
+        """Fold the store's changed per-tenant usage rows into the
+        fairness scorer (O(changed tenants))."""
+        if not usage:
+            return
+        with self._l:
+            for ns, vec in usage.items():
+                self.fairness.set_usage(ns, vec)
+            for q in self.ready.values():
+                q.note_usage_changed(usage)
 
     def _entry(self, ev: s.Evaluation) -> _HeapEntry:
         return _HeapEntry((-ev.priority, ev.create_index, next(self._seq)),
@@ -490,7 +595,9 @@ class EvalBroker:
                          "Attempts": self.evals.get(eval_id, 0)},
                         eval_id=eval_id)
                 del self.unack[eval_id]
-                self.evals.pop(eval_id, None)
+                if self.evals.pop(eval_id, None) is not None:
+                    self._ns_pending_dec(unack.eval.namespace
+                                         or s.DEFAULT_NAMESPACE)
                 self.job_evals.pop(job_id, None)
 
                 blocked = self.blocked.get(job_id)
@@ -581,6 +688,9 @@ class EvalBroker:
             self.unack = {}
             self.requeue = {}
             self.time_wait = {}
+            # The pending counts die with the queues; the shed, refusal
+            # and dequeue counts are lifetime totals.
+            self._ns_pending = {}
             # Shed evals not yet reaped die with the leadership that shed
             # them; the next leader's restore pass re-evaluates.
             self._shed = []
@@ -599,3 +709,85 @@ class EvalBroker:
                 "total_nacks": self.nacks_total,
                 "by_scheduler": {k: len(h) for k, h in self.ready.items()},
             }
+
+    def extended_stats(self) -> Dict:
+        """The broker's saturation surface (eval_broker.py:727): pending
+        by state and priority, the delivery-attempts histogram, the
+        admission, coalesce and shed counters and the per-tenant rows."""
+        with self._l:
+            failed = len(self.ready.get(FAILED_QUEUE, ()))
+            by_state = {
+                "ready": sum(len(h) for k, h in self.ready.items()
+                             if k != FAILED_QUEUE),
+                "unacked": len(self.unack),
+                "deferred": sum(len(h) for h in self.blocked.values()),
+                "waiting": len(self.time_wait),
+                "failed": failed,
+            }
+            by_priority: Dict[int, int] = {}
+            for heaps in (self.ready.values(), self.blocked.values()):
+                for heap in heaps:
+                    for entry in heap:
+                        prio = entry.eval.priority
+                        by_priority[prio] = by_priority.get(prio, 0) + 1
+            attempts_hist: Dict[int, int] = {}
+            for attempts in self.evals.values():
+                attempts_hist[attempts] = attempts_hist.get(attempts, 0) + 1
+            tenants, elided = self._tenant_stats_locked()
+            return {
+                "Enabled": self._enabled,
+                "Pending": len(self.evals),
+                "MaxPending": self.max_pending,
+                "Coalesce": self.coalesce,
+                "BypassPriority": self.bypass_priority,
+                "ByState": by_state,
+                "ByPriority": {str(k): v
+                               for k, v in sorted(by_priority.items())},
+                "DeliveryAttempts": {str(k): v for k, v
+                                     in sorted(attempts_hist.items())},
+                "ShedTotal": self.shed_total,
+                "CoalescedTotal": self.coalesced_total,
+                "AdmissionRejects": self.admission_rejects,
+                "ShedUnreaped": len(self._shed),
+                "Objective": self.fairness.objective,
+                "Tenants": tenants,
+                "TenantsElided": elided,
+            }
+
+    def _tenant_stats_locked(self) -> Tuple[Dict[str, Dict], int]:
+        """The per-tenant rows, busiest (most pending) first, capped at
+        ``STATS_MAX_TENANTS``.  The caller holds the lock."""
+        fs = self.fairness
+        names = set(self._ns_pending)
+        names.update(fs.dequeued)
+        names.update(self._ns_shed)
+        names.update(self._ns_rejects)
+        ranked = sorted(names,
+                        key=lambda n: (-self._ns_pending.get(n, 0), n))
+        elided = max(0, len(ranked) - STATS_MAX_TENANTS)
+        tenants: Dict[str, Dict] = {}
+        for ns in ranked[:STATS_MAX_TENANTS]:
+            tenants[ns] = {
+                "Pending": self._ns_pending.get(ns, 0),
+                "Dequeued": fs.dequeued.get(ns, 0),
+                "Shed": self._ns_shed.get(ns, 0),
+                "Rejects": self._ns_rejects.get(ns, 0),
+                "Weight": fs.weight(ns),
+                "DominantShare": round(fs.dominant_share(ns), 6),
+                "VirtualTime": round(fs.vt.get(ns, 0.0), 6),
+            }
+        return tenants, elided
+
+    def tenant_counters(self) -> Dict[str, Tuple[int, int, int, int]]:
+        """(pending, dequeued, shed, rejects) per tenant: the metrics
+        tick's cheap read (no score computed)."""
+        with self._l:
+            fs = self.fairness
+            names = set(self._ns_pending)
+            names.update(fs.dequeued)
+            names.update(self._ns_rejects)
+            return {ns: (self._ns_pending.get(ns, 0),
+                         fs.dequeued.get(ns, 0),
+                         self._ns_shed.get(ns, 0),
+                         self._ns_rejects.get(ns, 0))
+                    for ns in names}

@@ -6,16 +6,18 @@ emits blocked-eval unblocks on capacity changes and feeds the eval broker
 on the leader, the side-channel hooks nomadFSM.Apply performs.
 
 The handlers kept are the ones the server path applies: node register,
-deregister, status and drain; job register and deregister; eval update;
-alloc update and client update; plan results; the vault accessors, the
-periodic launches and the namespaces.  :meth:`FSM.snapshot` and
+deregister, status and drain; job register and deregister; eval update
+and delete (the GC path); alloc update and client update; plan results;
+job summary reconcile; the vault accessors, the periodic launches and
+the namespaces.  :meth:`FSM.snapshot` and
 :meth:`FSM.restore` (fsm.py:239-257) persist and replace the store; a
 restore hands the cluster event broker (``event_broker``, which
 ``Server.enable_event_stream`` remembers here) to the restored store and
-raises its gap horizon to the restored index.  Left out, with the slices
-that need them: eval delete (the GC path, ROADMAP queue 1 item 18) and
-summary reconcile; the tenancy hook ``on_namespace_update`` is kept and
-stays None until the tenancy plane comes (item 19).
+raises its gap horizon to the restored index.  The leader-side hooks
+(fsm.py:43-67) are ``on_eval_update``, ``on_unblock``,
+``on_job_register``, ``on_job_deregister`` (the periodic dispatcher and
+the quota ledger) and ``on_namespace_update`` (the tenancy policies); the
+vault hook ``on_alloc_terminal`` waits for vault.
 """
 from __future__ import annotations
 
@@ -39,8 +41,10 @@ class MessageType(IntEnum):
     JOB_REGISTER = 4
     JOB_DEREGISTER = 5
     EVAL_UPDATE = 6
+    EVAL_DELETE = 7
     ALLOC_UPDATE = 8
     ALLOC_CLIENT_UPDATE = 9
+    RECONCILE_JOB_SUMMARIES = 10
     VAULT_ACCESSOR_REGISTER = 11
     VAULT_ACCESSOR_DEREGISTER = 12
     APPLY_PLAN_RESULTS = 13
@@ -59,6 +63,8 @@ class FSM:
         logger: Optional[logging.Logger] = None,
         on_eval_update: Optional[Callable[[s.Evaluation], None]] = None,
         on_unblock: Optional[Callable[[str, int], None]] = None,
+        on_job_register: Optional[Callable[[s.Job], None]] = None,
+        on_job_deregister: Optional[Callable[[str], None]] = None,
         on_namespace_update: Optional[
             Callable[[str, Optional[s.Namespace]], None]] = None,
     ):
@@ -67,8 +73,11 @@ class FSM:
         # Leader-side hooks (fsm.go:58-66).
         self.on_eval_update = on_eval_update
         self.on_unblock = on_unblock
-        # The tenancy push (fires with (name, ns) on upsert and (name,
-        # None) on delete); no server sets it before the tenancy plane.
+        self.on_job_register = on_job_register
+        self.on_job_deregister = on_job_deregister
+        # The tenancy push: (name, ns) on upsert and (name, None) on
+        # delete, so the broker's fairness weights and the rate buckets
+        # track the committed rows.
         self.on_namespace_update = on_namespace_update
         # The cluster event broker (server/event_broker.py), remembered
         # here for a restore to hand to its new store (fsm.py:71-74).
@@ -110,7 +119,10 @@ class FSM:
     # -- job ---------------------------------------------------------------
 
     def _apply_job_register(self, index: int, req: dict):
-        self.state.upsert_job(index, req["job"])
+        job: s.Job = req["job"]
+        self.state.upsert_job(index, job)
+        if self.on_job_register is not None:
+            self.on_job_register(job)
 
     def _apply_job_deregister(self, index: int, req: dict):
         job_id = req["job_id"]
@@ -125,6 +137,8 @@ class FSM:
                 stopped = job.copy()
                 stopped.stop = True
                 self.state.upsert_job(index, stopped)
+        if self.on_job_deregister is not None:
+            self.on_job_deregister(job_id)
 
     # -- evals -------------------------------------------------------------
 
@@ -141,6 +155,10 @@ class FSM:
                 stored = self.state.eval_by_id(None, ev.id)
                 self.on_eval_update(stored.copy() if stored is not None
                                     else ev)
+
+    def _apply_eval_delete(self, index: int, req: dict):
+        self.state.delete_eval(index, req.get("evals", []),
+                               req.get("allocs", []))
 
     # -- allocs ------------------------------------------------------------
 
@@ -187,7 +205,10 @@ class FSM:
         if evals:
             self.state.upsert_evals(index, evals)
 
-    # -- vault / periodic --------------------------------------------------
+    # -- summaries / vault / periodic --------------------------------------
+
+    def _apply_reconcile_summaries(self, index: int, req: dict):
+        self.state.reconcile_job_summaries(index)
 
     def _apply_vault_register(self, index: int, req: dict):
         accessors: List[VaultAccessor] = req["accessors"]
@@ -245,8 +266,10 @@ class FSM:
         MessageType.JOB_REGISTER: _apply_job_register,
         MessageType.JOB_DEREGISTER: _apply_job_deregister,
         MessageType.EVAL_UPDATE: _apply_eval_update,
+        MessageType.EVAL_DELETE: _apply_eval_delete,
         MessageType.ALLOC_UPDATE: _apply_alloc_update,
         MessageType.ALLOC_CLIENT_UPDATE: _apply_alloc_client_update,
+        MessageType.RECONCILE_JOB_SUMMARIES: _apply_reconcile_summaries,
         MessageType.VAULT_ACCESSOR_REGISTER: _apply_vault_register,
         MessageType.VAULT_ACCESSOR_DEREGISTER: _apply_vault_deregister,
         MessageType.APPLY_PLAN_RESULTS: _apply_plan_results,

@@ -49,22 +49,50 @@ store.  The snapshot thresholds are ``snapshot_entries``,
 ``snapshot_bytes`` and ``snapshot_interval``.
 
 The single voter leads from :meth:`Server.start`.  Leadership enables the
-broker, the plan queue, blocked evals and the heartbeats, starts the
-applier, re-enqueues pending and re-blocks blocked evals from the store,
-and starts the reapers (duplicate blocked evals, coalesced evals, the
-periodic unblock of max-plan failures).  On ``cuda``, :meth:`start`
+broker, the plan queue, blocked evals, the periodic dispatcher and the
+heartbeats, starts the applier, reseeds the tenancy plane (the namespace
+policies and a conservative rebuild of the quota ledgers), re-enqueues
+pending and re-blocks blocked evals from the store, tracks the periodic
+jobs (launching the ones whose launch was missed), and starts the
+reapers (duplicate blocked evals, coalesced evals, the periodic unblock
+of max-plan failures, and the GC core evals every
+``eval_gc_interval``).  On ``cuda``, :meth:`start`
 builds the kernels in the calling thread first: a card that is missing
 or a build that fails raises there, instead of nacking every eval in a
 worker thread.
 
 Entry points: :meth:`Server.node_register`,
 :meth:`Server.node_deregister`, :meth:`Server.node_update_status`,
-:meth:`Server.node_update_drain`, :meth:`Server.job_register`,
+:meth:`Server.node_update_drain`, :meth:`Server.node_update_allocs` (the
+client's alloc status sync), :meth:`Server.job_register`,
 :meth:`Server.job_evaluate`, :meth:`Server.job_deregister`,
-:meth:`Server.job_plan` (the ``job plan`` dry run: the annotated diff,
-nothing committed), :meth:`Server.shutdown`.  The metrics emitter publishes the broker,
-blocked-eval, plan-queue, heartbeat and log gauges and the kernel
-breaker's ``breaker.state``/``breaker.trips`` each second.
+:meth:`Server.job_plan` (the ``job plan`` dry run: the annotated diff
+and a periodic job's next launch, nothing committed),
+:meth:`Server.job_dispatch`, :meth:`Server.periodic_force`,
+:meth:`Server.system_gc`, :meth:`Server.system_reconcile_summaries`,
+:meth:`Server.namespace_upsert`, :meth:`Server.namespace_delete`,
+:meth:`Server.namespace_list`, :meth:`Server.namespace_status`,
+:meth:`Server.broker_stats`, :meth:`Server.shutdown`.  The metrics
+emitter publishes the broker, blocked-eval, plan-queue, heartbeat and
+log gauges and the kernel breaker's ``breaker.state``/``breaker.trips``
+each second, and on the same tick feeds the tenancy plane: the store's
+changed per-namespace usage into the broker's DRF order, the cluster
+capacity, and the ``tenant.*`` gauges of the ``tenancy_metrics_top``
+busiest tenants.
+
+The job lifecycle (server.py:1160-1185, :1306-1355, :1383-1445,
+:1583-1640): a periodic or parameterized registration makes no eval; the
+leader's ``PeriodicDispatch`` launches a periodic job's children
+(``<id>/periodic-<launch>``, skipped under ``prohibit_overlap`` while a
+child is live) and records each launch; :meth:`Server.job_dispatch`
+registers a parameterized job's child (``<id>/dispatch-<now>-<uuid8>``)
+with its payload and meta.  Each job that makes an eval is first
+admitted against its namespace: the pending-eval quota in the broker,
+then the live-alloc and node-units quotas in the leader's ledgers (a
+refusal raises ``BrokerLimitError`` naming the namespace; nothing is
+written).  A reservation is released when the job's eval goes terminal
+or the job is deregistered.  GC runs as core evals through the
+leader's worker (``CoreScheduler``).
 
 Observability (server.py:150-157, :289-315, :392-440): ``ServerConfig(
 trace=True)`` arms the process-wide tracing plane at construction (the
@@ -79,14 +107,16 @@ cluster event stream at construction, and the first
 Left out, for later slices: the agent, HTTP, the client's RPC, the
 endpoints without a server method here, ``/v1/trace/*``,
 ``/v1/event/stream`` and the trace fanout over peers (ROADMAP queue 1
-item 20); federation and WAN joins; core (GC) and periodic jobs; vault;
-the tenancy quotas and namespaces; the blackbox hooks (item 21).
+item 20); federation and WAN joins; vault; deployments; the blackbox
+hooks (item 21).
 """
 from __future__ import annotations
 
 import logging
+import math
 import os
 import threading
+import time
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
@@ -99,15 +129,17 @@ from ..state import columnar as columnar_mod
 from ..state.state_store import StateStore
 from ..structs import structs as s
 from ..structs.diff import job_diff
+from ..tenancy import QuotaLedger, RateLimiter
 from ..utils import tracing
 from ..utils.telemetry import Telemetry
 from ..utils.tlsutil import TLSConfig, client_context, server_context
 from . import event_broker as event_stream
 from .blocked_evals import BlockedEvals
-from .eval_broker import EvalBroker
+from .eval_broker import BrokerLimitError, EvalBroker
 from .event_broker import EventBroker, Subscription
 from .fsm import FSM, MessageType, TimeTable
 from .heartbeat import HeartbeatTimers
+from .periodic import PERIODIC_LAUNCH_SUFFIX, PeriodicDispatch
 from .plan_apply import PlanApplier
 from .plan_queue import PlanQueue
 from .raft import FileLog, InmemLog, MultiRaft, NotLeaderError
@@ -119,6 +151,31 @@ JOIN_TIMEOUT = 5.0
 # are retried, and how often the gauges are published.
 FAILED_EVAL_UNBLOCK_INTERVAL = 60.0
 METRICS_INTERVAL = 1.0
+# A dispatched payload's largest size (job_endpoint.go Dispatch).
+DISPATCH_PAYLOAD_MAX = 16 * 1024
+
+
+def _job_usage_vec(job: s.Job) -> Tuple[int, int, int, int]:
+    """A job's whole ask on the alloc_usage_vec basis (cpu, memory_mb,
+    disk_mb, iops): each group's task sums times its count.  The
+    node-units gate prices a submission with it before any alloc exists
+    (server.py:118)."""
+    cpu = mem = disk = iops = 0
+    for tg in job.task_groups:
+        c = m = d = i = 0
+        for task in tg.tasks:
+            r = task.resources
+            if r is None:
+                continue
+            c += r.cpu
+            m += r.memory_mb
+            d += r.disk_mb
+            i += r.iops
+        cpu += c * tg.count
+        mem += m * tg.count
+        disk += d * tg.count
+        iops += i * tg.count
+    return (cpu, mem, disk, iops)
 
 
 @dataclass
@@ -164,7 +221,14 @@ class ServerConfig:
     ``NOMAD_TPU_RAFT_ELECTION_MIN_S``/``MAX_S``,
     ``NOMAD_TPU_SNAPSHOT_CHUNK``).  ``tls`` (a ``utils.tlsutil.TLSConfig``)
     puts the listener and every dial of the pool on mutual TLS against
-    the cluster CA (the reference's tls{} block)."""
+    the cluster CA (the reference's tls{} block).
+
+    The lifecycle: ``eval_gc_interval`` is how often the leader makes
+    the eval, job and node GC core evals; ``tenancy_objective`` is the
+    cluster-wide fair-dequeue objective a namespace row's ``objective``
+    overrides (the reference's ``NOMAD_TPU_TENANCY_OBJECTIVE``), and
+    ``tenancy_metrics_top`` how many of the busiest tenants get
+    ``tenant.*`` gauges each tick (``NOMAD_TPU_TENANCY_METRICS_TOP``)."""
 
     num_schedulers: int = 1
     batch_size: int = 64
@@ -204,6 +268,9 @@ class ServerConfig:
     raft_election_max: float = MultiRaft.ELECTION_TIMEOUT[1]
     snapshot_chunk: int = MultiRaft.SNAPSHOT_CHUNK
     tls: Optional[TLSConfig] = None
+    eval_gc_interval: float = 300.0
+    tenancy_objective: str = s.TENANCY_OBJECTIVE_DRF
+    tenancy_metrics_top: int = 10
 
 
 class Server:
@@ -229,13 +296,29 @@ class Server:
             nack_timeout=cfg.eval_nack_timeout,
             delivery_limit=cfg.eval_delivery_limit,
             metrics=self.metrics)
+        self.eval_broker.set_objective(cfg.tenancy_objective)
+        # The tenancy plane (server.py:182-195): the leader-side
+        # reservation books of the live-alloc and node-units quotas, and
+        # the per-tenant API token buckets, mirrors of the committed
+        # namespace rows pushed through the FSM hook.
+        self.quota_ledger = QuotaLedger()
+        self.node_units_ledger = QuotaLedger()
+        self.api_limiter = RateLimiter()
+        # The cluster capacity the DRF shares and the node-units gate
+        # divide by, recomputed only when the nodes table moves.
+        self._capacity_node_index = -1
+        self._cluster_capacity: Tuple[int, int, int, int] = (0, 0, 0, 0)
+        self._cluster_nodes = 0
         self.blocked_evals = BlockedEvals(self.eval_broker)
         self.plan_queue = PlanQueue()
         self.time_table = TimeTable()
         self.fsm = FSM(state=StateStore(columnar=cfg.columnar),
                        logger=self.logger,
                        on_eval_update=self._fsm_eval_updated,
-                       on_unblock=self._fsm_unblock)
+                       on_unblock=self._fsm_unblock,
+                       on_job_register=self._fsm_job_registered,
+                       on_job_deregister=self._fsm_job_deregistered,
+                       on_namespace_update=self._fsm_namespace_updated)
         # The RPC listener and the connection pool (server.go:250
         # setupRPC), bound here so the advertised address is known before
         # the raft is built; served from start().
@@ -318,6 +401,8 @@ class Server:
         self._events_lock = threading.Lock()
         if cfg.events:
             self.enable_event_stream()
+        self.periodic = PeriodicDispatch(self._periodic_dispatch,
+                                         self.logger.getChild("periodic"))
         self.workers: List[BatchWorker] = []
         self.follower_workers: List[Worker] = []
         self.leader_channel = None
@@ -362,7 +447,7 @@ class Server:
                 blocked_evals=self.blocked_evals, logger=self.logger,
                 metrics=self.metrics,
                 stale_snapshot=cfg.stale_snapshot,
-                scheduler_kwargs=sched_kwargs,
+                scheduler_kwargs=sched_kwargs, time_table=self.time_table,
                 max_batch=cfg.batch_size, pipeline=cfg.pipeline))
         # Follower-read scheduling (server.py:364-389): a pool per
         # clustered server.  Its workers park while this server leads (the
@@ -397,7 +482,10 @@ class Server:
         self.eval_broker.set_enabled(False)
         self.blocked_evals.set_enabled(False)
         self.plan_queue.set_enabled(False)
+        self.periodic.set_enabled(False)
         self.heartbeat.set_enabled(False)
+        if self.periodic._thread is not None:
+            self.periodic._thread.join(timeout=JOIN_TIMEOUT)
         for t in self._threads:
             t.join(timeout=JOIN_TIMEOUT)
         self.raft.close()
@@ -417,7 +505,7 @@ class Server:
         if self.rpc is not None:
             out += self.rpc.threads()
         for extra in (self.eval_broker.sweeper(), self.heartbeat.sweeper(),
-                      self.blocked_evals._watcher):
+                      self.blocked_evals._watcher, self.periodic._thread):
             if extra is not None:
                 out.append(extra)
         return [t for t in out if t.is_alive()]
@@ -707,9 +795,12 @@ class Server:
         # fence floor for the workers' snapshots.
         self.plan_queue.note_applied("", self.raft.fence_index())
         self.blocked_evals.set_enabled(True)
+        self.periodic.set_enabled(True)
         self.heartbeat.set_enabled(True)
         self.plan_applier.start()
+        self._restore_tenancy()
         self._restore_evals()
+        self._restore_periodic_dispatcher()
         self._start_reapers()
         # Reconcile the voters with the members found while following.
         self._maybe_bootstrap()
@@ -719,8 +810,52 @@ class Server:
         self.eval_broker.set_enabled(False)
         self.plan_queue.set_enabled(False)
         self.blocked_evals.set_enabled(False)
+        self.periodic.set_enabled(False)
         self.heartbeat.set_enabled(False)
         self.plan_applier.stop(timeout=JOIN_TIMEOUT)
+
+    def _restore_tenancy(self) -> None:
+        """Reseed the tenancy plane at leadership (server.py:761-790): the
+        fairness and rate policies from the namespace rows, and the quota
+        ledgers rebuilt conservatively from every non-terminal eval's job
+        (over-reserving only costs refusals near the limit;
+        under-reserving could let a failover breach a quota)."""
+        for ns in self.state.namespaces(None):
+            self._fsm_namespace_updated(ns.name, ns)
+        entries = []
+        unit_entries = []
+        seen = set()
+        self._refresh_capacity()
+        cap, nodes = self._cluster_capacity, self._cluster_nodes
+        for ev in self.state.evals(None):
+            if ev.terminal_status() or ev.job_id in seen:
+                continue
+            seen.add(ev.job_id)
+            job = self.state.job_by_id(None, ev.job_id)
+            if job is None:
+                continue
+            ns = job.namespace or s.DEFAULT_NAMESPACE
+            entries.append((job.id, ns,
+                            sum(tg.count for tg in job.task_groups)))
+            if nodes > 0:
+                unit_entries.append(
+                    (job.id, ns,
+                     self._node_units(_job_usage_vec(job), cap, nodes)))
+        self.quota_ledger.rebuild(entries)
+        self.node_units_ledger.rebuild(unit_entries)
+        self.eval_broker.note_usage_changed(self.state.namespace_usage())
+
+    def _restore_periodic_dispatcher(self) -> None:
+        """Track the periodic jobs and launch the ones whose next launch
+        after the recorded one has passed (leader.go:150)."""
+        now = time.time()
+        for job in self.state.jobs_by_periodic(None, True):
+            self.periodic.add(job)
+            launch = self.state.periodic_launch_by_id(None, job.id)
+            last = launch.launch if launch else 0.0
+            nxt = job.periodic.next(last)
+            if last and 0 < nxt <= now:
+                self.periodic.force_run(job.id)
 
     def _restore_evals(self) -> None:
         """Re-enqueue pending and re-block blocked evals from the store
@@ -768,7 +903,20 @@ class Server:
                 if self._leader and not self._shutdown.is_set():
                     self.blocked_evals.unblock_failed()
 
-        for target in (dup_reaper, shed_reaper, failed_unblocker):
+        def gc_scheduler():
+            while self._leader and not self._shutdown.is_set():
+                self._shutdown.wait(self.config.eval_gc_interval)
+                if not self._leader or self._shutdown.is_set():
+                    return
+                try:
+                    for core_job in (s.CORE_JOB_EVAL_GC, s.CORE_JOB_JOB_GC,
+                                     s.CORE_JOB_NODE_GC):
+                        self._create_core_eval(core_job)
+                except NotLeaderError:
+                    return
+
+        for target in (dup_reaper, shed_reaper, failed_unblocker,
+                       gc_scheduler):
             t = threading.Thread(target=target, daemon=True,
                                  name=target.__name__)
             t.start()
@@ -779,6 +927,7 @@ class Server:
         the plan queue, heartbeats, the log, and the kernel breaker."""
         while not self._shutdown.is_set():
             try:
+                self._feed_tenancy(self.config.tenancy_metrics_top)
                 self.emit_gauges()
             except Exception:  # never kill the emitter
                 self.logger.exception("metrics emit failed")
@@ -804,6 +953,76 @@ class Server:
                     breaker_mod.STATE_CODE.get(brk.state, 0))
         m.set_gauge("breaker.trips", brk.trips)
 
+    def _feed_tenancy(self, tenant_top: int) -> None:
+        """The tenancy plane's upkeep on the metrics tick
+        (server.py:987-1015): the store's changed per-namespace usage
+        into the broker's DRF scorer, the cluster capacity refreshed when
+        the nodes moved, and the ``tenant.*`` gauges of the
+        ``tenant_top`` busiest tenants."""
+        dirty = self.state.drain_ns_dirty()
+        if dirty:
+            usage = self.state.namespace_usage()
+            self.eval_broker.note_usage_changed(
+                {ns: usage.get(ns, (0, 0, 0, 0, 0)) for ns in dirty})
+        self._refresh_capacity()
+        if tenant_top <= 0:
+            return
+        counters = self.eval_broker.tenant_counters()
+        busiest = sorted(counters.items(),
+                         key=lambda kv: (-kv[1][0], kv[0]))[:tenant_top]
+        cap, nodes = self._cluster_capacity, self._cluster_nodes
+        for ns, (pending, dequeued, shed, rejects) in busiest:
+            self.metrics.set_gauge(f"tenant.pending.{ns}", pending)
+            self.metrics.set_gauge(f"tenant.dequeued.{ns}", dequeued)
+            self.metrics.set_gauge(f"tenant.shed.{ns}", shed)
+            self.metrics.set_gauge(f"tenant.rejects.{ns}", rejects)
+            if nodes > 0:
+                self.metrics.set_gauge(
+                    f"tenant.node_units.{ns}",
+                    self._node_units(
+                        self.state.namespace_usage_one(ns)[:4], cap, nodes))
+
+    def _refresh_capacity(self) -> None:
+        """The cluster capacity (the non-terminal nodes' summed resources
+        and their count), recomputed only when the nodes table's index
+        moved, and pushed into the broker's DRF scorer."""
+        node_index = self.state.table_index("nodes")
+        if node_index == self._capacity_node_index:
+            return
+        self._capacity_node_index = node_index
+        cap = [0, 0, 0, 0]
+        nodes = 0
+        for node in self.state.nodes(None):
+            if node.terminal_status():
+                continue
+            nodes += 1
+            res = node.resources
+            if res is None:
+                continue
+            cap[0] += res.cpu
+            cap[1] += res.memory_mb
+            cap[2] += res.disk_mb
+            cap[3] += res.iops
+        self._cluster_capacity = tuple(cap)
+        self._cluster_nodes = nodes
+        self.eval_broker.set_cluster_capacity(self._cluster_capacity)
+
+    @staticmethod
+    def _node_units(usage: Tuple[int, int, int, int],
+                    cap: Tuple[int, int, int, int], nodes: int) -> float:
+        """Nodes-worth of dominant-resource usage (the quota_node_units
+        basis): the largest usage/capacity share, times the node count."""
+        share = max((u / c) for u, c in zip(usage, cap) if c > 0) \
+            if any(cap) else 0.0
+        return share * nodes
+
+    def _create_core_eval(self, core_job: str) -> None:
+        ev = s.Evaluation(
+            id=s.generate_uuid(), priority=s.JOB_MAX_PRIORITY,
+            type=s.JOB_TYPE_CORE, triggered_by=s.EVAL_TRIGGER_SCHEDULED,
+            job_id=core_job, status=s.EVAL_STATUS_PENDING)
+        self.raft.apply(MessageType.EVAL_UPDATE, {"evals": [ev]})
+
     def breaker(self):
         """The kernel breaker the batch schedulers use."""
         return (self.config.breaker if self.config.breaker is not None
@@ -815,6 +1034,12 @@ class Server:
         if not self._leader:
             return
         self.time_table.witness(self.raft.applied_index())
+        if ev.terminal_status():
+            # The job's driving eval is done: its placements are in the
+            # usage fold (or never will be), so its admission
+            # reservations have served.
+            self.quota_ledger.release(ev.job_id)
+            self.node_units_ledger.release(ev.job_id)
         if ev.should_enqueue():
             self.eval_broker.enqueue(ev)
         elif ev.should_block():
@@ -829,6 +1054,47 @@ class Server:
         if self._leader:
             self.blocked_evals.unblock(computed_class, index)
 
+    def _fsm_job_registered(self, job: s.Job) -> None:
+        if self._leader and job.is_periodic() and not job.stopped():
+            self.periodic.add(job)
+
+    def _fsm_job_deregistered(self, job_id: str) -> None:
+        if self._leader:
+            self.periodic.remove(job_id)
+            self.quota_ledger.release(job_id)
+            self.node_units_ledger.release(job_id)
+
+    def _fsm_namespace_updated(self, name: str,
+                               ns: Optional[s.Namespace]) -> None:
+        """A namespace row changed: refresh the policy mirrors (on every
+        server; the fairness weights matter only while leading but are
+        cheap to keep warm)."""
+        if ns is None:
+            self.eval_broker.drop_namespace_policy(name)
+            self.api_limiter.drop(name)
+            return
+        self.eval_broker.set_namespace_policy(
+            name, ns.dequeue_weight, ns.objective)
+        self.api_limiter.configure(name, ns.api_rate, float(ns.api_burst))
+
+    def _periodic_dispatch(self, parent: s.Job, derived: s.Job,
+                           launch_time: float) -> None:
+        """Register a periodic job's child and record the launch
+        (periodic.go:435 createEval).  Under ``prohibit_overlap`` a launch
+        is skipped while any earlier child has a live eval or alloc."""
+        if parent.periodic and parent.periodic.prohibit_overlap:
+            prefix = parent.id + PERIODIC_LAUNCH_SUFFIX
+            for child in self.state.jobs_by_id_prefix(None, prefix):
+                if any(not ev.terminal_status()
+                       for ev in self.state.evals_by_job(None, child.id)):
+                    return
+                if any(not a.terminal_status()
+                       for a in self.state.allocs_by_job(None, child.id)):
+                    return
+        self.job_register(derived)
+        self.raft.apply(MessageType.PERIODIC_LAUNCH_UPSERT,
+                        {"job_id": parent.id, "launch": launch_time})
+
     def _heartbeat_expired(self, node_id: str) -> None:
         """A missed heartbeat marks the node down, which makes node evals
         (heartbeat.go:86)."""
@@ -839,24 +1105,75 @@ class Server:
 
     # -- jobs --------------------------------------------------------------
 
+    def _check_tenant_admission(self, job: s.Job) -> None:
+        """The per-tenant front door, on the leader, before the log write
+        (server.py:1306-1355): the namespace's pending-eval quota (with
+        the broker's global cap), then an atomic check and reserve of its
+        live-alloc quota, then of its node-units quota.  A refusal raises
+        ``BrokerLimitError`` naming the namespace; a bypass-priority
+        submission skips the quotas."""
+        ns = job.namespace or s.DEFAULT_NAMESPACE
+        row = self.state.namespace_by_name(None, ns)
+        self.eval_broker.check_admission(
+            job.priority, namespace=ns,
+            ns_max_pending=row.max_pending_evals if row is not None else 0)
+        if row is None or job.priority >= self.eval_broker.bypass_priority:
+            return
+        count = sum(tg.count for tg in job.task_groups)
+        quota = row.max_live_allocs
+        if quota > 0:
+            live = self.state.namespace_usage_one(ns)[4]
+            if not self.quota_ledger.check_and_reserve(
+                    ns, job.id, count, live, quota):
+                self.eval_broker.note_quota_reject(ns)
+                asked = live + self.quota_ledger.reserved(ns) + count
+                retry_after = min(5.0, 0.2 + 0.3 * (asked / quota))
+                raise BrokerLimitError(retry_after, asked, quota,
+                                       namespace=ns)
+        units_quota = row.quota_node_units
+        if units_quota > 0:
+            self._refresh_capacity()
+            cap, nodes = self._cluster_capacity, self._cluster_nodes
+            if nodes > 0:
+                used = self._node_units(
+                    self.state.namespace_usage_one(ns)[:4], cap, nodes)
+                ask = self._node_units(_job_usage_vec(job), cap, nodes)
+                if not self.node_units_ledger.check_and_reserve(
+                        ns, job.id, ask, used, units_quota):
+                    # The registration is refused: roll back the
+                    # live-alloc reservation made above.
+                    self.quota_ledger.release(job.id)
+                    self.eval_broker.note_quota_reject(ns)
+                    asked = used + self.node_units_ledger.reserved(ns) + ask
+                    retry_after = min(
+                        5.0, 0.2 + 0.3 * (asked / units_quota))
+                    raise BrokerLimitError(
+                        retry_after, math.ceil(asked),
+                        math.ceil(units_quota), namespace=ns)
+
     def job_register(self, job: s.Job) -> Tuple[int, str]:
-        """(job_endpoint.go:47 Register): validate, then the job and its
-        registration eval through the log.  Returns (modify_index,
-        eval_id)."""
+        """(job_endpoint.go:47 Register): validate, then the job and, unless
+        it is periodic or parameterized, its registration eval through
+        the log.  Returns (modify_index, eval_id); the eval id is empty
+        when no eval was made."""
         job = job.copy()
         job.canonicalize()
         problems = job.validate()
         if problems:
             raise ValueError("job validation failed: " + "; ".join(problems))
-        # Admission at the front door, before anything is written.
-        if self._leader:
-            self.eval_broker.check_admission(job.priority)
+        # Admission at the front door, before anything is written; only
+        # evals-to-be are gated.
+        makes_eval = not job.is_periodic() and not job.is_parameterized()
+        if self._leader and makes_eval:
+            self._check_tenant_admission(job)
         try:
             _, index = self.raft.apply(MessageType.JOB_REGISTER,
                                        {"job": job})
         except NotLeaderError as e:
             reply = self._forward("Job.Register", {"Job": job}, e)
             return reply["Index"], reply["EvalID"]
+        if not makes_eval:
+            return index, ""
         ev = s.Evaluation(
             id=s.generate_uuid(), priority=job.priority, type=job.type,
             namespace=job.namespace,
@@ -877,8 +1194,12 @@ class Server:
         job = self.state.job_by_id(None, job_id)
         if job is None:
             raise KeyError(f"job not found: {job_id}")
+        if job.is_periodic():
+            raise ValueError("can't evaluate periodic job")
+        if job.is_parameterized():
+            raise ValueError("can't evaluate parameterized job")
         if self._leader:
-            self.eval_broker.check_admission(job.priority)
+            self._check_tenant_admission(job)
         ev = s.Evaluation(
             id=s.generate_uuid(), priority=job.priority, type=job.type,
             namespace=job.namespace,
@@ -898,8 +1219,9 @@ class Server:
 
     def job_deregister(self, job_id: str,
                        purge: bool = True) -> Tuple[int, str]:
-        """(job_endpoint.go Deregister): the job stopped (or purged) and
-        a deregistration eval."""
+        """(job_endpoint.go Deregister): the job stopped (or purged) and,
+        unless it is periodic or parameterized, a deregistration eval
+        (the eval id is empty then)."""
         job = self.state.job_by_id(None, job_id)
         if job is None:
             raise KeyError(f"job not found: {job_id}")
@@ -910,6 +1232,8 @@ class Server:
             reply = self._forward("Job.Deregister",
                                   {"JobID": job_id, "Purge": purge}, e)
             return reply["Index"], reply["EvalID"]
+        if job.is_periodic() or job.is_parameterized():
+            return index, ""
         ev = s.Evaluation(
             id=s.generate_uuid(), priority=job.priority, type=job.type,
             namespace=job.namespace,
@@ -922,9 +1246,9 @@ class Server:
         """Dry-run scheduling (job_endpoint.go:~490 Plan): the job's
         scheduler (the CPU oracle of ``job.type``, as in the reference, not
         the batch worker) runs synchronously over a snapshot holding the
-        job, into a ``Harness``; returns the annotated job diff and the
-        placement forensics.  Nothing is committed to the store.  The port
-        has no periodic jobs, so ``next_periodic_launch`` stays 0."""
+        job, into a ``Harness``; returns the annotated job diff, the
+        placement forensics and, for a periodic job, its next launch
+        after now.  Nothing is committed to the store."""
         old_job = self.state.job_by_id(None, job.id)
         job = job.copy()
         job.canonicalize()
@@ -955,7 +1279,78 @@ class Server:
         if diff:
             resp.diff = job_diff(old_job, job)
             annotate(resp.diff, plan.annotations)
+        if job.is_periodic():
+            resp.next_periodic_launch = job.periodic.next(s.now())
         return resp
+
+    def periodic_force(self, job_id: str) -> Optional[s.Job]:
+        """Launch a periodic job's child now (periodic_endpoint.go Force):
+        the child job, or None when the job is not tracked."""
+        if not self._leader:
+            reply = self._forward("Periodic.Force", {"JobID": job_id})
+            child_id = reply.get("ChildJobID", "")
+            if not child_id:
+                return None
+            child = self.state.job_by_id(None, child_id)
+            return child or s.Job(id=child_id, name=child_id)
+        return self.periodic.force_run(job_id)
+
+    def job_dispatch(self, job_id: str, payload: bytes,
+                     meta: Dict[str, str]) -> Tuple[int, str, str]:
+        """An instance of a parameterized job (job_endpoint.go Dispatch):
+        the meta keys and the payload checked against the job's config,
+        then a child carrying them admitted, registered and given its
+        eval.  Returns (index, dispatched job id, eval id)."""
+        parent = self.state.job_by_id(None, job_id)
+        if parent is None:
+            raise KeyError(f"job not found: {job_id}")
+        if not parent.is_parameterized():
+            raise ValueError(f"job {job_id!r} is not parameterized")
+        cfg = parent.parameterized_job
+        if cfg.payload == "required" and not payload:
+            raise ValueError("payload is required by this parameterized job")
+        if cfg.payload == "forbidden" and payload:
+            raise ValueError("payload is forbidden by this parameterized job")
+        if len(payload) > DISPATCH_PAYLOAD_MAX:
+            raise ValueError("payload exceeds maximum size of 16KiB")
+        keys = set(meta)
+        required = set(cfg.meta_required)
+        allowed = required | set(cfg.meta_optional)
+        if required - keys:
+            raise ValueError("missing required dispatch metadata: "
+                             + ", ".join(sorted(required - keys)))
+        if keys - allowed:
+            raise ValueError("dispatch metadata not allowed: "
+                             + ", ".join(sorted(keys - allowed)))
+
+        child = parent.copy()
+        child.parent_id = parent.id
+        child.id = (f"{parent.id}/dispatch-{int(s.now())}-"
+                    f"{s.generate_uuid()[:8]}")
+        child.name = child.id
+        child.parameterized_job = None
+        child.payload = payload
+        child.meta = dict(parent.meta)
+        child.meta.update(meta)
+        child.status = s.JOB_STATUS_PENDING
+        if self._leader:
+            self._check_tenant_admission(child)
+        try:
+            _, index = self.raft.apply(MessageType.JOB_REGISTER,
+                                       {"job": child})
+        except NotLeaderError as e:
+            reply = self._forward("Job.Dispatch",
+                                  {"JobID": job_id, "Payload": payload,
+                                   "Meta": meta}, e)
+            return (reply["Index"], reply["DispatchedJobID"],
+                    reply["EvalID"])
+        ev = s.Evaluation(
+            id=s.generate_uuid(), priority=child.priority, type=child.type,
+            namespace=child.namespace,
+            triggered_by=s.EVAL_TRIGGER_JOB_REGISTER, job_id=child.id,
+            job_modify_index=index, status=s.EVAL_STATUS_PENDING)
+        self.raft.apply(MessageType.EVAL_UPDATE, {"evals": [ev]})
+        return index, child.id, ev.id
 
     # -- nodes -------------------------------------------------------------
 
@@ -1029,6 +1424,17 @@ class Server:
             return True
         return new == s.NODE_STATUS_READY and old in (
             s.NODE_STATUS_DOWN, s.NODE_STATUS_INIT)
+
+    def node_update_allocs(self, allocs: List[s.Allocation]) -> int:
+        """The client's alloc status sync (node_endpoint.go:657
+        UpdateAlloc): the client-authoritative fields through the log."""
+        try:
+            _, index = self.raft.apply(MessageType.ALLOC_CLIENT_UPDATE,
+                                       {"allocs": allocs})
+        except NotLeaderError as e:
+            return self._forward("Node.UpdateAlloc",
+                                 {"Allocs": list(allocs)}, e)["Index"]
+        return index
 
     def node_update_drain(self, node_id: str, drain: bool) -> int:
         node = self.state.node_by_id(None, node_id)
@@ -1235,7 +1641,96 @@ class Server:
                     "redelivered; stale delivery's plan rejected")
         return self.plan_queue.enqueue(plan)
 
+    # -- system and namespaces (system_endpoint.go, the tenancy plane) ----
+
+    def system_gc(self) -> None:
+        """A force-gc core eval (system_endpoint.go GarbageCollect)."""
+        try:
+            self._create_core_eval(s.CORE_JOB_FORCE_GC)
+        except NotLeaderError as e:
+            self._forward("System.GarbageCollect", {}, e)
+
+    def system_reconcile_summaries(self) -> None:
+        try:
+            self.raft.apply(MessageType.RECONCILE_JOB_SUMMARIES, {})
+        except NotLeaderError as e:
+            self._forward("System.ReconcileJobSummaries", {}, e)
+
+    def namespace_upsert(self, ns: s.Namespace) -> int:
+        """Register or update a tenant through the log, like a job; the
+        FSM hook refreshes the policy mirrors."""
+        ns = ns.copy()
+        problems = ns.validate()
+        if problems:
+            raise ValueError(
+                "namespace validation failed: " + "; ".join(problems))
+        try:
+            _, index = self.raft.apply(MessageType.NAMESPACE_UPSERT,
+                                       {"namespace": ns})
+        except NotLeaderError as e:
+            return self._forward("Namespace.Upsert", {"Namespace": ns},
+                                 e)["Index"]
+        return index
+
+    def namespace_delete(self, name: str) -> int:
+        if name == s.DEFAULT_NAMESPACE:
+            raise ValueError("cannot delete the default namespace")
+        if self.state.namespace_by_name(None, name) is None:
+            raise KeyError(f"namespace not found: {name}")
+        try:
+            _, index = self.raft.apply(MessageType.NAMESPACE_DELETE,
+                                       {"name": name})
+        except NotLeaderError as e:
+            return self._forward("Namespace.Delete", {"Name": name},
+                                 e)["Index"]
+        return index
+
+    def namespace_list(self) -> List[s.Namespace]:
+        return self.state.namespaces(None)
+
+    def namespace_status(self, name: str) -> Dict:
+        """One tenant's row, its live usage and its reservations and
+        pending evals (the namespace-status read)."""
+        row = self.state.namespace_by_name(None, name)
+        if row is None:
+            raise KeyError(f"namespace not found: {name}")
+        cpu, mem, disk, iops, live = self.state.namespace_usage_one(name)
+        self._refresh_capacity()
+        cap, nodes = self._cluster_capacity, self._cluster_nodes
+        return {
+            "Namespace": row,
+            "Usage": {"CPU": cpu, "MemoryMB": mem, "DiskMB": disk,
+                      "IOPS": iops, "LiveAllocs": live,
+                      "NodeUnits": self._node_units(
+                          (cpu, mem, disk, iops), cap, nodes)},
+            "ReservedAllocs": self.quota_ledger.reserved(name),
+            "ReservedNodeUnits": self.node_units_ledger.reserved(name),
+            "PendingEvals": self.eval_broker.ns_pending_count(name),
+        }
+
     # -- reads -------------------------------------------------------------
+
+    def broker_stats(self) -> Dict:
+        """The broker's saturation surface (server.py:2175): its
+        admission and coalesce state and tenant rows, the plan queue's
+        depth, blocked evals and the follower-scheduling view."""
+        out = self.eval_broker.extended_stats()
+        out["PlanQueueDepth"] = self.plan_queue.depth()
+        out["BlockedEvals"] = self.blocked_evals.stats()
+        out["FollowerSched"] = self._follower_sched_stats()
+        return out
+
+    def _follower_sched_stats(self) -> Dict:
+        """What this server forwards to the leader, and how far its
+        replica lags the commit horizon it knows (server.py:2182-2193)."""
+        fs: Dict = {"Enabled": bool(self.follower_workers),
+                    "IsLeader": self._leader}
+        if self.leader_channel is not None:
+            fs.update(self.leader_channel.stats())
+        if isinstance(self.raft, MultiRaft):
+            fs["SnapshotLag"] = max(0, self.raft.commit_index
+                                    - self.raft.applied_index_relaxed())
+        return fs
 
     def stats(self) -> dict:
         out = {
@@ -1248,15 +1743,5 @@ class Server:
         }
         if self._events_enabled:
             out["events"] = self.event_broker.stats()
-        # Follower-read scheduling (server.py:2182-2193): what this server
-        # forwards to the leader, and how far its replica lags the commit
-        # horizon it knows.
-        fs: Dict = {"Enabled": bool(self.follower_workers),
-                    "IsLeader": self._leader}
-        if self.leader_channel is not None:
-            fs.update(self.leader_channel.stats())
-        if isinstance(self.raft, MultiRaft):
-            fs["SnapshotLag"] = max(0, self.raft.commit_index
-                                    - self.raft.applied_index_relaxed())
-        out["FollowerSched"] = fs
+        out["FollowerSched"] = self._follower_sched_stats()
         return out

@@ -12,12 +12,15 @@ BatchWorker   — drains the broker into batches of up to ``max_batch``
                 service and batch evals and runs one
                 ``TorchBatchScheduler`` per batch over a fresh snapshot
                 (serially, or in the reference's pipelined order); system
-                evals go through ``torch-system`` one at a time.
+                evals go through ``torch-system`` and core (GC) evals
+                through ``CoreScheduler`` one at a time.
 
 The reference reads the stale-snapshot and pipeline switches from its
 environment (worker.py:36, :471); here they are constructor arguments
 (``stale_snapshot``, ``pipeline``), and the server's config carries them.
-Core (GC) evals are not dequeued until the core scheduler is ported.
+A core eval needs a snapshot that covers the applied index
+(worker.py:370-374), so a GC sweep sees every terminal row; the follower
+workers do not take core evals.
 Both drains are traced as the reference's are: ``worker.process_batch``
 (a retroactive span in the pipelined drain, whose phases interleave
 batches on one thread), ``worker.wait_for_index``, one ``worker.attempt``
@@ -126,8 +129,8 @@ class WorkerPlanner:
 class Worker:
     """One scheduling worker (count = num_schedulers, config.go:250): the
     per-eval loop over ``schedulers`` (the CPU schedulers of each eval's
-    type; core evals are not dequeued until the core scheduler is
-    ported) and the planner plumbing the batch worker builds on."""
+    type, and ``CoreScheduler`` for core evals over ``time_table``'s GC
+    thresholds) and the planner plumbing the batch worker builds on."""
 
     def __init__(
         self,
@@ -140,10 +143,13 @@ class Worker:
         stale_snapshot: bool = True,
         scheduler_kwargs: Optional[dict] = None,
         schedulers: Optional[List[str]] = None,
+        time_table=None,
     ):
         self.broker = broker
         self.schedulers = list(schedulers or [
-            s.JOB_TYPE_SERVICE, s.JOB_TYPE_BATCH, s.JOB_TYPE_SYSTEM])
+            s.JOB_TYPE_SERVICE, s.JOB_TYPE_BATCH, s.JOB_TYPE_SYSTEM,
+            s.JOB_TYPE_CORE])
+        self.time_table = time_table
         self.plan_queue = plan_queue
         self.raft = raft
         self.metrics = metrics if metrics is not None else NULL_TELEMETRY
@@ -330,7 +336,10 @@ class Worker:
         unblock index or last attempt) and the job's newest committed
         plan (plan_queue.applied_index_for), since an eval created
         before the job's previous plan applied can be dequeued after
-        it."""
+        it.  A core eval needs the applied index itself: a GC sweep off
+        a cached snapshot would not see the newest terminal rows."""
+        if ev.type == s.JOB_TYPE_CORE:
+            return self.raft.applied_index()
         return max(ev.trigger_index(),
                    self.plan_queue.applied_index_for(ev.job_id))
 
@@ -365,6 +374,12 @@ class Worker:
         snapshot_index, snap = self._snapshot_covering(required)
         planner = WorkerPlanner(self, ev, token,
                                 snapshot_index=snapshot_index)
+        if ev.type == s.JOB_TYPE_CORE:
+            from .core_sched import CoreScheduler
+
+            CoreScheduler(self.logger, snap, planner, self.raft,
+                          time_table=self.time_table).process(ev)
+            return
         sched = new_scheduler(self.sched_name(ev), self.logger, snap,
                               planner)
         sched.process(ev)
@@ -450,13 +465,14 @@ class BatchWorker(Worker):
                     with self.metrics.measure(
                             "worker.invoke_scheduler.batch"):
                         self.process_batch(batch)
-            # Always also poll system evals (zero timeout), so a
-            # sustained service/batch stream cannot starve them.
-            self._poll_system()
+            # Always also poll system and core evals (zero timeout), so
+            # a sustained service/batch stream cannot starve them.
+            self._poll_system_core()
 
-    def _poll_system(self) -> None:
+    def _poll_system_core(self) -> None:
         try:
-            ev, token = self.broker.dequeue([s.JOB_TYPE_SYSTEM], 0)
+            ev, token = self.broker.dequeue(
+                [s.JOB_TYPE_SYSTEM, s.JOB_TYPE_CORE], 0)
         except EvalBrokerError:
             return
         if ev is not None:
@@ -567,7 +583,7 @@ class BatchWorker(Worker):
                 break
             ctx = self._pipeline_prepare(nxt)
             self._pipeline_finish(pending)
-            self._poll_system()
+            self._poll_system_core()
             pending = (self._pipeline_dispatch(ctx)
                        if ctx is not None else None)
         if pending is not None:

@@ -33,7 +33,23 @@ publishes (state_store.py:295).
 
 The store also keeps the periodic launches, the vault accessors (with
 their by-alloc and by-node indexes) and the namespaces, which the FSM
-applies and the snapshot carries.
+applies and the snapshot carries, and the per-namespace usage fold
+(state_store.py:168-173): every alloc write that logs a usage delta also
+folds it into its namespace's ``(cpu, memory_mb, disk_mb, iops,
+live_allocs)`` row and marks the namespace dirty
+(:meth:`StateStore.namespace_usage`, :meth:`StateStore.drain_ns_dirty`;
+the quota ledger and the broker's DRF order read it).  The fold is
+rebuilt from the rows at a restore, not persisted.
+
+The GC path (state_store.py:962-985, :1165-1185):
+:meth:`StateStore.delete_eval` removes evals and allocs (slab rows
+included: pending slabs are materialized, and the ids leave every
+per-node, per-job and per-eval index), logs a negative usage delta for
+a non-terminal alloc, rolls the jobs' statuses (the ``eval_delete``
+branch) and publishes one ``EvalDeleted`` an eval.  A job whose status
+moves rolls the move into its parent's children summary;
+:meth:`StateStore.reconcile_job_summaries` rebuilds the summaries from
+the allocs.
 
 Persistence (state_store.py:1966-2400): :meth:`StateStore.persist` writes
 the FSM snapshot, :meth:`StateStore.restore` rebuilds a store from one.
@@ -47,9 +63,7 @@ persisted: a restored store is a new lineage whose delta-log floor sits
 at the restored allocs index, so every cache keyed on the old one misses.
 
 Left out of the copy: deployments and job version history (the snapshot
-has no sections for them), the per-namespace usage fold of the delta
-log, eval delete (the GC path; its ``EvalDeleted`` publish comes with it,
-ROADMAP queue 1 item 18) and watch sets.  The ``ws`` argument of the
+has no sections for them) and watch sets.  The ``ws`` argument of the
 readers is kept for the interface and ignored.
 """
 from __future__ import annotations
@@ -121,6 +135,12 @@ class StateStore:
         self.vault_accessors_table: Dict[str, VaultAccessor] = {}
         self.namespaces_table: Dict[str, s.Namespace] = {}
         self._indexes: Dict[str, int] = {}
+        # The per-namespace usage fold: immutable (cpu, mem_mb, disk_mb,
+        # iops, live_allocs) tuples kept at the same sites that feed the
+        # usage-delta log, and the namespaces changed since the last
+        # drain_ns_dirty (the broker's DRF feed).
+        self._ns_usage: Dict[str, Tuple[int, int, int, int, int]] = {}
+        self._ns_dirty: Set[str] = set()
         # Secondary indexes (schema.go secondary memdb indexes).
         self._allocs_by_node: Dict[str, object] = defaultdict(set)
         self._allocs_by_job: Dict[str, object] = defaultdict(set)
@@ -170,6 +190,10 @@ class StateStore:
             snap.periodic_launch_table = dict(self.periodic_launch_table)
             snap.vault_accessors_table = dict(self.vault_accessors_table)
             snap.namespaces_table = dict(self.namespaces_table)
+            # The fold's values are immutable tuples: a shallow copy is a
+            # full fork, and a snapshot's writes never dirty the parent.
+            snap._ns_usage = dict(self._ns_usage)
+            snap._ns_dirty = set(self._ns_dirty)
             snap._indexes = dict(self._indexes)
             # Index values are immutable by contract (the mutators
             # replace them), so a shallow dict copy is a full fork.
@@ -575,12 +599,14 @@ class StateStore:
                             "Namespace": job.namespace})
 
     def delete_job(self, index: int, job_id: str) -> None:
-        """(state_store.go:653): removes the job and its summary."""
+        """(state_store.go:653): removes the job, its summary and its
+        periodic launch."""
         with self._lock:
             if job_id not in self.jobs_table:
                 raise KeyError(f"job not found: {job_id}")
             del self.jobs_table[job_id]
             self.job_summary_table.pop(job_id, None)
+            self.periodic_launch_table.pop(job_id, None)
             self._bump("jobs", index)
             self._bump("job_summary", index)
         eb = self.event_broker
@@ -605,6 +631,24 @@ class StateStore:
         with self._lock:
             return [j for j in self.jobs_table.values()
                     if j.type == sched_type]
+
+    def jobs_by_id_prefix(self, ws, prefix: str) -> List[s.Job]:
+        with self._lock:
+            return [j for jid, j in self.jobs_table.items()
+                    if jid.startswith(prefix)]
+
+    def jobs_by_periodic(self, ws, periodic: bool) -> List[s.Job]:
+        with self._lock:
+            return [j for j in self.jobs_table.values()
+                    if j.is_periodic() == periodic]
+
+    def jobs_by_gc(self, ws, gc: bool) -> List[s.Job]:
+        """Jobs by whether GC may reap them: batch jobs and the children
+        of periodic and parameterized jobs (state_store.py:801)."""
+        with self._lock:
+            return [j for j in self.jobs_table.values()
+                    if (j.type == s.JOB_TYPE_BATCH or j.parent_id != "")
+                    == gc]
 
     def _update_summary_with_job(self, index: int, job: s.Job) -> None:
         """Create or extend the summary when a job is upserted
@@ -797,9 +841,41 @@ class StateStore:
         self.evals_table[ev.id] = ev
         self._idx_add(self._evals_by_job, ev.job_id, ev.id)
 
+    def delete_eval(self, index: int, eval_ids: List[str],
+                    alloc_ids: List[str]) -> None:
+        """(state_store.go:1235) The GC path: evals and their allocs out
+        of the store, the jobs' statuses rolled with ``eval_delete``, and
+        one ``EvalDeleted`` an eval."""
+        deleted: List[str] = []
+        with self._lock:
+            jobs: Dict[str, str] = {}
+            for eid in eval_ids:
+                ev = self.evals_table.pop(eid, None)
+                if ev is None:
+                    continue
+                self._idx_discard(self._evals_by_job, ev.job_id, eid)
+                jobs.setdefault(ev.job_id, "")
+                deleted.append(eid)
+            for aid in alloc_ids:
+                self._remove_alloc(aid, index)
+            self._bump("evals", index)
+            self._bump("allocs", index)
+            self._set_job_statuses(index, jobs, eval_delete=True)
+        eb = self.event_broker
+        if eb is not None and deleted:
+            eb.publish([eb.make_event(s.TOPIC_EVAL, "EvalDeleted", eid,
+                                      index, eval_id=eid)
+                        for eid in deleted])
+
     def eval_by_id(self, ws, eval_id: str) -> Optional[s.Evaluation]:
         with self._lock:
             return self.evals_table.get(eval_id)
+
+    def evals_by_job(self, ws, job_id: str) -> List[s.Evaluation]:
+        with self._lock:
+            return [self.evals_table[eid]
+                    for eid in self._idx_get(self._evals_by_job, job_id)
+                    if eid in self.evals_table]
 
     def evals(self, ws=None) -> List[s.Evaluation]:
         with self._lock:
@@ -944,6 +1020,28 @@ class StateStore:
             self._bump("allocs", index)
         if events:
             eb.publish(events)
+
+    def _remove_alloc(self, alloc_id: str, index: int = 0) -> None:
+        """One alloc out of the table and its indexes (the caller holds
+        the lock); a slab's id leaves its slab's row behind for the
+        others.  A live alloc's usage leaves the delta log and the fold."""
+        if self._pending_slabs:
+            self._materialize_pending()
+        alloc = self.allocs_table.pop(alloc_id, None)
+        if alloc is None:
+            return
+        if type(alloc) is s.AllocSlab:
+            node_id = alloc.node_ids[alloc.id_index(alloc_id)]
+            row = alloc.proto
+        else:
+            node_id, row = alloc.node_id, alloc
+        if index and not row.terminal_status():
+            c, m, d, i = s.alloc_usage_vec(row)
+            self._log_usage(index, node_id, (-c, -m, -d, -i))
+            self._ns_fold(row.namespace, -c, -m, -d, -i, -1)
+        self._idx_discard(self._allocs_by_node, node_id, alloc_id)
+        self._idx_discard(self._allocs_by_job, row.job_id, alloc_id)
+        self._idx_discard(self._allocs_by_eval, row.eval_id, alloc_id)
 
     def alloc_by_id(self, ws, alloc_id: str) -> Optional[s.Allocation]:
         with self._lock:
@@ -1095,6 +1193,13 @@ class StateStore:
         self._alloc_log_len += 1
         self._alloc_log_weight += len(slab.ids)
         self._log_trim()
+        # The fold: one update a slab, its n live rows sharing the
+        # prototype's usage.
+        proto = slab.proto
+        if not proto.terminal_status():
+            n = len(slab.ids)
+            c, m, d, i = s.alloc_usage_vec(proto)
+            self._ns_fold(proto.namespace, c * n, m * n, d * n, i * n, n)
 
     def _log_transition(self, index: int, existing: Optional[s.Allocation],
                         updated: s.Allocation) -> None:
@@ -1108,12 +1213,66 @@ class StateStore:
             self._log_usage(index, updated.node_id,
                             (nv[0] - ov[0], nv[1] - ov[1],
                              nv[2] - ov[2], nv[3] - ov[3]))
+            if nv != ov:
+                self._ns_fold(updated.namespace, nv[0] - ov[0],
+                              nv[1] - ov[1], nv[2] - ov[2], nv[3] - ov[3],
+                              0)
             return
         if old_live:
             c, m, d, i = vec(existing)
             self._log_usage(index, existing.node_id, (-c, -m, -d, -i))
+            self._ns_fold(existing.namespace, -c, -m, -d, -i, -1)
         if new_live:
-            self._log_usage(index, updated.node_id, vec(updated))
+            v = vec(updated)
+            self._log_usage(index, updated.node_id, v)
+            self._ns_fold(updated.namespace, v[0], v[1], v[2], v[3], 1)
+
+    # -- the per-namespace usage fold ----------------------------------------
+
+    def namespace_usage(self) -> Dict[str, Tuple[int, int, int, int, int]]:
+        """(cpu, mem_mb, disk_mb, iops, live_allocs) of every namespace
+        (state_store.py:1601)."""
+        with self._lock:
+            return dict(self._ns_usage)
+
+    def namespace_usage_one(
+            self, name: str) -> Tuple[int, int, int, int, int]:
+        """One namespace's row: the quota check's read."""
+        with self._lock:
+            return self._ns_usage.get(name or s.DEFAULT_NAMESPACE,
+                                      (0, 0, 0, 0, 0))
+
+    def drain_ns_dirty(self) -> Set[str]:
+        """The namespaces whose usage changed since the last drain."""
+        with self._lock:
+            dirty = self._ns_dirty
+            self._ns_dirty = set()
+            return dirty
+
+    def _ns_fold(self, ns: str, dc: int, dm: int, dd: int, di: int,
+                 dn: int) -> None:
+        """One alloc write's delta into its namespace's row (the caller
+        holds the lock)."""
+        key = ns or s.DEFAULT_NAMESPACE
+        cur = self._ns_usage.get(key, (0, 0, 0, 0, 0))
+        self._ns_usage[key] = (cur[0] + dc, cur[1] + dm, cur[2] + dd,
+                               cur[3] + di, cur[4] + dn)
+        self._ns_dirty.add(key)
+
+    def _rebuild_ns_usage(self) -> None:
+        """The fold recomputed from the alloc rows (the restore path)."""
+        usage: Dict[str, Tuple[int, int, int, int, int]] = {}
+        for _nid, row in self.alloc_rows():
+            if row.terminal_status():
+                continue
+            c, m, d, i = s.alloc_usage_vec(row)
+            key = row.namespace or s.DEFAULT_NAMESPACE
+            cur = usage.get(key, (0, 0, 0, 0, 0))
+            usage[key] = (cur[0] + c, cur[1] + m, cur[2] + d, cur[3] + i,
+                          cur[4] + 1)
+        with self._lock:
+            self._ns_usage = usage
+            self._ns_dirty = set(usage)
 
     def allocs_since(self, index: int
                      ) -> Optional[List[Tuple[str, Tuple[int, int, int,
@@ -1255,15 +1414,43 @@ class StateStore:
             job = self.jobs_table.get(job_id)
             if job is None:
                 continue
-            old_status = job.status if index != job.create_index else ""
-            new_status = forced or self._get_job_status(job, eval_delete)
-            if old_status == new_status:
-                continue
-            updated = job.copy()
-            updated.status = new_status
-            updated.modify_index = index
-            self.jobs_table[job.id] = updated
-            self._bump("jobs", index)
+            self._set_job_status(index, job, eval_delete, forced)
+
+    _CHILD_STATUS = {s.JOB_STATUS_PENDING: "pending",
+                     s.JOB_STATUS_RUNNING: "running",
+                     s.JOB_STATUS_DEAD: "dead"}
+
+    def _set_job_status(self, index: int, job: s.Job, eval_delete: bool,
+                        forced: str) -> None:
+        """(state_store.go:1993): the job's new status, rolled into its
+        parent's children summary."""
+        old_status = job.status if index != job.create_index else ""
+        new_status = forced or self._get_job_status(job, eval_delete)
+        if old_status == new_status:
+            return
+        updated = job.copy()
+        updated.status = new_status
+        updated.modify_index = index
+        self.jobs_table[job.id] = updated
+        self._bump("jobs", index)
+        if not updated.parent_id:
+            return
+        psummary = self.job_summary_table.get(updated.parent_id)
+        if psummary is None:
+            return
+        psummary = psummary.copy()
+        if psummary.children is None:
+            psummary.children = s.JobChildrenSummary()
+        ch = psummary.children
+        f = self._CHILD_STATUS.get(old_status)
+        if f is not None:
+            setattr(ch, f, getattr(ch, f) - 1)
+        f = self._CHILD_STATUS.get(new_status)
+        if f is not None:
+            setattr(ch, f, getattr(ch, f) + 1)
+        psummary.modify_index = index
+        self.job_summary_table[updated.parent_id] = psummary
+        self._bump("job_summary", index)
 
     def _get_job_status(self, job: s.Job, eval_delete: bool) -> str:
         """(state_store.go:2092)."""
@@ -1295,6 +1482,8 @@ class StateStore:
             return s.JOB_STATUS_DEAD if job.stop else s.JOB_STATUS_RUNNING
         if eval_delete or has_eval or has_alloc:
             return s.JOB_STATUS_DEAD
+        if job.is_periodic() or job.is_parameterized():
+            return s.JOB_STATUS_DEAD if job.stop else s.JOB_STATUS_RUNNING
         return s.JOB_STATUS_PENDING
 
     def _update_summary_with_alloc(
@@ -1351,6 +1540,39 @@ class StateStore:
         if changed:
             summary.modify_index = index
             self.job_summary_table[alloc.job_id] = summary
+            self._bump("job_summary", index)
+
+    def reconcile_job_summaries(self, index: int) -> None:
+        """Every summary rebuilt from the allocs (state_store.go:1883)."""
+        with self._lock:
+            if self._pending_slabs:
+                self._materialize_pending()
+            for job in list(self.jobs_table.values()):
+                summary = s.JobSummary(job_id=job.id,
+                                       create_index=job.create_index,
+                                       modify_index=index)
+                for tg in job.task_groups:
+                    summary.summary[tg.name] = s.TaskGroupSummary()
+                for aid in self._idx_get(self._allocs_by_job, job.id):
+                    alloc = self.allocs_table.get(aid)
+                    if type(alloc) is s.AllocSlab:
+                        alloc = alloc.proto
+                    if (alloc is None
+                            or alloc.task_group not in summary.summary):
+                        continue
+                    tgs = summary.summary[alloc.task_group]
+                    cs = alloc.client_status
+                    if cs == s.ALLOC_CLIENT_STATUS_FAILED:
+                        tgs.failed += 1
+                    elif cs == s.ALLOC_CLIENT_STATUS_LOST:
+                        tgs.lost += 1
+                    elif cs == s.ALLOC_CLIENT_STATUS_COMPLETE:
+                        tgs.complete += 1
+                    elif cs == s.ALLOC_CLIENT_STATUS_RUNNING:
+                        tgs.running += 1
+                    elif cs == s.ALLOC_CLIENT_STATUS_PENDING:
+                        tgs.starting += 1
+                self.job_summary_table[job.id] = summary
             self._bump("job_summary", index)
 
     # -- persistence (the FSM snapshot) ------------------------------------
@@ -1509,6 +1731,7 @@ class StateStore:
         else:
             store = cls._restore_legacy(blob, alloc_log_cap, columnar)
         store._alloc_log_floor = store._indexes.get("allocs", 0)
+        store._rebuild_ns_usage()
         return store
 
     def _restore_common(self, t: dict) -> None:

@@ -13,10 +13,10 @@ renders its typed objects: ``ObjectDiff``\\ s named ``Vault``,
 ``Template`` and ``Artifact`` whose fields are the keys' Go names, and,
 where a list goes from empty to not empty, a scalar diff of each
 element's dataclass repr, as the reference's walk does.  The diff covers
-the fields the port carries; the reference also reports
-``ParentID``, ``Periodic``, ``ParameterizedJob``, ``RestartPolicy``,
-``Service``, ``DispatchPayload``, ``KillTimeout``, ``LogConfig`` and
-``Leader``.
+the fields the port carries (``ParentID``, ``Periodic``,
+``ParameterizedJob`` and a task's ``DispatchPayload`` among them); the
+reference also reports the client's task fields ``RestartPolicy``,
+``Service``, ``KillTimeout``, ``LogConfig`` and ``Leader``.
 """
 
 from __future__ import annotations
@@ -39,8 +39,11 @@ _OBJECT_NAMES = {
     s.Constraint: "Constraint",
     s.EphemeralDisk: "EphemeralDisk",
     s.UpdateStrategy: "Update",
+    s.PeriodicConfig: "Periodic",
+    s.ParameterizedJobConfig: "ParameterizedJob",
     s.Resources: "Resources",
     s.NetworkResource: "Network",
+    s.DispatchPayloadConfig: "DispatchPayload",
     s.Port: "Port",
 }
 
@@ -276,11 +279,11 @@ def object_diff(old: Any, new: Any, contextual: bool = False) -> Optional[Object
 
 # Fields that are bookkeeping, not part of the user-visible spec
 # (diff.go:69-80 filters these from the job diff; the reference also
-# names payload, vault_token, stable and submit_time, which the port's
-# Job does not carry).
+# names vault_token, stable and submit_time, which the port's Job does
+# not carry).
 _JOB_EXCLUDE = frozenset({
     "id", "status", "status_description", "version", "create_index",
-    "modify_index", "job_modify_index", "task_groups",
+    "modify_index", "job_modify_index", "payload", "task_groups",
 })
 _TG_EXCLUDE = frozenset({"name", "tasks"})
 _TASK_EXCLUDE = frozenset({"name"})

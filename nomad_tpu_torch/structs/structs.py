@@ -1,30 +1,32 @@
 """Host-side data model: a copy of ``nomad_tpu/structs/structs.py``, trimmed
-to what batch placement and the batch scheduler read and write (nodes,
-jobs, allocations with their placement forensics, evaluations, plans and
-their results, the columnar alloc slabs).  Resource quantities are 4
-scalar ints (cpu, memory_mb, disk_mb, iops) so they lower directly to the
-int32 ``[N, 4]`` / ``[U, 4]`` tensors in ``ops/encode.py``.
+to what batch placement, the batch scheduler and the server path read and
+write (nodes, jobs with their periodic and parameterized configs,
+allocations with their placement forensics, evaluations, plans and their
+results, the columnar alloc slabs, the namespaces and the job summaries
+with their children counts).  Resource quantities are 4 scalar ints (cpu,
+memory_mb, disk_mb, iops) so they lower directly to the int32 ``[N, 4]`` /
+``[U, 4]`` tensors in ``ops/encode.py``.
 
-Left out of the copy: periodic and parameterized jobs, services, vault,
-templates and artifacts as types (a task keeps the last three as plain
-data, compared by the in-place update test and rendered by the job
-diff, ``structs/diff.py``, as the reference renders their types), and
-deployments.  ``Namespace`` is here (the state store keeps its table and
-the snapshot carries it; the tenancy hooks on it come later).  The event
-stream's structs (``TOPIC_*``, ``EVENT_TOPICS``, ``Event``) are here; the
-deployment topic names a table the port does not have yet.
+Left out of the copy: services, vault, templates and artifacts as types
+(a task keeps the last three as plain data, compared by the in-place
+update test and rendered by the job diff, ``structs/diff.py``, as the
+reference renders their types), the task fields the client reads
+(restart policy, kill timeout, log config, leader), and deployments.  The
+event stream's structs (``TOPIC_*``, ``EVENT_TOPICS``, ``Event``) are
+here; the deployment topic names a table the port does not have yet.
 """
 from __future__ import annotations
 
+import dataclasses
 import os
+import time
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Tuple
 
 JOB_TYPE_SERVICE = "service"
 JOB_TYPE_BATCH = "batch"
 JOB_TYPE_SYSTEM = "system"
-# Core (GC) evals: the server's own; the port's worker does not dequeue
-# them until the core scheduler is ported.
+# Core (GC) evals: the server's own, run by ``server/core_sched.py``.
 JOB_TYPE_CORE = "_core"
 
 JOB_STATUS_PENDING = "pending"
@@ -34,6 +36,16 @@ JOB_STATUS_DEAD = "dead"
 JOB_MIN_PRIORITY = 1
 JOB_DEFAULT_PRIORITY = 50
 JOB_MAX_PRIORITY = 100
+
+# Core job IDs of the internal GC scheduler (structs.go / core_sched.go).
+CORE_JOB_EVAL_GC = "eval-gc"
+CORE_JOB_NODE_GC = "node-gc"
+CORE_JOB_JOB_GC = "job-gc"
+CORE_JOB_FORCE_GC = "force-gc"
+
+# Periodic spec types (structs.go:1718-1724).
+PERIODIC_SPEC_CRON = "cron"
+PERIODIC_SPEC_TEST = "_internal_test"
 
 # Fair-dequeue objectives of the broker's ready queues
 # (tenancy/fairness.py).
@@ -107,6 +119,12 @@ def generate_uuid() -> str:
     """Random 8-4-4-4-12 id (funcs.go:158)."""
     h = os.urandom(16).hex()
     return f"{h[:8]}-{h[8:12]}-{h[12:16]}-{h[16:20]}-{h[20:]}"
+
+
+def now() -> float:
+    """The wall clock the server path stamps launches and dispatched
+    children with (structs.py:1748)."""
+    return time.time()
 
 
 def generate_uuids(n: int) -> List[str]:
@@ -320,6 +338,63 @@ class UpdateStrategy:
 
 
 @dataclass
+class PeriodicConfig:
+    """Cron-style periodic launch config (structs.go:1726-1810)."""
+
+    enabled: bool = False
+    spec: str = ""
+    spec_type: str = PERIODIC_SPEC_CRON
+    prohibit_overlap: bool = False
+
+    def copy(self) -> "PeriodicConfig":
+        return _fast_copy(self)
+
+    def next(self, from_time: float) -> float:
+        """The next launch strictly after ``from_time``, or 0 if none.  A
+        test spec is a comma-separated list of unix times."""
+        if self.spec_type == PERIODIC_SPEC_CRON:
+            from ..utils.cron import cron_next
+
+            return cron_next(self.spec, from_time)
+        if self.spec_type == PERIODIC_SPEC_TEST:
+            for part in self.spec.split(","):
+                part = part.strip()
+                if not part:
+                    continue
+                t = float(part)
+                if t > from_time:
+                    return t
+            return 0.0
+        return 0.0
+
+
+@dataclass
+class ParameterizedJobConfig:
+    """A dispatchable job's config (structs.py:462): ``payload`` is
+    ``required``, ``optional`` or ``forbidden``; the dispatch meta keys
+    must cover ``meta_required`` and stay within it and
+    ``meta_optional``."""
+
+    payload: str = ""
+    meta_required: List[str] = field(default_factory=list)
+    meta_optional: List[str] = field(default_factory=list)
+
+    def copy(self) -> "ParameterizedJobConfig":
+        return ParameterizedJobConfig(self.payload, list(self.meta_required),
+                                      list(self.meta_optional))
+
+
+@dataclass
+class DispatchPayloadConfig:
+    """Where a task finds a dispatched job's payload (structs.py:568)."""
+
+    file: str = ""
+
+    def copy(self) -> "DispatchPayloadConfig":
+        return _fast_copy(self)
+
+
+@dataclass
 class Task:
     """A unit of work run by a driver (structs.go:2616-2790).  ``vault``,
     ``templates`` and ``artifacts`` are plain data here: the scheduler
@@ -336,6 +411,7 @@ class Task:
     resources: Resources = field(default_factory=Resources)
     meta: Dict[str, str] = field(default_factory=dict)
     artifacts: List[Dict[str, Any]] = field(default_factory=list)
+    dispatch_payload: Optional[DispatchPayloadConfig] = None
 
     def copy(self) -> "Task":
         return Task(
@@ -345,7 +421,9 @@ class Task:
             templates=[dict(t) for t in self.templates],
             constraints=[c.copy() for c in self.constraints],
             resources=self.resources.copy(), meta=dict(self.meta),
-            artifacts=[dict(a) for a in self.artifacts])
+            artifacts=[dict(a) for a in self.artifacts],
+            dispatch_payload=(self.dispatch_payload.copy()
+                              if self.dispatch_payload else None))
 
 
 @dataclass
@@ -381,6 +459,7 @@ class Job:
     region: str = "global"
     namespace: str = DEFAULT_NAMESPACE
     id: str = ""
+    parent_id: str = ""
     name: str = ""
     type: str = JOB_TYPE_SERVICE
     priority: int = JOB_DEFAULT_PRIORITY
@@ -389,6 +468,9 @@ class Job:
     constraints: List[Constraint] = field(default_factory=list)
     task_groups: List[TaskGroup] = field(default_factory=list)
     update: UpdateStrategy = field(default_factory=UpdateStrategy)
+    periodic: Optional[PeriodicConfig] = None
+    parameterized_job: Optional[ParameterizedJobConfig] = None
+    payload: bytes = b""
     meta: Dict[str, str] = field(default_factory=dict)
     status: str = JOB_STATUS_PENDING
     status_description: str = ""
@@ -404,11 +486,20 @@ class Job:
         j.constraints = [c.copy() for c in self.constraints]
         j.task_groups = [tg.copy() for tg in self.task_groups]
         j.update = self.update.copy()
+        j.periodic = self.periodic.copy() if self.periodic else None
+        j.parameterized_job = (self.parameterized_job.copy()
+                               if self.parameterized_job else None)
         j.meta = dict(self.meta)
         return j
 
     def stopped(self) -> bool:
         return self.stop
+
+    def is_periodic(self) -> bool:
+        return self.periodic is not None and self.periodic.enabled
+
+    def is_parameterized(self) -> bool:
+        return self.parameterized_job is not None
 
     def lookup_task_group(self, name: str) -> Optional[TaskGroup]:
         for tg in self.task_groups:
@@ -418,8 +509,8 @@ class Job:
 
     def validate(self) -> List[str]:
         """Structural problems, empty when none (structs.go:1334
-        Job.Validate; the periodic, parameterized and vault checks of
-        the reference have no fields here)."""
+        Job.Validate; the vault checks of the reference have no fields
+        here)."""
         problems: List[str] = []
         if not self.region:
             problems.append("job region is empty")
@@ -463,6 +554,8 @@ class Job:
                 if not task.driver:
                     problems.append(
                         f"task '{task.name}' must specify a driver")
+        if self.type == JOB_TYPE_SYSTEM and self.is_periodic():
+            problems.append("periodic is not allowed on system jobs")
         return problems
 
     def canonicalize(self) -> None:
@@ -885,6 +978,23 @@ class Namespace:
     def copy(self) -> "Namespace":
         return _fast_copy(self)
 
+    def validate(self) -> List[str]:
+        """Problems of the row, empty when none (structs.py:1308)."""
+        problems: List[str] = []
+        if not self.name:
+            problems.append("namespace name is empty")
+        if self.dequeue_weight <= 0:
+            problems.append("namespace dequeue_weight must be positive")
+        if self.objective and self.objective not in TENANCY_OBJECTIVES:
+            problems.append(
+                f"namespace objective '{self.objective}' is invalid "
+                f"(want one of {', '.join(TENANCY_OBJECTIVES)})")
+        if (self.quota_node_units < 0 or self.max_live_allocs < 0
+                or self.max_pending_evals < 0 or self.api_rate < 0
+                or self.api_burst < 0):
+            problems.append("namespace quota fields must be >= 0")
+        return problems
+
 
 @dataclass
 class DesiredUpdates:
@@ -1091,17 +1201,30 @@ class TaskGroupSummary:
 
 @dataclass
 class JobSummary:
-    """Per-job alloc summary (structs.go:1640-1678)."""
+    """Per-job alloc summary (structs.go:1640-1678); a periodic or
+    parameterized parent also counts its children by status."""
 
     job_id: str = ""
     summary: Dict[str, TaskGroupSummary] = field(default_factory=dict)
+    children: Optional["JobChildrenSummary"] = None
     create_index: int = 0
     modify_index: int = 0
 
     def copy(self) -> "JobSummary":
         j = _fast_copy(self)
         j.summary = {k: v.copy() for k, v in self.summary.items()}
+        j.children = (dataclasses.replace(self.children)
+                      if self.children else None)
         return j
+
+
+@dataclass
+class JobChildrenSummary:
+    """A parent job's children by status (structs.py:1700)."""
+
+    pending: int = 0
+    running: int = 0
+    dead: int = 0
 
 
 # -- cluster event stream (reference: nomad/stream, the 1.0 event broker) ----

@@ -1,6 +1,6 @@
 """Weighted fair dequeue: per-tenant subqueues under priority tiers (a copy
-of ``nomad_tpu/tenancy/fairness.py``; the port has no namespace table
-yet, so every tenant keeps the default weight and a zero usage).
+of ``nomad_tpu/tenancy/fairness.py``; the server feeds it the namespace
+rows' weights and objectives and the store's per-namespace usage fold).
 
 The eval broker's ready queue used to be one heap ordered by
 ``(-priority, create_index, seq)`` — strict FIFO within a priority

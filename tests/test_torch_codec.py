@@ -321,3 +321,124 @@ def test_guard_mismatch_raises_and_leaves_the_breaker_alone(monkeypatch):
     finally:
         native.reset_counters()
         breaker.reset_for_tests()
+
+
+# -- the job lifecycle's structs and bodies --------------------------------
+
+# The schema fingerprint of the port's structs before the lifecycle
+# fields (Job.parent_id, periodic, parameterized_job, payload,
+# Task.dispatch_payload, JobSummary.children), and a frame that build
+# wrote: {"job_id": "per", "purge": True}.
+PRE_LIFECYCLE_FINGERPRINT = bytes.fromhex("1b3c6208980af597")
+PRE_LIFECYCLE_FRAME = bytes.fromhex(
+    "c1011b3c6208980af597080205066a6f625f696405037065720505707572676502")
+
+
+def lifecycle_world():
+    """Reference objects of the lifecycle: a periodic parent, a
+    parameterized parent with a task's dispatch payload, a dispatched
+    child with a payload, a summary with children counts."""
+    per = jmock.job()
+    per.id = per.name = "per"
+    per.type = "batch"
+    per.periodic = js.PeriodicConfig(enabled=True, spec="*/5 * * * *",
+                                     prohibit_overlap=True)
+    par = jmock.job()
+    par.id = par.name = "par"
+    par.type = "batch"
+    par.parameterized_job = js.ParameterizedJobConfig(
+        payload="optional", meta_required=["k"], meta_optional=["o", "p"])
+    par.task_groups[0].tasks[0].dispatch_payload = js.DispatchPayloadConfig(
+        file="in.json")
+    child = par.copy()
+    child.id = child.name = "par/dispatch-1700000000-0a1b2c3d"
+    child.parent_id = "par"
+    child.parameterized_job = None
+    child.payload = b"\x00\x01payload\xff"
+    child.meta = {"k": "1"}
+    summ = js.JobSummary(job_id="par", summary={
+        "web": js.TaskGroupSummary(queued=1, complete=2)},
+        children=js.JobChildrenSummary(pending=1, running=2, dead=3))
+    return per, par, child, summ
+
+
+def lifecycle_payloads():
+    per, par, child, summ = lifecycle_world()
+    cv = convert.job_from_dict
+    return [
+        ({"job": per}, {"job": cv(dataclasses.asdict(per))}),
+        ({"job": par}, {"job": cv(dataclasses.asdict(par))}),
+        ({"job": child}, {"job": cv(dataclasses.asdict(child))}),
+        ({"evals": ["e1", "e2"], "allocs": ["a1"]},
+         {"evals": ["e1", "e2"], "allocs": ["a1"]}),
+        ({}, {}),
+        ({"summary": summ}, {"summary": ps.JobSummary(
+            job_id="par", summary={"web": ps.TaskGroupSummary(
+                queued=1, complete=2)},
+            children=ps.JobChildrenSummary(pending=1, running=2, dead=3))}),
+    ]
+
+
+@pytest.mark.parametrize("k", range(6))
+def test_lifecycle_payload_decodes_as_the_reference_payload(k):
+    ref, port = lifecycle_payloads()[k]
+    ref_out = jlog_codec.decode_payload(jlog_codec.encode_payload(ref))
+    port_out = log_codec.decode_payload(log_codec.encode_payload(port))
+    want, got = as_plain(ref_out), as_plain(port_out)
+    assert got == strip_ref(want, got)
+    assert got == as_plain(port)
+
+
+def test_lifecycle_types_are_registered():
+    names = {c.__name__ for c in TYPES}
+    assert {"PeriodicConfig", "ParameterizedJobConfig",
+            "DispatchPayloadConfig", "JobChildrenSummary"} <= names
+
+
+def rpc_bodies():
+    per, par, child, summ = lifecycle_world()
+    pchild = convert.job_from_dict(dataclasses.asdict(child))
+    alloc = convert.alloc_from_dict(dataclasses.asdict(jmock.alloc()))
+    alloc.client_status = "complete"
+    ns = ps.Namespace(name="batch", max_live_allocs=25_000,
+                      dequeue_weight=1.0)
+    return [
+        {"JobID": "par", "Payload": b"\x00raw", "Meta": {"k": "1"}},
+        {"Index": 7, "DispatchedJobID": pchild.id, "EvalID": "e"},
+        {"JobID": "per"}, {"ChildJobID": "per/periodic-1700000000"},
+        {"Allocs": [alloc]}, {"Index": 9},
+        {"Namespace": ns}, {"Name": "batch"},
+        {"Namespaces": [ns], "Index": 3},
+        {"Namespace": ns, "Usage": {"CPU": 1, "MemoryMB": 2, "DiskMB": 3,
+                                    "IOPS": 0, "LiveAllocs": 4,
+                                    "NodeUnits": 0.25},
+         "ReservedAllocs": 5, "ReservedNodeUnits": 0.5, "PendingEvals": 6},
+        {"Enabled": True, "Pending": 0, "ByPriority": {"50": 3},
+         "Tenants": {"batch": {"Pending": 1, "Dequeued": 2, "Shed": 0,
+                               "Rejects": 1, "Weight": 1.0,
+                               "DominantShare": 0.125,
+                               "VirtualTime": 2.0}},
+         "TenantsElided": 0, "FollowerSched": {"Enabled": False}},
+        {}, {"Job": pchild},
+    ]
+
+
+@pytest.mark.parametrize("k", range(13))
+def test_lifecycle_rpc_bodies_round_trip(k):
+    body = rpc_bodies()[k]
+    got = codec.decode(codec.encode(body, "rpc"), "rpc")
+    assert got == body
+    assert as_plain(got) == as_plain(body)
+
+
+def test_pre_lifecycle_frame_raises_naming_both_fingerprints():
+    assert schema.FINGERPRINT != PRE_LIFECYCLE_FINGERPRINT
+    assert PRE_LIFECYCLE_FRAME[2:10] == PRE_LIFECYCLE_FINGERPRINT
+    with pytest.raises(codec.CodecError) as e:
+        log_codec.decode_payload(PRE_LIFECYCLE_FRAME)
+    assert PRE_LIFECYCLE_FINGERPRINT.hex() in str(e.value)
+    assert schema.FINGERPRINT.hex() in str(e.value)
+    # This build's frame of the same payload decodes.
+    blob = log_codec.encode_payload({"job_id": "per", "purge": True})
+    assert blob[10:] == PRE_LIFECYCLE_FRAME[10:]
+    assert log_codec.decode_payload(blob) == {"job_id": "per", "purge": True}

@@ -31,12 +31,10 @@ from nomad_tpu_torch.structs.diff import (DIFF_TYPE_ADDED, DIFF_TYPE_DELETED,
                                           task_group_diff)
 
 # The Go names of the reference's fields that the port's structs do not
-# carry (Job: parent_id, periodic, parameterized_job; TaskGroup:
-# restart_policy; Task: services, dispatch_payload, kill_timeout,
+# carry (TaskGroup: restart_policy; Task: services, kill_timeout,
 # log_config, leader).
-REF_ONLY = frozenset({"ParentID", "Periodic", "ParameterizedJob",
-                      "RestartPolicy", "Service", "DispatchPayload",
-                      "KillTimeout", "LogConfig", "Leader"})
+REF_ONLY = frozenset({"RestartPolicy", "Service", "KillTimeout",
+                      "LogConfig", "Leader"})
 
 
 def without_ref_only(d):

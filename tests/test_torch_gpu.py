@@ -804,3 +804,26 @@ def test_cluster_path_on_the_card_equals_the_cpu():
         c = got["launches"][part]
         assert c["scored_rows"] == c["committing_spec_steps"] > 0, part
     assert got["new_leader_applied"] >= got["acked_index"]
+
+
+@pytest.mark.gpu
+def test_lifecycle_path_on_the_card_equals_the_cpu():
+    """``chip_smoke.py`` phase ``lifecycle`` at a small size: periodic and
+    parameterized batch jobs in two namespaces, the quota drill, the
+    completions, a force-gc core eval and a second wave on the card equal
+    the CPU's, with ``scored_rows`` launches = committing steps in each
+    wave."""
+    need_card()
+    import chip_smoke
+
+    got = chip_smoke.phase_lifecycle(
+        "cuda", sizes={"n_nodes": 300, "n_prod": 3, "n_periodic": 4,
+                       "count": 20, "n_dispatch": 4, "quota": 200,
+                       "wave2_dispatch": 2, "timer_count": 10})
+    assert got["card_equals_cpu"]
+    assert got["quota_drill"]["admitted"] == 2
+    assert got["eval_deleted_events"] == got["deleted"]["evals"] > 0
+    for wave in ("wave1", "wave2"):
+        c = got["launches"][wave]
+        assert c["scored_rows"] == c["committing_spec_steps"] > 0, wave
+        assert c["eviction_sets"] == 0

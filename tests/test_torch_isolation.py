@@ -141,6 +141,73 @@ print("ok")
     assert out.stdout.strip() == "ok"
 
 
+def test_lifecycle_runs_with_jax_unimportable():
+    """The job lifecycle's modules (cron, periodic, core GC, the quota
+    ledger and the broker's namespace hooks) on a port server, with jax,
+    nomad_tpu and msgpack unimportable."""
+    code = """
+import sys
+sys.modules["jax"] = None
+sys.modules["nomad_tpu"] = None
+sys.modules["msgpack"] = None
+import time
+from nomad_tpu_torch import mock
+from nomad_tpu_torch.server import Server, ServerConfig
+from nomad_tpu_torch.server.eval_broker import BrokerLimitError
+from nomad_tpu_torch.structs import structs as s
+from nomad_tpu_torch.utils.backoff import wait_until
+from nomad_tpu_torch.utils.cron import cron_next
+assert cron_next("@hourly", 0.0) == 3600.0 - time.localtime(0).tm_min * 60
+srv = Server(ServerConfig(device="cpu", min_heartbeat_ttl=3600.0))
+srv.start()
+try:
+    for _ in range(4):
+        n = mock.node()
+        n.resources.networks = []
+        n.reserved.networks = []
+        srv.node_register(n)
+    srv.namespace_upsert(s.Namespace(name="t", max_live_allocs=20))
+    def job(job_id):
+        j = mock.job()
+        j.id = j.name = job_id
+        j.type = "batch"
+        j.namespace = "t"
+        for t in j.task_groups[0].tasks:
+            t.resources.networks = []
+        return j
+    per = job("per")
+    per.periodic = s.PeriodicConfig(enabled=True, spec="@yearly")
+    par = job("par")
+    par.parameterized_job = s.ParameterizedJobConfig(payload="optional")
+    assert srv.job_register(per)[1] == "" and srv.job_register(par)[1] == ""
+    srv.set_workers_paused(True)
+    srv.periodic_force("per")
+    srv.job_dispatch("par", b"", {})
+    try:
+        srv.job_dispatch("par", b"", {})
+        raise AssertionError("admitted over the quota")
+    except BrokerLimitError as e:
+        assert e.namespace == "t"
+    srv.set_workers_paused(False)
+    assert wait_until(lambda: all(e.status == "complete"
+                                  for e in srv.state.evals(None)), 60.0)
+    done = [a.copy() for a in srv.state.allocs(None)]
+    for a in done:
+        a.client_status = "complete"
+    srv.node_update_allocs(done)
+    srv.system_gc()
+    assert wait_until(lambda: not [j for j in srv.state.jobs(None)
+                                   if j.parent_id], 60.0)
+finally:
+    srv.shutdown()
+print("ok")
+"""
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=180)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
 def test_cluster_runs_with_msgpack_unimportable():
     """Three port servers over loopback: RPC, membership, MultiRaft and a
     write forwarded from a follower, with jax, nomad_tpu and msgpack

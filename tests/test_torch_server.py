@@ -40,23 +40,29 @@ in its fixture's teardown, with bounded joins.
 import contextlib
 import dataclasses
 import random
+import re
 import threading
 import time
+import types
 
 import jax  # noqa: F401  (the reference computes on the CPU backend)
 import pytest
 
+import nomad_tpu.ops.batch_sched as jbatch_sched
 import nomad_tpu.ops.breaker as jbreaker
 import nomad_tpu.server.eval_broker as jeval_broker
+import nomad_tpu.server.periodic as jperiodic
 from nomad_tpu import mock as jmock
 from nomad_tpu.server import Server as JServer
 from nomad_tpu.server import ServerConfig as JServerConfig
 from nomad_tpu.state import columnar as jcolumnar
 from nomad_tpu.structs import structs as js
 from nomad_tpu_torch import convert, device
+from nomad_tpu_torch.ops import batch_sched as pbatch_sched
 from nomad_tpu_torch.ops.breaker import KernelCircuitBreaker
 from nomad_tpu_torch.server import Server, ServerConfig
 from nomad_tpu_torch.server import eval_broker as peval_broker
+from nomad_tpu_torch.server import periodic as pperiodic
 from nomad_tpu_torch.state import columnar as pcolumnar
 from nomad_tpu_torch.structs import structs as ps
 from nomad_tpu_torch.utils.backoff import wait_until
@@ -664,3 +670,239 @@ def test_leadership_loss_stops_the_pipeline(servers):
         srv.eval_broker.dequeue([ps.JOB_TYPE_SERVICE], 0)
     with pytest.raises(RuntimeError, match="disabled"):
         srv.plan_queue.enqueue(ps.Plan())
+
+
+# -- the job lifecycle --------------------------------------------------------
+#
+# Periodic and parameterized batch jobs in two tenant namespaces through
+# both servers: a wave with the workers paused (prod's service jobs, two
+# periodic parents forced once, a parameterized parent dispatched twice,
+# then dispatched until its namespace's live-alloc quota refuses), the
+# batch children's allocs completed through node_update_allocs, a
+# force-gc core eval through the worker, and a second wave.  The tenancy
+# feed (the usage fold into the broker's DRF order) runs before each
+# release in both worlds.  Dispatched children are keyed by their
+# parent and ordinal (their ids carry a uuid); both worlds share one
+# clock for the launch and dispatch times.
+
+LIFECYCLE_NOW = 1_700_000_000.0
+
+
+def lifecycle_job(job_id, ns, count, cpu=250, mem=128, type_="batch"):
+    j = make_job(job_id, count, cpu, mem, type_=type_)
+    j.namespace = ns
+    return j
+
+
+def lifecycle_scenario():
+    rng = random.Random(SEED + 1)
+    nodes = [strip_node(jmock.node(), f"lc-{i:03d}",
+                        cpu=rng.choice([2000, 4000]), mem=4096)
+             for i in range(24)]
+    prod = [lifecycle_job(f"prod-{i}", "prod", 4, type_="service")
+            for i in range(3)]
+    pers = []
+    for i in range(2):
+        j = lifecycle_job(f"per-{i}", "batch", 3)
+        j.periodic = js.PeriodicConfig(
+            enabled=True, spec=str(LIFECYCLE_NOW + 86400),
+            spec_type=js.PERIODIC_SPEC_TEST)
+        pers.append(j)
+    par = lifecycle_job("par", "batch", 3)
+    par.parameterized_job = js.ParameterizedJobConfig(
+        payload="optional", meta_required=["k"])
+    return nodes, prod, pers, par
+
+
+DISPATCH_ID = re.compile(r"(.+)/dispatch-(\d+)-[0-9a-f]{8}")
+
+
+class Keys:
+    """Dispatched children keyed by (parent, ordinal of creation)."""
+
+    def __init__(self, srv):
+        self.keys, count = {}, {}
+        for j in sorted(srv.state.jobs(None), key=lambda j: j.create_index):
+            m = DISPATCH_ID.fullmatch(j.id)
+            if m:
+                n = count[m.group(1)] = count.get(m.group(1), -1) + 1
+                self.keys[j.id] = f"{m.group(1)}/dispatch-{m.group(2)}-#{n}"
+
+    def __call__(self, job_id):
+        return self.keys.get(job_id, job_id)
+
+
+def lifecycle_content(srv, deleted_seen=None):
+    key = Keys(srv)
+    st = srv.state
+    out = content(srv)
+    out["allocs"] = sorted((key(a[0]),) + a[1:] for a in out["allocs"])
+    out["evals"] = sorted((key(e[0]),) + e[1:] for e in out["evals"])
+    out["queued"] = {key(k): v for k, v in out["queued"].items()}
+    jobs = {}
+    for j in st.jobs(None):
+        summ = st.job_summary_by_id(None, j.id)
+        jobs[key(j.id)] = (j.status, j.parent_id,
+                           dataclasses.astuple(summ.children)
+                           if summ and summ.children else None)
+    out["jobs"] = jobs
+    out["usage"] = st.namespace_usage()
+    out["launches"] = sorted((p.id, p.launch)
+                             for p in st.periodic_launches(None))
+    return out
+
+
+def run_lifecycle(world, scenario, clock, mp):
+    nodes, prod, pers, par = scenario
+    srv = world.srv
+    S = js if world.ref else ps
+    out = {"refused": []}
+    sub = srv.event_stream_subscribe()
+    for n in nodes:
+        world.node_register(n)
+    srv.namespace_upsert(S.Namespace(name="prod", dequeue_weight=2.0))
+    srv.namespace_upsert(S.Namespace(name="batch", dequeue_weight=1.0,
+                                     max_live_allocs=18))
+
+    def dispatch(k):
+        try:
+            srv.job_dispatch("par", b"", {"k": str(k)})
+            return True
+        except Exception as e:  # noqa: BLE001
+            out["refused"].append((type(e).__name__,
+                                   getattr(e, "namespace", ""), str(e)))
+            return False
+
+    def feed():
+        srv._feed_tenancy(10)
+
+    with world.paused():
+        for j in prod + pers + [par]:
+            world.job_register(j)
+        clock.t = LIFECYCLE_NOW + 60
+        for j in pers:
+            srv.periodic_force(j.id)
+        dispatch(0)
+        dispatch(1)
+        # The quota drill: 12 of 18 held; two more fit, the third not.
+        out["admitted"] = sum(dispatch(k) for k in range(2, 8)
+                              if len(out["refused"]) == 0)
+        feed()
+    out["wave1"] = lifecycle_content(srv)
+    out["tenants1"] = {ns: row["Dequeued"] for ns, row in
+                       srv.broker_stats()["Tenants"].items()}
+    children = [a for a in srv.state.allocs(None) if "/" in a.job_id]
+    with world.paused():
+        done = []
+        for a in children:
+            a = a.copy()
+            a.client_status = js.ALLOC_CLIENT_STATUS_COMPLETE
+            done.append(a)
+        srv.node_update_allocs(done)
+    out["completed"] = lifecycle_content(srv)
+    n_evals = len(srv.state.evals(None))
+    srv.system_gc()
+    settle(srv)
+    out["gc"] = lifecycle_content(srv)
+    deleted = n_evals + 1 - len(srv.state.evals(None))
+    events = []
+    while True:
+        ev = sub.next(0.5)
+        if ev is None:
+            break
+        events.append(ev.type)
+    out["eval_deleted"] = (events.count("EvalDeleted"), deleted)
+    with world.paused():
+        clock.t = LIFECYCLE_NOW + 120
+        for j in pers:
+            srv.periodic_force(j.id)
+        dispatch(20)
+        dispatch(21)
+        feed()
+    out["wave2"] = lifecycle_content(srv)
+    out["reserved"] = srv.quota_ledger.reserved("batch")
+    out["health"] = health(world)
+    out["columnar"] = world.columnar_stats()
+    return out
+
+
+def drop_cluster_caches():
+    """Both packages' static-cluster caches are keyed by the store's
+    lineage id, which the seeded ids make the same in every world: a
+    world must not find an earlier world's fleet under its own key."""
+    jbatch_sched._CLUSTER_CACHE.clear()
+    pbatch_sched._CLUSTER_CACHE.clear()
+
+
+@pytest.fixture(scope="module")
+def lifecycle_runs():
+    scenario = lifecycle_scenario()
+    runs = {}
+    for kind in ("ref", "port"):
+        drop_cluster_caches()
+        with pytest.MonkeyPatch.context() as mp:
+            world = World(kind, mp, events=True)
+            clock = types.SimpleNamespace(t=LIFECYCLE_NOW)
+            structs = js if world.ref else ps
+            mp.setattr(structs, "now", lambda: clock.t)
+            mp.setattr(jperiodic if world.ref else pperiodic, "time",
+                       types.SimpleNamespace(time=lambda: clock.t))
+            with running(world):
+                runs[kind] = run_lifecycle(world, scenario, clock, mp)
+    drop_cluster_caches()
+    return runs
+
+
+LIFECYCLE_PHASES = ["wave1", "completed", "gc", "wave2"]
+
+
+@pytest.mark.parametrize("phase", LIFECYCLE_PHASES)
+def test_lifecycle_phase_equals_the_reference(lifecycle_runs, phase):
+    ref, port = lifecycle_runs["ref"][phase], lifecycle_runs["port"][phase]
+    for k in ("allocs", "evals", "blocked", "queued", "jobs", "usage",
+              "launches"):
+        assert port[k] == ref[k], k
+
+
+def test_lifecycle_refusals_and_tenants_equal_the_reference(
+        lifecycle_runs):
+    ref, port = lifecycle_runs["ref"], lifecycle_runs["port"]
+    for k in ("refused", "admitted", "tenants1", "eval_deleted",
+              "reserved"):
+        assert port[k] == ref[k], k
+    assert port["admitted"] == 2
+    assert [r[:2] for r in port["refused"]] == [("BrokerLimitError",
+                                                 "batch")]
+    count, deleted = port["eval_deleted"]
+    assert count == deleted > 0
+
+
+def test_lifecycle_places_gcs_and_relaunches(lifecycle_runs):
+    port = lifecycle_runs["port"]
+    w1, gc, w2 = port["wave1"], port["gc"], port["wave2"]
+    child_jobs = [j for j, v in w1["jobs"].items() if v[1]]
+    assert len(child_jobs) == 2 + 4
+    assert all(w1["jobs"][j][0] == "running" for j in child_jobs)
+    # GC took every child's evals, allocs and job; prod and the parents
+    # stay.
+    assert not [j for j, v in gc["jobs"].items() if v[1]]
+    assert {"prod-0", "prod-1", "prod-2", "per-0", "per-1", "par"} <= set(
+        gc["jobs"])
+    assert not [a for a in gc["allocs"] if "/" in a[0]]
+    assert len([a for a in gc["allocs"] if a[0].startswith("prod")]) == 12
+    # The children summaries rolled their children to dead.
+    assert gc["jobs"]["per-0"][2][2] == 1
+    assert w2["launches"] == [("per-0", LIFECYCLE_NOW + 120),
+                              ("per-1", LIFECYCLE_NOW + 120)]
+    placed = [a for a in w2["allocs"] if "/" in a[0] and a[3] == "run"]
+    assert len(placed) == 4 * 3
+    assert port["reserved"] == 0
+
+
+@pytest.mark.parametrize("kind", ["ref", "port"])
+def test_lifecycle_health(lifecycle_runs, kind):
+    assert lifecycle_runs[kind]["health"] == {
+        "state": "closed", "trips": 0, "oracle_routed": 0, "nacks": 0}
+    c = lifecycle_runs[kind]["columnar"]
+    assert c["guard_mismatches"] == c["usage_guard_mismatches"] == 0
+    assert c["guard_runs"] > 0

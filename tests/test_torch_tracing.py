@@ -51,11 +51,10 @@ from test_torch_server import (World, cluster, conv, make_job, running,
                                strip_node)
 
 # Span names the reference emits on this path and the port does not yet,
-# with the ROADMAP queue 1 item each waits for.
-REF_ONLY = {
-    "broker.admission_reject": "item 19 (the tenancy quotas)",
-    "broker.quota_reject": "item 19 (the tenancy quotas)",
-}
+# with the ROADMAP queue 1 item each waits for (none: the broker's
+# ``broker.admission_reject`` and ``broker.quota_reject`` are compared in
+# tests/test_torch_tenancy.py).
+REF_ONLY = {}
 
 PKGS = {"ref": (jtracing, jfault), "port": (ptracing, pfault)}
 
