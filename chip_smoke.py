@@ -306,7 +306,37 @@ Phases, each printed as one JSON line:
                ``eviction_sets``; each wave's evals per second, the GC's
                seconds, the tenants' dequeues and the force and dispatch
                latencies;
-24. times   -- each kernel's device time (profiler trace; CUDA events
+24. loadgen -- the load harness and the flight recorder: (a) the
+               reference's ``baseline`` scenario (5,000 nodes of 64,000
+               MHz and 256 GiB, 8 open-loop clients at 1,500 arrivals a
+               second, 2,000 submissions of the 8:2:1 mix of 1-, 2- and
+               4-count jobs, 64 filtered event-stream followers,
+               heartbeats, a 30 s measure window and 60 s of drain)
+               through ``nomad_tpu_torch.loadgen.LoadHarness`` into one
+               port ``Server`` on the card (the in-memory log, batches
+               of 16, one worker), with the continuous profiler (10 Hz),
+               the flight recorder, its plan-apply SLO watch (set far
+               below any real p99) and the lock-order sanitizer armed:
+               every submission acknowledged and complete, every job its
+               count of live allocs, a clean strict integrity sweep, no
+               nack or failed eval, the breaker closed, no oracle route,
+               one ``scored_rows`` launch per committing step, exactly
+               one ``slo.plan_apply_p99`` bundle (valid JSON with every
+               section) and its ``BundleCaptured`` event on the stream,
+               at least 80 % of the non-idle host samples attributed,
+               no lock-order cycle; the sustained evals and placements a
+               second, submit-to-running and plan-apply percentiles, the
+               host's CPU shares, the GIL delay and the top lock waits;
+               ``scored_rows`` against its plain version at every shape
+               the run gave it; (b) the breaker drill
+               (``python -m nomad_tpu_torch.ops``'s) on the card with
+               the recorder, the tracing plane and the sanitizer armed:
+               trip, oracle route, half-open probe, closed; exactly one
+               ``breaker.open`` bundle holding the tripping batch's
+               ``fault.fire`` span and ``breaker.transition`` event and
+               the private breaker at one trip; a second trigger inside
+               the interval writes nothing; no lock-order cycle;
+25. times   -- each kernel's device time (profiler trace; CUDA events
                where the trace has none) over copies of its inputs that
                overflow the L2 (``rotating``: twice the L2 of input bytes
                a cycle), its plain version's, the bound for the same work
@@ -315,7 +345,7 @@ Phases, each printed as one JSON line:
                (the mesh's call at config_mesh); the launch floor (a
                one-element fill); the kernels' SASS instruction counts and the
                issue-rate time they give;
-25. profile -- config (b)'s first batch again, warm, on the single card
+26. profile -- config (b)'s first batch again, warm, on the single card
                and on a 4-shard mesh: untraced, and under a device-only
                trace for the device busy time and idle share.
 
@@ -6004,7 +6034,306 @@ def torch_device(dev):
     return d
 
 
-# -- phase 24: times ---------------------------------------------------------
+# -- phase 24: loadgen -------------------------------------------------------
+
+# Far below any real plan-apply p99 (ms): the SLO watch must fire.
+LOADGEN_SLO_MS = 1e-3
+BUNDLE_SECTIONS = ("Spans", "Events", "Profile", "Locks", "Threads",
+                   "Breaker", "Servers", "Config")
+
+
+def read_bundles(rec, reason) -> list:
+    """The bundles ``rec`` wrote for ``reason``, each parsed (a bundle
+    that is no valid JSON raises)."""
+    out = []
+    for path in rec.captured:
+        with open(path, encoding="utf-8") as fh:
+            bundle = json.load(fh)
+        if bundle["Reason"] == reason:
+            out.append(bundle)
+    return out
+
+
+def loadgen_baseline(dev, sc, bdir, smi) -> dict:
+    """Part (a): ``sc`` (the reference's ``baseline``) through a port
+    ``Server`` on ``dev`` by the load harness, with the profiler, the
+    flight recorder and its SLO watch and the lock-order sanitizer armed;
+    the kernels' counts set to 0 just before the run and read just
+    after."""
+    from nomad_tpu_torch.loadgen import LoadHarness
+    from nomad_tpu_torch.loadgen.auditor import integrity_sweep
+    from nomad_tpu_torch.ops import fused_score, kernels, preempt
+    from nomad_tpu_torch.ops.breaker import KernelCircuitBreaker
+    from nomad_tpu_torch.utils import blackbox, contprof, lockcheck
+    from nomad_tpu_torch.utils.backoff import wait_until
+
+    on_card = torch_device(dev).type == "cuda"
+    brk = KernelCircuitBreaker()
+    h = LoadHarness(sc, device=dev, server_options={
+        "breaker": brk, "rng_seed": SEED, "contprof_hz": 10.0,
+        "blackbox_dir": bdir, "blackbox_min_interval_s": 3600.0,
+        "slo_plan_p99_ms": LOADGEN_SLO_MS})
+    # A follower of the stream's Blackbox topic from the server's start
+    # (before the first plan, so before any SLO tick can fire).
+    captured_events = []
+    stop = threading.Event()
+
+    def follow():
+        while h.server is None and not stop.wait(0.001):
+            pass
+        if h.server is None:
+            return
+        sub = h.server.event_stream_subscribe(topics={"Blackbox": set()})
+        while not stop.is_set():
+            ev = sub.next(timeout=0.1)
+            if ev is not None:
+                captured_events.append((ev.type, ev.key,
+                                        (ev.payload or {}).get("Path")))
+        sub.close()
+
+    follower = threading.Thread(target=follow, daemon=True,
+                                name="loadgen-bundle-follower")
+    shapes = {"scored_rows": set(), "eviction_sets": set()}
+    lockcheck.arm()
+    try:
+        lockcheck.reset()
+        follower.start()
+        fused_score.LAUNCHES = kernels.COMMIT_STEPS = 0
+        fused_score.MASKED_LAUNCHES = preempt.LAUNCHES = 0
+        t0 = time.perf_counter()
+        with kernel_shapes(shapes):
+            report = h.run()
+        run_s = time.perf_counter() - t0
+        srv = h.server
+        launches = {"scored_rows": fused_score.LAUNCHES,
+                    "masked_score_matrix": fused_score.MASKED_LAUNCHES,
+                    "eviction_sets": preempt.LAUNCHES,
+                    "committing_spec_steps": kernels.COMMIT_STEPS,
+                    "batch_commit_steps": server_counter(
+                        srv, "batch.commit_steps")}
+        rec = blackbox.recorder()
+        wait_until(lambda: rec.captured, 10.0)
+        bundles = read_bundles(rec, "slo.plan_apply_p99")
+        stop.set()
+        follower.join(timeout=5.0)
+        cycle = lockcheck.find_cycle()
+        lockcheck.assert_acyclic()
+        lock_edges = len(lockcheck.edges())
+    finally:
+        stop.set()
+        lockcheck.disarm()
+        contprof.disable()
+        recorder = blackbox.recorder()
+        blackbox.disable()
+    errors = []
+    off, sus = report["offered"], report["sustained"]
+    if (off["submitted"] != sc.max_submissions
+            or off["dropped_after_retries"] or sus["stragglers_after_drain"]
+            or sus["completed_total"] != sc.max_submissions):
+        errors.append(f"submissions not all acknowledged and complete: "
+                      f"{off} {sus}")
+    short = {}
+    for job in srv.state.jobs(None):
+        want = sum(tg.count for tg in job.task_groups)
+        got = len([a for a in srv.state.allocs_by_job(None, job.id, True)
+                   if not a.terminal_status()])
+        if got != want:
+            short[job.id] = (got, want)
+    if short or len(srv.state.jobs(None)) != sc.max_submissions:
+        errors.append(f"jobs without their count: "
+                      f"{dict(list(short.items())[:8])}")
+    sweep = integrity_sweep(srv.state, strict=True)
+    if (sweep["overplaced_jobs"] or sweep["duplicate_alloc_names"]
+            or sweep["overcommitted_nodes"]
+            or sweep["tenant_quota_violations"]):
+        errors.append(f"strict integrity sweep: {sweep}")
+    b = srv.eval_broker.stats()
+    health = {"nacks": b["total_nacks"], "failed": b["total_failed"],
+              "breaker": brk.state, "trips": brk.trips,
+              "oracle_routed": server_counter(srv, "breaker.oracle_routed")}
+    if health != {"nacks": 0, "failed": 0, "breaker": "closed", "trips": 0,
+                  "oracle_routed": 0}:
+        errors.append(f"health {health}")
+    if on_card:
+        errors += check_launches("loadgen", launches)
+    if len(bundles) != 1:
+        errors.append(f"{len(bundles)} slo.plan_apply_p99 bundles "
+                      f"(captured {recorder.captured}, failures "
+                      f"{recorder.failures})")
+    else:
+        missing = [k for k in BUNDLE_SECTIONS if k not in bundles[0]]
+        if missing or not bundles[0]["Servers"]:
+            errors.append(f"the SLO bundle lacks {missing}")
+    slo_events = [e for e in captured_events
+                  if e[:2] == ("BundleCaptured", "slo.plan_apply_p99")]
+    if len(slo_events) != 1 or slo_events[0][2] not in recorder.captured:
+        errors.append(f"BundleCaptured events {captured_events}")
+    ha = report.get("host_attribution") or {}
+    if ha.get("non_idle_coverage", 0.0) < 0.80:
+        errors.append(f"host attribution coverage "
+                      f"{ha.get('non_idle_coverage')} < 0.80: "
+                      f"{ha.get('shares')}")
+    if cycle is not None:
+        errors.append(f"lock-order cycle {cycle}")
+    if errors:
+        raise AssertionError(f"loadgen baseline: {errors}")
+    lat = report["latency_ms"]
+    line = {
+        "phase": "loadgen", "part": "baseline", "card": smi,
+        "evals_per_s": sus["evals_per_s"],
+        "placed_per_s": sus["placed_per_s"],
+        "evals_per_s_window": sus["evals_per_s_window"],
+        "submit_to_running_ms": {k: lat["submit_to_running"][k]
+                                 for k in ("p50", "p95", "p99")},
+        "submit_to_complete_ms": {k: lat["submit_to_complete"][k]
+                                  for k in ("p50", "p95", "p99")},
+        "plan_apply_ms": {k: lat["plan_apply"].get(k)
+                          for k in ("p50", "p99")},
+        "plan_evaluate_ms": {k: lat["plan_evaluate"].get(k)
+                             for k in ("p50", "p99")},
+        "cpu_shares": ha.get("shares"),
+        "coverage": ha.get("non_idle_coverage"),
+        "thread_samples": ha.get("thread_samples"),
+        "gil_ms": {k: ha["gil_pressure_ms"][k] for k in ("p50", "p99")},
+        "top_lock_waits": [{k: w[k] for k in ("name", "count", "wait_s_sum",
+                                              "p99_ms")}
+                           for w in (ha.get("top_locks") or [])[:3]],
+        "lock_edges": lock_edges,
+        "heartbeat_renewals": report["heartbeat"]["renewals"],
+        "event_fanout_us": report["event_fanout"].get("us_per_event"),
+        "run_s": run_s}
+    emit(line)
+    return {"line": line, "launches": launches, "shapes": shapes,
+            "broker": report["control_plane"]["broker"]["Pending"],
+            "integrity": sweep}
+
+
+def loadgen_drill(dev, bdir, smi) -> dict:
+    """Part (b): the reference's breaker drill (``ops/__main__.py``) on
+    ``dev`` with the flight recorder, the tracing plane and the
+    lock-order sanitizer armed: exactly one ``breaker.open`` bundle
+    holding the tripping batch's ``fault.fire`` span and
+    ``breaker.transition`` event and the private breaker at one trip; a
+    second trigger inside the interval writes nothing; no lock-order
+    cycle."""
+    from nomad_tpu_torch.ops import fused_score, kernels, preempt
+    from nomad_tpu_torch.ops.__main__ import breaker_drill
+    from nomad_tpu_torch.ops.breaker import KernelCircuitBreaker
+    from nomad_tpu_torch.utils import blackbox, lockcheck, tracing
+    from nomad_tpu_torch.utils.backoff import wait_until
+
+    on_card = torch_device(dev).type == "cuda"
+    log = []
+    tracing.enable()
+    lockcheck.arm()
+    try:
+        lockcheck.reset()
+        rec = blackbox.enable(bdir, min_interval_s=3600.0)
+        clock = [0.0]
+        brk = KernelCircuitBreaker(threshold=0.9, window=8, min_checks=1,
+                                   cooldown=5.0, clock=lambda: clock[0])
+        fused_score.LAUNCHES = kernels.COMMIT_STEPS = 0
+        fused_score.MASKED_LAUNCHES = preempt.LAUNCHES = 0
+        ok = breaker_drill(seed=SEED, device=dev, log=log.append,
+                           breaker=brk, clock=clock)
+        launches = {"scored_rows": fused_score.LAUNCHES,
+                    "masked_score_matrix": fused_score.MASKED_LAUNCHES,
+                    "eviction_sets": preempt.LAUNCHES,
+                    "committing_spec_steps": kernels.COMMIT_STEPS}
+        wait_until(lambda: rec.captured, 10.0)
+        suppressed = rec.suppressed
+        blackbox.note_trigger("breaker.open", {"Trips": brk.trips})
+        time.sleep(0.5)
+        bundles = read_bundles(rec, "breaker.open")
+        captured = list(rec.captured)
+        refused = rec.suppressed - suppressed
+        cycle = lockcheck.find_cycle()
+        lockcheck.assert_acyclic()
+    finally:
+        blackbox.disable()
+        lockcheck.disarm()
+        tracing.disable()
+    errors = []
+    if not ok:
+        errors.append(f"the drill failed: {log}")
+    if len(bundles) != 1 or len(captured) != 1 or refused != 1:
+        errors.append(f"breaker.open bundles {len(bundles)} of "
+                      f"{captured}; the second trigger refused {refused}")
+    else:
+        spans = bundles[0]["Spans"]
+        fires = [sp for sp in spans if sp["Name"] == "fault.fire"]
+        trans = [sp for sp in spans if sp["Name"] == "breaker.transition"
+                 and sp["Attrs"].get("to") == "open"]
+        if (len(fires) != 1 or len(trans) != 1
+                or fires[0]["Attrs"].get("point") != "ops.kernel_result"
+                or fires[0]["Start"] > trans[0]["Start"]):
+            errors.append(f"the bundle's spans: fault.fire {fires}, "
+                          f"breaker.transition {trans}")
+        trig = bundles[0]["Breaker"].get("Trigger") or {}
+        if trig.get("Trips") != 1 or bundles[0]["Detail"].get("Trips") != 1:
+            errors.append(f"the bundle's breaker {bundles[0]['Breaker']}")
+        missing = [k for k in BUNDLE_SECTIONS if k not in bundles[0]]
+        if missing:
+            errors.append(f"the drill's bundle lacks {missing}")
+    if brk.state != "closed" or brk.trips != 1:
+        errors.append(f"breaker {brk.state} after {brk.trips} trips")
+    if on_card and (launches["scored_rows"] <= 0
+                    or launches["scored_rows"]
+                    != launches["committing_spec_steps"]
+                    or launches["masked_score_matrix"]
+                    or launches["eviction_sets"]):
+        errors.append(f"drill launches {launches}")
+    if cycle is not None:
+        errors.append(f"lock-order cycle {cycle}")
+    if errors:
+        raise AssertionError(f"breaker drill: {errors}")
+    line = {"phase": "loadgen", "part": "breaker_drill", "card": smi,
+            "drill": log[-1] if log else "", "launches": launches,
+            "bundle_spans": [sp["Name"] for sp in bundles[0]["Spans"]],
+            "bundle_breaker": bundles[0]["Breaker"]}
+    emit(line)
+    return {"launches": launches}
+
+
+def phase_loadgen(dev, scenario=None):
+    """The load harness and the flight recorder (see the module
+    docstring, phase 24): part (a), the ``baseline`` scenario, then part
+    (b), the breaker drill; each kernel at the shapes part (a) gave it
+    against its plain version."""
+    import shutil
+    import tempfile
+
+    from nomad_tpu_torch.loadgen.scenario import get_scenario
+
+    t_phase = time.perf_counter()
+    smi = smi_name_power()
+    on_card = torch_device(dev).type == "cuda"
+    sc = scenario or get_scenario("baseline")
+    root = tempfile.mkdtemp(prefix="nomad-torch-loadgen-")
+    try:
+        base = loadgen_baseline(dev, sc, os.path.join(root, "a"), smi)
+        drill = loadgen_drill(dev, os.path.join(root, "b"), smi)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    shape_parity = {}
+    if on_card:
+        score = sorted(base["shapes"]["scored_rows"])
+        if not score or base["shapes"]["eviction_sets"]:
+            raise AssertionError(f"loadgen kernel shapes: {base['shapes']}")
+        rows, worst = score_parity_rows(
+            dev, [(u, n, 17, n_off) for u, n, n_off in score])
+        shape_parity = {"scored_rows": rows, "max_abs_err": worst}
+    return {"card": smi, "scenario": sc.name,
+            "baseline": base["line"],
+            "kernel_shapes": {k: sorted(v)
+                              for k, v in base["shapes"].items()},
+            "shape_parity": shape_parity,
+            "launches": {"baseline": base["launches"],
+                         "breaker_drill": drill["launches"]},
+            "seconds": time.perf_counter() - t_phase}
+
+
+# -- phase 25: times ---------------------------------------------------------
 
 def score_bytes(u: int, n: int, with_base: bool = True) -> int:
     """Bytes the function must move: feas (1) + collisions (4) in and
@@ -6565,6 +6894,9 @@ def main() -> int:
     emit({"phase": "cluster", **clu})
     life = run_phase("lifecycle", phase_lifecycle, dev)
     emit({"phase": "lifecycle", **life})
+    lg = run_phase("loadgen", phase_loadgen, dev)
+    emit({"phase": "loadgen", **{k: v for k, v in lg.items()
+                                 if k != "baseline"}})
     table = run_phase("times", phase_times, dev, launches, max_err,
                       masked_launches, max(masked_err, cand_err))
     # scored_rows' launches on the eval-driven path (phase evals, each
@@ -6617,6 +6949,13 @@ def main() -> int:
         row["lifecycle_path_launches"] = {
             label: life["launches"][label][row["name"]]
             for label in ("wave1", "wave2")}
+        # ... on the load harness's path (phase loadgen part (a), the
+        # baseline scenario through the port's server, the counts set to
+        # 0 just before the run) and in the breaker drill (part (b)).
+        row["loadgen_path_launches"] = lg["launches"]["baseline"][
+            row["name"]]
+        row["breaker_drill_launches"] = lg["launches"]["breaker_drill"][
+            row["name"]]
     emit({"phase": "profile", **run_phase("profile", phase_profile, dev)})
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     emit({"kernels": table})

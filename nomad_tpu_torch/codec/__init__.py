@@ -14,23 +14,33 @@ twin behind a differential guard.
 ``encode``/``decode`` count frames, bytes and seconds per subsystem
 (``raft``: log entries and the replicated log's messages' entries,
 ``snapshot``: snapshot documents, ``rpc``: the RPC layer's frames);
-``stats()`` reads the counts.  A value outside the schema raises
-``CodecError`` at encode in every subsystem: the RPC layer has no
-msgpack channel to fall back to.
+``stats()`` reads the counts and ``stats_delta`` their change since a
+``stats()`` taken earlier (the load harness's per-run split).  Each frame's
+seconds also go into the ``codec.<subsystem>.encode_seconds``/
+``decode_seconds`` histograms of the process-wide ``TELEMETRY`` sink,
+which ``merge_metrics`` merges into a server's ``Status.Metrics``.  A
+value outside the schema raises ``CodecError`` at encode in every
+subsystem: the RPC layer has no msgpack channel to fall back to.
 """
 from __future__ import annotations
 
 import time
 from typing import Dict
 
+from ..utils.telemetry import InmemSink, Telemetry
 from . import native  # noqa: F401  (re-exported for its guard counters)
 from .gen import CodecError, decode_frame, encode_frame, is_frame
 from .schema import FINGERPRINT, MAGIC, VERSION
 
 __all__ = ["CodecError", "MAGIC", "VERSION", "FINGERPRINT", "encode",
-           "decode", "is_frame", "stats", "reset", "native"]
+           "decode", "is_frame", "stats", "stats_delta", "merge_metrics",
+           "reset", "native", "TELEMETRY"]
 
 _SUBSYSTEMS = ("raft", "snapshot", "rpc", "other")
+
+# One long interval: codec percentiles must survive a whole run, as the
+# load harness pins its server sink's interval.
+TELEMETRY = Telemetry(sink=InmemSink(interval=3600.0), prefix="nomad")
 
 
 def _fresh_counters() -> Dict[str, Dict[str, float]]:
@@ -49,9 +59,11 @@ def encode(obj, subsystem: str = "other") -> bytes:
     c = _COUNTERS.get(subsystem) or _COUNTERS["other"]
     t0 = time.perf_counter()
     blob = encode_frame(obj)
+    dt = time.perf_counter() - t0
     c["encodes"] += 1
-    c["encode_seconds"] += time.perf_counter() - t0
+    c["encode_seconds"] += dt
     c["encode_bytes"] += len(blob)
+    TELEMETRY.add_sample(f"codec.{subsystem}.encode_seconds", dt)
     return blob
 
 
@@ -60,9 +72,11 @@ def decode(blob: bytes, subsystem: str = "other"):
     c = _COUNTERS.get(subsystem) or _COUNTERS["other"]
     t0 = time.perf_counter()
     obj = decode_frame(blob)
+    dt = time.perf_counter() - t0
     c["decodes"] += 1
-    c["decode_seconds"] += time.perf_counter() - t0
+    c["decode_seconds"] += dt
     c["decode_bytes"] += len(blob)
+    TELEMETRY.add_sample(f"codec.{subsystem}.decode_seconds", dt)
     return obj
 
 
@@ -71,8 +85,36 @@ def stats() -> Dict[str, Dict[str, float]]:
     return {sub: dict(vals) for sub, vals in _COUNTERS.items()}
 
 
+def stats_delta(before: Dict[str, Dict[str, float]]
+                ) -> Dict[str, Dict[str, float]]:
+    """The counts' change since ``before`` (an earlier ``stats()``)."""
+    now = stats()
+    return {sub: {k: round(v - before.get(sub, {}).get(k, 0), 6)
+                  for k, v in vals.items()}
+            for sub, vals in now.items()}
+
+
+def metrics_latest() -> Dict:
+    """The codec sink's newest interval, ``Status.Metrics``-shaped."""
+    return TELEMETRY.sink.latest()
+
+
+def merge_metrics(latest: Dict) -> Dict:
+    """Merge the codec histograms and totals into a server sink's
+    ``latest()`` summary (the ``Status.Metrics`` bridge: the codec
+    accounts process-wide, the servers render per sink)."""
+    mine = metrics_latest()
+    for section in ("Samples", "Counters", "Gauges",
+                    "CounterTotals", "SampleTotals"):
+        vals = mine.get(section)
+        if vals:
+            latest.setdefault(section, {}).update(vals)
+    return latest
+
+
 def reset() -> None:
-    """Zero the counters (tests and the drill)."""
+    """Zero the counters and the histograms (tests and the drill)."""
     global _COUNTERS
     _COUNTERS = _fresh_counters()
+    TELEMETRY.sink = InmemSink(interval=3600.0)
     native.reset_counters()

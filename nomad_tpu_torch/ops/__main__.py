@@ -8,6 +8,11 @@
   (default ``cuda``, which builds and launches the kernel and raises
   without a card) against the scalar oracle over every (spec, node) pair
   of a seeded random cluster.
+- The breaker drill (``nomad_tpu/ops/__main__.py:36-105``): one
+  ``ops.kernel_result`` corruption in a batch on ``--device`` trips a
+  private breaker on a fake clock, the oracle places that batch and the
+  next (routed while open), and past the cooldown the half-open probe
+  takes the device path and closes the breaker.
 - The columnar drill (``nomad_tpu/ops/__main__.py:333``): batches through
   ``TorchBatchScheduler`` on ``--device`` over a store with its columnar
   mirror and the guards at every read.  The cold build is verified
@@ -42,8 +47,7 @@
   the fit there); follower workers use the CPU schedulers.
 
 Exits 0 when every drill passes, 1 otherwise.  The reference's other
-drills (breaker, residency, fused, residue, mesh) wait for their modules'
-ports.
+drills (residency, fused, residue, mesh) wait for their modules' ports.
 """
 from __future__ import annotations
 
@@ -120,6 +124,91 @@ class _DrillWorld:
                                                             True)
                         if not a.terminal_status())
         return stats, placed
+
+
+def breaker_drill(seed: int = 0, device=None, log=print,
+                  breaker=None, clock=None) -> bool:
+    """Inject one corrupted kernel batch; assert trip → oracle fallback →
+    half-open probe → closed.  Uses a private breaker on a fake clock
+    (``breaker`` and its ``clock``, a one-item list of seconds, when the
+    caller passes them) so the drill is instant and never touches the
+    process-wide breaker."""
+    from .. import fault, mock
+    from ..scheduler.testing import Harness
+    from ..structs import structs as s
+    from .batch_sched import TorchBatchScheduler
+    from .breaker import KernelCircuitBreaker
+
+    if breaker is None:
+        clock = [0.0]
+        breaker = KernelCircuitBreaker(threshold=0.9, window=8,
+                                       min_checks=1, cooldown=5.0,
+                                       clock=lambda: clock[0])
+    brk = breaker
+    h = Harness()
+    for _ in range(8):
+        node = mock.node()
+        node.resources.networks = []
+        node.reserved.networks = []
+        node.compute_class()
+        h.state.upsert_node(h.next_index(), node)
+
+    def run_batch():
+        jobs = []
+        for _ in range(2):
+            job = mock.job()
+            for tg in job.task_groups:
+                for t in tg.tasks:
+                    t.resources.networks = []
+            job.task_groups[0].count = 2
+            h.state.upsert_job(h.next_index(), job)
+            jobs.append(job)
+        evals = [s.Evaluation(
+            id=s.generate_uuid(), priority=j.priority, type=j.type,
+            triggered_by=s.EVAL_TRIGGER_JOB_REGISTER, job_id=j.id,
+            status=s.EVAL_STATUS_PENDING) for j in jobs]
+        sched = TorchBatchScheduler(h.logger, h.snapshot(), h,
+                                    device=device, breaker=brk,
+                                    rng_seed=seed)
+        stats = sched.schedule_batch(evals)
+        placed = all(
+            len([a for a in h.state.allocs_by_job(None, j.id, True)
+                 if not a.terminal_status()]) == 2 for j in jobs)
+        return stats, placed
+
+    def check(cond, msg):
+        if not cond:
+            log(f"breaker drill: FAIL — {msg}")
+        return cond
+
+    with fault.scenario({"seed": seed, "faults": [
+            {"point": "ops.kernel_result", "action": "corrupt",
+             "times": 1}]}):
+        stats, placed = run_batch()
+    if not (check(stats.kernel_rejects == 1, "corrupt batch not rejected")
+            and check(placed, "oracle fallback did not place the batch")
+            and check(brk.state == "open",
+                      f"breaker {brk.state!r}, expected open")):
+        return False
+
+    stats2, placed2 = run_batch()
+    if not (check(stats2.oracle_routed > 0, "open breaker did not route "
+                                            "evals through the oracle")
+            and check(placed2, "oracle-routed batch did not place")):
+        return False
+
+    clock[0] += 10.0  # past cooldown: next batch is the half-open probe
+    stats3, placed3 = run_batch()
+    if not (check(stats3.oracle_routed == 0, "probe batch did not take "
+                                             "the device path")
+            and check(placed3, "probe batch did not place")
+            and check(brk.state == "closed",
+                      f"breaker {brk.state!r} after clean probe")):
+        return False
+    log(f"breaker drill: OK — trip on corrupt batch (seed {seed}), "
+        "oracle fallback placed everything, clean probe re-closed "
+        f"(trips={brk.trips}, device {device or 'cuda'})")
+    return True
 
 
 def columnar_drill(seed: int = 0, device=None, log=print) -> bool:
@@ -519,6 +608,7 @@ def main(argv=None) -> int:
         return 2
     ok = selfcheck(n_nodes=args.nodes, n_specs=args.specs, seed=args.seed,
                    device=args.device)
+    ok = breaker_drill(seed=args.seed, device=args.device) and ok
     ok = columnar_drill(seed=args.seed, device=args.device) and ok
     ok = tracing_drill(seed=args.seed, device=args.device) and ok
     ok = wal_drill(seed=args.seed, device=args.device) and ok

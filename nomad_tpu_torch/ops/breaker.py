@@ -14,8 +14,10 @@ The breaker is process-wide (``BREAKER``) so that a trip outlives the
 scheduler made for one batch; tests pass their own instance.  Each
 transition is logged, traced (a ``breaker.transition`` span) and
 published on the cluster event stream (``Breaker``/``BreakerTransition``).
-The reference's blackbox trigger waits for the blackbox (ROADMAP queue 1
-item 21).
+A trip and a failed probe are flight-recorder incidents
+(``utils/blackbox.py``): ``breaker.open`` with the agreement and the trip
+count, ``breaker.reopen`` with the trip count, each bundle naming the
+breaker that fired it.
 
 Verdicts recorded: the structural validation of each device result, the
 resident usage mirror's differential guard and the quantized rows'
@@ -32,7 +34,7 @@ from collections import deque
 from typing import Callable
 
 from .. import fault
-from ..utils import tracing
+from ..utils import blackbox, tracing
 
 logger = logging.getLogger("nomad_tpu_torch.ops.breaker")
 
@@ -96,6 +98,9 @@ class KernelCircuitBreaker:
                 _stream_transition(CLOSED, OPEN,
                                    Agreement=round(ratio, 4),
                                    Trips=self.trips)
+                blackbox.note_trigger(
+                    "breaker.open", {"Agreement": round(ratio, 4),
+                                     "Trips": self.trips}, breaker=self)
                 logger.warning(
                     "kernel circuit breaker OPEN: agreement %.2f < %.2f "
                     "over %d checks; routing evals through the CPU oracle "
@@ -148,6 +153,8 @@ class KernelCircuitBreaker:
                 self._tripped_at = self.clock()
                 tracing.event("breaker.transition", frm=HALF_OPEN, to=OPEN)
                 _stream_transition(HALF_OPEN, OPEN)
+                blackbox.note_trigger("breaker.reopen",
+                                      {"Trips": self.trips}, breaker=self)
                 logger.warning("kernel circuit breaker RE-OPEN: probe batch "
                                "disagreed; staying on the CPU oracle")
 

@@ -13,23 +13,27 @@ turns an unforwardable ``NotLeaderError`` into the wire's
 Bodies and replies are struct-codec values (``server/rpc.py``): the
 structs arrive typed, and a body of the wrong type is refused.
 
-Registered: ``Status.Ping/Leader/Peers/Fingerprint/BrokerStats``,
+Registered: ``Status.Ping/Leader/Peers/Fingerprint/BrokerStats/
+Metrics``, ``Event.Since``,
 ``Serf.Join/Members``, ``Node.Register/UpdateStatus/Deregister/
 UpdateDrain/UpdateAlloc``, ``Job.Register/Deregister/Evaluate/
 Dispatch``, ``Periodic.Force``, ``Namespace.Upsert/Delete/List/
 Status``, ``System.GarbageCollect/ReconcileJobSummaries``,
 ``Eval.Dequeue/DequeueBatch/Ack/Nack/Update/Reblock/PauseNack/
 ResumeNack/GetEval``, ``Plan.Submit`` and ``Operator.
-RaftGetConfiguration/RaftRemovePeerByAddress``.  Vault, events, chaos,
-regions and the client's reads wait for their server methods (ROADMAP
-queue 1 item 20).
+RaftGetConfiguration/RaftRemovePeerByAddress``.  Vault, the trace fanout,
+chaos, regions and the client's reads wait for their server methods
+(ROADMAP queue 1 items 20 and 30).
 """
 
 from __future__ import annotations
 
 from typing import Any
 
+from .. import codec
 from ..structs import structs as s
+from ..utils import contprof
+from . import event_broker as event_stream
 from .raft import NotLeaderError
 from .rpc import NoLeaderError
 
@@ -70,11 +74,35 @@ def register_endpoints(server, rpc) -> None:
         return {"Index": index, "Fingerprint": fp,
                 "AppliedIndex": server.raft.applied_index_relaxed()}
 
+    def status_metrics(body):
+        """The telemetry sink's newest interval over the wire, with the
+        codec's histograms and, while armed, the profiler's gauges and
+        the contention ledger merged in (endpoints.py:83-93)."""
+        latest = server.metrics.sink.latest()
+        return contprof.merge_metrics(codec.merge_metrics(latest))
+
+    def event_since(body):
+        """The buffered events with an index above ``MinIndex``, oldest
+        first, at most ``Max`` (1 to 2048; default 256): the poll-based
+        tail the auditor reads of a server without a stream listener
+        (endpoints.py:107-128)."""
+        min_index = int(body.get("MinIndex", 0) or 0)
+        cap = max(1, min(int(body.get("Max", 256) or 256), 2048))
+        broker = server.event_broker
+        events = [ev for ev in broker.buffered() if ev.index > min_index]
+        out = [{"Topic": ev.topic, "Type": ev.type, "Key": ev.key,
+                "Index": ev.index, "Payload": ev.payload or {},
+                "EvalID": ev.eval_id} for ev in events[:cap]]
+        return {"Events": out, "Latest": broker.latest_index(),
+                "Armed": event_stream.armed()}
+
     rpc.register("Status.Ping", lambda body: {"ok": True})
     rpc.register("Status.Leader", lambda body: server.leader_address())
     rpc.register("Status.Peers", lambda body: server.peer_addresses())
     rpc.register("Status.Fingerprint", status_fingerprint)
     rpc.register("Status.BrokerStats", lambda body: server.broker_stats())
+    rpc.register("Status.Metrics", status_metrics)
+    rpc.register("Event.Since", event_since)
 
     # -- serf-lite membership ----------------------------------------------
 

@@ -17,7 +17,12 @@ eval is cancelled through the log by the server's shed reaper), a bounded
 pending queue (``max_pending``; :meth:`EvalBroker.check_admission` raises
 :class:`BrokerLimitError` before the eval is persisted), a per-namespace
 pending quota (``ns_max_pending``), and a bypass priority that is always
-admitted.  Refusals decided outside the broker (the server's quota
+admitted.  The server admits through :meth:`EvalBroker.reserve_admission`,
+which holds a slot for the admitted registration until its eval is
+written (:meth:`EvalBroker.release_admission`): concurrent registrations
+that all pass the front door then cannot push the pending count past the
+bound, which a check alone lets them do by one each while their writes
+are in flight.  Refusals decided outside the broker (the server's quota
 ledger) are counted through :meth:`EvalBroker.note_quota_reject`.
 
 Each admission, coalesce, dequeue, ack and nack is traced
@@ -169,6 +174,10 @@ class EvalBroker:
         # and refusal counts.  All under self._l.
         self.fairness = FairnessState()
         self._ns_pending: Dict[str, int] = {}
+        # Admitted registrations whose eval is not written yet (the
+        # reserve_admission slots), in all and per namespace.
+        self._admitting = 0
+        self._ns_admitting: Dict[str, int] = {}
         self._ns_shed: Dict[str, int] = {}
         self._ns_rejects: Dict[str, int] = {}
 
@@ -383,14 +392,39 @@ class EvalBroker:
         ``max_pending`` or more evals, or, with a per-tenant quota
         (``ns_max_pending`` > 0), while ``namespace`` alone has that many
         pending; unless ``priority`` is at or above ``bypass_priority``.
-        ``retry_after`` grows with the overload."""
+        ``retry_after`` grows with the overload.  The slots held by
+        :meth:`reserve_admission` count as pending."""
+        self._admit(priority, namespace, ns_max_pending, reserve=False)
+
+    def reserve_admission(self, priority: int = 0, namespace: str = "",
+                          ns_max_pending: int = 0) -> bool:
+        """:meth:`check_admission`, and on admission hold a slot until
+        the caller's :meth:`release_admission`, once the eval is written
+        or its write failed.  Returns whether a slot is held (none while
+        nothing is bounded, disabled or for a bypass priority)."""
+        return self._admit(priority, namespace, ns_max_pending,
+                           reserve=True)
+
+    def release_admission(self, namespace: str = "") -> None:
+        ns = namespace or s.DEFAULT_NAMESPACE
+        with self._l:
+            self._admitting = max(0, self._admitting - 1)
+            left = self._ns_admitting.get(ns, 0) - 1
+            if left > 0:
+                self._ns_admitting[ns] = left
+            else:
+                self._ns_admitting.pop(ns, None)
+
+    def _admit(self, priority: int, namespace: str, ns_max_pending: int,
+               reserve: bool) -> bool:
         if self.max_pending <= 0 and ns_max_pending <= 0:
-            return
+            return False
         ns = namespace or s.DEFAULT_NAMESPACE
         with self._l:
             if not self._enabled or priority >= self.bypass_priority:
-                return
-            ns_pending = self._ns_pending.get(ns, 0)
+                return False
+            ns_pending = (self._ns_pending.get(ns, 0)
+                          + self._ns_admitting.get(ns, 0))
             if ns_max_pending > 0 and ns_pending >= ns_max_pending:
                 self.admission_rejects += 1
                 self._ns_rejects[ns] = self._ns_rejects.get(ns, 0) + 1
@@ -403,9 +437,13 @@ class EvalBroker:
                     5.0, 0.2 + 0.3 * (ns_pending / ns_max_pending))
                 raise BrokerLimitError(retry_after, ns_pending,
                                        ns_max_pending, namespace=ns)
-            pending = len(self.evals)
+            pending = len(self.evals) + self._admitting
             if self.max_pending <= 0 or pending < self.max_pending:
-                return
+                if reserve:
+                    self._admitting += 1
+                    self._ns_admitting[ns] = \
+                        self._ns_admitting.get(ns, 0) + 1
+                return reserve
             self.admission_rejects += 1
             self._ns_rejects[ns] = self._ns_rejects.get(ns, 0) + 1
         self.metrics.incr_counter("broker.admission_reject")

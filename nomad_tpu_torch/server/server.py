@@ -104,11 +104,21 @@ cluster event stream at construction, and the first
 :meth:`Server.event_stream_subscribe` arms it lazily; the ring holds
 ``events_ring`` events (``NOMAD_TPU_EVENTS_RING``).
 
+The flight-recorder plane (server.py:158-163, :438, :953-985): a
+non-empty ``blackbox_dir`` arms the process-wide flight recorder
+(``utils/blackbox.py``) at construction and ``contprof_hz`` > 0 the
+continuous profiler (``utils/contprof.py``), as ``trace`` arms the
+tracer; every server registers with the recorder at construction and
+unregisters at :meth:`shutdown`, so a bundle holds its stats, metrics,
+breaker and config.  The metrics tick adds the ``cpu.<subsystem>`` shares
+and ``runtime.gil_delay_p50_ms``/``p99_ms`` while the profiler is armed,
+and with ``slo_plan_p99_ms`` > 0 the plan-apply SLO watch: a tick whose
+``plan.apply`` p99 is over it triggers a ``slo.plan_apply_p99`` bundle.
+
 Left out, for later slices: the agent, HTTP, the client's RPC, the
 endpoints without a server method here, ``/v1/trace/*``,
 ``/v1/event/stream`` and the trace fanout over peers (ROADMAP queue 1
-item 20); federation and WAN joins; vault; deployments; the blackbox
-hooks (item 21).
+item 20); federation and WAN joins; vault; deployments.
 """
 from __future__ import annotations
 
@@ -130,7 +140,7 @@ from ..state.state_store import StateStore
 from ..structs import structs as s
 from ..structs.diff import job_diff
 from ..tenancy import QuotaLedger, RateLimiter
-from ..utils import tracing
+from ..utils import blackbox, contprof, tracing
 from ..utils.telemetry import Telemetry
 from ..utils.tlsutil import TLSConfig, client_context, server_context
 from . import event_broker as event_stream
@@ -228,7 +238,22 @@ class ServerConfig:
     cluster-wide fair-dequeue objective a namespace row's ``objective``
     overrides (the reference's ``NOMAD_TPU_TENANCY_OBJECTIVE``), and
     ``tenancy_metrics_top`` how many of the busiest tenants get
-    ``tenant.*`` gauges each tick (``NOMAD_TPU_TENANCY_METRICS_TOP``)."""
+    ``tenant.*`` gauges each tick (``NOMAD_TPU_TENANCY_METRICS_TOP``).
+    ``broker_max_pending`` bounds the eval broker's pending evals (0:
+    unbounded) and ``broker_coalesce`` turns its per-job coalescing on
+    (the reference's ``NOMAD_TPU_BROKER_MAX_PENDING`` and
+    ``NOMAD_TPU_BROKER_COALESCE``).
+
+    The flight-recorder plane (the module docstring): ``blackbox_dir``
+    (empty: disarmed), ``blackbox_min_interval_s`` and
+    ``blackbox_max_bundles`` arm the recorder (the reference's
+    ``NOMAD_TPU_BLACKBOX``, ``NOMAD_TPU_BLACKBOX_DIR``,
+    ``NOMAD_TPU_BLACKBOX_MIN_INTERVAL_S`` and ``_MAX_BUNDLES``);
+    ``slo_plan_p99_ms`` (0: off) is the plan-apply SLO watch's bound
+    (``NOMAD_TPU_BLACKBOX_SLO_PLAN_P99_MS``); ``contprof_hz`` (0: off)
+    arms the continuous profiler at that rate (``NOMAD_TPU_CONTPROF`` and
+    ``NOMAD_TPU_CONTPROF_HZ``).  All are process-wide: a later server's
+    values do not re-arm a plane that is already armed."""
 
     num_schedulers: int = 1
     batch_size: int = 64
@@ -271,6 +296,13 @@ class ServerConfig:
     eval_gc_interval: float = 300.0
     tenancy_objective: str = s.TENANCY_OBJECTIVE_DRF
     tenancy_metrics_top: int = 10
+    broker_max_pending: int = 0
+    broker_coalesce: bool = True
+    blackbox_dir: str = ""
+    blackbox_min_interval_s: float = blackbox.DEFAULT_MIN_INTERVAL_S
+    blackbox_max_bundles: int = blackbox.DEFAULT_MAX_BUNDLES
+    slo_plan_p99_ms: float = 0.0
+    contprof_hz: float = 0.0
 
 
 class Server:
@@ -286,16 +318,26 @@ class Server:
             self.device = device_mod.resolve_device(cfg.device)
         self.logger = logger or logging.getLogger("nomad_tpu_torch.server")
         self.metrics = Telemetry()
-        # The tracing plane is process-wide and off by default.
+        # The tracing plane, the continuous profiler and the flight
+        # recorder are process-wide and off by default.
         if cfg.trace and not tracing.enabled():
             tracing.enable()
+        if cfg.contprof_hz > 0:
+            contprof.enable(hz=cfg.contprof_hz)
+        if cfg.blackbox_dir:
+            blackbox.enable(cfg.blackbox_dir,
+                            min_interval_s=cfg.blackbox_min_interval_s,
+                            max_bundles=cfg.blackbox_max_bundles)
+        blackbox.register_server(self)
         self._leader = False
         self._shutdown = threading.Event()
 
         self.eval_broker = EvalBroker(
             nack_timeout=cfg.eval_nack_timeout,
             delivery_limit=cfg.eval_delivery_limit,
-            metrics=self.metrics)
+            metrics=self.metrics,
+            max_pending=cfg.broker_max_pending,
+            coalesce=cfg.broker_coalesce)
         self.eval_broker.set_objective(cfg.tenancy_objective)
         # The tenancy plane (server.py:182-195): the leader-side
         # reservation books of the live-alloc and node-units quotas, and
@@ -474,6 +516,7 @@ class Server:
         (``JOIN_TIMEOUT`` a thread)."""
         self._shutdown.set()
         self._leader = False
+        blackbox.unregister_server(self)
         event_stream.unregister(self.event_broker)
         self.event_broker.close()
         for worker in self.workers + self.follower_workers:
@@ -924,7 +967,8 @@ class Server:
 
     def _emit_metrics_loop(self) -> None:
         """Periodic gauges (server.go:292-305): the broker, blocked evals,
-        the plan queue, heartbeats, the log, and the kernel breaker."""
+        the plan queue, heartbeats, the log, the kernel breaker and, while
+        armed, the profiler's shares; then the plan-apply SLO watch."""
         while not self._shutdown.is_set():
             try:
                 self._feed_tenancy(self.config.tenancy_metrics_top)
@@ -952,6 +996,35 @@ class Server:
         m.set_gauge("breaker.state",
                     breaker_mod.STATE_CODE.get(brk.state, 0))
         m.set_gauge("breaker.trips", brk.trips)
+        prof = contprof.PROFILER
+        if prof is not None:
+            for sub, share in prof.shares(30.0).items():
+                m.set_gauge(f"cpu.{sub}", share)
+            gil = prof.gil_pressure_ms()
+            m.set_gauge("runtime.gil_delay_p50_ms", gil["p50"])
+            m.set_gauge("runtime.gil_delay_p99_ms", gil["p99"])
+        self._watch_plan_slo()
+
+    def _watch_plan_slo(self) -> None:
+        """The plan-apply p99 SLO watch (server.py:967-985): with
+        ``slo_plan_p99_ms`` > 0 and the recorder armed, a current interval
+        whose ``plan.apply`` p99 (ms) is over it triggers a
+        ``slo.plan_apply_p99`` bundle; the recorder's per-reason interval
+        keeps a sustained breach from flooding."""
+        slo_ms = self.config.slo_plan_p99_ms
+        if not slo_ms or slo_ms <= 0 or not blackbox.enabled():
+            return
+        summ = self.metrics.sink.latest().get("Samples", {}).get(
+            "nomad.plan.apply")
+        if not summ or not summ.get("count"):
+            return
+        p99 = summ.get("p99", 0.0)
+        if p99 > slo_ms:
+            blackbox.note_trigger(
+                "slo.plan_apply_p99",
+                {"P99Ms": round(p99, 3), "SloMs": slo_ms,
+                 "Count": summ.get("count", 0),
+                 "Node": self.config.node_name})
 
     def _feed_tenancy(self, tenant_top: int) -> None:
         """The tenancy plane's upkeep on the metrics tick
@@ -1105,18 +1178,29 @@ class Server:
 
     # -- jobs --------------------------------------------------------------
 
-    def _check_tenant_admission(self, job: s.Job) -> None:
+    def _check_tenant_admission(self, job: s.Job) -> bool:
         """The per-tenant front door, on the leader, before the log write
         (server.py:1306-1355): the namespace's pending-eval quota (with
         the broker's global cap), then an atomic check and reserve of its
         live-alloc quota, then of its node-units quota.  A refusal raises
         ``BrokerLimitError`` naming the namespace; a bypass-priority
-        submission skips the quotas."""
+        submission skips the quotas.  Returns whether the broker holds a
+        pending slot for the job's eval, which the caller releases once
+        the eval is written (``EvalBroker.reserve_admission``)."""
         ns = job.namespace or s.DEFAULT_NAMESPACE
         row = self.state.namespace_by_name(None, ns)
-        self.eval_broker.check_admission(
+        reserved = self.eval_broker.reserve_admission(
             job.priority, namespace=ns,
             ns_max_pending=row.max_pending_evals if row is not None else 0)
+        try:
+            self._check_tenant_quotas(job, ns, row)
+        except BaseException:
+            if reserved:
+                self.eval_broker.release_admission(ns)
+            raise
+        return reserved
+
+    def _check_tenant_quotas(self, job: s.Job, ns: str, row) -> None:
         if row is None or job.priority >= self.eval_broker.bypass_priority:
             return
         count = sum(tg.count for tg in job.task_groups)
@@ -1164,8 +1248,15 @@ class Server:
         # Admission at the front door, before anything is written; only
         # evals-to-be are gated.
         makes_eval = not job.is_periodic() and not job.is_parameterized()
-        if self._leader and makes_eval:
-            self._check_tenant_admission(job)
+        reserved = (self._check_tenant_admission(job)
+                    if self._leader and makes_eval else False)
+        try:
+            return self._register_job(job, makes_eval)
+        finally:
+            if reserved:
+                self.eval_broker.release_admission(job.namespace)
+
+    def _register_job(self, job: s.Job, makes_eval: bool) -> Tuple[int, str]:
         try:
             _, index = self.raft.apply(MessageType.JOB_REGISTER,
                                        {"job": job})
@@ -1198,8 +1289,15 @@ class Server:
             raise ValueError("can't evaluate periodic job")
         if job.is_parameterized():
             raise ValueError("can't evaluate parameterized job")
-        if self._leader:
-            self._check_tenant_admission(job)
+        reserved = (self._check_tenant_admission(job) if self._leader
+                    else False)
+        try:
+            return self._evaluate_job(job_id, job)
+        finally:
+            if reserved:
+                self.eval_broker.release_admission(job.namespace)
+
+    def _evaluate_job(self, job_id: str, job: s.Job) -> Tuple[int, str]:
         ev = s.Evaluation(
             id=s.generate_uuid(), priority=job.priority, type=job.type,
             namespace=job.namespace,
@@ -1333,8 +1431,16 @@ class Server:
         child.meta = dict(parent.meta)
         child.meta.update(meta)
         child.status = s.JOB_STATUS_PENDING
-        if self._leader:
-            self._check_tenant_admission(child)
+        reserved = (self._check_tenant_admission(child) if self._leader
+                    else False)
+        try:
+            return self._dispatch_child(job_id, payload, meta, child)
+        finally:
+            if reserved:
+                self.eval_broker.release_admission(child.namespace)
+
+    def _dispatch_child(self, job_id: str, payload: bytes, meta: Dict,
+                        child: s.Job) -> Tuple[int, str, str]:
         try:
             _, index = self.raft.apply(MessageType.JOB_REGISTER,
                                        {"job": child})

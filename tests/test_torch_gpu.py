@@ -827,3 +827,32 @@ def test_lifecycle_path_on_the_card_equals_the_cpu():
         c = got["launches"][wave]
         assert c["scored_rows"] == c["committing_spec_steps"] > 0, wave
         assert c["eviction_sets"] == 0
+
+
+@pytest.mark.gpu
+def test_loadgen_smoke_on_the_card():
+    """The load harness's ``smoke`` scenario through the port's server on
+    the card (``chip_smoke.py`` phase ``loadgen`` at that size): every
+    submission complete, each job its count, a clean strict sweep, no
+    nack and no oracle route, one SLO bundle, ``scored_rows`` launches =
+    committing steps, and the breaker drill's one ``breaker.open``
+    bundle."""
+    need_card()
+    from dataclasses import replace
+
+    import chip_smoke
+    from nomad_tpu_torch import device
+    from nomad_tpu_torch.loadgen.scenario import get_scenario
+
+    device.build_kernels()
+    # Arrivals over 3 s, so metrics ticks (1 s) fall inside the run after
+    # the card's first batch (about a second) and the SLO watch fires.
+    got = chip_smoke.phase_loadgen(
+        "cuda", replace(get_scenario("smoke"), arrival_rate=10.0))
+    base = got["launches"]["baseline"]
+    assert base["scored_rows"] == base["committing_spec_steps"] > 0
+    assert base["eviction_sets"] == base["masked_score_matrix"] == 0
+    assert got["baseline"]["coverage"] >= 0.80
+    assert got["shape_parity"]["max_abs_err"] <= ATOL
+    drill = got["launches"]["breaker_drill"]
+    assert drill["scored_rows"] == drill["committing_spec_steps"] > 0

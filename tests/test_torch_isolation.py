@@ -208,6 +208,53 @@ print("ok")
     assert out.stdout.strip() == "ok"
 
 
+def test_loadgen_smoke_runs_with_jax_unimportable(tmp_path):
+    """The load harness's smoke scenario on the CPU, through the CLI and
+    then with the profiler, the flight recorder, its SLO watch and the
+    lock-order sanitizer armed, with jax, nomad_tpu and msgpack
+    unimportable."""
+    code = f"""
+import json, sys
+sys.modules["jax"] = None
+sys.modules["nomad_tpu"] = None
+sys.modules["msgpack"] = None
+from nomad_tpu_torch.loadgen.__main__ import main
+from nomad_tpu_torch.loadgen import LoadHarness
+from nomad_tpu_torch.loadgen.scenario import get_scenario
+from nomad_tpu_torch.utils import blackbox, contprof, lockcheck
+from nomad_tpu_torch.utils.backoff import wait_until
+out = {str(tmp_path / "report.json")!r}
+assert main(["--smoke", "--device", "cpu", "--out", out]) == 0
+with open(out) as fh:
+    report = json.load(fh)
+assert report["sustained"]["completed_total"] == 30, report["sustained"]
+lockcheck.arm()
+try:
+    h = LoadHarness(get_scenario("smoke"), device="cpu",
+                    server_options={{
+                        "contprof_hz": 20.0,
+                        "blackbox_dir": {str(tmp_path / "bb")!r},
+                        "blackbox_min_interval_s": 3600.0,
+                        "slo_plan_p99_ms": 1e-6}})
+    report = h.run()
+    assert report["sustained"]["completed_total"] == 30
+    assert report["host_attribution"]["thread_samples"] > 0
+    # The run may end inside the first metrics tick: tick once more.
+    h.server.emit_gauges()
+    assert wait_until(lambda: len(blackbox.bundles()) == 1, 10.0)
+    lockcheck.assert_acyclic()
+finally:
+    lockcheck.disarm()
+    contprof.disable()
+    blackbox.disable()
+print("ok")
+"""
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=180)
+    assert out.returncode == 0, out.stderr[-4000:]
+    assert out.stdout.strip().splitlines()[-1] == "ok"
+
+
 def test_cluster_runs_with_msgpack_unimportable():
     """Three port servers over loopback: RPC, membership, MultiRaft and a
     write forwarded from a follower, with jax, nomad_tpu and msgpack
@@ -282,6 +329,24 @@ def test_default_device_raises_without_cuda():
 
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         PlanApplier(h.state)
+
+
+def test_load_harness_raises_without_cuda():
+    """The harness's leader runs on the device it is given: with the
+    default ``cuda`` and no card it raises, through the API and the CLI,
+    and never carries on on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is visible; this checks the CPU-only case")
+    from nomad_tpu_torch.loadgen import LoadHarness
+    from nomad_tpu_torch.loadgen.__main__ import main
+    from nomad_tpu_torch.loadgen.scenario import get_scenario
+
+    h = LoadHarness(get_scenario("smoke"))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        h.run()
+    assert h.server is None
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        main(["--smoke"])
 
 
 def test_kernel_wrapper_never_computes_plain_off_the_cpu():
