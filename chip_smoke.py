@@ -244,8 +244,9 @@ Phases, each printed as one JSON line:
                TCP (RPC over the struct codec, serf-lite membership,
                ``MultiRaft``, forwarding), each world in a process of its
                own under one string hash seed and one guard cadence
-               (every read).  Leg 1, exact: phase 17's fleet (every fifth
-               node registered through a follower, forwarded), config
+               (every read).  Leg 1, exact: half of phase 17's fleet,
+               5,000 nodes (every fifth registered through a follower,
+               forwarded), config
                (b)'s wave 1 (100 x 1000), every worker paused and wave 2
                (10 x 200) registered through a follower, the leader shut
                down (its broker first), a new leader elected whose
@@ -336,7 +337,34 @@ Phases, each printed as one JSON line:
                ``fault.fire`` span and ``breaker.transition`` event and
                the private breaker at one trip; a second trigger inside
                the interval writes nothing; no lock-order cycle;
-25. times   -- each kernel's device time (profiler trace; CUDA events
+25. agent   -- the front door, each world in a process of its own under
+               one string hash seed: (A) a port ``Agent`` from an HCL
+               config (a server, no client, HTTP and RPC on ephemeral
+               ports, the in-memory log) on the card, 10,000
+               ``mock.node()`` nodes (the first 100 over its RPC
+               listener), 100 HCL files of config (b)'s ``mock.job()``
+               at count 1,000 through ``python -m nomad_tpu_torch.cli job
+               run -detach`` and HTTP with the workers paused, then
+               released, every eval awaited by a blocking query; (B) the
+               same jobs through ``Server.job_register`` on the card; (C)
+               A's script on the CPU.  A = B = C on the placements (job,
+               alloc name -> node) and eval statuses, A = B on the
+               scores, A vs C within 4e-6; every parsed job's wire form
+               that of its ``mock.job()``; one ``scored_rows`` launch per
+               committing step and 0 differing bits at the shapes the
+               path gave it; no nack or failed eval, the breaker closed,
+               no oracle route, no node over capacity; blocking queries
+               on the jobs and allocs tables started before the
+               submissions return with a higher index, the allocs one
+               after the release; ``job status``, ``alloc status``,
+               ``eval status``, ``node status`` and ``job inspect`` exit
+               0, ``job plan`` of an edited file shows the count edit,
+               the event stream holds a ``PlanApplied`` for every placing
+               eval and an ``EvalUpdated`` for every eval, ``job stop
+               -purge`` leaves no live alloc, and no agent thread
+               outlives ``shutdown``; evals per second through HTTP
+               against the direct path, and the CLI's request ms;
+26. times   -- each kernel's device time (profiler trace; CUDA events
                where the trace has none) over copies of its inputs that
                overflow the L2 (``rotating``: twice the L2 of input bytes
                a cycle), its plain version's, the bound for the same work
@@ -345,7 +373,7 @@ Phases, each printed as one JSON line:
                (the mesh's call at config_mesh); the launch floor (a
                one-element fill); the kernels' SASS instruction counts and the
                issue-rate time they give;
-26. profile -- config (b)'s first batch again, warm, on the single card
+27. profile -- config (b)'s first batch again, warm, on the single card
                and on a 4-shard mesh: untraced, and under a device-only
                trace for the device busy time and idle share.
 
@@ -4978,9 +5006,12 @@ CLUSTER_HASH_SEED = 20261025
 CLUSTER_RAFT = {"raft_heartbeat": 0.2, "raft_election_min": 5.0,
                 "raft_election_max": 8.0}
 CLUSTER_ELECTION_TIMEOUT = 60.0
-# Leg 1: phase 17's fleet, config (b)'s wave 1 (100 x 1000), wave 2
-# (10 x 200) and a follow-up (10 x 200).  Leg 2: its fleet and jobs.
-CLUSTER_SIZES = {"n_nodes": 10_000, "n_jobs": 100, "count": 1000,
+# Leg 1: half of phase 17's fleet (5,000 nodes: the smoke's largest
+# phase, cut to keep the whole run under 1,000 s; every compared item
+# holds at this size), config (b)'s wave 1 (100 x 1000; the asks past
+# the fleet's room block), wave 2 (10 x 200) and a follow-up (10 x 200).
+# Leg 2: its fleet and jobs.
+CLUSTER_SIZES = {"n_nodes": 5_000, "n_jobs": 100, "count": 1000,
                  "wave_jobs": 10, "wave_count": 200, "follow_jobs": 10}
 LEG2_SIZES = {"n_nodes": 2_000, "n_jobs": 200, "count": 20}
 CLUSTER_STEPS = ("nodes", "wave1", "wave2_paused", "leader_down",
@@ -5665,7 +5696,6 @@ def lifecycle_world(dev, sizes) -> dict:
     from nomad_tpu_torch.ops import resident
     from nomad_tpu_torch.ops.breaker import KernelCircuitBreaker
     from nomad_tpu_torch.server import Server, ServerConfig
-    from nomad_tpu_torch.server import eval_broker as broker_mod
     from nomad_tpu_torch.server.eval_broker import BrokerLimitError
     from nomad_tpu_torch.state import columnar as colmod
     from nomad_tpu_torch.structs import structs as ps
@@ -5674,13 +5704,13 @@ def lifecycle_world(dev, sizes) -> dict:
     sc = lifecycle_scenario(**sizes)
     colmod.reset_counters()
     resident.reset_counters()
+    brk = KernelCircuitBreaker()
     # The broker draws among the ready service and batch queues at
     # random: one seeded draw sequence in every world, so the batches
     # hold their evals in the same order.
-    broker_mod.random = random.Random(LIFECYCLE_SEED)
-    brk = KernelCircuitBreaker()
     srv = Server(ServerConfig(
-        device=dev, rng_seed=SERVER_SEED, batch_size=64,
+        device=dev, rng_seed=SERVER_SEED, broker_seed=LIFECYCLE_SEED,
+        batch_size=64,
         min_heartbeat_ttl=SERVER_HEARTBEAT_TTL, breaker=brk,
         columnar_guard_every=1, trace=True, events=True))
     out = {"waves": [], "refused": [], "force_ms": [], "dispatch_ms": []}
@@ -6333,7 +6363,641 @@ def phase_loadgen(dev, scenario=None):
             "seconds": time.perf_counter() - t_phase}
 
 
-# -- phase 25: times ---------------------------------------------------------
+# -- phase 25: agent ---------------------------------------------------------
+
+AGENT_SEED = 20261117
+# Every world of the phase runs in a process of its own under this string
+# hash seed (a node update's evals follow set order; ROADMAP queue 3
+# item 13).
+AGENT_HASH_SEED = 20261117
+AGENT_CHILD_TIMEOUT = 600.0
+AGENT_SIZES = {"n_nodes": 10_000, "n_rpc": 100, "n_jobs": 100,
+               "count": 1000}
+# The HCL agent config of the HTTP worlds: a server, no client, HTTP and
+# RPC on ephemeral ports, the in-memory log (no data_dir).
+AGENT_HCL = """
+name      = "agent-smoke"
+region    = "global"
+log_level = "WARN"
+bind_addr = "127.0.0.1"
+ports {
+  http = 0
+  rpc  = 0
+}
+server {
+  enabled        = true
+  num_schedulers = 1
+  batch_size     = 64
+}
+client {
+  enabled = false
+}
+"""
+
+
+def _hcl_str(v) -> str:
+    return json.dumps(str(v))
+
+
+def _hcl_dur(seconds: float) -> str:
+    return _hcl_str(f"{float(seconds)!r}s")
+
+
+def _hcl_map(name: str, d: dict, pad: str) -> list:
+    if not d:
+        return []
+    return ([f"{pad}{name} {{"]
+            + [f"{pad}  {json.dumps(k)} = {_hcl_str(v)}"
+               for k, v in d.items()] + [f"{pad}}}"])
+
+
+def _hcl_constraints(cs, pad: str) -> list:
+    out = []
+    for c in cs:
+        out += [f"{pad}constraint {{",
+                f"{pad}  attribute = {_hcl_str(c.ltarget)}",
+                f"{pad}  operator  = {_hcl_str(c.operand)}",
+                f"{pad}  value     = {_hcl_str(c.rtarget)}", f"{pad}}}"]
+    return out
+
+
+def job_hcl(job) -> str:
+    """An HCL jobspec of ``job`` that ``nomad_tpu_torch.jobspec.parse``
+    reads back to the same job: the fields ``mock.job()`` sets (task
+    groups with their restart policy, ephemeral disk and meta; tasks with
+    their driver, config, env, resources and networks, services and
+    checks, log config, kill timeout and meta), every value written out,
+    none left to the parser's defaults."""
+    lines = [f"job {_hcl_str(job.id)} {{",
+             f"  name        = {_hcl_str(job.name)}",
+             f"  region      = {_hcl_str(job.region)}",
+             f"  type        = {_hcl_str(job.type)}",
+             f"  priority    = {job.priority}",
+             f"  all_at_once = {str(job.all_at_once).lower()}",
+             f"  datacenters = {json.dumps(list(job.datacenters))}"]
+    lines += _hcl_map("meta", job.meta, "  ")
+    lines += _hcl_constraints(job.constraints, "  ")
+    if job.update.stagger or job.update.max_parallel:
+        lines += ["  update {", f"    stagger      = "
+                  f"{_hcl_dur(job.update.stagger)}",
+                  f"    max_parallel = {job.update.max_parallel}", "  }"]
+    for tg in job.task_groups:
+        rp, disk = tg.restart_policy, tg.ephemeral_disk
+        lines += [f"  group {_hcl_str(tg.name)} {{",
+                  f"    count = {tg.count}",
+                  "    restart {", f"      attempts = {rp.attempts}",
+                  f"      interval = {_hcl_dur(rp.interval)}",
+                  f"      delay    = {_hcl_dur(rp.delay)}",
+                  f"      mode     = {_hcl_str(rp.mode)}", "    }",
+                  "    ephemeral_disk {",
+                  f"      sticky  = {str(disk.sticky).lower()}",
+                  f"      migrate = {str(disk.migrate).lower()}",
+                  f"      size    = {disk.size_mb}", "    }"]
+        lines += _hcl_map("meta", tg.meta, "    ")
+        lines += _hcl_constraints(tg.constraints, "    ")
+        for t in tg.tasks:
+            r = t.resources
+            lines += [f"    task {_hcl_str(t.name)} {{",
+                      f"      driver       = {_hcl_str(t.driver)}",
+                      f"      user         = {_hcl_str(t.user)}",
+                      f"      leader       = {str(t.leader).lower()}",
+                      f"      kill_timeout = {_hcl_dur(t.kill_timeout)}"]
+            lines += _hcl_map("config", t.config, "      ")
+            lines += _hcl_map("env", t.env, "      ")
+            lines += _hcl_map("meta", t.meta, "      ")
+            lines += _hcl_constraints(t.constraints, "      ")
+            for svc in t.services:
+                lines += ["      service {",
+                          f"        name = {_hcl_str(svc.name)}",
+                          f"        port = {_hcl_str(svc.port_label)}",
+                          f"        tags = {json.dumps(list(svc.tags))}"]
+                for c in svc.checks:
+                    lines += ["        check {",
+                              f"          name     = {_hcl_str(c.name)}",
+                              f"          type     = {_hcl_str(c.type)}",
+                              f"          command  = {_hcl_str(c.command)}",
+                              f"          args     = {json.dumps(c.args)}",
+                              f"          path     = {_hcl_str(c.path)}",
+                              f"          protocol = {_hcl_str(c.protocol)}",
+                              f"          port     = "
+                              f"{_hcl_str(c.port_label)}",
+                              f"          interval = {_hcl_dur(c.interval)}",
+                              f"          timeout  = {_hcl_dur(c.timeout)}",
+                              f"          initial_status = "
+                              f"{_hcl_str(c.initial_status)}",
+                              "        }"]
+                lines.append("      }")
+            lines += ["      logs {",
+                      f"        max_files     = {t.log_config.max_files}",
+                      f"        max_file_size = "
+                      f"{t.log_config.max_file_size_mb}", "      }",
+                      "      resources {", f"        cpu    = {r.cpu}",
+                      f"        memory = {r.memory_mb}",
+                      f"        disk   = {r.disk_mb}",
+                      f"        iops   = {r.iops}"]
+            for net in r.networks:
+                lines += ["        network {", f"          mbits = {net.mbits}"]
+                lines += [f"          port {_hcl_str(p.label)} {{ static = "
+                          f"{p.value} }}" for p in net.reserved_ports]
+                lines += [f"          port {_hcl_str(p.label)} {{}}"
+                          for p in net.dynamic_ports]
+                lines.append("        }")
+            lines += ["      }", "    }"]
+        lines.append("  }")
+    lines.append("}")
+    return "\n".join(lines) + "\n"
+
+
+# Fields that differ between a job as submitted and as parsed only by
+# when and where it was stored.
+_WIRE_UNCOMPARED = frozenset({"CreateIndex", "ModifyIndex", "JobModifyIndex",
+                              "SubmitTime"})
+
+
+def wire_without_indexes(job) -> dict:
+    from nomad_tpu_torch.api.codec import to_wire
+
+    return {k: v for k, v in to_wire(job).items()
+            if k not in _WIRE_UNCOMPARED}
+
+
+def agent_scenario(n_nodes, n_rpc, n_jobs, count):
+    """The phase's nodes (``mock.node()``, networks stripped, id and name
+    ``node-NNNNN``) and config (b)'s jobs (``mock.job()`` at ``count``,
+    networks stripped, id and name ``job-NNN``)."""
+    from nomad_tpu_torch import mock
+
+    nodes = []
+    for i in range(n_nodes):
+        n = strip_node(mock.node())
+        n.id = n.name = f"node-{i:05d}"
+        nodes.append(n)
+    jobs = []
+    for k in range(n_jobs):
+        j = strip_job(mock.job(), count)
+        j.id = j.name = f"job-{k:03d}"
+        jobs.append(j)
+    return {"nodes": nodes, "jobs": jobs, "n_rpc": n_rpc}
+
+
+def _http_get(url: str, timeout: float = 330.0):
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=timeout) as resp:
+        return (json.loads(resp.read() or b"null"),
+                int(resp.headers.get("X-Nomad-Index") or 0))
+
+
+def _cli(argv) -> tuple:
+    """``python -m nomad_tpu_torch.cli`` in this process: (exit code,
+    output, ms)."""
+    import io
+
+    from nomad_tpu_torch.cli import main
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    rc = main(list(argv), out=buf)
+    return rc, buf.getvalue(), (time.perf_counter() - t0) * 1e3
+
+
+def agent_world(dev, mode, sizes, root) -> dict:
+    """One world of phase ``agent`` (see the module docstring, phase 25).
+    ``mode`` ``http``: a port ``Agent`` from the HCL config, the first
+    ``n_rpc`` nodes over its RPC listener and the rest in-process, the
+    jobs as HCL files through ``python -m nomad_tpu_torch.cli job run
+    -detach``, every eval awaited by a blocking query, then the CLI's
+    reads, a plan, the event stream and a purge.  ``direct``: a port
+    ``Server`` and ``job_register`` of the same jobs as structs.  The
+    kernels' launch counts are set to 0 just before the submissions and
+    read once every eval is complete."""
+    from nomad_tpu_torch.agent import Agent, load_config_file
+    from nomad_tpu_torch.jobspec import parse_file
+    from nomad_tpu_torch.ops import fused_score, kernels, preempt
+    from nomad_tpu_torch.ops.breaker import KernelCircuitBreaker
+    from nomad_tpu_torch.server import Server, ServerConfig
+    from nomad_tpu_torch.server.rpc import ConnPool
+    from nomad_tpu_torch.state import columnar as colmod
+
+    sc = agent_scenario(**sizes)
+    colmod.reset_counters()
+    brk = KernelCircuitBreaker()
+    opts = dict(rng_seed=SERVER_SEED, min_heartbeat_ttl=SERVER_HEARTBEAT_TTL,
+                breaker=brk, broker_seed=AGENT_SEED, events=True,
+                events_ring=1 << 16)
+    http = mode == "http"
+    out = {"device": str(dev), "mode": mode, "card": smi_name_power(),
+           "kernel_shapes": {"scored_rows": set(), "eviction_sets": set()}}
+    agent = None
+    if http:
+        import tempfile
+
+        wdir = tempfile.mkdtemp(prefix=f"agent-{dev}-{mode}-", dir=root)
+        os.makedirs(os.path.join(wdir, "jobs"))
+        cfg_path = os.path.join(wdir, "agent.hcl")
+        with open(cfg_path, "w") as fh:
+            fh.write(AGENT_HCL)
+        agent = Agent(load_config_file(cfg_path), device=dev,
+                      server_options=opts)
+        srv = agent.server
+    else:
+        srv = Server(ServerConfig(device=dev, batch_size=64, **opts))
+    try:
+        with seeded_ids(AGENT_SEED):
+            if http:
+                agent.start()
+                addr = agent.http.address
+            else:
+                srv.start()
+            t0 = time.perf_counter()
+            pool = ConnPool() if http else None
+            for i, n in enumerate(sc["nodes"]):
+                if http and i < sc["n_rpc"]:
+                    pool.call(srv.config.rpc_advertise, "Node.Register",
+                              {"Node": n})
+                else:
+                    srv.node_register(n)
+            if pool is not None:
+                pool.close()
+            out["node_register_s"] = time.perf_counter() - t0
+            if len(srv.state.nodes(None)) != len(sc["nodes"]):
+                raise AssertionError(f"{mode}: nodes registered "
+                                     f"{len(srv.state.nodes(None))}")
+            paths = []
+            if http:
+                mismatched = []
+                for j in sc["jobs"]:
+                    p = os.path.join(wdir, "jobs", f"{j.id}.nomad")
+                    with open(p, "w") as fh:
+                        fh.write(job_hcl(j))
+                    paths.append(p)
+                    if wire_without_indexes(parse_file(p)) != \
+                            wire_without_indexes(j):
+                        mismatched.append(j.id)
+                out["jobspec_mismatches"] = mismatched
+                # Blocking queries started before the submissions: the
+                # jobs table's and the allocs table's (the latter wakes
+                # on the first plan's commit).
+                blocking = {}
+
+                def block(table, index):
+                    t = time.perf_counter()
+                    body, got = _http_get(
+                        f"{addr}/v1/{table}?index={index}&wait=300s")
+                    blocking[table] = {"before": index, "after": got,
+                                       "returned_at": time.perf_counter(),
+                                       "waited_s": time.perf_counter() - t,
+                                       "rows": len(body or [])}
+
+                # (index 0 would not block: both wait past the index of
+                # the last node registration.)
+                before = srv.raft.applied_index()
+                waiters = [threading.Thread(target=block,
+                                            args=(tbl, before), daemon=True)
+                           for tbl in ("jobs", "allocations")]
+                for w in waiters:
+                    w.start()
+                time.sleep(0.5)
+            if not srv.set_workers_paused(True,
+                                          timeout=SERVER_SETTLE_TIMEOUT):
+                raise AssertionError(f"{mode}: workers did not park")
+            fused_score.LAUNCHES = kernels.COMMIT_STEPS = 0
+            fused_score.MASKED_LAUNCHES = preempt.LAUNCHES = 0
+            shapes = out["kernel_shapes"]
+            eval_ids, request_ms = [], []
+            t_submit = time.perf_counter()
+            with kernel_shapes(shapes):
+                if http:
+                    for p in paths:
+                        rc, text, ms = _cli(["job", "run", "-detach",
+                                             "-address", addr, p])
+                        if rc != 0 or "Evaluation ID: " not in text:
+                            raise AssertionError(f"job run {p}: rc {rc}: "
+                                                 f"{text[-500:]}")
+                        eval_ids.append(text.split("Evaluation ID: ")[1]
+                                        .split()[0])
+                        request_ms.append(ms)
+                else:
+                    for j in sc["jobs"]:
+                        t = time.perf_counter()
+                        eval_ids.append(srv.job_register(j)[1])
+                        request_ms.append((time.perf_counter() - t) * 1e3)
+                t_release = time.perf_counter()
+                srv.set_workers_paused(False)
+                if http:
+                    # Each eval awaited by a blocking query on it.
+                    for eid in eval_ids:
+                        index = 0
+                        while True:
+                            body, index = _http_get(
+                                f"{addr}/v1/evaluation/{eid}?index={index}"
+                                f"&wait=60s")
+                            if body["Status"] in ("complete", "failed",
+                                                  "canceled"):
+                                break
+                    t_done = time.perf_counter()
+                    server_settle(srv)
+                else:
+                    t_done = server_settle(srv)
+            launches = {"scored_rows": fused_score.LAUNCHES,
+                        "masked_score_matrix": fused_score.MASKED_LAUNCHES,
+                        "eviction_sets": preempt.LAUNCHES,
+                        "committing_spec_steps": kernels.COMMIT_STEPS}
+            wall = t_done - t_release
+            out.update({
+                "launches": launches,
+                "submit_s": t_release - t_submit,
+                "request_ms": {"n": len(request_ms),
+                               "mean": statistics.fmean(request_ms),
+                               "p50": statistics.median(request_ms),
+                               "max": max(request_ms)},
+                "release_to_complete_s": wall,
+                "evals_per_s": len(eval_ids) / wall,
+                "eval_statuses": sorted(
+                    (e.job_id, e.triggered_by, e.status)
+                    for e in srv.state.evals(None)),
+                "submitted_not_complete": [
+                    eid for eid in eval_ids
+                    if srv.state.eval_by_id(None, eid).status != "complete"],
+            })
+            st = srv.state
+            placements, scores = {}, {}
+            for a in st.allocs(None):
+                if a.desired_status == "run":
+                    placements[f"{a.job_id}/{a.name}"] = a.node_id
+                    if a.metrics is not None and a.job_id not in scores:
+                        scores[a.job_id] = sorted(a.metrics.scores.items())
+            out["placements"] = placements
+            out["scores"] = scores
+            b = srv.eval_broker.stats()
+            out["health"] = {
+                "nacks": b["total_nacks"], "failed": b["total_failed"],
+                "breaker": brk.state, "trips": brk.trips,
+                "oracle_routed": server_counter(srv,
+                                                "breaker.oracle_routed"),
+                "over_capacity": store_over_capacity(srv),
+                "columnar": columnar_counters()}
+            if http:
+                for w in waiters:
+                    w.join(60.0)
+                for tbl, row in blocking.items():
+                    row["after_release"] = row.pop("returned_at") > t_release
+                out["blocking"] = blocking
+                out["cli"] = agent_cli_reads(addr, srv, sc, wdir,
+                                             eval_ids)
+        if agent is not None:
+            from nomad_tpu_torch.utils.backoff import wait_until
+
+            agent.shutdown()
+            # The server's sweepers end within their bounded joins.
+            wait_until(lambda: not agent.threads(), 15.0)
+            out["threads_after_shutdown"] = [t.name for t in agent.threads()]
+            agent = None
+        else:
+            srv.shutdown()
+        srv = None
+    finally:
+        if agent is not None:
+            agent.shutdown()
+        elif srv is not None:
+            srv.shutdown()
+    out["kernel_shapes"] = {k: sorted(v) for k, v in
+                            out["kernel_shapes"].items()}
+    return out
+
+
+def agent_cli_reads(addr, srv, sc, wdir, eval_ids) -> dict:
+    """The CLI's and the API's reads after the wave: each command's exit
+    code, a ``job plan`` of an edited file (its diff and annotations),
+    the event stream's ``PlanApplied`` and ``EvalUpdated`` events of the
+    wave's evals, and ``job stop -purge`` of the first job."""
+    from nomad_tpu_torch.jobspec import parse_file
+
+    first = sc["jobs"][0]
+    alloc = sorted(srv.state.allocs_by_job(None, first.id, False),
+                   key=lambda a: a.name)[0]
+    rows = {}
+    for label, argv in (
+            ("job status", ["job", "status", first.id]),
+            ("job status (list)", ["job", "status"]),
+            ("alloc status", ["alloc", "status", alloc.id]),
+            ("eval status", ["eval", "status", eval_ids[0]]),
+            ("node status", ["node", "status"]),
+            ("node status (one)", ["node", "status", sc["nodes"][0].id]),
+            ("job inspect", ["job", "inspect", first.id])):
+        rc, text, ms = _cli(argv[:2] + ["-address", addr] + argv[2:])
+        rows[label] = {"rc": rc, "ms": ms, "lines": text.count("\n")}
+        if rc != 0:
+            raise AssertionError(f"{label}: rc {rc}: {text[-500:]}")
+    # job plan on an edited file: one more task group count.
+    edited = parse_file(os.path.join(wdir, "jobs", f"{first.id}.nomad"))
+    edited.task_groups[0].count += 10
+    path = os.path.join(wdir, "edited.nomad")
+    with open(path, "w") as fh:
+        fh.write(job_hcl(edited))
+    rc, text, ms = _cli(["job", "plan", "-address", addr, path])
+    plan = {"rc": rc, "ms": ms,
+            "count_edit": "Count" in text and "+/-" in text,
+            "place": next((ln.strip() for ln in text.splitlines()
+                           if "create" in ln or "place" in ln), "")}
+    if rc != 1 or not plan["count_edit"]:
+        raise AssertionError(f"job plan: rc {rc}: {text[-800:]}")
+    rows["job plan"] = plan
+    # The event stream: the wave's plans and eval updates.
+    import urllib.request
+
+    with urllib.request.urlopen(f"{addr}/v1/event/stream?follow=false&"
+                                f"topic=Plan,Eval", timeout=60) as resp:
+        events = [json.loads(ln) for ln in resp.read().splitlines() if ln]
+    wave = set(eval_ids)
+    # The evals that placed anything (the asks past the fleet's room
+    # block and apply no plan).
+    placing = {a.eval_id for a in srv.state.allocs(None)} & wave
+    applied = {e["Key"] for e in events
+               if e.get("Type") == "PlanApplied" and e.get("Key") in wave}
+    updated = {e["Key"] for e in events
+               if e.get("Type") == "EvalUpdated" and e.get("Key") in wave}
+    rows["event_stream"] = {"events": len(events),
+                            "placing_evals": len(placing),
+                            "plan_applied_evals": len(applied),
+                            "eval_updated_evals": len(updated)}
+    if applied != placing or updated != wave:
+        raise AssertionError(f"event stream: {rows['event_stream']} of "
+                             f"{len(wave)} evals")
+    rc, text, ms = _cli(["job", "stop", "-purge", "-detach", "-address",
+                         addr, first.id])
+    if rc != 0:
+        raise AssertionError(f"job stop -purge: rc {rc}: {text[-500:]}")
+    server_settle(srv)
+    rows["job stop -purge"] = {
+        "rc": rc, "ms": ms,
+        "purged": srv.state.job_by_id(None, first.id) is None,
+        "live_allocs_left": sum(
+            1 for a in srv.state.allocs_by_job(None, first.id, True)
+            if not a.terminal_status())}
+    if not rows["job stop -purge"]["purged"] or \
+            rows["job stop -purge"]["live_allocs_left"]:
+        raise AssertionError(f"job stop -purge: {rows['job stop -purge']}")
+    return rows
+
+
+def agent_child(dev, mode, out_path, sizes, root) -> None:
+    """One world of phase ``agent`` in a process of its own; the report
+    is written to ``out_path``."""
+    out = agent_world(dev, mode, sizes, root)
+    with open(out_path, "w") as fh:
+        json.dump(out, fh)
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(0)
+
+
+def run_agent_child(dev, mode, root, sizes) -> dict:
+    """``agent_child`` in a fresh process under the phase's string hash
+    seed; its report."""
+    out_path = os.path.join(root, f"agent-{dev}-{mode}.json")
+    code = ("import sys; sys.path.insert(0, {0!r}); import chip_smoke as c; "
+            "c.agent_child({1!r}, {2!r}, {3!r}, {4!r}, {5!r})"
+            ).format(REPO, dev, mode, out_path, sizes, root)
+    env = dict(os.environ, PYTHONHASHSEED=str(AGENT_HASH_SEED))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True,
+                          timeout=AGENT_CHILD_TIMEOUT)
+    if proc.returncode != 0 or not os.path.exists(out_path):
+        raise AssertionError(f"agent child on {dev} ({mode}): rc "
+                             f"{proc.returncode}: {proc.stderr[-3000:]}")
+    with open(out_path) as fh:
+        out = json.load(fh)
+    os.unlink(out_path)
+    out["child_wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def check_agent_world(w, label, sizes, on_card) -> list:
+    """The invariants of one world."""
+    errors = []
+    h = w["health"]
+    if (h["nacks"] or h["failed"] or h["breaker"] != "closed" or h["trips"]
+            or h["oracle_routed"] or h["over_capacity"]):
+        errors.append(f"{label}: health {h}")
+    if h["columnar"]["GUARD_MISMATCHES"] or \
+            h["columnar"]["USAGE_GUARD_MISMATCHES"]:
+        errors.append(f"{label}: columnar guards {h['columnar']}")
+    if w["submitted_not_complete"]:
+        errors.append(f"{label}: submitted evals not complete: "
+                      f"{w['submitted_not_complete'][:5]}")
+    la = w["launches"]
+    if on_card and (la["scored_rows"] == 0
+                    or la["scored_rows"] != la["committing_spec_steps"]):
+        errors.append(f"{label}: scored_rows launches {la}")
+    if not on_card and la["scored_rows"]:
+        errors.append(f"{label}: kernel launched off the card {la}")
+    if la["masked_score_matrix"] or la["eviction_sets"]:
+        errors.append(f"{label}: unexpected launches {la}")
+    if not w["placements"]:
+        errors.append(f"{label}: nothing placed")
+    if w["mode"] == "http":
+        if w["jobspec_mismatches"]:
+            errors.append(f"{label}: parsed jobs differ from mock.job(): "
+                          f"{w['jobspec_mismatches'][:5]}")
+        for tbl, row in w["blocking"].items():
+            if not (row["after"] > row["before"] and row["after_release"]
+                    or tbl == "jobs" and row["after"] > row["before"]):
+                errors.append(f"{label}: blocking query on {tbl}: {row}")
+        if w["threads_after_shutdown"]:
+            errors.append(f"{label}: threads left after shutdown: "
+                          f"{w['threads_after_shutdown']}")
+    return errors
+
+
+def phase_agent(dev, sizes=None):
+    """The front door (see the module docstring, phase 25): world A (HCL
+    through the CLI and HTTP into an agent's server on ``dev``), world B
+    (the same jobs through ``Server.job_register`` on ``dev``) and world
+    C (A's script on the CPU), each in a process of its own, compared
+    here; ``scored_rows`` at the shapes A gave it against its plain
+    version."""
+    import shutil
+    import tempfile
+
+    t_phase = time.perf_counter()
+    smi = smi_name_power()
+    on_card = torch_device(dev).type == "cuda"
+    sizes = dict(AGENT_SIZES if sizes is None else sizes)
+    root = tempfile.mkdtemp(prefix="nomad-torch-agent-")
+    try:
+        a = run_agent_child(dev, "http", root, sizes)
+        b = run_agent_child(dev, "direct", root, sizes)
+        c = run_agent_child("cpu", "http", root, sizes)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    errors = (check_agent_world(a, "A", sizes, on_card)
+              + check_agent_world(b, "B", sizes, on_card)
+              + check_agent_world(c, "C", sizes, False))
+    for other, label in ((b, "B"), (c, "C")):
+        if a["placements"] != other["placements"]:
+            pa, po = set(a["placements"].items()), set(
+                other["placements"].items())
+            errors.append(f"A != {label} placements: "
+                          f"{sorted(pa - po)[:5]} / {sorted(po - pa)[:5]} "
+                          f"({len(pa)} / {len(po)})")
+        if a["eval_statuses"] != other["eval_statuses"]:
+            errors.append(f"A != {label} eval statuses")
+        if a["launches"]["committing_spec_steps"] != \
+                other["launches"]["committing_spec_steps"]:
+            errors.append(f"A != {label} committing steps: "
+                          f"{a['launches']} {other['launches']}")
+    score_err = {}
+    for other, label in ((b, "B"), (c, "C")):
+        worst = 0.0
+        if set(a["scores"]) != set(other["scores"]):
+            errors.append(f"A != {label}: jobs with scores differ")
+        for job, rows in a["scores"].items():
+            theirs = dict(map(tuple, other["scores"].get(job, [])))
+            if set(k for k, _ in rows) != set(theirs):
+                errors.append(f"A != {label}: score keys of {job}")
+                continue
+            for k, v in rows:
+                worst = max(worst, abs(v - theirs[k]))
+        score_err[label] = worst
+    if score_err.get("B", 0.0) != 0.0:
+        errors.append(f"A != B scores: {score_err['B']}")
+    if score_err.get("C", 0.0) > 4e-6:
+        errors.append(f"A vs C scores differ by {score_err['C']} > 4e-6")
+    shape_parity = {}
+    if on_card:
+        score = [tuple(s) for s in a["kernel_shapes"]["scored_rows"]]
+        if not score or a["kernel_shapes"]["eviction_sets"]:
+            errors.append(f"agent kernel shapes: {a['kernel_shapes']}")
+        else:
+            rows, worst = score_parity_rows(
+                dev, [(u, n, 17, n_off) for u, n, n_off in score])
+            shape_parity = {"scored_rows": rows, "max_abs_err": worst}
+    if errors:
+        raise AssertionError(f"phase agent: {errors}")
+
+    def world_row(w):
+        return {k: w[k] for k in (
+            "device", "mode", "node_register_s", "submit_s", "request_ms",
+            "release_to_complete_s", "evals_per_s", "launches",
+            "child_wall_s") if k in w}
+
+    return {"card": smi, "sizes": sizes,
+            "A_http": {**world_row(a), "blocking": a["blocking"],
+                       "cli": a["cli"]},
+            "B_direct": world_row(b), "C_cpu_http": world_row(c),
+            "placed": len(a["placements"]),
+            "placements_equal": True, "score_max_abs_err": score_err,
+            "evals_per_s_http_vs_direct": [a["evals_per_s"],
+                                           b["evals_per_s"]],
+            "kernel_shapes": a["kernel_shapes"],
+            "shape_parity": shape_parity,
+            "launches": {"agent": a["launches"], "direct": b["launches"]},
+            "seconds": time.perf_counter() - t_phase}
+
+
+# -- phase 26: times ---------------------------------------------------------
 
 def score_bytes(u: int, n: int, with_base: bool = True) -> int:
     """Bytes the function must move: feas (1) + collisions (4) in and
@@ -6897,6 +7561,8 @@ def main() -> int:
     lg = run_phase("loadgen", phase_loadgen, dev)
     emit({"phase": "loadgen", **{k: v for k, v in lg.items()
                                  if k != "baseline"}})
+    agt = run_phase("agent", phase_agent, dev)
+    emit({"phase": "agent", **agt})
     table = run_phase("times", phase_times, dev, launches, max_err,
                       masked_launches, max(masked_err, cand_err))
     # scored_rows' launches on the eval-driven path (phase evals, each
@@ -6956,6 +7622,10 @@ def main() -> int:
             row["name"]]
         row["breaker_drill_launches"] = lg["launches"]["breaker_drill"][
             row["name"]]
+        # ... and on the front door's path (phase agent, world A: HCL
+        # jobs through the CLI and HTTP into the agent's server, the
+        # counts set to 0 just before the submissions).
+        row["agent_path_launches"] = agt["launches"]["agent"][row["name"]]
     emit({"phase": "profile", **run_phase("profile", phase_profile, dev)})
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     emit({"kernels": table})

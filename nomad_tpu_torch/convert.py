@@ -6,9 +6,11 @@ of ``nomad_tpu``'s structs (keys this port does not model are ignored);
 networks, with their reserved and dynamic ports, are kept -- an alloc's
 ``task_resources`` carry the offers its ports came from.  Jobs keep what
 the reconciler compares (the update strategy, version, meta, the task
-fields of the in-place update test, ``stop``) and the lifecycle's fields
+fields of the in-place update test, ``stop``), the lifecycle's fields
 (``parent_id``, the periodic and parameterized configs, the payload, a
-task's ``dispatch_payload``); allocs keep their name,
+task's ``dispatch_payload``) and the jobspec's (restart policies,
+services and their checks, log configs, artifacts, templates, vault
+asks, kill timeouts, leaders, ``submit_time``); allocs keep their name,
 evaluation, previous allocation, metrics and job; evaluations keep every
 field the scheduler reads and writes, so the tests can build one cluster
 in both packages.  ``device_inputs_from_buffers``
@@ -52,26 +54,50 @@ def _constraints(lst) -> list:
 def node_from_dict(d: dict) -> s.Node:
     return s.Node(
         id=d["id"], datacenter=d["datacenter"], name=d["name"],
+        http_addr=d.get("http_addr", ""),
         attributes=dict(d["attributes"]), resources=_res(d["resources"]),
-        reserved=_res(d.get("reserved")), meta=dict(d.get("meta") or {}),
+        reserved=_res(d.get("reserved")),
+        links=dict(d.get("links") or {}), meta=dict(d.get("meta") or {}),
         node_class=d.get("node_class", ""),
         computed_class=d.get("computed_class", ""),
         drain=d.get("drain", False), status=d["status"],
         status_description=d.get("status_description", ""),
+        status_updated_at=d.get("status_updated_at", 0.0),
         create_index=d.get("create_index", 0),
         modify_index=d.get("modify_index", 0))
 
 
+def _service(d: dict) -> s.Service:
+    return s.Service(
+        name=d.get("name", ""), port_label=d.get("port_label", ""),
+        tags=list(d.get("tags") or []),
+        checks=[s.ServiceCheck(**{**c, "args": list(c.get("args") or [])})
+                for c in d.get("checks") or []])
+
+
 def _task(t: dict) -> s.Task:
+    vault = t.get("vault")
     return s.Task(
         name=t["name"], driver=t["driver"], user=t.get("user", ""),
         config=dict(t.get("config") or {}), env=dict(t.get("env") or {}),
-        vault=t.get("vault"), templates=list(t.get("templates") or []),
+        services=[_service(sv) for sv in t.get("services") or []],
+        vault=(s.Vault(**{**vault,
+                          "policies": list(vault.get("policies") or [])})
+               if vault else None),
+        templates=[s.Template(**tm) for tm in t.get("templates") or []],
         constraints=_constraints(t.get("constraints")),
-        resources=_res(t["resources"]), meta=dict(t.get("meta") or {}),
-        artifacts=list(t.get("artifacts") or []),
+        resources=_res(t["resources"]),
         dispatch_payload=(s.DispatchPayloadConfig(**t["dispatch_payload"])
-                          if t.get("dispatch_payload") else None))
+                          if t.get("dispatch_payload") else None),
+        meta=dict(t.get("meta") or {}),
+        kill_timeout=t.get("kill_timeout", 5.0),
+        log_config=s.LogConfig(**(t.get("log_config") or {})),
+        artifacts=[s.TaskArtifact(
+            getter_source=a.get("getter_source", ""),
+            getter_options=dict(a.get("getter_options") or {}),
+            relative_dest=a.get("relative_dest", ""))
+            for a in t.get("artifacts") or []],
+        leader=t.get("leader", False))
 
 
 def job_from_dict(d: dict) -> s.Job:
@@ -89,6 +115,8 @@ def job_from_dict(d: dict) -> s.Job:
         task_groups=[s.TaskGroup(
             name=tg["name"], count=tg["count"],
             constraints=_constraints(tg.get("constraints")),
+            restart_policy=s.RestartPolicy(**(tg.get("restart_policy")
+                                              or {})),
             tasks=[_task(t) for t in tg["tasks"]],
             ephemeral_disk=s.EphemeralDisk(
                 **{k: tg["ephemeral_disk"][k]
@@ -108,6 +136,7 @@ def job_from_dict(d: dict) -> s.Job:
         status=d.get("status", s.JOB_STATUS_PENDING),
         status_description=d.get("status_description", ""),
         stop=d.get("stop", False), version=d.get("version", 0),
+        submit_time=d.get("submit_time", 0.0),
         create_index=d.get("create_index", 0),
         modify_index=d.get("modify_index", 0),
         job_modify_index=d.get("job_modify_index", 0))
@@ -139,7 +168,8 @@ def alloc_from_dict(d: dict) -> s.Allocation:
         previous_allocation=d.get("previous_allocation", ""),
         create_index=d.get("create_index", 0),
         modify_index=d.get("modify_index", 0),
-        alloc_modify_index=d.get("alloc_modify_index", 0))
+        alloc_modify_index=d.get("alloc_modify_index", 0),
+        create_time=d.get("create_time", 0.0))
 
 
 def eval_from_dict(d: dict) -> s.Evaluation:

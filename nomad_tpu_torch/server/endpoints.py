@@ -14,16 +14,16 @@ Bodies and replies are struct-codec values (``server/rpc.py``): the
 structs arrive typed, and a body of the wrong type is refused.
 
 Registered: ``Status.Ping/Leader/Peers/Fingerprint/BrokerStats/
-Metrics``, ``Event.Since``,
+Metrics/TraceEval``, ``Event.Since``, ``Region.List``,
 ``Serf.Join/Members``, ``Node.Register/UpdateStatus/Deregister/
-UpdateDrain/UpdateAlloc``, ``Job.Register/Deregister/Evaluate/
-Dispatch``, ``Periodic.Force``, ``Namespace.Upsert/Delete/List/
-Status``, ``System.GarbageCollect/ReconcileJobSummaries``,
+UpdateDrain/UpdateAlloc/Get/Evaluate/GetClientAllocs``,
+``Alloc.Get/List``, ``Job.Register/Deregister/Evaluate/Dispatch/List/
+Get``, ``Periodic.Force``, ``Namespace.Upsert/Delete/List/Status``,
+``System.GarbageCollect/ReconcileJobSummaries``,
 ``Eval.Dequeue/DequeueBatch/Ack/Nack/Update/Reblock/PauseNack/
-ResumeNack/GetEval``, ``Plan.Submit`` and ``Operator.
-RaftGetConfiguration/RaftRemovePeerByAddress``.  Vault, the trace fanout,
-chaos, regions and the client's reads wait for their server methods
-(ROADMAP queue 1 items 20 and 30).
+ResumeNack/GetEval/List/Allocations``, ``Plan.Submit`` and ``Operator.
+RaftGetConfiguration/RaftRemovePeerByAddress``.  Vault, chaos and the
+federation wait for ROADMAP queue 1 item 30.
 """
 
 from __future__ import annotations
@@ -32,7 +32,7 @@ from typing import Any
 
 from .. import codec
 from ..structs import structs as s
-from ..utils import contprof
+from ..utils import contprof, tracing
 from . import event_broker as event_stream
 from .raft import NotLeaderError
 from .rpc import NoLeaderError
@@ -104,6 +104,20 @@ def register_endpoints(server, rpc) -> None:
     rpc.register("Status.Metrics", status_metrics)
     rpc.register("Event.Since", event_since)
 
+    def status_trace_eval(body):
+        """This process's spans of one eval, for a peer's trace fanout
+        (endpoints.py:94): one hop, local spans only."""
+        return {"Spans": tracing.trace_for_eval(body.get("EvalID", ""))}
+
+    def region_list(body):
+        reply = {"Regions": server.regions()}
+        if body.get("Detail"):
+            reply["Detail"] = server.region_info()
+        return reply
+
+    rpc.register("Status.TraceEval", status_trace_eval)
+    rpc.register("Region.List", region_list)
+
     # -- serf-lite membership ----------------------------------------------
 
     register("Serf.Join", lambda body: server.membership_join(body["Member"]))
@@ -126,6 +140,22 @@ def register_endpoints(server, rpc) -> None:
         return {"Index": server.node_update_drain(body["NodeID"],
                                                   body["Drain"])}
 
+    def node_get_client_allocs(body):
+        allocs, index = server.node_get_client_allocs(
+            body["NodeID"], int(body.get("MinQueryIndex", 0) or 0),
+            float(body.get("MaxQueryTime", 30.0)))
+        return {"Allocs": allocs, "Index": index}
+
+    register("Node.Get",
+             lambda body: {"Node": server.node_get(body["NodeID"])})
+    register("Node.Evaluate", lambda body: {
+        "EvalIDs": server.node_evaluate(body["NodeID"])})
+    register("Node.GetClientAllocs", node_get_client_allocs)
+    register("Alloc.Get",
+             lambda body: {"Alloc": server.alloc_get(body["AllocID"])})
+    register("Alloc.List", lambda body: {
+        "Allocs": server.alloc_list(),
+        "Index": server.state.table_index("allocs")})
     register("Node.Register", node_register)
     register("Node.UpdateStatus", node_update_status)
     register("Node.Deregister", node_deregister)
@@ -163,6 +193,21 @@ def register_endpoints(server, rpc) -> None:
         child = server.periodic_force(body["JobID"])
         return {"ChildJobID": child.id if child else ""}
 
+    def job_list(body):
+        jobs, index = server.job_list(
+            prefix=body.get("Prefix", ""),
+            min_index=int(body.get("MinQueryIndex", 0) or 0),
+            max_wait=float(body.get("MaxQueryTime", 0) or 0))
+        return {"Jobs": jobs, "Index": index}
+
+    def job_get(body):
+        job = server.job_get(
+            body["JobID"], min_index=int(body.get("MinQueryIndex", 0) or 0),
+            max_wait=float(body.get("MaxQueryTime", 0) or 0))
+        return {"Job": job, "Index": server.state.table_index("jobs")}
+
+    register("Job.List", job_list)
+    register("Job.Get", job_get)
     register("Job.Register", job_register)
     register("Job.Deregister", job_deregister)
     register("Job.Evaluate", job_evaluate)
@@ -255,6 +300,12 @@ def register_endpoints(server, rpc) -> None:
     register("Eval.ResumeNack", eval_resume_nack)
     register("Eval.GetEval",
              lambda body: {"Eval": server.eval_get(body["EvalID"])})
+    register("Eval.List", lambda body: {
+        "Evals": server.eval_list(),
+        "Index": server.state.table_index("evals")})
+    register("Eval.Allocations", lambda body: {
+        "Allocs": server.eval_allocations(body["EvalID"]),
+        "Index": server.state.table_index("allocs")})
 
     # -- Plan (plan_endpoint.go) --------------------------------------------
 

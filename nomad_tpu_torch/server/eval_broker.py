@@ -143,8 +143,13 @@ class EvalBroker:
         max_pending: int = 0,
         coalesce: bool = True,
         bypass_priority: int = s.JOB_MAX_PRIORITY,
+        rng: Optional[random.Random] = None,
     ):
         self.metrics = metrics if metrics is not None else NULL_TELEMETRY
+        # The draw among ready schedulers of equal priority: ``rng`` when
+        # given (seeded, so that two brokers fed alike dequeue alike),
+        # else the module's ``random``.
+        self.rng = rng
         if nack_timeout < 0:
             raise ValueError("timeout cannot be negative")
         self.nack_timeout = nack_timeout
@@ -565,7 +570,7 @@ class EvalBroker:
         if not eligible:
             return None, ""
         sched = (eligible[0] if len(eligible) == 1
-                 else random.choice(eligible))
+                 else (self.rng or random).choice(eligible))
         return self._dequeue_for_sched(sched)
 
     def _dequeue_for_sched(self, sched: str) -> Tuple[s.Evaluation, str]:

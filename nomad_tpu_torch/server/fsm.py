@@ -250,13 +250,16 @@ class FSM:
         delta-log cap.  The restored store is a new lineage; the event
         broker moves to it, and its gap horizon rises to the restored
         index: the snapshot's writes were never published, so a resume
-        inside that range errors instead of replaying nothing."""
+        inside that range errors instead of replaying nothing.  The old
+        store is retired, which wakes the blocking queries on it."""
+        old = self.state
         self.state = StateStore.restore(
-            blob, alloc_log_cap=self.state.alloc_log_cap,
-            columnar=self.state.columnar)
+            blob, alloc_log_cap=old.alloc_log_cap, columnar=old.columnar)
         if self.event_broker is not None:
             self.state.event_broker = self.event_broker
             self.event_broker.mark_armed(self.state.latest_index())
+        # Blocking queries waiting on the replaced store re-run on this one.
+        old.retire()
 
     _DISPATCH: Dict[MessageType, Callable] = {
         MessageType.NODE_REGISTER: _apply_node_register,

@@ -770,6 +770,13 @@ class PlanApplier:
         for evicted_list in result.node_preemptions.values():
             allocs.extend(evicted_list)
             preempted.extend(evicted_list)
+        now = time.time()
+        for alloc in allocs:
+            if alloc.create_time == 0:
+                alloc.create_time = now
+        for slab in result.alloc_slabs:
+            if slab.proto.create_time == 0:
+                slab.proto.create_time = now
         preemption_evals: List[s.Evaluation] = []
         if preempted:
             # The evictions, the placements and the evicted jobs'

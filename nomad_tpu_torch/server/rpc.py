@@ -72,6 +72,37 @@ class NoLeaderError(RPCError):
     pass
 
 
+class NoPathToRegion(RPCError):
+    """A request for another region found no server of it to dial
+    (rpc.py:67): typed so that callers tell "region unreachable" from
+    "no leader".  It carries the ``region`` and a ``retry_after`` hint;
+    the HTTP layer answers 429 with ``Retry-After``, and the RPC layer
+    re-types it from the wire's error string."""
+
+    def __init__(self, region: str, retry_after: float, rounds: int = 0,
+                 detail: str = ""):
+        self.region = region
+        self.retry_after = retry_after
+        self.rounds = rounds
+        super().__init__(
+            f"no path to region '{region}' after {rounds} dial rounds"
+            + (f" ({detail})" if detail else "")
+            + f"; retry_after={retry_after:.2f}")
+
+    @staticmethod
+    def from_message(msg: str) -> "NoPathToRegion":
+        """Rebuilt from the wire's error string ('<TypeName>: <message>')."""
+        import re
+
+        m = re.search(r"region '([^']*)'", msg)
+        region = m.group(1) if m else ""
+        m = re.search(r"retry_after=([0-9.]+)", msg)
+        retry = float(m.group(1)) if m else 1.0
+        m = re.search(r"after (\d+) dial rounds", msg)
+        rounds = int(m.group(1)) if m else 0
+        return NoPathToRegion(region, retry, rounds=rounds)
+
+
 # ---------------------------------------------------------------------------
 # framing
 # ---------------------------------------------------------------------------
@@ -329,6 +360,8 @@ class _Conn:
                 from .eval_broker import BrokerLimitError
 
                 raise BrokerLimitError.from_message(err)
+            if isinstance(err, str) and err.startswith("NoPathToRegion"):
+                raise NoPathToRegion.from_message(err)
             raise RPCError(err)
         return reply
 

@@ -125,6 +125,7 @@ from __future__ import annotations
 import logging
 import math
 import os
+import random
 import threading
 import time
 from dataclasses import dataclass, field
@@ -136,7 +137,7 @@ from ..scheduler.annotate import annotate
 from ..scheduler.scheduler import new_scheduler
 from ..scheduler.testing import Harness
 from ..state import columnar as columnar_mod
-from ..state.state_store import StateStore
+from ..state.state_store import StateStore, WatchSet
 from ..structs import structs as s
 from ..structs.diff import job_diff
 from ..tenancy import QuotaLedger, RateLimiter
@@ -153,6 +154,7 @@ from .periodic import PERIODIC_LAUNCH_SUFFIX, PeriodicDispatch
 from .plan_apply import PlanApplier
 from .plan_queue import PlanQueue
 from .raft import FileLog, InmemLog, MultiRaft, NotLeaderError
+from .rpc import NoPathToRegion
 from .worker import BatchWorker, Worker
 
 # Bound on every join at shutdown, per thread.
@@ -242,7 +244,9 @@ class ServerConfig:
     ``broker_max_pending`` bounds the eval broker's pending evals (0:
     unbounded) and ``broker_coalesce`` turns its per-job coalescing on
     (the reference's ``NOMAD_TPU_BROKER_MAX_PENDING`` and
-    ``NOMAD_TPU_BROKER_COALESCE``).
+    ``NOMAD_TPU_BROKER_COALESCE``).  ``broker_seed`` seeds the broker's
+    draw among ready schedulers of equal priority (None: the ``random``
+    module's), so two servers fed alike form the same batches.
 
     The flight-recorder plane (the module docstring): ``blackbox_dir``
     (empty: disarmed), ``blackbox_min_interval_s`` and
@@ -298,6 +302,7 @@ class ServerConfig:
     tenancy_metrics_top: int = 10
     broker_max_pending: int = 0
     broker_coalesce: bool = True
+    broker_seed: Optional[int] = None
     blackbox_dir: str = ""
     blackbox_min_interval_s: float = blackbox.DEFAULT_MIN_INTERVAL_S
     blackbox_max_bundles: int = blackbox.DEFAULT_MAX_BUNDLES
@@ -337,7 +342,9 @@ class Server:
             delivery_limit=cfg.eval_delivery_limit,
             metrics=self.metrics,
             max_pending=cfg.broker_max_pending,
-            coalesce=cfg.broker_coalesce)
+            coalesce=cfg.broker_coalesce,
+            rng=(random.Random(cfg.broker_seed)
+                 if cfg.broker_seed is not None else None))
         self.eval_broker.set_objective(cfg.tenancy_objective)
         # The tenancy plane (server.py:182-195): the leader-side
         # reservation books of the live-alloc and node-units quotas, and
@@ -607,9 +614,34 @@ class Server:
 
     def trace_for_eval(self, eval_id: str) -> List[dict]:
         """The eval's spans from this process's tracer, by start time
-        (empty while tracing is off).  The reference's fanout over peer
-        servers waits for RPC."""
+        (empty while tracing is off)."""
         return tracing.trace_for_eval(eval_id)
+
+    def trace_for_eval_fanout(self, eval_id: str,
+                              timeout: float = 1.0) -> Tuple[List, str]:
+        """The eval's spans from this process's tracer, else from the
+        first peer server that has them over ``Status.TraceEval``
+        (server.py:1667): a follower-scheduled eval's spans live on the
+        follower.  A peer that does not answer is skipped.  Returns
+        ``(spans, source address)``, ``([], "")`` when no one has them."""
+        spans = tracing.trace_for_eval(eval_id)
+        if spans:
+            return spans, self.config.rpc_advertise
+        if self.pool is None:
+            return [], ""
+        me = self.config.rpc_advertise
+        for addr in self.peer_addresses():
+            if addr == me:
+                continue
+            try:
+                reply = self.pool.call(addr, "Status.TraceEval",
+                                       {"EvalID": eval_id}, timeout=timeout)
+            except Exception:
+                continue
+            got = (reply or {}).get("Spans") or []
+            if got:
+                return got, addr
+        return [], ""
 
     def is_leader(self) -> bool:
         return self._leader
@@ -1235,11 +1267,83 @@ class Server:
                         retry_after, math.ceil(asked),
                         math.ceil(units_quota), namespace=ns)
 
-    def job_register(self, job: s.Job) -> Tuple[int, str]:
+    # -- regions (region_endpoint.go) -------------------------------------
+
+    # How long /v1/regions?detail waits for a remote region's leader
+    # (the reference's NOMAD_TPU_REGION_PROBE_TIMEOUT default).
+    REGION_PROBE_TIMEOUT = 1.0
+
+    def regions(self) -> List[str]:
+        """The regions known through membership (region_endpoint.go
+        List over the WAN members)."""
+        out = {self.config.region}
+        for m in self.members():
+            r = m.get("Region")
+            if r:
+                out.add(r)
+        return sorted(out)
+
+    def region_info(self) -> List[Dict]:
+        """Per region: name, alive servers and the best-known leader
+        (server.py:1197).  The home region answers from its raft; another
+        region's leader is a bounded ``Status.Leader`` probe of one of its
+        alive members ("" when none answers)."""
+        by_region: Dict[str, List[Dict]] = {}
+        for m in list(self.members()) + [self._self_member()]:
+            r = m.get("Region", "")
+            if r and m.get("Status", "alive") == "alive":
+                rows = by_region.setdefault(r, [])
+                if not any(x.get("Name") == m.get("Name") for x in rows):
+                    rows.append(m)
+        out = []
+        for region in sorted(by_region):
+            members = by_region[region]
+            leader = ""
+            if region == self.config.region:
+                leader = self.leader_address()
+            elif self.pool is not None:
+                for m in members:
+                    try:
+                        reply = self.pool.call(
+                            m["Addr"], "Status.Leader", {},
+                            timeout=self.REGION_PROBE_TIMEOUT)
+                        leader = (reply if isinstance(reply, str)
+                                  else (reply or {}).get("Leader", ""))
+                        break
+                    except Exception:
+                        continue
+            out.append({"Name": region, "Servers": len(members),
+                        "Leader": leader})
+        return out
+
+    def _forward_region(self, region: str, wire_method: str, body: Dict):
+        """A request for another region (nomad/rpc.go:263 forwardRegion).
+        The federation is not ported (ROADMAP item 30), so a region's
+        servers are never dialled: a region with no known server is a
+        ``ValueError`` as in the reference, and one with known servers
+        answers as an unreachable region does there, a
+        ``NoPathToRegion`` with its retry hint (the HTTP layer's 429)."""
+        candidates = [m for m in self.members()
+                      if m.get("Region") == region
+                      and m.get("Status", "alive") == "alive"]
+        if not candidates or self.pool is None:
+            raise ValueError(f"no servers known in region {region!r}")
+        raise NoPathToRegion(region, 1.0, rounds=0,
+                             detail="the federation is not ported")
+
+    def job_register(self, job: s.Job, region: str = "") -> Tuple[int, str]:
         """(job_endpoint.go:47 Register): validate, then the job and, unless
         it is periodic or parameterized, its registration eval through
         the log.  Returns (modify_index, eval_id); the eval id is empty
-        when no eval was made."""
+        when no eval was made.  An explicit ``region`` other than this
+        server's, or a job's region that membership knows, routes there
+        (:meth:`_forward_region`)."""
+        target = region or job.region
+        if target and target != self.config.region and (
+                region or target in self.regions()):
+            reply = self._forward_region(target, "Job.Register",
+                                         {"Job": job})
+            return reply["Index"], reply["EvalID"]
         job = job.copy()
         job.canonicalize()
         problems = job.validate()
@@ -1315,11 +1419,15 @@ class Server:
             return reply["Index"], reply["EvalID"]
         return index, ev.id
 
-    def job_deregister(self, job_id: str,
-                       purge: bool = True) -> Tuple[int, str]:
+    def job_deregister(self, job_id: str, purge: bool = True,
+                       region: str = "") -> Tuple[int, str]:
         """(job_endpoint.go Deregister): the job stopped (or purged) and,
         unless it is periodic or parameterized, a deregistration eval
         (the eval id is empty then)."""
+        if region and region != self.config.region:
+            reply = self._forward_region(region, "Job.Deregister",
+                                         {"JobID": job_id, "Purge": purge})
+            return reply["Index"], reply["EvalID"]
         job = self.state.job_by_id(None, job_id)
         if job is None:
             raise KeyError(f"job not found: {job_id}")
@@ -1339,6 +1447,51 @@ class Server:
             job_modify_index=index, status=s.EVAL_STATUS_PENDING)
         self.raft.apply(MessageType.EVAL_UPDATE, {"evals": [ev]})
         return index, ev.id
+
+    def job_list(self, prefix: str = "", region: str = "",
+                 min_index: int = 0,
+                 max_wait: float = 0.0) -> Tuple[List[s.Job], int]:
+        """The jobs (by id prefix) and the jobs table's index; with
+        ``min_index`` a blocking query of at most ``max_wait`` s
+        (server.py:1443)."""
+        if region and region != self.config.region:
+            self._forward_region(region, "Job.List", {"Prefix": prefix})
+        self._block_on_table("jobs", min_index, max_wait)
+        jobs = (self.state.jobs_by_id_prefix(None, prefix) if prefix
+                else self.state.jobs(None))
+        return jobs, self.state.table_index("jobs")
+
+    def _block_on_table(self, table: str, min_index: int,
+                        max_wait: float) -> None:
+        """Wait until ``table``'s index passes ``min_index``, at most
+        ``max_wait`` s (capped at 300; rpc.go:340 blockingRPC)."""
+        if min_index <= 0 or max_wait <= 0:
+            return
+        deadline = time.time() + min(max_wait, 300.0)
+        while self.state.table_index(table) <= min_index:
+            remaining = deadline - time.time()
+            if remaining <= 0:
+                return
+            ws = WatchSet()
+            ws.add(self.state, table)
+            ws.watch(timeout=min(remaining, 1.0))
+
+    def job_get(self, job_id: str, region: str = "", min_index: int = 0,
+                max_wait: float = 0.0) -> Optional[s.Job]:
+        if region and region != self.config.region:
+            self._forward_region(region, "Job.Get", {"JobID": job_id})
+        self._block_on_table("jobs", min_index, max_wait)
+        return self.state.job_by_id(None, job_id)
+
+    def job_summary(self, job_id: str) -> Optional[s.JobSummary]:
+        return self.state.job_summary_by_id(None, job_id)
+
+    def job_allocations(self, job_id: str,
+                        all_allocs: bool = False) -> List[s.Allocation]:
+        return self.state.allocs_by_job(None, job_id, all_allocs)
+
+    def job_evaluations(self, job_id: str) -> List[s.Evaluation]:
+        return self.state.evals_by_job(None, job_id)
 
     def job_plan(self, job: s.Job, diff: bool = True) -> s.JobPlanResponse:
         """Dry-run scheduling (job_endpoint.go:~490 Plan): the job's
@@ -1530,6 +1683,47 @@ class Server:
             return True
         return new == s.NODE_STATUS_READY and old in (
             s.NODE_STATUS_DOWN, s.NODE_STATUS_INIT)
+
+    def node_get(self, node_id: str) -> Optional[s.Node]:
+        return self.state.node_by_id(None, node_id)
+
+    def node_list(self) -> List[s.Node]:
+        return self.state.nodes(None)
+
+    def node_get_allocs(self, node_id: str) -> List[s.Allocation]:
+        return self.state.allocs_by_node(None, node_id)
+
+    def node_get_client_allocs(self, node_id: str, min_index: int = 0,
+                               max_wait: float = 0.0
+                               ) -> Tuple[List[s.Allocation], int]:
+        """The node's allocs, as a client long-polls them
+        (node_endpoint.go:585 GetClientAllocs): waits until the allocs or
+        nodes table passes ``min_index`` or ``max_wait`` s pass, then
+        returns ``(allocs, index)``."""
+        deadline = time.time() + max_wait
+        while True:
+            ws = WatchSet()
+            allocs = self.state.allocs_by_node(ws, node_id)
+            self.state.node_by_id(ws, node_id)
+            index = max(self.state.table_index("allocs"),
+                        self.state.table_index("nodes"))
+            remaining = deadline - time.time()
+            if index > min_index or max_wait <= 0 or remaining <= 0:
+                ws.close()
+                return allocs, index
+            ws.watch(timeout=min(remaining, 1.0))
+
+    def node_evaluate(self, node_id: str) -> List[str]:
+        """Re-evaluate every job with allocs on the node, and the system
+        jobs (node_endpoint.go Evaluate)."""
+        node = self.state.node_by_id(None, node_id)
+        if node is None:
+            raise KeyError(f"node not found: {node_id}")
+        try:
+            return self._create_node_evals(node_id, node.modify_index)
+        except NotLeaderError as e:
+            return self._forward("Node.Evaluate", {"NodeID": node_id},
+                                 e)["EvalIDs"]
 
     def node_update_allocs(self, allocs: List[s.Allocation]) -> int:
         """The client's alloc status sync (node_endpoint.go:657
@@ -1732,6 +1926,18 @@ class Server:
     def eval_get(self, eval_id: str) -> Optional[s.Evaluation]:
         return self.state.eval_by_id(None, eval_id)
 
+    def eval_list(self) -> List[s.Evaluation]:
+        return self.state.evals(None)
+
+    def eval_allocations(self, eval_id: str) -> List[s.Allocation]:
+        return self.state.allocs_by_eval(None, eval_id)
+
+    def alloc_get(self, alloc_id: str) -> Optional[s.Allocation]:
+        return self.state.alloc_by_id(None, alloc_id)
+
+    def alloc_list(self) -> List[s.Allocation]:
+        return self.state.allocs(None)
+
     def plan_submit(self, plan: s.Plan):
         """(Plan.Submit → the plan queue, plan_endpoint.go).  A plan whose
         eval token is not the broker's outstanding delivery's is a stale
@@ -1762,9 +1968,13 @@ class Server:
         except NotLeaderError as e:
             self._forward("System.ReconcileJobSummaries", {}, e)
 
-    def namespace_upsert(self, ns: s.Namespace) -> int:
+    def namespace_upsert(self, ns: s.Namespace, region: str = "") -> int:
         """Register or update a tenant through the log, like a job; the
-        FSM hook refreshes the policy mirrors."""
+        FSM hook refreshes the policy mirrors.  Namespaces are a region's:
+        an explicit other ``region`` routes there."""
+        if region and region != self.config.region:
+            return self._forward_region(region, "Namespace.Upsert",
+                                        {"Namespace": ns})["Index"]
         ns = ns.copy()
         problems = ns.validate()
         if problems:
@@ -1778,7 +1988,10 @@ class Server:
                                  e)["Index"]
         return index
 
-    def namespace_delete(self, name: str) -> int:
+    def namespace_delete(self, name: str, region: str = "") -> int:
+        if region and region != self.config.region:
+            return self._forward_region(region, "Namespace.Delete",
+                                        {"Name": name})["Index"]
         if name == s.DEFAULT_NAMESPACE:
             raise ValueError("cannot delete the default namespace")
         if self.state.namespace_by_name(None, name) is None:
@@ -1791,12 +2004,18 @@ class Server:
                                  e)["Index"]
         return index
 
-    def namespace_list(self) -> List[s.Namespace]:
+    def namespace_list(self, region: str = "") -> List[s.Namespace]:
+        if region and region != self.config.region:
+            return self._forward_region(region, "Namespace.List",
+                                        {})["Namespaces"]
         return self.state.namespaces(None)
 
-    def namespace_status(self, name: str) -> Dict:
+    def namespace_status(self, name: str, region: str = "") -> Dict:
         """One tenant's row, its live usage and its reservations and
         pending evals (the namespace-status read)."""
+        if region and region != self.config.region:
+            return self._forward_region(region, "Namespace.Status",
+                                        {"Name": name})
         row = self.state.namespace_by_name(None, name)
         if row is None:
             raise KeyError(f"namespace not found: {name}")

@@ -62,15 +62,24 @@ store's lineage (``store_uid``) and the usage-delta log are not
 persisted: a restored store is a new lineage whose delta-log floor sits
 at the restored allocs index, so every cache keyed on the old one misses.
 
+Blocking queries (state_store.py:70, :607): a reader given a
+:class:`WatchSet` adds its table to it, and ``WatchSet.watch`` blocks
+until one of those tables' indexes passes the value it had when it was
+added.  Every write reaches ``_bump``, which wakes the registered
+watchers: the FSM's applies and batch commits, the columnar mirror's
+node writes and the GC deletes alike.  A store replaced by a restore is
+retired (:meth:`StateStore.retire`), which wakes its watchers for good:
+the query re-runs against the restored store.
+
 Left out of the copy: deployments and job version history (the snapshot
-has no sections for them) and watch sets.  The ``ws`` argument of the
-readers is kept for the interface and ignored.
+has no sections for them).
 """
 from __future__ import annotations
 
 import bisect
 import dataclasses
 import threading
+import time
 from collections import defaultdict
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Set, Tuple
@@ -87,6 +96,55 @@ _EMPTY_SET: Set[str] = set()
 # (NOMAD_TPU_ALLOC_LOG_CAP), in alloc rows: a slab entry weighs its
 # length.
 ALLOC_LOG_CAP = 262_144
+
+
+class WatchSet:
+    """The watch subscriptions of one query; :meth:`watch` blocks until a
+    watched table changes (state_store.py:70; go-memdb WatchSet).  The
+    grain is a table: any write to it wakes the watcher, which re-runs
+    its query and compares indexes, the re-run loop of a blocking query
+    (nomad/rpc.go:340)."""
+
+    def __init__(self) -> None:
+        self._entries: List[Tuple["StateStore", str, int]] = []
+        self._event = threading.Event()
+
+    def add(self, store: "StateStore", table: str) -> None:
+        self._entries.append((store, table, store.table_index(table)))
+        store._register_watcher(self._event)
+
+    def _changed(self) -> bool:
+        return any(st._retired or st.table_index(table) > idx
+                   for st, table, idx in self._entries)
+
+    def watch(self, timeout: Optional[float] = None) -> bool:
+        """Block until a watched table advances; True on timeout."""
+        if not self._entries:
+            return True
+        end = None if timeout is None else time.monotonic() + timeout
+        try:
+            while True:
+                if self._changed():
+                    return False
+                remaining = None if end is None else end - time.monotonic()
+                if remaining is not None and remaining <= 0:
+                    return True
+                self._event.clear()
+                # A write's wake empties the store's watcher set: register
+                # again, then check again, so a write that landed between
+                # the check and the registration is not missed.
+                for st, _, _ in self._entries:
+                    st._register_watcher(self._event)
+                if self._changed():
+                    return False
+                self._event.wait(remaining)
+        finally:
+            self.close()
+
+    def close(self) -> None:
+        """Unregister without blocking (a query that returned at once)."""
+        for st, _, _ in self._entries:
+            st._unregister_watcher(self._event)
 
 
 @dataclass
@@ -118,10 +176,15 @@ class StateStore:
     # stream is armed, None otherwise.  A class attribute, so snapshots
     # made through __new__ read None.
     event_broker = None
+    # Set once a restore has replaced this store (:meth:`retire`).
+    _retired = False
 
     def __init__(self, alloc_log_cap: int = ALLOC_LOG_CAP,
                  columnar: bool = True) -> None:
         self._lock = threading.RLock()
+        # The events of the WatchSets waiting on this store; a write sets
+        # and drops them all (_bump).
+        self._watchers: Set[threading.Event] = set()
         # Store-lineage id: snapshots inherit it, distinct stores differ;
         # table indexes are only comparable within one lineage (the batch
         # scheduler's cluster cache keys on both).
@@ -181,6 +244,7 @@ class StateStore:
         with self._lock:
             snap = StateSnapshot.__new__(StateSnapshot)
             snap._lock = threading.RLock()
+            snap._watchers = set()
             snap.store_uid = self.store_uid
             snap.nodes_table = dict(self.nodes_table)
             snap.jobs_table = dict(self.jobs_table)
@@ -406,6 +470,30 @@ class StateStore:
             # Node writes are the only thing that changes the ready-node
             # memo.
             self.__dict__.pop("_ready_nodes_cache", None)
+        if self._watchers:
+            self._notify()
+
+    def _notify(self) -> None:
+        """Wake every waiting WatchSet (state_store.py:607); each
+        registers again before it waits again."""
+        with self._lock:
+            watchers, self._watchers = self._watchers, set()
+        for event in watchers:
+            event.set()
+
+    def _register_watcher(self, event: threading.Event) -> None:
+        with self._lock:
+            self._watchers.add(event)
+
+    def _unregister_watcher(self, event: threading.Event) -> None:
+        with self._lock:
+            self._watchers.discard(event)
+
+    def retire(self) -> None:
+        """Mark this store replaced (the FSM's restore) and wake its
+        watchers: their queries re-run against the new store."""
+        self._retired = True
+        self._notify()
 
     def table_index(self, table: str) -> int:
         with self._lock:
@@ -564,10 +652,21 @@ class StateStore:
                            {"Drain": drain})
 
     def node_by_id(self, ws, node_id: str) -> Optional[s.Node]:
+        if ws is not None:
+            ws.add(self, "nodes")
         with self._lock:
             return self.nodes_table.get(node_id)
 
+    def nodes_by_id_prefix(self, ws, prefix: str) -> List[s.Node]:
+        if ws is not None:
+            ws.add(self, "nodes")
+        with self._lock:
+            return [n for nid, n in self.nodes_table.items()
+                    if nid.startswith(prefix)]
+
     def nodes(self, ws=None) -> List[s.Node]:
+        if ws is not None:
+            ws.add(self, "nodes")
         with self._lock:
             return list(self.nodes_table.values())
 
@@ -614,30 +713,42 @@ class StateStore:
             eb.publish_one(s.TOPIC_JOB, "JobDeregistered", job_id, index)
 
     def job_by_id(self, ws, job_id: str) -> Optional[s.Job]:
+        if ws is not None:
+            ws.add(self, "jobs")
         with self._lock:
             return self.jobs_table.get(job_id)
 
     def jobs(self, ws=None) -> List[s.Job]:
+        if ws is not None:
+            ws.add(self, "jobs")
         with self._lock:
             return list(self.jobs_table.values())
 
     def job_summary_by_id(self, ws, job_id: str) -> Optional[s.JobSummary]:
+        if ws is not None:
+            ws.add(self, "job_summary")
         with self._lock:
             return self.job_summary_table.get(job_id)
 
     def jobs_by_scheduler(self, ws, sched_type: str) -> List[s.Job]:
         """Every job of one scheduler type (the server's node evals reach
         each system job through it)."""
+        if ws is not None:
+            ws.add(self, "jobs")
         with self._lock:
             return [j for j in self.jobs_table.values()
                     if j.type == sched_type]
 
     def jobs_by_id_prefix(self, ws, prefix: str) -> List[s.Job]:
+        if ws is not None:
+            ws.add(self, "jobs")
         with self._lock:
             return [j for jid, j in self.jobs_table.items()
                     if jid.startswith(prefix)]
 
     def jobs_by_periodic(self, ws, periodic: bool) -> List[s.Job]:
+        if ws is not None:
+            ws.add(self, "jobs")
         with self._lock:
             return [j for j in self.jobs_table.values()
                     if j.is_periodic() == periodic]
@@ -645,6 +756,8 @@ class StateStore:
     def jobs_by_gc(self, ws, gc: bool) -> List[s.Job]:
         """Jobs by whether GC may reap them: batch jobs and the children
         of periodic and parameterized jobs (state_store.py:801)."""
+        if ws is not None:
+            ws.add(self, "jobs")
         with self._lock:
             return [j for j in self.jobs_table.values()
                     if (j.type == s.JOB_TYPE_BATCH or j.parent_id != "")
@@ -688,10 +801,14 @@ class StateStore:
 
     def periodic_launch_by_id(self, ws,
                               job_id: str) -> Optional[PeriodicLaunch]:
+        if ws is not None:
+            ws.add(self, "periodic_launch")
         with self._lock:
             return self.periodic_launch_table.get(job_id)
 
     def periodic_launches(self, ws=None) -> List[PeriodicLaunch]:
+        if ws is not None:
+            ws.add(self, "periodic_launch")
         with self._lock:
             return list(self.periodic_launch_table.values())
 
@@ -722,15 +839,21 @@ class StateStore:
             self._bump("vault_accessors", index)
 
     def vault_accessors(self, ws=None) -> List[VaultAccessor]:
+        if ws is not None:
+            ws.add(self, "vault_accessors")
         with self._lock:
             return list(self.vault_accessors_table.values())
 
     def vault_accessor(self, ws, accessor: str) -> Optional[VaultAccessor]:
+        if ws is not None:
+            ws.add(self, "vault_accessors")
         with self._lock:
             return self.vault_accessors_table.get(accessor)
 
     def vault_accessors_by_alloc(self, ws,
                                  alloc_id: str) -> List[VaultAccessor]:
+        if ws is not None:
+            ws.add(self, "vault_accessors")
         with self._lock:
             table = self.vault_accessors_table
             return [table[a]
@@ -739,6 +862,8 @@ class StateStore:
 
     def vault_accessors_by_node(self, ws,
                                 node_id: str) -> List[VaultAccessor]:
+        if ws is not None:
+            ws.add(self, "vault_accessors")
         with self._lock:
             table = self.vault_accessors_table
             return [table[a]
@@ -776,10 +901,14 @@ class StateStore:
                            index, {"Namespace": name})
 
     def namespace_by_name(self, ws, name: str) -> Optional[s.Namespace]:
+        if ws is not None:
+            ws.add(self, "namespaces")
         with self._lock:
             return self.namespaces_table.get(name)
 
     def namespaces(self, ws=None) -> List[s.Namespace]:
+        if ws is not None:
+            ws.add(self, "namespaces")
         with self._lock:
             return list(self.namespaces_table.values())
 
@@ -868,16 +997,29 @@ class StateStore:
                         for eid in deleted])
 
     def eval_by_id(self, ws, eval_id: str) -> Optional[s.Evaluation]:
+        if ws is not None:
+            ws.add(self, "evals")
         with self._lock:
             return self.evals_table.get(eval_id)
 
+    def evals_by_id_prefix(self, ws, prefix: str) -> List[s.Evaluation]:
+        if ws is not None:
+            ws.add(self, "evals")
+        with self._lock:
+            return [e for eid, e in self.evals_table.items()
+                    if eid.startswith(prefix)]
+
     def evals_by_job(self, ws, job_id: str) -> List[s.Evaluation]:
+        if ws is not None:
+            ws.add(self, "evals")
         with self._lock:
             return [self.evals_table[eid]
                     for eid in self._idx_get(self._evals_by_job, job_id)
                     if eid in self.evals_table]
 
     def evals(self, ws=None) -> List[s.Evaluation]:
+        if ws is not None:
+            ws.add(self, "evals")
         with self._lock:
             return list(self.evals_table.values())
 
@@ -1044,10 +1186,14 @@ class StateStore:
         self._idx_discard(self._allocs_by_eval, row.eval_id, alloc_id)
 
     def alloc_by_id(self, ws, alloc_id: str) -> Optional[s.Allocation]:
+        if ws is not None:
+            ws.add(self, "allocs")
         with self._lock:
             return self._get_alloc(alloc_id)
 
     def allocs_by_node(self, ws, node_id: str) -> List[s.Allocation]:
+        if ws is not None:
+            ws.add(self, "allocs")
         with self._lock:
             if self._pending_slabs:
                 self._materialize_pending()
@@ -1058,6 +1204,8 @@ class StateStore:
     def allocs_by_node_terminal(self, ws, node_id: str,
                                 terminal: bool) -> List[s.Allocation]:
         """(state_store.go:1592): the scheduler's proposed-allocs source."""
+        if ws is not None:
+            ws.add(self, "allocs")
         return [a for a in self.allocs_by_node(ws, node_id)
                 if a.terminal_status() == terminal]
 
@@ -1066,6 +1214,8 @@ class StateStore:
         """(state_store.go:1615).  Without ``all_allocs``, allocs of an
         earlier incarnation of a re-registered job are filtered out by
         the summary's create_index."""
+        if ws is not None:
+            ws.add(self, "allocs")
         with self._lock:
             if self._pending_slabs:
                 self._materialize_job_pending(job_id)
@@ -1081,6 +1231,8 @@ class StateStore:
                     or a.job.create_index == summary.create_index]
 
     def allocs_by_eval(self, ws, eval_id: str) -> List[s.Allocation]:
+        if ws is not None:
+            ws.add(self, "allocs")
         with self._lock:
             if self._pending_slabs:
                 self._materialize_pending()
@@ -1089,6 +1241,8 @@ class StateStore:
                     if aid in self.allocs_table]
 
     def allocs(self, ws=None) -> List[s.Allocation]:
+        if ws is not None:
+            ws.add(self, "allocs")
         with self._lock:
             if self._pending_slabs:
                 self._materialize_pending()
@@ -1102,6 +1256,8 @@ class StateStore:
 
     def alloc_rows(self, ws=None) -> List[Tuple[str, s.Allocation]]:
         """(node_id, row) for every alloc."""
+        if ws is not None:
+            ws.add(self, "allocs")
         with self._lock:
             out = []
             for slab in self._pending_slabs:
@@ -1128,6 +1284,8 @@ class StateStore:
     def alloc_rows_by_job(self, ws, job_id: str
                           ) -> List[Tuple[str, s.Allocation]]:
         """(node_id, row) for one job's allocs."""
+        if ws is not None:
+            ws.add(self, "allocs")
         with self._lock:
             out = []
             for slab in self._pending_by_job.get(job_id, ()):
@@ -1888,8 +2046,8 @@ class _SharedRefs:
                 if row is not None and 0 <= r < len(objs):
                     setattr(row, attr, objs[r])
 
-_NODE_STR_FIELDS = ("datacenter", "name", "node_class", "computed_class",
-                    "status", "status_description")
+_NODE_STR_FIELDS = ("datacenter", "name", "http_addr", "node_class",
+                    "computed_class", "status", "status_description")
 _ZERO4 = (0, 0, 0, 0)
 
 
@@ -1967,8 +2125,12 @@ def _node_soa(nodes: List[s.Node]) -> dict:
             np.asarray([nd.create_index for nd in nodes], np.int64)),
         "modify_index": columnar_mod.pack_array(
             np.asarray([nd.modify_index for nd in nodes], np.int64)),
+        "status_updated_at": columnar_mod.pack_array(
+            np.asarray([nd.status_updated_at for nd in nodes], np.float64)),
         "attributes": _intern_col([nd.attributes for nd in nodes],
                                   key=lambda d: tuple(d.items())),
+        "links": _intern_col([nd.links for nd in nodes],
+                             key=lambda d: tuple(d.items())),
         "meta": _intern_col([nd.meta for nd in nodes],
                             key=lambda d: tuple(d.items())),
     }
@@ -1989,10 +2151,13 @@ def _restore_nodes(table: Dict[str, s.Node], nd: dict) -> List[str]:
     nets, rnets = nd["networks"], nd["res_networks"]
     drain = arr("drain").tolist()
     cidx, midx = arr("create_index").tolist(), arr("modify_index").tolist()
+    supd = arr("status_updated_at").tolist()
     attrs = _uninterned(nd["attributes"], dict)
+    links = _uninterned(nd["links"], dict)
     metas = _uninterned(nd["meta"], dict)
     strs = {f: _uninterned(nd[f]) for f in _NODE_STR_FIELDS}
     dcs, names, ncls = strs["datacenter"], strs["name"], strs["node_class"]
+    https = strs["http_addr"]
     ccls, sts, stsd = (strs["computed_class"], strs["status"],
                        strs["status_description"])
     new = object.__new__
@@ -2016,10 +2181,12 @@ def _restore_nodes(table: Dict[str, s.Node], nd: dict) -> List[str]:
         node = new(ND)
         node.__dict__ = {
             "id": nid, "datacenter": dcs[i], "name": names[i],
-            "attributes": attrs[i], "resources": r, "reserved": rv,
+            "http_addr": https[i], "attributes": attrs[i],
+            "resources": r, "reserved": rv, "links": links[i],
             "meta": metas[i], "node_class": ncls[i],
             "computed_class": ccls[i], "drain": drain[i],
             "status": sts[i], "status_description": stsd[i],
+            "status_updated_at": supd[i],
             "create_index": cidx[i], "modify_index": midx[i],
         }
         table[nid] = node

@@ -1,30 +1,21 @@
 """Structural job diff for the ``job plan`` dry run (a copy of
-``nomad_tpu/structs/diff.py``; reference nomad/structs/diff.go:14-1205).
+``nomad_tpu/structs/diff.py``).
 
-One reflection engine walks the dataclasses and produces a tree of typed
-diffs (None / Added / Deleted / Edited) with Go-style CamelCase field
-names, so the annotation rules (``scheduler/annotate.py``: "Count",
-"KillTimeout", "LogConfig", "Service", "Constraint") carry over.
-
-The port's ``Task`` keeps ``vault``, ``templates`` and ``artifacts`` as
-plain dicts (the keys of the reference's types, as
-``dataclasses.asdict`` gives them).  They are rendered as the reference
-renders its typed objects: ``ObjectDiff``\\ s named ``Vault``,
-``Template`` and ``Artifact`` whose fields are the keys' Go names, and,
-where a list goes from empty to not empty, a scalar diff of each
-element's dataclass repr, as the reference's walk does.  The diff covers
-the fields the port carries (``ParentID``, ``Periodic``,
-``ParameterizedJob`` and a task's ``DispatchPayload`` among them); the
-reference also reports the client's task fields ``RestartPolicy``,
-``Service``, ``KillTimeout``, ``LogConfig`` and ``Leader``.
+Reference behavior: nomad/structs/diff.go (JobDiff / TaskGroupDiff / TaskDiff /
+ObjectDiff / FieldDiff, diff.go:14-1205).  The reference hand-writes a diff
+function per struct; here a single reflection engine walks the dataclasses and
+produces the same shape of output: a tree of typed diffs (None / Added /
+Deleted / Edited) with Go-style CamelCase field names so the annotation rules
+(scheduler/annotate.go:165-190 matches on "KillTimeout", "LogConfig",
+"Service", "Constraint", "Count") carry over unchanged.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from dataclasses import dataclass, field
+from typing import Any, Dict, List, Optional
 
-from ..utils.names import go_name
 from . import structs as s
 from .structs import (DIFF_TYPE_ADDED, DIFF_TYPE_DELETED, DIFF_TYPE_EDITED,
                       DIFF_TYPE_NONE, FieldDiff, JobDiff, ObjectDiff,
@@ -34,32 +25,42 @@ from .structs import (DIFF_TYPE_ADDED, DIFF_TYPE_DELETED, DIFF_TYPE_EDITED,
 _TYPE_ORDER = {DIFF_TYPE_EDITED: 0, DIFF_TYPE_ADDED: 1,
                DIFF_TYPE_DELETED: 2, DIFF_TYPE_NONE: 3}
 
-# Struct type -> ObjectDiff name, as the reference names them.
+
+# ---------------------------------------------------------------------------
+# Name rendering: snake_case dataclass fields -> Go-style CamelCase, matching
+# the names the reference emits (and that annotate.go keys on).
+# ---------------------------------------------------------------------------
+
+from ..utils.names import go_name  # noqa: E402  (shared with the wire codec)
+
+
+# Struct-type -> ObjectDiff name, as the reference names them.
 _OBJECT_NAMES = {
     s.Constraint: "Constraint",
+    s.RestartPolicy: "RestartPolicy",
     s.EphemeralDisk: "EphemeralDisk",
     s.UpdateStrategy: "Update",
     s.PeriodicConfig: "Periodic",
     s.ParameterizedJobConfig: "ParameterizedJob",
+    s.LogConfig: "LogConfig",
+    s.Service: "Service",
+    s.ServiceCheck: "Check",
+    s.TaskArtifact: "Artifact",
+    s.Template: "Template",
+    s.Vault: "Vault",
     s.Resources: "Resources",
     s.NetworkResource: "Network",
     s.DispatchPayloadConfig: "DispatchPayload",
     s.Port: "Port",
 }
 
-# The Task's plain-data fields: field -> (ObjectDiff name, the class name
-# of the reference's type, which its dataclass repr shows).
-_PLAIN_OBJECTS = {
-    "vault": ("Vault", "Vault"),
-    "templates": ("Template", "Template"),
-    "artifacts": ("Artifact", "TaskArtifact"),
-}
-
-# Keyed list element types: matched old<->new by this attribute; any
-# other list of objects is matched set-wise (equal pairs drop out, the
-# rest become Added/Deleted), as the reference treats constraints,
-# artifacts and templates.
-_LIST_KEYS = {s.Task: "name", s.TaskGroup: "name"}
+# Keyed list element types: matched old<->new by this attribute; everything
+# else in a list of objects is matched set-wise (equal pairs drop out,
+# remainder becomes Added/Deleted) exactly as the reference treats
+# constraints/artifacts/templates (diff.go:540-571 uses name keys for
+# services; set semantics for the rest).
+_LIST_KEYS = {s.Service: "name", s.ServiceCheck: "name", s.Task: "name",
+              s.TaskGroup: "name"}
 
 _SCALARS = (str, int, float, bool, bytes)
 
@@ -74,13 +75,6 @@ def _render(v: Any) -> str:
     if isinstance(v, bytes):
         return v.decode("utf-8", "replace")
     return str(v)
-
-
-def _repr_as(type_name: str) -> Callable[[Any], str]:
-    """Render a plain-data element as the reference's dataclass repr."""
-    def render(d: Dict[str, Any]) -> str:
-        return f"{type_name}({', '.join(f'{k}={v!r}' for k, v in d.items())})"
-    return render
 
 
 def _field_diff(name: str, old: Any, new: Any, contextual: bool) -> Optional[FieldDiff]:
@@ -118,7 +112,7 @@ def _dict_field_diffs(name: str, old: Optional[Dict], new: Optional[Dict],
 
 
 def _scalar_list_diffs(name: str, old: Optional[List], new: Optional[List],
-                       contextual: bool, render=_render) -> List[FieldDiff]:
+                       contextual: bool) -> List[FieldDiff]:
     """Set-semantics diff of scalar lists (e.g. Datacenters, Args)."""
     old_l = list(old or [])
     new_l = list(new or [])
@@ -128,18 +122,16 @@ def _scalar_list_diffs(name: str, old: Optional[List], new: Optional[List],
         if v in remaining:
             remaining.remove(v)
             if contextual:
-                out.append(FieldDiff(DIFF_TYPE_NONE, name, render(v), render(v)))
+                out.append(FieldDiff(DIFF_TYPE_NONE, name, _render(v), _render(v)))
         else:
-            out.append(FieldDiff(DIFF_TYPE_DELETED, name, render(v), ""))
+            out.append(FieldDiff(DIFF_TYPE_DELETED, name, _render(v), ""))
     for v in remaining:
-        out.append(FieldDiff(DIFF_TYPE_ADDED, name, "", render(v)))
+        out.append(FieldDiff(DIFF_TYPE_ADDED, name, "", _render(v)))
     return out
 
 
 def _object_list_diffs(old: Optional[List], new: Optional[List],
-                       contextual: bool, diff=None) -> List[ObjectDiff]:
-    """``diff`` diffs two elements (default :func:`object_diff`)."""
-    diff = diff or object_diff
+                       contextual: bool) -> List[ObjectDiff]:
     old_l = list(old or [])
     new_l = list(new or [])
     elem = (old_l + new_l)[0] if (old_l or new_l) else None
@@ -151,7 +143,7 @@ def _object_list_diffs(old: Optional[List], new: Optional[List],
         olds = {getattr(o, key): o for o in old_l}
         news = {getattr(n, key): n for n in new_l}
         for k in sorted(set(olds) | set(news)):
-            d = diff(olds.get(k), news.get(k), contextual)
+            d = object_diff(olds.get(k), news.get(k), contextual)
             if d is not None:
                 out.append(d)
     else:
@@ -165,71 +157,48 @@ def _object_list_diffs(old: Optional[List], new: Optional[List],
             if matched is not None:
                 remaining.remove(matched)
                 if contextual:
-                    d = diff(o, matched, contextual)
+                    d = object_diff(o, matched, contextual)
                     if d is not None:
                         out.append(d)
             else:
-                d = diff(o, None, contextual)
+                d = object_diff(o, None, contextual)
                 if d is not None:
                     out.append(d)
         for n in remaining:
-            d = diff(None, n, contextual)
+            d = object_diff(None, n, contextual)
             if d is not None:
                 out.append(d)
     return out
 
 
-def _values(old: Any, new: Any) -> List[Tuple[str, Any, Any]]:
-    """``(field, old value, new value)`` of two same-typed objects (either
-    may be None): a dataclass's fields, or a plain-data dict's keys."""
-    proto = old if old is not None else new
-    if isinstance(proto, dict):
-        old, new = old or {}, new or {}
-        return [(k, old.get(k), new.get(k)) for k in dict.fromkeys([*old, *new])]
-    return [(f.name, getattr(old, f.name, None) if old is not None else None,
-             getattr(new, f.name, None) if new is not None else None)
-            for f in dataclasses.fields(proto)]
-
-
 def _walk(old: Any, new: Any, contextual: bool, exclude: frozenset = frozenset(),
           ) -> tuple:
-    """Diff all fields of two same-typed objects (either may be None).
-    Returns (field_diffs, object_diffs)."""
-    plain = _PLAIN_OBJECTS if isinstance(old if old is not None else new,
-                                         s.Task) else {}
+    """Diff all dataclass fields of two same-typed objects (either may be
+    None). Returns (field_diffs, object_diffs)."""
+    proto = old if old is not None else new
     fields: List[FieldDiff] = []
     objects: List[ObjectDiff] = []
-    for fname, ov, nv in _values(old, new):
-        if fname in exclude:
+    for f in dataclasses.fields(proto):
+        if f.name in exclude:
             continue
-        name = go_name(fname)
-        names = plain.get(fname)
+        name = go_name(f.name)
+        ov = getattr(old, f.name, None) if old is not None else None
+        nv = getattr(new, f.name, None) if new is not None else None
         sample = ov if ov is not None else nv
         if sample is None or isinstance(sample, _SCALARS):
             d = _field_diff(name, ov, nv, contextual)
             if d is not None:
                 fields.append(d)
         elif isinstance(sample, dict):
-            if names:
-                d = _named_object_diff(names[0], ov, nv, contextual)
-                if d is not None:
-                    objects.append(d)
-                continue
             vals = list((sample or {}).values())
             if vals and dataclasses.is_dataclass(vals[0]):
                 continue  # keyed object maps handled by callers
             fields.extend(_dict_field_diffs(name, ov, nv, contextual))
         elif isinstance(sample, list):
-            if sample and names:
-                objects.extend(_object_list_diffs(
-                    ov, nv, contextual,
-                    lambda o, n, c, obj=names[0]: _named_object_diff(obj, o, n, c)))
-            elif sample and dataclasses.is_dataclass(sample[0]):
+            if sample and dataclasses.is_dataclass(sample[0]):
                 objects.extend(_object_list_diffs(ov, nv, contextual))
             else:
-                fields.extend(_scalar_list_diffs(
-                    name, ov, nv, contextual,
-                    _repr_as(names[1]) if names else _render))
+                fields.extend(_scalar_list_diffs(name, ov, nv, contextual))
         elif dataclasses.is_dataclass(sample):
             d = object_diff(ov, nv, contextual)
             if d is not None:
@@ -254,12 +223,12 @@ def _changed(fields: List[FieldDiff], objects: List[ObjectDiff]) -> bool:
             or any(o.type != DIFF_TYPE_NONE for o in objects))
 
 
-def _named_object_diff(name: str, old: Any, new: Any,
-                       contextual: bool) -> Optional[ObjectDiff]:
-    """Diff two objects (a dataclass, or a plain-data dict) as the typed
-    object ``name``."""
+def object_diff(old: Any, new: Any, contextual: bool = False) -> Optional[ObjectDiff]:
+    """Diff two nested objects of the same dataclass type (diff.go:507-888)."""
     if old is None and new is None:
         return None
+    proto = old if old is not None else new
+    name = _OBJECT_NAMES.get(type(proto), type(proto).__name__)
     fields, objects = _walk(old, new, contextual)
     typ = _overall(old, new, _changed(fields, objects))
     if typ == DIFF_TYPE_NONE and not contextual:
@@ -267,23 +236,12 @@ def _named_object_diff(name: str, old: Any, new: Any,
     return ObjectDiff(typ, name, fields, objects)
 
 
-def object_diff(old: Any, new: Any, contextual: bool = False) -> Optional[ObjectDiff]:
-    """Diff two nested objects of the same dataclass type (diff.go:507-888)."""
-    if old is None and new is None:
-        return None
-    proto = old if old is not None else new
-    return _named_object_diff(
-        _OBJECT_NAMES.get(type(proto), type(proto).__name__), old, new,
-        contextual)
-
-
 # Fields that are bookkeeping, not part of the user-visible spec
-# (diff.go:69-80 filters these from the job diff; the reference also
-# names vault_token, stable and submit_time, which the port's Job does
-# not carry).
+# (diff.go:69-80 filters these from the job diff).
 _JOB_EXCLUDE = frozenset({
-    "id", "status", "status_description", "version", "create_index",
-    "modify_index", "job_modify_index", "payload", "task_groups",
+    "id", "status", "status_description", "version", "stable", "submit_time",
+    "create_index", "modify_index", "job_modify_index", "payload",
+    "vault_token", "task_groups",
 })
 _TG_EXCLUDE = frozenset({"name", "tasks"})
 _TASK_EXCLUDE = frozenset({"name"})

@@ -7,13 +7,14 @@ with their children counts).  Resource quantities are 4 scalar ints (cpu,
 memory_mb, disk_mb, iops) so they lower directly to the int32 ``[N, 4]`` /
 ``[U, 4]`` tensors in ``ops/encode.py``.
 
-Left out of the copy: services, vault, templates and artifacts as types
-(a task keeps the last three as plain data, compared by the in-place
-update test and rendered by the job diff, ``structs/diff.py``, as the
-reference renders their types), the task fields the client reads
-(restart policy, kill timeout, log config, leader), and deployments.  The
-event stream's structs (``TOPIC_*``, ``EVENT_TOPICS``, ``Event``) are
-here; the deployment topic names a table the port does not have yet.
+The job side of a jobspec is whole: restart policies, services and
+their checks, log configs, artifacts, templates and vault asks are the
+reference's types, so a parsed HCL job round-trips through the wire
+codec as the reference's does.  Left out of the copy: ``Job.vault_token``
+and ``Job.stable`` (vault and job versions), the task event and task
+state fields only the client writes, and deployments.  The event
+stream's structs (``TOPIC_*``, ``EVENT_TOPICS``, ``Event``) are here;
+the deployment topic names a table the port does not have yet.
 """
 from __future__ import annotations
 
@@ -98,6 +99,9 @@ TASK_STATE_PENDING = "pending"
 TASK_STATE_RUNNING = "running"
 TASK_STATE_DEAD = "dead"
 TASK_TERMINATED = "Terminated"
+
+RESTART_POLICY_MODE_DELAY = "delay"
+RESTART_POLICY_MODE_FAIL = "fail"
 
 DEFAULT_NAMESPACE = "default"
 
@@ -196,6 +200,16 @@ class NetworkResource:
                                    for p in delta.reserved_ports)
         self.mbits += delta.mbits
 
+    def port_labels(self) -> Dict[str, int]:
+        """Port label -> value, reserved and dynamic (structs.go
+        NetworkResource.MapLabelToValues)."""
+        labels: Dict[str, int] = {}
+        for p in self.reserved_ports:
+            labels[p.label] = p.value
+        for p in self.dynamic_ports:
+            labels[p.label] = p.value
+        return labels
+
 
 @dataclass
 class Resources:
@@ -263,15 +277,18 @@ class Node:
     id: str = ""
     datacenter: str = "dc1"
     name: str = ""
+    http_addr: str = ""
     attributes: Dict[str, str] = field(default_factory=dict)
     resources: Resources = field(default_factory=Resources)
     reserved: Optional[Resources] = None
+    links: Dict[str, str] = field(default_factory=dict)
     meta: Dict[str, str] = field(default_factory=dict)
     node_class: str = ""
     computed_class: str = ""
     drain: bool = False
     status: str = NODE_STATUS_INIT
     status_description: str = ""
+    status_updated_at: float = 0.0
     create_index: int = 0
     modify_index: int = 0
 
@@ -291,6 +308,7 @@ class Node:
         n = _fast_copy(self)
         n.attributes = dict(self.attributes)
         n.meta = dict(self.meta)
+        n.links = dict(self.links)
         n.resources = self.resources.copy()
         n.reserved = self.reserved.copy() if self.reserved else None
         return n
@@ -309,6 +327,19 @@ class Constraint:
 
     def __str__(self) -> str:
         return f"{self.ltarget} {self.operand} {self.rtarget}"
+
+
+@dataclass
+class RestartPolicy:
+    """Task restart behavior within a task group (structs.go:1965-2012)."""
+
+    attempts: int = 2
+    interval: float = 60.0  # seconds (the reference's Go uses ns)
+    delay: float = 15.0
+    mode: str = RESTART_POLICY_MODE_DELAY
+
+    def copy(self) -> "RestartPolicy":
+        return _fast_copy(self)
 
 
 @dataclass
@@ -385,6 +416,102 @@ class ParameterizedJobConfig:
 
 
 @dataclass
+class LogConfig:
+    """Task log rotation config (structs.go:2540-2576)."""
+
+    max_files: int = 10
+    max_file_size_mb: int = 10
+
+    def copy(self) -> "LogConfig":
+        return _fast_copy(self)
+
+
+@dataclass
+class ServiceCheck:
+    """Health check of a registered service (structs.go:2250-2360)."""
+
+    name: str = ""
+    type: str = ""  # http | tcp | script
+    command: str = ""
+    args: List[str] = field(default_factory=list)
+    path: str = ""
+    protocol: str = ""
+    port_label: str = ""
+    interval: float = 10.0
+    timeout: float = 3.0
+    initial_status: str = ""
+
+    def copy(self) -> "ServiceCheck":
+        c = _fast_copy(self)
+        c.args = list(self.args)
+        return c
+
+
+@dataclass
+class Service:
+    """A service a task advertises (structs.go:2362-2470)."""
+
+    name: str = ""
+    port_label: str = ""
+    tags: List[str] = field(default_factory=list)
+    checks: List[ServiceCheck] = field(default_factory=list)
+
+    def copy(self) -> "Service":
+        return Service(self.name, self.port_label, list(self.tags),
+                       [c.copy() for c in self.checks])
+
+
+@dataclass
+class TaskArtifact:
+    """A remote artifact fetched before the task starts
+    (structs.go:3196-3280)."""
+
+    getter_source: str = ""
+    getter_options: Dict[str, str] = field(default_factory=dict)
+    relative_dest: str = ""
+
+    def copy(self) -> "TaskArtifact":
+        return TaskArtifact(self.getter_source, dict(self.getter_options),
+                            self.relative_dest)
+
+
+TEMPLATE_CHANGE_MODE_NOOP = "noop"
+TEMPLATE_CHANGE_MODE_SIGNAL = "signal"
+TEMPLATE_CHANGE_MODE_RESTART = "restart"
+
+
+@dataclass
+class Template:
+    """A rendered template block (structs.go:2914-3020)."""
+
+    source_path: str = ""
+    dest_path: str = ""
+    embedded_tmpl: str = ""
+    change_mode: str = "restart"  # noop | signal | restart
+    change_signal: str = ""
+    splay: float = 5.0
+    perms: str = "0644"
+
+    def copy(self) -> "Template":
+        return _fast_copy(self)
+
+
+@dataclass
+class Vault:
+    """A task's vault policy ask (structs.go:4120-4180)."""
+
+    policies: List[str] = field(default_factory=list)
+    env: bool = True
+    change_mode: str = "restart"
+    change_signal: str = ""
+
+    def copy(self) -> "Vault":
+        v = _fast_copy(self)
+        v.policies = list(self.policies)
+        return v
+
+
+@dataclass
 class DispatchPayloadConfig:
     """Where a task finds a dispatched job's payload (structs.py:568)."""
 
@@ -396,34 +523,40 @@ class DispatchPayloadConfig:
 
 @dataclass
 class Task:
-    """A unit of work run by a driver (structs.go:2616-2790).  ``vault``,
-    ``templates`` and ``artifacts`` are plain data here: the scheduler
-    only compares them (``scheduler/util.tasks_updated``)."""
+    """A unit of work run by a driver (structs.go:2616-2790)."""
 
     name: str = ""
     driver: str = ""
     user: str = ""
     config: Dict[str, Any] = field(default_factory=dict)
     env: Dict[str, str] = field(default_factory=dict)
-    vault: Optional[Dict[str, Any]] = None
-    templates: List[Dict[str, Any]] = field(default_factory=list)
+    services: List[Service] = field(default_factory=list)
+    vault: Optional[Vault] = None
+    templates: List[Template] = field(default_factory=list)
     constraints: List[Constraint] = field(default_factory=list)
     resources: Resources = field(default_factory=Resources)
-    meta: Dict[str, str] = field(default_factory=dict)
-    artifacts: List[Dict[str, Any]] = field(default_factory=list)
     dispatch_payload: Optional[DispatchPayloadConfig] = None
+    meta: Dict[str, str] = field(default_factory=dict)
+    kill_timeout: float = 5.0
+    log_config: LogConfig = field(default_factory=LogConfig)
+    artifacts: List[TaskArtifact] = field(default_factory=list)
+    leader: bool = False
 
     def copy(self) -> "Task":
         return Task(
             name=self.name, driver=self.driver, user=self.user,
             config=dict(self.config), env=dict(self.env),
-            vault=dict(self.vault) if self.vault is not None else None,
-            templates=[dict(t) for t in self.templates],
+            services=[sv.copy() for sv in self.services],
+            vault=self.vault.copy() if self.vault else None,
+            templates=[t.copy() for t in self.templates],
             constraints=[c.copy() for c in self.constraints],
-            resources=self.resources.copy(), meta=dict(self.meta),
-            artifacts=[dict(a) for a in self.artifacts],
+            resources=self.resources.copy(),
             dispatch_payload=(self.dispatch_payload.copy()
-                              if self.dispatch_payload else None))
+                              if self.dispatch_payload else None),
+            meta=dict(self.meta), kill_timeout=self.kill_timeout,
+            log_config=self.log_config.copy(),
+            artifacts=[a.copy() for a in self.artifacts],
+            leader=self.leader)
 
 
 @dataclass
@@ -434,6 +567,7 @@ class TaskGroup:
     name: str = ""
     count: int = 1
     constraints: List[Constraint] = field(default_factory=list)
+    restart_policy: RestartPolicy = field(default_factory=RestartPolicy)
     tasks: List[Task] = field(default_factory=list)
     ephemeral_disk: EphemeralDisk = field(default_factory=EphemeralDisk)
     meta: Dict[str, str] = field(default_factory=dict)
@@ -442,6 +576,7 @@ class TaskGroup:
         return TaskGroup(
             name=self.name, count=self.count,
             constraints=[c.copy() for c in self.constraints],
+            restart_policy=self.restart_policy.copy(),
             tasks=[t.copy() for t in self.tasks],
             ephemeral_disk=self.ephemeral_disk.copy(), meta=dict(self.meta))
 
@@ -476,6 +611,7 @@ class Job:
     status_description: str = ""
     stop: bool = False
     version: int = 0
+    submit_time: float = 0.0
     create_index: int = 0
     modify_index: int = 0
     job_modify_index: int = 0
@@ -509,8 +645,7 @@ class Job:
 
     def validate(self) -> List[str]:
         """Structural problems, empty when none (structs.go:1334
-        Job.Validate; the vault checks of the reference have no fields
-        here)."""
+        Job.Validate)."""
         problems: List[str] = []
         if not self.region:
             problems.append("job region is empty")
@@ -556,6 +691,12 @@ class Job:
                         f"task '{task.name}' must specify a driver")
         if self.type == JOB_TYPE_SYSTEM and self.is_periodic():
             problems.append("periodic is not allowed on system jobs")
+        for c in self.constraints:
+            if c.operand in (CONSTRAINT_DISTINCT_HOSTS,
+                             CONSTRAINT_DISTINCT_PROPERTY):
+                pass
+            elif not c.operand:
+                problems.append(f"constraint missing operand: {c}")
         return problems
 
     def canonicalize(self) -> None:
@@ -683,6 +824,7 @@ class Allocation:
     create_index: int = 0
     modify_index: int = 0
     alloc_modify_index: int = 0
+    create_time: float = 0.0
 
     def copy(self) -> "Allocation":
         a = _fast_copy(self)
@@ -716,6 +858,38 @@ class Allocation:
         if not self.task_states:
             return False
         return all(ts.successful() for ts in self.task_states.values())
+
+    def stub(self) -> "AllocListStub":
+        return AllocListStub(
+            id=self.id, eval_id=self.eval_id, name=self.name,
+            node_id=self.node_id, job_id=self.job_id,
+            task_group=self.task_group, desired_status=self.desired_status,
+            desired_description=self.desired_description,
+            client_status=self.client_status,
+            client_description=self.client_description,
+            task_states={k: v.copy() for k, v in self.task_states.items()},
+            create_index=self.create_index, modify_index=self.modify_index,
+            create_time=self.create_time)
+
+
+@dataclass
+class AllocListStub:
+    """An allocation's view in list endpoints (structs.go:4044)."""
+
+    id: str = ""
+    eval_id: str = ""
+    name: str = ""
+    node_id: str = ""
+    job_id: str = ""
+    task_group: str = ""
+    desired_status: str = ""
+    desired_description: str = ""
+    client_status: str = ""
+    client_description: str = ""
+    task_states: Dict[str, TaskState] = field(default_factory=dict)
+    create_index: int = 0
+    modify_index: int = 0
+    create_time: float = 0.0
 
 
 @dataclass

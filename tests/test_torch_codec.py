@@ -431,6 +431,49 @@ def test_lifecycle_rpc_bodies_round_trip(k):
     assert as_plain(got) == as_plain(body)
 
 
+# The schema fingerprint of the port's structs before the jobspec's types
+# and fields (restart policies, services, log configs, artifacts,
+# templates, vault asks, kill timeouts, leaders, submit and create
+# times, a node's HTTP address, links and status time), and a frame that
+# build wrote: {"job_id": "per", "purge": True}.
+PRE_JOBSPEC_FINGERPRINT = bytes.fromhex("e01650e579db354a")
+PRE_JOBSPEC_FRAME = bytes.fromhex(
+    "c101e01650e579db354a080205066a6f625f696405037065720505707572676502")
+
+
+def test_pre_jobspec_frame_raises_naming_both_fingerprints():
+    assert schema.FINGERPRINT != PRE_JOBSPEC_FINGERPRINT
+    assert PRE_JOBSPEC_FRAME[2:10] == PRE_JOBSPEC_FINGERPRINT
+    with pytest.raises(codec.CodecError) as e:
+        log_codec.decode_payload(PRE_JOBSPEC_FRAME)
+    assert PRE_JOBSPEC_FINGERPRINT.hex() in str(e.value)
+    assert schema.FINGERPRINT.hex() in str(e.value)
+    blob = log_codec.encode_payload({"job_id": "per", "purge": True})
+    assert blob[10:] == PRE_JOBSPEC_FRAME[10:]
+
+
+def test_jobspec_types_round_trip_through_the_codec():
+    """A job with every jobspec type, an alloc with its create time and a
+    node with its HTTP address, links and status time decode as they
+    were encoded."""
+    job = convert.job_from_dict(dataclasses.asdict(jmock.job()))
+    task = job.task_groups[0].tasks[0]
+    task.templates = [ps.Template(dest_path="local/x", embedded_tmpl="hi")]
+    task.artifacts = [ps.TaskArtifact(getter_source="http://a/b",
+                                      getter_options={"k": "v"})]
+    task.vault = ps.Vault(policies=["p"], change_mode="signal",
+                          change_signal="SIGHUP")
+    task.leader = True
+    job.submit_time = 12.5
+    node = convert.node_from_dict(dataclasses.asdict(jmock.node()))
+    node.http_addr, node.links = "10.0.0.1:4646", {"aws.ec2": "i-1"}
+    node.status_updated_at = 99.0
+    alloc = ps.Allocation(id="a", job_id=job.id, job=job, create_time=7.0)
+    body = {"job": job, "node": node, "alloc": alloc}
+    got = log_codec.decode_payload(log_codec.encode_payload(body))
+    assert got == body
+
+
 def test_pre_lifecycle_frame_raises_naming_both_fingerprints():
     assert schema.FINGERPRINT != PRE_LIFECYCLE_FINGERPRINT
     assert PRE_LIFECYCLE_FRAME[2:10] == PRE_LIFECYCLE_FINGERPRINT

@@ -4,9 +4,9 @@
 Job pairs are made from ``mock.job()`` of the reference with a seeded
 edit, and converted for the port (``dataclasses.asdict`` ->
 ``convert.job_from_dict``); both diffs are annotated and compared as
-dicts.  The reference also diffs fields the port's structs do not carry
-(``REF_ONLY``): those entries are removed from the reference's side only,
-and nothing else.  The unit cases of ``tests/test_diff.py`` run below as
+dicts.  Fields the port's structs did not carry were removed from the
+reference's side only (``REF_ONLY``, empty now that the port carries
+every field the reference diffs).  The unit cases of ``tests/test_diff.py`` run below as
 port-side twins.
 """
 import dataclasses
@@ -31,10 +31,9 @@ from nomad_tpu_torch.structs.diff import (DIFF_TYPE_ADDED, DIFF_TYPE_DELETED,
                                           task_group_diff)
 
 # The Go names of the reference's fields that the port's structs do not
-# carry (TaskGroup: restart_policy; Task: services, kill_timeout,
-# log_config, leader).
-REF_ONLY = frozenset({"RestartPolicy", "Service", "KillTimeout",
-                      "LogConfig", "Leader"})
+# carry.  None since the port's jobspec types (restart policies,
+# services, kill timeouts, log configs, leaders) are the reference's.
+REF_ONLY = frozenset()
 
 
 def without_ref_only(d):

@@ -856,3 +856,22 @@ def test_loadgen_smoke_on_the_card():
     assert got["shape_parity"]["max_abs_err"] <= ATOL
     drill = got["launches"]["breaker_drill"]
     assert drill["scored_rows"] == drill["committing_spec_steps"] > 0
+
+
+@pytest.mark.gpu
+def test_agent_path_on_the_card_equals_the_cpu():
+    """``chip_smoke.py`` phase ``agent`` at a small size: HCL jobs through
+    the CLI and HTTP into an agent's server on the card place as the same
+    jobs through ``Server.job_register`` on the card and as the agent on
+    the CPU, with ``scored_rows`` launches = committing steps and the
+    blocking query woken by the commit."""
+    need_card()
+    import chip_smoke
+
+    got = chip_smoke.phase_agent(
+        "cuda", sizes={"n_nodes": 200, "n_rpc": 20, "n_jobs": 6,
+                       "count": 60})
+    assert got["placements_equal"] and got["placed"] > 0
+    c = got["launches"]["agent"]
+    assert c["scored_rows"] == c["committing_spec_steps"] > 0
+    assert got["A_http"]["blocking"]["allocations"]["after_release"]

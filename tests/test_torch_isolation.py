@@ -366,3 +366,77 @@ def test_kernel_library_raises_without_nvcc(monkeypatch, tmp_path):
     monkeypatch.setattr(device, "_LIBS", {})
     with pytest.raises(device.KernelUnavailable, match="nvcc not found"):
         device.load_library("scored_rows")
+
+
+@pytest.mark.parametrize("package", ["agent", "api", "cli", "consul",
+                                     "jobspec"])
+def test_front_door_packages_are_checked(package):
+    """The front door's directories are among the files the import and
+    name-lookup checks above walk."""
+    files = [p for p in PORT_FILES if p.parent == PKG / package]
+    assert {p.name for p in files} >= {"__init__.py"}
+    assert len(files) >= 2
+
+
+def test_front_door_runs_with_jax_unimportable(tmp_path):
+    """A server-only agent from an HCL config on the CPU, an HCL job
+    through the CLI and HTTP, a blocking read of its eval and the CLI's
+    status, with jax, nomad_tpu and msgpack unimportable."""
+    code = f"""
+import io, json, sys, urllib.request
+sys.modules["jax"] = None
+sys.modules["nomad_tpu"] = None
+sys.modules["msgpack"] = None
+from nomad_tpu_torch import mock
+from nomad_tpu_torch.agent import Agent, load_config_file
+from nomad_tpu_torch.cli import main
+from nomad_tpu_torch.utils.backoff import wait_until
+cfg_path = {str(tmp_path / "agent.hcl")!r}
+with open(cfg_path, "w") as fh:
+    fh.write('server {{ enabled = true }}\\nclient {{ enabled = false }}\\n'
+             'ports {{\\n  http = 0\\n  rpc = 0\\n}}\\n')
+job_path = {str(tmp_path / "web.nomad")!r}
+with open(job_path, "w") as fh:
+    fh.write('job "web" {{\\n  datacenters = ["dc1"]\\n  group "g" {{\\n'
+             '    count = 2\\n    task "t" {{\\n      driver = "exec"\\n'
+             '      resources {{\\n        cpu = 100\\n        memory = 64\\n'
+             '      }}\\n    }}\\n  }}\\n}}\\n')
+cfg = load_config_file(cfg_path)
+cfg.dev_mode = True
+agent = Agent(cfg, device="cpu",
+              server_options={{"min_heartbeat_ttl": 3600.0}})
+agent.start()
+try:
+    for _ in range(3):
+        n = mock.node()
+        n.resources.networks = []
+        n.reserved.networks = []
+        agent.server.node_register(n)
+    out = io.StringIO()
+    addr = agent.http.address
+    assert main(["job", "run", "-detach", "-address", addr, job_path],
+                out=out) == 0, out.getvalue()
+    eval_id = out.getvalue().split("Evaluation ID: ")[1].split()[0]
+    index = 0
+    while True:
+        with urllib.request.urlopen(
+                f"{{addr}}/v1/evaluation/{{eval_id}}?index={{index}}"
+                f"&wait=30s", timeout=60) as resp:
+            ev = json.load(resp)
+            index = int(resp.headers["X-Nomad-Index"])
+        if ev["Status"] == "complete":
+            break
+    out = io.StringIO()
+    assert main(["job", "status", "-address", addr, "web"], out=out) == 0
+    assert "running" in out.getvalue()
+    assert len(agent.server.state.allocs_by_job(None, "web", False)) == 2
+finally:
+    agent.shutdown()
+assert wait_until(lambda: not agent.threads(), 15.0)
+assert sys.modules["jax"] is None and sys.modules["msgpack"] is None
+print("ok")
+"""
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=180)
+    assert out.returncode == 0, out.stderr[-4000:]
+    assert out.stdout.strip().splitlines()[-1] == "ok"

@@ -16,7 +16,8 @@ Each wave (and each node registration or status change that enqueues
 evals) is made with the workers paused and then released, so the broker
 forms the same batches in both.  Where evals of equal priority tie
 across the service and batch queues, each broker draws from a
-``random.Random`` seeded alike, and each world draws its ids from a
+``random.Random`` seeded alike (the reference's module patched, the
+port's ``ServerConfig.broker_seed``), and each world draws its ids from a
 seeded sequence of its own, so the reconciler's walks over id-keyed
 sets agree.  After each phase the two worlds are compared by content,
 not ids: every alloc's (job, name, node, desired status, client status),
@@ -161,10 +162,10 @@ class World:
                 use_tpu_batch_worker=True, num_schedulers=1,
                 batch_size=batch_size, min_heartbeat_ttl=HEARTBEAT_TTL))
         else:
-            mp.setattr(peval_broker, "random", random.Random(SEED))
             self.breaker = KernelCircuitBreaker()
             self.srv = Server(ServerConfig(
-                device="cpu", rng_seed=SEED, num_schedulers=1,
+                device="cpu", rng_seed=SEED, broker_seed=SEED,
+                num_schedulers=1,
                 batch_size=batch_size, min_heartbeat_ttl=HEARTBEAT_TTL,
                 preemption_enabled=preemption, breaker=self.breaker,
                 columnar=True, columnar_guard_every=1, trace=trace,
