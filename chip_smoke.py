@@ -107,6 +107,10 @@ Phases, each printed as one JSON line:
                (its sharded twin; plans equal the single card's) and a
                batch with network asks through the applier's scalar
                check on the card and the CPU (plans and offers equal);
+               batch 0's and the follow-ups' fetched results decoded
+               again by the native decode (``native/decode.cc``) and by
+               its numpy twins, in turns: equal outputs, both times
+               printed (``decode_routes``);
 16. preempt -- device preemption: the eviction-set kernel against its
                plain version on the card (edge rows; config_preempt's
                shape and others, A = 2 to 64, and the kernel's tile
@@ -364,7 +368,21 @@ Phases, each printed as one JSON line:
                -purge`` leaves no live alloc, and no agent thread
                outlives ``shutdown``; evals per second through HTTP
                against the direct path, and the CLI's request ms;
-26. times   -- each kernel's device time (profiler trace; CUDA events
+26. drills  -- the twelve drills of ``python -m nomad_tpu_torch.ops
+               --selfcheck --device cuda`` in this process: preemption,
+               breaker, columnar, tracing, wal, follower, residency,
+               fused, residue (the native decode against its numpy twins,
+               the guard at every call), codec, mesh (four shards of the
+               card: the per-shard device twin, one corrupted row
+               attributed to its shard, the breaker and the oracle) and
+               analysis (the static pass clean, the lock-order sanitizer's
+               seeded inversion, the native corpora under ASan and UBSan:
+               ``clean`` or ``skip: <reason>``, printed); every drill
+               must pass; ``scored_rows`` launches equal the committing
+               steps of the drills' device batches (a step a shard on the
+               mesh), ``masked_score_matrix`` launches four a call of
+               ``sharded_candidate_scores`` (none on the fused mesh pass);
+27. times   -- each kernel's device time (profiler trace; CUDA events
                where the trace has none) over copies of its inputs that
                overflow the L2 (``rotating``: twice the L2 of input bytes
                a cycle), its plain version's, the bound for the same work
@@ -373,7 +391,7 @@ Phases, each printed as one JSON line:
                (the mesh's call at config_mesh); the launch floor (a
                one-element fill); the kernels' SASS instruction counts and the
                issue-rate time they give;
-27. profile -- config (b)'s first batch again, warm, on the single card
+28. profile -- config (b)'s first batch again, warm, on the single card
                and on a 4-shard mesh: untraced, and under a device-only
                trace for the device busy time and idle share.
 
@@ -2321,6 +2339,74 @@ def network_world(dev, nodes, jobs, smi):
                                   if not a.terminal_status()])
 
 
+@contextlib.contextmanager
+def recorded_decodes(limit):
+    """Record the inputs of the first ``limit`` calls of
+    ``batch_sched._decode`` (the fetched results of those batches) while
+    the block runs; the calls themselves run unchanged."""
+    from nomad_tpu_torch.ops import batch_sched
+
+    real = batch_sched._decode
+    calls = []
+
+    def spy(*args, **kw):
+        if len(calls) < limit:
+            calls.append(args[:5])
+        return real(*args, **kw)
+
+    batch_sched._decode = spy
+    try:
+        yield calls
+    finally:
+        batch_sched._decode = real
+
+
+def same_placements(a, b) -> bool:
+    """Two ``_decode`` outputs equal: every spec's node ids, commit scores
+    and collisions (bit for bit), unplaced count and AllocMetric
+    scores."""
+    if a.keys() != b.keys():
+        return False
+    for k, x in a.items():
+        y = b[k]
+        if (x.node_ids != y.node_ids or x.unplaced != y.unplaced
+                or x.scores.tobytes() != y.scores.tobytes()
+                or x.collisions.tobytes() != y.collisions.tobytes()
+                or x.metric_scores != y.metric_scores):
+            return False
+    return True
+
+
+def decode_routes(calls, names, reps=5):
+    """``timings["decode"]``'s two routes on the same fetched results: the
+    native decode (``native/decode.cc``, guard off) and the numpy twins,
+    in turns, ``reps`` times each (the median); their outputs must be
+    equal."""
+    from nomad_tpu_torch.ops import batch_sched
+
+    rows = []
+    for name, args in zip(names, calls):
+        times = {True: [], False: []}
+        outs = {}
+        for _ in range(reps):
+            for native in (True, False):
+                t0 = time.perf_counter()
+                outs[native] = batch_sched._decode(
+                    *args, native_decode=native, decode_guard_every=0)
+                times[native].append(time.perf_counter() - t0)
+        if not same_placements(outs[True], outs[False]):
+            raise AssertionError(f"{name}: the native decode differs from "
+                                 "the numpy twin's")
+        coo = args[3]
+        rows.append({"batch": name, "coo_entries": int(len(coo)),
+                     "placed": sum(len(p.node_ids)
+                                   for p in outs[True].values()),
+                     "decode_native_s": statistics.median(times[True]),
+                     "decode_twin_s": statistics.median(times[False]),
+                     "native_equals_twin": True})
+    return rows
+
+
 def phase_applied(dev, n_nodes=10_000, n_jobs=100, count=1000,
                   n_stream=6):
     """Plans applied and fed back at config (b) width: the port's
@@ -2354,9 +2440,16 @@ def phase_applied(dev, n_nodes=10_000, n_jobs=100, count=1000,
 
     # The first world's store has no columnar mirror: its applier keeps
     # the walk, and batch_allocs_fit on the card.
-    w1 = applied_world(dev, nodes, head, smi, "card mirror guard_every=1",
-                       stream=stream, drills=drills, counted=True,
-                       check_mirror=True, columnar=False)
+    # Batch 0's and the follow-ups' fetched results are kept for the
+    # decode routes' times below.
+    with recorded_decodes(len(head)) as fetched:
+        w1 = applied_world(dev, nodes, head, smi,
+                           "card mirror guard_every=1", stream=stream,
+                           drills=drills, counted=True, check_mirror=True,
+                           columnar=False)
+    decode = decode_routes(fetched, [n for n, _ in head])
+    for row in decode:
+        emit({"phase": "applied", "decode_routes": row, "card": smi})
     w2 = applied_world(dev, nodes, head, smi, "card no mirror",
                        resident=False, stream=stream, drills=drills)
     w3 = applied_world("cpu", nodes, head, smi, "cpu mirror guard_every=1",
@@ -2505,6 +2598,7 @@ def phase_applied(dev, n_nodes=10_000, n_jobs=100, count=1000,
                    "serial_tail_wall_seconds":
                        w4["serial_tail_wall_seconds"],
                    "guard1": w1["stream"]},
+        "decode_routes": decode,
         "applied_path_launches": sum(
             r.get("scored_rows_launches", 0) for _, r in w1["rows"])
         + w1["stream"]["scored_rows_launches"],
@@ -5060,12 +5154,13 @@ def cluster_servers(dev, brk, follower_scheduling, single=False):
 
 def cluster_leader(servers, timeout=CLUSTER_ELECTION_TIMEOUT):
     """The elected leader of ``servers`` (its raft leads and its
-    leadership is established); raises past ``timeout``."""
+    leadership is established: the restores and the reapers have run,
+    so what it holds can be compared); raises past ``timeout``."""
     from nomad_tpu_torch.utils.backoff import wait_until
 
     def lead():
         return next((x for x in servers
-                     if x.is_leader() and getattr(
+                     if x.leadership_established() and getattr(
                          x.raft, "is_raft_leader", lambda: True)()), None)
 
     if not wait_until(lambda: lead() is not None, timeout,
@@ -6997,7 +7092,86 @@ def phase_agent(dev, sizes=None):
             "seconds": time.perf_counter() - t_phase}
 
 
-# -- phase 26: times ---------------------------------------------------------
+# -- phase 26: drills --------------------------------------------------------
+
+def phase_drills(dev):
+    """The twelve drills of ``python -m nomad_tpu_torch.ops --selfcheck
+    --device cuda`` in this process (``ops.__main__.run_drills``), each
+    of which must return True, with the kernels' counts set to 0 just
+    before and read just after: ``scored_rows`` launches against the
+    committing steps of every device batch the drills run (one launch a
+    step, one a shard on the mesh drill's four shards), and
+    ``masked_score_matrix`` launches against the drills' calls of
+    ``sharded_candidate_scores``."""
+    from nomad_tpu_torch.ops import __main__ as drills
+    from nomad_tpu_torch.ops import batch_sched, fused_score, preempt
+    from nomad_tpu_torch.parallel import sharded
+
+    smi = smi_name_power()
+    batches = []
+    candidate_calls = [0]
+    real_batch = batch_sched.TorchBatchScheduler.schedule_batch
+    real_cand = sharded.sharded_candidate_scores
+
+    def batch_spy(self, evals):
+        st = real_batch(self, evals)
+        batches.append((st.commit_steps, st.mesh_shards, st.device_ran))
+        return st
+
+    def cand_spy(*args, **kw):
+        candidate_calls[0] += 1
+        return real_cand(*args, **kw)
+
+    lines, verdicts, seconds = [], {}, {}
+
+    def log(msg):
+        lines.append(msg)
+        print(msg, file=sys.stderr, flush=True)
+
+    batch_sched.TorchBatchScheduler.schedule_batch = batch_spy
+    sharded.sharded_candidate_scores = cand_spy
+    fused_score.LAUNCHES = fused_score.MASKED_LAUNCHES = 0
+    preempt.LAUNCHES = 0
+    try:
+        results = {}
+        for name in drills.DRILLS:
+            t0 = time.perf_counter()
+            results.update(drills.run_drills(seed=0, device=dev, log=log,
+                                             verdicts=verdicts,
+                                             only=(name,)))
+            seconds[name] = time.perf_counter() - t0
+            emit({"phase": "drills", "drill": name, "ok": results[name],
+                  "seconds": seconds[name]})
+    finally:
+        batch_sched.TorchBatchScheduler.schedule_batch = real_batch
+        sharded.sharded_candidate_scores = real_cand
+    launches = {"scored_rows": fused_score.LAUNCHES,
+                "masked_score_matrix": fused_score.MASKED_LAUNCHES,
+                "eviction_sets": preempt.LAUNCHES}
+    steps = sum(n * max(1, shards) for n, shards, _ in batches)
+    failed = [name for name, ok in results.items() if not ok]
+    if failed or len(results) != 12:
+        raise AssertionError(f"drills failed: {failed}; "
+                             f"{[ln for ln in lines if 'FAIL' in ln]}")
+    if launches["scored_rows"] != steps or steps <= 0:
+        raise AssertionError(f"scored_rows launches {launches} against "
+                             f"{steps} committing steps")
+    # sharded_candidate_scores launches the masked kernel once a shard
+    # (the mesh drill's four).
+    if launches["masked_score_matrix"] != candidate_calls[0] * 4:
+        raise AssertionError(f"masked launches {launches} against "
+                             f"{candidate_calls[0]} candidate calls")
+    return {"drills": results, "seconds": seconds,
+            "sanitized_corpus": verdicts.get("sanitized_corpus"),
+            "device_batches": len(batches),
+            "device_batches_on_the_mesh": sum(
+                1 for _, shards, _ in batches if shards),
+            "committing_steps_x_shards": steps,
+            "candidate_calls": candidate_calls[0],
+            "launches": launches, "card": smi}
+
+
+# -- phase 27: times ---------------------------------------------------------
 
 def score_bytes(u: int, n: int, with_base: bool = True) -> int:
     """Bytes the function must move: feas (1) + collisions (4) in and
@@ -7035,15 +7209,35 @@ def profiled(fn, n: int = 1):
     return prof
 
 
-def kernel_device_ms(fn, name: str, n: int = 100):
+# Profiler sessions that recorded fewer device events of the kernel they
+# traced than it was launched: (kernel name, the events recorded).
+PROFILER_MISSES = []
+
+
+def kernel_device_ms(fn, name: str, n: int = 100, attempts: int = 3):
     """Median device time of ``n`` runs of the kernel whose name contains
-    ``name``, by the profiler's CUPTI trace; None when the trace has
-    none."""
+    ``name``, by the profiler's CUPTI trace; None when ``attempts``
+    sessions in a row record fewer than ``n`` of its launches (each miss
+    is kept in :data:`PROFILER_MISSES`): a partial record is not read."""
     fn()
-    evs = [e for e in cuda_kernel_events(profiled(fn, n)) if name in e.name]
-    if not evs:
-        return None
-    return statistics.median(e.time_range.elapsed_us() for e in evs) / 1e3
+    for _ in range(attempts):
+        evs = [e for e in cuda_kernel_events(profiled(fn, n))
+               if name in e.name]
+        if len(evs) >= n:
+            return statistics.median(e.time_range.elapsed_us()
+                                     for e in evs) / 1e3
+        PROFILER_MISSES.append((name, len(evs)))
+    return None
+
+
+def profiler_probe() -> int:
+    """The device kernel events of one profiled ``torch.zeros`` fill: 0
+    when the profiler records no device activity at this point of the
+    run."""
+    import torch
+
+    return len(cuda_kernel_events(profiled(
+        lambda: torch.zeros(1, device="cuda"))))
 
 
 def back_to_back_ms(fn, n: int = 200) -> float:
@@ -7115,13 +7309,18 @@ def bound_share(bound_ms, ms):
 def timed_row(call, plain, kernel_name, n_bytes, n_ops, n=100):
     """One kernel's times at one shape: its median device time over ``n``
     launches, one call's median through the wrapper, back-to-back calls,
-    its plain version's median, and the bound for the same work."""
+    its plain version's median, and the bound for the same work.
+    ``profiler_misses`` lists the sessions that recorded fewer than
+    ``n`` of the kernel's launches before one recorded them all (or
+    before the row fell back to CUDA events)."""
+    misses0 = len(PROFILER_MISSES)
     dev_ms = kernel_device_ms(call, kernel_name, n)
     ms = dev_ms if dev_ms is not None else back_to_back_ms(call)
     bound_ms, bound_by = bound_of(n_bytes, n_ops)
     return {"ms": ms,
             "ms_source": ("profiler device time, median" if dev_ms is not None
                           else "CUDA events, back-to-back launches"),
+            "profiler_misses": PROFILER_MISSES[misses0:],
             "call_ms_median": time_ms(call),
             "back_to_back_ms": back_to_back_ms(call),
             "plain_ms": time_ms(plain, n=20),
@@ -7469,7 +7668,11 @@ def run_phase(name, fn, *args):
         print(f"chip_smoke: phase {name} failed: {exc!r}\n{tb}",
               file=sys.stderr, flush=True)
         sys.exit(1)
-    emit({"phase": name, "ok": True, "seconds": time.perf_counter() - t0})
+    seconds = time.perf_counter() - t0
+    # Whether the profiler still records device activity after the phase
+    # (phase times' profiler rows depend on it).
+    emit({"phase": name, "ok": True, "seconds": seconds,
+          "profiler_probe_kernels": profiler_probe()})
     return result
 
 
@@ -7563,6 +7766,8 @@ def main() -> int:
                                  if k != "baseline"}})
     agt = run_phase("agent", phase_agent, dev)
     emit({"phase": "agent", **agt})
+    drl = run_phase("drills", phase_drills, dev)
+    emit({"phase": "drills", **drl})
     table = run_phase("times", phase_times, dev, launches, max_err,
                       masked_launches, max(masked_err, cand_err))
     # scored_rows' launches on the eval-driven path (phase evals, each
@@ -7626,6 +7831,9 @@ def main() -> int:
         # jobs through the CLI and HTTP into the agent's server, the
         # counts set to 0 just before the submissions).
         row["agent_path_launches"] = agt["launches"]["agent"][row["name"]]
+        # ... and on the drills' path (phase drills, the twelve drills of
+        # --selfcheck, the counts set to 0 just before them).
+        row["drills_path_launches"] = drl["launches"][row["name"]]
     emit({"phase": "profile", **run_phase("profile", phase_profile, dev)})
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     emit({"kernels": table})

@@ -1,10 +1,13 @@
 """Native (C++) host components, bound with ctypes (a copy of
-``nomad_tpu/native/__init__.py:1-240`` without its environment switches
-and without the sanitizer build).
+``nomad_tpu/native/__init__.py`` without its environment switches).
 
-Two libraries: the group-commit WAL behind the durable log
-(``wal.cc``, :class:`NativeWAL`) and the struct codec's string-column
-loops (``codec.cc``, bound in ``codec/native.py``).
+Four libraries: the group-commit WAL behind the durable log (``wal.cc``,
+:class:`NativeWAL`), the struct codec's string-column loops
+(``codec.cc``, bound in ``codec/native.py``), the packed-result decode
+after the one fetch (``decode.cc``, bound in ``ops/decode.py``) and the
+bulk uuid formatter (``ids.cc``, :func:`generate_uuids`, behind
+``structs.generate_uuids``).  ``ops/guards.py`` registers each with its
+reference twin.
 
 Build: the sources ship in this package and are compiled with ``g++`` at
 first use into ``build/native/`` at the repository root (git-ignored),
@@ -13,8 +16,16 @@ temporary file and moved into place (concurrent builds agree), as
 ``device.py`` builds the CUDA kernels.  They are host code: no ``nvcc``
 and no card are needed.  A build that fails raises
 :class:`NativeUnavailable`; nothing here falls back to Python.  The
-pure-Python log writer and CRC reader are a route of their own,
-``FileLog(native=False)``, which the caller asks for.
+pure-Python twins are routes of their own that the caller asks for
+(``FileLog(native=False)``, ``TorchBatchScheduler(native_decode=False)``).
+
+Sanitized build: after :func:`use_sanitized` every library of this
+process is built with ``-fsanitize=address,undefined`` under its own
+name (the corpus runner, ``python -m nomad_tpu_torch.native
+--asan-corpus``, turns it on from its argv).  A ctypes-loaded sanitized
+library needs the sanitizer runtimes first in the process's link order:
+:func:`sanitizer_env` gives the child its ``LD_PRELOAD``, the one
+environment entry it needs.
 """
 from __future__ import annotations
 
@@ -25,32 +36,52 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Iterator
+from typing import Dict, Iterator, List, Tuple
 
 HERE = Path(__file__).resolve().parent
 BUILD_DIR = HERE.parent.parent / "build" / "native"
 CXX_FLAGS = ("-O2", "-std=c++17", "-shared", "-fPIC", "-pthread")
+# The reference's sanitized build (nomad_tpu/native/__init__.py:54-56).
+SANITIZE_FLAGS = ("-fsanitize=address,undefined",
+                  "-fno-sanitize-recover=all", "-fno-omit-frame-pointer",
+                  "-g")
+SANITIZER_RUNTIMES = ("libasan.so", "libubsan.so")
 
-_LIBS: Dict[str, ctypes.CDLL] = {}
+_LIBS: Dict[Tuple[str, bool], ctypes.CDLL] = {}
 _LOCK = threading.Lock()
+_SANITIZED = False
 
 
 class NativeUnavailable(RuntimeError):
     """A native library could not be built or loaded on this machine."""
 
 
-def lib_path(source: str) -> Path:
-    """The library's path, keyed on its source and the flags."""
+def use_sanitized(on: bool = True) -> None:
+    """Build and load every library of this process sanitized from now
+    on (the corpus child; a library loaded before keeps its build)."""
+    global _SANITIZED
+    _SANITIZED = bool(on)
+
+
+def _flags(sanitize: bool) -> Tuple[str, ...]:
+    return CXX_FLAGS + (SANITIZE_FLAGS if sanitize else ())
+
+
+def lib_path(source: str, sanitize: bool = False) -> Path:
+    """The library's path, keyed on its source and the flags; a sanitized
+    build has a name of its own."""
     h = hashlib.sha256((HERE / source).read_bytes())
-    h.update(" ".join(CXX_FLAGS).encode())
-    return BUILD_DIR / f"lib{Path(source).stem}-{h.hexdigest()[:16]}.so"
+    h.update(" ".join(_flags(sanitize)).encode())
+    suffix = "-asan" if sanitize else ""
+    return (BUILD_DIR
+            / f"lib{Path(source).stem}-{h.hexdigest()[:16]}{suffix}.so")
 
 
-def build(source: str) -> Path:
+def build(source: str, sanitize: bool = False) -> Path:
     """Compile ``source`` (a ``.cc`` of this package) unless it is built
     already; returns the library's path.  Raises
     :class:`NativeUnavailable` when there is no ``g++`` or it fails."""
-    path = lib_path(source)
+    path = lib_path(source, sanitize)
     if path.exists():
         return path
     cxx = shutil.which("g++")
@@ -58,9 +89,12 @@ def build(source: str) -> Path:
         raise NativeUnavailable(f"g++ not found: {source} cannot be built")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = path.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
-    proc = subprocess.run([cxx, *CXX_FLAGS, str(HERE / source), "-o",
-                           str(tmp)], capture_output=True, text=True,
-                          timeout=300)
+    # The compiler never runs under a sanitizer preload (its own leaks
+    # would fail it).
+    env = {k: v for k, v in os.environ.items() if k != "LD_PRELOAD"}
+    proc = subprocess.run([cxx, *_flags(sanitize), str(HERE / source),
+                           "-o", str(tmp)], capture_output=True, text=True,
+                          timeout=300, env=env)
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise NativeUnavailable(f"g++ failed on {source}:\n"
@@ -70,13 +104,52 @@ def build(source: str) -> Path:
 
 
 def load(name: str, source: str) -> ctypes.CDLL:
-    """The library of ``source``, built at first use."""
+    """The library of ``source``, built at first use (sanitized after
+    :func:`use_sanitized`)."""
+    key = (name, _SANITIZED)
     with _LOCK:
-        lib = _LIBS.get(name)
+        lib = _LIBS.get(key)
         if lib is None:
-            lib = ctypes.CDLL(str(build(source)))
-            _LIBS[name] = lib
+            lib = ctypes.CDLL(str(build(source, _SANITIZED)))
+            _LIBS[key] = lib
         return lib
+
+
+def sanitizer_runtimes() -> List[str]:
+    """Absolute paths of the ASan and UBSan runtimes ``g++`` links
+    against; empty where it has none (or there is no ``g++``)."""
+    cxx = shutil.which("g++")
+    if cxx is None:
+        return []
+    out = []
+    for lib in SANITIZER_RUNTIMES:
+        try:
+            path = subprocess.run([cxx, f"-print-file-name={lib}"],
+                                  capture_output=True, text=True,
+                                  timeout=30, check=True).stdout.strip()
+        except (OSError, subprocess.SubprocessError):
+            return []
+        # g++ echoes the bare name back when it has no such file.
+        if not os.path.isabs(path) or not os.path.exists(path):
+            return []
+        out.append(path)
+    return out
+
+
+def sanitizer_env() -> Dict[str, str]:
+    """The environment of a child that loads sanitized libraries into a
+    stock python: this process's, with the sanitizer runtimes in
+    ``LD_PRELOAD`` (first in the link order, as a ctypes-loaded sanitized
+    library needs).  Raises :class:`NativeUnavailable` when ``g++`` has
+    no sanitizer runtimes."""
+    libs = sanitizer_runtimes()
+    if not libs:
+        raise NativeUnavailable("g++ has no ASan/UBSan runtime "
+                                "(libasan.so, libubsan.so)")
+    env = dict(os.environ)
+    env["LD_PRELOAD"] = ":".join(libs + [p for p in env.get(
+        "LD_PRELOAD", "").split(":") if p])
+    return env
 
 
 # ---------------------------------------------------------------------------
@@ -200,3 +273,52 @@ class NativeWAL:
             self.close()
         except Exception:
             pass
+
+
+# ---------------------------------------------------------------------------
+# Bulk uuid formatting (ids.cc)
+# ---------------------------------------------------------------------------
+
+
+def _ids_lib() -> ctypes.CDLL:
+    lib = load("nomadids", "ids.cc")
+    if not getattr(lib, "_nids_typed", False):
+        lib.nids_generate.restype = ctypes.c_int
+        lib.nids_generate.argtypes = [ctypes.c_char_p, ctypes.c_long]
+        lib.nids_format.restype = ctypes.c_int
+        lib.nids_format.argtypes = [ctypes.c_char_p, ctypes.c_long,
+                                    ctypes.c_char_p]
+        lib._nids_typed = True
+    return lib
+
+
+def _split_ids(buf, n: int) -> List[str]:
+    s = buf.raw.decode("ascii")
+    return [s[i * 36:(i + 1) * 36] for i in range(n)]
+
+
+def generate_uuids(n: int) -> List[str]:
+    """``n`` random 8-4-4-4-12 ids from one native call (``getrandom``
+    entropy).  Raises :class:`NativeUnavailable` when ``ids.cc`` cannot
+    be built."""
+    if n <= 0:
+        return []
+    lib = _ids_lib()
+    buf = ctypes.create_string_buffer(36 * n)
+    if lib.nids_generate(buf, n) != 0:
+        raise OSError("nids_generate: entropy could not be read")
+    return _split_ids(buf, n)
+
+
+def format_uuids(raw: bytes) -> List[str]:
+    """The ids of ``raw`` (16 bytes each) in the 8-4-4-4-12 form, formatted
+    natively (``nids_format``): what ``nids_generate`` does to its
+    entropy, on bytes the caller gives."""
+    n = len(raw) // 16
+    if len(raw) != 16 * n:
+        raise ValueError(f"{len(raw)} bytes is not a whole number of ids")
+    if n == 0:
+        return []
+    buf = ctypes.create_string_buffer(36 * n)
+    _ids_lib().nids_format(raw, n, buf)
+    return _split_ids(buf, n)

@@ -650,13 +650,18 @@ def _coo_scores(coo: np.ndarray, with_scores: bool):
             np.zeros(len(coo), dtype=np.int32))
 
 
-def _decode(spec_list, ct, unplaced_arr, coo, with_scores
+def _decode(spec_list, ct, unplaced_arr, coo, with_scores,
+            native_decode: bool = True,
+            decode_guard_every: int = decode.GUARD_EVERY
             ) -> Dict[Tuple[str, str], SpecPlacement]:
     """The fetched device result as one :class:`SpecPlacement` per spec
     (``_finalize``, batch_sched.py:1583-1716): the ``ops.kernel_result``
     fault point, validation (a violation raises
     :class:`KernelIntegrityError` and nothing is used), the per-alloc
-    node ids in commit order, and the AllocMetric scores."""
+    node ids in commit order, and the AllocMetric scores.  The two COO
+    passes run natively (``ops/decode.py``, its guard every
+    ``decode_guard_every`` calls) or, with ``native_decode=False``, on
+    their numpy twins."""
     rows, cols, counts = coo[:, 0], coo[:, 1], coo[:, 2]
     # Chaos hook: corrupt the fetched outputs (the damage a flaky card
     # would do), then validate.
@@ -671,12 +676,14 @@ def _decode(spec_list, ct, unplaced_arr, coo, with_scores
     n_specs = len(spec_list)
     scores, coll = _coo_scores(coo, with_scores)
     exp_off, exp_idx = decode.expand_coo(rows, cols, counts, n_specs,
-                                         ct.n_real)
+                                         ct.n_real, native=native_decode,
+                                         guard_every=decode_guard_every)
     valid = (rows >= 0) & (cols < ct.n_real)
     per_alloc_sc = np.repeat(scores[valid], counts[valid])
     per_alloc_co = np.repeat(coll[valid], counts[valid])
     s_off, s_col, s_sc, s_co = decode.last_scores(
-        rows, cols, scores, coll, n_specs, ct.n_real)
+        rows, cols, scores, coll, n_specs, ct.n_real, native=native_decode,
+        guard_every=decode_guard_every)
     node_ids = np.array(ct.node_ids, dtype=object)
     out: Dict[Tuple[str, str], SpecPlacement] = {}
     for u, sp in enumerate(spec_list):
@@ -755,7 +762,10 @@ def schedule_batch(nodes: Sequence[s.Node], jobs: Sequence[s.Job],
                    live_allocs: Iterable[s.Allocation] = (),
                    rng_seed: Optional[int] = None,
                    device=None, mesh=None,
-                   eval_ids: Optional[Sequence[str]] = None) -> BatchResult:
+                   eval_ids: Optional[Sequence[str]] = None,
+                   native_decode: bool = True,
+                   decode_guard_every: int = decode.GUARD_EVERY
+                   ) -> BatchResult:
     """Place every task group of ``jobs`` on ``nodes`` in one device pass.
 
     ``nodes`` is the cluster in the order the node index follows (the
@@ -821,7 +831,7 @@ def schedule_batch(nodes: Sequence[s.Node], jobs: Sequence[s.Job],
     t2 = time.perf_counter()
 
     placements = _decode(spec_list, b.ct, summary["unplaced"], coo,
-                         b.with_scores)
+                         b.with_scores, native_decode, decode_guard_every)
     if with_networks:
         _offer_networks(jobs, eval_ids, spec_list, placements, nodes_by_id,
                         allocs_by_node)
@@ -991,14 +1001,23 @@ class TorchBatchScheduler:
     (``state/columnar.py``; on unless the store was made with
     ``columnar=False``); ``columnar_guard_every`` is the cadence of its
     guards in columnar encodes and usage reads, 0 for never (the
-    reference's ``NOMAD_TPU_COLUMNAR_GUARD_EVERY``, default 16)."""
+    reference's ``NOMAD_TPU_COLUMNAR_GUARD_EVERY``, default 16).
+
+    The fetched result is decoded by ``native/decode.cc``;
+    ``native_decode=False`` asks for the numpy twins instead, and
+    ``decode_guard_every`` is the native decode's guard cadence per
+    function, 0 for never (the reference's ``NOMAD_TPU_NO_NATIVE`` and
+    ``NOMAD_TPU_DECODE_GUARD_EVERY``, default 64).  A guard mismatch
+    raises ``decode.DecodeGuardError``: the batch is nacked."""
 
     def __init__(self, logger_: logging.Logger, state, planner, mesh=None,
                  device=None, preemption_enabled: bool = False,
                  breaker=None, rng_seed: Optional[int] = None,
                  resident: bool = True, resident_device: bool = True,
                  guard_every: int = 64, metrics=None,
-                 columnar_guard_every: int = columnar.GUARD_EVERY):
+                 columnar_guard_every: int = columnar.GUARD_EVERY,
+                 native_decode: bool = True,
+                 decode_guard_every: int = decode.GUARD_EVERY):
         if mesh is not None and device is not None:
             raise ValueError("pass a device or a mesh, not both")
         self.logger = logger_
@@ -1019,6 +1038,8 @@ class TorchBatchScheduler:
         self.resident_device = resident_device
         self.guard_every = guard_every
         self.columnar_guard_every = columnar_guard_every
+        self.native_decode = native_decode
+        self.decode_guard_every = decode_guard_every
         self.metrics = metrics if metrics is not None else NULL_TELEMETRY
 
     def process(self, ev: s.Evaluation) -> None:
@@ -1570,7 +1591,8 @@ class TorchBatchScheduler:
         t_host = time.perf_counter()
         spec_list, ct, st, all_nodes = b.spec_list, b.ct, b.st, b.nodes
         placements = _decode(spec_list, ct, summary["unplaced"], coo,
-                             b.with_scores)
+                             b.with_scores, self.native_decode,
+                             self.decode_guard_every)
         unplaced_arr = summary["unplaced"]
         feas_count = summary["feas_count"]
         coo_rows, coo_cols, coo_counts = coo[:, 0], coo[:, 1], coo[:, 2]

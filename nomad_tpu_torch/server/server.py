@@ -335,6 +335,9 @@ class Server:
                             max_bundles=cfg.blackbox_max_bundles)
         blackbox.register_server(self)
         self._leader = False
+        # Set once the leadership callbacks below have run; is_leader()
+        # turns true before them.
+        self._leadership_ready = threading.Event()
         self._shutdown = threading.Event()
 
         self.eval_broker = EvalBroker(
@@ -646,6 +649,12 @@ class Server:
     def is_leader(self) -> bool:
         return self._leader
 
+    def leadership_established(self) -> bool:
+        """This server leads and its establishment has run: the broker
+        holds the restored evals, the blocked tracker the blocked ones,
+        and the reapers run."""
+        return self._leader and self._leadership_ready.is_set()
+
     # -- membership (serf-lite over the RPC port; nomad/serf.go) -----------
 
     def _self_member(self) -> Dict:
@@ -879,8 +888,10 @@ class Server:
         self._start_reapers()
         # Reconcile the voters with the members found while following.
         self._maybe_bootstrap()
+        self._leadership_ready.set()
 
     def _revoke_leadership(self) -> None:
+        self._leadership_ready.clear()
         self._leader = False
         self.eval_broker.set_enabled(False)
         self.plan_queue.set_enabled(False)

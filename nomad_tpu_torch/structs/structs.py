@@ -132,10 +132,21 @@ def now() -> float:
 
 
 def generate_uuids(n: int) -> List[str]:
-    """``n`` ids from one entropy read."""
-    hx = os.urandom(16 * n).hex()
+    """``n`` random 8-4-4-4-12 ids from one native call
+    (``native/ids.cc``, built at first use; a failed build raises).  The
+    batch scheduler mints every alloc id of a batch here."""
+    from ..native import generate_uuids as native_uuids
+
+    return native_uuids(n)
+
+
+def format_uuids_twin(raw: bytes) -> List[str]:
+    """The Python formatter of ``ids.cc`` (``nids_format``): the ids of
+    ``raw``, 16 bytes each.  The tests hold the native formatter against
+    it; the main path does not call it."""
+    hx = raw.hex()
     return [f"{h[:8]}-{h[8:12]}-{h[12:16]}-{h[16:20]}-{h[20:]}"
-            for h in (hx[32 * i:32 * i + 32] for i in range(n))]
+            for h in (hx[32 * i:32 * i + 32] for i in range(len(raw) // 16))]
 
 
 def _fast_copy(obj):

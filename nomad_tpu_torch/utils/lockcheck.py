@@ -519,8 +519,7 @@ def cycle_in_edges(edge_keys) -> Optional[List[Tuple[str, str]]]:
     edges along it, or None.  Iterative DFS with an explicit stack (no
     recursion limit on long chains); neighbors visited in sorted order
     for a deterministic witness.  Shared by the runtime sanitizer and
-    the reference's static lock-order rule (``analysis/lockrules``, not
-    ported yet)."""
+    the static lock-order rule (``analysis/lockrules.py``)."""
     graph: Dict[str, List[str]] = {}
     for (a, b) in edge_keys:
         graph.setdefault(a, []).append(b)

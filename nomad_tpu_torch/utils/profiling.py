@@ -180,12 +180,13 @@ class DeviceTracer:
             return d
 
     def stop(self) -> Dict:
+        if is_cuda_platform(self.device):
+            # Kernels still queued belong to the session.  Synchronized
+            # before the lock: no device sync is held under it.
+            torch.cuda.synchronize(self.device)
         with self._lock:
             if self._active_dir is None:
                 raise RuntimeError("no active trace")
-            if is_cuda_platform(self.device):
-                # Kernels still queued belong to the session.
-                torch.cuda.synchronize(self.device)
             profiler, self._profiler = self._profiler, None
             d, self._active_dir = self._active_dir, None
             profiler.stop()

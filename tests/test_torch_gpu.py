@@ -875,3 +875,37 @@ def test_agent_path_on_the_card_equals_the_cpu():
     c = got["launches"]["agent"]
     assert c["scored_rows"] == c["committing_spec_steps"] > 0
     assert got["A_http"]["blocking"]["allocations"]["after_release"]
+
+
+@pytest.mark.gpu
+def test_guard_plane_drills_on_the_card():
+    """``chip_smoke.py`` phase ``drills`` on the card: the twelve drills
+    of ``--selfcheck`` pass, ``scored_rows`` launches equal the drills'
+    committing steps (a step a shard on the mesh drill), and the sanitized
+    corpus reports ``clean`` or a skip with its reason."""
+    need_card()
+    import chip_smoke
+
+    got = chip_smoke.phase_drills("cuda")
+    assert len(got["drills"]) == 12 and all(got["drills"].values())
+    assert got["launches"]["scored_rows"] == got[
+        "committing_steps_x_shards"] > 0
+    assert got["sanitized_corpus"] == "clean" or got[
+        "sanitized_corpus"].startswith("skip: ")
+
+
+@pytest.mark.gpu
+def test_native_decode_on_a_card_batch_equals_the_twin():
+    """A card batch's fetched result decoded by ``native/decode.cc`` and
+    by the numpy twins (``chip_smoke.decode_routes``): equal outputs."""
+    need_card()
+    import chip_smoke
+    from nomad_tpu_torch import mock
+    from nomad_tpu_torch.ops import batch_sched
+
+    nodes = [chip_smoke.strip_node(mock.node()) for _ in range(500)]
+    jobs = [chip_smoke.strip_job(mock.job(), 40) for _ in range(8)]
+    with chip_smoke.recorded_decodes(1) as fetched:
+        batch_sched.schedule_batch(nodes, jobs, device="cuda", rng_seed=3)
+    (row,) = chip_smoke.decode_routes(fetched, ["batch"])
+    assert row["native_equals_twin"] and row["placed"] == 320

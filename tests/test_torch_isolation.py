@@ -47,7 +47,8 @@ def named_modules(source, filename="<string>"):
 
 PORT_FILES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py",
                                           ROOT / "eviction_inputs.py",
-                                          ROOT / "evict_ablation.py"]
+                                          ROOT / "evict_ablation.py",
+                                          ROOT / "profiler_gap.py"]
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
@@ -440,3 +441,49 @@ print("ok")
                          capture_output=True, text=True, timeout=180)
     assert out.returncode == 0, out.stderr[-4000:]
     assert out.stdout.strip().splitlines()[-1] == "ok"
+
+
+@pytest.mark.parametrize("module", [
+    "analysis/__init__.py", "analysis/__main__.py", "analysis/lockrules.py",
+    "analysis/guardrules.py", "native/__main__.py", "ops/guards.py",
+    "ops/decode.py"])
+def test_guard_plane_modules_are_checked(module):
+    """The guard plane's modules are among the files the import and
+    name-lookup checks above walk."""
+    assert PKG / module in PORT_FILES
+
+
+def test_guard_plane_runs_with_jax_unimportable():
+    """The static pass, the native decode against its twin, the native
+    uuids, the residue and analysis drills (the sanitized corpus child
+    included, which imports the package anew) with jax, nomad_tpu and
+    msgpack unimportable."""
+    code = """
+import sys
+sys.modules["jax"] = None
+sys.modules["nomad_tpu"] = None
+sys.modules["msgpack"] = None
+import numpy as np
+from nomad_tpu_torch.analysis import run_checks
+from nomad_tpu_torch.ops import decode
+from nomad_tpu_torch.ops.__main__ import analysis_drill, residue_drill
+from nomad_tpu_torch.structs import structs as s
+active, _ = run_checks()
+assert not active, [v.key for v in active]
+rows = np.array([0, 0, 1, -1], dtype=np.int32)
+cols = np.array([2, 2, 0, 1], dtype=np.int32)
+counts = np.array([1, 2, 1, 0], dtype=np.int32)
+got = decode.expand_coo(rows, cols, counts, 2, 3, guard_every=1)
+want = decode.expand_coo(rows, cols, counts, 2, 3, native=False)
+assert all(np.array_equal(a, b) for a, b in zip(got, want))
+assert len(set(s.generate_uuids(100))) == 100
+assert residue_drill(device="cpu", log=lambda m: None)
+verdicts = {}
+assert analysis_drill(device="cpu", log=lambda m: None, verdicts=verdicts)
+assert sys.modules["jax"] is None and sys.modules["msgpack"] is None
+print(verdicts["sanitized_corpus"].split(":")[0])
+"""
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-4000:]
+    assert out.stdout.strip().splitlines()[-1] in ("clean", "skip")

@@ -463,6 +463,10 @@ def test_ledger_survives_a_three_server_failover():
 
         assert wait_until(lambda: leader() is not None, 60.0)
         old = leader()
+        # is_leader() turns true before the leadership callbacks run; a
+        # registration before the tenancy restore is forgotten by its
+        # ledger rebuild (ROADMAP queue 3 item 17(c)).
+        assert wait_until(old.leadership_established, 10.0)
         old.namespace_upsert(ps.Namespace(name="t", max_live_allocs=12))
         for i in range(2):
             old.job_register(conv(tenant_job(f"t-{i}", "t", 5),

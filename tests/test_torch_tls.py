@@ -152,7 +152,15 @@ def test_mtls_cluster_replicates(pki, tmp_path):
         assert all(srv.pool.tls_context is not None
                    and srv.rpc.tls_context is not None for srv in servers)
         job = make_job()
+        leader = next(srv for srv in servers if srv.is_leader())
         follower = next(srv for srv in servers if not srv.is_leader())
+        # A follower learns the leader from its first AppendEntries; until
+        # then a forward has nowhere to go and raises NotLeaderError, as
+        # the reference's does (a race under load, not a TLS fault).
+        assert wait_until(
+            lambda: follower.leader_address() == leader.config.rpc_advertise,
+            ELECTION_TIMEOUT, max_interval=0.05), \
+            "the follower never learned the leader over mutual TLS"
         follower.job_register(job)      # forwarded to the leader
         assert wait_until(lambda: all(
             srv.state.job_by_id(None, job.id) is not None
