@@ -248,10 +248,10 @@ Phases, each printed as one JSON line:
                TCP (RPC over the struct codec, serf-lite membership,
                ``MultiRaft``, forwarding), each world in a process of its
                own under one string hash seed and one guard cadence
-               (every read).  Leg 1, exact: half of phase 17's fleet,
-               5,000 nodes (every fifth registered through a follower,
-               forwarded), config
-               (b)'s wave 1 (100 x 1000), every worker paused and wave 2
+               (every read).  Leg 1, exact: a quarter of phase 17's
+               fleet, 2,500 nodes (every fifth registered through a
+               follower, forwarded), half of config
+               (b)'s wave 1 (50 x 1000), every worker paused and wave 2
                (10 x 200) registered through a follower, the leader shut
                down (its broker first), a new leader elected whose
                restore re-enqueues wave 2, the workers released, a node
@@ -270,8 +270,8 @@ Phases, each printed as one JSON line:
                to a new leader and to wave 2 settled, wave 1's evals per
                second, the forwarded writes.  Leg 2, invariants:
                follower-read scheduling (the leader's batch worker on
-               the card, the followers' on the CPU schedulers), 2,000
-               nodes and 200 jobs x 20 asks, the leader killed mid-drain
+               the card, the followers' on the CPU schedulers), 1,000
+               nodes and 100 jobs x 20 asks, the leader killed mid-drain
                at a seeded point: every eval complete, each job exactly
                its count of distinct allocs, no node over capacity, the
                survivors' fingerprints equal, plans forwarded by the
@@ -368,7 +368,36 @@ Phases, each printed as one JSON line:
                -purge`` leaves no live alloc, and no agent thread
                outlives ``shutdown``; evals per second through HTTP
                against the direct path, and the CLI's request ms;
-26. drills  -- the twelve drills of ``python -m nomad_tpu_torch.ops
+26. client  -- the client, each world in processes of its own under one
+               string hash seed, the two side by side: (A) a port
+               ``Agent`` (a server on the card and the first client)
+               with 10,000 nodes, 64 of them real port ``Client``s on the
+               mock driver (48 in the server's process with the GPU
+               fingerprint on, 16 in a child process through
+               ``RemoteServerRPC`` over its RPC listener; the rest
+               ``mock.node()`` registered in process: a client per node
+               would be 10,000 clients on one host), 56 jobs on the
+               client nodes (40 batch x 8 that complete, 8 batch x 4
+               whose task fails, restarts once and fails, 8 service x 8
+               with ``mock.job()``'s network ask, stopped once every
+               alloc runs) submitted with the workers paused and
+               released; (C) A's script on the CPU.  Every builtin
+               fingerprint runs but the cloud metadata probes.  A = C on
+               the placements (job, alloc name -> node), every alloc's
+               final client status, each task's event types, the network
+               each task got (the one its node's fingerprint found), the
+               job statuses and summaries; no alloc terminal before the
+               wave's last eval is acked; one ``scored_rows`` launch per
+               committing step and the kernel at the shapes the path gave
+               it within 4e-6 of its plain version; no nack, the breaker
+               closed, no oracle route, no node over capacity; every alloc
+               dir made where its alloc ran and none left after the GC
+               (the agent's client through ``/v1/client/gc``); no thread
+               left.  On the card, the in-process clients carry
+               ``gpu.type`` (the card's name) and a job pinned on it runs
+               there; release to all running and to all terminal, and the
+               ``Node.UpdateAlloc`` calls and their mean batch;
+27. drills  -- the twelve drills of ``python -m nomad_tpu_torch.ops
                --selfcheck --device cuda`` in this process: preemption,
                breaker, columnar, tracing, wal, follower, residency,
                fused, residue (the native decode against its numpy twins,
@@ -382,7 +411,7 @@ Phases, each printed as one JSON line:
                steps of the drills' device batches (a step a shard on the
                mesh), ``masked_score_matrix`` launches four a call of
                ``sharded_candidate_scores`` (none on the fused mesh pass);
-27. times   -- each kernel's device time (profiler trace; CUDA events
+28. times   -- each kernel's device time (profiler trace; CUDA events
                where the trace has none) over copies of its inputs that
                overflow the L2 (``rotating``: twice the L2 of input bytes
                a cycle), its plain version's, the bound for the same work
@@ -391,7 +420,7 @@ Phases, each printed as one JSON line:
                (the mesh's call at config_mesh); the launch floor (a
                one-element fill); the kernels' SASS instruction counts and the
                issue-rate time they give;
-28. profile -- config (b)'s first batch again, warm, on the single card
+29. profile -- config (b)'s first batch again, warm, on the single card
                and on a 4-shard mesh: untraced, and under a device-only
                trace for the device busy time and idle share.
 
@@ -415,6 +444,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import dataclasses
 import itertools
 import json
 import math
@@ -5100,14 +5130,16 @@ CLUSTER_HASH_SEED = 20261025
 CLUSTER_RAFT = {"raft_heartbeat": 0.2, "raft_election_min": 5.0,
                 "raft_election_max": 8.0}
 CLUSTER_ELECTION_TIMEOUT = 60.0
-# Leg 1: half of phase 17's fleet (5,000 nodes: the smoke's largest
-# phase, cut to keep the whole run under 1,000 s; every compared item
-# holds at this size), config (b)'s wave 1 (100 x 1000; the asks past
-# the fleet's room block), wave 2 (10 x 200) and a follow-up (10 x 200).
-# Leg 2: its fleet and jobs.
-CLUSTER_SIZES = {"n_nodes": 5_000, "n_jobs": 100, "count": 1000,
+# Leg 1: a quarter of phase 17's fleet (2,500 nodes) and half of config
+# (b)'s wave 1 (50 x 1000; the asks past the fleet's room block), wave 2
+# (10 x 200) and a follow-up (10 x 200).  Leg 2: its fleet and jobs,
+# halved.  Both cut (5,000 nodes and 100 x 1000, 2,000 nodes and 200
+# jobs before) to keep the whole run inside its time limit; every
+# compared item holds at these sizes, and the fleet's room against the
+# asks is the same share.
+CLUSTER_SIZES = {"n_nodes": 2_500, "n_jobs": 50, "count": 1000,
                  "wave_jobs": 10, "wave_count": 200, "follow_jobs": 10}
-LEG2_SIZES = {"n_nodes": 2_000, "n_jobs": 200, "count": 20}
+LEG2_SIZES = {"n_nodes": 1_000, "n_jobs": 100, "count": 20}
 CLUSTER_STEPS = ("nodes", "wave1", "wave2_paused", "leader_down",
                  "restored", "node_down", "follow")
 
@@ -7092,7 +7124,784 @@ def phase_agent(dev, sizes=None):
             "seconds": time.perf_counter() - t_phase}
 
 
-# -- phase 26: drills --------------------------------------------------------
+# -- phase 26: client --------------------------------------------------------
+
+CLIENT_SEED = 20261118
+# Every world of the phase runs in a process of its own under this string
+# hash seed, as phase agent's do.
+CLIENT_HASH_SEED = 20261118
+CLIENT_CHILD_TIMEOUT = 600.0
+CLIENT_SIZES = {
+    # The fleet: n_nodes in all, n_clients of them real port clients
+    # (n_remote of those in a child process over RPC), the rest
+    # mock.node() registered in process.
+    "n_nodes": 10_000, "n_clients": 64, "n_remote": 16,
+    # The wave: (jobs, count) of each kind, and the mock tasks' run time:
+    # no alloc may end before the wave's last eval is acked (up to 10.1 s
+    # after the release on a card's host so far), so a batch task runs
+    # 16 s and a failing one 8 s twice.
+    "batch": (40, 8), "fail": (8, 4), "service": (8, 8),
+    "run_for_s": 16.0, "fail_run_for_s": 8.0,
+    # The GPU-pinned job of world A.
+    "gpu_count": 4,
+}
+# What every client offers: cpu_total_compute and its reservation pin
+# the CPU the fingerprint would read; a task asks 500 MHz, so a node
+# holds seven (448 slots for the wave's 416 allocs).
+CLIENT_CPU = 4000
+CLIENT_RESERVED = {"cpu": 100, "memory_mb": 256}
+CLIENT_ASK = {"cpu": 500, "memory_mb": 256, "disk_mb": 10}
+CLIENT_CLASS = "client-slice"
+CLIENT_HEARTBEAT_STAGGER = 1.0
+CLIENT_WAIT = 120.0
+# The cloud metadata fingerprints probe 169.254.169.254: the phase's
+# processes leave them out of the builtin list, since the smoke contacts
+# no host off the machine.  Every other fingerprint runs, ``network``
+# (which reads the routing table) included.
+CLOUD_FINGERPRINTS = ("env_aws", "env_gce")
+# The agent of world A's first client: a server and a client, HTTP and
+# RPC on ephemeral ports, the in-memory log.
+CLIENT_HCL = """
+name      = "client-smoke"
+region    = "global"
+log_level = "WARN"
+bind_addr = "127.0.0.1"
+ports {
+  http = 0
+  rpc  = 0
+}
+server {
+  enabled        = true
+  num_schedulers = 1
+  batch_size     = 64
+}
+client {
+  enabled           = true
+  node_class        = "client-slice"
+  cpu_total_compute = 4000
+  alloc_dir         = "%s"
+  options = {
+    "fingerprint.gpu.enable" = "true"
+  }
+}
+"""
+
+
+def client_name(i: int) -> str:
+    return f"client-{i:02d}"
+
+
+def no_cloud_probes() -> None:
+    """``CLOUD_FINGERPRINTS`` out of this process's builtin list."""
+    from nomad_tpu_torch.client import fingerprint as fp
+
+    fp.BUILTIN_FINGERPRINTS = [f for f in fp.BUILTIN_FINGERPRINTS
+                               if f.name not in CLOUD_FINGERPRINTS]
+
+
+def client_config(i, root, gpu):
+    """The ``ClientConfig`` of the phase's client ``i`` (see
+    ``CLIENT_CPU``)."""
+    from nomad_tpu_torch.client import ClientConfig
+    from nomad_tpu_torch.structs import structs as ps
+
+    return ClientConfig(
+        node_id=client_name(i), node_name=client_name(i),
+        node_class=CLIENT_CLASS, cpu_total_compute=CLIENT_CPU,
+        reserved=ps.Resources(**CLIENT_RESERVED),
+        alloc_dir=os.path.join(root, client_name(i)),
+        options={"fingerprint.gpu.enable": "true"} if gpu else {})
+
+
+def client_job(job_id, type_, count, config, restart, networks=False):
+    """``mock.job()`` as the phase runs it: services stripped, the mock
+    driver, ``CLIENT_ASK``, on the client nodes only; its network ask
+    (50 Mbit/s, two dynamic ports) kept when ``networks``."""
+    from nomad_tpu_torch import mock
+    from nomad_tpu_torch.structs import structs as ps
+
+    j = mock.job()
+    j.id = j.name = job_id
+    j.type = type_
+    tg = j.task_groups[0]
+    tg.count = count
+    tg.restart_policy = ps.RestartPolicy(**restart)
+    tg.ephemeral_disk = ps.EphemeralDisk(size_mb=CLIENT_ASK["disk_mb"])
+    for t in tg.tasks:
+        t.driver = "mock_driver"
+        t.config = dict(config)
+        t.services = []
+        t.resources = ps.Resources(
+            cpu=CLIENT_ASK["cpu"], memory_mb=CLIENT_ASK["memory_mb"],
+            networks=t.resources.networks if networks else [])
+    j.constraints.append(ps.Constraint("${node.class}", CLIENT_CLASS, "="))
+    return j
+
+
+def client_jobs(sizes):
+    """The wave: batch jobs that complete, batch jobs whose task fails,
+    restarts once and fails for good, and service jobs, with their
+    network ask, that run until they are stopped."""
+    jobs = []
+    n, count = sizes["batch"]
+    jobs += [client_job(f"batch-{k:02d}", "batch", count,
+                        {"run_for": sizes["run_for_s"]},
+                        dict(attempts=0, mode="fail")) for k in range(n)]
+    n, count = sizes["fail"]
+    jobs += [client_job(f"fail-{k:02d}", "batch", count,
+                        {"run_for": sizes["fail_run_for_s"], "exit_code": 1},
+                        dict(attempts=1, interval=3600.0, delay=0.2,
+                             mode="fail")) for k in range(n)]
+    n, count = sizes["service"]
+    jobs += [client_job(f"service-{k:02d}", "service", count,
+                        {"run_for": "1h"},
+                        dict(attempts=2, interval=3600.0, delay=0.2,
+                             mode="delay"), networks=True)
+             for k in range(n)]
+    return jobs
+
+
+def shutdown_clients(clients) -> None:
+    """Every client's ``shutdown`` at once (each waits up to a long poll
+    for its watch)."""
+    threads = [threading.Thread(target=c.shutdown) for c in clients]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(60.0)
+
+
+def alloc_dirs(root, names) -> dict:
+    """client name -> the alloc dirs under its alloc dir."""
+    out = {}
+    for name in names:
+        d = os.path.join(root, name)
+        out[name] = sorted(os.listdir(d)) if os.path.isdir(d) else []
+    return out
+
+
+def client_remote_child(addr, first, n, root) -> None:
+    """The phase's remote clients, ``first`` .. ``first + n - 1``, each
+    reaching the server at ``addr`` only through ``RemoteServerRPC``.  A
+    line protocol on stdin: ``start`` starts them one by one, each once
+    the one before has registered (the store lists nodes in registration
+    order, and the scheduler breaks score ties by that order), ``dirs``
+    prints the alloc dirs, ``gc`` runs each client's GC and prints them
+    again, ``stop`` shuts the clients down and prints the threads left
+    and the sync counts; each answer is one JSON line on stdout."""
+    from nomad_tpu_torch.client import Client
+    from nomad_tpu_torch.server.rpc import RemoteServerRPC
+    from nomad_tpu_torch.utils.backoff import wait_until
+
+    no_cloud_probes()
+    names = [client_name(i) for i in range(first, first + n)]
+    clients = [Client(client_config(i, root, gpu=False),
+                      rpc=RemoteServerRPC([addr]),
+                      rng=random.Random(CLIENT_SEED + i),
+                      heartbeat_stagger=CLIENT_HEARTBEAT_STAGGER)
+               for i in range(first, first + n)]
+
+    def say(obj):
+        sys.stdout.write(json.dumps(obj) + "\n")
+        sys.stdout.flush()
+
+    say({"built": names})
+    for line in sys.stdin:
+        cmd = line.strip()
+        if cmd == "start":
+            for c in clients:
+                c.start()
+                if not c._registered.wait(CLIENT_WAIT):
+                    raise AssertionError(f"{c.node.name} did not register")
+            say({"started": names})
+        elif cmd == "dirs":
+            say({"dirs": alloc_dirs(root, names)})
+        elif cmd == "gc":
+            for c in clients:
+                c.garbage_collector.collect_all()
+            say({"dirs": alloc_dirs(root, names)})
+        elif cmd == "stop":
+            shutdown_clients(clients)
+            wait_until(lambda: not any(c.threads() for c in clients), 15.0)
+            for c in clients:
+                c.rpc.close()
+            say({"threads": [t.name for c in clients for t in c.threads()],
+                 "sync_calls": sum(c.sync_calls for c in clients),
+                 "sync_allocs": sum(c.sync_allocs for c in clients),
+                 "attributes": {c.node.name: sorted(c.node.attributes)
+                                for c in clients}})
+            break
+    sys.stdout.flush()
+    os._exit(0)
+
+
+class RemoteClients:
+    """``client_remote_child`` in a process of its own, spoken to over
+    its stdin and stdout."""
+
+    def __init__(self, addr, first, n, root):
+        code = ("import sys; sys.path.insert(0, {0!r}); import chip_smoke "
+                "as c; c.client_remote_child({1!r}, {2!r}, {3!r}, {4!r})"
+                ).format(REPO, addr, first, n, root)
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c", code], cwd=REPO, stdin=subprocess.PIPE,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            env=dict(os.environ, PYTHONHASHSEED=str(CLIENT_HASH_SEED)))
+
+    def read(self):
+        line = self.proc.stdout.readline()
+        if not line:
+            raise AssertionError(f"remote clients ended: rc "
+                                 f"{self.proc.poll()}: "
+                                 f"{self.proc.stderr.read()[-3000:]}")
+        return json.loads(line)
+
+    def ask(self, cmd):
+        self.proc.stdin.write(cmd + "\n")
+        self.proc.stdin.flush()
+        return self.read()
+
+    def close(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+        self.proc.wait(30.0)
+
+
+def wave_acked(srv, eval_ids) -> float:
+    """Wait until every eval of ``eval_ids`` is done and acked and no plan
+    is queued; the host clock then.  (``server_settle`` would wait for the
+    clients' status updates to stop as well.)"""
+    from nomad_tpu_torch.utils.backoff import wait_until
+
+    def done():
+        for i in eval_ids:
+            e = srv.state.eval_by_id(None, i)
+            if e is None or e.status not in ("complete", "failed",
+                                             "canceled"):
+                return False
+        b = srv.eval_broker.stats()
+        return (b["total_unacked"] == 0 and b["total_ready"] == 0
+                and srv.plan_queue.depth() == 0)
+
+    if not wait_until(done, SERVER_SETTLE_TIMEOUT, max_interval=0.01):
+        raise AssertionError(f"the wave's evals were not acked: "
+                             f"{srv.eval_broker.stats()}")
+    return time.perf_counter()
+
+
+def client_state(srv) -> dict:
+    """What the server holds of the fleet's work, by content."""
+    st = srv.state
+    allocs = sorted(st.allocs(None), key=lambda a: (a.job_id, a.name))
+    by_id = {n.id: n.name for n in st.nodes(None)}
+    return {
+        "placements": {f"{a.job_id}/{a.name}": by_id[a.node_id]
+                       for a in allocs},
+        "client_statuses": {f"{a.job_id}/{a.name}": a.client_status
+                            for a in allocs},
+        "events": {f"{a.job_id}/{a.name}/{task}": [e.type
+                                                    for e in ts.events]
+                   for a in allocs for task, ts in sorted(
+                       a.task_states.items())},
+        "networks": {f"{a.job_id}/{a.name}/{task}": [
+            [nw.ip, nw.mbits, len(nw.dynamic_ports)] for nw in r.networks]
+            for a in allocs for task, r in sorted(a.task_resources.items())},
+        "jobs": {j.id: j.status for j in st.jobs(None)},
+        "summaries": {j.id: {tg: dataclasses.asdict(v) for tg, v in sorted(
+            st.job_summary_by_id(None, j.id).summary.items())}
+            for j in st.jobs(None)},
+    }
+
+
+def client_world(dev, sizes, root) -> dict:
+    """One world of phase ``client`` (see the module docstring, phase
+    26): a port ``Agent`` (a server on ``dev`` and the first client),
+    ``n_clients - n_remote - 1`` more clients in this process, ``n_remote``
+    in a child process over RPC, the rest of the fleet ``mock.node()`` in
+    process; the wave submitted with the workers paused and released,
+    the service jobs stopped once every alloc runs, every alloc terminal,
+    the alloc dirs collected.  On the card, then, a job pinned on
+    ``${attr.gpu.type}``.  The kernels' counts are set to 0 just before
+    each wave and read once it is terminal."""
+    import urllib.request
+
+    import torch
+
+    from nomad_tpu_torch import mock
+    from nomad_tpu_torch.agent import Agent, parse_config
+    from nomad_tpu_torch.client import Client
+    from nomad_tpu_torch.ops import fused_score, kernels, preempt
+    from nomad_tpu_torch.ops.breaker import KernelCircuitBreaker
+    from nomad_tpu_torch.structs import structs as ps
+    from nomad_tpu_torch.utils.backoff import wait_until
+
+    t_world = time.perf_counter()
+    no_cloud_probes()
+    on_card = torch_device(dev).type == "cuda"
+    n_clients, n_remote = sizes["n_clients"], sizes["n_remote"]
+    n_local = n_clients - n_remote
+    names = [client_name(i) for i in range(n_clients)]
+    brk = KernelCircuitBreaker()
+    out = {"device": str(dev), "card": smi_name_power(),
+           "kernel_shapes": {"scored_rows": set(), "eviction_sets": set()},
+           "reduced": {"clients": f"{n_clients} real clients of "
+                       f"{sizes['n_nodes']} nodes (the rest mock.node() "
+                       f"registered in process): a client per node would "
+                       f"be {sizes['n_nodes']} clients on one host"}}
+    mock_nodes = []
+    for i in range(sizes["n_nodes"] - n_clients):
+        n = strip_node(mock.node())
+        n.id = n.name = f"node-{i:05d}"
+        mock_nodes.append(n)
+    jobs = client_jobs(sizes)
+    cfg = parse_config(CLIENT_HCL % os.path.join(root, names[0]))
+    cfg.dev_mode = True
+    agent = Agent(cfg, device=dev, server_options=dict(
+        rng_seed=SERVER_SEED, min_heartbeat_ttl=SERVER_HEARTBEAT_TTL,
+        breaker=brk, broker_seed=CLIENT_SEED),
+        client_options=dict(node_id=names[0], node_name=names[0],
+                            reserved=ps.Resources(**CLIENT_RESERVED)))
+    agent.client.heartbeat_stagger = CLIENT_HEARTBEAT_STAGGER
+    agent.client.rng = random.Random(CLIENT_SEED)
+    srv = agent.server
+    local = [agent.client]
+    remote = None
+    calls = {"n": 0, "allocs": 0}
+    steps = out["steps"] = {}
+    try:
+        with seeded_ids(CLIENT_SEED):
+            agent.start()
+            addr = agent.http.address
+            remote = RemoteClients(srv.config.rpc_advertise, n_local,
+                                   n_remote, root)
+            steps["agent_start_s"] = time.perf_counter() - t_world
+            # The agent's client, the mock nodes, then the other clients
+            # one registration after the other, in name order: the store
+            # lists nodes in registration order, which breaks score ties.
+            if not wait_until(lambda: srv.node_get(names[0]) is not None,
+                              CLIENT_WAIT):
+                raise AssertionError(f"{names[0]} did not register")
+            t1 = time.perf_counter()
+            for n in mock_nodes:
+                srv.node_register(n)
+            out["mock_node_register_s"] = time.perf_counter() - t1
+            t0 = time.perf_counter()
+            for i in range(1, n_local):
+                c = Client(client_config(i, root, gpu=True), rpc=srv,
+                           rng=random.Random(CLIENT_SEED + i),
+                           heartbeat_stagger=CLIENT_HEARTBEAT_STAGGER)
+                c.start()
+                local.append(c)
+                if not c._registered.wait(CLIENT_WAIT):
+                    raise AssertionError(f"{names[i]} did not register")
+            if remote.read().get("built") != names[n_local:] or \
+                    remote.ask("start").get("started") != names[n_local:]:
+                raise AssertionError("remote clients did not start")
+            out["clients_register_s"] = time.perf_counter() - t0
+            if not wait_until(lambda: all(
+                    (srv.node_get(n) or ps.Node()).status == "ready"
+                    for n in names), CLIENT_WAIT):
+                raise AssertionError(
+                    "clients not ready: " + str(sorted(
+                        n for n in names
+                        if (srv.node_get(n) or ps.Node()).status
+                        != "ready")[:8]))
+            out["fleet_ready_s"] = time.perf_counter() - t0
+            out["nodes"] = len(srv.state.nodes(None))
+            out["gpu_type"] = {c.node.name: c.node.attributes.get("gpu.type")
+                               for c in local}
+            out["node_networks"] = sorted({
+                (nw.ip, nw.mbits) for n in names
+                for nw in srv.node_get(n).resources.networks})
+            # Every Node.UpdateAlloc the server takes, in process or over
+            # RPC, and the allocs it carries.
+            update_allocs = srv.node_update_allocs
+
+            def counted_updates(allocs):
+                calls["n"] += 1
+                calls["allocs"] += len(allocs)
+                return update_allocs(allocs)
+
+            srv.node_update_allocs = counted_updates
+            if not srv.set_workers_paused(True,
+                                          timeout=SERVER_SETTLE_TIMEOUT):
+                raise AssertionError("workers did not park")
+            fused_score.LAUNCHES = kernels.COMMIT_STEPS = 0
+            fused_score.MASKED_LAUNCHES = preempt.LAUNCHES = 0
+            shapes = out["kernel_shapes"]
+            with kernel_shapes(shapes):
+                eval_ids = [srv.job_register(j)[1] for j in jobs]
+                t_release = time.perf_counter()
+                srv.set_workers_paused(False)
+                t_acked = wave_acked(srv, eval_ids)
+                # No alloc may be terminal before the wave's last eval is
+                # acked: a terminal alloc frees its resources and would
+                # change the later evals' placements with its timing.
+                early = sorted(f"{a.job_id}/{a.name}"
+                               for a in srv.state.allocs(None)
+                               if a.client_terminal_status())
+                if early:
+                    raise AssertionError(
+                        f"allocs terminal before the wave was acked "
+                        f"({t_acked - t_release:.2f} s after the release; "
+                        f"raise run_for_s): {early[:8]}")
+                out["release_to_acked_s"] = t_acked - t_release
+                out["allocs"] = len(srv.state.allocs(None))
+                if not wait_until(lambda: all(
+                        a.client_status == "running"
+                        for a in srv.state.allocs(None)), CLIENT_WAIT,
+                        max_interval=0.05):
+                    raise AssertionError("not every alloc ran: " + str(
+                        collections.Counter(a.client_status for a in
+                                            srv.state.allocs(None))))
+                out["release_to_all_running_s"] = (time.perf_counter()
+                                                   - t_release)
+                if not srv.set_workers_paused(
+                        True, timeout=SERVER_SETTLE_TIMEOUT):
+                    raise AssertionError("workers did not park")
+                stops = [srv.job_deregister(j.id, purge=False)[1]
+                         for j in jobs if j.type == "service"]
+                t_stop = time.perf_counter()
+                srv.set_workers_paused(False)
+                out["service_stop_acked_s"] = (wave_acked(srv, stops)
+                                               - t_stop)
+                if not wait_until(lambda: all(
+                        a.client_terminal_status()
+                        for a in srv.state.allocs(None)), CLIENT_WAIT,
+                        max_interval=0.05):
+                    raise AssertionError("not every alloc ended: " + str(
+                        collections.Counter(a.client_status for a in
+                                            srv.state.allocs(None))))
+                out["release_to_all_terminal_s"] = (time.perf_counter()
+                                                    - t_release)
+                t_settle = time.perf_counter()
+                server_settle(srv)
+                steps["settle_s"] = time.perf_counter() - t_settle
+            out["launches"] = {
+                "scored_rows": fused_score.LAUNCHES,
+                "masked_score_matrix": fused_score.MASKED_LAUNCHES,
+                "eviction_sets": preempt.LAUNCHES,
+                "committing_spec_steps": kernels.COMMIT_STEPS}
+            out["update_allocs"] = dict(calls)
+            out.update(client_state(srv))
+            by_node = collections.defaultdict(list)
+            for a in srv.state.allocs(None):
+                by_node[srv.state.node_by_id(None, a.node_id).name].append(
+                    a.id)
+            t_gc = time.perf_counter()
+            made = alloc_dirs(root, names[:n_local])
+            made.update(remote.ask("dirs")["dirs"])
+            out["dirs_made_as_placed"] = all(
+                made[n] == sorted(by_node.get(n, [])) for n in names)
+            out["dirs_made"] = sum(len(v) for v in made.values())
+            # The agent's client through its HTTP API (stats, an alloc's
+            # stats, the fs listing, then /v1/client/gc); every other
+            # client's GC is the call that route makes.
+            first = sorted(by_node.get(names[0], []))
+            http = {}
+            if first:
+                for label, path in (
+                        ("stats", "/v1/client/stats"),
+                        ("alloc_stats",
+                         f"/v1/client/allocation/{first[0]}/stats"),
+                        ("fs_ls", f"/v1/client/fs/ls/{first[0]}?path=/")):
+                    body, _ = _http_get(addr + path, timeout=60.0)
+                    http[label] = sorted(body) if isinstance(
+                        body, dict) else len(body)
+            req = urllib.request.Request(addr + "/v1/client/gc",
+                                         method="PUT")
+            with urllib.request.urlopen(req, timeout=120) as resp:
+                http["gc_status"] = resp.status
+            out["http"] = http
+            for c in local[1:]:
+                c.garbage_collector.collect_all()
+            left = alloc_dirs(root, names[:n_local])
+            left.update(remote.ask("gc")["dirs"])
+            out["dirs_after_gc"] = sum(len(v) for v in left.values())
+            steps["dirs_and_gc_s"] = time.perf_counter() - t_gc
+            b = srv.eval_broker.stats()
+            out["health"] = {
+                "nacks": b["total_nacks"], "failed": b["total_failed"],
+                "breaker": brk.state, "trips": brk.trips,
+                "oracle_routed": server_counter(srv,
+                                                "breaker.oracle_routed"),
+                "over_capacity": store_over_capacity(srv)}
+            if on_card:
+                t_gpu = time.perf_counter()
+                out["gpu_job"] = client_gpu_job(srv, sizes, local)
+                steps["gpu_job_s"] = time.perf_counter() - t_gpu
+        t_stop = time.perf_counter()
+        # The remote clients stop while the local ones do.
+        remote.proc.stdin.write("stop\n")
+        remote.proc.stdin.flush()
+        shutdown_clients(local[1:])
+        report = remote.read()
+        out["remote"] = report
+        out["remote_gpu_attrs"] = sum(
+            "gpu.type" in attrs for attrs in report["attributes"].values())
+        out["update_allocs"]["client_side_calls"] = (
+            sum(c.sync_calls for c in local) + report["sync_calls"])
+        agent.shutdown()
+        wait_until(lambda: not agent.threads() and not any(
+            c.threads() for c in local), 30.0)
+        out["threads_after_shutdown"] = (
+            [t.name for t in agent.threads()]
+            + [t.name for c in local for t in c.threads()]
+            + report["threads"])
+        steps["shutdown_s"] = time.perf_counter() - t_stop
+        agent = None
+    finally:
+        if remote is not None:
+            remote.close()
+        if agent is not None:
+            shutdown_clients(local[1:])
+            agent.shutdown()
+    out["kernel_shapes"] = {k: sorted(v) for k, v in
+                            out["kernel_shapes"].items()}
+    out["world_s"] = time.perf_counter() - t_world
+    return out
+
+
+def client_gpu_job(srv, sizes, local) -> dict:
+    """A job pinned on ``${attr.gpu.type}`` (the card's name) through the
+    card server: it must land only on the clients that fingerprinted the
+    card and run to completion; its own launch counts."""
+    import torch
+
+    from nomad_tpu_torch.ops import fused_score, kernels
+    from nomad_tpu_torch.structs import structs as ps
+    from nomad_tpu_torch.utils.backoff import wait_until
+
+    card = torch.cuda.get_device_name(0)
+    job = client_job("gpu-pinned", "batch", sizes["gpu_count"],
+                     {"run_for": 1.0}, dict(attempts=0, mode="fail"))
+    job.constraints = [ps.Constraint("${attr.gpu.type}", card, "=")]
+    fused_score.LAUNCHES = kernels.COMMIT_STEPS = 0
+    srv.job_register(job)
+    ok = wait_until(lambda: len(srv.state.allocs_by_job(
+        None, job.id, True)) == sizes["gpu_count"] and all(
+            a.client_status == "complete"
+            for a in srv.state.allocs_by_job(None, job.id, True)),
+        CLIENT_WAIT)
+    allocs = srv.state.allocs_by_job(None, job.id, True)
+    fingerprinted = {c.node.id for c in local
+                     if c.node.attributes.get("gpu.type") == card}
+    return {"card": card, "completed": ok, "allocs": len(allocs),
+            "statuses": sorted(a.client_status for a in allocs),
+            "on_fingerprinted": all(a.node_id in fingerprinted
+                                    for a in allocs),
+            "nodes": sorted({srv.state.node_by_id(None, a.node_id).name
+                             for a in allocs}),
+            "launches": {"scored_rows": fused_score.LAUNCHES,
+                         "committing_spec_steps": kernels.COMMIT_STEPS}}
+
+
+def client_child(dev, out_path, sizes, root) -> None:
+    """One world of phase ``client`` in a process of its own; the report
+    is written to ``out_path``."""
+    out = client_world(dev, sizes, root)
+    with open(out_path, "w") as fh:
+        json.dump(out, fh)
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(0)
+
+
+def run_client_child(dev, root, sizes, label) -> dict:
+    """``client_child`` in a fresh process under the phase's string hash
+    seed, its files under ``root/label``; its report."""
+    wroot = os.path.join(root, label)
+    os.makedirs(wroot)
+    out_path = os.path.join(root, f"client-{label}.json")
+    code = ("import sys; sys.path.insert(0, {0!r}); import chip_smoke as c; "
+            "c.client_child({1!r}, {2!r}, {3!r}, {4!r})"
+            ).format(REPO, dev, out_path, sizes, wroot)
+    env = dict(os.environ, PYTHONHASHSEED=str(CLIENT_HASH_SEED))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True,
+                          timeout=CLIENT_CHILD_TIMEOUT)
+    if proc.returncode != 0 or not os.path.exists(out_path):
+        raise AssertionError(f"client child {label} on {dev}: rc "
+                             f"{proc.returncode}: {proc.stderr[-3000:]}")
+    with open(out_path) as fh:
+        out = json.load(fh)
+    os.unlink(out_path)
+    out["child_wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def check_client_world(w, label, sizes, on_card) -> list:
+    """The invariants of one world."""
+    errors = []
+    h = w["health"]
+    if (h["nacks"] or h["failed"] or h["breaker"] != "closed" or h["trips"]
+            or h["oracle_routed"] or h["over_capacity"]):
+        errors.append(f"{label}: health {h}")
+    planned = sum(n * c for n, c in (sizes["batch"], sizes["fail"],
+                                     sizes["service"]))
+    if w["allocs"] != planned or len(w["placements"]) != planned:
+        errors.append(f"{label}: {w['allocs']} allocs, planned {planned}")
+    want = {"batch": ("complete", ["Received", "Started", "Terminated"]),
+            "fail": ("failed", ["Received", "Started", "Terminated",
+                                "Restarting", "Started", "Terminated",
+                                "Not Restarting"]),
+            "service": ("complete", ["Received", "Started", "Killing",
+                                     "Killed"])}
+    for key, status in w["client_statuses"].items():
+        kind = key.split("-")[0]
+        if status != want[kind][0]:
+            errors.append(f"{label}: {key} ended {status}")
+            break
+    for key, types_ in w["events"].items():
+        if types_ != want[key.split("-")[0]][1]:
+            errors.append(f"{label}: {key} events {types_}")
+            break
+    # Every client offers the network its fingerprint found; only the
+    # service tasks ask for one, and each got it.
+    if len(w["node_networks"]) != 1:
+        errors.append(f"{label}: client networks {w['node_networks']}")
+    for key, nets in w["networks"].items():
+        ask = [[w["node_networks"][0][0], 50, 2]] if (
+            key.startswith("service") and w["node_networks"]) else []
+        if nets != ask:
+            errors.append(f"{label}: {key} networks {nets}, want {ask}")
+            break
+    la = w["launches"]
+    if on_card and (la["scored_rows"] == 0
+                    or la["scored_rows"] != la["committing_spec_steps"]):
+        errors.append(f"{label}: scored_rows launches {la}")
+    if not on_card and la["scored_rows"]:
+        errors.append(f"{label}: kernel launched off the card {la}")
+    if la["masked_score_matrix"] or la["eviction_sets"]:
+        errors.append(f"{label}: unexpected launches {la}")
+    if not w["dirs_made_as_placed"] or w["dirs_made"] != planned \
+            or w["dirs_after_gc"]:
+        errors.append(f"{label}: alloc dirs {w['dirs_made']} made (as "
+                      f"placed: {w['dirs_made_as_placed']}), "
+                      f"{w['dirs_after_gc']} after the GC")
+    if w["http"].get("gc_status") != 200:
+        errors.append(f"{label}: /v1/client/gc {w['http']}")
+    if w["threads_after_shutdown"]:
+        errors.append(f"{label}: threads left after shutdown: "
+                      f"{w['threads_after_shutdown'][:8]}")
+    if w["nodes"] != sizes["n_nodes"]:
+        errors.append(f"{label}: {w['nodes']} nodes registered")
+    return errors
+
+
+def phase_client(dev, sizes=None):
+    """The client (see the module docstring, phase 26): world A (a fleet
+    of port clients on a card server) and world C (A's script on the
+    CPU), each in a process of its own, compared here; A's GPU-pinned
+    job; ``scored_rows`` at the shapes A gave it against its plain
+    version."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    t_phase = time.perf_counter()
+    smi = smi_name_power()
+    on_card = torch_device(dev).type == "cuda"
+    sizes = dict(CLIENT_SIZES if sizes is None else sizes)
+    root = tempfile.mkdtemp(prefix="nomad-torch-client-")
+    # The two worlds run side by side, each in its own processes: neither
+    # reads the other, and the run_for margins hold at either's pace.
+    worlds, faults = {}, []
+
+    def run(label, device):
+        try:
+            worlds[label] = run_client_child(device, root, sizes, label)
+        except Exception as exc:  # noqa: BLE001 — raised below
+            faults.append(exc)
+
+    threads = [threading.Thread(target=run, args=args)
+               for args in (("A", dev), ("C", "cpu"))]
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    if faults:
+        raise faults[0]
+    a, c = worlds["A"], worlds["C"]
+    errors = (check_client_world(a, "A", sizes, on_card)
+              + check_client_world(c, "C", sizes, False))
+    for key in ("placements", "client_statuses", "events", "networks",
+                "jobs", "summaries"):
+        if a[key] != c[key]:
+            diff = [k for k in set(a[key]) | set(c[key])
+                    if a[key].get(k) != c[key].get(k)]
+            errors.append(f"A != C {key}: {sorted(diff)[:5]} of "
+                          f"{len(diff)}")
+    if a["launches"]["committing_spec_steps"] != \
+            c["launches"]["committing_spec_steps"]:
+        errors.append(f"A != C committing steps: {a['launches']} "
+                      f"{c['launches']}")
+    n_local = sizes["n_clients"] - sizes["n_remote"]
+    gpu = {}
+    shape_parity = {}
+    if on_card:
+        card = torch.cuda.get_device_name(0)
+        if sorted(a["gpu_type"].values()) != [card] * n_local or \
+                a["remote_gpu_attrs"]:
+            errors.append(f"A: gpu.type on the in-process clients "
+                          f"{set(a['gpu_type'].values())}, on "
+                          f"{a['remote_gpu_attrs']} remote ones")
+        gpu = a["gpu_job"]
+        if not (gpu["completed"] and gpu["on_fingerprinted"]
+                and gpu["allocs"] == sizes["gpu_count"]
+                and gpu["launches"]["scored_rows"]
+                == gpu["launches"]["committing_spec_steps"] > 0):
+            errors.append(f"A: the GPU-pinned job {gpu}")
+        score = [tuple(s) for s in a["kernel_shapes"]["scored_rows"]]
+        if not score or a["kernel_shapes"]["eviction_sets"]:
+            errors.append(f"client kernel shapes: {a['kernel_shapes']}")
+        else:
+            rows, worst = score_parity_rows(
+                dev, [(u, n, 17, n_off) for u, n, n_off in score])
+            shape_parity = {"scored_rows": rows, "max_abs_err": worst}
+            if worst > 4e-6:
+                errors.append(f"scored_rows at A's shapes: {worst}")
+    if errors:
+        raise AssertionError(f"phase client: {errors}")
+
+    def world_row(w):
+        calls = w["update_allocs"]
+        return {"device": w["device"],
+                "clients_register_s": w["clients_register_s"],
+                "mock_node_register_s": w["mock_node_register_s"],
+                "fleet_ready_s": w["fleet_ready_s"],
+                "release_to_acked_s": w["release_to_acked_s"],
+                "release_to_all_running_s": w["release_to_all_running_s"],
+                "release_to_all_terminal_s": w["release_to_all_terminal_s"],
+                "node_update_allocs_calls": calls["n"],
+                "node_update_allocs_mean_batch": (calls["allocs"]
+                                                  / max(1, calls["n"])),
+                "client_side_sync_calls": calls["client_side_calls"],
+                "launches": w["launches"], "http": w["http"],
+                "steps": w["steps"],
+                "world_s": w["world_s"], "child_wall_s": w["child_wall_s"]}
+
+    return {"card": smi, "sizes": sizes, "reduced": a["reduced"],
+            "A_card": world_row(a), "C_cpu": world_row(c),
+            "allocs": a["allocs"], "placements_equal": True,
+            "statuses_equal": True, "events_equal": True,
+            "summaries_equal": True, "networks_equal": True,
+            "node_networks": a["node_networks"],
+            "client_statuses": dict(collections.Counter(
+                a["client_statuses"].values())),
+            "gpu_job": gpu, "kernel_shapes": a["kernel_shapes"],
+            "shape_parity": shape_parity,
+            "launches": {"client": a["launches"],
+                         "gpu_job": gpu.get("launches", {})},
+            "seconds": time.perf_counter() - t_phase}
+
+
+# -- phase 27: drills --------------------------------------------------------
 
 def phase_drills(dev):
     """The twelve drills of ``python -m nomad_tpu_torch.ops --selfcheck
@@ -7766,6 +8575,8 @@ def main() -> int:
                                  if k != "baseline"}})
     agt = run_phase("agent", phase_agent, dev)
     emit({"phase": "agent", **agt})
+    cli = run_phase("client", phase_client, dev)
+    emit({"phase": "client", **cli})
     drl = run_phase("drills", phase_drills, dev)
     emit({"phase": "drills", **drl})
     table = run_phase("times", phase_times, dev, launches, max_err,
@@ -7831,6 +8642,11 @@ def main() -> int:
         # jobs through the CLI and HTTP into the agent's server, the
         # counts set to 0 just before the submissions).
         row["agent_path_launches"] = agt["launches"]["agent"][row["name"]]
+        # ... on the client's path (phase client, world A: the wave of
+        # 416 allocs the fleet of port clients runs, the counts set to 0
+        # just before its submissions).
+        row["client_path_launches"] = cli["launches"]["client"][
+            row["name"]]
         # ... and on the drills' path (phase drills, the twelve drills of
         # --selfcheck, the counts set to 0 just before them).
         row["drills_path_launches"] = drl["launches"][row["name"]]

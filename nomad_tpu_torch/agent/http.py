@@ -11,9 +11,10 @@ Blocking queries: ``?index=N&wait=Ds`` long-polls until the relevant state
 tables pass index N (state.WatchSet re-run loop, the moral of
 nomad/rpc.go:340 blockingRPC), replying with ``X-Nomad-Index``.
 
-The port's agent runs no client (ROADMAP item 28): the ``/v1/client/*``
-routes answer the reference's 400 "client is not enabled" after the same
-URL checks.  :meth:`HTTPServer.shutdown` ends the long polls, the event
+The ``/v1/client/*`` routes (stats, an alloc's stats, the alloc dir's
+``fs`` surface and the GC) read the agent's client; without one they
+answer the reference's 400 "client is not enabled" after the same URL
+checks.  :meth:`HTTPServer.shutdown` ends the long polls, the event
 stream and the monitor, closes the open connections and joins every
 thread it started (bounded).
 """
@@ -21,6 +22,7 @@ thread it started (bounded).
 from __future__ import annotations
 
 import json
+import os
 import re
 import socket
 import threading
@@ -344,12 +346,11 @@ class HTTPServer:
             raise CodedError(400, "server is not enabled")
         return self.agent.server
 
-    @staticmethod
-    def _no_client() -> CodedError:
-        """What every client route answers: the port's agent runs no
-        client (ROADMAP item 28), as the reference's answers without
-        one (http.py:285)."""
-        return CodedError(400, "client is not enabled")
+    @property
+    def client(self):
+        if self.agent.client is None:
+            raise CodedError(400, "client is not enabled")
+        return self.agent.client
 
     # ------------------------------------------------------------------
     # blocking-query helper (http.go:301 parseWait + rpc.go:340 blockingRPC)
@@ -747,15 +748,19 @@ class HTTPServer:
     # ------------------------------------------------------------------
 
     def client_stats_request(self, req, query):
-        raise self._no_client()
+        return self.client.stats(), None
 
     def client_alloc_stats_request(self, req, query, id: str):
-        raise self._no_client()
+        runner = self.client.get_alloc_runner(id)
+        if runner is None:
+            raise CodedError(404, f"unknown allocation ID {id!r}")
+        return runner.stats_report(), None
 
     def client_gc_request(self, req, query):
         if req.command not in ("PUT", "POST", "GET"):
             raise CodedError(405, "Invalid method")
-        raise self._no_client()
+        self.client.garbage_collector.collect_all()
+        return None, None
 
     def client_fs_request(self, req, query, rest: str):
         parts = rest.split("/", 1)
@@ -766,7 +771,74 @@ class HTTPServer:
             raise CodedError(404, "Invalid URL")
         if not alloc_id:
             raise CodedError(400, "Missing allocation ID")
-        raise self._no_client()
+        runner = self.client.get_alloc_runner(alloc_id)
+        if runner is None:
+            raise CodedError(404, f"unknown allocation ID {alloc_id!r}")
+        adir = runner.alloc_dir
+        path = query.get("path", "/")
+        if op == "ls":
+            return adir.list_dir(path), None
+        if op == "stat":
+            return adir.stat(path), None
+        if op == "cat":
+            data = adir.read_all(path)
+            return data.decode("utf-8", "replace"), None
+        if op == "readat":
+            offset = int(query.get("offset", 0))
+            limit = int(query.get("limit", 1 << 20))
+            data = adir.read_at(path, offset, limit)
+            return data.decode("utf-8", "replace"), None
+        if op == "logs":
+            task = query.get("task", "")
+            log_type = query.get("type", "stdout")
+            if not task:
+                raise CodedError(400, "Missing task name")
+            if query.get("follow", "").lower() == "true" \
+                    or "origin" in query or "offset" in query:
+                frames = self.client.stream_task_logs(
+                    alloc_id, task, log_type,
+                    offset=int(query.get("offset", 0) or 0),
+                    origin=query.get("origin", "start"),
+                    follow=query.get("follow", "").lower() == "true")
+                return StreamResponse(frames), None
+            return self.client.task_logs(alloc_id, task, log_type), None
+        if op == "snapshot":
+            # Sticky-disk migration pull (alloc_dir.go:110 Snapshot via
+            # the fs surface), streamed as frames from a temp tar so
+            # multi-GB sticky disks never sit in memory.
+            import tempfile
+
+            fd, tmp = tempfile.mkstemp(suffix=".tar")
+            os.close(fd)
+            try:
+                adir.snapshot_to_file(tmp)
+            except Exception:
+                try:
+                    os.unlink(tmp)  # failed tar must not leak
+                except OSError:
+                    pass
+                raise
+
+            def frames(path=tmp):
+                from ..client.fs_stream import stream_file_frames
+                try:
+                    yield from stream_file_frames(path, "snapshot.tar",
+                                                  follow=False)
+                finally:
+                    try:
+                        os.unlink(path)
+                    except OSError:
+                        pass
+
+            return StreamResponse(frames()), None
+        if op == "stream":
+            frames = self.client.stream_file(
+                alloc_id, path,
+                offset=int(query.get("offset", 0) or 0),
+                origin=query.get("origin", "start"),
+                follow=query.get("follow", "true").lower() == "true")
+            return StreamResponse(frames), None
+        raise CodedError(404, "Invalid URL")
 
     # ------------------------------------------------------------------
     # agent / status / operator / system

@@ -372,8 +372,16 @@ def cmd_inspect(args, out) -> int:
 
 
 def cmd_node_status(args, out) -> int:
-    """command/node_status.go."""
+    """command/node_status.go; ``-self`` reads the node of the agent's
+    own client (node_status.go:130, from ``/v1/agent/self``)."""
     api = _api(args)
+    if getattr(args, "self_node", False):
+        info = api.agent.self_info()
+        node_id = (info.get("stats", {}).get("client") or {}).get("node_id")
+        if not node_id:
+            out.write("Error: the agent is not running a client\n")
+            return 1
+        args.node_id = node_id
     if not args.node_id:
         nodes, _ = api.nodes.list()
         if getattr(args, "json", False):
@@ -1162,6 +1170,8 @@ def build_parser() -> argparse.ArgumentParser:
     add("inspect", cmd_inspect, lambda sp: sp.add_argument("job_id"))
     add("node-status", cmd_node_status, lambda sp: (
         sp.add_argument("node_id", nargs="?", default=""),
+        sp.add_argument("-self", dest="self_node", action="store_true",
+                        help="the node of the agent's own client"),
         sp.add_argument("-short", action="store_true"),
         sp.add_argument("-json", dest="json", action="store_true")))
     add("node-drain", cmd_node_drain, lambda sp: (

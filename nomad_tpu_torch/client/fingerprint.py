@@ -147,14 +147,30 @@ class NetworkFingerprint(Fingerprint):
 
     @staticmethod
     def _default_ip(interface: str) -> str:
-        if interface:
-            # read the address of a named interface from /sys + a UDP probe
-            pass
+        """The IPv4 address of the default route's interface (or of
+        ``interface``), read from the routing table and the interface
+        (SIOCGIFADDR): the address the reference's UDP ``connect`` toward
+        8.8.8.8 reads back, with no socket aimed off the machine.
+        127.0.0.1 without a default route."""
+        import fcntl
+        import struct
+
         try:
+            if not interface:
+                with open("/proc/net/route") as fh:
+                    routes = [line.split() for line in fh.readlines()[1:]]
+                default = sorted((int(r[6]), r[0]) for r in routes
+                                 if r[1] == "00000000" and r[7] == "00000000"
+                                 and int(r[3], 16) & 0x1)   # RTF_UP
+                if not default:
+                    return "127.0.0.1"
+                interface = default[0][1]
             with socket.socket(socket.AF_INET, socket.SOCK_DGRAM) as sk:
-                sk.connect(("8.8.8.8", 80))
-                return sk.getsockname()[0]
-        except OSError:
+                packed = fcntl.ioctl(sk.fileno(), 0x8915,  # SIOCGIFADDR
+                                     struct.pack("256s",
+                                                 interface.encode()[:15]))
+            return socket.inet_ntoa(packed[20:24])
+        except (OSError, ValueError, IndexError):
             return "127.0.0.1"
 
 

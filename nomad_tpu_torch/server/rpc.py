@@ -25,9 +25,11 @@ timed as ``rpc.request.<method>``.  Each frame sent passes the
 ``rpc.send`` fault point (``delay``; ``error`` and ``crash`` surface as
 the transport failure a broken wire raises).
 
+``RemoteServerRPC`` (rpc.py:681) carries a client agent's calls to the
+servers over this layer.
+
 Left out: ``NoPathToRegion`` and cross-region forwarding (federation),
-the net chaos hook ``ConnPool._net_check`` (the chaos drill), and the
-client agent's ``RemoteServerRPC`` (ROADMAP queue 1 item 20).
+and the net chaos hook ``ConnPool._net_check`` (the chaos drill).
 """
 
 from __future__ import annotations
@@ -41,6 +43,7 @@ import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 from .. import codec, fault
+from ..structs import structs as s
 from ..utils import tracing
 from ..utils.backoff import Backoff
 from ..utils.telemetry import NULL_TELEMETRY
@@ -483,3 +486,127 @@ class ConnPool:
                 for conn in bucket:
                     conn.close()
             self._idle.clear()
+
+
+# ---------------------------------------------------------------------------
+# client agent -> server RPC adapter
+# ---------------------------------------------------------------------------
+
+
+def _typed_reply(cls, value: Any):
+    """A reply field that must decode to ``cls`` (the codec already
+    rebuilt the struct): anything else is a protocol fault."""
+    if value is not None and not isinstance(value, cls):
+        raise RPCError(f"expected {cls.__name__} in the reply, got "
+                       f"{type(value).__name__}")
+    return value
+
+
+class RemoteServerRPC:
+    """The duck-typed RPC surface ``nomad_tpu_torch.client.Client``
+    expects (node_register / node_update_status / node_get_client_allocs
+    / node_update_allocs, and node_get / alloc_get for a sticky disk's
+    migration), carried over the wire to a server (a copy of
+    ``nomad_tpu/server/rpc.py:681``; reference client/rpc via
+    client.go:465 Client.RPC).  Bodies and replies are typed port structs
+    in struct-codec frames; a ``ConnPool`` with a TLS context makes it a
+    TLS client.
+
+    Retries across the server list with bounded rounds and jittered
+    exponential backoff between them (a fleet of clients whose leader
+    died must not re-dial in lockstep).  A ``NoLeaderError`` reply
+    carries the responding follower's best-known leader address — that
+    server is promoted to the front of the list so the next attempt goes
+    straight at the leader instead of re-walking stale entries.
+    """
+
+    MAX_ROUNDS = 3
+
+    def __init__(self, servers: List[str], pool: Optional[ConnPool] = None,
+                 max_rounds: Optional[int] = None, sleep=time.sleep):
+        self.servers = list(servers)
+        self.pool = pool or ConnPool()
+        self.max_rounds = max_rounds or self.MAX_ROUNDS
+        self._sleep = sleep
+        self._backoff_factory = lambda: Backoff(base=0.05, max_delay=2.0)
+
+    @staticmethod
+    def _looks_like_addr(hint: str) -> bool:
+        """A NoLeaderError message is only a usable leader hint when it is
+        an actual host:port — during elections servers reply with prose
+        ('no cluster leader', 'not the leader'), and promoting that into
+        the server list would poison every later dial."""
+        host, sep, port = hint.rpartition(":")
+        return bool(sep) and bool(host) and port.isdigit()
+
+    def _promote(self, addr: str) -> None:
+        if addr in self.servers:
+            self.servers.remove(addr)
+        self.servers.insert(0, addr)
+
+    def _demote(self, addr: str) -> None:
+        if addr in self.servers:
+            self.servers.remove(addr)
+            self.servers.append(addr)
+
+    def _call(self, method: str, body: Any,
+              timeout: Optional[float] = None) -> Any:
+        last: Optional[Exception] = None
+        bo = self._backoff_factory()
+        for round_no in range(self.max_rounds):
+            if round_no:
+                self._sleep(bo.next_delay())
+            for addr in list(self.servers):
+                try:
+                    return self.pool.call(addr, method, body,
+                                          timeout=timeout)
+                except NoLeaderError as e:
+                    # The server answered but isn't leader: re-resolve.
+                    # Its reply names the leader when it knows one — aim
+                    # the next attempt there rather than round-robining.
+                    last = e
+                    leader = str(e).strip()
+                    if (leader != addr and self._looks_like_addr(leader)):
+                        self._promote(leader)
+                        break  # restart the scan at the leader
+                    self._demote(addr)
+                except (RPCError, OSError) as e:
+                    last = e
+                    self._demote(addr)
+        raise RPCError(
+            f"no servers reachable after {self.max_rounds} rounds: {last}")
+
+    def node_register(self, node):
+        reply = self._call("Node.Register", {"Node": node})
+        return reply["Index"], reply["HeartbeatTTL"]
+
+    def node_update_status(self, node_id: str, status: str):
+        reply = self._call("Node.UpdateStatus",
+                           {"NodeID": node_id, "Status": status})
+        return reply["Index"], reply["HeartbeatTTL"]
+
+    def node_get_client_allocs(self, node_id: str, min_index: int = 0,
+                               max_wait: float = 30.0):
+        # The socket waits past the server's long poll.
+        reply = self._call("Node.GetClientAllocs",
+                           {"NodeID": node_id, "MinQueryIndex": min_index,
+                            "MaxQueryTime": max_wait},
+                           timeout=max(self.pool.timeout, max_wait + 10.0))
+        allocs = [_typed_reply(s.Allocation, a)
+                  for a in reply["Allocs"] or []]
+        return allocs, reply["Index"]
+
+    def node_update_allocs(self, allocs):
+        reply = self._call("Node.UpdateAlloc", {"Allocs": list(allocs)})
+        return reply["Index"]
+
+    def node_get(self, node_id: str):
+        reply = self._call("Node.Get", {"NodeID": node_id})
+        return _typed_reply(s.Node, reply.get("Node"))
+
+    def alloc_get(self, alloc_id: str):
+        reply = self._call("Alloc.Get", {"AllocID": alloc_id})
+        return _typed_reply(s.Allocation, reply.get("Alloc"))
+
+    def close(self) -> None:
+        self.pool.close()

@@ -1708,16 +1708,16 @@ class Server:
                                max_wait: float = 0.0
                                ) -> Tuple[List[s.Allocation], int]:
         """The node's allocs, as a client long-polls them
-        (node_endpoint.go:585 GetClientAllocs): waits until the allocs or
-        nodes table passes ``min_index`` or ``max_wait`` s pass, then
-        returns ``(allocs, index)``."""
+        (node_endpoint.go:585 GetClientAllocs): waits until the allocs
+        table passes ``min_index`` or ``max_wait`` s pass, then returns
+        ``(allocs, index)``.  The JAX package's poll watches the nodes
+        table too, so every node's registration or heartbeat answers every
+        client's poll; node writes do not change a node's allocs."""
         deadline = time.time() + max_wait
         while True:
             ws = WatchSet()
             allocs = self.state.allocs_by_node(ws, node_id)
-            self.state.node_by_id(ws, node_id)
-            index = max(self.state.table_index("allocs"),
-                        self.state.table_index("nodes"))
+            index = self.state.table_index("allocs")
             remaining = deadline - time.time()
             if index > min_index or max_wait <= 0 or remaining <= 0:
                 ws.close()

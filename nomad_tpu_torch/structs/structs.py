@@ -98,7 +98,23 @@ CONSTRAINT_SET_CONTAINS = "set_contains"
 TASK_STATE_PENDING = "pending"
 TASK_STATE_RUNNING = "running"
 TASK_STATE_DEAD = "dead"
+
+# Task event types, as the client's runners emit them (structs.go:3012).
+TASK_SETUP_FAILURE = "Setup Failure"
+TASK_DRIVER_FAILURE = "Driver Failure"
+TASK_RECEIVED = "Received"
+TASK_FAILED_VALIDATION = "Failed Validation"
+TASK_STARTED = "Started"
 TASK_TERMINATED = "Terminated"
+TASK_KILLING = "Killing"
+TASK_KILLED = "Killed"
+TASK_RESTARTING = "Restarting"
+TASK_NOT_RESTARTING = "Not Restarting"
+TASK_DOWNLOADING_ARTIFACTS = "Downloading Artifacts"
+TASK_ARTIFACT_DOWNLOAD_FAILED = "Failed Artifact Download"
+TASK_SIGNALING = "Signaling"
+TASK_RESTART_SIGNAL = "Restart Signaled"
+TASK_SIBLING_FAILED = "Sibling task failed"
 
 RESTART_POLICY_MODE_DELAY = "delay"
 RESTART_POLICY_MODE_FAIL = "fail"
@@ -727,13 +743,47 @@ class Job:
 
 @dataclass
 class TaskEvent:
-    """The part of a task event that decides success (structs.go:3030)."""
+    """An event in a task's lifecycle (structs.go:3030-3190); the fields
+    past ``exit_code`` are the ones only the client writes."""
 
     type: str = ""
+    time: float = 0.0
+    message: str = ""
+    driver_error: str = ""
     exit_code: int = 0
+    signal: int = 0
+    kill_timeout: float = 0.0
+    restart_reason: str = ""
+    failed_sibling: str = ""
+    # Marks the event as failing the task (structs.go TaskEvent.FailsTask);
+    # the alloc runner folds it into TaskState.failed.
+    failed: bool = False
+    # Delay before a restart is attempted (structs.go TaskEvent.StartDelay).
+    start_delay: float = 0.0
 
     def copy(self) -> "TaskEvent":
         return _fast_copy(self)
+
+    def display_message(self) -> str:
+        """The one-line description ``alloc status`` prints for the event
+        (command/alloc_status.go formats each type)."""
+        if self.message:
+            return self.message
+        if self.type == TASK_TERMINATED:
+            return f"Exit Code: {self.exit_code}"
+        if self.type == TASK_DRIVER_FAILURE and self.driver_error:
+            return self.driver_error
+        if self.type == TASK_KILLING and self.kill_timeout:
+            return f"Kill Timeout: {self.kill_timeout}s"
+        if self.type == TASK_RESTARTING:
+            parts = []
+            if self.restart_reason:
+                parts.append(self.restart_reason)
+            parts.append(f"Task restarting in {self.start_delay:.1f}s")
+            return " - ".join(parts)
+        if self.type == TASK_SIBLING_FAILED and self.failed_sibling:
+            return f"Sibling task {self.failed_sibling!r} failed"
+        return ""
 
 
 @dataclass
@@ -741,6 +791,9 @@ class TaskState:
     """Client-side task state (structs.go:2928-3010)."""
 
     state: str = TASK_STATE_PENDING
+    failed: bool = False
+    started_at: float = 0.0
+    finished_at: float = 0.0
     events: List[TaskEvent] = field(default_factory=list)
 
     def copy(self) -> "TaskState":

@@ -20,8 +20,10 @@ the API rate and of the broker's admission, the client routes' 400,
 the system, status, operator and keyring routes, the catalog and KV,
 the event stream (launch and dispatch times read one fixed clock in
 both), the agent configs (HCL, JSON, env, sockaddr,
-``tls {}``), the agent's refusals (client, vault, no card) and a
-shutdown that leaves no thread.
+``tls {}``), the agent's refusals (vault, the WAN join, the scheduler
+list, no card), an agent with a client starting (the client routes'
+bodies are ``test_torch_client_agent.py``'s) and a shutdown that leaves
+no thread.
 """
 import base64
 import contextlib
@@ -852,6 +854,23 @@ def test_advertise_rpc_feeds_server_config(tmp_path):
 
 # -- what the port's agent refuses -------------------------------------------
 
+@pytest.fixture
+def local_probes(monkeypatch):
+    """A port client's fingerprint probes stay on this machine: its
+    connections off the loopback are refused, so the cloud metadata
+    probes find no answer."""
+    import socket
+
+    real = socket.create_connection
+
+    def connect(address, *args, **kwargs):
+        if address[0] not in ("127.0.0.1", "localhost"):
+            raise OSError("no network in this test")
+        return real(address, *args, **kwargs)
+
+    monkeypatch.setattr(socket, "create_connection", connect)
+
+
 @pytest.mark.parametrize("src,item", [
     ('server { enabled = true }\nclient { enabled = true }', "item 28"),
     ('client { enabled = true }', "item 28"),
@@ -861,10 +880,26 @@ def test_advertise_rpc_feeds_server_config(tmp_path):
     ('server {\n enabled = true\n enabled_schedulers = ["batch"]\n}',
      "queue 3 item 19"),
 ])
-def test_unported_config_raises_naming_its_roadmap_item(src, item):
+def test_unported_config_raises_naming_its_roadmap_item(src, item, tmp_path,
+                                                       local_probes):
     import socket
 
     before = {t.name for t in threading.enumerate()}
+    if item == "item 28":
+        # The client is ported: a config that enables it builds an agent
+        # with a client (over RPC to the listed servers when it has no
+        # server of its own), which starts and shuts down.
+        cfg = parse_config(src + f'\nports {{\n http = 0\n rpc = 0\n}}\n'
+                                 f'client {{\n alloc_dir = "{tmp_path}"\n}}')
+        cfg.dev_mode = True
+        a = Agent(cfg, device="cpu",
+                  server_options={"min_heartbeat_ttl": HEARTBEAT_TTL})
+        assert a.client is not None
+        assert (a.server is None) == ("server" not in src)
+        a.start()
+        a.shutdown()
+        assert wait_until(lambda: not a.threads(), 15.0)
+        return
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         Agent(parse_config(src), device="cpu")
     # Nothing was started or bound.
@@ -873,11 +908,27 @@ def test_unported_config_raises_naming_its_roadmap_item(src, item):
         sk.bind(("127.0.0.1", 0))
 
 
-def test_dev_config_enables_the_client_and_raises():
+def test_dev_config_enables_the_client_and_raises(local_probes, tmp_path):
+    """The dev config enables the client, which the port now has: asked
+    for the CPU, the dev agent starts a server and a client in one
+    process (it raised ``NotImplementedError`` for ROADMAP item 28 before
+    the client was ported)."""
     from nomad_tpu_torch.agent import AgentConfig
 
-    with pytest.raises(NotImplementedError, match="ROADMAP item 28"):
-        Agent(AgentConfig.dev(), device="cpu")
+    cfg = AgentConfig.dev()
+    cfg.ports.http = 0
+    cfg.client.alloc_dir = str(tmp_path)
+    a = Agent(cfg, device="cpu",
+              server_options={"min_heartbeat_ttl": HEARTBEAT_TTL})
+    try:
+        a.start()
+        assert a.server is not None and a.client is not None
+        assert a.client.rpc is a.server
+        assert wait_until(lambda: a.server.node_get(a.client.node.id)
+                          is not None, 15.0)
+    finally:
+        a.shutdown()
+    assert wait_until(lambda: not a.threads(), 15.0)
 
 
 def test_server_only_agent_without_a_card_raises():

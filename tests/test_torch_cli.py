@@ -10,7 +10,8 @@ JSON output without the reference's job fields the port does not carry
 sequence.  A monitored ``run`` is compared by exit code and its last
 line (the intermediate status lines follow the worker's timing).  The
 commands that need a client (``logs``, ``fs``) answer as the reference's
-CLI does against an agent without one.  The port's two-word spellings
+CLI does against an agent without one (against agents with a client they
+are ``test_torch_client_agent.py``'s).  The port's two-word spellings
 (``job run``, ``alloc status``, ``operator raft list-peers``, ``system
 gc``) are its one-word commands.
 """
@@ -25,7 +26,8 @@ from nomad_tpu.cli import main as jmain
 from nomad_tpu_torch.cli import main
 from nomad_tpu_torch.cli.commands import _one_word
 
-from test_torch_agent_http import normalized, settle, twin_agents
+from test_torch_agent_http import (local_probes,  # noqa: F401
+                                  normalized, settle, twin_agents)
 
 JOBFILE = '''
 job "cli-demo" {
@@ -274,13 +276,57 @@ def test_two_word_spellings_run_the_same_commands(pair, tmp_path):
     assert pair.port.srv.state.job_by_id(None, "two-word") is None
 
 
-def test_agent_command_raises_without_a_card_or_for_a_client(tmp_path):
+def test_agent_command_raises_without_a_card_or_for_a_client(
+        tmp_path, monkeypatch, local_probes):
+    """``agent -dev -device cpu`` (a server and a client; the client was
+    refused as ROADMAP item 28 before it was ported) starts, then shuts
+    down on SIGINT; a server-only agent without a card raises.  The dev
+    config's HTTP port is made ephemeral here (it is 4646, which another
+    agent on the machine may hold)."""
+    import os
+    import signal
+    import threading
+    import time
+
     import torch
 
-    cfg = tmp_path / "client.hcl"
-    cfg.write_text('client { enabled = true }')
-    with pytest.raises(NotImplementedError, match="ROADMAP item 28"):
-        main(["agent", "-config", str(cfg), "-device", "cpu"])
+    from nomad_tpu_torch.agent import AgentConfig
+
+    dev = AgentConfig.dev
+
+    def ephemeral_dev():
+        cfg = dev()
+        cfg.ports.http = 0
+        cfg.client.alloc_dir = str(tmp_path / "alloc")
+        return cfg
+
+    monkeypatch.setattr(AgentConfig, "dev", staticmethod(ephemeral_dev))
+
+    handlers = {sig: signal.getsignal(sig)
+                for sig in (signal.SIGINT, signal.SIGTERM)}
+
+    def interrupt():
+        # Once the command's own handler is installed, interrupt it.
+        deadline = time.monotonic() + 60.0
+        while time.monotonic() < deadline:
+            if signal.getsignal(signal.SIGINT) is not handlers[
+                    signal.SIGINT]:
+                os.kill(os.getpid(), signal.SIGINT)
+                return
+            time.sleep(0.05)
+
+    buf = io.StringIO()
+    t = threading.Thread(target=interrupt, daemon=True)
+    t.start()
+    try:
+        rc = main(["agent", "-dev", "-device", "cpu"], out=buf)
+    finally:
+        for sig, h in handlers.items():
+            signal.signal(sig, h)
+    t.join(5.0)
+    text = buf.getvalue()
+    assert rc == 0, text
+    assert "agent started" in text and "gracefully shutting down" in text
     if not torch.cuda.is_available():
         srv = tmp_path / "server.hcl"
         srv.write_text('server { enabled = true }\nports { http = 0 }')

@@ -485,3 +485,47 @@ def test_pre_lifecycle_frame_raises_naming_both_fingerprints():
     blob = log_codec.encode_payload({"job_id": "per", "purge": True})
     assert blob[10:] == PRE_LIFECYCLE_FRAME[10:]
     assert log_codec.decode_payload(blob) == {"job_id": "per", "purge": True}
+
+
+# -- the client's task-event fields ----------------------------------------
+
+# The schema fingerprint of the port's structs before the client's fields
+# (TaskEvent's time, message, driver error, signal, kill timeout, restart
+# reason, failed sibling, failed and start delay; TaskState's failed,
+# started_at and finished_at), and a frame that build wrote:
+# {"job_id": "per", "purge": True}.
+PRE_CLIENT_FINGERPRINT = bytes.fromhex("9cc63ba0cff31391")
+PRE_CLIENT_FRAME = bytes.fromhex(
+    "c1019cc63ba0cff31391080205066a6f625f696405037065720505707572676502")
+
+
+def test_pre_client_frame_raises_naming_both_fingerprints():
+    assert schema.FINGERPRINT != PRE_CLIENT_FINGERPRINT
+    assert PRE_CLIENT_FRAME[2:10] == PRE_CLIENT_FINGERPRINT
+    with pytest.raises(codec.CodecError) as e:
+        log_codec.decode_payload(PRE_CLIENT_FRAME)
+    assert PRE_CLIENT_FINGERPRINT.hex() in str(e.value)
+    assert schema.FINGERPRINT.hex() in str(e.value)
+    # This build's frame of the same payload decodes.
+    blob = log_codec.encode_payload({"job_id": "per", "purge": True})
+    assert blob[10:] == PRE_CLIENT_FRAME[10:]
+    assert log_codec.decode_payload(blob) == {"job_id": "per", "purge": True}
+
+
+def test_client_task_states_decode_as_the_reference_states():
+    """An alloc's task states with every client field, through both
+    codecs: the port's decode equals the reference's, field for field."""
+    ev = dict(type="Restarting", time=3.5, message="m", driver_error="d",
+              exit_code=1, signal=9, kill_timeout=5.0, restart_reason="r",
+              failed_sibling="s", failed=True, start_delay=0.25)
+    ref = {"states": {"web": js.TaskState(
+        state="dead", failed=True, started_at=1.0, finished_at=2.0,
+        events=[js.TaskEvent(**ev), js.TaskEvent(type="Received")])}}
+    port = {"states": {"web": ps.TaskState(
+        state="dead", failed=True, started_at=1.0, finished_at=2.0,
+        events=[ps.TaskEvent(**ev), ps.TaskEvent(type="Received")])}}
+    ref_out = jlog_codec.decode_payload(jlog_codec.encode_payload(ref))
+    port_out = log_codec.decode_payload(log_codec.encode_payload(port))
+    assert as_plain(port_out) == as_plain(ref_out) == as_plain(port)
+    assert port_out["states"]["web"].events[0].display_message() == \
+        ref_out["states"]["web"].events[0].display_message() == "m"

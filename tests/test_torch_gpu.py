@@ -909,3 +909,64 @@ def test_native_decode_on_a_card_batch_equals_the_twin():
         batch_sched.schedule_batch(nodes, jobs, device="cuda", rng_seed=3)
     (row,) = chip_smoke.decode_routes(fetched, ["batch"])
     assert row["native_equals_twin"] and row["placed"] == 320
+
+
+@pytest.mark.gpu
+def test_gpu_fingerprinted_client_runs_a_gpu_job(tmp_path, monkeypatch):
+    """A port client with ``fingerprint.gpu.enable`` registers with a
+    server on the card, publishing ``gpu.type``; a job constrained on
+    ``${attr.gpu.type}`` is placed there by ``scored_rows`` and runs on
+    the mock driver to completion.  The cloud metadata fingerprints'
+    probes stay on the machine (connections off the loopback refused)."""
+    need_card()
+    import socket
+
+    real = socket.create_connection
+
+    def local_only(address, *args, **kwargs):
+        if address[0] not in ("127.0.0.1", "localhost"):
+            raise OSError("no network in this test")
+        return real(address, *args, **kwargs)
+
+    monkeypatch.setattr(socket, "create_connection", local_only)
+    from nomad_tpu_torch.client import Client, ClientConfig
+    from nomad_tpu_torch.ops.breaker import KernelCircuitBreaker
+    from nomad_tpu_torch.server import Server, ServerConfig
+    from nomad_tpu_torch.structs import structs as s
+    from nomad_tpu_torch.utils.backoff import wait_until
+
+    card = torch.cuda.get_device_name(0)
+    srv = Server(ServerConfig(device="cuda", rng_seed=7,
+                              min_heartbeat_ttl=3600.0,
+                              breaker=KernelCircuitBreaker()))
+    srv.start()
+    c = Client(ClientConfig(node_id="gpu-node", node_class="gpu",
+                            cpu_total_compute=4000, alloc_dir=str(tmp_path),
+                            options={"fingerprint.gpu.enable": "true"}),
+               rpc=srv, heartbeat_stagger=0.1)
+    try:
+        assert c.node.attributes["gpu.type"] == card
+        c.start()
+        assert wait_until(lambda: (srv.node_get("gpu-node") or s.Node())
+                          .status == "ready", 30.0)
+        fused_score.LAUNCHES = kernels.COMMIT_STEPS = 0
+        job = s.Job(id="on-gpu", name="on-gpu", type="batch",
+                    datacenters=["dc1"],
+                    constraints=[s.Constraint("${attr.gpu.type}", card, "=")],
+                    task_groups=[s.TaskGroup(
+                        name="g", count=2, tasks=[s.Task(
+                            name="t", driver="mock_driver",
+                            config={"run_for": "100ms"},
+                            resources=s.Resources(cpu=100, memory_mb=64))],
+                        restart_policy=s.RestartPolicy(attempts=0,
+                                                       mode="fail"),
+                        ephemeral_disk=s.EphemeralDisk(size_mb=10))])
+        srv.job_register(job)
+        assert wait_until(lambda: len(srv.state.allocs(None)) == 2 and all(
+            a.client_status == "complete" for a in srv.state.allocs(None)),
+            60.0)
+        assert {a.node_id for a in srv.state.allocs(None)} == {"gpu-node"}
+        assert fused_score.LAUNCHES == kernels.COMMIT_STEPS > 0
+    finally:
+        c.shutdown()
+        srv.shutdown()

@@ -487,3 +487,78 @@ print(verdicts["sanitized_corpus"].split(":")[0])
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-4000:]
     assert out.stdout.strip().splitlines()[-1] in ("clean", "skip")
+
+
+@pytest.mark.parametrize("module", [
+    "client/__init__.py", "client/client.py", "client/config.py",
+    "client/alloc_runner.py", "client/task_runner.py", "client/allocdir.py",
+    "client/restarts.py", "client/getter.py", "client/template.py",
+    "client/state.py", "client/gc.py", "client/stats.py",
+    "client/fs_stream.py", "client/driver/__init__.py",
+    "client/driver/driver.py", "client/driver/env.py",
+    "client/driver/fields.py", "client/driver/mock_driver.py"])
+def test_client_modules_are_checked(module):
+    """The client's modules are among the files the import and name-lookup
+    checks above walk."""
+    assert PKG / module in PORT_FILES
+
+
+def test_client_runs_with_jax_unimportable(tmp_path):
+    """A dev agent (a server and a client) on the CPU runs a mock-driver
+    job to completion, and a second client reaches the server through
+    ``RemoteServerRPC``, with jax, nomad_tpu and msgpack unimportable."""
+    code = f"""
+import sys
+sys.modules["jax"] = None
+sys.modules["nomad_tpu"] = None
+sys.modules["msgpack"] = None
+import socket
+_connect = socket.create_connection
+def _local_only(address, *args, **kwargs):
+    # The cloud metadata fingerprints' probes stay on this machine.
+    if address[0] not in ("127.0.0.1", "localhost"):
+        raise OSError("no network in this test")
+    return _connect(address, *args, **kwargs)
+socket.create_connection = _local_only
+from nomad_tpu_torch.agent import Agent, AgentConfig
+from nomad_tpu_torch.client import Client, ClientConfig
+from nomad_tpu_torch.server.rpc import RemoteServerRPC
+from nomad_tpu_torch.structs import structs as s
+from nomad_tpu_torch.utils.backoff import wait_until
+cfg = AgentConfig.dev()
+cfg.ports.http = 0
+cfg.client.alloc_dir = {str(tmp_path / "a")!r}
+agent = Agent(cfg, device="cpu",
+              server_options={{"min_heartbeat_ttl": 3600.0}})
+agent.client.heartbeat_stagger = 0.1
+agent.start()
+srv = agent.server
+remote = Client(ClientConfig(node_id="remote", alloc_dir={str(tmp_path / "b")!r}),
+                rpc=RemoteServerRPC([srv.config.rpc_advertise]),
+                heartbeat_stagger=0.1)
+remote.start()
+try:
+    assert wait_until(lambda: all(
+        (srv.node_get(i) or s.Node()).status == "ready"
+        for i in (agent.client.node.id, "remote")), 30.0)
+    job = s.Job(id="iso", name="iso", type="batch", datacenters=["dc1"],
+                task_groups=[s.TaskGroup(name="g", count=3, tasks=[s.Task(
+                    name="t", driver="mock_driver",
+                    config={{"run_for": "50ms"}},
+                    resources=s.Resources(cpu=100, memory_mb=64))],
+                    restart_policy=s.RestartPolicy(attempts=0, mode="fail"),
+                    ephemeral_disk=s.EphemeralDisk(size_mb=10))])
+    srv.job_register(job)
+    assert wait_until(lambda: len(srv.state.allocs(None)) == 3 and all(
+        a.client_status == "complete" for a in srv.state.allocs(None)), 30.0)
+finally:
+    remote.shutdown()
+    agent.shutdown()
+assert wait_until(lambda: not agent.threads() and not remote.threads(), 15.0)
+assert sys.modules["jax"] is None and sys.modules["msgpack"] is None
+print("ok")
+"""
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=180)
+    assert out.returncode == 0, out.stderr[-4000:]
+    assert out.stdout.strip().splitlines()[-1] == "ok"
