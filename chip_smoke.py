@@ -53,8 +53,8 @@ Phases, each printed as one JSON line:
 12. mesh    -- config_mesh (bench.py:79-89): 1,000,000 nodes, 100 jobs x
                100,000 asks, through ``schedule_batch`` on a 4-shard mesh
                and on the single-card path: identical placements;
-13. columnar -- the columnar state store at half of config_mesh's
-               width: the first 500,000 of phase 12's nodes into a port
+13. columnar -- the columnar state store at a quarter of config_mesh's
+               width: the first 250,000 of phase 12's nodes into a port
                ``StateStore`` (its columnar mirror cold-built; cut from
                1,000,000 to keep the whole run inside its time limit),
                config (b)'s 100 x 1,000
@@ -218,13 +218,15 @@ Phases, each printed as one JSON line:
                plans, as many ``scored_rows`` kernel events in the
                session's chrome trace as launches counted, and a second
                ``start()`` during the session refused;
-21. durable -- the durable server: phase 17's fleet and config (b)'s
-               waves through the port's ``Server`` on a ``FileLog`` (the
+21. durable -- the durable server: half of phase 17's fleet (5,000
+               nodes) and config (b)'s waves, wave 1 halved (cut to keep
+               the whole run inside its time limit), through the port's
+               ``Server`` on a ``FileLog`` (the
                native group-commit WAL, fsync on, in a fresh temporary
                dir) on the card (A), an uninterrupted twin on the
                in-memory log on the card (B), and the CPU server on a
                ``FileLog`` (C), each world in a process of its own under
-               one string hash seed.  A and C: the fleet, wave 1 (100 x
+               one string hash seed.  A and C: the fleet, wave 1 (50 x
                1000) to settled, ``raft.snapshot()``, wave 2 (10 x 200)
                and one node down, wave 3's jobs registered with their
                evals pending, one more entry under a ``wal.fsync`` crash,
@@ -235,8 +237,10 @@ Phases, each printed as one JSON line:
                the pre-crash content, the torn entry absent, the mirror
                from the snapshot's columns; then wave 3 (re-enqueued by
                the leadership restore) and a follow-up (5 x 200): A = B
-               = C on committed allocs, eval statuses, blocked stats and
-               queued counts; one ``scored_rows`` launch per committing
+               = C on committed allocs, eval statuses, blocked stats,
+               queued counts and every job's version history
+               (``job_versions_by_id``, also restored equal to the
+               pre-crash history); one ``scored_rows`` launch per committing
                step; one full re-encode of the resident mirror after the
                restore, then hits; no guard mismatch, no nack, the
                breaker closed, no node over capacity; a restart from the
@@ -250,8 +254,8 @@ Phases, each printed as one JSON line:
                own under one string hash seed and one guard cadence
                (every read).  Leg 1, exact: a quarter of phase 17's
                fleet, 2,500 nodes (every fifth registered through a
-               follower, forwarded), half of config
-               (b)'s wave 1 (50 x 1000), every worker paused and wave 2
+               follower, forwarded), a quarter of config
+               (b)'s wave 1 (25 x 1000), every worker paused and wave 2
                (10 x 200) registered through a follower, the leader shut
                down (its broker first), a new leader elected whose
                restore re-enqueues wave 2, the workers released, a node
@@ -381,13 +385,25 @@ Phases, each printed as one JSON line:
                whose task fails, restarts once and fails, 8 service x 8
                with ``mock.job()``'s network ask, stopped once every
                alloc runs) submitted with the workers paused and
-               released; (C) A's script on the CPU.  Every builtin
-               fingerprint runs but the cloud metadata probes.  A = C on
-               the placements (job, alloc name -> node), every alloc's
-               final client status, each task's event types, the network
-               each task got (the one its node's fingerprint found), the
-               job statuses and summaries; no alloc terminal before the
-               wave's last eval is acked; one ``scored_rows`` launch per
+               released; 4 of the batch jobs on ``raw_exec``, 4 on
+               ``exec`` and 2 of the failing ones on ``raw_exec`` run
+               real processes under their supervisors (``/bin/sh``: the
+               batch ones echo their alloc index and task name, then
+               sleep), the rest on the mock driver; the clients get the
+               wave's allocs only once its last eval is acked (the
+               server's answers to their alloc watch held till then);
+               (C) A's script on the CPU.  Every client enables ``raw_exec``
+               and keeps ``cgroup_root`` empty.  Every builtin fingerprint runs but
+               the cloud metadata probes.  A = C on the placements (job,
+               alloc name -> node), every alloc's final client status,
+               each task's event types and ``Terminated`` exit codes, the
+               exec-family tasks' stdout logs and their count, the
+               network each task got (the one its node's fingerprint
+               found), the job statuses and summaries; no supervisor or
+               task pid alive after each world's shutdown, nothing made
+               under /sys/fs/cgroup, the supervisor start times (median,
+               p99); no alloc terminal before the wave's last eval is
+               acked; one ``scored_rows`` launch per
                committing step and the kernel at the shapes the path gave
                it within 4e-6 of its plain version; no nack, the breaker
                closed, no oracle route, no node over capacity; every alloc
@@ -451,6 +467,7 @@ import math
 import os
 import random
 import re
+import signal
 import statistics
 import subprocess
 import sys
@@ -1376,9 +1393,11 @@ def phase_mesh(dev):
 # -- phase 13: the columnar state store at config_mesh width ------------------
 
 COLUMNAR_SEED = 20261021
-# Phase columnar's fleet: the first half of phase mesh's 1,000,000 nodes
-# (the depth the whole run could give up to stay inside its limit).
-COLUMNAR_NODES = 500_000
+# Phase columnar's fleet: the first quarter of phase mesh's 1,000,000
+# nodes (the depth the whole run could give up to stay inside its limit:
+# first half, then a quarter once a whole run with the exec family's
+# processes in phase client took 1,195 s on a slow host).
+COLUMNAR_NODES = 250_000
 
 
 def columnar_over_capacity(store) -> int:
@@ -4532,8 +4551,9 @@ DURABLE_CHILD_TIMEOUT = 400.0
 # node goes down, the reconciler's) order its evals and tie-breaks, so
 # worlds compare only under one hash order.
 DURABLE_HASH_SEED = 20261024
-# Phase 17's fleet and config (b)'s waves; wave 3 and the follow-up.
-DURABLE_SIZES = {"n_nodes": 10_000, "n_jobs": 100, "count": 1000,
+# Half of phase 17's fleet and of config (b)'s wave 1 (cut to keep the
+# whole run inside its time limit); wave 3 and the follow-up.
+DURABLE_SIZES = {"n_nodes": 5_000, "n_jobs": 50, "count": 1000,
                  "wave_jobs": 10, "wave_count": 200, "follow_jobs": 5}
 
 
@@ -4568,8 +4588,10 @@ def fs_type(path) -> str:
 
 
 def durable_content(srv) -> dict:
-    """``server_content`` and the queued count of every job's groups, as
-    JSON gives them back (so a child's report compares)."""
+    """``server_content``, the queued count of every job's groups and
+    every job's version history (``job_versions_by_id``: id and version,
+    newest first), as JSON gives them back (so a child's report
+    compares)."""
     out = server_content(srv)
     st = srv.state
     queued = {}
@@ -4579,6 +4601,9 @@ def durable_content(srv) -> dict:
             queued[job_id] = {tg: v.queued
                               for tg, v in sorted(summ.summary.items())}
     out["queued"] = queued
+    out["job_versions"] = {
+        j.id: [[v.id, v.version] for v in st.job_versions_by_id(None, j.id)]
+        for j in sorted(st.jobs(None), key=lambda j: j.id)}
     return json.loads(json.dumps(out))
 
 
@@ -4918,10 +4943,11 @@ def same_commits(a, b) -> dict:
                         for k in ("allocs", "evals")}}
 
     diff = content_diff(rows(a), rows(b))
-    if a["queued"] != b["queued"]:
-        diff["queued"] = {k: (a["queued"].get(k), b["queued"].get(k))
-                          for k in set(a["queued"]) | set(b["queued"])
-                          if a["queued"].get(k) != b["queued"].get(k)}
+    for key in ("queued", "job_versions"):
+        if a[key] != b[key]:
+            diff[key] = {k: (a[key].get(k), b[key].get(k))
+                         for k in set(a[key]) | set(b[key])
+                         if a[key].get(k) != b[key].get(k)}
     return diff
 
 
@@ -4954,7 +4980,7 @@ def check_durable(child, restart, label, on_card, sc) -> list:
                       f"{restart['recovered_index']} != the last "
                       f"acknowledged {child['acked_index']}")
     rec, before = restart["recovered"], child["before"]
-    for key in ("allocs", "evals", "queued"):
+    for key in ("allocs", "evals", "queued", "job_versions"):
         if rec[key] != before[key]:
             errors.append(f"{label}: restored {key} differ from the "
                           f"pre-crash content: "
@@ -4980,7 +5006,7 @@ def check_durable(child, restart, label, on_card, sc) -> list:
             or restart["from_snapshot_index"] != restart["applied_final"]):
         errors.append(f"{label}: the restart from the snapshot replayed "
                       f"{restart['from_snapshot_recovery']}")
-    for key in ("allocs", "evals", "queued"):
+    for key in ("allocs", "evals", "queued", "job_versions"):
         if restart["from_snapshot"][key] != restart["after"][key]:
             errors.append(f"{label}: the content restored from the "
                           f"snapshot alone differs in {key}")
@@ -5086,6 +5112,8 @@ def phase_durable(dev, sizes=None):
         "card": smi, "fs": {"A": a["fs"], "C": c["fs"]},
         "restored_equals_pre_crash": True, "torn_entry_absent": True,
         "a_equals_b_equals_c": True,
+        "job_versions_compared": sum(
+            len(v) for v in a["after"]["job_versions"].values()),
         "recovery": {"A": a["recovery"], "C": c["recovery"]},
         "recovered_index": a["recovered_index"],
         "replay_entries": a["recovery"]["replayed_entries"],
@@ -5130,14 +5158,13 @@ CLUSTER_HASH_SEED = 20261025
 CLUSTER_RAFT = {"raft_heartbeat": 0.2, "raft_election_min": 5.0,
                 "raft_election_max": 8.0}
 CLUSTER_ELECTION_TIMEOUT = 60.0
-# Leg 1: a quarter of phase 17's fleet (2,500 nodes) and half of config
-# (b)'s wave 1 (50 x 1000; the asks past the fleet's room block), wave 2
-# (10 x 200) and a follow-up (10 x 200).  Leg 2: its fleet and jobs,
-# halved.  Both cut (5,000 nodes and 100 x 1000, 2,000 nodes and 200
-# jobs before) to keep the whole run inside its time limit; every
-# compared item holds at these sizes, and the fleet's room against the
-# asks is the same share.
-CLUSTER_SIZES = {"n_nodes": 2_500, "n_jobs": 50, "count": 1000,
+# Leg 1: a quarter of phase 17's fleet (2,500 nodes) and a quarter of
+# config (b)'s wave 1 (25 x 1000; the asks past the fleet's room block),
+# wave 2 (10 x 200) and a follow-up (10 x 200).  Leg 2: its fleet and
+# jobs, halved.  Both cut (5,000 nodes and 100 x 1000, then 50 x 1000;
+# 2,000 nodes and 200 jobs before) to keep the whole run inside its time
+# limit; every compared item holds at these sizes.
+CLUSTER_SIZES = {"n_nodes": 2_500, "n_jobs": 25, "count": 1000,
                  "wave_jobs": 10, "wave_count": 200, "follow_jobs": 10}
 LEG2_SIZES = {"n_nodes": 1_000, "n_jobs": 100, "count": 20}
 CLUSTER_STEPS = ("nodes", "wave1", "wave2_paused", "leader_down",
@@ -7136,12 +7163,17 @@ CLIENT_SIZES = {
     # (n_remote of those in a child process over RPC), the rest
     # mock.node() registered in process.
     "n_nodes": 10_000, "n_clients": 64, "n_remote": 16,
-    # The wave: (jobs, count) of each kind, and the mock tasks' run time:
-    # no alloc may end before the wave's last eval is acked (up to 10.1 s
-    # after the release on a card's host so far), so a batch task runs
-    # 16 s and a failing one 8 s twice.
+    # The wave: (jobs, count) of each kind, and the tasks' run time (a
+    # batch task 16 s, a failing one 8 s twice).  No alloc may end before
+    # the wave's last eval is acked: the clients get the wave's allocs
+    # only once it is (``AllocDelivery``), so no task starts before.
     "batch": (40, 8), "fail": (8, 4), "service": (8, 8),
     "run_for_s": 16.0, "fail_run_for_s": 8.0,
+    # The exec family: the first raw_exec_batch batch jobs run on
+    # raw_exec and the next exec_batch on exec, a real process each
+    # (``EXEC_SCRIPT``, sleeping run_for_s); the first raw_exec_fail
+    # failing jobs run ``sleep fail_run_for_s; exit 1`` on raw_exec.
+    "raw_exec_batch": 4, "exec_batch": 4, "raw_exec_fail": 2,
     # The GPU-pinned job of world A.
     "gpu_count": 4,
 }
@@ -7154,6 +7186,12 @@ CLIENT_ASK = {"cpu": 500, "memory_mb": 256, "disk_mb": 10}
 CLIENT_CLASS = "client-slice"
 CLIENT_HEARTBEAT_STAGGER = 1.0
 CLIENT_WAIT = 120.0
+# Every client enables raw_exec (and keeps ``cgroup_root`` empty: no
+# cgroup, nothing written under /sys/fs/cgroup).
+CLIENT_OPTIONS = {"driver.raw_exec.enable": "1"}
+# An exec-family batch task: its alloc index and task name (interpolated
+# by the driver), then the batch run time.
+EXEC_SCRIPT = 'echo "$NOMAD_ALLOC_INDEX ${NOMAD_TASK_NAME}"; sleep %s'
 # The cloud metadata fingerprints probe 169.254.169.254: the phase's
 # processes leave them out of the builtin list, since the smoke contacts
 # no host off the machine.  Every other fingerprint runs, ``network``
@@ -7182,6 +7220,7 @@ client {
   alloc_dir         = "%s"
   options = {
     "fingerprint.gpu.enable" = "true"
+    "driver.raw_exec.enable" = "1"
   }
 }
 """
@@ -7210,13 +7249,16 @@ def client_config(i, root, gpu):
         node_class=CLIENT_CLASS, cpu_total_compute=CLIENT_CPU,
         reserved=ps.Resources(**CLIENT_RESERVED),
         alloc_dir=os.path.join(root, client_name(i)),
-        options={"fingerprint.gpu.enable": "true"} if gpu else {})
+        options=dict(CLIENT_OPTIONS, **(
+            {"fingerprint.gpu.enable": "true"} if gpu else {})))
 
 
-def client_job(job_id, type_, count, config, restart, networks=False):
-    """``mock.job()`` as the phase runs it: services stripped, the mock
-    driver, ``CLIENT_ASK``, on the client nodes only; its network ask
-    (50 Mbit/s, two dynamic ports) kept when ``networks``."""
+def client_job(job_id, type_, count, config, restart, networks=False,
+               driver="mock_driver"):
+    """``mock.job()`` as the phase runs it: services stripped, ``driver``
+    (the mock driver by default), ``CLIENT_ASK``, on the client nodes
+    only; its network ask (50 Mbit/s, two dynamic ports) kept when
+    ``networks``."""
     from nomad_tpu_torch import mock
     from nomad_tpu_torch.structs import structs as ps
 
@@ -7228,7 +7270,7 @@ def client_job(job_id, type_, count, config, restart, networks=False):
     tg.restart_policy = ps.RestartPolicy(**restart)
     tg.ephemeral_disk = ps.EphemeralDisk(size_mb=CLIENT_ASK["disk_mb"])
     for t in tg.tasks:
-        t.driver = "mock_driver"
+        t.driver = driver
         t.config = dict(config)
         t.services = []
         t.resources = ps.Resources(
@@ -7238,20 +7280,50 @@ def client_job(job_id, type_, count, config, restart, networks=False):
     return j
 
 
+def exec_driver_of(job_id, sizes):
+    """The driver of a wave job: the exec family for the first batch and
+    failing jobs (``CLIENT_SIZES``), the mock driver for the rest."""
+    kind, k = job_id.rsplit("-", 1)
+    k = int(k)
+    if kind == "batch":
+        if k < sizes["raw_exec_batch"]:
+            return "raw_exec"
+        if k < sizes["raw_exec_batch"] + sizes["exec_batch"]:
+            return "exec"
+    if kind == "fail" and k < sizes["raw_exec_fail"]:
+        return "raw_exec"
+    return "mock_driver"
+
+
 def client_jobs(sizes):
     """The wave: batch jobs that complete, batch jobs whose task fails,
     restarts once and fails for good, and service jobs, with their
-    network ask, that run until they are stopped."""
+    network ask, that run until they are stopped.  The first batch and
+    failing jobs run real processes (``exec_driver_of``)."""
+    def task_config(job_id, mock_config, script):
+        if exec_driver_of(job_id, sizes) == "mock_driver":
+            return mock_config
+        return {"command": "/bin/sh", "args": ["-c", script]}
+
     jobs = []
     n, count = sizes["batch"]
-    jobs += [client_job(f"batch-{k:02d}", "batch", count,
-                        {"run_for": sizes["run_for_s"]},
-                        dict(attempts=0, mode="fail")) for k in range(n)]
+    for k in range(n):
+        job_id = f"batch-{k:02d}"
+        jobs.append(client_job(
+            job_id, "batch", count, task_config(
+                job_id, {"run_for": sizes["run_for_s"]},
+                EXEC_SCRIPT % sizes["run_for_s"]),
+            dict(attempts=0, mode="fail"),
+            driver=exec_driver_of(job_id, sizes)))
     n, count = sizes["fail"]
-    jobs += [client_job(f"fail-{k:02d}", "batch", count,
-                        {"run_for": sizes["fail_run_for_s"], "exit_code": 1},
-                        dict(attempts=1, interval=3600.0, delay=0.2,
-                             mode="fail")) for k in range(n)]
+    for k in range(n):
+        job_id = f"fail-{k:02d}"
+        jobs.append(client_job(
+            job_id, "batch", count, task_config(
+                job_id, {"run_for": sizes["fail_run_for_s"], "exit_code": 1},
+                f"sleep {sizes['fail_run_for_s']}; exit 1"),
+            dict(attempts=1, interval=3600.0, delay=0.2, mode="fail"),
+            driver=exec_driver_of(job_id, sizes)))
     n, count = sizes["service"]
     jobs += [client_job(f"service-{k:02d}", "service", count,
                         {"run_for": "1h"},
@@ -7259,6 +7331,36 @@ def client_jobs(sizes):
                              mode="delay"), networks=True)
              for k in range(n)]
     return jobs
+
+
+class AllocDelivery:
+    """The server's answers to the clients' alloc watch
+    (``node_get_client_allocs``, in process and over RPC), held while
+    ``hold()`` lasts: an answer that would come during the hold waits for
+    ``release()`` and is read afresh then.  The phase holds the wave's
+    allocs until its last eval is acked, so no task starts, and none
+    ends, before: a terminal alloc frees its resources and would change
+    a later eval's placements with its timing."""
+
+    def __init__(self, srv):
+        self._open = threading.Event()
+        self._open.set()
+        real = srv.node_get_client_allocs
+
+        def answer(node_id, min_index=0, max_wait=0.0):
+            out = real(node_id, min_index, max_wait)
+            if not self._open.is_set():
+                self._open.wait()
+                out = real(node_id, min_index, 0.0)
+            return out
+
+        srv.node_get_client_allocs = answer
+
+    def hold(self) -> None:
+        self._open.clear()
+
+    def release(self) -> None:
+        self._open.set()
 
 
 def shutdown_clients(clients) -> None:
@@ -7277,6 +7379,75 @@ def alloc_dirs(root, names) -> dict:
     for name in names:
         d = os.path.join(root, name)
         out[name] = sorted(os.listdir(d)) if os.path.isdir(d) else []
+    return out
+
+
+def exec_records(root, names) -> dict:
+    """alloc id -> what its exec-family tasks left in the alloc dir: the
+    log files (name -> content), the pids of ``supervisor.pid`` and
+    ``task.pid`` in each task's control dir, and each task's last
+    supervisor start (``task.pid`` written after ``command.json``, s)."""
+    out = {}
+    for name in names:
+        croot = os.path.join(root, name)
+        if not os.path.isdir(croot):
+            continue
+        for alloc_id in sorted(os.listdir(croot)):
+            adir = os.path.join(croot, alloc_id)
+            logs_dir = os.path.join(adir, "alloc", "logs")
+            logs = {}
+            if os.path.isdir(logs_dir):
+                for f in sorted(os.listdir(logs_dir)):
+                    with open(os.path.join(logs_dir, f), "rb") as fh:
+                        logs[f] = fh.read().decode(errors="replace")
+            pids, starts = [], []
+            for task in sorted(os.listdir(adir)):
+                ctl = os.path.join(adir, task, f".{task}.executor")
+                if not os.path.isdir(ctl):
+                    continue
+                for f in ("supervisor.pid", "task.pid"):
+                    try:
+                        with open(os.path.join(ctl, f)) as fh:
+                            pids.append(json.load(fh)["pid"])
+                    except (OSError, ValueError, KeyError):
+                        pass
+                try:
+                    starts.append(
+                        os.path.getmtime(os.path.join(ctl, "task.pid"))
+                        - os.path.getmtime(os.path.join(ctl, "command.json")))
+                except OSError:
+                    pass
+            if logs or pids:
+                out[alloc_id] = {"logs": logs, "pids": pids,
+                                 "start_s": starts}
+    return out
+
+
+def alive_pids(records) -> list:
+    """The pids of ``exec_records`` still alive (a zombie counts as
+    gone)."""
+    from nomad_tpu_torch.client.driver.executor import pid_alive
+
+    return sorted(p for r in records.values() for p in r["pids"]
+                  if pid_alive(p))
+
+
+def cgroup_tree() -> list:
+    """Every directory under /sys/fs/cgroup, two levels deep."""
+    root = "/sys/fs/cgroup"
+    out = []
+    if not os.path.isdir(root):
+        return out
+    for a in sorted(os.listdir(root)):
+        pa = os.path.join(root, a)
+        if not os.path.isdir(pa):
+            continue
+        out.append(a)
+        try:
+            out += [f"{a}/{b}" for b in sorted(os.listdir(pa))
+                    if os.path.isdir(os.path.join(pa, b))]
+        except OSError:
+            pass
     return out
 
 
@@ -7306,6 +7477,7 @@ def client_remote_child(addr, first, n, root) -> None:
         sys.stdout.flush()
 
     say({"built": names})
+    records = {}
     for line in sys.stdin:
         cmd = line.strip()
         if cmd == "start":
@@ -7315,7 +7487,8 @@ def client_remote_child(addr, first, n, root) -> None:
                     raise AssertionError(f"{c.node.name} did not register")
             say({"started": names})
         elif cmd == "dirs":
-            say({"dirs": alloc_dirs(root, names)})
+            records = exec_records(root, names)
+            say({"dirs": alloc_dirs(root, names), "exec": records})
         elif cmd == "gc":
             for c in clients:
                 c.garbage_collector.collect_all()
@@ -7326,6 +7499,7 @@ def client_remote_child(addr, first, n, root) -> None:
             for c in clients:
                 c.rpc.close()
             say({"threads": [t.name for c in clients for t in c.threads()],
+                 "alive_pids": alive_pids(records),
                  "sync_calls": sum(c.sync_calls for c in clients),
                  "sync_allocs": sum(c.sync_allocs for c in clients),
                  "attributes": {c.node.name: sorted(c.node.attributes)
@@ -7367,6 +7541,21 @@ class RemoteClients:
         self.proc.wait(30.0)
 
 
+def no_alloc_started(srv) -> None:
+    """Once the wave's last eval is acked, no alloc of it has reported a
+    task: the clients get none of its allocs before (``AllocDelivery``),
+    so none ended and freed its resources while the wave was placed."""
+    early = sorted(
+        (f"{a.job_id}/{a.name}", a.client_status,
+         [(e.type, e.message) for ts in a.task_states.values()
+          for e in ts.events][-3:])
+        for a in srv.state.allocs(None)
+        if a.client_status != "pending" or a.task_states)
+    if early:
+        raise AssertionError(f"allocs started before the wave was acked: "
+                             f"{early[:8]}")
+
+
 def wave_acked(srv, eval_ids) -> float:
     """Wait until every eval of ``eval_ids`` is done and acked and no plan
     is queued; the host clock then.  (``server_settle`` would wait for the
@@ -7403,6 +7592,13 @@ def client_state(srv) -> dict:
                                                     for e in ts.events]
                    for a in allocs for task, ts in sorted(
                        a.task_states.items())},
+        "exit_codes": {f"{a.job_id}/{a.name}/{task}": [
+            e.exit_code for e in ts.events if e.type == "Terminated"]
+            for a in allocs for task, ts in sorted(a.task_states.items())},
+        "driver_failures": {f"{a.job_id}/{a.name}/{task}": [
+            e.message for e in ts.events if e.type == "Driver Failure"]
+            for a in allocs for task, ts in sorted(a.task_states.items())
+            if any(e.type == "Driver Failure" for e in ts.events)},
         "networks": {f"{a.job_id}/{a.name}/{task}": [
             [nw.ip, nw.mbits, len(nw.dynamic_ports)] for nw in r.networks]
             for a in allocs for task, r in sorted(a.task_resources.items())},
@@ -7418,8 +7614,10 @@ def client_world(dev, sizes, root) -> dict:
     26): a port ``Agent`` (a server on ``dev`` and the first client),
     ``n_clients - n_remote - 1`` more clients in this process, ``n_remote``
     in a child process over RPC, the rest of the fleet ``mock.node()`` in
-    process; the wave submitted with the workers paused and released,
-    the service jobs stopped once every alloc runs, every alloc terminal,
+    process; the wave submitted with the workers paused and released, its
+    allocs delivered to the clients once its last eval is acked, the
+    service jobs stopped once every alloc has started, every alloc
+    terminal,
     the alloc dirs collected.  On the card, then, a job pinned on
     ``${attr.gpu.type}``.  The kernels' counts are set to 0 just before
     each wave and read once it is terminal."""
@@ -7464,6 +7662,7 @@ def client_world(dev, sizes, root) -> dict:
     agent.client.heartbeat_stagger = CLIENT_HEARTBEAT_STAGGER
     agent.client.rng = random.Random(CLIENT_SEED)
     srv = agent.server
+    delivery = AllocDelivery(srv)
     local = [agent.client]
     remote = None
     calls = {"n": 0, "allocs": 0}
@@ -7530,25 +7729,21 @@ def client_world(dev, sizes, root) -> dict:
             fused_score.MASKED_LAUNCHES = preempt.LAUNCHES = 0
             shapes = out["kernel_shapes"]
             with kernel_shapes(shapes):
+                delivery.hold()
                 eval_ids = [srv.job_register(j)[1] for j in jobs]
                 t_release = time.perf_counter()
                 srv.set_workers_paused(False)
                 t_acked = wave_acked(srv, eval_ids)
-                # No alloc may be terminal before the wave's last eval is
-                # acked: a terminal alloc frees its resources and would
-                # change the later evals' placements with its timing.
-                early = sorted(f"{a.job_id}/{a.name}"
-                               for a in srv.state.allocs(None)
-                               if a.client_terminal_status())
-                if early:
-                    raise AssertionError(
-                        f"allocs terminal before the wave was acked "
-                        f"({t_acked - t_release:.2f} s after the release; "
-                        f"raise run_for_s): {early[:8]}")
+                no_alloc_started(srv)
+                delivery.release()
                 out["release_to_acked_s"] = t_acked - t_release
                 out["allocs"] = len(srv.state.allocs(None))
+                # Every alloc started (a batch task may have ended since),
+                # every service running.
                 if not wait_until(lambda: all(
-                        a.client_status == "running"
+                        a.client_status != "pending" and (
+                            a.client_status == "running"
+                            or a.job.type != "service")
                         for a in srv.state.allocs(None)), CLIENT_WAIT,
                         max_interval=0.05):
                     raise AssertionError("not every alloc ran: " + str(
@@ -7590,7 +7785,11 @@ def client_world(dev, sizes, root) -> dict:
                     a.id)
             t_gc = time.perf_counter()
             made = alloc_dirs(root, names[:n_local])
-            made.update(remote.ask("dirs")["dirs"])
+            local_records = exec_records(root, names[:n_local])
+            answer = remote.ask("dirs")
+            made.update(answer["dirs"])
+            out.update(exec_content(srv, {**local_records,
+                                          **answer["exec"]}))
             out["dirs_made_as_placed"] = all(
                 made[n] == sorted(by_node.get(n, [])) for n in names)
             out["dirs_made"] = sum(len(v) for v in made.values())
@@ -7644,6 +7843,8 @@ def client_world(dev, sizes, root) -> dict:
         agent.shutdown()
         wait_until(lambda: not agent.threads() and not any(
             c.threads() for c in local), 30.0)
+        out["pids_alive_after_shutdown"] = (
+            alive_pids(local_records) + report["alive_pids"])
         out["threads_after_shutdown"] = (
             [t.name for t in agent.threads()]
             + [t.name for c in local for t in c.threads()]
@@ -7651,15 +7852,49 @@ def client_world(dev, sizes, root) -> dict:
         steps["shutdown_s"] = time.perf_counter() - t_stop
         agent = None
     finally:
+        delivery.release()
         if remote is not None:
             remote.close()
         if agent is not None:
             shutdown_clients(local[1:])
             agent.shutdown()
+        # After a fault, no supervisor or task outlives the world (a
+        # client's shutdown leaves them running).
+        for pid in alive_pids(exec_records(root, names)):
+            try:
+                os.killpg(pid, signal.SIGKILL)
+            except OSError:
+                pass
     out["kernel_shapes"] = {k: sorted(v) for k, v in
                             out["kernel_shapes"].items()}
     out["world_s"] = time.perf_counter() - t_world
     return out
+
+
+def percentile(values, q):
+    """The ``q``-th percentile of ``values`` (None when empty)."""
+    import numpy as np
+
+    return float(np.percentile(values, q)) if len(values) else None
+
+
+def exec_content(srv, records) -> dict:
+    """The exec-family tasks' outcome by content, keyed by job and alloc
+    name: each log file's content, the count of log files and of
+    supervisor and task pids recorded, and the supervisor start times
+    (ms)."""
+    by_id = {a.id: f"{a.job_id}/{a.name}" for a in srv.state.allocs(None)}
+    logs = {}
+    starts = []
+    for alloc_id, r in records.items():
+        for f, content in r["logs"].items():
+            logs[f"{by_id.get(alloc_id, alloc_id)}/{f}"] = content
+        starts += [s * 1e3 for s in r["start_s"]]
+    return {"exec_logs": dict(sorted(logs.items())),
+            "exec_log_files": len(logs),
+            "exec_allocs": len(records),
+            "exec_pids": sum(len(r["pids"]) for r in records.values()),
+            "supervisor_start_ms": sorted(starts)}
 
 
 def client_gpu_job(srv, sizes, local) -> dict:
@@ -7757,6 +7992,37 @@ def check_client_world(w, label, sizes, on_card) -> list:
         if types_ != want[key.split("-")[0]][1]:
             errors.append(f"{label}: {key} events {types_}")
             break
+    if w["driver_failures"]:
+        errors.append(f"{label}: driver failures "
+                      f"{list(w['driver_failures'].items())[:4]}")
+    codes = {"batch": [0], "fail": [1, 1], "service": []}
+    for key, got in w["exit_codes"].items():
+        if got != codes[key.split("-")[0]]:
+            errors.append(f"{label}: {key} exit codes {got}")
+            break
+    # The exec family: a real process an alloc (and its supervisor), the
+    # batch tasks' interpolated stdout, nothing alive after the shutdown.
+    bcount, fcount = sizes["batch"][1], sizes["fail"][1]
+    n_exec = ((sizes["raw_exec_batch"] + sizes["exec_batch"]) * bcount
+              + sizes["raw_exec_fail"] * fcount)
+    if w["exec_allocs"] != n_exec or w["exec_pids"] != 2 * n_exec:
+        errors.append(f"{label}: {w['exec_allocs']} exec-family allocs "
+                      f"with {w['exec_pids']} pids, want {n_exec}")
+    want_logs = {}
+    for key in w["placements"]:
+        job_id, name = key.split("/")
+        if job_id.startswith("batch") and exec_driver_of(
+                job_id, sizes) != "mock_driver":
+            index = name[name.rindex("[") + 1:-1]
+            want_logs[f"{key}/web.stdout.0"] = f"{index} web\n"
+    if w["exec_logs"] != want_logs or w["exec_log_files"] != len(want_logs):
+        diff = sorted(k for k in set(want_logs) | set(w["exec_logs"])
+                      if want_logs.get(k) != w["exec_logs"].get(k))
+        errors.append(f"{label}: exec logs differ at {diff[:4]} of "
+                      f"{len(diff)}")
+    if w["pids_alive_after_shutdown"]:
+        errors.append(f"{label}: supervisor or task pids alive after "
+                      f"shutdown: {w['pids_alive_after_shutdown'][:8]}")
     # Every client offers the network its fingerprint found; only the
     # service tasks ask for one, and each got it.
     if len(w["node_networks"]) != 1:
@@ -7806,8 +8072,9 @@ def phase_client(dev, sizes=None):
     on_card = torch_device(dev).type == "cuda"
     sizes = dict(CLIENT_SIZES if sizes is None else sizes)
     root = tempfile.mkdtemp(prefix="nomad-torch-client-")
+    cgroups_before = cgroup_tree()
     # The two worlds run side by side, each in its own processes: neither
-    # reads the other, and the run_for margins hold at either's pace.
+    # reads the other, and no timing moves a placement (``AllocDelivery``).
     worlds, faults = {}, []
 
     def run(label, device):
@@ -7825,13 +8092,18 @@ def phase_client(dev, sizes=None):
             t.join()
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    cgroups_made = sorted(set(cgroup_tree()) - set(cgroups_before))
     if faults:
         raise faults[0]
     a, c = worlds["A"], worlds["C"]
     errors = (check_client_world(a, "A", sizes, on_card)
               + check_client_world(c, "C", sizes, False))
-    for key in ("placements", "client_statuses", "events", "networks",
-                "jobs", "summaries"):
+    if cgroups_made:
+        errors.append(f"cgroups made under /sys/fs/cgroup: "
+                      f"{cgroups_made[:8]}")
+    for key in ("placements", "client_statuses", "events", "exit_codes",
+                "networks", "jobs", "summaries", "exec_logs",
+                "exec_log_files"):
         if a[key] != c[key]:
             diff = [k for k in set(a[key]) | set(c[key])
                     if a[key].get(k) != c[key].get(k)]
@@ -7867,11 +8139,19 @@ def phase_client(dev, sizes=None):
             if worst > 4e-6:
                 errors.append(f"scored_rows at A's shapes: {worst}")
     if errors:
+        errors.append("release -> acked s: A {} C {}".format(
+            a["release_to_acked_s"], c["release_to_acked_s"]))
         raise AssertionError(f"phase client: {errors}")
+
+    def start_stats(w):
+        ms = w["supervisor_start_ms"]
+        return {"n": len(ms), "median_ms": percentile(ms, 50),
+                "p99_ms": percentile(ms, 99)}
 
     def world_row(w):
         calls = w["update_allocs"]
         return {"device": w["device"],
+                "supervisor_start": start_stats(w),
                 "clients_register_s": w["clients_register_s"],
                 "mock_node_register_s": w["mock_node_register_s"],
                 "fleet_ready_s": w["fleet_ready_s"],
@@ -7890,7 +8170,11 @@ def phase_client(dev, sizes=None):
             "A_card": world_row(a), "C_cpu": world_row(c),
             "allocs": a["allocs"], "placements_equal": True,
             "statuses_equal": True, "events_equal": True,
+            "exit_codes_equal": True, "exec_logs_equal": True,
             "summaries_equal": True, "networks_equal": True,
+            "exec_allocs": a["exec_allocs"],
+            "exec_log_files": a["exec_log_files"],
+            "pids_alive_after_shutdown": 0, "cgroups_made": 0,
             "node_networks": a["node_networks"],
             "client_statuses": dict(collections.Counter(
                 a["client_statuses"].values())),

@@ -7,9 +7,11 @@ client/alloc_runner.go:47-921).
 Past the reference: a destroyed runner is done once its tasks have died
 (bounded by the client's ``max_kill_timeout``), not at once, so their
 last states are synced; ``stop()`` ends the runner's threads at the
-client's shutdown without recording anything more (the mock driver's
-tasks are threads of the agent's process, which cannot outlive it); and
-``threads()`` lists what is still alive.
+client's shutdown without recording anything more (an exec-family task
+runs on under its supervisor, as the reference's does, and a restored
+runner re-attaches to it through ``restored_handles``; a mock driver's
+task is a thread of the agent's process, which cannot outlive it, and
+is killed); and ``threads()`` lists what is still alive.
 """
 from __future__ import annotations
 
@@ -78,6 +80,8 @@ class AllocRunner:
         self.prev_alloc_dir = prev_alloc_dir
 
         self.task_states: Dict[str, s.TaskState] = {}
+        # task -> its saved handle id (a restored runner's).
+        self.restored_handles: Dict[str, str] = {}
         self.task_runners: Dict[str, TaskRunner] = {}
         self._state_lock = threading.Lock()
         self._alloc_client_status = ""
@@ -183,11 +187,17 @@ class AllocRunner:
         return out
 
     def stop(self) -> None:
-        """End the runner's threads at the client's shutdown: its tasks
-        are killed, and nothing more is recorded or pushed (the state
-        saved before stays what a restarted client restores)."""
+        """End the runner's threads at the client's shutdown: a task that
+        outlives the agent runs on (``TaskRunner.stop``), and nothing more
+        is recorded or pushed (the state saved before stays what a
+        restarted client restores)."""
         self._stopped.set()
-        self.destroy()
+        self._destroy.set()
+        self.waiting_on_previous.set()
+        with self._state_lock:
+            runners = list(self.task_runners.values())
+        for tr in runners:
+            tr.stop()
         self._dirty.set()
 
     def _run(self) -> None:
@@ -253,6 +263,7 @@ class AllocRunner:
                 consul=self.consul,
                 logger=self.logger,
                 rng=self.rng,
+                restore_handle=self._restore_handle(task.name),
             )
             with self._state_lock:
                 self.task_runners[task.name] = tr
@@ -263,9 +274,11 @@ class AllocRunner:
                 tr.destroy(s.TaskEvent(type=s.TASK_SIBLING_FAILED,
                                        failed_sibling=failed_sibling,
                                        failed=True))
+            elif self._stopped.is_set():
+                tr.stop()
             elif self._destroy.is_set():
-                # Destroyed (or stopped) while spawning: a runner made
-                # after the kill must not start its task.
+                # Destroyed while spawning: a runner made after the kill
+                # must not start its task.
                 tr.destroy(self._destroy_event
                            or s.TaskEvent(type=s.TASK_KILLED))
             tr.run()
@@ -281,6 +294,14 @@ class AllocRunner:
                                          30.0))
                     break
         self.save_state()
+
+    def _restore_handle(self, task: str) -> str:
+        """The saved handle id of a restored task that was running (the
+        task runner re-attaches to it), else ""."""
+        ts = self.task_states.get(task)
+        if ts is None or ts.state != s.TASK_STATE_RUNNING:
+            return ""
+        return self.restored_handles.get(task, "")
 
     def _sync_loop(self) -> None:
         """Debounced status push (alloc_runner.go dirtySyncState)."""

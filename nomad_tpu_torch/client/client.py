@@ -14,8 +14,10 @@ Where the port departs from the reference:
 
 - ``ClientConfig.node_id`` fixes the node's id (empty: a fresh UUID), and
   ``rng`` seeds the server list's shuffle and the restart jitter.
-- ``BUILTIN_DRIVERS`` holds ``mock_driver`` only (ROADMAP item 28(b)),
-  and there is no vault client (item 30).
+- There is no vault client (ROADMAP item 30).  ``BUILTIN_DRIVERS`` holds
+  the reference's builtins (``driver/__init__.py``); the ``exec``
+  driver's cgroups are under ``ClientConfig.cgroup_root``, none by
+  default.
 - The first heartbeat (init to ready) follows registration after a
   random stagger of up to ``heartbeat_stagger`` s (default 10, the Go
   client's initialHeartbeatStagger) or half the TTL, whichever is
@@ -23,9 +25,12 @@ Where the port departs from the reference:
   TTL its node stays init.
 - ``shutdown()`` saves every runner's state, then ends every thread the
   client started (its loops, the runners, the mock driver's tasks),
-  each join bounded; ``threads()`` lists what is still alive.  The
-  alloc watch long-polls ``WATCH_MAX_WAIT`` s (the reference 5 s), the
-  longest a shutdown waits for it.
+  each join bounded; ``threads()`` lists what is still alive.  An
+  exec-family task runs on under its supervisor, as the reference's
+  does, and a client restored from the same state re-attaches to it
+  (``Driver.open`` with the saved handle id) where the reference's
+  starts it anew.  The alloc watch long-polls ``WATCH_MAX_WAIT`` s (the
+  reference 5 s), the longest a shutdown waits for it.
 """
 from __future__ import annotations
 
@@ -42,7 +47,7 @@ from ..structs import structs as s
 from ..utils.backoff import Backoff
 from .alloc_runner import AllocRunner
 from .config import ClientConfig
-from .driver.driver import BUILTIN_DRIVERS, DriverContext, new_driver
+from .driver.driver import DriverContext, load_builtins, new_driver
 from .fingerprint import fingerprint_node
 from .gc import AllocGarbageCollector
 from .state import StateDB
@@ -143,7 +148,7 @@ class Client:
     def _setup_drivers(self) -> None:
         """Driver availability scan (client.go:969 setupDrivers)."""
         avail = []
-        for name in BUILTIN_DRIVERS:
+        for name in load_builtins():
             ctx = DriverContext(driver_name=name, alloc_id="",
                                 config=self.config, node=self.node)
             try:
@@ -509,6 +514,7 @@ class Client:
                 state_db=self.state_db, consul=self.consul,
                 logger=self.logger, rng=self.rng)
             runner.task_states = dict(state.get("task_states", {}))
+            runner.restored_handles = dict(state.get("handles", {}))
             with self._alloc_lock:
                 self.alloc_runners[alloc_id] = runner
             if not alloc.terminal_status():

@@ -1,10 +1,17 @@
 """Client configuration (a copy of ``nomad_tpu/client/config.py``;
 reference client/config/config.go).
 
-One field of the port's own: ``node_id``.  Empty, the client makes a
-fresh UUID at construction, as the reference's does (client.go:114);
-set, the node registers under it.  The state store orders nodes by id,
-so two worlds compare only when their clients' ids are fixed.
+Two fields of the port's own:
+
+- ``node_id``.  Empty, the client makes a fresh UUID at construction, as
+  the reference's does (client.go:114); set, the node registers under
+  it.  The state store orders nodes by id, so two worlds compare only
+  when their clients' ids are fixed.
+- ``cgroup_root``: the cgroup tree the ``exec`` driver puts its tasks in
+  (``driver/cgroups.py``).  Empty, the default, means none: tasks get
+  the ``RLIMIT_AS`` memory cap, and nothing is written under the host's
+  cgroup tree.  The JAX package's driver always uses ``/sys/fs/cgroup``
+  when it is writable.
 
 Vault is ROADMAP item 30: a non-empty ``vault_addr`` or ``vault_token``
 raises ``NotImplementedError`` at construction, never a client that
@@ -50,6 +57,8 @@ class ClientConfig:
     dev_mode: bool = False
     # The node's id; "" -> a fresh UUID (client.go:114).
     node_id: str = ""
+    # The exec driver's cgroup root; "" -> no cgroups (RLIMIT_AS only).
+    cgroup_root: str = ""
 
     def __post_init__(self) -> None:
         if self.vault_addr or self.vault_token:

@@ -7,6 +7,12 @@ availability onto the node, and start a task — returning a DriverHandle
 the TaskRunner uses to wait on / signal / kill the running task.  The
 registry maps driver names (``task.driver``) to factories, mirroring
 ``BuiltinDrivers`` (driver.go:25-32).
+
+In the port, ``load_builtins`` registers the builtin drivers (importing
+their modules) and ``new_driver``/``validate_driver_config`` call it
+first; ``WaitResult`` is defined in ``executor.py`` (a task's
+supervisor interpreter loads that module without this one's structs)
+and re-exported here.
 """
 from __future__ import annotations
 
@@ -18,6 +24,7 @@ from typing import Callable, Dict, List, Optional
 
 from ...structs import structs as s
 from .env import TaskEnv
+from .executor import WaitResult  # noqa: F401  (re-exported)
 
 
 # FS isolation modes advertised by drivers
@@ -38,19 +45,6 @@ class RecoverableError(DriverError):
 
 def is_recoverable(err: BaseException) -> bool:
     return isinstance(err, RecoverableError)
-
-
-@dataclass
-class WaitResult:
-    """Outcome of a finished task process
-    (reference: client/driver/structs/structs.go WaitResult)."""
-
-    exit_code: int = 0
-    signal: int = 0
-    err: Optional[str] = None
-
-    def successful(self) -> bool:
-        return self.exit_code == 0 and self.signal == 0 and self.err is None
 
 
 @dataclass
@@ -95,6 +89,8 @@ class PrestartResponse:
 class StartResponse:
     handle: "DriverHandle" = None
     network: Optional[s.NetworkResource] = None
+    # The handle is a restored task's, from ``Driver.open`` (the port's).
+    reattached: bool = False
 
 
 class DriverHandle:
@@ -134,9 +130,19 @@ class DriverHandle:
         in another process)."""
         return []
 
+    def detach(self) -> bool:
+        """Stop watching a task that outlives the agent, leaving it
+        running (the port's; a client's shutdown).  False: the task
+        cannot, and is killed instead."""
+        return False
+
 
 class Driver:
     """Task-execution backend (reference: driver.go:207-243)."""
+
+    # Whether a restored client re-attaches to the driver's running
+    # tasks through ``open`` (the port's; else it starts them anew).
+    reattach = False
 
     def __init__(self, ctx: DriverContext):
         self.ctx = ctx
@@ -199,8 +205,20 @@ def register_driver(name: str, factory: DriverFactory) -> None:
     BUILTIN_DRIVERS[name] = factory
 
 
+def load_builtins() -> Dict[str, DriverFactory]:
+    """The registry with every builtin driver registered: importing
+    ``container_drivers`` imports ``exec_drivers``, which imports
+    ``mock_driver`` first, so the order is the JAX package's client's
+    (mock_driver, the exec family, the containers) whichever module was
+    imported first."""
+    import importlib
+
+    importlib.import_module(f"{__package__}.container_drivers")
+    return BUILTIN_DRIVERS
+
+
 def new_driver(name: str, ctx: DriverContext) -> Driver:
-    factory = BUILTIN_DRIVERS.get(name)
+    factory = load_builtins().get(name)
     if factory is None:
         raise DriverError(f"unknown driver '{name}'")
     ctx.driver_name = name

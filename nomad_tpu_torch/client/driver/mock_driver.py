@@ -1,9 +1,8 @@
 """Mock driver: simulates task lifecycles without running processes —
 the workhorse of client/integration tests (a copy of
 ``nomad_tpu/client/driver/mock_driver.py``; reference:
-client/driver/mock_driver.go, build tag ``nomad_test``).  It is the only
-builtin driver of the port's client: the exec family and the containers
-are ROADMAP item 28(b).
+client/driver/mock_driver.go, build tag ``nomad_test``).  Its tasks are
+threads of the agent's process.
 
 Config keys (task.config):
   start_error / start_error_recoverable — fail Start()

@@ -16,6 +16,14 @@ token derivation fails (task_runner.go:205-220), never a silent start.
 The restart tracker's jitter takes the runner's ``rng`` (default: a
 fresh generator, as the reference makes one).  A destroyed running task
 always reports ``Killing`` before ``Killed`` (see ``destroy``).
+
+Past the reference: ``stop()`` ends the runner at its client's shutdown,
+and a task that outlives the agent (its handle ``detach``es: the exec
+family's, under a supervisor) runs on without an event; a runner given
+``restore_handle`` (a restored client's, for a task that was running)
+re-attaches to that task through the driver's ``open`` instead of
+starting it again (Go Nomad's restoreState; the JAX package's restored
+runner starts the task anew).
 """
 from __future__ import annotations
 
@@ -55,7 +63,8 @@ class TaskRunner:
                  node: Optional[s.Node] = None,
                  consul=None,
                  logger: Optional[logging.Logger] = None,
-                 rng: Optional[random.Random] = None):
+                 rng: Optional[random.Random] = None,
+                 restore_handle: str = ""):
         self.config = config
         self.alloc = alloc
         self.task = task.copy()
@@ -82,6 +91,9 @@ class TaskRunner:
         self._control = threading.Condition()
         self._thread: Optional[threading.Thread] = None
         self._dead_emitted = False
+        self._restore_handle = restore_handle
+        self._stopping = False
+        self._detached = False
         self.done = threading.Event()
 
     # -- env / driver ------------------------------------------------------
@@ -157,6 +169,14 @@ class TaskRunner:
         self._destroy_event = event
         self._destroy.set()
 
+    def stop(self) -> None:
+        """End the runner at its client's shutdown: a running task whose
+        handle detaches runs on, with no event (a restarted client
+        re-attaches to it); any other task is destroyed, since it cannot
+        outlive the agent's process."""
+        self._stopping = True
+        self.destroy()
+
     # -- main loop ---------------------------------------------------------
     def run(self) -> None:
         self._thread = threading.Thread(
@@ -210,12 +230,15 @@ class TaskRunner:
         return True
 
     def _run_loop(self) -> None:
-        self._emit(s.TASK_STATE_PENDING, s.TaskEvent(type=s.TASK_RECEIVED))
+        if not self._restore_handle:
+            self._emit(s.TASK_STATE_PENDING,
+                       s.TaskEvent(type=s.TASK_RECEIVED))
 
         self._loop_body()
         # Destroyed before (or between) iterations: still record the death
         # so the alloc status converges.
-        if self._destroy.is_set() and not self._dead_emitted:
+        if self._destroy.is_set() and not self._dead_emitted \
+                and not self._detached:
             ev = self._destroy_event or s.TaskEvent(type=s.TASK_KILLED)
             self._emit(s.TASK_STATE_DEAD, ev)
 
@@ -286,53 +309,62 @@ class TaskRunner:
 
     def _loop_body(self) -> None:
         while not self._destroy.is_set():
-            if not self._derive_vault_token():
-                return
-            task_env = self._build_env()
-
-            if not self._render_templates(task_env):
-                return
-
-            if not self._prestart(task_env):
-                return
-
-            # -- start ----------------------------------------------------
-            # Config validation is TERMINAL: an invalid config can never
-            # succeed, so it must not burn restart attempts
-            # (the reference fails Validate once, before the run loop).
-            try:
-                driver = self._create_driver(task_env)
-                driver.validate(self.task.config or {})
-            except ValueError as e:
-                self._emit(s.TASK_STATE_DEAD,
-                           s.TaskEvent(type=s.TASK_DRIVER_FAILURE,
-                                       failed=True,
-                                       message=f"driver config "
-                                               f"validation failed: {e}"))
-                return
-
-            try:
-                exec_ctx = ExecContext(task_dir=self.task_dir, task_env=task_env)
-                driver.prestart(exec_ctx, self.task)
-                resp: StartResponse = driver.start(exec_ctx, self.task)
-            except Exception as e:
-                self.logger.warning("driver start failed: %s", e)
-                self._emit(s.TASK_STATE_PENDING,
-                           s.TaskEvent(type=s.TASK_DRIVER_FAILURE,
-                                       message=str(e)))
-                self.restart_tracker.set_start_error(e)
-                if not self._should_restart():
+            resp = self._reattach()
+            if resp is None:
+                if not self._derive_vault_token():
                     return
-                continue
+                task_env = self._build_env()
+
+                if not self._render_templates(task_env):
+                    return
+
+                if not self._prestart(task_env):
+                    return
+
+                # -- start ------------------------------------------------
+                # Config validation is TERMINAL: an invalid config can
+                # never succeed, so it must not burn restart attempts
+                # (the reference fails Validate once, before the run loop).
+                try:
+                    driver = self._create_driver(task_env)
+                    driver.validate(self.task.config or {})
+                except ValueError as e:
+                    self._emit(s.TASK_STATE_DEAD,
+                               s.TaskEvent(type=s.TASK_DRIVER_FAILURE,
+                                           failed=True,
+                                           message=f"driver config "
+                                                   f"validation failed: {e}"))
+                    return
+
+                try:
+                    exec_ctx = ExecContext(task_dir=self.task_dir,
+                                           task_env=task_env)
+                    driver.prestart(exec_ctx, self.task)
+                    resp = driver.start(exec_ctx, self.task)
+                except Exception as e:
+                    self.logger.warning("driver start failed: %s", e)
+                    self._emit(s.TASK_STATE_PENDING,
+                               s.TaskEvent(type=s.TASK_DRIVER_FAILURE,
+                                           message=str(e)))
+                    self.restart_tracker.set_start_error(e)
+                    if not self._should_restart():
+                        return
+                    continue
 
             with self._handle_lock:
                 self.handle = resp.handle
-            self._emit(s.TASK_STATE_RUNNING, s.TaskEvent(type=s.TASK_STARTED))
+            if not resp.reattached:
+                self._emit(s.TASK_STATE_RUNNING,
+                           s.TaskEvent(type=s.TASK_STARTED))
             self._register_services(resp.handle)
 
             # -- wait -----------------------------------------------------
             wait_ev = resp.handle.wait_ch()
             while not wait_ev.wait(timeout=0.1):
+                if self._stopping and resp.handle.detach():
+                    # The client's shutdown: the task runs on.
+                    self._detached = True
+                    return
                 if self._destroy.is_set():
                     self._emit(s.TASK_STATE_RUNNING,
                                s.TaskEvent(type=s.TASK_KILLING,
@@ -358,6 +390,24 @@ class TaskRunner:
             self.restart_tracker.set_wait_result(res)
             if not self._should_restart():
                 return
+
+    def _reattach(self) -> Optional[StartResponse]:
+        """The restored task's handle through the driver's ``open``, once
+        (None: the task starts anew, received again)."""
+        handle_id, self._restore_handle = self._restore_handle, ""
+        if not handle_id:
+            return None
+        try:
+            task_env = self._build_env()
+            driver = self._create_driver(task_env)
+            if driver.reattach:
+                return StartResponse(handle=driver.open(ExecContext(
+                    task_dir=self.task_dir, task_env=task_env), handle_id),
+                    reattached=True)
+        except Exception as e:
+            self.logger.warning("re-attach to %s failed: %s", handle_id, e)
+        self._emit(s.TASK_STATE_PENDING, s.TaskEvent(type=s.TASK_RECEIVED))
+        return None
 
     def _should_restart(self) -> bool:
         """Consult the tracker; sleep the restart delay; emit the verdict

@@ -71,8 +71,14 @@ node writes and the GC deletes alike.  A store replaced by a restore is
 retired (:meth:`StateStore.retire`), which wakes its watchers for good:
 the query re-runs against the restored store.
 
-Left out of the copy: deployments and job version history (the snapshot
-has no sections for them).
+The store keeps each job's version history (the newest
+``JOB_TRACKED_VERSIONS`` versions, newest first: ``upsert_job`` records
+every version, ``delete_job`` drops the history) and the deployment
+table (state_store.py:1458-1553: upserts that may cancel a job's prior
+active deployments, status updates, reads by id, by job and the latest
+of a job, deletes), both with their snapshot sections.  As in the
+reference, no FSM message writes a deployment: the table is the store's
+API only.
 """
 from __future__ import annotations
 
@@ -96,6 +102,10 @@ _EMPTY_SET: Set[str] = set()
 # (NOMAD_TPU_ALLOC_LOG_CAP), in alloc rows: a slab entry weighs its
 # length.
 ALLOC_LOG_CAP = 262_144
+
+# Number of historical job versions retained (structs.go
+# JobTrackedVersions = 6).
+JOB_TRACKED_VERSIONS = 6
 
 
 class WatchSet:
@@ -191,11 +201,13 @@ class StateStore:
         self.store_uid: str = s.generate_uuid()
         self.nodes_table: Dict[str, s.Node] = {}
         self.jobs_table: Dict[str, s.Job] = {}
+        self.job_versions: Dict[str, List[s.Job]] = {}
         self.job_summary_table: Dict[str, s.JobSummary] = {}
         self.evals_table: Dict[str, s.Evaluation] = {}
         self.allocs_table: Dict[str, s.Allocation] = {}
         self.periodic_launch_table: Dict[str, PeriodicLaunch] = {}
         self.vault_accessors_table: Dict[str, VaultAccessor] = {}
+        self.deployments_table: Dict[str, s.Deployment] = {}
         self.namespaces_table: Dict[str, s.Namespace] = {}
         self._indexes: Dict[str, int] = {}
         # The per-namespace usage fold: immutable (cpu, mem_mb, disk_mb,
@@ -248,11 +260,14 @@ class StateStore:
             snap.store_uid = self.store_uid
             snap.nodes_table = dict(self.nodes_table)
             snap.jobs_table = dict(self.jobs_table)
+            snap.job_versions = {k: list(v)
+                                 for k, v in self.job_versions.items()}
             snap.job_summary_table = dict(self.job_summary_table)
             snap.evals_table = dict(self.evals_table)
             snap.allocs_table = dict(self.allocs_table)
             snap.periodic_launch_table = dict(self.periodic_launch_table)
             snap.vault_accessors_table = dict(self.vault_accessors_table)
+            snap.deployments_table = dict(self.deployments_table)
             snap.namespaces_table = dict(self.namespaces_table)
             # The fold's values are immutable tuples: a shallow copy is a
             # full fork, and a snapshot's writes never dirty the parent.
@@ -688,6 +703,7 @@ class StateStore:
             job.job_modify_index = index
             job.status = self._get_job_status(job, eval_delete=False)
             self._update_summary_with_job(index, job)
+            self._upsert_job_version(job)
             self.jobs_table[job.id] = job
             self._bump("jobs", index)
         eb = self.event_broker
@@ -697,13 +713,22 @@ class StateStore:
                             "Version": job.version, "Stop": job.stop,
                             "Namespace": job.namespace})
 
+    def _upsert_job_version(self, job: s.Job) -> None:
+        """Record ``job`` in its history, newest version first, keeping
+        ``JOB_TRACKED_VERSIONS`` (state_store.py:748)."""
+        history = self.job_versions.setdefault(job.id, [])
+        history.insert(0, job)
+        history.sort(key=lambda j: -j.version)
+        del history[JOB_TRACKED_VERSIONS:]
+
     def delete_job(self, index: int, job_id: str) -> None:
-        """(state_store.go:653): removes the job, its summary and its
-        periodic launch."""
+        """(state_store.go:653): removes the job, its versions, its
+        summary and its periodic launch."""
         with self._lock:
             if job_id not in self.jobs_table:
                 raise KeyError(f"job not found: {job_id}")
             del self.jobs_table[job_id]
+            self.job_versions.pop(job_id, None)
             self.job_summary_table.pop(job_id, None)
             self.periodic_launch_table.pop(job_id, None)
             self._bump("jobs", index)
@@ -723,6 +748,20 @@ class StateStore:
             ws.add(self, "jobs")
         with self._lock:
             return list(self.jobs_table.values())
+
+    def job_versions_by_id(self, ws, job_id: str) -> List[s.Job]:
+        """A job's tracked versions, newest first (state_store.py:812)."""
+        if ws is not None:
+            ws.add(self, "jobs")
+        with self._lock:
+            return list(self.job_versions.get(job_id, []))
+
+    def job_by_id_and_version(self, ws, job_id: str,
+                              version: int) -> Optional[s.Job]:
+        for j in self.job_versions_by_id(ws, job_id):
+            if j.version == version:
+                return j
+        return None
 
     def job_summary_by_id(self, ws, job_id: str) -> Optional[s.JobSummary]:
         if ws is not None:
@@ -913,6 +952,99 @@ class StateStore:
             return list(self.namespaces_table.values())
 
     # -- evals -------------------------------------------------------------
+
+    # -- deployments -------------------------------------------------------
+
+    def upsert_deployment(self, index: int, deployment: s.Deployment,
+                          cancel_prior: bool = False) -> None:
+        """(state_store.go:221 UpsertDeployment).  ``cancel_prior`` marks
+        every other active deployment of the same job cancelled
+        (state_store.go:266 cancelPriorDeployments)."""
+        cancelled: List[str] = []
+        with self._lock:
+            d = deployment.copy()
+            existing = self.deployments_table.get(d.id)
+            d.create_index = (index if existing is None
+                              else existing.create_index)
+            d.modify_index = index
+            if cancel_prior:
+                for other in list(self.deployments_table.values()):
+                    if (other.id != d.id and other.job_id == d.job_id
+                            and other.active()):
+                        upd = other.copy()
+                        upd.status = s.DEPLOYMENT_STATUS_CANCELLED
+                        upd.status_description = (
+                            "made obsolete by a newer deployment")
+                        upd.modify_index = index
+                        self.deployments_table[other.id] = upd
+                        cancelled.append(other.id)
+            self.deployments_table[d.id] = d
+            self._bump("deployment", index)
+        eb = self.event_broker
+        if eb is not None:
+            events = [eb.make_event(
+                s.TOPIC_DEPLOYMENT, "DeploymentUpserted", d.id, index,
+                {"JobID": d.job_id, "Status": d.status})]
+            events.extend(eb.make_event(
+                s.TOPIC_DEPLOYMENT, "DeploymentStatusUpdated", did, index,
+                {"Status": s.DEPLOYMENT_STATUS_CANCELLED})
+                for did in cancelled)
+            eb.publish(events)
+
+    def update_deployment_status(self, index: int,
+                                 update: s.DeploymentStatusUpdate) -> None:
+        """Apply a status transition (structs.go:379 DeploymentUpdates);
+        an unknown deployment is ignored."""
+        with self._lock:
+            existing = self.deployments_table.get(update.deployment_id)
+            if existing is None:
+                return
+            d = existing.copy()
+            d.status = update.status
+            d.status_description = update.status_description
+            d.modify_index = index
+            self.deployments_table[d.id] = d
+            self._bump("deployment", index)
+        eb = self.event_broker
+        if eb is not None:
+            eb.publish_one(s.TOPIC_DEPLOYMENT, "DeploymentStatusUpdated",
+                           d.id, index,
+                           {"JobID": d.job_id, "Status": d.status})
+
+    def deployment_by_id(self, ws,
+                         deployment_id: str) -> Optional[s.Deployment]:
+        """(state_store.go:311)."""
+        if ws is not None:
+            ws.add(self, "deployment")
+        with self._lock:
+            return self.deployments_table.get(deployment_id)
+
+    def deployments(self, ws=None) -> List[s.Deployment]:
+        """(state_store.go:298)."""
+        if ws is not None:
+            ws.add(self, "deployment")
+        with self._lock:
+            return list(self.deployments_table.values())
+
+    def deployments_by_job(self, ws, job_id: str) -> List[s.Deployment]:
+        """(state_store.go:330 DeploymentsByJobID)."""
+        if ws is not None:
+            ws.add(self, "deployment")
+        with self._lock:
+            return [d for d in self.deployments_table.values()
+                    if d.job_id == job_id]
+
+    def latest_deployment_by_job(self, ws,
+                                 job_id: str) -> Optional[s.Deployment]:
+        """A job's newest deployment by create index
+        (state_store.go LatestDeploymentByJobID)."""
+        out = self.deployments_by_job(ws, job_id)
+        return max(out, key=lambda d: d.create_index) if out else None
+
+    def delete_deployment(self, index: int, deployment_id: str) -> None:
+        with self._lock:
+            if self.deployments_table.pop(deployment_id, None) is not None:
+                self._bump("deployment", index)
 
     def upsert_evals(self, index: int, evals: List[s.Evaluation]) -> None:
         """(state_store.go:1123): also syncs queued counts into the
@@ -1819,10 +1951,12 @@ class StateStore:
             doc = {
                 "tables": {
                     "jobs": self.jobs_table,
+                    "job_versions": self.job_versions,
                     "job_summary": self.job_summary_table,
                     "evals": self.evals_table,
                     "periodic_launch": self.periodic_launch_table,
                     "vault_accessors": self.vault_accessors_table,
+                    "deployments": self.deployments_table,
                     "namespaces": self.namespaces_table,
                     "indexes": self._indexes,
                 },
@@ -1865,12 +1999,14 @@ class StateStore:
             return encode_payload({
                 "nodes": self.nodes_table,
                 "jobs": self.jobs_table,
+                "job_versions": self.job_versions,
                 "job_summary": self.job_summary_table,
                 "evals": self.evals_table,
                 "allocs": allocs_out,
                 "alloc_shared": shared.doc(),
                 "periodic_launch": self.periodic_launch_table,
                 "vault_accessors": self.vault_accessors_table,
+                "deployments": self.deployments_table,
                 "namespaces": self.namespaces_table,
                 "indexes": self._indexes,
             }, "snapshot")
@@ -1894,10 +2030,12 @@ class StateStore:
 
     def _restore_common(self, t: dict) -> None:
         self.jobs_table = t["jobs"]
+        self.job_versions = t["job_versions"]
         self.job_summary_table = t["job_summary"]
         self.evals_table = t["evals"]
         self.periodic_launch_table = t["periodic_launch"]
         self.vault_accessors_table = t["vault_accessors"]
+        self.deployments_table = t["deployments"]
         self.namespaces_table = t["namespaces"]
         self._indexes = t["indexes"]
         for ev in self.evals_table.values():

@@ -10,11 +10,12 @@ memory_mb, disk_mb, iops) so they lower directly to the int32 ``[N, 4]`` /
 The job side of a jobspec is whole: restart policies, services and
 their checks, log configs, artifacts, templates and vault asks are the
 reference's types, so a parsed HCL job round-trips through the wire
-codec as the reference's does.  Left out of the copy: ``Job.vault_token``
-and ``Job.stable`` (vault and job versions), the task event and task
-state fields only the client writes, and deployments.  The event
-stream's structs (``TOPIC_*``, ``EVENT_TOPICS``, ``Event``) are here;
-the deployment topic names a table the port does not have yet.
+codec as the reference's does.  The deployments
+(``DEPLOYMENT_STATUS_*``, ``DeploymentState``, ``Deployment``,
+``DeploymentStatusUpdate``) and ``Job.stable`` are here for the state
+store's job versions and deployment table.  Left out of the copy:
+``Job.vault_token`` (vault, ROADMAP item 30).  The event stream's
+structs (``TOPIC_*``, ``EVENT_TOPICS``, ``Event``) are here.
 """
 from __future__ import annotations
 
@@ -637,6 +638,7 @@ class Job:
     status: str = JOB_STATUS_PENDING
     status_description: str = ""
     stop: bool = False
+    stable: bool = False
     version: int = 0
     submit_time: float = 0.0
     create_index: int = 0
@@ -1242,6 +1244,67 @@ class DesiredUpdates:
     stop: int = 0
     in_place_update: int = 0
     destructive_update: int = 0
+
+
+# Deployment statuses (structs.go:3688-3694).
+DEPLOYMENT_STATUS_RUNNING = "running"
+DEPLOYMENT_STATUS_FAILED = "failed"
+DEPLOYMENT_STATUS_SUCCESSFUL = "successful"
+DEPLOYMENT_STATUS_CANCELLED = "cancelled"
+DEPLOYMENT_STATUS_PAUSED = "paused"
+
+
+@dataclass
+class DeploymentState:
+    """Per-task-group deployment progress (structs.go:3757-3790)."""
+
+    promoted: bool = False
+    requires_promotion: bool = False
+    desired_canaries: int = 0
+    desired_total: int = 0
+    placed_allocs: int = 0
+    healthy_allocs: int = 0
+    unhealthy_allocs: int = 0
+
+    def copy(self) -> "DeploymentState":
+        return _fast_copy(self)
+
+
+@dataclass
+class Deployment:
+    """Tracks a job version's rollout (structs.go:3698-3755).  The
+    scheduler never creates one at this reference version; the state
+    store keeps the table."""
+
+    id: str = ""
+    job_id: str = ""
+    job_version: int = 0
+    job_modify_index: int = 0
+    job_create_index: int = 0
+    task_groups: Dict[str, DeploymentState] = field(default_factory=dict)
+    status: str = DEPLOYMENT_STATUS_RUNNING
+    status_description: str = ""
+    create_index: int = 0
+    modify_index: int = 0
+
+    def active(self) -> bool:
+        """(structs.go:3747-3752)."""
+        return self.status in (DEPLOYMENT_STATUS_RUNNING,
+                               DEPLOYMENT_STATUS_PAUSED)
+
+    def copy(self) -> "Deployment":
+        c = _fast_copy(self)
+        c.task_groups = {k: v.copy() for k, v in self.task_groups.items()}
+        return c
+
+
+@dataclass
+class DeploymentStatusUpdate:
+    """A status transition (structs.go:379,3795)."""
+
+    deployment_id: str = ""
+    status: str = ""
+    status_description: str = ""
 
 
 @dataclass

@@ -68,8 +68,9 @@ NOW = 1_800_000_000.0
 # Wire keys that hold wall-clock times.
 TIMES = frozenset({"CreateTime", "SubmitTime", "AllocationTime",
                    "StatusUpdatedAt", "ModifyTime"})
-# The reference's job fields the port's structs do not carry.
-REF_ONLY = frozenset({"VaultToken", "Stable"})
+# The reference's job fields the port's structs do not carry (vault is
+# ROADMAP item 30).
+REF_ONLY = frozenset({"VaultToken"})
 
 AGENT_HCL = """
 name      = "twin"

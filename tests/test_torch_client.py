@@ -397,12 +397,24 @@ def test_mock_driver_validation_equals_the_reference(cfg):
 
 @pytest.mark.parametrize("name", ["raw_exec", "exec", "docker", "qemu"])
 def test_only_the_mock_driver_is_built_in(name):
-    """The exec family and the containers are ROADMAP item 28(b): the
-    port's registry refuses them as the reference's refuses a driver it
-    does not know."""
-    assert list(BUILTIN_DRIVERS) == ["mock_driver"]
-    with pytest.raises(pdriver.DriverError, match=f"unknown driver '{name}'"):
-        pdriver.validate_driver_config(name, {"command": "/bin/true"})
+    """The builtin drivers are the reference's, registered in its order
+    (the exec family and the containers joined the mock driver; the name
+    is kept from when the mock driver was the only one): each validates a
+    config as the reference's does, and both registries refuse a driver
+    they do not know."""
+    import nomad_tpu.client.client  # noqa: F401  (registers the builtins)
+
+    assert list(BUILTIN_DRIVERS) == list(jdriver.BUILTIN_DRIVERS)
+    assert name in BUILTIN_DRIVERS
+    for cfg in ({"command": "/bin/true"}, {"image": "redis:7"}, {}):
+        verdicts = []
+        for mod in (jdriver, pdriver):
+            try:
+                mod.validate_driver_config(name, cfg)
+                verdicts.append(None)
+            except ValueError as e:
+                verdicts.append(str(e))
+        assert verdicts[0] == verdicts[1], (name, cfg)
     for mod in (jdriver, pdriver):
         with pytest.raises(mod.DriverError, match="unknown driver 'nosuch'"):
             mod.validate_driver_config("nosuch", {})

@@ -529,3 +529,54 @@ def test_client_task_states_decode_as_the_reference_states():
     assert as_plain(port_out) == as_plain(ref_out) == as_plain(port)
     assert port_out["states"]["web"].events[0].display_message() == \
         ref_out["states"]["web"].events[0].display_message() == "m"
+
+
+# -- the store's job versions and deployments --------------------------------
+
+# The schema fingerprint of the port's structs before the deployments
+# (DeploymentState, Deployment, DeploymentStatusUpdate) and Job.stable,
+# and a frame that build wrote: {"job_id": "per", "purge": True}.  A data
+# dir or client state file of that build is refused, never misread.
+PRE_DEPLOYMENT_FINGERPRINT = bytes.fromhex("5b02259307a1572c")
+PRE_DEPLOYMENT_FRAME = bytes.fromhex(
+    "c1015b02259307a1572c080205066a6f625f696405037065720505707572676502")
+
+
+def test_pre_deployment_frame_raises_naming_both_fingerprints():
+    assert schema.FINGERPRINT != PRE_DEPLOYMENT_FINGERPRINT
+    assert PRE_DEPLOYMENT_FRAME[2:10] == PRE_DEPLOYMENT_FINGERPRINT
+    with pytest.raises(codec.CodecError) as e:
+        log_codec.decode_payload(PRE_DEPLOYMENT_FRAME)
+    assert PRE_DEPLOYMENT_FINGERPRINT.hex() in str(e.value)
+    assert schema.FINGERPRINT.hex() in str(e.value)
+    # This build's frame of the same payload decodes.
+    blob = log_codec.encode_payload({"job_id": "per", "purge": True})
+    assert blob[10:] == PRE_DEPLOYMENT_FRAME[10:]
+    assert log_codec.decode_payload(blob) == {"job_id": "per", "purge": True}
+
+
+def test_deployments_decode_as_the_reference_deployments():
+    """A deployment with its task-group states and a stable job, through
+    both codecs: the port's decode equals the reference's."""
+    def payload(m):
+        return {"deployment": m.Deployment(
+            id="d1", job_id="j1", job_version=3, job_modify_index=7,
+            job_create_index=2, status=m.DEPLOYMENT_STATUS_PAUSED,
+            status_description="held", create_index=9, modify_index=11,
+            task_groups={"web": m.DeploymentState(
+                promoted=True, desired_canaries=1, desired_total=5,
+                placed_allocs=2, healthy_allocs=1, unhealthy_allocs=1)}),
+            "update": m.DeploymentStatusUpdate(
+                deployment_id="d1", status=m.DEPLOYMENT_STATUS_FAILED,
+                status_description="x")}
+
+    ref_out = jlog_codec.decode_payload(
+        jlog_codec.encode_payload(payload(js)))
+    port_out = log_codec.decode_payload(
+        log_codec.encode_payload(payload(ps)))
+    assert as_plain(port_out) == as_plain(ref_out)
+    assert port_out["deployment"].active() and ref_out["deployment"].active()
+    job = convert.job_from_dict(dataclasses.asdict(jmock.job()))
+    job.stable = True
+    assert log_codec.decode_payload(log_codec.encode_payload(
+        {"job": job}))["job"].stable is True

@@ -970,3 +970,77 @@ def test_gpu_fingerprinted_client_runs_a_gpu_job(tmp_path, monkeypatch):
     finally:
         c.shutdown()
         srv.shutdown()
+
+
+@pytest.mark.gpu
+def test_exec_task_through_a_client_of_a_card_server(tmp_path, monkeypatch):
+    """A port client registers with a server on the card; an ``exec``
+    job is placed by ``scored_rows`` and runs for real under its
+    supervisor (the default ``ClientConfig``: no cgroup, the RLIMIT_AS
+    cap): exit code 0, its interpolated stdout in the alloc's log dir,
+    and no supervisor or task left once the client has shut down."""
+    need_card()
+    import json
+    import socket
+
+    real = socket.create_connection
+
+    def local_only(address, *args, **kwargs):
+        if address[0] not in ("127.0.0.1", "localhost"):
+            raise OSError("no network in this test")
+        return real(address, *args, **kwargs)
+
+    monkeypatch.setattr(socket, "create_connection", local_only)
+    from nomad_tpu_torch.client import Client, ClientConfig
+    from nomad_tpu_torch.client.driver.executor import pid_alive
+    from nomad_tpu_torch.ops.breaker import KernelCircuitBreaker
+    from nomad_tpu_torch.server import Server, ServerConfig
+    from nomad_tpu_torch.structs import structs as s
+    from nomad_tpu_torch.utils.backoff import wait_until
+
+    srv = Server(ServerConfig(device="cuda", rng_seed=7,
+                              min_heartbeat_ttl=3600.0,
+                              breaker=KernelCircuitBreaker()))
+    srv.start()
+    c = Client(ClientConfig(node_id="exec-node", node_class="exec",
+                            cpu_total_compute=4000, alloc_dir=str(tmp_path)),
+               rpc=srv, heartbeat_stagger=0.1)
+    pids = []
+    try:
+        assert c.node.attributes["driver.exec"] == "1"
+        c.start()
+        assert wait_until(lambda: (srv.node_get("exec-node") or s.Node())
+                          .status == "ready", 30.0)
+        fused_score.LAUNCHES = kernels.COMMIT_STEPS = 0
+        job = s.Job(id="exec-job", name="exec-job", type="batch",
+                    datacenters=["dc1"], task_groups=[s.TaskGroup(
+                        name="g", count=2, tasks=[s.Task(
+                            name="t", driver="exec",
+                            config={"command": "/bin/sh", "args": [
+                                "-c", 'echo "$NOMAD_ALLOC_INDEX '
+                                '${NOMAD_TASK_NAME}"']},
+                            resources=s.Resources(cpu=100, memory_mb=64))],
+                        restart_policy=s.RestartPolicy(attempts=0,
+                                                       mode="fail"),
+                        ephemeral_disk=s.EphemeralDisk(size_mb=10))])
+        srv.job_register(job)
+        assert wait_until(lambda: len(srv.state.allocs(None)) == 2 and all(
+            a.client_status == "complete" for a in srv.state.allocs(None)),
+            60.0)
+        assert fused_score.LAUNCHES == kernels.COMMIT_STEPS > 0
+        outs = set()
+        for a in srv.state.allocs(None):
+            ev = a.task_states["t"].events
+            assert [e.type for e in ev] == ["Received", "Started",
+                                            "Terminated"]
+            assert ev[-1].exit_code == 0
+            adir = tmp_path / a.id
+            outs.add((adir / "alloc" / "logs" / "t.stdout.0").read_text())
+            ctl = adir / "t" / ".t.executor"
+            pids += [json.loads((ctl / f).read_text())["pid"]
+                     for f in ("supervisor.pid", "task.pid")]
+        assert outs == {"0 t\n", "1 t\n"}
+    finally:
+        c.shutdown()
+        srv.shutdown()
+    assert len(pids) == 4 and not any(pid_alive(p) for p in pids)

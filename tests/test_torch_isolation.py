@@ -496,7 +496,11 @@ print(verdicts["sanitized_corpus"].split(":")[0])
     "client/state.py", "client/gc.py", "client/stats.py",
     "client/fs_stream.py", "client/driver/__init__.py",
     "client/driver/driver.py", "client/driver/env.py",
-    "client/driver/fields.py", "client/driver/mock_driver.py"])
+    "client/driver/fields.py", "client/driver/mock_driver.py",
+    "client/driver/cgroups.py", "client/driver/executor.py",
+    "client/driver/supervisor.py", "client/driver/exec_drivers.py",
+    "client/driver/docker_api.py", "client/driver/container_drivers.py",
+])
 def test_client_modules_are_checked(module):
     """The client's modules are among the files the import and name-lookup
     checks above walk."""

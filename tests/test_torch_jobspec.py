@@ -27,8 +27,8 @@ from nomad_tpu_torch.cli.commands import EXAMPLE_JOB
 
 REF_TESTS = pathlib.Path(__file__).resolve().parent / "test_jobspec.py"
 
-# Job fields the port's structs do not carry.
-REF_ONLY_JOB = ("VaultToken", "Stable")
+# Job fields the port's structs do not carry (vault is ROADMAP item 30).
+REF_ONLY_JOB = ("VaultToken",)
 
 
 def hcl_sources():
