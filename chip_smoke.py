@@ -226,7 +226,10 @@ Phases, each printed as one JSON line:
                dir) on the card (A), an uninterrupted twin on the
                in-memory log on the card (B), and the CPU server on a
                ``FileLog`` (C), each world in a process of its own under
-               one string hash seed.  A and C: the fleet, wave 1 (50 x
+               one string hash seed, the card's (A's crash, its restart,
+               then B) one after the other beside C's (every time a world
+               prints names the worlds it ran beside, ``ran_beside``).
+               A and C: the fleet, wave 1 (50 x
                1000) to settled, ``raft.snapshot()``, wave 2 (10 x 200)
                and one node down, wave 3's jobs registered with their
                evals pending, one more entry under a ``wal.fsync`` crash,
@@ -252,7 +255,8 @@ Phases, each printed as one JSON line:
                TCP (RPC over the struct codec, serf-lite membership,
                ``MultiRaft``, forwarding), each world in a process of its
                own under one string hash seed and one guard cadence
-               (every read).  Leg 1, exact: a quarter of phase 17's
+               (every read), the card's (A, B, then leg 2) one after the
+               other beside C (``ran_beside``).  Leg 1, exact: a quarter of phase 17's
                fleet, 2,500 nodes (every fifth registered through a
                follower, forwarded), a quarter of config
                (b)'s wave 1 (25 x 1000), every worker paused and wave 2
@@ -287,7 +291,8 @@ Phases, each printed as one JSON line:
                in-memory log (every columnar guard at every read, the
                resident mirror's guard every batch, both observability
                planes armed), on the card and on the CPU, each world in a
-               process of its own under one string hash seed: phase 17's
+               process of its own under one string hash seed, the two
+               side by side (``ran_beside``): phase 17's
                10,000 ``mock.node()`` nodes; namespaces ``prod`` (weight
                2) and ``batch`` (weight 1, 25,000 live allocs), DRF; wave
                1 with the workers paused: ``prod``'s 30 service jobs x
@@ -346,7 +351,8 @@ Phases, each printed as one JSON line:
                the private breaker at one trip; a second trigger inside
                the interval writes nothing; no lock-order cycle;
 25. agent   -- the front door, each world in a process of its own under
-               one string hash seed: (A) a port ``Agent`` from an HCL
+               one string hash seed, the card's (A, then B) beside C
+               (``ran_beside``): (A) a port ``Agent`` from an HCL
                config (a server, no client, HTTP and RPC on ephemeral
                ports, the in-memory log) on the card, 10,000
                ``mock.node()`` nodes (the first 100 over its RPC
@@ -412,10 +418,51 @@ Phases, each printed as one JSON line:
                left.  On the card, the in-process clients carry
                ``gpu.type`` (the card's name) and a job pinned on it runs
                there; release to all running and to all terminal, and the
-               ``Node.UpdateAlloc`` calls and their mean batch;
-27. drills  -- the twelve drills of ``python -m nomad_tpu_torch.ops
+               ``Node.UpdateAlloc`` calls and their mean batch.  Vault:
+               the agent's ``vault {}`` block on a ``FakeVault``; a batch
+               job whose task asks for vault, pinned on the agent's
+               client, derives its token (wrapped, unwrapped by the
+               client): its ``secrets/vault_token`` holds a token with
+               the task's policy, and once the alloc has ended its
+               accessor reads revoked and its row is gone; A = C on its
+               task events;
+27. federation -- two regions (r0 on the in-memory log, r1 on a
+               ``FileLog``), each one port server, WAN-joined, (A) on
+               the card and (C) on the CPU, side by side, each world in
+               a process of its own under one string hash seed.  Leg 1:
+               each region cluster leg 1's fleet at 5,000 nodes, 40 jobs
+               x 250 submitted through r0, the odd ones for r1
+               (forwarded), each region released and settled in turn:
+               A = C on each region's placements, unplaced counts and
+               AllocMetric scores (within 4e-6), every job only in its
+               own region and none holding allocs in two
+               (``federated_sweep``), one ``scored_rows`` launch per
+               committing step and the kernel at A's shapes against its
+               plain version (0 differing bits).  Leg 2: r1 stopped; its
+               submissions through r0 (in process and over the wire)
+               raise ``NoPathToRegion`` with a ``retry_after`` within 10
+               s, r0 places its own jobs meanwhile, the
+               ``RegionEventAggregator`` names r1 unreachable with its
+               cursor kept; r1 restarted on its address and data dir, a
+               probe through r0 placed in r1 within 30 s.  Between
+               legs 1 and 2, the forward tax as a rate: 256 one-alloc
+               jobs of r1 from 8 threads, through r1 itself, then
+               through r0 (forwarded): registrations and evals acked a
+               second in each stream, one launch a committing step.
+               Leg 3 (A only): the ``multi_region`` scenario through
+               ``run_multi_region``'s harness on card servers (80
+               nodes, 480 submissions, 25 % cross-region, r1 dark 3 s
+               at 4 s): the federated auditor's 0 violations, the
+               blackout recovered, its breaker closed with no trip and
+               no oracle route, one launch a committing step of its
+               servers, the kernel at its shapes against its plain
+               version (0 differing bits), and the forward's submit
+               latency, local against cross;
+28. drills  -- the thirteen drills of ``python -m nomad_tpu_torch.ops
                --selfcheck --device cuda`` in this process: preemption,
-               breaker, columnar, tracing, wal, follower, residency,
+               breaker, columnar, tracing, wal, follower, chaos (a
+               partitioned follower blinded, healed and caught up under
+               the safety auditor), residency,
                fused, residue (the native decode against its numpy twins,
                the guard at every call), codec, mesh (four shards of the
                card: the per-shard device twin, one corrupted row
@@ -427,7 +474,7 @@ Phases, each printed as one JSON line:
                steps of the drills' device batches (a step a shard on the
                mesh), ``masked_score_matrix`` launches four a call of
                ``sharded_candidate_scores`` (none on the fused mesh pass);
-28. times   -- each kernel's device time (profiler trace; CUDA events
+29. times   -- each kernel's device time (profiler trace; CUDA events
                where the trace has none) over copies of its inputs that
                overflow the L2 (``rotating``: twice the L2 of input bytes
                a cycle), its plain version's, the bound for the same work
@@ -436,7 +483,7 @@ Phases, each printed as one JSON line:
                (the mesh's call at config_mesh); the launch floor (a
                one-element fill); the kernels' SASS instruction counts and the
                issue-rate time they give;
-29. profile -- config (b)'s first batch again, warm, on the single card
+30. profile -- config (b)'s first batch again, warm, on the single card
                and on a 4-shard mesh: untraced, and under a device-only
                trace for the device busy time and idle share.
 
@@ -490,6 +537,37 @@ ATOL = 4e-6
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
 L2_BYTES = 50 * 2**20
+
+
+def side_by_side(chains):
+    """Run each chain of ``chains`` ({chain: (worlds, callable)}, where
+    ``worlds`` labels the worlds the callable runs one after the other)
+    in a thread of its own, side by side (each world is a child process,
+    so they share only the host).  Returns ``(results by chain,
+    beside)``: ``beside`` names, for each world, the worlds of the other
+    chains, which ran on the same host while it did.  The first fault is
+    raised once every chain has ended."""
+    out, faults = {}, []
+    beside = {w: [o for other, (theirs, _) in chains.items()
+                  if other != chain for o in theirs]
+              for chain, (worlds, _) in chains.items() for w in worlds}
+
+    def run(label, fn):
+        try:
+            out[label] = fn()
+        except BaseException as exc:  # noqa: BLE001 — raised below
+            faults.append(exc)
+
+    threads = [threading.Thread(target=run, args=(label, fn),
+                                name=f"world-{label}")
+               for label, (_, fn) in chains.items()]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if faults:
+        raise faults[0]
+    return out, beside
 
 
 def emit(obj) -> None:
@@ -5058,19 +5136,31 @@ def phase_durable(dev, sizes=None):
         dirs = {k: os.path.join(root, k) for k in ("A", "C")}
         for d in dirs.values():
             os.makedirs(d)
-        t0 = time.perf_counter()
-        a_child = run_durable_child("crash", dev, dirs["A"], sizes)
-        a = run_durable_child("restart", dev, dirs["A"], sizes,
-                              a_child["draws_after_crash"])
-        t_a = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        b = run_durable_child("twin", dev, root, sizes)
-        t_b = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        c_child = run_durable_child("crash", "cpu", dirs["C"], sizes)
-        c = run_durable_child("restart", "cpu", dirs["C"], sizes,
-                              c_child["draws_after_crash"])
-        t_c = time.perf_counter() - t0
+        # The card's worlds (A's crash, then its restart, then B) in one
+        # chain, beside the CPU's C (its crash, then its restart).
+        secs = {}
+
+        def crash_restart(label, device):
+            t0 = time.perf_counter()
+            child = run_durable_child("crash", device, dirs[label], sizes)
+            after = run_durable_child("restart", device, dirs[label], sizes,
+                                      child["draws_after_crash"])
+            secs[label] = time.perf_counter() - t0
+            return child, after
+
+        def card_chain():
+            out = crash_restart("A", dev)
+            t0 = time.perf_counter()
+            twin = run_durable_child("twin", dev, root, sizes)
+            secs["B"] = time.perf_counter() - t0
+            return out, twin
+
+        worlds, beside = side_by_side({
+            "card": (["A", "B"], card_chain),
+            "C": (["C"], lambda: crash_restart("C", "cpu"))})
+        (a_child, a), b = worlds["card"]
+        c_child, c = worlds["C"]
+        t_a, t_b, t_c = secs["A"], secs["B"], secs["C"]
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -5099,11 +5189,12 @@ def phase_durable(dev, sizes=None):
 
     for w, label in ((a_child, "A"), (b, "B"), (c_child, "C")):
         for row in w["waves"]:
-            emit({"phase": "durable", "world": label, **row})
+            emit({"phase": "durable", "world": label,
+                  "ran_beside": beside[label], **row})
     for w, label in ((a, "A"), (b, "B"), (c, "C")):
         for row in w["waves_after"]:
             emit({"phase": "durable", "world": label, "after_restart":
-                  label != "B", **row})
+                  label != "B", "ran_beside": beside[label], **row})
 
     def wave1_rate(w):
         return w["waves"][0]["evals_per_s"]
@@ -5142,6 +5233,7 @@ def phase_durable(dev, sizes=None):
         "world_seconds": {"A": t_a, "A_crash_child": a_child["child_wall_s"],
                           "A_restart_child": a["child_wall_s"],
                           "B": t_b, "C": t_c},
+        "ran_beside": beside,
         "seconds": time.perf_counter() - t_phase}
 
 
@@ -5587,14 +5679,22 @@ def phase_cluster(dev, sizes=None, leg2_sizes=None):
     secs = {}
     try:
         worlds = {}
-        for label, mode, d in (("A", "leg1", dev), ("B", "single", dev),
-                               ("C", "leg1", "cpu")):
+
+        def world(label, mode, d, world_sizes):
             t0 = time.perf_counter()
-            worlds[label] = run_cluster_child(mode, d, root, sizes)
+            worlds[label] = run_cluster_child(mode, d, root, world_sizes)
             secs[label] = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        leg2 = run_cluster_child("leg2", dev, root, leg2_sizes)
-        secs["leg2"] = time.perf_counter() - t0
+
+        def card_chain():
+            # The card's worlds one after the other: A, B, then leg 2.
+            world("A", "leg1", dev, sizes)
+            world("B", "single", dev, sizes)
+            world("leg2", "leg2", dev, leg2_sizes)
+
+        _, beside = side_by_side({
+            "card": (["A", "B", "leg2"], card_chain),
+            "C": (["C"], lambda: world("C", "leg1", "cpu", sizes))})
+        leg2 = worlds["leg2"]
     finally:
         shutil.rmtree(root, ignore_errors=True)
     a, b, c = worlds["A"], worlds["B"], worlds["C"]
@@ -5637,7 +5737,8 @@ def phase_cluster(dev, sizes=None, leg2_sizes=None):
     errors += check_leg2(leg2, leg2_sizes, on_card)
     for w, label in ((a, "A"), (b, "B"), (c, "C")):
         for row in w["waves"]:
-            emit({"phase": "cluster", "world": label, **row})
+            emit({"phase": "cluster", "world": label,
+                  "ran_beside": beside[label], **row})
     if a_vs_b:
         # The first differing rows, printed; PERF.md says why.
         emit({"phase": "cluster", "a_vs_b": {
@@ -5697,6 +5798,7 @@ def phase_cluster(dev, sizes=None, leg2_sizes=None):
                           **{f"{k}_child": w["child_wall_s"] for k, w in
                              (("A", a), ("B", b), ("C", c),
                               ("leg2", leg2))}},
+        "ran_beside": beside,
         "seconds": time.perf_counter() - t_phase}
 
 
@@ -6144,8 +6246,11 @@ def phase_lifecycle(dev, sizes=None):
     sizes = dict(LIFECYCLE_SIZES if sizes is None else sizes)
     root = tempfile.mkdtemp(prefix="nomad-torch-lifecycle-")
     try:
-        card = run_lifecycle_child(dev, root, sizes)
-        cpu = run_lifecycle_child("cpu", root, sizes)
+        worlds, beside = side_by_side({
+            "card": (["card"], lambda: run_lifecycle_child(dev, root, sizes)),
+            "cpu": (["cpu"], lambda: run_lifecycle_child("cpu", root,
+                                                         sizes))})
+        card, cpu = worlds["card"], worlds["cpu"]
     finally:
         shutil.rmtree(root, ignore_errors=True)
     errors = check_lifecycle_world(card, "card", sizes, on_card)
@@ -6177,6 +6282,7 @@ def phase_lifecycle(dev, sizes=None):
     for w, label in ((card, "card"), (cpu, "cpu")):
         for row in w["waves"]:
             emit({"phase": "lifecycle", "world": label,
+                  "ran_beside": beside[label],
                   **{k: v for k, v in row.items() if k != "launches"}})
 
     def ms(xs):
@@ -6206,6 +6312,7 @@ def phase_lifecycle(dev, sizes=None):
         "launches": {row["wave"]: row["launches"] for row in card["waves"]},
         "world_seconds": {"card": card["child_wall_s"],
                           "cpu": cpu["child_wall_s"]},
+        "ran_beside": beside,
         "seconds": time.perf_counter() - t_phase}
 
 
@@ -7081,9 +7188,15 @@ def phase_agent(dev, sizes=None):
     sizes = dict(AGENT_SIZES if sizes is None else sizes)
     root = tempfile.mkdtemp(prefix="nomad-torch-agent-")
     try:
-        a = run_agent_child(dev, "http", root, sizes)
-        b = run_agent_child(dev, "direct", root, sizes)
-        c = run_agent_child("cpu", "http", root, sizes)
+        def card_chain():
+            return (run_agent_child(dev, "http", root, sizes),
+                    run_agent_child(dev, "direct", root, sizes))
+
+        worlds, beside = side_by_side({
+            "card": (["A", "B"], card_chain),
+            "C": (["C"], lambda: run_agent_child("cpu", "http", root,
+                                                 sizes))})
+        (a, b), c = worlds["card"], worlds["C"]
     finally:
         shutil.rmtree(root, ignore_errors=True)
     errors = (check_agent_world(a, "A", sizes, on_card)
@@ -7131,16 +7244,16 @@ def phase_agent(dev, sizes=None):
     if errors:
         raise AssertionError(f"phase agent: {errors}")
 
-    def world_row(w):
-        return {k: w[k] for k in (
+    def world_row(w, label):
+        return {**{k: w[k] for k in (
             "device", "mode", "node_register_s", "submit_s", "request_ms",
             "release_to_complete_s", "evals_per_s", "launches",
-            "child_wall_s") if k in w}
+            "child_wall_s") if k in w}, "ran_beside": beside[label]}
 
     return {"card": smi, "sizes": sizes,
-            "A_http": {**world_row(a), "blocking": a["blocking"],
+            "A_http": {**world_row(a, "A"), "blocking": a["blocking"],
                        "cli": a["cli"]},
-            "B_direct": world_row(b), "C_cpu_http": world_row(c),
+            "B_direct": world_row(b, "B"), "C_cpu_http": world_row(c, "C"),
             "placed": len(a["placements"]),
             "placements_equal": True, "score_max_abs_err": score_err,
             "evals_per_s_http_vs_direct": [a["evals_per_s"],
@@ -7222,6 +7335,10 @@ client {
     "fingerprint.gpu.enable" = "true"
     "driver.raw_exec.enable" = "1"
   }
+}
+vault {
+  enabled        = true
+  task_token_ttl = "1h"
 }
 """
 
@@ -7630,6 +7747,7 @@ def client_world(dev, sizes, root) -> dict:
     from nomad_tpu_torch.client import Client
     from nomad_tpu_torch.ops import fused_score, kernels, preempt
     from nomad_tpu_torch.ops.breaker import KernelCircuitBreaker
+    from nomad_tpu_torch.server.vault import FakeVault
     from nomad_tpu_torch.structs import structs as ps
     from nomad_tpu_torch.utils.backoff import wait_until
 
@@ -7654,7 +7772,10 @@ def client_world(dev, sizes, root) -> dict:
     jobs = client_jobs(sizes)
     cfg = parse_config(CLIENT_HCL % os.path.join(root, names[0]))
     cfg.dev_mode = True
-    agent = Agent(cfg, device=dev, server_options=dict(
+    # The agent's vault block with an in-memory vault: its server derives
+    # and revokes, its client unwraps and renews through it.
+    fv = FakeVault()
+    agent = Agent(cfg, device=dev, vault_api=fv, server_options=dict(
         rng_seed=SERVER_SEED, min_heartbeat_ttl=SERVER_HEARTBEAT_TTL,
         breaker=brk, broker_seed=CLIENT_SEED),
         client_options=dict(node_id=names[0], node_name=names[0],
@@ -7825,6 +7946,9 @@ def client_world(dev, sizes, root) -> dict:
                 "oracle_routed": server_counter(srv,
                                                 "breaker.oracle_routed"),
                 "over_capacity": store_over_capacity(srv)}
+            t_vault = time.perf_counter()
+            out["vault"] = client_vault_job(srv, fv, agent.client)
+            steps["vault_job_s"] = time.perf_counter() - t_vault
             if on_card:
                 t_gpu = time.perf_counter()
                 out["gpu_job"] = client_gpu_job(srv, sizes, local)
@@ -7929,6 +8053,63 @@ def client_gpu_job(srv, sizes, local) -> dict:
                              for a in allocs}),
             "launches": {"scored_rows": fused_score.LAUNCHES,
                          "committing_spec_steps": kernels.COMMIT_STEPS}}
+
+
+def client_vault_job(srv, fv, client) -> dict:
+    """A batch job whose task asks for vault, pinned on the agent's own
+    client (whose token manager unwraps through ``FakeVault``): its task
+    events, its ``secrets/vault_token`` (the token vault minted with the
+    task's policy), and its accessor revoked in ``FakeVault`` and its row
+    deregistered once the alloc has ended."""
+    from nomad_tpu_torch.structs import structs as ps
+    from nomad_tpu_torch.utils.backoff import wait_until
+
+    job = client_job("vault-task", "batch", 1, {"run_for": 0.5},
+                     dict(attempts=0, mode="fail"))
+    job.constraints = [ps.Constraint("${node.unique.name}",
+                                     client.node.name, "=")]
+    for t in job.task_groups[0].tasks:
+        t.vault = ps.Vault(policies=["smoke-read"])
+    srv.job_register(job)
+
+    def alloc():
+        got = srv.state.allocs_by_job(None, job.id, True)
+        return got[0] if got else None
+
+    done = wait_until(lambda: alloc() is not None
+                      and alloc().client_terminal_status(), CLIENT_WAIT)
+    a = alloc()
+    out = {"completed": bool(done) and a.client_status == "complete",
+           "node": srv.state.node_by_id(None, a.node_id).name if a else ""}
+    runner = client.get_alloc_runner(a.id) if a else None
+    token = ""
+    if runner is not None:
+        path = os.path.join(
+            runner.alloc_dir.task_dirs[job.task_groups[0].tasks[0].name]
+            .secrets_dir, "vault_token")
+        if os.path.exists(path):
+            with open(path) as fh:
+                token = fh.read()
+    rec = fv.tokens.get(token) or {}
+    accessor = rec.get("accessor", "")
+    out["token_file"] = bool(token)
+    out["token_policies"] = rec.get("policies")
+    out["token_metadata_alloc"] = (rec.get("metadata") or {}).get(
+        "AllocationID") == (a.id if a else None)
+    out["accessor_revoked"] = bool(accessor) and wait_until(
+        lambda: fv.is_revoked(accessor), CLIENT_WAIT)
+    out["accessor_rows_left"] = len(srv.state.vault_accessors_by_alloc(
+        None, a.id)) if a else None
+    if a is not None and out["accessor_rows_left"]:
+        wait_until(lambda: not srv.state.vault_accessors_by_alloc(
+            None, a.id), CLIENT_WAIT)
+        out["accessor_rows_left"] = len(
+            srv.state.vault_accessors_by_alloc(None, a.id))
+    out["task_events"] = {
+        name: [ev.type for ev in st.events]
+        for name, st in sorted((a.task_states or {}).items())} if a else {}
+    out["derived"] = len(fv.tokens)
+    return out
 
 
 def client_child(dev, out_path, sizes, root) -> None:
@@ -8075,32 +8256,31 @@ def phase_client(dev, sizes=None):
     cgroups_before = cgroup_tree()
     # The two worlds run side by side, each in its own processes: neither
     # reads the other, and no timing moves a placement (``AllocDelivery``).
-    worlds, faults = {}, []
-
-    def run(label, device):
-        try:
-            worlds[label] = run_client_child(device, root, sizes, label)
-        except Exception as exc:  # noqa: BLE001 — raised below
-            faults.append(exc)
-
-    threads = [threading.Thread(target=run, args=args)
-               for args in (("A", dev), ("C", "cpu"))]
     try:
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join()
+        worlds, beside = side_by_side({
+            "A": (["A"], lambda: run_client_child(dev, root, sizes, "A")),
+            "C": (["C"], lambda: run_client_child("cpu", root, sizes,
+                                                  "C"))})
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    cgroups_made = sorted(set(cgroup_tree()) - set(cgroups_before))
-    if faults:
-        raise faults[0]
+        cgroups_made = sorted(set(cgroup_tree()) - set(cgroups_before))
     a, c = worlds["A"], worlds["C"]
     errors = (check_client_world(a, "A", sizes, on_card)
               + check_client_world(c, "C", sizes, False))
     if cgroups_made:
         errors.append(f"cgroups made under /sys/fs/cgroup: "
                       f"{cgroups_made[:8]}")
+    for w, label in ((a, "A"), (c, "C")):
+        v = w["vault"]
+        if not (v["completed"] and v["token_file"]
+                and v["token_policies"] == ["smoke-read"]
+                and v["token_metadata_alloc"] and v["accessor_revoked"]
+                and v["accessor_rows_left"] == 0):
+            errors.append(f"{label}: the vault job {v}")
+    if a["vault"]["task_events"] != c["vault"]["task_events"]:
+        errors.append(f"A != C vault task events: "
+                      f"{a['vault']['task_events']} "
+                      f"{c['vault']['task_events']}")
     for key in ("placements", "client_statuses", "events", "exit_codes",
                 "networks", "jobs", "summaries", "exec_logs",
                 "exec_log_files"):
@@ -8148,7 +8328,7 @@ def phase_client(dev, sizes=None):
         return {"n": len(ms), "median_ms": percentile(ms, 50),
                 "p99_ms": percentile(ms, 99)}
 
-    def world_row(w):
+    def world_row(w, label):
         calls = w["update_allocs"]
         return {"device": w["device"],
                 "supervisor_start": start_stats(w),
@@ -8164,10 +8344,11 @@ def phase_client(dev, sizes=None):
                 "client_side_sync_calls": calls["client_side_calls"],
                 "launches": w["launches"], "http": w["http"],
                 "steps": w["steps"],
-                "world_s": w["world_s"], "child_wall_s": w["child_wall_s"]}
+                "world_s": w["world_s"], "child_wall_s": w["child_wall_s"],
+                "ran_beside": beside[label]}
 
     return {"card": smi, "sizes": sizes, "reduced": a["reduced"],
-            "A_card": world_row(a), "C_cpu": world_row(c),
+            "A_card": world_row(a, "A"), "C_cpu": world_row(c, "C"),
             "allocs": a["allocs"], "placements_equal": True,
             "statuses_equal": True, "events_equal": True,
             "exit_codes_equal": True, "exec_logs_equal": True,
@@ -8178,6 +8359,8 @@ def phase_client(dev, sizes=None):
             "node_networks": a["node_networks"],
             "client_statuses": dict(collections.Counter(
                 a["client_statuses"].values())),
+            "vault": {"A": a["vault"], "C": c["vault"],
+                      "task_events_equal": True},
             "gpu_job": gpu, "kernel_shapes": a["kernel_shapes"],
             "shape_parity": shape_parity,
             "launches": {"client": a["launches"],
@@ -8185,10 +8368,580 @@ def phase_client(dev, sizes=None):
             "seconds": time.perf_counter() - t_phase}
 
 
-# -- phase 27: drills --------------------------------------------------------
+# -- phase 27: federation ---------------------------------------------------
+
+# Two regions, each one port server (single voter), WAN-joined: r0 on the
+# in-memory log, r1 on a FileLog (leg 2 restarts it from its data dir).
+FEDERATION_REGIONS = ("r0", "r1")
+# Each region: cluster leg 1's fleet at 5,000 nodes; leg 1's wave: 40 jobs
+# of 250 asks, submitted through r0, the odd ones for r1 (forwarded).
+FEDERATION_SIZES = {"n_nodes": 5_000, "n_jobs": 40, "count": 250,
+                    "rate_jobs": 256, "rate_clients": 8,
+                    "dark_jobs": 4, "home_jobs": 4, "home_count": 50}
+FEDERATION_SEED = 20261118
+FEDERATION_HASH_SEED = 20261118
+FEDERATION_CHILD_TIMEOUT = 600.0
+# Leg 2's bounds: a submission for the dark region raises NoPathToRegion
+# within FEDERATION_NO_PATH_BOUND_S (never hangs); after the restart a
+# probe job is placed there within the multi_region scenario's
+# recovery_bound_s.
+FEDERATION_NO_PATH_BOUND_S = 10.0
+FEDERATION_RECOVERY_BOUND_S = 30.0
+
+
+def federation_server(dev, region, brk, root, join="", port=0):
+    """One region's port server on ``dev``: RPC on loopback, its event
+    stream armed (the aggregator's ``Event.Since``), r1 on a FileLog."""
+    from nomad_tpu_torch.server import Server, ServerConfig
+
+    return Server(ServerConfig(
+        device=dev, rng_seed=SERVER_SEED, batch_size=64,
+        min_heartbeat_ttl=SERVER_HEARTBEAT_TTL, breaker=brk,
+        region=region, node_name=f"fed-{region}", enable_rpc=True,
+        rpc_port=port, events=True, wan_join=[join] if join else [],
+        data_dir=os.path.join(root, region) if region == "r1" else ""))
+
+
+def federation_content(srv, jobs) -> dict:
+    """One region's outcome by content: each job's placements (alloc name
+    to node), its unplaced count (the summary's queued plus the eval's
+    failed allocs) and its first alloc's AllocMetric scores."""
+    st = srv.state
+    out = {"placements": {}, "unplaced": {}, "scores": {}}
+    for j in jobs:
+        allocs = sorted(st.allocs_by_job(None, j.id, True),
+                        key=lambda a: a.name)
+        out["placements"][j.id] = [[a.name, a.node_id] for a in allocs
+                                   if not a.terminal_status()]
+        summ = st.job_summary_by_id(None, j.id)
+        queued = sum(v.queued for v in summ.summary.values()) if summ else 0
+        failed = sum(m.coalesced_failures + 1
+                     for e in st.evals_by_job(None, j.id)
+                     for m in e.failed_tg_allocs.values())
+        out["unplaced"][j.id] = [queued, failed]
+        scored = [a for a in allocs if a.metrics is not None]
+        out["scores"][j.id] = (sorted(scored[0].metrics.scores.items())
+                               if scored else [])
+    return out
+
+
+def federation_rates(servers, n_jobs, n_clients) -> dict:
+    """The cross-region forward tax as a rate: ``n_jobs`` one-alloc jobs
+    of r1 sent by ``n_clients`` threads at once, first through r1 itself
+    (``local``), then through r0 (``cross``: each one forwarded to r1).
+    For each stream: the registrations a second, and the evals a second
+    r1 acked from the stream's first submission to its last eval acked.
+    Both streams end in the same server, log and scheduler, so what
+    differs is the forward.  The kernels' counts are set to 0 just
+    before and read just after."""
+    from nomad_tpu_torch import mock
+    from nomad_tpu_torch.utils.backoff import wait_until
+
+    r0n, r1n = FEDERATION_REGIONS
+    r1 = servers[r1n]
+    out = {}
+    for stream, via in (("local", r1n), ("cross", r0n)):
+        jobs = []
+        for k in range(n_jobs):
+            j = strip_job(mock.job(), 1)
+            j.id = j.name = f"fed-rate-{stream}-{k:04d}"
+            j.region = r1n
+            jobs.append(j)
+        faults = []
+
+        def send(part, srv=servers[via]):
+            try:
+                for j in part:
+                    srv.job_register(j)
+            except BaseException as exc:  # noqa: BLE001 — raised below
+                faults.append(exc)
+
+        steps0 = zero_launches(r1)
+        acks0 = server_counter(r1, "broker.ack")
+        threads = [threading.Thread(target=send, args=(jobs[i::n_clients],))
+                   for i in range(n_clients)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        submit_s = time.perf_counter() - t0
+        if faults:
+            raise faults[0]
+        if not wait_until(lambda: server_counter(r1, "broker.ack") - acks0
+                          >= n_jobs, SERVER_SETTLE_TIMEOUT):
+            raise AssertionError(f"federation: the {stream} stream's evals "
+                                 "were not acked")
+        acked_s = time.perf_counter() - t0
+        server_settle(r1)
+        out[stream] = {
+            "jobs": n_jobs, "clients": n_clients, "submit_s": submit_s,
+            "registrations_per_s": n_jobs / submit_s, "acked_s": acked_s,
+            "evals_acked": int(server_counter(r1, "broker.ack") - acks0),
+            "evals_per_s": n_jobs / acked_s,
+            "placed": sum(len(r1.state.allocs_by_job(None, j.id, True))
+                          for j in jobs),
+            "launches": durable_launches(r1, steps0)}
+    return out
+
+
+def federation_world(dev, sizes, root, leg3) -> dict:
+    """One world of phase ``federation`` (see the module docstring): leg 1
+    (the wave through r0, half forwarded to r1, each region released and
+    settled in turn), the forward rates (:func:`federation_rates`), leg
+    2 (r1 stopped: its submissions through r0 raise ``NoPathToRegion``,
+    r0 serves its own, the aggregator names r1 dark; r1 restarted on its
+    data dir and a probe placed there) and, when ``leg3``, the
+    ``multi_region`` scenario through ``run_multi_region``'s harness on
+    ``dev``.  The kernels' counts are set to 0 just before leg 1's
+    release and read once both regions have settled, and likewise
+    around each rate stream and leg 3."""
+    from nomad_tpu_torch import mock
+    from nomad_tpu_torch.loadgen.auditor import federated_sweep
+    from nomad_tpu_torch.ops import fused_score, kernels, preempt
+    from nomad_tpu_torch.ops.breaker import KernelCircuitBreaker
+    from nomad_tpu_torch.server.federation import RegionEventAggregator
+    from nomad_tpu_torch.server.rpc import ConnPool, NoPathToRegion
+    from nomad_tpu_torch.utils.backoff import wait_until
+
+    t_world = time.perf_counter()
+    r0n, r1n = FEDERATION_REGIONS
+    fleet = {}
+    for r in FEDERATION_REGIONS:
+        fleet[r] = []
+        for i in range(sizes["n_nodes"]):
+            n = strip_node(mock.node())
+            n.id = n.name = f"{r}-node-{i:05d}"
+            fleet[r].append(n)
+    jobs = []
+    for k in range(sizes["n_jobs"]):
+        j = strip_job(mock.job(), sizes["count"])
+        j.id = j.name = f"fed-{k:03d}"
+        j.region = FEDERATION_REGIONS[k % 2]
+        jobs.append(j)
+    brks = {r: KernelCircuitBreaker() for r in FEDERATION_REGIONS}
+    out = {"device": str(dev), "card": smi_name_power(),
+           "kernel_shapes": {"scored_rows": set(), "eviction_sets": set()},
+           "reduced": {"nodes": f"{sizes['n_nodes']} nodes a region "
+                       "(cluster leg 1's fleet shape; two regions on one "
+                       "host)"}}
+    servers = {}
+    r0 = servers[r0n] = federation_server(dev, r0n, brks[r0n], root)
+    r0.start()
+    servers[r1n] = federation_server(dev, r1n, brks[r1n], root,
+                                     join=r0.config.rpc_advertise)
+    servers[r1n].start()
+    pool = ConnPool()
+    ids = seeded_ids(FEDERATION_SEED)
+    try:
+        if not wait_until(lambda: all(
+                x.is_leader() and len(x.members()) == 2
+                for x in servers.values()), CLUSTER_ELECTION_TIMEOUT):
+            raise AssertionError("federation: the regions did not form")
+        out["regions"] = r0.regions()
+        with ids:
+            t0 = time.perf_counter()
+            for r, srv in servers.items():
+                for n in fleet[r]:
+                    srv.node_register(n)
+            out["node_register_s"] = time.perf_counter() - t0
+            for srv in servers.values():
+                if not srv.set_workers_paused(
+                        True, timeout=SERVER_SETTLE_TIMEOUT):
+                    raise AssertionError("federation: workers did not park")
+            steps0 = sum(server_counter(x, "batch.commit_steps")
+                         for x in servers.values())
+            fused_score.LAUNCHES = kernels.COMMIT_STEPS = 0
+            fused_score.MASKED_LAUNCHES = preempt.LAUNCHES = 0
+            submit = {"local": [], "forwarded": []}
+            with kernel_shapes(out["kernel_shapes"]):
+                for j in jobs:
+                    t0 = time.perf_counter()
+                    r0.job_register(j)
+                    submit["forwarded" if j.region == r1n else "local"].append(
+                        (time.perf_counter() - t0) * 1000.0)
+                waves = {}
+                for r, srv in servers.items():
+                    acks0 = server_counter(srv, "broker.ack")
+                    t0 = time.perf_counter()
+                    srv.set_workers_paused(False)
+                    wall = server_settle(srv) - t0
+                    acked = int(server_counter(srv, "broker.ack") - acks0)
+                    waves[r] = {"wall_s": wall, "evals_acked": acked,
+                                "evals_per_s": acked / wall}
+            out["launches"] = {
+                "scored_rows": fused_score.LAUNCHES,
+                "masked_score_matrix": fused_score.MASKED_LAUNCHES,
+                "eviction_sets": preempt.LAUNCHES,
+                "committing_spec_steps": kernels.COMMIT_STEPS,
+                "batch_commit_steps": sum(
+                    server_counter(x, "batch.commit_steps")
+                    for x in servers.values()) - steps0}
+        out["waves"] = waves
+        out["submit_ms"] = {k: {"n": len(v), "mean": statistics.fmean(v),
+                                "max": max(v)} for k, v in submit.items()}
+        out["content"] = {r: federation_content(
+            srv, [j for j in jobs if j.region == r])
+            for r, srv in servers.items()}
+        out["not_in_home"] = {r: sorted(
+            j.id for j in jobs if j.region != r
+            and srv.state.job_by_id(None, j.id) is not None)
+            for r, srv in servers.items()}
+        sweep = federated_sweep({r: srv.consistent_snapshot()
+                                 for r, srv in servers.items()}, strict=True)
+        out["cross_region_double_placed"] = sweep[
+            "cross_region_double_placed"]
+        out["sweep_regions"] = {r: {k: v[k] for k in (
+            "overplaced_jobs", "duplicate_alloc_names",
+            "overcommitted_nodes")} for r, v in sweep["regions"].items()}
+        out["health"] = {r: durable_health(srv, brks[r])
+                         for r, srv in servers.items()}
+        out["rates"] = federation_rates(servers, sizes["rate_jobs"],
+                                        sizes["rate_clients"])
+
+        # Leg 2: r1 goes dark, comes back on its data dir.
+        agg = RegionEventAggregator(
+            {r: srv.config.rpc_advertise for r, srv in servers.items()},
+            pool=pool)
+        agg.poll()
+        cursor = agg.cursors()[r1n]
+        r1_addr = servers[r1n].config.rpc_advertise
+        servers[r1n].shutdown()
+        t_dark = time.perf_counter()
+        dark = []
+        for k in range(sizes["dark_jobs"]):
+            j = strip_job(mock.job(), 1)
+            j.id = j.name = f"fed-dark-{k:02d}"
+            j.region = r1n
+            t0 = time.perf_counter()
+            try:
+                r0.job_register(j)
+                dark.append({"raised": None})
+            except NoPathToRegion as e:
+                dark.append({"raised": type(e).__name__, "region": e.region,
+                             "retry_after": e.retry_after,
+                             "rounds": e.rounds,
+                             "s": time.perf_counter() - t0})
+        # The same refusal over the wire, re-typed from the reply.
+        j = strip_job(mock.job(), 1)
+        j.id = j.name = "fed-dark-wire"
+        t0 = time.perf_counter()
+        try:
+            pool.call(r0.config.rpc_advertise, "Job.Register",
+                      {"Job": j, "Region": r1n})
+            wire = {"raised": None}
+        except NoPathToRegion as e:
+            wire = {"raised": type(e).__name__, "region": e.region,
+                    "retry_after": e.retry_after,
+                    "s": time.perf_counter() - t0}
+        agg.poll()
+        leg2 = {"dark_submits": dark, "wire_submit": wire,
+                "unreachable_while_dark": agg.unreachable(),
+                "cursor_kept": agg.cursors()[r1n] == cursor}
+        home = []
+        for k in range(sizes["home_jobs"]):
+            j = strip_job(mock.job(), sizes["home_count"])
+            j.id = j.name = f"fed-home-{k:02d}"
+            j.region = r0n
+            home.append(j)
+        with ids:
+            leg2["home_wave"] = server_wave(r0, "home_during_blackout",
+                                            lambda s: [s.job_register(j)
+                                                       for j in home])
+        leg2["home_placed"] = sum(len(r0.state.allocs_by_job(None, j.id,
+                                                              True))
+                                  for j in home)
+        leg2["dark_s"] = time.perf_counter() - t_dark
+        # The restart on the same address and data dir heals the region.
+        t_heal = time.perf_counter()
+        r1b = servers[r1n] = federation_server(
+            dev, r1n, brks[r1n], root, join=r0.config.rpc_advertise,
+            port=int(r1_addr.rsplit(":", 1)[1]))
+        r1b.start()
+        if not wait_until(r1b.is_leader, CLUSTER_ELECTION_TIMEOUT):
+            raise AssertionError("federation: r1 did not lead again")
+        leg2["restart_s"] = time.perf_counter() - t_heal
+        probe = strip_job(mock.job(), 1)
+        probe.id = probe.name = "fed-probe"
+        probe.region = r1n
+        registered = placed = None
+        attempts = 0
+        with ids:
+            while time.perf_counter() - t_heal < FEDERATION_RECOVERY_BOUND_S:
+                attempts += 1
+                try:
+                    r0.job_register(probe)
+                    registered = time.perf_counter() - t_heal
+                    break
+                except NoPathToRegion:
+                    time.sleep(0.25)
+            if registered is not None and wait_until(
+                    lambda: any(not a.terminal_status()
+                                for a in r1b.state.allocs_by_job(
+                                    None, probe.id, True)),
+                    max(0.0, FEDERATION_RECOVERY_BOUND_S
+                        - (time.perf_counter() - t_heal))):
+                placed = time.perf_counter() - t_heal
+        leg2.update(probe_attempts=attempts, registered_after_heal_s=registered,
+                    placed_after_heal_s=placed,
+                    recovered_index=r1b.raft.applied_index())
+        wait_until(lambda: not agg.poll() and not agg.unreachable(), 10.0)
+        leg2["unreachable_after_heal"] = agg.unreachable()
+        leg2["cursor_after_heal"] = agg.cursors()[r1n] >= cursor
+        leg2["aggregator"] = agg.stats()
+        out["leg2"] = leg2
+        out["draws"] = ids.draws
+    finally:
+        pool.close()
+        for srv in servers.values():
+            srv.shutdown()
+    out["kernel_shapes"] = {k: sorted(v) for k, v in
+                            out["kernel_shapes"].items()}
+    if leg3:
+        # run_multi_region's harness, kept to read its servers' counters.
+        from nomad_tpu_torch.loadgen.federation import MultiRegionHarness
+        from nomad_tpu_torch.loadgen.scenario import get_scenario
+
+        brk = KernelCircuitBreaker()
+        harness = MultiRegionHarness(
+            get_scenario("multi_region"), device=dev,
+            server_options={"rng_seed": SERVER_SEED, "breaker": brk})
+        shapes = {"scored_rows": set(), "eviction_sets": set()}
+        fused_score.LAUNCHES = kernels.COMMIT_STEPS = 0
+        fused_score.MASKED_LAUNCHES = preempt.LAUNCHES = 0
+        t0 = time.perf_counter()
+        with kernel_shapes(shapes):
+            rep = harness.run()
+        fed = rep["federation"]
+        regions = harness.servers.values()
+        out["leg3"] = {
+            "wall_s": time.perf_counter() - t0,
+            "offered": rep["offered"], "sustained": rep["sustained"],
+            "forward_tax_ms": fed["forward_tax_ms"],
+            "reads_ms": fed["reads_ms"], "blackout": fed["blackout"],
+            "per_region": fed["per_region"],
+            "aggregator": fed["aggregator"],
+            "auditor": {k: rep["auditor"][k] for k in (
+                "violation_count", "violations", "checks", "acked_checked",
+                "lost_acked")},
+            "launches": {
+                "scored_rows": fused_score.LAUNCHES,
+                "masked_score_matrix": fused_score.MASKED_LAUNCHES,
+                "eviction_sets": preempt.LAUNCHES,
+                "committing_spec_steps": kernels.COMMIT_STEPS,
+                "batch_commit_steps": sum(
+                    server_counter(x, "batch.commit_steps")
+                    for x in regions)},
+            "breaker": {"state": brk.state, "trips": brk.trips,
+                        "oracle_routed": sum(
+                            server_counter(x, "breaker.oracle_routed")
+                            for x in regions)},
+            "kernel_shapes": {k: sorted(v) for k, v in shapes.items()}}
+    out["world_s"] = time.perf_counter() - t_world
+    return out
+
+
+def federation_child(dev, out_path, sizes, root, leg3) -> None:
+    """One world of phase ``federation`` in a process of its own; the
+    report is written to ``out_path``."""
+    out = federation_world(dev, sizes, root, leg3)
+    with open(out_path, "w") as fh:
+        json.dump(out, fh)
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(0)
+
+
+def run_federation_child(dev, root, sizes, label, leg3) -> dict:
+    """``federation_child`` in a fresh process under the phase's string
+    hash seed, its data dirs under ``root/label``; its report."""
+    wroot = os.path.join(root, label)
+    os.makedirs(wroot)
+    out_path = os.path.join(root, f"federation-{label}.json")
+    code = ("import sys; sys.path.insert(0, {0!r}); import chip_smoke as c; "
+            "c.federation_child({1!r}, {2!r}, {3!r}, {4!r}, {5!r})"
+            ).format(REPO, dev, out_path, sizes, wroot, leg3)
+    env = dict(os.environ, PYTHONHASHSEED=str(FEDERATION_HASH_SEED))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True,
+                          timeout=FEDERATION_CHILD_TIMEOUT)
+    if proc.returncode != 0 or not os.path.exists(out_path):
+        raise AssertionError(f"federation child {label} on {dev}: rc "
+                             f"{proc.returncode}: {proc.stderr[-3000:]}")
+    with open(out_path) as fh:
+        out = json.load(fh)
+    os.unlink(out_path)
+    out["child_wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def check_federation_world(w, label, sizes, on_card) -> list:
+    """One world's checks: every job only in its own region, nothing
+    double placed across or within the regions, healthy regions, and leg
+    2's contract."""
+    errors = []
+    if w["regions"] != list(FEDERATION_REGIONS):
+        errors.append(f"{label}: regions {w['regions']}")
+    if any(w["not_in_home"].values()):
+        errors.append(f"{label}: jobs outside their region "
+                      f"{w['not_in_home']}")
+    if w["cross_region_double_placed"]:
+        errors.append(f"{label}: {w['cross_region_double_placed']} jobs "
+                      "hold allocs in two regions")
+    for r, sw in w["sweep_regions"].items():
+        if any(sw.values()):
+            errors.append(f"{label}: region {r} sweep {sw}")
+    for r, h in w["health"].items():
+        if (h["over_capacity"] or h["nacks"] or h["failed"]
+                or h["breaker"] != {"state": "closed", "trips": 0,
+                                    "oracle_routed": 0}):
+            errors.append(f"{label}: region {r} health {h}")
+    want = sizes["n_jobs"] // 2
+    for r, wv in w["waves"].items():
+        if wv["evals_acked"] != want:
+            errors.append(f"{label}: region {r} acked "
+                          f"{wv['evals_acked']} of {want}")
+    if on_card:
+        errors += check_launches(f"{label} leg 1", w["launches"])
+    for stream, rate in w["rates"].items():
+        if (rate["evals_acked"] != rate["jobs"]
+                or rate["placed"] != rate["jobs"]):
+            errors.append(f"{label}: the {stream} rate stream {rate}")
+        if on_card:
+            errors += check_launches(f"{label} {stream} rate stream",
+                                     rate["launches"])
+    leg2 = w["leg2"]
+    for d in leg2["dark_submits"] + [leg2["wire_submit"]]:
+        if (d.get("raised") != "NoPathToRegion"
+                or d.get("region") != FEDERATION_REGIONS[1]
+                or not d.get("retry_after", 0) > 0
+                or d.get("s", 1e9) > FEDERATION_NO_PATH_BOUND_S):
+            errors.append(f"{label}: a submission for the dark region {d}")
+    if leg2["unreachable_while_dark"] != [FEDERATION_REGIONS[1]] \
+            or not leg2["cursor_kept"]:
+        errors.append(f"{label}: the aggregator while dark {leg2}")
+    if leg2["home_placed"] != sizes["home_jobs"] * sizes["home_count"]:
+        errors.append(f"{label}: the home region placed "
+                      f"{leg2['home_placed']} while r1 was dark")
+    if (leg2["placed_after_heal_s"] is None
+            or leg2["placed_after_heal_s"] > FEDERATION_RECOVERY_BOUND_S):
+        errors.append(f"{label}: the probe after the heal {leg2}")
+    if leg2["unreachable_after_heal"] or not leg2["cursor_after_heal"]:
+        errors.append(f"{label}: the aggregator after the heal "
+                      f"{leg2['unreachable_after_heal']}")
+    return errors
+
+
+def phase_federation(dev, sizes=None):
+    """The federation (see the module docstring, phase 27): world A (two
+    WAN-joined regions, each its own port server on ``dev``) and world C
+    (the same on the CPU) side by side, each in a process of its own,
+    compared here; ``scored_rows`` at the shapes A's leg 1 and leg 3
+    gave it against its plain version; A's leg 3 is the
+    ``multi_region`` scenario."""
+    import shutil
+    import tempfile
+
+    t_phase = time.perf_counter()
+    smi = smi_name_power()
+    on_card = torch_device(dev).type == "cuda"
+    sizes = dict(FEDERATION_SIZES if sizes is None else sizes)
+    root = tempfile.mkdtemp(prefix="nomad-torch-federation-")
+    try:
+        worlds, beside = side_by_side({
+            "A": (["A"], lambda: run_federation_child(dev, root, sizes, "A",
+                                                      True)),
+            "C": (["C"], lambda: run_federation_child("cpu", root, sizes,
+                                                      "C", False))})
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    a, c = worlds["A"], worlds["C"]
+    errors = (check_federation_world(a, "A", sizes, on_card)
+              + check_federation_world(c, "C", sizes, False))
+    score_err = 0.0
+    for r in FEDERATION_REGIONS:
+        ca, cc = a["content"][r], c["content"][r]
+        for key in ("placements", "unplaced"):
+            if ca[key] != cc[key]:
+                diff = [j for j in ca[key] if ca[key][j] != cc[key].get(j)]
+                errors.append(f"A != C region {r} {key}: {diff[:5]}")
+        for job, rows in ca["scores"].items():
+            theirs = dict(map(tuple, cc["scores"].get(job, [])))
+            if {k for k, _ in rows} != set(theirs):
+                errors.append(f"A != C region {r}: score keys of {job}")
+                continue
+            for k, v in rows:
+                score_err = max(score_err, abs(v - theirs[k]))
+    if score_err > 4e-6:
+        errors.append(f"A vs C scores differ by {score_err} > 4e-6")
+    if a["launches"]["committing_spec_steps"] != \
+            c["launches"]["committing_spec_steps"]:
+        errors.append(f"A != C committing steps: {a['launches']} "
+                      f"{c['launches']}")
+    if a["draws"] != c["draws"]:
+        errors.append(f"ids drawn: A {a['draws']}, C {c['draws']}")
+    shape_parity = {}
+    leg3 = a["leg3"]
+    if leg3["breaker"] != {"state": "closed", "trips": 0,
+                           "oracle_routed": 0}:
+        errors.append(f"leg 3: the breaker {leg3['breaker']}")
+    if leg3["auditor"]["violation_count"]:
+        errors.append(f"leg 3: the federated auditor "
+                      f"{leg3['auditor']['violations'][:5]}")
+    if not (leg3["blackout"] or {}).get("recovered"):
+        errors.append(f"leg 3: the blackout {leg3['blackout']}")
+    if leg3["sustained"]["stragglers_after_drain"]:
+        errors.append(f"leg 3: stragglers {leg3['sustained']}")
+    if on_card:
+        errors += check_launches("leg 3", leg3["launches"])
+        for leg, shapes in (("leg 1", a["kernel_shapes"]),
+                            ("leg 3", leg3["kernel_shapes"])):
+            score = [tuple(s) for s in shapes["scored_rows"]]
+            if not score or shapes["eviction_sets"]:
+                errors.append(f"federation {leg} kernel shapes: {shapes}")
+                continue
+            rows, worst = score_parity_rows(
+                dev, [(u, n, 17, n_off) for u, n, n_off in score])
+            shape_parity[leg] = {"scored_rows": rows, "max_abs_err": worst}
+            # scored_row raises on a mask or bit difference (0 differing
+            # bits against the plain version); the card against the CPU's
+            # plain version within the gated bound.
+            if worst > 4e-6:
+                errors.append(f"scored_rows at A's {leg} shapes: {worst}")
+    if errors:
+        raise AssertionError(f"phase federation: {errors}")
+
+    def world_row(w, label):
+        return {"device": w["device"], "node_register_s":
+                w["node_register_s"], "waves": w["waves"],
+                "submit_ms": w["submit_ms"], "launches": w["launches"],
+                "leg2": {k: w["leg2"][k] for k in (
+                    "dark_submits", "wire_submit", "unreachable_while_dark",
+                    "home_placed", "dark_s", "restart_s", "probe_attempts",
+                    "registered_after_heal_s", "placed_after_heal_s")},
+                "world_s": w["world_s"], "child_wall_s": w["child_wall_s"],
+                "ran_beside": beside[label]}
+
+    return {"card": smi, "sizes": sizes, "reduced": a["reduced"],
+            "A_card": world_row(a, "A"), "C_cpu": world_row(c, "C"),
+            "a_equals_c": True, "score_max_abs_err": score_err,
+            "placed": {r: sum(len(v) for v in a["content"][r][
+                "placements"].values()) for r in FEDERATION_REGIONS},
+            "cross_region_double_placed": 0,
+            "kernel_shapes": a["kernel_shapes"],
+            "shape_parity": shape_parity,
+            "launches": {"leg1": a["launches"], "leg3": leg3["launches"]},
+            "forward_rates": {"A": {**a["rates"], "ran_beside": beside["A"]},
+                              "C": {**c["rates"], "ran_beside": beside["C"]}},
+            "leg3": {**leg3, "ran_beside": beside["A"]},
+            "seconds": time.perf_counter() - t_phase}
+
+
+# -- phase 28: drills --------------------------------------------------------
 
 def phase_drills(dev):
-    """The twelve drills of ``python -m nomad_tpu_torch.ops --selfcheck
+    """The thirteen drills of ``python -m nomad_tpu_torch.ops --selfcheck
     --device cuda`` in this process (``ops.__main__.run_drills``), each
     of which must return True, with the kernels' counts set to 0 just
     before and read just after: ``scored_rows`` launches against the
@@ -8243,7 +8996,7 @@ def phase_drills(dev):
                 "eviction_sets": preempt.LAUNCHES}
     steps = sum(n * max(1, shards) for n, shards, _ in batches)
     failed = [name for name, ok in results.items() if not ok]
-    if failed or len(results) != 12:
+    if failed or len(results) != 13:
         raise AssertionError(f"drills failed: {failed}; "
                              f"{[ln for ln in lines if 'FAIL' in ln]}")
     if launches["scored_rows"] != steps or steps <= 0:
@@ -8264,7 +9017,7 @@ def phase_drills(dev):
             "launches": launches, "card": smi}
 
 
-# -- phase 27: times ---------------------------------------------------------
+# -- phase 29: times ---------------------------------------------------------
 
 def score_bytes(u: int, n: int, with_base: bool = True) -> int:
     """Bytes the function must move: feas (1) + collisions (4) in and
@@ -8796,6 +9549,7 @@ def main() -> int:
     smi = smi_name_power()
     emit({"phase": "device", "name": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(), "nvidia_smi": smi,
+          "cpu_count": os.cpu_count(),
           "torch": torch.__version__, "cuda": torch.version.cuda})
 
     from nomad_tpu_torch import device as devmod
@@ -8861,6 +9615,8 @@ def main() -> int:
     emit({"phase": "agent", **agt})
     cli = run_phase("client", phase_client, dev)
     emit({"phase": "client", **cli})
+    fed = run_phase("federation", phase_federation, dev)
+    emit({"phase": "federation", **fed})
     drl = run_phase("drills", phase_drills, dev)
     emit({"phase": "drills", **drl})
     table = run_phase("times", phase_times, dev, launches, max_err,
@@ -8931,8 +9687,13 @@ def main() -> int:
         # just before its submissions).
         row["client_path_launches"] = cli["launches"]["client"][
             row["name"]]
-        # ... and on the drills' path (phase drills, the twelve drills of
-        # --selfcheck, the counts set to 0 just before them).
+        # ... on the federation's path (phase federation, world A's leg 1:
+        # the wave through both regions, the counts set to 0 just before
+        # its release).
+        row["federation_path_launches"] = fed["launches"]["leg1"][
+            row["name"]]
+        # ... and on the drills' path (phase drills, the thirteen drills
+        # of --selfcheck, the counts set to 0 just before them).
         row["drills_path_launches"] = drl["launches"][row["name"]]
     emit({"phase": "profile", **run_phase("profile", phase_profile, dev)})
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})

@@ -3,10 +3,13 @@ API (a copy of ``nomad_tpu/agent/agent.py``; reference:
 command/agent/agent.go:46-719, setupServer at agent.go:336, setupClient
 at agent.go:390, NewHTTPServer wiring).
 
-A config that enables vault or joins another region over the WAN raises
-``NotImplementedError`` (ROADMAP item 30), and so does one that names
-``enabled_schedulers``: each before any port is bound, never a silent
-start without it.  The server runs on ``device`` (default ``cuda``:
+The ``vault {}`` block configures the server's vault client and the
+client's token manager (agent.py:103-113, :136-139); ``vault_api``
+injects their transport (a ``FakeVault`` in tests).  ``retry_join_wan``
+joins servers of other regions (``ServerConfig.wan_join``).  A config
+that names ``enabled_schedulers`` raises ``NotImplementedError``
+(ROADMAP queue 3 item 19) before any port is bound, never a silent start
+without it.  The server runs on ``device`` (default ``cuda``:
 without a card the server's construction raises; there is no CPU
 fallback).  ``server { use_tpu_batch_worker = ... }`` parses and changes
 nothing: the port's server has only the batch worker (ROADMAP queue 3
@@ -47,14 +50,6 @@ def _advertisable(host: str) -> str:
 def _refuse_unported(config: AgentConfig) -> None:
     """Raise for what the agent's config asks that the port does not
     have, before anything is built or bound."""
-    if config.vault.enabled:
-        raise NotImplementedError(
-            "vault is not ported: the vault integration is ROADMAP item "
-            "30; remove the vault block or set enabled = false")
-    if config.server.wan_join:
-        raise NotImplementedError(
-            "retry_join_wan is not ported: the federation is ROADMAP "
-            "item 30")
     if config.server.enabled_schedulers:
         raise NotImplementedError(
             "enabled_schedulers is not ported: the port's server runs the "
@@ -66,8 +61,10 @@ class Agent:
                  logger: Optional[logging.Logger] = None,
                  device: str = "cuda",
                  server_options: Optional[Dict] = None,
-                 client_options: Optional[Dict] = None):
+                 client_options: Optional[Dict] = None,
+                 vault_api=None):
         self.config = config or AgentConfig.dev()
+        self._vault_api = vault_api
         _refuse_unported(self.config)
         self.device = device
         self.server_options = dict(server_options or {})
@@ -136,12 +133,25 @@ class Agent:
             rpc_port=0 if self.config.dev_mode else self.config.ports.rpc,
             bootstrap_expect=sb.bootstrap_expect,
             start_join=list(sb.start_join),
+            wan_join=list(sb.wan_join),
             num_schedulers=sb.num_schedulers,
             batch_size=sb.batch_size,
             device=self.device,
             tls=self.config.tls.to_tls_config(),
             **self.server_options)
-        self.server = Server(scfg, logger=self.logger.getChild("server"))
+        if self.config.vault.enabled:
+            from ..jobspec.parse import parse_duration
+            from ..server.vault import VaultConfig
+
+            scfg.vault = VaultConfig(
+                enabled=True,
+                addr=self.config.vault.address or VaultConfig.addr,
+                token=self.config.vault.token,
+                task_token_ttl=(
+                    parse_duration(self.config.vault.task_token_ttl)
+                    if self.config.vault.task_token_ttl else 72 * 3600.0))
+        self.server = Server(scfg, logger=self.logger.getChild("server"),
+                             vault_api=self._vault_api)
 
     def _setup_client(self) -> None:
         """(agent.go:390 setupClient)."""
@@ -162,6 +172,10 @@ class Agent:
             cpu_total_compute=cb.cpu_total_compute,
             gc_max_allocs=cb.gc_max_allocs,
             consul_address=cb.consul_address,
+            vault_addr=(self.config.vault.address
+                        if self.config.vault.enabled else ""),
+            vault_token=(self.config.vault.token
+                         if self.config.vault.enabled else ""),
             dev_mode=self.config.dev_mode)
         fields.update(self.client_options)   # the embedding program's
         ccfg = ClientConfig(**fields)
@@ -181,7 +195,8 @@ class Agent:
             rpc = RemoteServerRPC(cb.servers, pool=pool)
         self.client = Client(ccfg, rpc=rpc,
                              logger=self.logger.getChild("client"),
-                             consul=self.consul_service_client)
+                             consul=self.consul_service_client,
+                             vault_api=self._vault_api)
 
     # -- lifecycle ---------------------------------------------------------
 

@@ -64,7 +64,8 @@ class AllocRunner:
                  prev_alloc_dir: Optional[AllocDir] = None,
                  consul=None,
                  logger: Optional[logging.Logger] = None,
-                 rng: Optional[random.Random] = None):
+                 rng: Optional[random.Random] = None,
+                 vault_client=None):
         self.config = config
         self.alloc = alloc.copy()
         self.updater = updater
@@ -72,6 +73,8 @@ class AllocRunner:
         self.state_db = state_db
         self.consul = consul
         self.rng = rng
+        # The client's vault token manager, handed to every task runner.
+        self.vault_client = vault_client
         self.logger = logger or logging.getLogger(
             "nomad_tpu_torch.client.alloc_runner")
 
@@ -261,6 +264,7 @@ class AllocRunner:
                 updater=self._set_task_state,
                 node=self.node,
                 consul=self.consul,
+                vault_client=self.vault_client,
                 logger=self.logger,
                 rng=self.rng,
                 restore_handle=self._restore_handle(task.name),

@@ -14,7 +14,7 @@ Where the port departs from the reference:
 
 - ``ClientConfig.node_id`` fixes the node's id (empty: a fresh UUID), and
   ``rng`` seeds the server list's shuffle and the restart jitter.
-- There is no vault client (ROADMAP item 30).  ``BUILTIN_DRIVERS`` holds
+- ``BUILTIN_DRIVERS`` holds
   the reference's builtins (``driver/__init__.py``); the ``exec``
   driver's cgroups are under ``ClientConfig.cgroup_root``, none by
   default.
@@ -72,7 +72,8 @@ class Client:
                  logger: Optional[logging.Logger] = None,
                  consul=None,
                  rng: Optional[random.Random] = None,
-                 heartbeat_stagger: float = INITIAL_HEARTBEAT_STAGGER):
+                 heartbeat_stagger: float = INITIAL_HEARTBEAT_STAGGER,
+                 vault_api=None):
         self.config = config or ClientConfig()
         self.heartbeat_stagger = heartbeat_stagger
         self.rpc = rpc
@@ -82,6 +83,29 @@ class Client:
         # registration with the task lifecycle.
         self.consul = consul
         self.rng = rng if rng is not None else random.Random()
+
+        # The vault token manager (client/vaultclient): it derives through
+        # the server's RPC and renews against vault.  Its transport: an
+        # injected ``vault_api`` (tests, the agent), else ``vault_addr``
+        # over HTTP, else an in-process server's own (a dev agent).
+        from .vaultclient import ClientVaultClient
+
+        if vault_api is None and self.config.vault_addr:
+            from ..server.vault import HTTPVault
+
+            vault_api = HTTPVault(self.config.vault_addr,
+                                  self.config.vault_token)
+        if vault_api is None:
+            server_vault = getattr(rpc, "vault", None)
+            if server_vault is not None and server_vault.enabled:
+                vault_api = server_vault.api
+        self.vault_client = ClientVaultClient(
+            derive_fn=self._derive_vault_tokens,
+            renew_fn=(vault_api.renew_token if vault_api is not None
+                      else None),
+            unwrap_fn=(vault_api.unwrap if vault_api is not None
+                       else None),
+            logger=self.logger.getChild("vault"))
 
         if not self.config.alloc_dir:
             self.config.alloc_dir = tempfile.mkdtemp(
@@ -169,10 +193,16 @@ class Client:
         t.start()
         return t
 
+    def _derive_vault_tokens(self, alloc_id: str, task_names):
+        """``Node.DeriveVaultToken`` through this client's RPC surface (an
+        in-process server or ``RemoteServerRPC``)."""
+        return self.rpc.derive_vault_token(alloc_id, task_names)
+
     def start(self) -> None:
         for target in (self._register_and_heartbeat, self._watch_allocations,
                        self._alloc_sync_loop):
             self._spawn(target)
+        self.vault_client.start()
         self.garbage_collector.run()
 
     def shutdown(self) -> None:
@@ -180,6 +210,7 @@ class Client:
         started, each join bounded by ``JOIN_TIMEOUT``."""
         self._shutdown.set()
         self._registered.set()   # a watch still waiting for registration
+        self.vault_client.stop()
         self.garbage_collector.stop()
         deadline = time.monotonic() + JOIN_TIMEOUT
         # The loops first: once the watch has ended, no runner is added.
@@ -201,6 +232,9 @@ class Client:
         with self._threads_lock:
             out = [t for t in self._threads if t.is_alive()]
         out += self.garbage_collector.threads()
+        vt = self.vault_client._thread
+        if vt is not None and vt.is_alive():
+            out.append(vt)
         with self._alloc_lock:
             runners = list(self.alloc_runners.values())
         for r in runners:
@@ -373,6 +407,7 @@ class Client:
             consul=self.consul,
             logger=self.logger,
             rng=self.rng,
+            vault_client=self.vault_client,
         )
         # Block start on the previous alloc reaching a terminal state
         # (sticky disk / in-place upgrade ordering, client.go:1654).
@@ -512,7 +547,8 @@ class Client:
                 config=self.config, alloc=alloc,
                 updater=self._alloc_status_update, node=self.node,
                 state_db=self.state_db, consul=self.consul,
-                logger=self.logger, rng=self.rng)
+                logger=self.logger, rng=self.rng,
+                vault_client=self.vault_client)
             runner.task_states = dict(state.get("task_states", {}))
             runner.restored_handles = dict(state.get("handles", {}))
             with self._alloc_lock:

@@ -13,9 +13,8 @@ Two fields of the port's own:
   cgroup tree.  The JAX package's driver always uses ``/sys/fs/cgroup``
   when it is writable.
 
-Vault is ROADMAP item 30: a non-empty ``vault_addr`` or ``vault_token``
-raises ``NotImplementedError`` at construction, never a client that
-silently runs without its tokens.
+``vault_addr`` and ``vault_token`` reach vault over HTTP to renew and
+unwrap the tasks' tokens (``server/vault.py`` ``HTTPVault``).
 """
 from __future__ import annotations
 
@@ -50,7 +49,7 @@ class ClientConfig:
     # Consul-shaped catalog HTTP address for server discovery
     # (client/config consul block; client.go:2139 consulDiscovery)
     consul_address: str = ""
-    # Vault transport: not ported (ROADMAP item 30); must stay empty.
+    # The vault transport of the client's token manager (renew, unwrap).
     vault_addr: str = ""
     vault_token: str = ""
     # Dev-mode shortcuts
@@ -59,12 +58,6 @@ class ClientConfig:
     node_id: str = ""
     # The exec driver's cgroup root; "" -> no cgroups (RLIMIT_AS only).
     cgroup_root: str = ""
-
-    def __post_init__(self) -> None:
-        if self.vault_addr or self.vault_token:
-            raise NotImplementedError(
-                "the client's vault integration is not ported: vault is "
-                "ROADMAP item 30; leave vault_addr and vault_token empty")
 
     def read_option(self, key: str, default: str = "") -> str:
         return self.options.get(key, default)

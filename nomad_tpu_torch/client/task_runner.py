@@ -9,11 +9,12 @@ driver start → wait for exit or control events → consult RestartTracker
 → delay → loop.  Event names and the dead/failed accounting match the
 reference so `alloc-status` output is comparable.
 
-Vault is ROADMAP item 30: the port's client has no vault client, so a
-task with a ``vault`` ask ends dead with a failed ``Setup Failure``
-event whose message names the item -- the reference's outcome when the
-token derivation fails (task_runner.go:205-220), never a silent start.
-The restart tracker's jitter takes the runner's ``rng`` (default: a
+A task with a ``vault`` ask derives its token through the client's
+``vault_client`` before it starts (task_runner.py:205-226): the token is
+written to ``secrets/vault_token``, set as ``VAULT_TOKEN`` in the task's
+environment and renewed until the runner ends; a failed derivation ends
+the task dead with a failed ``Setup Failure`` event.  The restart
+tracker's jitter takes the runner's ``rng`` (default: a
 fresh generator, as the reference makes one).  A destroyed running task
 always reports ``Killing`` before ``Killed`` (see ``destroy``).
 
@@ -28,6 +29,7 @@ runner starts the task anew).
 from __future__ import annotations
 
 import logging
+import os
 import random
 import threading
 from typing import Callable, List, Optional
@@ -64,7 +66,9 @@ class TaskRunner:
                  consul=None,
                  logger: Optional[logging.Logger] = None,
                  rng: Optional[random.Random] = None,
-                 restore_handle: str = ""):
+                 restore_handle: str = "",
+                 vault_token: str = "",
+                 vault_client=None):
         self.config = config
         self.alloc = alloc
         self.task = task.copy()
@@ -72,6 +76,10 @@ class TaskRunner:
         self.updater = updater
         self.node = node
         self.consul = consul
+        # The task's vault token (a restored runner's, or derived before
+        # the first start) and the client's token manager.
+        self.vault_token = vault_token
+        self.vault_client = vault_client
         self._template_mgr = None
         self.logger = logger or logging.getLogger(
             "nomad_tpu_torch.client.task_runner")
@@ -105,6 +113,8 @@ class TaskRunner:
         b.set_region(getattr(self.config, "region", "global"))
         b.set_dirs(self.task_dir.shared_alloc_dir, self.task_dir.local_dir,
                    self.task_dir.secrets_dir)
+        if self.vault_token:
+            b.set_vault_token(self.vault_token)
         return b.build()
 
     def _create_driver(self, task_env: envmod.TaskEnv) -> Driver:
@@ -207,6 +217,8 @@ class TaskRunner:
                        s.TaskEvent(type=s.TASK_SETUP_FAILURE, failed=True,
                                    message=str(e)))
         finally:
+            if self.vault_token and self.vault_client is not None:
+                self.vault_client.stop_renew_token(self.vault_token)
             if self._template_mgr is not None:
                 self._template_mgr.stop()
             self._deregister_services()
@@ -243,17 +255,33 @@ class TaskRunner:
             self._emit(s.TASK_STATE_DEAD, ev)
 
     def _derive_vault_token(self) -> bool:
-        """A task with a vault ask fails its setup: the port has no vault
-        client (ROADMAP item 30), which the reference reaches when the
-        token derivation fails (task_runner.go:205-220)."""
-        if self.task.vault is None:
+        """This task's vault token through the client's manager, written
+        to the secrets dir and tracked for renewal (task_runner.go:675,
+        :785 writeToken).  A failed derivation ends the task dead."""
+        if self.task.vault is None or self.vault_client is None \
+                or self.vault_token:
             return True
-        self._emit(s.TASK_STATE_DEAD,
-                   s.TaskEvent(type=s.TASK_SETUP_FAILURE, failed=True,
-                               message="vault token derivation failed: "
-                                       "the vault integration is not "
-                                       "ported (ROADMAP item 30)"))
-        return False
+        try:
+            info = self.vault_client.derive_token(
+                self.alloc.id, [self.task.name])[self.task.name]
+        except Exception as e:
+            self._emit(s.TASK_STATE_DEAD,
+                       s.TaskEvent(type=s.TASK_SETUP_FAILURE, failed=True,
+                                   message=f"vault token derivation "
+                                           f"failed: {e}"))
+            return False
+        self.vault_token = info["token"]
+        try:
+            token_path = os.path.join(self.task_dir.secrets_dir,
+                                      "vault_token")
+            with open(token_path, "w", encoding="utf-8") as fh:
+                fh.write(self.vault_token)
+            os.chmod(token_path, 0o600)
+        except OSError as e:
+            self.logger.warning("vault token write failed: %s", e)
+        self.vault_client.renew_token(self.vault_token,
+                                      float(info.get("ttl") or 3600.0))
+        return True
 
     def _register_services(self, handle) -> None:
         """Advertise the task's services + checks with the task lifecycle

@@ -133,6 +133,7 @@ def job_from_dict(d: dict) -> s.Job:
             if par else None),
         payload=bytes(d.get("payload") or b""),
         meta=dict(d.get("meta") or {}),
+        vault_token=d.get("vault_token", ""),
         status=d.get("status", s.JOB_STATUS_PENDING),
         status_description=d.get("status_description", ""),
         stop=d.get("stop", False), version=d.get("version", 0),

@@ -460,11 +460,7 @@ def parse_job(entry: Entry) -> s.Job:
         job.priority = int(_attr(blk, "priority"))
     job.all_at_once = bool(_attr(blk, "all_at_once", False))
     job.datacenters = [str(d) for d in (_attr(blk, "datacenters", []) or [])]
-    if str(_attr(blk, "vault_token", "")):
-        # The port's Job has no vault token: vault is ROADMAP item 30.
-        # A token is refused, never dropped.
-        raise ParseError(f"{ctx}: vault_token is not supported: the vault "
-                         "integration is not ported (ROADMAP item 30)")
+    job.vault_token = str(_attr(blk, "vault_token", ""))
     job.constraints = parse_constraints(blk, ctx)
     job.meta = _str_map(blk.one("meta"), ctx)
     ub = _blocks(blk, "update", ctx)

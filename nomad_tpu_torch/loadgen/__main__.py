@@ -8,8 +8,10 @@ sustained-throughput speedup.  ``--device`` (default ``cuda``) is where
 the server's batch workers run; ``cpu`` runs the kernels' plain
 versions.  The follower child's settings, which the reference reads from
 its environment, are arguments (``--device``, ``--follower-sched``,
-``--events``, ``--switch-interval``, ``--raft-*``), and its stack sampler
-is ``--profile``.
+``--events``, ``--chaos`` for the chaos control endpoints,
+``--switch-interval``, ``--raft-*``), and its stack sampler is
+``--profile``.  A scenario with more than one region (``multi_region``)
+runs through the federated harness.
 """
 from __future__ import annotations
 
@@ -76,6 +78,7 @@ def _follower_child_main(args) -> int:
         non_voting=args.non_voting,
         follower_scheduling=args.follower_sched,
         events=args.events,
+        chaos_endpoints=args.chaos,
         raft_heartbeat=args.raft_heartbeat,
         raft_election_min=args.raft_election_min,
         raft_election_max=args.raft_election_max,
@@ -142,6 +145,7 @@ def main(argv=None) -> int:
     p.add_argument("--follower-sched", action="store_true",
                    help=argparse.SUPPRESS)
     p.add_argument("--events", action="store_true", help=argparse.SUPPRESS)
+    p.add_argument("--chaos", action="store_true", help=argparse.SUPPRESS)
     p.add_argument("--switch-interval", type=float, default=None,
                    help=argparse.SUPPRESS)
     p.add_argument("--raft-heartbeat", type=float,

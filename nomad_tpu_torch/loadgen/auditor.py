@@ -1,7 +1,8 @@
-"""Continuous safety auditor (a copy of ``nomad_tpu/loadgen/auditor.py``
-without the federated auditor, which waits for the multi-region harness,
-ROADMAP queue 1 item 30): proves cluster invariants LIVE while load runs,
-instead of only in a post-run sweep.
+"""Continuous safety auditors (a copy of ``nomad_tpu/loadgen/auditor.py``):
+prove cluster invariants LIVE while load runs, instead of only in a
+post-run sweep.  ``SafetyAuditor`` watches one region's servers;
+``FederatedAuditor`` (with ``federated_sweep``) the regions of a
+federation, each an in-process server (see its docstring).
 
 Feeds
 -----
@@ -142,6 +143,168 @@ def integrity_sweep(state, job_ids: Optional[Set[str]] = None,
             "overcommitted_nodes": overcommitted,
             "tenant_quota_violations": tenant_quota,
             "detail": detail[:10]}
+
+
+def federated_sweep(states_by_region: Dict[str, object],
+                    strict: bool = False) -> Dict:
+    """One federated placement-integrity pass over every region's state
+    snapshot (auditor.py:146): regions are independent fault domains, so the
+    cross-region invariant is OWNERSHIP — a job must never hold live
+    allocs in more than one region (a double place across the
+    federation), and each region must pass its own single-region
+    ``integrity_sweep`` besides."""
+    live_regions: Dict[str, List[str]] = {}
+    per_region: Dict[str, Dict] = {}
+    for region, state in sorted(states_by_region.items()):
+        seen = set()
+        for a in state.allocs(None):
+            if not a.terminal_status():
+                seen.add(a.job_id)
+        for jid in seen:
+            live_regions.setdefault(jid, []).append(region)
+        per_region[region] = integrity_sweep(state, strict=strict)
+    cross = sorted(jid for jid, rs in live_regions.items() if len(rs) > 1)
+    detail = [f"job {jid}: live allocs in {live_regions[jid]}"
+              for jid in cross[:10]]
+    return {"regions": per_region,
+            "cross_region_double_placed": len(cross),
+            "jobs_with_live_allocs": len(live_regions),
+            "detail": detail}
+
+
+class FederatedAuditor:
+    """Continuous federated safety sweeps (auditor.py:173) over a set of
+    IN-PROCESS region servers: the cross-region ownership invariant
+    (``federated_sweep``), each region's own integrity invariants, a
+    per-region FSM-digest history (any raft index that ever maps to two
+    different digests within one region is state divergence — asserted
+    straight through partition and heal), and the lost-acked-eval audit
+    per region at finalize.  Violations accumulate exactly like
+    :class:`SafetyAuditor`'s; a run is healthy iff
+    ``violation_count == 0``."""
+
+    FP_HISTORY = 1024
+
+    def __init__(self, servers: Dict[str, object], interval: float = 1.0,
+                 logger: Optional[logging.Logger] = None):
+        self.servers = dict(servers)      # region -> in-process Server
+        self.interval = interval
+        self.logger = logger or logging.getLogger("nomad_tpu_torch.fedauditor")
+        self._stop = threading.Event()
+        self._l = threading.Lock()
+        self._t0 = time.monotonic()
+        self._thread: Optional[threading.Thread] = None
+        self.violations: List[Dict] = []
+        # region -> {index -> {fingerprint}}
+        self._fps: Dict[str, Dict[int, Set[str]]] = {
+            r: {} for r in self.servers}
+        # region -> acked eval ids (fed by the harness trackers)
+        self.acked: Dict[str, Set[str]] = {r: set() for r in self.servers}
+        self.counts = {"sweeps": 0, "fingerprint_samples": 0,
+                       "cross_region_checks": 0}
+
+    def start(self) -> None:
+        self._t0 = time.monotonic()
+        self._thread = threading.Thread(target=self._loop, daemon=True,
+                                        name="fed-audit")
+        self._thread.start()
+
+    def stop(self) -> None:
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join(timeout=5.0)
+
+    def note_acked(self, region: str, eval_id: str) -> None:
+        with self._l:
+            self.acked.setdefault(region, set()).add(eval_id)
+
+    def _violate(self, kind: str, detail: str) -> None:
+        v = {"t": round(time.monotonic() - self._t0, 3), "kind": kind,
+             "detail": detail}
+        with self._l:
+            self.violations.append(v)
+        blackbox.note_trigger("auditor.violation", v)
+        self.logger.error("FED AUDIT VIOLATION %s: %s", kind, detail)
+
+    def _note_fingerprint(self, region: str, index: int, fp: str) -> None:
+        with self._l:
+            hist = self._fps.setdefault(region, {})
+            bucket = hist.setdefault(index, set())
+            bucket.add(fp)
+            if len(bucket) > 1:
+                self._violate(
+                    "fsm_digest_instability",
+                    f"region {region}: index {index} maps to "
+                    f"{len(bucket)} distinct digests")
+            self.counts["fingerprint_samples"] += 1
+            if len(hist) > self.FP_HISTORY:
+                for idx in sorted(hist)[:len(hist) - self.FP_HISTORY]:
+                    del hist[idx]
+
+    def _sweep_once(self, strict: bool = False) -> Dict:
+        states = {r: srv.consistent_snapshot()
+                  for r, srv in self.servers.items()}
+        fed = federated_sweep(states, strict=strict)
+        self.counts["sweeps"] += 1
+        self.counts["cross_region_checks"] += fed["jobs_with_live_allocs"]
+        if fed["cross_region_double_placed"]:
+            self._violate(
+                "cross_region_double_placement",
+                f"{fed['cross_region_double_placed']} "
+                f"({'; '.join(fed['detail'])})")
+        for region, sweep in fed["regions"].items():
+            for key, kind in (("overplaced_jobs", "double_placement"),
+                              ("duplicate_alloc_names",
+                               "duplicate_alloc_names"),
+                              ("overcommitted_nodes", "node_overcommit"),
+                              ("tenant_quota_violations",
+                               "tenant_quota_exceeded")):
+                if sweep[key]:
+                    self._violate(
+                        kind, f"region {region}: {sweep[key]} "
+                              f"({'; '.join(sweep['detail'])})")
+        for region, snap in states.items():
+            self._note_fingerprint(region, snap.latest_index(),
+                                   snap.fingerprint())
+        return fed
+
+    def _loop(self) -> None:
+        while not self._stop.wait(self.interval):
+            try:
+                self._sweep_once()
+            except Exception:
+                self.logger.exception("federated auditor sweep failed")
+
+    def finalize(self) -> Dict:
+        """Stop the live sweeps, run the strict post-drain federated
+        sweep and the per-region lost-acked-eval audit, and return the
+        report section."""
+        self.stop()
+        final = self._sweep_once(strict=True)
+        lost = checked = 0
+        with self._l:
+            acked = {r: set(ids) for r, ids in self.acked.items()}
+        for region, ids in acked.items():
+            state = self.servers[region].state
+            for eval_id in ids:
+                checked += 1
+                ev = state.eval_by_id(None, eval_id)
+                if ev is None:
+                    continue  # GC'd after terminal — lawful
+                if ev.status not in _TERMINAL:
+                    lost += 1
+                    self._violate(
+                        "lost_acked_eval",
+                        f"region {region}: eval {eval_id} was acked but "
+                        f"rests {ev.status}")
+        with self._l:
+            violations = list(self.violations)
+        return {"violation_count": len(violations),
+                "violations": violations[:50],
+                "checks": dict(self.counts),
+                "final_sweep": final,
+                "acked_checked": checked,
+                "lost_acked": lost}
 
 
 class SafetyAuditor:

@@ -45,9 +45,15 @@ deterministic leader (``MultiRaft``, a single-voter bootstrap) and
 over TCP, replicate its log and schedule on the CPU off their replicas
 (the follower-read design), forwarding plans to the leader's plan
 queue.  With ``audit`` the continuous ``SafetyAuditor`` runs against
-every server.  The chaos scheduler and the federated harness are not
-ported: a scenario with ``chaos`` or more than one region raises
-(ROADMAP queue 1 item 30).
+every server.  With ``chaos`` the seeded ``_ChaosScheduler`` SIGKILLs
+followers and restarts them from their raft stores (a persistent data
+dir and the same port each) and splits and heals partitions on both
+sides: the harness's own net plane (``fault.py``) and the follower's,
+driven over a chaos-exempt control pool (``Chaos.SetNet``; the children
+run with ``--chaos``); the report's ``chaos`` section gives each event's
+recovery time (``_chaos_report``).  A scenario with more than one region
+runs through ``loadgen/federation.py``'s ``MultiRegionHarness``
+(``run_scenario`` routes it there).
 """
 from __future__ import annotations
 
@@ -60,6 +66,7 @@ import time
 from collections import OrderedDict
 from typing import Dict, List, Optional, Tuple
 
+from .. import fault
 from ..server import Server, ServerConfig
 from ..server.eval_broker import BrokerLimitError
 from ..structs import structs as s
@@ -80,8 +87,6 @@ SWITCH_INTERVAL = 0.001
 # The checkout's root: the follower children run ``-m`` from there.
 _ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
-NOT_PORTED = ("the chaos scheduler and the multi-region harness are not "
-              "ported yet (ROADMAP queue 1 item 30)")
 
 
 def apply_switch_interval(value: Optional[float]) -> Optional[float]:
@@ -128,6 +133,124 @@ class _Submission:
         self.ns = ns
 
 
+class _ChaosScheduler:
+    """Seeded fault timeline for multi-server soak runs (harness.py:111): a
+    deterministic schedule of follower kills (SIGKILL + restart from
+    the raft store) and split/heal network partitions, interleaved with
+    the offered load.
+
+    Partitions are enforced on BOTH sides: the harness process arms its
+    own net plane (severing the leader's dials/sends — including raft
+    replication — to the target) and drives the follower's plane over
+    the chaos-exempt control pool via ``Chaos.SetNet``, so the
+    follower's dequeue/plan-forward traffic dies too.  Every event is
+    recorded with monotonic timestamps for the recovery-time report."""
+
+    def __init__(self, harness: "LoadHarness", spec: Dict, logger):
+        self.h = harness
+        self.spec = dict(spec or {})
+        self.logger = logger
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+        self.events: List[Dict] = []
+        seed = int(self.spec.get("seed", harness.sc.seed))
+        rng = random.Random(f"chaos/{seed}")
+        kills = int(self.spec.get("kills", 1))
+        partitions = int(self.spec.get("partitions", 2))
+        start = float(self.spec.get("start_offset_s", 6.0))
+        spacing = float(self.spec.get("spacing_s", 9.0))
+        n_followers = max(1, harness.sc.num_servers - 1)
+        # Deterministic interleave: partitions and kills alternate,
+        # jittered spacing, seeded follower choice.
+        kinds = []
+        for i in range(max(kills, partitions)):
+            if i < partitions:
+                kinds.append("partition")
+            if i < kills:
+                kinds.append("kill")
+        self.timeline: List[Dict] = []
+        t = start
+        for k, kind in enumerate(kinds):
+            # Seeded base + ordinal rotation: deterministic, and a
+            # multi-event timeline spreads across followers instead of
+            # the seed happening to abuse one server all run.
+            self.timeline.append({
+                "at_s": round(t, 2), "kind": kind,
+                "target": (rng.randrange(n_followers) + k) % n_followers})
+            t += spacing * (0.8 + 0.4 * rng.random())
+
+    def start(self) -> None:
+        self._thread = threading.Thread(target=self._run, daemon=True,
+                                        name="lg-chaos")
+        self._thread.start()
+
+    def stop(self) -> None:
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join(timeout=30.0)
+
+    # -- actions -----------------------------------------------------------
+
+    def _set_follower_net(self, addr: str, body: Dict) -> None:
+        try:
+            self.h._chaos_pool.call(addr, "Chaos.SetNet", body,
+                                    timeout=5.0)
+        except Exception as e:
+            self.logger.warning("chaos: Chaos.SetNet on %s failed: %s",
+                                addr, e)
+
+    def _do_partition(self, ev: Dict) -> None:
+        idx = ev["target"] % len(self.h.follower_addrs)
+        addr = self.h.follower_addrs[idx]
+        leader = self.h.server.config.rpc_advertise
+        name = f"chaos-{len(self.events)}"
+        hold = float(self.spec.get("partition_s", 4.0))
+        ev.update(target_addr=addr, name=name, t=time.monotonic())
+        # Split: both sides sever their own outbound traffic.
+        fault.net_partition(name, [[leader], [addr]])
+        self._set_follower_net(addr, {"Partitions": [
+            {"Name": name, "Groups": [[addr], [leader]]}]})
+        self.logger.info("chaos: partition %s <-> %s for %.1fs",
+                         leader, addr, hold)
+        self._stop.wait(hold)
+        fault.net_heal(name)
+        self._set_follower_net(addr, {"Heal": [name]})
+        ev["healed_t"] = time.monotonic()
+
+    def _do_kill(self, ev: Dict) -> None:
+        idx = ev["target"] % len(self.h.follower_addrs)
+        delay = float(self.spec.get("restart_delay_s", 1.0))
+        ev.update(t=time.monotonic())
+        addr = self.h.kill_follower(idx)
+        ev["target_addr"] = addr
+        self.logger.info("chaos: SIGKILLed follower %s; restarting in "
+                         "%.1fs", addr, delay)
+        self._stop.wait(delay)
+        self.h.restart_follower(idx)
+        ev["restarted_t"] = time.monotonic()
+
+    def _run(self) -> None:
+        for ev in self.timeline:
+            due = self.h._start_t + ev["at_s"]
+            while not self._stop.is_set():
+                wait = due - time.monotonic()
+                if wait <= 0:
+                    break
+                self._stop.wait(min(wait, 0.5))
+            if self._stop.is_set():
+                return
+            ev = dict(ev)
+            try:
+                if ev["kind"] == "partition":
+                    self._do_partition(ev)
+                else:
+                    self._do_kill(ev)
+            except Exception as e:
+                ev["error"] = repr(e)
+                self.logger.exception("chaos: %s event failed", ev["kind"])
+            self.events.append(ev)
+
+
 class LoadHarness:
     """One scenario run against one in-process server on ``device``."""
 
@@ -137,9 +260,11 @@ class LoadHarness:
                  server_options: Optional[Dict] = None,
                  raft_tuning: Optional[Dict] = None,
                  switch_interval: Optional[float] = SWITCH_INTERVAL):
-        if scenario.chaos is not None or scenario.num_regions > 1:
-            raise NotImplementedError(
-                f"scenario {scenario.name!r}: {NOT_PORTED}")
+        if scenario.num_regions > 1:
+            raise ValueError(
+                f"scenario {scenario.name!r} has {scenario.num_regions} "
+                "regions: run it through loadgen.federation."
+                "MultiRegionHarness (run_scenario routes it there)")
         self.sc = scenario
         self.logger = logger or logging.getLogger("nomad_tpu_torch.loadgen")
         self.device = device
@@ -177,7 +302,14 @@ class LoadHarness:
         # continuous safety auditor with its own connection pool.
         self._follower_procs: list = []
         self.follower_addrs: List[str] = []
-        self._audit_pool = None
+        # The chaos plane: per-follower persistent data dirs (a SIGKILLed
+        # follower restarts from its raft store), the chaos-exempt
+        # control pool (split, heal and audit must reach a partitioned
+        # server, as an out-of-band console does) and the scheduler.
+        self._follower_dirs: List[str] = []
+        self._chaos_root = ""
+        self._chaos_pool = None
+        self._chaos = None
         self.auditor = None
         self._wal_dir = ""
         self._prior_switch_interval: Optional[float] = None
@@ -254,11 +386,13 @@ class LoadHarness:
 
     # -- follower-scheduler subprocesses ------------------------------------
 
-    def _spawn_one_follower(self, i: int):
-        """Spawn follower ``i``: a server process on the CPU that joins
-        the leader, schedules with follower workers and parks on stdin.
-        Everything the reference passes it through the environment is an
-        argument here."""
+    def _spawn_one_follower(self, i: int, port: int = 0):
+        """Spawn follower ``i`` (fresh, or restarted after a chaos kill):
+        a server process on the CPU that joins the leader, schedules with
+        follower workers and parks on stdin.  Everything the reference
+        passes it through the environment is an argument here.  With a
+        chaos spec it gets a persistent data dir, and on a restart the
+        port it had, so it comes back as the same raft member."""
         import subprocess
 
         sc = self.sc
@@ -276,10 +410,16 @@ class LoadHarness:
             cmd += ["--switch-interval", str(self.switch_interval)]
         if not sc.follower_voting:
             cmd.append("--non-voting")
-        if sc.audit:
+        if sc.audit or sc.chaos is not None:
             # The auditor's Event.Since feed: every server's event
             # stream armed.
             cmd.append("--events")
+        if sc.chaos is not None:
+            cmd.append("--chaos")
+        if i < len(self._follower_dirs) and self._follower_dirs[i]:
+            cmd += ["--data-dir", self._follower_dirs[i]]
+        if port:
+            cmd += ["--port", str(port)]
         return subprocess.Popen(cmd, stdin=subprocess.PIPE,
                                 stdout=subprocess.PIPE, text=True,
                                 cwd=_ROOT)
@@ -308,6 +448,14 @@ class LoadHarness:
         (server/follower_sched.py)."""
         sc = self.sc
         addr = self.server.config.rpc_advertise
+        if sc.chaos is not None:
+            import tempfile
+
+            self._chaos_root = tempfile.mkdtemp(
+                prefix="nomad-tpu-torch-chaos-")
+            self._follower_dirs = [
+                os.path.join(self._chaos_root, f"follower-{i + 1}")
+                for i in range(sc.num_servers - 1)]
         for i in range(sc.num_servers - 1):
             self._follower_procs.append(self._spawn_one_follower(i))
         deadline = time.monotonic() + 60.0
@@ -401,6 +549,38 @@ class LoadHarness:
                 proc.kill()
                 proc.wait(timeout=5.0)
         self._follower_procs = []
+
+    # -- the chaos plane (harness.py:522-553) --------------------------------
+
+    def kill_follower(self, idx: int) -> str:
+        """SIGKILL follower ``idx``: a real process crash, no drain, no
+        flush.  Returns its address."""
+        proc = self._follower_procs[idx]
+        proc.kill()
+        proc.wait(timeout=10.0)
+        return self.follower_addrs[idx]
+
+    def restart_follower(self, idx: int, timeout: float = 60.0) -> str:
+        """Respawn a killed follower at the same address on the same data
+        dir: it recovers its term, vote, log and snapshot from its raft
+        store, rejoins the leader, and replication and follower-read
+        scheduling resume."""
+        addr = self.follower_addrs[idx]
+        port = int(addr.rsplit(":", 1)[1])
+        proc = self._spawn_one_follower(idx, port=port)
+        self._follower_procs[idx] = proc
+        got = self._await_ready(proc, time.monotonic() + timeout)
+        if got != addr:
+            raise RuntimeError(
+                f"restarted follower came back at {got}, wanted {addr}")
+        # The old process's sockets are dead: purge them (and the dial
+        # gate), so the next caller dials the new incarnation.
+        for pool in (self.server.pool, self._chaos_pool):
+            if pool is not None:
+                pool.invalidate(addr)
+        if self.auditor is not None:
+            self.auditor.note_restart(addr)
+        return addr
 
     def _collect_integrity(self) -> Dict:
         """Placement-integrity sweep over the leader's final state: the
@@ -725,21 +905,26 @@ class LoadHarness:
             return self._run_inner()
         finally:
             self._stop.set()
+            if self._chaos is not None:
+                self._chaos.stop()
             if self.auditor is not None:
                 self.auditor.stop()
+            if self.sc.chaos is not None:
+                fault.net_disarm()
             for t in self._threads:
                 t.join(timeout=5.0)
             self._stop_followers()
-            if self._audit_pool is not None:
-                self._audit_pool.close()
+            if self._chaos_pool is not None:
+                self._chaos_pool.close()
             if self.server is not None:
                 self.server.shutdown()
             if self._prior_switch_interval is not None:
                 sys.setswitchinterval(self._prior_switch_interval)
-            if self._wal_dir:
-                import shutil
+            for path in (self._wal_dir, self._chaos_root):
+                if path:
+                    import shutil
 
-                shutil.rmtree(self._wal_dir, ignore_errors=True)
+                    shutil.rmtree(path, ignore_errors=True)
 
     def _run_inner(self) -> Dict:
         sc = self.sc
@@ -748,16 +933,22 @@ class LoadHarness:
             self._register_tenants()
         self._attach_subscribers()
 
-        # The continuous safety auditor over every server of the
-        # cluster, through a pool of its own.
-        if sc.num_servers > 1 and sc.audit:
+        # The chaos plane and the continuous safety auditor: the exempt
+        # control pool is the out-of-band console, so split and heal and
+        # the fingerprint and event audits keep reaching a server its
+        # data plane can no longer talk to.
+        if sc.num_servers > 1 and (sc.chaos is not None or sc.audit):
             from ..server.rpc import ConnPool
             from .auditor import SafetyAuditor
 
-            self._audit_pool = ConnPool()
+            self._chaos_pool = ConnPool()
+            self._chaos_pool.chaos_exempt = True
+            # The sweep cadence scales with the run: fingerprints hash
+            # the whole replicated store.
+            interval = float((sc.chaos or {}).get("audit_interval_s", 1.0))
             self.auditor = SafetyAuditor(
-                self.server, self.follower_addrs, pool=self._audit_pool,
-                interval=1.0, logger=self.logger.getChild("auditor"))
+                self.server, self.follower_addrs, pool=self._chaos_pool,
+                interval=interval, logger=self.logger.getChild("auditor"))
             self.auditor.start()
 
         def spawn(fn, *args, name=""):
@@ -784,12 +975,17 @@ class LoadHarness:
         measure_start = self._start_t + sc.warmup_s
         measure_end = measure_start + sc.measure_s
         self._submit_end_t = measure_end
+        if sc.chaos is not None and sc.num_servers > 1:
+            self._chaos = _ChaosScheduler(self, sc.chaos,
+                                          self.logger.getChild("chaos"))
+            self._chaos.start()
         submitters = [spawn(self._submitter, c, name=f"lg-client-{c}")
                       for c in range(sc.num_clients)]
 
         for t in submitters:
             t.join(timeout=sc.warmup_s + sc.measure_s + 30.0)
         submit_done_t = time.monotonic()
+        self._submit_done_t = submit_done_t
 
         # Drain: bounded wait for the backlog to clear.
         drain_deadline = submit_done_t + sc.drain_s
@@ -803,6 +999,11 @@ class LoadHarness:
         report = self._assemble(measure_start, measure_end, drained_t,
                                 fanout)
         report["integrity"] = self._collect_integrity()
+        if self._chaos is not None:
+            # Heal whatever is still split before the auditor's converged
+            # cross-check (it needs the cluster whole again).
+            self._chaos.stop()
+            report["chaos"] = self._chaos_report()
         if self.auditor is not None:
             report["auditor"] = self.auditor.finalize()
             if report["auditor"]["violation_count"]:
@@ -833,6 +1034,105 @@ class LoadHarness:
         return report
 
     # -- report ------------------------------------------------------------
+
+    def _chaos_report(self) -> Dict:
+        """Per-event recovery times: seconds from fault injection until
+        the 2s-rolling placed/s climbs back to ≥80% of the rate over
+        the 6s before the fault.  An event whose bound window runs past
+        the end of offered load is CENSORED (not observable), never
+        silently counted as recovered."""
+        spec = self._chaos.spec
+        bound = float(spec.get("recovery_bound_s", 30.0))
+        with self._l:
+            placed = list(self.placed_events)
+
+        def rate(t0: float, t1: float) -> float:
+            if t1 <= t0:
+                return 0.0
+            return sum(p for t, p in placed if t0 <= t < t1) / (t1 - t0)
+
+        observable_until = getattr(self, "_submit_done_t", 0.0)
+        events_out: List[Dict] = []
+        recs: List[float] = []
+        unrecovered = censored = 0
+        for ev in self._chaos.events:
+            item = {k: ev.get(k) for k in ("kind", "at_s", "target_addr",
+                                           "error") if ev.get(k) is not None}
+            t_f = ev.get("t")
+            if t_f is None:
+                events_out.append(item)
+                continue
+            for key, label in (("healed_t", "healed_after_s"),
+                               ("restarted_t", "restarted_after_s")):
+                if ev.get(key):
+                    item[label] = round(ev[key] - t_f, 2)
+            pre = rate(t_f - 6.0, t_f)
+            item["pre_rate_placed_per_s"] = round(pre, 1)
+            if pre < 1.0:
+                item["recovery_s"] = None
+                item["note"] = "no meaningful pre-fault load"
+                events_out.append(item)
+                continue
+            # Recovery = time until the rolling rate is back at target
+            # AND STAYS there for the rest of the observed horizon —
+            # the first-crossing definition lies when the fault's bite
+            # lags the injection (a partition takes a beat to starve
+            # the pipeline).  The horizon is clipped to the end of
+            # offered load: a dip the submitters' exit would explain
+            # censors the event instead of counting it unrecovered.
+            target = 0.8 * pre
+            horizon = min(t_f + bound, observable_until + 2.0)
+            samples = []
+            t = t_f
+            while t < horizon:
+                t += 0.25
+                samples.append((t, rate(t - 2.0, t)))
+            if not samples:
+                censored += 1
+                item["recovery_s"] = None
+                item["note"] = "censored: offered load ended at the fault"
+                events_out.append(item)
+                continue
+            item["min_rate_ratio"] = round(
+                min(r for _, r in samples) / pre, 2)
+            below = [t for t, r in samples if r < target]
+            if not below and horizon < t_f + bound:
+                # No dip observed, but the window was clipped: the bite
+                # can lag injection, so an unclipped window is required
+                # before claiming the cluster rode through.
+                censored += 1
+                item["recovery_s"] = None
+                item["note"] = "censored: offered load ended inside the bound"
+            elif not below:
+                # Surviving capacity absorbed it: never dipped past 20%
+                # anywhere in the full bound window.
+                recs.append(0.0)
+                item["recovery_s"] = 0.0
+                item["note"] = "rode through (never below 80% of pre-fault)"
+            elif below[-1] < samples[-1][0]:
+                rec = below[-1] + 0.25 - t_f
+                recs.append(rec)
+                item["recovery_s"] = round(rec, 2)
+            elif horizon < t_f + bound:
+                censored += 1
+                item["recovery_s"] = None
+                item["note"] = "censored: offered load ended inside the bound"
+            else:
+                unrecovered += 1
+                item["recovery_s"] = None
+            events_out.append(item)
+        recs.sort()
+
+        def pct(q: float):
+            return (round(recs[min(len(recs) - 1, int(q * len(recs)))], 2)
+                    if recs else None)
+
+        return {"spec": dict(spec), "events": events_out,
+                "recovered": len(recs), "unrecovered": unrecovered,
+                "censored": censored, "recovery_bound_s": bound,
+                "recovery_s": {"p50": pct(0.50), "p90": pct(0.90),
+                               "p99": pct(0.99),
+                               "max": round(recs[-1], 2) if recs else None}}
 
     def _codec_split(self) -> Dict:
         """Leader-side codec time-split for this run: per-subsystem
@@ -1047,7 +1347,16 @@ def run_scenario(scenario: Scenario,
                  logger: Optional[logging.Logger] = None,
                  **harness_kwargs) -> Dict:
     """One run; ``harness_kwargs`` go to :class:`LoadHarness` (``device``,
-    ``server_options``, ``raft_tuning``, ``switch_interval``)."""
+    ``server_options``, ``raft_tuning``, ``switch_interval``).  A
+    scenario with more than one region runs through
+    ``federation.run_multi_region`` (``device`` and ``server_options``)."""
+    if scenario.num_regions > 1:
+        from .federation import run_multi_region
+
+        return run_multi_region(
+            scenario, logger=logger,
+            **{k: v for k, v in harness_kwargs.items()
+               if k in ("device", "server_options")})
     return LoadHarness(scenario, logger=logger, **harness_kwargs).run()
 
 

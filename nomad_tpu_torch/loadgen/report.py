@@ -3,9 +3,9 @@
 
 The JSON report is the machine contract; ``render_report`` is the human
 summary printed to stderr, line for line the reference's for the same
-report of a struct-codec run.  The chaos and federated sections'
-rendering waits for what produces them (ROADMAP queue 1 item 30), and
-the port has one codec, so no residue of another is rendered; the
+report of a struct-codec run, the chaos and federated sections
+included.  The port has one codec, so no residue of another is
+rendered; the
 port's ``server`` section (the worker and the device) is rendered after
 the scenario line.
 """
@@ -64,7 +64,73 @@ def render_report(report: Dict, out: TextIO) -> None:
             out.write(f"-- M={m} --\n")
             _render_single(run, out, indent="  ")
         return
+    if "federation" in report:  # multi_region shape
+        _render_federation(report, out)
+        return
     _render_single(report, out)
+
+
+def _render_federation(r: Dict, out: TextIO) -> None:
+    sc = r["scenario"]
+    off = r["offered"]
+    sus = r["sustained"]
+    fed = r["federation"]
+
+    def w(line: str) -> None:
+        out.write(line + "\n")
+
+    w(f"== loadgen federation: {sc['name']} — {len(fed['regions'])} regions "
+      f"({', '.join(fed['regions'])}), {fed['nodes_per_region']} nodes each, "
+      f"{sc['num_clients']} region-homed clients @ {sc['arrival_rate']}/s ==")
+    w(f"offered: {off['submitted']} submitted "
+      f"({fed['cross_submitted']} cross-region), "
+      f"{off['dropped_after_retries']} dropped, "
+      f"{off['admission_rejects_seen']} 429s, "
+      f"{off['no_path_events']} NoPathToRegion NACKs "
+      f"({off['no_path_drops']} gave up)")
+    w(f"sustained: {sus['evals_per_s']} evals/s, {sus['placed_per_s']} "
+      f"placed/s ({sus['stragglers_after_drain']} stragglers)")
+    s2r = r["latency_ms"]["submit_to_running"]
+    w(f"submit→running ms: p50={s2r['p50']} p95={s2r['p95']} "
+      f"p99={s2r['p99']} (n={s2r['count']})")
+    tax = fed["forward_tax_ms"]
+    w(f"forward tax ms (submit): local p50={tax['local']['p50']} "
+      f"p99={tax['local']['p99']} | cross p50={tax['cross']['p50']} "
+      f"p99={tax['cross']['p99']} (n={tax['cross']['count']})")
+    reads = fed["reads_ms"]
+    w(f"reads ms: local p50={reads['local']['p50']} "
+      f"p99={reads['local']['p99']} | cross p50={reads['cross']['p50']} "
+      f"p99={reads['cross']['p99']} "
+      f"({fed['read_no_path_events']} dark-region read NACKs)")
+    for region, pr in fed["per_region"].items():
+        w(f"  {region}: {pr['submitted']} submitted "
+          f"({pr['cross_in']} forwarded in), {pr['completed']} completed, "
+          f"{pr['placed']} placed")
+    bo = fed.get("blackout") or {}
+    if bo:
+        w(f"blackout: region {bo.get('region')} dark "
+          f"{bo.get('duration_s')}s @ {bo.get('at_s')}s — "
+          f"{'RECOVERED' if bo.get('recovered') else 'NOT RECOVERED'} "
+          f"(registered {bo.get('registered_after_heal_s')}s, placed "
+          f"{bo.get('placed_after_heal_s')}s after heal, "
+          f"{bo.get('probe_attempts')} probes, "
+          f"bound {bo.get('recovery_bound_s')}s)")
+    agg = fed.get("aggregator") or {}
+    if agg:
+        w(f"aggregator: {agg.get('Events')} events over "
+          f"{agg.get('Polls')} polls, {agg.get('Unreachable')} "
+          f"dark-region skips, cursors={agg.get('Cursors')}")
+    aud = r.get("auditor") or {}
+    if aud:
+        checks = aud.get("checks") or {}
+        w(f"federated auditor: {aud.get('violation_count')} violations — "
+          f"{checks.get('sweeps')} sweeps, "
+          f"{checks.get('cross_region_checks')} cross-region checks, "
+          f"{checks.get('fingerprint_samples')} fingerprint samples, "
+          f"{aud.get('acked_checked', 0)} acked evals audited "
+          f"({aud.get('lost_acked', 0)} lost)")
+        for v in (aud.get("violations") or [])[:8]:
+            w(f"  VIOLATION +{v['t']}s {v['kind']}: {v['detail']}")
 
 
 def _render_single(r: Dict, out: TextIO, indent: str = "") -> None:
@@ -171,6 +237,21 @@ def _render_single(r: Dict, out: TextIO, indent: str = "") -> None:
           f"(rtt p50={rtt.get('p50')} p99={rtt.get('p99')}ms), "
           f"snapshot lag p95={lag.get('p95')} entries, "
           f"{f['lag_handbacks']} lag handbacks")
+    chaos = r.get("chaos") or {}
+    if chaos:
+        rec = chaos.get("recovery_s") or {}
+        w(f"chaos: {len(chaos.get('events', []))} events "
+          f"({chaos.get('recovered')} recovered, "
+          f"{chaos.get('unrecovered')} unrecovered, "
+          f"{chaos.get('censored')} censored) — recovery p50={rec.get('p50')}s "
+          f"p90={rec.get('p90')}s max={rec.get('max')}s "
+          f"(bound {chaos.get('recovery_bound_s')}s)")
+        for ev in chaos.get("events", []):
+            w(f"  {ev.get('kind'):>9} @ {ev.get('at_s')}s {ev.get('target_addr', '')}"
+              f" pre={ev.get('pre_rate_placed_per_s')}/s"
+              f" recovery={ev.get('recovery_s')}s"
+              + (f" [{ev['note']}]" if ev.get("note") else "")
+              + (f" ERROR {ev['error']}" if ev.get("error") else ""))
     aud = r.get("auditor") or {}
     if aud:
         checks = aud.get("checks") or {}

@@ -24,12 +24,10 @@ Builtins cover the regression tiers; ``Scenario.from_dict`` /
       "seed": 42
     }
 
-The port's harness runs every field but three: ``chaos`` and
-``num_regions`` > 1 (with ``cross_region_fraction`` and
-``region_blackout``) raise, naming ROADMAP queue 1 item 30, and
-``use_tpu_batch_worker`` parses but changes nothing: the port's server
-has only the batch worker (``torch-batch``), on the device the harness is
-given.
+The port's harnesses run every field; ``use_tpu_batch_worker`` parses
+but changes nothing: the port's server has only the batch worker
+(``torch-batch``), on the device the harness is given.  A scenario with
+``num_regions`` > 1 runs through ``loadgen/federation.py``.
 """
 from __future__ import annotations
 

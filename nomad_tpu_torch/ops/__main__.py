@@ -4,7 +4,7 @@
         [--nodes N --specs U --seed S --snapshot-chunk BYTES]
         [--only DRILL ...]
 
-The twelve drills of :data:`DRILLS`, in this order (each takes
+The thirteen drills of :data:`DRILLS`, in this order (each takes
 ``device=``; :func:`run_drills` runs them from code):
 
 - The preemption drill (``nomad_tpu/ops/__main__.py:1542-1562``, its
@@ -49,6 +49,12 @@ The twelve drills of :data:`DRILLS`, in this order (each takes
   chunked InstallSnapshot (``--snapshot-chunk`` bytes, default 1024).
   The servers run on ``--device`` (the leader's plan applier re-checks
   the fit there); follower workers use the CPU schedulers.
+- The chaos drill (``nomad_tpu/ops/__main__.py:1328-1455``): a 3-voter
+  port cluster on ``--device`` under the ``SafetyAuditor``; a follower
+  is partitioned from the leader in both directions through the net
+  plane of ``fault.py``, misses a write committed meanwhile, catches up
+  after the heal, and the auditor's converged fingerprint cross-check
+  ends with 0 violations and the split and heal in the plane's trace.
 
 - The residency drill (``nomad_tpu/ops/__main__.py:215``): the resident
   mirror's cold install, a delta hit verified by the guard at every hit,
@@ -620,6 +626,118 @@ def follower_drill(seed: int = 0, device: str = "cuda",
         "plan-apply, visible on every FSM), and a lagging joiner caught up "
         f"by a chunked InstallSnapshot ({chunks} chunks of "
         f"{snapshot_chunk} bytes) (device {device})")
+    return True
+
+
+def chaos_drill(seed: int = 0, device: str = "cuda", log=print) -> bool:
+    """A partitioned follower blinded, healed and caught up under the
+    safety auditor (see the module docstring)."""
+    import time
+
+    from .. import fault
+    from ..loadgen.auditor import SafetyAuditor
+    from ..server import Server, ServerConfig
+    from ..server.rpc import ConnPool
+    from ..structs import structs as s
+    from ..utils.backoff import wait_until
+
+    def check(cond, msg):
+        if not cond:
+            log(f"chaos drill: FAIL — {msg}")
+        return cond
+
+    def make_job(jid):
+        return s.Job(
+            region="global", id=jid, name=jid, type=s.JOB_TYPE_SERVICE,
+            priority=50, datacenters=["dc1"],
+            task_groups=[s.TaskGroup(
+                name="tg", count=1,
+                ephemeral_disk=s.EphemeralDisk(size_mb=10),
+                tasks=[s.Task(name="t", driver="exec",
+                              config={"command": "/bin/date"},
+                              resources=s.Resources(cpu=100,
+                                                    memory_mb=128),
+                              log_config=s.LogConfig())])])
+
+    # Slowed elections (the reference's 8-12 s): a partitioned voter
+    # must not campaign during the short split.  Every server's event
+    # stream is armed for the auditor's feeds.
+    raft = {"raft_election_min": 8.0, "raft_election_max": 12.0}
+    servers = []
+    auditor = None
+    report = {}
+    pool = ConnPool()
+    pool.chaos_exempt = True
+    try:
+        first = None
+        for i in range(3):
+            srv = Server(ServerConfig(
+                device=device, rng_seed=seed, node_name=f"chaos-s{i + 1}",
+                enable_rpc=True, bootstrap_expect=3,
+                start_join=[first] if first else [], num_schedulers=0,
+                min_heartbeat_ttl=60.0, events=True, **raft))
+            if first is None:
+                first = srv.config.rpc_advertise
+            servers.append(srv)
+        for srv in servers:
+            srv.start()
+        if not check(wait_until(lambda: any(
+                x.is_leader() and x.raft.is_raft_leader()
+                for x in servers), 30.0), "no leader elected"):
+            return False
+        leader = next(x for x in servers if x.is_leader())
+        victim = next(x for x in servers if x is not leader)
+        if not check(wait_until(lambda: all(
+                len(x.raft.peers) == 3 for x in servers), 30.0),
+                "voter config did not converge"):
+            return False
+
+        auditor = SafetyAuditor(
+            leader, [x.config.rpc_advertise for x in servers
+                     if x is not leader],
+            pool=pool, interval=0.25)
+        auditor.start()
+        leader.job_register(make_job("chaos-pre"))
+        if not check(wait_until(lambda: victim.state.job_by_id(
+                None, "chaos-pre") is not None, 30.0),
+                "pre-partition write did not replicate"):
+            return False
+
+        # Split, both directions: every in-process pool is stamped with
+        # its server's address.
+        fault.net_partition("drill", [[leader.config.rpc_advertise],
+                                      [victim.config.rpc_advertise]])
+        leader.job_register(make_job("chaos-during"))
+        time.sleep(0.8)
+        if not check(victim.state.job_by_id(None, "chaos-during") is None,
+                     "partitioned follower saw a write it cannot have"):
+            return False
+        fault.net_heal("drill")
+        if not check(wait_until(lambda: victim.state.job_by_id(
+                None, "chaos-during") is not None, 20.0),
+                "healed follower did not catch up"):
+            return False
+        report = auditor.finalize()
+        trace = fault.net().trace()
+        if not (check(report["violation_count"] == 0,
+                      f"auditor violations: {report['violations']}")
+                and check(report["checks"]["fingerprint_matches"] >= 1,
+                          "no cross-server fingerprint match recorded")
+                and check(("net.partition", "drill", "split") in trace
+                          and ("net.partition", "drill", "heal") in trace,
+                          f"partition trace incomplete: {trace}")):
+            return False
+    finally:
+        if auditor is not None:
+            auditor.stop()
+        fault.net_disarm()
+        pool.close()
+        for srv in servers:
+            srv.shutdown()
+    log("chaos drill: OK — partitioned follower blinded then healed and "
+        "caught up, auditor recorded 0 violations with "
+        f"{report['checks']['fingerprint_matches']} cross-server "
+        "fingerprint matches")
     return True
 
 
@@ -1328,7 +1446,8 @@ def analysis_drill(seed: int = 0, device=None, log=print,
 
 #: The drills of ``--selfcheck``, in the order they run.
 DRILLS = ("preempt", "breaker", "columnar", "tracing", "wal", "follower",
-          "residency", "fused", "residue", "codec", "mesh", "analysis")
+          "chaos", "residency", "fused", "residue", "codec", "mesh",
+          "analysis")
 
 
 def run_drills(seed: int = 0, device: str = "cuda", nodes: int = 64,
@@ -1348,6 +1467,7 @@ def run_drills(seed: int = 0, device: str = "cuda", nodes: int = 64,
         "follower": lambda: follower_drill(seed=seed, device=device,
                                            snapshot_chunk=snapshot_chunk,
                                            log=log),
+        "chaos": lambda: chaos_drill(seed=seed, device=device, log=log),
         "residency": lambda: residency_drill(seed=seed, device=device,
                                              log=log),
         "fused": lambda: fused_drill(seed=seed, device=device, log=log),

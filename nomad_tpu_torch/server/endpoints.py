@@ -5,10 +5,12 @@ nomad/server.go:163-174, forwarding at nomad/rpc.go:178).
 
 Forwarding lives in one place: every ``Server`` write method catches
 ``NotLeaderError`` and re-issues the call to the leader through
-``Server._forward``.  This module's wrapper only marks a request that
-already took its one forwarding hop (the reference's Forwarded flag) and
-turns an unforwardable ``NotLeaderError`` into the wire's
-``NoLeaderError``, whose message names the known leader.
+``Server._forward``, and a request for another region goes there through
+``Server._forward_region``.  This module's wrapper only marks a request
+that already took its one forwarding hop (the reference's Forwarded
+flag) or its region hop, and turns an unforwardable ``NotLeaderError``
+into the wire's ``NoLeaderError``, whose message names the known
+leader.
 
 Bodies and replies are struct-codec values (``server/rpc.py``): the
 structs arrive typed, and a body of the wrong type is refused.
@@ -16,21 +18,24 @@ structs arrive typed, and a body of the wrong type is refused.
 Registered: ``Status.Ping/Leader/Peers/Fingerprint/BrokerStats/
 Metrics/TraceEval``, ``Event.Since``, ``Region.List``,
 ``Serf.Join/Members``, ``Node.Register/UpdateStatus/Deregister/
-UpdateDrain/UpdateAlloc/Get/Evaluate/GetClientAllocs``,
+UpdateDrain/UpdateAlloc/Get/Evaluate/GetClientAllocs/DeriveVaultToken``,
 ``Alloc.Get/List``, ``Job.Register/Deregister/Evaluate/Dispatch/List/
-Get``, ``Periodic.Force``, ``Namespace.Upsert/Delete/List/Status``,
+Get``, ``Periodic.Force``,
+``Namespace.Upsert/Delete/List/Status``,
 ``System.GarbageCollect/ReconcileJobSummaries``,
 ``Eval.Dequeue/DequeueBatch/Ack/Nack/Update/Reblock/PauseNack/
 ResumeNack/GetEval/List/Allocations``, ``Plan.Submit`` and ``Operator.
-RaftGetConfiguration/RaftRemovePeerByAddress``.  Vault, chaos and the
-federation wait for ROADMAP queue 1 item 30.
+RaftGetConfiguration/RaftRemovePeerByAddress``; with
+``ServerConfig.chaos_endpoints`` also ``Chaos.SetNet/Status`` (the
+reference registers them under ``NOMAD_TPU_CHAOS=1``): a load harness
+splits and heals a child server's own side of a partition with them.
 """
 
 from __future__ import annotations
 
 from typing import Any
 
-from .. import codec
+from .. import codec, fault
 from ..structs import structs as s
 from ..utils import contprof, tracing
 from . import event_broker as event_stream
@@ -53,8 +58,12 @@ def register_endpoints(server, rpc) -> None:
         def handler(body):
             forwarded = isinstance(body, dict) and body.pop("__forwarded__",
                                                             False)
+            region_hop = isinstance(body, dict) and body.pop(
+                "__region_hop__", False)
             if forwarded:
                 server._fwd_ctx.active = True
+            if region_hop:
+                server._fwd_ctx.region_hop = True
             try:
                 return fn(body)
             except NotLeaderError as e:
@@ -64,6 +73,8 @@ def register_endpoints(server, rpc) -> None:
             finally:
                 if forwarded:
                     server._fwd_ctx.active = False
+                if region_hop:
+                    server._fwd_ctx.region_hop = False
         rpc.register(method, handler)
 
     # -- Status ------------------------------------------------------------
@@ -118,6 +129,28 @@ def register_endpoints(server, rpc) -> None:
     rpc.register("Status.TraceEval", status_trace_eval)
     rpc.register("Region.List", region_list)
 
+    # -- the chaos control plane (endpoints.py:137-163) ---------------------
+
+    if server.config.chaos_endpoints:
+        def chaos_set_net(body):
+            plane = fault.net()
+            for p in body.get("Partitions") or []:
+                plane.partition(p["Name"], p["Groups"],
+                                windows=p.get("Windows"))
+            for name in body.get("Heal") or []:
+                plane.heal(name)
+            if body.get("HealAll"):
+                plane.heal()
+            return {"Active": plane.active_partitions()}
+
+        def chaos_status(body):
+            plane = fault.net()
+            return {"Active": plane.active_partitions(),
+                    "Trace": [list(t) for t in plane.trace()[-64:]]}
+
+        rpc.register("Chaos.SetNet", chaos_set_net)
+        rpc.register("Chaos.Status", chaos_status)
+
     # -- serf-lite membership ----------------------------------------------
 
     register("Serf.Join", lambda body: server.membership_join(body["Member"]))
@@ -167,15 +200,23 @@ def register_endpoints(server, rpc) -> None:
 
     register("Node.UpdateAlloc", node_update_alloc)
 
+    def node_derive_vault_token(body):
+        return {"Tasks": server.derive_vault_token(
+            body["AllocID"], list(body.get("Tasks") or []))}
+
+    register("Node.DeriveVaultToken", node_derive_vault_token)
+
     # -- Job -----------------------------------------------------------------
 
     def job_register(body):
-        index, eval_id = server.job_register(_typed(s.Job, body["Job"]))
+        index, eval_id = server.job_register(_typed(s.Job, body["Job"]),
+                                             region=body.get("Region", ""))
         return {"Index": index, "EvalID": eval_id}
 
     def job_deregister(body):
         index, eval_id = server.job_deregister(
-            body["JobID"], purge=body.get("Purge", True))
+            body["JobID"], purge=body.get("Purge", True),
+            region=body.get("Region", ""))
         return {"Index": index, "EvalID": eval_id}
 
     def job_evaluate(body):
@@ -195,14 +236,15 @@ def register_endpoints(server, rpc) -> None:
 
     def job_list(body):
         jobs, index = server.job_list(
-            prefix=body.get("Prefix", ""),
+            prefix=body.get("Prefix", ""), region=body.get("Region", ""),
             min_index=int(body.get("MinQueryIndex", 0) or 0),
             max_wait=float(body.get("MaxQueryTime", 0) or 0))
         return {"Jobs": jobs, "Index": index}
 
     def job_get(body):
         job = server.job_get(
-            body["JobID"], min_index=int(body.get("MinQueryIndex", 0) or 0),
+            body["JobID"], region=body.get("Region", ""),
+            min_index=int(body.get("MinQueryIndex", 0) or 0),
             max_wait=float(body.get("MaxQueryTime", 0) or 0))
         return {"Job": job, "Index": server.state.table_index("jobs")}
 
@@ -218,13 +260,16 @@ def register_endpoints(server, rpc) -> None:
 
     def namespace_upsert(body):
         ns = _typed(s.Namespace, body["Namespace"])
-        return {"Index": server.namespace_upsert(ns)}
+        return {"Index": server.namespace_upsert(
+            ns, region=body.get("Region", ""))}
 
     def namespace_delete(body):
-        return {"Index": server.namespace_delete(body["Name"])}
+        return {"Index": server.namespace_delete(
+            body["Name"], region=body.get("Region", ""))}
 
     def namespace_list(body):
-        return {"Namespaces": server.namespace_list(),
+        return {"Namespaces": server.namespace_list(
+            region=body.get("Region", "")),
                 "Index": server.state.table_index("namespaces")}
 
     def system_gc(body):
@@ -238,8 +283,8 @@ def register_endpoints(server, rpc) -> None:
     register("Namespace.Upsert", namespace_upsert)
     register("Namespace.Delete", namespace_delete)
     register("Namespace.List", namespace_list)
-    register("Namespace.Status",
-             lambda body: server.namespace_status(body["Name"]))
+    register("Namespace.Status", lambda body: server.namespace_status(
+        body["Name"], region=body.get("Region", "")))
     register("System.GarbageCollect", system_gc)
     register("System.ReconcileJobSummaries", system_reconcile)
 

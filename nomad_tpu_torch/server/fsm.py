@@ -16,8 +16,9 @@ restore hands the cluster event broker (``event_broker``, which
 raises its gap horizon to the restored index.  The leader-side hooks
 (fsm.py:43-67) are ``on_eval_update``, ``on_unblock``,
 ``on_job_register``, ``on_job_deregister`` (the periodic dispatcher and
-the quota ledger) and ``on_namespace_update`` (the tenancy policies); the
-vault hook ``on_alloc_terminal`` waits for vault.
+the quota ledger), ``on_alloc_terminal`` (the vault revocation of a
+terminal alloc's tokens) and ``on_namespace_update`` (the tenancy
+policies).
 """
 from __future__ import annotations
 
@@ -65,6 +66,7 @@ class FSM:
         on_unblock: Optional[Callable[[str, int], None]] = None,
         on_job_register: Optional[Callable[[s.Job], None]] = None,
         on_job_deregister: Optional[Callable[[str], None]] = None,
+        on_alloc_terminal: Optional[Callable[[str], None]] = None,
         on_namespace_update: Optional[
             Callable[[str, Optional[s.Namespace]], None]] = None,
     ):
@@ -75,6 +77,8 @@ class FSM:
         self.on_unblock = on_unblock
         self.on_job_register = on_job_register
         self.on_job_deregister = on_job_deregister
+        # A client's terminal alloc update (the vault revocation).
+        self.on_alloc_terminal = on_alloc_terminal
         # The tenancy push: (name, ns) on upsert and (name, None) on
         # delete, so the broker's fairness weights and the rate buckets
         # track the committed rows.
@@ -180,10 +184,12 @@ class FSM:
         allocs: List[s.Allocation] = req["allocs"]
         self.state.update_allocs_from_client(index, allocs)
         # Unblock on terminal client updates: capacity freed.
-        if not self.on_unblock:
-            return
         for alloc in allocs:
             if not alloc.client_terminal_status():
+                continue
+            if self.on_alloc_terminal is not None:
+                self.on_alloc_terminal(alloc.id)
+            if not self.on_unblock:
                 continue
             existing = self.state.alloc_by_id(None, alloc.id)
             if existing is None:

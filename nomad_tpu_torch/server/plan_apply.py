@@ -745,12 +745,15 @@ class PlanApplier:
     def apply_plan(self, plan: s.Plan, result: s.PlanResult, snap) -> int:
         """Commit ``result`` (plan_apply.go:123-175 applyPlan) and return
         its index: through the log in the server form, into the store at
-        the next index otherwise.  Fault point ``plan.apply`` (action
-        ``error``) fires before anything is written: an error there
-        commits nothing."""
-        act = fault.faultpoint("plan.apply")
-        if act is not None and act.kind == "error":
-            act.raise_injected()
+        the next index otherwise.  Fault point ``plan.apply`` (``error``,
+        ``crash``, ``step_down``, ``delay``) fires before anything is
+        written: an injected failure commits nothing."""
+        act = fault.faultpoint("plan.apply", eval_id=plan.eval_id)
+        if act is not None:
+            if act.kind == "delay":
+                time.sleep(act.delay)
+            elif act.kind in ("error", "crash", "step_down"):
+                act.raise_injected()
 
         allocs: List[s.Allocation] = []
         for update_list in result.node_update.values():

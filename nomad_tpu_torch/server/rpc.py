@@ -35,6 +35,7 @@ and the net chaos hook ``ConnPool._net_check`` (the chaos drill).
 from __future__ import annotations
 
 import logging
+import select
 import socket
 import socketserver
 import struct
@@ -117,12 +118,26 @@ def _send_frame(sock: socket.socket, obj: Any) -> None:
     data = codec.encode(obj, "rpc")
     act = fault.faultpoint("rpc.send")
     if act is not None:
+        if act.kind == "drop":
+            return  # lost on the wire: the peer's read times out
         if act.kind == "delay":
             time.sleep(act.delay)
+        elif act.kind == "dup":
+            sock.sendall(_LEN.pack(len(data)) + data)
+        elif act.kind == "truncate":
+            # The length prefix and half the payload, then the connection
+            # severed: the peer reads EOF mid-frame.
+            sock.sendall(_LEN.pack(len(data)) + data[:max(1, len(data) // 2)])
+            try:
+                sock.shutdown(socket.SHUT_RDWR)
+            except OSError:
+                pass
+            sock.close()
+            raise ConnectionError(act.message)
         elif act.kind in ("error", "crash"):
             # The transport failure a real broken wire raises, so the
             # fault takes the same discard/retry path.
-            raise ConnectionError(f"injected {act.kind} at rpc.send")
+            raise ConnectionError(act.message)
     sock.sendall(_LEN.pack(len(data)) + data)
 
 
@@ -345,6 +360,16 @@ class _Conn:
         self.seq = 0
         self.lock = threading.Lock()
 
+    def stale(self) -> bool:
+        """An idle connection is readable only when its peer closed it
+        (EOF, a reset) or left bytes no call asked for: unusable either
+        way."""
+        try:
+            readable, _, _ = select.select([self.sock], [], [], 0)
+        except (OSError, ValueError):
+            return True
+        return bool(readable)
+
     def call(self, method: str, body: Any, timeout: float) -> Any:
         with self.lock:
             self.seq += 1
@@ -383,9 +408,23 @@ class ConnPool:
     one connection cannot starve short calls (the role yamux stream
     multiplexing plays in the reference).
 
+    A caller that must tell a peer gone while its connections idled from
+    a failed send (a region forward) drops those connections first
+    (:meth:`drop_stale`); any other call sends on what the pool holds,
+    as the reference does.
+
     A failed dial arms a jittered backoff for its address; while it holds,
     dials to that address fail at once with ``DialError`` (no socket), so
-    replicators and elections do not hammer a dead peer."""
+    replicators and elections do not hammer a dead peer.
+
+    The chaos seam (rpc.py:546): every call passes the net plane's
+    ``send`` point and every fresh dial its ``dial`` point
+    (``fault.netpoint``), with ``(local_addr, addr)``, so partition groups
+    and asymmetric rules apply to the Nomad channel and the raft
+    transport alike.  The owning ``Server`` stamps ``local_addr`` with its
+    advertised address; a pool without one (a client's) matches only
+    ``*`` patterns.  A ``chaos_exempt`` pool (a harness's control and
+    audit channel) bypasses the plane."""
 
     MAX_IDLE_PER_KEY = 4
     DIAL_BACKOFF_BASE = 0.05
@@ -394,12 +433,31 @@ class ConnPool:
     def __init__(self, timeout: float = 10.0, tls_context=None):
         self.timeout = timeout
         self.tls_context = tls_context
+        self.local_addr = ""
+        self.chaos_exempt = False
         self._idle: Dict[Tuple[str, int], List[_Conn]] = {}
         self._lock = threading.Lock()
         # addr -> [Backoff, not_before (monotonic)]
         self._dial_gate: Dict[str, list] = {}
 
+    def _net_check(self, kind: str, addr: str) -> None:
+        """The net plane's verdict on one dial or call: blocked traffic is
+        a ``DialError`` (never sent, so every retry path may go
+        elsewhere, as with a real unreachable peer)."""
+        if self.chaos_exempt:
+            return
+        act = fault.netpoint(kind, self.local_addr, addr)
+        if act is None:
+            return
+        action, delay = act
+        if action == "drop":
+            raise DialError(
+                f"rpc to {addr} failed: network partitioned (injected)")
+        if delay > 0:
+            time.sleep(delay)
+
     def _dial(self, addr: str, channel: int, timeout: float) -> _Conn:
+        self._net_check("dial", addr)
         now = time.monotonic()
         with self._lock:
             gate = self._dial_gate.get(addr)
@@ -427,6 +485,7 @@ class ConnPool:
     def call(self, addr: str, method: str, body: Any,
              channel: int = RPC_NOMAD, timeout: Optional[float] = None) -> Any:
         timeout = timeout if timeout is not None else self.timeout
+        self._net_check("send", addr)
         key = (addr, channel)
         with self._lock:
             bucket = self._idle.get(key)
@@ -465,6 +524,21 @@ class ConnPool:
                 bucket.append(conn)
                 return
         conn.close()
+
+    def drop_stale(self, addr: str, channel: int = RPC_NOMAD) -> int:
+        """Close the idle connections to ``addr`` whose peer went away
+        while they idled (a stopped or restarted server), so the next
+        call dials afresh and a dead peer surfaces as a ``DialError``
+        before anything is sent.  Returns how many were dropped."""
+        key = (addr, channel)
+        with self._lock:
+            bucket = self._idle.get(key) or []
+            dead = [conn for conn in bucket if conn.stale()]
+            if dead:
+                self._idle[key] = [c for c in bucket if c not in dead]
+        for conn in dead:
+            conn.close()
+        return len(dead)
 
     def invalidate(self, addr: str) -> None:
         """Drop every idle connection to ``addr`` (all channels) and clear
@@ -603,6 +677,11 @@ class RemoteServerRPC:
     def node_get(self, node_id: str):
         reply = self._call("Node.Get", {"NodeID": node_id})
         return _typed_reply(s.Node, reply.get("Node"))
+
+    def derive_vault_token(self, alloc_id: str, task_names):
+        reply = self._call("Node.DeriveVaultToken",
+                           {"AllocID": alloc_id, "Tasks": list(task_names)})
+        return reply["Tasks"]
 
     def alloc_get(self, alloc_id: str):
         reply = self._call("Alloc.Get", {"AllocID": alloc_id})

@@ -31,6 +31,10 @@ clustered server also runs ``follower_schedulers`` (0: as many as
 ``num_schedulers``) ``FollowerWorker``\\ s that, while it follows, pull
 evals from the leader's broker, schedule them on the CPU schedulers
 against the local replica and forward the plans (``Plan.Submit``).
+A new leader first applies the entries of earlier terms (a barrier
+retried every ``LEADER_BARRIER_TIMEOUT``, as Go Nomad's leaderLoop does;
+leadership lost first establishes nothing), so its restores see every
+write its predecessor acknowledged.
 Leadership raises the plan queue's fence floor to the log's last index,
 so no follower schedules off a replica missing a pre-failover plan.
 :meth:`Server.fsm_fingerprint` digests the committed store at an entry
@@ -115,10 +119,29 @@ and ``runtime.gil_delay_p50_ms``/``p99_ms`` while the profiler is armed,
 and with ``slo_plan_p99_ms`` > 0 the plan-apply SLO watch: a tick whose
 ``plan.apply`` p99 is over it triggers a ``slo.plan_apply_p99`` bundle.
 
-Left out, for later slices: the agent, HTTP, the client's RPC, the
-endpoints without a server method here, ``/v1/trace/*``,
-``/v1/event/stream`` and the trace fanout over peers (ROADMAP queue 1
-item 20); federation and WAN joins; vault; deployments.
+Vault (server.py:164-168, :332-335, :724-753, :867-884, :1112-1146,
+:1822, :1896): ``ServerConfig.vault`` (a ``server.vault.VaultConfig``)
+enables the vault client, and ``Server(vault_api=)`` injects its
+transport (``FakeVault`` in tests; ``HTTPVault`` at the config's address
+otherwise).  Every server renews its own token; the leader activates the
+client, revokes the accessors of terminal allocs, of down or
+deregistered nodes and the stale ones it finds at leadership, and
+retries failed revocations every ``VAULT_REVOKE_INTERVAL`` s until the
+token's TTL.  :meth:`Server.derive_vault_token` (``Node.DeriveVaultToken``)
+mints a task's tokens, response-wrapped unless
+``VaultConfig.wrap_derived_tokens`` is off, and registers their accessors
+through the log before it answers.
+
+The federation (server.py:54-56, :340, :636, :1187-1286): ``wan_join``
+lists servers of other regions to join (membership only, never this
+region's raft quorum).  A request for another region (an explicit
+``region``, or a job whose region membership knows) goes to an alive
+server of that region (:meth:`Server._forward_region`): a bounded number
+of rounds (``REGION_DIAL_ROUNDS``) over its servers with a shared
+jittered backoff between them, only dial failures rotating, and a
+``NoPathToRegion`` with a ``retry_after`` hint (at most
+``REGION_RETRY_AFTER_CAP`` s) when every dial failed.  A request that
+already took its region hop is never forwarded again.
 """
 from __future__ import annotations
 
@@ -137,7 +160,7 @@ from ..scheduler.annotate import annotate
 from ..scheduler.scheduler import new_scheduler
 from ..scheduler.testing import Harness
 from ..state import columnar as columnar_mod
-from ..state.state_store import StateStore, WatchSet
+from ..state.state_store import StateStore, VaultAccessor, WatchSet
 from ..structs import structs as s
 from ..structs.diff import job_diff
 from ..tenancy import QuotaLedger, RateLimiter
@@ -154,11 +177,23 @@ from .periodic import PERIODIC_LAUNCH_SUFFIX, PeriodicDispatch
 from .plan_apply import PlanApplier
 from .plan_queue import PlanQueue
 from .raft import FileLog, InmemLog, MultiRaft, NotLeaderError
-from .rpc import NoPathToRegion
+from .rpc import DialError, NoPathToRegion
+from .vault import ServerVaultClient, VaultConfig, VaultError
 from .worker import BatchWorker, Worker
 
 # Bound on every join at shutdown, per thread.
 JOIN_TIMEOUT = 5.0
+# How long one round of a new leader's wait for the entries of earlier
+# terms to apply lasts before it is logged and retried (the barrier of
+# _establish_leadership).
+LEADER_BARRIER_TIMEOUT = 10.0
+# The reference's defaults: a region forward's dial rounds and the cap on
+# its NoPathToRegion retry hint (NOMAD_TPU_REGION_DIAL_ROUNDS,
+# NOMAD_TPU_REGION_RETRY_AFTER_CAP), and the vault revoke daemon's retry
+# cadence (ServerConfig.vault_revoke_interval there).
+REGION_DIAL_ROUNDS = 3
+REGION_RETRY_AFTER_CAP = 5.0
+VAULT_REVOKE_INTERVAL = 5.0
 # The reference's defaults: how often evals blocked by max-plan failures
 # are retried, and how often the gauges are published.
 FAILED_EVAL_UNBLOCK_INTERVAL = 60.0
@@ -257,7 +292,13 @@ class ServerConfig:
     (``NOMAD_TPU_BLACKBOX_SLO_PLAN_P99_MS``); ``contprof_hz`` (0: off)
     arms the continuous profiler at that rate (``NOMAD_TPU_CONTPROF`` and
     ``NOMAD_TPU_CONTPROF_HZ``).  All are process-wide: a later server's
-    values do not re-arm a plane that is already armed."""
+    values do not re-arm a plane that is already armed.
+
+    Vault and the federation (the module docstring): ``vault`` (None:
+    disabled) and ``wan_join``.  ``chaos_endpoints`` registers
+    ``Chaos.SetNet``/``Chaos.Status`` on the listener (the reference's
+    ``NOMAD_TPU_CHAOS``): a load harness drives a child server's side of
+    a partition with them."""
 
     num_schedulers: int = 1
     batch_size: int = 64
@@ -308,13 +349,17 @@ class ServerConfig:
     blackbox_max_bundles: int = blackbox.DEFAULT_MAX_BUNDLES
     slo_plan_p99_ms: float = 0.0
     contprof_hz: float = 0.0
+    vault: Optional[VaultConfig] = None
+    wan_join: List[str] = field(default_factory=list)
+    chaos_endpoints: bool = False
 
 
 class Server:
     """A single control-plane server (nomad/server.go:78 Server)."""
 
     def __init__(self, config: Optional[ServerConfig] = None,
-                 logger: Optional[logging.Logger] = None):
+                 logger: Optional[logging.Logger] = None,
+                 vault_api=None):
         self.config = config or ServerConfig()
         cfg = self.config
         if cfg.mesh is not None:
@@ -334,6 +379,11 @@ class Server:
                             min_interval_s=cfg.blackbox_min_interval_s,
                             max_bundles=cfg.blackbox_max_bundles)
         blackbox.register_server(self)
+        # The vault client (vault.go:234); ``vault_api`` injects the
+        # transport (the fake in tests, vault_testing.go's role).
+        self.vault = ServerVaultClient(cfg.vault or VaultConfig(),
+                                       api=vault_api,
+                                       logger=self.logger.getChild("vault"))
         self._leader = False
         # Set once the leadership callbacks below have run; is_leader()
         # turns true before them.
@@ -370,6 +420,7 @@ class Server:
                        on_unblock=self._fsm_unblock,
                        on_job_register=self._fsm_job_registered,
                        on_job_deregister=self._fsm_job_deregistered,
+                       on_alloc_terminal=self._fsm_alloc_terminal,
                        on_namespace_update=self._fsm_namespace_updated)
         # The RPC listener and the connection pool (server.go:250
         # setupRPC), bound here so the advertised address is known before
@@ -401,6 +452,11 @@ class Server:
                 adv_host = (cfg.rpc_bind if cfg.rpc_bind != "0.0.0.0"
                             else "127.0.0.1")
             cfg.rpc_advertise = f"{adv_host}:{self.rpc.port}"
+            # The chaos identity: the pool carries this server's address,
+            # so partition groups and asymmetric net rules tell its
+            # traffic apart (one process hosting several servers enforces
+            # a partition on every side it owns).
+            self.pool.local_addr = cfg.rpc_advertise
         # The log (server.go:257 setupRaft): the replicated log when
         # clustered, else the durable single voter when a data dir is
         # given (which recovers the store here), else the in-memory one.
@@ -471,10 +527,15 @@ class Server:
         if self.rpc is not None:
             self.rpc.start()
             self._merge_members([self._self_member()])
+        # Every server keeps its own vault token alive, leader or not
+        # (vault.go:467: the renewal starts at construction).
+        if self.vault.enabled and self.vault.config.token:
+            self.vault.start_renewal()
         if isinstance(self.raft, MultiRaft):
             self.raft.start()
             self._maybe_bootstrap()
-        if self.rpc is not None and self.config.start_join:
+        if self.rpc is not None and (self.config.start_join
+                                     or self.config.wan_join):
             t = threading.Thread(target=self._join_loop, daemon=True,
                                  name="serf-join")
             t.start()
@@ -539,6 +600,9 @@ class Server:
         self.heartbeat.set_enabled(False)
         if self.periodic._thread is not None:
             self.periodic._thread.join(timeout=JOIN_TIMEOUT)
+        self.vault.stop()
+        if self.vault._renew_thread is not None:
+            self.vault._renew_thread.join(timeout=JOIN_TIMEOUT)
         for t in self._threads:
             t.join(timeout=JOIN_TIMEOUT)
         self.raft.close()
@@ -553,6 +617,8 @@ class Server:
         out = [w._thread for w in self.workers + self.follower_workers
                if w._thread is not None]
         out += self.plan_applier.threads() + list(self._threads)
+        if self.vault._renew_thread is not None:
+            out.append(self.vault._renew_thread)
         if isinstance(self.raft, (FileLog, MultiRaft)):
             out += self.raft.threads()
         if self.rpc is not None:
@@ -822,9 +888,9 @@ class Server:
                 self._spawn(propose_config)
 
     def _join_loop(self) -> None:
-        """Retry the ``start_join`` addresses until each answers, with a
-        capped backoff (the agent's retry_join)."""
-        pending = list(self.config.start_join)
+        """Retry the ``start_join`` and ``wan_join`` addresses until each
+        answers, with a capped backoff (the agent's retry_join)."""
+        pending = list(self.config.start_join) + list(self.config.wan_join)
         me = self._self_member()
         delay = 0.25
         attempts = 0
@@ -869,9 +935,43 @@ class Server:
         else:
             self._revoke_leadership()
 
+    def _leader_barrier(self) -> bool:
+        """The barrier of Go Nomad's leaderLoop: the entries of earlier
+        terms commit with this term's first entry, and must be applied
+        before anything is restored from the store, so the restore sees
+        every write the old leader acknowledged.  (The JAX package
+        restores at once, and can miss the last one.)  Each round waits
+        ``LEADER_BARRIER_TIMEOUT``; a round that runs out is logged and
+        retried.  True once applied; False, with nothing established, if
+        raft leadership is lost or the server shuts down first."""
+        from ..utils.backoff import wait_until
+
+        target = self.raft.fence_index()
+        rounds = 0
+        while True:
+            wait_until(lambda: (self.raft.applied_index() >= target
+                                or not self.raft.is_raft_leader()
+                                or self._shutdown.is_set()),
+                       LEADER_BARRIER_TIMEOUT)
+            if self._shutdown.is_set() or not self.raft.is_raft_leader():
+                self.logger.warning(
+                    "server: leadership lost before the barrier at %d "
+                    "applied; not establishing leadership", target)
+                return False
+            if self.raft.applied_index() >= target:
+                return True
+            rounds += 1
+            self.logger.error(
+                "server: barrier at %d not applied after %.1fs (applied "
+                "%d, round %d); retrying", target,
+                rounds * LEADER_BARRIER_TIMEOUT, self.raft.applied_index(),
+                rounds)
+
     def _establish_leadership(self) -> None:
         """(leader.go:110 establishLeadership), the parts these modules
-        have."""
+        have, after :meth:`_leader_barrier` on the replicated log."""
+        if isinstance(self.raft, MultiRaft) and not self._leader_barrier():
+            return
         self._leader = True
         self.eval_broker.set_enabled(True)
         self.plan_queue.set_enabled(True)
@@ -886,13 +986,36 @@ class Server:
         self._restore_evals()
         self._restore_periodic_dispatcher()
         self._start_reapers()
+        # Vault activates with leadership (vault.go:290 SetActive): the
+        # revocation queue is this server's to drain now.
+        self.vault.set_active(True)
+        self._restore_revoking_accessors()
         # Reconcile the voters with the members found while following.
         self._maybe_bootstrap()
         self._leadership_ready.set()
 
+    def _restore_revoking_accessors(self) -> None:
+        """Revoke the accessors whose alloc or node is terminal or gone:
+        the previous leader may have died mid-revocation
+        (leader.go:221-260 restoreRevokingAccessors)."""
+        if not self.vault.enabled:
+            return
+        stale = []
+        for acc in self.state.vault_accessors(None):
+            alloc = self.state.alloc_by_id(None, acc.alloc_id)
+            if alloc is None or alloc.terminal_status():
+                stale.append(acc)
+                continue
+            node = self.state.node_by_id(None, acc.node_id)
+            if node is None or node.terminal_status():
+                stale.append(acc)
+        if stale:
+            self._spawn(self._revoke_accessors, stale)
+
     def _revoke_leadership(self) -> None:
         self._leadership_ready.clear()
         self._leader = False
+        self.vault.set_active(False)
         self.eval_broker.set_enabled(False)
         self.plan_queue.set_enabled(False)
         self.blocked_evals.set_enabled(False)
@@ -1001,8 +1124,23 @@ class Server:
                 except NotLeaderError:
                     return
 
+        def vault_revoke_daemon():
+            # Retry the failed revocations until their tokens' TTL
+            # (vault.go:1104 revokeDaemon).
+            while self._leader and not self._shutdown.is_set():
+                self._shutdown.wait(VAULT_REVOKE_INTERVAL)
+                if not self._leader or self._shutdown.is_set():
+                    return
+                try:
+                    done = self.vault.tick_revocations()
+                except Exception:
+                    self.logger.exception("vault revoke daemon")
+                    continue
+                if done:
+                    self._deregister_accessor_rows(done)
+
         for target in (dup_reaper, shed_reaper, failed_unblocker,
-                       gc_scheduler):
+                       gc_scheduler, vault_revoke_daemon):
             t = threading.Thread(target=target, daemon=True,
                                  name=target.__name__)
             t.start()
@@ -1193,6 +1331,44 @@ class Server:
             name, ns.dequeue_weight, ns.objective)
         self.api_limiter.configure(name, ns.api_rate, float(ns.api_burst))
 
+    def _fsm_alloc_terminal(self, alloc_id: str) -> None:
+        """A terminal alloc's vault tokens are revoked (vault.go
+        RevokeTokens)."""
+        if not self._leader or not self.vault.enabled:
+            return
+        accessors = self.state.vault_accessors_by_alloc(None, alloc_id)
+        if accessors:
+            self._spawn(self._revoke_accessors, accessors)
+
+    def _revoke_accessors(self, accessors) -> None:
+        done = self.vault.revoke_accessors([a.accessor for a in accessors])
+        # The failed ones queue for a retry until their TTL (vault.go
+        # storeForRevocation; the revoke daemon drains it).
+        failed = [a.accessor for a in accessors if a.accessor not in done]
+        if failed:
+            self.vault.store_for_revocation(failed)
+        if not done:
+            return
+        try:
+            self.raft.apply(MessageType.VAULT_ACCESSOR_DEREGISTER,
+                            {"accessors": [a for a in accessors
+                                           if a.accessor in done]})
+        except NotLeaderError:
+            pass  # the next leader's restore revokes again (idempotent)
+
+    def _deregister_accessor_rows(self, accessor_ids) -> None:
+        """Drop the rows of the accessors the revoke daemon revoked."""
+        wanted = set(accessor_ids)
+        rows = [a for a in self.state.vault_accessors(None)
+                if a.accessor in wanted]
+        if not rows:
+            return
+        try:
+            self.raft.apply(MessageType.VAULT_ACCESSOR_DEREGISTER,
+                            {"accessors": rows})
+        except NotLeaderError:
+            pass
+
     def _periodic_dispatch(self, parent: s.Job, derived: s.Job,
                            launch_time: float) -> None:
         """Register a periodic job's child and record the launch
@@ -1328,19 +1504,56 @@ class Server:
         return out
 
     def _forward_region(self, region: str, wire_method: str, body: Dict):
-        """A request for another region (nomad/rpc.go:263 forwardRegion).
-        The federation is not ported (ROADMAP item 30), so a region's
-        servers are never dialled: a region with no known server is a
-        ``ValueError`` as in the reference, and one with known servers
-        answers as an unreachable region does there, a
-        ``NoPathToRegion`` with its retry hint (the HTTP layer's 429)."""
+        """A request for another region, sent to an alive server of it
+        (nomad/rpc.go:263 forwardRegion over the WAN members; server.py:
+        1235).  It does not take the one leader-forward hop: the remote
+        server may still forward to its own leader.
+
+        A dark region is a ``NoPathToRegion`` with a ``retry_after`` hint,
+        never a hang: ``REGION_DIAL_ROUNDS`` rounds over the region's
+        known servers with the shared jittered ``Backoff`` between them;
+        within a round only dial failures rotate (the request was never
+        sent, so the next server cannot apply it twice).  The dials ride
+        ``self.pool``, whose per-address dial gate the raft and leader
+        forwards share, so a region that just went dark fails fast."""
+        from ..utils.backoff import Backoff
+
+        if getattr(self._fwd_ctx, "region_hop", False):
+            # Already took its region hop: stale member records must not
+            # bounce it between regions.
+            raise ValueError(
+                f"request for region {region!r} arrived at "
+                f"{self.config.region!r} after a region forward")
         candidates = [m for m in self.members()
                       if m.get("Region") == region
                       and m.get("Status", "alive") == "alive"]
         if not candidates or self.pool is None:
             raise ValueError(f"no servers known in region {region!r}")
-        raise NoPathToRegion(region, 1.0, rounds=0,
-                             detail="the federation is not ported")
+        body = dict(body)
+        body["Region"] = region
+        body["__region_hop__"] = True
+        rounds = REGION_DIAL_ROUNDS
+        bo = Backoff(base=0.05, max_delay=2.0)
+        last: Optional[Exception] = None
+        for round_no in range(rounds):
+            if round_no and self._shutdown.wait(bo.next_delay()):
+                break
+            for m in candidates:
+                # A server of the region stopped since the last forward
+                # left its pooled connections dead: dropped before the
+                # send, so it fails as a dial and rotates.
+                self.pool.drop_stale(m["Addr"])
+                try:
+                    return self.pool.call(m["Addr"], wire_method, body)
+                except DialError as e:
+                    # Only a dial failure rotates: after a send the
+                    # request may have applied remotely, and application
+                    # errors propagate as they are.
+                    last = e
+        retry_after = min(REGION_RETRY_AFTER_CAP,
+                          0.5 + 0.5 * rounds)
+        raise NoPathToRegion(region, retry_after, rounds=rounds,
+                             detail=str(last) if last else "")
 
     def job_register(self, job: s.Job, region: str = "") -> Tuple[int, str]:
         """(job_endpoint.go:47 Register): validate, then the job and, unless
@@ -1466,7 +1679,12 @@ class Server:
         ``min_index`` a blocking query of at most ``max_wait`` s
         (server.py:1443)."""
         if region and region != self.config.region:
-            self._forward_region(region, "Job.List", {"Prefix": prefix})
+            # The blocking query runs at the owning region (rpc.go:340).
+            reply = self._forward_region(
+                region, "Job.List",
+                {"Prefix": prefix, "MinQueryIndex": min_index,
+                 "MaxQueryTime": max_wait})
+            return list(reply["Jobs"] or []), int(reply.get("Index", 0))
         self._block_on_table("jobs", min_index, max_wait)
         jobs = (self.state.jobs_by_id_prefix(None, prefix) if prefix
                 else self.state.jobs(None))
@@ -1490,7 +1708,11 @@ class Server:
     def job_get(self, job_id: str, region: str = "", min_index: int = 0,
                 max_wait: float = 0.0) -> Optional[s.Job]:
         if region and region != self.config.region:
-            self._forward_region(region, "Job.Get", {"JobID": job_id})
+            reply = self._forward_region(
+                region, "Job.Get",
+                {"JobID": job_id, "MinQueryIndex": min_index,
+                 "MaxQueryTime": max_wait})
+            return reply.get("Job")
         self._block_on_table("jobs", min_index, max_wait)
         return self.state.job_by_id(None, job_id)
 
@@ -1656,6 +1878,9 @@ class Server:
                                  e)["Index"]
         self.heartbeat.clear_heartbeat_timer(node_id)
         self._create_node_evals(node_id, index)
+        # The same revocation sweep as a node going down
+        # (node_endpoint.go:254-264).
+        self._revoke_node_accessors(node_id)
         return index
 
     def node_update_status(self, node_id: str,
@@ -1683,7 +1908,58 @@ class Server:
             ttl = self.heartbeat.reset_heartbeat_timer(node_id)
         else:
             self.heartbeat.clear_heartbeat_timer(node_id)
+            # A down node's tasks can no longer guard their secrets: its
+            # allocs' accessors are revoked (node_endpoint.go:339-351).
+            self._revoke_node_accessors(node_id)
         return index, ttl
+
+    def _revoke_node_accessors(self, node_id: str) -> None:
+        if not self.vault.enabled:
+            return
+        accessors = self.state.vault_accessors_by_node(None, node_id)
+        if accessors:
+            self._spawn(self._revoke_accessors, accessors)
+
+    def derive_vault_token(self, alloc_id: str, task_names: List[str]
+                           ) -> Dict[str, Dict]:
+        """A client's per-task vault tokens (node_endpoint.go
+        DeriveVaultToken, vault.go DeriveToken): the alloc checked, the
+        tokens minted, and their accessors registered through the log
+        before the answer, so a failover can still revoke them.  A
+        follower forwards before minting."""
+        if not self._leader:
+            reply = self._forward(
+                "Node.DeriveVaultToken",
+                {"AllocID": alloc_id, "Tasks": list(task_names)})
+            return reply["Tasks"]
+        alloc = self.state.alloc_by_id(None, alloc_id)
+        if alloc is None:
+            raise KeyError(f"allocation {alloc_id!r} not found")
+        if alloc.terminal_status():
+            raise VaultError("cannot derive token for terminal allocation")
+        if alloc.job is None:
+            alloc = alloc.copy()
+            alloc.job = self.state.job_by_id(None, alloc.job_id)
+        # Response-wrapped by default (vault.go getWrappingFn): the client
+        # gets a single-use wrapping token, never the secret on the wire;
+        # the accessor registers here before distribution either way.
+        tokens = self.vault.derive_token(
+            alloc, task_names, wrapped=self.vault.config.wrap_derived_tokens)
+        accessors = [VaultAccessor(
+            accessor=info["accessor"], alloc_id=alloc_id,
+            node_id=alloc.node_id, task=task,
+            creation_ttl=int(info.get("ttl", 0)),
+        ) for task, info in tokens.items()]
+        try:
+            self.raft.apply(MessageType.VAULT_ACCESSOR_REGISTER,
+                            {"accessors": accessors})
+        except NotLeaderError:
+            # Leadership lost between the mint and the registration: no
+            # replica knows these tokens, so revoke them now rather than
+            # leak them for their whole TTL.
+            self.vault.revoke_accessors([a.accessor for a in accessors])
+            raise
+        return tokens
 
     @staticmethod
     def _should_create_node_evals(old: str, new: str) -> bool:

@@ -13,8 +13,8 @@ reference's types, so a parsed HCL job round-trips through the wire
 codec as the reference's does.  The deployments
 (``DEPLOYMENT_STATUS_*``, ``DeploymentState``, ``Deployment``,
 ``DeploymentStatusUpdate``) and ``Job.stable`` are here for the state
-store's job versions and deployment table.  Left out of the copy:
-``Job.vault_token`` (vault, ROADMAP item 30).  The event stream's
+store's job versions and deployment table; ``Job.vault_token`` for the
+vault integration.  The event stream's
 structs (``TOPIC_*``, ``EVENT_TOPICS``, ``Event``) are here.
 """
 from __future__ import annotations
@@ -635,6 +635,7 @@ class Job:
     parameterized_job: Optional[ParameterizedJobConfig] = None
     payload: bytes = b""
     meta: Dict[str, str] = field(default_factory=dict)
+    vault_token: str = ""
     status: str = JOB_STATUS_PENDING
     status_description: str = ""
     stop: bool = False

@@ -20,8 +20,8 @@ the API rate and of the broker's admission, the client routes' 400,
 the system, status, operator and keyring routes, the catalog and KV,
 the event stream (launch and dispatch times read one fixed clock in
 both), the agent configs (HCL, JSON, env, sockaddr,
-``tls {}``), the agent's refusals (vault, the WAN join, the scheduler
-list, no card), an agent with a client starting (the client routes'
+``tls {}``), the agent's refusals (the scheduler list, no card), its
+vault and WAN-join configs, an agent with a client starting (the client routes'
 bodies are ``test_torch_client_agent.py``'s) and a shutdown that leaves
 no thread.
 """
@@ -68,9 +68,9 @@ NOW = 1_800_000_000.0
 # Wire keys that hold wall-clock times.
 TIMES = frozenset({"CreateTime", "SubmitTime", "AllocationTime",
                    "StatusUpdatedAt", "ModifyTime"})
-# The reference's job fields the port's structs do not carry (vault is
-# ROADMAP item 30).
-REF_ONLY = frozenset({"VaultToken"})
+# The reference's job fields the port's structs do not carry (none since
+# the vault integration).
+REF_ONLY = frozenset()
 
 AGENT_HCL = """
 name      = "twin"
@@ -824,7 +824,7 @@ def test_tls_block_fills_the_server_config(monkeypatch):
     class Captured(Exception):
         pass
 
-    def fake_server(scfg, logger=None):
+    def fake_server(scfg, logger=None, vault_api=None):
         seen["cfg"] = scfg
         raise Captured()
 
@@ -886,6 +886,25 @@ def test_unported_config_raises_naming_its_roadmap_item(src, item, tmp_path,
     import socket
 
     before = {t.name for t in threading.enumerate()}
+    if item == "item 30":
+        # Vault and the WAN join are ported (they raised naming ROADMAP
+        # item 30 before): the agent builds its server with them.  It is
+        # not started, so no join dials the listed address.
+        from nomad_tpu_torch.server.vault import FakeVault
+
+        cfg = parse_config(src + '\nports {\n http = 0\n rpc = 0\n}')
+        cfg.dev_mode = True
+        a = Agent(cfg, device="cpu", vault_api=FakeVault(),
+                  server_options={"min_heartbeat_ttl": HEARTBEAT_TTL})
+        try:
+            if "vault" in src:
+                assert a.server.vault.enabled
+            else:
+                assert a.server.config.wan_join == ["10.0.0.1:4648"]
+        finally:
+            a.shutdown()
+        assert wait_until(lambda: not a.threads(), 15.0)
+        return
     if item == "item 28":
         # The client is ported: a config that enables it builds an agent
         # with a client (over RPC to the listed servers when it has no

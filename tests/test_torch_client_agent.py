@@ -715,7 +715,11 @@ def test_client_only_agent_reaches_its_server_over_rpc(tmp_path):
 
 
 def test_vault_in_the_client_config_raises_naming_item_30():
-    with pytest.raises(NotImplementedError, match="ROADMAP item 30"):
-        PClientConfig(vault_addr="http://127.0.0.1:8200")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 30"):
-        PClientConfig(vault_token="t")
+    """The client's vault transport is ported (the config raised naming
+    ROADMAP item 30 before): ``vault_addr`` and ``vault_token`` are kept
+    as the reference's config keeps them."""
+    cfg = PClientConfig(vault_addr="http://127.0.0.1:8200",
+                        vault_token="t")
+    ref = JClientConfig(vault_addr="http://127.0.0.1:8200", vault_token="t")
+    assert (cfg.vault_addr, cfg.vault_token) == (
+        ref.vault_addr, ref.vault_token) == ("http://127.0.0.1:8200", "t")

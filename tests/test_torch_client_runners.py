@@ -11,10 +11,9 @@ reported transition's state and event (type, failed, exit code, signal,
 restart reason, sibling), the alloc's folded client status, which alloc
 dirs the GC destroyed, and what a client restores from its state dir.
 
-A vault ask: the port's client has no vault client (ROADMAP item 30), so
-the task fails its setup; the reference gets a vault client whose token
-derivation fails, its outcome for the same ask on a cluster without
-vault.  The port's message names the item.
+A vault ask: both packages' runners get a vault client whose token
+derivation fails (a cluster without vault), and the task fails its
+setup with the same message in both.
 
 A running task that is destroyed: the port's run loop emits ``Killing``
 before it kills (task_runner.go's order), where the reference's destroy
@@ -204,7 +203,8 @@ def task_runner(pkg, tmp, case):
     else:
         tr = PTaskRunner(config=PClientConfig(alloc_dir=root), alloc=alloc,
                          task=task, task_dir=td, updater=updater, node=node,
-                         rng=random.Random(SEED))
+                         rng=random.Random(SEED),
+                         vault_client=FailingVault())
     return tr, updates, td
 
 
@@ -236,8 +236,8 @@ def test_task_runner_events_equal_the_reference(case, tmp_path):
     if case == "vault":
         last = pupd[-1][2]
         assert last.type == ps.TASK_SETUP_FAILURE and last.failed
-        assert "ROADMAP item 30" in last.message
-        assert "vault token derivation failed" in jupd[-1][2].message
+        assert last.message == jupd[-1][2].message
+        assert "vault token derivation failed" in last.message
     assert wait_until(lambda: not ptr.threads(), DEADLINE)
 
 

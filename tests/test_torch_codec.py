@@ -555,6 +555,45 @@ def test_pre_deployment_frame_raises_naming_both_fingerprints():
     assert log_codec.decode_payload(blob) == {"job_id": "per", "purge": True}
 
 
+# -- Job.vault_token -----------------------------------------------------------
+
+# The schema fingerprint of the port's structs before Job.vault_token (the
+# vault integration), and a frame that build wrote: {"job_id": "per",
+# "purge": True}.  A data dir or client state file of that build is
+# refused, never misread.
+PRE_VAULT_FINGERPRINT = bytes.fromhex("43e3ca472fac91c9")
+PRE_VAULT_FRAME = bytes.fromhex(
+    "c10143e3ca472fac91c9080205066a6f625f696405037065720505707572676502")
+
+
+def test_pre_vault_frame_raises_naming_both_fingerprints():
+    assert schema.FINGERPRINT != PRE_VAULT_FINGERPRINT
+    assert PRE_VAULT_FRAME[2:10] == PRE_VAULT_FINGERPRINT
+    with pytest.raises(codec.CodecError) as e:
+        log_codec.decode_payload(PRE_VAULT_FRAME)
+    assert PRE_VAULT_FINGERPRINT.hex() in str(e.value)
+    assert schema.FINGERPRINT.hex() in str(e.value)
+    # This build's frame of the same payload decodes.
+    blob = log_codec.encode_payload({"job_id": "per", "purge": True})
+    assert blob[10:] == PRE_VAULT_FRAME[10:]
+    assert log_codec.decode_payload(blob) == {"job_id": "per", "purge": True}
+
+
+def test_job_vault_token_decodes_as_the_reference_job():
+    """A job with a vault token, through both codecs: the port's decode
+    equals the reference's."""
+    ref = jmock.job()
+    ref.vault_token = "s.token"
+    port = convert.job_from_dict(dataclasses.asdict(ref))
+    assert port.vault_token == "s.token"
+    ref_out = jlog_codec.decode_payload(jlog_codec.encode_payload(
+        {"job": ref}))
+    port_out = log_codec.decode_payload(log_codec.encode_payload(
+        {"job": port}))
+    assert port_out["job"].vault_token == ref_out["job"].vault_token \
+        == "s.token"
+
+
 def test_deployments_decode_as_the_reference_deployments():
     """A deployment with its task-group states and a stable job, through
     both codecs: the port's decode equals the reference's."""

@@ -80,9 +80,12 @@ def test_drill_passes_on_the_cpu(name):
 
 
 def test_selfcheck_names_twelve_drills():
+    """The twelve drills and, since the chaos plane was ported, the
+    chaos drill after the follower drill (thirteen)."""
     assert drills.DRILLS == (
         "preempt", "breaker", "columnar", "tracing", "wal", "follower",
-        "residency", "fused", "residue", "codec", "mesh", "analysis")
+        "chaos", "residency", "fused", "residue", "codec", "mesh",
+        "analysis")
     assert drills.run_drills(device="cpu", log=lambda m: None,
                              only=("codec",)) == {"codec": True}
 

@@ -879,15 +879,16 @@ def test_agent_path_on_the_card_equals_the_cpu():
 
 @pytest.mark.gpu
 def test_guard_plane_drills_on_the_card():
-    """``chip_smoke.py`` phase ``drills`` on the card: the twelve drills
-    of ``--selfcheck`` pass, ``scored_rows`` launches equal the drills'
-    committing steps (a step a shard on the mesh drill), and the sanitized
-    corpus reports ``clean`` or a skip with its reason."""
+    """``chip_smoke.py`` phase ``drills`` on the card: the thirteen drills
+    of ``--selfcheck`` (the chaos drill among them) pass, ``scored_rows``
+    launches equal the drills' committing steps (a step a shard on the
+    mesh drill), and the sanitized corpus reports ``clean`` or a skip
+    with its reason."""
     need_card()
     import chip_smoke
 
     got = chip_smoke.phase_drills("cuda")
-    assert len(got["drills"]) == 12 and all(got["drills"].values())
+    assert len(got["drills"]) == 13 and all(got["drills"].values())
     assert got["launches"]["scored_rows"] == got[
         "committing_steps_x_shards"] > 0
     assert got["sanitized_corpus"] == "clean" or got[

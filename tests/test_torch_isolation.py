@@ -283,6 +283,11 @@ try:
     assert wait_until(lambda: any(x.is_leader() for x in servers), 40.0)
     leader = next(x for x in servers if x.is_leader())
     follower = next(x for x in servers if x is not leader)
+    # The follower forwards only once its first AppendEntries named the
+    # leader.
+    assert wait_until(lambda: all(
+        x.leader_address() == leader.config.rpc_advertise
+        for x in servers), 30.0)
     node = mock.node()
     node.resources.networks = []
     node.reserved.networks = []
@@ -305,6 +310,101 @@ print("ok")
                          capture_output=True, text=True, timeout=180)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+# The modules of the vault and federation slice, named so that their
+# check cannot silently drop out of PORT_FILES.
+SLICE_MODULES = ("server/vault.py", "client/vaultclient.py",
+                 "server/federation.py", "loadgen/federation.py")
+
+
+@pytest.mark.parametrize("rel", SLICE_MODULES)
+def test_vault_and_federation_modules_are_checked(rel):
+    path = PKG / rel
+    assert path in PORT_FILES
+    assert not [m for m in imported_modules(path)
+                if m.split(".")[0] in ("jax", "jaxlib", "nomad_tpu",
+                                       "msgpack")]
+    assert list(named_modules(path.read_text(), str(path))) == []
+
+
+def test_federation_and_vault_run_with_jax_unimportable():
+    """Two WAN-joined port regions over loopback with jax, nomad_tpu and
+    msgpack unimportable: a job forwarded across regions, a vault token
+    derived through ``FakeVault``, a severed region answering
+    ``NoPathToRegion``, and the aggregator's fan-in."""
+    code = """
+import sys
+sys.modules["jax"] = None
+sys.modules["nomad_tpu"] = None
+sys.modules["msgpack"] = None
+from nomad_tpu_torch import fault, mock
+from nomad_tpu_torch.server import Server, ServerConfig
+from nomad_tpu_torch.server.federation import RegionEventAggregator
+from nomad_tpu_torch.server.rpc import NoPathToRegion
+from nomad_tpu_torch.server.vault import FakeVault, VaultConfig
+from nomad_tpu_torch.structs import structs as s
+from nomad_tpu_torch.utils.backoff import wait_until
+fv = FakeVault()
+a = Server(ServerConfig(device="cpu", region="ra", node_name="a",
+                        enable_rpc=True, min_heartbeat_ttl=3600.0,
+                        vault=VaultConfig(enabled=True)), vault_api=fv)
+b = Server(ServerConfig(device="cpu", region="rb", node_name="b",
+                        enable_rpc=True, min_heartbeat_ttl=3600.0,
+                        wan_join=[a.config.rpc_advertise]))
+a.start()
+b.start()
+try:
+    assert wait_until(lambda: a.regions() == ["ra", "rb"]
+                      and b.regions() == ["ra", "rb"], 20.0)
+    node = mock.node()
+    node.resources.networks = []
+    node.reserved.networks = []
+    b.node_register(node)
+    job = mock.job()
+    job.region = "rb"
+    for t in job.task_groups[0].tasks:
+        t.resources.networks = []
+    _, eval_id = a.job_register(job)
+    assert wait_until(lambda: (e := b.state.eval_by_id(None, eval_id))
+                      is not None and e.status == "complete", 60.0)
+    assert a.state.job_by_id(None, job.id) is None
+    vjob = mock.job()
+    vjob.task_groups[0].tasks[0].vault = s.Vault(policies=["p"])
+    alloc = s.Allocation(id=s.generate_uuid(), node_id="vault-node",
+                         job_id=vjob.id, job=vjob,
+                         task_group=vjob.task_groups[0].name,
+                         desired_status="run", client_status="running")
+    a.state.upsert_job(a.raft.applied_index() + 1, vjob)
+    a.state.upsert_allocs(a.raft.applied_index() + 2, [alloc])
+    out = a.derive_vault_token(alloc.id, ["web"])
+    assert fv.unwrap(out["web"]["wrapped_token"])["accessor"] \\
+        == out["web"]["accessor"]
+    agg = RegionEventAggregator({"ra": a.config.rpc_advertise,
+                                 "rb": b.config.rpc_advertise})
+    agg.poll()
+    fault.net_sever_regions({"ra": [a.config.rpc_advertise],
+                             "rb": [b.config.rpc_advertise]},
+                            isolate="rb", name="dark")
+    job2 = mock.job()
+    try:
+        a.job_register(job2, region="rb")
+        raise AssertionError("no NoPathToRegion")
+    except NoPathToRegion as e:
+        assert e.region == "rb" and e.retry_after > 0
+    fault.net_heal("dark")
+    agg.pool.close()
+finally:
+    fault.net_disarm()
+    a.shutdown()
+    b.shutdown()
+assert sys.modules["msgpack"] is None
+print("ok")
+"""
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=180)
+    assert out.returncode == 0, out.stderr[-4000:]
+    assert out.stdout.strip().splitlines()[-1] == "ok"
 
 
 def test_default_device_raises_without_cuda():

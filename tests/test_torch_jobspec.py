@@ -3,12 +3,10 @@ JAX package's (``nomad_tpu/jobspec``).
 
 Every HCL string of ``tests/test_jobspec.py`` (found by walking its
 syntax tree) and the CLI's ``EXAMPLE_JOB`` go through both parsers.  A
-source both parse gives the same wire form (``api.codec.to_wire``), with
-``VaultToken`` and ``Stable`` taken from the reference's side only: the
-port's ``Job`` does not carry them (vault and job versions are ROADMAP
-items 29 and 30).  A source both refuse gives the same exception type
-and message.  A job with a ``vault_token`` is refused by the port, naming
-item 30, and the rest of it parses as the reference's does.  The
+source both parse gives the same wire form (``api.codec.to_wire``),
+``VaultToken`` included: the port's ``Job`` carries it since the vault
+integration was ported.  A source both refuse gives the same exception
+type and message.  The
 low-level HCL trees, the durations and the job files read from disk are
 compared too.
 """
@@ -27,8 +25,9 @@ from nomad_tpu_torch.cli.commands import EXAMPLE_JOB
 
 REF_TESTS = pathlib.Path(__file__).resolve().parent / "test_jobspec.py"
 
-# Job fields the port's structs do not carry (vault is ROADMAP item 30).
-REF_ONLY_JOB = ("VaultToken",)
+# Job fields the port's structs do not carry (none since the vault
+# integration).
+REF_ONLY_JOB = ()
 
 
 def hcl_sources():
@@ -60,11 +59,6 @@ def outcome(parse, src, wire):
         return type(e).__name__, str(e)
 
 
-def without_vault_token(src):
-    return "\n".join(ln for ln in src.splitlines()
-                     if not ln.strip().startswith("vault_token"))
-
-
 def test_sources_found():
     assert len(SOURCES) >= 15
     assert any("vault_token" in src for src in SOURCES)
@@ -75,10 +69,6 @@ def test_sources_found():
                          ids=[f"src{i}" for i in range(len(SOURCES))]
                          + ["example_job"])
 def test_parse_matches_reference(src):
-    if "vault_token" in src:
-        with pytest.raises(jobspec.ParseError, match="ROADMAP item 30"):
-            jobspec.parse(src)
-        src = without_vault_token(src)
     want = outcome(jjobspec.parse, src, ref_wire)
     got = outcome(jobspec.parse, src, to_wire)
     assert got == want
@@ -119,11 +109,14 @@ def test_parse_file_matches_reference(tmp_path, content):
 
 
 def test_vault_token_is_refused_not_dropped():
+    """A job's ``vault_token`` is carried, never dropped: the port's job
+    holds it and its wire form equals the reference's (the port refused
+    it before the vault integration was ported)."""
     src = 'job "v" {\n  vault_token = "secret"\n  task "t" { }\n}'
-    with pytest.raises(jobspec.ParseError) as e:
-        jobspec.parse(src)
-    assert "vault_token" in str(e.value)
-    assert "ROADMAP item 30" in str(e.value)
+    job = jobspec.parse(src)
+    assert job.vault_token == "secret"
+    assert to_wire(job) == ref_wire(jjobspec.parse(src))
+    assert to_wire(job)["VaultToken"] == "secret"
     # An empty token asks for nothing: both parse it alike.
     empty = src.replace('"secret"', '""')
     assert to_wire(jobspec.parse(empty)) == ref_wire(jjobspec.parse(empty))

@@ -15,7 +15,8 @@ reference's (``nomad_tpu/loadgen/``).
   leaves a clean strict sweep; ``overload_10x``, shrunk, keeps the
   broker's pending evals at or below its cap with rejects above 0; a
   two-server run (one follower subprocess, the auditor armed) is clean.
-- A chaos or multi-region scenario raises, naming ROADMAP item 30.
+- A chaos scenario builds a harness; a multi-region one goes to the
+  federated harness.
 - The broker's front-door reservation (a port departure, ROADMAP queue
   3 item 20) holds its cap against registrations in flight.
 
@@ -121,9 +122,19 @@ def test_percentiles_equal():
     ("chaos_smoke", {}), ("chaos_soak", {}), ("multi_region", {}),
     ("smoke", {"num_regions": 2}), ("smoke", {"chaos": {"kills": 1}})])
 def test_chaos_and_regions_raise(name, kwargs):
+    """The chaos scheduler and the federated harness are ported (these
+    raised naming ROADMAP queue 1 item 30 before): a chaos scenario
+    builds a ``LoadHarness``; a multi-region one is refused by it with a
+    ``ValueError`` naming the federated harness, which takes it."""
+    from nomad_tpu_torch.loadgen.federation import MultiRegionHarness
+
     sc = replace(pscenario.get_scenario(name), **kwargs)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 30"):
-        pharness.LoadHarness(sc, device="cpu")
+    if sc.num_regions > 1:
+        with pytest.raises(ValueError, match="MultiRegionHarness"):
+            pharness.LoadHarness(sc, device="cpu")
+        assert MultiRegionHarness(sc, device="cpu").regions == ["r0", "r1"]
+    else:
+        assert pharness.LoadHarness(sc, device="cpu").sc.chaos is not None
 
 
 # ---------------------------------------------------------------------------

@@ -422,6 +422,12 @@ def test_follower_forwards_the_lifecycle_writes():
                                       for x in servers), 60.0)
         leader = next(x for x in servers if x.is_leader())
         f = next(x for x in servers if x is not leader)
+        # A follower learns the new leader's address only from its first
+        # AppendEntries; a write forwarded before that has no leader to
+        # go to and raises NotLeaderError, as in the reference.
+        assert wait_until(lambda: all(
+            x.leader_address() == leader.config.rpc_advertise
+            for x in servers), 30.0)
         n = jmock.node()
         n.resources.networks = []
         n.reserved.networks = []

@@ -499,3 +499,55 @@ def test_a_non_voting_member_replicates_as_a_learner():
             ("seed", True), ("learner", False)}
     finally:
         shutdown_all(servers)
+
+
+def test_a_new_leader_restores_only_after_its_barrier(monkeypatch, caplog):
+    """A new leader on the replicated log restores nothing from the store
+    until the entries of earlier terms have applied: with the applier
+    held past several rounds of the barrier it keeps waiting (each round
+    logged) and restores nothing; once they apply it restores; and
+    leadership lost while the applier is held establishes nothing."""
+    import logging
+    import threading
+
+    from nomad_tpu_torch.server import server as server_mod
+
+    monkeypatch.setattr(server_mod, "LEADER_BARRIER_TIMEOUT", 0.05)
+    srv = Server(server_config("seed", bootstrap_expect=1,
+                               force_multi_raft=True))
+    assert isinstance(srv.raft, MultiRaft)
+    srv.rpc.start()             # the listener only: no raft, no election
+    log = {"applied": 5, "fence": 10, "leader": True}
+    monkeypatch.setattr(srv.raft, "fence_index", lambda: log["fence"])
+    monkeypatch.setattr(srv.raft, "applied_index", lambda: log["applied"])
+    monkeypatch.setattr(srv.raft, "is_raft_leader", lambda: log["leader"])
+    restores = []
+    real_restore = srv._restore_evals
+    monkeypatch.setattr(srv, "_restore_evals",
+                        lambda: (restores.append(log["applied"]),
+                                 real_restore()))
+
+    def establish():
+        t = threading.Thread(target=srv._establish_leadership, daemon=True)
+        t.start()
+        return t
+
+    caplog.set_level(logging.ERROR)
+    try:
+        t = establish()
+        assert not wait_until(lambda: not t.is_alive(), 0.4)
+        assert restores == [] and not srv.is_leader()
+        assert any("retrying" in r.getMessage() for r in caplog.records)
+        log["applied"] = 10
+        assert wait_until(lambda: not t.is_alive(), 10.0)
+        assert restores == [10] and srv.is_leader()
+
+        srv._revoke_leadership()
+        log.update(applied=12, fence=20)
+        t = establish()
+        assert not wait_until(lambda: not t.is_alive(), 0.3)
+        log["leader"] = False
+        assert wait_until(lambda: not t.is_alive(), 10.0)
+        assert restores == [10] and not srv.is_leader()
+    finally:
+        srv.shutdown()
