@@ -22,7 +22,19 @@ Phases, each printed as one JSON line:
 5. config_b -- the single-card path at BASELINE.json config (b) width:
                10,000 nodes, 100 jobs x 1000 asks, then two follow-up
                batches against the live placements, through
-               ``schedule_batch``;
+               ``schedule_batch``: one round-kernel launch a round, the
+               committing steps inside the bounds read from the result;
+5b. rounds  -- the round kernel (``csrc/placement_rounds.cu``) against
+               its plain version, the eager ``placement_rounds``, on the
+               card: config (b)'s three batches and a networks-plus-
+               distinct_property batch at phase 8's size, each batch's
+               ``device_schedule`` replayed through both, every output
+               bit for bit; batch 0's seconds, launches, committing
+               steps, the kernel's device time per launch (profiler, CUDA
+               events beside it) and each route's device busy and idle
+               share; then config (b) batch 0 through the ``two_pass``
+               and ``staged`` dispatches (placements equal to the fused
+               route's; the staged route's schedule and compact seconds);
 6. cpu_vs_card -- a 2,048-node problem on the card and on the CPU: the
                placements must be identical;
 7. networks -- config (b) with the networks of ``mock.node()`` and
@@ -31,7 +43,7 @@ Phases, each printed as one JSON line:
                two follow-up batches against the live placements and
                their offers: no node over capacity or bandwidth, no port
                used twice on a node, every dynamic port in [20000,
-               60000), one ``scored_rows`` launch per committing step;
+               60000), one round-kernel launch a round;
                the warm device pass and device ops per committing step
                beside the same batch with networks stripped;
 8. distinct_property -- config (c) width: 5,000 nodes with ``meta.rack``
@@ -63,8 +75,7 @@ Phases, each printed as one JSON line:
                then the default 16), through ``TorchBatchScheduler`` and
                the store-backed ``PlanApplier``; the same waves over a
                ``StateStore(columnar=False)``: the same plans, no guard
-               mismatch, no node over capacity, every ask placed, one
-               ``scored_rows`` launch per committing step and the kernel
+               mismatch, no node over capacity, every ask placed, one round-kernel launch a round and the kernel
                held at its shapes there; the static encode and the usage
                read timed against their walks, and each wave's encode,
                total and applier seconds by route; then the store with
@@ -81,8 +92,7 @@ Phases, each printed as one JSON line:
                destructively), on the card and again on the CPU: every
                plan and eval update identical, batch 0 identical to the
                list entry's placements, no node over capacity, no static
-               bytes uploaded by a follow-up, one ``scored_rows`` launch
-               per committing step; then the kernel breaker drill (a
+               bytes uploaded by a follow-up, one round-kernel launch a round; then the kernel breaker drill (a
                corrupted result rejected, the oracle carrying, a clean
                probe closing it);
 15. applied -- plans applied and fed back at config (b) width: the
@@ -152,8 +162,7 @@ Phases, each printed as one JSON line:
                32 nodes are added).  Card = CPU on every committed alloc
                and eval status; no node over capacity; the breaker
                closed with no trip and no oracle route; no eval nacked or
-               failed; one ``scored_rows`` launch per committing spec
-               step the batches report, one ``eviction_sets`` launch in
+               failed; one round-kernel launch a round the batches report, one ``eviction_sets`` launch in
                the drill; each wave's wall time, evals per second and the
                server's telemetry (batch, scheduler, plan queue wait,
                plan evaluate and apply); the servers keep their store's
@@ -180,7 +189,7 @@ Phases, each printed as one JSON line:
                decrease, one ``PlanApplied`` per applied plan, their
                placements sum to the committed allocs, one
                ``NodeRegistered`` per node, the subscriber never shed;
-               one ``scored_rows`` launch per committing step, the
+               one round-kernel launch a round, the
                drill's one ``eviction_sets`` launch in the batch whose
                ``batch.preempt`` span commits it; card = CPU on each
                eval's span names and on the events by content; one traced
@@ -198,8 +207,8 @@ Phases, each printed as one JSON line:
                ``annotate_plan`` evals in one batch over a snapshot
                holding their new versions, on the card and on the CPU:
                the same plans, plan annotations, eval updates and
-               failure forensics, no oracle route, one ``scored_rows``
-               launch per committing step, the store's allocs untouched;
+               failure forensics, no oracle route, one round-kernel
+               launch a round, the store's allocs untouched;
                each job's ``job_diff`` annotated with its plan's updates
                ("forces create" on Count, "forces create/destroy update"
                on the env edit); then ``Server.job_plan`` of a job's
@@ -243,8 +252,7 @@ Phases, each printed as one JSON line:
                = C on committed allocs, eval statuses, blocked stats,
                queued counts and every job's version history
                (``job_versions_by_id``, also restored equal to the
-               pre-crash history); one ``scored_rows`` launch per committing
-               step; one full re-encode of the resident mirror after the
+               pre-crash history); one round-kernel launch a round; one full re-encode of the resident mirror after the
                restore, then hits; no guard mismatch, no nack, the
                breaker closed, no node over capacity; a restart from the
                snapshot alone equal again.  ``raft.apply`` mean and p99
@@ -269,7 +277,7 @@ Phases, each printed as one JSON line:
                and queued counts after each step; A against B printed
                where it differs; every survivor's fingerprint equal; the
                new leader's applied index at least the last acknowledged;
-               one ``scored_rows`` launch per committing step on the old
+               one round-kernel launch a round on the old
                leader and on the new one; one full re-encode of the
                resident mirror more than B's after the failover; no guard
                mismatch, no nack, the breaker closed, no node over
@@ -283,8 +291,9 @@ Phases, each printed as one JSON line:
                at a seeded point: every eval complete, each job exactly
                its count of distinct allocs, no node over capacity, the
                survivors' fingerprints equal, plans forwarded by the
-               followers and none by the leader's own channel, launches =
-               committing steps on each leader; the lag handbacks and
+               followers and none by the leader's own channel, a
+               round-kernel launch a round on each leader; the lag
+               handbacks and
                the ``follower.snapshot_lag`` samples;
 23. lifecycle -- the job lifecycle: periodic and parameterized batch
                jobs in tenant namespaces through a port ``Server`` on the
@@ -315,8 +324,7 @@ Phases, each printed as one JSON line:
                and what GC deleted (children keyed by parent and
                ordinal); 0 guard mismatches before and after the GC; no
                node over capacity; the breaker closed, no oracle route, no
-               nack, no failed eval; one ``scored_rows`` launch per
-               committing step in each wave and none of
+               nack, no failed eval; one round-kernel launch a round in each wave and none of
                ``eviction_sets``; each wave's evals per second, the GC's
                seconds, the tenants' dequeues and the force and dispatch
                latencies;
@@ -334,7 +342,7 @@ Phases, each printed as one JSON line:
                every submission acknowledged and complete, every job its
                count of live allocs, a clean strict integrity sweep, no
                nack or failed eval, the breaker closed, no oracle route,
-               one ``scored_rows`` launch per committing step, exactly
+               one round-kernel launch a round, exactly
                one ``slo.plan_apply_p99`` bundle (valid JSON with every
                section) and its ``BundleCaptured`` event on the stream,
                at least 80 % of the non-idle host samples attributed,
@@ -364,8 +372,7 @@ Phases, each printed as one JSON line:
                A's script on the CPU.  A = B = C on the placements (job,
                alloc name -> node) and eval statuses, A = B on the
                scores, A vs C within 4e-6; every parsed job's wire form
-               that of its ``mock.job()``; one ``scored_rows`` launch per
-               committing step and 0 differing bits at the shapes the
+               that of its ``mock.job()``; one round-kernel launch a round and 0 differing bits at the shapes the
                path gave it; no nack or failed eval, the breaker closed,
                no oracle route, no node over capacity; blocking queries
                on the jobs and allocs tables started before the
@@ -409,8 +416,7 @@ Phases, each printed as one JSON line:
                task pid alive after each world's shutdown, nothing made
                under /sys/fs/cgroup, the supervisor start times (median,
                p99); no alloc terminal before the wave's last eval is
-               acked; one ``scored_rows`` launch per
-               committing step and the kernel at the shapes the path gave
+               acked; one round-kernel launch a round and the kernel at the shapes the path gave
                it within 4e-6 of its plain version; no nack, the breaker
                closed, no oracle route, no node over capacity; every alloc
                dir made where its alloc ran and none left after the GC
@@ -436,8 +442,7 @@ Phases, each printed as one JSON line:
                A = C on each region's placements, unplaced counts and
                AllocMetric scores (within 4e-6), every job only in its
                own region and none holding allocs in two
-               (``federated_sweep``), one ``scored_rows`` launch per
-               committing step and the kernel at A's shapes against its
+               (``federated_sweep``), one round-kernel launch a round and the kernel at A's shapes against its
                plain version (0 differing bits).  Leg 2: r1 stopped; its
                submissions through r0 (in process and over the wire)
                raise ``NoPathToRegion`` with a ``retry_after`` within 10
@@ -448,14 +453,13 @@ Phases, each printed as one JSON line:
                legs 1 and 2, the forward tax as a rate: 256 one-alloc
                jobs of r1 from 8 threads, through r1 itself, then
                through r0 (forwarded): registrations and evals acked a
-               second in each stream, one launch a committing step.
+               second in each stream, one launch a round.
                Leg 3 (A only): the ``multi_region`` scenario through
                ``run_multi_region``'s harness on card servers (80
                nodes, 480 submissions, 25 % cross-region, r1 dark 3 s
                at 4 s): the federated auditor's 0 violations, the
                blackout recovered, its breaker closed with no trip and
-               no oracle route, one launch a committing step of its
-               servers, the kernel at its shapes against its plain
+               no oracle route, one launch a round of its servers, the kernel at its shapes against its plain
                version (0 differing bits), and the forward's submit
                latency, local against cross;
 28. drills  -- the thirteen drills of ``python -m nomad_tpu_torch.ops
@@ -470,9 +474,10 @@ Phases, each printed as one JSON line:
                analysis (the static pass clean, the lock-order sanitizer's
                seeded inversion, the native corpora under ASan and UBSan:
                ``clean`` or ``skip: <reason>``, printed); every drill
-               must pass; ``scored_rows`` launches equal the committing
-               steps of the drills' device batches (a step a shard on the
-               mesh), ``masked_score_matrix`` launches four a call of
+               must pass; the round kernel runs once a round of the
+               single card's batches, ``scored_rows`` once per committing
+               step and shard of the mesh's, ``masked_score_matrix``
+               launches four a call of
                ``sharded_candidate_scores`` (none on the fused mesh pass);
 29. times   -- each kernel's device time (profiler trace; CUDA events
                where the trace has none) over copies of its inputs that
@@ -489,7 +494,11 @@ Phases, each printed as one JSON line:
 
 Each path is driven with the kernels' launch counts set to 0 just before
 it and read just after; a path that should launch a kernel and did not
-fails.
+fails.  On one card the placement loop is the round kernel: a batch
+launches it once a round it runs and launches no ``scored_rows`` (whose
+arithmetic runs inside it); its committing steps equal the batches'
+``batch.commit_steps``.  On a mesh the loop is the eager one, and
+``scored_rows`` runs once per committing step and shard.
 
 Then the kernel table, the card's name and power limit, and the last
 line ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no
@@ -871,22 +880,34 @@ def committing_steps_bounds(res):
     return lo, hi
 
 
-def check_mesh_launches(res, launches, what):
-    """A committing spec step launches ``scored_rows`` once per shard
-    (once on the single card): hold the count to D times the bounds of
-    :func:`committing_steps_bounds`."""
-    d = max(1, res.mesh_shards)
+def check_mesh_launches(res, counts, what):
+    """The launches of one batch (:func:`loop_counts`) held to the bounds
+    of :func:`committing_steps_bounds`: on a mesh a committing spec step
+    launches ``scored_rows`` once per shard (D times the bounds); on the
+    single card the round kernel runs once a round and its committing
+    steps lie inside the bounds.  Returns the bounds the count was held
+    to."""
+    d = res.mesh_shards
     lo, hi = committing_steps_bounds(res)
-    if launches <= 0 or not d * lo <= launches <= d * hi:
-        raise AssertionError(f"{what}: scored_rows launched {launches} "
-                             f"times, outside {d} x the committing spec "
-                             f"steps [{lo}, {hi}] read from the result")
-    return [d * lo, d * hi]
+    launches = counts["scored_rows_launches"]
+    if d:
+        if launches <= 0 or not d * lo <= launches <= d * hi:
+            raise AssertionError(f"{what}: scored_rows launched {launches} "
+                                 f"times, outside {d} x the committing "
+                                 f"spec steps [{lo}, {hi}] read from the "
+                                 f"result")
+        return [d * lo, d * hi]
+    steps = counts["committing_spec_steps"]
+    if not one_card_work_ok(counts, res.rounds) or not lo <= steps <= hi:
+        raise AssertionError(f"{what}: {counts} on one card, {res.rounds} "
+                             f"rounds, committing spec steps [{lo}, {hi}] "
+                             f"read from the result")
+    return [lo, hi]
 
 
 def phase_config_b(dev):
     from nomad_tpu_torch import mock
-    from nomad_tpu_torch.ops import batch_sched, fused_score
+    from nomad_tpu_torch.ops import batch_sched
 
     nodes = [strip_node(mock.node()) for _ in range(10_000)]
     batches = [[strip_job(mock.job(), 1000) for _ in range(100)]]
@@ -895,12 +916,12 @@ def phase_config_b(dev):
                         for _ in range(10)])
     live = []
     out = []
-    fused_score.LAUNCHES = 0
+    round_launches = 0
     for b, jobs in enumerate(batches):
-        before = fused_score.LAUNCHES
-        res = batch_sched.schedule_batch(nodes, jobs, live_allocs=live,
-                                         rng_seed=SEED + b, device=dev)
-        launches = fused_score.LAUNCHES - before
+        res, counts = run_counted(lambda: batch_sched.schedule_batch(
+            nodes, jobs, live_allocs=live, rng_seed=SEED + b, device=dev))
+        launches = counts["placement_rounds_launches"]
+        round_launches += launches
         steps_lo, steps_hi = committing_steps_bounds(res)
         live = live + batch_sched.placed_allocs(res, jobs)
         placed = sum(len(sp.node_ids) for sp in res.placements.values())
@@ -910,7 +931,7 @@ def phase_config_b(dev):
         row = {"batch": b, "jobs": len(jobs),
                "asks": sum(j.task_groups[0].count for j in jobs),
                "placed": placed, "unplaced": unplaced, "rounds": res.rounds,
-               "kernel_launches": launches,
+               "kernel_launches": launches, **counts,
                "committing_spec_steps_from_result": [steps_lo, steps_hi],
                "validate_device_outputs": "ok", "nodes_over_capacity": over,
                "binpack_sum": agg, "nodes_used": used_nodes,
@@ -919,15 +940,323 @@ def phase_config_b(dev):
                "decode_s": res.timings["decode"]}
         out.append(row)
         emit({"phase": "config_b", **row})
-        if launches <= 0 or not steps_lo <= launches <= steps_hi:
-            raise AssertionError(f"kernel launches {launches} outside the "
-                                 f"committing spec steps [{steps_lo}, "
-                                 f"{steps_hi}] read from the result")
+        # One round-kernel launch a round run, no score kernel, and the
+        # kernel's committing steps inside the bounds read from the result
+        # (before the round kernel: one scored_rows launch a step).
+        check_steps(res, counts, f"config_b batch {b}")
         if over:
             raise AssertionError(f"{over} nodes over capacity")
         if placed + unplaced != row["asks"]:
             raise AssertionError("placed + unplaced != asks")
-    return out, fused_score.LAUNCHES
+    return out, round_launches
+
+
+# -- phase rounds: the round kernel against its plain version -----------------
+
+ROUND_OUTPUTS = ("placements", "unplaced", "used_after", "commit_scores",
+                 "commit_collisions", "slots", "slot_scores", "slot_coll")
+# Bytes a committing step must move per node (used, cap 16 B each, denom
+# 8 B, feas 1 B, job count 4 B), and per node more for a network spec
+# (bandwidth used and cap, free dynamic ports: 12 B, plus 4 B for each
+# word in which the spec reserves a port) and a distinct_property spec (the
+# attribute code: 4 B); per committed alloc the usage row, job count and
+# slot record written.
+ROUND_NODE_BYTES = 45
+ROUND_NET_NODE_BYTES = 12
+ROUND_DP_NODE_BYTES = 4
+ROUND_ALLOC_BYTES = 32
+
+
+def recorded_schedules(fn):
+    """``fn()`` with the arguments of every ``kernels.device_schedule``
+    call it makes recorded: ``(result, [(args, kwargs)])``."""
+    from nomad_tpu_torch.ops import kernels
+
+    calls = []
+    real = kernels.device_schedule
+
+    def record(*args, **kwargs):
+        calls.append((args, kwargs))
+        return real(*args, **kwargs)
+
+    kernels.device_schedule = record
+    try:
+        out = fn()
+    finally:
+        kernels.device_schedule = real
+    return out, calls
+
+
+def round_diffs(got, want) -> dict:
+    """Per output of the placement rounds, the elements that differ (for
+    floats, differing bits), and the largest absolute difference."""
+    import torch
+
+    out, worst = {}, 0.0
+    for f in ROUND_OUTPUTS:
+        a, b = getattr(got, f), getattr(want, f)
+        if a.shape != b.shape or a.dtype != b.dtype:
+            out[f] = f"{tuple(a.shape)} {a.dtype} vs {tuple(b.shape)} {b.dtype}"
+            continue
+        if a.dtype == torch.float32:
+            out[f] = int((a.view(torch.int32) != b.view(torch.int32)).sum())
+            worst = max(worst, float((a - b).abs().max()) if a.numel() else 0)
+        else:
+            out[f] = int((a != b).sum())
+            worst = max(worst, float((a.double() - b.double()).abs().max())
+                        if a.numel() else 0.0)
+    out["rounds"] = [got.rounds, want.rounds]
+    out["commit_steps"] = [got.commit_steps, want.commit_steps]
+    return {"differing": out, "max_abs_err": worst,
+            "equal": all(v == 0 for k, v in out.items()
+                         if k in ROUND_OUTPUTS)
+            and got.rounds == want.rounds
+            and got.commit_steps == want.commit_steps}
+
+
+def round_step_bytes(args, extra, step_specs, placed):
+    """The bytes the committing steps of one batch must move (each spec
+    step reads its nodes once, writes its commits once)."""
+    n = args[0].shape[1]
+    net, dp = extra["net"], extra["dp"]
+    total = placed * ROUND_ALLOC_BYTES
+    for u in step_specs:
+        per = ROUND_NODE_BYTES
+        if net is not None and bool(net.active[u]):
+            per += ROUND_NET_NODE_BYTES
+            per += 4 * int((net.resv_words[u] != 0).sum())
+        if dp is not None and bool(dp.active[u]):
+            per += ROUND_DP_NODE_BYTES
+        total += n * per
+    return total
+
+
+def round_routes(call, dev, profile=False) -> dict:
+    """One recorded batch through ``device_schedule`` on the card with the
+    round kernel, and through ``schedule_inputs`` and the eager
+    ``placement_rounds`` (the plain version, on the same CUDA tensors):
+    both results held bit for bit, each route's seconds, launches and
+    committing steps; with ``profile`` the kernel's device time per
+    launch (profiler, CUDA events as the cross-check) and each route's
+    device busy and idle share."""
+    import torch
+
+    from nomad_tpu_torch.ops import fused_score, kernels
+
+    args, kwargs = call
+    static_buf, dyn_buf = args[0], args[1]
+    used_dev = args[2] if len(args) > 2 else kwargs.get("used_dev")
+    opts = {k: kwargs[k] for k in ("max_rounds", "with_scores", "slot_m")
+            if k in kwargs}
+    where = {k: kwargs[k] for k in ("meta_s", "meta_d", "u_pad", "n_pad")}
+
+    def kernel_route():
+        return kernels.device_schedule(static_buf, dyn_buf, used_dev,
+                                       **where, **opts)[0]
+
+    def eager_route():
+        a, extra = kernels.schedule_inputs(static_buf, dyn_buf, used_dev,
+                                           **where)
+        return kernels.placement_rounds(*a, **opts, **extra)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        return r, time.perf_counter() - t0
+
+    kernel_route()    # warm: the first call builds and loads
+    zero_counts()
+    got, k_s = timed(kernel_route)
+    k_counts = loop_counts()
+    steps = []
+    real_scored = fused_score.scored_rows
+
+    def scored(*a, u_offset=0, **kw):
+        steps.append(u_offset)
+        return real_scored(*a, u_offset=u_offset, **kw)
+
+    zero_counts()
+    fused_score.scored_rows = scored
+    try:
+        want, e_s = timed(eager_route)
+    finally:
+        fused_score.scored_rows = real_scored
+    e_counts = loop_counts()
+    a, extra = kernels.schedule_inputs(static_buf, dyn_buf, used_dev,
+                                       **where)
+    # The plain version's rounds alone, on inputs made beforehand.
+    _, e_rounds_s = timed(lambda: kernels.placement_rounds(*a, **opts,
+                                                           **extra))
+    placed = int(got.placements.sum()) if got.placements.numel() > 1 \
+        else int((got.slots >= 0).sum())
+    nbytes = round_step_bytes(a, extra, steps, placed)
+    launches = k_counts["placement_rounds_launches"]
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3 / max(1, launches)
+    row = {"u_pad": kwargs["u_pad"], "n_pad": kwargs["n_pad"],
+           "with_networks": extra["net"] is not None,
+           "with_dp": extra["dp"] is not None, **opts,
+           "kernel_route": {"seconds": k_s, **k_counts},
+           "eager_route": {"seconds": e_s, "rounds_seconds": e_rounds_s,
+                           **e_counts},
+           "rounds": got.rounds, "placed": placed, "step_bytes": nbytes,
+           "bound_ms_per_launch": bound_ms, "bound_by": "bytes",
+           **round_diffs(got, want)}
+    if not profile:
+        return row
+    # The kernel's device time per launch: the profiler's events, and CUDA
+    # events around each launch as the cross-check.
+    real_round = fused_score.placement_round
+    ev = []
+
+    def evented(t, seed):
+        s0 = torch.cuda.Event(enable_timing=True)
+        s1 = torch.cuda.Event(enable_timing=True)
+        s0.record()
+        out = real_round(t, seed)
+        s1.record()
+        ev.append((s0, s1))
+        return out
+
+    fused_score.placement_round = evented
+    try:
+        kernel_route()
+    finally:
+        fused_score.placement_round = real_round
+    torch.cuda.synchronize()
+    row["kernel_ms_cuda_events"] = [a0.elapsed_time(a1) for a0, a1 in ev]
+    for name, fn in (("kernel_route", kernel_route),
+                     ("eager_route", eager_route)):
+        wall = {}
+
+        def run():
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall["s"] = time.perf_counter() - t0
+
+        evs = cuda_kernel_events(profiled(run))
+        if not evs:
+            row[name]["device_busy_s"] = "not measured (no device events)"
+            continue
+        busy = sum(e.time_range.elapsed_us() for e in evs) / 1e6
+        row[name].update({
+            "device_ops": len(evs), "device_busy_s": busy,
+            "traced_seconds": wall["s"],
+            "device_idle_share": 1.0 - busy / wall["s"],
+            "device_ops_per_committing_step":
+                len(evs) / max(1, row[name]["committing_spec_steps"]
+                               or len(steps))})
+        if name == "kernel_route":
+            ks = [e.time_range.elapsed_us() for e in evs
+                  if "placement_round_kernel" in e.name]
+            row["kernel_us_per_launch_profiler"] = ks
+            if len(ks) != launches:
+                raise AssertionError(f"the trace shows {len(ks)} round "
+                                     f"kernel runs, {launches} launches")
+    return row
+
+
+def round_replay(label, call, dev) -> dict:
+    """One recorded batch of a large phase (``call``, from
+    :func:`recorded_schedules`) through both routes (:func:`round_routes`:
+    the round kernel and the eager loop on the same CUDA tensors), every
+    output bit for bit; emitted as phase ``rounds`` rows, so that the
+    kernel's one-block design is timed against the loop it replaced at
+    the sizes where its one SM matters most."""
+    row = {"batch": label, **round_routes(call, dev)}
+    k, e = row["kernel_route"], row["eager_route"]
+    row["kernel_ms_per_step"] = (k["seconds"] * 1e3
+                                 / max(1, k["committing_spec_steps"]))
+    row["eager_ms_per_step"] = (e["seconds"] * 1e3
+                                / max(1, e["committing_spec_steps"]))
+    emit({"phase": "rounds", **row})
+    if (not row["equal"] or k["placement_rounds_launches"] != row["rounds"]
+            or k["committing_spec_steps"] != e["committing_spec_steps"]
+            or k["scored_rows_launches"]):
+        raise AssertionError(f"{label}: the round kernel and the eager loop "
+                             f"differ: {row}")
+    return row
+
+
+def phase_rounds(dev):
+    """The round kernel against the eager loop on the card: config (b)'s
+    three batches and phase distinct_property's batch (networks and
+    distinct_property), each batch's ``device_schedule`` arguments
+    recorded from the library entry on the card and replayed through both
+    routes, every output bit for bit; batch 0's seconds, launches,
+    committing steps, the kernel's device time per launch and each
+    route's device idle share.  Then config (b)'s batch 0 through the
+    two-pass and staged dispatches: placements equal to the fused
+    route's, the staged route's schedule and compact seconds."""
+    from nomad_tpu_torch import mock
+    from nomad_tpu_torch.ops import batch_sched
+    from nomad_tpu_torch.structs import structs as s
+
+    nodes = [strip_node(mock.node()) for _ in range(10_000)]
+    batches = [[strip_job(mock.job(), 1000) for _ in range(100)]]
+    for _ in range(2):
+        batches.append([strip_job(mock.job(), 200, cpu=100, mem=128)
+                        for _ in range(10)])
+    live, rows, fused0 = [], [], None
+    for b, jobs in enumerate(batches):
+        res, calls = recorded_schedules(lambda: batch_sched.schedule_batch(
+            nodes, jobs, live_allocs=live, rng_seed=SEED + b, device=dev))
+        if b == 0:
+            fused0 = res
+        live = live + batch_sched.placed_allocs(res, jobs)
+        row = {"batch": f"config_b_{b}",
+               **round_routes(calls[0], dev, profile=b == 0)}
+        rows.append(row)
+        emit({"phase": "rounds", **row})
+    dp_nodes = []
+    for i in range(5_000):
+        n = mock.node()
+        n.meta["rack"] = f"rack-{i % 500}"
+        n.compute_class()
+        dp_nodes.append(n)
+    dp_jobs = []
+    for i in range(50):
+        j = net_job(1000)
+        if i % 5 == 0:
+            j.task_groups[0].constraints = [s.Constraint(
+                "${meta.rack}", "", s.CONSTRAINT_DISTINCT_PROPERTY)]
+        dp_jobs.append(j)
+    _, calls = recorded_schedules(lambda: batch_sched.schedule_batch(
+        dp_nodes, dp_jobs, rng_seed=SEED, device=dev,
+        eval_ids=[f"dp-{i}" for i in range(len(dp_jobs))]))
+    row = {"batch": "networks_dp", **round_routes(calls[0], dev)}
+    rows.append(row)
+    emit({"phase": "rounds", **row})
+    bad = [r["batch"] for r in rows if not r["equal"]
+           or not r["with_networks"] == (r["batch"] == "networks_dp")
+           or r["kernel_route"]["placement_rounds_launches"] != r["rounds"]
+           or r["kernel_route"]["scored_rows_launches"]
+           or r["kernel_route"]["dp_host_reads"]
+           or r["kernel_route"]["committing_spec_steps"]
+           != r["eager_route"]["committing_spec_steps"]
+           or r["eager_route"]["scored_rows_launches"]
+           != r["eager_route"]["committing_spec_steps"]]
+    if bad or not rows[-1]["with_dp"]:
+        raise AssertionError(f"rounds: the kernel and the eager loop "
+                             f"differ on {bad}: {rows}")
+    dispatch = {}
+    for mode in ("two_pass", "staged"):
+        res = batch_sched.schedule_batch(nodes, batches[0], rng_seed=SEED,
+                                         device=dev, dispatch=mode)
+        same = {k: (sp.node_ids, sp.scores.tolist(), sp.unplaced)
+                for k, sp in res.placements.items()} == {
+            k: (sp.node_ids, sp.scores.tolist(), sp.unplaced)
+            for k, sp in fused0.placements.items()}
+        dispatch[mode] = {"placements_equal_fused": same,
+                          "rounds": res.rounds, "timings": res.timings}
+        emit({"phase": "rounds", "dispatch": mode, **dispatch[mode]})
+        if not same or (mode == "staged" and not {
+                "schedule", "compact"} <= set(res.timings)):
+            raise AssertionError(f"rounds: dispatch {mode}: "
+                                 f"{dispatch[mode]}")
+    return {"batches": rows, "dispatch": dispatch}
 
 
 # -- phase 5: card vs CPU ----------------------------------------------------
@@ -1019,29 +1348,150 @@ def network_check(nodes, allocs):
     return over, collide, bad_dyn
 
 
-def run_counted(fn):
-    """``fn()`` with the launch, committing-step and distinct_property
-    read counts set to 0 just before and read just after."""
+# The bounds on the committing steps of every single-card placement-
+# rounds result since zero_counts(), read from the placements alone
+# (result_step_bounds): [lo, hi].  The round kernel reports its own
+# steps; these hold that count to what it placed.
+_STEP_BOUNDS = [0, 0]
+_STEP_LOCK = threading.Lock()
+
+
+def result_step_bounds(res, count, slot_m) -> tuple:
+    """Bounds on the committing spec steps of one ``PlacementResult``,
+    from its placements alone (:func:`committing_steps_bounds`' rule per
+    spec): a spec that placed anything committed at least once and in at
+    least as many rounds as its busiest node took its allocs (one a node
+    a round), and in at most ``rounds``.  Slot mode reads the slot record
+    (destinations past M are dropped, so its count is a lower bound)."""
+    import numpy as np
+
+    placed = (count.to(res.unplaced.dtype) - res.unplaced).cpu().numpy()
+    rows = (res.slots if slot_m else res.placements).cpu().numpy()
+    lo = hi = 0
+    for u in np.flatnonzero(placed > 0):
+        if slot_m:
+            ids = rows[u][rows[u] >= 0]
+            most = int(np.bincount(ids).max()) if ids.size else 0
+        else:
+            most = int(rows[u].max())
+        lo += max(1, most)
+        hi += res.rounds
+    return lo, hi
+
+
+def record_step_bounds():
+    """Wrap ``kernels.run_placement_rounds`` once per process so that each
+    result adds its :func:`result_step_bounds` to ``_STEP_BOUNDS``."""
+    from nomad_tpu_torch.ops import kernels
+
+    real = kernels.run_placement_rounds
+    if getattr(real, "step_bounds", False):
+        return
+
+    def bounded(*args, **kwargs):
+        res = real(*args, **kwargs)
+        count = args[5] if len(args) > 5 else kwargs["count"]
+        lo, hi = result_step_bounds(res, count, kwargs.get("slot_m", 0))
+        with _STEP_LOCK:
+            _STEP_BOUNDS[0] += lo
+            _STEP_BOUNDS[1] += hi
+        return res
+
+    bounded.step_bounds = True
+    kernels.run_placement_rounds = bounded
+
+
+def zero_counts():
+    """Every kernel's launch count, the placement loops' counts and the
+    step bounds (:func:`record_step_bounds`, installed here) set to 0."""
+    from nomad_tpu_torch.ops import fused_score, kernels, preempt
+
+    record_step_bounds()
+    fused_score.LAUNCHES = fused_score.MASKED_LAUNCHES = 0
+    fused_score.ROUND_LAUNCHES = preempt.LAUNCHES = 0
+    kernels.COMMIT_STEPS = kernels.DP_HOST_READS = kernels.ROUNDS = 0
+    with _STEP_LOCK:
+        _STEP_BOUNDS[:] = [0, 0]
+
+
+def loop_counts() -> dict:
+    """The placement loops' launches and counts since :func:`zero_counts`:
+    round-kernel launches (one a round on one card), ``scored_rows``
+    launches (one a committing step a shard on a mesh), the committing
+    spec steps and the eager loops' distinct_property host reads, and
+    the single card's step bounds read from its placements."""
     from nomad_tpu_torch.ops import fused_score, kernels
 
-    fused_score.LAUNCHES = kernels.COMMIT_STEPS = kernels.DP_HOST_READS = 0
+    return {"placement_rounds_launches": fused_score.ROUND_LAUNCHES,
+            "scored_rows_launches": fused_score.LAUNCHES,
+            "committing_spec_steps": kernels.COMMIT_STEPS,
+            "dp_host_reads": kernels.DP_HOST_READS,
+            "rounds_run": kernels.ROUNDS,
+            "steps_lo": _STEP_BOUNDS[0], "steps_hi": _STEP_BOUNDS[1]}
+
+
+def kernel_counts(**extra) -> dict:
+    """Every kernel's launches since :func:`zero_counts` (the names of the
+    ``kernels`` line), the committing spec steps and their bounds, and
+    ``extra``."""
+    from nomad_tpu_torch.ops import fused_score, kernels, preempt
+
+    return {"scored_rows": fused_score.LAUNCHES,
+            "masked_score_matrix": fused_score.MASKED_LAUNCHES,
+            "eviction_sets": preempt.LAUNCHES,
+            "placement_rounds": fused_score.ROUND_LAUNCHES,
+            "committing_spec_steps": kernels.COMMIT_STEPS,
+            "rounds_run": kernels.ROUNDS,
+            "steps_lo": _STEP_BOUNDS[0], "steps_hi": _STEP_BOUNDS[1],
+            **extra}
+
+
+def run_counted(fn):
+    """``fn()`` with the counts of :func:`loop_counts` set to 0 just before
+    and read just after."""
+    zero_counts()
     res = fn()
-    return res, {"scored_rows_launches": fused_score.LAUNCHES,
-                 "committing_spec_steps": kernels.COMMIT_STEPS,
-                 "dp_host_reads": kernels.DP_HOST_READS}
+    return res, loop_counts()
+
+
+def steps_in_bounds(counts) -> bool:
+    """The kernel's committing steps inside the bounds read from what its
+    results placed (:func:`record_step_bounds`)."""
+    return (counts["steps_lo"] <= counts["committing_spec_steps"]
+            <= counts["steps_hi"])
+
+
+def one_card_work_ok(counts, rounds, steps=None) -> bool:
+    """What one card's batches launch (the round kernel once a round run,
+    ``rounds`` summed over them, at least once; no score kernel; no host
+    read of a distinct_property step), with the kernel's committing
+    steps inside the bounds read from its placements and equal to
+    ``steps`` (the server's ``batch.commit_steps``) where it is given."""
+    return (counts["placement_rounds_launches"] == rounds > 0
+            and counts["scored_rows_launches"] == 0
+            and counts.get("dp_host_reads", 0) == 0
+            and steps_in_bounds(counts)
+            and (steps is None or counts["committing_spec_steps"] == steps))
 
 
 def check_steps(res, counts, what):
-    """One ``scored_rows`` launch per committing spec step on the card
-    (one per shard on a mesh), and the step count inside the bounds read
-    from the result."""
-    d = max(1, res.mesh_shards)
+    """The card's work on one batch, held to the result: on one card one
+    round-kernel launch a round run and no ``scored_rows``; on a mesh one
+    ``scored_rows`` launch per committing spec step and shard.  Either
+    way the committing steps lie inside the bounds read from the
+    result."""
+    d = res.mesh_shards
     steps = counts["committing_spec_steps"]
     lo, hi = committing_steps_bounds(res)
-    if (steps <= 0 or counts["scored_rows_launches"] != d * steps
-            or not lo <= steps <= hi):
-        raise AssertionError(f"{what}: {counts}, {d} shards, committing "
-                             f"steps from the result [{lo}, {hi}]")
+    if d:
+        ok = (counts["scored_rows_launches"] == d * steps
+              and counts["placement_rounds_launches"] == 0)
+    else:
+        ok = one_card_work_ok(counts, res.rounds)
+    if steps <= 0 or not ok or not lo <= steps <= hi:
+        raise AssertionError(f"{what}: {counts}, {d} shards, "
+                             f"{res.rounds} rounds, committing steps from "
+                             f"the result [{lo}, {hi}]")
 
 
 def phase_networks(dev):
@@ -1147,7 +1597,9 @@ def phase_distinct_property(dev):
            "decode_and_offers_s": res.timings["decode"]}
     if (dp_reuse or max(dp_placed) > 500 or over or bw_over or collide
             or bad_dyn or placed + unplaced != 50_000
-            or counts["dp_host_reads"] <= 0):
+            or counts["dp_host_reads"] != 0):
+        # The round kernel reads nothing back for a distinct_property
+        # step (the eager loop read each step's kept count).
         raise AssertionError(f"distinct_property: {row}")
     return row
 
@@ -1257,7 +1709,7 @@ def same_batches(a, b, exact_order=True):
 
 def phase_mesh_scores(dev):
     from nomad_tpu_torch import mock
-    from nomad_tpu_torch.ops import batch_sched, fused_score
+    from nomad_tpu_torch.ops import batch_sched
     from nomad_tpu_torch.parallel import make_node_mesh
 
     nodes = [strip_node(mock.node()) for _ in range(10_000)]
@@ -1270,21 +1722,18 @@ def phase_mesh_scores(dev):
            "scored_entries": sum(len(sp.metric_scores)
                                  for sp in single.placements.values())}
     for d in (4, 3):
-        fused_score.LAUNCHES = 0
-        res = batch_sched.schedule_batch(
+        res, counts = run_counted(lambda: batch_sched.schedule_batch(
             nodes, jobs, rng_seed=SEED,
-            mesh=make_node_mesh([dev] * d))
-        launches = fused_score.LAUNCHES
+            mesh=make_node_mesh([dev] * d)))
         same = same_batches(res, single)
         out[f"mesh{d}"] = {"mesh_shards": res.mesh_shards,
                            "rounds": res.rounds,
-                           "identical_to_single": same,
-                           "scored_rows_launches": launches,
+                           "identical_to_single": same, **counts,
                            "device_s_cuda_events": res.timings["device"]}
         if not same or res.mesh_shards != d:
             raise AssertionError(f"{d}-shard mesh disagrees: {out}")
         out[f"mesh{d}"]["launch_bounds"] = check_mesh_launches(
-            res, launches, f"{d}-shard mesh")
+            res, counts, f"{d}-shard mesh")
     if not out["scored_entries"]:
         raise AssertionError("no AllocMetric scores to compare")
     return out
@@ -1425,20 +1874,20 @@ def phase_mesh(dev):
     for name in ("mesh", "single"):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        fused_score.LAUNCHES = fused_score.MASKED_LAUNCHES = 0
         kw = ({"mesh": make_node_mesh([dev] * MESH_SHARDS)}
               if name == "mesh" else {"device": dev})
         t0 = time.perf_counter()
-        res = batch_sched.schedule_batch(nodes, jobs, rng_seed=MESH_SEED,
-                                         **kw)
+        (res, counts), calls = recorded_schedules(lambda: run_counted(
+            lambda: batch_sched.schedule_batch(nodes, jobs,
+                                               rng_seed=MESH_SEED, **kw)))
         wall = time.perf_counter() - t0
-        launches = fused_score.LAUNCHES
+        launches = counts["scored_rows_launches"]
         over, agg, used_nodes = fleet_check(nodes, jobs, res)
         row = {"mesh_shards": res.mesh_shards, "rounds": res.rounds,
                "placed": sum(len(sp.node_ids)
                              for sp in res.placements.values()),
                "unplaced": sum(sp.unplaced for sp in res.placements.values()),
-               "scored_rows_launches": launches,
+               **counts,
                "masked_launches": fused_score.MASKED_LAUNCHES,
                "nodes_over_capacity": over, "binpack_sum": agg,
                "nodes_used": used_nodes, "encode_s": res.timings["encode"],
@@ -1450,9 +1899,14 @@ def phase_mesh(dev):
         emit({"phase": "mesh", "path": name, **row})
         out[name] = row
         results[name] = res
-        row["launch_bounds"] = check_mesh_launches(res, launches, name)
+        row["launch_bounds"] = check_mesh_launches(res, counts, name)
         if over:
             raise AssertionError(f"{name}: {over} nodes over capacity")
+        if name == "single":
+            # The single card's batch again through both routes of the
+            # placement rounds (counted apart from the batch above).
+            out["rounds_replay"] = round_replay("mesh_single_1m", calls[0],
+                                                dev)
     same = same_batches(results["mesh"], results["single"],
                         exact_order=False)
     out.update({"nodes": MESH_NODES, "jobs": MESH_JOBS,
@@ -1578,7 +2032,8 @@ def columnar_world(dev, nodes, waves, smi, *, columnar, flips,
                    "applier": {k: (sorted(v) if isinstance(v, set) else v)
                                for k, v in stats.items()},
                    "counters": {k: c1[k] - c0[k] for k in c1},
-                   **counts, "card": smi}
+                   "rounds": st.rounds, "batch_commit_steps":
+                   st.commit_steps, **counts, "card": smi}
             emit(row)
             out["rows"].append(row)
             out["plans"].append([plan_rows(p) for p in h.plans[n_plans:]])
@@ -1704,6 +2159,8 @@ def columnar_restore(dev, h, jobs, smi) -> dict:
                 breaker=KernelCircuitBreaker()).schedule_batch(evals))
             rows[label] = {"wall_s": time.perf_counter() - t0,
                            "oracle_routed": stats.oracle_routed,
+                           "rounds": stats.rounds,
+                           "batch_commit_steps": stats.commit_steps,
                            **{k: getattr(stats, k) for k in (
                                "phase1_seconds", "encode_seconds",
                                "device_seconds", "metrics_seconds",
@@ -1714,11 +2171,13 @@ def columnar_restore(dev, h, jobs, smi) -> dict:
     if plans["original"] != plans["restored"] or not plans["original"]:
         errors.append("the batch over the restored store places otherwise")
     for label, row in rows.items():
+        # One round-kernel launch a round, its committing steps the
+        # batch's (before the round kernel: one scored_rows launch a
+        # step).
         if row["oracle_routed"] or (
                 torch_device(dev).type == "cuda"
-                and (row["scored_rows_launches"] <= 0
-                     or row["scored_rows_launches"]
-                     != row["committing_spec_steps"])):
+                and not one_card_work_ok(row, row["rounds"],
+                                         row["batch_commit_steps"])):
             errors.append(f"{label} batch: {row}")
     if errors:
         raise AssertionError(f"columnar restore: {errors}")
@@ -1737,7 +2196,7 @@ def phase_columnar(dev, nodes=None, n_jobs=100, count=1000, follow_jobs=10,
     and with the default.  Through ``TorchBatchScheduler`` and the
     store-backed ``PlanApplier`` on the card, over a store with the
     mirror and one without: the same plans, no guard mismatch, no node
-    over capacity, one ``scored_rows`` launch per committing step."""
+    over capacity, one round-kernel launch a round."""
     from nomad_tpu_torch import mock
     from nomad_tpu_torch.ops import batch_sched
     from nomad_tpu_torch.state import columnar
@@ -1757,7 +2216,7 @@ def phase_columnar(dev, nodes=None, n_jobs=100, count=1000, follow_jobs=10,
     flips = {1: nodes[0].id, 2: nodes[1].id}
     on_card = torch_device(dev).type == "cuda"
 
-    shapes = {"scored_rows": set(), "eviction_sets": set()}
+    shapes = new_shapes()
     wc = columnar_world(dev, nodes, waves, smi, columnar=True, flips=flips,
                         shapes=shapes)
     reads = columnar_reads(dev, wc["harness"], follow[1])
@@ -1796,12 +2255,16 @@ def phase_columnar(dev, nodes=None, n_jobs=100, count=1000, follow_jobs=10,
                     or c["USAGE_GUARD_MISMATCHES"]):
                 errors.append(f"{w['label']} {row['wave']}: oracle or "
                               f"guard mismatch {c}")
-            if on_card and (row["scored_rows_launches"] <= 0
-                            or row["scored_rows_launches"]
-                            != row["committing_spec_steps"]):
+            # One round-kernel launch a round, its committing steps the
+            # batch's (before the round kernel: one scored_rows launch a
+            # step).
+            if on_card and not one_card_work_ok(row, row["rounds"],
+                                                row["batch_commit_steps"]):
                 errors.append(f"{w['label']} {row['wave']}: launches "
-                              f"{row['scored_rows_launches']} for "
-                              f"{row['committing_spec_steps']} steps")
+                              f"{row['placement_rounds_launches']} for "
+                              f"{row['rounds']} rounds, "
+                              f"{row['committing_spec_steps']} steps for "
+                              f"{row['batch_commit_steps']}")
     for row in wc["rows"]:
         c, app = row["counters"], row["applier"]
         if (c["COLUMNAR_ENCODES"] != 1 or c["WALK_ENCODES"]
@@ -1819,13 +2282,16 @@ def phase_columnar(dev, nodes=None, n_jobs=100, count=1000, follow_jobs=10,
             errors.append(f"walk {row['wave']}: the mirror was read: {c}")
     if errors:
         raise AssertionError(f"phase columnar: {errors}")
-    # scored_rows against its plain version at every shape the waves gave
-    # it: 0 differing bits.
-    parity = []
+    # The round kernel against its plain version at every shape the waves
+    # gave it: 0 differing bits.
+    parity, replay = [], None
     if on_card:
-        parity, _ = score_parity_rows(
-            dev, [(u, n, 17, n_off)
-                  for u, n, n_off in sorted(shapes["scored_rows"])])
+        parity, _ = round_parity_rows(dev, sorted(shapes["placement_rounds"]))
+        # Config (b)'s wave over these nodes through the library entry,
+        # its placement rounds through both routes.
+        _, calls = recorded_schedules(lambda: batch_sched.schedule_batch(
+            nodes, wave0, rng_seed=COLUMNAR_SEED, device=dev))
+        replay = round_replay("columnar_config_b", calls[0], dev)
 
     def per_wave(w, key):
         return {row["wave"]: row[key] for row in w["rows"]}
@@ -1852,8 +2318,11 @@ def phase_columnar(dev, nodes=None, n_jobs=100, count=1000, follow_jobs=10,
                 "USAGE_GUARD_MISMATCHES", "REBUILDS")},
             "scored_rows_launches": sum(r["scored_rows_launches"]
                                         for r in wc["rows"]),
-            "kernel_shapes": sorted(shapes["scored_rows"]),
+            "placement_rounds_launches": sum(
+                r["placement_rounds_launches"] for r in wc["rows"]),
+            "kernel_shapes": sorted(shapes["placement_rounds"]),
             "shape_parity": parity,
+            "rounds_replay": replay,
             "restore": restore,
             "card": smi}
 
@@ -2002,6 +2471,7 @@ def eval_world(dev, nodes, batches, smi, counted):
                    "h2d_bytes": st.h2d_bytes,
                    "static_h2d_bytes": st.static_h2d_bytes,
                    "fetch_bytes": st.fetch_bytes,
+                   "batch_commit_steps": st.commit_steps,
                    **{k: getattr(st, k) for k in (
                        "phase1_seconds", "phase2_seconds", "encode_seconds",
                        "device_seconds", "metrics_seconds",
@@ -2101,8 +2571,11 @@ def phase_evals(dev, n_nodes=10_000, n_jobs=100, count=1000):
             raise AssertionError(f"{row['batch']}: oracle_routed "
                                  f"{st.oracle_routed}, device_ran "
                                  f"{st.device_ran}")
-        if (row["scored_rows_launches"] <= 0 or row["scored_rows_launches"]
-                != row["committing_spec_steps"]):
+        # One round-kernel launch a round, its committing steps the
+        # batch's (before the round kernel: one scored_rows launch a
+        # step).
+        if not one_card_work_ok(row, row["rounds"],
+                                row["batch_commit_steps"]):
             raise AssertionError(f"{row['batch']}: {row}")
     rec = card["plans"][3]
     stops = sum(len(v) for p in rec for v in p[1].values())
@@ -2171,7 +2644,7 @@ def phase_evals(dev, n_nodes=10_000, n_jobs=100, count=1000):
                           "placed_with_previous_allocation": with_prev,
                           "in_place_updates": inplace},
             "breaker_drill": drill_row,
-            "eval_path_launches": sum(r["scored_rows_launches"]
+            "eval_path_launches": sum(r["placement_rounds_launches"]
                                       for r in rows),
             "card": smi}
 
@@ -2294,6 +2767,7 @@ def applied_world(dev, nodes, batches, smi, label, *, resident=True,
             row = {"phase": "applied", "world": label, "batch": name,
                    "evals": st.num_evals, "asks": st.num_asks,
                    "rounds": st.rounds, "oracle_routed": st.oracle_routed,
+                   "batch_commit_steps": st.commit_steps,
                    "conflict_retries": st.conflict_retries,
                    "h2d_bytes": st.h2d_bytes,
                    "static_h2d_bytes": st.static_h2d_bytes,
@@ -2374,6 +2848,9 @@ def applied_world(dev, nodes, batches, smi, label, *, resident=True,
                                                       for x in sts),
                              "overlap_seconds": [x.pipeline_overlap_s
                                                  for x in sts],
+                             "rounds": sum(x.rounds for x in sts),
+                             "batch_commit_steps": sum(x.commit_steps
+                                                       for x in sts),
                              **counts}
             emit({"phase": "applied", "world": label, "stream":
                   out["stream"], "card": smi})
@@ -2636,14 +3113,14 @@ def phase_applied(dev, n_nodes=10_000, n_jobs=100, count=1000,
         raise AssertionError(f"mirror counters: {c}")
     if w1["checkpoint"]["mirror"]["device_twin"] != str(torch_device(dev)):
         raise AssertionError(f"mirror twin: {w1['checkpoint']['mirror']}")
-    # One scored_rows launch per committing spec step (on the card; the
-    # CPU computes the plain version).
+    # One round-kernel launch a round and the kernel's committing steps
+    # the batches' (on the card; the CPU computes the plain version).
+    # Before the round kernel: one scored_rows launch a committing step.
     on_card = torch_device(dev).type == "cuda"
-    for counts in [r for _, r in w1["rows"] if "scored_rows_launches" in r
-                   ] + [w1["stream"]]:
-        if on_card and (counts["scored_rows_launches"] <= 0
-                        or counts["scored_rows_launches"]
-                        != counts["committing_spec_steps"]):
+    for counts in [r for _, r in w1["rows"]
+                   if "placement_rounds_launches" in r] + [w1["stream"]]:
+        if on_card and not one_card_work_ok(counts, counts["rounds"],
+                                            counts["batch_commit_steps"]):
             raise AssertionError(f"launches: {counts}")
 
     # Over-commit drill: a partial commit, the retry placed the rest.
@@ -2727,8 +3204,8 @@ def phase_applied(dev, n_nodes=10_000, n_jobs=100, count=1000,
                    "guard1": w1["stream"]},
         "decode_routes": decode,
         "applied_path_launches": sum(
-            r.get("scored_rows_launches", 0) for _, r in w1["rows"])
-        + w1["stream"]["scored_rows_launches"],
+            r.get("placement_rounds_launches", 0) for _, r in w1["rows"])
+        + w1["stream"]["placement_rounds_launches"],
         "card": smi}
 
 
@@ -2981,13 +3458,12 @@ def preempt_world(dev, fleet, label, mesh=None, counted=False):
 
         counts = {}
         if counted:
-            fused_score.LAUNCHES = preempt.LAUNCHES = 0
-            kernels.COMMIT_STEPS = 0
+            zero_counts()
         st = run()
         if counted:
             counts = {"eviction_sets_launches": preempt.LAUNCHES,
-                      "scored_rows_launches": fused_score.LAUNCHES,
-                      "committing_spec_steps": kernels.COMMIT_STEPS}
+                      **loop_counts(), "rounds": st.rounds,
+                      "batch_commit_steps": st.commit_steps}
     evicted = [a for a in h.state.allocs(None)
                if a.desired_status == ps.ALLOC_DESIRED_STATUS_EVICT]
     follow_ups = sorted(
@@ -3202,8 +3678,12 @@ def phase_preempt(dev, n_nodes=10_000, n_hi=50, count=1000,
     if mr["preempt_agree"] != mr["preempt_checked"] or \
             mr["nodes_over_capacity"]:
         raise AssertionError(f"mixed fleet: {mr}")
+    # One eviction-set launch a preempting batch, and on the single card
+    # the round kernel once a round with the batch's committing steps
+    # (before it: scored_rows launches > 0).
     if on_card and (mr["eviction_sets_launches"] != 1
-                    or mr["scored_rows_launches"] <= 0
+                    or not one_card_work_ok(mr, mr["rounds"],
+                                            mr["batch_commit_steps"])
                     or m_mesh["row"]["eviction_sets_launches"] != 1):
         raise AssertionError(f"mixed fleet launches: {mr}, "
                              f"{m_mesh['row']}")
@@ -3272,6 +3752,7 @@ def phase_preempt(dev, n_nodes=10_000, n_hi=50, count=1000,
                                          "preempt_placed", "unplaced",
                                          "preempt_evicted",
                                          "eviction_sets_launches",
+                                         "placement_rounds_launches",
                                          "scored_rows_launches")
                      if k in mr}},
         "times": times, "kernel_row": table_row, "card": smi}
@@ -3337,6 +3818,27 @@ def sample_totals(srv) -> dict:
 def server_counter(srv, key: str) -> float:
     return srv.metrics.sink.latest()["CounterTotals"].get(f"nomad.{key}",
                                                           0.0)
+
+
+def server_rounds(srv) -> float:
+    """The placement rounds the server's device batches ran: the sum of
+    its ``worker.invoke_scheduler.rounds`` samples since it started."""
+    tot = srv.metrics.sink.latest()["SampleTotals"]
+    return tot.get("nomad.worker.invoke_scheduler.rounds", (0, 0.0))[1]
+
+
+def launches_ok(lc, need_launch=True) -> bool:
+    """A counted card run of single-card servers (:func:`kernel_counts`
+    with the servers' ``rounds`` and ``batch_commit_steps``): one
+    round-kernel launch a round run, the kernel's committing steps the
+    servers' ``batch.commit_steps`` and inside the bounds read from what
+    the batches placed, no ``scored_rows`` launch (before the round
+    kernel: one a committing step), and with ``need_launch`` at least
+    one launch."""
+    return (lc["placement_rounds"] == lc["rounds"]
+            and lc["committing_spec_steps"] == lc["batch_commit_steps"]
+            and lc["scored_rows"] == 0 and steps_in_bounds(lc)
+            and (lc["placement_rounds"] > 0 or not need_launch))
 
 
 def server_wave(srv, label, fn) -> dict:
@@ -3440,15 +3942,23 @@ def server_scenario(n_nodes, n_jobs, count, follow_jobs, follow_count,
             "drill": (fleet, filler, urgent, spare)}
 
 
+def new_shapes() -> dict:
+    """An empty record for :func:`kernel_shapes`."""
+    return {"scored_rows": set(), "eviction_sets": set(),
+            "placement_rounds": set()}
+
+
 @contextlib.contextmanager
 def kernel_shapes(shapes):
     """Record into ``shapes`` the shape of every call of the server path's
-    kernel wrappers: ``(u, n, n_offset)`` of ``scored_rows`` and ``(u, n,
-    a)`` of ``eviction_sets``.  Both are called through their modules, so
-    the recorder stands in for them until the block ends."""
+    kernel wrappers: ``(u, n, n_offset)`` of ``scored_rows``, ``(u, n,
+    a)`` of ``eviction_sets`` and ``(u, n)`` of the round kernel's
+    ``placement_round``.  They are called through their modules, so the
+    recorders stand in for them until the block ends."""
     from nomad_tpu_torch.ops import fused_score, preempt
 
     score, evict = fused_score.scored_rows, preempt.eviction_sets
+    round_ = fused_score.placement_round
 
     def score_rec(feas, *args, n_offset=0, **kwargs):
         shapes["scored_rows"].add((*feas.shape, n_offset))
@@ -3458,11 +3968,46 @@ def kernel_shapes(shapes):
         shapes["eviction_sets"].add((ask.shape[0], *prio.shape))
         return evict(free, used, denom, prio, sizes, ask, job_prio)
 
+    def round_rec(t, seed):
+        shapes["placement_rounds"].add(tuple(t["feas"].shape))
+        return round_(t, seed)
+
     fused_score.scored_rows, preempt.eviction_sets = score_rec, evict_rec
+    fused_score.placement_round = round_rec
     try:
         yield
     finally:
         fused_score.scored_rows, preempt.eviction_sets = score, evict
+        fused_score.placement_round = round_
+
+
+def round_parity_rows(dev, shapes):
+    """The round kernel against its plain version, the eager loop, on the
+    card at each ``(u, n)`` of ``shapes``, on seeded inputs
+    (``round_inputs.py``, networks and distinct_property on, counts cut
+    to 64 so the eager loop stays short): every output equal, 0
+    differing bits.  Returns the rows and the largest difference."""
+    import numpy as np
+
+    from nomad_tpu_torch.ops import kernels
+    from round_inputs import port_rounds_args, random_rounds
+
+    rows, worst = [], 0.0
+    seed = kernels.jitter_seed(SEED)
+    for u, n in shapes:
+        x = random_rounds(SEED + u + n, u, n, net=True, dp=True)
+        x["count"] = np.minimum(x["count"], 64).astype(np.int32)
+        args, extra = port_rounds_args(x, dev)
+        got = kernels.run_placement_rounds(*args, seed, slot_m=64, **extra)
+        want = kernels.placement_rounds(*args, seed, slot_m=64, **extra)
+        row = {"u": u, "n": n, "rounds": got.rounds,
+               "commit_steps": got.commit_steps, **round_diffs(got, want)}
+        rows.append(row)
+        worst = max(worst, row["max_abs_err"])
+        if not row["equal"]:
+            raise AssertionError(f"round kernel differs from the eager "
+                                 f"loop: {row}")
+    return rows, worst
 
 
 def server_run(out, dev, label, seed, body, counted=False, shapes=None,
@@ -3492,17 +4037,13 @@ def server_run(out, dev, label, seed, body, counted=False, shapes=None,
         with seeded_ids(seed):
             srv.start()
             if counted:
-                fused_score.LAUNCHES = kernels.COMMIT_STEPS = 0
-                fused_score.MASKED_LAUNCHES = preempt.LAUNCHES = 0
+                zero_counts()
             with (kernel_shapes(shapes) if shapes is not None
                   else contextlib.nullcontext()):
                 body(srv)
-        launches = {"scored_rows": fused_score.LAUNCHES,
-                    "masked_score_matrix": fused_score.MASKED_LAUNCHES,
-                    "eviction_sets": preempt.LAUNCHES,
-                    "committing_spec_steps": kernels.COMMIT_STEPS,
-                    "batch_commit_steps": server_counter(
-                        srv, "batch.commit_steps")}
+        launches = kernel_counts(
+            batch_commit_steps=server_counter(srv, "batch.commit_steps"),
+            rounds=server_rounds(srv))
         b = srv.eval_broker.stats()
         app = srv.plan_applier.stats
         out[label] = {
@@ -3558,7 +4099,7 @@ def server_world(dev, sc, smi, counted=False, guard_every=None) -> dict:
     the default cadence)."""
     out = {"device": str(dev), "card": smi, "waves": [],
            "guard_every": guard_every,
-           "kernel_shapes": {"scored_rows": set(), "eviction_sets": set()}}
+           "kernel_shapes": new_shapes()}
     shapes = out["kernel_shapes"] if counted else None
 
     def main(srv):
@@ -3602,9 +4143,9 @@ def check_server_world(w, sc, on_card) -> dict:
     blocked leftovers and their unblock, the replacements, the
     deregistration, the drill's eviction and hand-off; no node over
     capacity, the breaker closed with no trip and no oracle route, no
-    nack, no failed eval; and on the card one scored_rows launch per
-    committing spec step the batches report, one eviction_sets launch in
-    the drill."""
+    nack, no failed eval; and on the card one round-kernel launch a
+    round, its committing steps those the batches report, one
+    eviction_sets launch in the drill."""
     fleet, filler, urgent, spare = sc["drill"]
     main, drill = w["main"], w["drill"]
     live = lambda c, pred: [a for a in c["allocs"]  # noqa: E731
@@ -3674,9 +4215,7 @@ def check_server_world(w, sc, on_card) -> dict:
             errors.append(f"{label}: the columnar mirror: {c}, the "
                           f"applier's routes {app}")
         lc = r["launches"]
-        if on_card and (lc["scored_rows"] <= 0
-                        or lc["scored_rows"] != lc["batch_commit_steps"]
-                        or lc["scored_rows"] != lc["committing_spec_steps"]):
+        if on_card and not launches_ok(lc):
             errors.append(f"{label}: launches {lc}")
     # At every read, the static, usage and plan-fit guards all ran.
     c, app = main["columnar"], main["applier"]
@@ -3700,26 +4239,48 @@ def check_server_world(w, sc, on_card) -> dict:
     return got
 
 
+def path_shape_parity(dev, shapes, label) -> dict:
+    """The round kernel, and ``scored_rows`` where the path gave it
+    shapes, against its plain version at every shape a card path without
+    preemption gave it (``shapes`` of :func:`kernel_shapes`, sets or the
+    lists a child process sent): 0 differing bits.  Raises when the path
+    gave the round kernel no shape or ``eviction_sets`` one."""
+    rounds = sorted(tuple(x) for x in shapes["placement_rounds"])
+    if not rounds or shapes["eviction_sets"]:
+        raise AssertionError(f"{label} kernel shapes: {shapes}")
+    rrows, rworst = round_parity_rows(dev, rounds)
+    srows, sworst = score_parity_rows(
+        dev, [(u, n, 17, n_off) for u, n, n_off in
+              sorted(tuple(x) for x in shapes["scored_rows"])])
+    return {"placement_rounds": rrows, "scored_rows": srows,
+            "max_abs_err": max(rworst, sworst)}
+
+
 def server_shape_parity(dev, shapes, on_card) -> dict:
     """Each kernel against its plain version at every shape the card's
-    server run gave it: 0 differing bits."""
+    server run gave it: 0 differing bits.  The single card's path gives
+    the round kernel and ``eviction_sets`` their shapes (``scored_rows``
+    runs on a mesh, or inside the round kernel)."""
     from eviction_inputs import random_inputs
 
     if not on_card:
         return {}
     score = sorted(shapes["scored_rows"])
     evict = sorted(shapes["eviction_sets"])
-    if not score or not evict:
+    rounds = sorted(shapes["placement_rounds"])
+    if not rounds or not evict:
         raise AssertionError(f"the server path gave a kernel no shape: "
                              f"{shapes}")
     rows, worst = score_parity_rows(
         dev, [(u, n, 17, n_off) for u, n, n_off in score])
+    rrows, rworst = round_parity_rows(dev, rounds)
     erows, eworst = evict_parity_rows(
         dev, [(f"server u={u} n={n} a={a}",
                random_inputs(n, u, a, seed=PREEMPT_SEED + n + a))
               for u, n, a in evict])
-    return {"scored_rows": rows, "eviction_sets": erows,
-            "max_abs_err": max(worst, eworst)}
+    return {"scored_rows": rows, "placement_rounds": rrows,
+            "eviction_sets": erows, "max_abs_err": max(worst, rworst,
+                                                       eworst)}
 
 
 def phase_server(dev, n_nodes=10_000, n_jobs=100, count=1000,
@@ -4071,9 +4632,7 @@ def check_trace_world(w, sc, label, on_card) -> dict:
         errors.append(f"{label}: the subscriber was shed or lagging: "
                       f"{st['shed']} {st['stats']}")
     lc = w[label]["launches"]
-    if on_card and (lc["scored_rows"] <= 0
-                    or lc["scored_rows"] != lc["batch_commit_steps"]
-                    or lc["scored_rows"] != lc["committing_spec_steps"]):
+    if on_card and not launches_ok(lc):
         errors.append(f"{label}: launches {lc}")
     r = w[label]
     if r["over_capacity"] or r["nacks"] or r["failed"] or r[
@@ -4406,9 +4965,10 @@ def phase_plan(dev, n_nodes=10_000, n_jobs=100, count=1000, n_new=5,
         raise AssertionError(f"the card's dry-run {differ} differ from the "
                              "CPU's")
     counts = card["counts"]
-    if on_card and (counts["scored_rows_launches"] <= 0
-                    or counts["scored_rows_launches"]
-                    != counts["committing_spec_steps"]):
+    # One round-kernel launch a round, its committing steps the batch's
+    # (before the round kernel: one scored_rows launch a step).
+    if on_card and not one_card_work_ok(counts, card["stats"].rounds,
+                                        card["stats"].commit_steps):
         raise AssertionError(f"launches {counts}")
     # Each job's diff against the stored version, annotated with its
     # plan's desired updates.
@@ -4471,7 +5031,13 @@ def phase_plan(dev, n_nodes=10_000, n_jobs=100, count=1000, n_new=5,
             "rounds": st.rounds, "split": batch_split(st),
             "cpu_split": batch_split(cpu["stats"]),
             "scored_rows_launches": counts.get("scored_rows_launches", 0),
+            "placement_rounds_launches": counts.get(
+                "placement_rounds_launches", 0),
             "committing_spec_steps": counts.get("committing_spec_steps", 0),
+            "batch_commit_steps": st.commit_steps,
+            "rounds_run": counts.get("rounds_run", 0),
+            "steps_bounds": [counts.get("steps_lo", 0),
+                             counts.get("steps_hi", 0)],
             "job_plan": {k: srv_card[k] for k in (
                 "annotations", "failed_tg_allocs", "job_modify_index",
                 "created_evals")},
@@ -4580,13 +5146,14 @@ def phase_fingerprint(dev, n_nodes=10_000, gpu_every=4, n_jobs=10,
         jobs.append(j)
     with tempfile.TemporaryDirectory() as tmp:
         card = fingerprint_world(dev, nodes, jobs, trace_dir=tmp)
-        events = trace_kernel_events(card["session"]["dir"], "scored_rows")
+        events = trace_kernel_events(card["session"]["dir"],
+                                     "placement_round")
     cpu = fingerprint_world("cpu", nodes, jobs)
     h = card["h"]
     placed = [a for a in h.state.allocs(None) if not a.terminal_status()]
     off = [a.id for a in placed if a.node_id not in gpu_nodes]
     counts = card["counts"]
-    launches = counts["scored_rows_launches"]
+    launches = counts["placement_rounds_launches"]
     errors = []
     if len(placed) != n_jobs * count or off:
         errors.append(f"{len(placed)} placed, {len(off)} off the "
@@ -4601,9 +5168,12 @@ def phase_fingerprint(dev, n_nodes=10_000, gpu_every=4, n_jobs=10,
         errors.append("a second start() during the session was taken")
     if card["stats"].oracle_routed:
         errors.append(f"oracle_routed {card['stats'].oracle_routed}")
-    if on_card and (launches <= 0 or len(events) != launches
-                    or launches != counts["committing_spec_steps"]):
-        errors.append(f"{len(events)} scored_rows events in the trace, "
+    # The round kernel in the tracer's trace once a launch, once a round,
+    # its committing steps the batch's (before the round kernel: one
+    # scored_rows event and launch a committing step).
+    if on_card and (len(events) != launches or not one_card_work_ok(
+            counts, card["stats"].rounds, card["stats"].commit_steps)):
+        errors.append(f"{len(events)} round kernel events in the trace, "
                       f"counts {counts}")
     if errors:
         raise AssertionError(f"fingerprint: {errors}")
@@ -4612,9 +5182,11 @@ def phase_fingerprint(dev, n_nodes=10_000, gpu_every=4, n_jobs=10,
             "off_fingerprinted_nodes": 0, "nodes_over_capacity": 0,
             "card_equals_cpu": True, "second_start_refused": True,
             "session_s": card["session"]["duration_s"],
-            "trace_scored_rows_events": len(events),
-            "scored_rows_launches": launches,
+            "trace_round_kernel_events": len(events),
+            "placement_rounds_launches": launches,
+            "scored_rows_launches": counts["scored_rows_launches"],
             "committing_spec_steps": counts["committing_spec_steps"],
+            "steps_bounds": [counts["steps_lo"], counts["steps_hi"]],
             "split": batch_split(card["stats"]),
             "cpu_split": batch_split(cpu["stats"]), "card": smi}
 
@@ -4756,27 +5328,20 @@ def durable_health(srv, brk) -> dict:
             "over_capacity": store_over_capacity(srv)}
 
 
-def zero_launches(srv) -> float:
+def zero_launches(srv) -> tuple:
     """Set the kernels' launch counts to 0; returns the server's count of
-    committing steps so far, for :func:`durable_launches`."""
-    from nomad_tpu_torch.ops import fused_score, kernels, preempt
-
-    fused_score.LAUNCHES = kernels.COMMIT_STEPS = 0
-    fused_score.MASKED_LAUNCHES = preempt.LAUNCHES = 0
-    return server_counter(srv, "batch.commit_steps")
+    committing steps and of rounds so far, for :func:`durable_launches`."""
+    zero_counts()
+    return (server_counter(srv, "batch.commit_steps"), server_rounds(srv))
 
 
-def durable_launches(srv, steps0) -> dict:
-    """The launch counts since :func:`zero_launches` returned
-    ``steps0``, and the committing steps the batches reported since."""
-    from nomad_tpu_torch.ops import fused_score, kernels, preempt
-
-    return {"scored_rows": fused_score.LAUNCHES,
-            "masked_score_matrix": fused_score.MASKED_LAUNCHES,
-            "eviction_sets": preempt.LAUNCHES,
-            "committing_spec_steps": kernels.COMMIT_STEPS,
-            "batch_commit_steps": server_counter(
-                srv, "batch.commit_steps") - steps0}
+def durable_launches(srv, base) -> dict:
+    """The launch counts since :func:`zero_launches` returned ``base``,
+    and the committing steps and rounds the batches reported since."""
+    steps0, rounds0 = base
+    return kernel_counts(
+        batch_commit_steps=server_counter(srv, "batch.commit_steps")
+        - steps0, rounds=server_rounds(srv) - rounds0)
 
 
 def durable_before(srv, sc, ids, out) -> None:
@@ -5030,12 +5595,12 @@ def same_commits(a, b) -> dict:
 
 
 def check_launches(label, counts, need_launch=True) -> list:
-    """One ``scored_rows`` launch per committing step in one part of a
-    card world's run (at least one when ``need_launch``), and no other
-    kernel's launch."""
-    if ((need_launch and counts["scored_rows"] <= 0)
-            or counts["scored_rows"] != counts["committing_spec_steps"]
-            or counts["scored_rows"] != counts["batch_commit_steps"]
+    """One round-kernel launch a round run in one part of a card world's
+    run, the kernel's committing steps the servers' (at least one launch
+    when ``need_launch``; :func:`launches_ok`), and no other kernel's
+    launch.  Before the round kernel: one ``scored_rows`` launch a
+    committing step."""
+    if (not launches_ok(counts, need_launch)
             or counts["masked_score_matrix"] or counts["eviction_sets"]):
         return [f"{label}: launches {counts}"]
     return []
@@ -6384,24 +6949,20 @@ def loadgen_baseline(dev, sc, bdir, smi) -> dict:
 
     follower = threading.Thread(target=follow, daemon=True,
                                 name="loadgen-bundle-follower")
-    shapes = {"scored_rows": set(), "eviction_sets": set()}
+    shapes = new_shapes()
     lockcheck.arm()
     try:
         lockcheck.reset()
         follower.start()
-        fused_score.LAUNCHES = kernels.COMMIT_STEPS = 0
-        fused_score.MASKED_LAUNCHES = preempt.LAUNCHES = 0
+        zero_counts()
         t0 = time.perf_counter()
         with kernel_shapes(shapes):
             report = h.run()
         run_s = time.perf_counter() - t0
         srv = h.server
-        launches = {"scored_rows": fused_score.LAUNCHES,
-                    "masked_score_matrix": fused_score.MASKED_LAUNCHES,
-                    "eviction_sets": preempt.LAUNCHES,
-                    "committing_spec_steps": kernels.COMMIT_STEPS,
-                    "batch_commit_steps": server_counter(
-                        srv, "batch.commit_steps")}
+        launches = kernel_counts(
+            batch_commit_steps=server_counter(srv, "batch.commit_steps"),
+            rounds=server_rounds(srv))
         rec = blackbox.recorder()
         wait_until(lambda: rec.captured, 10.0)
         bundles = read_bundles(rec, "slo.plan_apply_p99")
@@ -6523,14 +7084,10 @@ def loadgen_drill(dev, bdir, smi) -> dict:
         clock = [0.0]
         brk = KernelCircuitBreaker(threshold=0.9, window=8, min_checks=1,
                                    cooldown=5.0, clock=lambda: clock[0])
-        fused_score.LAUNCHES = kernels.COMMIT_STEPS = 0
-        fused_score.MASKED_LAUNCHES = preempt.LAUNCHES = 0
+        zero_counts()
         ok = breaker_drill(seed=SEED, device=dev, log=log.append,
                            breaker=brk, clock=clock)
-        launches = {"scored_rows": fused_score.LAUNCHES,
-                    "masked_score_matrix": fused_score.MASKED_LAUNCHES,
-                    "eviction_sets": preempt.LAUNCHES,
-                    "committing_spec_steps": kernels.COMMIT_STEPS}
+        launches = kernel_counts()
         wait_until(lambda: rec.captured, 10.0)
         suppressed = rec.suppressed
         blackbox.note_trigger("breaker.open", {"Trips": brk.trips})
@@ -6568,9 +7125,14 @@ def loadgen_drill(dev, bdir, smi) -> dict:
             errors.append(f"the drill's bundle lacks {missing}")
     if brk.state != "closed" or brk.trips != 1:
         errors.append(f"breaker {brk.state} after {brk.trips} trips")
-    if on_card and (launches["scored_rows"] <= 0
+    # The round kernel once a round the drill's batches ran, no other
+    # kernel (before the round kernel: one scored_rows launch a step).
+    if on_card and (launches["placement_rounds"] <= 0
+                    or launches["placement_rounds"]
+                    != launches["rounds_run"]
+                    or launches["committing_spec_steps"] <= 0
+                    or not steps_in_bounds(launches)
                     or launches["scored_rows"]
-                    != launches["committing_spec_steps"]
                     or launches["masked_score_matrix"]
                     or launches["eviction_sets"]):
         errors.append(f"drill launches {launches}")
@@ -6608,12 +7170,7 @@ def phase_loadgen(dev, scenario=None):
         shutil.rmtree(root, ignore_errors=True)
     shape_parity = {}
     if on_card:
-        score = sorted(base["shapes"]["scored_rows"])
-        if not score or base["shapes"]["eviction_sets"]:
-            raise AssertionError(f"loadgen kernel shapes: {base['shapes']}")
-        rows, worst = score_parity_rows(
-            dev, [(u, n, 17, n_off) for u, n, n_off in score])
-        shape_parity = {"scored_rows": rows, "max_abs_err": worst}
+        shape_parity = path_shape_parity(dev, base["shapes"], "loadgen")
     return {"card": smi, "scenario": sc.name,
             "baseline": base["line"],
             "kernel_shapes": {k: sorted(v)
@@ -6848,7 +7405,7 @@ def agent_world(dev, mode, sizes, root) -> dict:
                 events_ring=1 << 16)
     http = mode == "http"
     out = {"device": str(dev), "mode": mode, "card": smi_name_power(),
-           "kernel_shapes": {"scored_rows": set(), "eviction_sets": set()}}
+           "kernel_shapes": new_shapes()}
     agent = None
     if http:
         import tempfile
@@ -6922,8 +7479,7 @@ def agent_world(dev, mode, sizes, root) -> dict:
             if not srv.set_workers_paused(True,
                                           timeout=SERVER_SETTLE_TIMEOUT):
                 raise AssertionError(f"{mode}: workers did not park")
-            fused_score.LAUNCHES = kernels.COMMIT_STEPS = 0
-            fused_score.MASKED_LAUNCHES = preempt.LAUNCHES = 0
+            base = zero_launches(srv)
             shapes = out["kernel_shapes"]
             eval_ids, request_ms = [], []
             t_submit = time.perf_counter()
@@ -6960,10 +7516,7 @@ def agent_world(dev, mode, sizes, root) -> dict:
                     server_settle(srv)
                 else:
                     t_done = server_settle(srv)
-            launches = {"scored_rows": fused_score.LAUNCHES,
-                        "masked_score_matrix": fused_score.MASKED_LAUNCHES,
-                        "eviction_sets": preempt.LAUNCHES,
-                        "committing_spec_steps": kernels.COMMIT_STEPS}
+            launches = durable_launches(srv, base)
             wall = t_done - t_release
             out.update({
                 "launches": launches,
@@ -7149,10 +7702,11 @@ def check_agent_world(w, label, sizes, on_card) -> list:
         errors.append(f"{label}: submitted evals not complete: "
                       f"{w['submitted_not_complete'][:5]}")
     la = w["launches"]
-    if on_card and (la["scored_rows"] == 0
-                    or la["scored_rows"] != la["committing_spec_steps"]):
-        errors.append(f"{label}: scored_rows launches {la}")
-    if not on_card and la["scored_rows"]:
+    # One round-kernel launch a round, the kernel's committing steps the
+    # server's (before the round kernel: one scored_rows launch a step).
+    if on_card and not launches_ok(la):
+        errors.append(f"{label}: round kernel launches {la}")
+    if not on_card and (la["scored_rows"] or la["placement_rounds"]):
         errors.append(f"{label}: kernel launched off the card {la}")
     if la["masked_score_matrix"] or la["eviction_sets"]:
         errors.append(f"{label}: unexpected launches {la}")
@@ -7234,13 +7788,11 @@ def phase_agent(dev, sizes=None):
         errors.append(f"A vs C scores differ by {score_err['C']} > 4e-6")
     shape_parity = {}
     if on_card:
-        score = [tuple(s) for s in a["kernel_shapes"]["scored_rows"]]
-        if not score or a["kernel_shapes"]["eviction_sets"]:
-            errors.append(f"agent kernel shapes: {a['kernel_shapes']}")
-        else:
-            rows, worst = score_parity_rows(
-                dev, [(u, n, 17, n_off) for u, n, n_off in score])
-            shape_parity = {"scored_rows": rows, "max_abs_err": worst}
+        try:
+            shape_parity = path_shape_parity(dev, a["kernel_shapes"],
+                                             "agent")
+        except AssertionError as exc:
+            errors.append(str(exc))
     if errors:
         raise AssertionError(f"phase agent: {errors}")
 
@@ -7759,7 +8311,7 @@ def client_world(dev, sizes, root) -> dict:
     names = [client_name(i) for i in range(n_clients)]
     brk = KernelCircuitBreaker()
     out = {"device": str(dev), "card": smi_name_power(),
-           "kernel_shapes": {"scored_rows": set(), "eviction_sets": set()},
+           "kernel_shapes": new_shapes(),
            "reduced": {"clients": f"{n_clients} real clients of "
                        f"{sizes['n_nodes']} nodes (the rest mock.node() "
                        f"registered in process): a client per node would "
@@ -7846,8 +8398,7 @@ def client_world(dev, sizes, root) -> dict:
             if not srv.set_workers_paused(True,
                                           timeout=SERVER_SETTLE_TIMEOUT):
                 raise AssertionError("workers did not park")
-            fused_score.LAUNCHES = kernels.COMMIT_STEPS = 0
-            fused_score.MASKED_LAUNCHES = preempt.LAUNCHES = 0
+            base = zero_launches(srv)
             shapes = out["kernel_shapes"]
             with kernel_shapes(shapes):
                 delivery.hold()
@@ -7893,11 +8444,7 @@ def client_world(dev, sizes, root) -> dict:
                 t_settle = time.perf_counter()
                 server_settle(srv)
                 steps["settle_s"] = time.perf_counter() - t_settle
-            out["launches"] = {
-                "scored_rows": fused_score.LAUNCHES,
-                "masked_score_matrix": fused_score.MASKED_LAUNCHES,
-                "eviction_sets": preempt.LAUNCHES,
-                "committing_spec_steps": kernels.COMMIT_STEPS}
+            out["launches"] = durable_launches(srv, base)
             out["update_allocs"] = dict(calls)
             out.update(client_state(srv))
             by_node = collections.defaultdict(list)
@@ -8035,7 +8582,7 @@ def client_gpu_job(srv, sizes, local) -> dict:
     job = client_job("gpu-pinned", "batch", sizes["gpu_count"],
                      {"run_for": 1.0}, dict(attempts=0, mode="fail"))
     job.constraints = [ps.Constraint("${attr.gpu.type}", card, "=")]
-    fused_score.LAUNCHES = kernels.COMMIT_STEPS = 0
+    zero_counts()
     srv.job_register(job)
     ok = wait_until(lambda: len(srv.state.allocs_by_job(
         None, job.id, True)) == sizes["gpu_count"] and all(
@@ -8051,8 +8598,7 @@ def client_gpu_job(srv, sizes, local) -> dict:
                                     for a in allocs),
             "nodes": sorted({srv.state.node_by_id(None, a.node_id).name
                              for a in allocs}),
-            "launches": {"scored_rows": fused_score.LAUNCHES,
-                         "committing_spec_steps": kernels.COMMIT_STEPS}}
+            "launches": kernel_counts()}
 
 
 def client_vault_job(srv, fv, client) -> dict:
@@ -8215,10 +8761,11 @@ def check_client_world(w, label, sizes, on_card) -> list:
             errors.append(f"{label}: {key} networks {nets}, want {ask}")
             break
     la = w["launches"]
-    if on_card and (la["scored_rows"] == 0
-                    or la["scored_rows"] != la["committing_spec_steps"]):
-        errors.append(f"{label}: scored_rows launches {la}")
-    if not on_card and la["scored_rows"]:
+    # One round-kernel launch a round, the kernel's committing steps the
+    # server's (before the round kernel: one scored_rows launch a step).
+    if on_card and not launches_ok(la):
+        errors.append(f"{label}: round kernel launches {la}")
+    if not on_card and (la["scored_rows"] or la["placement_rounds"]):
         errors.append(f"{label}: kernel launched off the card {la}")
     if la["masked_score_matrix"] or la["eviction_sets"]:
         errors.append(f"{label}: unexpected launches {la}")
@@ -8304,20 +8851,21 @@ def phase_client(dev, sizes=None):
                           f"{set(a['gpu_type'].values())}, on "
                           f"{a['remote_gpu_attrs']} remote ones")
         gpu = a["gpu_job"]
+        lg = gpu["launches"]
+        # The round kernel once a round the job's batch ran (before it:
+        # one scored_rows launch a committing step).
         if not (gpu["completed"] and gpu["on_fingerprinted"]
                 and gpu["allocs"] == sizes["gpu_count"]
-                and gpu["launches"]["scored_rows"]
-                == gpu["launches"]["committing_spec_steps"] > 0):
+                and lg["placement_rounds"] == lg["rounds_run"] > 0
+                and lg["committing_spec_steps"] > 0
+                and steps_in_bounds(lg)
+                and lg["scored_rows"] == 0):
             errors.append(f"A: the GPU-pinned job {gpu}")
-        score = [tuple(s) for s in a["kernel_shapes"]["scored_rows"]]
-        if not score or a["kernel_shapes"]["eviction_sets"]:
-            errors.append(f"client kernel shapes: {a['kernel_shapes']}")
-        else:
-            rows, worst = score_parity_rows(
-                dev, [(u, n, 17, n_off) for u, n, n_off in score])
-            shape_parity = {"scored_rows": rows, "max_abs_err": worst}
-            if worst > 4e-6:
-                errors.append(f"scored_rows at A's shapes: {worst}")
+        try:
+            shape_parity = path_shape_parity(dev, a["kernel_shapes"],
+                                             "client")
+        except AssertionError as exc:
+            errors.append(str(exc))
     if errors:
         errors.append("release -> acked s: A {} C {}".format(
             a["release_to_acked_s"], c["release_to_acked_s"]))
@@ -8521,7 +9069,7 @@ def federation_world(dev, sizes, root, leg3) -> dict:
         jobs.append(j)
     brks = {r: KernelCircuitBreaker() for r in FEDERATION_REGIONS}
     out = {"device": str(dev), "card": smi_name_power(),
-           "kernel_shapes": {"scored_rows": set(), "eviction_sets": set()},
+           "kernel_shapes": new_shapes(),
            "reduced": {"nodes": f"{sizes['n_nodes']} nodes a region "
                        "(cluster leg 1's fleet shape; two regions on one "
                        "host)"}}
@@ -8551,8 +9099,8 @@ def federation_world(dev, sizes, root, leg3) -> dict:
                     raise AssertionError("federation: workers did not park")
             steps0 = sum(server_counter(x, "batch.commit_steps")
                          for x in servers.values())
-            fused_score.LAUNCHES = kernels.COMMIT_STEPS = 0
-            fused_score.MASKED_LAUNCHES = preempt.LAUNCHES = 0
+            rounds0 = sum(server_rounds(x) for x in servers.values())
+            zero_counts()
             submit = {"local": [], "forwarded": []}
             with kernel_shapes(out["kernel_shapes"]):
                 for j in jobs:
@@ -8569,14 +9117,12 @@ def federation_world(dev, sizes, root, leg3) -> dict:
                     acked = int(server_counter(srv, "broker.ack") - acks0)
                     waves[r] = {"wall_s": wall, "evals_acked": acked,
                                 "evals_per_s": acked / wall}
-            out["launches"] = {
-                "scored_rows": fused_score.LAUNCHES,
-                "masked_score_matrix": fused_score.MASKED_LAUNCHES,
-                "eviction_sets": preempt.LAUNCHES,
-                "committing_spec_steps": kernels.COMMIT_STEPS,
-                "batch_commit_steps": sum(
+            out["launches"] = kernel_counts(
+                batch_commit_steps=sum(
                     server_counter(x, "batch.commit_steps")
-                    for x in servers.values()) - steps0}
+                    for x in servers.values()) - steps0,
+                rounds=sum(server_rounds(x) for x in servers.values())
+                - rounds0)
         out["waves"] = waves
         out["submit_ms"] = {k: {"n": len(v), "mean": statistics.fmean(v),
                                 "max": max(v)} for k, v in submit.items()}
@@ -8706,9 +9252,8 @@ def federation_world(dev, sizes, root, leg3) -> dict:
         harness = MultiRegionHarness(
             get_scenario("multi_region"), device=dev,
             server_options={"rng_seed": SERVER_SEED, "breaker": brk})
-        shapes = {"scored_rows": set(), "eviction_sets": set()}
-        fused_score.LAUNCHES = kernels.COMMIT_STEPS = 0
-        fused_score.MASKED_LAUNCHES = preempt.LAUNCHES = 0
+        shapes = new_shapes()
+        zero_counts()
         t0 = time.perf_counter()
         with kernel_shapes(shapes):
             rep = harness.run()
@@ -8724,14 +9269,11 @@ def federation_world(dev, sizes, root, leg3) -> dict:
             "auditor": {k: rep["auditor"][k] for k in (
                 "violation_count", "violations", "checks", "acked_checked",
                 "lost_acked")},
-            "launches": {
-                "scored_rows": fused_score.LAUNCHES,
-                "masked_score_matrix": fused_score.MASKED_LAUNCHES,
-                "eviction_sets": preempt.LAUNCHES,
-                "committing_spec_steps": kernels.COMMIT_STEPS,
-                "batch_commit_steps": sum(
+            "launches": kernel_counts(
+                batch_commit_steps=sum(
                     server_counter(x, "batch.commit_steps")
-                    for x in regions)},
+                    for x in regions),
+                rounds=sum(server_rounds(x) for x in regions)),
             "breaker": {"state": brk.state, "trips": brk.trips,
                         "oracle_routed": sum(
                             server_counter(x, "breaker.oracle_routed")
@@ -8897,18 +9439,13 @@ def phase_federation(dev, sizes=None):
         errors += check_launches("leg 3", leg3["launches"])
         for leg, shapes in (("leg 1", a["kernel_shapes"]),
                             ("leg 3", leg3["kernel_shapes"])):
-            score = [tuple(s) for s in shapes["scored_rows"]]
-            if not score or shapes["eviction_sets"]:
-                errors.append(f"federation {leg} kernel shapes: {shapes}")
-                continue
-            rows, worst = score_parity_rows(
-                dev, [(u, n, 17, n_off) for u, n, n_off in score])
-            shape_parity[leg] = {"scored_rows": rows, "max_abs_err": worst}
-            # scored_row raises on a mask or bit difference (0 differing
-            # bits against the plain version); the card against the CPU's
-            # plain version within the gated bound.
-            if worst > 4e-6:
-                errors.append(f"scored_rows at A's {leg} shapes: {worst}")
+            # 0 differing bits against the plain version (raises
+            # otherwise).
+            try:
+                shape_parity[leg] = path_shape_parity(
+                    dev, shapes, f"federation {leg}")
+            except AssertionError as exc:
+                errors.append(str(exc))
     if errors:
         raise AssertionError(f"phase federation: {errors}")
 
@@ -8976,8 +9513,7 @@ def phase_drills(dev):
 
     batch_sched.TorchBatchScheduler.schedule_batch = batch_spy
     sharded.sharded_candidate_scores = cand_spy
-    fused_score.LAUNCHES = fused_score.MASKED_LAUNCHES = 0
-    preempt.LAUNCHES = 0
+    zero_counts()
     try:
         results = {}
         for name in drills.DRILLS:
@@ -8991,17 +9527,28 @@ def phase_drills(dev):
     finally:
         batch_sched.TorchBatchScheduler.schedule_batch = real_batch
         sharded.sharded_candidate_scores = real_cand
-    launches = {"scored_rows": fused_score.LAUNCHES,
-                "masked_score_matrix": fused_score.MASKED_LAUNCHES,
-                "eviction_sets": preempt.LAUNCHES}
-    steps = sum(n * max(1, shards) for n, shards, _ in batches)
+    launches = kernel_counts()
+    steps = sum(n for n, _, _ in batches)
+    mesh_steps = sum(n * shards for n, shards, _ in batches if shards)
     failed = [name for name, ok in results.items() if not ok]
     if failed or len(results) != 13:
         raise AssertionError(f"drills failed: {failed}; "
                              f"{[ln for ln in lines if 'FAIL' in ln]}")
-    if launches["scored_rows"] != steps or steps <= 0:
-        raise AssertionError(f"scored_rows launches {launches} against "
-                             f"{steps} committing steps")
+    # The single card's batches run the round kernel once a round; the
+    # mesh's launch scored_rows once per committing step and shard (before
+    # the round kernel: scored_rows once a step on one card too); the
+    # loops' committing steps are the batches', and the single card's lie
+    # inside the bounds read from what its batches placed.
+    if (launches["scored_rows"] != mesh_steps or mesh_steps <= 0
+            or launches["placement_rounds"] != launches["rounds_run"]
+            or launches["placement_rounds"] <= 0
+            or launches["committing_spec_steps"] != steps
+            or not launches["steps_lo"] <= sum(
+                n for n, shards, _ in batches if not shards)
+            <= launches["steps_hi"]):
+        raise AssertionError(f"launches {launches} against {steps} "
+                             f"committing steps, {mesh_steps} on the "
+                             f"mesh's shards")
     # sharded_candidate_scores launches the masked kernel once a shard
     # (the mesh drill's four).
     if launches["masked_score_matrix"] != candidate_calls[0] * 4:
@@ -9012,7 +9559,8 @@ def phase_drills(dev):
             "device_batches": len(batches),
             "device_batches_on_the_mesh": sum(
                 1 for _, shards, _ in batches if shards),
-            "committing_steps_x_shards": steps,
+            "committing_steps": steps,
+            "mesh_committing_steps_x_shards": mesh_steps,
             "candidate_calls": candidate_calls[0],
             "launches": launches, "card": smi}
 
@@ -9450,9 +9998,15 @@ def profile_batch(dev, nodes, jobs, mesh=None):
         run()
         plain.append(res["r"].timings)
     warm_device_s = statistics.median(t["device"] for t in plain)
-    fused_score.LAUNCHES = 0
+    zero_counts()
     prof = profiled(run)
-    launches = fused_score.LAUNCHES
+    counts = loop_counts()
+    # The loop's kernel: scored_rows on a mesh (once a committing step and
+    # shard), the round kernel on one card (once a round).
+    kernel = "scored_rows_kernel" if mesh is not None else \
+        "placement_round_kernel"
+    launches = counts["scored_rows_launches" if mesh is not None
+                      else "placement_rounds_launches"]
     evs = cuda_kernel_events(prof)
     r = res["r"]
     row = {"batch": "config_b_0", "mesh_shards": r.mesh_shards,
@@ -9461,7 +10015,7 @@ def profile_batch(dev, nodes, jobs, mesh=None):
            "untraced_encode_s": [t["encode"] for t in plain],
            "untraced_decode_s": [t["decode"] for t in plain],
            "traced_device_s_cuda_events": r.timings["device"],
-           "kernel_launches": launches}
+           "kernel_launches": launches, **counts}
     if not evs:
         row["device_busy_s"] = "not measured (no device events in trace)"
         return row
@@ -9470,21 +10024,19 @@ def profile_batch(dev, nodes, jobs, mesh=None):
         t, c = by_name.get(e.name, (0.0, 0))
         by_name[e.name] = (t + e.time_range.elapsed_us(), c + 1)
     busy = sum(t for t, _ in by_name.values()) / 1e6
-    traced = sum(c for k, (_, c) in by_name.items()
-                 if "scored_rows_kernel" in k)
+    traced = sum(c for k, (_, c) in by_name.items() if kernel in k)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
     row.update({
         "device_ops": len(evs), "device_busy_s": busy,
         "device_idle_share_traced": 1.0 - busy / r.timings["device"],
         "device_idle_share_untraced": 1.0 - busy / warm_device_s,
-        # A committing spec step launches the score kernel once per shard.
-        "device_ops_per_spec_step": len(evs) * max(1, r.mesh_shards)
-        / max(1, launches),
-        "score_kernel_in_trace": traced,
+        "device_ops_per_spec_step": len(evs)
+        / max(1, counts["committing_spec_steps"]),
+        "loop_kernel": kernel, "loop_kernel_in_trace": traced,
         "top_device_ops": [{"name": k[:80], "us": t, "count": c}
                            for k, (t, c) in top]})
     if traced != launches:
-        raise AssertionError(f"the trace shows {traced} score kernel runs, "
+        raise AssertionError(f"the trace shows {traced} {kernel} runs, "
                              f"the wrapper counted {launches}")
     return row
 
@@ -9500,6 +10052,31 @@ def phase_profile(dev):
     return {"single": profile_batch(dev, nodes, jobs),
             "mesh4": profile_batch(dev, nodes, jobs,
                                    make_node_mesh([dev] * MESH_SHARDS))}
+
+
+def rounds_table_row(rounds, launches) -> dict:
+    """The ``kernels`` line's row of the round kernel: its launches on the
+    main path (config (b)'s batches), its largest difference from the
+    eager loop over phase rounds' batches (0: bit for bit), and at config
+    (b) batch 0 its device time per launch (the profiler's median),
+    the eager loop's time for the same rounds (host clock, its inputs
+    made beforehand) per launch, and the bound
+    per launch (the committing steps' bytes over the HBM rate)."""
+    b0 = rounds["batches"][0]
+    ks = b0.get("kernel_us_per_launch_profiler") or []
+    ms = (statistics.median(ks) / 1e3 if ks
+          else statistics.median(b0["kernel_ms_cuda_events"]))
+    launches0 = b0["kernel_route"]["placement_rounds_launches"]
+    return {"name": "placement_rounds", "route": "cuda",
+            "source": "nomad_tpu_torch/csrc/placement_rounds.cu",
+            "replaces": "nomad_tpu/ops/kernels.py:412",
+            "launches": launches,
+            "max_abs_err": max(r["max_abs_err"] for r in rounds["batches"]),
+            "ms": ms,
+            "plain_ms": b0["eager_route"]["rounds_seconds"] * 1e3
+            / launches0,
+            "bound_ms": b0["bound_ms_per_launch"], "bound_by": "bytes",
+            "library_ms": None}
 
 
 def run_phase(name, fn, *args):
@@ -9570,7 +10147,8 @@ def main() -> int:
     emit({"phase": "parity", **parity})
     masked, masked_err = run_phase("masked_parity", phase_masked_parity, dev)
     emit({"phase": "masked_parity", **masked})
-    _, launches = run_phase("config_b", phase_config_b, dev)
+    _, round_launches = run_phase("config_b", phase_config_b, dev)
+    rounds = run_phase("rounds", phase_rounds, dev)
     emit({"phase": "cpu_vs_card",
           **run_phase("cpu_vs_card", phase_cpu_vs_card, dev)})
     emit({"phase": "networks", **run_phase("networks", phase_networks, dev)})
@@ -9583,7 +10161,8 @@ def main() -> int:
     cand, masked_launches, cand_err = run_phase("candidates",
                                                 phase_candidates, dev)
     emit({"phase": "candidates", **cand})
-    emit({"phase": "mesh", **run_phase("mesh", phase_mesh, dev)})
+    mesh = run_phase("mesh", phase_mesh, dev)
+    emit({"phase": "mesh", **mesh})
     col = run_phase("columnar", phase_columnar, dev)
     emit({"phase": "columnar", **col})
     _MESH_FLEET.clear()
@@ -9619,22 +10198,31 @@ def main() -> int:
     emit({"phase": "federation", **fed})
     drl = run_phase("drills", phase_drills, dev)
     emit({"phase": "drills", **drl})
-    table = run_phase("times", phase_times, dev, launches, max_err,
+    # scored_rows' launches on its main path since the round kernel: the
+    # config_mesh batch on 4 shards of the card (phase mesh, the counts
+    # set to 0 just before it).
+    table = run_phase("times", phase_times, dev,
+                      mesh["mesh"]["scored_rows_launches"], max_err,
                       masked_launches, max(masked_err, cand_err))
-    # scored_rows' launches on the eval-driven path (phase evals, each
-    # batch driven with the counts set to 0 just before it).
-    table[0]["eval_path_launches"] = evals["eval_path_launches"]
+    # The round kernel: its launches on config (b)'s three batches (phase
+    # config_b), its time, its plain version's and its bound at config
+    # (b) batch 0 (phase rounds).
+    rrow = rounds_table_row(rounds, round_launches)
+    table.append(rrow)
+    # ... its launches on the eval-driven path (phase evals, each batch
+    # driven with the counts set to 0 just before it).
+    rrow["eval_path_launches"] = evals["eval_path_launches"]
     # ... and on the applied path (phase applied, the card with the mirror
     # and guard_every=1: batch 0, the follow-ups and the stream).
-    table[0]["applied_path_launches"] = applied["applied_path_launches"]
+    rrow["applied_path_launches"] = applied["applied_path_launches"]
     # ... and on the columnar path (phase columnar, the store with the
     # mirror: its three waves, each driven with the counts set to 0 just
     # before it).
-    table[0]["columnar_path_launches"] = col["scored_rows_launches"]
+    rrow["columnar_path_launches"] = col["placement_rounds_launches"]
     # ... on the dry-run path (phase plan: the annotate-plan batch) and on
     # the fingerprint path (phase fingerprint: the constrained batch).
-    table[0]["plan_path_launches"] = plan["scored_rows_launches"]
-    table[0]["fingerprint_path_launches"] = fpr["scored_rows_launches"]
+    rrow["plan_path_launches"] = plan["placement_rounds_launches"]
+    rrow["fingerprint_path_launches"] = fpr["placement_rounds_launches"]
     # eviction_sets: launches on config_preempt's eval path (phase
     # preempt, its count set to 0 just before the card's batch).
     table.append(pre["kernel_row"])

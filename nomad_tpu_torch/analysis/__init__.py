@@ -1,5 +1,5 @@
 """The port's static analysis pass: an AST lint for its own disciplines
-(a copy of ``nomad_tpu/analysis/__init__.py`` with two of its four rule
+(a copy of ``nomad_tpu/analysis/__init__.py`` with three of its four rule
 families).
 
 ``python -m nomad_tpu_torch.analysis --check`` runs over the
@@ -16,12 +16,16 @@ not):
 - **guard-coverage** (``guardrules``): every native twin, columnar
   mirror and resident device mirror is declared in ``ops/guards.py``
   with its guard, its reference route and what a mismatch does, and
-  the declarations are true of the tree.
+  the declarations are true of the tree;
+- **device-discipline** (``devicerules``, the reference's ``jaxrules``):
+  over ``ops/`` and ``parallel/``, every host read of the card
+  (``torch-host-sync``) is a sanctioned, allowlisted site, and every
+  module that launches a ``csrc`` kernel calls ``note_signature``
+  (``torch-note-signature``).
 
 Not ported: the reference's ``knobrules`` (the port has no environment
-knobs, ROADMAP queue 3 item 8(c)) and ``jaxrules``, whose host-sync half
-becomes a torch device-discipline lint with the placement loop's
-redesign (queue 2 item 4).
+knobs, ROADMAP queue 3 item 8(c)), and ``jaxrules``' donated-buffer
+rule (torch donates nothing; see ``devicerules``).
 
 Suppression is by a justified allowlist (``allowlist.txt`` beside this
 file): one line per violation key with a written reason; an entry that
@@ -42,7 +46,7 @@ __all__ = [
     "expr_text",
 ]
 
-RULE_FAMILIES = ("lock-discipline", "guard-coverage")
+RULE_FAMILIES = ("lock-discipline", "guard-coverage", "device-discipline")
 
 #: The package the pass scans, and the root scripts beside it.
 PACKAGE = "nomad_tpu_torch"
@@ -190,7 +194,7 @@ def run_checks(root: Optional[str] = None,
     """Run every rule family; returns ``(active, suppressed)``.  Malformed
     and stale allowlist entries come back as active ``allowlist``
     violations."""
-    from . import guardrules, lockrules
+    from . import devicerules, guardrules, lockrules
 
     root = root or repo_root()
     if rules:
@@ -202,7 +206,8 @@ def run_checks(root: Optional[str] = None,
     files = load_tree(root)
     all_violations: List[Violation] = []
     families = {"lock-discipline": lockrules.check,
-                "guard-coverage": guardrules.check}
+                "guard-coverage": guardrules.check,
+                "device-discipline": devicerules.check}
     for name, fn in families.items():
         if rules and name not in rules:
             continue

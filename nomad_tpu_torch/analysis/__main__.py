@@ -5,7 +5,8 @@
 ``--check`` runs every rule family and exits 1 on an unsuppressed
 violation (it is the only mode; the flag spells the intent).  ``--list``
 also prints the allowlisted findings.  ``--rule`` (repeatable) restricts
-the run to ``lock-discipline`` or ``guard-coverage``.  ``--root`` scans
+the run to ``lock-discipline``, ``guard-coverage`` or
+``device-discipline``.  ``--root`` scans
 another tree.
 """
 from __future__ import annotations

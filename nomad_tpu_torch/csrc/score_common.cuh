@@ -2,7 +2,10 @@
 // kernels (scored_rows.cu, masked_score.cu), with its fit test, ScoreFit,
 // tie jitter and launch plan, so the expression exists once, as
 // `_masked_fit_score` does for the two Pallas kernels they replace
-// (nomad_tpu/ops/pallas_score.py:44-60).
+// (nomad_tpu/ops/pallas_score.py:44-60).  The round kernel
+// (placement_rounds.cu) scores with the same node functions (make_node,
+// fits, score_fit, commit_score), so its commit scores are the bits
+// scored_rows gives.
 //
 // The tile.  A thread owns V consecutive nodes (V = 4 on the vector path,
 // 1 on the scalar path) and a block a tile of R consecutive spec rows.
@@ -87,15 +90,20 @@ struct Node {
   float2 denom;
 };
 
-__device__ __forceinline__ Node load_node(const TileArgs& a, int i) {
-  const int4 us = __ldg(a.used + i);
-  const int4 cp = __ldg(a.cap + i);
+// A node's share from its loaded rows.  The round kernel
+// (placement_rounds.cu) commits into `used` while it runs, so it loads
+// the rows itself with coherent loads and builds the Node here.
+__device__ __forceinline__ Node make_node(int4 us, int4 cp, float2 denom) {
   Node nd;
   nd.free = make_int4(cp.x - us.x, cp.y - us.y, cp.z - us.z, cp.w - us.w);
   nd.used_cpu = (float)us.x;
   nd.used_mem = (float)us.y;
-  nd.denom = __ldg(a.denom + i);
+  nd.denom = denom;
   return nd;
+}
+
+__device__ __forceinline__ Node load_node(const TileArgs& a, int i) {
+  return make_node(__ldg(a.used + i), __ldg(a.cap + i), __ldg(a.denom + i));
 }
 
 // ask <= cap - used on all four dimensions (kernels.py:463-466).
@@ -135,6 +143,15 @@ __device__ __forceinline__ float tie_jitter(uint32_t seed, uint32_t u,
   x *= 0xC2B2AE35u;
   x ^= x >> 16;
   return __fmul_rn((float)(x >> 8), kJitterScale);
+}
+
+// The commit score of an ok cell: base - penalty*coll + jitter(u, n),
+// each operation rounded on its own (no FMA contraction).
+__device__ __forceinline__ float commit_score(float base, float penalty,
+                                              int coll, uint32_t seed,
+                                              uint32_t u, uint32_t n) {
+  const float score = __fsub_rn(base, __fmul_rn(penalty, (float)coll));
+  return __fadd_rn(score, tie_jitter(seed, u, n));
 }
 
 // V cells of one row: 16-byte accesses at V = 4, scalar at V = 1.  Loads
@@ -229,11 +246,9 @@ __device__ __forceinline__ void score_tile(const TileArgs& a) {
       if constexpr (kOut == Out::kMasked) {
         out[v] = ok ? base[v] : kNegInf;
       } else {
-        float score =
-            __fsub_rn(base[v], __fmul_rn(row.penalty,
-                                         (float)Cells<V>::coll(row.coll, v)));
-        score = __fadd_rn(score, tie_jitter(a.seed, a.u_offset + (uint32_t)u,
-                                            a.n_offset + (uint32_t)(col + v)));
+        const float score = commit_score(
+            base[v], row.penalty, Cells<V>::coll(row.coll, v), a.seed,
+            a.u_offset + (uint32_t)u, a.n_offset + (uint32_t)(col + v));
         out[v] = ok ? score : kNegInf;
       }
     }

@@ -341,6 +341,8 @@ class _DeviceBatch:
     # mirror's): the preemption pass is gated on them and enumerates them.
     touched: List[int] = field(default_factory=list)
     commit_steps: int = 0             # committing spec steps of the pass
+    # The staged dispatch's schedule and compact seconds.
+    timings: Dict[str, float] = field(default_factory=dict)
 
 
 def _node_pad_multiple(mesh) -> int:
@@ -552,13 +554,36 @@ def _upload_static(sbuf: np.ndarray, meta_s, devices: Sequence,
     return dev_buf, sbuf.nbytes
 
 
+# The single-card device dispatches (batch_sched.py:1208-1257): the fused
+# pass and its one result buffer; the two-pass program (summary and COO
+# apart); and the staged one, which waits for the schedule half before
+# the compact half and times both.  The reference picks with
+# NOMAD_TPU_FUSED and NOMAD_TPU_TIMING=2; the port with an argument.
+DISPATCHES = ("fused", "two_pass", "staged")
+
+
+def check_dispatch(dispatch: str) -> str:
+    if dispatch not in DISPATCHES:
+        raise ValueError(f"dispatch {dispatch!r}: one of {DISPATCHES}")
+    return dispatch
+
+
 def _dispatch(b: _DeviceBatch, dev: torch.device, mesh=None,
-              static_cache: Optional[LRU] = None, used_dev=None) -> None:
+              static_cache: Optional[LRU] = None, used_dev=None,
+              dispatch: str = "fused") -> None:
     """Pack, upload and run the device pass of ``b`` (its result stays on
     the device until :func:`_fetch`).  ``used_dev`` is the lent resident
     usage mirror (a tensor, or the mesh's shard parts): the usage comes
-    from it and the sparse usage rows stay home."""
+    from it and the sparse usage rows stay home.  ``dispatch`` picks the
+    single card's program (:data:`DISPATCHES`); the mesh has its own.
+    The staged program builds its COO from the placement matrix
+    (``b.slot_m`` becomes 0) and takes no mirror (batch_sched.py:1146,
+    :1174, :1217)."""
     d = b.shards
+    if dispatch == "staged" and not d:
+        if used_dev is not None:
+            raise ValueError("the staged dispatch takes no resident mirror")
+        b.slot_m = 0
     if used_dev is not None:
         del b.dyn["u_rows"], b.dyn["u_vals"]
     if d:
@@ -585,28 +610,102 @@ def _dispatch(b: _DeviceBatch, dev: torch.device, mesh=None,
             u_pad=st.u_pad, n_pad=ct.n_pad, with_scores=b.with_scores,
             max_nnz=b.max_nnz, slot_m=b.slot_m, k_cand=b.k_cand,
             used_dev=used_dev)
-    else:
+    elif dispatch == "fused":
         b.out = kernels.fused_pass(
             static_dev, dyn_dev, meta_s=meta_s, meta_d=meta_d,
             u_pad=st.u_pad, n_pad=ct.n_pad, with_scores=b.with_scores,
             max_nnz=b.max_nnz, slot_m=b.slot_m, used_dev=used_dev)
+    elif dispatch == "two_pass":
+        b.out = kernels.device_pass(
+            static_dev, dyn_dev, used_dev, meta_s=meta_s, meta_d=meta_d,
+            u_pad=st.u_pad, n_pad=ct.n_pad, with_scores=b.with_scores,
+            max_nnz=b.max_nnz, slot_m=b.slot_m)
+    else:
+        b.out = _staged_pass(b, static_dev, dyn_dev, meta_s, meta_d)
+
+
+def _staged_pass(b: _DeviceBatch, static_dev, dyn_dev, meta_s,
+                 meta_d) -> kernels.PassOutput:
+    """The two halves of the device program one after the other, each
+    waited for (batch_sched.py:1208-1237): the schedule and the compact
+    seconds are logged and kept in ``b.timings``."""
+    st, ct = b.st, b.ct
+    t0 = time.perf_counter()
+    result, feas = kernels.device_schedule(
+        static_dev, dyn_dev, meta_s=meta_s, meta_d=meta_d, u_pad=st.u_pad,
+        n_pad=ct.n_pad, with_scores=b.with_scores, slot_m=0)
+    _device_sync(result.unplaced)
+    t1 = time.perf_counter()
+    logger.warning("staged: schedule %.3fs", t1 - t0)
+    summary, coo = kernels.device_compact(
+        result, feas, with_scores=b.with_scores, max_nnz=b.max_nnz,
+        compact_u16=kernels.compact_u16_ok(st.u_pad, ct.n_pad,
+                                           b.with_scores))
+    _device_sync(summary)
+    t2 = time.perf_counter()
+    logger.warning("staged: compact %.3fs", t2 - t1)
+    b.timings.update(schedule=t1 - t0, compact=t2 - t1)
+    return kernels.PassOutput(summary=summary, coo=coo, feas=feas,
+                              commit_steps=result.commit_steps)
+
+
+def _device_sync(t: torch.Tensor) -> None:
+    """Wait for the work that produces ``t`` (the staged dispatch's split;
+    the reference reads a slice of the result)."""
+    if t.device.type == "cuda":
+        torch.cuda.synchronize(t.device)
+
+
+# The two-pass fetch takes summary and COO in one transfer up to this many
+# COO bytes, else the summary first and a bucketed prefix of the COO
+# (batch_sched.py:1366-1408).
+TWO_PASS_TOGETHER_BYTES = 4 << 20
 
 
 def _fetch(b: _DeviceBatch):
-    """The one result fetch (and, past the payload window, one prefix
-    fetch of the overflow source): ``(summary, coo int64 [nnz, C],
-    fetched bytes)``.  Sets ``b.device_seconds``."""
-    raw = b.out.buf.cpu().numpy()
-    fetch_bytes = raw.nbytes
-    summary = xfer.unpack_host(raw, b.out.meta)
-    nnz = int(summary["scalars"][0])
-    coo = summary["coo"]
-    if nnz > coo.shape[0]:
-        coo = _overflow_coo(b.out, nnz, b.max_nnz, b.with_scores,
-                            coo.dtype == np.uint16)
-        fetch_bytes += coo.nbytes
+    """The result fetch: ``(summary, coo int64 [nnz, C], fetched
+    bytes)``.  Sets ``b.device_seconds``.  The fused buffer comes in one
+    transfer (past its payload window, one more prefix fetch of the
+    overflow source); the two-pass and staged outputs as the summary and
+    a prefix of the COO."""
+    if isinstance(b.out, kernels.PassOutput):
+        summary, coo, fetch_bytes = _fetch_two_pass(b)
+    else:
+        raw = b.out.buf.cpu().numpy()
+        fetch_bytes = raw.nbytes
+        summary = xfer.unpack_host(raw, b.out.meta)
+        nnz = int(summary["scalars"][0])
+        coo = summary["coo"]
+        if nnz > coo.shape[0]:
+            coo = _overflow_coo(b.out, nnz, b.max_nnz, b.with_scores,
+                                coo.dtype == np.uint16)
+            fetch_bytes += coo.nbytes
+        coo = coo[:nnz]
     b.device_seconds = b.timer.seconds()
-    return summary, np.asarray(coo[:nnz], dtype=np.int64), fetch_bytes
+    return summary, np.asarray(coo, dtype=np.int64), fetch_bytes
+
+
+def _fetch_two_pass(b: _DeviceBatch):
+    """Summary and COO of a :class:`kernels.PassOutput`: together when the
+    whole COO is small, else the summary and then a power-of-two prefix
+    of the COO (a stable slice shape from batch to batch)."""
+    out = b.out
+    layout = kernels.summary_layout(b.st.u_pad, b.ct.n_pad)
+    u16 = out.coo.dtype == torch.int16
+    if out.coo.numel() * out.coo.element_size() <= TWO_PASS_TOGETHER_BYTES:
+        raw, coo = _fetch_together([out.summary, out.coo])
+        summary = xfer.unpack_host(raw, layout)
+        fetch_bytes = raw.nbytes + coo.nbytes
+        coo = coo[:int(summary["scalars"][0])]
+    else:
+        raw = out.summary.cpu().numpy()
+        summary = xfer.unpack_host(raw, layout)
+        nnz = int(summary["scalars"][0])
+        nnz_b = min(b.max_nnz, encode.pow2_bucket(max(nnz, 1), minimum=8))
+        coo = out.coo[:nnz_b].cpu().numpy()
+        fetch_bytes = raw.nbytes + coo.nbytes
+        coo = coo[:nnz]
+    return summary, coo.view(np.uint16) if u16 else coo, fetch_bytes
 
 
 def _fetch_together(tensors: Sequence[torch.Tensor]) -> List[np.ndarray]:
@@ -764,8 +863,8 @@ def schedule_batch(nodes: Sequence[s.Node], jobs: Sequence[s.Job],
                    device=None, mesh=None,
                    eval_ids: Optional[Sequence[str]] = None,
                    native_decode: bool = True,
-                   decode_guard_every: int = decode.GUARD_EVERY
-                   ) -> BatchResult:
+                   decode_guard_every: int = decode.GUARD_EVERY,
+                   dispatch: str = "fused") -> BatchResult:
     """Place every task group of ``jobs`` on ``nodes`` in one device pass.
 
     ``nodes`` is the cluster in the order the node index follows (the
@@ -787,9 +886,14 @@ def schedule_batch(nodes: Sequence[s.Node], jobs: Sequence[s.Job],
     ``device``) places the batch node-sharded over the mesh's devices,
     the counterpart of ``TPUBatchScheduler(mesh=...)``
     (batch_sched.py:1464-1580): same placements and scores as the
-    single-chip path, and ``mesh_shards`` in the result."""
+    single-chip path, and ``mesh_shards`` in the result.
+
+    ``dispatch`` picks the single card's device program
+    (:data:`DISPATCHES`): ``"fused"``, ``"two_pass"``, or ``"staged"``,
+    whose schedule and compact seconds land in ``timings``."""
     if mesh is not None and device is not None:
         raise ValueError("pass a device or a mesh, not both")
+    check_dispatch(dispatch)
     dev = mesh.root if mesh is not None else resolve_device(device)
     t0 = time.perf_counter()
     live = [a for a in live_allocs if not a.terminal_status()]
@@ -826,7 +930,7 @@ def schedule_batch(nodes: Sequence[s.Node], jobs: Sequence[s.Job],
     b = _encode_batch(spec_list, list(nodes), base, ct, touched,
                       lambda job_id: nodes_by_job.get(job_id, ()), rng_seed,
                       mesh)
-    _dispatch(b, dev, mesh)
+    _dispatch(b, dev, mesh, dispatch=dispatch)
     summary, coo, _ = _fetch(b)
     t2 = time.perf_counter()
 
@@ -840,7 +944,7 @@ def schedule_batch(nodes: Sequence[s.Node], jobs: Sequence[s.Job],
         placements=placements, rounds=int(summary["scalars"][1]),
         device=str(dev),
         timings={"encode": b.t_dispatch - t0, "device": b.device_seconds,
-                 "decode": t3 - t2}, mesh_shards=b.shards)
+                 "decode": t3 - t2, **b.timings}, mesh_shards=b.shards)
 
 
 def _offer_networks(jobs, eval_ids, spec_list, placements, nodes_by_id,
@@ -1008,7 +1112,15 @@ class TorchBatchScheduler:
     ``decode_guard_every`` is the native decode's guard cadence per
     function, 0 for never (the reference's ``NOMAD_TPU_NO_NATIVE`` and
     ``NOMAD_TPU_DECODE_GUARD_EVERY``, default 64).  A guard mismatch
-    raises ``decode.DecodeGuardError``: the batch is nacked."""
+    raises ``decode.DecodeGuardError``: the batch is nacked.
+
+    ``dispatch`` picks the single card's device program (the reference's
+    ``NOMAD_TPU_FUSED`` and ``NOMAD_TPU_TIMING=2``): ``"fused"`` (the
+    default: one result buffer), ``"two_pass"`` (the summary and the COO
+    apart, ``kernels.device_pass``) or ``"staged"`` (the schedule half
+    waited for before the compact half; both seconds in
+    ``BatchStats.timings``; COO from the placement matrix; no resident
+    loan).  The mesh keeps its own program."""
 
     def __init__(self, logger_: logging.Logger, state, planner, mesh=None,
                  device=None, preemption_enabled: bool = False,
@@ -1017,9 +1129,11 @@ class TorchBatchScheduler:
                  guard_every: int = 64, metrics=None,
                  columnar_guard_every: int = columnar.GUARD_EVERY,
                  native_decode: bool = True,
-                 decode_guard_every: int = decode.GUARD_EVERY):
+                 decode_guard_every: int = decode.GUARD_EVERY,
+                 dispatch: str = "fused"):
         if mesh is not None and device is not None:
             raise ValueError("pass a device or a mesh, not both")
+        self.dispatch = check_dispatch(dispatch)
         self.logger = logger_
         self.state = state
         self.planner = planner
@@ -1129,6 +1243,9 @@ class TorchBatchScheduler:
                         resident.DEV_GUARD_MISMATCHES)
         if resident.DEV_APPLIES:
             m.set_gauge("batch.resident_dev_applies", resident.DEV_APPLIES)
+        # Distinct launch signatures seen process-wide (batch_sched.py:451;
+        # kernels.note_signature says what they count in the port).
+        m.set_gauge("batch.compiles", kernels.compile_signatures())
         if stats.mesh_shards:
             m.incr_counter("batch.mesh_passes", 1)
             m.set_gauge("batch.mesh_shards", stats.mesh_shards)
@@ -1455,13 +1572,14 @@ class TorchBatchScheduler:
         # error in between leaves the slot empty, and the next take
         # installs it again from the host mirror.
         used_dev = None
-        if res_key is not None and self.resident_device:
+        if (res_key is not None and self.resident_device
+                and (self.dispatch != "staged" or self.mesh is not None)):
             snap_index = self.state.table_index("allocs")
             used_dev = resident.take_device_used(
                 res_key, snap_index, used, device=self.device,
                 mesh=self.mesh if b.shards else None)
         _dispatch(b, self.device, self.mesh, _DEVICE_STATIC_CACHE,
-                  used_dev=used_dev)
+                  used_dev=used_dev, dispatch=self.dispatch)
         b.commit_steps = b.out.commit_steps
         if used_dev is not None:
             resident.give_device_used(res_key, snap_index, used_dev)
@@ -1572,6 +1690,7 @@ class TorchBatchScheduler:
         stats.fetch_bytes = fetch_bytes
         stats.device_seconds = b.device_seconds
         stats.commit_steps = b.commit_steps
+        stats.timings = dict(b.timings)
         self._apply_resident_stats(stats, b.resident)
         return self._finalize_device_outputs(b, summary, coo, stats)
 
@@ -2212,9 +2331,10 @@ class BatchStats:
         self.finalize_seconds = 0.0     # plans, submit, eval statuses
         self.total_seconds = 0.0
         self.rounds = 0
-        # Committing spec steps of the device pass: one scored_rows launch
-        # each on a card (one per shard on a mesh), counted by the pass
-        # itself, so batches placing at once do not count each other's.
+        # Committing spec steps of the device pass: steps of the round
+        # kernel on a card (one scored_rows launch a shard on a mesh),
+        # counted by the pass itself, so batches placing at once do not
+        # count each other's.
         self.commit_steps = 0
         # Bytes up (the dynamic buffer, the static one when not cached on
         # the device, and the resident mirror's install and delta rows)
@@ -2256,6 +2376,8 @@ class BatchStats:
         # schedule_stream: this batch's prepare time while the previous
         # batch was dispatched and not yet completed (0 when serial).
         self.pipeline_overlap_s = 0.0
+        # The staged dispatch's schedule and compact seconds.
+        self.timings: Dict[str, float] = {}
 
     def __repr__(self) -> str:
         return "BatchStats(" + " ".join(

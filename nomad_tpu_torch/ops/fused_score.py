@@ -25,6 +25,12 @@ with no penalty and no jitter.  Both kernels share their fit test and
 ScoreFit (``csrc/score_common.cuh``).  For CPU tensors each wrapper
 computes its plain version; for CUDA tensors it launches its kernel or
 raises.  There is no fallback from one to the other.
+
+:func:`placement_round` launches the round kernel
+(``csrc/placement_rounds.cu``, one round of the placement loop, which
+scores with the same device functions); its plain version is the eager
+``kernels.placement_rounds``, and ``kernels.run_placement_rounds``
+picks between them.
 """
 from __future__ import annotations
 
@@ -38,10 +44,15 @@ _U32 = 0xFFFFFFFF
 # float32(1e-3 / 2^24): the jitter's scale, rounded once from the double.
 _JITTER_SCALE = np.float32(1e-3 / (1 << 24))
 
-# Kernel launches made by scored_rows and by masked_score_matrix (the
-# plain versions count nothing).
+# Kernel launches made by scored_rows, by masked_score_matrix and by the
+# round kernel's placement_round (the plain versions count nothing).
 LAUNCHES = 0
 MASKED_LAUNCHES = 0
+ROUND_LAUNCHES = 0
+# The port words a node may have (65,536 ports a bit each): the round
+# kernel gathers a spec's reserved-port words into shared memory of this
+# many entries (csrc/placement_rounds.cu kMaxPortWords).
+ROUND_MAX_PORT_WORDS = 2048
 
 
 def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
@@ -125,6 +136,8 @@ _C_API = {
     # ops/preempt.py's kernel.
     "eviction_sets": ("nomad_eviction_sets", [ctypes.c_void_p] * 7 + [
         ctypes.c_int] * 3 + [ctypes.c_void_p] * 5),
+    # The round kernel: a pointer to its RoundArgs, and the stream.
+    "placement_rounds": ("nomad_placement_round", [ctypes.c_void_p] * 2),
 }
 _FNS = {}
 
@@ -188,7 +201,10 @@ def scored_rows(feas, used, capacity, denom, ask, penalty, collisions,
     kernel takes its 16-byte vector path where N % 4 == 0 and the per-cell
     tensors allow it, its scalar path otherwise; both launch here."""
     global LAUNCHES
+    from .kernels import note_signature
+
     dev = feas.device
+    note_signature("scored_rows", (dev.type, *feas.shape, with_base))
     if dev.type == "cpu":
         scored, base = scored_rows_reference(
             feas, used, capacity, denom, ask, penalty, collisions, seed,
@@ -227,7 +243,10 @@ def masked_score_matrix(feas, used, capacity, denom, ask) -> torch.Tensor:
     NEG_INF), used/capacity [N, 4] int32, denom [N, 2] f32, ask [U, 4]
     int32, all on one device."""
     global MASKED_LAUNCHES
+    from .kernels import note_signature
+
     dev = feas.device
+    note_signature("masked_score_matrix", (dev.type, *feas.shape))
     if dev.type == "cpu":
         return masked_score_matrix_reference(feas, used, capacity, denom, ask)
     if dev.type != "cuda":
@@ -246,3 +265,150 @@ def masked_score_matrix(feas, used, capacity, denom, ask) -> torch.Tensor:
             f"masked_score_matrix kernel launch failed: cudaError {rc}")
     MASKED_LAUNCHES += 1
     return out
+
+
+# The round kernel's arguments (csrc/placement_rounds.cu ``RoundArgs``),
+# in its field order: the tensors (None: a null pointer), then the
+# sizes, every field 8 bytes.
+_ROUND_TENSORS = (
+    "feas", "used", "cap", "denom", "ask", "count", "remaining", "penalty",
+    "dh", "ji", "job_counts", "net_active", "mbits", "dyn_need",
+    "resv_words", "bw_cap", "bw_used", "dyn_free", "port_words",
+    "dp_active", "dp_col", "dp_used", "attr", "placements", "commit_scores",
+    "commit_coll", "slots", "slot_scores", "slot_coll", "key", "flag",
+    "dp_best", "dp_first", "status")
+_ROUND_SIZES = ("u", "n", "w", "k_attr", "v", "slot_m", "seed")
+
+
+class _RoundArgs(ctypes.Structure):
+    _fields_ = ([(f, ctypes.c_void_p) for f in _ROUND_TENSORS]
+                + [(f, ctypes.c_int64) for f in _ROUND_SIZES])
+
+
+def _round_specs(sz: dict) -> dict:
+    """name -> (dtype, shape, alignment) of every round-kernel tensor at
+    the sizes ``sz`` (u, n, w, k_attr, v, slot_m, and j, the job rows)."""
+    u, n, m = sz["u"], sz["n"], sz["slot_m"]
+    i32, u8, f32 = torch.int32, torch.uint8, torch.float32
+    return {
+        "feas": (u8, (u, n), 1), "used": (i32, (n, 4), 16),
+        "cap": (i32, (n, 4), 16), "denom": (f32, (n, 2), 8),
+        "ask": (i32, (u, 4), 16), "count": (i32, (u,), 4),
+        "remaining": (i32, (u,), 4), "penalty": (f32, (u,), 4),
+        "dh": (u8, (u,), 1), "ji": (i32, (u,), 4),
+        "job_counts": (i32, (sz["j"], n), 4),
+        "net_active": (u8, (u,), 1), "mbits": (i32, (u,), 4),
+        "dyn_need": (i32, (u,), 4), "resv_words": (i32, (u, sz["w"]), 4),
+        "bw_cap": (i32, (n,), 4), "bw_used": (i32, (n,), 4),
+        "dyn_free": (i32, (n,), 4), "port_words": (i32, (n, sz["w"]), 4),
+        "dp_active": (u8, (u,), 1), "dp_col": (i32, (u,), 4),
+        "dp_used": (u8, (u, sz["v"]), 1),
+        "attr": (i32, (n, sz["k_attr"]), 4),
+        "placements": (i32, (u, n), 4), "commit_scores": (f32, (u, n), 4),
+        "commit_coll": (i32, (u, n), 4), "slots": (i32, (u, m), 4),
+        "slot_scores": (f32, (u, m), 4), "slot_coll": (i32, (u, m), 4),
+        "key": (i32, (n,), 4), "flag": (u8, (n,), 1),
+        "dp_best": (i32, (sz["v"],), 4), "dp_first": (i32, (sz["v"],), 4),
+        "status": (i32, (4,), 4),
+    }
+
+
+# The groups of round-kernel tensors that come all or none.
+_ROUND_GROUPS = {
+    "net": ("net_active", "mbits", "dyn_need", "resv_words", "bw_cap",
+            "bw_used", "dyn_free", "port_words"),
+    "dp": ("dp_active", "dp_col", "dp_used", "attr", "dp_best", "dp_first"),
+}
+
+
+def _round_sizes(t: dict) -> dict:
+    """The sizes of the round-kernel tensors ``t``."""
+    u, n = t["feas"].shape
+    sz = {"u": u, "n": n, "j": t["job_counts"].shape[0], "w": 0,
+          "k_attr": 0, "v": 0, "slot_m": 0}
+    if t.get("port_words") is not None:
+        sz["w"] = t["port_words"].shape[1]
+    if t.get("attr") is not None:
+        sz["k_attr"], sz["v"] = t["attr"].shape[1], t["dp_used"].shape[1]
+    if t.get("slots") is not None:
+        sz["slot_m"] = t["slots"].shape[1]
+    return sz
+
+
+def _round_args(t: dict, sz: dict, seed: int) -> _RoundArgs:
+    """The ``RoundArgs`` of tensors ``t`` (missing or None: null) at sizes
+    ``sz``."""
+    args = _RoundArgs()
+    for f in _ROUND_TENSORS:
+        x = t.get(f)
+        setattr(args, f, x.data_ptr() if x is not None else None)
+    for f in _ROUND_SIZES[:-1]:
+        setattr(args, f, int(sz[f]))
+    args.seed = seed & 0xFFFFFFFF
+    return args
+
+
+def placement_round(t: dict, seed: int) -> torch.Tensor:
+    """One launch of the round kernel (``csrc/placement_rounds.cu``): one
+    round of the placement loop over the loop state ``t``, committed in
+    place; returns ``t["status"]``, the round's int32 ``[placed, asks
+    left, any node fits the smallest ask left, committing steps]``, still
+    on the card.
+
+    ``t`` maps the kernel's tensor names (``_ROUND_TENSORS``) to CUDA
+    tensors of one card, contiguous, of the dtypes and shapes of
+    :func:`_round_specs`; the network group, the distinct_property group,
+    the matrix outputs (without ``slots``) or the slot outputs, and the
+    score outputs may be left out.  Raises on anything else, and
+    ``RuntimeError`` when the launch fails.  There is no CPU route: the
+    plain version is ``kernels.placement_rounds``, the eager loop."""
+    global ROUND_LAUNCHES
+    feas = t["feas"]
+    dev = feas.device
+    if dev.type != "cuda":
+        raise ValueError(f"placement_round: unsupported device {dev}")
+    sz = _round_sizes(t)
+    u, n = sz["u"], sz["n"]
+    if n >= 1 << 31:
+        raise ValueError(f"placement_round: {n} nodes exceed int32")
+    if sz["w"] > ROUND_MAX_PORT_WORDS:
+        raise ValueError(f"placement_round: {sz['w']} port words, at most "
+                         f"{ROUND_MAX_PORT_WORDS}")
+    specs = _round_specs(sz)
+    required = ["feas", "used", "cap", "denom", "ask", "count", "remaining",
+                "penalty", "dh", "ji", "job_counts", "key", "flag",
+                "status"]
+    required += ["slots"] if sz["slot_m"] else ["placements"]
+    for group, names in _ROUND_GROUPS.items():
+        given = [f for f in names if t.get(f) is not None]
+        if given and len(given) != len(names):
+            raise ValueError(f"placement_round: the {group} tensors come "
+                             f"all or none, got {given}")
+    for f in _ROUND_TENSORS:
+        x = t.get(f)
+        if x is None:
+            if f in required:
+                raise ValueError(f"placement_round: {f} is required")
+            continue
+        dtype, shape, align = specs[f]
+        _check("placement_round", f, x, dtype, shape, dev, align)
+    scores = [t.get(f) is not None for f in (
+        ("slot_scores", "slot_coll") if sz["slot_m"]
+        else ("commit_scores", "commit_coll"))]
+    if scores[0] != scores[1]:
+        raise ValueError("placement_round: the score outputs come in pairs")
+    from .kernels import note_signature
+
+    note_signature("placement_round", (
+        u, n, sz["j"], sz["w"], sz["k_attr"], sz["v"], sz["slot_m"],
+        scores[0]))
+    fn = _fn("placement_rounds")
+    args = _round_args(t, sz, seed)
+    with torch.cuda.device(dev):    # the launch goes to the tensors' card
+        rc = fn(ctypes.addressof(args),
+                torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(
+            f"placement_round kernel launch failed: cudaError {rc}")
+    ROUND_LAUNCHES += 1
+    return t["status"]

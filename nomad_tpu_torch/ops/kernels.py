@@ -1,19 +1,26 @@
 """Batch-placement device program in PyTorch (``nomad_tpu/ops/kernels.py``):
-feasibility, the rank-and-commit placement rounds, COO compaction and
-the fused single-buffer pass.
+feasibility, the rank-and-commit placement rounds, COO compaction, the
+schedule program's two halves (:func:`device_schedule`,
+:func:`device_compact`, both in turn :func:`device_pass`) and the fused
+single-buffer pass (:func:`fused_pass`), and the launch-signature count
+(:func:`note_signature`).
 
-Eager PyTorch on ``cuda`` or ``cpu``.  The per-commit score is the
-hand-written kernel behind :func:`ops.fused_score.scored_rows`; the rest
-is plain tensor code.  The placement loop is a Python loop over rounds
-and specs: the reference's ``lax.cond`` skips and ``while_loop`` exit
-become host decisions, at one host read per committing spec step (the
-feasible count ``k``) and one per round (the early-exit test).  A step
-whose spec carries an active distinct_property constraint makes one more
-read, of the count its value dedup kept (:data:`DP_HOST_READS`).
+On CUDA tensors the placement rounds run the round kernel
+(``csrc/placement_rounds.cu``, through :func:`run_placement_rounds`):
+one launch a round, every spec of the round inside it, and one read of
+the round's four-int status on the host.  On CPU tensors they run the
+kernel's plain version :func:`placement_rounds`, an eager Python loop
+over rounds and specs whose per-commit score is
+:func:`ops.fused_score.scored_rows`: there the reference's ``lax.cond``
+skips and ``while_loop`` exit are host decisions, at one host read per
+spec step with work left (the feasible count ``k``) and one per round
+(the early-exit test), and one more per step of an active
+distinct_property constraint (:data:`DP_HOST_READS`).  The rest is plain
+tensor code.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -28,11 +35,61 @@ _U32 = 0xFFFFFFFF
 NEG_INF = fused_score.NEG_INF
 
 # Host-side counts of the placement loops (single card and mesh), read by
-# chip_smoke.py: committing spec steps (a spec step with k > 0, which
-# launches the score kernel once on one card and once per shard on the
-# mesh), and the extra host reads of the distinct_property steps.
+# chip_smoke.py: committing spec steps (a spec step with k > 0: a step of
+# the round kernel on one card, one scored_rows launch a shard on the
+# mesh and in the eager loop), and the extra host reads of the eager
+# loop's distinct_property steps (the round kernel makes none).
 COMMIT_STEPS = 0
 DP_HOST_READS = 0
+# Rounds the single card's placement rounds ran (run_placement_rounds,
+# either route): on a card, one round-kernel launch each.
+ROUNDS = 0
+
+# -- the launch-signature count (kernels.py:46-89) -----------------------------
+
+_COMPILE_SIGS = set()
+COMPILES = 0
+
+
+def note_signature(kind: str, sig: tuple) -> bool:
+    """Record one launch signature; True when it is new.
+
+    The reference counts the distinct static signatures its jitted
+    programs are called with: each new one may be an XLA compile.  The
+    port compiles nothing per shape -- a CUDA source is built once,
+    whatever it is launched with -- so here the count is of distinct
+    launch signatures (the program kind and the shapes and options it
+    was given), a proxy for re-specialisation: a shape that leaks (a
+    padding bucket that stopped holding) shows as a count that keeps
+    climbing.  Published as the ``batch.compiles`` gauge."""
+    global COMPILES
+    key = (kind, sig)
+    if key in _COMPILE_SIGS:
+        return False
+    _COMPILE_SIGS.add(key)
+    COMPILES += 1
+    return True
+
+
+def compile_signatures() -> int:
+    """Distinct launch signatures recorded in this process."""
+    return COMPILES
+
+
+def signature_kinds() -> dict:
+    """Distinct recorded signatures per program kind: which family leaked
+    shapes when the count climbs."""
+    out: dict = {}
+    for kind, _sig in _COMPILE_SIGS:
+        out[kind] = out.get(kind, 0) + 1
+    return out
+
+
+def reset_compile_signatures() -> None:
+    """Forget every recorded signature (tests)."""
+    global COMPILES
+    _COMPILE_SIGS.clear()
+    COMPILES = 0
 
 
 def _rotl32(x: int, r: int) -> int:
@@ -314,9 +371,9 @@ def placement_rounds(feas, used0, capacity, denom, ask, count, penalty,
     # Slot records carry one extra column: a commit's unselected nodes
     # scatter there (the reference's mode="drop" scatter, kernels.py:543,
     # made explicit), and the column is cut off at the end.
-    m_cols = slot_m + 1 if slot_m else 1
-    slots = torch.full((u_pad, m_cols), -1, dtype=torch.int32, device=dev)
-    sshape = (u_pad, m_cols) if with_scores and slot_m else (1, 1)
+    slots = torch.full((u_pad, slot_m + 1) if slot_m else (1, 1), -1,
+                       dtype=torch.int32, device=dev)
+    sshape = (u_pad, slot_m + 1) if with_scores and slot_m else (1, 1)
     slot_scores = torch.zeros(sshape, dtype=torch.float32, device=dev)
     slot_coll = torch.zeros(sshape, dtype=torch.int32, device=dev)
 
@@ -422,6 +479,129 @@ def placement_rounds(feas, used0, capacity, denom, ask, count, penalty,
         used_after=used, rounds=rounds, commit_scores=commit_scores,
         commit_collisions=commit_coll, slots=slots,
         slot_scores=slot_scores, slot_coll=slot_coll, commit_steps=steps)
+
+
+def run_placement_rounds(feas, used0, capacity, denom, ask, count, penalty,
+                         distinct_hosts, job_index, job_counts0, seed: int,
+                         max_rounds: int = 256, with_scores: bool = True,
+                         slot_m: int = 0, net: NetTensors = None,
+                         dp: DPTensors = None) -> PlacementResult:
+    """The placement rounds through the round kernel: on CUDA tensors one
+    ``csrc/placement_rounds.cu`` launch a round; on CPU tensors the
+    kernel's plain version, :func:`placement_rounds`.  Same arguments and
+    result, bit for bit."""
+    global ROUNDS
+    if feas.device.type == "cpu":
+        result = placement_rounds(
+            feas, used0, capacity, denom, ask, count, penalty,
+            distinct_hosts, job_index, job_counts0, seed,
+            max_rounds=max_rounds, with_scores=with_scores, slot_m=slot_m,
+            net=net, dp=dp)
+    elif feas.device.type == "cuda":
+        result = _kernel_rounds(
+            feas, used0, capacity, denom, ask, count, penalty,
+            distinct_hosts, job_index, job_counts0, seed, max_rounds,
+            with_scores, slot_m, net, dp, fused_score.placement_round)
+    else:
+        raise ValueError(f"placement rounds: unsupported device "
+                         f"{feas.device}")
+    ROUNDS += result.rounds
+    return result
+
+
+def _kernel_rounds(feas, used0, capacity, denom, ask, count, penalty,
+                   distinct_hosts, job_index, job_counts0, seed, max_rounds,
+                   with_scores, slot_m, net, dp, launch) -> PlacementResult:
+    """The round loop around the round kernel: the loop state in fresh
+    tensors (``used0``, the job counts and the network and
+    distinct_property state are not written), ``launch(t, seed)`` once a
+    round (``fused_score.placement_round`` on a card; the source built
+    with g++ against a CPU mock of the runtime in
+    ``tests/test_torch_round_source.py``), and one read of the round's
+    status.  The loop condition is
+    :func:`placement_rounds`': placed something, asks left, under
+    ``max_rounds``, and a node fits the smallest ask left (the first
+    round's test here, the next round's at the end of each launch)."""
+    global COMMIT_STEPS
+    dev = feas.device
+    u_pad, n_pad = feas.shape
+    i32 = torch.int32
+
+    def own(x, dtype=i32):
+        return x.to(dtype).contiguous().clone()
+
+    t = {
+        "feas": feas.contiguous().view(torch.uint8),
+        "used": own(used0), "cap": capacity.to(i32).contiguous(),
+        "denom": denom.to(torch.float32).contiguous(),
+        "ask": ask.to(i32).contiguous(), "count": count.to(i32).contiguous(),
+        "remaining": own(count), "penalty": penalty.to(torch.float32)
+        .contiguous(), "dh": distinct_hosts.to(torch.uint8).contiguous(),
+        "ji": job_index.to(i32).contiguous(), "job_counts": own(job_counts0),
+        "key": torch.empty(n_pad, dtype=i32, device=dev),
+        "flag": torch.empty(n_pad, dtype=torch.uint8, device=dev),
+        "status": torch.zeros(4, dtype=i32, device=dev),
+    }
+    if net is not None:
+        t.update(net_active=net.active.to(torch.uint8).contiguous(),
+                 mbits=net.mbits.to(i32).contiguous(),
+                 dyn_need=net.dyn_need.to(i32).contiguous(),
+                 resv_words=net.resv_words.to(i32).contiguous(),
+                 bw_cap=net.bw_cap.to(i32).contiguous(),
+                 bw_used=own(net.bw_used), dyn_free=own(net.dyn_free),
+                 port_words=own(net.port_words))
+    if dp is not None:
+        v_pad = dp.used0.shape[1]
+        t.update(dp_active=dp.active.to(torch.uint8).contiguous(),
+                 dp_col=dp.col.clamp(0, dp.attr_values.shape[1] - 1)
+                 .to(i32).contiguous(),
+                 dp_used=own(dp.used0, torch.uint8),
+                 attr=dp.attr_values.to(i32).contiguous(),
+                 dp_best=torch.empty(v_pad, dtype=i32, device=dev),
+                 dp_first=torch.empty(v_pad, dtype=i32, device=dev))
+    if slot_m:
+        t["slots"] = torch.full((u_pad, slot_m), -1, dtype=i32, device=dev)
+        if with_scores:
+            t["slot_scores"] = torch.zeros((u_pad, slot_m),
+                                           dtype=torch.float32, device=dev)
+            t["slot_coll"] = torch.zeros((u_pad, slot_m), dtype=i32,
+                                         device=dev)
+    else:
+        t["placements"] = torch.zeros((u_pad, n_pad), dtype=i32, device=dev)
+        if with_scores:
+            t["commit_scores"] = torch.zeros((u_pad, n_pad),
+                                             dtype=torch.float32, device=dev)
+            t["commit_coll"] = torch.zeros((u_pad, n_pad), dtype=i32,
+                                           device=dev)
+
+    def one(dtype=i32, fill=0):     # a [1, 1] placeholder output
+        return torch.full((1, 1), fill, dtype=dtype, device=dev)
+
+    # The first round's test: asks left, and a node fits the smallest.
+    active = t["remaining"] > 0
+    min_ask = torch.where(active[:, None], t["ask"], 2**30).min(0).values
+    first = torch.stack([
+        t["remaining"].sum().to(i32),
+        (min_ask[None, :] <= t["cap"] - t["used"]).all(1).any().to(i32)])
+    left, fits = first.tolist()
+    rounds = steps = 0
+    go = left > 0 and fits and max_rounds > 0
+    while go:
+        status: torch.Tensor = launch(t, seed)
+        rounds += 1
+        placed, left, fits, round_steps = status.tolist()
+        steps += round_steps
+        go = placed > 0 and left > 0 and rounds < max_rounds and fits
+    COMMIT_STEPS += steps
+    f32 = torch.float32
+    return PlacementResult(
+        placements=t.get("placements", one()),
+        unplaced=t["remaining"], used_after=t["used"], rounds=rounds,
+        commit_scores=t.get("commit_scores", one(f32)),
+        commit_collisions=t.get("commit_coll", one()),
+        slots=t.get("slots", one(fill=-1)),
+        slot_scores=t.get("slot_scores", one(f32)),
+        slot_coll=t.get("slot_coll", one()), commit_steps=steps)
 
 
 def scatter_job_counts(rows, cols, vals, u_pad: int,
@@ -587,34 +767,42 @@ def dp_tensors(d: dict) -> DPTensors:
                      used0=d["dp_used"], attr_values=d["attr"])
 
 
-class FusedOutput(NamedTuple):
-    buf: torch.Tensor            # packed uint8 result buffer
-    meta: tuple                  # its layout (fused_layout)
-    aux: tuple                   # overflow source: ("slots", (slots,
-                                 # scores, coll)) or ("coo", coo)
-    feas: torch.Tensor           # [U, N] bool, for failure forensics
-    commit_steps: int = 0        # the pass's committing spec steps
+def compact_u16_ok(u_pad: int, n_pad: int, with_scores: bool,
+                   max_rounds: int = 256) -> bool:
+    """Whether the COO ships as uint16 (kernels.py:963-971): no scores,
+    and row, column and count all below 65536.  ``<= 65536`` pads: a
+    65,536-node bucket's largest column is 65,535."""
+    return (not with_scores and u_pad <= 65536 and n_pad <= 65536
+            and max_rounds < 65536)
 
 
-def fused_pass(static_buf: torch.Tensor, dyn_buf: torch.Tensor, *, meta_s,
-               meta_d, u_pad: int, n_pad: int, with_scores: bool,
-               max_nnz: int, max_rounds: int = 256, slot_m: int = 0,
-               used_dev: Optional[torch.Tensor] = None) -> FusedOutput:
-    """The whole batch on the device (``_fused_score_commit``,
-    kernels.py:1017): unpack the static and dynamic buffers, build the
-    job counts and the usage matrix from their sparse rows, check
-    feasibility, run the placement rounds and compact into ONE packed
-    result buffer (:func:`fused_layout`).
+def summary_layout(u_pad: int, n_pad: int):
+    """Layout of the packed summary of :func:`device_compact`
+    (kernels.py:671): unplaced, feas_count and [nnz, rounds].  The usage
+    after the batch stays on the card: the host rebuilds it from the
+    placements."""
+    return xfer.layout({
+        "unplaced": ("i32", (u_pad,)),
+        "feas_count": ("i32", (u_pad,)),
+        "scalars": ("i32", (2,)),       # [nnz, rounds]
+    })
+
+
+def schedule_inputs(static_buf: torch.Tensor, dyn_buf: torch.Tensor,
+                    used_dev: Optional[torch.Tensor] = None, *, meta_s,
+                    meta_d, u_pad: int, n_pad: int):
+    """What the placement rounds of a batch start from: unpack the static
+    and dynamic buffers, build the job counts and the usage matrix from
+    their sparse rows, and check feasibility.  Returns ``(args, extra)``
+    for ``run_placement_rounds(*args, **extra, ...)`` -- ``args[0]`` is
+    feas [U, N] bool -- or the plain ``placement_rounds``.
 
     ``used_dev`` is the resident usage mirror (``ops/resident.py``), an
     int32 [n_pad, 4] tensor on the pass's device: it is the usage the
     rounds start from, and the dynamic buffer then carries no
-    ``u_rows``/``u_vals`` (kernels.py:750-752).  The rounds work on a
-    copy, so the mirror comes back unchanged (kernels.py:796): the
-    applied plan's deltas reach it through the store's feed, and an
-    in-place commit here would count every placement twice.  Resident
-    batches carry no network asks."""
-    d = xfer.unpack_device(static_buf, meta_s)
+    ``u_rows``/``u_vals`` (kernels.py:750-752).  Resident batches carry
+    no network asks."""
+    d: Dict[str, torch.Tensor] = xfer.unpack_device(static_buf, meta_s)
     d.update(xfer.unpack_device(dyn_buf, meta_d))
     dequantize(d)
     job_counts = scatter_job_counts(d["jc_rows"], d["jc_cols"], d["jc_vals"],
@@ -634,18 +822,137 @@ def fused_pass(static_buf: torch.Tensor, dyn_buf: torch.Tensor, *, meta_s,
         used0 = apply_deltas(d["used_base"], rows, d["u_vals"])
         net = net_tensors(d, d, rows)
     seed = jitter_seed(int(d["rng_seed"][0]))
-    # placement_rounds commits into its own clone of used0.
-    result = placement_rounds(
-        feas, used0, d["cap"], d["denom"], d["ask"], d["count"],
-        d["penalty"], d["dh"], d["ji"], job_counts, seed,
-        max_rounds=max_rounds, with_scores=with_scores, slot_m=slot_m,
-        net=net, dp=dp_tensors(d))
+    args = (feas, used0, d["cap"], d["denom"], d["ask"], d["count"],
+            d["penalty"], d["dh"], d["ji"], job_counts, seed)
+    return args, {"net": net, "dp": dp_tensors(d)}
 
-    compact_u16 = (not with_scores and u_pad <= 65536 and n_pad <= 65536
-                   and max_rounds < 65536)
+
+def device_schedule(static_buf: torch.Tensor, dyn_buf: torch.Tensor,
+                    used_dev: Optional[torch.Tensor] = None, *, meta_s,
+                    meta_d, u_pad: int, n_pad: int, with_scores: bool,
+                    max_rounds: int = 256, slot_m: int = 0):
+    """The schedule program's first half (``_device_schedule``,
+    kernels.py:692): :func:`schedule_inputs` (unpack, job counts, usage,
+    feasibility), then the placement rounds -- the round kernel on a
+    card.  Returns ``(PlacementResult, feas [U, N] bool)``.
+
+    The rounds work on a copy of the usage, so the resident mirror
+    ``used_dev`` is not written: the applied plan's deltas reach it
+    through the store's feed, and an in-place commit here would count
+    every placement twice.  (The reference also returns the mirror, as
+    the donated buffer XLA hands back; torch donates nothing, so the
+    lender keeps its own reference.)"""
+    args, extra = schedule_inputs(static_buf, dyn_buf, used_dev,
+                                  meta_s=meta_s, meta_d=meta_d, u_pad=u_pad,
+                                  n_pad=n_pad)
+    result = run_placement_rounds(*args, max_rounds=max_rounds,
+                                  with_scores=with_scores, slot_m=slot_m,
+                                  **extra)
+    return result, args[0]
+
+
+def _summary_parts(result: PlacementResult, feas: torch.Tensor, nnz):
+    """The summary's arrays (:func:`summary_layout`), as
+    ``xfer.pack_device`` takes them."""
+    scalars = torch.stack([nnz.to(torch.int32),
+                           torch.tensor(result.rounds, dtype=torch.int32,
+                                        device=nnz.device)])
+    return {"unplaced": ("i32", result.unplaced.to(torch.int32)),
+            "feas_count": ("i32", feas.sum(1).to(torch.int32)),
+            "scalars": ("i32", scalars)}
+
+
+def device_compact(result: PlacementResult, feas: torch.Tensor, *,
+                   with_scores: bool, max_nnz: int,
+                   compact_u16: bool = False, slot_m: int = 0):
+    """The schedule program's second half (``_device_compact``,
+    kernels.py:882): the COO of the placements and the packed summary
+    (:func:`summary_layout`).  With ``slot_m`` the COO comes from the
+    slot record (per-alloc entries, counts 1), else from the [U, N]
+    placement matrix.  Returns ``(summary uint8, coo [max_nnz, C])``: C
+    is 5 with scores (row, col, count, score bits, collisions), else 3;
+    int32, or with ``compact_u16`` the low 16 bits as int16 (the host
+    views them as uint16 and reads only the first nnz rows, where the -1
+    fill would wrap)."""
+    u_pad, n_pad = feas.shape
+    if slot_m:
+        tag, coo, nnz = _slots_coo_gather(
+            result.slots, result.slot_scores, result.slot_coll,
+            out_rows=max_nnz, with_scores=with_scores,
+            compact_u16=compact_u16)
+    else:
+        tag, coo, nnz = _compact_coo(
+            result, u_pad=u_pad, n_pad=n_pad, with_scores=with_scores,
+            max_nnz=max_nnz, compact_u16=compact_u16)
+    summary, meta = xfer.pack_device(_summary_parts(result, feas, nnz))
+    assert meta == summary_layout(u_pad, n_pad)
+    if tag == "u16":
+        coo = coo.to(torch.int16)
+    return summary, coo
+
+
+class PassOutput(NamedTuple):
+    """What :func:`device_pass` leaves on the card: the packed summary,
+    the COO and feasibility (for failure forensics)."""
+
+    summary: torch.Tensor        # packed uint8 (summary_layout)
+    coo: torch.Tensor            # [max_nnz, C] int32, or int16 (u16)
+    feas: torch.Tensor           # [U, N] bool
+    commit_steps: int = 0        # the pass's committing spec steps
+
+
+def device_pass(static_buf: torch.Tensor, dyn_buf: torch.Tensor,
+                used_dev: Optional[torch.Tensor] = None, *, meta_s, meta_d,
+                u_pad: int, n_pad: int, with_scores: bool, max_nnz: int,
+                max_rounds: int = 256, slot_m: int = 0) -> PassOutput:
+    """The two-pass device program (``device_pass``, kernels.py:915):
+    :func:`device_schedule` then :func:`device_compact`, the COO in
+    uint16 where :func:`compact_u16_ok` allows it.  The host fetches the
+    summary and a [nnz, C] prefix of the COO."""
+    note_signature("device_pass", (
+        meta_s, meta_d, u_pad, n_pad, with_scores, max_nnz, max_rounds,
+        slot_m, used_dev is not None))
+    result, feas = device_schedule(
+        static_buf, dyn_buf, used_dev, meta_s=meta_s, meta_d=meta_d,
+        u_pad=u_pad, n_pad=n_pad, with_scores=with_scores,
+        max_rounds=max_rounds, slot_m=slot_m)
+    summary, coo = device_compact(
+        result, feas, with_scores=with_scores, max_nnz=max_nnz,
+        compact_u16=compact_u16_ok(u_pad, n_pad, with_scores, max_rounds),
+        slot_m=slot_m)
+    return PassOutput(summary=summary, coo=coo, feas=feas,
+                      commit_steps=result.commit_steps)
+
+
+class FusedOutput(NamedTuple):
+    buf: torch.Tensor            # packed uint8 result buffer
+    meta: tuple                  # its layout (fused_layout)
+    aux: tuple                   # overflow source: ("slots", (slots,
+                                 # scores, coll)) or ("coo", coo)
+    feas: torch.Tensor           # [U, N] bool, for failure forensics
+    commit_steps: int = 0        # the pass's committing spec steps
+
+
+def fused_pass(static_buf: torch.Tensor, dyn_buf: torch.Tensor, *, meta_s,
+               meta_d, u_pad: int, n_pad: int, with_scores: bool,
+               max_nnz: int, max_rounds: int = 256, slot_m: int = 0,
+               used_dev: Optional[torch.Tensor] = None) -> FusedOutput:
+    """The whole batch on the device (``_fused_score_commit``,
+    kernels.py:1017): :func:`device_schedule`, then the compaction into
+    ONE packed result buffer (:func:`fused_layout`) of the summary and a
+    window of the COO; past the window the COO (or the slot record) stays
+    on the device as the overflow source.  ``used_dev`` is the resident
+    usage mirror, as in :func:`device_schedule`."""
+    compact_u16 = compact_u16_ok(u_pad, n_pad, with_scores, max_rounds)
     window_nnz = fused_window(max_nnz, with_scores=with_scores,
                               compact_u16=compact_u16)
-    feas_count = feas.sum(1).to(torch.int32)
+    note_signature("fused_pass", (
+        meta_s, meta_d, u_pad, n_pad, with_scores, max_nnz, max_rounds,
+        slot_m, compact_u16, window_nnz, used_dev is not None))
+    result, feas = device_schedule(
+        static_buf, dyn_buf, used_dev, meta_s=meta_s, meta_d=meta_d,
+        u_pad=u_pad, n_pad=n_pad, with_scores=with_scores,
+        max_rounds=max_rounds, slot_m=slot_m)
     if slot_m:
         tag, coo_win, nnz = _slots_coo_gather(
             result.slots, result.slot_scores, result.slot_coll,
@@ -658,15 +965,8 @@ def fused_pass(static_buf: torch.Tensor, dyn_buf: torch.Tensor, *, meta_s,
             max_nnz=max_nnz, compact_u16=compact_u16)
         coo_win = coo_full[:window_nnz]
         aux = ("coo", coo_full)
-    scalars = torch.stack([nnz.to(torch.int32),
-                           torch.tensor(result.rounds, dtype=torch.int32,
-                                        device=nnz.device)])
-    buf, meta = xfer.pack_device({
-        "unplaced": ("i32", result.unplaced),
-        "feas_count": ("i32", feas_count),
-        "scalars": ("i32", scalars),
-        "coo": (tag, coo_win),
-    })
+    buf, meta = xfer.pack_device({**_summary_parts(result, feas, nnz),
+                                  "coo": (tag, coo_win)})
     assert meta == fused_layout(u_pad, window_nnz=window_nnz,
                                 with_scores=with_scores,
                                 compact_u16=compact_u16)

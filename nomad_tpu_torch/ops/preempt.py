@@ -139,7 +139,11 @@ def eviction_sets(free, used, denom, prio, sizes, ask, job_prio):
     :func:`eviction_sets_reference`, all on one device.  On the CPU the
     plain version; on a card one launch of ``csrc/eviction_sets.cu``."""
     global LAUNCHES
+    from .kernels import note_signature
+
     dev = free.device
+    note_signature("eviction_sets", (dev.type, ask.shape[0],
+                                     *tuple(prio.shape)))
     if dev.type == "cpu":
         return eviction_sets_reference(free, used, denom, prio, sizes, ask,
                                        job_prio)

@@ -182,6 +182,11 @@ def take_device_used(key: Tuple, snap_index: int, host_used: np.ndarray,
                    for i, d in enumerate(mesh.devices)]
         else:
             dev = torch.from_numpy(src).to(device)
+        from .kernels import note_signature
+
+        note_signature("resident_install", (host_used.shape,
+                                            mesh.size if mesh is not None
+                                            else 0))
         DEV_INSTALLS += 1
         DEV_H2D_BYTES += src.nbytes
         tracing.event("resident.device_install", rows=host_used.shape[0],
@@ -242,6 +247,8 @@ def _apply_device_deltas(used_dev, dev_rows) -> None:
     global DEV_APPLIES, DEV_H2D_BYTES
     if not dev_rows:
         return
+    from .kernels import note_signature
+
     if isinstance(used_dev, list):
         from .encode import route_shard_deltas
 
@@ -254,6 +261,8 @@ def _apply_device_deltas(used_dev, dev_rows) -> None:
                 continue
             r, v = rows[s_i][keep], vals[s_i][keep]
             DEV_H2D_BYTES += r.nbytes + v.nbytes
+            note_signature("resident_delta_mesh",
+                           (tuple(part.shape), len(r), len(used_dev)))
             part.index_add_(0, torch.from_numpy(r).to(part.device),
                             torch.from_numpy(v).to(part.device))
         DEV_APPLIES += 1
@@ -262,6 +271,7 @@ def _apply_device_deltas(used_dev, dev_rows) -> None:
                        count=len(dev_rows))
     vals = np.array([vec for _, vec in dev_rows], dtype=np.int32)
     DEV_H2D_BYTES += rows.nbytes + vals.nbytes
+    note_signature("resident_delta", (tuple(used_dev.shape), len(rows)))
     used_dev.index_add_(0, torch.from_numpy(rows).to(used_dev.device),
                         torch.from_numpy(vals).to(used_dev.device))
     DEV_APPLIES += 1

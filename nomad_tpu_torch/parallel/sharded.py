@@ -512,6 +512,10 @@ def sharded_fused_pass(mesh: NodeMesh, static_shards: Sequence[torch.Tensor],
     compact_u16 = not with_scores and u_pad <= 65536 and n_pad <= 65536
     window_nnz = kernels.fused_window(max_nnz, with_scores=with_scores,
                                       compact_u16=compact_u16)
+    kernels.note_signature("sharded_fused_pass", (
+        tuple(str(dv) for dv in mesh.devices), meta_s, meta_d, u_pad,
+        n_pad, with_scores, slot_m, k_cand, window_nnz, compact_u16,
+        used_dev is not None))
     dyn = {dev: xfer.unpack_device(dyn_buf.to(dev), meta_d)
            for dev in dict.fromkeys(mesh.devices)}
     shards = []

@@ -155,6 +155,7 @@ from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
 from .. import device as device_mod
+from ..ops import batch_sched
 from ..ops import breaker as breaker_mod
 from ..scheduler.annotate import annotate
 from ..scheduler.scheduler import new_scheduler
@@ -238,6 +239,9 @@ class ServerConfig:
     ``NOMAD_TPU_PIPELINE`` and ``NOMAD_TPU_STALE_SNAPSHOT``.  ``breaker``
     is the kernel breaker every batch scheduler uses (default: the
     process-wide ``ops.breaker.BREAKER``, read at each batch).
+    ``dispatch`` is the batch scheduler's single-card device program
+    (``"fused"``, ``"two_pass"`` or ``"staged"``; the reference's
+    ``NOMAD_TPU_FUSED`` and ``NOMAD_TPU_TIMING=2``).
     ``min_heartbeat_ttl`` is the shortest node TTL granted (it grows with
     the fleet, at 50 heartbeats a second).  ``columnar`` keeps the state
     store's columnar mirror (``state/columnar.py``), which the batch
@@ -314,6 +318,7 @@ class ServerConfig:
     min_heartbeat_ttl: float = 10.0
     columnar: bool = True
     columnar_guard_every: int = columnar_mod.GUARD_EVERY
+    dispatch: str = "fused"
     trace: bool = False
     events: bool = False
     events_ring: int = 4096
@@ -362,6 +367,7 @@ class Server:
                  vault_api=None):
         self.config = config or ServerConfig()
         cfg = self.config
+        batch_sched.check_dispatch(cfg.dispatch)
         if cfg.mesh is not None:
             self.device = cfg.mesh.root
         else:
@@ -547,7 +553,8 @@ class Server:
         cfg = self.config
         sched_kwargs = {"rng_seed": cfg.rng_seed,
                         "preemption_enabled": cfg.preemption_enabled,
-                        "columnar_guard_every": cfg.columnar_guard_every}
+                        "columnar_guard_every": cfg.columnar_guard_every,
+                        "dispatch": cfg.dispatch}
         if cfg.mesh is not None:
             sched_kwargs["mesh"] = cfg.mesh
         else:

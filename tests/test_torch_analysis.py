@@ -1,7 +1,8 @@
 """The port's static analysis pass (``nomad_tpu_torch/analysis``), the
-cases of ``tests/test_analysis.py`` that belong to its two rule families
-(lock discipline, guard coverage), each on a seeded source snippet, and
-the whole tree: zero unsuppressed violations, every allowlist entry with
+cases of ``tests/test_analysis.py`` that belong to its rule families
+(lock discipline, guard coverage, and device discipline, the reference's
+jaxrules), each on a seeded source snippet or a planted copy, and the
+whole tree: zero unsuppressed violations, every allowlist entry with
 a reason and a match, every source file scanned, and the sanitized native
 corpus clean (or skipped with its reason where the runtimes are
 missing).
@@ -15,9 +16,9 @@ import textwrap
 import pytest
 
 from nomad_tpu_torch.analysis import (RULE_FAMILIES, Allowlist, SourceFile,
-                                      guardrules, iter_source_files,
-                                      load_tree, lockrules, repo_root,
-                                      run_checks)
+                                      devicerules, guardrules,
+                                      iter_source_files, load_tree,
+                                      lockrules, repo_root, run_checks)
 from nomad_tpu_torch.analysis.__main__ import main as analysis_main
 
 ROOT = repo_root()
@@ -265,6 +266,109 @@ def test_registry_claims_every_native_source():
         "codec.cc", "decode.cc", "ids.cc", "wal.cc"]
 
 
+# -- device discipline -------------------------------------------------------
+
+KERNELS_PY = "nomad_tpu_torch/ops/kernels.py"
+
+
+def _device(source, path="nomad_tpu_torch/ops/fake.py"):
+    return devicerules.check(ROOT, [_sf(path, source)])
+
+
+def _real(path):
+    with open(os.path.join(ROOT, path), encoding="utf-8") as fh:
+        return fh.read()
+
+
+def test_planted_item_in_a_hot_module_is_flagged():
+    """A copy of ops/kernels.py with an ``.item()`` planted in the round
+    kernel's loop: one new torch-host-sync finding, which the tree's
+    allowlist does not excuse."""
+    src = _real(KERNELS_PY)
+    anchor = "        rounds += 1\n        placed, left, fits, round_steps"
+    assert anchor in src
+    planted = src.replace(anchor, "        t['used'].sum().item()\n" + anchor)
+    before = {v.key for v in devicerules.check(ROOT, [_sf(KERNELS_PY, src)])}
+    after = devicerules.check(ROOT, [_sf(KERNELS_PY, planted)])
+    new = [v for v in after if v.key not in before]
+    assert [v.key for v in new] == [
+        f"torch-host-sync {KERNELS_PY}::_kernel_rounds::t.item"]
+    allow = Allowlist(os.path.join(ROOT, "nomad_tpu_torch", "analysis",
+                                   "allowlist.txt"))
+    assert not allow.suppresses(new[0])
+
+
+def test_host_syncs_of_tensors_fire_and_numpy_reads_do_not():
+    out = _device("""
+        import numpy as np
+        import torch
+        def f(x: torch.Tensor, y):
+            a = torch.zeros(3)
+            n = int(a.sum())
+            b = np.zeros(3)
+            m = int(b.sum()) + len(b.tolist()) + y.count(1)
+            t = a.tolist()
+            torch.cuda.synchronize()
+            return bool(x[0]), float(a.max()), a.cpu().numpy()
+        """)
+    assert sorted(v.detail for v in out) == [
+        "a.cpu", "a.tolist", "bool(x)", "float(a)", "int(a)",
+        "torch.cuda.synchronize"]
+    assert all(v.rule == "torch-host-sync" and v.qualname == "f"
+               for v in out)
+
+
+def test_host_sync_rule_covers_only_the_hot_modules():
+    src = "import torch\ndef f():\n    return torch.zeros(1).item()\n"
+    assert _device(src, "nomad_tpu_torch/ops/x.py")
+    assert _device(src, "nomad_tpu_torch/parallel/x.py")
+    assert not _device(src, "nomad_tpu_torch/server/x.py")
+
+
+def test_planted_launcher_without_note_signature_is_flagged():
+    launcher = """
+        from . import fused_score
+        def launch(x):
+            fn = fused_score._fn("scored_rows")
+            return fn(x.data_ptr())
+        """
+    out = _device(launcher)
+    assert [(v.rule, v.detail) for v in out] == [
+        ("torch-note-signature", "launch-in:launch")]
+    noted = launcher.replace(
+        "            fn = fused_score._fn",
+        "            kernels.note_signature('x', ())\n"
+        "            fn = fused_score._fn")
+    assert _device(noted) == []
+
+
+def test_round_kernel_loop_reads_the_host_once_a_round():
+    """The kernel route's only host reads are the first round's test and
+    the status read of each round; every module that launches a kernel
+    registers its signatures."""
+    files = load_tree(ROOT)
+    out = devicerules.check(ROOT, files)
+    loop = sorted(v.detail for v in out
+                  if v.qualname == "_kernel_rounds")
+    assert loop == ["first.tolist", "status.tolist"]
+    assert not [v for v in out if v.rule == "torch-note-signature"]
+
+
+def test_device_discipline_is_clean_on_the_tree():
+    active, suppressed = run_checks(ROOT, rules=["device-discipline"])
+    assert active == [], "\n".join(v.render() for v in active)
+    assert any(v.rule == "torch-host-sync" for v in suppressed)
+
+
+def test_stale_device_entry_fails(tmp_path):
+    allow = tmp_path / "allow.txt"
+    allow.write_text(f"torch-host-sync {KERNELS_PY}::gone::x.item  "
+                     "# covers nothing\n")
+    active, _ = run_checks(ROOT, allowlist_path=str(allow))
+    assert any(v.rule == "allowlist" and "stale" in v.detail
+               and "gone" in v.detail for v in active)
+
+
 # -- the allowlist -----------------------------------------------------------
 
 def test_stale_entry_fails(tmp_path):
@@ -338,7 +442,8 @@ def test_every_source_file_is_scanned():
 
 
 def test_unknown_rule_family_raises():
-    assert RULE_FAMILIES == ("lock-discipline", "guard-coverage")
+    assert RULE_FAMILIES == ("lock-discipline", "guard-coverage",
+                             "device-discipline")
     with pytest.raises(ValueError, match="unknown rule family"):
         run_checks(ROOT, rules=["knob-registry"])
 
