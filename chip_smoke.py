@@ -22,7 +22,7 @@ Phases, each printed as one JSON line:
 5. config_b -- the single-card path at BASELINE.json config (b) width:
                10,000 nodes, 100 jobs x 1000 asks, then two follow-up
                batches against the live placements, through
-               ``schedule_batch``: one round-kernel launch a round, the
+               ``schedule_batch``: one round-kernel launch a batch, the
                committing steps inside the bounds read from the result;
 5b. rounds  -- the round kernel (``csrc/placement_rounds.cu``) against
                its plain version, the eager ``placement_rounds``, on the
@@ -43,7 +43,7 @@ Phases, each printed as one JSON line:
                two follow-up batches against the live placements and
                their offers: no node over capacity or bandwidth, no port
                used twice on a node, every dynamic port in [20000,
-               60000), one round-kernel launch a round;
+               60000), one round-kernel launch a batch;
                the warm device pass and device ops per committing step
                beside the same batch with networks stripped;
 8. distinct_property -- config (c) width: 5,000 nodes with ``meta.rack``
@@ -75,7 +75,7 @@ Phases, each printed as one JSON line:
                then the default 16), through ``TorchBatchScheduler`` and
                the store-backed ``PlanApplier``; the same waves over a
                ``StateStore(columnar=False)``: the same plans, no guard
-               mismatch, no node over capacity, every ask placed, one round-kernel launch a round and the kernel
+               mismatch, no node over capacity, every ask placed, one round-kernel launch a batch and the kernel
                held at its shapes there; the static encode and the usage
                read timed against their walks, and each wave's encode,
                total and applier seconds by route; then the store with
@@ -92,7 +92,7 @@ Phases, each printed as one JSON line:
                destructively), on the card and again on the CPU: every
                plan and eval update identical, batch 0 identical to the
                list entry's placements, no node over capacity, no static
-               bytes uploaded by a follow-up, one round-kernel launch a round; then the kernel breaker drill (a
+               bytes uploaded by a follow-up, one round-kernel launch a batch; then the kernel breaker drill (a
                corrupted result rejected, the oracle carrying, a clean
                probe closing it);
 15. applied -- plans applied and fed back at config (b) width: the
@@ -162,7 +162,7 @@ Phases, each printed as one JSON line:
                32 nodes are added).  Card = CPU on every committed alloc
                and eval status; no node over capacity; the breaker
                closed with no trip and no oracle route; no eval nacked or
-               failed; one round-kernel launch a round the batches report, one ``eviction_sets`` launch in
+               failed; one round-kernel launch a batch the batches report, one ``eviction_sets`` launch in
                the drill; each wave's wall time, evals per second and the
                server's telemetry (batch, scheduler, plan queue wait,
                plan evaluate and apply); the servers keep their store's
@@ -189,7 +189,7 @@ Phases, each printed as one JSON line:
                decrease, one ``PlanApplied`` per applied plan, their
                placements sum to the committed allocs, one
                ``NodeRegistered`` per node, the subscriber never shed;
-               one round-kernel launch a round, the
+               one round-kernel launch a batch, the
                drill's one ``eviction_sets`` launch in the batch whose
                ``batch.preempt`` span commits it; card = CPU on each
                eval's span names and on the events by content; one traced
@@ -208,7 +208,7 @@ Phases, each printed as one JSON line:
                holding their new versions, on the card and on the CPU:
                the same plans, plan annotations, eval updates and
                failure forensics, no oracle route, one round-kernel
-               launch a round, the store's allocs untouched;
+               launch a batch, the store's allocs untouched;
                each job's ``job_diff`` annotated with its plan's updates
                ("forces create" on Count, "forces create/destroy update"
                on the env edit); then ``Server.job_plan`` of a job's
@@ -252,7 +252,7 @@ Phases, each printed as one JSON line:
                = C on committed allocs, eval statuses, blocked stats,
                queued counts and every job's version history
                (``job_versions_by_id``, also restored equal to the
-               pre-crash history); one round-kernel launch a round; one full re-encode of the resident mirror after the
+               pre-crash history); one round-kernel launch a batch; one full re-encode of the resident mirror after the
                restore, then hits; no guard mismatch, no nack, the
                breaker closed, no node over capacity; a restart from the
                snapshot alone equal again.  ``raft.apply`` mean and p99
@@ -277,7 +277,7 @@ Phases, each printed as one JSON line:
                and queued counts after each step; A against B printed
                where it differs; every survivor's fingerprint equal; the
                new leader's applied index at least the last acknowledged;
-               one round-kernel launch a round on the old
+               one round-kernel launch a batch on the old
                leader and on the new one; one full re-encode of the
                resident mirror more than B's after the failover; no guard
                mismatch, no nack, the breaker closed, no node over
@@ -292,7 +292,7 @@ Phases, each printed as one JSON line:
                its count of distinct allocs, no node over capacity, the
                survivors' fingerprints equal, plans forwarded by the
                followers and none by the leader's own channel, a
-               round-kernel launch a round on each leader; the lag
+               round-kernel launch a batch on each leader; the lag
                handbacks and
                the ``follower.snapshot_lag`` samples;
 23. lifecycle -- the job lifecycle: periodic and parameterized batch
@@ -324,7 +324,7 @@ Phases, each printed as one JSON line:
                and what GC deleted (children keyed by parent and
                ordinal); 0 guard mismatches before and after the GC; no
                node over capacity; the breaker closed, no oracle route, no
-               nack, no failed eval; one round-kernel launch a round in each wave and none of
+               nack, no failed eval; one round-kernel launch a batch in each wave and none of
                ``eviction_sets``; each wave's evals per second, the GC's
                seconds, the tenants' dequeues and the force and dispatch
                latencies;
@@ -342,7 +342,7 @@ Phases, each printed as one JSON line:
                every submission acknowledged and complete, every job its
                count of live allocs, a clean strict integrity sweep, no
                nack or failed eval, the breaker closed, no oracle route,
-               one round-kernel launch a round, exactly
+               one round-kernel launch a batch, exactly
                one ``slo.plan_apply_p99`` bundle (valid JSON with every
                section) and its ``BundleCaptured`` event on the stream,
                at least 80 % of the non-idle host samples attributed,
@@ -372,7 +372,7 @@ Phases, each printed as one JSON line:
                A's script on the CPU.  A = B = C on the placements (job,
                alloc name -> node) and eval statuses, A = B on the
                scores, A vs C within 4e-6; every parsed job's wire form
-               that of its ``mock.job()``; one round-kernel launch a round and 0 differing bits at the shapes the
+               that of its ``mock.job()``; one round-kernel launch a batch and 0 differing bits at the shapes the
                path gave it; no nack or failed eval, the breaker closed,
                no oracle route, no node over capacity; blocking queries
                on the jobs and allocs tables started before the
@@ -416,7 +416,7 @@ Phases, each printed as one JSON line:
                task pid alive after each world's shutdown, nothing made
                under /sys/fs/cgroup, the supervisor start times (median,
                p99); no alloc terminal before the wave's last eval is
-               acked; one round-kernel launch a round and the kernel at the shapes the path gave
+               acked; one round-kernel launch a batch and the kernel at the shapes the path gave
                it within 4e-6 of its plain version; no nack, the breaker
                closed, no oracle route, no node over capacity; every alloc
                dir made where its alloc ran and none left after the GC
@@ -442,7 +442,7 @@ Phases, each printed as one JSON line:
                A = C on each region's placements, unplaced counts and
                AllocMetric scores (within 4e-6), every job only in its
                own region and none holding allocs in two
-               (``federated_sweep``), one round-kernel launch a round and the kernel at A's shapes against its
+               (``federated_sweep``), one round-kernel launch a batch and the kernel at A's shapes against its
                plain version (0 differing bits).  Leg 2: r1 stopped; its
                submissions through r0 (in process and over the wire)
                raise ``NoPathToRegion`` with a ``retry_after`` within 10
@@ -453,13 +453,13 @@ Phases, each printed as one JSON line:
                legs 1 and 2, the forward tax as a rate: 256 one-alloc
                jobs of r1 from 8 threads, through r1 itself, then
                through r0 (forwarded): registrations and evals acked a
-               second in each stream, one launch a round.
+               second in each stream, one launch a batch.
                Leg 3 (A only): the ``multi_region`` scenario through
                ``run_multi_region``'s harness on card servers (80
                nodes, 480 submissions, 25 % cross-region, r1 dark 3 s
                at 4 s): the federated auditor's 0 violations, the
                blackout recovered, its breaker closed with no trip and
-               no oracle route, one launch a round of its servers, the kernel at its shapes against its plain
+               no oracle route, one launch a batch of its servers, the kernel at its shapes against its plain
                version (0 differing bits), and the forward's submit
                latency, local against cross;
 28. drills  -- the thirteen drills of ``python -m nomad_tpu_torch.ops
@@ -474,7 +474,7 @@ Phases, each printed as one JSON line:
                analysis (the static pass clean, the lock-order sanitizer's
                seeded inversion, the native corpora under ASan and UBSan:
                ``clean`` or ``skip: <reason>``, printed); every drill
-               must pass; the round kernel runs once a round of the
+               must pass; the round kernel runs once a batch of the
                single card's batches, ``scored_rows`` once per committing
                step and shard of the mesh's, ``masked_score_matrix``
                launches four a call of
@@ -495,7 +495,8 @@ Phases, each printed as one JSON line:
 Each path is driven with the kernels' launch counts set to 0 just before
 it and read just after; a path that should launch a kernel and did not
 fails.  On one card the placement loop is the round kernel: a batch
-launches it once a round it runs and launches no ``scored_rows`` (whose
+launches it once, every round inside the launch, and launches no
+``scored_rows`` (whose
 arithmetic runs inside it); its committing steps equal the batches'
 ``batch.commit_steps``.  On a mesh the loop is the eager one, and
 ``scored_rows`` runs once per committing step and shard.
@@ -884,7 +885,7 @@ def check_mesh_launches(res, counts, what):
     """The launches of one batch (:func:`loop_counts`) held to the bounds
     of :func:`committing_steps_bounds`: on a mesh a committing spec step
     launches ``scored_rows`` once per shard (D times the bounds); on the
-    single card the round kernel runs once a round and its committing
+    single card the round kernel runs once a batch and its committing
     steps lie inside the bounds.  Returns the bounds the count was held
     to."""
     d = res.mesh_shards
@@ -940,7 +941,7 @@ def phase_config_b(dev):
                "decode_s": res.timings["decode"]}
         out.append(row)
         emit({"phase": "config_b", **row})
-        # One round-kernel launch a round run, no score kernel, and the
+        # One round-kernel launch a batch, no score kernel, and the
         # kernel's committing steps inside the bounds read from the result
         # (before the round kernel: one scored_rows launch a step).
         check_steps(res, counts, f"config_b batch {b}")
@@ -1035,10 +1036,12 @@ def round_routes(call, dev, profile=False) -> dict:
     """One recorded batch through ``device_schedule`` on the card with the
     round kernel, and through ``schedule_inputs`` and the eager
     ``placement_rounds`` (the plain version, on the same CUDA tensors):
-    both results held bit for bit, each route's seconds, launches and
-    committing steps; with ``profile`` the kernel's device time per
-    launch (profiler, CUDA events as the cross-check) and each route's
-    device busy and idle share."""
+    both results held bit for bit, each route's seconds (timed without
+    the step-bounds recorder, :func:`bare_rounds`), launches and
+    committing steps, the kernel's grid, grid barriers a step and time
+    per launch (CUDA events); with ``profile`` also its profiler time
+    and share of its bound, and each route's device busy and idle
+    share."""
     import torch
 
     from nomad_tpu_torch.ops import fused_score, kernels
@@ -1068,8 +1071,10 @@ def round_routes(call, dev, profile=False) -> dict:
 
     kernel_route()    # warm: the first call builds and loads
     zero_counts()
-    got, k_s = timed(kernel_route)
+    got = kernel_route()
     k_counts = loop_counts()
+    with bare_rounds():
+        _, k_s = timed(kernel_route)
     steps = []
     real_scored = fused_score.scored_rows
 
@@ -1094,6 +1099,8 @@ def round_routes(call, dev, profile=False) -> dict:
     nbytes = round_step_bytes(a, extra, steps, placed)
     launches = k_counts["placement_rounds_launches"]
     bound_ms = nbytes / HBM_BYTES_PER_S * 1e3 / max(1, launches)
+    dp_steps = sum(1 for u in steps if extra["dp"] is not None
+                   and bool(extra["dp"].active[u]))
     row = {"u_pad": kwargs["u_pad"], "n_pad": kwargs["n_pad"],
            "with_networks": extra["net"] is not None,
            "with_dp": extra["dp"] is not None, **opts,
@@ -1102,30 +1109,44 @@ def round_routes(call, dev, profile=False) -> dict:
                            **e_counts},
            "rounds": got.rounds, "placed": placed, "step_bytes": nbytes,
            "bound_ms_per_launch": bound_ms, "bound_by": "bytes",
+           # The kernel's grid barriers (csrc/placement_rounds.cu): four a
+           # committing step, two more a distinct_property step, two a
+           # round test (one before the first round and one after each
+           # round that placed something under max_rounds), one a spec
+           # step with k == 0 (not counted here).
+           "grid_barriers_committing_steps": 4 * len(steps) + 2 * dp_steps,
+           "grid_barriers_per_committing_step": (4 * len(steps)
+                                                 + 2 * dp_steps)
+           / max(1, len(steps)),
            **round_diffs(got, want)}
-    if not profile:
-        return row
-    # The kernel's device time per launch: the profiler's events, and CUDA
-    # events around each launch as the cross-check.
+    # The grid the launch ran on (its status: blocks, keys in shared
+    # memory), and with ``profile`` its device time: CUDA events around
+    # each launch, the profiler's events as the cross-check.
     real_round = fused_score.placement_round
-    ev = []
+    ev, grids = [], []
 
-    def evented(t, seed):
+    def evented(t, seed, max_rounds):
         s0 = torch.cuda.Event(enable_timing=True)
         s1 = torch.cuda.Event(enable_timing=True)
         s0.record()
-        out = real_round(t, seed)
+        out = real_round(t, seed, max_rounds)
         s1.record()
         ev.append((s0, s1))
+        grids.append(out)
         return out
 
     fused_score.placement_round = evented
     try:
-        kernel_route()
+        with bare_rounds():
+            kernel_route()
     finally:
         fused_score.placement_round = real_round
     torch.cuda.synchronize()
+    row["grid_blocks"] = [int(g[2]) for g in grids]
+    row["keys_in_shared_memory"] = [bool(g[3]) for g in grids]
     row["kernel_ms_cuda_events"] = [a0.elapsed_time(a1) for a0, a1 in ev]
+    if not profile:
+        return row
     for name, fn in (("kernel_route", kernel_route),
                      ("eager_route", eager_route)):
         wall = {}
@@ -1136,7 +1157,8 @@ def round_routes(call, dev, profile=False) -> dict:
             torch.cuda.synchronize()
             wall["s"] = time.perf_counter() - t0
 
-        evs = cuda_kernel_events(profiled(run))
+        with bare_rounds():
+            evs = cuda_kernel_events(profiled(run))
         if not evs:
             row[name]["device_busy_s"] = "not measured (no device events)"
             continue
@@ -1150,29 +1172,93 @@ def round_routes(call, dev, profile=False) -> dict:
                                or len(steps))})
         if name == "kernel_route":
             ks = [e.time_range.elapsed_us() for e in evs
-                  if "placement_round_kernel" in e.name]
+                  if "placement_rounds_kernel" in e.name]
             row["kernel_us_per_launch_profiler"] = ks
             if len(ks) != launches:
                 raise AssertionError(f"the trace shows {len(ks)} round "
                                      f"kernel runs, {launches} launches")
+            row.update(bound_share(bound_ms, statistics.median(ks) / 1e3))
     return row
+
+
+# The grids timed at config (b) batch 0 (10,112 nodes: ten blocks of
+# 1,024 threads at most), and at 250,112 and 1,000,064 nodes (a quarter,
+# half and all of the H100's 132 SMs): at most this many blocks.
+ROUND_GRID_CHOICES = (1, 2, 5, 10)
+ROUND_GRID_CHOICES_LARGE = (33, 66, 132)
+
+
+def round_grid_choice(call, dev, caps=ROUND_GRID_CHOICES, reps=5) -> list:
+    """One recorded batch's rounds (``call`` from
+    :func:`recorded_schedules`) through the round kernel on grids of at
+    most ``caps`` blocks, on the same inputs: each result held bit for
+    bit against the eager loop's, each grid's device time per launch
+    (CUDA events around the launch, ``reps`` runs)."""
+    import torch
+
+    from nomad_tpu_torch.ops import fused_score, kernels
+
+    args, kwargs = call
+    used_dev = args[2] if len(args) > 2 else kwargs.get("used_dev")
+    opts = {"max_rounds": 256, "slot_m": 0,
+            **{k: kwargs[k] for k in ("max_rounds", "with_scores", "slot_m")
+               if k in kwargs}}
+    a, extra = kernels.schedule_inputs(
+        args[0], args[1], used_dev,
+        **{k: kwargs[k] for k in ("meta_s", "meta_d", "u_pad", "n_pad")})
+    want = kernels.placement_rounds(*a, **opts, **extra)
+    rows = []
+    for cap in caps:
+        ms, grids = [], []
+
+        def launch(t, seed, max_rounds):
+            s0 = torch.cuda.Event(enable_timing=True)
+            s1 = torch.cuda.Event(enable_timing=True)
+            s0.record()
+            out = fused_score.placement_round(t, seed, max_rounds)
+            s1.record()
+            ms.append((s0, s1))
+            grids.append(out)
+            return out
+
+        for _ in range(reps):
+            got = kernels._kernel_rounds(
+                *a, opts["max_rounds"], opts["with_scores"], opts["slot_m"],
+                extra["net"], extra["dp"], launch, cap)
+        torch.cuda.synchronize()
+        times = [e0.elapsed_time(e1) for e0, e1 in ms]
+        row = {"n_pad": kwargs["n_pad"], "max_blocks": cap,
+               "grid_blocks": int(grids[-1][2]),
+               "kernel_ms_cuda_events": times,
+               "median_ms": statistics.median(times),
+               **round_diffs(got, want)}
+        rows.append(row)
+        emit({"phase": "rounds", "grid_choice": row})
+        if not row["equal"]:
+            raise AssertionError(f"rounds: a grid of {cap} blocks differs "
+                                 f"from the eager loop: {row}")
+    return rows
 
 
 def round_replay(label, call, dev) -> dict:
     """One recorded batch of a large phase (``call``, from
     :func:`recorded_schedules`) through both routes (:func:`round_routes`:
-    the round kernel and the eager loop on the same CUDA tensors), every
-    output bit for bit; emitted as phase ``rounds`` rows, so that the
-    kernel's one-block design is timed against the loop it replaced at
-    the sizes where its one SM matters most."""
-    row = {"batch": label, **round_routes(call, dev)}
+    the round kernel and the eager loop on the same CUDA tensors, the
+    kernel's device time traced), every output bit for bit; emitted as
+    phase ``rounds`` rows, so that the kernel's grid over the card is
+    timed against the loop it replaced at the sizes where the grid
+    matters most, and on grids of a quarter, half and all of the SMs."""
+    row = {"batch": label, **round_routes(call, dev, profile=True),
+           "grid_choice": round_grid_choice(call, dev,
+                                            ROUND_GRID_CHOICES_LARGE)}
     k, e = row["kernel_route"], row["eager_route"]
     row["kernel_ms_per_step"] = (k["seconds"] * 1e3
                                  / max(1, k["committing_spec_steps"]))
     row["eager_ms_per_step"] = (e["seconds"] * 1e3
                                 / max(1, e["committing_spec_steps"]))
     emit({"phase": "rounds", **row})
-    if (not row["equal"] or k["placement_rounds_launches"] != row["rounds"]
+    if (not row["equal"] or k["placement_rounds_launches"] != 1
+            or k["round_calls"] != 1
             or k["committing_spec_steps"] != e["committing_spec_steps"]
             or k["scored_rows_launches"]):
         raise AssertionError(f"{label}: the round kernel and the eager loop "
@@ -1185,9 +1271,12 @@ def phase_rounds(dev):
     three batches and phase distinct_property's batch (networks and
     distinct_property), each batch's ``device_schedule`` arguments
     recorded from the library entry on the card and replayed through both
-    routes, every output bit for bit; batch 0's seconds, launches,
-    committing steps, the kernel's device time per launch and each
-    route's device idle share.  Then config (b)'s batch 0 through the
+    routes, every output bit for bit, one launch a batch; batch 0's
+    seconds, committing steps, the kernel's device time per launch, its
+    grid and share of the bound, each route's device idle share, and the
+    kernel on grids of 1 to 10 blocks (:func:`round_grid_choice`).
+    (Phases ``columnar`` and ``mesh`` replay 250,112 and 1,000,064 nodes
+    the same way, :func:`round_replay`.)  Then config (b)'s batch 0 through the
     two-pass and staged dispatches: placements equal to the fused
     route's, the staged route's schedule and compact seconds."""
     from nomad_tpu_torch import mock
@@ -1210,6 +1299,8 @@ def phase_rounds(dev):
                **round_routes(calls[0], dev, profile=b == 0)}
         rows.append(row)
         emit({"phase": "rounds", **row})
+        if b == 0:
+            grid_choice = round_grid_choice(calls[0], dev)
     dp_nodes = []
     for i in range(5_000):
         n = mock.node()
@@ -1231,7 +1322,8 @@ def phase_rounds(dev):
     emit({"phase": "rounds", **row})
     bad = [r["batch"] for r in rows if not r["equal"]
            or not r["with_networks"] == (r["batch"] == "networks_dp")
-           or r["kernel_route"]["placement_rounds_launches"] != r["rounds"]
+           or r["kernel_route"]["placement_rounds_launches"] != 1
+           or r["kernel_route"]["round_calls"] != 1
            or r["kernel_route"]["scored_rows_launches"]
            or r["kernel_route"]["dp_host_reads"]
            or r["kernel_route"]["committing_spec_steps"]
@@ -1256,7 +1348,8 @@ def phase_rounds(dev):
                 "schedule", "compact"} <= set(res.timings)):
             raise AssertionError(f"rounds: dispatch {mode}: "
                                  f"{dispatch[mode]}")
-    return {"batches": rows, "dispatch": dispatch}
+    return {"batches": rows, "grid_choice": grid_choice,
+            "dispatch": dispatch}
 
 
 # -- phase 5: card vs CPU ----------------------------------------------------
@@ -1352,7 +1445,9 @@ def network_check(nodes, allocs):
 # rounds result since zero_counts(), read from the placements alone
 # (result_step_bounds): [lo, hi].  The round kernel reports its own
 # steps; these hold that count to what it placed.
-_STEP_BOUNDS = [0, 0]
+# The single card's step bounds read from its placements, and its calls
+# of the placement loop that launch the round kernel (work to run).
+_STEP_BOUNDS = [0, 0, 0]
 _STEP_LOCK = threading.Lock()
 
 
@@ -1381,7 +1476,9 @@ def result_step_bounds(res, count, slot_m) -> tuple:
 
 def record_step_bounds():
     """Wrap ``kernels.run_placement_rounds`` once per process so that each
-    result adds its :func:`result_step_bounds` to ``_STEP_BOUNDS``."""
+    result adds its :func:`result_step_bounds` to ``_STEP_BOUNDS``, and
+    each call on a card with work (a spec, a node, a round allowed) one
+    to its count of round-kernel calls."""
     from nomad_tpu_torch.ops import kernels
 
     real = kernels.run_placement_rounds
@@ -1390,15 +1487,37 @@ def record_step_bounds():
 
     def bounded(*args, **kwargs):
         res = real(*args, **kwargs)
+        feas = args[0] if args else kwargs["feas"]
         count = args[5] if len(args) > 5 else kwargs["count"]
+        max_rounds = args[11] if len(args) > 11 else kwargs.get(
+            "max_rounds", 256)
+        work = (feas.device.type == "cuda" and min(feas.shape) > 0
+                and max_rounds > 0)
         lo, hi = result_step_bounds(res, count, kwargs.get("slot_m", 0))
         with _STEP_LOCK:
             _STEP_BOUNDS[0] += lo
             _STEP_BOUNDS[1] += hi
+            _STEP_BOUNDS[2] += int(work)
         return res
 
     bounded.step_bounds = True
+    bounded.real = real
     kernels.run_placement_rounds = bounded
+
+
+@contextlib.contextmanager
+def bare_rounds():
+    """``kernels.run_placement_rounds`` without :func:`record_step_bounds`'
+    wrapper (its host read-back of every result) inside the block: for
+    runs that are timed or traced, not counted."""
+    from nomad_tpu_torch.ops import kernels
+
+    wrapped = kernels.run_placement_rounds
+    kernels.run_placement_rounds = getattr(wrapped, "real", wrapped)
+    try:
+        yield
+    finally:
+        kernels.run_placement_rounds = wrapped
 
 
 def zero_counts():
@@ -1411,18 +1530,20 @@ def zero_counts():
     fused_score.ROUND_LAUNCHES = preempt.LAUNCHES = 0
     kernels.COMMIT_STEPS = kernels.DP_HOST_READS = kernels.ROUNDS = 0
     with _STEP_LOCK:
-        _STEP_BOUNDS[:] = [0, 0]
+        _STEP_BOUNDS[:] = [0, 0, 0]
 
 
 def loop_counts() -> dict:
     """The placement loops' launches and counts since :func:`zero_counts`:
-    round-kernel launches (one a round on one card), ``scored_rows``
-    launches (one a committing step a shard on a mesh), the committing
-    spec steps and the eager loops' distinct_property host reads, and
-    the single card's step bounds read from its placements."""
+    round-kernel launches (one a call of the loop with work on one card,
+    every round inside it) and those calls, ``scored_rows`` launches (one
+    a committing step a shard on a mesh), the committing spec steps and
+    the eager loops' distinct_property host reads, and the single card's
+    step bounds read from its placements."""
     from nomad_tpu_torch.ops import fused_score, kernels
 
     return {"placement_rounds_launches": fused_score.ROUND_LAUNCHES,
+            "round_calls": _STEP_BOUNDS[2],
             "scored_rows_launches": fused_score.LAUNCHES,
             "committing_spec_steps": kernels.COMMIT_STEPS,
             "dp_host_reads": kernels.DP_HOST_READS,
@@ -1440,6 +1561,7 @@ def kernel_counts(**extra) -> dict:
             "masked_score_matrix": fused_score.MASKED_LAUNCHES,
             "eviction_sets": preempt.LAUNCHES,
             "placement_rounds": fused_score.ROUND_LAUNCHES,
+            "round_calls": _STEP_BOUNDS[2],
             "committing_spec_steps": kernels.COMMIT_STEPS,
             "rounds_run": kernels.ROUNDS,
             "steps_lo": _STEP_BOUNDS[0], "steps_hi": _STEP_BOUNDS[1],
@@ -1462,12 +1584,14 @@ def steps_in_bounds(counts) -> bool:
 
 
 def one_card_work_ok(counts, rounds, steps=None) -> bool:
-    """What one card's batches launch (the round kernel once a round run,
-    ``rounds`` summed over them, at least once; no score kernel; no host
-    read of a distinct_property step), with the kernel's committing
-    steps inside the bounds read from its placements and equal to
-    ``steps`` (the server's ``batch.commit_steps``) where it is given."""
-    return (counts["placement_rounds_launches"] == rounds > 0
+    """What one card's batches launch (the round kernel once a call of the
+    placement loop with work, at least once, the rounds read from its
+    status summing to ``rounds``; no score kernel; no host read of a
+    distinct_property step), with the kernel's committing steps inside
+    the bounds read from its placements and equal to ``steps`` (the
+    server's ``batch.commit_steps``) where it is given."""
+    return (counts["placement_rounds_launches"] == counts["round_calls"] > 0
+            and counts["rounds_run"] == rounds
             and counts["scored_rows_launches"] == 0
             and counts.get("dp_host_reads", 0) == 0
             and steps_in_bounds(counts)
@@ -1476,7 +1600,8 @@ def one_card_work_ok(counts, rounds, steps=None) -> bool:
 
 def check_steps(res, counts, what):
     """The card's work on one batch, held to the result: on one card one
-    round-kernel launch a round run and no ``scored_rows``; on a mesh one
+    round-kernel launch a call of the loop, its rounds the batch's, and
+    no ``scored_rows``; on a mesh one
     ``scored_rows`` launch per committing spec step and shard.  Either
     way the committing steps lie inside the bounds read from the
     result."""
@@ -2171,7 +2296,7 @@ def columnar_restore(dev, h, jobs, smi) -> dict:
     if plans["original"] != plans["restored"] or not plans["original"]:
         errors.append("the batch over the restored store places otherwise")
     for label, row in rows.items():
-        # One round-kernel launch a round, its committing steps the
+        # One round-kernel launch a batch, its committing steps the
         # batch's (before the round kernel: one scored_rows launch a
         # step).
         if row["oracle_routed"] or (
@@ -2196,7 +2321,7 @@ def phase_columnar(dev, nodes=None, n_jobs=100, count=1000, follow_jobs=10,
     and with the default.  Through ``TorchBatchScheduler`` and the
     store-backed ``PlanApplier`` on the card, over a store with the
     mirror and one without: the same plans, no guard mismatch, no node
-    over capacity, one round-kernel launch a round."""
+    over capacity, one round-kernel launch a batch."""
     from nomad_tpu_torch import mock
     from nomad_tpu_torch.ops import batch_sched
     from nomad_tpu_torch.state import columnar
@@ -2255,7 +2380,7 @@ def phase_columnar(dev, nodes=None, n_jobs=100, count=1000, follow_jobs=10,
                     or c["USAGE_GUARD_MISMATCHES"]):
                 errors.append(f"{w['label']} {row['wave']}: oracle or "
                               f"guard mismatch {c}")
-            # One round-kernel launch a round, its committing steps the
+            # One round-kernel launch a batch, its committing steps the
             # batch's (before the round kernel: one scored_rows launch a
             # step).
             if on_card and not one_card_work_ok(row, row["rounds"],
@@ -2571,7 +2696,7 @@ def phase_evals(dev, n_nodes=10_000, n_jobs=100, count=1000):
             raise AssertionError(f"{row['batch']}: oracle_routed "
                                  f"{st.oracle_routed}, device_ran "
                                  f"{st.device_ran}")
-        # One round-kernel launch a round, its committing steps the
+        # One round-kernel launch a batch, its committing steps the
         # batch's (before the round kernel: one scored_rows launch a
         # step).
         if not one_card_work_ok(row, row["rounds"],
@@ -3113,7 +3238,7 @@ def phase_applied(dev, n_nodes=10_000, n_jobs=100, count=1000,
         raise AssertionError(f"mirror counters: {c}")
     if w1["checkpoint"]["mirror"]["device_twin"] != str(torch_device(dev)):
         raise AssertionError(f"mirror twin: {w1['checkpoint']['mirror']}")
-    # One round-kernel launch a round and the kernel's committing steps
+    # One round-kernel launch a batch and the kernel's committing steps
     # the batches' (on the card; the CPU computes the plain version).
     # Before the round kernel: one scored_rows launch a committing step.
     on_card = torch_device(dev).type == "cuda"
@@ -3679,7 +3804,7 @@ def phase_preempt(dev, n_nodes=10_000, n_hi=50, count=1000,
             mr["nodes_over_capacity"]:
         raise AssertionError(f"mixed fleet: {mr}")
     # One eviction-set launch a preempting batch, and on the single card
-    # the round kernel once a round with the batch's committing steps
+    # the round kernel once a batch with the batch's committing steps
     # (before it: scored_rows launches > 0).
     if on_card and (mr["eviction_sets_launches"] != 1
                     or not one_card_work_ok(mr, mr["rounds"],
@@ -3830,12 +3955,14 @@ def server_rounds(srv) -> float:
 def launches_ok(lc, need_launch=True) -> bool:
     """A counted card run of single-card servers (:func:`kernel_counts`
     with the servers' ``rounds`` and ``batch_commit_steps``): one
-    round-kernel launch a round run, the kernel's committing steps the
-    servers' ``batch.commit_steps`` and inside the bounds read from what
-    the batches placed, no ``scored_rows`` launch (before the round
-    kernel: one a committing step), and with ``need_launch`` at least
-    one launch."""
-    return (lc["placement_rounds"] == lc["rounds"]
+    round-kernel launch a call of the placement loop with work, the
+    rounds read from its status the servers' rounds, the kernel's
+    committing steps the servers' ``batch.commit_steps`` and inside the
+    bounds read from what the batches placed, no ``scored_rows`` launch
+    (before the round kernel: one a committing step), and with
+    ``need_launch`` at least one launch."""
+    return (lc["placement_rounds"] == lc["round_calls"]
+            and lc["rounds_run"] == lc["rounds"]
             and lc["committing_spec_steps"] == lc["batch_commit_steps"]
             and lc["scored_rows"] == 0 and steps_in_bounds(lc)
             and (lc["placement_rounds"] > 0 or not need_launch))
@@ -3968,9 +4095,9 @@ def kernel_shapes(shapes):
         shapes["eviction_sets"].add((ask.shape[0], *prio.shape))
         return evict(free, used, denom, prio, sizes, ask, job_prio)
 
-    def round_rec(t, seed):
+    def round_rec(t, seed, max_rounds):
         shapes["placement_rounds"].add(tuple(t["feas"].shape))
-        return round_(t, seed)
+        return round_(t, seed, max_rounds)
 
     fused_score.scored_rows, preempt.eviction_sets = score_rec, evict_rec
     fused_score.placement_round = round_rec
@@ -4965,7 +5092,7 @@ def phase_plan(dev, n_nodes=10_000, n_jobs=100, count=1000, n_new=5,
         raise AssertionError(f"the card's dry-run {differ} differ from the "
                              "CPU's")
     counts = card["counts"]
-    # One round-kernel launch a round, its committing steps the batch's
+    # One round-kernel launch a batch, its committing steps the batch's
     # (before the round kernel: one scored_rows launch a step).
     if on_card and not one_card_work_ok(counts, card["stats"].rounds,
                                         card["stats"].commit_steps):
@@ -5033,6 +5160,7 @@ def phase_plan(dev, n_nodes=10_000, n_jobs=100, count=1000, n_new=5,
             "scored_rows_launches": counts.get("scored_rows_launches", 0),
             "placement_rounds_launches": counts.get(
                 "placement_rounds_launches", 0),
+            "round_calls": counts.get("round_calls", 0),
             "committing_spec_steps": counts.get("committing_spec_steps", 0),
             "batch_commit_steps": st.commit_steps,
             "rounds_run": counts.get("rounds_run", 0),
@@ -5168,7 +5296,7 @@ def phase_fingerprint(dev, n_nodes=10_000, gpu_every=4, n_jobs=10,
         errors.append("a second start() during the session was taken")
     if card["stats"].oracle_routed:
         errors.append(f"oracle_routed {card['stats'].oracle_routed}")
-    # The round kernel in the tracer's trace once a launch, once a round,
+    # The round kernel in the tracer's trace once a launch, once a batch,
     # its committing steps the batch's (before the round kernel: one
     # scored_rows event and launch a committing step).
     if on_card and (len(events) != launches or not one_card_work_ok(
@@ -5595,7 +5723,7 @@ def same_commits(a, b) -> dict:
 
 
 def check_launches(label, counts, need_launch=True) -> list:
-    """One round-kernel launch a round run in one part of a card world's
+    """One round-kernel launch a batch in one part of a card world's
     run, the kernel's committing steps the servers' (at least one launch
     when ``need_launch``; :func:`launches_ok`), and no other kernel's
     launch.  Before the round kernel: one ``scored_rows`` launch a
@@ -7125,11 +7253,12 @@ def loadgen_drill(dev, bdir, smi) -> dict:
             errors.append(f"the drill's bundle lacks {missing}")
     if brk.state != "closed" or brk.trips != 1:
         errors.append(f"breaker {brk.state} after {brk.trips} trips")
-    # The round kernel once a round the drill's batches ran, no other
+    # The round kernel once a batch the drill's batches ran, no other
     # kernel (before the round kernel: one scored_rows launch a step).
     if on_card and (launches["placement_rounds"] <= 0
                     or launches["placement_rounds"]
-                    != launches["rounds_run"]
+                    != launches["round_calls"]
+                    or launches["rounds_run"] <= 0
                     or launches["committing_spec_steps"] <= 0
                     or not steps_in_bounds(launches)
                     or launches["scored_rows"]
@@ -7702,7 +7831,7 @@ def check_agent_world(w, label, sizes, on_card) -> list:
         errors.append(f"{label}: submitted evals not complete: "
                       f"{w['submitted_not_complete'][:5]}")
     la = w["launches"]
-    # One round-kernel launch a round, the kernel's committing steps the
+    # One round-kernel launch a batch, the kernel's committing steps the
     # server's (before the round kernel: one scored_rows launch a step).
     if on_card and not launches_ok(la):
         errors.append(f"{label}: round kernel launches {la}")
@@ -8761,7 +8890,7 @@ def check_client_world(w, label, sizes, on_card) -> list:
             errors.append(f"{label}: {key} networks {nets}, want {ask}")
             break
     la = w["launches"]
-    # One round-kernel launch a round, the kernel's committing steps the
+    # One round-kernel launch a batch, the kernel's committing steps the
     # server's (before the round kernel: one scored_rows launch a step).
     if on_card and not launches_ok(la):
         errors.append(f"{label}: round kernel launches {la}")
@@ -8852,11 +8981,12 @@ def phase_client(dev, sizes=None):
                           f"{a['remote_gpu_attrs']} remote ones")
         gpu = a["gpu_job"]
         lg = gpu["launches"]
-        # The round kernel once a round the job's batch ran (before it:
+        # The round kernel once a batch the job's batch ran (before it:
         # one scored_rows launch a committing step).
         if not (gpu["completed"] and gpu["on_fingerprinted"]
                 and gpu["allocs"] == sizes["gpu_count"]
-                and lg["placement_rounds"] == lg["rounds_run"] > 0
+                and lg["placement_rounds"] == lg["round_calls"] > 0
+                and lg["rounds_run"] > 0
                 and lg["committing_spec_steps"] > 0
                 and steps_in_bounds(lg)
                 and lg["scored_rows"] == 0):
@@ -9534,14 +9664,15 @@ def phase_drills(dev):
     if failed or len(results) != 13:
         raise AssertionError(f"drills failed: {failed}; "
                              f"{[ln for ln in lines if 'FAIL' in ln]}")
-    # The single card's batches run the round kernel once a round; the
+    # The single card's batches run the round kernel once a batch; the
     # mesh's launch scored_rows once per committing step and shard (before
     # the round kernel: scored_rows once a step on one card too); the
     # loops' committing steps are the batches', and the single card's lie
     # inside the bounds read from what its batches placed.
     if (launches["scored_rows"] != mesh_steps or mesh_steps <= 0
-            or launches["placement_rounds"] != launches["rounds_run"]
+            or launches["placement_rounds"] != launches["round_calls"]
             or launches["placement_rounds"] <= 0
+            or launches["rounds_run"] <= 0
             or launches["committing_spec_steps"] != steps
             or not launches["steps_lo"] <= sum(
                 n for n, shards, _ in batches if not shards)
@@ -9982,16 +10113,18 @@ def profile_batch(dev, nodes, jobs, mesh=None):
     device-only trace.  Device busy = the sum of kernel and copy times on
     the card; idle share = 1 - busy / a batch's device time, against the
     traced run's and against the untraced median.  The trace also counts
-    the score kernel's executions on the card, held against the
-    wrapper's launch count for the same run."""
+    the loop kernel's executions on the card, held against the wrapper's
+    launch count for the same run.  Every run goes without the step-bounds
+    recorder (:func:`bare_rounds`), which reads each result back."""
     from nomad_tpu_torch.ops import batch_sched, fused_score
 
     res = {}
     where = {"mesh": mesh} if mesh is not None else {"device": dev}
 
     def run():
-        res["r"] = batch_sched.schedule_batch(nodes, jobs, rng_seed=SEED,
-                                              **where)
+        with bare_rounds():
+            res["r"] = batch_sched.schedule_batch(nodes, jobs, rng_seed=SEED,
+                                                  **where)
 
     plain = []
     for _ in range(3):
@@ -10002,9 +10135,9 @@ def profile_batch(dev, nodes, jobs, mesh=None):
     prof = profiled(run)
     counts = loop_counts()
     # The loop's kernel: scored_rows on a mesh (once a committing step and
-    # shard), the round kernel on one card (once a round).
+    # shard), the round kernel on one card (once a batch).
     kernel = "scored_rows_kernel" if mesh is not None else \
-        "placement_round_kernel"
+        "placement_rounds_kernel"
     launches = counts["scored_rows_launches" if mesh is not None
                       else "placement_rounds_launches"]
     evs = cuda_kernel_events(prof)
@@ -10041,27 +10174,132 @@ def profile_batch(dev, nodes, jobs, mesh=None):
     return row
 
 
+# The stages of the single card's device pass (``kernels.fused_pass``):
+# (stage, module, function), each call wrapped in a profiler range named
+# ``stage:<stage>`` by :func:`device_pass_split`.
+PASS_STAGES = (
+    ("unpack", "xfer", "unpack_device"), ("unpack", "kernels", "dequantize"),
+    ("job_counts", "kernels", "scatter_job_counts"),
+    ("feasibility_matrix", "kernels", "feasibility_matrix"),
+    ("usage", "kernels", "delta_rows"), ("usage", "kernels", "apply_deltas"),
+    ("usage", "kernels", "net_tensors"), ("usage", "kernels", "dp_tensors"),
+    ("rounds", "kernels", "run_placement_rounds"),
+    ("coo_gather", "kernels", "_slots_coo_gather"),
+    ("coo_gather", "kernels", "_compact_coo"),
+    ("pack", "xfer", "pack_device"))
+
+
+def device_pass_split(run) -> dict:
+    """One ``run()`` (a warm config (b) batch 0 on the single card) under
+    a host-and-device trace with each stage of the device pass in a
+    profiler range: every device op in time order with its name, stage,
+    duration and the idle gap before it; per stage its span on the
+    device (the range's device-side annotation), the device time of its
+    ops and the idle gaps before them; the idle gaps' sum and the
+    largest.  An op's stage is the innermost range whose device span
+    holds its start; ``outside`` the ops of no range (the uploads, the
+    seed read, the result fetch)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from nomad_tpu_torch.ops import kernels, xfer
+
+    mods = {"kernels": kernels, "xfer": xfer}
+    saved = []
+
+    def wrap(stage, fn):
+        def staged(*a, **kw):
+            with record_function(f"stage:{stage}"):
+                return fn(*a, **kw)
+        return staged
+
+    with bare_rounds():
+        for stage, mod, name in PASS_STAGES:
+            real = getattr(mods[mod], name)
+            saved.append((mods[mod], name, real))
+            setattr(mods[mod], name, wrap(stage, real))
+        try:
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                run()
+                torch.cuda.synchronize()
+        finally:
+            for mod, name, real in reversed(saved):
+                setattr(mod, name, real)
+    dev_evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    spans = [e for e in dev_evs if e.name.startswith("stage:")]
+    dev_ops = sorted((e for e in dev_evs if not e.name.startswith("stage:")),
+                     key=lambda e: e.time_range.start)
+    if not dev_ops:
+        return {"device_ops": "not measured (no device events in trace)"}
+
+    def stage_of(e):
+        t = e.time_range.start
+        inside = [r for r in spans
+                  if r.time_range.start <= t <= r.time_range.end]
+        if not inside:
+            return "outside"
+        return min(inside, key=lambda r: r.time_range.elapsed_us()
+                   ).name[len("stage:"):]
+
+    stages = {}
+    for r in spans:
+        agg = stages.setdefault(r.name[len("stage:"):], {
+            "span_us": 0.0, "device_us": 0.0, "ops": 0,
+            "idle_before_us": 0.0})
+        agg["span_us"] += r.time_range.elapsed_us()
+    ops, gaps, end = [], [], None
+    for e in dev_ops:
+        st = stage_of(e)
+        us = e.time_range.elapsed_us()
+        gap = 0.0 if end is None else max(0.0, e.time_range.start - end)
+        end = e.time_range.end if end is None else max(end, e.time_range.end)
+        ops.append([e.name[:60], st, us, gap])
+        agg = stages.setdefault(st, {"span_us": 0.0, "device_us": 0.0,
+                                     "ops": 0, "idle_before_us": 0.0})
+        agg["device_us"] += us
+        agg["ops"] += 1
+        agg["idle_before_us"] += gap
+        gaps.append((gap, e.name[:60], st))
+    span = end - dev_ops[0].time_range.start
+    busy = sum(o[2] for o in ops)
+    return {"device_ops": len(ops), "span_us": span, "busy_us": busy,
+            "idle_gaps_us": sum(g for g, _, _ in gaps),
+            "idle_share_of_span": 1.0 - busy / span if span else None,
+            "largest_gaps": [{"us": g, "before": n, "stage": st}
+                             for g, n, st in sorted(gaps, reverse=True)[:8]],
+            "stages": stages, "ops_in_order": ops}
+
+
 def phase_profile(dev):
     """Where the time of config (b)'s first batch goes, on the single card
-    and on a 4-shard mesh of the card."""
+    (with its device pass split by stage, :func:`device_pass_split`) and
+    on a 4-shard mesh of the card."""
     from nomad_tpu_torch import mock
+    from nomad_tpu_torch.ops import batch_sched
     from nomad_tpu_torch.parallel import make_node_mesh
 
     nodes = [strip_node(mock.node()) for _ in range(10_000)]
     jobs = [strip_job(mock.job(), 1000) for _ in range(100)]
-    return {"single": profile_batch(dev, nodes, jobs),
+    single = profile_batch(dev, nodes, jobs)
+    single["device_pass_split"] = device_pass_split(
+        lambda: batch_sched.schedule_batch(nodes, jobs, rng_seed=SEED,
+                                           device=dev))
+    return {"single": single,
             "mesh4": profile_batch(dev, nodes, jobs,
                                    make_node_mesh([dev] * MESH_SHARDS))}
 
 
 def rounds_table_row(rounds, launches) -> dict:
     """The ``kernels`` line's row of the round kernel: its launches on the
-    main path (config (b)'s batches), its largest difference from the
-    eager loop over phase rounds' batches (0: bit for bit), and at config
-    (b) batch 0 its device time per launch (the profiler's median),
-    the eager loop's time for the same rounds (host clock, its inputs
-    made beforehand) per launch, and the bound
-    per launch (the committing steps' bytes over the HBM rate)."""
+    main path (config (b)'s batches, one a batch), its largest difference
+    from the eager loop over phase rounds' batches (0: bit for bit), and
+    at config (b) batch 0 its device time per launch (the profiler's
+    median), the eager loop's time for the same rounds (host clock, its
+    inputs made beforehand) per launch, and the bound per launch (the
+    committing steps' bytes over the HBM rate)."""
     b0 = rounds["batches"][0]
     ks = b0.get("kernel_us_per_launch_profiler") or []
     ms = (statistics.median(ks) / 1e3 if ks

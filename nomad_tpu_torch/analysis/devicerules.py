@@ -8,7 +8,7 @@ counterpart of ``nomad_tpu/analysis/jaxrules.py``.
   ``bool(...)`` or ``float(...)`` applied directly to a tensor
   expression.  Every such site is a sanctioned one, allowlisted with its
   reason (the one result fetch, the forensics fetch, the staged
-  dispatch's sync, the round kernel's status read once a round, the
+  dispatch's sync, the round kernel's status read once a call, the
   mesh loop's per-step reads); anything else is a stealth sync inside
   the device pass.  ``.item()`` and ``.tolist()`` are flagged on a
   tensor only (numpy has them too), and ``.cpu().numpy()`` counts once.

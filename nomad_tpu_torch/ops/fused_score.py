@@ -27,10 +27,10 @@ computes its plain version; for CUDA tensors it launches its kernel or
 raises.  There is no fallback from one to the other.
 
 :func:`placement_round` launches the round kernel
-(``csrc/placement_rounds.cu``, one round of the placement loop, which
-scores with the same device functions); its plain version is the eager
-``kernels.placement_rounds``, and ``kernels.run_placement_rounds``
-picks between them.
+(``csrc/placement_rounds.cu``: every round of the placement loop in one
+cooperative launch over the card, scoring with the same device
+functions); its plain version is the eager ``kernels.placement_rounds``,
+and ``kernels.run_placement_rounds`` picks between them.
 """
 from __future__ import annotations
 
@@ -45,7 +45,8 @@ _U32 = 0xFFFFFFFF
 _JITTER_SCALE = np.float32(1e-3 / (1 << 24))
 
 # Kernel launches made by scored_rows, by masked_score_matrix and by the
-# round kernel's placement_round (the plain versions count nothing).
+# round kernel's placement_round, one a call (the plain versions count
+# nothing).
 LAUNCHES = 0
 MASKED_LAUNCHES = 0
 ROUND_LAUNCHES = 0
@@ -137,7 +138,7 @@ _C_API = {
     "eviction_sets": ("nomad_eviction_sets", [ctypes.c_void_p] * 7 + [
         ctypes.c_int] * 3 + [ctypes.c_void_p] * 5),
     # The round kernel: a pointer to its RoundArgs, and the stream.
-    "placement_rounds": ("nomad_placement_round", [ctypes.c_void_p] * 2),
+    "placement_rounds": ("nomad_placement_rounds", [ctypes.c_void_p] * 2),
 }
 _FNS = {}
 
@@ -276,8 +277,9 @@ _ROUND_TENSORS = (
     "resv_words", "bw_cap", "bw_used", "dyn_free", "port_words",
     "dp_active", "dp_col", "dp_used", "attr", "placements", "commit_scores",
     "commit_coll", "slots", "slot_scores", "slot_coll", "key", "flag",
-    "dp_best", "dp_first", "status")
-_ROUND_SIZES = ("u", "n", "w", "k_attr", "v", "slot_m", "seed")
+    "dp_pick", "grid", "status")
+_ROUND_SIZES = ("u", "n", "w", "k_attr", "v", "slot_m", "max_rounds",
+                "max_blocks", "seed")
 
 
 class _RoundArgs(ctypes.Structure):
@@ -285,9 +287,30 @@ class _RoundArgs(ctypes.Structure):
                 + [(f, ctypes.c_int64) for f in _ROUND_SIZES])
 
 
+# The round kernel's grid scratch (int32 words): three sets of four
+# passes' 256-bin histograms, then per block its count above T, its last
+# pass's 257 suffix sums, its kept distinct_property picks and its
+# min-ask fit.
+_GRID_SHARED_INTS = 3 * 4 * 256
+_GRID_BLOCK_INTS = 1 + 257 + 1 + 1
+
+
+def round_grid_ints(blocks: int) -> int:
+    """The int32 words of the grid scratch for at most ``blocks``
+    blocks."""
+    return _GRID_SHARED_INTS + blocks * _GRID_BLOCK_INTS
+
+
+def round_blocks(dev: torch.device) -> int:
+    """The most blocks the round kernel's grid takes on card ``dev``: one
+    per SM."""
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
 def _round_specs(sz: dict) -> dict:
     """name -> (dtype, shape, alignment) of every round-kernel tensor at
-    the sizes ``sz`` (u, n, w, k_attr, v, slot_m, and j, the job rows)."""
+    the sizes ``sz`` (u, n, w, k_attr, v, slot_m, max_blocks, and j, the
+    job rows)."""
     u, n, m = sz["u"], sz["n"], sz["slot_m"]
     i32, u8, f32 = torch.int32, torch.uint8, torch.float32
     return {
@@ -308,7 +331,8 @@ def _round_specs(sz: dict) -> dict:
         "commit_coll": (i32, (u, n), 4), "slots": (i32, (u, m), 4),
         "slot_scores": (f32, (u, m), 4), "slot_coll": (i32, (u, m), 4),
         "key": (i32, (n,), 4), "flag": (u8, (n,), 1),
-        "dp_best": (i32, (sz["v"],), 4), "dp_first": (i32, (sz["v"],), 4),
+        "dp_pick": (torch.int64, (sz["v"],), 8),
+        "grid": (i32, (round_grid_ints(sz["max_blocks"]),), 4),
         "status": (i32, (4,), 4),
     }
 
@@ -317,15 +341,18 @@ def _round_specs(sz: dict) -> dict:
 _ROUND_GROUPS = {
     "net": ("net_active", "mbits", "dyn_need", "resv_words", "bw_cap",
             "bw_used", "dyn_free", "port_words"),
-    "dp": ("dp_active", "dp_col", "dp_used", "attr", "dp_best", "dp_first"),
+    "dp": ("dp_active", "dp_col", "dp_used", "attr", "dp_pick"),
 }
 
 
 def _round_sizes(t: dict) -> dict:
-    """The sizes of the round-kernel tensors ``t``."""
+    """The sizes of the round-kernel tensors ``t`` (``max_blocks`` from
+    the grid scratch's length)."""
     u, n = t["feas"].shape
     sz = {"u": u, "n": n, "j": t["job_counts"].shape[0], "w": 0,
-          "k_attr": 0, "v": 0, "slot_m": 0}
+          "k_attr": 0, "v": 0, "slot_m": 0,
+          "max_blocks": (t["grid"].numel() - _GRID_SHARED_INTS)
+          // _GRID_BLOCK_INTS}
     if t.get("port_words") is not None:
         sz["w"] = t["port_words"].shape[1]
     if t.get("attr") is not None:
@@ -335,33 +362,39 @@ def _round_sizes(t: dict) -> dict:
     return sz
 
 
-def _round_args(t: dict, sz: dict, seed: int) -> _RoundArgs:
+def _round_args(t: dict, sz: dict, seed: int,
+                max_rounds: int) -> _RoundArgs:
     """The ``RoundArgs`` of tensors ``t`` (missing or None: null) at sizes
     ``sz``."""
     args = _RoundArgs()
     for f in _ROUND_TENSORS:
         x = t.get(f)
         setattr(args, f, x.data_ptr() if x is not None else None)
-    for f in _ROUND_SIZES[:-1]:
-        setattr(args, f, int(sz[f]))
+    for f in _ROUND_SIZES:
+        if f in sz:
+            setattr(args, f, int(sz[f]))
+    args.max_rounds = max_rounds
     args.seed = seed & 0xFFFFFFFF
     return args
 
 
-def placement_round(t: dict, seed: int) -> torch.Tensor:
-    """One launch of the round kernel (``csrc/placement_rounds.cu``): one
-    round of the placement loop over the loop state ``t``, committed in
-    place; returns ``t["status"]``, the round's int32 ``[placed, asks
-    left, any node fits the smallest ask left, committing steps]``, still
-    on the card.
+def placement_round(t: dict, seed: int, max_rounds: int) -> torch.Tensor:
+    """One launch of the round kernel (``csrc/placement_rounds.cu``): the
+    whole placement loop, at most ``max_rounds`` rounds, over the loop
+    state ``t``, committed in place; returns ``t["status"]``, the launch's
+    int32 ``[rounds, committing steps, blocks, keys in shared memory]``,
+    still on the card.
 
     ``t`` maps the kernel's tensor names (``_ROUND_TENSORS``) to CUDA
     tensors of one card, contiguous, of the dtypes and shapes of
-    :func:`_round_specs`; the network group, the distinct_property group,
-    the matrix outputs (without ``slots``) or the slot outputs, and the
-    score outputs may be left out.  Raises on anything else, and
-    ``RuntimeError`` when the launch fails.  There is no CPU route: the
-    plain version is ``kernels.placement_rounds``, the eager loop."""
+    :func:`_round_specs`; ``grid`` holds the grid scratch of
+    :func:`round_grid_ints` for the most blocks the launch may take.  The
+    network group, the distinct_property group, the matrix outputs
+    (without ``slots``) or the slot outputs, and the score outputs may be
+    left out.  Raises on anything else, and ``RuntimeError`` when the
+    launch fails or the card refuses it (too many blocks to keep
+    resident).  There is no CPU route: the plain version is
+    ``kernels.placement_rounds``, the eager loop."""
     global ROUND_LAUNCHES
     feas = t["feas"]
     dev = feas.device
@@ -371,12 +404,15 @@ def placement_round(t: dict, seed: int) -> torch.Tensor:
     u, n = sz["u"], sz["n"]
     if n >= 1 << 31:
         raise ValueError(f"placement_round: {n} nodes exceed int32")
+    if u <= 0 or n <= 0 or sz["max_blocks"] <= 0:
+        raise ValueError(f"placement_round: {u} specs, {n} nodes, "
+                         f"{sz['max_blocks']} blocks")
     if sz["w"] > ROUND_MAX_PORT_WORDS:
         raise ValueError(f"placement_round: {sz['w']} port words, at most "
                          f"{ROUND_MAX_PORT_WORDS}")
     specs = _round_specs(sz)
     required = ["feas", "used", "cap", "denom", "ask", "count", "remaining",
-                "penalty", "dh", "ji", "job_counts", "key", "flag",
+                "penalty", "dh", "ji", "job_counts", "key", "flag", "grid",
                 "status"]
     required += ["slots"] if sz["slot_m"] else ["placements"]
     for group, names in _ROUND_GROUPS.items():
@@ -403,7 +439,7 @@ def placement_round(t: dict, seed: int) -> torch.Tensor:
         u, n, sz["j"], sz["w"], sz["k_attr"], sz["v"], sz["slot_m"],
         scores[0]))
     fn = _fn("placement_rounds")
-    args = _round_args(t, sz, seed)
+    args = _round_args(t, sz, seed, max_rounds)
     with torch.cuda.device(dev):    # the launch goes to the tensors' card
         rc = fn(ctypes.addressof(args),
                 torch.cuda.current_stream(dev).cuda_stream)

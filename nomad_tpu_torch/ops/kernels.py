@@ -7,8 +7,8 @@ single-buffer pass (:func:`fused_pass`), and the launch-signature count
 
 On CUDA tensors the placement rounds run the round kernel
 (``csrc/placement_rounds.cu``, through :func:`run_placement_rounds`):
-one launch a round, every spec of the round inside it, and one read of
-the round's four-int status on the host.  On CPU tensors they run the
+one cooperative launch a call, every round inside it, and one read of
+its four-int status on the host.  On CPU tensors they run the
 kernel's plain version :func:`placement_rounds`, an eager Python loop
 over rounds and specs whose per-commit score is
 :func:`ops.fused_score.scored_rows`: there the reference's ``lax.cond``
@@ -42,7 +42,8 @@ NEG_INF = fused_score.NEG_INF
 COMMIT_STEPS = 0
 DP_HOST_READS = 0
 # Rounds the single card's placement rounds ran (run_placement_rounds,
-# either route): on a card, one round-kernel launch each.
+# either route; on a card read from the round kernel's status, one launch
+# running every round of a call).
 ROUNDS = 0
 
 # -- the launch-signature count (kernels.py:46-89) -----------------------------
@@ -487,9 +488,9 @@ def run_placement_rounds(feas, used0, capacity, denom, ask, count, penalty,
                          slot_m: int = 0, net: NetTensors = None,
                          dp: DPTensors = None) -> PlacementResult:
     """The placement rounds through the round kernel: on CUDA tensors one
-    ``csrc/placement_rounds.cu`` launch a round; on CPU tensors the
-    kernel's plain version, :func:`placement_rounds`.  Same arguments and
-    result, bit for bit."""
+    ``csrc/placement_rounds.cu`` launch a call, every round inside it; on
+    CPU tensors the kernel's plain version, :func:`placement_rounds`.
+    Same arguments and result, bit for bit."""
     global ROUNDS
     if feas.device.type == "cpu":
         result = placement_rounds(
@@ -501,7 +502,8 @@ def run_placement_rounds(feas, used0, capacity, denom, ask, count, penalty,
         result = _kernel_rounds(
             feas, used0, capacity, denom, ask, count, penalty,
             distinct_hosts, job_index, job_counts0, seed, max_rounds,
-            with_scores, slot_m, net, dp, fused_score.placement_round)
+            with_scores, slot_m, net, dp, fused_score.placement_round,
+            fused_score.round_blocks(feas.device))
     else:
         raise ValueError(f"placement rounds: unsupported device "
                          f"{feas.device}")
@@ -511,17 +513,19 @@ def run_placement_rounds(feas, used0, capacity, denom, ask, count, penalty,
 
 def _kernel_rounds(feas, used0, capacity, denom, ask, count, penalty,
                    distinct_hosts, job_index, job_counts0, seed, max_rounds,
-                   with_scores, slot_m, net, dp, launch) -> PlacementResult:
-    """The round loop around the round kernel: the loop state in fresh
-    tensors (``used0``, the job counts and the network and
-    distinct_property state are not written), ``launch(t, seed)`` once a
-    round (``fused_score.placement_round`` on a card; the source built
-    with g++ against a CPU mock of the runtime in
-    ``tests/test_torch_round_source.py``), and one read of the round's
-    status.  The loop condition is
-    :func:`placement_rounds`': placed something, asks left, under
-    ``max_rounds``, and a node fits the smallest ask left (the first
-    round's test here, the next round's at the end of each launch)."""
+                   with_scores, slot_m, net, dp, launch,
+                   max_blocks) -> PlacementResult:
+    """The placement loop as one launch of the round kernel: the loop
+    state in fresh tensors (``used0``, the job counts and the network and
+    distinct_property state are not written), then ``launch(t, seed,
+    max_rounds)`` once (``fused_score.placement_round`` on a card; the
+    source built with g++ against a CPU mock of the runtime in
+    ``tests/test_torch_round_source.py``) on a grid of at most
+    ``max_blocks`` blocks, and one read of its status.  The kernel runs
+    :func:`placement_rounds`' loop condition itself: asks left, a node
+    fits the smallest ask left, placed something in the last round, under
+    ``max_rounds``.  A batch with no spec, no node or no round to run
+    launches nothing."""
     global COMMIT_STEPS
     dev = feas.device
     u_pad, n_pad = feas.shape
@@ -540,6 +544,8 @@ def _kernel_rounds(feas, used0, capacity, denom, ask, count, penalty,
         "ji": job_index.to(i32).contiguous(), "job_counts": own(job_counts0),
         "key": torch.empty(n_pad, dtype=i32, device=dev),
         "flag": torch.empty(n_pad, dtype=torch.uint8, device=dev),
+        "grid": torch.empty(fused_score.round_grid_ints(max_blocks),
+                            dtype=i32, device=dev),
         "status": torch.zeros(4, dtype=i32, device=dev),
     }
     if net is not None:
@@ -551,14 +557,13 @@ def _kernel_rounds(feas, used0, capacity, denom, ask, count, penalty,
                  bw_used=own(net.bw_used), dyn_free=own(net.dyn_free),
                  port_words=own(net.port_words))
     if dp is not None:
-        v_pad = dp.used0.shape[1]
         t.update(dp_active=dp.active.to(torch.uint8).contiguous(),
                  dp_col=dp.col.clamp(0, dp.attr_values.shape[1] - 1)
                  .to(i32).contiguous(),
                  dp_used=own(dp.used0, torch.uint8),
                  attr=dp.attr_values.to(i32).contiguous(),
-                 dp_best=torch.empty(v_pad, dtype=i32, device=dev),
-                 dp_first=torch.empty(v_pad, dtype=i32, device=dev))
+                 dp_pick=torch.empty(dp.used0.shape[1], dtype=torch.int64,
+                                     device=dev))
     if slot_m:
         t["slots"] = torch.full((u_pad, slot_m), -1, dtype=i32, device=dev)
         if with_scores:
@@ -577,21 +582,10 @@ def _kernel_rounds(feas, used0, capacity, denom, ask, count, penalty,
     def one(dtype=i32, fill=0):     # a [1, 1] placeholder output
         return torch.full((1, 1), fill, dtype=dtype, device=dev)
 
-    # The first round's test: asks left, and a node fits the smallest.
-    active = t["remaining"] > 0
-    min_ask = torch.where(active[:, None], t["ask"], 2**30).min(0).values
-    first = torch.stack([
-        t["remaining"].sum().to(i32),
-        (min_ask[None, :] <= t["cap"] - t["used"]).all(1).any().to(i32)])
-    left, fits = first.tolist()
     rounds = steps = 0
-    go = left > 0 and fits and max_rounds > 0
-    while go:
-        status: torch.Tensor = launch(t, seed)
-        rounds += 1
-        placed, left, fits, round_steps = status.tolist()
-        steps += round_steps
-        go = placed > 0 and left > 0 and rounds < max_rounds and fits
+    if u_pad > 0 and n_pad > 0 and max_rounds > 0:
+        status: torch.Tensor = launch(t, seed, max_rounds)
+        rounds, steps, _, _ = status.tolist()
     COMMIT_STEPS += steps
     f32 = torch.float32
     return PlacementResult(

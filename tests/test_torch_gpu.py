@@ -195,7 +195,7 @@ ROUND_OUTPUTS = ("placements", "unplaced", "used_after", "commit_scores",
 def check_round_kernel(x, seed, **opts):
     """The round kernel (``run_placement_rounds`` on the card) against the
     eager loop on the same CUDA tensors: every output bit for bit, the
-    rounds, the committing steps, and one launch a round."""
+    rounds, the committing steps, and one launch a batch."""
     args, extra = port_rounds_args(x, "cuda")
     before = fused_score.ROUND_LAUNCHES
     got = kernels.run_placement_rounds(*args, seed, **opts, **extra)
@@ -203,7 +203,7 @@ def check_round_kernel(x, seed, **opts):
     want = kernels.placement_rounds(*args, seed, **opts, **extra)
     torch.cuda.synchronize()
     assert (got.rounds, got.commit_steps) == (want.rounds, want.commit_steps)
-    assert launches == got.rounds
+    assert launches == 1
     for f in ROUND_OUTPUTS:
         a, b = getattr(got, f), getattr(want, f)
         assert a.shape == b.shape and a.dtype == b.dtype, f
@@ -270,6 +270,58 @@ def test_round_kernel_ends_by_the_min_ask_exit():
 
 
 @pytest.mark.gpu
+def test_round_kernel_grid_over_many_blocks_and_rounds():
+    """A batch on 300,000 nodes: a grid of one block per SM with the keys
+    in shared memory, several rounds inside its one launch, every output
+    equal to the eager loop's."""
+    need_card()
+    x = random_rounds(44, 12, 300_000)
+    x["count"] = np.minimum(x["count"], 900).astype(np.int32)
+    x["count"][0] = 700_000          # more than one round's worth
+    x["dh"][0] = False
+    real, grids = fused_score.placement_round, []
+
+    def rec(t, seed, max_rounds):
+        grids.append(real(t, seed, max_rounds))
+        return grids[-1]
+
+    fused_score.placement_round = rec
+    try:
+        got = check_round_kernel(x, 5, slot_m=1024)
+    finally:
+        fused_score.placement_round = real
+    blocks = fused_score.round_blocks(torch.device("cuda"))
+    assert grids[0].tolist()[2:] == [blocks, 1] and got.rounds > 1
+
+
+@pytest.mark.gpu
+def test_phase_rounds_routes_at_a_small_size():
+    """``chip_smoke.py`` phase ``rounds`` at a small size: one recorded
+    batch replayed through the kernel (one launch) and the eager loop,
+    every output bit for bit, the kernel's time per launch and its grid;
+    then on grids of 1 to 10 blocks, each equal to the eager loop."""
+    need_card()
+    import chip_smoke
+    from nomad_tpu_torch import mock
+    from nomad_tpu_torch.ops import batch_sched
+
+    nodes = [chip_smoke.strip_node(mock.node()) for _ in range(3000)]
+    jobs = [chip_smoke.strip_job(mock.job(), 40) for _ in range(20)]
+    _, calls = chip_smoke.recorded_schedules(
+        lambda: batch_sched.schedule_batch(nodes, jobs, rng_seed=3,
+                                           device="cuda"))
+    row = chip_smoke.round_routes(calls[0], "cuda")
+    assert row["equal"] and row["rounds"] > 0
+    assert row["kernel_route"]["placement_rounds_launches"] == 1
+    assert row["kernel_route"]["round_calls"] == 1
+    assert row["grid_blocks"] == [3] and row["keys_in_shared_memory"] == [True]
+    assert len(row["kernel_ms_cuda_events"]) == 1
+    choice = chip_smoke.round_grid_choice(calls[0], "cuda", reps=2)
+    assert [r["grid_blocks"] for r in choice] == [1, 2, 3, 3]
+    assert all(r["equal"] for r in choice)
+
+
+@pytest.mark.gpu
 def test_round_kernel_wrapper_refuses_bad_inputs():
     """The wrapper launches on a whole, well-typed state and refuses a
     wrong shape, dtype or device, a missing tensor and half a group."""
@@ -286,19 +338,24 @@ def test_round_kernel_wrapper_refuses_bad_inputs():
                 "penalty": z(u, torch.float32), "dh": z(u, torch.uint8),
                 "ji": z(u), "job_counts": z((u, n)), "key": z(n),
                 "flag": z(n, torch.uint8), "status": z(4),
+                "grid": z(fused_score.round_grid_ints(blocks)),
                 "placements": z((u, n))}
 
+    blocks = fused_score.round_blocks(torch.device("cuda"))
     before = fused_score.ROUND_LAUNCHES
-    assert fused_score.placement_round(state(), 1).tolist() == [0, 0, 0, 0]
+    # No asks: the launch's first round test ends it, on one block with
+    # the keys in shared memory.
+    assert fused_score.placement_round(state(), 1, 256).tolist() == [
+        0, 0, 1, 1]
     assert fused_score.ROUND_LAUNCHES == before + 1
     bad = [("used", z((n, 3))), ("penalty", z(u, torch.float64)),
            ("feas", torch.zeros((u, n), dtype=torch.uint8)),
-           ("key", None), ("mbits", z(u))]
+           ("key", None), ("mbits", z(u)), ("grid", z(100))]
     for name, value in bad:
         t = state()
         t[name] = value
         with pytest.raises((ValueError, TypeError)):
-            fused_score.placement_round(t, 1)
+            fused_score.placement_round(t, 1, 256)
     assert fused_score.ROUND_LAUNCHES == before + 1
 
 
@@ -661,7 +718,7 @@ def test_server_path_on_the_card_equals_the_cpu():
     the port's ``Server`` on the card and on the CPU (config (d)'s system
     job, two register waves whose leftovers block, the nodes that unblock
     them, nodes down, a deregistration, the preempting drill): the same
-    committed allocs and eval statuses, one round-kernel launch a round
+    committed allocs and eval statuses, one round-kernel launch a batch
     with the batches' committing steps, one ``eviction_sets`` launch in
     the drill, the
     breaker closed, no nack; every server shut down."""
@@ -740,7 +797,7 @@ def test_annotate_plan_batch_on_the_card_equals_the_cpu():
     """``chip_smoke.py`` phase ``plan`` at a small size: annotate-plan
     evals (count, env and constraint edits, new jobs) in one batch over a
     snapshot, on the card and on the CPU: the same plans, annotations and
-    eval updates, the round kernel once a round and no ``scored_rows``
+    eval updates, the round kernel once a batch and no ``scored_rows``
     launch, its committing steps the batch's and inside the bounds read
     from what it placed, no oracle route, the store untouched;
     ``Server.job_plan`` on the card equals the CPU's."""
@@ -752,8 +809,8 @@ def test_annotate_plan_batch_on_the_card_equals_the_cpu():
     assert got["card_equals_cpu"] and got["store_untouched"]
     assert got["plans"] == got["evals"] == 25
     assert got["oracle_routed"] == 0
-    assert got["placement_rounds_launches"] == got["rounds_run"] \
-        == got["rounds"] > 0
+    assert got["placement_rounds_launches"] == got["round_calls"] > 0
+    assert got["rounds_run"] == got["rounds"] > 0
     assert got["scored_rows_launches"] == 0
     lo, hi = got["steps_bounds"]
     assert 0 < lo <= got["committing_spec_steps"] <= hi
@@ -889,7 +946,7 @@ def test_traced_batch_on_the_card():
 def test_trace_path_on_the_card_equals_the_cpu():
     """``chip_smoke.py`` phase ``trace`` at a small size: complete
     lifecycles, one fetch and the device span per batch, the stream
-    monotone and never shed, a round-kernel launch a round, the drill's
+    monotone and never shed, a round-kernel launch a batch, the drill's
     one eviction launch under its ``batch.preempt``, card = CPU on the
     trace's and the stream's multisets, and the same copies and syncs
     armed and disarmed."""
@@ -912,7 +969,7 @@ def test_cluster_path_on_the_card_equals_the_cpu():
     """``chip_smoke.py`` phase ``cluster`` at a small size: a 3-server
     cluster on the card through the failover script equals the same
     cluster on the CPU after every step, its survivors' fingerprints
-    agree, one round-kernel launch a round on the old leader and on the
+    agree, one round-kernel launch a batch on the old leader and on the
     new one, and follower-read scheduling keeps its
     invariants with the leader killed mid-drain."""
     need_card()
@@ -933,7 +990,7 @@ def test_lifecycle_path_on_the_card_equals_the_cpu():
     """``chip_smoke.py`` phase ``lifecycle`` at a small size: periodic and
     parameterized batch jobs in two namespaces, the quota drill, the
     completions, a force-gc core eval and a second wave on the card equal
-    the CPU's, with one round-kernel launch a round in each wave."""
+    the CPU's, with one round-kernel launch a batch in each wave."""
     need_card()
     import chip_smoke
 
@@ -979,7 +1036,8 @@ def test_loadgen_smoke_on_the_card():
     assert got["baseline"]["coverage"] >= 0.80
     assert got["shape_parity"]["max_abs_err"] <= ATOL
     drill = got["launches"]["breaker_drill"]
-    assert drill["placement_rounds"] == drill["rounds_run"] > 0
+    assert drill["placement_rounds"] == drill["round_calls"] > 0
+    assert drill["rounds_run"] > 0
     assert drill["committing_spec_steps"] > 0 and drill["scored_rows"] == 0
     assert chip_smoke.steps_in_bounds(drill)
 
@@ -989,7 +1047,7 @@ def test_agent_path_on_the_card_equals_the_cpu():
     """``chip_smoke.py`` phase ``agent`` at a small size: HCL jobs through
     the CLI and HTTP into an agent's server on the card place as the same
     jobs through ``Server.job_register`` on the card and as the agent on
-    the CPU, with one round-kernel launch a round and the blocking query
+    the CPU, with one round-kernel launch a batch and the blocking query
     woken by the commit."""
     need_card()
     import chip_smoke
@@ -1006,7 +1064,7 @@ def test_agent_path_on_the_card_equals_the_cpu():
 def test_guard_plane_drills_on_the_card():
     """``chip_smoke.py`` phase ``drills`` on the card: the thirteen drills
     of ``--selfcheck`` (the chaos drill among them) pass, the round
-    kernel runs once a round of the single card's batches, ``scored_rows``
+    kernel runs once a batch of the single card's batches, ``scored_rows``
     once per committing step and shard of the mesh drill's, and the
     sanitized corpus reports ``clean`` or a skip
     with its reason."""
@@ -1017,7 +1075,8 @@ def test_guard_plane_drills_on_the_card():
     assert len(got["drills"]) == 13 and all(got["drills"].values())
     la = got["launches"]
     assert la["scored_rows"] == got["mesh_committing_steps_x_shards"] > 0
-    assert la["placement_rounds"] == la["rounds_run"] > 0
+    assert la["placement_rounds"] == la["round_calls"] > 0
+    assert la["rounds_run"] > 0
     assert la["committing_spec_steps"] == got["committing_steps"]
     assert la["steps_lo"] > 0
     assert got["sanitized_corpus"] == "clean" or got[
@@ -1098,12 +1157,13 @@ def test_gpu_fingerprinted_client_runs_a_gpu_job(tmp_path, monkeypatch):
             a.client_status == "complete" for a in srv.state.allocs(None)),
             60.0)
         assert {a.node_id for a in srv.state.allocs(None)} == {"gpu-node"}
-        # The round kernel once a round, no score kernel, its committing
+        # The round kernel once a batch, no score kernel, its committing
         # steps inside the bounds read from what it placed (before the
         # round kernel: one scored_rows launch a committing step).
         counts = chip_smoke.loop_counts()
         assert counts["placement_rounds_launches"] == counts[
-            "rounds_run"] > 0
+            "round_calls"] > 0
+        assert counts["rounds_run"] > 0
         assert counts["scored_rows_launches"] == 0
         assert counts["committing_spec_steps"] > 0
         assert chip_smoke.steps_in_bounds(counts)
@@ -1169,12 +1229,13 @@ def test_exec_task_through_a_client_of_a_card_server(tmp_path, monkeypatch):
         assert wait_until(lambda: len(srv.state.allocs(None)) == 2 and all(
             a.client_status == "complete" for a in srv.state.allocs(None)),
             60.0)
-        # The round kernel once a round, no score kernel, its committing
+        # The round kernel once a batch, no score kernel, its committing
         # steps inside the bounds read from what it placed (before the
         # round kernel: one scored_rows launch a committing step).
         counts = chip_smoke.loop_counts()
         assert counts["placement_rounds_launches"] == counts[
-            "rounds_run"] > 0
+            "round_calls"] > 0
+        assert counts["rounds_run"] > 0
         assert counts["scored_rows_launches"] == 0
         assert counts["committing_spec_steps"] > 0
         assert chip_smoke.steps_in_bounds(counts)

@@ -137,7 +137,7 @@ def test_round_kernel_refuses_cpu_tensors():
     tensors (the loop picks the plain version before it is reached)."""
     with pytest.raises(ValueError, match="unsupported device"):
         fused_score.placement_round(
-            {"feas": torch.zeros((2, 8), dtype=torch.uint8)}, 1)
+            {"feas": torch.zeros((2, 8), dtype=torch.uint8)}, 1, 256)
 
 
 CALLS = [("device_pass", (1, 2)), ("device_pass", (1, 2)),
